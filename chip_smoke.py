@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch port (``deepspeed_tpu_torch``).
+
+Run from the repository root on a machine with one sm_90 card and nvcc:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. build   — compile every hand-written CUDA kernel from the sources in
+               the checkout (``ops/build.py``), print the build seconds;
+  2. kernels — run each kernel at Llama-3-8B attention shapes (nh 32,
+               nkv 8, hd 128, block size 16; shuffled block tables,
+               ragged contexts including 0, prefill Tq 16 and 128 with a
+               dead segment), hold it against its plain PyTorch version
+               in fp32 and bf16, and time kernel, plain version and a
+               PyTorch library yardstick with CUDA events;
+  3. serve   — ``InferenceEngineV2`` over ``get_model("llama3-8b")`` at
+               full width and depth with seeded bf16 weights: 8 requests
+               (64-512 prompt tokens, two sharing a 256-token prefix),
+               64 new tokens each, through ``put`` and ``generate_all``.
+               The kernels' launch counts are read around this run. A
+               second engine from the same seed must give identical
+               streams, and the paged prefill path must agree with the
+               plain gather path on one prefill batch. A third run of
+               the same workload under torch.profiler gives the device
+               time by kernel family and the device's idle share.
+Then it prints the kernels line, the serve and profile lines, the card's
+name and power limit (nvidia-smi), and, last, the device line.
+
+Exits non-zero with no result when there is no CUDA device or when the
+package is not beside it.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# kernel vs plain tolerances (max-abs). fp32: both sum in fp32 in
+# different orders. bf16: both round an fp32 result to bf16 once;
+# outputs are convex mixes of unit-normal V rows (|out| up to ~4), where
+# one bf16 step is 2**-6 = 0.0156.
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# kernel-path vs gather-path last-row logits (bf16, 32 layers): the
+# gather path rounds scores and probabilities to bf16 where the kernel
+# keeps fp32, a ~2**-8 relative difference per layer in the attention
+# output that the residual stream carries to the logits
+LOGIT_TOL_REL = 0.05
+
+NH, NKV, HD, BS = 32, 8, 128, 16
+KV_BLOCKS, MAX_BLOCKS, MAX_SEQS, MAX_TOKENS = 2048, 48, 16, 256
+NEW_TOKENS, DECODE_STEPS, SEED = 64, 8, 0
+
+
+def fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg):
+    print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
+
+
+def card_identity():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip()
+
+
+# -- timing ------------------------------------------------------------------
+
+
+class Timer:
+    """Per-launch CUDA-event timing with the L2 cache flushed before each
+    launch (the main path finds every layer's pool cold)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush_buf = torch.empty(256 << 20, dtype=torch.uint8,
+                                     device="cuda")
+
+    def ms(self, fn, iters=10, warmup=2):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            self.flush_buf.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def bound(bytes_moved, flops, dtype_name):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# -- phase 2: kernels ----------------------------------------------------------
+
+
+def make_pool(torch, rng, dtype, S):
+    kv = torch.from_numpy(rng.standard_normal(
+        (KV_BLOCKS, BS, 2, NKV, HD), np.float32)).to("cuda", dtype)
+    bt = torch.from_numpy(rng.permutation(KV_BLOCKS - 1)[:S * MAX_BLOCKS]
+                          .reshape(S, MAX_BLOCKS).astype(np.int32)).cuda()
+    return kv, bt
+
+
+def dense_kv(torch, kv, bt, lmax):
+    """Each slot's pages gathered dense, heads expanded to NH:
+    K, V [S, NH, lmax, HD] (the library yardstick's input)."""
+    S = bt.shape[0]
+    g = kv[bt.long()].reshape(S, -1, 2, NKV, HD)[:, :lmax]
+    k = g[:, :, 0].permute(0, 2, 1, 3).repeat_interleave(NH // NKV, dim=1)
+    v = g[:, :, 1].permute(0, 2, 1, 3).repeat_interleave(NH // NKV, dim=1)
+    return k.contiguous(), v.contiguous()
+
+
+def check_decode(torch, pa, timer, dtype, S=MAX_SEQS):
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(10)
+    kv, bt = make_pool(torch, rng, dtype, S)
+    ctx_np = rng.integers(1, MAX_BLOCKS * BS + 1, S).astype(np.int32)
+    ctx_np[3] = 0                      # dead slot
+    ctx_np[5] = MAX_BLOCKS * BS        # every page of the row
+    ctx = torch.from_numpy(ctx_np).cuda()
+    q = torch.from_numpy(rng.standard_normal((S, NH, HD), np.float32)).to(
+        "cuda", dtype)
+    scale = HD ** -0.5
+    out = pa.paged_decode_attention(q, kv, bt, ctx)
+    ref = pa.paged_decode_attention_plain(q, kv, bt, ctx, scale)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all() or not torch.all(out[3] == 0):
+        fail(f"paged_decode {dtype}: non-finite output or live dead slot")
+    err = (out.float() - ref.float()).abs().max().item()
+    name = str(dtype).split(".")[-1]
+    if err > TOL[name]:
+        fail(f"paged_decode {name}: max-abs {err} > {TOL[name]}")
+    res = {"max_abs_err": err}
+    if dtype == torch.bfloat16:
+        itm = q.element_size()
+        sum_ctx = int(ctx_np.sum())
+        nbytes = (2 * q.numel() * itm + sum_ctx * 2 * NKV * HD * itm
+                  + bt.numel() * 4 + S * 4)
+        flops = 4 * NH * HD * sum_ctx
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, name)
+        res["ms"] = timer.ms(lambda: pa.paged_decode_attention(
+            q, kv, bt, ctx))
+        res["plain_ms"] = timer.ms(lambda: pa.paged_decode_attention_plain(
+            q, kv, bt, ctx, scale), iters=3, warmup=1)
+        lmax = int(ctx_np.max())
+        k, v = dense_kv(torch, kv, bt, lmax)
+        mask = (torch.arange(lmax, device="cuda")[None, :]
+                < ctx[:, None])[:, None, None, :]
+        res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask))
+        res["shape"] = {"S": S, "sum_ctx": sum_ctx, "max_pages": MAX_BLOCKS}
+    return res
+
+
+def check_prefill(torch, pa, timer, dtype, tq, S):
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(20 + tq)
+    kv, bt = make_pool(torch, rng, dtype, S)
+    pos0_np = rng.integers(0, MAX_BLOCKS * BS - tq, S).astype(np.int32)
+    nreal = np.full(S, tq, np.int32)
+    nreal[-1] = max(1, tq - 5)         # padded rows
+    pos0_np[1], nreal[1] = 0, 0        # dead segment
+    ctx_np = pos0_np + nreal
+    pos0 = torch.from_numpy(pos0_np).cuda()
+    ctx = torch.from_numpy(ctx_np).cuda()
+    q = torch.from_numpy(rng.standard_normal((S, tq, NH, HD),
+                                             np.float32)).to("cuda", dtype)
+    scale = HD ** -0.5
+    out = pa.paged_prefill_attention(q, kv, bt, pos0, ctx)
+    ref = pa.paged_prefill_attention_plain(q, kv, bt, pos0, ctx, scale)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all() or not torch.all(out[1] == 0):
+        fail(f"paged_prefill {dtype} tq={tq}: non-finite or live dead seg")
+    err = (out.float() - ref.float()).abs().max().item()
+    name = str(dtype).split(".")[-1]
+    if err > TOL[name]:
+        fail(f"paged_prefill {name} tq={tq}: max-abs {err} > {TOL[name]}")
+    res = {"max_abs_err": err}
+    if dtype == torch.bfloat16:
+        itm = q.element_size()
+        qi = np.arange(tq)[None, :]
+        vis = np.clip(np.minimum(pos0_np[:, None] + qi + 1,
+                                 ctx_np[:, None]), 0, None)
+        vis[ctx_np == 0] = 0
+        nbytes = (2 * q.numel() * itm + int(ctx_np.sum()) * 2 * NKV * HD
+                  * itm + bt.numel() * 4 + 2 * S * 4)
+        flops = 4 * NH * HD * int(vis.sum())
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, name)
+        res["ms"] = timer.ms(lambda: pa.paged_prefill_attention(
+            q, kv, bt, pos0, ctx))
+        res["plain_ms"] = timer.ms(lambda: pa.paged_prefill_attention_plain(
+            q, kv, bt, pos0, ctx, scale), iters=3, warmup=1)
+        lmax = int(ctx_np.max())
+        k, v = dense_kv(torch, kv, bt, lmax)
+        cols = torch.arange(lmax, device="cuda")
+        qpos = pos0[:, None] + torch.arange(tq, device="cuda")[None, :]
+        mask = ((cols[None, None, :] <= qpos[:, :, None])
+                & (cols[None, None, :] < ctx[:, None, None]))[:, None]
+        qt = q.transpose(1, 2).contiguous()
+        res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+            qt, k, v, attn_mask=mask))
+        res["shape"] = {"S": S, "tq": tq, "sum_ctx": int(ctx_np.sum()),
+                        "visible_cols": int(vis.sum())}
+    return res
+
+
+# -- phase 3: serve ----------------------------------------------------------
+
+
+def prompts_for(seed):
+    """8 prompts of 64-512 tokens; uid 0 and uid 7 share their first 256
+    tokens. uid 7 is submitted after uid 0's prefix is in the cache."""
+    rng = np.random.default_rng(seed)
+    lens = [448, 64, 96, 160, 224, 288, 512, 320]
+    prompts = [rng.integers(0, 128256, n).astype(np.int32) for n in lens]
+    prompts[7][:256] = prompts[0][:256]
+    return prompts
+
+
+def serve_once(torch, zoo, InferenceEngineV2, profile=False):
+    model = zoo.get_model("llama3-8b", device="cuda", seed=SEED)
+    eng = InferenceEngineV2(model, kv_blocks=KV_BLOCKS, kv_block_size=BS,
+                            max_tokens_per_step=MAX_TOKENS,
+                            max_seqs_per_step=MAX_SEQS,
+                            max_blocks_per_seq=MAX_BLOCKS,
+                            decode_steps=DECODE_STEPS)
+    prompts = prompts_for(SEED + 1)
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+        prof.__enter__()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.put(list(range(7)), prompts[:7], max_new_tokens=NEW_TOKENS)
+    out = {}
+    # one round prefills uid 0's first 256 tokens (16 full blocks), which
+    # the prefix cache then offers to uid 7
+    for uid, toks in eng.serve_step().items():
+        out.setdefault(uid, []).extend(toks)
+    eng.put([7], prompts[7:], max_new_tokens=NEW_TOKENS)
+    for uid, toks in eng.generate_all().items():
+        out.setdefault(uid, []).extend(toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        return out, wall, prof
+    return model, eng, out, wall, prompts
+
+
+def device_breakdown(torch, prof, wall_s, generated):
+    """Device time of the profiled serve run by kernel family, the union
+    of busy intervals, and the idle share of the host wall time."""
+    from torch.autograd import DeviceType
+
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return {"device_time_measured": False}
+    fams = {}
+    spans = []
+    for e in kern:
+        n = e.name.lower()
+        fam = ("paged_decode" if "paged_decode" in n else
+               "paged_prefill" if "paged_prefill" in n else
+               "matmul" if any(k in n for k in ("gemm", "xmma", "cutlass",
+                                                "cublas", "matmul",
+                                                "nvjet")) else
+               "copy" if "memcpy" in n or "memset" in n else "other")
+        us = e.time_range.end - e.time_range.start
+        f = fams.setdefault(fam, {"ms": 0.0, "kernels": 0})
+        f["ms"] += us / 1e3
+        f["kernels"] += 1
+        spans.append((e.time_range.start, e.time_range.end))
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return {"device_time_measured": True, "wall_s": wall_s,
+            "device_busy_s": busy / 1e6,
+            "device_idle_share": 1.0 - busy / 1e6 / wall_s,
+            "kernels": len(kern),
+            "kernels_per_generated_token": len(kern) / generated,
+            "by_family": fams,
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+
+
+def check_paths_agree(torch, model_runner, model, prompts):
+    """One 128-token prefill batch through the paged prefill kernel and
+    through the plain gather path, each on its own fresh pool."""
+    cfg, params = model.config, model.params()
+    tq, nblk = 128, 8
+    toks = torch.from_numpy(prompts[5][:tq]).cuda()
+    bt = torch.arange(nblk, dtype=torch.int32, device="cuda")[None]
+    pools = [torch.zeros((cfg.num_layers, nblk + 1, BS, 2, NKV, HD),
+                         dtype=cfg.dtype, device="cuda") for _ in range(2)]
+    i32 = dict(dtype=torch.int32, device="cuda")
+    lg_k, _ = model_runner.ragged_prefill_forward(
+        cfg, params, pools[0], toks[None], torch.zeros(1, **i32),
+        torch.full((1,), tq, **i32), bt)
+    lg_g, _ = model_runner.ragged_forward(
+        cfg, params, pools[1], toks, torch.zeros(tq, **i32),
+        torch.arange(tq, **i32), bt, tq)
+    a, b = lg_k[0, -1], lg_g[-1]
+    if a.shape != (cfg.vocab_size,) or not (torch.isfinite(a).all()
+                                            and torch.isfinite(b).all()):
+        fail("prefill/gather logits: wrong shape or non-finite")
+    diff = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    if diff > LOGIT_TOL_REL * scale:
+        fail(f"prefill kernel path vs gather path: max-abs {diff} > "
+             f"{LOGIT_TOL_REL} x max|logit| {scale}")
+    return {"max_abs_diff": diff, "max_abs_logit": scale,
+            "argmax_equal": bool(a.argmax() == b.argmax())}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        log("no CUDA device (torch.cuda.is_available() is False)")
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepspeed_tpu_torch.inference import InferenceEngineV2, model_runner
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_identity()
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    secs = build.build()
+    log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s)")
+    for line in build.build_log("paged_attention").splitlines():
+        if "registers" in line or "spill" in line:
+            log("ptxas: " + line.strip())
+
+    # 2. kernels
+    timer = Timer(torch)
+    dec = {"float32": check_decode(torch, pa, timer, torch.float32),
+           "bfloat16": check_decode(torch, pa, timer, torch.bfloat16)}
+    pre = {}
+    for tq, S in ((128, 4), (16, MAX_SEQS)):
+        pre[tq] = {"float32": check_prefill(torch, pa, timer, torch.float32,
+                                            tq, S),
+                   "bfloat16": check_prefill(torch, pa, timer,
+                                             torch.bfloat16, tq, S)}
+    del timer
+    log("kernels agree with their plain versions")
+
+    # 3. serve: run 1 warms up and is the determinism reference; run 2
+    # is the measured main path, with the launch counts read around it
+    model, eng, ref_out, _, _ = serve_once(torch, zoo, InferenceEngineV2)
+    del model, eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    model, eng, out, wall, prompts = serve_once(torch, zoo,
+                                                InferenceEngineV2)
+    launches = dict(pa.LAUNCHES)
+    if sorted(out) != list(range(8)) or any(len(v) != NEW_TOKENS
+                                            for v in out.values()):
+        fail(f"serve: token counts {[len(out.get(u, [])) for u in range(8)]}")
+    if out != ref_out:
+        fail("serve: a second engine from the same seed gave other streams")
+    st = eng.stats
+    if st["prefill_kernel_steps"] <= 0 or st["decode_kernel_steps"] <= 0:
+        fail(f"serve: kernel steps {st}")
+    if min(launches.values()) <= 0:
+        fail(f"serve: a kernel was never launched on the main path: "
+             f"{launches}")
+    agree = check_paths_agree(torch, model_runner, model, prompts)
+    ttft = sorted(eng.latency["ttft_s"])
+    gen = sum(len(v) for v in out.values())
+    prompt_tokens = sum(len(p) for p in prompts)
+    serve = {
+        "model": "llama3-8b", "layers": model.config.num_layers,
+        "dtype": "bfloat16", "requests": 8, "prompt_tokens": prompt_tokens,
+        "generated_tokens": gen, "wall_s": wall,
+        "generated_tokens_per_s": gen / wall,
+        "total_tokens_per_s": (gen + prompt_tokens) / wall,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "decode_token_p50_s": float(np.median(eng.latency["decode_token_s"])),
+        "prefill_kernel_steps": st["prefill_kernel_steps"],
+        "decode_kernel_steps": st["decode_kernel_steps"],
+        "burst_steps": st["burst_steps"],
+        "prefill_gather_fallbacks": st["prefill_gather_fallbacks"],
+        "fallback_reasons": st["fallback_reasons"],
+        "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "prefill_vs_gather": agree,
+        "deterministic_rerun": True,
+    }
+    # a third run of the same workload under torch.profiler: where the
+    # device time goes and how long the device sits idle
+    del model, eng
+    torch.cuda.empty_cache()
+    prof_out, prof_wall, prof = serve_once(torch, zoo, InferenceEngineV2,
+                                           profile=True)
+    if prof_out != ref_out:
+        fail("serve: the profiled run gave other streams")
+    profile = device_breakdown(torch, prof, prof_wall, gen)
+    del prof
+
+    def entry(name, replaces, res, other):
+        b = res["bfloat16"]
+        return {"name": name, "route": "cuda",
+                "source": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": b["max_abs_err"],
+                "max_abs_err_fp32": res["float32"]["max_abs_err"],
+                "ms": b["ms"], "plain_ms": b["plain_ms"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": b["library_ms"],
+                "library_call": "scaled_dot_product_attention on K/V "
+                                "gathered dense beforehand (heads expanded, "
+                                "boolean mask)",
+                "dtype": "bfloat16", "shape": b["shape"], "other": other}
+
+    other_pre = {k: v for k, v in pre[16]["bfloat16"].items()}
+    other_pre["max_abs_err_fp32"] = pre[16]["float32"]["max_abs_err"]
+    kernels = {"kernels": [
+        entry("paged_decode",
+              "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec, None),
+        entry("paged_prefill",
+              "deepspeed_tpu/ops/pallas/paged_attention.py:117", pre[128],
+              other_pre),
+    ]}
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"serve_profile": profile}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,431 @@
+// Paged decode and paged (chunked) prefill attention for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of deepspeed_tpu/ops/pallas/paged_attention.py:
+//   paged_decode_kernel  <- _kernel         (:77,  pallas_call in paged_decode_attention  :312)
+//   paged_prefill_kernel <- _prefill_kernel (:117, pallas_call in paged_prefill_attention :238)
+//
+// What they compute (the TPU kernels' function, not their block structure):
+// each (sequence, kv head) walks its block-table pages in ascending order
+// and folds each page into an fp32 online softmax (running max m, running
+// denominator l, weighted-value accumulator acc), with NEG_INF = -1e30 for
+// masked scores and an exact 0 for masked probabilities (_fold_page :38-63).
+// Column col is visible to a query row at absolute position qpos when
+// col <= qpos and col < ctx. Rows that saw nothing (l == 0) give 0.
+// Decode is the one-query case: qpos = ctx - 1, so ctx == 0 is a dead slot.
+//
+// Layouts (the JAX package's, unchanged):
+//   pool  [nb, bs, 2, nkv, hd]: K in plane 0, V in plane 1. Consecutive
+//         tokens' K rows are 2*nkv*hd elements apart, and a token's V row
+//         lies nkv*hd elements after its K row.
+//   decode  q/out [S, nh, hd];      prefill q/out [S, Tq, nh, hd]
+//   block_table [S, Bm] int32; ctx [S] int32; pos0 [S] int32 (prefill)
+// Query rows of one kv head are laid out query-major, group-minor
+// (row r -> query r / g, head kvh * g + r % g, g = nh / nkv), as the TPU
+// wrapper's transpose does (:202-206).
+//
+// Design. One thread block per (sequence, kv head[, tile of 64 query
+// rows]). The block holds its rows' q (pre-scaled, fp32) and acc in shared
+// memory and reads K/V in chunks of whole pages (64 tokens for decode, 32
+// for prefill) with 16-byte loads, converting to fp32 once. Inside a chunk
+// the pages fold one at a time in ascending order, in the same order of
+// operations as the plain PyTorch version (ops/paged_attention.py): scores
+// for all columns of the chunk (prefill: 4 x 2 register tiles of
+// (row, column) per thread; decode: one pair per thread), then per row (a
+// warp per row, lanes over the page's columns) and per page
+// m_new = max(m, max_t s), alpha = exp(m - m_new), p = exp(s - m_new) or 0,
+// l = alpha * l + sum p, acc = acc * alpha + p @ V. Pages past the last
+// column a tile can see are not read at all; folding a fully masked page
+// leaves (m, l, acc) unchanged, so skipping it is exact.
+// All arithmetic is scalar fp32 FMA on the CUDA cores; no tensor cores,
+// no TMA, no split over pages. That is the simple first version.
+//
+// Bound on the H100 (80 GB HBM3 at 3.35 TB/s; 989 TFLOP/s bf16 dense):
+//   decode reads sum(ctx) * 2 * nkv * hd elements of K/V per layer and does
+//   4 * nh * hd flops per visible column: about one flop per byte, so it is
+//   memory-bound.
+//   prefill reads each segment's q and K/V and writes its output once, and
+//   does 4 * nh * hd flops per visible (query, column) pair: at Tq 128 and
+//   contexts of a few hundred tokens that is ~190 flops per byte, under
+//   the card's ~295 ridge, so bytes bound it; long contexts cross into
+//   operations. Scalar fp32 FMAs reach a small share of either bound.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+struct Params {
+  const void* q;
+  const void* kv;
+  const int* block_table;
+  const int* pos0;  // null for decode
+  const int* ctx;
+  void* out;
+  int S, tq, nh, nkv, hd, nb, bs, Bm;
+  int rows;         // query rows per thread block
+  int chunk_pages;  // pages read per chunk
+  float scale;
+};
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* src, float* dst) {
+  constexpr int VEC = 16 / sizeof(T);
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const T* h = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) dst[i] = to_f32(h[i]);
+}
+
+// Attend query rows [row0, row0 + p.rows) of sequence s, kv head kvh.
+// Each thread computes TR x TC scores and TR x TD accumulator entries at
+// a time (register tiles); p.rows % TR, the chunk % TC and hd % TD must
+// be 0 (the host picks the tiles).
+template <typename T, int TR, int TC, int TD>
+__device__ void attend_rows(const Params& p, int s, int kvh, int row0,
+                            int pos0, int ctx) {
+  // Shared memory, in floats: q, acc, K (rows padded by one float so that
+  // threads reading different K rows hit different banks), V, scores,
+  // per-page alpha, m, l; then qpos as ints. smem_bytes() sizes it.
+  extern __shared__ float smem[];
+  const int R = p.rows, hd = p.hd, bs = p.bs;
+  const int g = p.nh / p.nkv;
+  const int CH = p.chunk_pages * bs;
+  const int kstride = hd + 1;
+  float* qs = smem;                        // [R][hd]
+  float* acc = qs + (size_t)R * hd;        // [R][hd]
+  float* ks = acc + (size_t)R * hd;        // [CH][hd + 1]
+  float* vs = ks + (size_t)CH * kstride;   // [CH][hd]
+  float* sc = vs + (size_t)CH * hd;        // [R][CH]
+  float* alpha = sc + (size_t)R * CH;      // [chunk_pages][R]
+  float* m = alpha + (size_t)p.chunk_pages * R;  // [R]
+  float* l = m + R;                        // [R]
+  int* qpos = reinterpret_cast<int*>(l + R);     // [R]
+
+  const T* q = static_cast<const T*>(p.q);
+  const T* kv = static_cast<const T*>(p.kv);
+  T* out = static_cast<T*>(p.out);
+  const int* bt = p.block_table + (size_t)s * p.Bm;
+  const int total_rows = p.tq * g;
+  const size_t tok_stride = (size_t)2 * p.nkv * hd;
+  const size_t v_off = (size_t)p.nkv * hd;
+
+  for (int e = threadIdx.x; e < R * hd; e += blockDim.x) {
+    const int r = e / hd, d = e % hd, gr = row0 + r;
+    float v = 0.f;
+    if (gr < total_rows) {
+      const size_t off =
+          (((size_t)s * p.tq + gr / g) * p.nh + kvh * g + gr % g) * hd + d;
+      v = to_f32(q[off]) * p.scale;
+    }
+    qs[e] = v;
+    acc[e] = 0.f;
+  }
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int gr = row0 + r;
+    qpos[r] = gr < total_rows ? pos0 + gr / g : -1;  // -1: sees nothing
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+  }
+  // the last column any row of this tile can see; columns past the
+  // block table's Bm pages are never visited (as in the TPU kernel's grid)
+  const int last_row = min(row0 + R, total_rows) - 1;
+  const int col_end =
+      last_row < row0 ? 0
+                      : min(min(ctx, pos0 + last_row / g + 1), p.Bm * bs);
+  __syncthreads();
+
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec_ok =
+      hd % VEC == 0 && reinterpret_cast<uintptr_t>(kv) % 16 == 0;
+  for (int c0 = 0; c0 < col_end; c0 += CH) {
+    const int ncols = min(CH, col_end - c0);
+    // 1. K/V of this chunk's columns -> fp32 shared memory (zeros past
+    //    the last visible column, so that 0 * V stays 0)
+    if (vec_ok) {
+      const int vpr = hd / VEC;
+      for (int e = threadIdx.x; e < CH * vpr; e += blockDim.x) {
+        const int c = e / vpr, d0 = (e % vpr) * VEC;
+        float kf[VEC], vf[VEC];
+        if (c < ncols) {
+          const int col = c0 + c;
+          const int page = min(max(bt[col / bs], 0), p.nb - 1);
+          const size_t base = ((size_t)page * bs + col % bs) * tok_stride +
+                              (size_t)kvh * hd + d0;
+          load_vec<T>(kv + base, kf);
+          load_vec<T>(kv + base + v_off, vf);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) kf[i] = vf[i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          ks[c * kstride + d0 + i] = kf[i];
+          vs[c * hd + d0 + i] = vf[i];
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < CH * hd; e += blockDim.x) {
+        const int c = e / hd, d = e % hd;
+        float kf = 0.f, vf = 0.f;
+        if (c < ncols) {
+          const int col = c0 + c;
+          const int page = min(max(bt[col / bs], 0), p.nb - 1);
+          const size_t base = ((size_t)page * bs + col % bs) * tok_stride +
+                              (size_t)kvh * hd + d;
+          kf = to_f32(kv[base]);
+          vf = to_f32(kv[base + v_off]);
+        }
+        ks[c * kstride + d] = kf;
+        vs[c * hd + d] = vf;
+      }
+    }
+    __syncthreads();
+
+    // 2. scores q . k for every (row, column) of the chunk, NEG_INF where
+    //    the column is not visible; each thread a TR x TC tile of them
+    //    (TC adjacent columns, so a warp's K reads hit distinct banks)
+    const int ctiles = CH / TC;
+    for (int tile = threadIdx.x; tile < (R / TR) * ctiles;
+         tile += blockDim.x) {
+      const int r0 = (tile / ctiles) * TR, cc0 = (tile % ctiles) * TC;
+      float a[TR][TC];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) a[i][j] = 0.f;
+      for (int d = 0; d < hd; ++d) {
+        float qv[TR], kc[TC];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) qv[i] = qs[(size_t)(r0 + i) * hd + d];
+#pragma unroll
+        for (int j = 0; j < TC; ++j)
+          kc[j] = ks[(size_t)(cc0 + j) * kstride + d];
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < TC; ++j) a[i][j] = fmaf(qv[i], kc[j], a[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const int r = r0 + i, col = c0 + cc0 + j;
+          sc[(size_t)r * CH + cc0 + j] =
+              (col < ctx && col <= qpos[r]) ? a[i][j] : NEG_INF;
+        }
+    }
+    __syncthreads();
+
+    // 3. online softmax, one warp per row (lanes over the page's
+    //    columns), pages in ascending order; the scores are overwritten
+    //    with the probabilities
+    const int npages = (ncols + bs - 1) / bs;
+    const int lane = threadIdx.x % 32;
+    for (int r = threadIdx.x / 32; r < R; r += blockDim.x / 32) {
+      float mr = m[r], lr = l[r];
+      for (int pg = 0; pg < npages; ++pg) {
+        float* srow = sc + (size_t)r * CH + pg * bs;
+        float mc = NEG_INF;
+        for (int t = lane; t < bs; t += 32) mc = fmaxf(mc, srow[t]);
+        mc = warp_max(mc);
+        const float mn = fmaxf(mr, mc);
+        const float a = expf(mr - mn);
+        float sum = 0.f;
+        for (int t = lane; t < bs; t += 32) {
+          const int col = c0 + pg * bs + t;
+          const float pv =
+              (col < ctx && col <= qpos[r]) ? expf(srow[t] - mn) : 0.f;
+          srow[t] = pv;
+          sum += pv;
+        }
+        lr = a * lr + warp_sum(sum);
+        mr = mn;
+        if (lane == 0) alpha[pg * R + r] = a;
+      }
+      if (lane == 0) {
+        m[r] = mr;
+        l[r] = lr;
+      }
+    }
+    __syncthreads();
+
+    // 4. acc = acc * alpha + p @ V, page by page; each thread a TR x TD
+    //    tile of (row, d), V read TD floats at a time
+    const int dtiles = hd / TD;
+    for (int tile = threadIdx.x; tile < (R / TR) * dtiles;
+         tile += blockDim.x) {
+      const int r0 = (tile / dtiles) * TR, d0 = (tile % dtiles) * TD;
+      float a[TR][TD];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TD; ++j) a[i][j] = acc[(size_t)(r0 + i) * hd + d0 + j];
+      for (int pg = 0; pg < npages; ++pg) {
+        float pv[TR][TD];
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < TD; ++j) pv[i][j] = 0.f;
+        for (int t = 0; t < bs; ++t) {
+          const int c = pg * bs + t;
+          float vv[TD];
+          if constexpr (TD == 4) {
+            const float4 v4 =
+                *reinterpret_cast<const float4*>(vs + (size_t)c * hd + d0);
+            vv[0] = v4.x;
+            vv[1] = v4.y;
+            vv[2] = v4.z;
+            vv[3] = v4.w;
+          } else {
+#pragma unroll
+            for (int j = 0; j < TD; ++j) vv[j] = vs[(size_t)c * hd + d0 + j];
+          }
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            const float pr = sc[(size_t)(r0 + i) * CH + c];
+#pragma unroll
+            for (int j = 0; j < TD; ++j) pv[i][j] = fmaf(pr, vv[j], pv[i][j]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float al = alpha[pg * R + r0 + i];
+#pragma unroll
+          for (int j = 0; j < TD; ++j) a[i][j] = a[i][j] * al + pv[i][j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TD; ++j)
+          acc[(size_t)(r0 + i) * hd + d0 + j] = a[i][j];
+    }
+    __syncthreads();
+  }
+
+  for (int e = threadIdx.x; e < R * hd; e += blockDim.x) {
+    const int r = e / hd, d = e % hd, gr = row0 + r;
+    if (gr < total_rows) {
+      float lr = l[r];
+      if (lr == 0.f) lr = 1.f;  // rows that saw nothing: acc is 0
+      const size_t off =
+          (((size_t)s * p.tq + gr / g) * p.nh + kvh * g + gr % g) * hd + d;
+      out[off] = from_f32<T>(acc[e] / lr);
+    }
+  }
+}
+
+template <typename T>
+__global__ void paged_decode_kernel(Params p) {
+  const int kvh = blockIdx.x, s = blockIdx.y;
+  const int ctx = p.ctx[s];
+  attend_rows<T, 1, 1, 1>(p, s, kvh, 0, ctx - 1, ctx);
+}
+
+template <typename T, int TR, int TC, int TD>
+__global__ void paged_prefill_kernel(Params p) {
+  const int tile = blockIdx.x, kvh = blockIdx.y, s = blockIdx.z;
+  attend_rows<T, TR, TC, TD>(p, s, kvh, tile * p.rows, p.pos0[s], p.ctx[s]);
+}
+
+size_t smem_bytes(const Params& p) {
+  const size_t R = p.rows, hd = p.hd, CH = (size_t)p.chunk_pages * p.bs;
+  const size_t floats = 2 * R * hd + CH * (hd + 1) + CH * hd + R * CH +
+                        (size_t)p.chunk_pages * R + 2 * R;
+  return floats * sizeof(float) + R * sizeof(int);
+}
+
+int launch(void (*kernel)(Params), dim3 grid, int threads, const Params& p,
+           void* stream) {
+  if (grid.x == 0 || grid.y == 0 || grid.z == 0) return 0;
+  const size_t smem = smem_bytes(p);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(kernel),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+extern "C" int dstpu_paged_decode(int dtype, const void* q, const void* kv,
+                                  const void* block_table, const void* ctx,
+                                  void* out, int S, int nh, int nkv, int hd,
+                                  int nb, int bs, int Bm, int chunk_pages,
+                                  float scale, void* stream) {
+  const Params p{q, kv, static_cast<const int*>(block_table), nullptr,
+                 static_cast<const int*>(ctx), out, S, 1, nh, nkv, hd, nb,
+                 bs, Bm, nh / nkv, chunk_pages, scale};
+  const dim3 grid(nkv, S);
+  if (dtype == 0) return launch(paged_decode_kernel<float>, grid, 256, p, stream);
+  if (dtype == 1)
+    return launch(paged_decode_kernel<__nv_bfloat16>, grid, 256, p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int dstpu_paged_prefill(int dtype, const void* q, const void* kv,
+                                   const void* block_table, const void* pos0,
+                                   const void* ctx, void* out, int S, int tq,
+                                   int nh, int nkv, int hd, int nb, int bs,
+                                   int Bm, int rows, int chunk_pages,
+                                   float scale, void* stream) {
+  const Params p{q, kv, static_cast<const int*>(block_table),
+                 static_cast<const int*>(pos0), static_cast<const int*>(ctx),
+                 out, S, tq, nh, nkv, hd, nb, bs, Bm, rows, chunk_pages,
+                 scale};
+  const int tiles = (tq * (nh / nkv) + rows - 1) / rows;
+  const dim3 grid(tiles, nkv, S);
+  // 4 x 2 score tiles and 4 x 4 accumulator tiles where the shapes allow
+  // (the float4 V reads need hd and the chunk to be multiples of 4)
+  const bool tiled =
+      rows % 4 == 0 && (chunk_pages * bs) % 4 == 0 && hd % 4 == 0;
+  if (dtype == 0)
+    return launch(tiled ? paged_prefill_kernel<float, 4, 2, 4>
+                        : paged_prefill_kernel<float, 1, 1, 1>,
+                  grid, 256, p, stream);
+  if (dtype == 1)
+    return launch(tiled ? paged_prefill_kernel<__nv_bfloat16, 4, 2, 4>
+                        : paged_prefill_kernel<__nv_bfloat16, 1, 1, 1>,
+                  grid, 256, p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* dstpu_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

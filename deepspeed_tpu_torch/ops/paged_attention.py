@@ -1,0 +1,269 @@
+"""Paged (blocked-KV) decode and chunked-prefill attention.
+
+Port of ``deepspeed_tpu/ops/pallas/paged_attention.py``: same functions,
+signatures and layouts. On CUDA tensors each wrapper launches its
+hand-written Hopper kernel (``csrc/paged_attention.cu``) or raises; on
+CPU tensors it runs the plain PyTorch version beside it, which folds the
+pages in the kernel's order. There is no other path: no fallback when a
+build or a launch fails.
+
+Layout (as ``inference/ragged/kv_cache.py``): one layer's pool is
+``kv[num_blocks, block_size, 2, kv_heads, head_dim]`` with K in plane 0
+and V in plane 1.
+
+``LAUNCHES`` counts kernel launches per kernel (the plain version never
+counts), so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional
+
+import torch
+
+NEG_INF = -1e30
+
+LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0}
+
+# query rows per prefill thread block, and tokens read per chunk
+_PREFILL_ROWS = 64
+_DECODE_CHUNK_TOKENS = 64
+_PREFILL_CHUNK_TOKENS = 32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _fold_page(q, k, v, visible, m, l, acc):
+    """Fold one K/V page into the online-softmax state.
+
+    q [..., R, hd] fp32 (pre-scaled); k/v [..., bs, hd] fp32; visible
+    [..., R, bs]; m/l [..., R, 1]; acc [..., R, hd]."""
+    sc = torch.matmul(q, k.transpose(-1, -2))
+    sc = torch.where(visible, sc, torch.full_like(sc, NEG_INF))
+    m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    # explicit zero for masked columns: when every score so far is the
+    # NEG_INF sentinel, exp(sc - m_new) == exp(0) would count them
+    p = torch.where(visible, torch.exp(sc - m_new), torch.zeros_like(sc))
+    l = alpha * l + p.sum(dim=-1, keepdim=True)
+    acc = acc * alpha + torch.matmul(p, v)
+    return m_new, l, acc
+
+
+def _paged_plain(qg, kv_layer, block_table, qpos, ctx, scale):
+    """qg [S, nkv, R, hd]; qpos [S, R] absolute position of each row;
+    ctx [S]. Column col is visible to a row when col <= qpos and
+    col < ctx. Returns fp32 [S, nkv, R, hd]."""
+    S, nkv, R, hd = qg.shape
+    nb, bs = kv_layer.shape[0], kv_layer.shape[1]
+    q = qg.float() * scale
+    m = torch.full((S, nkv, R, 1), NEG_INF, device=q.device)
+    l = torch.zeros((S, nkv, R, 1), device=q.device)
+    acc = torch.zeros((S, nkv, R, hd), device=q.device)
+    bt = block_table.long().clamp(0, nb - 1)
+    ctx = ctx.long()
+    qpos = qpos.long()
+    # pages at or past every slot's context fold nothing: stop there
+    max_ctx = int(ctx.max()) if S else 0
+    n_pages = min(block_table.shape[1], -(-max_ctx // bs))
+    for j in range(n_pages):
+        page = kv_layer[bt[:, j]].float()  # [S, bs, 2, nkv, hd]
+        k = page[:, :, 0].permute(0, 2, 1, 3)  # [S, nkv, bs, hd]
+        v = page[:, :, 1].permute(0, 2, 1, 3)
+        cols = j * bs + torch.arange(bs, device=q.device)
+        visible = ((cols[None, None, :] <= qpos[:, :, None])
+                   & (cols[None, None, :] < ctx[:, None, None]))
+        m, l, acc = _fold_page(q, k, v, visible[:, None], m, l, acc)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)  # dead rows give 0
+    return acc / l
+
+
+def paged_decode_attention_plain(q, kv_layer, block_table, context_lens,
+                                 scale: float):
+    S, nh, hd = q.shape
+    nkv = kv_layer.shape[3]
+    g = nh // nkv
+    qpos = (context_lens.long() - 1)[:, None].expand(S, g)
+    out = _paged_plain(q.reshape(S, nkv, g, hd), kv_layer, block_table,
+                       qpos, context_lens, scale)
+    return out.reshape(S, nh, hd).to(q.dtype)
+
+
+def paged_prefill_attention_plain(q, kv_layer, block_table, seg_pos0,
+                                  context_lens, scale: float):
+    S, tq, nh, hd = q.shape
+    nkv = kv_layer.shape[3]
+    g = nh // nkv
+    # [S, Tq, nh, hd] -> [S, nkv, Tq*g, hd]: rows query-major, group-minor
+    qg = (q.reshape(S, tq, nkv, g, hd).permute(0, 2, 1, 3, 4)
+          .reshape(S, nkv, tq * g, hd))
+    rows = torch.arange(tq * g, device=q.device) // g
+    qpos = seg_pos0.long()[:, None] + rows[None, :]
+    out = _paged_plain(qg, kv_layer, block_table, qpos, context_lens, scale)
+    return (out.reshape(S, nkv, tq, g, hd).permute(0, 2, 1, 3, 4)
+            .reshape(S, tq, nh, hd).to(q.dtype))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from deepspeed_tpu_torch.ops import build
+
+        lib = build.load("paged_attention")
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.dstpu_paged_decode.argtypes = [
+            I, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]
+        lib.dstpu_paged_decode.restype = I
+        lib.dstpu_paged_prefill.argtypes = [
+            I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P]
+        lib.dstpu_paged_prefill.restype = I
+        lib.dstpu_cuda_error_string.argtypes = [I]
+        lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check_common(q, kv_layer, block_table, ints, nh):
+    if kv_layer.dim() != 5 or kv_layer.shape[2] != 2:
+        raise ValueError(f"kv_layer must be [nb, bs, 2, nkv, hd], got "
+                         f"{tuple(kv_layer.shape)}")
+    nkv, hd = kv_layer.shape[3], kv_layer.shape[4]
+    if q.shape[-1] != hd:
+        raise ValueError(f"q head_dim {q.shape[-1]} != pool head_dim {hd}")
+    if nh % nkv:
+        raise ValueError(f"num_heads {nh} not a multiple of kv_heads {nkv}")
+    if block_table.dim() != 2 or block_table.shape[0] != q.shape[0]:
+        raise ValueError(f"block_table must be [S, max_pages], got "
+                         f"{tuple(block_table.shape)}")
+    for t in ints:
+        if t.shape != (q.shape[0],):
+            raise ValueError(f"per-sequence metadata must be [S], got "
+                             f"{tuple(t.shape)}")
+    tensors = (q, kv_layer, block_table, *ints)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, kv_layer and the metadata must share a device")
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODE or kv_layer.dtype != q.dtype:
+        raise TypeError(f"kernel takes float32 or bfloat16 q and pool of "
+                        f"one type, got {q.dtype} and {kv_layer.dtype}")
+    if any(t.dtype != torch.int32 for t in (block_table, *ints)):
+        raise TypeError("block_table and per-sequence metadata must be "
+                        "int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("kernel inputs must be contiguous")
+    return True
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().dstpu_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+def paged_decode_attention(q: torch.Tensor, kv_layer: torch.Tensor,
+                           block_table: torch.Tensor,
+                           context_lens: torch.Tensor,
+                           scale: Optional[float] = None,
+                           pages_per_compute_block: int = 1) -> torch.Tensor:
+    """Decode attention over a paged KV pool.
+
+    q            [S, num_heads, head_dim] — one query token per sequence
+    kv_layer     [num_blocks, block_size, 2, kv_heads, head_dim]
+    block_table  [S, max_pages] int32 page ids (entries past the context
+                 may be stale; they are never read)
+    context_lens [S] int32 — keys visible per sequence (including the
+                 token written this step); 0 marks a dead slot (output 0)
+
+    ``pages_per_compute_block`` is accepted for parity with the JAX
+    signature; the JAX result is bit-identical for every value, and the
+    port's does not depend on it.
+
+    Returns [S, num_heads, head_dim] in q.dtype.
+    """
+    del pages_per_compute_block
+    S, nh, hd = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    if not _check_common(q, kv_layer, block_table, (context_lens,), nh):
+        return paged_decode_attention_plain(q, kv_layer, block_table,
+                                            context_lens, scale)
+    nb, bs, _, nkv, _ = kv_layer.shape
+    out = torch.empty_like(q)
+    rc = _lib().dstpu_paged_decode(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
+        block_table.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        S, nh, nkv, hd, nb, bs, block_table.shape[1],
+        max(1, _DECODE_CHUNK_TOKENS // bs), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "paged_decode")
+    LAUNCHES["paged_decode"] += 1
+    return out
+
+
+def paged_prefill_attention(q: torch.Tensor, kv_layer: torch.Tensor,
+                            block_table: torch.Tensor,
+                            seg_pos0: torch.Tensor,
+                            context_lens: torch.Tensor,
+                            scale: Optional[float] = None,
+                            pages_per_compute_block: int = 1
+                            ) -> torch.Tensor:
+    """Chunked-prefill attention over paged KV (SplitFuse chunk step).
+
+    Segment s holds ``Tq`` new queries at absolute positions
+    pos0[s]..pos0[s]+Tq-1, already scattered into the paged cache; query
+    at position qpos attends columns col <= qpos with col < ctx[s].
+
+    q            [S, Tq, num_heads, head_dim]
+    kv_layer     [num_blocks, block_size, 2, kv_heads, head_dim]
+    block_table  [S, max_pages] int32
+    seg_pos0     [S] int32 absolute position of each segment's first query
+    context_lens [S] int32 keys visible to the segment's last real query
+                 (pos0 + n_real_tokens); 0 marks a dead segment (output 0)
+
+    ``pages_per_compute_block`` is accepted for signature parity (see
+    :func:`paged_decode_attention`). Unlike the TPU kernel, Tq * group
+    need not be a multiple of 8: the Hopper kernel tiles query rows.
+
+    Returns [S, Tq, num_heads, head_dim] in q.dtype.
+    """
+    del pages_per_compute_block
+    S, tq, nh, hd = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    if not _check_common(q, kv_layer, block_table, (seg_pos0, context_lens),
+                         nh):
+        return paged_prefill_attention_plain(q, kv_layer, block_table,
+                                             seg_pos0, context_lens, scale)
+    nb, bs, _, nkv, _ = kv_layer.shape
+    out = torch.empty_like(q)
+    rc = _lib().dstpu_paged_prefill(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
+        block_table.data_ptr(), seg_pos0.data_ptr(), context_lens.data_ptr(),
+        out.data_ptr(), S, tq, nh, nkv, hd, nb, bs, block_table.shape[1],
+        _PREFILL_ROWS, max(1, _PREFILL_CHUNK_TOKENS // bs), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "paged_prefill")
+    LAUNCHES["paged_prefill"] += 1
+    return out

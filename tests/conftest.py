@@ -114,6 +114,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running measured benchmarks (reference "
         "'nightly' marker analog)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an sm_90 CUDA card and nvcc; skips "
+        "elsewhere")
     _maybe_reexec_with_affinity_shim(config)
 
 
