@@ -14,6 +14,12 @@ Phases, each fatal on failure:
                dead segment), hold it against its plain PyTorch version
                in fp32 and bf16, and time kernel, plain version and a
                PyTorch library yardstick with CUDA events;
+  2b. flash  — the three flash attention kernels against their plain
+               versions at B 2, S 2048, 32/8 heads, hd 128, causal (fp32
+               and bf16), a non-causal S 1000 case with three segments
+               and an hd 64 case; the backward must be bit-identical
+               across two launches; kernel, plain version and SDPA (a
+               yardstick the port never calls) timed with CUDA events.
   3. serve   — ``InferenceEngineV2`` over ``get_model("llama3-8b")`` at
                full width and depth with seeded bf16 weights: 8 requests
                (64-512 prompt tokens, two sharing a 256-token prefix),
@@ -24,8 +30,17 @@ Phases, each fatal on failure:
                plain gather path on one prefill batch. A third run of
                the same workload under torch.profiler gives the device
                time by kernel family and the device's idle share.
-Then it prints the kernels line, the serve and profile lines, the card's
-name and power limit (nvidia-smi), and, last, the device line.
+  4. train   — ``deepspeed_tpu_torch.initialize`` + ``train_batch`` on
+               Llama-3-8B at full width, 8 of its 32 layers (fp32
+               masters from a seed, bf16 compute, AdamW, ZeRO-3 config,
+               clip 1.0), micro 2 x GAS 2 x 2048 tokens over two fixed
+               batches: one warm-up and four measured steps with the
+               flash launch counts read around them; loss and wq
+               gradient through the flash path against the dense path
+               on one microbatch; one more step under torch.profiler.
+Then it prints the kernels line, the serve, profile, train and train
+profile lines, the card's name and power limit (nvidia-smi), and, last,
+the device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
 package is not beside it.
@@ -54,9 +69,32 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # output that the residual stream carries to the logits
 LOGIT_TOL_REL = 0.05
 
+# flash gradients vs their plain versions, as a share of the largest
+# reference gradient: fp32 sums over 2048 rows in another order; bf16 p
+# and ds round to bf16 in both, and a rounding on the other side of a
+# tie moves one term by 2**-8
+GRAD_TOL_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# train: flash path (fp32 softmax) vs dense path (scores rounded to bf16,
+# as in LOGIT_TOL_REL) on one microbatch through 8 bf16 layers
+TRAIN_LOSS_TOL_REL, TRAIN_GRAD_COS_MIN = 2e-2, 0.99
+
 NH, NKV, HD, BS = 32, 8, 128, 16
 KV_BLOCKS, MAX_BLOCKS, MAX_SEQS, MAX_TOKENS = 2048, 48, 16, 256
 NEW_TOKENS, DECODE_STEPS, SEED = 64, 8, 0
+FLASH_CASES = {  # B, S, Hq, Hkv, D, causal, segment lengths
+    "smoke": (2, 2048, 32, 8, 128, True, None),
+    "odd": (1, 1000, 4, 4, 128, False, (400, 350, 250)),
+    "hd64": (2, 300, 8, 2, 64, True, None),
+}
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_MICRO, TRAIN_GAS, TRAIN_MEASURED = \
+    8, 2048, 2, 2, 4
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_chip": TRAIN_MICRO,
+    "gradient_accumulation_steps": TRAIN_GAS,
+    "optimizer": {"type": "adamw", "params": {"lr": 3e-4}},
+    "bf16": {"enabled": True}, "zero_optimization": {"stage": 3},
+    "gradient_clipping": 1.0,
+}
 
 
 def fail(msg):
@@ -228,6 +266,132 @@ def check_prefill(torch, pa, timer, dtype, tq, S):
     return res
 
 
+# -- phase 2b: flash kernels ---------------------------------------------------
+
+
+def flash_inputs(torch, dtype, case, seed):
+    B, S, hq, hkv, D, causal, lens = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            "cuda", dtype)
+
+    q, k, v, do = t(B, S, hq, D), t(B, S, hkv, D), t(B, S, hkv, D), \
+        t(B, S, hq, D)
+    seg = None
+    if lens is not None:
+        seg = torch.from_numpy(np.repeat(np.arange(len(lens)), lens)[None]
+                               .repeat(B, 0).astype(np.int32)).cuda()
+    return q, k, v, do, seg, causal, D ** -0.5
+
+
+def visible_pairs(case):
+    """(query row, key column) pairs the mask lets through, over every
+    batch row and q head: the work the kernels' data needs."""
+    B, S, hq, _, _, causal, lens = FLASH_CASES[case]
+    if lens is None:
+        per = S * (S + 1) // 2 if causal else S * S
+    else:
+        per = sum(n * (n + 1) // 2 if causal else n * n for n in lens)
+    return B * hq * per
+
+
+def check_flash(torch, fa, timer, dtype, case):
+    """The three kernels against their plain versions on the same
+    inputs; the backward twice, bit for bit; bf16 at the smoke shape
+    also timed against its bound, its plain version and SDPA."""
+    import torch.nn.functional as F
+
+    q, k, v, do, seg, causal, scale = flash_inputs(torch, dtype, case, 30)
+    name = str(dtype).split(".")[-1]
+    o, lse = fa._flash_fwd(q, k, v, seg, causal, scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, seg, lse, delta, do, causal, scale)
+    dk, dv = fa.flash_bwd_dkdv(*args)
+    dq = fa.flash_bwd_dq(*args)
+    dk2, dv2 = fa.flash_bwd_dkdv(*args)
+    dq2 = fa.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+            and torch.equal(dv, dv2)):
+        fail(f"flash backward {name} {case}: two launches differ")
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
+    dk_ref, dv_ref = fa.flash_bwd_dkdv_plain(*args)
+    dq_ref = fa.flash_bwd_dq_plain(*args)
+    res = {}
+
+    def err(got, want, rel):
+        if not torch.isfinite(got).all():
+            fail(f"flash {name} {case}: non-finite output")
+        e = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        return {"max_abs_err": e, "max_rel_err": e / top if rel else None}
+
+    res["flash_fwd"] = err(o, o_ref, False)
+    res["flash_fwd"]["lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
+    if res["flash_fwd"]["max_abs_err"] > TOL[name] or \
+            res["flash_fwd"]["lse_max_abs_err"] > 1e-4:
+        fail(f"flash_fwd {name} {case}: {res['flash_fwd']} over "
+             f"{TOL[name]} (lse 1e-4)")
+    ek, ev = err(dk, dk_ref, True), err(dv, dv_ref, True)
+    res["flash_bwd_dkdv"] = {
+        "max_abs_err": max(ek["max_abs_err"], ev["max_abs_err"]),
+        "max_rel_err": max(ek["max_rel_err"], ev["max_rel_err"])}
+    res["flash_bwd_dq"] = err(dq, dq_ref, True)
+    for kern in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        if res[kern]["max_rel_err"] > GRAD_TOL_REL[name]:
+            fail(f"{kern} {name} {case}: {res[kern]} over "
+                 f"{GRAD_TOL_REL[name]} of the largest gradient")
+    if not (dtype == torch.bfloat16 and case == "smoke"):
+        return res
+
+    B, S, hq, hkv, D, _, _ = FLASH_CASES[case]
+    itm, pairs = q.element_size(), visible_pairs(case)
+    rows_q, rows_kv, stats = B * S * hq * D * itm, B * S * hkv * D * itm, \
+        B * hq * S * 4
+    work = {  # bytes each input read once and each output written once
+        "flash_fwd": (2 * rows_q + 2 * rows_kv + stats, 4 * D * pairs),
+        "flash_bwd_dkdv": (2 * rows_q + 4 * rows_kv + 2 * stats,
+                           8 * D * pairs),
+        "flash_bwd_dq": (3 * rows_q + 2 * rows_kv + 2 * stats,
+                         6 * D * pairs),
+    }
+    for kern, (nbytes, flops) in work.items():
+        res[kern]["bound_ms"], res[kern]["bound_by"] = bound(nbytes, flops,
+                                                             name)
+        res[kern]["flops"] = flops
+    res["flash_fwd"]["ms"] = timer.ms(
+        lambda: fa._flash_fwd(q, k, v, seg, causal, scale))
+    res["flash_bwd_dkdv"]["ms"] = timer.ms(lambda: fa.flash_bwd_dkdv(*args))
+    res["flash_bwd_dq"]["ms"] = timer.ms(lambda: fa.flash_bwd_dq(*args))
+    res["flash_fwd"]["plain_ms"] = timer.ms(
+        lambda: fa.flash_fwd_plain(q, k, v, seg, causal, scale), iters=3,
+        warmup=1)
+    res["flash_bwd_dkdv"]["plain_ms"] = timer.ms(
+        lambda: fa.flash_bwd_dkdv_plain(*args), iters=3, warmup=1)
+    res["flash_bwd_dq"]["plain_ms"] = timer.ms(
+        lambda: fa.flash_bwd_dq_plain(*args), iters=3, warmup=1)
+    # yardstick: SDPA forward, and its backward through autograd (all
+    # three gradients in one call, so the same time stands beside dK/dV
+    # and beside dQ)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    res["flash_fwd"]["library_ms"] = timer.ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    lib_bwd = timer.ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    res["flash_bwd_dkdv"]["library_ms"] = res["flash_bwd_dq"][
+        "library_ms"] = lib_bwd
+    res["shape"] = {"B": B, "S": S, "Hq": hq, "Hkv": hkv, "D": D,
+                    "causal": causal, "visible_pairs": pairs}
+    return res
+
+
 # -- phase 3: serve ----------------------------------------------------------
 
 
@@ -274,9 +438,10 @@ def serve_once(torch, zoo, InferenceEngineV2, profile=False):
     return model, eng, out, wall, prompts
 
 
-def device_breakdown(torch, prof, wall_s, generated):
-    """Device time of the profiled serve run by kernel family, the union
-    of busy intervals, and the idle share of the host wall time."""
+def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
+    """Device time of a profiled run by kernel family, the union of busy
+    intervals, and the idle share of the host wall time; ``units`` of
+    ``unit`` (generated tokens, train steps) divide the kernel count."""
     from torch.autograd import DeviceType
 
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -288,6 +453,9 @@ def device_breakdown(torch, prof, wall_s, generated):
         n = e.name.lower()
         fam = ("paged_decode" if "paged_decode" in n else
                "paged_prefill" if "paged_prefill" in n else
+               "flash_fwd" if "flash_fwd_kernel" in n else
+               "flash_bwd_dkdv" if "flash_bwd_dkdv" in n else
+               "flash_bwd_dq" if "flash_bwd_dq" in n else
                "matmul" if any(k in n for k in ("gemm", "xmma", "cutlass",
                                                 "cublas", "matmul",
                                                 "nvjet")) else
@@ -315,7 +483,7 @@ def device_breakdown(torch, prof, wall_s, generated):
             "device_busy_s": busy / 1e6,
             "device_idle_share": 1.0 - busy / 1e6 / wall_s,
             "kernels": len(kern),
-            "kernels_per_generated_token": len(kern) / generated,
+            f"kernels_per_{unit}": len(kern) / units,
             "by_family": fams,
             "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
 
@@ -349,6 +517,122 @@ def check_paths_agree(torch, model_runner, model, prompts):
             "argmax_equal": bool(a.argmax() == b.argmax())}
 
 
+# -- phase 4: train ----------------------------------------------------------
+
+
+def fixed_batches(vocab):
+    """Two fixed microbatches of TRAIN_SEQ + 1 tokens, cycled so that
+    the loss can fall."""
+    rng = np.random.default_rng(SEED + 2)
+    fixed = [{"input_ids": rng.integers(0, vocab, (TRAIN_MICRO,
+                                                   TRAIN_SEQ + 1))
+              .astype(np.int32)} for _ in range(2)]
+
+    def it():
+        i = 0
+        while True:
+            yield fixed[i % 2]
+            i += 1
+
+    return fixed, it()
+
+
+def flash_vs_dense(torch, tf, engine, batch):
+    """Loss and the layers.attn.wq gradient of one microbatch through the
+    flash kernels and through the dense path, on the engine's params."""
+    import dataclasses
+
+    mb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    wq = engine.params["layers"]["attn"]["wq"]
+    out = {}
+    for impl in ("flash", "xla"):
+        cfg = dataclasses.replace(engine.model_config, attn_impl=impl)
+        loss, _ = tf.loss_fn(cfg, engine.params, mb)
+        (grad,) = torch.autograd.grad(loss, [wq])
+        out[impl] = (loss.item(), grad.float())
+    (lf, gf), (lx, gx) = out["flash"], out["xla"]
+    res = {"loss_flash": lf, "loss_dense": lx,
+           "loss_rel_diff": abs(lf - lx) / abs(lx),
+           "wq_grad_max_rel_diff": ((gf - gx).abs().max()
+                                    / gx.abs().max()).item(),
+           "wq_grad_cosine": (torch.sum(gf * gx) / (gf.norm() * gx.norm())
+                              ).item()}
+    if not (res["loss_rel_diff"] <= TRAIN_LOSS_TOL_REL
+            and res["wq_grad_cosine"] >= TRAIN_GRAD_COS_MIN):
+        fail(f"train: flash vs dense path disagree: {res}")
+    return res
+
+
+def train_phase(torch, zoo, initialize, fa, tf):
+    """Returns (train line, train profile line, flash launches on the
+    main path)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = zoo.get_model("llama3-8b", num_layers=TRAIN_LAYERS,
+                          dtype=torch.float32, seed=SEED)
+    cfg = model.config
+    engine, *_ = initialize(model=model, config=dict(TRAIN_CONFIG))
+    fixed, data = fixed_batches(cfg.vocab_size)
+    losses = [float(engine.train_batch(data))]  # warm-up step
+    fa.reset_launch_counts()
+    step_s = []
+    for _ in range(TRAIN_MEASURED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(data)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = dict(fa.LAUNCHES)
+    L, steps = TRAIN_LAYERS, TRAIN_MEASURED
+    want = {"flash_fwd": steps * 2 * L * TRAIN_GAS,  # forward + remat replay
+            "flash_bwd_dkdv": steps * L * TRAIN_GAS,
+            "flash_bwd_dq": steps * L * TRAIN_GAS}
+    if launches != want:
+        fail(f"train: flash launches {launches}, remat implies {want}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail(f"train: losses {losses} not finite and falling")
+    if engine.global_steps != 1 + TRAIN_MEASURED:
+        fail(f"train: global_steps {engine.global_steps}")
+    gnorm = float(engine.get_global_grad_norm())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    agree = flash_vs_dense(torch, tf, engine, fixed[0])
+
+    tokens = TRAIN_MICRO * TRAIN_GAS * TRAIN_SEQ
+    p50 = float(np.median(step_s))
+    # 6 N + the attention term at the trained length (flops_per_token
+    # counts it at max_seq_len, 8192 for this preset)
+    flops_tok = 6 * cfg.num_params() + 12 * L * cfg.hidden_size * TRAIN_SEQ
+    train = {
+        "model": "llama3-8b", "layers": f"{L} of 32",
+        "params": cfg.num_params(), "dtype": "bfloat16 compute, fp32 masters",
+        "micro": TRAIN_MICRO, "gas": TRAIN_GAS, "seq": TRAIN_SEQ,
+        "tokens_per_step": tokens, "step_s": step_s, "step_ms_p50": p50 * 1e3,
+        "tokens_per_s": tokens / p50,
+        "mfu": tokens / p50 * flops_tok / PEAK_FLOPS["bfloat16"],
+        "flops_per_token": flops_tok, "peak_mem_gb": peak_gb,
+        "losses": losses, "grad_norm": gnorm, "global_steps": 1 + steps,
+        "launches": launches,
+        "launches_per_step": {k: v // steps for k, v in launches.items()},
+        "flash_vs_dense": agree,
+    }
+    from torch.profiler import ProfilerActivity
+
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+    prof.__enter__()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_batch(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.__exit__(None, None, None)
+    profile = device_breakdown(torch, prof, wall, 1, unit="step")
+    del prof, engine, model
+    torch.cuda.empty_cache()
+    return train, profile, launches
+
+
 def main():
     import torch
 
@@ -356,9 +640,12 @@ def main():
         log("no CUDA device (torch.cuda.is_available() is False)")
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.inference import InferenceEngineV2, model_runner
+    from deepspeed_tpu_torch.models import transformer as tf
     from deepspeed_tpu_torch.models import zoo
     from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -370,9 +657,10 @@ def main():
     t0 = time.perf_counter()
     secs = build.build()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s)")
-    for line in build.build_log("paged_attention").splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas: " + line.strip())
+    for src in build.SOURCES:
+        for line in build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {src}: " + line.strip())
 
     # 2. kernels
     timer = Timer(torch)
@@ -384,6 +672,11 @@ def main():
                                             tq, S),
                    "bfloat16": check_prefill(torch, pa, timer,
                                              torch.bfloat16, tq, S)}
+    # 2b. flash kernels
+    flash = {(name, case): check_flash(torch, fa, timer, dtype, case)
+             for case in FLASH_CASES
+             for name, dtype in (("float32", torch.float32),
+                                 ("bfloat16", torch.bfloat16))}
     del timer
     log("kernels agree with their plain versions")
 
@@ -442,6 +735,11 @@ def main():
     profile = device_breakdown(torch, prof, prof_wall, gen)
     del prof
 
+    # 4. train: the serve model is gone; the launch counts are read
+    # around the measured steps
+    train, train_profile, train_launches = train_phase(torch, zoo,
+                                                       initialize, fa, tf)
+
     def entry(name, replaces, res, other):
         b = res["bfloat16"]
         return {"name": name, "route": "cuda",
@@ -459,16 +757,44 @@ def main():
 
     other_pre = {k: v for k, v in pre[16]["bfloat16"].items()}
     other_pre["max_abs_err_fp32"] = pre[16]["float32"]["max_abs_err"]
+    def flash_entry(name, line):
+        b = flash[("bfloat16", "smoke")][name]
+        lib = ("scaled_dot_product_attention(is_causal=True, enable_gqa="
+               "True) on [B, H, S, D] copies" + (
+                   "" if name == "flash_fwd" else
+                   ", its backward through autograd (dQ, dK and dV in one "
+                   "call)"))
+        return {"name": name, "route": "cuda",
+                "source": "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
+                "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:"
+                            f"{line}",
+                "launches": train_launches[name],
+                "max_abs_err": b["max_abs_err"],
+                "max_rel_err": b["max_rel_err"],
+                "ms": b["ms"], "plain_ms": b["plain_ms"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": b["library_ms"], "library_call": lib,
+                "dtype": "bfloat16",
+                "shape": flash[("bfloat16", "smoke")]["shape"],
+                "other": {f"{dt}/{case}": flash[(dt, case)][name]
+                          for dt, case in flash
+                          if (dt, case) != ("bfloat16", "smoke")}}
+
     kernels = {"kernels": [
         entry("paged_decode",
               "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec, None),
         entry("paged_prefill",
               "deepspeed_tpu/ops/pallas/paged_attention.py:117", pre[128],
               other_pre),
+        flash_entry("flash_fwd", 150),
+        flash_entry("flash_bwd_dkdv", 268),
+        flash_entry("flash_bwd_dq", 326),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"serve_profile": profile}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"train_profile": train_profile}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
-                                                    _norm, act_fn,
+                                                    _norm, _proj, act_fn,
                                                     apply_rope, rope_tables)
 from deepspeed_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                      paged_prefill_attention)
@@ -46,12 +46,6 @@ def _layer(params: Params, l: int) -> Params:
             return node[l]
         return {k: walk(v) for k, v in node.items()}
     return walk(params["layers"])
-
-
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., h] contracted with w [h, *out] -> [..., *out]."""
-    out = torch.matmul(x, w.reshape(w.shape[0], -1))
-    return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
 def _rope_of(cfg: TransformerConfig, positions):

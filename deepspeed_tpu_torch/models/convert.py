@@ -1,4 +1,5 @@
-"""Carry a JAX parameter tree across into a ``TransformerLM``.
+"""Carry a JAX parameter tree across into a ``TransformerLM``, and a
+tree of tensors back out as numpy.
 
 The JAX runner keeps fp32 params and casts each to the compute type at
 use (``.astype(dt)``); here every leaf is stored once, already in the
@@ -9,7 +10,7 @@ the weights take half the memory (about 16 GB in bf16).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -48,3 +49,11 @@ def params_from_jax(tree: Mapping[str, Any], cfg: TransformerConfig,
 
     copy(model.params(), tree, "")
     return model
+
+
+def params_to_numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A tree of tensors (any device or float type) as nested dicts of
+    fp32 numpy arrays, the layout of a JAX tree read with np.asarray."""
+    return {k: (params_to_numpy(v) if isinstance(v, Mapping)
+                else v.detach().float().cpu().numpy())
+            for k, v in tree.items()}

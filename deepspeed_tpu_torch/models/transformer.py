@@ -1,9 +1,11 @@
-"""Decoder-only transformer LM for serving (port of
+"""Decoder-only transformer LM (port of
 ``deepspeed_tpu/models/transformer.py``).
 
-Only what the ragged serving path reads is carried over: the
-configuration's architecture fields, the parameter tree, the norm, the
-rotary embedding and the activations. The forward itself lives in
+Carried over: the configuration's architecture fields, the parameter
+tree, the norm, the rotary embedding, the activations, and the training
+forward — ``apply_hidden`` / ``apply`` / ``loss_fn`` on a ``params``
+dict, with the JAX cast points (activations in ``cfg.dtype``, each weight
+``.to(dt)`` at use, fp32 logits). The serving forwards live in
 ``inference/model_runner.py``, as in the JAX package.
 
 ``TransformerLM`` is an ``nn.Module`` whose parameters keep the JAX
@@ -11,26 +13,52 @@ tree's names and its stacked ``[L, ...]`` layer layout
 (``layers.attn.wq`` is ``[L, hidden, heads, head_dim]``), so the runner
 reads ``params["layers"]["attn"]["wq"][l]`` exactly where the JAX runner
 scans over the same leaf.
+
+The JAX layer scan is a Python loop here; ``remat`` wraps each layer in
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+default ``nothing_saveable`` policy. The pipeline, FPDT, host-offload,
+overlap, qwZ, tiled and fp8 branches are not ported: their config
+switches raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
+from deepspeed_tpu_torch.ops.attention import multi_head_attention
+
+# JAX config switches of branches this package does not run yet: field ->
+# (the values that mean "off", what to port first)
+_A11 = "ROADMAP queue A item 11"
+_UNPORTED_SWITCHES = {
+    "sequence_parallel": ((False,), f"{_A11} (Ulysses / ring attention)"),
+    "attn_chunks": ((0, 1), f"{_A11} (FPDT chunked attention)"),
+    "fpdt_host_kv": ((False,), f"{_A11} (FPDT host KV)"),
+    "fpdt_host_residual": ((False,), f"{_A11} (FPDT hosted residual)"),
+    "tiled_logits": ((0, 1), f"{_A11} (tiled logits, tiled_compute.py)"),
+    "tiled_mlp": ((0, 1), f"{_A11} (tiled MLP, tiled_compute.py)"),
+    "fp8_mlp": ((False,), "ROADMAP queue A item 10 (fp8 MLP, "
+                          "ops/fp_quantizer.py)"),
+    "param_host_offload": ((False,), "ROADMAP queue A item 12 (parameter "
+                                     "offload)"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Architecture switches covering the GPT-2/Llama families (the
-    serving fields of the JAX ``TransformerConfig``; ``dtype`` is the
-    compute and storage type of the weights)."""
+    JAX ``TransformerConfig``'s fields this package runs; ``dtype`` is
+    the compute and storage type of the weights, and the activations'
+    type in the forward). Switches of unported branches exist so that
+    setting them raises instead of being ignored."""
 
     vocab_size: int = 50257
     hidden_size: int = 768
@@ -49,6 +77,25 @@ class TransformerConfig:
     use_biases: bool = False
     # Falcon-style parallel residual: x + attn(ln1(x)) + mlp(ln2(x))
     parallel_block: bool = False
+    # recompute each layer in the backward (torch.utils.checkpoint)
+    remat: bool = True
+    attn_impl: str = "auto"  # auto | xla | flash (ops/attention.py)
+    sequence_parallel: bool = False
+    attn_chunks: int = 0
+    fpdt_host_kv: bool = False
+    fpdt_host_residual: bool = False
+    tiled_logits: int = 0
+    tiled_mlp: int = 0
+    fp8_mlp: bool = False
+    param_host_offload: bool = False
+
+    def __post_init__(self):
+        for name, (off, item) in _UNPORTED_SWITCHES.items():
+            value = getattr(self, name)
+            if value not in off:
+                raise NotImplementedError(
+                    f"TransformerConfig.{name}={value!r} is not ported to "
+                    f"deepspeed_tpu_torch yet: {item}")
 
     @property
     def kv_heads(self) -> int:
@@ -66,6 +113,12 @@ class TransformerConfig:
             d = int(8 * self.hidden_size / 3)
             return 256 * ((d + 255) // 256)
         return 4 * self.hidden_size
+
+    def flops_per_token(self) -> float:
+        """Approximate training FLOPs/token (fwd+bwd ~ 6 N params + the
+        attention term at ``max_seq_len``), as the JAX config counts."""
+        attn = 12 * self.num_layers * self.hidden_size * self.max_seq_len
+        return 6 * self.num_params() + attn
 
     def num_params(self) -> int:
         h, L, f, v = self.hidden_size, self.num_layers, self.ffn, self.vocab_size
@@ -180,8 +233,161 @@ def _is_leaf(node) -> bool:
     return isinstance(node, tuple)
 
 
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., h] contracted with w [h, *out] -> [..., *out]."""
+    out = torch.matmul(x, w.reshape(w.shape[0], -1))
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _attention(q, k, v, cfg: TransformerConfig, causal: bool = True):
+    """The plain attention branch (sequence parallelism and chunked
+    attention raise at config construction)."""
+    return multi_head_attention(q, k, v, causal=causal, impl=cfg.attn_impl)
+
+
+def _layer(cfg: TransformerConfig, x, layer_params, rope):
+    """One transformer block; x [B, S, H] in cfg.dtype. ``rope`` is the
+    forward's (cos, sin) tables or None."""
+    ap = layer_params["attn"]
+    dt = cfg.dtype
+    x = x.to(dt)
+    y = _norm(x, layer_params["ln1"], cfg.norm, cfg.norm_eps)
+    q = _proj(y, ap["wq"].to(dt))
+    k = _proj(y, ap["wk"].to(dt))
+    v = _proj(y, ap["wv"].to(dt))
+    if cfg.use_biases:
+        q = q + ap["bq"].to(dt)
+        k = k + ap["bk"].to(dt)
+        v = v + ap["bv"].to(dt)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+    attn = _attention(q, k, v, cfg)
+    wo = ap["wo"].to(dt)
+    attn = torch.matmul(attn.reshape(*attn.shape[:-2], -1),
+                        wo.reshape(-1, wo.shape[-1]))
+    if cfg.use_biases:
+        attn = attn + ap["bo"].to(dt)
+    return _layer_mlp(cfg, x, attn, layer_params)
+
+
+def _layer_mlp(cfg: TransformerConfig, x, attn, layer_params):
+    """Residual add and the MLP half of the block (sequential, or
+    Falcon's parallel block where both branches read the pre-attention
+    residual)."""
+    mp = layer_params["mlp"]
+    dt = cfg.dtype
+    if not cfg.parallel_block:
+        x = x + attn
+    y = _norm(x, layer_params["ln2"], cfg.norm, cfg.norm_eps)
+    if cfg.activation == "swiglu":
+        z = F.silu(torch.matmul(y, mp["wg"].to(dt))) * torch.matmul(
+            y, mp["wi"].to(dt))
+    else:
+        pre = torch.matmul(y, mp["wi"].to(dt))
+        if cfg.use_biases:
+            pre = pre + mp["bi"].to(dt)
+        z = act_fn(cfg.activation)(pre)
+    out = torch.matmul(z, mp["wo"].to(dt))
+    if cfg.use_biases:
+        out = out + mp["bo"].to(dt)
+    if cfg.parallel_block:
+        return x + attn + out
+    return x + out
+
+
+def _unstack_layers(layers: Dict[str, Any], num_layers: int):
+    """The stacked ``[L, ...]`` layer tree as L trees of views. One
+    ``unbind`` per leaf, so the backward stacks each leaf's L gradients
+    once instead of scattering every layer's into a full-size zero
+    tensor."""
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            return torch.unbind(node, 0)
+        return {k: walk(v) for k, v in node.items()}
+
+    def pick(node, l):
+        if isinstance(node, tuple):
+            return node[l]
+        return {k: pick(v, l) for k, v in node.items()}
+
+    views = walk(layers)
+    return [pick(views, l) for l in range(num_layers)]
+
+
+def apply_hidden(cfg: TransformerConfig, params: Dict[str, Any],
+                 tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 final_norm: bool = True) -> torch.Tensor:
+    """Forward pass up to (and including, unless ``final_norm=False``)
+    the final norm: tokens [B, S] -> hidden [B, S, H] in cfg.dtype."""
+    B, S = tokens.shape
+    dt = cfg.dtype
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None, :]
+    x = F.embedding(tokens.long(), params["embed"]["tokens"].to(dt))
+    if cfg.pos_emb == "learned":
+        x = x + params["embed"]["positions"].to(dt)[positions.long()]
+    rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.pos_emb == "rope" else None)
+    for layer_params in _unstack_layers(params["layers"], cfg.num_layers):
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, cfg, x, layer_params, rope, use_reentrant=False)
+        else:
+            x = _layer(cfg, x, layer_params, rope)
+    if not final_norm:
+        return x
+    return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+
+
+def apply(cfg: TransformerConfig, params: Dict[str, Any],
+          tokens: torch.Tensor,
+          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward pass: tokens [B, S] -> logits [B, S, V] float32."""
+    x = apply_hidden(cfg, params, tokens, positions)
+    if cfg.tie_embeddings:
+        logits = torch.matmul(x, params["embed"]["tokens"].to(cfg.dtype).t())
+    else:
+        logits = torch.matmul(x, params["unembed"]["kernel"].to(cfg.dtype))
+    return logits.float()
+
+
+def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal-LM cross-entropy. batch: {input_ids [B, S]} or
+    {input_ids, labels, loss_mask}, as tensors on the model's device."""
+    tokens = batch["input_ids"]
+    if "labels" in batch:
+        inputs, labels = tokens, batch["labels"]
+    else:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask.float()
+        if mask.shape[1] == tokens.shape[1] and "labels" not in batch:
+            mask = mask[:, 1:]
+    logits = apply(cfg, params, inputs)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    total = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / total
+    return loss, {"loss": loss, "ntokens": total}
+
+
 class TransformerLM(nn.Module):
-    """Serving weights of one dense decoder in the JAX tree layout.
+    """Weights of one dense decoder in the JAX tree layout, with the
+    JAX model protocol (``apply``, ``loss``, ``flops_per_token``) on a
+    ``params`` tree.
 
     ``seed`` initialises every leaf from a seeded ``torch.Generator`` on
     ``device`` at the JAX init's scales (normal leaves are drawn in fp32
@@ -227,6 +433,21 @@ class TransformerLM(nn.Module):
                                                   nn.ParameterDict))
                         else v) for k, v in mod.items()}
         return walk(self.tree)
+
+    # The JAX model protocol. ``apply`` replaces nn.Module.apply (which
+    # walks submodules): here, as in the JAX package, it is the forward.
+    def apply(self, params: Dict[str, Any], tokens: torch.Tensor,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return apply(self.config, params, tokens, positions)
+
+    def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        return loss_fn(self.config, params, batch)
+
+    def flops_per_token(self) -> float:
+        return self.config.flops_per_token()
+
+    def num_params(self) -> int:
+        return self.config.num_params()
 
 
 @torch.no_grad()

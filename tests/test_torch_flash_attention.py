@@ -1,0 +1,162 @@
+"""Port flash attention against the JAX flash kernel and the dense path.
+
+The port runs its plain PyTorch versions on the CPU (through the
+autograd Function, so the backward is ``_flash_bwd``'s); the JAX kernel
+runs in Pallas interpret mode, as ``tests/test_flash_attention.py`` runs
+it. Inputs come from numpy seeds and cross as arrays. Tolerances are the
+JAX tests' own: forward max-abs 2e-5, gradients 5e-4 (fp32, sums in
+different orders).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops import attention as jax_attn
+from deepspeed_tpu.ops.pallas import flash_attention as jax_flash
+from deepspeed_tpu_torch.ops import attention as attn
+from deepspeed_tpu_torch.ops import flash_attention as fa
+
+FWD_TOL = 2e-5
+GRAD_TOL = 5e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _qkv(seed, B=2, S=128, Nq=8, Nkv=8, D=32):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, Nq, D)).astype(np.float32),
+            rng.standard_normal((B, S, Nkv, D)).astype(np.float32),
+            rng.standard_normal((B, S, Nkv, D)).astype(np.float32))
+
+
+def _segments(B, S, lens):
+    seg = np.concatenate([np.full(n, i, np.int32) for i, n in
+                          enumerate(lens)])
+    assert seg.shape == (S,)
+    return np.broadcast_to(seg, (B, S)).copy()
+
+
+def _port_fwd_bwd(q, k, v, causal, seg=None):
+    """Output and the gradients of sum(o ** 2) through the port."""
+    t = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    seg_t = None if seg is None else torch.from_numpy(seg)
+    o = fa.flash_attention(*t, causal=causal, segment_ids=seg_t)
+    (o ** 2).sum().backward()
+    return o.detach().numpy(), [x.grad.numpy() for x in t]
+
+
+def _jax_fwd_bwd(fn, q, k, v, causal, seg=None, **kw):
+    seg_j = None if seg is None else jnp.asarray(seg)
+
+    def f(q, k, v):
+        return fn(q, k, v, causal=causal, segment_ids=seg_j, **kw)
+
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    out = f(*args)
+    grads = jax.grad(lambda *a: (f(*a) ** 2).sum(), argnums=(0, 1, 2))(*args)
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _check(got, want):
+    o, grads = got
+    o_w, grads_w = want
+    np.testing.assert_allclose(o, o_w, atol=FWD_TOL, rtol=0)
+    for g, g_w in zip(grads, grads_w):
+        assert g.shape == g_w.shape
+        np.testing.assert_allclose(g, g_w, atol=GRAD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("ratio", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_matches_jax_flash_and_dense(ratio, causal):
+    q, k, v = _qkv(ratio, Nkv=8 // ratio)
+    got = _port_fwd_bwd(q, k, v, causal)
+    _check(got, _jax_fwd_bwd(jax_flash.flash_attention, q, k, v, causal,
+                             block_q=64, block_k=64))
+    _check(got, _jax_fwd_bwd(jax_attn.xla_attention, q, k, v, causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_sequence_not_a_tile_multiple(causal):
+    """S = 100: the JAX wrapper pads to 128 (and synthesizes segment ids
+    when not causal); the port masks rows and columns past S itself."""
+    q, k, v = _qkv(11, S=100, Nkv=2)
+    got = _port_fwd_bwd(q, k, v, causal)
+    _check(got, _jax_fwd_bwd(jax_flash.flash_attention, q, k, v, causal,
+                             block_q=64, block_k=64))
+    _check(got, _jax_fwd_bwd(jax_attn.xla_attention, q, k, v, causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_packed_segment_ids(causal):
+    B, S = 2, 128
+    q, k, v = _qkv(21, B=B, S=S, Nkv=2)
+    seg = _segments(B, S, (48, 50, 30))
+    got = _port_fwd_bwd(q, k, v, causal, seg)
+    _check(got, _jax_fwd_bwd(jax_flash.flash_attention, q, k, v, causal,
+                             seg, block_q=64, block_k=64))
+    _check(got, _jax_fwd_bwd(jax_attn.xla_attention, q, k, v, causal, seg))
+
+
+def test_segments_gqa_and_ragged_length():
+    """Segments, GQA and S = 100 at once, three segments, non-causal."""
+    B, S = 1, 100
+    q, k, v = _qkv(31, B=B, S=S, Nq=4, Nkv=2)
+    seg = _segments(B, S, (40, 35, 25))
+    got = _port_fwd_bwd(q, k, v, False, seg)
+    _check(got, _jax_fwd_bwd(jax_flash.flash_attention, q, k, v, False,
+                             seg, block_q=64, block_k=64))
+
+
+def test_lse_matches_dense_logsumexp():
+    q, k, v = _qkv(41, S=100, Nq=8, Nkv=2)
+    seg = _segments(2, 100, (60, 40))
+    scale = 32 ** -0.5
+    _, lse = fa._flash_fwd(*(torch.from_numpy(x) for x in (q, k, v)),
+                           torch.from_numpy(seg), True, scale)
+    assert lse.shape == (2, 8, 100) and lse.dtype == torch.float32
+    kr = np.repeat(k, 4, axis=2)
+    s = np.einsum("bqnd,bknd->bnqk", q.astype(np.float64),
+                  kr.astype(np.float64)) * scale
+    i = np.arange(100)
+    vis = (i[None, :] <= i[:, None])[None, None] & (
+        seg[:, None, :, None] == seg[:, None, None, :])
+    s = np.where(vis, s, -np.inf)
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want, atol=FWD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla", "auto"])
+def test_multi_head_attention_dispatch(impl):
+    q, k, v = _qkv(51, Nkv=2)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    before = dict(fa.LAUNCHES)
+    got = attn.multi_head_attention(*t, causal=True, impl=impl)
+    want = jax_attn.multi_head_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                         causal=True, impl=impl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_TOL,
+                               rtol=0)
+    assert fa.LAUNCHES == before  # plain versions never count launches
+    k_rep, _ = attn.repeat_kv_heads(*t)
+    np.testing.assert_array_equal(
+        k_rep.numpy(), np.asarray(jax_attn.repeat_kv_heads(
+            *(jnp.asarray(x) for x in (q, k, v)))[0]))
+
+
+def test_unsupported_impls_and_shapes_raise():
+    t = [torch.from_numpy(x) for x in _qkv(61, S=16, Nq=6, Nkv=4)]
+    with pytest.raises(NotImplementedError, match="block-sparse"):
+        attn.multi_head_attention(*t, impl="blocksparse")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        attn.multi_head_attention(*t, impl="bogus")
+    with pytest.raises(ValueError, match="not a multiple"):
+        fa.flash_attention(*t)
