@@ -20,6 +20,15 @@ Phases, each fatal on failure:
                and an hd 64 case; the backward must be bit-identical
                across two launches; kernel, plain version and SDPA (a
                yardstick the port never calls) timed with CUDA events.
+  2c. gmm    — the grouped matmuls gmm, gmm^T and tgmm against their
+               plain versions in fp32 and bf16 at Mixtral-8x7B expert
+               shapes (E 8, 4096 rows in imbalanced groups with an empty
+               one and boundaries mid-tile; K 4096 -> N 14336 and 14336 ->
+               4096), at 32 decode rows, and at odd sizes with an
+               over-sum and an under-sum of the group sizes; errors
+               relative to the largest reference entry; kernel, plain
+               version and torch._grouped_mm (a yardstick the port never
+               calls) timed with CUDA events.
   3. serve   — ``InferenceEngineV2`` over ``get_model("llama3-8b")`` at
                full width and depth with seeded bf16 weights: 8 requests
                (64-512 prompt tokens, two sharing a 256-token prefix),
@@ -38,9 +47,25 @@ Phases, each fatal on failure:
                flash launch counts read around them; loss and wq
                gradient through the flash path against the dense path
                on one microbatch; one more step under torch.profiler.
-Then it prints the kernels line, the serve, profile, train and train
-profile lines, the card's name and power limit (nvidia-smi), and, last,
-the device line.
+  5. moe serve — ``InferenceEngineV2`` over ``get_model("mixtral-8x7b",
+               num_layers=16)`` (full width, seeded bf16 weights): the
+               serve phase's 8 requests drawn in Mixtral's 32000-token
+               vocabulary, 64 new tokens each. A second engine from the
+               same seed must give identical streams; gmm launches are a
+               multiple of 3 x 16; layer 0's MoE FFN through the kernel
+               agrees with the same FFN on the plain gmm on one prefill
+               batch, and makes the host wait nowhere (CUDA's sync debug
+               mode); one more run under torch.profiler.
+  6. moe train — ``initialize`` + ``train_batch`` on Mixtral-8x7B at full
+               width, 2 of its 32 layers (fp32 masters, bf16 compute,
+               AdamW, ZeRO-3 config, clip 1.0), micro 1 x GAS 2 x 2048
+               tokens: one warm-up and four measured steps with the gmm
+               and flash launch counts read around them (exactly what
+               remat implies), then one step under torch.profiler.
+Then it prints the kernels line, the serve, profile, train, train
+profile, moe serve, moe serve profile, moe train and moe train profile
+lines, the card's name and power limit (nvidia-smi), and, last, the
+device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
 package is not beside it.
@@ -95,6 +120,31 @@ TRAIN_CONFIG = {
     "bf16": {"enabled": True}, "zero_optimization": {"stage": 3},
     "gradient_clipping": 1.0,
 }
+# MoE phases: Mixtral-8x7B at full width, cut in depth to fit one card
+# (serve: 16 of 32 layers, 23.5 B parameters, 47 GB in bf16; train: 2
+# layers, 3.17 B parameters x 16 bytes of state)
+MOE_SERVE_LAYERS, MOE_VOCAB = 16, 32000
+MOE_TRAIN_LAYERS, MOE_TRAIN_MICRO, MOE_TRAIN_GAS = 2, 1, 2
+MOE_TRAIN_CONFIG = dict(TRAIN_CONFIG,
+                        train_micro_batch_size_per_chip=MOE_TRAIN_MICRO,
+                        gradient_accumulation_steps=MOE_TRAIN_GAS)
+# grouped matmuls vs their plain versions, relative to the largest
+# reference entry: fp32 sums over up to 14336 terms in another order;
+# bf16 rounds an fp32 sum once in both, which may land one step apart
+GMM_TOL_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+GMM_CASES = {  # group sizes, M (None = their sum), K, N
+    # 2048 tokens x top-2; multiples of 8 rows (torch._grouped_mm's tgmm
+    # alignment) but not of 128, so boundaries fall mid-tile
+    "train_wi": ([704, 0, 1000, 296, 64, 1496, 504, 32], None, 4096, 14336),
+    "train_wo": ([704, 0, 1000, 296, 64, 1496, 504, 32], None, 14336, 4096),
+    "decode": ([5, 0, 9, 1, 3, 6, 0, 8], None, 4096, 14336),
+    "odd_over_sum": ([40, 40, 40], 100, 33, 45),
+    "odd_under_sum": ([30, 0, 21], 70, 33, 45),
+}
+# the MoE FFN through the kernels vs the plain gmm, bf16, as a share of
+# the largest plain output: a bf16 rounding step of the first gmm's
+# output passes through silu and the second gmm
+MOE_FFN_TOL_REL = 2e-2
 
 
 def fail(msg):
@@ -392,27 +442,156 @@ def check_flash(torch, fa, timer, dtype, case):
     return res
 
 
+# -- phase 2c: grouped matmuls -----------------------------------------------
+
+
+def grouped_mm_call(torch, gm, name, lhs, other, gs, sizes):
+    """A ``torch._grouped_mm`` call computing the same function on the
+    same inputs (layouts prepared outside the timed call), or None with
+    the reason when the installed torch has none for these operands. A
+    yardstick only: the port never calls it."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm missing"
+    # with the groups along the contraction dim (tgmm), every group but
+    # the last must span a multiple of 16 bytes; the library checks this
+    # with a device-side assert, which would end the process
+    align = 16 // lhs.element_size()
+    if name == "tgmm" and any(s % align for s in sizes[:-1]):
+        return None, f"group sizes not multiples of {align} rows"
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+
+    def col_major(b):
+        return b.transpose(-2, -1).contiguous().transpose(-2, -1)
+
+    if name == "gmm":
+        layouts = [(lhs, other), (lhs, col_major(other))]
+    elif name == "gmm_transposed":  # other is rhs [E, K, N]: B[g] = rhs[g]^T
+        layouts = [(lhs, other.transpose(-2, -1))]
+    else:  # tgmm: groups along the contraction dim M
+        a = lhs.t().contiguous()
+        layouts = [(a, other), (a, col_major(other))]
+    want = {"gmm": gm.gmm_plain, "gmm_transposed": gm.gmm_transposed_plain,
+            "tgmm": gm.tgmm_plain}[name](lhs, other, gs)
+    why = None
+    for args in layouts:
+        try:
+            got = fn(*args, offs=offs)
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # capability probe, not a phase
+            why = f"torch._grouped_mm refused: {str(e)[:160]}"
+            continue
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        if got.shape == want.shape and err <= GMM_TOL_REL["bfloat16"]:
+            return (lambda: fn(*args, offs=offs)), None
+        why = f"torch._grouped_mm disagrees ({err})"
+    return None, why
+
+
+def check_gmm(torch, gm, timer, dtype, case):
+    """gmm, gmm^T and tgmm against their plain versions on the same
+    inputs; bf16 at the train and decode shapes also timed against the
+    bound, the plain version and torch._grouped_mm."""
+    sizes, M, K, N = GMM_CASES[case]
+    M = sum(sizes) if M is None else M
+    name = str(dtype).split(".")[-1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(40)  # drawn on the card: the weights are ~0.5 G values
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lhs, rhs, dout = t(M, K), t(len(sizes), K, N), t(M, N)
+    calls = {  # kernel call, plain call
+        "gmm": (lambda: gm.gmm_raw(lhs, rhs, gs),
+                lambda: gm.gmm_plain(lhs, rhs, gs)),
+        "gmm_transposed": (
+            lambda: gm.gmm_raw(dout, rhs, gs, transpose_rhs=True),
+            lambda: gm.gmm_transposed_plain(dout, rhs, gs)),
+        "tgmm": (lambda: gm.tgmm(lhs, dout, gs),
+                 lambda: gm.tgmm_plain(lhs, dout, gs)),
+    }
+    end = min(sum(sizes), M)
+    res = {}
+    for kern, (kernel, plain) in calls.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{kern} {name} {case}: shape {tuple(got.shape)} or "
+                 "non-finite output")
+        if kern != "tgmm" and not torch.all(got[end:] == 0):
+            fail(f"{kern} {name} {case}: rows no group owns are not zero")
+        if kern == "tgmm" and any(not torch.all(got[e] == 0)
+                                  for e, n in enumerate(sizes) if n == 0):
+            fail(f"tgmm {name} {case}: an empty group is not zero")
+        e = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        res[kern] = {"max_abs_err": e, "max_rel_err": e / top}
+        if e > GMM_TOL_REL[name] * top:
+            fail(f"{kern} {name} {case}: max-abs {e} over "
+                 f"{GMM_TOL_REL[name]} x {top}")
+    if not (dtype == torch.bfloat16
+            and case in ("train_wi", "train_wo", "decode")):
+        return res
+
+    itm, E_used = lhs.element_size(), sum(1 for n in sizes if n > 0)
+    rows = min(sum(sizes), M)
+    work = {  # bytes each input read once (the weights of groups with
+        # rows only) and each output written once; flops of owned rows
+        "gmm": ((M * K + E_used * K * N + M * N) * itm + 4 * len(sizes),
+                2 * rows * K * N),
+        "gmm_transposed": ((M * N + E_used * K * N + M * K) * itm
+                           + 4 * len(sizes), 2 * rows * K * N),
+        "tgmm": ((M * K + M * N + len(sizes) * K * N) * itm
+                 + 4 * len(sizes), 2 * rows * K * N),
+    }
+    other = {"gmm": rhs, "gmm_transposed": rhs, "tgmm": dout}
+    for kern, (kernel, plain) in calls.items():
+        if case == "decode" and kern != "gmm":
+            continue  # serving runs the forward only
+        nbytes, flops = work[kern]
+        r = res[kern]
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, name)
+        r["flops"], r["bytes"] = flops, nbytes
+        r["ms"] = timer.ms(kernel, iters=5, warmup=1)
+        r["plain_ms"] = timer.ms(plain, iters=3, warmup=1)
+        src = dout if kern == "gmm_transposed" else lhs
+        lib, why = grouped_mm_call(torch, gm, kern, src, other[kern], gs,
+                                   sizes)
+        r["library_ms"] = None if lib is None else timer.ms(lib, iters=5,
+                                                            warmup=1)
+        if why:
+            r["library_note"] = why
+            log(f"{kern} {case}: no library yardstick: {why}")
+    res["shape"] = {"E": len(sizes), "M": M, "K": K, "N": N,
+                    "group_sizes": sizes}
+    return res
+
+
 # -- phase 3: serve ----------------------------------------------------------
 
 
-def prompts_for(seed):
+def prompts_for(seed, vocab=128256):
     """8 prompts of 64-512 tokens; uid 0 and uid 7 share their first 256
     tokens. uid 7 is submitted after uid 0's prefix is in the cache."""
     rng = np.random.default_rng(seed)
     lens = [448, 64, 96, 160, 224, 288, 512, 320]
-    prompts = [rng.integers(0, 128256, n).astype(np.int32) for n in lens]
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
     prompts[7][:256] = prompts[0][:256]
     return prompts
 
 
-def serve_once(torch, zoo, InferenceEngineV2, profile=False):
-    model = zoo.get_model("llama3-8b", device="cuda", seed=SEED)
+def serve_once(torch, zoo, InferenceEngineV2, profile=False,
+               preset="llama3-8b", vocab=128256, **over):
+    model = zoo.get_model(preset, device="cuda", seed=SEED, **over)
     eng = InferenceEngineV2(model, kv_blocks=KV_BLOCKS, kv_block_size=BS,
                             max_tokens_per_step=MAX_TOKENS,
                             max_seqs_per_step=MAX_SEQS,
                             max_blocks_per_seq=MAX_BLOCKS,
                             decode_steps=DECODE_STEPS)
-    prompts = prompts_for(SEED + 1)
+    prompts = prompts_for(SEED + 1, vocab)
     prof = None
     if profile:
         from torch.profiler import ProfilerActivity
@@ -456,6 +635,9 @@ def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
                "flash_fwd" if "flash_fwd_kernel" in n else
                "flash_bwd_dkdv" if "flash_bwd_dkdv" in n else
                "flash_bwd_dq" if "flash_bwd_dq" in n else
+               "tgmm" if "tgmm_kernel" in n else
+               "gmm_transposed" if "gmm_kernel" in n and ", true>" in n else
+               "gmm" if "gmm_kernel" in n else
                "matmul" if any(k in n for k in ("gemm", "xmma", "cutlass",
                                                 "cublas", "matmul",
                                                 "nvjet")) else
@@ -520,12 +702,11 @@ def check_paths_agree(torch, model_runner, model, prompts):
 # -- phase 4: train ----------------------------------------------------------
 
 
-def fixed_batches(vocab):
+def fixed_batches(vocab, micro=TRAIN_MICRO):
     """Two fixed microbatches of TRAIN_SEQ + 1 tokens, cycled so that
     the loss can fall."""
     rng = np.random.default_rng(SEED + 2)
-    fixed = [{"input_ids": rng.integers(0, vocab, (TRAIN_MICRO,
-                                                   TRAIN_SEQ + 1))
+    fixed = [{"input_ids": rng.integers(0, vocab, (micro, TRAIN_SEQ + 1))
               .astype(np.int32)} for _ in range(2)]
 
     def it():
@@ -633,6 +814,206 @@ def train_phase(torch, zoo, initialize, fa, tf):
     return train, profile, launches
 
 
+# -- phases 5 and 6: MoE serve and train ----------------------------------------
+
+
+def moe_ffn_agrees(torch, moe, gm, tf, model, prompts):
+    """Layer 0's MoE FFN on one 256-token prefill batch (the normed
+    embeddings of uid 0's prompt) through the gmm kernel and through the
+    plain gmm. The kernel path runs under CUDA's sync debug mode: the
+    dispatch keeps the group sizes on the device, so it must not make
+    the host wait."""
+    import dataclasses
+    import warnings
+
+    import torch.nn.functional as F
+
+    cfg, params = model.config, model.params()
+    toks = torch.from_numpy(prompts[0][:256]).cuda()
+    x = F.embedding(toks.long(), params["embed"]["tokens"])[None]
+    y = tf._norm(x, {"scale": params["layers"]["ln2"]["scale"][0]}, cfg.norm,
+                 cfg.norm_eps)
+    args = (y, params["layers"]["moe"]["router"][0],
+            {k: v[0] for k, v in params["layers"]["moe"]["experts"].items()},
+            dataclasses.replace(cfg.gate, drop_tokens=False))
+    def host_syncs(fn):
+        """fn's result and the synchronizing operations it made."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, [str(w.message)[:120] for w in caught
+                     if "called a synchronizing" in str(w.message)]
+
+    (got, aux), syncs = host_syncs(lambda: moe.moe_ffn(
+        *args, activation=cfg.activation, train=False))
+    if syncs:
+        fail(f"moe serve: the MoE FFN made the host wait: {syncs}")
+    # the detector itself: reading a value back must register
+    _, control = host_syncs(lambda: y.sum().item())
+    kernel_gmm = moe.gmm
+    moe.gmm = lambda lhs, rhs, gs: gm.gmm_plain(lhs, rhs, gs)
+    try:
+        want, _ = moe.moe_ffn(*args, activation=cfg.activation, train=False)
+    finally:
+        moe.gmm = kernel_gmm
+    torch.cuda.synchronize()
+    if got.shape != (1, 256, cfg.hidden_size) or not (
+            torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail("moe serve: MoE FFN wrong shape or non-finite")
+    diff = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    if diff > MOE_FFN_TOL_REL * top:
+        fail(f"moe serve: layer-0 MoE FFN kernel vs plain gmm: max-abs "
+             f"{diff} > {MOE_FFN_TOL_REL} x {top}")
+    return {"max_abs_diff": diff, "max_abs_out": top,
+            "expert_load": aux["expert_load"].tolist(), "host_syncs": 0,
+            "sync_detector_sees_item": bool(control)}
+
+
+def moe_serve_phase(torch, zoo, InferenceEngineV2, pa, gm, moe, tf):
+    """Returns (moe serve line, its profile line, launches on the main
+    path)."""
+    over = dict(preset="mixtral-8x7b", vocab=MOE_VOCAB,
+                num_layers=MOE_SERVE_LAYERS)
+    model, eng, ref_out, _, _ = serve_once(torch, zoo, InferenceEngineV2,
+                                           **over)
+    del model, eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    gm.reset_launch_counts()
+    model, eng, out, wall, prompts = serve_once(torch, zoo,
+                                                InferenceEngineV2, **over)
+    launches = {**pa.LAUNCHES, **gm.LAUNCHES}
+    if sorted(out) != list(range(8)) or any(len(v) != NEW_TOKENS
+                                            for v in out.values()):
+        fail(f"moe serve: token counts "
+             f"{[len(out.get(u, [])) for u in range(8)]}")
+    if out != ref_out:
+        fail("moe serve: a second engine from the same seed gave other "
+             "streams")
+    per_forward = 3 * MOE_SERVE_LAYERS  # wg, wi, wo in every layer
+    if min(launches["paged_decode"], launches["paged_prefill"],
+           launches["gmm"]) <= 0 or launches["gmm"] % per_forward:
+        fail(f"moe serve: launches {launches}: every kernel of the path "
+             f"must run, gmm a multiple of {per_forward}")
+    agree = moe_ffn_agrees(torch, moe, gm, tf, model, prompts)
+    st = eng.stats
+    ttft = sorted(eng.latency["ttft_s"])
+    gen = sum(len(v) for v in out.values())
+    prompt_tokens = sum(len(p) for p in prompts)
+    serve = {
+        "model": "mixtral-8x7b",
+        "layers": f"{MOE_SERVE_LAYERS} of 32",
+        "params": model.config.num_params(),
+        "active_params": model.config.active_params(),
+        "dtype": "bfloat16", "requests": 8, "prompt_tokens": prompt_tokens,
+        "generated_tokens": gen, "wall_s": wall,
+        "generated_tokens_per_s": gen / wall,
+        "total_tokens_per_s": (gen + prompt_tokens) / wall,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "decode_token_p50_s": float(np.median(eng.latency["decode_token_s"])),
+        "prefill_kernel_steps": st["prefill_kernel_steps"],
+        "decode_kernel_steps": st["decode_kernel_steps"],
+        "burst_steps": st["burst_steps"],
+        "prefill_gather_fallbacks": st["prefill_gather_fallbacks"],
+        "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "launches": launches, "model_forwards": launches["gmm"] // per_forward,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "moe_ffn_kernel_vs_plain": agree, "deterministic_rerun": True,
+    }
+    del model, eng
+    torch.cuda.empty_cache()
+    prof_out, prof_wall, prof = serve_once(torch, zoo, InferenceEngineV2,
+                                           profile=True, **over)
+    if prof_out != ref_out:
+        fail("moe serve: the profiled run gave other streams")
+    profile = device_breakdown(torch, prof, prof_wall, gen)
+    del prof
+    torch.cuda.empty_cache()
+    return serve, profile, launches
+
+
+def moe_train_phase(torch, zoo, initialize, fa, gm):
+    """Returns (moe train line, its profile line, launches on the main
+    path)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = zoo.get_model("mixtral-8x7b", num_layers=MOE_TRAIN_LAYERS,
+                          dtype=torch.float32, seed=SEED)
+    cfg = model.config
+    engine, *_ = initialize(model=model, config=dict(MOE_TRAIN_CONFIG))
+    _, data = fixed_batches(cfg.vocab_size, MOE_TRAIN_MICRO)
+
+    def losses_of(loss):
+        m = engine.last_metrics
+        return [float(loss), float(m["lm_loss"]), float(m["aux_loss"])]
+
+    losses = [losses_of(engine.train_batch(data))]  # warm-up step
+    fa.reset_launch_counts()
+    gm.reset_launch_counts()
+    step_s = []
+    for _ in range(TRAIN_MEASURED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(data)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(losses_of(loss))
+    launches = {**fa.LAUNCHES, **gm.LAUNCHES}
+    L, steps, gas = MOE_TRAIN_LAYERS, TRAIN_MEASURED, MOE_TRAIN_GAS
+    want = {"flash_fwd": steps * 2 * L * gas,  # forward + remat replay
+            "flash_bwd_dkdv": steps * L * gas,
+            "flash_bwd_dq": steps * L * gas,
+            "gmm": steps * 6 * L * gas,  # wg, wi, wo, twice with remat
+            "gmm_transposed": steps * 3 * L * gas,
+            "tgmm": steps * 3 * L * gas}
+    if launches != want:
+        fail(f"moe train: launches {launches}, remat implies {want}")
+    flat = np.asarray(losses)
+    if not np.all(np.isfinite(flat)) or flat[-1, 0] >= flat[0, 0] \
+            or flat[-1, 1] >= flat[0, 1]:
+        fail(f"moe train: losses {losses} not finite and falling")
+    gnorm = float(engine.get_global_grad_norm())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = MOE_TRAIN_MICRO * gas * TRAIN_SEQ
+    p50 = float(np.median(step_s))
+    flops_tok = 6 * cfg.active_params() + 12 * L * cfg.hidden_size * TRAIN_SEQ
+    train = {
+        "model": "mixtral-8x7b", "layers": f"{L} of 32",
+        "params": cfg.num_params(), "active_params": cfg.active_params(),
+        "dtype": "bfloat16 compute, fp32 masters", "micro": MOE_TRAIN_MICRO,
+        "gas": gas, "seq": TRAIN_SEQ, "tokens_per_step": tokens,
+        "step_s": step_s, "step_ms_p50": p50 * 1e3,
+        "tokens_per_s": tokens / p50,
+        "mfu": tokens / p50 * flops_tok / PEAK_FLOPS["bfloat16"],
+        "flops_per_token": flops_tok, "peak_mem_gb": peak_gb,
+        "losses_total_lm_aux": losses, "grad_norm": gnorm,
+        "global_steps": engine.global_steps, "launches": launches,
+        "launches_per_step": {k: v // steps for k, v in launches.items()},
+    }
+    from torch.profiler import ProfilerActivity
+
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+    prof.__enter__()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_batch(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.__exit__(None, None, None)
+    profile = device_breakdown(torch, prof, wall, 1, unit="step")
+    del prof, engine, model
+    torch.cuda.empty_cache()
+    return train, profile, launches
+
+
 def main():
     import torch
 
@@ -646,7 +1027,9 @@ def main():
     from deepspeed_tpu_torch.models import zoo
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.parallel import moe
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -654,7 +1037,7 @@ def main():
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     # 1. build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     secs = build.build()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s)")
     for src in build.SOURCES:
@@ -677,7 +1060,13 @@ def main():
              for case in FLASH_CASES
              for name, dtype in (("float32", torch.float32),
                                  ("bfloat16", torch.bfloat16))}
+    # 2c. grouped matmuls
+    gmm = {(name, case): check_gmm(torch, gm, timer, dtype, case)
+           for case in GMM_CASES
+           for name, dtype in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16))}
     del timer
+    torch.cuda.empty_cache()
     log("kernels agree with their plain versions")
 
     # 3. serve: run 1 warms up and is the determinism reference; run 2
@@ -739,6 +1128,16 @@ def main():
     # around the measured steps
     train, train_profile, train_launches = train_phase(torch, zoo,
                                                        initialize, fa, tf)
+    log(f"train: {train['step_ms_p50']:.1f} ms per step")
+
+    # 5. MoE serve, 6. MoE train: the Llama models are gone
+    moe_serve, moe_serve_profile, moe_serve_launches = moe_serve_phase(
+        torch, zoo, InferenceEngineV2, pa, gm, moe, tf)
+    log(f"moe serve: {moe_serve['wall_s']:.2f} s")
+    moe_train, moe_train_profile, moe_train_launches = moe_train_phase(
+        torch, zoo, initialize, fa, gm)
+    log(f"moe train: {moe_train['step_ms_p50']:.1f} ms per step; "
+        f"{time.perf_counter() - t_start:.0f} s since the build began")
 
     def entry(name, replaces, res, other):
         b = res["bfloat16"]
@@ -780,6 +1179,31 @@ def main():
                           for dt, case in flash
                           if (dt, case) != ("bfloat16", "smoke")}}
 
+    def gmm_entry(name, line):
+        b = gmm[("bfloat16", "train_wi")][name]
+        return {"name": name, "route": "cuda",
+                "source": "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
+                "replaces": f"deepspeed_tpu/ops/pallas/grouped_matmul.py:"
+                            f"{line}",
+                "launches": moe_train_launches[name],
+                "launches_by_path": {"moe_serve": moe_serve_launches[name],
+                                     "moe_train": moe_train_launches[name]},
+                "max_abs_err": b["max_abs_err"],
+                "max_rel_err": b["max_rel_err"],
+                "ms": b["ms"], "plain_ms": b["plain_ms"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": b["library_ms"],
+                "library_call": "torch._grouped_mm with offs = cumsum of "
+                                "the group sizes (operand layouts prepared "
+                                "outside the timed call)",
+                "library_note": b.get("library_note"),
+                "dtype": "bfloat16",
+                "shape": gmm[("bfloat16", "train_wi")]["shape"],
+                "decode": gmm[("bfloat16", "decode")][name],
+                "other": {f"{dt}/{case}": gmm[(dt, case)][name]
+                          for dt, case in gmm
+                          if (dt, case) != ("bfloat16", "train_wi")}}
+
     kernels = {"kernels": [
         entry("paged_decode",
               "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec, None),
@@ -789,12 +1213,19 @@ def main():
         flash_entry("flash_fwd", 150),
         flash_entry("flash_bwd_dkdv", 268),
         flash_entry("flash_bwd_dq", 326),
+        gmm_entry("gmm", 129),
+        gmm_entry("gmm_transposed", 129),
+        gmm_entry("tgmm", 212),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"serve_profile": profile}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_profile": train_profile}), flush=True)
+    print(json.dumps({"moe_serve": moe_serve}), flush=True)
+    print(json.dumps({"moe_serve_profile": moe_serve_profile}), flush=True)
+    print(json.dumps({"moe_train": moe_train}), flush=True)
+    print(json.dumps({"moe_train_profile": moe_train_profile}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

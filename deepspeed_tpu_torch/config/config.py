@@ -3,10 +3,11 @@ runs (port of ``deepspeed_tpu/config/config.py``).
 
 Parsed: the batch triple and its solver (``resolve_batch_size``),
 ``steps_per_print``, ``gradient_clipping``, ``seed``, the ``bf16`` and
-``fp16`` blocks, ``optimizer``, ``scheduler`` and
-``zero_optimization.stage``. A block or switch of the JAX schema that
-this package does not run raises ``NotImplementedError`` naming its
-ROADMAP item: nothing the JAX engine would act on is silently ignored.
+``fp16`` blocks, ``optimizer``, ``scheduler``,
+``zero_optimization.stage`` and the ``moe`` block (``ep_size`` 1). A
+block or switch of the JAX schema that this package does not run raises
+``NotImplementedError`` naming its ROADMAP item: nothing the JAX engine
+would act on is silently ignored.
 Keys that neither schema knows are ignored with a warning, as the JAX
 config does.
 """
@@ -31,7 +32,6 @@ UNPORTED_BLOCKS = {
     "activation_checkpointing": f"{_A} 11 (activation checkpointing "
                                 "policies; the model's `remat` switch "
                                 "recomputes every layer)",
-    "moe": f"{_A} 9 (MoE)",
     "sparse_attention": "ROADMAP queue B item 9 (block-sparse attention)",
     "kernels": f"{_A} 3 (kernel registry and table)",
     "performance": f"{_A} 4 (dispatch-ahead, input prefetch, fp8 MLP)",
@@ -132,6 +132,35 @@ class ZeroConfig:
                 f"zero_optimization.stage must be 0-3, got {self.stage}")
 
 
+@dataclass
+class MoEConfig:
+    """The JAX ``moe`` block. The engine applies ``impl`` to an MoE
+    model's config; the other fields are the model zoo's defaults, as in
+    the JAX engine. On one card ``ep_size`` must be 1."""
+
+    enabled: bool = False
+    ep_size: int = 1
+    capacity_factor: float = 1.25
+    eval_capacity_factor: float = 2.0
+    min_capacity: int = 4
+    top_k: int = 2
+    drop_tokens: bool = True
+    use_rts: bool = False
+    aux_loss_weight: float = 0.01
+    z_loss_weight: float = 0.0
+    impl: str = "auto"  # auto | grouped | einsum
+
+    def validate(self) -> None:
+        if self.enabled and self.ep_size > 1:
+            raise _unported(
+                f"moe.ep_size={self.ep_size}",
+                f"{_A} 9 (the ep > 1 all-to-all dispatch), over the ranks "
+                f"of item 5")
+        if self.impl not in ("auto", "grouped", "einsum"):
+            raise ValueError(f"moe.impl must be auto, grouped or einsum, "
+                             f"got {self.impl!r}")
+
+
 def _block(klass, data, name):
     """A dataclass block from a dict (None means defaults); unknown keys
     warn, as the JAX ConfigModel does."""
@@ -163,6 +192,7 @@ class Config:
     optimizer: Optional[OptimizerConfig] = None
     scheduler: Optional[SchedulerConfig] = None
     zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
+    moe: MoEConfig = field(default_factory=MoEConfig)
 
     @classmethod
     def from_dict(cls, data: Optional[Dict[str, Any]]) -> "Config":
@@ -183,10 +213,10 @@ class Config:
                 raise _unported(f"zero_optimization.{name}={value!r}", item)
         for name in ZERO_NOOP_KEYS:
             zero.pop(name, None)
-        scalars = {f.name for f in dataclasses.fields(cls)} - {
-            "bf16", "fp16", "optimizer", "scheduler", "zero_optimization"}
-        known = (scalars | {"bf16", "fp16", "optimizer", "scheduler",
-                            "zero_optimization"}
+        blocks = {"bf16", "fp16", "optimizer", "scheduler",
+                  "zero_optimization", "moe"}
+        scalars = {f.name for f in dataclasses.fields(cls)} - blocks
+        known = (scalars | blocks
                  | set(UNPORTED_BLOCKS) | set(UNPORTED_SWITCHES))
         for key in sorted(set(data) - known):
             warnings.warn(f"Config: ignoring unknown config key '{key}'")
@@ -200,7 +230,8 @@ class Config:
             scheduler=(None if data.get("scheduler") is None else
                        _block(SchedulerConfig, data["scheduler"],
                               "scheduler")),
-            zero_optimization=_block(ZeroConfig, zero, "zero_optimization"))
+            zero_optimization=_block(ZeroConfig, zero, "zero_optimization"),
+            moe=_block(MoEConfig, data.get("moe"), "moe"))
         cfg.validate()
         return cfg
 
@@ -219,6 +250,7 @@ class Config:
         if self.gradient_clipping < 0:
             raise ValueError("gradient_clipping must be >= 0")
         self.zero_optimization.validate()
+        self.moe.validate()
 
     def resolve_batch_size(self, dp_world_size: int) -> None:
         """Solve train_batch = micro x GAS x dp (the JAX solver,
@@ -287,4 +319,4 @@ def load_config(config) -> Config:
 
 
 __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "BF16Config",
-           "FP16Config", "ZeroConfig", "load_config"]
+           "FP16Config", "ZeroConfig", "MoEConfig", "load_config"]

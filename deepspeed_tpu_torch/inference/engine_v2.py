@@ -54,9 +54,11 @@ class _QueuedRequest:
 
 
 class InferenceEngineV2:
-    """Serve a ``TransformerLM`` with ragged continuous batching on one
-    device. ``device=None`` is the card (an error without CUDA); the
-    model's weights must already live on that device."""
+    """Serve a ``TransformerLM`` (dense, or an ``MoETransformerLM``, whose
+    layers the runner sends through the MoE dispatch) with ragged
+    continuous batching on one device. ``device=None`` is the card (an
+    error without CUDA); the model's weights must already live on that
+    device."""
 
     def __init__(self, model: TransformerLM, kv_blocks: int = 256,
                  kv_block_size: int = 16, max_tokens_per_step: int = 128,

@@ -19,11 +19,15 @@ is harmless.
 Attention in ``ragged_prefill_forward`` and ``ragged_decode_forward``
 goes through the hand-written paged kernels (``ops/paged_attention.py``);
 ``ragged_forward`` is the JAX package's own plain gather path, computed
-outside any kernel with the same cast points.
+outside any kernel with the same cast points. A layer that holds
+``moe`` (``MoETransformerLM``) runs its FFN through the dropless MoE
+dispatch (``parallel/moe.py``, the grouped-matmul kernels) on every
+path.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Tuple
 
@@ -35,6 +39,7 @@ from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     apply_rope, rope_tables)
 from deepspeed_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                      paged_prefill_attention)
+from deepspeed_tpu_torch.parallel.moe import moe_ffn
 
 Params = Dict[str, Any]
 
@@ -73,6 +78,8 @@ def _qkv(cfg: TransformerConfig, layer_params, y, rope):
 
 
 def _mlp(cfg: TransformerConfig, layer_params, x):
+    if "moe" in layer_params:
+        return _moe_mlp(cfg, layer_params, x)
     mp = layer_params["mlp"]
     y = _norm(x, layer_params["ln2"], cfg.norm, cfg.norm_eps)
     if cfg.activation == "swiglu":
@@ -86,6 +93,19 @@ def _mlp(cfg: TransformerConfig, layer_params, x):
     if cfg.use_biases:
         out = out + mp["bo"]
     return x + out
+
+
+def _moe_mlp(cfg, layer_params, x):
+    """MoE FFN for the serving runners. Token dropping is off: serving
+    routes every token (capacity = tokens)."""
+    y = _norm(x, layer_params["ln2"], cfg.norm, cfg.norm_eps)
+    flat = y[None] if y.dim() == 2 else y  # [1, T, H] / [S, Tq, H]
+    gate = dataclasses.replace(cfg.gate, drop_tokens=False)
+    out, _aux = moe_ffn(flat, layer_params["moe"]["router"],
+                        layer_params["moe"]["experts"], gate,
+                        activation=cfg.activation, train=False,
+                        impl=cfg.moe_impl)
+    return x + (out[0] if y.dim() == 2 else out)
 
 
 def _attn_out(cfg: TransformerConfig, layer_params, attn):

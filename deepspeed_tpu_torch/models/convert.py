@@ -1,5 +1,6 @@
-"""Carry a JAX parameter tree across into a ``TransformerLM``, and a
-tree of tensors back out as numpy.
+"""Carry a JAX parameter tree across into a ``TransformerLM`` (an
+``MoETransformerLM`` for an MoE config), and a tree of tensors back out
+as numpy.
 
 The JAX runner keeps fp32 params and casts each to the compute type at
 use (``.astype(dt)``); here every leaf is stored once, already in the
@@ -16,6 +17,8 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch._device import DeviceLike
+from deepspeed_tpu_torch.models.moe_transformer import (MoETransformerConfig,
+                                                        MoETransformerLM)
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     TransformerLM)
 
@@ -23,13 +26,16 @@ from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
 def params_from_jax(tree: Mapping[str, Any], cfg: TransformerConfig,
                     device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> TransformerLM:
-    """Build a ``TransformerLM`` whose leaves are copies of ``tree`` (the
-    JAX ``init_params`` tree, leaves as numpy arrays or anything
-    ``np.asarray`` reads). ``dtype`` overrides ``cfg.dtype``. Raises on a
-    missing or extra leaf, or a shape that differs."""
+    """Build a ``TransformerLM`` (``MoETransformerLM`` for an MoE
+    config) whose leaves are copies of ``tree`` (the JAX ``init_params``
+    tree, leaves as numpy arrays or anything ``np.asarray`` reads).
+    ``dtype`` overrides ``cfg.dtype``. Raises on a missing or extra leaf,
+    or a shape that differs."""
     if dtype is not None and dtype != cfg.dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    model = TransformerLM(cfg, device=device, seed=None)
+    cls = MoETransformerLM if isinstance(cfg, MoETransformerConfig) \
+        else TransformerLM
+    model = cls(cfg, device=device, seed=None)
 
     def copy(dst: Mapping[str, Any], src: Mapping[str, Any], path: str):
         if set(dst) != set(src):

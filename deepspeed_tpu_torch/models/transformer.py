@@ -407,7 +407,9 @@ class TransformerLM(nn.Module):
         if seed is not None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
-        self.tree = self._build(param_shapes(config), dev, gen)
+        self.tree = self._build(self.param_shapes(config), dev, gen)
+
+    param_shapes = staticmethod(param_shapes)
 
     def _build(self, node, dev, gen):
         if _is_leaf(node):
@@ -419,7 +421,14 @@ class TransformerLM(nn.Module):
         children = {k: self._build(v, dev, gen) for k, v in node.items()}
         if all(isinstance(c, nn.Parameter) for c in children.values()):
             return nn.ParameterDict(children)
-        return nn.ModuleDict(children)
+        # a node with both leaves and subtrees (the MoE ``layers.moe``:
+        # router beside experts) registers its leaves on the ModuleDict
+        mod = nn.ModuleDict({k: c for k, c in children.items()
+                             if not isinstance(c, nn.Parameter)})
+        for k, c in children.items():
+            if isinstance(c, nn.Parameter):
+                mod.register_parameter(k, c)
+        return mod
 
     @property
     def device(self) -> torch.device:
@@ -429,9 +438,11 @@ class TransformerLM(nn.Module):
         """The parameter tree as nested dicts of tensors (the runner's
         ``params`` argument, the JAX tree's counterpart)."""
         def walk(mod):
-            return {k: (walk(v) if isinstance(v, (nn.ModuleDict,
-                                                  nn.ParameterDict))
-                        else v) for k, v in mod.items()}
+            if isinstance(mod, nn.ParameterDict):
+                return dict(mod.items())
+            tree = {k: walk(v) for k, v in mod.items()}
+            tree.update(mod.named_parameters(recurse=False))
+            return tree
         return walk(self.tree)
 
     # The JAX model protocol. ``apply`` replaces nn.Module.apply (which

@@ -1,6 +1,6 @@
 """Model zoo presets (port of ``deepspeed_tpu/models/zoo.py``): the
-dense GPT-2 / Llama / Mistral / Qwen2 / Phi-3 / OPT / Falcon presets.
-The MoE presets wait for the MoE slice."""
+dense GPT-2 / Llama / Mistral / Qwen2 / Phi-3 / OPT / Falcon presets and
+the Mixtral / Qwen2-MoE presets (``models/moe_transformer.py``)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ import dataclasses
 from typing import Optional
 
 from deepspeed_tpu_torch._device import DeviceLike
+from deepspeed_tpu_torch.models.moe_transformer import (MoETransformerConfig,
+                                                        MoETransformerLM)
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     TransformerLM)
 
@@ -59,15 +61,30 @@ CONFIGS = {
                               num_heads=4, max_seq_len=128),
 }
 
-# presets of the JAX zoo that this package does not build yet
-MOE_PRESETS = ("mixtral-8x7b", "qwen2-moe-a14b", "tiny-moe")
+
+def _moe(h, L, heads, kv, ffn, E, k, vocab, ctx, theta):
+    return MoETransformerConfig(
+        vocab_size=vocab, hidden_size=h, num_layers=L, num_heads=heads,
+        num_kv_heads=kv, ffn_size=ffn, max_seq_len=ctx, pos_emb="rope",
+        norm="rmsnorm", activation="swiglu", tie_embeddings=False,
+        rope_theta=theta, num_experts=E, top_k=k)
+
+
+CONFIGS.update({
+    "mixtral-8x7b": _moe(4096, 32, 32, 8, 14336, E=8, k=2, vocab=32000,
+                         ctx=32768, theta=1000000.0),
+    "qwen2-moe-a14b": _moe(3584, 28, 28, 4, 2560, E=64, k=8, vocab=151936,
+                           ctx=8192, theta=1000000.0),
+    "tiny-moe": MoETransformerConfig(
+        vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+        max_seq_len=128, pos_emb="rope", norm="rmsnorm",
+        activation="swiglu", remat=False, num_experts=4, top_k=2),
+})
 
 
 def get_config(name: str, **overrides) -> TransformerConfig:
-    if name in MOE_PRESETS:
-        raise NotImplementedError(
-            f"'{name}' is a MoE preset: the MoE transformer is ROADMAP "
-            "queue A item 9 (MoE) and is not ported yet")
+    """A preset's config (an ``MoETransformerConfig`` for the MoE ones),
+    optionally with fields overridden."""
     if name not in CONFIGS:
         raise ValueError(f"unknown model '{name}'; known: {sorted(CONFIGS)}")
     return dataclasses.replace(CONFIGS[name], **overrides)
@@ -78,9 +95,11 @@ def get_model(name: str, *, device: DeviceLike = None,
     """Instantiate a preset with weights drawn from ``seed`` on
     ``device`` (the card unless the caller says otherwise), optionally
     overriding config fields (e.g. ``dtype=torch.float32``,
-    ``num_layers=2``)."""
-    return TransformerLM(get_config(name, **overrides), device=device,
-                         seed=seed)
+    ``num_layers=2``); a ``MoETransformerLM`` for the MoE presets."""
+    cfg = get_config(name, **overrides)
+    cls = MoETransformerLM if isinstance(cfg, MoETransformerConfig) \
+        else TransformerLM
+    return cls(cfg, device=device, seed=seed)
 
 
-__all__ = ["CONFIGS", "MOE_PRESETS", "get_config", "get_model"]
+__all__ = ["CONFIGS", "get_config", "get_model"]

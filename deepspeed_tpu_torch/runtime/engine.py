@@ -6,7 +6,9 @@ pulls ``gradient_accumulation_steps`` microbatches (dicts of numpy arrays,
 moved to the engine's device), back-propagates ``loss * scale / gas``
 through each, then applies one optimizer step: the fp16 loss-scale
 overflow skip, the global-norm clip and AdamW on the fp32 masters, and
-the compute params recast from them.
+the compute params recast from them. An ``MoETransformerLM`` trains the
+same way; its loss is the LM loss plus the routers' aux loss, and the
+config's ``moe.impl`` is applied to its config, as the JAX engine does.
 
 The engine takes its fp32 masters from the model's current tensors (a
 model built in fp32 shares them, so its parameters follow training) and
@@ -32,6 +34,7 @@ import torch
 
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.config.config import Config, load_config
+from deepspeed_tpu_torch.models import moe_transformer
 from deepspeed_tpu_torch.models.transformer import loss_fn
 from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
                                                      init_loss_scale,
@@ -47,8 +50,9 @@ logger = logging.getLogger(__name__)
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, collate_fn=None,
                config=None, config_params=None, device: DeviceLike = None):
-    """Reference-parity entry point. ``model`` is a ``TransformerLM``
-    (``models/zoo.get_model``); ``device`` defaults to the card.
+    """Reference-parity entry point. ``model`` is a ``TransformerLM`` or
+    an ``MoETransformerLM`` (``models/zoo.get_model``); ``device``
+    defaults to the card.
     Returns (engine, optimizer_view, dataloader, lr_schedule); the
     dataloader is None (not ported yet)."""
     if model is None:
@@ -102,8 +106,14 @@ class Engine:
         self.gradient_accumulation_steps = config.gradient_accumulation_steps
         self.train_batch_size = config.train_batch_size
         self.compute_dtype = config.compute_dtype
-        self.model_config = dataclasses.replace(model.config,
-                                                dtype=self.compute_dtype)
+        over = {"dtype": self.compute_dtype}
+        if isinstance(model.config, moe_transformer.MoETransformerConfig):
+            self._loss_fn = moe_transformer.loss_fn
+            if config.moe.impl != "auto":
+                over["moe_impl"] = config.moe.impl
+        else:
+            self._loss_fn = loss_fn
+        self.model_config = dataclasses.replace(model.config, **over)
 
         self.lr_schedule = get_lr_schedule(config.scheduler,
                                            base_lr=self._config_lr())
@@ -165,11 +175,12 @@ class Engine:
         batches = self._next_microbatches(data_iter, gas)
         fp16 = self.config.fp16.enabled
         scale = self.loss_scale_state.scale if fp16 else 1.0
-        losses = []
+        losses, model_metrics = [], []
         for mb in batches:
-            loss, _aux = loss_fn(self.model_config, self.params, mb)
+            loss, aux = self._loss_fn(self.model_config, self.params, mb)
             (loss * scale / gas).backward()
             losses.append(loss.detach())
+            model_metrics.append(aux)
         grads = tree_map(lambda p: p.grad, self.params)
         overflow = has_overflow(g for _, g in leaves(grads)) if fp16 else False
         lr = self.get_lr()[0]
@@ -190,6 +201,12 @@ class Engine:
         self.last_metrics = {"loss": mean_loss, "grad_norm": gnorm, "lr": lr,
                              "loss_scale": self.loss_scale_state.scale,
                              "overflow": overflow}
+        # the model's own metrics (an MoE loss's lm_loss and aux_loss),
+        # averaged over the microbatches
+        for key in model_metrics[0]:
+            if key not in self.last_metrics:
+                self.last_metrics[key] = torch.stack(
+                    [m[key].detach().float() for m in model_metrics]).mean()
         if self.global_steps % self.config.steps_per_print == 0:
             logger.info(f"step={self.global_steps}, loss={float(mean_loss):.4f}, "
                         f"lr={lr:.3e}, grad_norm={float(gnorm):.3f}")
@@ -197,8 +214,8 @@ class Engine:
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
-        loss, _aux = loss_fn(self.model_config, self.params,
-                             self._to_device(batch))
+        loss, _aux = self._loss_fn(self.model_config, self.params,
+                                   self._to_device(batch))
         return loss
 
     # -- state accessors -----------------------------------------------------

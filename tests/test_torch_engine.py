@@ -156,7 +156,7 @@ def test_data_exhausted_mid_accumulation_raises():
 @pytest.mark.parametrize("extra,match", [
     ({"pipeline": {"stages": 2}}, "item 11"),
     ({"sequence_parallel": {"size": 2}}, "item 11"),
-    ({"moe": {"enabled": True}}, "item 9"),
+    ({"moe": {"enabled": True, "ep_size": 2}}, "item 9"),
     ({"activation_checkpointing": {"policy": "dots_saveable"}}, "item 11"),
     ({"performance": {"pipeline_depth": 2}}, "item 4"),
     ({"zero_optimization": {"stage": 3, "offload_optimizer":

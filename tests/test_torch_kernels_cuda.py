@@ -3,7 +3,10 @@ the card, at Llama-3-8B attention shapes: the paged decode and prefill
 kernels (nh 32, nkv 8, hd 128, block size 16; shuffled block tables,
 ragged context lengths including 0, a dead prefill segment) and the
 three flash attention kernels (B 2, S 2048, 32/8 heads, hd 128, causal;
-a non-causal S 1000 case with three segments; an hd 64 case).
+a non-causal S 1000 case with three segments; an hd 64 case); and the
+grouped matmuls gmm, gmm^T and tgmm at Mixtral-8x7B expert shapes (E 8,
+K 4096, N 14336, 4096 rows in imbalanced groups; 32 decode rows) and at
+odd sizes with an over-sum and an under-sum of the group sizes.
 
 Needs an sm_90 card and nvcc: marked ``cuda`` and skipped elsewhere.
 Run on the card with
@@ -12,7 +15,9 @@ Run on the card with
 
 Tolerances: fp32 max-abs 1e-4 (the two sum in different orders); bf16
 2e-2, one bf16 rounding of outputs of magnitude up to ~4 (both round an
-fp32 result once, and may round to neighbouring values).
+fp32 result once, and may round to neighbouring values). The grouped
+matmuls' sums run over thousands of terms, so their bounds are relative
+to the largest reference entry: 1e-4 in fp32, 2e-2 in bf16.
 """
 
 import numpy as np
@@ -198,3 +203,72 @@ def test_engine_on_card_matches_cpu(card):
         eng.put([0, 1, 2], prompts, max_new_tokens=12)
         outs.append(eng.generate_all())
     assert outs[0] == outs[1]
+
+
+# grouped matmuls: name -> (group sizes, M (None = their sum), K, N)
+GMM_CASES = {
+    "mixtral": ([700, 0, 1000, 300, 64, 1500, 500, 32], None, 4096, 14336),
+    "decode": ([5, 0, 9, 1, 3, 6, 0, 8], None, 4096, 14336),
+    "odd-over-sum": ([40, 40, 40], 100, 33, 45),
+    "odd-under-sum": ([30, 0, 21], 70, 33, 45),
+}
+GMM_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_err(got, want):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_grouped_matmul_kernels_match_plain(card, dtype, case):
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+    sizes, M, K, N = GMM_CASES[case]
+    M = sum(sizes) if M is None else M
+    rng = np.random.default_rng(9)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            card, dtype)
+
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    lhs, rhs, dout = t(M, K), t(len(sizes), K, N), t(M, N)
+    before = dict(gm.LAUNCHES)
+    out = gm.gmm_raw(lhs, rhs, gs)
+    dlhs = gm.gmm_raw(dout, rhs, gs, transpose_rhs=True)
+    drhs = gm.tgmm(lhs, dout, gs)
+    torch.cuda.synchronize()
+    assert {n: gm.LAUNCHES[n] - before[n] for n in before} == {
+        "gmm": 1, "gmm_transposed": 1, "tgmm": 1}
+    assert out.dtype == dlhs.dtype == drhs.dtype == dtype
+    for got, want in ((out, gm.gmm_plain(lhs, rhs, gs)),
+                      (dlhs, gm.gmm_transposed_plain(dout, rhs, gs)),
+                      (drhs, gm.tgmm_plain(lhs, dout, gs))):
+        assert _rel_err(got, want) <= GMM_REL[dtype]
+    end = min(sum(sizes), M)
+    assert torch.all(out[end:] == 0) and torch.all(dlhs[end:] == 0)
+    for e, size in enumerate(sizes):
+        if size == 0:
+            assert torch.all(drhs[e] == 0)
+    # no atomics: a second launch gives the same bits
+    assert torch.equal(gm.tgmm(lhs, dout, gs), drhs)
+
+
+def test_gmm_autograd_on_card_matches_cpu(card):
+    from deepspeed_tpu_torch.ops.grouped_matmul import gmm
+
+    rng = np.random.default_rng(4)
+    sizes = torch.tensor([37, 0, 90, 1], dtype=torch.int32)
+    base = [rng.standard_normal(s).astype(np.float32)
+            for s in ((128, 64), (4, 64, 96))]
+    grads = []
+    for dev in ("cpu", card):
+        lhs, rhs = (torch.tensor(x, device=dev, requires_grad=True)
+                    for x in base)
+        (gmm(lhs, rhs, sizes.to(dev)) ** 2).sum().backward()
+        grads.append((lhs.grad.cpu(), rhs.grad.cpu()))
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
