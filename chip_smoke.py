@@ -29,6 +29,18 @@ Phases, each fatal on failure:
                relative to the largest reference entry; kernel, plain
                version and torch._grouped_mm (a yardstick the port never
                calls) timed with CUDA events.
+  2d. quant  — the quantize kernels against their plain versions, bit for
+               bit (same bytes of codes and scales, same output bits):
+               the blockwise quantize on one layer's mlp.wi of
+               Llama-3-8B ([4096, 14336], bf16 and fp32, block 128 and
+               256, 8 and 4 bits), the KV quantize-on-append at decode
+               (16 tokens) and prefill (256 tokens) for int8, int4 and
+               fp8 into a 2048 x 16 layer pool, and the dequantize of
+               that pool in each rung and of one quantized weight; inputs
+               hold exact .5 ties, all-zero blocks and values at both ends
+               of the grid. Kernel and plain version timed with CUDA
+               events beside the bound (no single PyTorch call computes
+               either function, so there is no library yardstick).
   3. serve   — ``InferenceEngineV2`` over ``get_model("llama3-8b")`` at
                full width and depth with seeded bf16 weights: 8 requests
                (64-512 prompt tokens, two sharing a 256-token prefix),
@@ -37,8 +49,21 @@ Phases, each fatal on failure:
                second engine from the same seed must give identical
                streams, and the paged prefill path must agree with the
                plain gather path on one prefill batch. A third run of
-               the same workload under torch.profiler gives the device
-               time by kernel family and the device's idle share.
+               the same workload on the same model under torch.profiler
+               gives the device time by kernel family and the device's
+               idle share.
+  7. quant serve — right after phase 3, on its model (built once): the
+               same workload with int8, int4 and fp8 KV pools, a second
+               int8 engine (identical streams; profiled), an int8 pool
+               with the host KV tier that pages one request out after 16
+               tokens and back (the restored blocks hold the bytes paged
+               out; no prefill after the resume; 64 tokens), and last
+               int8 weights over a bf16 pool, which quantizes the model
+               in place. Launch counts per run: the append and the
+               dequantize once per layer per forward on the KV runs; the
+               blockwise quantize once per quantized leaf (8) and the
+               dequantize 7 x 32 + 1 times per forward on the weight run.
+               Agreement with phase 3's bf16 streams is reported.
   4. train   — ``deepspeed_tpu_torch.initialize`` + ``train_batch`` on
                Llama-3-8B at full width, 8 of its 32 layers (fp32
                masters from a seed, bf16 compute, AdamW, ZeRO-3 config,
@@ -63,14 +88,15 @@ Phases, each fatal on failure:
                and flash launch counts read around them (exactly what
                remat implies), then one step under torch.profiler.
 Then it prints the kernels line, the serve, profile, train, train
-profile, moe serve, moe serve profile, moe train and moe train profile
-lines, the card's name and power limit (nvidia-smi), and, last, the
-device line.
+profile, moe serve, moe serve profile, moe train, moe train profile,
+quant serve and quant serve profile lines, the run's seconds, the card's
+name and power limit (nvidia-smi), and, last, the device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
 package is not beside it.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -145,6 +171,10 @@ GMM_CASES = {  # group sizes, M (None = their sum), K, N
 # the largest plain output: a bf16 rounding step of the first gmm's
 # output passes through silu and the second gmm
 MOE_FFN_TOL_REL = 2e-2
+# quantize kernels: one layer's mlp.wi of Llama-3-8B; the request the
+# quantized serve pages out and back
+QUANT_SHAPE = (4096, 14336)
+PAGE_OUT_UID = 1
 
 
 def fail(msg):
@@ -570,6 +600,164 @@ def check_gmm(torch, gm, timer, dtype, case):
     return res
 
 
+# -- phase 2d: quantize kernels ----------------------------------------------
+
+
+def quant_values(torch, gen, shape, block, top, dtype):
+    """Seeded values on the card, patterned per block of ``block`` along
+    the last dim: normal blocks, blocks of exact .5 ties on a unit grid
+    (absmax ``top`` makes the scale exactly 1), all-zero blocks, and
+    blocks reaching past both ends of the grid (top - 0.5, -top - 0.5)."""
+    x = torch.randn(shape, generator=gen, device="cuda") * 3
+    xb = x.view(-1, block)
+    ties = torch.randint(-top, top, xb.shape, generator=gen,
+                         device="cuda").float() + 0.5
+    xb[::7] = ties[::7]
+    xb[::7, 0] = top
+    xb[3::11] = 0.0
+    xb[5::13, 0] = top - 0.5
+    xb[5::13, 1] = -top - 0.5
+    return x.to(dtype)
+
+
+def bit_equal(torch, a, b):
+    """Same shape, dtype and bytes (fp8 compared as its bytes)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float8_e4m3fn:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return bool(torch.equal(a, b))
+
+
+def check_quantize(torch, qz, timer, dtype, block, bits):
+    """K1 on one layer's mlp.wi shape against its plain version, bit for
+    bit; bf16 / block 128 / int8 (the weight path's case) also timed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(50 + block + bits)
+    top = (1 << (bits - 1)) - 1
+    x = quant_values(torch, gen, QUANT_SHAPE, block, top, dtype)
+    q, s = qz.quantize_blockwise(x, bits=bits, block=block)
+    q_ref, s_ref = qz._quantize_ref(x, bits, block)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    if not (bit_equal(torch, q, q_ref) and bit_equal(torch, s, s_ref)):
+        fail(f"quantize_blockwise {name} block {block} bits {bits}: not "
+             f"bit-equal to the plain version (codes differ at "
+             f"{int((q != q_ref).sum())}, scales at "
+             f"{int((s != s_ref).sum())})")
+    res = {"bit_equal": True, "max_abs_err": 0.0}
+    if (dtype, block, bits) != (torch.bfloat16, 128, 8):
+        return res
+    n = x.numel()
+    # each value read once, its code and each block's scale written once;
+    # about four fp32 operations a value (|x| and max, divide, round, clip)
+    nbytes = n * x.element_size() + n + s.numel() * 4
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 4 * n, "float32")
+    res["ms"] = timer.ms(lambda: qz.quantize_blockwise(x, bits=8,
+                                                       block=128))
+    res["plain_ms"] = timer.ms(lambda: qz._quantize_ref(x, 8, 128),
+                               iters=3, warmup=1)
+    res["shape"] = {"x": list(QUANT_SHAPE), "dtype": name, "block": block,
+                    "bits": bits}
+    return res
+
+
+def check_kv_append(torch, qz, timer, bits, ntok, dtype):
+    """K2 into a 2048 x 16 layer pool against its plain version (kv_quantize
+    -> kv_pack -> scatter) on the same inputs, bit for bit outside the
+    scratch block; the last 3 tokens are padding routed there."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(60 + ntok)
+    W = HD // 2 if bits == 4 else HD
+    pdt = {8: torch.int8, 4: torch.uint8, "fp8": torch.float8_e4m3fn}[bits]
+    init = torch.randint(0, 256, (KV_BLOCKS, BS, 2, NKV, W), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    pools = [init.clone().view(pdt) for _ in range(2)]
+    scales = [torch.ones((KV_BLOCKS, BS, 2, NKV), device="cuda")
+              for _ in range(2)]
+    slots = torch.randperm((KV_BLOCKS - 1) * BS, generator=gen,
+                           device="cuda")[:ntok]
+    page, offset = slots // BS, slots % BS
+    page[-3:], offset[-3:] = KV_BLOCKS - 1, BS - 1
+    top = {8: 127, 4: 7, "fp8": 448}[bits]
+    k, v = (quant_values(torch, gen, (ntok, NKV, HD), HD, top, dtype)
+            for _ in range(2))
+    qz.kv_quantize_append(pools[0], scales[0], page, offset, k, v, bits)
+    qz.kv_quantize_append_plain(pools[1], scales[1], page, offset, k, v,
+                                bits)
+    torch.cuda.synchronize()
+    if not (bit_equal(torch, pools[0][:-1], pools[1][:-1])
+            and bit_equal(torch, scales[0][:-1], scales[1][:-1])):
+        fail(f"kv_quantize_append bits {bits} ntok {ntok}: not bit-equal "
+             "to kv_quantize -> kv_pack -> scatter")
+    res = {"bit_equal": True, "max_abs_err": 0.0}
+    if bits != 8 or dtype != torch.bfloat16:
+        return res
+    vecs = 2 * ntok * NKV
+    # K and V read once; codes, scales and the page / offset of each
+    # token written / read once
+    nbytes = vecs * HD * k.element_size() + vecs * (W + 4) + 2 * ntok * 8
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 4 * vecs * HD,
+                                             "float32")
+    res["ms"] = timer.ms(lambda: qz.kv_quantize_append(
+        pools[0], scales[0], page, offset, k, v, bits))
+    res["plain_ms"] = timer.ms(lambda: qz.kv_quantize_append_plain(
+        pools[1], scales[1], page, offset, k, v, bits), iters=3, warmup=1)
+    res["shape"] = {"tokens": ntok, "kv_heads": NKV, "head_dim": HD,
+                    "pool": [KV_BLOCKS, BS, 2, NKV, W], "k_dtype":
+                    str(dtype).split(".")[-1]}
+    return res
+
+
+def check_dequant(torch, qz, wq, timer, case):
+    """K3 against its plain version on the same inputs, bit for bit: a
+    2048 x 16 layer pool of each rung into bf16, or one layer's mlp.wi
+    slice quantized at block 128 (QuantizedTensor.to); all timed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(70)
+    if case == "weight":
+        w = torch.randn(QUANT_SHAPE, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        qt = wq.quantize_weight(w)
+        del w
+        payload, sc = qt.q, qt.scale[..., 0]
+        kernel = lambda: qt.to(torch.bfloat16)  # noqa: E731
+    else:
+        W = HD // 2 if case == 4 else HD
+        pdt = {8: torch.int8, 4: torch.uint8,
+               "fp8": torch.float8_e4m3fn}[case]
+        codes = torch.randint(0, 256, (KV_BLOCKS, BS, 2, NKV, W),
+                              generator=gen, device="cuda",
+                              dtype=torch.uint8)
+        if case == "fp8":
+            codes[(codes & 0x7F) == 0x7F] = 0  # no NaN codes
+        payload = codes.view(pdt)
+        sc = torch.rand((KV_BLOCKS, BS, 2, NKV), generator=gen,
+                        device="cuda")
+        scratch = torch.empty((KV_BLOCKS, BS, 2, NKV, HD),
+                              dtype=torch.bfloat16, device="cuda")
+        kernel = lambda: qz.dequantize(payload, sc,  # noqa: E731
+                                       torch.bfloat16, out=scratch)
+    got = kernel().reshape(*payload.shape[:-1], -1)
+    want = qz.dequantize_plain(payload, sc, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not bit_equal(torch, got, want):
+        fail(f"dequantize {case}: not bit-equal to the plain version")
+    n = got.numel()
+    # codes and scales read once, the bf16 values written once; one
+    # multiply a value
+    nbytes = payload.numel() + sc.numel() * 4 + n * 2
+    res = {"bit_equal": True, "max_abs_err": 0.0}
+    res["bound_ms"], res["bound_by"] = bound(nbytes, n, "float32")
+    res["ms"] = timer.ms(kernel)
+    res["plain_ms"] = timer.ms(lambda: qz.dequantize_plain(
+        payload, sc, torch.bfloat16), iters=3, warmup=1)
+    res["shape"] = {"payload": list(payload.shape),
+                    "payload_dtype": str(payload.dtype).split(".")[-1],
+                    "out_dtype": "bfloat16"}
+    return res
+
+
 # -- phase 3: serve ----------------------------------------------------------
 
 
@@ -583,34 +771,58 @@ def prompts_for(seed, vocab=128256):
     return prompts
 
 
-def serve_once(torch, zoo, InferenceEngineV2, profile=False,
-               preset="llama3-8b", vocab=128256, **over):
-    model = zoo.get_model(preset, device="cuda", seed=SEED, **over)
-    eng = InferenceEngineV2(model, kv_blocks=KV_BLOCKS, kv_block_size=BS,
-                            max_tokens_per_step=MAX_TOKENS,
-                            max_seqs_per_step=MAX_SEQS,
-                            max_blocks_per_seq=MAX_BLOCKS,
-                            decode_steps=DECODE_STEPS)
-    prompts = prompts_for(SEED + 1, vocab)
-    prof = None
-    if profile:
-        from torch.profiler import ProfilerActivity
-        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA])
-        prof.__enter__()
+def serve_engine(torch, InferenceEngineV2, model, **engine_kw):
+    return InferenceEngineV2(model, kv_blocks=KV_BLOCKS, kv_block_size=BS,
+                             max_tokens_per_step=MAX_TOKENS,
+                             max_seqs_per_step=MAX_SEQS,
+                             max_blocks_per_seq=MAX_BLOCKS,
+                             decode_steps=DECODE_STEPS, **engine_kw)
+
+
+def start_profile(torch):
+    from torch.profiler import ProfilerActivity
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+    prof.__enter__()
+    return prof
+
+
+def serve_workload(torch, eng, prompts, on_round=None):
+    """The 8-request workload through ``put``, ``serve_step`` and
+    ``generate_all``. ``on_round(eng, out)``, when given, runs after each
+    ``serve_step`` round until it returns True; ``generate_all`` serves
+    the rest. Returns (streams, wall seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.put(list(range(7)), prompts[:7], max_new_tokens=NEW_TOKENS)
     out = {}
+
+    def take(emitted):
+        for uid, toks in emitted.items():
+            out.setdefault(uid, []).extend(toks)
+
     # one round prefills uid 0's first 256 tokens (16 full blocks), which
     # the prefix cache then offers to uid 7
-    for uid, toks in eng.serve_step().items():
-        out.setdefault(uid, []).extend(toks)
+    take(eng.serve_step())
     eng.put([7], prompts[7:], max_new_tokens=NEW_TOKENS)
-    for uid, toks in eng.generate_all().items():
-        out.setdefault(uid, []).extend(toks)
+    if on_round is not None:
+        while eng.state.seqs:
+            take(eng.serve_step())
+            if on_round(eng, out):
+                break
+    take(eng.generate_all())
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def serve_once(torch, zoo, InferenceEngineV2, profile=False,
+               preset="llama3-8b", vocab=128256, model=None, **over):
+    if model is None:
+        model = zoo.get_model(preset, device="cuda", seed=SEED, **over)
+    eng = serve_engine(torch, InferenceEngineV2, model)
+    prompts = prompts_for(SEED + 1, vocab)
+    prof = start_profile(torch) if profile else None
+    out, wall = serve_workload(torch, eng, prompts)
     if prof is not None:
         prof.__exit__(None, None, None)
         return out, wall, prof
@@ -630,7 +842,10 @@ def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
     spans = []
     for e in kern:
         n = e.name.lower()
-        fam = ("paged_decode" if "paged_decode" in n else
+        fam = ("quantize_blockwise" if "quantize_blockwise_kernel" in n else
+               "kv_quantize_append" if "kv_quantize_append_kernel" in n else
+               "dequantize" if "dequantize_kernel" in n else
+               "paged_decode" if "paged_decode" in n else
                "paged_prefill" if "paged_prefill" in n else
                "flash_fwd" if "flash_fwd_kernel" in n else
                "flash_bwd_dkdv" if "flash_bwd_dkdv" in n else
@@ -1014,6 +1229,217 @@ def moe_train_phase(torch, zoo, initialize, fa, gm):
     return train, profile, launches
 
 
+# -- phase 7: quantized serve --------------------------------------------------
+
+
+def agreement(out, ref):
+    """Share of tokens equal, position by position, to ``ref``'s."""
+    same = sum(a == b for u in ref for a, b in zip(out.get(u, []), ref[u]))
+    return same / sum(len(v) for v in ref.values())
+
+
+def model_forwards(st):
+    """Forwards an engine ran: one per prefill (kernel or gather) step and
+    per decode token step (a burst of K runs K)."""
+    return (st["prefill_kernel_steps"] + st["prefill_gather_fallbacks"]
+            + st["decode_kernel_steps"])
+
+
+def quant_run(torch, InferenceEngineV2, pa, qz, model, prompts, ref_out,
+              label, on_round=None, profile=False, **engine_kw):
+    """One serve run of the phase-3 workload on ``model`` with the
+    quantized knobs ``engine_kw``; the launch counts are set to 0 before
+    the engine is built (weight quantization is part of the path) and
+    read after the last token. Returns (line, streams, engine, profiler)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    qz.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = serve_engine(torch, InferenceEngineV2, model, **engine_kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prof = start_profile(torch) if profile else None
+    out, wall = serve_workload(torch, eng, prompts, on_round)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    launches = {**pa.LAUNCHES, **qz.LAUNCHES}
+    if sorted(out) != list(range(8)) or any(len(v) != NEW_TOKENS
+                                            for v in out.values()):
+        fail(f"quant serve {label}: token counts "
+             f"{[len(out.get(u, [])) for u in range(8)]}")
+    st = eng.stats
+    cfg = eng.kv_cache.config
+    bf16_block = dataclasses.replace(cfg, quant_bits=None,
+                                     dtype=torch.bfloat16).bytes_per_block
+    pool_bytes = eng.kv_cache.data.nbytes + (
+        0 if eng.kv_cache.scales is None else eng.kv_cache.scales.nbytes)
+    ttft = sorted(eng.latency["ttft_s"])
+    gen = sum(len(v) for v in out.values())
+    prompt_tokens = sum(len(p) for p in prompts)
+    line = {
+        "run": label, **{k: str(v) for k, v in engine_kw.items()},
+        "generated_tokens": gen, "wall_s": wall,
+        "engine_build_s": build_s,
+        "generated_tokens_per_s": gen / wall,
+        "total_tokens_per_s": (gen + prompt_tokens) / wall,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "decode_token_p50_s": float(np.median(eng.latency["decode_token_s"])),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "bytes_per_block": cfg.bytes_per_block,
+        "bf16_bytes_per_block": bf16_block,
+        "pool_bytes": pool_bytes,
+        "bf16_pool_bytes": bf16_block * cfg.num_blocks,
+        "pool_vs_bf16": pool_bytes / (bf16_block * cfg.num_blocks),
+        "agreement_with_bf16_streams": agreement(out, ref_out),
+        "model_forwards": model_forwards(st),
+        "prefill_kernel_steps": st["prefill_kernel_steps"],
+        "prefill_gather_fallbacks": st["prefill_gather_fallbacks"],
+        "decode_kernel_steps": st["decode_kernel_steps"],
+        "burst_steps": st["burst_steps"],
+        "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "launches": launches,
+    }
+    return line, out, eng, prof
+
+
+def quant_serve_phase(torch, InferenceEngineV2, pa, qz, wq, model, prompts,
+                      ref_out):
+    """Llama-3-8B (phase 3's model, built once) served with int8, int4 and
+    fp8 KV pools, a second int8 engine (determinism; under the
+    profiler), an int8 pool with the host tier and one request paged out
+    and back, and last int8 weights over a bf16 pool, which quantizes
+    the model in place. Returns (quant serve line, its profile line,
+    launches by run)."""
+    L = model.config.num_layers
+    runs, streams = {}, {}
+
+    def kv_gates(label, line):
+        lc, fwd = line["launches"], line["model_forwards"]
+        if lc["kv_quantize_append"] != L * fwd or \
+                lc["dequantize"] != L * fwd or lc["quantize_blockwise"]:
+            fail(f"quant serve {label}: launches {lc} over {fwd} forwards: "
+                 f"kv_quantize_append and dequantize must run once per "
+                 f"layer per forward ({L * fwd}), quantize_blockwise never")
+        if min(lc["paged_decode"], lc["paged_prefill"]) <= 0:
+            fail(f"quant serve {label}: a paged kernel never ran: {lc}")
+
+    for label, bits in (("int8", 8), ("int4", 4), ("fp8", "fp8")):
+        line, out, eng, _ = quant_run(torch, InferenceEngineV2, pa, qz,
+                                      model, prompts, ref_out, label,
+                                      kv_quant_bits=bits)
+        kv_gates(label, line)
+        runs[label], streams[label] = line, out
+        del eng
+    # determinism: a second int8 engine on the same model, profiled
+    line, out, eng, prof = quant_run(torch, InferenceEngineV2, pa, qz,
+                                     model, prompts, ref_out,
+                                     "int8_rerun_profiled", profile=True,
+                                     kv_quant_bits=8)
+    if out != streams["int8"]:
+        fail("quant serve: a second int8-pool engine on the same model "
+             "gave other streams")
+    profile = device_breakdown(torch, prof, line["wall_s"],
+                               line["generated_tokens"])
+    runs["int8_rerun_profiled"] = line
+    del eng, prof
+
+    # page-out and warm resume on an int8 pool with the host tier
+    paged = {}
+
+    def on_round(eng, out):
+        uid, kv = PAGE_OUT_UID, eng.kv_cache
+        if "sess" not in paged:
+            settled = len(eng.state.seqs) == 8 and all(
+                s.pending_prefill == 0 for s in eng.state.seqs.values())
+            if len(out.get(uid, [])) < 16 or not settled:
+                return False
+            if not eng.page_out(uid):
+                fail("quant serve page-out: page_out refused")
+            paged["sess"] = kv.host_tier.peek_session(uid)
+            paged["at_tokens"] = len(out[uid])
+            paged["prefill_tokens"] = eng.scheduler.stats["prefill_tokens"]
+            write = kv.write_blocks
+
+            def read_back(block_ids, payload, scales=None):
+                # the blocks as the restore left them, before any append
+                write(block_ids, payload, scales)
+                paged["read_back"] = kv.read_blocks_host(block_ids)
+            kv.write_blocks = read_back
+            return False
+        # the round after the page-out paged the session back in
+        sess = paged["sess"]
+        if eng.stats["paged_in"] != 1 or "read_back" not in paged:
+            fail(f"quant serve page-out: not resumed ({eng.stats})")
+        payload, scales = paged.pop("read_back")
+        paged["restored_bytes_equal"] = bool(
+            np.array_equal(payload, sess.payload)
+            and np.array_equal(scales, sess.scales))
+        del kv.write_blocks
+        return True
+
+    line, out, eng, _ = quant_run(torch, InferenceEngineV2, pa, qz, model,
+                                  prompts, ref_out, "int8_page_out",
+                                  on_round=on_round, kv_quant_bits=8,
+                                  host_kv_tier=True)
+    kv_gates("int8_page_out", line)
+    if "restored_bytes_equal" not in paged:
+        fail("quant serve page-out: the request was never paged out")
+    paged["paged_out"] = eng.stats["paged_out"]
+    paged["paged_in"] = eng.stats["paged_in"]
+    paged["warm_resume_tokens"] = eng.stats["warm_resume_tokens"]
+    paged["prefill_tokens_after_resume"] = (
+        eng.scheduler.stats["prefill_tokens"] - paged.pop("prefill_tokens"))
+    sess = paged.pop("sess")
+    paged["seen_tokens_at_page_out"] = sess.seen_tokens
+    paged["blocks_paged"] = sess.n_blocks
+    paged["bytes_paged"] = sess.nbytes
+    paged["tokens"] = len(out[PAGE_OUT_UID])
+    paged["stream_equals_unpaged_int8"] = (out[PAGE_OUT_UID]
+                                           == streams["int8"][PAGE_OUT_UID])
+    paged["all_streams_equal_unpaged_int8"] = out == streams["int8"]
+    if not (paged["restored_bytes_equal"] and paged["paged_in"] == 1
+            and paged["prefill_tokens_after_resume"] == 0
+            and paged["tokens"] == NEW_TOKENS):
+        fail(f"quant serve page-out: {paged}")
+    line["page_out"] = paged
+    runs["int8_page_out"] = line
+    del eng
+
+    # int8 weights over a bf16 pool: the model's last use
+    line, out, eng, _ = quant_run(torch, InferenceEngineV2, pa, qz, model,
+                                  prompts, ref_out, "int8_weights",
+                                  quantize_weights="int8")
+    quantized = sorted(
+        k for k, v in wq_leaves(wq, eng.params))
+    lc, fwd = line["launches"], line["model_forwards"]
+    want_k3 = (7 * L + 1) * fwd
+    if (lc["quantize_blockwise"] != len(quantized) or len(quantized) != 8
+            or lc["dequantize"] != want_k3 or lc["kv_quantize_append"]):
+        fail(f"quant serve int8 weights: launches {lc} over {fwd} forwards "
+             f"(quantized leaves {quantized}): quantize_blockwise once per "
+             f"leaf (8), dequantize {want_k3}")
+    line["quantized_leaves"] = quantized
+    line["quantized_fraction"] = wq.quantized_fraction(eng.params)
+    line["weight_bytes"] = sum(v.nbytes for _, v in wq_leaves(wq, eng.params))
+    runs["int8_weights"] = line
+    del eng
+    torch.cuda.empty_cache()
+    launches = {label: r["launches"] for label, r in runs.items()}
+    return {"model": "llama3-8b", "layers": L, "runs": runs}, profile, \
+        launches
+
+
+def wq_leaves(wq, params, path=""):
+    """(path, QuantizedTensor) for every quantized leaf of ``params``."""
+    for k, v in params.items():
+        p = f"{path}.{k}" if path else k
+        if isinstance(v, dict):
+            yield from wq_leaves(wq, v, p)
+        elif isinstance(v, wq.QuantizedTensor):
+            yield p, v
+
+
 def main():
     import torch
 
@@ -1023,12 +1449,14 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.inference import InferenceEngineV2, model_runner
+    from deepspeed_tpu_torch.inference import weight_quant as wq
     from deepspeed_tpu_torch.models import transformer as tf
     from deepspeed_tpu_torch.models import zoo
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import quantization as qz
     from deepspeed_tpu_torch.parallel import moe
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1065,6 +1493,20 @@ def main():
            for case in GMM_CASES
            for name, dtype in (("float32", torch.float32),
                                ("bfloat16", torch.bfloat16))}
+    torch.cuda.empty_cache()
+    # 2d. quantize kernels, bit for bit against their plain versions
+    quant = {(name, block, bits): check_quantize(torch, qz, timer, dtype,
+                                                 block, bits)
+             for name, dtype in (("bfloat16", torch.bfloat16),
+                                 ("float32", torch.float32))
+             for block in (128, 256) for bits in (8, 4)}
+    kv_app = {(bits, ntok): check_kv_append(torch, qz, timer, bits, ntok,
+                                            torch.bfloat16)
+              for bits in (8, 4, "fp8") for ntok in (16, 256)}
+    kv_app[(8, 16, "float32")] = check_kv_append(torch, qz, timer, 8, 16,
+                                                 torch.float32)
+    deq = {case: check_dequant(torch, qz, wq, timer, case)
+           for case in (8, 4, "fp8", "weight")}
     del timer
     torch.cuda.empty_cache()
     log("kernels agree with their plain versions")
@@ -1091,6 +1533,7 @@ def main():
         fail(f"serve: a kernel was never launched on the main path: "
              f"{launches}")
     agree = check_paths_agree(torch, model_runner, model, prompts)
+    ref_prompts = prompts
     ttft = sorted(eng.latency["ttft_s"])
     gen = sum(len(v) for v in out.values())
     prompt_tokens = sum(len(p) for p in prompts)
@@ -1113,16 +1556,25 @@ def main():
         "prefill_vs_gather": agree,
         "deterministic_rerun": True,
     }
-    # a third run of the same workload under torch.profiler: where the
-    # device time goes and how long the device sits idle
-    del model, eng
+    # a third run of the same workload under torch.profiler, on the same
+    # model: where the device time goes and how long the device sits idle
+    del eng
     torch.cuda.empty_cache()
     prof_out, prof_wall, prof = serve_once(torch, zoo, InferenceEngineV2,
-                                           profile=True)
+                                           profile=True, model=model)
     if prof_out != ref_out:
         fail("serve: the profiled run gave other streams")
     profile = device_breakdown(torch, prof, prof_wall, gen)
     del prof
+
+    # 7. quantized serve on the same model (its last use: the int8
+    # weight run quantizes it in place)
+    quant_serve, quant_profile, quant_launches = quant_serve_phase(
+        torch, InferenceEngineV2, pa, qz, wq, model, ref_prompts, ref_out)
+    del model
+    torch.cuda.empty_cache()
+    log("quant serve: " + ", ".join(
+        f"{k} {v['wall_s']:.2f} s" for k, v in quant_serve["runs"].items()))
 
     # 4. train: the serve model is gone; the launch counts are read
     # around the measured steps
@@ -1204,6 +1656,33 @@ def main():
                           for dt, case in gmm
                           if (dt, case) != ("bfloat16", "train_wi")}}
 
+    def quant_entry(name, line, res, other, main_run):
+        note = {"quantize_blockwise":
+                "the TPU _quant_kernel; on the path: weight-only int8 "
+                "(one launch per eligible leaf)",
+                "kv_quantize_append":
+                "the same quantize at block = head_dim (kv_quantize :152), "
+                "fused with kv_pack and the scatter into the pool",
+                "dequantize":
+                "the never-launched TPU _dequant_kernel and kv_dequantize "
+                ":175"}[name]
+        return {"name": name, "route": "cuda",
+                "source": "deepspeed_tpu_torch/ops/csrc/quantization.cu",
+                "replaces": f"deepspeed_tpu/ops/pallas/quantization.py:"
+                            f"{line}",
+                "replaces_note": note,
+                "launches": quant_launches[main_run][name],
+                "launches_by_path": {run: lc[name] for run, lc in
+                                     quant_launches.items()},
+                "max_abs_err": res["max_abs_err"], "bit_equal": True,
+                "ms": res["ms"], "plain_ms": res["plain_ms"],
+                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "library_ms": None,
+                "library_call": "none: no single PyTorch call computes a "
+                                "blockwise absmax quantize or a scaled "
+                                "dequantize",
+                "shape": res["shape"], "other": other}
+
     kernels = {"kernels": [
         entry("paged_decode",
               "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec, None),
@@ -1216,6 +1695,16 @@ def main():
         gmm_entry("gmm", 129),
         gmm_entry("gmm_transposed", 129),
         gmm_entry("tgmm", 212),
+        quant_entry("quantize_blockwise", 72, quant[("bfloat16", 128, 8)],
+                    {f"{n}/block{b}/bits{q}": quant[(n, b, q)]
+                     for n, b, q in quant if (n, b, q) != ("bfloat16", 128,
+                                                           8)},
+                    "int8_weights"),
+        quant_entry("kv_quantize_append", 152, kv_app[(8, 16)],
+                    {"/".join(map(str, k)): v for k, v in kv_app.items()
+                     if k != (8, 16)}, "int8"),
+        quant_entry("dequantize", 82, deq[8],
+                    {str(k): v for k, v in deq.items() if k != 8}, "int8"),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
@@ -1226,6 +1715,10 @@ def main():
     print(json.dumps({"moe_serve_profile": moe_serve_profile}), flush=True)
     print(json.dumps({"moe_train": moe_train}), flush=True)
     print(json.dumps({"moe_train_profile": moe_train_profile}), flush=True)
+    print(json.dumps({"quant_serve": quant_serve}), flush=True)
+    print(json.dumps({"quant_serve_profile": quant_profile}), flush=True)
+    print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ runs (port of ``deepspeed_tpu/config/config.py``).
 Parsed: the batch triple and its solver (``resolve_batch_size``),
 ``steps_per_print``, ``gradient_clipping``, ``seed``, the ``bf16`` and
 ``fp16`` blocks, ``optimizer``, ``scheduler``,
-``zero_optimization.stage`` and the ``moe`` block (``ep_size`` 1). A
+``zero_optimization.stage``, the ``moe`` block (``ep_size`` 1) and the
+``serving`` block (``ServingConfig``, the serving engine's knobs). A
 block or switch of the JAX schema that this package does not run raises
 ``NotImplementedError`` naming its ROADMAP item: nothing the JAX engine
 would act on is silently ignored.
@@ -37,7 +38,6 @@ UNPORTED_BLOCKS = {
     "performance": f"{_A} 4 (dispatch-ahead, input prefetch, fp8 MLP)",
     "checkpoint": f"{_A} 6 (checkpoint and resilience)",
     "resilience": f"{_A} 6 (checkpoint and resilience)",
-    "serving": f"{_A} 8 and 13 (serving configuration)",
     "observability": f"{_A} 14 (observability)",
     "monitor": f"{_A} 14 (observability)",
     "comms_logger": f"{_A} 14 (observability)",
@@ -161,6 +161,83 @@ class MoEConfig:
                              f"got {self.impl!r}")
 
 
+@dataclass
+class ServingConfig:
+    """Serving-engine knobs (``inference/engine_v2.py``), with the JAX
+    ``ServingConfig`` defaults and validation.
+
+    Admission: ``put`` never raises on a full KV pool; requests wait in
+    a FIFO queue, and ``max_queue_depth`` (default unbounded) restores
+    fail-fast backpressure. ``prefix_cache`` shares full KV blocks
+    across requests whose prompt prefixes match by content hash.
+    ``decode_steps`` is the steady-state multi-token decode burst length
+    (1 restores per-token SplitFuse admission). ``kv_quant_bits`` stores
+    KV blocks as codes with one fp32 scale per head vector: 8 (int8), 4
+    (two values per byte) or "fp8" (e4m3); None keeps the unquantized
+    pool. ``host_kv_tier`` attaches a ``host_tier_mb`` host-memory tier
+    below the device pool (``ragged/kv_tier.py``): KV pressure pages
+    cold prefix chains and preempted sessions out in pool-native format
+    instead of discarding them.
+
+    Speculative decoding is not ported: ``spec_k``, ``spec_ngram`` and
+    ``spec_accept_alpha`` are validated and inert, and ``spec_decode`` or
+    ``spec_adaptive_k`` set true raise (ROADMAP queue A item 8); the
+    fleet's ``handoff_wire`` (other than "auto") and ``router`` raise
+    (item 13)."""
+
+    max_queue_depth: Optional[int] = None
+    prefix_cache: bool = True
+    spec_decode: bool = False
+    spec_k: int = 4
+    spec_ngram: int = 3
+    decode_steps: int = 8
+    kv_quant_bits: Optional[Any] = None
+    handoff_wire: str = "auto"
+    host_kv_tier: bool = False
+    host_tier_mb: int = 256
+    spec_adaptive_k: bool = False
+    spec_accept_alpha: float = 0.25
+    router: Optional[Dict[str, Any]] = None
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.max_queue_depth is not None and self.max_queue_depth < 1:
+            raise ValueError(
+                f"serving.max_queue_depth must be >= 1 (or null for "
+                f"unbounded), got {self.max_queue_depth}")
+        for name, lo in (("spec_k", 1), ("spec_ngram", 1),
+                         ("decode_steps", 1), ("host_tier_mb", 1)):
+            if getattr(self, name) < lo:
+                raise ValueError(
+                    f"serving.{name} must be >= {lo}, got "
+                    f"{getattr(self, name)}")
+        if self.kv_quant_bits not in (None, 4, 8, "fp8"):
+            raise ValueError(
+                f"serving.kv_quant_bits must be null, 4, 8 or \"fp8\", "
+                f"got {self.kv_quant_bits}")
+        if self.handoff_wire not in ("auto", "raw", "int8", "int4",
+                                     "fp8"):
+            raise ValueError(
+                f"serving.handoff_wire must be one of auto/raw/int8/"
+                f"int4/fp8, got {self.handoff_wire!r}")
+        if not (0.0 < self.spec_accept_alpha <= 1.0):
+            raise ValueError(
+                f"serving.spec_accept_alpha must be in (0, 1], got "
+                f"{self.spec_accept_alpha}")
+        for name in ("spec_decode", "spec_adaptive_k"):
+            if getattr(self, name):
+                raise _unported(f"serving.{name}=True",
+                                f"{_A} 8 (speculative decoding)")
+        if self.handoff_wire != "auto":
+            raise _unported(f"serving.handoff_wire={self.handoff_wire!r}",
+                            f"{_A} 13 (serving fleet and its KV wire)")
+        if self.router is not None:
+            raise _unported("block 'serving.router'",
+                            f"{_A} 13 (serving fleet)")
+
+
 def _block(klass, data, name):
     """A dataclass block from a dict (None means defaults); unknown keys
     warn, as the JAX ConfigModel does."""
@@ -193,6 +270,7 @@ class Config:
     scheduler: Optional[SchedulerConfig] = None
     zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
 
     @classmethod
     def from_dict(cls, data: Optional[Dict[str, Any]]) -> "Config":
@@ -214,7 +292,7 @@ class Config:
         for name in ZERO_NOOP_KEYS:
             zero.pop(name, None)
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
-                  "zero_optimization", "moe"}
+                  "zero_optimization", "moe", "serving"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         known = (scalars | blocks
                  | set(UNPORTED_BLOCKS) | set(UNPORTED_SWITCHES))
@@ -231,7 +309,8 @@ class Config:
                        _block(SchedulerConfig, data["scheduler"],
                               "scheduler")),
             zero_optimization=_block(ZeroConfig, zero, "zero_optimization"),
-            moe=_block(MoEConfig, data.get("moe"), "moe"))
+            moe=_block(MoEConfig, data.get("moe"), "moe"),
+            serving=_block(ServingConfig, data.get("serving"), "serving"))
         cfg.validate()
         return cfg
 
@@ -319,4 +398,5 @@ def load_config(config) -> Config:
 
 
 __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "BF16Config",
-           "FP16Config", "ZeroConfig", "MoEConfig", "load_config"]
+           "FP16Config", "ZeroConfig", "MoEConfig", "ServingConfig",
+           "load_config"]

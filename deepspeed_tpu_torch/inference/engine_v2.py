@@ -9,9 +9,17 @@ attends through the paged kernels. ``put`` queues requests,
 every live sequence is decoding, else one SplitFuse step), and
 ``generate_all`` drives rounds until every request finishes.
 
-Not ported yet (ROADMAP queue A): speculative decoding, the host KV tier
-with page-out and migration, quantized KV pools, weight-only int8, tensor
-parallelism, and the tracer / metrics hub / flight recorder / journal.
+Quantized serving: ``kv_quant_bits`` (8, 4, "fp8") stores the KV pool
+as codes plus one fp32 scale per head vector; ``quantize_weights="int8"``
+holds the matmul weights as int8 blocks (``weight_quant.py``);
+``host_kv_tier`` pages cold prefix chains and preempted or explicitly
+paged-out sessions (``page_out``) to host memory in the pool's own
+format, and resumes them without re-prefill. The same knobs come in
+through ``serving=ServingConfig(...)``.
+
+Not ported yet (ROADMAP queue A): speculative decoding, session
+migration, tensor parallelism, and the tracer / metrics hub / flight
+recorder / journal.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,11 +35,12 @@ import torch
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.inference import model_runner
 from deepspeed_tpu_torch.inference.ragged import (BlockedAllocator,
-                                                  BlockedKVCache,
-                                                  KVCacheConfig, PrefixCache,
-                                                  StateManager,
+                                                  BlockedKVCache, HostKVTier,
+                                                  KVCacheConfig, PagedSession,
+                                                  PrefixCache, StateManager,
                                                   build_ragged_batch)
 from deepspeed_tpu_torch.inference.scheduler import SplitFuseScheduler
+from deepspeed_tpu_torch.inference.weight_quant import quantize_params
 from deepspeed_tpu_torch.models.transformer import TransformerLM
 
 # latency samples kept per engine (oldest dropped first)
@@ -51,6 +60,11 @@ class _QueuedRequest:
     # original put() time while TTFT is still unmeasured; None once the
     # request has emitted its first token (pre-preemption)
     admit_time: Optional[float] = None
+    # the victim's KV is parked in the host tier (ragged/kv_tier.py):
+    # admission restores blocks and resumes decode instead of
+    # re-prefilling; ``tokens`` carries the folded history anyway as the
+    # fallback if the tier spills the session before readmission
+    paged: bool = False
 
 
 class InferenceEngineV2:
@@ -58,7 +72,15 @@ class InferenceEngineV2:
     layers the runner sends through the MoE dispatch) with ragged
     continuous batching on one device. ``device=None`` is the card (an
     error without CUDA); the model's weights must already live on that
-    device."""
+    device.
+
+    ``quantize_weights="int8"`` quantizes the model's eligible weights in
+    place as the engine takes them: each full-precision leaf's storage is
+    released once its int8 codes exist, so the model itself can no longer
+    run its own forward. ``serving`` (a ``config.ServingConfig``), when
+    given, supplies ``prefix_cache``, ``decode_steps``,
+    ``max_queue_depth``, ``kv_quant_bits``, ``host_kv_tier`` and
+    ``host_tier_mb`` in place of the keyword arguments."""
 
     def __init__(self, model: TransformerLM, kv_blocks: int = 256,
                  kv_block_size: int = 16, max_tokens_per_step: int = 128,
@@ -66,13 +88,32 @@ class InferenceEngineV2:
                  decode_steps: int = 8, prefix_cache: bool = True,
                  max_queue_depth: Optional[int] = None,
                  kv_quant_bits: Optional[object] = None,
+                 quantize_weights: Optional[str] = None,
+                 host_kv_tier: bool = False, host_tier_mb: int = 256,
+                 serving: Optional[Any] = None,
                  device: DeviceLike = None):
+        if serving is not None:
+            # the config block is the source of truth for config-driven
+            # deployments (its own validation already ran)
+            prefix_cache = serving.prefix_cache
+            decode_steps = serving.decode_steps
+            max_queue_depth = serving.max_queue_depth
+            kv_quant_bits = serving.kv_quant_bits
+            host_kv_tier = serving.host_kv_tier
+            host_tier_mb = serving.host_tier_mb
+        if quantize_weights not in (None, "int8"):
+            raise ValueError(f"quantize_weights supports 'int8', got "
+                             f"{quantize_weights!r}")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model weights live on {model.device}, the "
                              f"engine runs on {self.device}")
         self.model, self.cfg = model, model.config
         self.params = model.params()
+        if quantize_weights is not None:
+            # weight-only int8: each leaf's full-precision storage goes as
+            # soon as its codes exist, so the two trees never coexist
+            self.params = quantize_params(self.params)
 
         kv_cfg = KVCacheConfig(
             num_layers=self.cfg.num_layers, kv_heads=self.cfg.kv_heads,
@@ -88,6 +129,12 @@ class InferenceEngineV2:
         # matches a cached prefix are shared by reference and skip prefill
         if prefix_cache:
             self.kv_cache.prefix_cache = PrefixCache(kv_block_size)
+        # host-memory KV tier: KV pressure PAGES blocks out (in the pool's
+        # own storage format) instead of evicting them — cold prefix
+        # chains and preempted sessions come back without re-prefill
+        if host_kv_tier:
+            self.kv_cache.host_tier = HostKVTier(
+                capacity_bytes=int(host_tier_mb) << 20)
 
         self.state = StateManager(self.kv_cache,
                                   max_tracked_sequences=4 * max_seqs_per_step,
@@ -109,7 +156,9 @@ class InferenceEngineV2:
                       "queued": 0, "admitted": 0, "preempted": 0,
                       "preempt_reasons": {},
                       "requeued": 0, "truncated": 0,
-                      "prefix_hit_tokens": 0, "burst_steps": 0}
+                      "prefix_hit_tokens": 0, "burst_steps": 0,
+                      "paged_out": 0, "paged_in": 0,
+                      "warm_resume_tokens": 0}
         # TTFT is put() -> first emitted token; decode latency is the gap
         # between consecutive emitted tokens of one sequence (a burst
         # spreads its round trip evenly over the tokens it produced)
@@ -195,6 +244,17 @@ class InferenceEngineV2:
         scheduler's prefill scan instead."""
         while self._queue and self.can_schedule(len(self._queue[0].tokens)):
             req = self._queue.popleft()
+            if req.paged:
+                outcome = self._try_page_in(req)
+                if outcome == "stall":
+                    # the session's blocks don't fit RIGHT NOW (live
+                    # pressure): keep FIFO order and retry next round
+                    self._queue.appendleft(req)
+                    break
+                if outcome == "resumed":
+                    continue
+                # tier spilled the session: fall through — ``tokens``
+                # carries the folded history for prefix recompute
             seq = self.state.get_or_create(req.uid, req.tokens,
                                            req.max_new_tokens)
             seq.prior_generated = req.prior_generated
@@ -243,6 +303,117 @@ class InferenceEngineV2:
             self.stats["preempt_reasons"].get(reason, 0) + 1
         self.stats["requeued"] += 1
 
+    def _page_out(self, seq, reason: str = "paged_out") -> bool:
+        """Preempt ``seq`` by PAGING its KV to the host tier instead of
+        discarding it: block contents copy out in pool-native format (a
+        byte copy, bit-exact round trip) with the descriptor state, and
+        the request requeues at the queue front flagged ``paged``.
+        Readmission restores the blocks and resumes *decode*: no
+        re-prefill, token stream identical to a never-paged run. False
+        when paging doesn't apply (no tier, mid-prefill, at the per-seq
+        cap, or session oversize for the tier): the caller falls back to
+        ``_requeue`` recompute."""
+        tier = self.kv_cache.host_tier
+        if tier is None or seq.pending_prefill or seq.seen_tokens <= 0:
+            return False
+        if (self.kv_cache.blocks_needed(seq.total_tokens + 1)
+                > self.max_blocks_per_seq):
+            return False  # could never regrow: _requeue owns truncation
+        # the blocks holding real KV (the burst may have grown the block
+        # list past the frontier)
+        keep = self.kv_cache.blocks_needed(seq.seen_tokens)
+        if keep <= 0 or keep > len(seq.kv_blocks):
+            return False
+        payload, scales = self.kv_cache.read_blocks_host(
+            np.asarray(seq.kv_blocks[:keep], np.int64))
+        sess = PagedSession(
+            uid=seq.uid,
+            input_tokens=np.asarray(seq.input_tokens, np.int32),
+            generated=list(seq.generated),
+            seen_tokens=seq.seen_tokens,
+            max_new_tokens=seq.max_new_tokens,
+            prior_generated=seq.prior_generated,
+            payload=payload, scales=scales,
+            admit_time=self._admit_time.get(seq.uid))
+        if not tier.put_session(sess):
+            return False
+        # folded history rides in the queued request as the fallback: if
+        # the tier spills the session before readmission, admission
+        # degrades to the ordinary prefix-recompute path
+        tokens = np.concatenate(
+            [np.asarray(seq.input_tokens, np.int32),
+             np.asarray(seq.generated, np.int32)])
+        prior = seq.prior_generated + len(seq.generated)
+        admit = self._release_seq(seq.uid)
+        self._queue.appendleft(_QueuedRequest(
+            uid=seq.uid, tokens=tokens, max_new_tokens=seq.max_new_tokens,
+            enqueue_time=time.perf_counter(), prior_generated=prior,
+            admit_time=admit, paged=True))
+        self.stats["preempted"] += 1
+        self.stats["preempt_reasons"][reason] = \
+            self.stats["preempt_reasons"].get(reason, 0) + 1
+        self.stats["paged_out"] += 1
+        return True
+
+    def _try_page_in(self, req: _QueuedRequest) -> str:
+        """Warm-resume a ``paged`` queued request from the host tier.
+        Returns ``"resumed"`` (decode continues, zero prefill),
+        ``"stall"`` (session present but the pool can't take its blocks
+        this round — keep queue order, retry later), or ``"recompute"``
+        (the tier spilled the session; the folded tokens re-prefill)."""
+        tier = self.kv_cache.host_tier
+        sess = tier.peek_session(req.uid) if tier is not None else None
+        if sess is None:
+            return "recompute"
+        keep = sess.n_blocks
+        if keep > self.kv_cache.free_blocks:
+            self.kv_cache.reclaim(keep - self.kv_cache.free_blocks)
+        if keep > self.kv_cache.free_blocks:
+            return "stall"
+        sess = tier.pop_session(req.uid)
+        seq = self.state.get_or_create(sess.uid, sess.input_tokens,
+                                       sess.max_new_tokens)
+        seq.generated = list(sess.generated)
+        seq.prior_generated = sess.prior_generated
+        seq.seen_tokens = sess.seen_tokens
+        blocks = self.kv_cache.allocator.allocate(keep)
+        seq.kv_blocks = np.asarray(blocks, np.int64)
+        self.kv_cache.write_blocks(blocks, sess.payload, sess.scales)
+        seq.resumed_from_tier = keep
+        self.stats["paged_in"] += 1
+        self.stats["admitted"] += 1
+        self.stats["warm_resume_tokens"] += sess.seen_tokens
+        if sess.admit_time is not None:
+            self._admit_time[req.uid] = sess.admit_time
+        elif req.admit_time is not None:
+            self._admit_time[req.uid] = req.admit_time
+        return "resumed"
+
+    def page_out(self, uid: int) -> bool:
+        """Explicitly park a live sequence's KV in the host tier (e.g. a
+        session going idle between turns). The request re-enters the
+        admission queue flagged ``paged`` and warm-resumes when capacity
+        allows. False when paging doesn't apply — the sequence stays
+        live."""
+        seq = self.state.seqs.get(uid)
+        if seq is None or seq.done:
+            return False
+        return self._page_out(seq, reason="explicit_page_out")
+
+    def holds_prefix_blocks(self, tokens) -> int:
+        """How many full prefix blocks of ``tokens`` this engine can serve
+        without prefill, counting both the device prefix cache and the
+        host tier behind it."""
+        cache = self.kv_cache.prefix_cache
+        if cache is None:
+            return 0
+        toks = np.asarray(tokens, np.int32).ravel()
+        tier = self.kv_cache.host_tier
+        if tier is not None:
+            return tier.holds_chain_prefix(cache, toks)
+        keys, _ = cache.lookup(toks, max_tokens=max(0, len(toks) - 1))
+        return len(keys)
+
     # -- steps ----------------------------------------------------------------
 
     def step(self, temperature: float = 0.0, seed: int = 0,
@@ -257,7 +428,11 @@ class InferenceEngineV2:
             # preempt the last-admitted sequence so the others can progress
             live = [s for s in self.state.seqs.values() if not s.done]
             if len(live) > 1 or (live and self._queue):
-                self._requeue(live[-1])
+                # page to the host tier when one is attached (decode
+                # resumes without re-prefill); recompute-requeue is the
+                # fallback when paging doesn't apply
+                if not self._page_out(live[-1]):
+                    self._requeue(live[-1])
             elif live:
                 # a lone sequence the pool cannot grow for: requeueing
                 # would readmit it into the same wall, so end it
@@ -283,10 +458,10 @@ class InferenceEngineV2:
         elif decode_only:
             self.stats["decode_kernel_steps"] += 1
 
-        kv = self.kv_cache.data
+        kv = self.kv_cache.kv_state
         if seg_plan is not None:
             n_segs = seg_plan[0].shape[0]
-            logits, _ = model_runner.ragged_prefill_forward(
+            logits, new_kv = model_runner.ragged_prefill_forward(
                 self.cfg, self.params, kv, *seg_plan,
                 self._dev(batch.block_table[:n_segs]))
         elif decode_only:
@@ -297,15 +472,16 @@ class InferenceEngineV2:
             d_pos = np.zeros(self.max_seqs, np.int32)
             d_tok[:n] = batch.token_ids[:n]
             d_pos[:n] = batch.token_pos[:n]
-            logits, _ = model_runner.ragged_decode_forward(
+            logits, new_kv = model_runner.ragged_decode_forward(
                 self.cfg, self.params, kv, self._dev(d_tok),
                 self._dev(d_pos), self._dev(batch.block_table),
                 self._dev(batch.ctx_lens))
         else:
-            logits, _ = model_runner.ragged_forward(
+            logits, new_kv = model_runner.ragged_forward(
                 self.cfg, self.params, kv, self._dev(batch.token_ids),
                 self._dev(batch.token_seq), self._dev(batch.token_pos),
                 self._dev(batch.block_table), batch.num_tokens)
+        self.kv_cache.set_kv_state(new_kv)
 
         # sample on the device and fetch only token ids (greedy) or just
         # the consumed rows (stochastic), never the full [T, V] logits
@@ -451,9 +627,10 @@ class InferenceEngineV2:
             d_pos[i] = s.seen_tokens
             ctx[i] = s.seen_tokens + 1
             bt[i, :len(s.kv_blocks)] = s.kv_blocks
-        toks, _ = model_runner.ragged_multi_decode(
-            self.cfg, self.params, self.kv_cache.data, self._dev(d_tok),
+        toks, new_kv = model_runner.ragged_multi_decode(
+            self.cfg, self.params, self.kv_cache.kv_state, self._dev(d_tok),
             self._dev(d_pos), self._dev(bt), self._dev(ctx), steps=K)
+        self.kv_cache.set_kv_state(new_kv)
         toks_np = toks.cpu().numpy()  # [K, S] — one fetch per K tokens
         self.stats["decode_kernel_steps"] += K
         self.stats["burst_steps"] += 1
@@ -516,8 +693,11 @@ class InferenceEngineV2:
     def flush(self, uids: List[int]) -> None:
         """Drop sequences + free KV; covers queued-but-unadmitted
         requests too."""
+        tier = self.kv_cache.host_tier
         for uid in uids:
             self._release_seq(uid)
+            if tier is not None and tier.has_session(uid):
+                tier.pop_session(uid)  # flushed sessions never resume
         drop = set(uids)
         if any(r.uid in drop for r in self._queue):
             self._queue = deque(r for r in self._queue if r.uid not in drop)

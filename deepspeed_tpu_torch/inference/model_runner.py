@@ -16,6 +16,18 @@ which the engine's allocator never hands out). Duplicate write indices
 only ever hit that block, so the unspecified order of duplicate writes
 is harmless.
 
+A quantized pool comes as the (payload, fp32 scales) pair of
+``BlockedKVCache.kv_state``. Every forward then appends first, through
+the quantize-on-append kernel (``ops/quantization.kv_quantize_append``:
+K and V of every token in one launch per layer), and reads after, so
+each token attends the dequantized value of its own K/V, as in JAX. The
+decode and prefill forwards dequantize the whole layer pool into one
+scratch tensor in the compute dtype, allocated once per forward and
+reused by every layer, and run the paged kernels on it; the gather path
+dequantizes only the gathered pages. Weights go through ``_weight``,
+which dequantizes a ``QuantizedTensor`` (weight-only int8,
+``inference/weight_quant.py``) one layer's slice at a time.
+
 Attention in ``ragged_prefill_forward`` and ``ragged_decode_forward``
 goes through the hand-written paged kernels (``ops/paged_attention.py``);
 ``ragged_forward`` is the JAX package's own plain gather path, computed
@@ -34,23 +46,58 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.inference.weight_quant import QuantizedTensor
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     _norm, _proj, act_fn,
                                                     apply_rope, rope_tables)
 from deepspeed_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                      paged_prefill_attention)
+from deepspeed_tpu_torch.ops.quantization import (dequantize,
+                                                  kv_quantize_append)
 from deepspeed_tpu_torch.parallel.moe import moe_ffn
 
 Params = Dict[str, Any]
 
 
 def _layer(params: Params, l: int) -> Params:
-    """Views of layer ``l``'s leaves (the scan body's ``layer_params``)."""
+    """Views of layer ``l``'s leaves (the scan body's ``layer_params``);
+    a ``QuantizedTensor`` leaf gives layer ``l``'s codes and scales."""
     def walk(node):
-        if isinstance(node, torch.Tensor):
-            return node[l]
-        return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node[l]
     return walk(params["layers"])
+
+
+def _weight(w, dtype: torch.dtype):
+    """The one read of a matmul weight: a ``QuantizedTensor`` is
+    dequantized to the compute dtype here, at each use."""
+    return w.to(dtype) if isinstance(w, QuantizedTensor) else w
+
+
+def _kv_parts(kv_state):
+    """Split the pool the forwards take: a bare tensor (unquantized)
+    yields (data, None); a (payload, fp32 scales) pair yields both."""
+    if isinstance(kv_state, (tuple, list)):
+        return kv_state[0], kv_state[1]
+    return kv_state, None
+
+
+def _kv_bits(kv_layer) -> object:
+    """Storage width of a quantized pool, from its payload dtype: int8
+    holds one value per byte (8), uint8 two packed int4 values (4),
+    float8_e4m3fn the fp8 rung ("fp8")."""
+    if kv_layer.dtype == torch.float8_e4m3fn:
+        return "fp8"
+    return 4 if kv_layer.dtype == torch.uint8 else 8
+
+
+def _pool_codes(kv_layer, index):
+    """``kv_layer[index]`` on the payload's bytes (indexing has no fp8
+    kernel on every backend), viewed back in the payload's dtype."""
+    if kv_layer.dtype == torch.float8_e4m3fn:
+        return kv_layer.view(torch.uint8)[index].view(kv_layer.dtype)
+    return kv_layer[index]
 
 
 def _rope_of(cfg: TransformerConfig, positions):
@@ -64,9 +111,9 @@ def _qkv(cfg: TransformerConfig, layer_params, y, rope):
     """Project y [..., H] to q/k/v with rope applied. Returns q [.., nh, hd],
     k/v [.., nkv, hd] (GQA heads NOT repeated — cache stays small)."""
     ap = layer_params["attn"]
-    q = _proj(y, ap["wq"])
-    k = _proj(y, ap["wk"])
-    v = _proj(y, ap["wv"])
+    q = _proj(y, _weight(ap["wq"], y.dtype))
+    k = _proj(y, _weight(ap["wk"], y.dtype))
+    v = _proj(y, _weight(ap["wv"], y.dtype))
     if cfg.use_biases:
         q = q + ap["bq"]
         k = k + ap["bk"]
@@ -82,14 +129,16 @@ def _mlp(cfg: TransformerConfig, layer_params, x):
         return _moe_mlp(cfg, layer_params, x)
     mp = layer_params["mlp"]
     y = _norm(x, layer_params["ln2"], cfg.norm, cfg.norm_eps)
+    dt = y.dtype
     if cfg.activation == "swiglu":
-        z = F.silu(torch.matmul(y, mp["wg"])) * torch.matmul(y, mp["wi"])
+        z = (F.silu(torch.matmul(y, _weight(mp["wg"], dt)))
+             * torch.matmul(y, _weight(mp["wi"], dt)))
     else:
-        pre = torch.matmul(y, mp["wi"])
+        pre = torch.matmul(y, _weight(mp["wi"], dt))
         if cfg.use_biases:
             pre = pre + mp["bi"]
         z = act_fn(cfg.activation)(pre)
-    out = torch.matmul(z, mp["wo"])
+    out = torch.matmul(z, _weight(mp["wo"], dt))
     if cfg.use_biases:
         out = out + mp["bo"]
     return x + out
@@ -110,7 +159,7 @@ def _moe_mlp(cfg, layer_params, x):
 
 def _attn_out(cfg: TransformerConfig, layer_params, attn):
     """attn [..., nh, hd] -> [..., H] through wo (+ bo)."""
-    wo = layer_params["attn"]["wo"]
+    wo = _weight(layer_params["attn"]["wo"], attn.dtype)
     out = torch.matmul(attn.reshape(*attn.shape[:-2], -1),
                        wo.reshape(-1, wo.shape[-1]))
     if cfg.use_biases:
@@ -136,13 +185,37 @@ def _unembed(cfg: TransformerConfig, params, x):
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"]["tokens"].t())
     else:
-        logits = torch.matmul(x, params["unembed"]["kernel"])
+        logits = torch.matmul(x, _weight(params["unembed"]["kernel"],
+                                         x.dtype))
     return logits.float()
 
 
 def _append_kv(kv_layer, page, offset, k, v) -> None:
     """In-place KV append: token i's K/V land at (page[i], offset[i])."""
     kv_layer[page, offset] = torch.stack([k, v], dim=-3).to(kv_layer.dtype)
+
+
+def _append_and_read(kv_layer, kv_sc, page, offset, k, v, scratch):
+    """Append this step's K/V to one layer's pool and return the pool
+    the paged kernels read: the pool itself when unquantized; else the
+    codes appended through the quantize-on-append kernel, then the
+    whole layer dequantized into ``scratch`` (compute dtype)."""
+    if kv_sc is None:
+        _append_kv(kv_layer, page, offset, k, v)
+        return kv_layer
+    kv_quantize_append(kv_layer, kv_sc, page, offset, k.contiguous(),
+                       v.contiguous(), _kv_bits(kv_layer))
+    return dequantize(kv_layer, kv_sc, scratch.dtype, out=scratch)
+
+
+def _scratch_pool(cfg: TransformerConfig, kv_data, kv_scales):
+    """One layer's pool in the compute dtype, the dequantize target that
+    every layer of a forward reuses (None for an unquantized pool)."""
+    if kv_scales is None:
+        return None
+    nb, bs, _, nkv, _ = kv_data.shape[1:]
+    return torch.empty((nb, bs, 2, nkv, cfg.head_dim), dtype=cfg.dtype,
+                       device=kv_data.device)
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +231,9 @@ def ragged_forward(cfg: TransformerConfig, params: Params,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ragged step over flat tokens (plain gather attention).
 
-    kv_data     [L, num_blocks, bs, 2, nkv, hd]
+    kv_data     [L, num_blocks, bs, 2, nkv, hd] — or, for a quantized
+                pool, the (payload, fp32 scales [L, nb, bs, 2, nkv]) pair
+                of ``BlockedKVCache.kv_state``
     token_ids   [T] int32 (padded); token_seq [T] slot ids; token_pos [T]
     block_table [S, Bm]; num_tokens scalar (true T, rest is padding)
 
@@ -166,6 +241,8 @@ def ragged_forward(cfg: TransformerConfig, params: Params,
     cache rows 0..p of its sequence; this step's append lands before the
     attention reads.
     """
+    kv_state = kv_data
+    kv_data, kv_scales = _kv_parts(kv_state)
     T = token_ids.shape[0]
     Smax, Bm = block_table.shape
     nb, bs = kv_data.shape[1], kv_data.shape[2]
@@ -193,9 +270,18 @@ def ragged_forward(cfg: TransformerConfig, params: Params,
         kv_layer = kv_data[l]
         y = _norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, y, rope)  # q [T,nh,hd] k/v [T,nkv,hd]
-        _append_kv(kv_layer, page, offset, k, v)
+        if kv_scales is None:
+            _append_kv(kv_layer, page, offset, k, v)
+            gathered = kv_layer[bt]
+        else:
+            kv_sc = kv_scales[l]
+            kv_quantize_append(kv_layer, kv_sc, page, offset,
+                               k.contiguous(), v.contiguous(),
+                               _kv_bits(kv_layer))
+            # dequantize only the gathered pages, never the pool
+            gathered = dequantize(_pool_codes(kv_layer, bt), kv_sc[bt], dt)
         # each slot's pages gathered dense: [S, Lmax, 2, nkv, hd]
-        gathered = kv_layer[bt].reshape(Smax, max_ctx, 2, nkv, hd)
+        gathered = gathered.reshape(Smax, max_ctx, 2, nkv, hd)
         k_seq = gathered[:, :, 0][seq]  # [T, Lmax, nkv, hd]
         v_seq = gathered[:, :, 1][seq]
         qg = q.reshape(T, nkv, g, hd)
@@ -206,7 +292,7 @@ def ragged_forward(cfg: TransformerConfig, params: Params,
         attn = torch.einsum("tkgm,tmkd->tkgd", probs, v_seq)
         attn = _attn_out(cfg, lp, attn.reshape(T, nkv * g, hd))
         x = _residual(cfg, lp, x, attn)
-    return _unembed(cfg, params, x), kv_data
+    return _unembed(cfg, params, x), kv_state
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +314,11 @@ def ragged_prefill_forward(cfg: TransformerConfig, params: Params,
     logits the engine never reads.
 
     seg_tokens [S, Tq] int32; seg_pos0/seg_nreal [S] int32;
-    block_table [S, Bm] int32. Returns (logits [S, Tq, V] fp32, kv_data).
+    block_table [S, Bm] int32; kv_data as in :func:`ragged_forward`.
+    Returns (logits [S, Tq, V] fp32, kv_data).
     """
+    kv_state = kv_data
+    kv_data, kv_scales = _kv_parts(kv_state)
     S, Tq = seg_tokens.shape
     Bm = block_table.shape[1]
     nb, bs = kv_data.shape[1], kv_data.shape[2]
@@ -247,16 +336,18 @@ def ragged_prefill_forward(cfg: TransformerConfig, params: Params,
     page = torch.where(real, page, nb - 1)
     offset = torch.where(real, pos % bs, bs - 1)
 
+    scratch = _scratch_pool(cfg, kv_data, kv_scales)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
-        kv_layer = kv_data[l]
         y = _norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, y, rope)  # q [S, Tq, nh, hd]
-        _append_kv(kv_layer, page, offset, k, v)
-        attn = paged_prefill_attention(q.to(dt).contiguous(), kv_layer,
+        kv_read = _append_and_read(
+            kv_data[l], None if kv_scales is None else kv_scales[l], page,
+            offset, k, v, scratch)
+        attn = paged_prefill_attention(q.to(dt).contiguous(), kv_read,
                                        block_table, seg_pos0, ctx_lens)
         x = _residual(cfg, lp, x, _attn_out(cfg, lp, attn.to(dt)))
-    return _unembed(cfg, params, x), kv_data
+    return _unembed(cfg, params, x), kv_state
 
 
 # ---------------------------------------------------------------------------
@@ -274,12 +365,15 @@ def ragged_decode_forward(cfg: TransformerConfig, params: Params,
     have context_lens == 0: their K/V writes go to the scratch page and
     their attention output is zero.
 
-    kv_data      [L, num_blocks, bs, 2, nkv, hd]
+    kv_data      [L, num_blocks, bs, 2, nkv, hd], or the quantized pair
+                 (see :func:`ragged_forward`)
     token_ids    [S] int32;  token_pos [S];  block_table [S, Bm] int32
     context_lens [S] int32 = token_pos + 1 for live slots, 0 for dead
 
     Returns (logits [S, V] fp32, kv_data).
     """
+    kv_state = kv_data
+    kv_data, kv_scales = _kv_parts(kv_state)
     S = token_ids.shape[0]
     Bm = block_table.shape[1]
     nb, bs = kv_data.shape[1], kv_data.shape[2]
@@ -295,16 +389,18 @@ def ragged_decode_forward(cfg: TransformerConfig, params: Params,
     page = torch.where(alive, page, nb - 1)
     offset = torch.where(alive, pos % bs, bs - 1)
 
+    scratch = _scratch_pool(cfg, kv_data, kv_scales)
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
-        kv_layer = kv_data[l]
         y = _norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, y, rope)  # q [S, nh, hd]
-        _append_kv(kv_layer, page, offset, k, v)
-        attn = paged_decode_attention(q.to(dt).contiguous(), kv_layer,
+        kv_read = _append_and_read(
+            kv_data[l], None if kv_scales is None else kv_scales[l], page,
+            offset, k, v, scratch)
+        attn = paged_decode_attention(q.to(dt).contiguous(), kv_read,
                                       block_table, context_lens)
         x = _residual(cfg, lp, x, _attn_out(cfg, lp, attn.to(dt)))
-    return _unembed(cfg, params, x), kv_data
+    return _unembed(cfg, params, x), kv_state
 
 
 @torch.no_grad()

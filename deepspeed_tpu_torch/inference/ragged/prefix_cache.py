@@ -146,11 +146,17 @@ class PrefixCache:
     def evict(self, n: int) -> List[int]:
         """Drop up to ``n`` least-recently-idle entries; returns their
         block ids for the caller to hand back to the allocator."""
-        out: List[int] = []
+        return [blk for _, blk in self.evict_entries(n)]
+
+    def evict_entries(self, n: int) -> List[Tuple[str, int]]:
+        """Like :meth:`evict`, but returns ``(chain_key, block_id)``
+        pairs: the host tier (``kv_tier.py``) needs the keys to page the
+        evicted contents out instead of dropping them."""
+        out: List[Tuple[str, int]] = []
         while self._idle and len(out) < n:
             key, blk = self._idle.popitem(last=False)
             del self._block_of[key]
-            out.append(blk)
+            out.append((key, blk))
         self.stats["evicted"] += len(out)
         return out
 

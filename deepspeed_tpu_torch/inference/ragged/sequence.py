@@ -1,6 +1,5 @@
 """Sequence descriptors + state manager for ragged batching (port of
-``deepspeed_tpu/inference/ragged/sequence.py``, without the host KV
-tier). Tracks each live sequence's token history, KV blocks and
+``deepspeed_tpu/inference/ragged/sequence.py``). Tracks each live sequence's token history, KV blocks and
 scheduling state, all on the host: a step only sees the dense metadata
 ``ragged_batch.py`` builds.
 """
@@ -37,6 +36,10 @@ class SequenceDescriptor:
     # a registration conflict (identical content cached under another
     # block) ends this seq's registrable run for good
     prefix_reg_stopped: bool = False
+    # warm resume (ragged/kv_tier.py): nonzero when admission restored
+    # this sequence's KV from the host tier — blocks paged in instead of
+    # prefilled
+    resumed_from_tier: int = 0
 
     @property
     def total_tokens(self) -> int:
@@ -110,8 +113,11 @@ class StateManager:
         cache: the longest cached full-block chain matching its prompt
         is shared by reference and those tokens skip prefill. The final
         prompt token is always left uncached so the step still computes
-        first-token logits. Returns the number of prefill tokens
-        skipped."""
+        first-token logits. With a host tier attached
+        (ragged/kv_tier.py) the chain walk continues PAST the device
+        cache into host memory: matching paged-out blocks page back in,
+        re-register, and extend the skip. Returns the number of prefill
+        tokens skipped."""
         cache = self.kv_cache.prefix_cache
         if (cache is None or seq.seen_tokens or len(seq.kv_blocks)
                 or len(seq.input_tokens) <= cache.block_size):
@@ -122,6 +128,10 @@ class StateManager:
             limit = min(limit,
                         (self.max_blocks_per_seq - 1) * cache.block_size)
         keys, blocks = cache.lookup(seq.input_tokens, max_tokens=limit)
+        tier = self.kv_cache.host_tier
+        if tier is not None:
+            seq.resumed_from_tier += self._page_in_chain(
+                seq, cache, tier, keys, blocks, limit)
         if not keys:
             return 0
         cache.ref(keys)
@@ -129,6 +139,47 @@ class StateManager:
         seq.prefix_keys = list(keys)
         seq.seen_tokens = len(keys) * cache.block_size
         return seq.seen_tokens
+
+    def _page_in_chain(self, seq: SequenceDescriptor, cache, tier,
+                       keys: List[str], blocks: List[int],
+                       limit: int) -> int:
+        """Continue the prefix chain walk into the host tier: page
+        matching blocks back into freshly allocated device blocks and
+        register them in the prefix cache, extending ``keys``/``blocks``
+        in place. Stops at the first tier miss, allocation failure, or
+        registration conflict (installs happen strictly in chain order,
+        so chain-prefix semantics hold). Returns the number of blocks
+        paged in."""
+        bs = cache.block_size
+        toks = seq.input_tokens
+        paged = 0
+        while (len(keys) + 1) * bs <= limit:
+            i = len(keys)
+            key = cache.chain_key(keys[-1] if keys else None,
+                                  toks[i * bs:(i + 1) * bs])
+            if not tier.has_block(key):
+                break
+            if self.kv_cache.free_blocks < 1:
+                self.kv_cache.reclaim(1)
+            if self.kv_cache.free_blocks < 1:
+                break  # pool under live pressure: keep what we got
+            ent = tier.take_block(key)
+            if ent is None:
+                break
+            blk = int(self.kv_cache.allocator.allocate(1)[0])
+            self.kv_cache.write_blocks([blk], ent[0][:, None],
+                                       None if ent[1] is None
+                                       else ent[1][:, None])
+            if not cache.register(key, blk):
+                # identical content raced in under another block: theirs
+                # wins, and lookup would have found it — stop here
+                self.kv_cache.free([blk])
+                break
+            cache.unref([key])  # park idle; ref'd with the chain below
+            keys.append(key)
+            blocks.append(blk)
+            paged += 1
+        return paged
 
     def register_prefix_blocks(self, seq: SequenceDescriptor) -> None:
         """Publish seq's write-complete full prompt blocks into the

@@ -24,7 +24,8 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 SOURCES = {"paged_attention": "paged_attention.cu",
            "flash_attention": "flash_attention.cu",
-           "grouped_matmul": "grouped_matmul.cu"}
+           "grouped_matmul": "grouped_matmul.cu",
+           "quantization": "quantization.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,7 +6,11 @@ three flash attention kernels (B 2, S 2048, 32/8 heads, hd 128, causal;
 a non-causal S 1000 case with three segments; an hd 64 case); and the
 grouped matmuls gmm, gmm^T and tgmm at Mixtral-8x7B expert shapes (E 8,
 K 4096, N 14336, 4096 rows in imbalanced groups; 32 decode rows) and at
-odd sizes with an over-sum and an under-sum of the group sizes.
+odd sizes with an over-sum and an under-sum of the group sizes; and the
+quantize kernels (blockwise quantize, KV quantize-on-append, dequantize)
+at Llama-3-8B shapes, held to their plain versions bit for bit (every
+operation is one IEEE-rounded step in both), with exact .5 ties, all-zero
+blocks and values at the edges of the grid among the inputs.
 
 Needs an sm_90 card and nvcc: marked ``cuda`` and skipped elsewhere.
 Run on the card with
@@ -272,3 +276,140 @@ def test_gmm_autograd_on_card_matches_cpu(card):
         grads.append((lhs.grad.cpu(), rhs.grad.cpu()))
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# -- quantization -----------------------------------------------------------
+
+
+def _quant_values(rng, rows, n, top):
+    """rows x n fp32 values: normal rows, rows of exact ties on a unit
+    grid (absmax ``top`` makes the scale exactly 1), all-zero rows, and
+    rows reaching past both ends of the grid."""
+    x = rng.standard_normal((rows, n)).astype(np.float32) * 3
+    ties = rng.integers(-top, top, (rows, n)).astype(np.float32) + 0.5
+    x[::7] = ties[::7]
+    x[::7, 0] = top
+    x[3::11] = 0.0
+    x[5::13, :2] = (top - 0.5, -top - 0.5)
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("block", [128, 256, 40])
+def test_quantize_blockwise_kernel_matches_plain(card, dtype, bits, block):
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    rng = np.random.default_rng(bits + block)
+    n = block if block < 128 else 1024  # 40: the min(block, n) fallback
+    top = (1 << (bits - 1)) - 1
+    x = torch.from_numpy(_quant_values(rng, 512, n, top)).to(card, dtype)
+    before = qz.LAUNCHES["quantize_blockwise"]
+    q, s = qz.quantize_blockwise(x, bits=bits, block=256 if block == 40
+                                 else block)
+    torch.cuda.synchronize()
+    assert qz.LAUNCHES["quantize_blockwise"] == before + 1
+    q_ref, s_ref = qz._quantize_ref(x, bits, min(block, n))
+    assert q.dtype == torch.int8 and torch.equal(q, q_ref)
+    assert torch.equal(s, s_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4, "fp8"])
+@pytest.mark.parametrize("ntok", [16, 256])
+def test_kv_quantize_append_kernel_matches_plain(card, dtype, bits, ntok):
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    rng = np.random.default_rng(ntok)
+    W = HD // 2 if bits == 4 else HD
+    pdt = {8: torch.int8, 4: torch.uint8, "fp8": torch.float8_e4m3fn}[bits]
+    init = torch.from_numpy(rng.integers(0, 256, (NB, BS, 2, NKV, W),
+                                         dtype=np.uint8)).to(card)
+    pools = [init.clone().view(pdt) for _ in range(2)]
+    scales = [torch.ones((NB, BS, 2, NKV), device=card) for _ in range(2)]
+    # distinct destinations for real tokens; the last 3 are padding,
+    # routed to the scratch block's last row
+    slots = rng.permutation((NB - 1) * BS)[:ntok]
+    page = torch.from_numpy(slots // BS).to(card)
+    offset = torch.from_numpy(slots % BS).to(card)
+    page[-3:], offset[-3:] = NB - 1, BS - 1
+    top = {8: 127, 4: 7, "fp8": 448}[bits]
+    k, v = (torch.from_numpy(_quant_values(rng, ntok * NKV, HD, top)
+                             .reshape(ntok, NKV, HD)).to(card, dtype)
+            for _ in range(2))
+    before = qz.LAUNCHES["kv_quantize_append"]
+    qz.kv_quantize_append(pools[0], scales[0], page, offset, k, v, bits)
+    qz.kv_quantize_append_plain(pools[1], scales[1], page, offset, k, v,
+                                bits)
+    torch.cuda.synchronize()
+    assert qz.LAUNCHES["kv_quantize_append"] == before + 1
+    assert torch.equal(pools[0].view(torch.uint8)[:-1],
+                       pools[1].view(torch.uint8)[:-1])
+    assert torch.equal(scales[0][:-1], scales[1][:-1])
+
+
+@pytest.mark.parametrize("bits", [8, 4, "fp8"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_kernel_matches_plain(card, bits, out_dtype):
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    rng = np.random.default_rng(7)
+    W = HD // 2 if bits == 4 else HD
+    pdt = {8: torch.int8, 4: torch.uint8, "fp8": torch.float8_e4m3fn}[bits]
+    codes = rng.integers(0, 256, (NB, BS, 2, NKV, W), dtype=np.uint8)
+    if bits == "fp8":
+        codes[(codes & 0x7F) == 0x7F] = 0  # no NaN codes
+    payload = torch.from_numpy(codes).to(card).view(pdt)
+    sc = torch.from_numpy(rng.random((NB, BS, 2, NKV), np.float32)).to(card)
+    before = qz.LAUNCHES["dequantize"]
+    scratch = torch.empty((NB, BS, 2, NKV, HD), dtype=out_dtype,
+                          device=card)
+    out = qz.dequantize(payload, sc, out_dtype, out=scratch)
+    # a row length that is not a multiple of 4 takes the one-value path
+    part = payload[..., :3 if bits == 4 else 6].contiguous()
+    odd = qz.dequantize(part, sc, out_dtype)
+    torch.cuda.synchronize()
+    assert out is scratch
+    assert qz.LAUNCHES["dequantize"] == before + 2
+    assert torch.equal(out, qz.dequantize_plain(payload, sc, out_dtype))
+    assert odd.shape[-1] == 6
+    assert torch.equal(odd, qz.dequantize_plain(part, sc, out_dtype))
+
+
+def test_weight_quantization_on_card_matches_cpu(card):
+    from deepspeed_tpu_torch.inference.weight_quant import quantize_weight
+
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(rng.standard_normal((2, 256, 448), np.float32))
+    got = quantize_weight(w.to(card, torch.bfloat16))
+    want = quantize_weight(w.to(torch.bfloat16))
+    assert torch.equal(got.q.cpu(), want.q)
+    assert torch.equal(got.scale.cpu(), want.scale)
+    assert torch.equal(got[1].to(torch.bfloat16).cpu(),
+                       want[1].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("bits", [8, 4, "fp8"])
+def test_quantized_engine_on_card_matches_cpu(card, bits):
+    """A tiny fp32 Llama-style engine with a quantized pool (and, for
+    int8, int8 weights) gives the same greedy streams on the card
+    (kernels) as on the CPU (plain versions)."""
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+    from deepspeed_tpu_torch.models import zoo
+
+    over = dict(dtype=torch.float32, pos_emb="rope", norm="rmsnorm",
+                activation="swiglu", num_kv_heads=1, ffn_size=128,
+                tie_embeddings=False)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (5, 19, 40)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        model = zoo.get_model("tiny", device="cpu", seed=0, **over)
+        model.to(dev)
+        eng = InferenceEngineV2(
+            model, kv_blocks=64, kv_block_size=8, max_tokens_per_step=32,
+            max_seqs_per_step=4, max_blocks_per_seq=8, kv_quant_bits=bits,
+            quantize_weights="int8" if bits == 8 else None, device=dev)
+        eng.put([0, 1, 2], prompts, max_new_tokens=12)
+        outs.append(eng.generate_all())
+    assert outs[0] == outs[1]

@@ -42,6 +42,11 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     assert len(files) >= 15
+    # the quantized-serving modules are among the files checked
+    rel = {os.path.relpath(p, PKG) for p in files}
+    assert {"ops/quantization.py", "ops/fp_quantizer.py",
+            "inference/weight_quant.py",
+            "inference/ragged/kv_tier.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
@@ -73,10 +78,16 @@ def test_unported_options_raise():
     assert isinstance(zoo.get_config("mixtral-8x7b"), MoETransformerConfig)
     with pytest.raises(ValueError, match="unknown model"):
         zoo.get_config("no-such-model")
+    # the quantized KV rungs are ported; speculative decoding and the
+    # fleet's serving options are not
     for bits in (4, 8, "fp8"):
-        with pytest.raises(NotImplementedError, match="quantiz"):
-            KVCacheConfig(num_layers=1, kv_heads=1, head_dim=8,
-                          quant_bits=bits)
+        assert KVCacheConfig(num_layers=1, kv_heads=1, head_dim=8,
+                             quant_bits=bits).quant_bits == bits
+    from deepspeed_tpu_torch.config.config import ServingConfig
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ServingConfig(spec_decode=True)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ServingConfig(router={"replicas": 2})
 
 
 def test_seeded_init_is_reproducible_at_the_jax_scales():
