@@ -41,6 +41,20 @@ Phases, each fatal on failure:
                of the grid. Kernel and plain version timed with CUDA
                events beside the bound (no single PyTorch call computes
                either function, so there is no library yardstick).
+  2e. blocksparse — the block-sparse forward (B9) against its plain
+               version and against the masked form (after
+               repeat_kv_heads), fp32 and bf16, B 1, 32 q heads of 128:
+               the five layout modes at the JAX defaults (block 128;
+               fixed: 4 local blocks, 1 global) at S 4096, causal and
+               not, with 8 kv heads and (fixed) 32; layout blocks 16, 64
+               and 256 at S 1024; a ragged S 4000; a custom layout with
+               an empty row (non-causal: 0 there); the main-path shape
+               (fixed, causal, S 8192, 8 kv heads). Two launches must be
+               bit-identical; errors relative to the largest reference
+               entry; densities printed. At S 4096 and 8192 (fixed,
+               causal, bf16) kernel, plain version and SDPA with the
+               layout as a boolean mask (a yardstick the port never
+               calls) timed with CUDA events against the bound.
   3. serve   — ``InferenceEngineV2`` over ``get_model("llama3-8b")`` at
                full width and depth with seeded bf16 weights: 8 requests
                (64-512 prompt tokens, two sharing a 256-token prefix),
@@ -64,6 +78,12 @@ Phases, each fatal on failure:
                blockwise quantize once per quantized leaf (8) and the
                dequantize 7 x 32 + 1 times per forward on the weight run.
                Agreement with phase 3's bf16 streams is reported.
+  8a. sparse forward — right after phase 3's profile, on its model:
+               ``loss_fn`` with ``attn_impl="blocksparse"`` and the fixed
+               layout under no_grad at B 1 x S 8192, all 32 layers:
+               exactly 32 B9 launches a forward, a finite loss, layer 0's
+               q/k/v through the kernel against the masked form; forward
+               time p50 over 3 runs and a profile (B9's share).
   4. train   — ``deepspeed_tpu_torch.initialize`` + ``train_batch`` on
                Llama-3-8B at full width, 8 of its 32 layers (fp32
                masters from a seed, bf16 compute, AdamW, ZeRO-3 config,
@@ -87,10 +107,25 @@ Phases, each fatal on failure:
                tokens: one warm-up and four measured steps with the gmm
                and flash launch counts read around them (exactly what
                remat implies), then one step under torch.profiler.
+  8b. sparse train — after phase 4: ``initialize`` over 8-layer
+               full-width Llama-3-8B with a ``sparse_attention`` block
+               (fixed), ``kernels.blocksparse_block`` 0 and
+               ``training_data`` (seeded token rows); the micro-step loop
+               ``engine(batch)`` / ``engine.backward(loss)`` /
+               ``engine.step()`` over the returned dataloader at micro 1
+               x GAS 2 x S 4096, one warm-up and three measured steps:
+               finite, falling losses and no B9 launch (the masked form
+               carries the gradient; AdamW at lr 1e-4); then
+               ``eval_batch`` at S 8192: exactly 8 B9 launches. Last,
+               the same loop for 5 steps at phase 4's lr 3e-4 through the
+               fixed layout, the flash path and the masked form on a
+               dense layout: the last two must give the same losses
+               within 2% at every step.
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
-quant serve and quant serve profile lines, the run's seconds, the card's
-name and power limit (nvidia-smi), and, last, the device line.
+quant serve, quant serve profile, sparse forward, sparse forward profile
+and sparse train lines, the run's seconds, the card's name and power
+limit (nvidia-smi), and, last, the device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
 package is not beside it.
@@ -175,6 +210,50 @@ MOE_FFN_TOL_REL = 2e-2
 # quantized serve pages out and back
 QUANT_SHAPE = (4096, 14336)
 PAGE_OUT_UID = 1
+# block-sparse forward (B9): name -> (mode, layout block, S, kv heads,
+# causal); 32 q heads of 128, B 1. The JAX defaults: block 128, fixed
+# with 4 local blocks and 1 global. "main" is the shape the main path
+# gives the kernel (phase 8: S 8192, GQA 32/8, causal, fixed).
+BS_BLOCK = 128
+BS_CASES = {f"{mode}-{'causal' if causal else 'full'}":
+            (mode, BS_BLOCK, 4096, NKV, causal)
+            for mode in ("dense", "fixed", "longformer", "bigbird",
+                         "variable") for causal in (True, False)}
+BS_CASES.update({
+    "fixed-mha": ("fixed", BS_BLOCK, 4096, NH, True),
+    "block16": ("fixed", 16, 1024, NKV, True),
+    "block64": ("bigbird", 64, 1024, NKV, False),
+    "block256": ("longformer", 256, 1024, NKV, True),
+    "ragged": ("fixed", BS_BLOCK, 4000, NKV, True),
+    "empty-row": ("custom", BS_BLOCK, 1024, NKV, False),
+    "main": ("fixed", BS_BLOCK, 8192, NKV, True),
+})
+BS_TIMED = ("fixed-causal", "main")
+# kernel vs plain version, as the largest error in an output row (b, s,
+# head) over that row's largest reference entry, the largest over rows
+# (row_rel_err): a causal row that sees a few columns has outputs near 1,
+# one that sees thousands near 0.05, and each row is held at its own
+# scale. fp32 sums in another order; bf16 rounds p to bf16 at the same
+# point in both and the output once, where a rounding on the other side
+# of a tie moves a term by 2**-8. Against the masked form, which rounds
+# the normalised probabilities instead of p and divides before the
+# product with V, bf16 differs at rounding level in every term. Worst
+# readings on an H100 80GB HBM3 (700 W): bf16 7.7e-3 against the plain
+# version and 9.6e-3 against the masked form (one bf16 ulp of a row's
+# largest entry is up to 7.8e-3); fp32 5.7e-6 and 8.0e-6.
+BS_TOL_ROW = {"float32": 1e-4, "bfloat16": 2e-2}
+BS_MASKED_TOL_ROW = {"float32": 1e-4, "bfloat16": 3e-2}
+# phase 8: the preset's context for the forwards; training at S 4096,
+# micro 1 x GAS 2, 1 warm-up and 3 measured steps, AdamW at lr 1e-4: at
+# phase 4's 3e-4 this micro 1 x 4096 run overshoots around its fourth
+# step, on the flash path too (phase 8b's flash run at lr 3e-4 shows it)
+SPARSE_SEQ, SPARSE_TRAIN_SEQ, SPARSE_GAS, SPARSE_MEASURED = 8192, 4096, 2, 3
+SPARSE_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
+                           gradient_accumulation_steps=SPARSE_GAS,
+                           optimizer={"type": "adamw",
+                                      "params": {"lr": 1e-4}},
+                           sparse_attention={"mode": "fixed"},
+                           kernels={"blocksparse_block": 0})
 
 
 def fail(msg):
@@ -758,6 +837,134 @@ def check_dequant(torch, qz, wq, timer, case):
     return res
 
 
+# -- phase 2e: block-sparse forward ---------------------------------------------
+
+
+def bs_custom_layout(bs):
+    """A layout with an empty query block (block row 3; non-causal) on
+    the diagonal plus a global first column."""
+    class EmptyRow(bs.SparsityConfig):
+        def make_layout(self, seq_len):
+            n = self.num_blocks(seq_len)
+            lay = np.eye(n, dtype=bool)
+            lay[:, 0] = True
+            lay[3, :] = False
+            return lay
+
+    return EmptyRow(BS_BLOCK)
+
+
+def bs_sparsity(bs, case):
+    mode, block = BS_CASES[case][:2]
+    if mode == "custom":
+        return bs_custom_layout(bs)
+    return bs.make_sparsity_config(mode, block=block)
+
+
+def bs_inputs(torch, dtype, case, seed):
+    _, _, S, hkv, _ = BS_CASES[case]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((1, S, h, HD), np.float32))
+            .to("cuda", dtype) for h in (NH, hkv, hkv)]
+
+
+def masked_by_heads(torch, attn, bs, q, k, v, sparsity, causal):
+    """The masked form after repeat_kv_heads, 8 q heads at a time (the
+    heads are independent; the fp32 score tensor of all 32 at S 8192
+    would need 8.6 GB a copy)."""
+    g = q.shape[2] // k.shape[2]  # 1 or 4: 8 heads hold whole groups
+    outs = []
+    for h0 in range(0, q.shape[2], 8):
+        kv = slice(h0 // g, (h0 + 8) // g)
+        kr, vr = attn.repeat_kv_heads(q[:, :, h0:h0 + 8], k[:, :, kv],
+                                      v[:, :, kv])
+        outs.append(bs.blocksparse_attention(q[:, :, h0:h0 + 8], kr, vr,
+                                             sparsity, causal=causal))
+    return torch.cat(outs, dim=2)
+
+
+def row_rel_err(torch, got, want):
+    """The largest, over output rows (the last axis is D), of a row's
+    largest |got - want| over its largest |want|; a row of zeros must be
+    matched exactly."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    top = want.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return (err / top).max().item()
+
+
+def check_blocksparse(torch, bs, attn, timer, dtype, case):
+    """The kernel against its plain version and against the masked form
+    on the same inputs; two launches bit for bit; at the timed cases
+    also kernel, plain version and SDPA with the layout as a boolean
+    mask timed against the bound."""
+    import torch.nn.functional as F
+
+    name = str(dtype).split(".")[-1]
+    mode, block, S, hkv, causal = BS_CASES[case]
+    sparsity = bs_sparsity(bs, case)
+    q, k, v = bs_inputs(torch, dtype, case, 40)
+    scale = HD ** -0.5
+    got = bs.blocksparse_attention_kernel(q, k, v, sparsity, causal=causal)
+    again = bs.blocksparse_attention_kernel(q, k, v, sparsity, causal=causal)
+    work = bs.work_list(sparsity, S, causal, q.device)
+    plain = bs.blocksparse_fwd_plain(q, k, v, work, scale)
+    torch.cuda.synchronize()
+    if got.shape != q.shape or not torch.isfinite(got).all():
+        fail(f"blocksparse {name} {case}: wrong shape or non-finite")
+    if not torch.equal(got, again):
+        fail(f"blocksparse {name} {case}: two launches differ")
+    pairs = bs.visible_pairs(work.layout_host, block, S, causal)
+    res = {"max_abs_err": (got.float() - plain.float()).abs().max().item(),
+           "max_row_rel_err": row_rel_err(torch, got, plain),
+           "layout_density": bs.layout_density(work.layout_host, causal),
+           "pair_density": pairs / (S * (S + 1) // 2 if causal else S * S),
+           "live_tiles": int(work.live.sum()), "tiles": work.live.size}
+    if res["max_row_rel_err"] > BS_TOL_ROW[name]:
+        fail(f"blocksparse {name} {case}: kernel vs plain {res} over "
+             f"{BS_TOL_ROW[name]} of a row's largest entry")
+    if mode == "custom":
+        rows = slice(3 * block, 4 * block)
+        if not (torch.all(got[:, rows] == 0) and torch.all(plain[:, rows]
+                                                          == 0)):
+            fail(f"blocksparse {name} {case}: the empty row is not 0")
+        res["empty_row_zero"] = True
+    else:
+        masked = masked_by_heads(torch, attn, bs, q, k, v, sparsity, causal)
+        res["masked_max_row_rel_err"] = row_rel_err(torch, got, masked)
+        if res["masked_max_row_rel_err"] > BS_MASKED_TOL_ROW[name]:
+            fail(f"blocksparse {name} {case}: kernel vs masked form "
+                 f"{res['masked_max_row_rel_err']} over "
+                 f"{BS_MASKED_TOL_ROW[name]} of a row's largest entry")
+        del masked
+    if not (dtype == torch.bfloat16 and case in BS_TIMED):
+        return res
+    itm = q.element_size()
+    nbytes = 2 * S * NH * HD * itm + 2 * S * hkv * HD * itm
+    flops = 4 * HD * NH * pairs
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, name)
+    res["flops"] = flops
+    res["ms"] = timer.ms(lambda: bs.blocksparse_attention_kernel(
+        q, k, v, sparsity, causal=causal))
+    res["plain_ms"] = timer.ms(lambda: bs.blocksparse_fwd_plain(
+        q, k, v, work, scale), iters=3, warmup=1)
+    # yardstick: SDPA on [B, H, S, D] copies with the KV heads expanded and
+    # the layout (and causality) as a boolean mask: it computes every block
+    mask = torch.from_numpy(np.repeat(np.repeat(
+        work.layout_host, block, 0), block, 1)[:S, :S]).cuda()
+    if causal:
+        mask &= torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+    kr, vr = attn.repeat_kv_heads(q, k, v)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kr, vr))
+    res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    res["shape"] = {"B": 1, "S": S, "Hq": NH, "Hkv": hkv, "D": HD,
+                    "causal": causal, "mode": mode, "block": block,
+                    "visible_pairs_per_head": pairs}
+    del qt, kt, vt, kr, vr, mask
+    return res
+
+
 # -- phase 3: serve ----------------------------------------------------------
 
 
@@ -842,7 +1049,8 @@ def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
     spans = []
     for e in kern:
         n = e.name.lower()
-        fam = ("quantize_blockwise" if "quantize_blockwise_kernel" in n else
+        fam = ("blocksparse_fwd" if "blocksparse_fwd_kernel" in n else
+               "quantize_blockwise" if "quantize_blockwise_kernel" in n else
                "kv_quantize_append" if "kv_quantize_append_kernel" in n else
                "dequantize" if "dequantize_kernel" in n else
                "paged_decode" if "paged_decode" in n else
@@ -1229,6 +1437,225 @@ def moe_train_phase(torch, zoo, initialize, fa, gm):
     return train, profile, launches
 
 
+# -- phase 8: block-sparse forward and training --------------------------------
+
+
+def sparse_forward_phase(torch, tf, attn, bs, model):
+    """Phase 3's full-depth bf16 Llama-3-8B, ``loss_fn`` with
+    ``attn_impl="blocksparse"`` and the fixed layout under no_grad at
+    B 1 x S 8192. Returns (the line, its profile line, B9 launches of
+    the main-path forward)."""
+    cfg = dataclasses.replace(model.config, attn_impl="blocksparse",
+                              remat=False)
+    params = model.params()
+    attn.set_sparse_config(bs.FixedSparsityConfig())
+    rng = np.random.default_rng(SEED + 3)
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, SPARSE_SEQ + 1)).astype(np.int32)).cuda()}
+
+    def forward():
+        with torch.no_grad():
+            loss, _ = tf.loss_fn(cfg, params, batch)
+        torch.cuda.synchronize()
+        return loss
+
+    forward()  # warm-up: builds the work list
+    bs.reset_launch_counts()
+    loss = forward()  # the main path
+    launches = dict(bs.LAUNCHES)
+    L = cfg.num_layers
+    if launches["blocksparse_fwd"] != L or not torch.isfinite(loss):
+        fail(f"sparse forward: B9 launches {launches} (want {L}), loss "
+             f"{loss.item()}")
+    wall = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        forward()
+        wall.append(time.perf_counter() - t0)
+    if bs.LAUNCHES["blocksparse_fwd"] != 4 * L:
+        fail(f"sparse forward: {bs.LAUNCHES} over 4 forwards")
+    # layer 0's q, k, v of this batch: kernel vs the masked form
+    seen = {}
+    kernel_mha = tf.multi_head_attention
+
+    def capture(q, k, v, **kw):
+        seen.setdefault("qkv", (q, k, v))
+        return kernel_mha(q, k, v, **kw)
+
+    tf.multi_head_attention = capture
+    try:
+        forward()
+    finally:
+        tf.multi_head_attention = kernel_mha
+    q, k, v = seen.pop("qkv")
+    sparsity = attn._SPARSE_CONFIG
+    got = bs.blocksparse_attention_kernel(q, k, v, sparsity)
+    masked = masked_by_heads(torch, attn, bs, q, k, v, sparsity, True)
+    err = row_rel_err(torch, got, masked)
+    if err > BS_MASKED_TOL_ROW["bfloat16"]:
+        fail(f"sparse forward: layer-0 kernel vs masked form {err} over "
+             f"{BS_MASKED_TOL_ROW['bfloat16']} of a row's largest entry")
+    del q, k, v, got, masked
+    prof = start_profile(torch)
+    t0 = time.perf_counter()
+    forward()
+    prof_wall = time.perf_counter() - t0
+    prof.__exit__(None, None, None)
+    profile = device_breakdown(torch, prof, prof_wall, 1, unit="forward")
+    del prof
+    b9 = profile.get("by_family", {}).get("blocksparse_fwd", {"ms": 0.0})
+    profile["blocksparse_fwd_share"] = (
+        b9["ms"] / 1e3 / profile["device_busy_s"]
+        if profile.get("device_time_measured") else None)
+    work = bs.work_list(sparsity, SPARSE_SEQ, True, torch.device("cuda"))
+    line = {
+        "model": "llama3-8b", "layers": L, "dtype": "bfloat16",
+        "attn_impl": "blocksparse", "layout": "fixed (block 128, 4 local, "
+        "1 global)", "seq": SPARSE_SEQ, "batch": 1, "loss": loss.item(),
+        "layout_density": bs.layout_density(work.layout_host, True),
+        "forward_s": wall, "forward_ms_p50": float(np.median(wall)) * 1e3,
+        "tokens_per_s": SPARSE_SEQ / float(np.median(wall)),
+        "launches_per_forward": launches["blocksparse_fwd"],
+        "layer0_kernel_vs_masked_max_row_rel_err": err,
+    }
+    attn.set_sparse_config(None)
+    return line, profile, launches["blocksparse_fwd"]
+
+
+def sparse_paths_at_lr3e4(torch, zoo, initialize, attn):
+    """Phase 8b's model, data and loop for 5 steps from the same seed at
+    phase 4's lr 3e-4 through the flash kernels and through the masked
+    form on a dense layout. The two compute one function by independent
+    code (the masked form's autograd, the flash forward and backward
+    kernels), so their losses must agree at every step. Returns
+    {run: [(mean loss, grad norm) per step]}."""
+    runs = {"flash": ("flash", None), "dense_masked": ("blocksparse", "dense")}
+    out = {}
+    for name, (impl, mode) in runs.items():
+        torch.cuda.empty_cache()
+        model = zoo.get_model("llama3-8b", num_layers=TRAIN_LAYERS,
+                              dtype=torch.float32, seed=SEED, attn_impl=impl)
+        rng = np.random.default_rng(SEED + 4)
+        rows = [rng.integers(0, model.config.vocab_size, SPARSE_TRAIN_SEQ + 1)
+                .astype(np.int32) for _ in range(SPARSE_GAS)]
+        cfg = dict(SPARSE_TRAIN_CONFIG, optimizer={
+            "type": "adamw", "params": {"lr": 3e-4}})
+        cfg["sparse_attention"] = None if mode is None else {"mode": mode}
+        engine, _, loader, _ = initialize(
+            model=model, config=cfg,
+            training_data=[{"input_ids": r} for r in rows] * 5)
+        steps, losses = [], []
+        for batch in loader:
+            loss = engine(batch)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+            if engine.is_gradient_accumulation_boundary():
+                steps.append((float(np.mean(losses)),
+                              float(engine.get_global_grad_norm())))
+                losses = []
+        out[name] = steps
+        del engine, model, loader
+    attn.set_sparse_config(None)
+    torch.cuda.empty_cache()
+    diff = max(abs(a[0] - b[0]) / abs(b[0])
+               for a, b in zip(out["dense_masked"], out["flash"]))
+    if not np.isfinite(diff) or diff > TRAIN_LOSS_TOL_REL:
+        fail(f"sparse train: the masked form (dense layout) and the flash "
+             f"path disagree over 5 steps: {out}")
+    out["dense_masked_vs_flash_max_loss_rel_diff"] = diff
+    return out
+
+
+def sparse_train_phase(torch, zoo, initialize, bs, attn):
+    """``initialize`` with a ``sparse_attention`` block and
+    ``training_data`` over 8-layer full-width Llama-3-8B; the micro-step
+    loop at micro 1 x GAS 2 x S 4096 (the masked form carries the
+    gradient, so no B9 launch), then ``eval_batch`` at S 8192 (one B9
+    launch a layer). Returns (the line, B9 launches by path)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = zoo.get_model("llama3-8b", num_layers=TRAIN_LAYERS,
+                          dtype=torch.float32, seed=SEED,
+                          attn_impl="blocksparse")
+    cfg = model.config
+    rng = np.random.default_rng(SEED + 4)
+    rows = [rng.integers(0, cfg.vocab_size, SPARSE_TRAIN_SEQ + 1)
+            .astype(np.int32) for _ in range(SPARSE_GAS)]
+    # the same microbatches every step, so the loss can fall
+    data = [{"input_ids": r} for r in rows] * (1 + SPARSE_MEASURED)
+    engine, _, loader, _ = initialize(model=model,
+                                      config=dict(SPARSE_TRAIN_CONFIG),
+                                      training_data=data)
+    if not isinstance(attn._SPARSE_CONFIG, bs.FixedSparsityConfig):
+        fail(f"sparse train: the engine installed {attn._SPARSE_CONFIG}")
+    batches = iter(loader)
+
+    def step():
+        losses = []
+        for _ in range(SPARSE_GAS):
+            loss = engine(next(batches))
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+        return float(np.mean(losses))
+
+    losses = [step()]  # warm-up
+    bs.reset_launch_counts()
+    step_s = []
+    for _ in range(SPARSE_MEASURED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    train_launches = bs.LAUNCHES["blocksparse_fwd"]
+    if train_launches != 0:
+        fail(f"sparse train: {train_launches} B9 launches while training "
+             "(the masked form carries the gradient)")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail(f"sparse train: losses {losses} not finite and falling")
+    if engine.global_steps != 1 + SPARSE_MEASURED or \
+            engine.micro_steps != SPARSE_GAS * (1 + SPARSE_MEASURED):
+        fail(f"sparse train: steps {engine.global_steps}, micro steps "
+             f"{engine.micro_steps}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ev = {"input_ids": rng.integers(0, cfg.vocab_size, (1, SPARSE_SEQ + 1))
+          .astype(np.int32)}
+    engine.eval_batch(ev)  # warm-up: the S 8192 work list
+    bs.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev_loss = engine.eval_batch(ev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = bs.LAUNCHES["blocksparse_fwd"]
+    if eval_launches != TRAIN_LAYERS or not torch.isfinite(ev_loss):
+        fail(f"sparse eval: {eval_launches} B9 launches (want "
+             f"{TRAIN_LAYERS}), loss {ev_loss.item()}")
+    tokens = SPARSE_GAS * SPARSE_TRAIN_SEQ
+    p50 = float(np.median(step_s))
+    line = {
+        "model": "llama3-8b", "layers": f"{TRAIN_LAYERS} of 32",
+        "params": cfg.num_params(), "dtype": "bfloat16 compute, fp32 masters",
+        "loop": "engine(batch), engine.backward(loss), engine.step()",
+        "micro": 1, "gas": SPARSE_GAS, "seq": SPARSE_TRAIN_SEQ,
+        "layout": "fixed (block 128, 4 local, 1 global)",
+        "step_s": step_s, "step_ms_p50": p50 * 1e3,
+        "tokens_per_s": tokens / p50, "peak_mem_gb": peak_gb,
+        "losses": losses, "global_steps": engine.global_steps,
+        "micro_steps": engine.micro_steps,
+        "b9_launches_training": train_launches,
+        "lr": SPARSE_TRAIN_CONFIG["optimizer"]["params"]["lr"],
+        "eval_seq": SPARSE_SEQ, "eval_ms": eval_s * 1e3,
+        "eval_loss": ev_loss.item(), "b9_launches_eval": eval_launches,
+    }
+    del engine, model, loader, batches
+    attn.set_sparse_config(None)
+    line["at_lr3e-4"] = sparse_paths_at_lr3e4(torch, zoo, initialize, attn)
+    return line, {"engine_eval": eval_launches, "train": train_launches}
+
+
 # -- phase 7: quantized serve --------------------------------------------------
 
 
@@ -1452,6 +1879,8 @@ def main():
     from deepspeed_tpu_torch.inference import weight_quant as wq
     from deepspeed_tpu_torch.models import transformer as tf
     from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.ops import attention as attn
+    from deepspeed_tpu_torch.ops import blocksparse_attention as bs
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
@@ -1507,6 +1936,19 @@ def main():
                                                  torch.float32)
     deq = {case: check_dequant(torch, qz, wq, timer, case)
            for case in (8, 4, "fp8", "weight")}
+    torch.cuda.empty_cache()
+    # 2e. block-sparse forward against its plain version and the masked
+    # form
+    sparse = {}
+    for case in BS_CASES:
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            sparse[(name, case)] = check_blocksparse(torch, bs, attn, timer,
+                                                     dtype, case)
+            torch.cuda.empty_cache()
+    log("blocksparse: " + ", ".join(
+        f"{c} density {sparse[('bfloat16', c)]['pair_density']:.3f}"
+        for c in BS_CASES))
     del timer
     torch.cuda.empty_cache()
     log("kernels agree with their plain versions")
@@ -1567,6 +2009,15 @@ def main():
     profile = device_breakdown(torch, prof, prof_wall, gen)
     del prof
 
+    # 8a. the block-sparse forward at full depth on the same model, before
+    # phase 7's weight run quantizes it
+    torch.cuda.empty_cache()
+    sparse_fwd, sparse_fwd_profile, sparse_fwd_launches = \
+        sparse_forward_phase(torch, tf, attn, bs, model)
+    torch.cuda.empty_cache()
+    log(f"sparse forward: {sparse_fwd['forward_ms_p50']:.1f} ms at S "
+        f"{SPARSE_SEQ}")
+
     # 7. quantized serve on the same model (its last use: the int8
     # weight run quantizes it in place)
     quant_serve, quant_profile, quant_launches = quant_serve_phase(
@@ -1581,6 +2032,13 @@ def main():
     train, train_profile, train_launches = train_phase(torch, zoo,
                                                        initialize, fa, tf)
     log(f"train: {train['step_ms_p50']:.1f} ms per step")
+
+    # 8b. the engine with a sparse_attention block: the micro-step loop
+    # over the dataloader, then eval; phase 4's engine is gone
+    sparse_train, sparse_launches = sparse_train_phase(
+        torch, zoo, initialize, bs, attn)
+    log(f"sparse train: {sparse_train['step_ms_p50']:.1f} ms per step, "
+        f"eval {sparse_train['eval_ms']:.1f} ms")
 
     # 5. MoE serve, 6. MoE train: the Llama models are gone
     moe_serve, moe_serve_profile, moe_serve_launches = moe_serve_phase(
@@ -1683,6 +2141,31 @@ def main():
                                 "dequantize",
                 "shape": res["shape"], "other": other}
 
+    def sparse_entry():
+        b = sparse[("bfloat16", "main")]
+        return {"name": "blocksparse_fwd", "route": "cuda",
+                "source": "deepspeed_tpu_torch/ops/csrc/"
+                          "blocksparse_attention.cu",
+                "replaces": "deepspeed_tpu/ops/pallas/"
+                            "blocksparse_attention.py:247",
+                "launches": sparse_fwd_launches,
+                "launches_by_path": {"full_depth_forward":
+                                     sparse_fwd_launches, **sparse_launches},
+                "max_abs_err": b["max_abs_err"],
+                "max_row_rel_err": b["max_row_rel_err"],
+                "masked_max_row_rel_err": b["masked_max_row_rel_err"],
+                "ms": b["ms"], "plain_ms": b["plain_ms"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": b["library_ms"],
+                "library_call": "scaled_dot_product_attention on [B, H, S, "
+                                "D] copies, KV heads expanded, the layout "
+                                "and causality as a boolean attn_mask (it "
+                                "computes every block)",
+                "dtype": "bfloat16", "shape": b["shape"],
+                "other": {f"{dt}/{case}": sparse[(dt, case)]
+                          for dt, case in sparse
+                          if (dt, case) != ("bfloat16", "main")}}
+
     kernels = {"kernels": [
         entry("paged_decode",
               "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec, None),
@@ -1705,6 +2188,7 @@ def main():
                      if k != (8, 16)}, "int8"),
         quant_entry("dequantize", 82, deq[8],
                     {str(k): v for k, v in deq.items() if k != 8}, "int8"),
+        sparse_entry(),
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
@@ -1717,6 +2201,10 @@ def main():
     print(json.dumps({"moe_train_profile": moe_train_profile}), flush=True)
     print(json.dumps({"quant_serve": quant_serve}), flush=True)
     print(json.dumps({"quant_serve_profile": quant_profile}), flush=True)
+    print(json.dumps({"sparse_forward": sparse_fwd}), flush=True)
+    print(json.dumps({"sparse_forward_profile": sparse_fwd_profile}),
+          flush=True)
+    print(json.dumps({"sparse_train": sparse_train}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
           flush=True)
     print(card, flush=True)

@@ -14,9 +14,25 @@ Slice 2: the dense training step — ``initialize`` (``runtime.engine``)
 and ``Engine.train_batch`` over the same models, with the flash
 attention forward and both backward kernels written by hand in CUDA
 (``ops/csrc/flash_attention.cu``).
+
+Slice 3: single-card MoE serving and training, with the grouped-matmul
+kernels (``ops/csrc/grouped_matmul.cu``). Slice 4: quantized serving,
+with the blockwise quantize, the KV quantize-on-append and the
+dequantize (``ops/csrc/quantization.cu``).
+
+Slice 5: block-sparse attention — the ``sparse_attention`` and
+``kernels`` config blocks, ``attn_impl="blocksparse"`` (the masked form
+where autograd records, the hand-written block-sparse forward kernel,
+``ops/csrc/blocksparse_attention.cu``, elsewhere), the engine's
+``training_data`` dataloader (``DeepSpeedDataLoader``,
+``RepeatingLoader``) and its ``forward`` / ``backward`` / ``step``
+micro-step API.
 """
 
 from deepspeed_tpu_torch._device import kernels_available, resolve_device
+from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
+                                                    RepeatingLoader)
 from deepspeed_tpu_torch.runtime.engine import initialize
 
-__all__ = ["initialize", "kernels_available", "resolve_device"]
+__all__ = ["initialize", "kernels_available", "resolve_device",
+           "DeepSpeedDataLoader", "RepeatingLoader"]

@@ -4,8 +4,10 @@ runs (port of ``deepspeed_tpu/config/config.py``).
 Parsed: the batch triple and its solver (``resolve_batch_size``),
 ``steps_per_print``, ``gradient_clipping``, ``seed``, the ``bf16`` and
 ``fp16`` blocks, ``optimizer``, ``scheduler``,
-``zero_optimization.stage``, the ``moe`` block (``ep_size`` 1) and the
-``serving`` block (``ServingConfig``, the serving engine's knobs). A
+``zero_optimization.stage``, the ``moe`` block (``ep_size`` 1), the
+``serving`` block (``ServingConfig``, the serving engine's knobs), the
+``sparse_attention`` block (``SparseAttentionConfig``) and the
+``kernels`` block (``KernelsConfig``). A
 block or switch of the JAX schema that this package does not run raises
 ``NotImplementedError`` naming its ROADMAP item: nothing the JAX engine
 would act on is silently ignored.
@@ -33,8 +35,6 @@ UNPORTED_BLOCKS = {
     "activation_checkpointing": f"{_A} 11 (activation checkpointing "
                                 "policies; the model's `remat` switch "
                                 "recomputes every layer)",
-    "sparse_attention": "ROADMAP queue B item 9 (block-sparse attention)",
-    "kernels": f"{_A} 3 (kernel registry and table)",
     "performance": f"{_A} 4 (dispatch-ahead, input prefetch, fp8 MLP)",
     "checkpoint": f"{_A} 6 (checkpoint and resilience)",
     "resilience": f"{_A} 6 (checkpoint and resilience)",
@@ -238,6 +238,88 @@ class ServingConfig:
                             f"{_A} 13 (serving fleet)")
 
 
+@dataclass
+class SparseAttentionConfig:
+    """The ``sparse_attention`` block (reference runtime/config.py:250-
+    410): dense | fixed | variable | bigbird | bslongformer modes, mapped
+    onto the layouts of ``ops/blocksparse_attention.py`` by its
+    ``from_config``."""
+
+    mode: str = "fixed"
+    block: int = 128
+    num_local_blocks: int = 4
+    num_global_blocks: int = 1
+    num_random_blocks: int = 1
+    num_sliding_window_blocks: int = 3
+    local_window_blocks: Any = field(default_factory=lambda: [4])
+    global_block_indices: Any = field(default_factory=lambda: [0])
+    attention: str = "unidirectional"  # causal; or "bidirectional"
+
+    def validate(self) -> None:
+        if self.mode not in ("dense", "fixed", "variable", "bigbird",
+                             "bslongformer"):
+            raise ValueError(
+                f"sparse_attention.mode must be dense|fixed|variable|"
+                f"bigbird|bslongformer, got {self.mode!r}")
+        if self.attention not in ("unidirectional", "bidirectional"):
+            raise ValueError(
+                f"sparse_attention.attention must be unidirectional|"
+                f"bidirectional, got {self.attention!r}")
+
+
+@dataclass
+class KernelsConfig:
+    """The ``kernels`` block, with the JAX schema and validation. The
+    port acts on ``blocksparse_block`` (0 follows
+    ``sparse_attention.block``): the engine builds the layout at that
+    block. The geometry knobs (``flash_block_*``,
+    ``pages_per_compute_block``, ``gmm_block_*``) and ``dispatch`` are
+    validated and not used, as the kernels accept their block arguments:
+    the Hopper kernels fix their own tiles and there is no cost table
+    yet. A value other than the JAX default warns that it has no effect,
+    so JAX configs load and nothing set is dropped unseen;
+    ``table_path`` raises (ROADMAP queue A item 3)."""
+
+    flash_block_q: int = 0
+    flash_block_k: int = 0
+    pages_per_compute_block: int = 1
+    gmm_block_m: int = 512
+    gmm_block_n: int = 1024
+    gmm_block_k: int = 512
+    blocksparse_block: int = 0  # 0 = follow sparse_attention.block
+    dispatch: str = "auto"  # auto (win/loss table) | heuristic
+    table_path: Optional[str] = None
+
+    def validate(self) -> None:
+        for name in ("flash_block_q", "flash_block_k", "gmm_block_m",
+                     "gmm_block_n", "gmm_block_k", "blocksparse_block"):
+            v = getattr(self, name)
+            if v < 0 or (v and v & (v - 1)):
+                raise ValueError(
+                    f"kernels.{name} must be 0 (auto) or a power of "
+                    f"two, got {v}")
+        if self.pages_per_compute_block < 1:
+            raise ValueError(
+                f"kernels.pages_per_compute_block must be >= 1, got "
+                f"{self.pages_per_compute_block}")
+        if self.dispatch not in ("auto", "heuristic"):
+            raise ValueError(
+                f"kernels.dispatch must be auto|heuristic, got "
+                f"{self.dispatch!r}")
+        if self.table_path is not None:
+            raise _unported("kernels.table_path",
+                            f"{_A} 3 (kernel registry and table)")
+        for f in dataclasses.fields(self):
+            if f.name in ("blocksparse_block", "table_path"):
+                continue
+            v = getattr(self, f.name)
+            if v != f.default:
+                warnings.warn(
+                    f"kernels.{f.name}={v!r} has no effect here: the "
+                    f"Hopper kernels fix their own tiles and dispatch "
+                    f"({_A} 3)")
+
+
 def _block(klass, data, name):
     """A dataclass block from a dict (None means defaults); unknown keys
     warn, as the JAX ConfigModel does."""
@@ -271,6 +353,8 @@ class Config:
     zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
+    sparse_attention: Optional[SparseAttentionConfig] = None
+    kernels: KernelsConfig = field(default_factory=KernelsConfig)
 
     @classmethod
     def from_dict(cls, data: Optional[Dict[str, Any]]) -> "Config":
@@ -292,7 +376,8 @@ class Config:
         for name in ZERO_NOOP_KEYS:
             zero.pop(name, None)
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
-                  "zero_optimization", "moe", "serving"}
+                  "zero_optimization", "moe", "serving", "sparse_attention",
+                  "kernels"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         known = (scalars | blocks
                  | set(UNPORTED_BLOCKS) | set(UNPORTED_SWITCHES))
@@ -310,7 +395,12 @@ class Config:
                               "scheduler")),
             zero_optimization=_block(ZeroConfig, zero, "zero_optimization"),
             moe=_block(MoEConfig, data.get("moe"), "moe"),
-            serving=_block(ServingConfig, data.get("serving"), "serving"))
+            serving=_block(ServingConfig, data.get("serving"), "serving"),
+            sparse_attention=(None if data.get("sparse_attention") is None
+                              else _block(SparseAttentionConfig,
+                                          data["sparse_attention"],
+                                          "sparse_attention")),
+            kernels=_block(KernelsConfig, data.get("kernels"), "kernels"))
         cfg.validate()
         return cfg
 
@@ -330,6 +420,9 @@ class Config:
             raise ValueError("gradient_clipping must be >= 0")
         self.zero_optimization.validate()
         self.moe.validate()
+        if self.sparse_attention is not None:
+            self.sparse_attention.validate()
+        self.kernels.validate()
 
     def resolve_batch_size(self, dp_world_size: int) -> None:
         """Solve train_batch = micro x GAS x dp (the JAX solver,
@@ -399,4 +492,4 @@ def load_config(config) -> Config:
 
 __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "BF16Config",
            "FP16Config", "ZeroConfig", "MoEConfig", "ServingConfig",
-           "load_config"]
+           "SparseAttentionConfig", "KernelsConfig", "load_config"]

@@ -79,7 +79,7 @@ class TransformerConfig:
     parallel_block: bool = False
     # recompute each layer in the backward (torch.utils.checkpoint)
     remat: bool = True
-    attn_impl: str = "auto"  # auto | xla | flash (ops/attention.py)
+    attn_impl: str = "auto"  # auto | xla | flash | blocksparse (ops/attention)
     sequence_parallel: bool = False
     attn_chunks: int = 0
     fpdt_host_kv: bool = False

@@ -1,11 +1,19 @@
-"""Attention ops: the dense reference path and the flash kernel dispatch
-(port of ``deepspeed_tpu/ops/attention.py``).
+"""Attention ops: the dense reference path, the flash kernel dispatch
+and the block-sparse dispatch (port of ``deepspeed_tpu/ops/attention.py``).
 
 ``impl="auto"`` launches the hand-written flash kernels for CUDA tensors
 and takes the dense path for CPU tensors, which is what the JAX package
 does off the TPU. The JAX cost table, its ``FLASH_MIN_SEQ`` crossover and
 its block-size heuristics are v5e measurements and are not carried over;
 the registry and table port is ROADMAP queue A item 3.
+
+``impl="blocksparse"`` reads the layout that ``set_sparse_config``
+installed (the engine installs the config's ``sparse_attention`` block).
+It routes by gradient: where autograd records (grad mode on and q, k or
+v requiring grad) it runs the differentiable masked form, as JAX does
+everywhere; otherwise it launches the block-sparse kernel, which JAX
+keeps for its no-grad fast path (``blocksparse_attention.py:303-304``).
+Both compute the same function.
 """
 
 from __future__ import annotations
@@ -15,9 +23,20 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch.ops import blocksparse_attention as bsa
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e30
+
+# the process-global layout for impl="blocksparse" (a SparsityConfig)
+_SPARSE_CONFIG = None
+
+
+def set_sparse_config(sparsity) -> None:
+    """Install the layout for impl='blocksparse' (the engine wires the
+    ds_config sparse_attention block here; None clears it)."""
+    global _SPARSE_CONFIG
+    _SPARSE_CONFIG = sparsity
 
 
 def repeat_kv_heads(q, k, v):
@@ -59,13 +78,24 @@ def multi_head_attention(q, k, v, causal: bool = True, impl: str = "auto",
                          ) -> torch.Tensor:
     """Dispatching entry point used by the model. ``impl``: "flash"
     (the kernels; their plain versions on CPU tensors), "xla" (the dense
-    path), "auto" (flash for CUDA tensors, dense for CPU tensors).
-    "blocksparse" is not ported yet."""
+    path), "auto" (flash for CUDA tensors, dense for CPU tensors),
+    "blocksparse" (the installed layout: the masked form under autograd,
+    else the block-sparse kernel)."""
     if impl == "blocksparse":
-        raise NotImplementedError(
-            "attn_impl='blocksparse' needs the block-sparse kernel "
-            "(ROADMAP queue B item 9, blocksparse_attention.py "
-            "_sparse_fwd_kernel), not ported yet")
+        if _SPARSE_CONFIG is None:
+            raise ValueError(
+                "attn_impl='blocksparse' needs a sparse_attention config "
+                "block (or ops.attention.set_sparse_config)")
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "blocksparse attention does not take segment_ids")
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            k, v = repeat_kv_heads(q, k, v)  # the masked form is MHA-only
+            return bsa.blocksparse_attention(q, k, v, _SPARSE_CONFIG,
+                                             causal=causal)
+        return bsa.blocksparse_attention_kernel(q, k, v, _SPARSE_CONFIG,
+                                                causal=causal)
     if impl == "auto":
         impl = "flash" if q.device.type == "cuda" else "xla"
     if impl == "flash":
@@ -74,7 +104,8 @@ def multi_head_attention(q, k, v, causal: bool = True, impl: str = "auto",
     if impl == "xla":
         return xla_attention(q, k, v, causal=causal, segment_ids=segment_ids)
     raise ValueError(f"unknown attention impl {impl!r}; known: auto, flash, "
-                     "xla")
+                     "xla, blocksparse")
 
 
-__all__ = ["repeat_kv_heads", "xla_attention", "multi_head_attention"]
+__all__ = ["repeat_kv_heads", "xla_attention", "multi_head_attention",
+           "set_sparse_config"]

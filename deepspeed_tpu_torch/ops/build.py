@@ -25,7 +25,8 @@ BUILD_DIR = os.path.join(
 SOURCES = {"paged_attention": "paged_attention.cu",
            "flash_attention": "flash_attention.cu",
            "grouped_matmul": "grouped_matmul.cu",
-           "quantization": "quantization.cu"}
+           "quantization": "quantization.cu",
+           "blocksparse_attention": "blocksparse_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,8 +34,12 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in (SOURCES[name], *headers):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

@@ -1,14 +1,26 @@
 """Single-card training engine (port of ``deepspeed_tpu/runtime/engine.py``).
 
 ``initialize(model=..., config=...)`` returns the JAX package's 4-tuple
-(engine, optimizer view, dataloader, lr schedule). ``Engine.train_batch``
-pulls ``gradient_accumulation_steps`` microbatches (dicts of numpy arrays,
-moved to the engine's device), back-propagates ``loss * scale / gas``
-through each, then applies one optimizer step: the fp16 loss-scale
-overflow skip, the global-norm clip and AdamW on the fp32 masters, and
-the compute params recast from them. An ``MoETransformerLM`` trains the
-same way; its loss is the LM loss plus the routers' aux loss, and the
+(engine, optimizer view, dataloader, lr schedule); with
+``training_data`` the dataloader is a ``DeepSpeedDataLoader`` at the
+micro batch size. ``Engine.train_batch`` pulls
+``gradient_accumulation_steps`` microbatches (dicts of numpy arrays,
+moved to the engine's device; from the dataloader when no iterator is
+given), back-propagates ``loss * scale / gas`` through each, then
+applies one optimizer step: the fp16 loss-scale overflow skip, the
+global-norm clip and AdamW on the fp32 masters, and the compute params
+recast from them. The micro-step API does the same in the user's loop:
+``loss = engine(batch)`` (``forward``, keeping the autograd graph),
+``engine.backward(loss)`` (``loss * scale / gas`` back-propagated into
+the accumulated grads) and ``engine.step()`` (the update, at the
+accumulation boundary only). An ``MoETransformerLM`` trains the same
+way; its loss is the LM loss plus the routers' aux loss, and the
 config's ``moe.impl`` is applied to its config, as the JAX engine does.
+
+The ``sparse_attention`` block builds its layout (at
+``kernels.blocksparse_block`` when that is set) and installs it for
+``attn_impl="blocksparse"``; an engine without the block clears any
+layout a previous engine installed.
 
 The engine takes its fp32 masters from the model's current tensors (a
 model built in fp32 shares them, so its parameters follow training) and
@@ -18,9 +30,8 @@ are the same math at world size 1; sharding over ranks is ROADMAP queue
 A item 5.
 
 Not ported yet (ROADMAP queue A item 4 and later): dispatch-ahead, the
-input prefetcher, the dataloader, the ``forward`` / ``backward`` /
-``step`` micro-step API, checkpoints, and the watchdog, flight
-recorder, observability hub and chaos hooks.
+input prefetcher, checkpoints, client optimizers and LR schedulers, and
+the watchdog, flight recorder, observability hub and chaos hooks.
 """
 
 from __future__ import annotations
@@ -36,6 +47,10 @@ from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.config.config import Config, load_config
 from deepspeed_tpu_torch.models import moe_transformer
 from deepspeed_tpu_torch.models.transformer import loss_fn
+from deepspeed_tpu_torch.ops import attention as attn_ops
+from deepspeed_tpu_torch.ops.blocksparse_attention import \
+    from_config as sparse_from_config
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
                                                      init_loss_scale,
                                                      update_loss_scale)
@@ -52,18 +67,16 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                config=None, config_params=None, device: DeviceLike = None):
     """Reference-parity entry point. ``model`` is a ``TransformerLM`` or
     an ``MoETransformerLM`` (``models/zoo.get_model``); ``device``
-    defaults to the card.
-    Returns (engine, optimizer_view, dataloader, lr_schedule); the
-    dataloader is None (not ported yet)."""
+    defaults to the card. ``training_data`` (with an optional
+    ``collate_fn``) builds the returned dataloader.
+    Returns (engine, optimizer_view, dataloader, lr_schedule)."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
     for name, value, item in (
             ("optimizer", optimizer, "a client optimizer"),
             ("model_parameters", model_parameters,
              "a (loss_fn, params) model"),
-            ("training_data", training_data, "the dataloader"),
-            ("lr_scheduler", lr_scheduler, "a client LR scheduler"),
-            ("collate_fn", collate_fn, "the dataloader")):
+            ("lr_scheduler", lr_scheduler, "a client LR scheduler")):
         if value is not None:
             raise NotImplementedError(
                 f"initialize({name}=...): {item} is not ported to "
@@ -71,8 +84,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     config = config if config is not None else config_params
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
-    engine = Engine(model, load_config(config), device=device)
-    return engine, engine.optimizer, None, engine.lr_schedule
+    engine = Engine(model, load_config(config), device=device,
+                    training_data=training_data, collate_fn=collate_fn)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_schedule)
 
 
 class _OptimizerView:
@@ -88,9 +103,11 @@ class _OptimizerView:
 
 class Engine:
     """Owns the compute params, the fp32 masters and optimizer state, and
-    the loss scale; runs one fused training step per ``train_batch``."""
+    the loss scale; runs one fused training step per ``train_batch``, or
+    the same step through ``forward`` / ``backward`` / ``step``."""
 
-    def __init__(self, model, config: Config, device: DeviceLike = None):
+    def __init__(self, model, config: Config, device: DeviceLike = None,
+                 training_data=None, collate_fn=None):
         if not (hasattr(model, "params") and hasattr(model, "config")):
             raise TypeError("Engine needs a TransformerLM (models/zoo."
                             "get_model); other models are not ported yet")
@@ -114,6 +131,7 @@ class Engine:
         else:
             self._loss_fn = loss_fn
         self.model_config = dataclasses.replace(model.config, **over)
+        self._install_sparse_layout()
 
         self.lr_schedule = get_lr_schedule(config.scheduler,
                                            base_lr=self._config_lr())
@@ -129,9 +147,19 @@ class Engine:
 
         self.global_steps = 0
         self.global_samples = 0
+        self.micro_steps = 0
         self.skipped_steps = 0
         self._last_grad_norm: Optional[torch.Tensor] = None
         self.last_metrics: Dict[str, Any] = {}
+        # micro-step path: the last forward's loss and model metrics, and
+        # the (loss, metrics) of each backward since the last update
+        self._pending: Optional[tuple] = None
+        self._micro_losses: List[tuple] = []
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = DeepSpeedDataLoader(
+                training_data, batch_size=self.micro_batch_size,
+                collate_fn=collate_fn)
         n_params = sum(p.numel() for _, p in leaves(self.params))
         logger.info(
             f"engine ready: {n_params / 1e6:.1f}M params, zero_stage="
@@ -139,6 +167,32 @@ class Engine:
             f"{self.micro_batch_size}, gas="
             f"{self.gradient_accumulation_steps}, dtype={cdt}, "
             f"device={self.device}")
+
+    def _install_sparse_layout(self) -> None:
+        """The ``sparse_attention`` block into the process-global
+        dispatcher (JAX ``engine.py:177-206``), or clear it."""
+        scfg = self.config.sparse_attention
+        if scfg is None:
+            # a previous engine in this process may have installed a
+            # layout into the process-global dispatcher — clear it
+            attn_ops.set_sparse_config(None)
+            return
+        kblk = self.config.kernels.blocksparse_block
+        if kblk and kblk != scfg.block:
+            # kernels.blocksparse_block overrides the layout block
+            scfg = dataclasses.replace(scfg, block=kblk)
+        attn_ops.set_sparse_config(sparse_from_config(scfg))
+        if self.model_config.attn_impl != "blocksparse":
+            logger.warning(
+                "sparse_attention configured but the model's attn_impl "
+                "is not 'blocksparse' — dense attention will run; set "
+                "attn_impl='blocksparse' on the model config to activate "
+                "the layout")
+        if scfg.attention == "bidirectional":
+            logger.warning(
+                "sparse_attention.attention='bidirectional': causality "
+                "comes from the model (the LM stack is causal); the "
+                "layout is applied either way")
 
     def _config_lr(self) -> float:
         opt = self.config.optimizer
@@ -167,20 +221,35 @@ class Engine:
         return [self._to_device(b) for b in out]
 
     # -- training ------------------------------------------------------------
-    def train_batch(self, data_iter) -> torch.Tensor:
+    def _loss_scale(self) -> float:
+        return self.loss_scale_state.scale if self.config.fp16.enabled \
+            else 1.0
+
+    def train_batch(self, data_iter=None) -> torch.Tensor:
         """One training step over ``gradient_accumulation_steps``
-        microbatches from ``data_iter``. Returns the mean microbatch loss
-        (a 0-dim fp32 tensor on the device)."""
+        microbatches from ``data_iter`` (default: a fresh pass over the
+        dataloader). Returns the mean microbatch loss (a 0-dim fp32
+        tensor on the device)."""
+        if data_iter is None:
+            if self.training_dataloader is None:
+                raise ValueError("train_batch needs data_iter or "
+                                 "training_data")
+            data_iter = iter(self.training_dataloader)
         gas = self.gradient_accumulation_steps
         batches = self._next_microbatches(data_iter, gas)
-        fp16 = self.config.fp16.enabled
-        scale = self.loss_scale_state.scale if fp16 else 1.0
-        losses, model_metrics = [], []
+        scale = self._loss_scale()
+        micro = []
         for mb in batches:
             loss, aux = self._loss_fn(self.model_config, self.params, mb)
             (loss * scale / gas).backward()
-            losses.append(loss.detach())
-            model_metrics.append(aux)
+            micro.append((loss.detach(), aux))
+        return self._apply_update(micro)
+
+    def _apply_update(self, micro: List[tuple]) -> torch.Tensor:
+        """The optimizer step on the accumulated grads; ``micro`` holds
+        each microbatch's (loss, model metrics). Returns the mean loss."""
+        fp16 = self.config.fp16.enabled
+        scale = self._loss_scale()
         grads = tree_map(lambda p: p.grad, self.params)
         overflow = has_overflow(g for _, g in leaves(grads)) if fp16 else False
         lr = self.get_lr()[0]
@@ -197,20 +266,60 @@ class Engine:
         self.global_samples += self.train_batch_size
         self.skipped_steps += int(overflow)
         self._last_grad_norm = gnorm
-        mean_loss = torch.stack(losses).mean()
+        mean_loss = torch.stack([loss for loss, _ in micro]).mean()
         self.last_metrics = {"loss": mean_loss, "grad_norm": gnorm, "lr": lr,
                              "loss_scale": self.loss_scale_state.scale,
                              "overflow": overflow}
         # the model's own metrics (an MoE loss's lm_loss and aux_loss),
         # averaged over the microbatches
-        for key in model_metrics[0]:
+        for key in micro[0][1]:
             if key not in self.last_metrics:
                 self.last_metrics[key] = torch.stack(
-                    [m[key].detach().float() for m in model_metrics]).mean()
+                    [aux[key].detach().float() for _, aux in micro]).mean()
         if self.global_steps % self.config.steps_per_print == 0:
             logger.info(f"step={self.global_steps}, loss={float(mean_loss):.4f}, "
                         f"lr={lr:.3e}, grad_norm={float(gnorm):.3f}")
         return mean_loss
+
+    # -- micro-step API (JAX engine.py:1387-1445) ---------------------------
+    def forward(self, batch) -> torch.Tensor:
+        """One microbatch's loss, keeping the autograd graph for
+        :meth:`backward`."""
+        loss, aux = self._loss_fn(self.model_config, self.params,
+                                  self._to_device(batch))
+        self._pending = (loss, aux)
+        return loss
+
+    __call__ = forward
+
+    def backward(self, loss: Optional[torch.Tensor] = None,
+                 retain_graph: bool = False) -> torch.Tensor:
+        """Back-propagate ``loss * scale / gas`` into the accumulated
+        grads (default: the last ``forward``'s loss)."""
+        if self._pending is None:
+            raise RuntimeError("backward() called without a prior forward()")
+        pending_loss, aux = self._pending
+        self._pending = None
+        loss = pending_loss if loss is None else loss
+        scale = self._loss_scale()
+        (loss * scale / self.gradient_accumulation_steps).backward(
+            retain_graph=retain_graph)
+        self._micro_losses.append((loss.detach(), aux))
+        self.micro_steps += 1
+        return loss
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self.micro_steps % self.gradient_accumulation_steps == 0
+
+    def step(self) -> None:
+        """Apply the update at the accumulation boundary; a no-op
+        elsewhere."""
+        if not self.is_gradient_accumulation_boundary():
+            return
+        if not self._micro_losses:
+            raise RuntimeError("step() called without accumulated gradients")
+        micro, self._micro_losses = self._micro_losses, []
+        self._apply_update(micro)
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:

@@ -186,6 +186,8 @@ def test_initialize_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         deepspeed_tpu_torch.initialize(model=model, config={})
-    with pytest.raises(NotImplementedError, match="dataloader"):
+    # training_data builds the dataloader now (tests/test_torch_engine_
+    # steps.py); a client optimizer is what still raises
+    with pytest.raises(NotImplementedError, match="client optimizer"):
         deepspeed_tpu_torch.initialize(model=model, config={},
-                                       training_data=[1], device="cpu")
+                                       optimizer=object(), device="cpu")

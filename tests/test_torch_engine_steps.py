@@ -1,0 +1,309 @@
+"""The port engine's sparse wiring, dataloader and micro-step API against
+the JAX engine.
+
+Both engines start from the same fp32 masters (the JAX engine's
+``opt_state.master`` through ``params_from_jax``). The JAX engine runs on
+the 8-device CPU mesh; the port's world size is 1, so it gets the JAX
+engine's global micro batch (``train_batch_size`` and the same GAS).
+Model: a Llama-style TINY with ``attn_impl="blocksparse"`` and a
+``sparse_attention`` block (fixed, block 8). fp32, AdamW lr 1e-3, clip
+1.0, GAS 2. Tolerances: losses rtol 1e-4 over 4 steps, masters atol 1e-4
+(fp32 sums in different orders carried through Adam steps); the port's
+``forward`` / ``backward`` / ``step`` run the same operations as its
+``train_batch`` and must match it bit for bit. ``eval_batch`` runs the
+kernel path (its plain version on the CPU) under no_grad and matches
+JAX's masked form within 1e-5.
+"""
+
+import logging
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu as dstpu
+import deepspeed_tpu_torch
+from deepspeed_tpu.models.transformer import TransformerConfig as JaxConfig
+from deepspeed_tpu.models.transformer import TransformerLM as JaxLM
+from deepspeed_tpu.ops import attention as jax_attn
+from deepspeed_tpu.runtime import dataloader as jax_dl
+from deepspeed_tpu_torch.models import zoo
+from deepspeed_tpu_torch.models.convert import (params_from_jax,
+                                                params_to_numpy)
+from deepspeed_tpu_torch.models.transformer import TransformerConfig
+from deepspeed_tpu_torch.ops import attention as attn
+from deepspeed_tpu_torch.ops import blocksparse_attention as bs
+from deepspeed_tpu_torch.runtime import dataloader as dl
+
+TINY = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+            num_kv_heads=2, max_seq_len=64, pos_emb="rope", norm="rmsnorm",
+            activation="swiglu", tie_embeddings=False, remat=False,
+            attn_impl="blocksparse")
+CFG = {"train_micro_batch_size_per_chip": 2,
+       "gradient_accumulation_steps": 2,
+       "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+       "gradient_clipping": 1.0, "bf16": {"enabled": False},
+       "zero_optimization": {"stage": 0}, "steps_per_print": 100,
+       "sparse_attention": {"mode": "fixed", "block": 8,
+                            "num_local_blocks": 2}}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _clear_layouts():
+    """The layout is process-global in both packages: clear it after
+    each test."""
+    yield
+    attn.set_sparse_config(None)
+    jax_attn.set_sparse_config(None)
+
+
+def _engines(cfg=CFG):
+    jeng, *_ = dstpu.initialize(
+        model=JaxLM(JaxConfig(dtype=jnp.float32, **TINY)), config=dict(cfg))
+    masters = jax.tree.map(np.asarray, jeng.opt_state.master)
+    pcfg = dict(cfg, train_batch_size=jeng.train_batch_size)
+    del pcfg["train_micro_batch_size_per_chip"]
+
+    def port():
+        model = params_from_jax(masters, TransformerConfig(
+            dtype=torch.float32, **TINY), device="cpu")
+        return deepspeed_tpu_torch.initialize(model=model, config=pcfg,
+                                              device="cpu")[0]
+
+    return jeng, port
+
+
+def _batches(n, rows, seq=34, seed=5):
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, 64, (rows, seq)).astype(np.int32)}
+            for _ in range(n)]
+
+
+def _flat(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flat(tree[k], f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", tree[k]
+
+
+def _assert_masters_close(jeng, eng):
+    jm = dict(_flat(jax.tree.map(np.asarray, jeng.opt_state.master)))
+    pm = dict(_flat(params_to_numpy(eng.opt_state.master)))
+    assert sorted(jm) == sorted(pm)
+    for path in jm:
+        np.testing.assert_allclose(pm[path], jm[path], atol=1e-4, rtol=0,
+                                   err_msg=path)
+
+
+def test_sparse_engine_steps_and_eval_match_jax():
+    jeng, port = _engines()
+    eng = port()
+    assert isinstance(attn._SPARSE_CONFIG, bs.FixedSparsityConfig)
+    assert attn._SPARSE_CONFIG.block == 8
+    fixed = _batches(2, eng.micro_batch_size)
+    want = [float(jeng.train_batch(iter(fixed))) for _ in range(4)]
+    got = [float(eng.train_batch(iter(fixed))) for _ in range(4)]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[-1] < got[0]
+    _assert_masters_close(jeng, eng)
+    ev = _batches(1, eng.micro_batch_size, seq=50, seed=6)[0]
+    np.testing.assert_allclose(float(eng.eval_batch(ev)),
+                               float(jeng.eval_batch(ev)), rtol=1e-5)
+
+
+def test_micro_steps_match_train_batch_and_the_jax_micro_steps():
+    jeng, port = _engines()
+    loop, fused = port(), port()
+    batches = _batches(6, loop.micro_batch_size, seed=8)
+    want, got = [], []
+    for step in range(3):
+        pair = batches[2 * step:2 * step + 2]
+        for mb in pair:
+            want.append(float(jeng.forward(mb)))
+            jeng.backward()
+            jeng.step()
+            loss = loop(mb)
+            got.append(float(loop.backward(loss).detach()))
+            loop.step()
+        fused.train_batch(iter(pair))
+        assert loop.global_steps == fused.global_steps == step + 1
+    assert loop.micro_steps == 6 and fused.micro_steps == 0
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    for a, b in zip(_flat(params_to_numpy(loop.opt_state.master)),
+                    _flat(params_to_numpy(fused.opt_state.master))):
+        np.testing.assert_array_equal(a[1], b[1], err_msg=a[0])
+    _assert_masters_close(jeng, loop)
+
+
+def test_micro_step_guards():
+    model = zoo.get_model("tiny", device="cpu", dtype=torch.float32,
+                          **dict(TINY, attn_impl="xla"))
+    eng = deepspeed_tpu_torch.initialize(model=model, config=dict(
+        CFG, sparse_attention=None), device="cpu")[0]
+    with pytest.raises(RuntimeError, match="without accumulated gradients"):
+        eng.step()
+    with pytest.raises(RuntimeError, match="without a prior forward"):
+        eng.backward()
+    mb = _batches(1, eng.micro_batch_size)[0]
+    eng.backward(eng(mb))
+    assert not eng.is_gradient_accumulation_boundary()
+    eng.step()  # off the boundary: no update
+    assert eng.global_steps == 0
+    eng.backward(eng.forward(mb))
+    assert eng.is_gradient_accumulation_boundary()
+    eng.step()
+    assert eng.global_steps == 1 and eng.micro_steps == 2
+    assert all(p.grad is None for p in
+               (v for _, v in _flat(eng.params)))
+
+
+# -- the dataloader ------------------------------------------------------------
+
+
+def _samples(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, 64, 9).astype(np.int32),
+             "mask": rng.random(9).astype(np.float32)} for _ in range(n)]
+
+
+def _same_batches(got, want):
+    got, want = list(got), list(want)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for key in w:
+            np.testing.assert_array_equal(g[key], np.asarray(w[key]))
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_dataloader_yields_jax_batches(shuffle, drop_last):
+    data = _samples(11)
+    ours = dl.DeepSpeedDataLoader(data, 3, shuffle=shuffle, seed=4,
+                                  drop_last=drop_last)
+    theirs = jax_dl.DeepSpeedDataLoader(data, 3, shuffle=shuffle, seed=4,
+                                        drop_last=drop_last)
+    assert len(ours) == len(theirs) == (3 if drop_last else 4)
+    for epoch in (0, 1):
+        ours.set_epoch(epoch)
+        theirs.set_epoch(epoch)
+        _same_batches(ours, theirs)
+    sd = ours.state_dict()
+    fresh = dl.DeepSpeedDataLoader(data, 3, shuffle=shuffle, seed=4,
+                                   drop_last=drop_last)
+    fresh.load_state_dict(sd)
+    _same_batches(fresh, theirs)
+
+
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_stream_dataset_and_repeating_loader(drop_last):
+    data = _samples(7, seed=1)
+    ours = dl.DeepSpeedDataLoader(_Stream(data), 2, drop_last=drop_last)
+    theirs = jax_dl.DeepSpeedDataLoader(_Stream(data), 2,
+                                        drop_last=drop_last)
+    with pytest.raises(TypeError, match="no length"):
+        len(ours)
+    _same_batches(ours, theirs)
+    rep = dl.RepeatingLoader(dl.DeepSpeedDataLoader(data, 2))
+    jrep = jax_dl.RepeatingLoader(jax_dl.DeepSpeedDataLoader(data, 2))
+    _same_batches([next(rep) for _ in range(8)],
+                  [next(jrep) for _ in range(8)])
+    assert rep.state_dict() == jrep.state_dict()
+    with pytest.raises(ValueError, match="no batches"):
+        next(dl.RepeatingLoader(dl.DeepSpeedDataLoader([], 2)))
+
+
+class _Stream:
+    """A dataset with no length: iterating it streams the samples."""
+
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __iter__(self):
+        return iter(self.samples)
+
+
+def test_initialize_builds_the_loader_and_train_batch_pulls_from_it():
+    model = zoo.get_model("tiny", device="cpu", dtype=torch.float32,
+                          **dict(TINY, attn_impl="xla"))
+    rows = _batches(4, 1, seed=9)
+    data = [{"input_ids": r["input_ids"][0]} for r in rows]
+    eng, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=dict(CFG, sparse_attention=None,
+                                 bf16={"enabled": False}),
+        training_data=data, device="cpu")
+    assert isinstance(loader, dl.DeepSpeedDataLoader)
+    assert eng.micro_batch_size == 2 and len(loader) == 2
+    first = float(eng.train_batch())  # the loader's 2 microbatches
+    twin = deepspeed_tpu_torch.initialize(
+        model=zoo.get_model("tiny", device="cpu", dtype=torch.float32,
+                            **dict(TINY, attn_impl="xla")),
+        config=dict(CFG, sparse_attention=None), device="cpu")[0]
+    twin_loss = float(twin.train_batch(iter(
+        [{"input_ids": np.stack([d["input_ids"] for d in data[i:i + 2]])}
+         for i in (0, 2)])))
+    assert first == twin_loss
+    seen = []
+    eng2, _, loader2, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=dict(CFG, sparse_attention=None),
+        training_data=data, device="cpu",
+        collate_fn=lambda s: seen.append(len(s)) or dl.default_collate(s))
+    next(iter(loader2))
+    assert seen == [2]
+    with pytest.raises(ValueError, match="needs data_iter or training_data"):
+        twin.train_batch()
+
+
+# -- the config blocks -----------------------------------------------------------
+
+
+def test_sparse_wiring_overrides_warns_and_clears(caplog):
+    model = zoo.get_model("tiny", device="cpu", dtype=torch.float32,
+                          **dict(TINY, attn_impl="xla"))
+    cfg = dict(CFG, kernels={"blocksparse_block": 16, "flash_block_q": 128,
+                             "gmm_block_m": 256, "dispatch": "heuristic"})
+    cfg["sparse_attention"] = dict(CFG["sparse_attention"],
+                                   attention="bidirectional")
+    with caplog.at_level(logging.WARNING), pytest.warns(UserWarning) as rec:
+        deepspeed_tpu_torch.initialize(model=model, config=cfg, device="cpu")
+    # the geometry knobs and dispatch set away from the JAX defaults warn
+    # that they have no effect; blocksparse_block does not
+    inert = sorted(str(w.message).split("=")[0] for w in rec
+                   if "has no effect" in str(w.message))
+    assert inert == ["kernels.dispatch", "kernels.flash_block_q",
+                     "kernels.gmm_block_m"]
+    text = caplog.text
+    assert "attn_impl is not 'blocksparse'" in text
+    assert "bidirectional" in text
+    assert attn._SPARSE_CONFIG.block == 16  # the kernels block wins
+    assert attn._SPARSE_CONFIG.num_local_blocks == 2
+    deepspeed_tpu_torch.initialize(model=model, config=dict(
+        CFG, sparse_attention=None), device="cpu")
+    assert attn._SPARSE_CONFIG is None
+
+
+@pytest.mark.parametrize("block,err,match", [
+    ({"sparse_attention": {"mode": "zzz"}}, ValueError, "sparse_attention"),
+    ({"sparse_attention": {"attention": "sideways"}}, ValueError,
+     "unidirectional"),
+    ({"kernels": {"blocksparse_block": 24}}, ValueError, "power of two"),
+    ({"kernels": {"pages_per_compute_block": 0}}, ValueError, ">= 1"),
+    ({"kernels": {"dispatch": "table"}}, ValueError, "auto|heuristic"),
+    ({"kernels": {"table_path": "t.json"}}, NotImplementedError, "item 3"),
+])
+def test_config_blocks_validate_as_jax_does(block, err, match):
+    from deepspeed_tpu_torch.config.config import load_config
+
+    with pytest.raises(err, match=match):
+        load_config(block)

@@ -154,8 +154,18 @@ def test_multi_head_attention_dispatch(impl):
 
 def test_unsupported_impls_and_shapes_raise():
     t = [torch.from_numpy(x) for x in _qkv(61, S=16, Nq=6, Nkv=4)]
-    with pytest.raises(NotImplementedError, match="block-sparse"):
+    # block-sparse without a layout raises as JAX does; with a layout it
+    # runs, and segment ids are refused (tests/test_torch_blocksparse.py)
+    with pytest.raises(ValueError, match="sparse_attention config"):
         attn.multi_head_attention(*t, impl="blocksparse")
+    from deepspeed_tpu_torch.ops import blocksparse_attention as bs
+    attn.set_sparse_config(bs.FixedSparsityConfig(block=8))
+    try:
+        with pytest.raises(NotImplementedError, match="segment_ids"):
+            attn.multi_head_attention(*t, impl="blocksparse",
+                                      segment_ids=torch.zeros(2, 16))
+    finally:
+        attn.set_sparse_config(None)
     with pytest.raises(ValueError, match="unknown attention impl"):
         attn.multi_head_attention(*t, impl="bogus")
     with pytest.raises(ValueError, match="not a multiple"):

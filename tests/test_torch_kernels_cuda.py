@@ -10,7 +10,10 @@ odd sizes with an over-sum and an under-sum of the group sizes; and the
 quantize kernels (blockwise quantize, KV quantize-on-append, dequantize)
 at Llama-3-8B shapes, held to their plain versions bit for bit (every
 operation is one IEEE-rounded step in both), with exact .5 ties, all-zero
-blocks and values at the edges of the grid among the inputs.
+blocks and values at the edges of the grid among the inputs; and the
+block-sparse forward over the five layout modes, layout blocks 16 to
+256, a ragged S, GQA 32/8 and 32/32, and a custom layout with an empty
+row.
 
 Needs an sm_90 card and nvcc: marked ``cuda`` and skipped elsewhere.
 Run on the card with
@@ -21,7 +24,10 @@ Tolerances: fp32 max-abs 1e-4 (the two sum in different orders); bf16
 2e-2, one bf16 rounding of outputs of magnitude up to ~4 (both round an
 fp32 result once, and may round to neighbouring values). The grouped
 matmuls' sums run over thousands of terms, so their bounds are relative
-to the largest reference entry: 1e-4 in fp32, 2e-2 in bf16.
+to the largest reference entry: 1e-4 in fp32, 2e-2 in bf16. So are the
+block-sparse forward's (fp32 1e-4; bf16 2e-2 against the plain version,
+which rounds p to bf16 at the same point, and 3e-2 against the masked
+form, which rounds the normalised probabilities instead).
 """
 
 import numpy as np
@@ -413,3 +419,118 @@ def test_quantized_engine_on_card_matches_cpu(card, bits):
         eng.put([0, 1, 2], prompts, max_new_tokens=12)
         outs.append(eng.generate_all())
     assert outs[0] == outs[1]
+
+
+# block-sparse forward: name -> (mode, block, S, Hq, Hkv, D, causal)
+BS_CASES = {
+    "fixed": ("fixed", 128, 1024, 32, 8, 128, True),
+    "fixed-noncausal": ("fixed", 128, 1024, 32, 8, 128, False),
+    "longformer": ("longformer", 128, 1024, 32, 8, 128, True),
+    "bigbird": ("bigbird", 128, 1024, 32, 8, 128, True),
+    "variable": ("variable", 128, 1024, 32, 8, 128, False),
+    "dense": ("dense", 128, 1024, 32, 32, 128, True),
+    "block16": ("bigbird", 16, 1024, 32, 8, 128, True),
+    "block64": ("fixed", 64, 1024, 32, 8, 128, False),
+    "block256": ("longformer", 256, 1024, 32, 8, 128, True),
+    "ragged": ("fixed", 128, 1000, 32, 8, 128, True),
+    "hd64": ("bigbird", 32, 300, 8, 2, 64, False),
+}
+# the largest error in an output row over that row's largest reference
+# entry (_row_rel_err): causal rows that see a few columns have outputs
+# near 1, rows that see hundreds near 0.05, and each row is held at its
+# own scale; against the masked form (normalised probabilities rounded
+# instead of p) bf16 differs at rounding level in every term
+BS_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BS_MASKED_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _row_rel_err(got, want):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    got, want = got.float(), want.float()
+    top = want.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((got - want).abs().amax(-1) / top).max().item()
+
+
+def _bs_inputs(dev, dtype, S, hq, hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((1, S, h, D), np.float32))
+            .to(dev, dtype) for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BS_CASES))
+def test_blocksparse_kernel_matches_plain(card, dtype, case):
+    from deepspeed_tpu_torch.ops import attention as attn
+    from deepspeed_tpu_torch.ops import blocksparse_attention as bs
+
+    mode, block, S, hq, hkv, D, causal = BS_CASES[case]
+    q, k, v = _bs_inputs(card, dtype, S, hq, hkv, D, 21)
+    cfg = bs.make_sparsity_config(mode, block=block)
+    before = bs.LAUNCHES["blocksparse_fwd"]
+    got = bs.blocksparse_attention_kernel(q, k, v, cfg, causal=causal)
+    assert bs.LAUNCHES["blocksparse_fwd"] == before + 1
+    work = bs.work_list(cfg, S, causal, q.device)
+    want = bs.blocksparse_fwd_plain(q, k, v, work, D ** -0.5)
+    assert got.dtype == dtype and _row_rel_err(got, want) <= BS_ROW_REL[dtype]
+    kr, vr = attn.repeat_kv_heads(q, k, v)
+    masked = bs.blocksparse_attention(q, kr, vr, cfg, causal=causal)
+    assert _row_rel_err(got, masked) <= BS_MASKED_ROW_REL[dtype]
+
+
+def test_blocksparse_empty_row_and_rerun_bits(card):
+    from deepspeed_tpu_torch.ops import blocksparse_attention as bs
+
+    class EmptyRow(bs.SparsityConfig):
+        def make_layout(self, seq_len):
+            n = self.num_blocks(seq_len)
+            lay = np.eye(n, dtype=bool)
+            lay[:, 0] = True
+            lay[3, :] = False
+            return lay
+
+    q, k, v = _bs_inputs(card, torch.bfloat16, 512, 8, 8, 128, 22)
+    cfg = EmptyRow(32)
+    a = bs.blocksparse_attention_kernel(q, k, v, cfg, causal=False)
+    b = bs.blocksparse_attention_kernel(q, k, v, cfg, causal=False)
+    assert torch.equal(a, b)
+    assert torch.all(a[:, 96:128] == 0) and a[:, :96].abs().max() > 0
+    want = bs.blocksparse_fwd_plain(q, k, v, bs.work_list(
+        cfg, 512, False, q.device), 128 ** -0.5)
+    assert _row_rel_err(a, want) <= BS_ROW_REL[torch.bfloat16]
+
+
+def test_blocksparse_dispatch_launches_only_without_grad(card):
+    from deepspeed_tpu_torch.ops import attention as attn
+    from deepspeed_tpu_torch.ops import blocksparse_attention as bs
+
+    q, k, v = _bs_inputs(card, torch.float32, 256, 8, 2, 64, 23)
+    attn.set_sparse_config(bs.FixedSparsityConfig(block=64))
+    try:
+        bs.reset_launch_counts()
+        with torch.no_grad():
+            nog = attn.multi_head_attention(q, k, v, impl="blocksparse")
+        assert bs.LAUNCHES["blocksparse_fwd"] == 1
+        qg = q.clone().requires_grad_()
+        out = attn.multi_head_attention(qg, k, v, impl="blocksparse")
+        out.sum().backward()
+        assert bs.LAUNCHES["blocksparse_fwd"] == 1 and qg.grad is not None
+        assert _row_rel_err(nog, out.detach()) <= BS_MASKED_ROW_REL[
+            torch.float32]
+    finally:
+        attn.set_sparse_config(None)
+
+
+def test_blocksparse_wrapper_raises_on_what_it_cannot_take(card):
+    from deepspeed_tpu_torch.ops import blocksparse_attention as bs
+
+    cfg = bs.FixedSparsityConfig(block=64)
+    q, k, v = _bs_inputs(card, torch.float32, 128, 4, 2, 64, 24)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bs.blocksparse_attention_kernel(q.half(), k.half(), v.half(), cfg)
+    with pytest.raises(ValueError, match="share a device"):
+        bs.blocksparse_attention_kernel(q, k.cpu(), v, cfg)
+    with pytest.raises(ValueError, match="not a multiple"):
+        bs.blocksparse_attention_kernel(q[:, :, :3], k, v, cfg)
+    with pytest.raises(ValueError, match="head_dim"):
+        bs.blocksparse_attention_kernel(q[..., :32], k[..., :32],
+                                        v[..., :32], cfg)

@@ -42,11 +42,13 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     assert len(files) >= 15
-    # the quantized-serving modules are among the files checked
+    # the quantized-serving and block-sparse modules are among the files
+    # checked
     rel = {os.path.relpath(p, PKG) for p in files}
     assert {"ops/quantization.py", "ops/fp_quantizer.py",
             "inference/weight_quant.py",
-            "inference/ragged/kv_tier.py"} <= rel
+            "inference/ragged/kv_tier.py", "ops/blocksparse_attention.py",
+            "runtime/dataloader.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
@@ -88,6 +90,16 @@ def test_unported_options_raise():
         ServingConfig(spec_decode=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         ServingConfig(router={"replicas": 2})
+    # the sparse_attention and kernels blocks are ported; of the kernels
+    # block only the kernel table's path is not
+    from deepspeed_tpu_torch.config.config import UNPORTED_BLOCKS, load_config
+    assert not {"sparse_attention", "kernels"} & set(UNPORTED_BLOCKS)
+    cfg = load_config({"sparse_attention": {"mode": "bigbird"},
+                       "kernels": {"blocksparse_block": 64}})
+    assert cfg.sparse_attention.mode == "bigbird"
+    assert cfg.kernels.blocksparse_block == 64
+    with pytest.raises(NotImplementedError, match="item 3"):
+        load_config({"kernels": {"table_path": "table.json"}})
 
 
 def test_seeded_init_is_reproducible_at_the_jax_scales():
