@@ -26,9 +26,16 @@ Phases, each fatal on failure:
                one and boundaries mid-tile; K 4096 -> N 14336 and 14336 ->
                4096), at 32 decode rows, and at odd sizes with an
                over-sum and an under-sum of the group sizes; errors
-               relative to the largest reference entry; kernel, plain
-               version and torch._grouped_mm (a yardstick the port never
-               calls) timed with CUDA events.
+               relative to the largest reference entry; two launches
+               bit-identical; gmm and gmm^T must take the tensor-core
+               kernel (wgmma) in bf16 at the aligned shapes and the scalar
+               kernel (simt) in fp32 and at the odd ones. At the train
+               shapes (and gmm at decode) it prints the variant, kernel
+               ms (and TFLOP/s) beside the bound, torch._grouped_mm (a
+               yardstick the port never calls) and the first version (the
+               scalar kernel on the same bf16 inputs), all timed with
+               CUDA events; phase 1 prints each kernel's ptxas registers,
+               shared memory and spills.
   2d. quant  — the quantize kernels against their plain versions, bit for
                bit (same bytes of codes and scales, same output bits):
                the blockwise quantize on one layer's mlp.wi of
@@ -100,13 +107,15 @@ Phases, each fatal on failure:
                multiple of 3 x 16; layer 0's MoE FFN through the kernel
                agrees with the same FFN on the plain gmm on one prefill
                batch, and makes the host wait nowhere (CUDA's sync debug
-               mode); one more run under torch.profiler.
+               mode); every gmm launch went through the tensor-core kernel
+               (no scalar one); one more run under torch.profiler.
   6. moe train — ``initialize`` + ``train_batch`` on Mixtral-8x7B at full
                width, 2 of its 32 layers (fp32 masters, bf16 compute,
                AdamW, ZeRO-3 config, clip 1.0), micro 1 x GAS 2 x 2048
                tokens: one warm-up and four measured steps with the gmm
                and flash launch counts read around them (exactly what
-               remat implies), then one step under torch.profiler.
+               remat implies; every gmm and gmm^T launch through the
+               tensor-core kernel), then one step under torch.profiler.
   8b. sparse train — after phase 4: ``initialize`` over 8-layer
                full-width Llama-3-8B with a ``sparse_attention`` block
                (fixed), ``kernels.blocksparse_block`` 0 and
@@ -201,6 +210,16 @@ GMM_CASES = {  # group sizes, M (None = their sum), K, N
     "decode": ([5, 0, 9, 1, 3, 6, 0, 8], None, 4096, 14336),
     "odd_over_sum": ([40, 40, 40], 100, 33, 45),
     "odd_under_sum": ([30, 0, 21], 70, 33, 45),
+}
+# the kernel function behind each (wrapper, variant) of the kernels line
+GMM_KERNELS = {
+    ("gmm", "wgmma"): "gmm_wgmma_kernel<Tile<128, 256, 4>, false> (64 x 128 "
+                      "tiles at <= 1024 rows)",
+    ("gmm_transposed", "wgmma"): "gmm_wgmma_kernel<Tile<128, 256, 4>, true> "
+                                 "(64 x 128 tiles at <= 1024 rows)",
+    ("gmm", "simt"): "gmm_kernel<T, BM, false>",
+    ("gmm_transposed", "simt"): "gmm_kernel<T, BM, true>",
+    ("tgmm", "simt"): "tgmm_kernel<T>",
 }
 # the MoE FFN through the kernels vs the plain gmm, bf16, as a share of
 # the largest plain output: a bf16 rounding step of the first gmm's
@@ -299,6 +318,32 @@ class Timer:
             pairs.append((a, b))
         torch.cuda.synchronize()
         return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def ptxas_report(build_log):
+    """One line per kernel of nvcc's -Xptxas -v output: its (demangled,
+    where c++filt is installed) name, registers, shared memory and
+    spills."""
+    import re
+    import shutil
+
+    entries, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            entries.append([name, []])
+        elif name and ("Used" in line or "spill" in line):
+            entries[-1][1].append(line.split(":", 1)[-1].strip())
+    names = [n for n, _ in entries]
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "")
+                     for n in out.stdout.splitlines()]
+    return [f"{n.split('(')[0]}: " + "; ".join(info)
+            for n, (_, info) in zip(names, entries)]
 
 
 def bound(bytes_moved, flops, dtype_name):
@@ -625,11 +670,25 @@ def check_gmm(torch, gm, timer, dtype, case):
     end = min(sum(sizes), M)
     res = {}
     for kern, (kernel, plain) in calls.items():
+        variants = dict(gm.VARIANT_LAUNCHES)
         got, want = kernel(), plain()
+        again = kernel()
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"{kern} {name} {case}: shape {tuple(got.shape)} or "
                  "non-finite output")
+        if not torch.equal(got, again):
+            fail(f"{kern} {name} {case}: two launches gave other bits")
+        if kern != "tgmm":
+            # bf16 at the aligned shapes takes the tensor-core kernel, the
+            # rest (fp32, odd K or N) the scalar one
+            ran = [v for v in ("wgmma", "simt")
+                   if gm.VARIANT_LAUNCHES[f"{kern}/{v}"]
+                   != variants[f"{kern}/{v}"]]
+            expect = "wgmma" if dtype == torch.bfloat16 and \
+                not case.startswith("odd") else "simt"
+            if ran != [expect]:
+                fail(f"{kern} {name} {case}: ran {ran}, expected {expect}")
         if kern != "tgmm" and not torch.all(got[end:] == 0):
             fail(f"{kern} {name} {case}: rows no group owns are not zero")
         if kern == "tgmm" and any(not torch.all(got[e] == 0)
@@ -637,7 +696,10 @@ def check_gmm(torch, gm, timer, dtype, case):
             fail(f"tgmm {name} {case}: an empty group is not zero")
         e = (got.float() - want.float()).abs().max().item()
         top = want.float().abs().max().item()
-        res[kern] = {"max_abs_err": e, "max_rel_err": e / top}
+        res[kern] = {"max_abs_err": e, "max_rel_err": e / top,
+                     "bit_identical_rerun": True}
+        if kern != "tgmm":
+            res[kern]["variant"] = ran[0]
         if e > GMM_TOL_REL[name] * top:
             fail(f"{kern} {name} {case}: max-abs {e} over "
                  f"{GMM_TOL_REL[name]} x {top}")
@@ -665,7 +727,13 @@ def check_gmm(torch, gm, timer, dtype, case):
         r["bound_ms"], r["bound_by"] = bound(nbytes, flops, name)
         r["flops"], r["bytes"] = flops, nbytes
         r["ms"] = timer.ms(kernel, iters=5, warmup=1)
+        r["tflops"] = flops / r["ms"] / 1e9
         r["plain_ms"] = timer.ms(plain, iters=3, warmup=1)
+        if kern != "tgmm":  # the first version: the scalar kernel
+            a = dout if kern == "gmm_transposed" else lhs
+            r["first_version_ms"] = timer.ms(
+                lambda: gm._gmm_launch(a, rhs, gs, kern == "gmm_transposed",
+                                       "simt"), iters=3, warmup=1)
         src = dout if kern == "gmm_transposed" else lhs
         lib, why = grouped_mm_call(torch, gm, kern, src, other[kern], gs,
                                    sizes)
@@ -1049,6 +1117,7 @@ def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
     spans = []
     for e in kern:
         n = e.name.lower()
+        grouped = "gmm_kernel" in n or "gmm_wgmma_kernel" in n
         fam = ("blocksparse_fwd" if "blocksparse_fwd_kernel" in n else
                "quantize_blockwise" if "quantize_blockwise_kernel" in n else
                "kv_quantize_append" if "kv_quantize_append_kernel" in n else
@@ -1059,8 +1128,8 @@ def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
                "flash_bwd_dkdv" if "flash_bwd_dkdv" in n else
                "flash_bwd_dq" if "flash_bwd_dq" in n else
                "tgmm" if "tgmm_kernel" in n else
-               "gmm_transposed" if "gmm_kernel" in n and ", true>" in n else
-               "gmm" if "gmm_kernel" in n else
+               "gmm_transposed" if grouped and ", true>" in n else
+               "gmm" if grouped else
                "matmul" if any(k in n for k in ("gemm", "xmma", "cutlass",
                                                 "cublas", "matmul",
                                                 "nvjet")) else
@@ -1240,6 +1309,16 @@ def train_phase(torch, zoo, initialize, fa, tf):
 # -- phases 5 and 6: MoE serve and train ----------------------------------------
 
 
+def check_tensor_core_gmm(phase, launches, variants):
+    """Every gmm and gmm^T launch of the Mixtral main path (bf16, K and N
+    multiples of 8) went through the tensor-core kernel."""
+    for name in ("gmm", "gmm_transposed"):
+        if variants[f"{name}/simt"] or \
+                variants[f"{name}/wgmma"] != launches[name]:
+            fail(f"{phase}: {name} launches by variant {variants}: every "
+                 "one must take the tensor-core kernel")
+
+
 def moe_ffn_agrees(torch, moe, gm, tf, model, prompts):
     """Layer 0's MoE FFN on one 256-token prefill batch (the normed
     embeddings of uid 0's prompt) through the gmm kernel and through the
@@ -1313,6 +1392,7 @@ def moe_serve_phase(torch, zoo, InferenceEngineV2, pa, gm, moe, tf):
     model, eng, out, wall, prompts = serve_once(torch, zoo,
                                                 InferenceEngineV2, **over)
     launches = {**pa.LAUNCHES, **gm.LAUNCHES}
+    variants = dict(gm.VARIANT_LAUNCHES)
     if sorted(out) != list(range(8)) or any(len(v) != NEW_TOKENS
                                             for v in out.values()):
         fail(f"moe serve: token counts "
@@ -1325,6 +1405,7 @@ def moe_serve_phase(torch, zoo, InferenceEngineV2, pa, gm, moe, tf):
            launches["gmm"]) <= 0 or launches["gmm"] % per_forward:
         fail(f"moe serve: launches {launches}: every kernel of the path "
              f"must run, gmm a multiple of {per_forward}")
+    check_tensor_core_gmm("moe serve", launches, variants)
     agree = moe_ffn_agrees(torch, moe, gm, tf, model, prompts)
     st = eng.stats
     ttft = sorted(eng.latency["ttft_s"])
@@ -1346,7 +1427,8 @@ def moe_serve_phase(torch, zoo, InferenceEngineV2, pa, gm, moe, tf):
         "burst_steps": st["burst_steps"],
         "prefill_gather_fallbacks": st["prefill_gather_fallbacks"],
         "prefix_hit_tokens": st["prefix_hit_tokens"],
-        "launches": launches, "model_forwards": launches["gmm"] // per_forward,
+        "launches": launches, "variant_launches": variants,
+        "model_forwards": launches["gmm"] // per_forward,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "moe_ffn_kernel_vs_plain": agree, "deterministic_rerun": True,
     }
@@ -1359,7 +1441,7 @@ def moe_serve_phase(torch, zoo, InferenceEngineV2, pa, gm, moe, tf):
     profile = device_breakdown(torch, prof, prof_wall, gen)
     del prof
     torch.cuda.empty_cache()
-    return serve, profile, launches
+    return serve, profile, {**launches, **variants}
 
 
 def moe_train_phase(torch, zoo, initialize, fa, gm):
@@ -1389,6 +1471,7 @@ def moe_train_phase(torch, zoo, initialize, fa, gm):
         step_s.append(time.perf_counter() - t0)
         losses.append(losses_of(loss))
     launches = {**fa.LAUNCHES, **gm.LAUNCHES}
+    variants = dict(gm.VARIANT_LAUNCHES)
     L, steps, gas = MOE_TRAIN_LAYERS, TRAIN_MEASURED, MOE_TRAIN_GAS
     want = {"flash_fwd": steps * 2 * L * gas,  # forward + remat replay
             "flash_bwd_dkdv": steps * L * gas,
@@ -1398,6 +1481,7 @@ def moe_train_phase(torch, zoo, initialize, fa, gm):
             "tgmm": steps * 3 * L * gas}
     if launches != want:
         fail(f"moe train: launches {launches}, remat implies {want}")
+    check_tensor_core_gmm("moe train", launches, variants)
     flat = np.asarray(losses)
     if not np.all(np.isfinite(flat)) or flat[-1, 0] >= flat[0, 0] \
             or flat[-1, 1] >= flat[0, 1]:
@@ -1419,6 +1503,7 @@ def moe_train_phase(torch, zoo, initialize, fa, gm):
         "losses_total_lm_aux": losses, "grad_norm": gnorm,
         "global_steps": engine.global_steps, "launches": launches,
         "launches_per_step": {k: v // steps for k, v in launches.items()},
+        "variant_launches": variants,
     }
     from torch.profiler import ProfilerActivity
 
@@ -1434,7 +1519,7 @@ def moe_train_phase(torch, zoo, initialize, fa, gm):
     profile = device_breakdown(torch, prof, wall, 1, unit="step")
     del prof, engine, model
     torch.cuda.empty_cache()
-    return train, profile, launches
+    return train, profile, {**launches, **variants}
 
 
 # -- phase 8: block-sparse forward and training --------------------------------
@@ -1897,10 +1982,11 @@ def main():
     t_start = t0 = time.perf_counter()
     secs = build.build()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s)")
-    for src in build.SOURCES:
-        for line in build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {src}: " + line.strip())
+    ptxas = {src: ptxas_report(build.build_log(src))
+             for src in build.SOURCES}
+    for src, lines in ptxas.items():
+        for line in lines:
+            log(f"ptxas {src}: {line}")
 
     # 2. kernels
     timer = Timer(torch)
@@ -1922,6 +2008,15 @@ def main():
            for case in GMM_CASES
            for name, dtype in (("float32", torch.float32),
                                ("bfloat16", torch.bfloat16))}
+    for case in ("train_wi", "train_wo", "decode"):
+        for kern in ("gmm", "gmm_transposed"):
+            r = gmm[("bfloat16", case)][kern]
+            if "ms" in r:
+                log(f"gmm {case} {kern}: {r['variant']} {r['ms']:.3f} ms "
+                    f"({r['tflops']:.0f} TFLOP/s), bound {r['bound_ms']:.3f}"
+                    f" ms ({r['bound_by']}), torch._grouped_mm "
+                    f"{r['library_ms']} ms, first version (simt) "
+                    f"{r['first_version_ms']:.2f} ms")
     torch.cuda.empty_cache()
     # 2d. quantize kernels, bit for bit against their plain versions
     quant = {(name, block, bits): check_quantize(torch, qz, timer, dtype,
@@ -2091,16 +2186,25 @@ def main():
 
     def gmm_entry(name, line):
         b = gmm[("bfloat16", "train_wi")][name]
+        variant = b.get("variant", "simt")  # tgmm has the scalar kernel
         return {"name": name, "route": "cuda",
                 "source": "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
+                "kernel": GMM_KERNELS[(name, variant)], "variant": variant,
                 "replaces": f"deepspeed_tpu/ops/pallas/grouped_matmul.py:"
                             f"{line}",
                 "launches": moe_train_launches[name],
                 "launches_by_path": {"moe_serve": moe_serve_launches[name],
                                      "moe_train": moe_train_launches[name]},
+                "variant_launches_by_path": {
+                    path: {k: v for k, v in lc.items()
+                           if k.startswith(name + "/")}
+                    for path, lc in (("moe_serve", moe_serve_launches),
+                                     ("moe_train", moe_train_launches))},
                 "max_abs_err": b["max_abs_err"],
                 "max_rel_err": b["max_rel_err"],
-                "ms": b["ms"], "plain_ms": b["plain_ms"],
+                "ms": b["ms"], "tflops": b["tflops"],
+                "first_version_ms": b.get("first_version_ms"),
+                "plain_ms": b["plain_ms"],
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": b["library_ms"],
                 "library_call": "torch._grouped_mm with offs = cumsum of "
@@ -2109,10 +2213,15 @@ def main():
                 "library_note": b.get("library_note"),
                 "dtype": "bfloat16",
                 "shape": gmm[("bfloat16", "train_wi")]["shape"],
+                "ptxas": [line for line in ptxas["grouped_matmul"]
+                          if GMM_KERNELS[(name, variant)].split("<")[0]
+                          + "<" in line],
+                "train_wo": gmm[("bfloat16", "train_wo")][name],
                 "decode": gmm[("bfloat16", "decode")][name],
                 "other": {f"{dt}/{case}": gmm[(dt, case)][name]
                           for dt, case in gmm
-                          if (dt, case) != ("bfloat16", "train_wi")}}
+                          if (dt, case) not in (("bfloat16", "train_wi"),
+                                                ("bfloat16", "train_wo"))}}
 
     def quant_entry(name, line, res, other, main_run):
         note = {"quantize_blockwise":

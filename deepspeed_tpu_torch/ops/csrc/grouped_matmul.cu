@@ -1,10 +1,15 @@
 // Grouped matrix multiply for Hopper (sm_90a): the dropless-MoE expert FFN.
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/pallas/grouped_matmul.py:
-//   gmm_kernel<T, BM, false> <- _gmm_kernel  (:129, pallas_call in _gmm_call :183)
-//   gmm_kernel<T, BM, true>  <- _gmm_kernel with transpose_rhs (the backward's
-//                               dlhs = dout @ rhs[g]^T, :306-311)
-//   tgmm_kernel<T>           <- _tgmm_kernel (:212, pallas_call in _tgmm_call :247)
+//   gmm_wgmma_kernel<.., false> <- _gmm_kernel  (:129, pallas_call in
+//                                  _gmm_call :183), bf16
+//   gmm_wgmma_kernel<.., true>  <- _gmm_kernel with transpose_rhs (the
+//                                  backward's dlhs = dout @ rhs[g]^T,
+//                                  :306-311), bf16
+//   gmm_kernel<T, BM, TRANS>    <- the same two, for fp32 and for shapes the
+//                                  tensor-core kernel does not take
+//   tgmm_kernel<T>              <- _tgmm_kernel (:212, pallas_call in
+//                                  _tgmm_call :247)
 //
 // What they compute (the TPU kernels' function, not their block structure):
 //   gmm       out[m] = lhs[m] @ rhs[g(m)]        lhs [M, K], rhs [E, K, N]
@@ -17,41 +22,73 @@
 // writes zeros for a group with no rows (:270-275). Every product sums in
 // fp32 and is written once in the input type (fp32 or bf16).
 //
-// Design. The TPU kernel walks a static work list of (m-tile, group) items
-// in a sequential grid and carries an fp32 accumulator in VMEM across the
-// consecutive visits to one m-tile. Here every thread block owns one
-// (row item, 128-column tile) of the output and loops over the inner
-// dimension itself, so nothing is carried between blocks and no atomics
-// are used (the results are deterministic):
-//   gmm:  grid (ceil(N/128), ceil(M/BM) + E). Row item t is the t-th
-//         (group, BM-row tile) pair that intersects, counted in row order
-//         over the E groups and one more pseudo-group, the rows
-//         [end_{E-1}, M) that no group owns; those rows are written as
-//         zeros. With E + 1 groups covering [0, M) there are at most
-//         ceil(M/BM) + E such pairs, so the grid is a static worst case and
-//         the host never reads group_sizes. A block finds its item from
-//         the sizes on the device and exits when it has none. A tile that
-//         straddles a group boundary is written by two blocks over
-//         disjoint rows.
-//   tgmm: grid (ceil(N/128), ceil(K/128), E): one block per (group, k-tile,
-//         n-tile), looping over the group's rows 16 at a time.
-// Each block is 256 threads as 16 x 16; thread (ty, tx) owns output rows
-// ty + 16 i and columns tx + 16 j, and the inner dimension runs through
-// shared memory in chunks of 16 (fp32 tiles, the next chunk fetched into
-// registers while the current one is multiplied). Operands are read in
-// place, masked at every edge (rows outside the group, k >= K, n >= N), so
-// no dimension needs padding. BM is 128 rows for large M and 32 for small
-// M (decode), where most of a 128-row tile would be masked rows. All
-// arithmetic is scalar fp32 FMA on the CUDA cores: no tensor cores, no
-// TMA. That is the simple first version.
+// Work list. The TPU kernel walks a static work list of (m-tile, group)
+// items in a sequential grid and carries an fp32 accumulator in VMEM across
+// the consecutive visits to one m-tile. Here each (row item, column tile)
+// of the output is computed whole by one thread block, which loops over the
+// inner dimension itself, so nothing is carried between blocks and no
+// atomics are used (two launches give the same bits). Row item t is the
+// t-th (group, BM-row tile) pair that intersects, counted in row order over
+// the E groups and one more pseudo-group, the rows [end_{E-1}, M) that no
+// group owns; those rows are written as zeros. With E + 1 groups covering
+// [0, M) there are at most ceil(M/BM) + E such pairs, so the grid is a
+// static worst case and the host never reads group_sizes. A block finds its item from the sizes on
+// the device (find_item) and exits when it has none. A tile that straddles
+// a group boundary is written by two blocks over disjoint rows; rows of
+// another group inside a tile are computed with rhs[g] and thrown away, as
+// the TPU kernel's jnp.where(mask, prod, 0) does.
 //
-// Bound on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): Mixtral-8x7B
-// training, 2048 tokens x top-2 = 4096 rows, K 4096, N 14336: 481 GFLOP
-// per call, 0.49 ms at the tensor-core rate, against 1.09 GB moved (0.33
-// ms): bound by operations. Decode (32 rows) reads all eight experts'
-// weights, 0.94 GB, for 3.8 GFLOP: bound by bytes, 0.28 ms. Scalar fp32 FMAs peak
-// at 67 TFLOP/s, so expect tens of times the operations bound here.
+// The tensor-core kernel (bf16, K and N multiples of 8, 16-byte aligned
+// operands; gmm_wgmma_kernel). Bound on the H100 (989 TFLOP/s bf16 dense,
+// 3.35 TB/s): Mixtral-8x7B training, 2048 tokens x top-2 = 4096 rows, K
+// 4096, N 14336: 481 GFLOP per call, 0.49 ms at the tensor-core rate,
+// against 1.09 GB moved (0.33 ms): bound by operations. Decode (32 rows)
+// reads all eight experts' weights, 0.94 GB, for 3.8 GFLOP: bound by
+// bytes, 0.28 ms. The design:
+//   - wgmma.mma_async m64nBNk16 (fp32 += bf16 x bf16) with both operands in
+//     shared memory. For M > SMALL_M two consumer warpgroups share a 128 x
+//     256 output tile (64 rows each), else one consumer and 64 x 128
+//     tiles. A consumer whose 64 rows lie outside the item's
+//     group skips its products.
+//   - a ring of STAGES (A, B) tile pairs in dynamic shared memory (4 of 48
+//     KB, or 8 of 24 KB for small M, which streams weights), 128-byte
+//     swizzled, filled by TMA (cp.async.bulk.tensor) from one producer
+//     thread, with a full and an empty mbarrier per stage; the consumers
+//     keep one wgmma group in flight and free a stage once the group that
+//     read it has retired. No split-K and no atomics.
+//   - tensor maps built on the host per call: lhs as [M, K] (2-D), rhs as
+//     [E, K, N] or [E, N, K] (3-D, so that k >= K zero-fills inside each
+//     expert). Rows >= M and columns >= N zero-fill too: no masks in the
+//     main loop.
+//   - gmm^T reads rhs[g] as [N, K], K-major: wgmma's default B layout. gmm
+//     reads rhs[g] as [K, N], N-major: B is loaded as 64-column boxes (a
+//     128-byte swizzle row holds 64 bf16) and read with the B-transpose
+//     immediate and an MN-major descriptor (LBO = the stride between
+//     64-column boxes, SBO = the stride between 8-row k groups).
+//   - one block per output tile. Blocks that walk several tiles (a
+//     persistent grid, one block per SM round robin; or 2 or 4
+//     consecutive tiles a block, the producer running ahead into the next
+//     tile) measured slower at the train shapes.
+//   - launch order: the row items of a band of column tiles (BAND_COLS,
+//     2048 columns) run before the next band, so the blocks in flight share
+//     rhs[g]'s column strips and each strip comes from HBM about once per
+//     call rather than once per row tile (4096 x 14336 x 2 B = 117 MB a
+//     group, more than the 50 MB L2).
+//   - epilogue from registers with the row mask [rs, re): a TMA store of a
+//     straddling tile would overwrite the neighbouring block's rows.
+//
+// The scalar kernels (gmm_kernel, tgmm_kernel): 256 threads as 16 x 16;
+// thread (ty, tx) owns output rows ty + 16 i and columns tx + 16 j, and the
+// inner dimension runs through shared memory in chunks of 16 (fp32 tiles,
+// the next chunk fetched into registers while the current one is
+// multiplied), every edge masked, scalar fp32 FMA on the CUDA cores.
+// tgmm's grid is (ceil(N/128), ceil(K/128), E): one block per (group,
+// k-tile, n-tile), looping over the group's rows 16 at a time. The scalar
+// gmm keeps fp32 exact (TF32 would not hold fp32's tolerance) and takes
+// shapes TMA cannot (K or N not a multiple of 8). Scalar fp32 FMAs peak at
+// 67 TFLOP/s, so expect tens of times the operations bound there.
 
+#include <cuda.h>  // CUtensorMap and its enums (header only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -313,11 +350,432 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// gmm / gmm^T on the tensor cores (bf16): wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BK = 64;  // k per stage: 64 bf16 = one 128-byte swizzle row
+constexpr int BAND_COLS = 2048;  // output columns per band of the launch order
+
+// the tile shape and ring depth of one instantiation
+template <int BM_, int BN_, int STAGES_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, STAGES = STAGES_;
+  static constexpr int CONSUMERS = BM / 64;  // one warpgroup per 64 rows
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // the ring, 1 KB to align it to the 1024-byte swizzle atom, a full and
+  // an empty barrier per stage, and the block's work item
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 16 * STAGES + 16;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// that lasts ~10 s (a copy that never lands) traps: the launch then fails
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > 20000000000LL) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1
+// (128B swizzle) in bits 62-63
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across a wgmma wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N fp32, the m64nNk16 fragment) += A (64 x 16, K-major) x B
+// (16 x N; K-major, or N-major with TRANS_B = 1), both from shared memory
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// One block: a (row item, BN-column tile) of out. Warpgroups 0..CONSUMERS-1
+// each own 64 rows of the BM-row tile; the last warpgroup's first thread
+// is the TMA producer.
+template <class C, bool TRANS>
+__global__ void __launch_bounds__(C::THREADS, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap lhs_map,
+                     const __grid_constant__ CUtensorMap rhs_map,
+                     const int* __restrict__ sizes,
+                     __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                     int E, int items, int n_tiles, int band) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES *
+                                               C::STAGE_BYTES);
+  uint64_t* empty = full + C::STAGES;
+  int* item = reinterpret_cast<int*>(empty + C::STAGES);
+
+  // launch order: bands of `band` column tiles, all row items of a band
+  // before the next band, the column tile fastest within a band
+  const int per_band = items * band;
+  const int bi = blockIdx.x / per_band;
+  const int r = blockIdx.x - bi * per_band;
+  const int width = min(band, n_tiles - bi * band);
+  const int t = r / width;
+  const int n0 = (bi * band + r % width) * C::BN;
+
+  if (threadIdx.x == 0) {
+    int g, tile, rs, re;
+    if (!find_item<C::BM>(sizes, E, M, t, &g, &tile, &rs, &re)) g = -1;
+    item[0] = g;
+    item[1] = tile;
+    item[2] = rs;
+    item[3] = re;
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int g = item[0];
+  if (g < 0) return;
+  const int row0 = item[1] * C::BM, rs = item[2], re = item[3];
+  // the unowned tail (g == E) multiplies nothing and is written as zeros
+  const int k_tiles = g < E ? (K + BK - 1) / BK : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == C::CONSUMERS) {  // producer
+    if (threadIdx.x % 128 == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % C::STAGES;
+        if (kt >= C::STAGES) mbar_wait(&empty[s], (kt / C::STAGES - 1) & 1);
+        uint8_t* a = ring + s * C::STAGE_BYTES;
+        uint8_t* b = a + C::A_BYTES;
+        mbar_arrive_expect_tx(&full[s], C::STAGE_BYTES);
+        tma_load_2d(a, &lhs_map, &full[s], kt * BK, row0);
+        if (TRANS) {  // [BN rows of n][64 k]
+          tma_load_3d(b, &rhs_map, &full[s], kt * BK, n0, g);
+        } else {  // BN / 64 boxes of [64 rows of k][64 n]
+#pragma unroll
+          for (int j = 0; j < C::BN / 64; ++j)
+            tma_load_3d(b + j * BK * 128, &rhs_map, &full[s], n0 + 64 * j,
+                        kt * BK, g);
+        }
+      }
+    }
+    return;
+  }
+
+  float acc[C::BN / 2];
+#pragma unroll
+  for (int i = 0; i < C::BN / 2; ++i) acc[i] = 0.f;
+  // a warpgroup whose 64 rows hold none of [rs, re) (half of a tile that
+  // straddles a group boundary) skips the products and only frees stages
+  const bool live = row0 + wg * 64 < re && row0 + wg * 64 + 64 > rs;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % C::STAGES;
+    mbar_wait(&full[s], (kt / C::STAGES) & 1);
+    const uint8_t* a = ring + s * C::STAGE_BYTES + wg * 64 * 128;
+    const uint8_t* b = ring + s * C::STAGE_BYTES + C::A_BYTES;
+    if (live) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A, and B for gmm^T: K-major rows of 128 bytes, 8-row groups
+        // 1024 bytes apart, the k16 step 32 bytes into the swizzled row.
+        // B for gmm: N-major, 64-column boxes BK * 128 bytes apart (LBO),
+        // 8-row k groups 1024 bytes apart (SBO), the k16 step 16 rows
+        // down.
+        const uint64_t da = smem_desc(a + kk * 32, 16, 1024);
+        const uint64_t db =
+            TRANS ? smem_desc(b + kk * 32, 16, 1024)
+                  : smem_desc(b + kk * 16 * 128, BK * 128, 1024);
+        wgmma<TRANS ? 0 : 1>(acc, da, db);
+      }
+      wgmma_commit();
+    }
+    // one group in flight: the previous stage's group has retired
+    wgmma_wait<1>();
+    if (kt > 0 && threadIdx.x % 128 == 0)
+      mbar_arrive(&empty[(kt - 1) % C::STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // fragment of m64nNk16: thread (warp w, lane l) holds rows 16 w + l / 4
+  // (+ 8) and, in each 8-column group j, columns 8 j + 2 (l % 4) (+ 1)
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int row_lo = row0 + wg * 64 + (tid / 32) * 16 + lane / 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    if (row < rs || row >= re) continue;
+    __nv_bfloat16* o = out + (long long)row * N;
+#pragma unroll
+    for (int j = 0; j < C::BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      if (col < N)  // N is even, so col + 1 < N too
+        *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query, so that
+// the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// errors of the tensor-map path, beside cudaError_t's positive codes
+constexpr int ERR_NO_ENCODE = -1;   // no cuTensorMapEncodeTiled in CUDA
+constexpr int ERR_TENSOR_MAP = -2;  // CUDA refused a tensor map
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor map: dims and box innermost first, strides in bytes of
+// every dimension but the innermost; 128-byte swizzle, zeros out of bounds
+bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int rank,
+            const cuuint64_t* dims, const cuuint64_t* strides,
+            const cuuint32_t* box) {
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class C, bool TRANS>
+int launch(const void* lhs, const void* rhs, const int* sizes, void* out,
+           int M, int K, int N, int E, cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return ERR_NO_ENCODE;
+  CUtensorMap lhs_map, rhs_map;
+  const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t a_box[2] = {BK, C::BM};
+  // rhs [E, N, K] (gmm^T) or [E, K, N] (gmm), innermost first
+  const cuuint64_t inner = TRANS ? K : N, outer = TRANS ? N : K;
+  const cuuint64_t b_dims[3] = {inner, outer, (cuuint64_t)E};
+  const cuuint64_t b_strides[2] = {inner * 2, inner * outer * 2};
+  const cuuint32_t b_box[3] = {BK, TRANS ? (cuuint32_t)C::BN : BK, 1};
+  if (!encode(enc, &lhs_map, lhs, 2, a_dims, a_strides, a_box) ||
+      !encode(enc, &rhs_map, rhs, 3, b_dims, b_strides, b_box))
+    return ERR_TENSOR_MAP;
+  auto kernel = gmm_wgmma_kernel<C, TRANS>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int items = (M + C::BM - 1) / C::BM + E;
+  const int n_tiles = (N + C::BN - 1) / C::BN;
+  static_assert(BAND_COLS % C::BN == 0, "a band is whole column tiles");
+  const int band = n_tiles < BAND_COLS / C::BN ? n_tiles : BAND_COLS / C::BN;
+  kernel<<<items * n_tiles, C::THREADS, C::SMEM, stream>>>(
+      lhs_map, rhs_map, sizes, static_cast<__nv_bfloat16*>(out), M, K, N, E,
+      items, n_tiles, band);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
-// rows at or below this use 32-row tiles (decode and small prefill
-// batches), above it 128-row tiles
+// rows at or below this use small row tiles (decode and small prefill
+// batches: 32 rows in the scalar kernel, 64 in the tensor-core one),
+// above it 128-row tiles
 constexpr int SMALL_M = 1024;
 
 template <typename T, int BM, bool TRANS>
@@ -362,6 +820,35 @@ extern "C" int dstpu_gmm(int dtype, int transpose, const void* lhs,
   return (int)cudaErrorInvalidValue;
 }
 
+// The tensor-core gmm (transpose 0) and gmm^T (1): bf16 lhs [M, K], rhs
+// [E, K, N] or [E, N, K], out [M, N], all contiguous; K > 0 and N
+// multiples of 8 and lhs, rhs and out 16-byte aligned (TMA's rules), which
+// the caller checks (ops/grouped_matmul.py gmm_variant). Returns a
+// cudaError_t, or a negative code of the tensor-map path
+// (dstpu_cuda_error_string names it).
+extern "C" int dstpu_gmm_wgmma(int transpose, const void* lhs,
+                               const void* rhs, const void* group_sizes,
+                               void* out, int M, int K, int N, int E,
+                               void* stream) {
+  if (M <= 0 || N <= 0 || E <= 0) return 0;
+  if (K <= 0 || K % 8 || N % 8 ||
+      ((uintptr_t)lhs | (uintptr_t)rhs | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int* sizes = static_cast<const int*>(group_sizes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // decode and small prefill batches: one consumer warpgroup, 64-row
+  // tiles and a deeper ring (the weights stream through at HBM rate)
+  using Small = tc::Tile<64, 128, 8>;
+  using Wide = tc::Tile<128, 256, 4>;
+  if (M <= SMALL_M)
+    return transpose
+               ? tc::launch<Small, true>(lhs, rhs, sizes, out, M, K, N, E, s)
+               : tc::launch<Small, false>(lhs, rhs, sizes, out, M, K, N, E, s);
+  return transpose
+             ? tc::launch<Wide, true>(lhs, rhs, sizes, out, M, K, N, E, s)
+             : tc::launch<Wide, false>(lhs, rhs, sizes, out, M, K, N, E, s);
+}
+
 // lhs [M, K], dout [M, N], out [E, K, N].
 extern "C" int dstpu_tgmm(int dtype, const void* lhs, const void* dout,
                           const void* group_sizes, void* out, int M, int K,
@@ -386,5 +873,9 @@ extern "C" int dstpu_tgmm(int dtype, const void* lhs, const void* dout,
 }
 
 extern "C" const char* dstpu_cuda_error_string(int code) {
+  if (code == tc::ERR_NO_ENCODE)
+    return "CUDA has no cuTensorMapEncodeTiled";
+  if (code == tc::ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

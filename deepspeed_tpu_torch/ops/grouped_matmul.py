@@ -12,7 +12,11 @@ output in ``lhs.dtype``.
 groups zero) launch the hand-written Hopper kernels
 (``csrc/grouped_matmul.cu``) on CUDA tensors, or raise; on CPU tensors
 they run the plain PyTorch versions beside them (one fp32 ``matmul`` per
-group, the analogue of the JAX tests' ``_ref_gmm``). ``_GroupedMatmul``
+group, the analogue of the JAX tests' ``_ref_gmm``). ``gmm_raw`` has two
+kernels, chosen by ``gmm_variant`` from type and shape alone: the
+tensor-core kernel (``wgmma`` fed by TMA) for bf16 operands with K and N
+multiples of 8 and 16-byte aligned data, and the scalar kernel
+(``simt``) for the rest (fp32, odd shapes). ``_GroupedMatmul``
 (a ``torch.autograd.Function``) stands for the JAX custom VJP (``:282-
 317``); ``group_sizes`` gets no gradient.
 
@@ -25,23 +29,43 @@ the host never reads the sizes. ``block_m`` / ``block_n`` / ``block_k``
 are accepted and not used.
 
 ``LAUNCHES`` counts kernel launches per kernel (the plain versions never
-count), so a run can show that its main path went through the kernels.
+count), so a run can show that its main path went through the kernels;
+``VARIANT_LAUNCHES`` splits the gmm and gmm^T launches by kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 LAUNCHES: Dict[str, int] = {"gmm": 0, "gmm_transposed": 0, "tgmm": 0}
+VARIANT_LAUNCHES: Dict[str, int] = {
+    "gmm/wgmma": 0, "gmm/simt": 0,
+    "gmm_transposed/wgmma": 0, "gmm_transposed/simt": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def gmm_variant(device_type: str, dtype: torch.dtype, K: int, N: int,
+                data_ptrs: Sequence[int]) -> str:
+    """Which version of ``gmm_raw`` runs: "plain" on the CPU; on the card
+    "wgmma" (the tensor-core kernel) for bf16 with K and N positive
+    multiples of 8 (TMA's 16-byte strides) and every data pointer 16-byte
+    aligned, else "simt" (the scalar kernel). K is the contraction
+    length, N the output width."""
+    if device_type == "cpu":
+        return "plain"
+    if (dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
+            and all(p % 16 == 0 for p in data_ptrs)):
+        return "wgmma"
+    return "simt"
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +138,10 @@ def _lib() -> ctypes.CDLL:
         lib = build.load("grouped_matmul")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.dstpu_gmm.argtypes = [I, I, P, P, P, P, I, I, I, I, P]
+        lib.dstpu_gmm_wgmma.argtypes = [I, P, P, P, P, I, I, I, I, P]
         lib.dstpu_tgmm.argtypes = [I, P, P, P, P, I, I, I, I, P]
         lib.dstpu_gmm.restype = lib.dstpu_tgmm.restype = I
+        lib.dstpu_gmm_wgmma.restype = I
         lib.dstpu_cuda_error_string.argtypes = [I]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -165,16 +191,40 @@ def gmm_raw(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     if not _use_kernel(lhs, rhs, group_sizes):
         return _gmm_plain(lhs, rhs, group_sizes, transpose_rhs)
     M, K = lhs.shape
+    N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    return _gmm_launch(lhs, rhs, group_sizes, transpose_rhs, gmm_variant(
+        "cuda", lhs.dtype, K, N, (lhs.data_ptr(), rhs.data_ptr())))
+
+
+def _gmm_launch(lhs: torch.Tensor, rhs: torch.Tensor,
+                group_sizes: torch.Tensor, transpose_rhs: bool,
+                variant: str) -> torch.Tensor:
+    """``gmm_raw``'s launch of one kernel, "wgmma" or "simt", on CUDA
+    tensors that ``gmm_raw`` has checked (the smoke also times the
+    scalar kernel at shapes that take the tensor-core one)."""
+    M, K = lhs.shape
     E = rhs.shape[0]
     N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    if variant == "wgmma" and gmm_variant(
+            "cuda", lhs.dtype, K, N,
+            (lhs.data_ptr(), rhs.data_ptr())) != "wgmma":
+        raise ValueError("the tensor-core gmm takes bf16 operands with K "
+                         "and N multiples of 8 and 16-byte aligned data")
     out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
     name = "gmm_transposed" if transpose_rhs else "gmm"
-    rc = _lib().dstpu_gmm(
-        _DTYPE_CODE[lhs.dtype], int(transpose_rhs), lhs.data_ptr(),
-        rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), M, K, N, E,
-        torch.cuda.current_stream(lhs.device).cuda_stream)
-    _raise_on(rc, name)
+    args = (lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr(), M, K, N, E,
+            torch.cuda.current_stream(lhs.device).cuda_stream)
+    if variant == "wgmma":
+        rc = _lib().dstpu_gmm_wgmma(int(transpose_rhs), *args)
+    elif variant == "simt":
+        rc = _lib().dstpu_gmm(_DTYPE_CODE[lhs.dtype], int(transpose_rhs),
+                              *args)
+    else:
+        raise ValueError(f"unknown gmm variant {variant!r}")
+    _raise_on(rc, f"{name} ({variant})")
     LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[f"{name}/{variant}"] += 1
     return out
 
 
@@ -244,4 +294,5 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
 
 
 __all__ = ["gmm", "gmm_raw", "tgmm", "gmm_plain", "gmm_transposed_plain",
-           "tgmm_plain", "LAUNCHES", "reset_launch_counts"]
+           "tgmm_plain", "gmm_variant", "LAUNCHES", "VARIANT_LAUNCHES",
+           "reset_launch_counts"]

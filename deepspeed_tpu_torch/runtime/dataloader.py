@@ -20,14 +20,20 @@ logger = logging.getLogger(__name__)
 
 
 def default_collate(samples: Sequence[Any]):
-    """Stack a list of samples (arrays, or dicts / lists / tuples of
-    them) into one batch of the same structure."""
+    """Stack a list of samples (arrays, or dicts / lists / tuples /
+    namedtuples of them) into one batch of the same structure, as JAX's
+    ``jax.tree.map(np.stack ...)`` does: ``None`` is an empty subtree and
+    stays ``None``."""
     first = samples[0]
+    if first is None:
+        return None
     if isinstance(first, dict):
         return {k: default_collate([s[k] for s in samples]) for k in first}
     if isinstance(first, (list, tuple)):
-        return type(first)(default_collate(list(col))
-                           for col in zip(*samples))
+        cols = [default_collate(list(col)) for col in zip(*samples)]
+        if hasattr(first, "_fields"):  # a namedtuple takes its fields
+            return type(first)(*cols)
+        return type(first)(cols)
     return np.stack([np.asarray(s) for s in samples])
 
 

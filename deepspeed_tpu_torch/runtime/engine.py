@@ -6,16 +6,23 @@
 micro batch size. ``Engine.train_batch`` pulls
 ``gradient_accumulation_steps`` microbatches (dicts of numpy arrays,
 moved to the engine's device; from the dataloader when no iterator is
-given), back-propagates ``loss * scale / gas`` through each, then
-applies one optimizer step: the fp16 loss-scale overflow skip, the
-global-norm clip and AdamW on the fp32 masters, and the compute params
-recast from them. The micro-step API does the same in the user's loop:
-``loss = engine(batch)`` (``forward``, keeping the autograd graph),
-``engine.backward(loss)`` (``loss * scale / gas`` back-propagated into
-the accumulated grads) and ``engine.step()`` (the update, at the
-accumulation boundary only). An ``MoETransformerLM`` trains the same
-way; its loss is the LM loss plus the routers' aux loss, and the
-config's ``moe.impl`` is applied to its config, as the JAX engine does.
+given), back-propagates each one's loss, then applies one optimizer
+step: the fp16 loss-scale overflow skip, the global-norm clip and AdamW
+on the fp32 masters, and the compute params recast from them. The
+micro-step API does the same in the user's loop: ``loss =
+engine(batch)`` (``forward``, keeping the autograd graph),
+``engine.backward(loss)`` (back-propagated into the accumulated grads)
+and ``engine.step()`` (the update, at the accumulation boundary only).
+Gradient accumulation follows JAX's order at GAS > 1: each
+microbatch's ``loss * scale`` is back-propagated, and a hook on each
+parameter (``register_post_accumulate_grad_hook``) folds the
+compute-dtype gradient into an fp32 accumulator as ``g.float() *
+(1/gas)`` and frees it at once, so a bf16 run accumulates in fp32 (as
+JAX's ``backward``) for ~4 bytes a parameter, less the freed
+compute-dtype grads. At GAS 1 ``loss * scale`` goes into ``p.grad``.
+An ``MoETransformerLM`` trains the same way; its loss is the LM loss plus
+the routers' aux loss, and the config's ``moe.impl`` is applied to its
+config, as the JAX engine does.
 
 The ``sparse_attention`` block builds its layout (at
 ``kernels.blocksparse_block`` when that is set) and installs it for
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -144,6 +152,22 @@ class Engine:
                 lambda m: m.to(cdt, copy=True).requires_grad_(),
                 self.opt_state.master)
         self.loss_scale_state = init_loss_scale(config.fp16)
+        # GAS > 1: fp32 accumulators, one per parameter, filled by the
+        # hooks during backward and dropped after each update
+        self._grad_acc: Dict[torch.Tensor, torch.Tensor] = {}
+        if self.gradient_accumulation_steps > 1:
+            # the hooks hold the engine weakly: a bound method would make a
+            # cycle (engine -> params -> hook -> engine) that keeps the
+            # card's memory until the garbage collector runs
+            ref = weakref.ref(self)
+
+            def fold(p: torch.Tensor) -> None:
+                engine = ref()
+                if engine is not None:  # else the engine is gone
+                    engine._fold_grad(p)
+
+            for _, p in leaves(self.params):
+                p.register_post_accumulate_grad_hook(fold)
 
         self.global_steps = 0
         self.global_samples = 0
@@ -201,11 +225,22 @@ class Engine:
         return 1e-3
 
     # -- data --------------------------------------------------------------
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """A microbatch (numpy arrays, or tensors) on the engine's device."""
-        return {k: (v if isinstance(v, torch.Tensor)
-                    else torch.as_tensor(np.asarray(v))).to(self.device)
-                for k, v in batch.items()}
+    def _to_device(self, batch: Any) -> Any:
+        """A microbatch (a tree of dicts, lists, tuples and namedtuples
+        over numpy arrays or tensors; ``None`` stays ``None``) on the
+        engine's device."""
+        if batch is None:
+            return None
+        if isinstance(batch, dict):
+            return {k: self._to_device(v) for k, v in batch.items()}
+        if isinstance(batch, (list, tuple)):
+            cols = [self._to_device(v) for v in batch]
+            if hasattr(batch, "_fields"):
+                return type(batch)(*cols)
+            return type(batch)(cols)
+        if not isinstance(batch, torch.Tensor):
+            batch = torch.as_tensor(np.asarray(batch))
+        return batch.to(self.device)
 
     def _next_microbatches(self, data_iter, n: int):
         out = []
@@ -225,6 +260,20 @@ class Engine:
         return self.loss_scale_state.scale if self.config.fp16.enabled \
             else 1.0
 
+    @torch.no_grad()
+    def _fold_grad(self, p: torch.Tensor) -> None:
+        """Post-accumulate hook (GAS > 1): ``p.grad`` (the gradient of one
+        microbatch's ``loss * scale``, compute dtype) into p's fp32
+        accumulator as ``g.float() * (1/gas)``, then free it: the product
+        and the sum each round once, as JAX's ``acc + g * (1/gas)``."""
+        g = p.grad.float().mul_(1.0 / self.gradient_accumulation_steps)
+        p.grad = None
+        acc = self._grad_acc.get(p)
+        if acc is None:
+            self._grad_acc[p] = g
+        else:
+            acc.add_(g)
+
     def train_batch(self, data_iter=None) -> torch.Tensor:
         """One training step over ``gradient_accumulation_steps``
         microbatches from ``data_iter`` (default: a fresh pass over the
@@ -235,13 +284,12 @@ class Engine:
                 raise ValueError("train_batch needs data_iter or "
                                  "training_data")
             data_iter = iter(self.training_dataloader)
-        gas = self.gradient_accumulation_steps
-        batches = self._next_microbatches(data_iter, gas)
-        scale = self._loss_scale()
+        batches = self._next_microbatches(data_iter,
+                                          self.gradient_accumulation_steps)
         micro = []
         for mb in batches:
             loss, aux = self._loss_fn(self.model_config, self.params, mb)
-            (loss * scale / gas).backward()
+            (loss * self._loss_scale()).backward()
             micro.append((loss.detach(), aux))
         return self._apply_update(micro)
 
@@ -250,7 +298,10 @@ class Engine:
         each microbatch's (loss, model metrics). Returns the mean loss."""
         fp16 = self.config.fp16.enabled
         scale = self._loss_scale()
-        grads = tree_map(lambda p: p.grad, self.params)
+        if self.gradient_accumulation_steps > 1:
+            grads = tree_map(lambda p: self._grad_acc.get(p), self.params)
+        else:
+            grads = tree_map(lambda p: p.grad, self.params)
         overflow = has_overflow(g for _, g in leaves(grads)) if fp16 else False
         lr = self.get_lr()[0]
         gnorm = apply_mixed_precision_update(
@@ -259,6 +310,7 @@ class Engine:
             grad_scale=scale if fp16 else None, skip=overflow)
         for _, p in leaves(self.params):
             p.grad = None
+        self._grad_acc = {}
         if fp16:
             self.loss_scale_state = update_loss_scale(
                 self.loss_scale_state, overflow, self.config.fp16)
@@ -294,16 +346,14 @@ class Engine:
 
     def backward(self, loss: Optional[torch.Tensor] = None,
                  retain_graph: bool = False) -> torch.Tensor:
-        """Back-propagate ``loss * scale / gas`` into the accumulated
-        grads (default: the last ``forward``'s loss)."""
+        """Back-propagate ``loss`` (default: the last ``forward``'s) into
+        the accumulated grads."""
         if self._pending is None:
             raise RuntimeError("backward() called without a prior forward()")
         pending_loss, aux = self._pending
         self._pending = None
         loss = pending_loss if loss is None else loss
-        scale = self._loss_scale()
-        (loss * scale / self.gradient_accumulation_steps).backward(
-            retain_graph=retain_graph)
+        (loss * self._loss_scale()).backward(retain_graph=retain_graph)
         self._micro_losses.append((loss.detach(), aux))
         self.micro_steps += 1
         return loss

@@ -5,8 +5,12 @@ ragged context lengths including 0, a dead prefill segment) and the
 three flash attention kernels (B 2, S 2048, 32/8 heads, hd 128, causal;
 a non-causal S 1000 case with three segments; an hd 64 case); and the
 grouped matmuls gmm, gmm^T and tgmm at Mixtral-8x7B expert shapes (E 8,
-K 4096, N 14336, 4096 rows in imbalanced groups; 32 decode rows) and at
-odd sizes with an over-sum and an under-sum of the group sizes; and the
+K 4096, N 14336 and back, 4096 rows in imbalanced groups; 32 decode rows),
+at aligned sizes with group boundaries mid-tile, one tile straddling three
+groups, an over-sum and an under-sum (bf16 there takes the tensor-core
+kernel, fp32 the scalar one; the variant counters must say which ran and
+two launches must give the same bits), at odd sizes (the scalar kernel)
+and from a misaligned bf16 view (the scalar kernel); and the
 quantize kernels (blockwise quantize, KV quantize-on-append, dequantize)
 at Llama-3-8B shapes, held to their plain versions bit for bit (every
 operation is one IEEE-rounded step in both), with exact .5 ties, all-zero
@@ -215,10 +219,19 @@ def test_engine_on_card_matches_cpu(card):
     assert outs[0] == outs[1]
 
 
-# grouped matmuls: name -> (group sizes, M (None = their sum), K, N)
+# grouped matmuls: name -> (group sizes, M (None = their sum), K, N). In
+# bf16 every case but the odd ones takes the tensor-core kernel: 128 x 256
+# tiles above 1024 rows, 64 x 128 at or below (decode, mid-tile-small)
 GMM_CASES = {
     "mixtral": ([700, 0, 1000, 300, 64, 1500, 500, 32], None, 4096, 14336),
+    "train_wi": ([704, 0, 1000, 296, 64, 1496, 504, 32], None, 4096, 14336),
+    "train_wo": ([704, 0, 1000, 296, 64, 1496, 504, 32], None, 14336, 4096),
     "decode": ([5, 0, 9, 1, 3, 6, 0, 8], None, 4096, 14336),
+    "mid-tile-small": ([200, 0, 517, 307], None, 512, 768),
+    "tile-straddles-three-groups": ([100, 20, 1180], None, 256, 512),
+    "aligned-over-sum": ([600, 600, 600], 1500, 256, 512),
+    "aligned-under-sum": ([500, 0, 400], 1200, 256, 520),
+    "small-over-sum": ([40, 40, 40], 100, 64, 128),
     "odd-over-sum": ([40, 40, 40], 100, 33, 45),
     "odd-under-sum": ([30, 0, 21], 70, 33, 45),
 }
@@ -247,12 +260,22 @@ def test_grouped_matmul_kernels_match_plain(card, dtype, case):
     gs = torch.tensor(sizes, dtype=torch.int32, device=card)
     lhs, rhs, dout = t(M, K), t(len(sizes), K, N), t(M, N)
     before = dict(gm.LAUNCHES)
+    variants = dict(gm.VARIANT_LAUNCHES)
     out = gm.gmm_raw(lhs, rhs, gs)
     dlhs = gm.gmm_raw(dout, rhs, gs, transpose_rhs=True)
     drhs = gm.tgmm(lhs, dout, gs)
     torch.cuda.synchronize()
     assert {n: gm.LAUNCHES[n] - before[n] for n in before} == {
         "gmm": 1, "gmm_transposed": 1, "tgmm": 1}
+    # the variant counters name the kernel that ran: gmm contracts K into
+    # N, gmm^T N into K
+    kind = {name: gm.gmm_variant("cuda", dtype, k, n, (0, 0))
+            for name, k, n in (("gmm", K, N), ("gmm_transposed", N, K))}
+    assert kind["gmm"] == ("wgmma" if dtype == torch.bfloat16 and
+                           not case.startswith("odd") else "simt")
+    assert {n: gm.VARIANT_LAUNCHES[n] - variants[n] for n in variants} == {
+        f"{name}/{v}": int(kind[name] == v) for name in kind
+        for v in ("wgmma", "simt")}
     assert out.dtype == dlhs.dtype == drhs.dtype == dtype
     for got, want in ((out, gm.gmm_plain(lhs, rhs, gs)),
                       (dlhs, gm.gmm_transposed_plain(dout, rhs, gs)),
@@ -263,8 +286,36 @@ def test_grouped_matmul_kernels_match_plain(card, dtype, case):
     for e, size in enumerate(sizes):
         if size == 0:
             assert torch.all(drhs[e] == 0)
-    # no atomics: a second launch gives the same bits
+    # no atomics, no split-K: a second launch gives the same bits
+    assert torch.equal(gm.gmm_raw(lhs, rhs, gs), out)
+    assert torch.equal(gm.gmm_raw(dout, rhs, gs, transpose_rhs=True), dlhs)
     assert torch.equal(gm.tgmm(lhs, dout, gs), drhs)
+
+
+def test_gmm_misaligned_bf16_takes_the_scalar_kernel(card):
+    """A bf16 view 2 bytes off a 16-byte boundary cannot feed TMA: gmm_raw
+    launches the scalar kernel, which agrees with the plain version."""
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+    rng = np.random.default_rng(10)
+    sizes, K, N = [300, 0, 900, 100], 256, 512
+    M = sum(sizes)
+    base = torch.from_numpy(rng.standard_normal(M * K + 1, np.float32)).to(
+        card, torch.bfloat16)
+    lhs = base[1:].view(M, K)
+    rhs = torch.from_numpy(rng.standard_normal((4, K, N), np.float32)).to(
+        card, torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    variants = dict(gm.VARIANT_LAUNCHES)
+    got = gm.gmm_raw(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert gm.VARIANT_LAUNCHES["gmm/simt"] == variants["gmm/simt"] + 1
+    assert gm.VARIANT_LAUNCHES["gmm/wgmma"] == variants["gmm/wgmma"]
+    assert _rel_err(got, gm.gmm_plain(lhs, rhs, gs)) <= GMM_REL[
+        torch.bfloat16]
+    aligned = gm.gmm_raw(lhs.clone(), rhs, gs)
+    assert gm.VARIANT_LAUNCHES["gmm/wgmma"] == variants["gmm/wgmma"] + 1
+    assert _rel_err(aligned, got) <= GMM_REL[torch.bfloat16]
 
 
 def test_gmm_autograd_on_card_matches_cpu(card):
