@@ -17,9 +17,13 @@ Phases, each fatal on failure:
   2b. flash  — the three flash attention kernels against their plain
                versions at B 2, S 2048, 32/8 heads, hd 128, causal (fp32
                and bf16), a non-causal S 1000 case with three segments
-               and an hd 64 case; the backward must be bit-identical
-               across two launches; kernel, plain version and SDPA (a
-               yardstick the port never calls) timed with CUDA events.
+               and an hd 64 case; the forward and backward must be
+               bit-identical across two launches; the forward must take
+               the tensor-core kernel (wgmma) in bf16 at hd 128 and the
+               scalar one (simt) in fp32 and at hd 64; kernel, plain
+               version, SDPA (a yardstick the port never calls) and, for
+               the forward, the first version (the scalar kernel on the
+               same bf16 inputs) timed with CUDA events.
   2c. gmm    — the grouped matmuls gmm, gmm^T and tgmm against their
                plain versions in fp32 and bf16 at Mixtral-8x7B expert
                shapes (E 8, 4096 rows in imbalanced groups with an empty
@@ -27,15 +31,15 @@ Phases, each fatal on failure:
                4096), at 32 decode rows, and at odd sizes with an
                over-sum and an under-sum of the group sizes; errors
                relative to the largest reference entry; two launches
-               bit-identical; gmm and gmm^T must take the tensor-core
-               kernel (wgmma) in bf16 at the aligned shapes and the scalar
-               kernel (simt) in fp32 and at the odd ones. At the train
-               shapes (and gmm at decode) it prints the variant, kernel
-               ms (and TFLOP/s) beside the bound, torch._grouped_mm (a
-               yardstick the port never calls) and the first version (the
-               scalar kernel on the same bf16 inputs), all timed with
-               CUDA events; phase 1 prints each kernel's ptxas registers,
-               shared memory and spills.
+               bit-identical; gmm, gmm^T and tgmm must take the
+               tensor-core kernel (wgmma) in bf16 at the aligned shapes
+               and the scalar kernel (simt) in fp32 and at the odd ones.
+               At the train shapes (and gmm at decode) it prints the
+               variant, kernel ms (and TFLOP/s) beside the bound,
+               torch._grouped_mm (a yardstick the port never calls), the
+               first version (the scalar kernel on the same bf16 inputs),
+               all timed with CUDA events; phase 1 prints each kernel's
+               ptxas registers, shared memory and spills.
   2d. quant  — the quantize kernels against their plain versions, bit for
                bit (same bytes of codes and scales, same output bits):
                the blockwise quantize on one layer's mlp.wi of
@@ -96,9 +100,10 @@ Phases, each fatal on failure:
                masters from a seed, bf16 compute, AdamW, ZeRO-3 config,
                clip 1.0), micro 2 x GAS 2 x 2048 tokens over two fixed
                batches: one warm-up and four measured steps with the
-               flash launch counts read around them; loss and wq
-               gradient through the flash path against the dense path
-               on one microbatch; one more step under torch.profiler.
+               flash launch counts read around them (every forward on
+               the tensor-core kernel); loss and wq gradient through the
+               flash path against the dense path on one microbatch; one
+               more step under torch.profiler.
   5. moe serve — ``InferenceEngineV2`` over ``get_model("mixtral-8x7b",
                num_layers=16)`` (full width, seeded bf16 weights): the
                serve phase's 8 requests drawn in Mixtral's 32000-token
@@ -114,8 +119,9 @@ Phases, each fatal on failure:
                AdamW, ZeRO-3 config, clip 1.0), micro 1 x GAS 2 x 2048
                tokens: one warm-up and four measured steps with the gmm
                and flash launch counts read around them (exactly what
-               remat implies; every gmm and gmm^T launch through the
-               tensor-core kernel), then one step under torch.profiler.
+               remat implies; every gmm, gmm^T, tgmm and flash forward
+               launch through the tensor-core kernels), then one step
+               under torch.profiler.
   8b. sparse train — after phase 4: ``initialize`` over 8-layer
                full-width Llama-3-8B with a ``sparse_attention`` block
                (fixed), ``kernels.blocksparse_block`` 0 and
@@ -219,8 +225,11 @@ GMM_KERNELS = {
                                  "(64 x 128 tiles at <= 1024 rows)",
     ("gmm", "simt"): "gmm_kernel<T, BM, false>",
     ("gmm_transposed", "simt"): "gmm_kernel<T, BM, true>",
+    ("tgmm", "wgmma"): "tgmm_wgmma_kernel<Tile<128, 256, 4>> (TMA-store "
+                       "epilogue)",
     ("tgmm", "simt"): "tgmm_kernel<T>",
 }
+FLASH_KERNELS = {"wgmma": "flash_fwd_wgmma_kernel", "simt": "flash_fwd_kernel"}
 # the MoE FFN through the kernels vs the plain gmm, bf16, as a share of
 # the largest plain output: a bf16 rounding step of the first gmm's
 # output passes through silu and the second gmm
@@ -344,6 +353,16 @@ def ptxas_report(build_log):
                      for n in out.stdout.splitlines()]
     return [f"{n.split('(')[0]}: " + "; ".join(info)
             for n, (_, info) in zip(names, entries)]
+
+
+def kernel_lines(report, kernel):
+    """The lines of a ptxas report that name ``kernel`` (and not a kernel
+    whose name merely ends in it: gmm_wgmma_kernel, not
+    tgmm_wgmma_kernel)."""
+    import re
+
+    pat = re.compile(r"(?<![A-Za-z0-9_])" + re.escape(kernel) + r"[<:]")
+    return [line for line in report if pat.search(line)]
 
 
 def bound(bytes_moved, flops, dtype_name):
@@ -509,7 +528,17 @@ def check_flash(torch, fa, timer, dtype, case):
 
     q, k, v, do, seg, causal, scale = flash_inputs(torch, dtype, case, 30)
     name = str(dtype).split(".")[-1]
+    variants = dict(fa.VARIANT_LAUNCHES)
     o, lse = fa._flash_fwd(q, k, v, seg, causal, scale)
+    o2, lse2 = fa._flash_fwd(q, k, v, seg, causal, scale)
+    # bf16 at hd 128 takes the tensor-core forward, the rest the scalar one
+    ran = [var for var in ("wgmma", "simt")
+           if fa.VARIANT_LAUNCHES[f"flash_fwd/{var}"]
+           != variants[f"flash_fwd/{var}"]]
+    expect = "wgmma" if dtype == torch.bfloat16 and q.shape[-1] == 128 \
+        else "simt"
+    if ran != [expect]:
+        fail(f"flash_fwd {name} {case}: ran {ran}, expected {expect}")
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, seg, lse, delta, do, causal, scale)
     dk, dv = fa.flash_bwd_dkdv(*args)
@@ -520,6 +549,8 @@ def check_flash(torch, fa, timer, dtype, case):
     if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
             and torch.equal(dv, dv2)):
         fail(f"flash backward {name} {case}: two launches differ")
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        fail(f"flash forward {name} {case}: two launches differ")
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
     dk_ref, dv_ref = fa.flash_bwd_dkdv_plain(*args)
     dq_ref = fa.flash_bwd_dq_plain(*args)
@@ -534,6 +565,8 @@ def check_flash(torch, fa, timer, dtype, case):
 
     res["flash_fwd"] = err(o, o_ref, False)
     res["flash_fwd"]["lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
+    res["flash_fwd"]["variant"] = expect
+    res["flash_fwd"]["bit_identical_rerun"] = True
     if res["flash_fwd"]["max_abs_err"] > TOL[name] or \
             res["flash_fwd"]["lse_max_abs_err"] > 1e-4:
         fail(f"flash_fwd {name} {case}: {res['flash_fwd']} over "
@@ -572,6 +605,12 @@ def check_flash(torch, fa, timer, dtype, case):
     res["flash_fwd"]["plain_ms"] = timer.ms(
         lambda: fa.flash_fwd_plain(q, k, v, seg, causal, scale), iters=3,
         warmup=1)
+    res["flash_fwd"]["tflops"] = res["flash_fwd"]["flops"] / \
+        res["flash_fwd"]["ms"] / 1e9
+    # the first version: the scalar kernel on the same bf16 inputs
+    res["flash_fwd"]["first_version_ms"] = timer.ms(
+        lambda: fa._flash_fwd_launch(q, k, v, seg, causal, scale, "simt"),
+        iters=3, warmup=1)
     res["flash_bwd_dkdv"]["plain_ms"] = timer.ms(
         lambda: fa.flash_bwd_dkdv_plain(*args), iters=3, warmup=1)
     res["flash_bwd_dq"]["plain_ms"] = timer.ms(
@@ -679,16 +718,15 @@ def check_gmm(torch, gm, timer, dtype, case):
                  "non-finite output")
         if not torch.equal(got, again):
             fail(f"{kern} {name} {case}: two launches gave other bits")
-        if kern != "tgmm":
-            # bf16 at the aligned shapes takes the tensor-core kernel, the
-            # rest (fp32, odd K or N) the scalar one
-            ran = [v for v in ("wgmma", "simt")
-                   if gm.VARIANT_LAUNCHES[f"{kern}/{v}"]
-                   != variants[f"{kern}/{v}"]]
-            expect = "wgmma" if dtype == torch.bfloat16 and \
-                not case.startswith("odd") else "simt"
-            if ran != [expect]:
-                fail(f"{kern} {name} {case}: ran {ran}, expected {expect}")
+        # bf16 at the aligned shapes takes the tensor-core kernel, the
+        # rest (fp32, odd K or N) the scalar one
+        ran = [v for v in ("wgmma", "simt")
+               if gm.VARIANT_LAUNCHES[f"{kern}/{v}"]
+               != variants[f"{kern}/{v}"]]
+        expect = "wgmma" if dtype == torch.bfloat16 and \
+            not case.startswith("odd") else "simt"
+        if ran != [expect]:
+            fail(f"{kern} {name} {case}: ran {ran}, expected {expect}")
         if kern != "tgmm" and not torch.all(got[end:] == 0):
             fail(f"{kern} {name} {case}: rows no group owns are not zero")
         if kern == "tgmm" and any(not torch.all(got[e] == 0)
@@ -697,9 +735,7 @@ def check_gmm(torch, gm, timer, dtype, case):
         e = (got.float() - want.float()).abs().max().item()
         top = want.float().abs().max().item()
         res[kern] = {"max_abs_err": e, "max_rel_err": e / top,
-                     "bit_identical_rerun": True}
-        if kern != "tgmm":
-            res[kern]["variant"] = ran[0]
+                     "bit_identical_rerun": True, "variant": ran[0]}
         if e > GMM_TOL_REL[name] * top:
             fail(f"{kern} {name} {case}: max-abs {e} over "
                  f"{GMM_TOL_REL[name]} x {top}")
@@ -729,7 +765,12 @@ def check_gmm(torch, gm, timer, dtype, case):
         r["ms"] = timer.ms(kernel, iters=5, warmup=1)
         r["tflops"] = flops / r["ms"] / 1e9
         r["plain_ms"] = timer.ms(plain, iters=3, warmup=1)
-        if kern != "tgmm":  # the first version: the scalar kernel
+        # the first version: the scalar kernel on the same bf16 inputs
+        if kern == "tgmm":
+            r["first_version_ms"] = timer.ms(
+                lambda: gm._tgmm_launch(lhs, dout, gs, "simt"), iters=3,
+                warmup=1)
+        else:
             a = dout if kern == "gmm_transposed" else lhs
             r["first_version_ms"] = timer.ms(
                 lambda: gm._gmm_launch(a, rhs, gs, kern == "gmm_transposed",
@@ -1124,10 +1165,12 @@ def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
                "dequantize" if "dequantize_kernel" in n else
                "paged_decode" if "paged_decode" in n else
                "paged_prefill" if "paged_prefill" in n else
-               "flash_fwd" if "flash_fwd_kernel" in n else
+               "flash_fwd" if ("flash_fwd_kernel" in n
+                               or "flash_fwd_wgmma_kernel" in n) else
                "flash_bwd_dkdv" if "flash_bwd_dkdv" in n else
                "flash_bwd_dq" if "flash_bwd_dq" in n else
-               "tgmm" if "tgmm_kernel" in n else
+               "tgmm" if ("tgmm_kernel" in n
+                          or "tgmm_wgmma_kernel" in n) else
                "gmm_transposed" if grouped and ", true>" in n else
                "gmm" if grouped else
                "matmul" if any(k in n for k in ("gemm", "xmma", "cutlass",
@@ -1257,12 +1300,14 @@ def train_phase(torch, zoo, initialize, fa, tf):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss))
     launches = dict(fa.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
     L, steps = TRAIN_LAYERS, TRAIN_MEASURED
     want = {"flash_fwd": steps * 2 * L * TRAIN_GAS,  # forward + remat replay
             "flash_bwd_dkdv": steps * L * TRAIN_GAS,
             "flash_bwd_dq": steps * L * TRAIN_GAS}
     if launches != want:
         fail(f"train: flash launches {launches}, remat implies {want}")
+    check_tensor_core("train", launches, variants, ("flash_fwd",))
     if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
         fail(f"train: losses {losses} not finite and falling")
     if engine.global_steps != 1 + TRAIN_MEASURED:
@@ -1287,6 +1332,7 @@ def train_phase(torch, zoo, initialize, fa, tf):
         "losses": losses, "grad_norm": gnorm, "global_steps": 1 + steps,
         "launches": launches,
         "launches_per_step": {k: v // steps for k, v in launches.items()},
+        "variant_launches": variants,
         "flash_vs_dense": agree,
     }
     from torch.profiler import ProfilerActivity
@@ -1303,16 +1349,18 @@ def train_phase(torch, zoo, initialize, fa, tf):
     profile = device_breakdown(torch, prof, wall, 1, unit="step")
     del prof, engine, model
     torch.cuda.empty_cache()
-    return train, profile, launches
+    return train, profile, {**launches, **variants}
 
 
 # -- phases 5 and 6: MoE serve and train ----------------------------------------
 
 
-def check_tensor_core_gmm(phase, launches, variants):
-    """Every gmm and gmm^T launch of the Mixtral main path (bf16, K and N
-    multiples of 8) went through the tensor-core kernel."""
-    for name in ("gmm", "gmm_transposed"):
+def check_tensor_core(phase, launches, variants,
+                      names=("gmm", "gmm_transposed")):
+    """Every launch of the kernels ``names`` on a bf16 main path (K and N
+    multiples of 8; flash at head dim 128) went through the tensor-core
+    kernel."""
+    for name in names:
         if variants[f"{name}/simt"] or \
                 variants[f"{name}/wgmma"] != launches[name]:
             fail(f"{phase}: {name} launches by variant {variants}: every "
@@ -1405,7 +1453,7 @@ def moe_serve_phase(torch, zoo, InferenceEngineV2, pa, gm, moe, tf):
            launches["gmm"]) <= 0 or launches["gmm"] % per_forward:
         fail(f"moe serve: launches {launches}: every kernel of the path "
              f"must run, gmm a multiple of {per_forward}")
-    check_tensor_core_gmm("moe serve", launches, variants)
+    check_tensor_core("moe serve", launches, variants)
     agree = moe_ffn_agrees(torch, moe, gm, tf, model, prompts)
     st = eng.stats
     ttft = sorted(eng.latency["ttft_s"])
@@ -1471,7 +1519,7 @@ def moe_train_phase(torch, zoo, initialize, fa, gm):
         step_s.append(time.perf_counter() - t0)
         losses.append(losses_of(loss))
     launches = {**fa.LAUNCHES, **gm.LAUNCHES}
-    variants = dict(gm.VARIANT_LAUNCHES)
+    variants = {**fa.VARIANT_LAUNCHES, **gm.VARIANT_LAUNCHES}
     L, steps, gas = MOE_TRAIN_LAYERS, TRAIN_MEASURED, MOE_TRAIN_GAS
     want = {"flash_fwd": steps * 2 * L * gas,  # forward + remat replay
             "flash_bwd_dkdv": steps * L * gas,
@@ -1481,7 +1529,8 @@ def moe_train_phase(torch, zoo, initialize, fa, gm):
             "tgmm": steps * 3 * L * gas}
     if launches != want:
         fail(f"moe train: launches {launches}, remat implies {want}")
-    check_tensor_core_gmm("moe train", launches, variants)
+    check_tensor_core("moe train", launches, variants,
+                      ("gmm", "gmm_transposed", "tgmm", "flash_fwd"))
     flat = np.asarray(losses)
     if not np.all(np.isfinite(flat)) or flat[-1, 0] >= flat[0, 0] \
             or flat[-1, 1] >= flat[0, 1]:
@@ -2009,7 +2058,7 @@ def main():
            for name, dtype in (("float32", torch.float32),
                                ("bfloat16", torch.bfloat16))}
     for case in ("train_wi", "train_wo", "decode"):
-        for kern in ("gmm", "gmm_transposed"):
+        for kern in ("gmm", "gmm_transposed", "tgmm"):
             r = gmm[("bfloat16", case)][kern]
             if "ms" in r:
                 log(f"gmm {case} {kern}: {r['variant']} {r['ms']:.3f} ms "
@@ -2017,6 +2066,10 @@ def main():
                     f" ms ({r['bound_by']}), torch._grouped_mm "
                     f"{r['library_ms']} ms, first version (simt) "
                     f"{r['first_version_ms']:.2f} ms")
+    r = flash[("bfloat16", "smoke")]["flash_fwd"]
+    log(f"flash_fwd smoke: {r['variant']} {r['ms']:.3f} ms ({r['tflops']:.0f}"
+        f" TFLOP/s), bound {r['bound_ms']:.4f} ms, SDPA {r['library_ms']:.3f}"
+        f" ms, first version (simt) {r['first_version_ms']:.3f} ms")
     torch.cuda.empty_cache()
     # 2d. quantize kernels, bit for bit against their plain versions
     quant = {(name, block, bits): check_quantize(torch, qz, timer, dtype,
@@ -2163,6 +2216,10 @@ def main():
     other_pre["max_abs_err_fp32"] = pre[16]["float32"]["max_abs_err"]
     def flash_entry(name, line):
         b = flash[("bfloat16", "smoke")][name]
+        variant = b.get("variant", "simt")  # the backward: scalar kernels
+        kernel = {"flash_fwd": FLASH_KERNELS[variant],
+                  "flash_bwd_dkdv": "flash_bwd_dkdv_kernel",
+                  "flash_bwd_dq": "flash_bwd_dq_kernel"}[name]
         lib = ("scaled_dot_product_attention(is_causal=True, enable_gqa="
                "True) on [B, H, S, D] copies" + (
                    "" if name == "flash_fwd" else
@@ -2170,23 +2227,33 @@ def main():
                    "call)"))
         return {"name": name, "route": "cuda",
                 "source": "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
+                "kernel": kernel, "variant": variant,
                 "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:"
                             f"{line}",
                 "launches": train_launches[name],
+                "launches_by_path": {"train": train_launches[name],
+                                     "moe_train": moe_train_launches[name]},
+                "variant_launches_by_path": {} if name != "flash_fwd" else {
+                    path: {k: v for k, v in lc.items()
+                           if k.startswith(name + "/")}
+                    for path, lc in (("train", train_launches),
+                                     ("moe_train", moe_train_launches))},
                 "max_abs_err": b["max_abs_err"],
                 "max_rel_err": b["max_rel_err"],
-                "ms": b["ms"], "plain_ms": b["plain_ms"],
+                "ms": b["ms"], "first_version_ms": b.get("first_version_ms"),
+                "plain_ms": b["plain_ms"],
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": b["library_ms"], "library_call": lib,
                 "dtype": "bfloat16",
                 "shape": flash[("bfloat16", "smoke")]["shape"],
+                "ptxas": kernel_lines(ptxas["flash_attention"], kernel),
                 "other": {f"{dt}/{case}": flash[(dt, case)][name]
                           for dt, case in flash
                           if (dt, case) != ("bfloat16", "smoke")}}
 
     def gmm_entry(name, line):
         b = gmm[("bfloat16", "train_wi")][name]
-        variant = b.get("variant", "simt")  # tgmm has the scalar kernel
+        variant = b["variant"]
         return {"name": name, "route": "cuda",
                 "source": "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
                 "kernel": GMM_KERNELS[(name, variant)], "variant": variant,
@@ -2213,9 +2280,9 @@ def main():
                 "library_note": b.get("library_note"),
                 "dtype": "bfloat16",
                 "shape": gmm[("bfloat16", "train_wi")]["shape"],
-                "ptxas": [line for line in ptxas["grouped_matmul"]
-                          if GMM_KERNELS[(name, variant)].split("<")[0]
-                          + "<" in line],
+                "ptxas": kernel_lines(
+                    ptxas["grouped_matmul"],
+                    GMM_KERNELS[(name, variant)].split("<")[0]),
                 "train_wo": gmm[("bfloat16", "train_wo")][name],
                 "decode": gmm[("bfloat16", "decode")][name],
                 "other": {f"{dt}/{case}": gmm[(dt, case)][name]

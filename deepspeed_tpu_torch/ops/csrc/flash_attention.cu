@@ -1,7 +1,10 @@
 // Flash attention forward and backward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
-//   flash_fwd_kernel      <- _fwd_kernel      (:150, pallas_call in _flash_fwd :238)
+//   flash_fwd_wgmma_kernel <- _fwd_kernel     (:150, pallas_call in _flash_fwd
+//                             :238), bf16 with head dim 128
+//   flash_fwd_kernel      <- the same, for fp32, head dim 64 and strides TMA
+//                            cannot take
 //   flash_bwd_dkdv_kernel <- _bwd_dkdv_kernel (:268, pallas_call in _flash_bwd :414)
 //   flash_bwd_dq_kernel   <- _bwd_dq_kernel   (:326, pallas_call in _flash_bwd :466)
 //
@@ -49,19 +52,44 @@
 // (i, j < 4) and output columns tx + 16 k; a row's max and sum reduce over
 // the 16 lanes of a half warp with shuffles. All arithmetic is scalar
 // fp32 FMA on the CUDA cores: no tensor cores, no TMA, no warp
-// specialisation. That is the simple first version.
+// specialisation. That is the simple first version; the backward kernels
+// and every fp32 or head-dim-64 forward still run it.
+//
+// The tensor-core forward (flash_fwd_wgmma_kernel; bf16, D 128, 16-byte
+// aligned data and strides). One block per (q head, batch, 128-row q
+// tile), the longest causal tiles first over every head: two consumer
+// warpgroups of 64 q rows and one producer warp. TMA brings Q once and K
+// and V tiles of 128 keys through a 2-stage ring (full and empty
+// mbarriers), from 4-D tensor maps over the tensors as they lie (d, then
+// head, seq and batch ordered by stride; rows >= S zero-filled), each as
+// two [128][64] boxes in 128-byte swizzle. S = Q K^T is wgmma m64n128k16
+// with both operands K-major in shared memory (gmm^T's B layout); the
+// softmax runs on the fp32 fragment in registers (a row's max and sum over
+// the 4 lanes of a quad), with the visibility mask applied only on the
+// tiles that need it (the causal diagonal, the tail past S, every tile
+// with segment ids, read per tile from global memory); p rounded to bf16
+// and packed pairwise is the register A fragment of O += P V (the
+// FlashAttention-3 layout identity), with V N-major in shared memory
+// (gmm's B layout, the transpose immediate). The two warpgroups take
+// turns to issue their products (named barriers: one's softmax overlaps
+// the other's products); within a warpgroup softmax and products do not
+// overlap yet. The softmax works in log2 units (scores times scale *
+// log2 e, exp2), one FFMA and one MUFU op a probability. Same function as
+// the scalar forward, with key tiles of 128 rather than 64 (the running
+// max, and so p's bf16 rounding, moves at other columns).
 //
 // Bound on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): causal forward
 // does 4 * B * Hq * D * S(S+1)/2 flops, dK/dV twice that, dQ 1.5 times.
 // At B 2, S 2048, Hq 32, Hkv 8, D 128 that is 68.8 GFLOP forward (70 us at
 // the tensor-core rate) against ~67 MB moved (20 us): bound by operations.
-// Scalar fp32 FMAs peak at 67 TFLOP/s and shared-memory loads hold this
-// version well below that, so expect tens of times the bound.
+// Scalar fp32 FMAs peak at 67 TFLOP/s and shared-memory loads hold the
+// scalar version well below that, so expect tens of times the bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tile_loop.cuh"
 
 namespace {
@@ -417,6 +445,343 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+
+// ---------------------------------------------------------------------------
+// the forward on the tensor cores (bf16, D 128): wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace fwd_tc {
+
+constexpr int D = 128;
+constexpr int BQ = 128;   // q rows a block: two consumer warpgroups of 64
+constexpr int BKV = 128;  // keys a tile
+constexpr int THREADS = 2 * 128 + 32;  // + one producer warp
+constexpr int HALF = 128 * 128;  // bytes of a [128 rows][64 d] box
+constexpr int Q_BYTES = 2 * HALF;
+constexpr int KV_BYTES = 2 * HALF;  // K or V of one tile
+constexpr int STAGE_BYTES = 2 * KV_BYTES;
+// 3 stages spill registers (ptxas) and ran slower in a development check
+constexpr int STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+// named barriers 1 and 2: warpgroup 0's and 1's turn to issue products
+constexpr int BAR_TURN = 1;
+// 1 KB to align to the swizzle atom, Q, the ring, the barriers
+constexpr int SMEM =
+    1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 3 * STAGES);
+
+struct Args {
+  const int* seg;  // [B, S] or null
+  __nv_bfloat16* out;
+  float* lse;
+  int B, S, Hq, Hkv, causal;
+  float scale;
+  // the tensor-map dimension (1..3) of head, seq and batch of q, k and v,
+  // two bits each (the maps order them by stride)
+  int pos_q, pos_k, pos_v;
+};
+
+// rows [s, s + 128) of head h, batch b, both 64-wide halves of d, into two
+// [128][64] boxes
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int pos, int h,
+                                          int s, int b) {
+  auto at = [&](int i) {
+    return (pos & 3) == i ? h : ((pos >> 2) & 3) == i ? s : b;
+  };
+  tc::tma_load_4d(dst, map, bar, 0, at(1), at(2), at(3));
+  tc::tma_load_4d(dst + HALF, map, bar, 64, at(1), at(2), at(3));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+}  // namespace fwd_tc
+
+// One block: (q head h, batch b, 128-row q tile). Warpgroups 0 and 1 own 64
+// q rows each; warp 8 is the TMA producer (Q once, then K and V tiles of
+// 128 keys through a ring of STAGES). The two warpgroups take turns to
+// issue their products (named barriers), so that one's softmax runs while
+// the other's products do.
+__global__ void __launch_bounds__(fwd_tc::THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const fwd_tc::Args a) {
+  using namespace fwd_tc;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = qs + Q_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int nq = (a.S + BQ - 1) / BQ;
+  const int iq = nq - 1 - blockIdx.z;  // the longest rows first, all heads
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int row0 = iq * BQ;
+  const int nk = a.causal ? iq + 1 : nq;  // square tiles
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      tc::mbar_init(&k_full[s], 1);
+      tc::mbar_init(&v_full[s], 1);
+      tc::mbar_init(&empty[s], 2);
+    }
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warp
+    if (threadIdx.x == 256) {
+      // rows >= S zero-fill; their scores are masked as columns below
+      tc::mbar_arrive_expect_tx(q_full, Q_BYTES);
+      load_rows(qs, &q_map, q_full, a.pos_q, h, row0, b);
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) tc::mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+        uint8_t* ks = ring + s * STAGE_BYTES;
+        tc::mbar_arrive_expect_tx(&k_full[s], KV_BYTES);
+        load_rows(ks, &k_map, &k_full[s], a.pos_k, hk, it * BKV, b);
+        tc::mbar_arrive_expect_tx(&v_full[s], KV_BYTES);
+        load_rows(ks + KV_BYTES, &v_map, &v_full[s], a.pos_v, hk, it * BKV, b);
+      }
+    }
+    return;
+  }
+
+  // fragment of m64n128k16: thread (warp w, lane l) of warpgroup wg holds
+  // rows r_lo = row0 + 64 wg + 16 w + l / 4 and r_lo + 8, and in each
+  // 8-column group j the columns 8 j + 2 (l % 4) (+ 1): x[4 j + 2 hh + e]
+  // is row r_lo + 8 hh, column 8 j + 2 (l % 4) + e. A row's max and sum
+  // reduce over the 4 lanes of a quad.
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
+  const int q4 = lane % 4;
+  const int row_first = row0 + 64 * wg;
+  const int r_lo = row_first + (tid / 32) * 16 + lane / 4;
+  const int* seg = a.seg == nullptr ? nullptr : a.seg + (long long)b * a.S;
+  int segr[2] = {0, 0};
+  if (seg != nullptr) {
+    segr[0] = r_lo < a.S ? seg[r_lo] : 0;
+    segr[1] = r_lo + 8 < a.S ? seg[r_lo + 8] : 0;
+  }
+  // the running max m in log2 units (scores times scale * log2 e, so that
+  // exp(s - m) is exp2 of a difference), the denominator l
+  const float scale2 = a.scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  const uint8_t* qw = qs + wg * 64 * 128;  // this warpgroup's rows
+  tc::mbar_wait(q_full, 0);
+  if (wg == 1) tc::named_barrier_arrive(BAR_TURN, 256);  // 0 goes first
+
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    const int col0 = it * BKV;
+    const uint8_t* ks = ring + s * STAGE_BYTES;
+    const uint8_t* vs = ks + KV_BYTES;
+
+    // S = Q K^T: A = Q, B = K, both K-major (d contiguous), d in two
+    // 64-wide boxes of 4 k16 steps
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    tc::mbar_wait(&k_full[s], parity);
+    tc::named_barrier(BAR_TURN + wg, 256);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma<0, 0>(sc, tc::smem_desc(qw + half * HALF + kk * 32, 16, 1024),
+                        tc::smem_desc(ks + half * HALF + kk * 32, 16, 1024));
+    tc::wgmma_commit();
+    tc::named_barrier_arrive(BAR_TURN + 1 - wg, 256);
+    tc::wgmma_wait<0>();
+    tc::fence_regs(sc);
+
+    // visibility, on the tiles that need it: the causal diagonal, the
+    // tail past S, every tile with segment ids
+    const bool masked = (a.causal && col0 + BKV - 1 > row_first) ||
+                        col0 + BKV > a.S || seg != nullptr;
+    uint32_t vis[2] = {~0u, ~0u};
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + 8 * j + 2 * q4 + e;
+          const int segc = (seg != nullptr && col < a.S) ? seg[col] : 0;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const bool ok = col < a.S && (!a.causal || col <= r_lo + 8 * hh) &&
+                            segc == segr[hh];
+            if (!ok) vis[hh] &= ~(1u << (2 * j + e));
+          }
+        }
+    }
+    // fp32 online softmax; p is 0 exactly where a column is masked (while
+    // every score so far is NEG_INF, exp(s - m) would be exp(0))
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * hh + e];
+          x = (vis[hh] >> (2 * j + e) & 1u) ? x * scale2 : NEG_INF;
+          mx = fmaxf(mx, x);
+        }
+      const float mn = fmaxf(m[hh], quad_max(mx));
+      const float alpha = exp2f(m[hh] - mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * hh + e];
+          x = (vis[hh] >> (2 * j + e) & 1u) ? exp2f(x - mn) : 0.f;
+          sum += x;
+        }
+      l[hh] = alpha * l[hh] + quad_sum(sum);
+      m[hh] = mn;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j + 2 * hh] *= alpha;
+        o[4 * j + 2 * hh + 1] *= alpha;
+      }
+    }
+    // P rounded to bf16 as A registers: the S fragment's columns 16 kk ..
+    // 16 kk + 15 (groups 2 kk and 2 kk + 1) are the A fragment of the k16
+    // step kk
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+
+    // O += P V: B = V, N-major (d contiguous): two 64-d boxes HALF bytes
+    // apart (LBO), the k16 step 16 keys down
+    tc::mbar_wait(&v_full[s], parity);
+    tc::named_barrier(BAR_TURN + wg, 256);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tc::wgmma_rs<1>(o, pa[kk], tc::smem_desc(vs + kk * 16 * 128, HALF, 1024));
+    tc::wgmma_commit();
+    // the turns balance: warpgroup 1's last hand-over has no taker
+    if (!(wg == 1 && it == nk - 1))
+      tc::named_barrier_arrive(BAR_TURN + 1 - wg, 256);
+    tc::wgmma_wait<0>();
+    tc::fence_regs(o);
+    if (tid == 0) tc::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r_lo + 8 * hh;
+    if (r >= a.S) continue;
+    const float ls = l[hh] == 0.f ? 1.f : l[hh];
+    __nv_bfloat16* out = a.out + (((long long)b * a.S + r) * a.Hq + h) * D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * q4) =
+          __floats2bfloat162_rn(o[4 * j + 2 * hh] / ls,
+                                o[4 * j + 2 * hh + 1] / ls);
+    // lse = m + log(l) in natural units; a row that sees no column keeps
+    // NEG_INF + log(1), as the scalar kernel does
+    if (q4 == 0)
+      a.lse[((long long)b * a.Hq + h) * a.S + r] =
+          l[hh] == 0.f ? NEG_INF : m[hh] * LN2 + logf(ls);
+  }
+}
+
+// A 4-D map {d, then head, seq and batch ordered by stride} over a bf16
+// [B, S, H, 128] tensor read at element strides st (batch, seq, head) with
+// a [128 rows][64 d] box; *pos gets the map dimension (1..3) of head, seq
+// and batch, two bits each.
+bool encode_bshd(tc::EncodeTiled enc, CUtensorMap* map, const void* base,
+                 int B, int S, int H, const long long* st, int* pos) {
+  long long size[3] = {H, S, B}, stride[3] = {st[2], st[1], st[0]};
+  const cuuint32_t box_of[3] = {1, fwd_tc::BKV, 1};
+  // a dimension of size 1 is never stepped: any stride does, and the
+  // tensor's span puts it last
+  long long span = fwd_tc::D;
+  for (int i = 0; i < 3; ++i)
+    if (size[i] > 1 && stride[i] * size[i] > span) span = stride[i] * size[i];
+  for (int i = 0; i < 3; ++i)
+    if (size[i] == 1) stride[i] = span;
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int t = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {fwd_tc::D}, strides[3];
+  cuuint32_t box[4] = {64};
+  *pos = 0;
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = (cuuint64_t)size[order[i]];
+    strides[i] = (cuuint64_t)stride[order[i]] * 2;
+    box[i + 1] = box_of[order[i]];
+    *pos |= (i + 1) << (2 * order[i]);
+  }
+  return tc::encode(enc, map, base, 4, dims, strides, box);
+}
+
+int launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* seg, void* out, void* lse,
+                     const long long* strides, int B, int S, int Hq, int Hkv,
+                     int causal, float scale, cudaStream_t stream) {
+  const tc::EncodeTiled enc = tc::encode_tiled();
+  if (enc == nullptr) return tc::ERR_NO_ENCODE;
+  CUtensorMap q_map, k_map, v_map;
+  fwd_tc::Args a{};
+  if (!encode_bshd(enc, &q_map, q, B, S, Hq, strides, &a.pos_q) ||
+      !encode_bshd(enc, &k_map, k, B, S, Hkv, strides + 3, &a.pos_k) ||
+      !encode_bshd(enc, &v_map, v, B, S, Hkv, strides + 6, &a.pos_v))
+    return tc::ERR_TENSOR_MAP;
+  a.seg = static_cast<const int*>(seg);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.B = B;
+  a.S = S;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.causal = causal;
+  a.scale = scale;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_tc::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(Hq, B, (S + fwd_tc::BQ - 1) / fwd_tc::BQ);
+  flash_fwd_wgmma_kernel<<<grid, fwd_tc::THREADS, fwd_tc::SMEM, stream>>>(
+      q_map, k_map, v_map, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd: 64 or 128. strides: 12 int64,
@@ -462,6 +827,27 @@ extern "C" int dstpu_flash_bwd_dq(int dtype, int hd, const void* q,
   return dispatch(2, dtype, hd, p, stream);
 }
 
+// The tensor-core forward: bf16 q, k, v of head dim 128 with 16-byte
+// aligned data and (batch, seq, head) strides that are positive multiples
+// of 8 (TMA's rules; the caller checks: ops/flash_attention.py
+// flash_variant); strides as dstpu_flash_fwd's (9 read). Returns a
+// cudaError_t, or a negative code of the tensor-map path.
+extern "C" int dstpu_flash_fwd_wgmma(const void* q, const void* k,
+                                     const void* v, const void* seg,
+                                     void* out, void* lse_out,
+                                     const long long* strides, int B, int S,
+                                     int Hq, int Hkv, int causal, float scale,
+                                     void* stream) {
+  if (B <= 0 || S <= 0 || Hq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 9; ++i)
+    if (strides[i] <= 0 || strides[i] % 8) return (int)cudaErrorInvalidValue;
+  return launch_fwd_wgmma(q, k, v, seg, out, lse_out, strides, B, S, Hq, Hkv,
+                          causal, scale, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" const char* dstpu_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return tc::error_string(code);
 }

@@ -8,8 +8,9 @@
 //                                  :306-311), bf16
 //   gmm_kernel<T, BM, TRANS>    <- the same two, for fp32 and for shapes the
 //                                  tensor-core kernel does not take
-//   tgmm_kernel<T>              <- _tgmm_kernel (:212, pallas_call in
-//                                  _tgmm_call :247)
+//   tgmm_wgmma_kernel<C>        <- _tgmm_kernel (:212, pallas_call in
+//                                  _tgmm_call :247), bf16
+//   tgmm_kernel<T>              <- the same, for fp32 and other shapes
 //
 // What they compute (the TPU kernels' function, not their block structure):
 //   gmm       out[m] = lhs[m] @ rhs[g(m)]        lhs [M, K], rhs [E, K, N]
@@ -77,6 +78,35 @@
 //   - epilogue from registers with the row mask [rs, re): a TMA store of a
 //     straddling tile would overwrite the neighbouring block's rows.
 //
+// The tensor-core tgmm (bf16, K and N multiples of 8, 16-byte aligned
+// operands; tgmm_wgmma_kernel). The same bound as gmm at the train shapes
+// (481 GFLOP, 0.49 ms), but its output is the big array: [8, 4096, 14336]
+// bf16 is 0.94 GB, 0.28 ms at 3.35 TB/s. The design:
+//   - one block per (group, 128 x 256 output tile of k x n), grid E x
+//     ceil(K/128) x ceil(N/256). A block owns its tile outright: no
+//     straddling, no split-K, no atomics (two launches give the same
+//     bits). Launched group by group, in 2048-column bands within a group,
+//     so the blocks in flight share the group's lhs and dout rows in L2.
+//   - the contraction runs over the group's rows, 64 a stage, through the
+//     same ring, producer and barriers as gmm. Both operands are tiles of
+//     row-major arrays with the output dim contiguous: A = lhs_g^T (k
+//     contiguous) read with the A-transpose immediate, B = dout_g (n
+//     contiguous) exactly as gmm's N-major B; both as [64 rows][64 column]
+//     TMA boxes from 2-D maps over lhs [M, K] and dout [M, N].
+//   - ragged group rows: stage c loads rows rs + 64 c (TMA takes any row
+//     coordinate and zero-fills only rows >= M). In the last stage the rows
+//     at or past re belong to the next group: the consumers zero them in
+//     shared memory in both operands (a row is a whole 128-byte swizzle
+//     row), fence the async proxy and sync before the wgmma reads them. The
+//     scalar kernel masks both operands too; the TPU kernel masks lhs only
+//     (:224-225), which agrees for finite dout.
+//   - the host never reads group_sizes: each block sums them on the device.
+//     An empty group's blocks load nothing and store zeros.
+//   - epilogue: registers -> swizzled shared memory (the ring, free once
+//     both warpgroups' last products retired) -> TMA store, which a block
+//     that owns its tile may use; TMA clips k >= K and n >= N. Stores
+//     from registers ran slower in a development check.
+//
 // The scalar kernels (gmm_kernel, tgmm_kernel): 256 threads as 16 x 16;
 // thread (ty, tx) owns output rows ty + 16 i and columns tx + 16 j, and the
 // inner dimension runs through shared memory in chunks of 16 (fp32 tiles,
@@ -88,10 +118,11 @@
 // shapes TMA cannot (K or N not a multiple of 8). Scalar fp32 FMAs peak at
 // 67 TFLOP/s, so expect tens of times the operations bound there.
 
-#include <cuda.h>  // CUtensorMap and its enums (header only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -349,14 +380,18 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+}  // namespace
+
 // ---------------------------------------------------------------------------
-// gmm / gmm^T on the tensor cores (bf16): wgmma fed by TMA
+// gmm / gmm^T / tgmm on the tensor cores (bf16): wgmma fed by TMA, with the
+// building blocks of hopper.cuh
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
 constexpr int BK = 64;  // k per stage: 64 bf16 = one 128-byte swizzle row
 constexpr int BAND_COLS = 2048;  // output columns per band of the launch order
+constexpr int BOX = 64 * 128;    // bytes of a [64 rows][64 bf16] TMA box
 
 // the tile shape and ring depth of one instantiation
 template <int BM_, int BN_, int STAGES_>
@@ -371,201 +406,6 @@ struct Tile {
   // an empty barrier per stage, and the block's work item
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 16 * STAGES + 16;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed. A wait
-// that lasts ~10 s (a copy that never lands) traps: the launch then fails
-// with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > 20000000000LL) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1
-// (128B swizzle) in bits 62-63
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator accesses across a wgmma wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x N fp32, the m64nNk16 fragment) += A (64 x 16, K-major) x B
-// (16 x N; K-major, or N-major with TRANS_B = 1), both from shared memory
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
-                                      uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
-}
-
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da,
-                                      uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
-}
 
 // One block: a (row item, BN-column tile) of out. Warpgroups 0..CONSUMERS-1
 // each own 64 rows of the BM-row tile; the last warpgroup's first thread
@@ -605,7 +445,7 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], C::CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   const int g = item[0];
@@ -661,7 +501,7 @@ __global__ void __launch_bounds__(C::THREADS, 1)
         const uint64_t db =
             TRANS ? smem_desc(b + kk * 32, 16, 1024)
                   : smem_desc(b + kk * 16 * 128, BK * 128, 1024);
-        wgmma<TRANS ? 0 : 1>(acc, da, db);
+        wgmma<0, TRANS ? 0 : 1>(acc, da, db);
       }
       wgmma_commit();
     }
@@ -692,48 +532,147 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's entry-point query, so that
-// the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
+// One block: the (k tile, n tile) output tile of out[g] = lhs_g^T @ dout_g,
+// BM rows of k by BN columns of n, contracting over the group's rows
+// [rs, re) 64 at a time. Warpgroups 0..CONSUMERS-1 each own 64 rows of k;
+// the last warpgroup's first thread is the TMA producer.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+    tgmm_wgmma_kernel(const __grid_constant__ CUtensorMap lhs_map,
+                      const __grid_constant__ CUtensorMap dout_map,
+                      const __grid_constant__ CUtensorMap out_map,
+                      const int* __restrict__ sizes, int M, int k_tiles,
+                      int n_tiles, int band) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES *
+                                               C::STAGE_BYTES);
+  uint64_t* empty = full + C::STAGES;
 
-// errors of the tensor-map path, beside cudaError_t's positive codes
-constexpr int ERR_NO_ENCODE = -1;   // no cuTensorMapEncodeTiled in CUDA
-constexpr int ERR_TENSOR_MAP = -2;  // CUDA refused a tensor map
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
+  // launch order: group by group; within a group, bands of `band` column
+  // tiles, every k tile of a band before the next band, the column tile
+  // fastest within a band (the blocks in flight share the group's rows
+  // of lhs and dout in L2)
+  const int per_group = k_tiles * n_tiles;
+  const int g = blockIdx.x / per_group;
+  const int r = blockIdx.x - g * per_group;
+  const int per_band = k_tiles * band;
+  const int bi = r / per_band;
+  const int rb = r - bi * per_band;
+  const int width = min(band, n_tiles - bi * band);
+  const int k0 = (rb / width) * C::BM;
+  const int n0 = (bi * band + rb % width) * C::BN;
+  // the group's rows from the sizes on the device (every thread; E is
+  // small), ends clamped to M
+  int rs = 0, re = 0;
+  for (int e = 0; e <= g; ++e) {
+    rs = re;
+    re = min(re + max(sizes[e], 0), M);
   }
-  return fn;
-}
+  const int chunks = (re - rs + BK - 1) / BK;  // 0 for an empty group
 
-// a bf16 tensor map: dims and box innermost first, strides in bytes of
-// every dimension but the innermost; 128-byte swizzle, zeros out of bounds
-bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int rank,
-            const cuuint64_t* dims, const cuuint64_t* strides,
-            const cuuint32_t* box) {
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-             const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  constexpr int CONSUMER_THREADS = C::CONSUMERS * 128;
+
+  if (wg == C::CONSUMERS) {  // producer
+    if (threadIdx.x % 128 == 0) {
+      for (int c = 0; c < chunks; ++c) {
+        const int s = c % C::STAGES;
+        if (c >= C::STAGES) mbar_wait(&empty[s], (c / C::STAGES - 1) & 1);
+        uint8_t* a = ring + s * C::STAGE_BYTES;
+        uint8_t* b = a + C::A_BYTES;
+        // any row coordinate: TMA zero-fills only rows >= M
+        const int row = rs + c * BK;
+        mbar_arrive_expect_tx(&full[s], C::STAGE_BYTES);
+#pragma unroll
+        for (int j = 0; j < C::BM / 64; ++j)
+          tma_load_2d(a + j * BOX, &lhs_map, &full[s], k0 + 64 * j, row);
+#pragma unroll
+        for (int j = 0; j < C::BN / 64; ++j)
+          tma_load_2d(b + j * BOX, &dout_map, &full[s], n0 + 64 * j, row);
+      }
+    }
+    return;
+  }
+
+  float acc[C::BN / 2];
+#pragma unroll
+  for (int i = 0; i < C::BN / 2; ++i) acc[i] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % C::STAGES;
+    mbar_wait(&full[s], (c / C::STAGES) & 1);
+    uint8_t* stage = ring + s * C::STAGE_BYTES;
+    const int valid = re - (rs + c * BK);
+    if (valid < BK) {
+      // the last chunk: its rows at or past re belong to the next group
+      // (or to none). Zero them in every box of both operands. A row is
+      // one whole 128-byte swizzle row, so the swizzle does not move it.
+      const int dead = BK - valid;
+      constexpr int BOXES = (C::BM + C::BN) / 64;
+      for (int i = threadIdx.x; i < BOXES * dead * 8; i += CONSUMER_THREADS) {
+        const int box = i / (dead * 8), rest = i - box * dead * 8;
+        *reinterpret_cast<uint4*>(stage + box * BOX + (valid + rest / 8) * 128 +
+                                  (rest % 8) * 16) = make_uint4(0, 0, 0, 0);
+      }
+      fence_proxy_async();
+      named_barrier(1, CONSUMER_THREADS);
+    }
+    const uint8_t* a = stage + wg * BOX;  // this warpgroup's 64 k
+    const uint8_t* b = stage + C::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // A (lhs_g^T, M-major: k contiguous) and B (dout_g, N-major): boxes
+      // of [64 rows][64 columns], the k16 step 16 rows down
+      const uint64_t da = smem_desc(a + kk * 16 * 128, BOX, 1024);
+      const uint64_t db = smem_desc(b + kk * 16 * 128, BOX, 1024);
+      wgmma<1, 1>(acc, da, db);
+    }
+    wgmma_commit();
+    // one group in flight: the previous stage's group has retired
+    wgmma_wait<1>();
+    if (c > 0 && threadIdx.x % 128 == 0)
+      mbar_arrive(&empty[(c - 1) % C::STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // fragment of m64nNk16: thread (warp w, lane l) holds k rows 16 w + l / 4
+  // (+ 8) and, in each 8-column group j, columns 8 j + 2 (l % 4) (+ 1)
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int r_lo = (tid / 32) * 16 + lane / 4;  // within the warpgroup's 64
+  // every wgmma of both warpgroups has read its operands: the ring is free
+  named_barrier(1, CONSUMER_THREADS);
+  // this warpgroup's 64 x BN tile as BN / 64 swizzled [64][64] boxes
+  uint8_t* st = ring + wg * (C::BN / 64) * BOX;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+#pragma unroll
+    for (int j = 0; j < C::BN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          st + (j / 8) * BOX + row * 128 + (((j % 8) ^ (row % 8)) * 16) +
+          (lane % 4) * 4) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  fence_proxy_async();
+  named_barrier(2 + wg, 128);
+  if (tid == 0) {
+    // TMA clips the parts of a box at k >= K or n >= N
+#pragma unroll
+    for (int j = 0; j < C::BN / 64; ++j)
+      tma_store_3d(&out_map, st + j * BOX, n0 + 64 * j, k0 + wg * 64, g);
+    tma_store_commit_and_drain();
+  }
 }
 
 template <class C, bool TRANS>
@@ -767,7 +706,39 @@ int launch(const void* lhs, const void* rhs, const int* sizes, void* out,
   return (int)cudaGetLastError();
 }
 
+template <class C>
+int launch_tgmm(const void* lhs, const void* dout, const int* sizes,
+                void* out, int M, int K, int N, int E, cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return ERR_NO_ENCODE;
+  CUtensorMap lhs_map, dout_map, out_map;
+  const cuuint32_t box[3] = {64, BK, 1};  // 64 columns x 64 rows
+  const cuuint64_t l_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t l_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint64_t d_dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint64_t d_strides[1] = {(cuuint64_t)N * 2};
+  const cuuint64_t o_dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t o_strides[2] = {(cuuint64_t)N * 2, (cuuint64_t)N * K * 2};
+  if (!encode(enc, &lhs_map, lhs, 2, l_dims, l_strides, box) ||
+      !encode(enc, &dout_map, dout, 2, d_dims, d_strides, box) ||
+      !encode(enc, &out_map, out, 3, o_dims, o_strides, box))
+    return ERR_TENSOR_MAP;
+  auto kernel = tgmm_wgmma_kernel<C>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int k_tiles = (K + C::BM - 1) / C::BM;
+  const int n_tiles = (N + C::BN - 1) / C::BN;
+  static_assert(BAND_COLS % C::BN == 0, "a band is whole column tiles");
+  const int band = n_tiles < BAND_COLS / C::BN ? n_tiles : BAND_COLS / C::BN;
+  kernel<<<E * k_tiles * n_tiles, C::THREADS, C::SMEM, stream>>>(
+      lhs_map, dout_map, out_map, sizes, M, k_tiles, n_tiles, band);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
+
+namespace {
 
 // ---------------------------------------------------------------------------
 // launches
@@ -872,10 +843,25 @@ extern "C" int dstpu_tgmm(int dtype, const void* lhs, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// The tensor-core tgmm: bf16 lhs [M, K], dout [M, N], out [E, K, N], all
+// contiguous; K and N positive multiples of 8 and the three 16-byte
+// aligned (the caller checks: ops/grouped_matmul.py tgmm_variant).
+// Returns a cudaError_t or a negative tensor-map code.
+extern "C" int dstpu_tgmm_wgmma(const void* lhs, const void* dout,
+                                const void* group_sizes, void* out, int M,
+                                int K, int N, int E, void* stream) {
+  if (E <= 0) return 0;
+  if (K <= 0 || N <= 0 || K % 8 || N % 8 ||
+      ((uintptr_t)lhs | (uintptr_t)dout | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0)  // every group empty: no rows to map
+    return (int)cudaMemsetAsync(out, 0, (size_t)E * K * N * 2, s);
+  const int* sizes = static_cast<const int*>(group_sizes);
+  return tc::launch_tgmm<tc::Tile<128, 256, 4>>(lhs, dout, sizes, out, M, K,
+                                                 N, E, s);
+}
+
 extern "C" const char* dstpu_cuda_error_string(int code) {
-  if (code == tc::ERR_NO_ENCODE)
-    return "CUDA has no cuTensorMapEncodeTiled";
-  if (code == tc::ERR_TENSOR_MAP)
-    return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return tc::error_string(code);
 }

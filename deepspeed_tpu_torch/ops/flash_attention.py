@@ -17,15 +17,23 @@ statistics over ``STAT_LANES``. The kernels read the public layout by
 strides and mask rows and columns past S themselves; lse is ``[B, Hq,
 S]`` fp32.
 
+The forward has two kernels, chosen by ``flash_variant`` from type,
+head dim, strides and alignment alone: the tensor-core kernel
+(``wgmma`` fed by TMA) for bf16 with head dim 128, 16-byte aligned data
+and (batch, seq, head) strides that are positive multiples of 8, and the
+scalar kernel (``simt``) for the rest (fp32, head dim 64, other
+strides).
+
 ``LAUNCHES`` counts kernel launches per kernel (the plain versions never
-count), so a run can show that its main path went through the kernels.
+count), so a run can show that its main path went through the kernels;
+``VARIANT_LAUNCHES`` splits the forward's launches by kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,12 +43,31 @@ HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkdv": 0,
                             "flash_bwd_dq": 0}
+VARIANT_LAUNCHES: Dict[str, int] = {"flash_fwd/wgmma": 0,
+                                    "flash_fwd/simt": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def flash_variant(device_type: str, dtype: torch.dtype, head_dim: int,
+                  strides: Sequence[int], data_ptrs: Sequence[int]) -> str:
+    """Which forward kernel runs: "plain" on the CPU; on the card "wgmma"
+    (the tensor-core kernel) for bf16 with head dim 128, every
+    (batch, seq, head) stride of q, k and v a positive multiple of 8
+    elements (TMA's 16-byte strides) and every data pointer 16-byte
+    aligned, else "simt" (the scalar kernel)."""
+    if device_type == "cpu":
+        return "plain"
+    if (dtype == torch.bfloat16 and head_dim == 128
+            and all(s > 0 and s % 8 == 0 for s in strides)
+            and all(p % 16 == 0 for p in data_ptrs)):
+        return "wgmma"
+    return "simt"
 
 
 # ---------------------------------------------------------------------------
@@ -180,12 +207,14 @@ def _lib() -> ctypes.CDLL:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dstpu_flash_fwd.argtypes = [I, I, P, P, P, P, P, P, P,
                                         I, I, I, I, I, F, P]
+        lib.dstpu_flash_fwd_wgmma.argtypes = [P, P, P, P, P, P, P,
+                                              I, I, I, I, I, F, P]
         lib.dstpu_flash_bwd_dkdv.argtypes = [I, I, P, P, P, P, P, P, P, P, P,
                                              P, I, I, I, I, I, F, P]
         lib.dstpu_flash_bwd_dq.argtypes = [I, I, P, P, P, P, P, P, P, P, P,
                                            I, I, I, I, I, F, P]
-        for fn in (lib.dstpu_flash_fwd, lib.dstpu_flash_bwd_dkdv,
-                   lib.dstpu_flash_bwd_dq):
+        for fn in (lib.dstpu_flash_fwd, lib.dstpu_flash_fwd_wgmma,
+                   lib.dstpu_flash_bwd_dkdv, lib.dstpu_flash_bwd_dq):
             fn.restype = I
         lib.dstpu_cuda_error_string.argtypes = [I]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
@@ -254,16 +283,42 @@ def _flash_fwd(q, k, v, segment_ids, causal: bool, scale: float):
     """Returns (o [B, S, Hq, D] in q.dtype, lse [B, Hq, S] fp32)."""
     if not _use_kernel(q, k, v, segment_ids):
         return flash_fwd_plain(q, k, v, segment_ids, causal, scale)
+    return _flash_fwd_launch(q, k, v, segment_ids, causal, scale,
+                             _fwd_variant(q, k, v))
+
+
+def _fwd_variant(q, k, v) -> str:
+    return flash_variant(
+        q.device.type, q.dtype, q.shape[-1],
+        [s for t in (q, k, v) for s in t.stride()[:3]],
+        (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+
+
+def _flash_fwd_launch(q, k, v, segment_ids, causal: bool, scale: float,
+                      variant: str):
+    """``_flash_fwd``'s launch of one kernel, "wgmma" or "simt", on CUDA
+    tensors that ``_use_kernel`` has checked (the smoke also times the
+    scalar kernel at shapes that take the tensor-core one)."""
     B, S, hq, D = q.shape
+    if variant == "wgmma" and _fwd_variant(q, k, v) != "wgmma":
+        raise ValueError("the tensor-core flash forward takes bf16 q, k, v "
+                         "of head dim 128 with 16-byte aligned data and "
+                         "strides")
     o = torch.empty((B, S, hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, hq, S), dtype=torch.float32, device=q.device)
-    rc = _lib().dstpu_flash_fwd(
-        _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        _seg_ptr(segment_ids), o.data_ptr(), lse.data_ptr(),
-        _strides(q, k, v), B, S, hq, k.shape[2], int(causal), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_fwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _seg_ptr(segment_ids),
+            o.data_ptr(), lse.data_ptr(), _strides(q, k, v), B, S, hq,
+            k.shape[2], int(causal), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if variant == "wgmma":
+        rc = _lib().dstpu_flash_fwd_wgmma(*args)
+    elif variant == "simt":
+        rc = _lib().dstpu_flash_fwd(_DTYPE_CODE[q.dtype], D, *args)
+    else:
+        raise ValueError(f"unknown flash forward variant {variant!r}")
+    _raise_on(rc, f"flash_fwd ({variant})")
     LAUNCHES["flash_fwd"] += 1
+    VARIANT_LAUNCHES[f"flash_fwd/{variant}"] += 1
     return o, lse
 
 
@@ -384,4 +439,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 __all__ = ["flash_attention", "flash_bwd_dkdv", "flash_bwd_dq",
            "flash_fwd_plain", "flash_bwd_dkdv_plain", "flash_bwd_dq_plain",
-           "LAUNCHES", "reset_launch_counts", "HEAD_DIMS"]
+           "flash_variant", "LAUNCHES", "VARIANT_LAUNCHES",
+           "reset_launch_counts", "HEAD_DIMS"]

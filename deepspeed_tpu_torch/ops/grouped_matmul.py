@@ -16,7 +16,8 @@ group, the analogue of the JAX tests' ``_ref_gmm``). ``gmm_raw`` has two
 kernels, chosen by ``gmm_variant`` from type and shape alone: the
 tensor-core kernel (``wgmma`` fed by TMA) for bf16 operands with K and N
 multiples of 8 and 16-byte aligned data, and the scalar kernel
-(``simt``) for the rest (fp32, odd shapes). ``_GroupedMatmul``
+(``simt``) for the rest (fp32, odd shapes); ``tgmm`` likewise, chosen by
+``tgmm_variant``. ``_GroupedMatmul``
 (a ``torch.autograd.Function``) stands for the JAX custom VJP (``:282-
 317``); ``group_sizes`` gets no gradient.
 
@@ -30,7 +31,7 @@ are accepted and not used.
 
 ``LAUNCHES`` counts kernel launches per kernel (the plain versions never
 count), so a run can show that its main path went through the kernels;
-``VARIANT_LAUNCHES`` splits the gmm and gmm^T launches by kernel.
+``VARIANT_LAUNCHES`` splits the launches of each by kernel.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ import torch
 LAUNCHES: Dict[str, int] = {"gmm": 0, "gmm_transposed": 0, "tgmm": 0}
 VARIANT_LAUNCHES: Dict[str, int] = {
     "gmm/wgmma": 0, "gmm/simt": 0,
-    "gmm_transposed/wgmma": 0, "gmm_transposed/simt": 0}
+    "gmm_transposed/wgmma": 0, "gmm_transposed/simt": 0,
+    "tgmm/wgmma": 0, "tgmm/simt": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -66,6 +68,15 @@ def gmm_variant(device_type: str, dtype: torch.dtype, K: int, N: int,
             and all(p % 16 == 0 for p in data_ptrs)):
         return "wgmma"
     return "simt"
+
+
+def tgmm_variant(device_type: str, dtype: torch.dtype, K: int, N: int,
+                 data_ptrs: Sequence[int]) -> str:
+    """Which version of ``tgmm`` runs: ``gmm_variant``'s rule with K and
+    N the output's [K, N], and an empty output (N 0) on the scalar
+    kernel, which launches nothing for it."""
+    variant = gmm_variant(device_type, dtype, K, N, data_ptrs)
+    return "simt" if variant == "wgmma" and N <= 0 else variant
 
 
 # ---------------------------------------------------------------------------
@@ -140,8 +151,10 @@ def _lib() -> ctypes.CDLL:
         lib.dstpu_gmm.argtypes = [I, I, P, P, P, P, I, I, I, I, P]
         lib.dstpu_gmm_wgmma.argtypes = [I, P, P, P, P, I, I, I, I, P]
         lib.dstpu_tgmm.argtypes = [I, P, P, P, P, I, I, I, I, P]
-        lib.dstpu_gmm.restype = lib.dstpu_tgmm.restype = I
-        lib.dstpu_gmm_wgmma.restype = I
+        lib.dstpu_tgmm_wgmma.argtypes = [P, P, P, P, I, I, I, I, P]
+        for fn in (lib.dstpu_gmm, lib.dstpu_gmm_wgmma, lib.dstpu_tgmm,
+                   lib.dstpu_tgmm_wgmma):
+            fn.restype = I
         lib.dstpu_cuda_error_string.argtypes = [I]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -237,15 +250,36 @@ def tgmm(lhs: torch.Tensor, dout: torch.Tensor,
                          f"{tuple(lhs.shape)}")
     if not _use_kernel(lhs, dout, group_sizes):
         return tgmm_plain(lhs, dout, group_sizes)
+    return _tgmm_launch(lhs, dout, group_sizes, tgmm_variant(
+        "cuda", lhs.dtype, lhs.shape[1], dout.shape[1],
+        (lhs.data_ptr(), dout.data_ptr())))
+
+
+def _tgmm_launch(lhs: torch.Tensor, dout: torch.Tensor,
+                 group_sizes: torch.Tensor, variant: str) -> torch.Tensor:
+    """``tgmm``'s launch of one kernel, "wgmma" or "simt", on CUDA
+    tensors that ``tgmm`` has checked (the smoke also times the scalar
+    kernel at shapes that take the tensor-core one)."""
     M, K = lhs.shape
     N, E = dout.shape[1], group_sizes.shape[0]
     out = torch.empty((E, K, N), dtype=lhs.dtype, device=lhs.device)
-    rc = _lib().dstpu_tgmm(
-        _DTYPE_CODE[lhs.dtype], lhs.data_ptr(), dout.data_ptr(),
-        group_sizes.data_ptr(), out.data_ptr(), M, K, N, E,
-        torch.cuda.current_stream(lhs.device).cuda_stream)
-    _raise_on(rc, "tgmm")
+    if variant == "wgmma" and tgmm_variant(
+            "cuda", lhs.dtype, K, N,
+            (lhs.data_ptr(), dout.data_ptr(), out.data_ptr())) != "wgmma":
+        raise ValueError("the tensor-core tgmm takes bf16 operands with K "
+                         "and N multiples of 8 and 16-byte aligned data")
+    args = (lhs.data_ptr(), dout.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr(), M, K, N, E,
+            torch.cuda.current_stream(lhs.device).cuda_stream)
+    if variant == "wgmma":
+        rc = _lib().dstpu_tgmm_wgmma(*args)
+    elif variant == "simt":
+        rc = _lib().dstpu_tgmm(_DTYPE_CODE[lhs.dtype], *args)
+    else:
+        raise ValueError(f"unknown tgmm variant {variant!r}")
+    _raise_on(rc, f"tgmm ({variant})")
     LAUNCHES["tgmm"] += 1
+    VARIANT_LAUNCHES[f"tgmm/{variant}"] += 1
     return out
 
 
@@ -294,5 +328,5 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
 
 
 __all__ = ["gmm", "gmm_raw", "tgmm", "gmm_plain", "gmm_transposed_plain",
-           "tgmm_plain", "gmm_variant", "LAUNCHES", "VARIANT_LAUNCHES",
-           "reset_launch_counts"]
+           "tgmm_plain", "gmm_variant", "tgmm_variant", "LAUNCHES",
+           "VARIANT_LAUNCHES", "reset_launch_counts"]

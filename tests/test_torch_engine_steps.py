@@ -415,9 +415,8 @@ def test_bf16_accumulation_is_fp32_in_jax_order(gas):
 
     The whole gradient against the fp32 one is held to JAX's below, by
     its ratio at GAS 1: each microbatch's bf16 gradient already differs
-    from JAX's there, where XLA's excess precision skips the bf16
-    roundings between fused operations that eager PyTorch makes (ROADMAP
-    C3)."""
+    from JAX's there, whose model here keeps fp32 activations where the
+    port's engine runs bf16 ones (ROADMAP C3)."""
     from deepspeed_tpu_torch.runtime.optimizer import tree_map
 
     tiny = dict(TINY, attn_impl="xla")
@@ -473,19 +472,24 @@ def test_bf16_accumulation_is_fp32_in_jax_order(gas):
 
 
 @functools.lru_cache(maxsize=None)
-def _bf16_grad_errs(gas):
+def _bf16_grad_errs(gas, jax_dtype="float32"):
     """TINY Llama on the JAX engine's fp32 masters, micro-steps over
     ``gas`` microbatches (seed 11; the first is the same at every GAS).
     Returns the worst leaf's relative error of the accumulated bf16
     gradient against the port's fp32 one (same masters, same GAS), for
-    the port and for the JAX engine."""
+    the port and for the JAX engine. ``jax_dtype`` is the JAX model's
+    activation dtype (``TransformerConfig.dtype``; its parameters stay
+    fp32): the JAX engine's bf16 block rounds the weights to bf16 and
+    leaves the activations at that dtype, where the port's engine runs
+    them in the compute dtype, bf16 (ROADMAP C3)."""
     from deepspeed_tpu_torch.runtime.optimizer import tree_map
 
     tiny = dict(TINY, attn_impl="xla")
     cfg = dict(CFG, sparse_attention=None, gradient_accumulation_steps=gas,
                bf16={"enabled": True})
     jeng, *_ = dstpu.initialize(
-        model=JaxLM(JaxConfig(dtype=jnp.float32, **tiny)), config=dict(cfg))
+        model=JaxLM(JaxConfig(dtype=getattr(jnp, jax_dtype), **tiny)),
+        config=dict(cfg))
     masters = jax.tree.map(np.asarray, jeng.opt_state.master)
     pcfg = dict(cfg, train_batch_size=jeng.train_batch_size)
     del pcfg["train_micro_batch_size_per_chip"]
@@ -507,28 +511,46 @@ def _bf16_grad_errs(gas):
     ours = max(_grad_tree_rel_errs(grads[True], grads[False]).values())
     theirs = max(_grad_tree_rel_errs(
         jax.tree.map(np.asarray, jeng._grad_acc), grads[False]).values())
-    print(f"worst-leaf relative error vs fp32 at GAS {gas}: port {ours:.3e}, "
-          f"JAX {theirs:.3e}, ratio {ours / theirs:.4f}")
+    print(f"worst-leaf relative error vs fp32 at GAS {gas} (JAX "
+          f"activations {jax_dtype}): port {ours:.3e}, JAX {theirs:.3e}, "
+          f"ratio {ours / theirs:.4f}")
     return ours, theirs
 
 
 def test_bf16_gradient_gap_to_jax_at_gas_1():
-    """One microbatch, no accumulation: the worst leaf's relative error of
-    the port's bf16 gradient against its fp32 one stays within 2x the JAX
-    engine's (the gap is ~1.55x on this input: eager PyTorch rounds to
-    bf16 after every operation, XLA keeps excess precision inside fused
-    ones; ROADMAP C3)."""
+    """One microbatch, no accumulation, against a JAX model built with
+    fp32 activations: the worst leaf's relative error of the port's bf16
+    gradient against its fp32 one stays within 2x the JAX engine's. The
+    gap (~1.55x on this input) is the activation dtype: the JAX engine
+    rounds only the weights to bf16 and keeps this model's fp32
+    activations, the port's engine runs the activations in bf16 too
+    (ROADMAP C3, a deliberate difference; the test below compares like
+    with like)."""
     ours, theirs = _bf16_grad_errs(1)
     assert ours <= 2.0 * theirs
+
+
+def test_bf16_gradient_matches_jax_at_bf16_activations():
+    """One microbatch, against a JAX model at its default activation
+    dtype, bf16, the configuration that computes what the port's bf16
+    engine computes: the port's worst-leaf relative error against fp32
+    is no more than the JAX engine's (0.877x on this input: port 2.375e-2,
+    JAX 2.709e-2; the bound leaves a 14% margin for the worst leaf's
+    run-to-run choice). No rounding of eager PyTorch is missing from
+    XLA's: fp32 elementwise chains in the port's model (ROADMAP C3's
+    probes) do not bring it closer."""
+    ours, theirs = _bf16_grad_errs(1, "bfloat16")
+    assert ours <= 1.0 * theirs, (ours, theirs)
 
 
 @pytest.mark.parametrize("gas", [2, 3, 16])
 def test_bf16_accumulated_gradient_gap_to_jax_holds_with_gas(gas):
     """The accumulated bf16 gradient against the fp32 one at GAS 2, 3 and
     16, the port's worst leaf over the JAX micro-steps': no more than
-    1.1x that ratio at GAS 1. The per-microbatch gap (C3) is allowed for;
-    an accumulation that loses precision with GAS is not (bf16
-    accumulation gave ~2.0x at GAS 2 against ~1.55x at GAS 1)."""
+    1.1x that ratio at GAS 1. The per-microbatch gap (C3: the JAX model's
+    fp32 activations) is allowed for; an accumulation that loses
+    precision with GAS is not (bf16 accumulation gave ~2.0x at GAS 2
+    against ~1.55x at GAS 1)."""
     ours, theirs = _bf16_grad_errs(gas)
     ours_1, theirs_1 = _bf16_grad_errs(1)
     assert ours / theirs <= 1.1 * (ours_1 / theirs_1), (

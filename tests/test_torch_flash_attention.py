@@ -170,3 +170,49 @@ def test_unsupported_impls_and_shapes_raise():
         attn.multi_head_attention(*t, impl="bogus")
     with pytest.raises(ValueError, match="not a multiple"):
         fa.flash_attention(*t)
+
+
+@pytest.mark.parametrize("device,dtype,D,strides,ptrs,want", [
+    # bf16, head dim 128, (batch, seq, head) strides of q, k, v positive
+    # multiples of 8, 16-byte aligned data: the tensor cores
+    ("cuda", torch.bfloat16, 128, (2048 * 4096, 4096, 128) * 3,
+     (0x7f0000000000, 256, 512), "wgmma"),
+    # a head slice of a fused [B, S, 48, 128] projection, a [B, H, S, D]
+    # layout read as [B, S, H, D]
+    ("cuda", torch.bfloat16, 128, (300 * 6144, 6144, 128,
+                                   32 * 300 * 128, 128, 300 * 128,
+                                   2400, 1024, 128), (0, 16, 32), "wgmma"),
+    # what the tensor-core forward does not take: the scalar kernel
+    ("cuda", torch.float32, 128, (8,) * 9, (0, 16, 32), "simt"),
+    ("cuda", torch.bfloat16, 64, (8,) * 9, (0, 16, 32), "simt"),
+    ("cuda", torch.bfloat16, 128, (8,) * 8 + (12,), (0, 16, 32), "simt"),
+    ("cuda", torch.bfloat16, 128, (8,) * 8 + (0,), (0, 16, 32), "simt"),
+    ("cuda", torch.bfloat16, 128, (8,) * 9, (0, 16, 34), "simt"),
+    ("cuda", torch.bfloat16, 128, (8,) * 9, (2, 16, 32), "simt"),
+    # CPU tensors: the plain version, whatever the type and shape
+    ("cpu", torch.bfloat16, 128, (8,) * 9, (0, 16, 32), "plain"),
+    ("cpu", torch.float32, 64, (3,) * 9, (2, 6, 10), "plain"),
+])
+def test_flash_variant_dispatch(device, dtype, D, strides, ptrs, want):
+    assert fa.flash_variant(device, dtype, D, strides, ptrs) == want
+
+
+def test_flash_forward_on_cpu_counts_no_variant():
+    """CPU tensors take the plain forward, in any type and from any
+    view: no launch and no variant is counted."""
+    q, k, v = _qkv(71, S=40, Nq=4, Nkv=2, D=128)
+    wide = torch.from_numpy(np.concatenate([q, q], axis=2))
+    views = [(torch.from_numpy(q), torch.float32),
+             (torch.from_numpy(q), torch.bfloat16),
+             (wide[:, :, :4], torch.bfloat16)]  # a head slice
+    before = (dict(fa.LAUNCHES), dict(fa.VARIANT_LAUNCHES))
+    for qt, dt in views:
+        kt, vt = (torch.from_numpy(x).to(dt) for x in (k, v))
+        qt = qt.to(dt)
+        o, lse = fa._flash_fwd(qt, kt, vt, None, True, 128 ** -0.5)
+        o_ref, lse_ref = fa.flash_fwd_plain(qt, kt, vt, None, True,
+                                            128 ** -0.5)
+        assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+    assert (fa.LAUNCHES, fa.VARIANT_LAUNCHES) == before
+    assert sorted(fa.VARIANT_LAUNCHES) == ["flash_fwd/simt",
+                                           "flash_fwd/wgmma"]

@@ -180,4 +180,43 @@ def test_gmm_raw_on_cpu_counts_no_variant():
     assert (gm.LAUNCHES, gm.VARIANT_LAUNCHES) == before
     assert sorted(gm.VARIANT_LAUNCHES) == [
         "gmm/simt", "gmm/wgmma", "gmm_transposed/simt",
-        "gmm_transposed/wgmma"]
+        "gmm_transposed/wgmma", "tgmm/simt", "tgmm/wgmma"]
+
+
+@pytest.mark.parametrize("device,dtype,K,N,ptrs,want", [
+    # bf16, K and N (the output's [K, N]) multiples of 8, 16-byte aligned
+    # lhs and dout: the tensor cores
+    ("cuda", torch.bfloat16, 4096, 14336, (0x7f0000000000, 256), "wgmma"),
+    ("cuda", torch.bfloat16, 14336, 4096, (0, 256), "wgmma"),
+    ("cuda", torch.bfloat16, 8, 8, (16, 32), "wgmma"),
+    # what the tensor-core kernel does not take: the scalar kernel
+    ("cuda", torch.float32, 4096, 14336, (0, 256), "simt"),
+    ("cuda", torch.bfloat16, 4100, 14336, (0, 256), "simt"),
+    ("cuda", torch.bfloat16, 4096, 14340, (0, 256), "simt"),
+    ("cuda", torch.bfloat16, 33, 45, (0, 256), "simt"),
+    ("cuda", torch.bfloat16, 0, 64, (0, 256), "simt"),
+    ("cuda", torch.bfloat16, 64, 0, (0, 256), "simt"),
+    ("cuda", torch.bfloat16, 4096, 14336, (2, 256), "simt"),
+    ("cuda", torch.bfloat16, 4096, 14336, (0, 264), "simt"),
+    # CPU tensors: the plain version, whatever the type and shape
+    ("cpu", torch.bfloat16, 4096, 14336, (0, 256), "plain"),
+    ("cpu", torch.float32, 33, 45, (2, 6), "plain"),
+])
+def test_tgmm_variant_dispatch(device, dtype, K, N, ptrs, want):
+    assert gm.tgmm_variant(device, dtype, K, N, ptrs) == want
+
+
+def test_tgmm_on_cpu_counts_no_variant():
+    """CPU tensors take tgmm's plain version, bf16 aligned or not: no
+    launch and no variant is counted, and the result is the plain
+    version's."""
+    sizes, lhs, _, dout, _, _ = _inputs("mid-tile-empty")
+    base = torch.zeros(lhs.size + 1, dtype=torch.bfloat16)
+    shifted = base[1:].view(lhs.shape)  # a 2-byte offset
+    shifted.copy_(_t(lhs).bfloat16())
+    before = (dict(gm.LAUNCHES), dict(gm.VARIANT_LAUNCHES))
+    for a in (_t(lhs).bfloat16(), shifted):
+        got = gm.tgmm(a, _t(dout).bfloat16(), _t(sizes))
+        assert torch.equal(got, gm.tgmm_plain(a, _t(dout).bfloat16(),
+                                              _t(sizes)))
+    assert (gm.LAUNCHES, gm.VARIANT_LAUNCHES) == before

@@ -24,6 +24,12 @@ Run on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``
 (tests/conftest.py imports jax, which the card's machine need not have).
 
+The bf16 forward at head dim 128 and the bf16 tgmm take the tensor-core
+kernels (wgmma fed by TMA); they are held to the same tolerances, must
+say so in their variant counters, read q, k, v views in place, give
+the same bits on a second launch, and tgmm must ignore rows of the
+neighbouring groups poisoned with 1e30.
+
 Tolerances: fp32 max-abs 1e-4 (the two sum in different orders); bf16
 2e-2, one bf16 rounding of outputs of magnitude up to ~4 (both round an
 fp32 result once, and may round to neighbouring values). The grouped
@@ -146,11 +152,18 @@ def _flash_inputs(dev, dtype, case, seed):
 def test_flash_kernels_match_plain(card, dtype, case):
     fa, q, k, v, do, seg, causal, scale = _flash_inputs(card, dtype, case, 3)
     before = dict(fa.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
     o, lse = fa._flash_fwd(q, k, v, seg, causal, scale)
     dq, dk, dv = fa._flash_bwd(q, k, v, seg, o, lse, do, causal, scale)
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}
+    # bf16 at hd 128 takes the tensor-core forward, the rest the scalar one
+    kind = fa.flash_variant("cuda", dtype, q.shape[-1], (8,) * 9, (0,) * 3)
+    assert kind == ("wgmma" if dtype == torch.bfloat16 and case != "hd64"
+                    else "simt")
+    assert {n: fa.VARIANT_LAUNCHES[n] - variants[n] for n in variants} == {
+        f"flash_fwd/{v}": int(v == kind) for v in ("wgmma", "simt")}
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
     ref_args = (q, k, v, seg, lse_ref,
                 (do.float() * o_ref.float()).sum(-1).transpose(1, 2), do,
@@ -174,6 +187,65 @@ def test_flash_backward_is_bit_identical_across_launches(card):
     second = fa._flash_bwd(q, k, v, seg, o, lse, do, causal, scale)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _flash_fwd_checked(fa, q, k, v, seg, causal, want_variant):
+    """The forward through the wrapper, twice, against its plain version:
+    the variant that ran, output within the forward tolerance, lse within
+    1e-4, the two launches bit-identical."""
+    scale = q.shape[-1] ** -0.5
+    variants = dict(fa.VARIANT_LAUNCHES)
+    o, lse = fa._flash_fwd(q, k, v, seg, causal, scale)
+    o2, lse2 = fa._flash_fwd(q, k, v, seg, causal, scale)
+    torch.cuda.synchronize()
+    assert {n: fa.VARIANT_LAUNCHES[n] - variants[n] for n in variants} == {
+        f"flash_fwd/{v}": 2 * int(v == want_variant)
+        for v in ("wgmma", "simt")}
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
+    assert torch.isfinite(o).all()
+    assert (o.float() - o_ref.float()).abs().max().item() <= ATOL[q.dtype]
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("view", ["head-slice", "bhsd", "contiguous"])
+def test_tensor_core_flash_forward_reads_views(card, causal, view):
+    """The tensor-core forward reads q (and k, v) in place at any strides
+    TMA takes: a head slice of a fused projection and a [B, H, S, D]
+    tensor read as [B, S, H, D]; causal and not, S 300 (a ragged tail)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(11)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            card, torch.bfloat16)
+
+    B, S = 2, 300
+    if view == "head-slice":
+        fused = t(B, S, 48, 128)  # 32 q heads, 8 k, 8 v
+        q, k, v = fused[:, :, :32], fused[:, :, 32:40], fused[:, :, 40:]
+    elif view == "bhsd":
+        q, k, v = (t(B, h, S, 128).transpose(1, 2) for h in (32, 8, 8))
+    else:
+        q, k, v = t(B, S, 32, 128), t(B, S, 8, 128), t(B, S, 8, 128)
+    _flash_fwd_checked(fa, q, k, v, None, causal, "wgmma")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_flash_forward_segments_at_s1000(card, causal):
+    """S 1000 (not a tile multiple) with three packed segments and GQA
+    4/2, bf16: the tensor-core forward against its plain version."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 1000, h, 128), np.float32)).to(card, torch.bfloat16)
+        for h in (4, 2, 2))
+    seg = torch.from_numpy(np.repeat(np.arange(3), (400, 350, 250))[None]
+                           .astype(np.int32)).to(card)
+    _flash_fwd_checked(fa, q, k, v, seg, causal, "wgmma")
 
 
 def test_flash_autograd_on_card_matches_dense(card):
@@ -268,11 +340,13 @@ def test_grouped_matmul_kernels_match_plain(card, dtype, case):
     assert {n: gm.LAUNCHES[n] - before[n] for n in before} == {
         "gmm": 1, "gmm_transposed": 1, "tgmm": 1}
     # the variant counters name the kernel that ran: gmm contracts K into
-    # N, gmm^T N into K
+    # N, gmm^T N into K, tgmm M into [K, N]
     kind = {name: gm.gmm_variant("cuda", dtype, k, n, (0, 0))
             for name, k, n in (("gmm", K, N), ("gmm_transposed", N, K))}
-    assert kind["gmm"] == ("wgmma" if dtype == torch.bfloat16 and
-                           not case.startswith("odd") else "simt")
+    kind["tgmm"] = gm.tgmm_variant("cuda", dtype, K, N, (0, 0))
+    assert kind["gmm"] == kind["tgmm"] == (
+        "wgmma" if dtype == torch.bfloat16 and not case.startswith("odd")
+        else "simt")
     assert {n: gm.VARIANT_LAUNCHES[n] - variants[n] for n in variants} == {
         f"{name}/{v}": int(kind[name] == v) for name in kind
         for v in ("wgmma", "simt")}
@@ -290,6 +364,43 @@ def test_grouped_matmul_kernels_match_plain(card, dtype, case):
     assert torch.equal(gm.gmm_raw(lhs, rhs, gs), out)
     assert torch.equal(gm.gmm_raw(dout, rhs, gs, transpose_rhs=True), dlhs)
     assert torch.equal(gm.tgmm(lhs, dout, gs), drhs)
+
+
+@pytest.mark.parametrize("case", ["train_wi", "mid-tile-small",
+                                  "aligned-over-sum", "aligned-under-sum"])
+def test_tensor_core_tgmm_ignores_the_neighbouring_groups(card, case):
+    """Poison: for each group, the rows of every other group (and the
+    unowned tail) of lhs and dout filled with 1e30. The tensor-core tgmm
+    must give that group the same bits as on the clean inputs: a missed
+    zeroing of the last stage's foreign rows would bring 1e30 (or inf)
+    into it."""
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+    sizes, M, K, N = GMM_CASES[case]
+    M = sum(sizes) if M is None else M
+    rng = np.random.default_rng(13)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            card, torch.bfloat16)
+
+    gs = torch.tensor(sizes, dtype=torch.int32, device=card)
+    lhs, dout = t(M, K), t(M, N)
+    variants = dict(gm.VARIANT_LAUNCHES)
+    clean = gm.tgmm(lhs, dout, gs)
+    assert gm.VARIANT_LAUNCHES["tgmm/wgmma"] == variants["tgmm/wgmma"] + 1
+    assert _rel_err(clean, gm.tgmm_plain(lhs, dout, gs)) <= GMM_REL[
+        torch.bfloat16]
+    ends = np.minimum(np.cumsum(sizes), M)
+    starts = np.concatenate([[0], ends[:-1]])
+    for e, (s0, s1) in enumerate(zip(starts, ends)):
+        lp, dp = lhs.clone(), dout.clone()
+        for x in (lp, dp):
+            x[:s0] = 1e30
+            x[s1:] = 1e30
+        got = gm.tgmm(lp, dp, gs)[e]
+        torch.cuda.synchronize()
+        assert torch.equal(got, clean[e]), (case, e)
 
 
 def test_gmm_misaligned_bf16_takes_the_scalar_kernel(card):
