@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
 // grouped_matmul.cu (gmm, gmm^T, tgmm) and flash_attention.cu (the
-// forward): mbarriers, TMA tile loads (2-D to 4-D) into 128-byte-swizzled
-// shared memory, wgmma shared-memory descriptors, the wgmma wrappers
-// (fp32 += bf16 x bf16; both operands from shared memory, or A from
-// registers), and the host-side tensor-map encoder. Header only; every
-// name lives in namespace tc.
+// forward, dK/dV and dQ): mbarriers, TMA tile loads (2-D to 4-D) into
+// 128-byte-swizzled shared memory, wgmma shared-memory descriptors, the
+// wgmma wrappers (fp32 += bf16 x bf16 at n64, n128 and n256; both operands
+// from shared memory, or A from registers), the warpgroup register
+// hand-over (setmaxnreg), and the host-side tensor-map encoder. Header
+// only; every name lives in namespace tc.
 //
 // Swizzled operand layouts (128-byte swizzle: a row of 64 bf16 is one
 // 128-byte swizzle row, eight rows one 1024-byte atom):
@@ -89,6 +90,21 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // of the turn that warps waiting in named_barrier(id, threads) take
 __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Warpgroup register hand-over (sm_90a only, like wgmma): every warp of a
+// warpgroup executes it together, on a path that never rejoins the other
+// warpgroups'. A producer warpgroup gives registers up (dec) and the
+// consumer warpgroups take them (inc); inc waits until the block's pool
+// holds enough, so the counts must balance against the launch bound's.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // makes this thread's ordinary shared-memory writes visible to the async
@@ -181,10 +197,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #define TC_F8(d, i)                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TC_F32(d, i) \
+  TC_F8(d, i), TC_F8(d, i + 8), TC_F8(d, i + 16), TC_F8(d, i + 24)
 #define TC_F64(d, i)                                                  \
   TC_F8(d, i), TC_F8(d, i + 8), TC_F8(d, i + 16), TC_F8(d, i + 24),   \
       TC_F8(d, i + 32), TC_F8(d, i + 40), TC_F8(d, i + 48),           \
       TC_F8(d, i + 56)
+#define TC_OPS_0_31                                                   \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31"
 #define TC_OPS_0_63                                                   \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
@@ -199,12 +221,24 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   "%113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "  \
   "%124, %125, %126, %127"
 
-// d (64 x N fp32, the m64nNk16 fragment) += A (64 x 16) x B (16 x N), both
-// from shared memory; A K-major (TRANS_A 0) or M-major (1), B K-major
+// d (64 x N fp32, the m64nNk16 fragment; N = 64, 128 or 256 by the size
+// of d) += A (64 x 16) x B (16 x N), both from shared memory; A K-major
+// (TRANS_A 0) or M-major (1), B K-major
 // (TRANS_B 0) or N-major (1). Fragment: thread (warp w, lane l) of the
 // warpgroup holds rows 16 w + l / 4 (+ 8) and, in each 8-column group j,
 // columns 8 j + 2 (l % 4) (+ 1): d[4 j + 2 h + e] is row + 8 h, column
 // 8 j + 2 (l % 4) + e.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" TC_OPS_0_31
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : TC_F32(d, 0)
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
+}
+
 template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da,
                                       uint64_t db) {
@@ -245,7 +279,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 }
 
 #undef TC_F8
+#undef TC_F32
 #undef TC_F64
+#undef TC_OPS_0_31
 #undef TC_OPS_0_63
 #undef TC_OPS_64_127
 

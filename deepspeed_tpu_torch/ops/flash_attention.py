@@ -2,7 +2,7 @@
 
 Port of ``deepspeed_tpu/ops/pallas/flash_attention.py``: same public
 function, signature and ``[B, S, H, D]`` layout. ``_flash_fwd`` and
-``_flash_bwd`` launch the three hand-written Hopper kernels
+``_flash_bwd`` launch the hand-written Hopper kernels
 (``csrc/flash_attention.cu``) on CUDA tensors, or raise; on CPU tensors
 they run the plain PyTorch versions beside them, which fold key tiles in
 the kernels' order. ``_FlashAttention`` (a ``torch.autograd.Function``)
@@ -17,16 +17,16 @@ statistics over ``STAT_LANES``. The kernels read the public layout by
 strides and mask rows and columns past S themselves; lse is ``[B, Hq,
 S]`` fp32.
 
-The forward has two kernels, chosen by ``flash_variant`` from type,
-head dim, strides and alignment alone: the tensor-core kernel
-(``wgmma`` fed by TMA) for bf16 with head dim 128, 16-byte aligned data
-and (batch, seq, head) strides that are positive multiples of 8, and the
-scalar kernel (``simt``) for the rest (fp32, head dim 64, other
-strides).
+The forward, dK/dV and dQ each have two kernels, chosen by
+``flash_variant`` from type, head dim, strides and alignment alone: the
+tensor-core kernel (``wgmma`` fed by TMA) for bf16 with head dim 128,
+16-byte aligned data and (batch, seq, head) strides that are positive
+multiples of 8 (q, k and v; the backward's dO too), and the scalar
+kernel (``simt``) for the rest (fp32, head dim 64, other strides).
 
 ``LAUNCHES`` counts kernel launches per kernel (the plain versions never
 count), so a run can show that its main path went through the kernels;
-``VARIANT_LAUNCHES`` splits the forward's launches by kernel.
+``VARIANT_LAUNCHES`` splits each kernel's launches by variant.
 """
 
 from __future__ import annotations
@@ -43,8 +43,10 @@ HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkdv": 0,
                             "flash_bwd_dq": 0}
-VARIANT_LAUNCHES: Dict[str, int] = {"flash_fwd/wgmma": 0,
-                                    "flash_fwd/simt": 0}
+VARIANT_LAUNCHES: Dict[str, int] = {
+    f"{name}/{variant}": 0
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+    for variant in ("wgmma", "simt")}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -56,11 +58,12 @@ def reset_launch_counts() -> None:
 
 def flash_variant(device_type: str, dtype: torch.dtype, head_dim: int,
                   strides: Sequence[int], data_ptrs: Sequence[int]) -> str:
-    """Which forward kernel runs: "plain" on the CPU; on the card "wgmma"
-    (the tensor-core kernel) for bf16 with head dim 128, every
-    (batch, seq, head) stride of q, k and v a positive multiple of 8
-    elements (TMA's 16-byte strides) and every data pointer 16-byte
-    aligned, else "simt" (the scalar kernel)."""
+    """Which kernel runs: "plain" on the CPU; on the card "wgmma" (the
+    tensor-core kernel) for bf16 with head dim 128, every (batch, seq,
+    head) stride a positive multiple of 8 elements (TMA's 16-byte
+    strides) and every data pointer 16-byte aligned, else "simt" (the
+    scalar kernel). The forward passes the strides and pointers of q, k
+    and v, the backward those of q, k, v and dO."""
     if device_type == "cpu":
         return "plain"
     if (dtype == torch.bfloat16 and head_dim == 128
@@ -213,8 +216,14 @@ def _lib() -> ctypes.CDLL:
                                              P, I, I, I, I, I, F, P]
         lib.dstpu_flash_bwd_dq.argtypes = [I, I, P, P, P, P, P, P, P, P, P,
                                            I, I, I, I, I, F, P]
+        lib.dstpu_flash_bwd_dkdv_wgmma.argtypes = \
+            lib.dstpu_flash_bwd_dkdv.argtypes[2:]
+        lib.dstpu_flash_bwd_dq_wgmma.argtypes = \
+            lib.dstpu_flash_bwd_dq.argtypes[2:]
         for fn in (lib.dstpu_flash_fwd, lib.dstpu_flash_fwd_wgmma,
-                   lib.dstpu_flash_bwd_dkdv, lib.dstpu_flash_bwd_dq):
+                   lib.dstpu_flash_bwd_dkdv, lib.dstpu_flash_bwd_dq,
+                   lib.dstpu_flash_bwd_dkdv_wgmma,
+                   lib.dstpu_flash_bwd_dq_wgmma):
             fn.restype = I
         lib.dstpu_cuda_error_string.argtypes = [I]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
@@ -284,14 +293,16 @@ def _flash_fwd(q, k, v, segment_ids, causal: bool, scale: float):
     if not _use_kernel(q, k, v, segment_ids):
         return flash_fwd_plain(q, k, v, segment_ids, causal, scale)
     return _flash_fwd_launch(q, k, v, segment_ids, causal, scale,
-                             _fwd_variant(q, k, v))
+                             _variant(q, k, v))
 
 
-def _fwd_variant(q, k, v) -> str:
-    return flash_variant(
-        q.device.type, q.dtype, q.shape[-1],
-        [s for t in (q, k, v) for s in t.stride()[:3]],
-        (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+def _variant(*ts) -> str:
+    """``flash_variant`` of q, k, v (and dO): their strides and
+    pointers."""
+    q = ts[0]
+    return flash_variant(q.device.type, q.dtype, q.shape[-1],
+                         [s for t in ts for s in t.stride()[:3]],
+                         [t.data_ptr() for t in ts])
 
 
 def _flash_fwd_launch(q, k, v, segment_ids, causal: bool, scale: float,
@@ -300,7 +311,7 @@ def _flash_fwd_launch(q, k, v, segment_ids, causal: bool, scale: float,
     tensors that ``_use_kernel`` has checked (the smoke also times the
     scalar kernel at shapes that take the tensor-core one)."""
     B, S, hq, D = q.shape
-    if variant == "wgmma" and _fwd_variant(q, k, v) != "wgmma":
+    if variant == "wgmma" and _variant(q, k, v) != "wgmma":
         raise ValueError("the tensor-core flash forward takes bf16 q, k, v "
                          "of head dim 128 with 16-byte aligned data and "
                          "strides")
@@ -340,43 +351,59 @@ def _bwd_use_kernel(q, k, v, segment_ids, lse, delta, do) -> bool:
 
 def flash_bwd_dkdv(q, k, v, segment_ids, lse, delta, do, causal: bool,
                    scale: float):
-    """dK, dV through the dK/dV kernel (CPU tensors: the plain version).
+    """dK, dV through a dK/dV kernel (CPU tensors: the plain version).
     lse and delta are [B, Hq, S] fp32."""
     if not _bwd_use_kernel(q, k, v, segment_ids, lse, delta, do):
         return flash_bwd_dkdv_plain(q, k, v, segment_ids, lse, delta, do,
                                     causal, scale)
-    B, S, hq, D = q.shape
-    hkv = k.shape[2]
-    dk = torch.empty((B, S, hkv, D), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, S, hkv, D), dtype=v.dtype, device=q.device)
-    rc = _lib().dstpu_flash_bwd_dkdv(
-        _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), _seg_ptr(segment_ids), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do),
-        B, S, hq, hkv, int(causal), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_bwd_dkdv")
-    LAUNCHES["flash_bwd_dkdv"] += 1
-    return dk, dv
+    return _flash_bwd_launch("flash_bwd_dkdv", q, k, v, segment_ids, lse,
+                             delta, do, causal, scale, _variant(q, k, v, do))
 
 
 def flash_bwd_dq(q, k, v, segment_ids, lse, delta, do, causal: bool,
                  scale: float):
-    """dQ through the dQ kernel (CPU tensors: the plain version)."""
+    """dQ through a dQ kernel (CPU tensors: the plain version)."""
     if not _bwd_use_kernel(q, k, v, segment_ids, lse, delta, do):
         return flash_bwd_dq_plain(q, k, v, segment_ids, lse, delta, do,
                                   causal, scale)
+    return _flash_bwd_launch("flash_bwd_dq", q, k, v, segment_ids, lse,
+                             delta, do, causal, scale, _variant(q, k, v, do))
+
+
+def _flash_bwd_launch(name: str, q, k, v, segment_ids, lse, delta, do,
+                      causal: bool, scale: float, variant: str):
+    """The launch of one backward kernel, ``name`` "flash_bwd_dkdv" (returns
+    dK, dV) or "flash_bwd_dq" (returns dQ), variant "wgmma" or "simt", on
+    CUDA tensors that ``_bwd_use_kernel`` has checked (the smoke also
+    times the scalar kernels at shapes that take the tensor-core ones)."""
     B, S, hq, D = q.shape
-    dq = torch.empty((B, S, hq, D), dtype=q.dtype, device=q.device)
-    rc = _lib().dstpu_flash_bwd_dq(
-        _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), _seg_ptr(segment_ids), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, do), B, S, hq,
-        k.shape[2], int(causal), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    hkv = k.shape[2]
+    if variant == "wgmma" and _variant(q, k, v, do) != "wgmma":
+        raise ValueError("the tensor-core flash backward takes bf16 q, k, v "
+                         "and dO of head dim 128 with 16-byte aligned data "
+                         "and strides")
+    if name == "flash_bwd_dkdv":
+        outs = tuple(torch.empty((B, S, hkv, D), dtype=q.dtype,
+                                 device=q.device) for _ in range(2))
+    elif name == "flash_bwd_dq":
+        outs = (torch.empty((B, S, hq, D), dtype=q.dtype, device=q.device),)
+    else:
+        raise ValueError(f"unknown flash backward kernel {name!r}")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            _seg_ptr(segment_ids), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outs), _strides(q, k, v, do), B, S, hq,
+            hkv, int(causal), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if variant == "wgmma":
+        rc = getattr(_lib(), f"dstpu_{name}_wgmma")(*args)
+    elif variant == "simt":
+        rc = getattr(_lib(), f"dstpu_{name}")(_DTYPE_CODE[q.dtype], D, *args)
+    else:
+        raise ValueError(f"unknown flash backward variant {variant!r}")
+    _raise_on(rc, f"{name} ({variant})")
+    LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[f"{name}/{variant}"] += 1
+    return outs if name == "flash_bwd_dkdv" else outs[0]
 
 
 def _flash_bwd(q, k, v, segment_ids, o, lse, do, causal: bool,
@@ -409,6 +436,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, segment_ids, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:  # e.g. the expanded ones of a sum's grad
+            do = do.contiguous()
         dq, dk, dv = _flash_bwd(q, k, v, segment_ids, o, lse, do, ctx.causal,
                                 ctx.scale)
         return dq, dk, dv, None, None

@@ -192,6 +192,21 @@ def test_unsupported_impls_and_shapes_raise():
     # CPU tensors: the plain version, whatever the type and shape
     ("cpu", torch.bfloat16, 128, (8,) * 9, (0, 16, 32), "plain"),
     ("cpu", torch.float32, 64, (3,) * 9, (2, 6, 10), "plain"),
+    # the backward: the strides and pointers of q, k, v and dO by the
+    # same rule; a dO that autograd hands over as a [B, H, S, D] view
+    ("cuda", torch.bfloat16, 128, (2048 * 4096, 4096, 128) * 3
+     + (32 * 2048 * 128, 128, 2048 * 128), (0, 256, 512, 1024), "wgmma"),
+    ("cuda", torch.bfloat16, 128, (8,) * 12, (0, 16, 32, 48), "wgmma"),
+    # a dO stride that is not a multiple of 8, zero (expanded), or a
+    # misaligned dO: the scalar kernels
+    ("cuda", torch.bfloat16, 128, (8,) * 9 + (8, 12, 8), (0, 16, 32, 48),
+     "simt"),
+    ("cuda", torch.bfloat16, 128, (8,) * 9 + (0, 8, 8), (0, 16, 32, 48),
+     "simt"),
+    ("cuda", torch.bfloat16, 128, (8,) * 12, (0, 16, 32, 50), "simt"),
+    ("cuda", torch.float32, 128, (8,) * 12, (0, 16, 32, 48), "simt"),
+    ("cuda", torch.bfloat16, 64, (8,) * 12, (0, 16, 32, 48), "simt"),
+    ("cpu", torch.bfloat16, 128, (8,) * 12, (0, 16, 32, 48), "plain"),
 ])
 def test_flash_variant_dispatch(device, dtype, D, strides, ptrs, want):
     assert fa.flash_variant(device, dtype, D, strides, ptrs) == want
@@ -214,5 +229,46 @@ def test_flash_forward_on_cpu_counts_no_variant():
                                             128 ** -0.5)
         assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
     assert (fa.LAUNCHES, fa.VARIANT_LAUNCHES) == before
-    assert sorted(fa.VARIANT_LAUNCHES) == ["flash_fwd/simt",
-                                           "flash_fwd/wgmma"]
+    assert sorted(fa.VARIANT_LAUNCHES) == [
+        f"{name}/{var}" for name in ("flash_bwd_dkdv", "flash_bwd_dq",
+                                     "flash_fwd")
+        for var in ("simt", "wgmma")]
+
+
+def test_flash_backward_on_cpu_counts_no_variant():
+    """CPU tensors take the plain backward, in any type and with a dO
+    that is a strided view (as autograd may hand it over): no launch and
+    no variant is counted, and the result is the plain versions'."""
+    q, k, v = _qkv(72, S=40, Nq=4, Nkv=2, D=128)
+    rng = np.random.default_rng(73)
+    do_np = rng.standard_normal((2, 4, 40, 128)).astype(np.float32)
+    before = (dict(fa.LAUNCHES), dict(fa.VARIANT_LAUNCHES))
+    for dt in (torch.float32, torch.bfloat16):
+        qt, kt, vt = (torch.from_numpy(x).to(dt) for x in (q, k, v))
+        do = torch.from_numpy(do_np).to(dt).transpose(1, 2)  # [B, S, H, D]
+        o, lse = fa._flash_fwd(qt, kt, vt, None, True, 128 ** -0.5)
+        got = fa._flash_bwd(qt, kt, vt, None, o, lse, do, True, 128 ** -0.5)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+        args = (qt, kt, vt, None, lse, delta, do, True, 128 ** -0.5)
+        want = (fa.flash_bwd_dq_plain(*args),
+                *fa.flash_bwd_dkdv_plain(*args))
+        for a, b in zip(got, want):
+            assert a.dtype == dt and torch.equal(a, b)
+    assert (fa.LAUNCHES, fa.VARIANT_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_dkdv", "flash_bwd_dq"])
+def test_flash_backward_launch_refuses_what_its_kernel_does_not_take(name):
+    """``_flash_bwd_launch`` asked for the tensor-core kernel on tensors
+    the rule sends elsewhere (here CPU tensors), or for an unknown
+    kernel, raises before it launches anything."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(74, S=16, Nq=4, Nkv=2, D=128))
+    lse = torch.zeros(2, 4, 16)
+    args = (q, k, v, None, lse, lse, q, True, 128 ** -0.5)
+    before = (dict(fa.LAUNCHES), dict(fa.VARIANT_LAUNCHES))
+    with pytest.raises(ValueError, match="tensor-core flash backward"):
+        fa._flash_bwd_launch(name, *args, "wgmma")
+    with pytest.raises(ValueError, match="unknown flash backward kernel"):
+        fa._flash_bwd_launch("flash_bwd", *args, "simt")
+    assert (fa.LAUNCHES, fa.VARIANT_LAUNCHES) == before

@@ -24,11 +24,11 @@ Run on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``
 (tests/conftest.py imports jax, which the card's machine need not have).
 
-The bf16 forward at head dim 128 and the bf16 tgmm take the tensor-core
-kernels (wgmma fed by TMA); they are held to the same tolerances, must
-say so in their variant counters, read q, k, v views in place, give
-the same bits on a second launch, and tgmm must ignore rows of the
-neighbouring groups poisoned with 1e30.
+The bf16 flash kernels at head dim 128 (forward, dK/dV, dQ) and the
+bf16 tgmm take the tensor-core kernels (wgmma fed by TMA); they are held
+to the same tolerances, must say so in their variant counters, read q,
+k, v (and dO) views in place, give the same bits on a second launch, and
+tgmm must ignore rows of the neighbouring groups poisoned with 1e30.
 
 Tolerances: fp32 max-abs 1e-4 (the two sum in different orders); bf16
 2e-2, one bf16 rounding of outputs of magnitude up to ~4 (both round an
@@ -117,10 +117,16 @@ def test_prefill_kernel_matches_plain(card, dtype, tq):
 
 
 # flash kernels: forward at the paged kernels' tolerances; gradients
-# within a share of the largest reference gradient (fp32: sums over 2048
-# rows in another order; bf16: p and ds round to bf16 in both, and a
-# rounding that lands on the other side of a tie moves one term by 2**-8)
+# within a share of each gradient row's largest reference entry (a key's
+# dK or dV, a q row's dQ: causal gradients span ~10 at the first keys and
+# rows to ~0.1 at the late ones), fp32: sums over 2048 rows in another
+# order; bf16: p and ds round to bf16 in both, and a rounding that lands
+# on the other side of a tie moves one term by 2**-8. A row whose exact
+# gradient is 0 (dQ of a causal segment's first row: p = 1, so
+# dS = dP - delta cancels) holds fp32 noise of the sums' order, and
+# GRAD_ROW_FLOOR of the tensor's largest entry stands in for its scale
 GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GRAD_ROW_FLOOR = 1e-4
 FLASH_CASES = {  # B, S, Hq, Hkv, D, causal, segment lengths
     "smoke": (2, 2048, 32, 8, 128, True, None),
     "odd": (1, 1000, 4, 4, 128, False, (400, 350, 250)),
@@ -158,12 +164,15 @@ def test_flash_kernels_match_plain(card, dtype, case):
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}
-    # bf16 at hd 128 takes the tensor-core forward, the rest the scalar one
-    kind = fa.flash_variant("cuda", dtype, q.shape[-1], (8,) * 9, (0,) * 3)
+    # bf16 at hd 128 takes the tensor-core kernels (forward, dK/dV and
+    # dQ), the rest the scalar ones
+    kind = fa.flash_variant("cuda", dtype, q.shape[-1], (8,) * 12, (0,) * 4)
     assert kind == ("wgmma" if dtype == torch.bfloat16 and case != "hd64"
                     else "simt")
     assert {n: fa.VARIANT_LAUNCHES[n] - variants[n] for n in variants} == {
-        f"flash_fwd/{v}": int(v == kind) for v in ("wgmma", "simt")}
+        f"{name}/{v}": int(v == kind)
+        for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+        for v in ("wgmma", "simt")}
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
     ref_args = (q, k, v, seg, lse_ref,
                 (do.float() * o_ref.float()).sum(-1).transpose(1, 2), do,
@@ -174,19 +183,123 @@ def test_flash_kernels_match_plain(card, dtype, case):
     assert (o.float() - o_ref.float()).abs().max().item() <= ATOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     for got, want in zip((dq, dk, dv), grads_ref):
-        assert got.shape == want.shape and torch.isfinite(got).all()
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= GRAD_REL[dtype] * want.float().abs().max().item(), err
+        err = _row_rel_err(got, want, GRAD_ROW_FLOOR)
+        assert err <= GRAD_REL[dtype], err
 
 
 def test_flash_backward_is_bit_identical_across_launches(card):
     fa, q, k, v, do, seg, causal, scale = _flash_inputs(
         card, torch.bfloat16, "smoke", 4)
     o, lse = fa._flash_fwd(q, k, v, seg, causal, scale)
+    variants = dict(fa.VARIANT_LAUNCHES)
     first = fa._flash_bwd(q, k, v, seg, o, lse, do, causal, scale)
     second = fa._flash_bwd(q, k, v, seg, o, lse, do, causal, scale)
+    # the tensor-core kernels: one block owns each output tile, no atomics
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        assert fa.VARIANT_LAUNCHES[f"{name}/wgmma"] == \
+            variants[f"{name}/wgmma"] + 2
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _flash_bwd_checked(fa, q, k, v, seg, causal, do, want_variant):
+    """The backward kernels through their wrappers, twice, against their
+    plain versions on the same inputs (lse from the plain forward, delta
+    from its output): the variant that ran, every gradient within
+    GRAD_REL of its row's largest reference entry, the two launches
+    bit-identical."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, seg, lse, delta, do, causal, scale)
+    variants = dict(fa.VARIANT_LAUNCHES)
+    got = [(fa.flash_bwd_dq(*args), *fa.flash_bwd_dkdv(*args))
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: fa.VARIANT_LAUNCHES[n] - variants[n] for n in variants} == {
+        f"{name}/{v}": 2 * int(v == want_variant and name != "flash_fwd")
+        for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+        for v in ("wgmma", "simt")}
+    want = (fa.flash_bwd_dq_plain(*args), *fa.flash_bwd_dkdv_plain(*args))
+    for a, b, ref in zip(*got, want):
+        assert torch.equal(a, b)
+        err = _row_rel_err(a, ref, GRAD_ROW_FLOOR)
+        assert err <= GRAD_REL[q.dtype], err
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_flash_backward_segments_at_s1000(card, causal):
+    """S 1000 (not a tile multiple) with three packed segments and GQA
+    4/2, bf16: the tensor-core dK/dV and dQ against their plain versions,
+    causal and not."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(13)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (1, 1000, h, 128), np.float32)).to(card, torch.bfloat16)
+        for h in (4, 2, 2, 4))
+    seg = torch.from_numpy(np.repeat(np.arange(3), (400, 350, 250))[None]
+                           .astype(np.int32)).to(card)
+    _flash_bwd_checked(fa, q, k, v, seg, causal, do, "wgmma")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("view", ["head-slice", "bhsd", "contiguous"])
+def test_tensor_core_flash_backward_reads_views(card, causal, view):
+    """The tensor-core backward reads q, k, v and dO in place at any
+    strides TMA takes: head slices of a fused projection, [B, H, S, D]
+    tensors read as [B, S, H, D] (dO as autograd may hand it over), and
+    contiguous ones; causal and not, S 300 (a ragged tail)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(14)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            card, torch.bfloat16)
+
+    B, S = 2, 300
+    if view == "head-slice":
+        fused = t(B, S, 48, 128)  # 32 q heads, 8 k, 8 v
+        q, k, v = fused[:, :, :32], fused[:, :, 32:40], fused[:, :, 40:]
+        do = t(B, S, 40, 128)[:, :, 4:36]
+    elif view == "bhsd":
+        q, k, v, do = (t(B, h, S, 128).transpose(1, 2)
+                       for h in (32, 8, 8, 32))
+    else:
+        q, k, v, do = t(B, S, 32, 128), t(B, S, 8, 128), t(B, S, 8, 128), \
+            t(B, S, 32, 128)
+    assert view == "contiguous" or not do.is_contiguous()
+    _flash_bwd_checked(fa, q, k, v, None, causal, do, "wgmma")
+
+
+def test_tensor_core_flash_autograd_takes_an_expanded_grad(card):
+    """``o.sum().backward()`` hands the backward an expanded dO (stride
+    0): it is made contiguous once and the tensor-core kernels run, with
+    the gradients of the plain versions."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(15)
+    base = [torch.from_numpy(rng.standard_normal((2, 300, h, 128),
+                                                 np.float32))
+            .to(card, torch.bfloat16) for h in (8, 2, 2)]
+    t = [x.clone().requires_grad_() for x in base]
+    variants = dict(fa.VARIANT_LAUNCHES)
+    fa.flash_attention(*t, causal=True).sum().backward()
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        assert fa.VARIANT_LAUNCHES[f"{name}/wgmma"] == \
+            variants[f"{name}/wgmma"] + 1
+    scale = 128 ** -0.5
+    q, k, v = base
+    o, lse = fa.flash_fwd_plain(q, k, v, None, True, scale)
+    do = torch.ones_like(o)
+    delta = o.float().sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, None, lse, delta, do, True, scale)
+    want = (fa.flash_bwd_dq_plain(*args), *fa.flash_bwd_dkdv_plain(*args))
+    for x, ref in zip(t, want):
+        err = _row_rel_err(x.grad, ref, GRAD_ROW_FLOOR)
+        assert err <= GRAD_REL[torch.bfloat16], err
 
 
 def _flash_fwd_checked(fa, q, k, v, seg, causal, want_variant):
@@ -199,7 +312,8 @@ def _flash_fwd_checked(fa, q, k, v, seg, causal, want_variant):
     o2, lse2 = fa._flash_fwd(q, k, v, seg, causal, scale)
     torch.cuda.synchronize()
     assert {n: fa.VARIANT_LAUNCHES[n] - variants[n] for n in variants} == {
-        f"flash_fwd/{v}": 2 * int(v == want_variant)
+        f"{name}/{v}": 2 * int(v == want_variant and name == "flash_fwd")
+        for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
         for v in ("wgmma", "simt")}
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
     assert torch.isfinite(o).all()
@@ -606,10 +720,15 @@ BS_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BS_MASKED_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
-def _row_rel_err(got, want):
+def _row_rel_err(got, want, floor=0.0):
+    """The largest, over rows (the last axis), of a row's largest error
+    over its largest reference entry, or over ``floor`` times the
+    tensor's largest entry where that is more."""
     assert got.shape == want.shape and torch.isfinite(got).all()
     got, want = got.float(), want.float()
-    top = want.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    top = want.abs().amax(-1)
+    top = top.clamp_min(max(floor * top.max().item(),
+                            torch.finfo(torch.float32).tiny))
     return ((got - want).abs().amax(-1) / top).max().item()
 
 
