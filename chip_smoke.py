@@ -13,7 +13,11 @@ Phases, each fatal on failure:
                ragged contexts including 0, prefill Tq 16 and 128 with a
                dead segment), hold it against its plain PyTorch version
                in fp32 and bf16, and time kernel, plain version and a
-               PyTorch library yardstick with CUDA events;
+               PyTorch library yardstick with CUDA events. Prefill must
+               take the tensor-core kernel (wgmma) in bf16 and the
+               scalar one (simt) in fp32 and on a bf16 q 2 bytes off a
+               16-byte boundary; two launches bit-identical; the first
+               version (simt on the same bf16 inputs) timed beside it;
   2b. flash  — the three flash attention kernels against their plain
                versions at B 2, S 2048, 32/8 heads, hd 128, causal (fp32
                and bf16), a non-causal S 1000 case with three segments
@@ -62,10 +66,14 @@ Phases, each fatal on failure:
                an empty row (non-causal: 0 there); the main-path shape
                (fixed, causal, S 8192, 8 kv heads). Two launches must be
                bit-identical; errors relative to the largest reference
-               entry; densities printed. At S 4096 and 8192 (fixed,
-               causal, bf16) kernel, plain version and SDPA with the
-               layout as a boolean mask (a yardstick the port never
-               calls) timed with CUDA events against the bound.
+               entry; densities printed. bf16 at a layout block that is a
+               multiple of 128 must take the tensor-core kernel (wgmma),
+               the rest the scalar one (simt), each against the plain
+               version at its own tile (128, 64). At S 4096 and 8192
+               (fixed, causal, bf16) kernel, the first version (simt on
+               the same inputs), plain version and SDPA with the layout
+               as a boolean mask (a yardstick the port never calls)
+               timed with CUDA events against the bound.
   3. serve   — ``InferenceEngineV2`` over ``get_model("llama3-8b")`` at
                full width and depth with seeded bf16 weights: 8 requests
                (64-512 prompt tokens, two sharing a 256-token prefix),
@@ -73,10 +81,11 @@ Phases, each fatal on failure:
                The kernels' launch counts are read around this run. A
                second engine from the same seed must give identical
                streams, and the paged prefill path must agree with the
-               plain gather path on one prefill batch. A third run of
-               the same workload on the same model under torch.profiler
-               gives the device time by kernel family and the device's
-               idle share.
+               plain gather path on one prefill batch; every paged
+               prefill launch must take the tensor-core kernel. A third
+               run of the same workload on the same model under
+               torch.profiler gives the device time by kernel family and
+               the device's idle share.
   7. quant serve — right after phase 3, on its model (built once): the
                same workload with int8, int4 and fp8 KV pools, a second
                int8 engine (identical streams; profiled), an int8 pool
@@ -87,12 +96,15 @@ Phases, each fatal on failure:
                in place. Launch counts per run: the append and the
                dequantize once per layer per forward on the KV runs; the
                blockwise quantize once per quantized leaf (8) and the
-               dequantize 7 x 32 + 1 times per forward on the weight run.
+               dequantize 7 x 32 + 1 times per forward on the weight run;
+               every paged prefill launch on the tensor-core kernel (a
+               quantized pool reaches it as the bf16 scratch).
                Agreement with phase 3's bf16 streams is reported.
   8a. sparse forward — right after phase 3's profile, on its model:
                ``loss_fn`` with ``attn_impl="blocksparse"`` and the fixed
                layout under no_grad at B 1 x S 8192, all 32 layers:
-               exactly 32 B9 launches a forward, a finite loss, layer 0's
+               exactly 32 B9 launches a forward, all on the tensor-core
+               kernel, a finite loss, layer 0's
                q/k/v through the kernel against the masked form; forward
                time p50 over 3 runs and a profile (B9's share).
   4. train   — ``deepspeed_tpu_torch.initialize`` + ``train_batch`` on
@@ -113,7 +125,8 @@ Phases, each fatal on failure:
                agrees with the same FFN on the plain gmm on one prefill
                batch, and makes the host wait nowhere (CUDA's sync debug
                mode); every gmm launch went through the tensor-core kernel
-               (no scalar one); one more run under torch.profiler.
+               (no scalar one), every paged prefill launch too; one more
+               run under torch.profiler.
   6. moe train — ``initialize`` + ``train_batch`` on Mixtral-8x7B at full
                width, 2 of its 32 layers (fp32 masters, bf16 compute,
                AdamW, ZeRO-3 config, clip 1.0), micro 1 x GAS 2 x 2048
@@ -131,7 +144,8 @@ Phases, each fatal on failure:
                x GAS 2 x S 4096, one warm-up and three measured steps:
                finite, falling losses and no B9 launch (the masked form
                carries the gradient; AdamW at lr 1e-4); then
-               ``eval_batch`` at S 8192: exactly 8 B9 launches. Last,
+               ``eval_batch`` at S 8192: exactly 8 B9 launches, all on
+               the tensor-core kernel. Last,
                the same loop for 5 steps at phase 4's lr 3e-4 through the
                fixed layout, the flash path and the masked form on a
                dense layout: the last two must give the same losses
@@ -237,6 +251,10 @@ GMM_KERNELS = {
                        "epilogue)",
     ("tgmm", "simt"): "tgmm_kernel<T>",
 }
+PREFILL_KERNELS = {"wgmma": "paged_prefill_wgmma_kernel",
+                   "simt": "paged_prefill_kernel"}
+BS_KERNELS = {"wgmma": "blocksparse_fwd_wgmma_kernel",
+              "simt": "blocksparse_fwd_kernel"}
 FLASH_KERNELS = {
     ("flash_fwd", "wgmma"): "flash_fwd_wgmma_kernel",
     ("flash_fwd", "simt"): "flash_fwd_kernel",
@@ -451,7 +469,18 @@ def check_decode(torch, pa, timer, dtype, S=MAX_SEQS):
     return res
 
 
+def prefill_variants_ran(pa, before):
+    """Prefill launches by variant since the counts ``before``."""
+    return {v: pa.VARIANT_LAUNCHES[f"paged_prefill/{v}"]
+            - before[f"paged_prefill/{v}"] for v in ("wgmma", "simt")}
+
+
 def check_prefill(torch, pa, timer, dtype, tq, S):
+    """The prefill kernel the rule names (bf16: the tensor-core kernel,
+    fp32: the scalar one) twice, bit for bit, against its plain version;
+    in bf16 also the rule's scalar case (q 2 bytes off a 16-byte
+    boundary) and the timings: kernel, the first (scalar) version on the
+    same inputs, plain version, SDPA, bound."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(20 + tq)
@@ -466,41 +495,70 @@ def check_prefill(torch, pa, timer, dtype, tq, S):
     q = torch.from_numpy(rng.standard_normal((S, tq, NH, HD),
                                              np.float32)).to("cuda", dtype)
     scale = HD ** -0.5
+    name = str(dtype).split(".")[-1]
+    expect = "wgmma" if dtype == torch.bfloat16 else "simt"
+    before = dict(pa.VARIANT_LAUNCHES)
     out = pa.paged_prefill_attention(q, kv, bt, pos0, ctx)
+    again = pa.paged_prefill_attention(q, kv, bt, pos0, ctx)
     ref = pa.paged_prefill_attention_plain(q, kv, bt, pos0, ctx, scale)
     torch.cuda.synchronize()
+    ran = prefill_variants_ran(pa, before)
+    if ran != {v: 2 * int(v == expect) for v in ran}:
+        fail(f"paged_prefill {name} tq={tq}: ran {ran}, expected {expect}")
+    if not torch.equal(out, again):
+        fail(f"paged_prefill {name} tq={tq}: two launches differ")
     if not torch.isfinite(out).all() or not torch.all(out[1] == 0):
         fail(f"paged_prefill {dtype} tq={tq}: non-finite or live dead seg")
     err = (out.float() - ref.float()).abs().max().item()
-    name = str(dtype).split(".")[-1]
     if err > TOL[name]:
         fail(f"paged_prefill {name} tq={tq}: max-abs {err} > {TOL[name]}")
-    res = {"max_abs_err": err}
-    if dtype == torch.bfloat16:
-        itm = q.element_size()
-        qi = np.arange(tq)[None, :]
-        vis = np.clip(np.minimum(pos0_np[:, None] + qi + 1,
-                                 ctx_np[:, None]), 0, None)
-        vis[ctx_np == 0] = 0
-        nbytes = (2 * q.numel() * itm + int(ctx_np.sum()) * 2 * NKV * HD
-                  * itm + bt.numel() * 4 + 2 * S * 4)
-        flops = 4 * NH * HD * int(vis.sum())
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, name)
-        res["ms"] = timer.ms(lambda: pa.paged_prefill_attention(
-            q, kv, bt, pos0, ctx))
-        res["plain_ms"] = timer.ms(lambda: pa.paged_prefill_attention_plain(
-            q, kv, bt, pos0, ctx, scale), iters=3, warmup=1)
-        lmax = int(ctx_np.max())
-        k, v = dense_kv(torch, kv, bt, lmax)
-        cols = torch.arange(lmax, device="cuda")
-        qpos = pos0[:, None] + torch.arange(tq, device="cuda")[None, :]
-        mask = ((cols[None, None, :] <= qpos[:, :, None])
-                & (cols[None, None, :] < ctx[:, None, None]))[:, None]
-        qt = q.transpose(1, 2).contiguous()
-        res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
-            qt, k, v, attn_mask=mask))
-        res["shape"] = {"S": S, "tq": tq, "sum_ctx": int(ctx_np.sum()),
-                        "visible_cols": int(vis.sum())}
+    res = {"max_abs_err": err, "variant": expect,
+           "bit_identical_rerun": True}
+    if dtype != torch.bfloat16:
+        return res
+    # the rule's scalar case in bf16: a contiguous q 2 bytes off a 16-byte
+    # boundary
+    buf = torch.empty(q.numel() + 1, dtype=dtype, device="cuda")
+    qm = buf[1:].view(q.shape)
+    qm.copy_(q)
+    before = dict(pa.VARIANT_LAUNCHES)
+    out_m = pa.paged_prefill_attention(qm, kv, bt, pos0, ctx)
+    torch.cuda.synchronize()
+    ran = prefill_variants_ran(pa, before)
+    err_m = (out_m.float() - ref.float()).abs().max().item()
+    if pa.paged_prefill_variant(qm, kv) != "simt" or \
+            ran != {"wgmma": 0, "simt": 1} or err_m > TOL[name]:
+        fail(f"paged_prefill bf16 tq={tq} misaligned q: ran {ran}, "
+             f"max-abs {err_m}")
+    res["misaligned_q"] = {"variant": "simt", "max_abs_err": err_m}
+    del buf, qm, out_m
+    itm = q.element_size()
+    qi = np.arange(tq)[None, :]
+    vis = np.clip(np.minimum(pos0_np[:, None] + qi + 1,
+                             ctx_np[:, None]), 0, None)
+    vis[ctx_np == 0] = 0
+    nbytes = (2 * q.numel() * itm + int(ctx_np.sum()) * 2 * NKV * HD
+              * itm + bt.numel() * 4 + 2 * S * 4)
+    flops = 4 * NH * HD * int(vis.sum())
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, name)
+    res["ms"] = timer.ms(lambda: pa.paged_prefill_attention(
+        q, kv, bt, pos0, ctx))
+    res["first_version_ms"] = timer.ms(lambda: pa.paged_prefill_attention(
+        q, kv, bt, pos0, ctx, variant="simt"))
+    res["plain_ms"] = timer.ms(lambda: pa.paged_prefill_attention_plain(
+        q, kv, bt, pos0, ctx, scale), iters=3, warmup=1)
+    res["gb_per_s"] = nbytes / res["ms"] / 1e6
+    lmax = int(ctx_np.max())
+    k, v = dense_kv(torch, kv, bt, lmax)
+    cols = torch.arange(lmax, device="cuda")
+    qpos = pos0[:, None] + torch.arange(tq, device="cuda")[None, :]
+    mask = ((cols[None, None, :] <= qpos[:, :, None])
+            & (cols[None, None, :] < ctx[:, None, None]))[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask))
+    res["shape"] = {"S": S, "tq": tq, "sum_ctx": int(ctx_np.sum()),
+                    "visible_cols": int(vis.sum())}
     return res
 
 
@@ -1039,10 +1097,13 @@ def row_rel_err(torch, got, want, floor=0.0):
 
 
 def check_blocksparse(torch, bs, attn, timer, dtype, case):
-    """The kernel against its plain version and against the masked form
-    on the same inputs; two launches bit for bit; at the timed cases
-    also kernel, plain version and SDPA with the layout as a boolean
-    mask timed against the bound."""
+    """The kernel the rule names (bf16 with a layout block that is a
+    multiple of 128: the tensor-core kernel; the rest the scalar one)
+    against its plain version at the kernel's tile and against the
+    masked form on the same inputs; two launches bit for bit; at the
+    timed cases also kernel, the first (scalar) version on the same
+    inputs, plain version and SDPA with the layout as a boolean mask
+    timed against the bound."""
     import torch.nn.functional as F
 
     name = str(dtype).split(".")[-1]
@@ -1050,17 +1111,26 @@ def check_blocksparse(torch, bs, attn, timer, dtype, case):
     sparsity = bs_sparsity(bs, case)
     q, k, v = bs_inputs(torch, dtype, case, 40)
     scale = HD ** -0.5
+    expect = ("wgmma" if dtype == torch.bfloat16 and block % bs.TC_TILE == 0
+              else "simt")
+    before = dict(bs.VARIANT_LAUNCHES)
     got = bs.blocksparse_attention_kernel(q, k, v, sparsity, causal=causal)
     again = bs.blocksparse_attention_kernel(q, k, v, sparsity, causal=causal)
-    work = bs.work_list(sparsity, S, causal, q.device)
+    tile = bs.TC_TILE if expect == "wgmma" else bs.TILE
+    work = bs.work_list(sparsity, S, causal, q.device, tile)
     plain = bs.blocksparse_fwd_plain(q, k, v, work, scale)
     torch.cuda.synchronize()
+    ran = {v_: bs.VARIANT_LAUNCHES[f"blocksparse_fwd/{v_}"]
+           - before[f"blocksparse_fwd/{v_}"] for v_ in ("wgmma", "simt")}
+    if ran != {v_: 2 * int(v_ == expect) for v_ in ran}:
+        fail(f"blocksparse {name} {case}: ran {ran}, expected {expect}")
     if got.shape != q.shape or not torch.isfinite(got).all():
         fail(f"blocksparse {name} {case}: wrong shape or non-finite")
     if not torch.equal(got, again):
         fail(f"blocksparse {name} {case}: two launches differ")
     pairs = bs.visible_pairs(work.layout_host, block, S, causal)
-    res = {"max_abs_err": (got.float() - plain.float()).abs().max().item(),
+    res = {"variant": expect, "tile": tile, "bit_identical_rerun": True,
+           "max_abs_err": (got.float() - plain.float()).abs().max().item(),
            "max_row_rel_err": row_rel_err(torch, got, plain),
            "layout_density": bs.layout_density(work.layout_host, causal),
            "pair_density": pairs / (S * (S + 1) // 2 if causal else S * S),
@@ -1091,6 +1161,11 @@ def check_blocksparse(torch, bs, attn, timer, dtype, case):
     res["flops"] = flops
     res["ms"] = timer.ms(lambda: bs.blocksparse_attention_kernel(
         q, k, v, sparsity, causal=causal))
+    res["tflops"] = flops / res["ms"] / 1e9
+    res["first_version_ms"] = timer.ms(
+        lambda: bs.blocksparse_attention_kernel(
+            q, k, v, sparsity, causal=causal, variant="simt"),
+        iters=3, warmup=1)
     res["plain_ms"] = timer.ms(lambda: bs.blocksparse_fwd_plain(
         q, k, v, work, scale), iters=3, warmup=1)
     # yardstick: SDPA on [B, H, S, D] copies with the KV heads expanded and
@@ -1195,7 +1270,7 @@ def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
     for e in kern:
         n = e.name.lower()
         grouped = "gmm_kernel" in n or "gmm_wgmma_kernel" in n
-        fam = ("blocksparse_fwd" if "blocksparse_fwd_kernel" in n else
+        fam = ("blocksparse_fwd" if "blocksparse_fwd" in n else
                "quantize_blockwise" if "quantize_blockwise_kernel" in n else
                "kv_quantize_append" if "kv_quantize_append_kernel" in n else
                "dequantize" if "dequantize_kernel" in n else
@@ -1395,8 +1470,8 @@ def train_phase(torch, zoo, initialize, fa, tf):
 def check_tensor_core(phase, launches, variants,
                       names=("gmm", "gmm_transposed")):
     """Every launch of the kernels ``names`` on a bf16 main path (K and N
-    multiples of 8; flash at head dim 128) went through the tensor-core
-    kernel."""
+    multiples of 8; flash, paged prefill and B9 at head dim 128; B9 at
+    layout block 128) went through the tensor-core kernel."""
     for name in names:
         if variants[f"{name}/simt"] or \
                 variants[f"{name}/wgmma"] != launches[name]:
@@ -1477,7 +1552,7 @@ def moe_serve_phase(torch, zoo, InferenceEngineV2, pa, gm, moe, tf):
     model, eng, out, wall, prompts = serve_once(torch, zoo,
                                                 InferenceEngineV2, **over)
     launches = {**pa.LAUNCHES, **gm.LAUNCHES}
-    variants = dict(gm.VARIANT_LAUNCHES)
+    variants = {**pa.VARIANT_LAUNCHES, **gm.VARIANT_LAUNCHES}
     if sorted(out) != list(range(8)) or any(len(v) != NEW_TOKENS
                                             for v in out.values()):
         fail(f"moe serve: token counts "
@@ -1490,7 +1565,8 @@ def moe_serve_phase(torch, zoo, InferenceEngineV2, pa, gm, moe, tf):
            launches["gmm"]) <= 0 or launches["gmm"] % per_forward:
         fail(f"moe serve: launches {launches}: every kernel of the path "
              f"must run, gmm a multiple of {per_forward}")
-    check_tensor_core("moe serve", launches, variants)
+    check_tensor_core("moe serve", launches, variants,
+                      ("gmm", "gmm_transposed", "paged_prefill"))
     agree = moe_ffn_agrees(torch, moe, gm, tf, model, prompts)
     st = eng.stats
     ttft = sorted(eng.latency["ttft_s"])
@@ -1635,10 +1711,13 @@ def sparse_forward_phase(torch, tf, attn, bs, model):
     bs.reset_launch_counts()
     loss = forward()  # the main path
     launches = dict(bs.LAUNCHES)
+    variants = dict(bs.VARIANT_LAUNCHES)
     L = cfg.num_layers
     if launches["blocksparse_fwd"] != L or not torch.isfinite(loss):
         fail(f"sparse forward: B9 launches {launches} (want {L}), loss "
              f"{loss.item()}")
+    check_tensor_core("sparse forward", launches, variants,
+                      ("blocksparse_fwd",))
     wall = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1688,10 +1767,11 @@ def sparse_forward_phase(torch, tf, attn, bs, model):
         "forward_s": wall, "forward_ms_p50": float(np.median(wall)) * 1e3,
         "tokens_per_s": SPARSE_SEQ / float(np.median(wall)),
         "launches_per_forward": launches["blocksparse_fwd"],
+        "variant_launches_per_forward": variants,
         "layer0_kernel_vs_masked_max_row_rel_err": err,
     }
     attn.set_sparse_config(None)
-    return line, profile, launches["blocksparse_fwd"]
+    return line, profile, {**launches, **variants}
 
 
 def sparse_paths_at_lr3e4(torch, zoo, initialize, attn):
@@ -1782,7 +1862,7 @@ def sparse_train_phase(torch, zoo, initialize, bs, attn):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     train_launches = bs.LAUNCHES["blocksparse_fwd"]
-    if train_launches != 0:
+    if train_launches != 0 or any(bs.VARIANT_LAUNCHES.values()):
         fail(f"sparse train: {train_launches} B9 launches while training "
              "(the masked form carries the gradient)")
     if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
@@ -1802,9 +1882,12 @@ def sparse_train_phase(torch, zoo, initialize, bs, attn):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     eval_launches = bs.LAUNCHES["blocksparse_fwd"]
+    eval_variants = dict(bs.VARIANT_LAUNCHES)
     if eval_launches != TRAIN_LAYERS or not torch.isfinite(ev_loss):
         fail(f"sparse eval: {eval_launches} B9 launches (want "
              f"{TRAIN_LAYERS}), loss {ev_loss.item()}")
+    check_tensor_core("sparse eval", dict(bs.LAUNCHES), eval_variants,
+                      ("blocksparse_fwd",))
     tokens = SPARSE_GAS * SPARSE_TRAIN_SEQ
     p50 = float(np.median(step_s))
     line = {
@@ -1821,11 +1904,13 @@ def sparse_train_phase(torch, zoo, initialize, bs, attn):
         "lr": SPARSE_TRAIN_CONFIG["optimizer"]["params"]["lr"],
         "eval_seq": SPARSE_SEQ, "eval_ms": eval_s * 1e3,
         "eval_loss": ev_loss.item(), "b9_launches_eval": eval_launches,
+        "b9_variant_launches_eval": eval_variants,
     }
     del engine, model, loader, batches
     attn.set_sparse_config(None)
     line["at_lr3e-4"] = sparse_paths_at_lr3e4(torch, zoo, initialize, attn)
-    return line, {"engine_eval": eval_launches, "train": train_launches}
+    return line, {"engine_eval": eval_launches, "train": train_launches,
+                  "engine_eval_by_variant": eval_variants}
 
 
 # -- phase 7: quantized serve --------------------------------------------------
@@ -1863,10 +1948,14 @@ def quant_run(torch, InferenceEngineV2, pa, qz, model, prompts, ref_out,
     if prof is not None:
         prof.__exit__(None, None, None)
     launches = {**pa.LAUNCHES, **qz.LAUNCHES}
+    variants = dict(pa.VARIANT_LAUNCHES)
     if sorted(out) != list(range(8)) or any(len(v) != NEW_TOKENS
                                             for v in out.values()):
         fail(f"quant serve {label}: token counts "
              f"{[len(out.get(u, [])) for u in range(8)]}")
+    # a quantized pool reaches the prefill kernel as the bf16 scratch
+    check_tensor_core(f"quant serve {label}", launches, variants,
+                      ("paged_prefill",))
     st = eng.stats
     cfg = eng.kv_cache.config
     bf16_block = dataclasses.replace(cfg, quant_bits=None,
@@ -1897,7 +1986,7 @@ def quant_run(torch, InferenceEngineV2, pa, qz, model, prompts, ref_out,
         "decode_kernel_steps": st["decode_kernel_steps"],
         "burst_steps": st["burst_steps"],
         "prefix_hit_tokens": st["prefix_hit_tokens"],
-        "launches": launches,
+        "launches": launches, "variant_launches": variants,
     }
     return line, out, eng, prof
 
@@ -2024,7 +2113,8 @@ def quant_serve_phase(torch, InferenceEngineV2, pa, qz, wq, model, prompts,
     runs["int8_weights"] = line
     del eng
     torch.cuda.empty_cache()
-    launches = {label: r["launches"] for label, r in runs.items()}
+    launches = {label: {**r["launches"], **r["variant_launches"]}
+                for label, r in runs.items()}
     return {"model": "llama3-8b", "layers": L, "runs": runs}, profile, \
         launches
 
@@ -2138,6 +2228,21 @@ def main():
     log("blocksparse: " + ", ".join(
         f"{c} density {sparse[('bfloat16', c)]['pair_density']:.3f}"
         for c in BS_CASES))
+    for tq in pre:
+        r = pre[tq]["bfloat16"]
+        log(f"paged_prefill tq={tq}: {r['variant']} {r['ms']:.4f} ms "
+            f"({r['gb_per_s']:.0f} GB/s), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), SDPA {r['library_ms']:.4f} ms, first "
+            f"version (simt) {r['first_version_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.2f} ms")
+    for case in BS_TIMED:
+        r = sparse[("bfloat16", case)]
+        log(f"blocksparse_fwd {case}: {r['variant']} {r['ms']:.3f} ms "
+            f"({r['tflops']:.0f} TFLOP/s), bound {r['bound_ms']:.4f} ms, "
+            f"SDPA with a mask {r['library_ms']:.3f} ms, first version "
+            f"(simt) {r['first_version_ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.2f} ms, max row rel err "
+            f"{r['max_row_rel_err']:.2e}")
     del timer
     torch.cuda.empty_cache()
     log("kernels agree with their plain versions")
@@ -2152,6 +2257,7 @@ def main():
     model, eng, out, wall, prompts = serve_once(torch, zoo,
                                                 InferenceEngineV2)
     launches = dict(pa.LAUNCHES)
+    serve_variants = dict(pa.VARIANT_LAUNCHES)
     if sorted(out) != list(range(8)) or any(len(v) != NEW_TOKENS
                                             for v in out.values()):
         fail(f"serve: token counts {[len(out.get(u, [])) for u in range(8)]}")
@@ -2163,6 +2269,7 @@ def main():
     if min(launches.values()) <= 0:
         fail(f"serve: a kernel was never launched on the main path: "
              f"{launches}")
+    check_tensor_core("serve", launches, serve_variants, ("paged_prefill",))
     agree = check_paths_agree(torch, model_runner, model, prompts)
     ref_prompts = prompts
     ttft = sorted(eng.latency["ttft_s"])
@@ -2182,7 +2289,7 @@ def main():
         "prefill_gather_fallbacks": st["prefill_gather_fallbacks"],
         "fallback_reasons": st["fallback_reasons"],
         "prefix_hit_tokens": st["prefix_hit_tokens"],
-        "launches": launches,
+        "launches": launches, "variant_launches": serve_variants,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "prefill_vs_gather": agree,
         "deterministic_rerun": True,
@@ -2238,23 +2345,40 @@ def main():
     log(f"moe train: {moe_train['step_ms_p50']:.1f} ms per step; "
         f"{time.perf_counter() - t_start:.0f} s since the build began")
 
-    def entry(name, replaces, res, other):
+    def entry(name, replaces, res, other, kernels, paths):
         b = res["bfloat16"]
+        variant = b.get("variant", "simt")
         return {"name": name, "route": "cuda",
                 "source": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+                "kernel": kernels[variant], "variant": variant,
                 "replaces": replaces, "launches": launches[name],
+                "launches_by_path": {path: lc[name]
+                                     for path, lc in paths.items()},
                 "max_abs_err": b["max_abs_err"],
                 "max_abs_err_fp32": res["float32"]["max_abs_err"],
-                "ms": b["ms"], "plain_ms": b["plain_ms"],
+                "ms": b["ms"],
+                # decode has one version: its first is itself
+                "first_version_ms": b.get("first_version_ms", b["ms"]),
+                "plain_ms": b["plain_ms"],
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": b["library_ms"],
                 "library_call": "scaled_dot_product_attention on K/V "
                                 "gathered dense beforehand (heads expanded, "
                                 "boolean mask)",
-                "dtype": "bfloat16", "shape": b["shape"], "other": other}
+                "dtype": "bfloat16", "shape": b["shape"],
+                "ptxas": kernel_lines(ptxas["paged_attention"],
+                                      kernels[variant]),
+                "other": other}
 
+    paged_paths = {"serve": {**launches, **serve_variants},
+                   "moe_serve": moe_serve_launches,
+                   **{f"quant_serve/{run}": lc
+                      for run, lc in quant_launches.items()}}
     other_pre = {k: v for k, v in pre[16]["bfloat16"].items()}
     other_pre["max_abs_err_fp32"] = pre[16]["float32"]["max_abs_err"]
+    other_pre["variant_launches_by_path"] = {
+        path: {k: v for k, v in lc.items() if k.startswith("paged_prefill/")}
+        for path, lc in paged_paths.items()}
     def flash_entry(name, line):
         b = flash[("bfloat16", "smoke")][name]
         variant = b["variant"]
@@ -2349,7 +2473,9 @@ def main():
                 "launches_by_path": {run: lc[name] for run, lc in
                                      quant_launches.items()},
                 "max_abs_err": res["max_abs_err"], "bit_equal": True,
-                "ms": res["ms"], "plain_ms": res["plain_ms"],
+                "variant": "simt", "ms": res["ms"],
+                # one version: its first is itself
+                "first_version_ms": res["ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                 "library_ms": None,
                 "library_call": "none: no single PyTorch call computes a "
@@ -2359,18 +2485,30 @@ def main():
 
     def sparse_entry():
         b = sparse[("bfloat16", "main")]
+        kernel = BS_KERNELS[b["variant"]]
         return {"name": "blocksparse_fwd", "route": "cuda",
                 "source": "deepspeed_tpu_torch/ops/csrc/"
                           "blocksparse_attention.cu",
+                "kernel": kernel, "variant": b["variant"],
                 "replaces": "deepspeed_tpu/ops/pallas/"
                             "blocksparse_attention.py:247",
-                "launches": sparse_fwd_launches,
-                "launches_by_path": {"full_depth_forward":
-                                     sparse_fwd_launches, **sparse_launches},
+                "launches": sparse_fwd_launches["blocksparse_fwd"],
+                "launches_by_path": {
+                    "full_depth_forward":
+                        sparse_fwd_launches["blocksparse_fwd"],
+                    **{k: v for k, v in sparse_launches.items()
+                       if not isinstance(v, dict)}},
+                "variant_launches_by_path": {
+                    "full_depth_forward": {
+                        k: v for k, v in sparse_fwd_launches.items()
+                        if k.startswith("blocksparse_fwd/")},
+                    "engine_eval": sparse_launches["engine_eval_by_variant"]},
                 "max_abs_err": b["max_abs_err"],
                 "max_row_rel_err": b["max_row_rel_err"],
                 "masked_max_row_rel_err": b["masked_max_row_rel_err"],
-                "ms": b["ms"], "plain_ms": b["plain_ms"],
+                "ms": b["ms"], "tflops": b["tflops"],
+                "first_version_ms": b["first_version_ms"],
+                "plain_ms": b["plain_ms"],
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": b["library_ms"],
                 "library_call": "scaled_dot_product_attention on [B, H, S, "
@@ -2378,16 +2516,19 @@ def main():
                                 "and causality as a boolean attn_mask (it "
                                 "computes every block)",
                 "dtype": "bfloat16", "shape": b["shape"],
+                "ptxas": kernel_lines(ptxas["blocksparse_attention"],
+                                      kernel),
                 "other": {f"{dt}/{case}": sparse[(dt, case)]
                           for dt, case in sparse
                           if (dt, case) != ("bfloat16", "main")}}
 
     kernels = {"kernels": [
         entry("paged_decode",
-              "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec, None),
+              "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec, None,
+              {"simt": "paged_decode_kernel"}, paged_paths),
         entry("paged_prefill",
               "deepspeed_tpu/ops/pallas/paged_attention.py:117", pre[128],
-              other_pre),
+              other_pre, PREFILL_KERNELS, paged_paths),
         flash_entry("flash_fwd", 150),
         flash_entry("flash_bwd_dkdv", 268),
         flash_entry("flash_bwd_dq", 326),

@@ -16,16 +16,24 @@ hand-written Hopper kernel (``csrc/blocksparse_attention.cu``), or
 raises; on CPU tensors it runs ``blocksparse_fwd_plain``, which folds
 the same key tiles in the kernel's order. What it does that the TPU
 wrapper does not:
-- Work list, not a gated grid. For each 64-row query tile the host lists
-  the 64-column key tiles that hold a visible (row, column) pair, once
-  per (layout, S, causal, device), and keeps the list on the device. A
-  kernel block walks only its tile's list, so the work scales with the
-  layout's density and no block visits an absent pair.
+- Work list, not a gated grid. For each query tile the host lists the
+  key tiles of the same width that hold a visible (row, column) pair,
+  once per (layout, S, causal, tile, device), and keeps the list on the
+  device. A kernel block walks only its tile's list, so the work scales
+  with the layout's density and no block visits an absent pair.
+- Two kernels, chosen by ``blocksparse_variant`` from type, head dim,
+  layout block, strides and alignment alone: the tensor-core kernel
+  (``wgmma`` fed by TMA, 128-wide tiles: JAX's own fold at its default
+  block of 128) for bf16 with head dim 128, a layout block that is a
+  multiple of 128, (batch, seq, head) strides that are positive
+  multiples of 8 and 16-byte aligned data; the scalar kernel (``simt``,
+  64-wide tiles) for the rest.
 - Any layout block (16 in the JAX tests, 128 by default; the ``kernels``
   config block takes powers of two). A tile is live when it holds a
   visible pair of a live layout block; where the block is not a
-  multiple of the tile, the mask inside a tile comes from the layout
-  element by element.
+  multiple of the tile, the scalar kernel takes the mask inside a tile
+  from the layout element by element (the tensor-core kernel takes only
+  blocks whose live tiles lie inside one live block).
 - Any S: the layout is built from the block-padded length, as the masked
   form builds it, and columns at or past S get an exact-zero
   probability. For S a block multiple this is JAX's kernel; for any S it
@@ -35,7 +43,8 @@ wrapper does not:
 - GQA: q head h reads kv head h // (Hq / Hkv), exactly
   ``repeat_kv_heads`` followed by the MHA function, without the copy.
 
-``LAUNCHES`` counts kernel launches (the plain version never counts).
+``LAUNCHES`` counts kernel launches (the plain version never counts);
+``VARIANT_LAUNCHES`` splits them by variant.
 """
 
 from __future__ import annotations
@@ -49,16 +58,20 @@ import torch
 
 DEFAULT_BLOCK = 128
 NEG_INF = -1e30
-TILE = 64              # query rows and key columns per kernel tile
+TILE = 64              # query rows and key columns per scalar-kernel tile
+TC_TILE = 128          # the same for the tensor-core kernel
 HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
 
 LAUNCHES: Dict[str, int] = {"blocksparse_fwd": 0}
+VARIANT_LAUNCHES: Dict[str, int] = {"blocksparse_fwd/wgmma": 0,
+                                    "blocksparse_fwd/simt": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +272,7 @@ def _expand_mask(layout: np.ndarray, block: int, seq_q: int,
 _CACHE: Dict[tuple, tuple] = {}
 
 
-def _cached(kind: str, sparsity: SparsityConfig, S: int, causal: bool,
+def _cached(kind, sparsity: SparsityConfig, S: int, causal: bool,
             device: torch.device, build):
     key = (kind, id(sparsity), S, bool(causal), str(device))
     hit = _CACHE.get(key)
@@ -342,15 +355,17 @@ def visible_pairs(layout: np.ndarray, block: int, S: int,
 
 
 class WorkList(NamedTuple):
-    """Live key tiles of each query tile. ``offsets`` [nt + 1] and
-    ``tiles`` (ascending key tiles, query tile after query tile) are
-    CSR; ``order`` lists the query tiles longest list first (the
-    kernel's launch order); ``layout`` is the padded block layout as
-    uint8 on the device, read element by element when a tile spans
-    several layout blocks."""
+    """Live key tiles of each query tile, ``tile`` rows and columns wide
+    (64 for the scalar kernel, 128 for the tensor-core one).
+    ``offsets`` [nt + 1] and ``tiles`` (ascending key tiles, query tile
+    after query tile) are CSR; ``order`` lists the query tiles longest
+    list first (the kernel's launch order); ``layout`` is the padded
+    block layout as uint8 on the device, read element by element when a
+    tile spans several layout blocks."""
 
     block: int
     causal: bool
+    tile: int
     live: np.ndarray          # [nt, nt] bool, the host copy
     offsets: torch.Tensor     # int32 [nt + 1]
     tiles: torch.Tensor       # int32 [number of live pairs]
@@ -359,21 +374,22 @@ class WorkList(NamedTuple):
     layout_host: np.ndarray   # bool [nb, nb]
 
 
-def tile_layout(layout: np.ndarray, block: int, S: int,
-                causal: bool) -> np.ndarray:
-    """[nt, nt] bool: key tile j of query tile i holds a visible pair.
-    Worked out on units of gcd(block, TILE) positions, which lie inside
-    one layout block and one tile each; causally, a unit pair holds a
-    visible pair when its column unit is not after its row unit."""
-    nt = -(-S // TILE)
-    g = math.gcd(block, TILE)
+def tile_layout(layout: np.ndarray, block: int, S: int, causal: bool,
+                tile: int = TILE) -> np.ndarray:
+    """[nt, nt] bool: key tile j of query tile i (tiles ``tile`` wide)
+    holds a visible pair. Worked out on units of gcd(block, tile)
+    positions, which lie inside one layout block and one tile each;
+    causally, a unit pair holds a visible pair when its column unit is
+    not after its row unit."""
+    nt = -(-S // tile)
+    g = math.gcd(block, tile)
     rep = block // g
     units = np.repeat(np.repeat(layout, rep, axis=0), rep, axis=1)
     units[-(-S // g):] = False     # units wholly at or past S
     units[:, -(-S // g):] = False
     if causal:
         units = units & np.tril(np.ones(units.shape, bool))
-    f = TILE // g
+    f = tile // g
     pad = np.zeros((nt * f, nt * f), bool)
     n = min(units.shape[0], nt * f)
     pad[:n, :n] = units[:n, :n]
@@ -381,12 +397,12 @@ def tile_layout(layout: np.ndarray, block: int, S: int,
 
 
 def work_list(sparsity: SparsityConfig, S: int, causal: bool,
-              device: torch.device) -> WorkList:
-    """The work list for (layout, S, causal) on ``device``, built on the
-    host once per sparsity object."""
+              device: torch.device, tile: int = TILE) -> WorkList:
+    """The work list for (layout, S, causal) at tile width ``tile`` on
+    ``device``, built on the host once per sparsity object and tile."""
     def build():
         layout = _padded_layout(sparsity, S)
-        live = tile_layout(layout, sparsity.block, S, causal)
+        live = tile_layout(layout, sparsity.block, S, causal, tile)
         counts = live.sum(axis=1)
         offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
         tiles = np.nonzero(live)[1].astype(np.int32)
@@ -395,11 +411,11 @@ def work_list(sparsity: SparsityConfig, S: int, causal: bool,
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        return WorkList(sparsity.block, bool(causal), live, dev(offsets),
-                        dev(tiles), dev(order),
+        return WorkList(sparsity.block, bool(causal), tile, live,
+                        dev(offsets), dev(tiles), dev(order),
                         dev(layout.astype(np.uint8)), layout)
 
-    return _cached("work", sparsity, S, causal, device, build)
+    return _cached(("work", tile), sparsity, S, causal, device, build)
 
 
 # ---------------------------------------------------------------------------
@@ -416,12 +432,13 @@ def _grouped(x: torch.Tensor, hkv: int) -> torch.Tensor:
 
 def blocksparse_fwd_plain(q, k, v, work: WorkList,
                           scale: float) -> torch.Tensor:
-    """The kernel's function in PyTorch: for each key tile in ascending
-    order, the query tiles whose list holds it fold it into their fp32
-    running max, denominator and accumulator (exact-zero probabilities
-    where the layout, causality or S hide a column; p rounded to the
-    input type before p @ V). Output acc / l, 0 where l == 0, in q's
-    type."""
+    """The kernels' function in PyTorch at the work list's tile width
+    (``work.tile``: 64 folds as the scalar kernel does, 128 as the
+    tensor-core one): for each key tile in ascending order, the query
+    tiles whose list holds it fold it into their fp32 running max,
+    denominator and accumulator (exact-zero probabilities where the
+    layout, causality or S hide a column; p rounded to the input type
+    before p @ V). Output acc / l, 0 where l == 0, in q's type."""
     B, S, hq, D = q.shape
     hkv = k.shape[2]
     qf, kf, vf = _grouped(q, hkv), _grouped(k, hkv), _grouped(v, hkv)
@@ -430,14 +447,14 @@ def blocksparse_fwd_plain(q, k, v, work: WorkList,
     l = torch.zeros(shape, device=q.device)
     acc = torch.zeros(qf.shape, device=q.device)
     lay = torch.from_numpy(work.layout_host).to(q.device)
-    block = work.block
+    block, tile = work.block, work.tile
     pos = torch.arange(S, device=q.device)
     for ik in range(work.live.shape[1]):
         qtiles = np.nonzero(work.live[:, ik])[0]
         if qtiles.size == 0:
             continue
-        rows = torch.cat([pos[t * TILE:(t + 1) * TILE] for t in qtiles])
-        cols = pos[ik * TILE:(ik + 1) * TILE]
+        rows = torch.cat([pos[t * tile:(t + 1) * tile] for t in qtiles])
+        cols = pos[ik * tile:(ik + 1) * tile]
         vis = lay[rows // block][:, cols // block]
         if work.causal:
             vis = vis & (cols[None, :] <= rows[:, None])
@@ -476,6 +493,9 @@ def _lib() -> ctypes.CDLL:
         lib.dstpu_blocksparse_fwd.argtypes = [I, I, P, P, P, P, P, P, P, P,
                                               P, I, I, I, I, I, I, I, F, P]
         lib.dstpu_blocksparse_fwd.restype = I
+        lib.dstpu_blocksparse_fwd_wgmma.argtypes = [P, P, P, P, P, P, P, P,
+                                                    I, I, I, I, I, F, P]
+        lib.dstpu_blocksparse_fwd_wgmma.restype = I
         lib.dstpu_cuda_error_string.argtypes = [I]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -515,6 +535,28 @@ def _use_kernel(q, k, v) -> bool:
     return True
 
 
+def blocksparse_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        sparsity: SparsityConfig,
+                        device_type: Optional[str] = None) -> str:
+    """Which kernel runs: "plain" on the CPU; on the card "wgmma" (the
+    tensor-core kernel) for bf16 q, k, v with head dim 128, a layout
+    block that is a multiple of 128 (a live 128-wide tile then lies
+    inside one live block), every (batch, seq, head) stride a positive
+    multiple of 8 elements (TMA's 16-byte strides) and 16-byte aligned
+    data, else "simt" (the scalar kernel). ``device_type`` stands in for
+    q's device (tests ask the card's rule of CPU tensors)."""
+    if (device_type or q.device.type) == "cpu":
+        return "plain"
+    ts = (q, k, v)
+    if (all(t.dtype == torch.bfloat16 for t in ts) and q.shape[-1] == 128
+            and sparsity.block % TC_TILE == 0
+            and all(st > 0 and st % 8 == 0 for t in ts
+                    for st in t.stride()[:3])
+            and all(t.data_ptr() % 16 == 0 for t in ts)):
+        return "wgmma"
+    return "simt"
+
+
 def _strides(*ts) -> ctypes.Array:
     """(batch, seq, head) element strides of q, k and v, as the kernel's
     int64 array of 9."""
@@ -523,30 +565,61 @@ def _strides(*ts) -> ctypes.Array:
 
 def blocksparse_attention_kernel(q, k, v, sparsity: SparsityConfig,
                                  causal: bool = True,
-                                 scale: Optional[float] = None
+                                 scale: Optional[float] = None,
+                                 variant: Optional[str] = None
                                  ) -> torch.Tensor:
     """Block-sparse forward, the counterpart of JAX's
     ``blocksparse_attention_pallas`` (no gradient). q: [B, S, Hq, D];
-    k, v: [B, S, Hkv, D] (GQA read in place); any S, any layout block. CUDA tensors launch the kernel; CPU tensors run
-    :func:`blocksparse_fwd_plain`."""
+    k, v: [B, S, Hkv, D] (GQA read in place); any S, any layout block.
+    CUDA tensors launch the kernel :func:`blocksparse_variant` names:
+    the tensor-core kernel where the layout block is a multiple of 128
+    (bf16, head dim 128, aligned), the scalar kernel for every other
+    block, which it masks element by element. ``variant`` ("wgmma" or
+    "simt", CUDA tensors only) overrides that choice, so that the scalar
+    kernel can run on inputs the tensor-core one takes; "wgmma" on
+    inputs it does not take raises. CPU tensors run
+    :func:`blocksparse_fwd_plain` at the scalar kernel's tile."""
     use = _use_kernel(q, k, v)
     B, S, hq, D = q.shape
     scale = float(scale if scale is not None else D ** -0.5)
-    work = work_list(sparsity, S, causal, q.device)
     if not use:
-        return blocksparse_fwd_plain(q, k, v, work, scale)
+        if variant is not None:
+            raise ValueError("a blocksparse kernel variant runs on CUDA "
+                             "tensors")
+        return blocksparse_fwd_plain(
+            q, k, v, work_list(sparsity, S, causal, q.device), scale)
+    rule = blocksparse_variant(q, k, v, sparsity)
+    variant = rule if variant is None else variant
+    if variant not in ("wgmma", "simt"):
+        raise ValueError(f"unknown blocksparse variant {variant!r}")
+    if variant == "wgmma" and rule != "wgmma":
+        raise ValueError("the tensor-core blocksparse forward takes bf16 q, "
+                         "k, v of head dim 128 with a layout block that is "
+                         "a multiple of 128 and 16-byte aligned data and "
+                         "strides")
+    tile = TC_TILE if variant == "wgmma" else TILE
+    work = work_list(sparsity, S, causal, q.device, tile)
     o = torch.empty((B, S, hq, D), dtype=q.dtype, device=q.device)
-    rc = _lib().dstpu_blocksparse_fwd(
-        _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), work.offsets.data_ptr(), work.tiles.data_ptr(),
-        work.order.data_ptr(), work.layout.data_ptr(), _strides(q, k, v), B,
-        S, hq, k.shape[2], int(causal), work.block, work.layout.shape[0],
-        scale, torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if variant == "wgmma":
+        rc = _lib().dstpu_blocksparse_fwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            work.offsets.data_ptr(), work.tiles.data_ptr(),
+            work.order.data_ptr(), _strides(q, k, v), B, S, hq, k.shape[2],
+            int(causal), scale, stream)
+    else:
+        rc = _lib().dstpu_blocksparse_fwd(
+            _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), work.offsets.data_ptr(),
+            work.tiles.data_ptr(), work.order.data_ptr(),
+            work.layout.data_ptr(), _strides(q, k, v), B, S, hq, k.shape[2],
+            int(causal), work.block, work.layout.shape[0], scale, stream)
     if rc != 0:
         msg = _lib().dstpu_cuda_error_string(rc).decode()
-        raise RuntimeError(f"blocksparse_fwd kernel launch failed: {msg} "
-                           f"({rc})")
+        raise RuntimeError(f"blocksparse_fwd kernel launch failed "
+                           f"({variant}): {msg} ({rc})")
     LAUNCHES["blocksparse_fwd"] += 1
+    VARIANT_LAUNCHES[f"blocksparse_fwd/{variant}"] += 1
     return o
 
 
@@ -556,4 +629,5 @@ __all__ = ["SparsityConfig", "DenseSparsityConfig", "FixedSparsityConfig",
            "from_config", "blocksparse_attention", "sparse_self_attention",
            "layout_density", "visible_pairs", "work_list", "tile_layout",
            "blocksparse_fwd_plain", "blocksparse_attention_kernel",
-           "LAUNCHES", "reset_launch_counts", "HEAD_DIMS", "TILE"]
+           "blocksparse_variant", "LAUNCHES", "VARIANT_LAUNCHES",
+           "reset_launch_counts", "HEAD_DIMS", "TILE", "TC_TILE"]

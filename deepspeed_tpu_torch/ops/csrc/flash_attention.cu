@@ -81,6 +81,9 @@
 // log2 e, exp2), one FFMA and one MUFU op a probability. Same function as
 // the scalar forward, with key tiles of 128 rather than 64 (the running
 // max, and so p's bf16 rounding, moves at other columns).
+// The consumer step (S = Q K^T, the softmax, P from registers, O += P V,
+// the turns) lives in attention_tc.cuh, shared with the block-sparse
+// forward and paged prefill.
 //
 // Bound on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): causal forward
 // does 4 * B * Hq * D * S(S+1)/2 flops, dK/dV twice that, dQ 1.5 times.
@@ -96,6 +99,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tc.cuh"
 #include "hopper.cuh"
 #include "tile_loop.cuh"
 
@@ -459,19 +463,19 @@ Params make_params(const void* q, const void* k, const void* v,
 
 namespace fwd_tc {
 
-constexpr int D = 128;
+using attn_tc::BAR_TURN;
+using attn_tc::BKV;
+using attn_tc::D;
+using attn_tc::HALF;
+using attn_tc::KV_BYTES;
+using attn_tc::LN2;
+using attn_tc::LOG2E;
 constexpr int BQ = 128;   // q rows a block: two consumer warpgroups of 64
-constexpr int BKV = 128;  // keys a tile
 constexpr int THREADS = 2 * 128 + 32;  // + one producer warp
-constexpr int HALF = 128 * 128;  // bytes of a [128 rows][64 d] box
 constexpr int Q_BYTES = 2 * HALF;
-constexpr int KV_BYTES = 2 * HALF;  // K or V of one tile
 constexpr int STAGE_BYTES = 2 * KV_BYTES;
 // 3 stages spill registers (ptxas) and ran slower in a development check
 constexpr int STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
-// named barriers 1 and 2: warpgroup 0's and 1's turn to issue products
-constexpr int BAR_TURN = 1;
 // 1 KB to align to the swizzle atom, Q, the ring, the barriers
 constexpr int SMEM =
     1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 3 * STAGES);
@@ -486,33 +490,6 @@ struct Args {
   // two bits each (the maps order them by stride)
   int pos_q, pos_k, pos_v;
 };
-
-// rows [s, s + the map's box rows) of head h, batch b, both 64-wide halves
-// of d, into two [rows][64] boxes `box` bytes apart (128 rows: HALF)
-__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
-                                          uint64_t* bar, int pos, int h,
-                                          int s, int b, int box = HALF) {
-  auto at = [&](int i) {
-    return (pos & 3) == i ? h : ((pos >> 2) & 3) == i ? s : b;
-  };
-  tc::tma_load_4d(dst, map, bar, 0, at(1), at(2), at(3));
-  tc::tma_load_4d(dst + box, map, bar, 64, at(1), at(2), at(3));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 }  // namespace fwd_tc
 
@@ -558,15 +535,16 @@ __global__ void __launch_bounds__(fwd_tc::THREADS, 1)
     if (threadIdx.x == 256) {
       // rows >= S zero-fill; their scores are masked as columns below
       tc::mbar_arrive_expect_tx(q_full, Q_BYTES);
-      load_rows(qs, &q_map, q_full, a.pos_q, h, row0, b);
+      attn_tc::load_rows(qs, &q_map, q_full, a.pos_q, h, row0, b);
       for (int it = 0; it < nk; ++it) {
         const int s = it % STAGES;
         if (it >= STAGES) tc::mbar_wait(&empty[s], (it / STAGES - 1) & 1);
         uint8_t* ks = ring + s * STAGE_BYTES;
         tc::mbar_arrive_expect_tx(&k_full[s], KV_BYTES);
-        load_rows(ks, &k_map, &k_full[s], a.pos_k, hk, it * BKV, b);
+        attn_tc::load_rows(ks, &k_map, &k_full[s], a.pos_k, hk, it * BKV, b);
         tc::mbar_arrive_expect_tx(&v_full[s], KV_BYTES);
-        load_rows(ks + KV_BYTES, &v_map, &v_full[s], a.pos_v, hk, it * BKV, b);
+        attn_tc::load_rows(ks + KV_BYTES, &v_map, &v_full[s], a.pos_v, hk,
+                           it * BKV, b);
       }
     }
     return;
@@ -608,21 +586,8 @@ __global__ void __launch_bounds__(fwd_tc::THREADS, 1)
     // S = Q K^T: A = Q, B = K, both K-major (d contiguous), d in two
     // 64-wide boxes of 4 k16 steps
     float sc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
     tc::mbar_wait(&k_full[s], parity);
-    tc::named_barrier(BAR_TURN + wg, 256);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        tc::wgmma<0, 0>(sc, tc::smem_desc(qw + half * HALF + kk * 32, 16, 1024),
-                        tc::smem_desc(ks + half * HALF + kk * 32, 16, 1024));
-    tc::wgmma_commit();
-    tc::named_barrier_arrive(BAR_TURN + 1 - wg, 256);
-    tc::wgmma_wait<0>();
-    tc::fence_regs(sc);
+    attn_tc::qk_scores<2>(sc, qw, HALF, ks, wg);
 
     // visibility, on the tiles that need it: the causal diagonal, the
     // tail past S, every tile with segment ids
@@ -644,64 +609,13 @@ __global__ void __launch_bounds__(fwd_tc::THREADS, 1)
           }
         }
     }
-    // fp32 online softmax; p is 0 exactly where a column is masked (while
-    // every score so far is NEG_INF, exp(s - m) would be exp(0))
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = sc[4 * j + 2 * hh + e];
-          x = (vis[hh] >> (2 * j + e) & 1u) ? x * scale2 : NEG_INF;
-          mx = fmaxf(mx, x);
-        }
-      const float mn = fmaxf(m[hh], quad_max(mx));
-      const float alpha = exp2f(m[hh] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = sc[4 * j + 2 * hh + e];
-          x = (vis[hh] >> (2 * j + e) & 1u) ? exp2f(x - mn) : 0.f;
-          sum += x;
-        }
-      l[hh] = alpha * l[hh] + quad_sum(sum);
-      m[hh] = mn;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        o[4 * j + 2 * hh] *= alpha;
-        o[4 * j + 2 * hh + 1] *= alpha;
-      }
-    }
-    // P rounded to bf16 as A registers: the S fragment's columns 16 kk ..
-    // 16 kk + 15 (groups 2 kk and 2 kk + 1) are the A fragment of the k16
-    // step kk
-    uint32_t pa[8][4];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
-
-    // O += P V: B = V, N-major (d contiguous): two 64-d boxes HALF bytes
-    // apart (LBO), the k16 step 16 keys down
+    // fp32 online softmax, P rounded to bf16 as A registers, O += P V
+    attn_tc::online_softmax(sc, vis, scale2, m, l, o);
+    uint32_t pa[1][8][4];
+    attn_tc::pack_p(sc, pa);
     tc::mbar_wait(&v_full[s], parity);
-    tc::named_barrier(BAR_TURN + wg, 256);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      tc::wgmma_rs<1>(o, pa[kk], tc::smem_desc(vs + kk * 16 * 128, HALF, 1024));
-    tc::wgmma_commit();
     // the turns balance: warpgroup 1's last hand-over has no taker
-    if (!(wg == 1 && it == nk - 1))
-      tc::named_barrier_arrive(BAR_TURN + 1 - wg, 256);
-    tc::wgmma_wait<0>();
-    tc::fence_regs(o);
+    attn_tc::pv_product<2, 1>(o, pa, vs, wg, !(wg == 1 && it == nk - 1));
     if (tid == 0) tc::mbar_arrive(&empty[s]);
   }
 
@@ -709,54 +623,14 @@ __global__ void __launch_bounds__(fwd_tc::THREADS, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int r = r_lo + 8 * hh;
     if (r >= a.S) continue;
-    const float ls = l[hh] == 0.f ? 1.f : l[hh];
-    __nv_bfloat16* out = a.out + (((long long)b * a.S + r) * a.Hq + h) * D;
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * q4) =
-          __floats2bfloat162_rn(o[4 * j + 2 * hh] / ls,
-                                o[4 * j + 2 * hh + 1] / ls);
+    attn_tc::store_row(a.out + (((long long)b * a.S + r) * a.Hq + h) * D, o,
+                       hh, l[hh], q4);
     // lse = m + log(l) in natural units; a row that sees no column keeps
     // NEG_INF + log(1), as the scalar kernel does
     if (q4 == 0)
       a.lse[((long long)b * a.Hq + h) * a.S + r] =
-          l[hh] == 0.f ? NEG_INF : m[hh] * LN2 + logf(ls);
+          l[hh] == 0.f ? NEG_INF : m[hh] * LN2 + logf(l[hh]);
   }
-}
-
-// A 4-D map {d, then head, seq and batch ordered by stride} over a bf16
-// [B, S, H, 128] tensor read at element strides st (batch, seq, head) with
-// a [rows][64 d] box; *pos gets the map dimension (1..3) of head, seq and
-// batch, two bits each.
-bool encode_bshd(tc::EncodeTiled enc, CUtensorMap* map, const void* base,
-                 int B, int S, int H, const long long* st, int rows,
-                 int* pos) {
-  long long size[3] = {H, S, B}, stride[3] = {st[2], st[1], st[0]};
-  const cuuint32_t box_of[3] = {1, (cuuint32_t)rows, 1};
-  // a dimension of size 1 is never stepped: any stride does, and the
-  // tensor's span puts it last
-  long long span = fwd_tc::D;
-  for (int i = 0; i < 3; ++i)
-    if (size[i] > 1 && stride[i] * size[i] > span) span = stride[i] * size[i];
-  for (int i = 0; i < 3; ++i)
-    if (size[i] == 1) stride[i] = span;
-  int order[3] = {0, 1, 2};
-  for (int i = 1; i < 3; ++i)
-    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
-      const int t = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = t;
-    }
-  cuuint64_t dims[4] = {fwd_tc::D}, strides[3];
-  cuuint32_t box[4] = {64};
-  *pos = 0;
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = (cuuint64_t)size[order[i]];
-    strides[i] = (cuuint64_t)stride[order[i]] * 2;
-    box[i + 1] = box_of[order[i]];
-    *pos |= (i + 1) << (2 * order[i]);
-  }
-  return tc::encode(enc, map, base, 4, dims, strides, box);
 }
 
 int launch_fwd_wgmma(const void* q, const void* k, const void* v,
@@ -767,6 +641,7 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v,
   if (enc == nullptr) return tc::ERR_NO_ENCODE;
   CUtensorMap q_map, k_map, v_map;
   fwd_tc::Args a{};
+  using attn_tc::encode_bshd;
   if (!encode_bshd(enc, &q_map, q, B, S, Hq, strides, fwd_tc::BQ,
                    &a.pos_q) ||
       !encode_bshd(enc, &k_map, k, B, S, Hkv, strides + 3, fwd_tc::BKV,
@@ -1001,8 +876,8 @@ __global__ void __launch_bounds__(bwd_tc::KV_THREADS, 1)
     if (warp == 0 && lane == 0) {
       // rows >= S zero-fill; their pairs are masked below
       tc::mbar_arrive_expect_tx(kv_full, 2 * KV_KEYS_BYTES);
-      fwd_tc::load_rows(ks, &k_map, kv_full, a.pos_k, hk, col0, b, BOX128);
-      fwd_tc::load_rows(vs, &v_map, kv_full, a.pos_v, hk, col0, b, BOX128);
+      attn_tc::load_rows(ks, &k_map, kv_full, a.pos_k, hk, col0, b, BOX128);
+      attn_tc::load_rows(vs, &v_map, kv_full, a.pos_v, hk, col0, b, BOX128);
       for (int it = 0; it < tiles; ++it) {
         const int s = it % KV_STAGES;
         if (it >= KV_STAGES) tc::mbar_wait(&empty[s], (it / KV_STAGES - 1) & 1);
@@ -1010,8 +885,8 @@ __global__ void __launch_bounds__(bwd_tc::KV_THREADS, 1)
         const int row0 = (iq0 + it % per_head) * BQ;
         uint8_t* qs = ring + s * KV_STAGE_BYTES;
         tc::mbar_arrive_expect_tx(&full[s], 2 * KV_TILE_BYTES);
-        fwd_tc::load_rows(qs, &q_map, &full[s], a.pos_q, h, row0, b, BOX64);
-        fwd_tc::load_rows(qs + KV_TILE_BYTES, &do_map, &full[s], a.pos_do, h,
+        attn_tc::load_rows(qs, &q_map, &full[s], a.pos_q, h, row0, b, BOX64);
+        attn_tc::load_rows(qs + KV_TILE_BYTES, &do_map, &full[s], a.pos_do, h,
                           row0, b, BOX64);
       }
     } else if (warp == 1) {
@@ -1116,9 +991,9 @@ __global__ void __launch_bounds__(bwd_tc::KV_THREADS, 1)
         }
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
-        pa[kk][w] = fwd_tc::pack_bf16(st[8 * kk + 2 * w],
+        pa[kk][w] = attn_tc::pack_bf16(st[8 * kk + 2 * w],
                                       st[8 * kk + 2 * w + 1]);
-        da[kk][w] = fwd_tc::pack_bf16(dpt[8 * kk + 2 * w],
+        da[kk][w] = attn_tc::pack_bf16(dpt[8 * kk + 2 * w],
                                       dpt[8 * kk + 2 * w + 1]);
       }
     }
@@ -1194,16 +1069,16 @@ __global__ void __launch_bounds__(bwd_tc::Q_THREADS, 1)
     if (threadIdx.x == 256) {
       // rows >= S zero-fill; their pairs are masked below
       tc::mbar_arrive_expect_tx(q_full, 2 * Q_ROWS_BYTES);
-      fwd_tc::load_rows(qs, &q_map, q_full, a.pos_q, h, row0, b, BOX128);
-      fwd_tc::load_rows(dos, &do_map, q_full, a.pos_do, h, row0, b, BOX128);
+      attn_tc::load_rows(qs, &q_map, q_full, a.pos_q, h, row0, b, BOX128);
+      attn_tc::load_rows(dos, &do_map, q_full, a.pos_do, h, row0, b, BOX128);
       for (int it = 0; it < nk; ++it) {
         const int s = it % Q_STAGES;
         if (it >= Q_STAGES) tc::mbar_wait(&empty[s], (it / Q_STAGES - 1) & 1);
         uint8_t* kst = ring + s * Q_STAGE_BYTES;
         tc::mbar_arrive_expect_tx(&full[s], Q_STAGE_BYTES);
-        fwd_tc::load_rows(kst, &k_map, &full[s], a.pos_k, hk, it * BQ, b,
+        attn_tc::load_rows(kst, &k_map, &full[s], a.pos_k, hk, it * BQ, b,
                           BOX64);
-        fwd_tc::load_rows(kst + 2 * BOX64, &v_map, &full[s], a.pos_v, hk,
+        attn_tc::load_rows(kst + 2 * BOX64, &v_map, &full[s], a.pos_v, hk,
                           it * BQ, b, BOX64);
       }
     }
@@ -1287,7 +1162,7 @@ __global__ void __launch_bounds__(bwd_tc::Q_THREADS, 1)
           }
 #pragma unroll
       for (int w = 0; w < 4; ++w)
-        da[kk][w] = fwd_tc::pack_bf16(dp[8 * kk + 2 * w],
+        da[kk][w] = attn_tc::pack_bf16(dp[8 * kk + 2 * w],
                                       dp[8 * kk + 2 * w + 1]);
     }
 
@@ -1330,6 +1205,7 @@ int launch_bwd_wgmma(int kind, const void* q, const void* k, const void* v,
   const int q_rows = kind == 1 ? BQ : Q_BQ, kv_rows = kind == 1 ? KV_BK : BQ;
   CUtensorMap q_map, k_map, v_map, do_map;
   Args a{};
+  using attn_tc::encode_bshd;
   if (!encode_bshd(enc, &q_map, q, B, S, Hq, strides, q_rows, &a.pos_q) ||
       !encode_bshd(enc, &k_map, k, B, S, Hkv, strides + 3, kv_rows,
                    &a.pos_k) ||

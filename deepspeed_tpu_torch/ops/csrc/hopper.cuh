@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// grouped_matmul.cu (gmm, gmm^T, tgmm) and flash_attention.cu (the
-// forward, dK/dV and dQ): mbarriers, TMA tile loads (2-D to 4-D) into
-// 128-byte-swizzled shared memory, wgmma shared-memory descriptors, the
-// wgmma wrappers (fp32 += bf16 x bf16 at n64, n128 and n256; both operands
-// from shared memory, or A from registers), the warpgroup register
-// hand-over (setmaxnreg), and the host-side tensor-map encoder. Header
-// only; every name lives in namespace tc.
+// grouped_matmul.cu (gmm, gmm^T, tgmm), flash_attention.cu (the forward,
+// dK/dV and dQ), blocksparse_attention.cu and paged_attention.cu (the
+// last two and the flash forward also through attention_tc.cuh):
+// mbarriers, TMA tile loads (2-D to 4-D) into 128-byte-swizzled shared
+// memory, wgmma shared-memory descriptors, the wgmma wrappers (fp32 +=
+// bf16 x bf16 at n64, n128 and n256; both operands from shared memory, or
+// A from registers), the warpgroup register hand-over (setmaxnreg), and
+// the host-side tensor-map encoder. Header only; every name lives in
+// namespace tc.
 //
 // Swizzled operand layouts (128-byte swizzle: a row of 64 bf16 is one
 // 128-byte swizzle row, eight rows one 1024-byte atom):

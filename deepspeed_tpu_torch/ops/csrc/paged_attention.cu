@@ -1,8 +1,14 @@
 // Paged decode and paged (chunked) prefill attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/pallas/paged_attention.py:
-//   paged_decode_kernel  <- _kernel         (:77,  pallas_call in paged_decode_attention  :312)
-//   paged_prefill_kernel <- _prefill_kernel (:117, pallas_call in paged_prefill_attention :238)
+//   paged_decode_kernel  <- _kernel (:77, pallas_call in
+//                           paged_decode_attention :312)
+//   paged_prefill_wgmma_kernel <- _prefill_kernel (:117, pallas_call in
+//                           paged_prefill_attention :238), bf16 with head
+//                           dim 128, block sizes of 8 to 128 that divide
+//                           128, a group that divides 128, 16-byte
+//                           aligned data
+//   paged_prefill_kernel <- the same, for fp32 and the rest
 //
 // What they compute (the TPU kernels' function, not their block structure):
 // each (sequence, kv head) walks its block-table pages in ascending order
@@ -37,7 +43,44 @@
 // column a tile can see are not read at all; folding a fully masked page
 // leaves (m, l, acc) unchanged, so skipping it is exact.
 // All arithmetic is scalar fp32 FMA on the CUDA cores; no tensor cores,
-// no TMA, no split over pages. That is the simple first version.
+// no TMA, no split over pages. That is the simple first version; decode
+// and every prefill the tensor-core kernel does not take still run it.
+//
+// The tensor-core prefill (paged_prefill_wgmma_kernel): one block per
+// (tile of 128 query rows, kv head, segment), two consumer warpgroups of
+// 64 rows and one producer warp; where a segment's Tq * g rows fit in 64
+// (decode-sized chunks), a 64-row block of one consumer warpgroup, so
+// that half the block does not idle. The consumer step is
+// attention_tc.cuh's (the flash forward's): S = Q K^T on wgmma, the fp32
+// online softmax in log2 units on the fragment, O += P V from registers.
+//   Q by TMA through a map over q [S, Tq, nh, hd] as (d, head, query,
+//     segment) with box (64 d, g heads, rows / g queries, 1): the box
+//     lands the tile's rows in the kernel's row order (query-major,
+//     group-minor); queries past Tq are zero-filled.
+//   K and V by TMA one page at a time, through a map over the layer pool
+//     as (d, kv head, plane, token = nb * bs) with box (64, 1, 1, bs):
+//     the producer reads the block table (page ids clamped to [0, nb - 1]
+//     as above) and loads token row page * bs, 128 / bs pages x 2 d
+//     halves for a 128-key tile. The 128-byte swizzle is a function of
+//     the shared-memory address, and each page box starts on a
+//     1024-byte swizzle atom (bs % 8 == 0), so the stacked page boxes are
+//     byte for byte one [128][64] swizzled box and the forward's wgmma
+//     descriptors apply unchanged. Slots of a tile past the last page any
+//     row sees reload that page: its columns are masked, with p exactly 0
+//     (pool entries are finite: the pool starts zeroed).
+//   Key tiles run up to min(ctx, pos0 + the tile's last query + 1,
+//     Bm * bs); the mask (col <= qpos, col < min(ctx, Bm * bs)) is applied
+//     only on the tiles that reach past the first row's qpos or that
+//     limit.
+//   p stays fp32, as in the TPU kernel (it does not round p before p @ V,
+//     unlike the flash and block-sparse kernels): p = hi + lo with both
+//     parts bf16, and O += hi V + lo V, two register-A products against
+//     the same V tile. hi + lo carries ~16 of p's 24 bits (relative error
+//     ~2^-17), beyond fp32 rounding but far inside the bf16 output's
+//     rounding; the cost is twice the P V products in a kernel bound by
+//     bytes and latency, not operations.
+//   O / l is written from the fragment in bf16 pairs, rows past Tq * g
+//     skipped, 0 where l == 0.
 //
 // Bound on the H100 (80 GB HBM3 at 3.35 TB/s; 989 TFLOP/s bf16 dense):
 //   decode reads sum(ctx) * 2 * nkv * hd elements of K/V per layer and does
@@ -52,6 +95,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tc.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -381,6 +427,205 @@ int launch(void (*kernel)(Params), dim3 grid, int threads, const Params& p,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the prefill on the tensor cores (bf16, hd 128): wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace pp_tc {
+
+using attn_tc::BKV;
+using attn_tc::D;
+using attn_tc::HALF;
+using attn_tc::KV_BYTES;
+constexpr int STAGES = 2;
+
+// NWG consumer warpgroups of 64 query rows and one producer warp
+template <int NWG>
+struct Shape {
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int THREADS = 128 * NWG + 32;
+  static constexpr int Q_HALF = BQ * 128;  // bytes of a [BQ][64 d] box
+  static constexpr int Q_BYTES = 2 * Q_HALF;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // 1 KB to align to the swizzle atom, Q, the ring, the barriers
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 3 * STAGES);
+};
+
+struct Args {
+  const int* block_table;  // [S, Bm]
+  const int* pos0;         // [S]
+  const int* ctx;          // [S]
+  __nv_bfloat16* out;      // [S, Tq, nh, hd]
+  int tq, nh, nkv, nb, bs, Bm;
+  float scale;
+};
+
+}  // namespace pp_tc
+
+template <int NWG>
+__global__ void __launch_bounds__(pp_tc::Shape<NWG>::THREADS, 1)
+    paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap kv_map,
+                               const pp_tc::Args a) {
+  using namespace pp_tc;
+  using Sh = Shape<NWG>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = qs + Sh::Q_BYTES;
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(ring + STAGES * Sh::STAGE_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int kvh = blockIdx.y, s = blockIdx.z;
+  const int g = a.nh / a.nkv, rows = a.tq * g;
+  const int row0 = blockIdx.x * Sh::BQ;
+  const int pos0 = a.pos0[s], ctx = a.ctx[s];
+  // columns past the block table's Bm pages are never visited (as in the
+  // TPU kernel's grid); the tile's last row sees up to pos0 + its query
+  const int lim = min(ctx, a.Bm * a.bs);
+  const int last_row = min(row0 + Sh::BQ, rows) - 1;
+  const int col_end = max(0, min(lim, pos0 + last_row / g + 1));
+  const int nk = (col_end + BKV - 1) / BKV;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      tc::mbar_init(&k_full[st], 1);
+      tc::mbar_init(&v_full[st], 1);
+      tc::mbar_init(&empty[st], NWG);
+    }
+    tc::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NWG) {  // producer warp
+    const int lane = threadIdx.x % 32;
+    if (nk == 0) return;
+    if (lane == 0) {
+      tc::mbar_arrive_expect_tx(q_full, Sh::Q_BYTES);
+      tc::tma_load_4d(qs, &q_map, q_full, 0, kvh * g, row0 / g, s);
+      tc::tma_load_4d(qs + Sh::Q_HALF, &q_map, q_full, 64, kvh * g,
+                      row0 / g, s);
+    }
+    const int ppt = BKV / a.bs;                     // pages a tile
+    const int last_page = (col_end - 1) / a.bs;     // the last one seen
+    const int* bt = a.block_table + (long long)s * a.Bm;
+    for (int it = 0; it < nk; ++it) {
+      const int st = it % STAGES;
+      if (it >= STAGES) tc::mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+      uint8_t* ks = ring + st * Sh::STAGE_BYTES;
+      uint8_t* vs = ks + KV_BYTES;
+      if (lane == 0) {
+        tc::mbar_arrive_expect_tx(&k_full[st], KV_BYTES);
+        tc::mbar_arrive_expect_tx(&v_full[st], KV_BYTES);
+      }
+      __syncwarp();
+      // lane p loads page slot p of the tile: 128 / bs slots of bs rows
+      for (int p = lane; p < ppt; p += 32) {
+        const int j = min(it * ppt + p, last_page);
+        const int tok = min(max(bt[j], 0), a.nb - 1) * a.bs;
+        const int off = p * a.bs * 128;
+        tc::tma_load_4d(ks + off, &kv_map, &k_full[st], 0, kvh, 0, tok);
+        tc::tma_load_4d(ks + HALF + off, &kv_map, &k_full[st], 64, kvh, 0,
+                        tok);
+        tc::tma_load_4d(vs + off, &kv_map, &v_full[st], 0, kvh, 1, tok);
+        tc::tma_load_4d(vs + HALF + off, &kv_map, &v_full[st], 64, kvh, 1,
+                        tok);
+      }
+    }
+    return;
+  }
+
+  // the m64n128k16 fragment (attention_tc.cuh): rows r_lo and r_lo + 8 of
+  // the segment's query-major, group-minor rows; row r is query r / g
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
+  const int q4 = lane % 4;
+  const int row_first = row0 + 64 * wg;
+  const int r_lo = row_first + (tid / 32) * 16 + lane / 4;
+  // the absolute position of each row's query; rows past Tq * g see
+  // nothing
+  int qpos[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r_lo + 8 * hh;
+    qpos[hh] = r < rows ? pos0 + r / g : -1;
+  }
+  const int qpos_first = row_first < rows ? pos0 + row_first / g : -1;
+  const float scale2 = a.scale * attn_tc::LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  const uint8_t* qw = qs + wg * 64 * 128;  // this warpgroup's rows
+  if (nk > 0) {
+    tc::mbar_wait(q_full, 0);
+    // 0 goes first
+    if (NWG == 2 && wg == 1)
+      tc::named_barrier_arrive(attn_tc::BAR_TURN, 256);
+  }
+
+  for (int it = 0; it < nk; ++it) {
+    const int st = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    const int col0 = it * BKV;
+    const uint8_t* ks = ring + st * Sh::STAGE_BYTES;
+    const uint8_t* vs = ks + KV_BYTES;
+
+    float sc[64];
+    tc::mbar_wait(&k_full[st], parity);
+    attn_tc::qk_scores<NWG>(sc, qw, Sh::Q_HALF, ks, wg);
+    // visibility on the tiles that reach past the first row's position
+    // or the context
+    uint32_t vis[2] = {~0u, ~0u};
+    if (col0 + BKV - 1 > qpos_first || col0 + BKV > lim) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + 8 * j + 2 * q4 + e;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            if (!(col < lim && col <= qpos[hh]))
+              vis[hh] &= ~(1u << (2 * j + e));
+        }
+    }
+    attn_tc::online_softmax(sc, vis, scale2, m, l, o);
+    uint32_t pa[2][8][4];
+    attn_tc::pack_p_split(sc, pa);  // p stays fp32 as hi + lo
+    tc::mbar_wait(&v_full[st], parity);
+    attn_tc::pv_product<NWG, 2>(o, pa, vs, wg, !(wg == 1 && it == nk - 1));
+    if (tid == 0) tc::mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r_lo + 8 * hh;
+    if (r < rows)
+      attn_tc::store_row(
+          a.out + (((long long)s * a.tq + r / g) * a.nh + kvh * g + r % g) * D,
+          o, hh, l[hh], q4);
+  }
+}
+
+template <int NWG>
+int launch_prefill_wgmma(const CUtensorMap& q_map, const CUtensorMap& kv_map,
+                         const pp_tc::Args& a, int S, cudaStream_t stream) {
+  using Sh = pp_tc::Shape<NWG>;
+  const int rows = a.tq * (a.nh / a.nkv);
+  const cudaError_t e = cudaFuncSetAttribute(
+      paged_prefill_wgmma_kernel<NWG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((rows + Sh::BQ - 1) / Sh::BQ, a.nkv, S);
+  paged_prefill_wgmma_kernel<NWG><<<grid, Sh::THREADS, Sh::SMEM, stream>>>(
+      q_map, kv_map, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
@@ -426,6 +671,46 @@ extern "C" int dstpu_paged_prefill(int dtype, const void* q, const void* kv,
   return (int)cudaErrorInvalidValue;
 }
 
+// The tensor-core prefill: bf16 q [S, Tq, nh, 128] and pool
+// [nb, bs, 2, nkv, 128], both contiguous and 16-byte aligned, bs in
+// {8, 16, 32, 64, 128}, g = nh / nkv dividing 128 (the wrapper checks all
+// of it). Returns a cudaError_t or one of hopper.cuh's negative
+// tensor-map codes (0 = launched).
+extern "C" int dstpu_paged_prefill_wgmma(const void* q, const void* kv,
+                                         const void* block_table,
+                                         const void* pos0, const void* ctx,
+                                         void* out, int S, int tq, int nh,
+                                         int nkv, int nb, int bs, int Bm,
+                                         float scale, void* stream) {
+  if (S == 0 || tq == 0) return 0;
+  const tc::EncodeTiled enc = tc::encode_tiled();
+  if (enc == nullptr) return tc::ERR_NO_ENCODE;
+  const int g = nh / nkv;
+  // 128-row tiles, or one 64-row tile where the segment's rows fit in it
+  const int nwg = tq * g <= 64 ? 1 : 2;
+  const cuuint64_t row = (cuuint64_t)pp_tc::D * 2;  // bytes of a head row
+  CUtensorMap q_map, kv_map;
+  const cuuint64_t q_dims[4] = {pp_tc::D, (cuuint64_t)nh, (cuuint64_t)tq,
+                                (cuuint64_t)S};
+  const cuuint64_t q_strides[3] = {row, row * nh, row * nh * tq};
+  const cuuint32_t q_box[4] = {64, (cuuint32_t)g, (cuuint32_t)(64 * nwg / g),
+                               1};
+  const cuuint64_t kv_dims[4] = {pp_tc::D, (cuuint64_t)nkv, 2,
+                                 (cuuint64_t)nb * bs};
+  const cuuint64_t kv_strides[3] = {row, row * nkv, row * nkv * 2};
+  const cuuint32_t kv_box[4] = {64, 1, 1, (cuuint32_t)bs};
+  if (!tc::encode(enc, &q_map, q, 4, q_dims, q_strides, q_box) ||
+      !tc::encode(enc, &kv_map, kv, 4, kv_dims, kv_strides, kv_box))
+    return tc::ERR_TENSOR_MAP;
+  pp_tc::Args a{static_cast<const int*>(block_table),
+                static_cast<const int*>(pos0), static_cast<const int*>(ctx),
+                static_cast<__nv_bfloat16*>(out), tq, nh, nkv, nb, bs, Bm,
+                scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return nwg == 1 ? launch_prefill_wgmma<1>(q_map, kv_map, a, S, st)
+                  : launch_prefill_wgmma<2>(q_map, kv_map, a, S, st);
+}
+
 extern "C" const char* dstpu_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return tc::error_string(code);
 }

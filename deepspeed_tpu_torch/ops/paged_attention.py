@@ -7,12 +7,20 @@ CPU tensors it runs the plain PyTorch version beside it, which folds the
 pages in the kernel's order. There is no other path: no fallback when a
 build or a launch fails.
 
+Prefill has two kernels, chosen by ``paged_prefill_variant`` from type,
+shapes and alignment alone: the tensor-core kernel (``wgmma`` fed by TMA)
+for bf16 q and pool with head dim 128, a block size of 8 to 128 that
+divides 128, a query group (num_heads / kv_heads) that divides 128 and
+16-byte aligned data; the scalar kernel (``simt``) for the rest. Decode
+has the scalar kernel only.
+
 Layout (as ``inference/ragged/kv_cache.py``): one layer's pool is
 ``kv[num_blocks, block_size, 2, kv_heads, head_dim]`` with K in plane 0
 and V in plane 1.
 
 ``LAUNCHES`` counts kernel launches per kernel (the plain version never
-counts), so a run can show that its main path went through the kernels.
+counts), so a run can show that its main path went through the kernels;
+``VARIANT_LAUNCHES`` splits the prefill launches by variant.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import torch
 NEG_INF = -1e30
 
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_prefill": 0}
+VARIANT_LAUNCHES: Dict[str, int] = {"paged_prefill/wgmma": 0,
+                                    "paged_prefill/simt": 0}
 
 # query rows per prefill thread block, and tokens read per chunk
 _PREFILL_ROWS = 64
@@ -35,8 +45,32 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def paged_prefill_variant(q: torch.Tensor, kv_layer: torch.Tensor,
+                          device_type: Optional[str] = None) -> str:
+    """Which prefill kernel runs on q [S, Tq, nh, hd] and the layer pool
+    [nb, bs, 2, nkv, hd]: "plain" on the CPU; on the card "wgmma" (the
+    tensor-core kernel) for bf16 q and pool with hd 128, bs in {8, 16,
+    32, 64, 128} (TMA page boxes stacked on 1024-byte swizzle atoms),
+    nh / nkv dividing 128 (a tile's rows are whole queries), both
+    contiguous and 16-byte aligned, else "simt" (the scalar kernel).
+    ``device_type`` stands in for q's device (tests ask the card's rule
+    of CPU tensors)."""
+    if (device_type or q.device.type) == "cpu":
+        return "plain"
+    bs, nkv, hd = kv_layer.shape[1], kv_layer.shape[3], kv_layer.shape[4]
+    g = q.shape[2] // nkv
+    if (q.dtype == kv_layer.dtype == torch.bfloat16 and hd == 128
+            and q.shape[-1] == hd and bs % 8 == 0 and 128 % bs == 0
+            and g > 0 and 128 % g == 0
+            and q.is_contiguous() and kv_layer.is_contiguous()
+            and q.data_ptr() % 16 == 0 and kv_layer.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "simt"
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +170,9 @@ def _lib() -> ctypes.CDLL:
         lib.dstpu_paged_prefill.argtypes = [
             I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P]
         lib.dstpu_paged_prefill.restype = I
+        lib.dstpu_paged_prefill_wgmma.argtypes = [
+            P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
+        lib.dstpu_paged_prefill_wgmma.restype = I
         lib.dstpu_cuda_error_string.argtypes = [I]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -227,7 +264,8 @@ def paged_prefill_attention(q: torch.Tensor, kv_layer: torch.Tensor,
                             seg_pos0: torch.Tensor,
                             context_lens: torch.Tensor,
                             scale: Optional[float] = None,
-                            pages_per_compute_block: int = 1
+                            pages_per_compute_block: int = 1,
+                            variant: Optional[str] = None
                             ) -> torch.Tensor:
     """Chunked-prefill attention over paged KV (SplitFuse chunk step).
 
@@ -244,7 +282,11 @@ def paged_prefill_attention(q: torch.Tensor, kv_layer: torch.Tensor,
 
     ``pages_per_compute_block`` is accepted for signature parity (see
     :func:`paged_decode_attention`). Unlike the TPU kernel, Tq * group
-    need not be a multiple of 8: the Hopper kernel tiles query rows.
+    need not be a multiple of 8: the Hopper kernels tile query rows.
+    ``variant`` ("wgmma" or "simt", CUDA tensors only) overrides
+    :func:`paged_prefill_variant`'s choice, so that the scalar kernel can
+    run on inputs the tensor-core one takes; "wgmma" on inputs it does
+    not take raises.
 
     Returns [S, Tq, num_heads, head_dim] in q.dtype.
     """
@@ -254,16 +296,33 @@ def paged_prefill_attention(q: torch.Tensor, kv_layer: torch.Tensor,
         scale = 1.0 / math.sqrt(hd)
     if not _check_common(q, kv_layer, block_table, (seg_pos0, context_lens),
                          nh):
+        if variant is not None:
+            raise ValueError("a prefill kernel variant runs on CUDA tensors")
         return paged_prefill_attention_plain(q, kv_layer, block_table,
                                              seg_pos0, context_lens, scale)
+    rule = paged_prefill_variant(q, kv_layer)
+    variant = rule if variant is None else variant
+    if variant not in ("wgmma", "simt"):
+        raise ValueError(f"unknown paged prefill variant {variant!r}")
+    if variant == "wgmma" and rule != "wgmma":
+        raise ValueError("the tensor-core prefill takes bf16 q and pool of "
+                         "head dim 128, block size 8 to 128 dividing 128, a "
+                         "query group dividing 128 and 16-byte aligned data")
     nb, bs, _, nkv, _ = kv_layer.shape
     out = torch.empty_like(q)
-    rc = _lib().dstpu_paged_prefill(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), kv_layer.data_ptr(),
-        block_table.data_ptr(), seg_pos0.data_ptr(), context_lens.data_ptr(),
-        out.data_ptr(), S, tq, nh, nkv, hd, nb, bs, block_table.shape[1],
-        _PREFILL_ROWS, max(1, _PREFILL_CHUNK_TOKENS // bs), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "paged_prefill")
+    ptrs = (q.data_ptr(), kv_layer.data_ptr(), block_table.data_ptr(),
+            seg_pos0.data_ptr(), context_lens.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if variant == "wgmma":
+        rc = _lib().dstpu_paged_prefill_wgmma(
+            *ptrs, S, tq, nh, nkv, nb, bs, block_table.shape[1],
+            float(scale), stream)
+    else:
+        rc = _lib().dstpu_paged_prefill(
+            _DTYPE_CODE[q.dtype], *ptrs, S, tq, nh, nkv, hd, nb, bs,
+            block_table.shape[1], _PREFILL_ROWS,
+            max(1, _PREFILL_CHUNK_TOKENS // bs), float(scale), stream)
+    _raise_on(rc, f"paged_prefill ({variant})")
     LAUNCHES["paged_prefill"] += 1
+    VARIANT_LAUNCHES[f"paged_prefill/{variant}"] += 1
     return out

@@ -159,16 +159,25 @@ def test_one_call_form_and_density():
 # -- the kernel's plain version ------------------------------------------------
 
 
+@pytest.mark.parametrize("tile", [bs.TILE, bs.TC_TILE])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("block,S,mode", [
     (16, 64, "fixed"), (16, 64, "longformer"), (16, 128, "bigbird"),
     (16, 64, "variable"), (128, 256, "fixed"), (128, 256, "dense")])
-def test_plain_kernel_version_matches_jax_pallas(block, S, mode, causal):
+def test_plain_kernel_version_matches_jax_pallas(block, S, mode, causal,
+                                                 tile):
+    """The plain version at the scalar kernel's fold (64, what the
+    wrapper runs on CPU tensors) and at the tensor-core kernel's (128)
+    against JAX's kernel in interpret mode."""
     q, k, v = _qkv(13, B=1, S=S, Nq=2, Nkv=2, D=32)
     kw = {"num_local_blocks": 2} if mode == "fixed" else {}
     ours, theirs = _pair(mode, block=block, **kw)
-    got = bs.blocksparse_attention_kernel(*_torch(q, k, v), ours,
-                                          causal=causal)
+    if tile == bs.TILE:
+        got = bs.blocksparse_attention_kernel(*_torch(q, k, v), ours,
+                                              causal=causal)
+    else:
+        work = bs.work_list(ours, S, causal, torch.device("cpu"), tile)
+        got = bs.blocksparse_fwd_plain(*_torch(q, k, v), work, 32 ** -0.5)
     want = jbs.blocksparse_attention_pallas(
         *(jnp.asarray(x) for x in (q, k, v)), theirs, causal=causal)
     assert got.dtype == torch.float32 and got.shape == q.shape
@@ -238,17 +247,24 @@ def _element_mask(layout, block, S, causal):
     return m & np.tril(np.ones((S, S), bool)) if causal else m
 
 
+@pytest.mark.parametrize("tile", [bs.TILE, bs.TC_TILE])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("block", [4, 16, 48, 64, 96, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
-def test_work_list_holds_exactly_the_live_tiles(block, causal):
+def test_work_list_holds_exactly_the_live_tiles(block, causal, mode, tile):
+    """At either kernel's tile width, every layout mode, causal and not:
+    a tile is listed exactly when it holds a visible (row, column)
+    pair."""
     for S in (64, 200, 383, 512):
-        cfg = bs.BigBirdSparsityConfig(block=block, num_random_blocks=1)
-        work = bs.work_list(cfg, S, causal, torch.device("cpu"))
+        kw = {"num_random_blocks": 1} if mode == "bigbird" else {}
+        cfg = bs.make_sparsity_config(mode, block=block, **kw)
+        work = bs.work_list(cfg, S, causal, torch.device("cpu"), tile)
+        assert work.tile == tile
         mask = _element_mask(work.layout_host, block, S, causal)
-        nt = -(-S // bs.TILE)
-        pad = np.zeros((nt * bs.TILE, nt * bs.TILE), bool)
+        nt = -(-S // tile)
+        pad = np.zeros((nt * tile, nt * tile), bool)
         pad[:S, :S] = mask
-        want = pad.reshape(nt, bs.TILE, nt, bs.TILE).any(axis=(1, 3))
+        want = pad.reshape(nt, tile, nt, tile).any(axis=(1, 3))
         np.testing.assert_array_equal(work.live, want, err_msg=str(S))
         offs, tiles = work.offsets.numpy(), work.tiles.numpy()
         for i in range(nt):
@@ -266,6 +282,57 @@ def test_work_list_is_cached_per_layout_object():
     assert bs.work_list(cfg, 128, True, torch.device("cpu")) is a
     assert bs.work_list(bs.FixedSparsityConfig(block=16), 128, True,
                         torch.device("cpu")) is not a
+    # the tile width is part of the key: each kernel's list is its own
+    wide = bs.work_list(cfg, 128, True, torch.device("cpu"), bs.TC_TILE)
+    assert wide is not a and (a.tile, wide.tile) == (bs.TILE, bs.TC_TILE)
+    assert wide.live.shape == (1, 1) and a.live.shape == (2, 2)
+    assert bs.work_list(cfg, 128, True, torch.device("cpu"),
+                        bs.TC_TILE) is wide
+    assert bs.work_list(cfg, 128, True, torch.device("cpu"), bs.TILE) is a
+
+
+def _variant_views(dtype, D, view):
+    """q, k, v [1, 256, H, D] CPU tensors: contiguous, a head slice of a
+    fused projection (strides multiples of 8), a [B, H, S, D] tensor read
+    as [B, S, H, D], or each a contiguous view 2 bytes off a 16-byte
+    boundary."""
+    if view == "head-slice":
+        fused = torch.zeros(1, 256, 6, D, dtype=dtype)
+        return fused[:, :, :4], fused[:, :, 4:5], fused[:, :, 5:]
+    if view == "bhsd":
+        return tuple(torch.zeros(1, h, 256, D, dtype=dtype).transpose(1, 2)
+                     for h in (4, 1, 1))
+    shapes = [(1, 256, h, D) for h in (4, 1, 1)]
+    if view == "misaligned":
+        return tuple(torch.zeros(int(np.prod(sh)) + 1, dtype=dtype)[1:]
+                     .view(sh) for sh in shapes)
+    return tuple(torch.zeros(sh, dtype=dtype) for sh in shapes)
+
+
+@pytest.mark.parametrize("view", ["contiguous", "head-slice", "bhsd",
+                                  "misaligned"])
+@pytest.mark.parametrize("block", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_blocksparse_variant_rule(dtype, D, block, view):
+    """The card's rule, asked of CPU tensors: the tensor-core kernel for
+    bf16 at head dim 128 with a layout block that is a multiple of 128,
+    16-byte strides and aligned data; the scalar kernel otherwise; the
+    plain version on the CPU itself."""
+    q, k, v = _variant_views(dtype, D, view)
+    cfg = bs.FixedSparsityConfig(block=block)
+    want = ("wgmma" if dtype == torch.bfloat16 and D == 128
+            and block % 128 == 0 and view != "misaligned" else "simt")
+    assert bs.blocksparse_variant(q, k, v, cfg, device_type="cuda") == want
+    assert bs.blocksparse_variant(q, k, v, cfg) == "plain"
+
+
+def test_blocksparse_variant_override_is_for_the_card():
+    q, k, v = _torch(*_qkv(19, S=64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bs.blocksparse_attention_kernel(q, k, v,
+                                        bs.FixedSparsityConfig(block=16),
+                                        variant="simt")
 
 
 def test_wrapper_checks_shapes():

@@ -28,7 +28,14 @@ The bf16 flash kernels at head dim 128 (forward, dK/dV, dQ) and the
 bf16 tgmm take the tensor-core kernels (wgmma fed by TMA); they are held
 to the same tolerances, must say so in their variant counters, read q,
 k, v (and dO) views in place, give the same bits on a second launch, and
-tgmm must ignore rows of the neighbouring groups poisoned with 1e30.
+tgmm must ignore rows of the neighbouring groups poisoned with 1e30. So
+do the bf16 paged prefill (block sizes 8, 16 and 32, Tq 16 and 128, a
+dead segment, padded rows, a context at the table's end; the scalar
+kernel forced on the same inputs agrees too, and block size 4 or a
+misaligned q take it by the rule) and the bf16 block-sparse forward at
+layout blocks that are multiples of 128 (against the plain version at
+its 128-wide fold; head-slice and [B, H, S, D] views; the main path's S
+8192 shape; an empty row).
 
 Tolerances: fp32 max-abs 1e-4 (the two sum in different orders); bf16
 2e-2, one bf16 rounding of outputs of magnitude up to ~4 (both round an
@@ -107,13 +114,88 @@ def test_prefill_kernel_matches_plain(card, dtype, tq):
     pos0 = torch.from_numpy(pos0_np).to(card)
     ctx = torch.from_numpy(pos0_np + nreal).to(card)
     before = pa.LAUNCHES["paged_prefill"]
+    variants = dict(pa.VARIANT_LAUNCHES)
     out = pa.paged_prefill_attention(q, kv, bt, pos0, ctx)
     torch.cuda.synchronize()
     assert pa.LAUNCHES["paged_prefill"] == before + 1
+    # bf16 at hd 128 and block size 16 takes the tensor-core kernel
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert {k: pa.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
+        f"paged_prefill/{v}": int(v == want) for v in ("wgmma", "simt")}
     ref = pa.paged_prefill_attention_plain(q, kv, bt, pos0, ctx, HD ** -0.5)
     assert torch.isfinite(out).all() and torch.all(out[1] == 0)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= ATOL[dtype], err
+
+
+def _prefill_case(dev, tq, bs, seed):
+    """bf16 pool of block size bs (the same 768-token table span at every
+    bs), four segments: ragged, a dead one, padded rows, and one whose
+    context is the table's whole span (ctx = Bm * bs)."""
+    bm = BM * BS // bs
+    rng = np.random.default_rng(seed)
+    nb = 4 * bm + 8
+    kv = torch.from_numpy(rng.standard_normal(
+        (nb, bs, 2, NKV, HD), np.float32)).to(dev, torch.bfloat16)
+    bt = torch.from_numpy(rng.permutation(nb)[:4 * bm].reshape(4, bm)
+                          .astype(np.int32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((4, tq, NH, HD), np.float32)).to(
+        dev, torch.bfloat16)
+    pos0_np = np.array([rng.integers(0, bm * bs - tq), 0, 37,
+                        bm * bs - tq], np.int32)
+    nreal = np.array([tq, 0, tq - 5, tq], np.int32)
+    pos0 = torch.from_numpy(pos0_np).to(dev)
+    ctx = torch.from_numpy(pos0_np + nreal).to(dev)
+    return q, kv, bt, pos0, ctx
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("tq", [16, 128])
+def test_tensor_core_prefill_matches_plain_and_simt(card, tq, bs):
+    """The tensor-core prefill at block sizes 8, 16 and 32 against its
+    plain version and against the scalar kernel forced on the same bf16
+    inputs: a dead segment (exactly 0), padded rows, ctx at Bm * bs; two
+    launches bit-identical; launches counted by variant."""
+    q, kv, bt, pos0, ctx = _prefill_case(card, tq, bs, 5)
+    assert pa.paged_prefill_variant(q, kv) == "wgmma"
+    variants = dict(pa.VARIANT_LAUNCHES)
+    out = pa.paged_prefill_attention(q, kv, bt, pos0, ctx)
+    again = pa.paged_prefill_attention(q, kv, bt, pos0, ctx)
+    simt = pa.paged_prefill_attention(q, kv, bt, pos0, ctx, variant="simt")
+    torch.cuda.synchronize()
+    assert {k: pa.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
+        "paged_prefill/wgmma": 2, "paged_prefill/simt": 1}
+    assert torch.equal(out, again)
+    assert torch.all(out[1] == 0) and torch.isfinite(out).all()
+    ref = pa.paged_prefill_attention_plain(q, kv, bt, pos0, ctx, HD ** -0.5)
+    for got in (out, simt):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= ATOL[torch.bfloat16], err
+
+
+@pytest.mark.parametrize("case", ["bs4", "misaligned"])
+def test_prefill_rule_sends_bf16_to_simt(card, case):
+    """bf16 inputs the tensor-core prefill does not take run the scalar
+    kernel: block size 4, and q a contiguous view 2 bytes off a 16-byte
+    boundary; forcing "wgmma" there raises."""
+    q, kv, bt, pos0, ctx = _prefill_case(card, 16, 4 if case == "bs4" else 16,
+                                         6)
+    if case == "misaligned":
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+        qm = buf[1:].view(q.shape)
+        qm.copy_(q)
+        q = qm
+    assert pa.paged_prefill_variant(q, kv) == "simt"
+    variants = dict(pa.VARIANT_LAUNCHES)
+    out = pa.paged_prefill_attention(q, kv, bt, pos0, ctx)
+    torch.cuda.synchronize()
+    assert pa.VARIANT_LAUNCHES["paged_prefill/simt"] == \
+        variants["paged_prefill/simt"] + 1
+    ref = pa.paged_prefill_attention_plain(q, kv, bt, pos0, ctx, HD ** -0.5)
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL[
+        torch.bfloat16]
+    with pytest.raises(ValueError, match="tensor-core prefill"):
+        pa.paged_prefill_attention(q, kv, bt, pos0, ctx, variant="wgmma")
 
 
 # flash kernels: forward at the paged kernels' tolerances; gradients
@@ -738,6 +820,31 @@ def _bs_inputs(dev, dtype, S, hq, hkv, D, seed):
             .to(dev, dtype) for h in (hq, hkv, hkv)]
 
 
+def _bs_checked(bs, attn, q, k, v, cfg, causal, want_variant):
+    """The kernel through the wrapper, twice: the variant that ran, the
+    two launches bit-identical, each output row within the row tolerance
+    of the plain version at the variant's tile and of the masked form.
+    Returns the output."""
+    S, D = q.shape[1], q.shape[-1]
+    variants = dict(bs.VARIANT_LAUNCHES)
+    got = bs.blocksparse_attention_kernel(q, k, v, cfg, causal=causal)
+    again = bs.blocksparse_attention_kernel(q, k, v, cfg, causal=causal)
+    torch.cuda.synchronize()
+    assert {n: bs.VARIANT_LAUNCHES[n] - variants[n] for n in variants} == {
+        f"blocksparse_fwd/{v}": 2 * int(v == want_variant)
+        for v in ("wgmma", "simt")}
+    assert torch.equal(got, again)
+    tile = bs.TC_TILE if want_variant == "wgmma" else bs.TILE
+    work = bs.work_list(cfg, S, causal, q.device, tile)
+    want = bs.blocksparse_fwd_plain(q, k, v, work, D ** -0.5)
+    assert got.dtype == q.dtype
+    assert _row_rel_err(got, want) <= BS_ROW_REL[q.dtype]
+    kr, vr = attn.repeat_kv_heads(q, k, v)
+    masked = bs.blocksparse_attention(q, kr, vr, cfg, causal=causal)
+    assert _row_rel_err(got, masked) <= BS_MASKED_ROW_REL[q.dtype]
+    return got
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(BS_CASES))
 def test_blocksparse_kernel_matches_plain(card, dtype, case):
@@ -747,18 +854,93 @@ def test_blocksparse_kernel_matches_plain(card, dtype, case):
     mode, block, S, hq, hkv, D, causal = BS_CASES[case]
     q, k, v = _bs_inputs(card, dtype, S, hq, hkv, D, 21)
     cfg = bs.make_sparsity_config(mode, block=block)
+    # bf16 at head dim 128 with a block multiple of 128: the tensor-core
+    # kernel; the rest the scalar one
+    want = ("wgmma" if dtype == torch.bfloat16 and D == 128
+            and block % 128 == 0 else "simt")
     before = bs.LAUNCHES["blocksparse_fwd"]
-    got = bs.blocksparse_attention_kernel(q, k, v, cfg, causal=causal)
-    assert bs.LAUNCHES["blocksparse_fwd"] == before + 1
-    work = bs.work_list(cfg, S, causal, q.device)
-    want = bs.blocksparse_fwd_plain(q, k, v, work, D ** -0.5)
-    assert got.dtype == dtype and _row_rel_err(got, want) <= BS_ROW_REL[dtype]
-    kr, vr = attn.repeat_kv_heads(q, k, v)
-    masked = bs.blocksparse_attention(q, kr, vr, cfg, causal=causal)
-    assert _row_rel_err(got, masked) <= BS_MASKED_ROW_REL[dtype]
+    _bs_checked(bs, attn, q, k, v, cfg, causal, want)
+    assert bs.LAUNCHES["blocksparse_fwd"] == before + 2
 
 
-def test_blocksparse_empty_row_and_rerun_bits(card):
+@pytest.mark.parametrize("view", ["head-slice", "bhsd", "main"])
+def test_tensor_core_blocksparse_reads_views_and_the_main_shape(card, view):
+    """The tensor-core forward reads q, k, v in place at any strides TMA
+    takes (a head slice of a fused projection, a [B, H, S, D] tensor read
+    as [B, S, H, D]; S 1000, a ragged tail) and runs the main path's
+    shape (fixed, causal, S 8192, GQA 32/8); against the plain version
+    at tile 128 and the masked form, and the scalar kernel forced on the
+    same inputs against the plain version at tile 64."""
+    from deepspeed_tpu_torch.ops import attention as attn
+    from deepspeed_tpu_torch.ops import blocksparse_attention as bs
+
+    rng = np.random.default_rng(25)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            card, torch.bfloat16)
+
+    S = 8192 if view == "main" else 1000
+    if view == "head-slice":
+        fused = t(1, S, 48, 128)
+        q, k, v = fused[:, :, :32], fused[:, :, 32:40], fused[:, :, 40:]
+    elif view == "bhsd":
+        q, k, v = (t(1, h, S, 128).transpose(1, 2) for h in (32, 8, 8))
+    else:
+        q, k, v = t(1, S, 32, 128), t(1, S, 8, 128), t(1, S, 8, 128)
+    cfg = bs.FixedSparsityConfig()
+    assert bs.blocksparse_variant(q, k, v, cfg) == "wgmma"
+    if view == "main":
+        # the masked form's fp32 scores of 32 heads at S 8192 would take
+        # 8.6 GB; the plain version at tile 128 stands alone here
+        variants = dict(bs.VARIANT_LAUNCHES)
+        got = bs.blocksparse_attention_kernel(q, k, v, cfg)
+        again = bs.blocksparse_attention_kernel(q, k, v, cfg)
+        torch.cuda.synchronize()
+        assert bs.VARIANT_LAUNCHES["blocksparse_fwd/wgmma"] == \
+            variants["blocksparse_fwd/wgmma"] + 2
+        assert torch.equal(got, again)
+        want = bs.blocksparse_fwd_plain(
+            q, k, v, bs.work_list(cfg, S, True, q.device, bs.TC_TILE),
+            128 ** -0.5)
+        assert _row_rel_err(got, want) <= BS_ROW_REL[torch.bfloat16]
+        return
+    _bs_checked(bs, attn, q, k, v, cfg, True, "wgmma")
+    simt = bs.blocksparse_attention_kernel(q, k, v, cfg, variant="simt")
+    want = bs.blocksparse_fwd_plain(q, k, v, bs.work_list(cfg, S, True,
+                                                          q.device),
+                                    128 ** -0.5)
+    assert _row_rel_err(simt, want) <= BS_ROW_REL[torch.bfloat16]
+
+
+def test_blocksparse_rule_sends_misaligned_bf16_to_simt(card):
+    """bf16 q, k, v 2 bytes off a 16-byte boundary at layout block 128
+    run the scalar kernel by the rule (TMA needs 16-byte aligned data);
+    forcing "wgmma" there raises."""
+    from deepspeed_tpu_torch.ops import attention as attn
+    from deepspeed_tpu_torch.ops import blocksparse_attention as bs
+
+    rng = np.random.default_rng(26)
+
+    def t(*shape):
+        buf = torch.empty(int(np.prod(shape)) + 1, dtype=torch.bfloat16,
+                          device=card)
+        x = buf[1:].view(shape)
+        x.copy_(torch.from_numpy(rng.standard_normal(shape, np.float32)))
+        return x
+
+    q, k, v = t(1, 512, 8, 128), t(1, 512, 2, 128), t(1, 512, 2, 128)
+    cfg = bs.FixedSparsityConfig()
+    assert bs.blocksparse_variant(q, k, v, cfg) == "simt"
+    _bs_checked(bs, attn, q, k, v, cfg, True, "simt")
+    with pytest.raises(ValueError, match="tensor-core blocksparse"):
+        bs.blocksparse_attention_kernel(q, k, v, cfg, variant="wgmma")
+
+
+@pytest.mark.parametrize("block", [32, 128])
+def test_blocksparse_empty_row_and_rerun_bits(card, block):
+    """A layout with an empty query block row gives exactly 0 there, on
+    the scalar kernel (block 32) and the tensor-core one (block 128)."""
     from deepspeed_tpu_torch.ops import blocksparse_attention as bs
 
     class EmptyRow(bs.SparsityConfig):
@@ -769,34 +951,51 @@ def test_blocksparse_empty_row_and_rerun_bits(card):
             lay[3, :] = False
             return lay
 
-    q, k, v = _bs_inputs(card, torch.bfloat16, 512, 8, 8, 128, 22)
-    cfg = EmptyRow(32)
+    S = 16 * block
+    q, k, v = _bs_inputs(card, torch.bfloat16, S, 8, 8, 128, 22)
+    cfg = EmptyRow(block)
+    variants = dict(bs.VARIANT_LAUNCHES)
     a = bs.blocksparse_attention_kernel(q, k, v, cfg, causal=False)
     b = bs.blocksparse_attention_kernel(q, k, v, cfg, causal=False)
+    want_variant = "wgmma" if block % 128 == 0 else "simt"
+    assert bs.VARIANT_LAUNCHES[f"blocksparse_fwd/{want_variant}"] == \
+        variants[f"blocksparse_fwd/{want_variant}"] + 2
     assert torch.equal(a, b)
-    assert torch.all(a[:, 96:128] == 0) and a[:, :96].abs().max() > 0
+    rows = slice(3 * block, 4 * block)
+    assert torch.all(a[:, rows] == 0) and a[:, :3 * block].abs().max() > 0
+    tile = bs.TC_TILE if want_variant == "wgmma" else bs.TILE
     want = bs.blocksparse_fwd_plain(q, k, v, bs.work_list(
-        cfg, 512, False, q.device), 128 ** -0.5)
+        cfg, S, False, q.device, tile), 128 ** -0.5)
     assert _row_rel_err(a, want) <= BS_ROW_REL[torch.bfloat16]
 
 
-def test_blocksparse_dispatch_launches_only_without_grad(card):
+@pytest.mark.parametrize("case", ["fp32-hd64", "bf16-hd128"])
+def test_blocksparse_dispatch_launches_only_without_grad(card, case):
+    """Under no_grad the dispatch launches the kernel (the scalar one in
+    fp32 at hd 64 and block 64, the tensor-core one in bf16 at hd 128 and
+    block 128); with a gradient to record it runs the masked form and
+    launches nothing."""
     from deepspeed_tpu_torch.ops import attention as attn
     from deepspeed_tpu_torch.ops import blocksparse_attention as bs
 
-    q, k, v = _bs_inputs(card, torch.float32, 256, 8, 2, 64, 23)
-    attn.set_sparse_config(bs.FixedSparsityConfig(block=64))
+    if case == "fp32-hd64":
+        dtype, D, block, variant = torch.float32, 64, 64, "simt"
+    else:
+        dtype, D, block, variant = torch.bfloat16, 128, 128, "wgmma"
+    q, k, v = _bs_inputs(card, dtype, 512, 8, 2, D, 23)
+    attn.set_sparse_config(bs.FixedSparsityConfig(block=block))
     try:
         bs.reset_launch_counts()
         with torch.no_grad():
             nog = attn.multi_head_attention(q, k, v, impl="blocksparse")
         assert bs.LAUNCHES["blocksparse_fwd"] == 1
+        assert bs.VARIANT_LAUNCHES[f"blocksparse_fwd/{variant}"] == 1
         qg = q.clone().requires_grad_()
         out = attn.multi_head_attention(qg, k, v, impl="blocksparse")
         out.sum().backward()
         assert bs.LAUNCHES["blocksparse_fwd"] == 1 and qg.grad is not None
-        assert _row_rel_err(nog, out.detach()) <= BS_MASKED_ROW_REL[
-            torch.float32]
+        assert sum(bs.VARIANT_LAUNCHES.values()) == 1
+        assert _row_rel_err(nog, out.detach()) <= BS_MASKED_ROW_REL[dtype]
     finally:
         attn.set_sparse_config(None)
 

@@ -60,6 +60,7 @@ def test_decode_matches_jax(nh, nkv, ppcb):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert np.all(got.numpy()[2] == 0.0)  # dead slot
     assert pa.LAUNCHES == {"paged_decode": 0, "paged_prefill": 0}
+    assert not any(pa.VARIANT_LAUNCHES.values())
 
 
 @pytest.mark.parametrize("ppcb", [1, 2])
@@ -110,6 +111,39 @@ def test_decode_is_prefill_with_one_query():
     torch.testing.assert_close(dec, pre[:, 0], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("nh,nkv", [(32, 8), (24, 8), (256, 1)])
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 48, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_variant_rule(dtype, hd, bs, nh, nkv, aligned):
+    """The card's rule, asked of CPU tensors: the tensor-core prefill for
+    bf16 at head dim 128, a block size of 8 to 128 that divides 128, a
+    query group dividing 128 and 16-byte aligned q and pool; the scalar
+    kernel otherwise; the plain version on the CPU itself."""
+    kv = torch.zeros(3, bs, 2, nkv, hd, dtype=dtype)
+    shape = (2, 4, nh, hd)
+    if aligned:
+        q = torch.zeros(shape, dtype=dtype)
+    else:  # contiguous, 2 or 4 bytes off a 16-byte boundary
+        q = torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)[1:].view(shape)
+    g = nh // nkv
+    want = ("wgmma" if dtype == torch.bfloat16 and hd == 128
+            and bs in (8, 16, 32, 64, 128) and 128 % g == 0 and aligned
+            else "simt")
+    assert pa.paged_prefill_variant(q, kv, device_type="cuda") == want
+    assert pa.paged_prefill_variant(q, kv) == "plain"
+
+
+def test_prefill_variant_override_is_for_the_card():
+    S, nh, nkv, hd, bs, Bm = 2, 8, 2, 16, 8, 3
+    ctx = np.array([9, 24], np.int32)
+    q, kv, table = _case(3, S, nh, nkv, hd, bs, Bm, ctx, tq=4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pa.paged_prefill_attention(_t(q), _t(kv), _t(table), _t(ctx - 4),
+                                   _t(ctx), variant="simt")
+
+
 def test_bf16_plain_path_keeps_dtype():
     S, nh, nkv, hd, bs, Bm = 2, 8, 2, 16, 8, 3
     ctx = np.array([9, 24], np.int32)
@@ -153,6 +187,7 @@ def test_cuda_source_exports_the_bound_symbols():
         src = f.read()
     exported = set(re.findall(r'extern "C" [^(]*?\b(dstpu_\w+)\(', src))
     assert exported == {"dstpu_paged_decode", "dstpu_paged_prefill",
+                        "dstpu_paged_prefill_wgmma",
                         "dstpu_cuda_error_string"}
     assert "-gencode" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
