@@ -17,7 +17,15 @@ Phases, each fatal on failure:
                take the tensor-core kernel (wgmma) in bf16 and the
                scalar one (simt) in fp32 and on a bf16 q 2 bytes off a
                16-byte boundary; two launches bit-identical; the first
-               version (simt on the same bf16 inputs) timed beside it;
+               version (simt on the same bf16 inputs) timed beside it.
+               Decode must take the split kernel (split) in bf16, held
+               to its plain twin at the span the host picked, and the
+               scalar one in fp32, held to the single-fold plain
+               version; two launches bit-identical; timed at the smoke's
+               shape and at two long contexts (S 1 x 16384 and S 4 x
+               4096 tokens from the same 2048-page pool) beside the
+               bound, SDPA on gathered K/V and the first version (simt
+               on the same bf16 inputs);
   2b. flash  — the three flash attention kernels against their plain
                versions at B 2, S 2048, 32/8 heads, hd 128, causal (fp32
                and bf16), a non-causal S 1000 case with three segments
@@ -82,7 +90,8 @@ Phases, each fatal on failure:
                second engine from the same seed must give identical
                streams, and the paged prefill path must agree with the
                plain gather path on one prefill batch; every paged
-               prefill launch must take the tensor-core kernel. A third
+               prefill launch must take the tensor-core kernel and every
+               paged decode launch the split kernel. A third
                run of the same workload on the same model under
                torch.profiler gives the device time by kernel family and
                the device's idle share.
@@ -97,8 +106,9 @@ Phases, each fatal on failure:
                dequantize once per layer per forward on the KV runs; the
                blockwise quantize once per quantized leaf (8) and the
                dequantize 7 x 32 + 1 times per forward on the weight run;
-               every paged prefill launch on the tensor-core kernel (a
-               quantized pool reaches it as the bf16 scratch).
+               every paged prefill launch on the tensor-core kernel and
+               every paged decode launch on the split kernel (a
+               quantized pool reaches both as the bf16 scratch).
                Agreement with phase 3's bf16 streams is reported.
   8a. sparse forward — right after phase 3's profile, on its model:
                ``loss_fn`` with ``attn_impl="blocksparse"`` and the fixed
@@ -125,8 +135,9 @@ Phases, each fatal on failure:
                agrees with the same FFN on the plain gmm on one prefill
                batch, and makes the host wait nowhere (CUDA's sync debug
                mode); every gmm launch went through the tensor-core kernel
-               (no scalar one), every paged prefill launch too; one more
-               run under torch.profiler.
+               (no scalar one), every paged prefill launch too, every
+               paged decode launch on the split kernel; one more run
+               under torch.profiler.
   6. moe train — ``initialize`` + ``train_batch`` on Mixtral-8x7B at full
                width, 2 of its 32 layers (fp32 masters, bf16 compute,
                AdamW, ZeRO-3 config, clip 1.0), micro 1 x GAS 2 x 2048
@@ -253,6 +264,20 @@ GMM_KERNELS = {
 }
 PREFILL_KERNELS = {"wgmma": "paged_prefill_wgmma_kernel",
                    "simt": "paged_prefill_kernel"}
+DECODE_KERNELS = {"split": "paged_decode_split_kernel",
+                  "simt": "paged_decode_kernel"}
+# the fast variant each kernel of a bf16 main path must take
+FAST_VARIANT = {"paged_decode": "split"}
+# long-context decode: name -> (S, context tokens), every slot full
+DECODE_LONG = {"S1x16384": (1, 16384), "S4x4096": (4, 4096)}
+# the split decode against its plain twin, besides TOL: the largest error
+# in an output row (sequence, head) over that row's largest reference
+# entry (row_rel_err). At the long contexts the largest outputs are
+# 0.05-0.1, where TOL's 2e-2 would pass a cross-span merge that leaves
+# out the exp(m_i - M) weights (max-abs 0.0175 at S 1 x 16384, row error
+# 0.47: tests/test_torch_paged_attention.py, the unweighted merge); one
+# bf16 ulp of a row's largest entry is up to 7.8e-3
+DECODE_TOL_ROW = 2e-2
 BS_KERNELS = {"wgmma": "blocksparse_fwd_wgmma_kernel",
               "simt": "blocksparse_fwd_kernel"}
 FLASH_KERNELS = {
@@ -408,12 +433,16 @@ def bound(bytes_moved, flops, dtype_name):
 # -- phase 2: kernels ----------------------------------------------------------
 
 
+def block_table(torch, rng, S, pages=MAX_BLOCKS):
+    """S rows of ``pages`` distinct shuffled page ids of the pool."""
+    return torch.from_numpy(rng.permutation(KV_BLOCKS - 1)[:S * pages]
+                            .reshape(S, pages).astype(np.int32)).cuda()
+
+
 def make_pool(torch, rng, dtype, S):
     kv = torch.from_numpy(rng.standard_normal(
         (KV_BLOCKS, BS, 2, NKV, HD), np.float32)).to("cuda", dtype)
-    bt = torch.from_numpy(rng.permutation(KV_BLOCKS - 1)[:S * MAX_BLOCKS]
-                          .reshape(S, MAX_BLOCKS).astype(np.int32)).cuda()
-    return kv, bt
+    return kv, block_table(torch, rng, S)
 
 
 def dense_kv(torch, kv, bt, lmax):
@@ -426,9 +455,94 @@ def dense_kv(torch, kv, bt, lmax):
     return k.contiguous(), v.contiguous()
 
 
-def check_decode(torch, pa, timer, dtype, S=MAX_SEQS):
+def decode_variants_ran(pa, before):
+    """Decode launches by variant since the counts ``before``."""
+    return {v: pa.VARIANT_LAUNCHES[f"paged_decode/{v}"]
+            - before[f"paged_decode/{v}"] for v in ("split", "simt")}
+
+
+def checked_decode(torch, pa, q, kv, bt, ctx, label):
+    """The decode kernel the rule names, twice: the variant counters must
+    say which ran and the two outputs must be the same bits. bf16 (the
+    split kernel) is held to its plain twin at the host's span, fp32 (the
+    scalar kernel) to the single-fold plain version."""
+    name = str(q.dtype).split(".")[-1]
+    expect = "split" if q.dtype == torch.bfloat16 else "simt"
+    scale = HD ** -0.5
+    before = dict(pa.VARIANT_LAUNCHES)
+    out = pa.paged_decode_attention(q, kv, bt, ctx)
+    again = pa.paged_decode_attention(q, kv, bt, ctx)
+    torch.cuda.synchronize()
+    ran = decode_variants_ran(pa, before)
+    if ran != {v: 2 * int(v == expect) for v in ran}:
+        fail(f"paged_decode {label} {name}: ran {ran}, expected {expect}")
+    if not torch.equal(out, again):
+        fail(f"paged_decode {label} {name}: two launches differ")
+    if not torch.isfinite(out).all() or not torch.all(out[ctx == 0] == 0):
+        fail(f"paged_decode {label} {name}: non-finite output or live "
+             f"dead slot")
+    res = {"variant": expect, "bit_identical_rerun": True}
+    if expect == "split":
+        span = pa.decode_span_of(q, kv, bt)
+        ref = pa.paged_decode_attention_split_plain(q, kv, bt, ctx, scale,
+                                                    span)
+        res["span_pages"] = span
+    else:
+        ref = pa.paged_decode_attention_plain(q, kv, bt, ctx, scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    if err > TOL[name]:
+        fail(f"paged_decode {label} {name}: max-abs {err} > {TOL[name]}")
+    res["max_abs_err"] = err
+    if expect == "split":
+        rel = row_rel_err(torch, out, ref)
+        if rel > DECODE_TOL_ROW:
+            fail(f"paged_decode {label} {name}: row error {rel} over "
+                 f"{DECODE_TOL_ROW} of a row's largest entry")
+        res["max_row_rel_err"] = rel
+        single = pa.paged_decode_attention_plain(q, kv, bt, ctx, scale)
+        res["max_abs_err_vs_single_fold"] = (
+            out.float() - single.float()).abs().max().item()
+    return res
+
+
+def time_decode(torch, pa, timer, res, q, kv, bt, ctx, ctx_np):
+    """The bf16 split kernel's time beside the bound, the first version
+    (the scalar kernel on the same inputs), the plain twin and SDPA on
+    K/V gathered dense beforehand."""
     import torch.nn.functional as F
 
+    S = q.shape[0]
+    scale = HD ** -0.5
+    itm = q.element_size()
+    sum_ctx = int(np.minimum(ctx_np, bt.shape[1] * BS).sum())
+    nbytes = (2 * q.numel() * itm + sum_ctx * 2 * NKV * HD * itm
+              + bt.numel() * 4 + S * 4)
+    flops = 4 * NH * HD * sum_ctx
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, "bfloat16")
+    res["ms"] = timer.ms(lambda: pa.paged_decode_attention(q, kv, bt, ctx))
+    res["first_version_ms"] = timer.ms(lambda: pa.paged_decode_attention(
+        q, kv, bt, ctx, variant="simt"))
+    span = res["span_pages"]
+    res["plain_ms"] = timer.ms(
+        lambda: pa.paged_decode_attention_split_plain(q, kv, bt, ctx, scale,
+                                                      span),
+        iters=3, warmup=1)
+    res["gb_per_s"] = nbytes / res["ms"] / 1e6
+    lmax = int(ctx_np.max())
+    k, v = dense_kv(torch, kv, bt, lmax)
+    mask = (torch.arange(lmax, device="cuda")[None, :]
+            < ctx[:, None])[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None], k, v, attn_mask=mask)
+    res["library_ms"] = timer.ms(sdpa)
+    del k, v
+    res["shape"] = {"S": S, "sum_ctx": sum_ctx, "max_pages": bt.shape[1],
+                    "span_pages": span,
+                    "spans": -(-bt.shape[1] // span)}
+    return res
+
+
+def check_decode(torch, pa, timer, dtype, S=MAX_SEQS):
     rng = np.random.default_rng(10)
     kv, bt = make_pool(torch, rng, dtype, S)
     ctx_np = rng.integers(1, MAX_BLOCKS * BS + 1, S).astype(np.int32)
@@ -437,35 +551,22 @@ def check_decode(torch, pa, timer, dtype, S=MAX_SEQS):
     ctx = torch.from_numpy(ctx_np).cuda()
     q = torch.from_numpy(rng.standard_normal((S, NH, HD), np.float32)).to(
         "cuda", dtype)
-    scale = HD ** -0.5
-    out = pa.paged_decode_attention(q, kv, bt, ctx)
-    ref = pa.paged_decode_attention_plain(q, kv, bt, ctx, scale)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out).all() or not torch.all(out[3] == 0):
-        fail(f"paged_decode {dtype}: non-finite output or live dead slot")
-    err = (out.float() - ref.float()).abs().max().item()
-    name = str(dtype).split(".")[-1]
-    if err > TOL[name]:
-        fail(f"paged_decode {name}: max-abs {err} > {TOL[name]}")
-    res = {"max_abs_err": err}
-    if dtype == torch.bfloat16:
-        itm = q.element_size()
-        sum_ctx = int(ctx_np.sum())
-        nbytes = (2 * q.numel() * itm + sum_ctx * 2 * NKV * HD * itm
-                  + bt.numel() * 4 + S * 4)
-        flops = 4 * NH * HD * sum_ctx
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, name)
-        res["ms"] = timer.ms(lambda: pa.paged_decode_attention(
-            q, kv, bt, ctx))
-        res["plain_ms"] = timer.ms(lambda: pa.paged_decode_attention_plain(
-            q, kv, bt, ctx, scale), iters=3, warmup=1)
-        lmax = int(ctx_np.max())
-        k, v = dense_kv(torch, kv, bt, lmax)
-        mask = (torch.arange(lmax, device="cuda")[None, :]
-                < ctx[:, None])[:, None, None, :]
-        res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=mask))
-        res["shape"] = {"S": S, "sum_ctx": sum_ctx, "max_pages": MAX_BLOCKS}
+    res = checked_decode(torch, pa, q, kv, bt, ctx, "smoke")
+    if dtype != torch.bfloat16:
+        return res
+    time_decode(torch, pa, timer, res, q, kv, bt, ctx, ctx_np)
+    # the long contexts, every slot full, from the same pool
+    res["long_context"] = {}
+    for case, (S_l, n) in DECODE_LONG.items():
+        bt_l = block_table(torch, rng, S_l, n // BS)
+        ctx_l_np = np.full(S_l, n, np.int32)
+        ctx_l = torch.from_numpy(ctx_l_np).cuda()
+        q_l = torch.from_numpy(rng.standard_normal(
+            (S_l, NH, HD), np.float32)).to("cuda", dtype)
+        r = checked_decode(torch, pa, q_l, kv, bt_l, ctx_l, case)
+        res["long_context"][case] = time_decode(torch, pa, timer, r, q_l,
+                                                kv, bt_l, ctx_l, ctx_l_np)
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1470,13 +1571,16 @@ def train_phase(torch, zoo, initialize, fa, tf):
 def check_tensor_core(phase, launches, variants,
                       names=("gmm", "gmm_transposed")):
     """Every launch of the kernels ``names`` on a bf16 main path (K and N
-    multiples of 8; flash, paged prefill and B9 at head dim 128; B9 at
-    layout block 128) went through the tensor-core kernel."""
+    multiples of 8; flash, paged prefill, paged decode and B9 at head dim
+    128; B9 at layout block 128) went through the fast kernel: the
+    tensor-core one, or for paged decode the split one
+    (``FAST_VARIANT``)."""
     for name in names:
+        fast = FAST_VARIANT.get(name, "wgmma")
         if variants[f"{name}/simt"] or \
-                variants[f"{name}/wgmma"] != launches[name]:
+                variants[f"{name}/{fast}"] != launches[name]:
             fail(f"{phase}: {name} launches by variant {variants}: every "
-                 "one must take the tensor-core kernel")
+                 f"one must take the {fast} kernel")
 
 
 def moe_ffn_agrees(torch, moe, gm, tf, model, prompts):
@@ -1566,7 +1670,8 @@ def moe_serve_phase(torch, zoo, InferenceEngineV2, pa, gm, moe, tf):
         fail(f"moe serve: launches {launches}: every kernel of the path "
              f"must run, gmm a multiple of {per_forward}")
     check_tensor_core("moe serve", launches, variants,
-                      ("gmm", "gmm_transposed", "paged_prefill"))
+                      ("gmm", "gmm_transposed", "paged_prefill",
+                       "paged_decode"))
     agree = moe_ffn_agrees(torch, moe, gm, tf, model, prompts)
     st = eng.stats
     ttft = sorted(eng.latency["ttft_s"])
@@ -1953,9 +2058,9 @@ def quant_run(torch, InferenceEngineV2, pa, qz, model, prompts, ref_out,
                                             for v in out.values()):
         fail(f"quant serve {label}: token counts "
              f"{[len(out.get(u, [])) for u in range(8)]}")
-    # a quantized pool reaches the prefill kernel as the bf16 scratch
+    # a quantized pool reaches the paged kernels as the bf16 scratch
     check_tensor_core(f"quant serve {label}", launches, variants,
-                      ("paged_prefill",))
+                      ("paged_prefill", "paged_decode"))
     st = eng.stats
     cfg = eng.kv_cache.config
     bf16_block = dataclasses.replace(cfg, quant_bits=None,
@@ -2228,6 +2333,15 @@ def main():
     log("blocksparse: " + ", ".join(
         f"{c} density {sparse[('bfloat16', c)]['pair_density']:.3f}"
         for c in BS_CASES))
+    for case, r in [("smoke", dec["bfloat16"]),
+                    *dec["bfloat16"]["long_context"].items()]:
+        log(f"paged_decode {case}: {r['variant']} {r['ms']:.4f} ms "
+            f"({r['gb_per_s']:.0f} GB/s, span {r['span_pages']} pages), "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA "
+            f"{r['library_ms']:.4f} ms, first version (simt) "
+            f"{r['first_version_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
+            f"max-abs {r['max_abs_err']:.2e}, max row rel err "
+            f"{r['max_row_rel_err']:.2e}")
     for tq in pre:
         r = pre[tq]["bfloat16"]
         log(f"paged_prefill tq={tq}: {r['variant']} {r['ms']:.4f} ms "
@@ -2269,7 +2383,8 @@ def main():
     if min(launches.values()) <= 0:
         fail(f"serve: a kernel was never launched on the main path: "
              f"{launches}")
-    check_tensor_core("serve", launches, serve_variants, ("paged_prefill",))
+    check_tensor_core("serve", launches, serve_variants,
+                      ("paged_prefill", "paged_decode"))
     agree = check_paths_agree(torch, model_runner, model, prompts)
     ref_prompts = prompts
     ttft = sorted(eng.latency["ttft_s"])
@@ -2347,18 +2462,24 @@ def main():
 
     def entry(name, replaces, res, other, kernels, paths):
         b = res["bfloat16"]
-        variant = b.get("variant", "simt")
+        variant = b["variant"]
         return {"name": name, "route": "cuda",
                 "source": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
                 "kernel": kernels[variant], "variant": variant,
+                "kernels": kernels,
                 "replaces": replaces, "launches": launches[name],
                 "launches_by_path": {path: lc[name]
                                      for path, lc in paths.items()},
+                "variant_launches_by_path": {
+                    path: {k: v for k, v in lc.items()
+                           if k.startswith(name + "/")}
+                    for path, lc in paths.items()},
                 "max_abs_err": b["max_abs_err"],
                 "max_abs_err_fp32": res["float32"]["max_abs_err"],
-                "ms": b["ms"],
-                # decode has one version: its first is itself
-                "first_version_ms": b.get("first_version_ms", b["ms"]),
+                "ms": b["ms"], "gb_per_s": b["gb_per_s"],
+                **({"max_row_rel_err": b["max_row_rel_err"]}
+                   if "max_row_rel_err" in b else {}),
+                "first_version_ms": b["first_version_ms"],
                 "plain_ms": b["plain_ms"],
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": b["library_ms"],
@@ -2366,8 +2487,8 @@ def main():
                                 "gathered dense beforehand (heads expanded, "
                                 "boolean mask)",
                 "dtype": "bfloat16", "shape": b["shape"],
-                "ptxas": kernel_lines(ptxas["paged_attention"],
-                                      kernels[variant]),
+                "ptxas": {v: kernel_lines(ptxas["paged_attention"], k)
+                          for v, k in kernels.items()},
                 "other": other}
 
     paged_paths = {"serve": {**launches, **serve_variants},
@@ -2376,9 +2497,7 @@ def main():
                       for run, lc in quant_launches.items()}}
     other_pre = {k: v for k, v in pre[16]["bfloat16"].items()}
     other_pre["max_abs_err_fp32"] = pre[16]["float32"]["max_abs_err"]
-    other_pre["variant_launches_by_path"] = {
-        path: {k: v for k, v in lc.items() if k.startswith("paged_prefill/")}
-        for path, lc in paged_paths.items()}
+
     def flash_entry(name, line):
         b = flash[("bfloat16", "smoke")][name]
         variant = b["variant"]
@@ -2524,8 +2643,9 @@ def main():
 
     kernels = {"kernels": [
         entry("paged_decode",
-              "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec, None,
-              {"simt": "paged_decode_kernel"}, paged_paths),
+              "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec,
+              {"long_context": dec["bfloat16"]["long_context"],
+               "float32": dec["float32"]}, DECODE_KERNELS, paged_paths),
         entry("paged_prefill",
               "deepspeed_tpu/ops/pallas/paged_attention.py:117", pre[128],
               other_pre, PREFILL_KERNELS, paged_paths),

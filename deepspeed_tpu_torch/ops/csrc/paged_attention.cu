@@ -1,8 +1,10 @@
 // Paged decode and paged (chunked) prefill attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/pallas/paged_attention.py:
-//   paged_decode_kernel  <- _kernel (:77, pallas_call in
-//                           paged_decode_attention :312)
+//   paged_decode_split_kernel <- _kernel (:77, pallas_call in
+//                           paged_decode_attention :312), bf16 with head
+//                           dim 128, contiguous and 16-byte aligned
+//   paged_decode_kernel  <- the same, for fp32 and the rest
 //   paged_prefill_wgmma_kernel <- _prefill_kernel (:117, pallas_call in
 //                           paged_prefill_attention :238), bf16 with head
 //                           dim 128, block sizes of 8 to 128 that divide
@@ -43,8 +45,55 @@
 // column a tile can see are not read at all; folding a fully masked page
 // leaves (m, l, acc) unchanged, so skipping it is exact.
 // All arithmetic is scalar fp32 FMA on the CUDA cores; no tensor cores,
-// no TMA, no split over pages. That is the simple first version; decode
-// and every prefill the tensor-core kernel does not take still run it.
+// no TMA, no split over pages. That is the simple first version; every
+// decode and prefill the split and tensor-core kernels do not take still
+// run it.
+//
+// The split decode (paged_decode_split_kernel): decode reads each K/V
+// byte once and does ~1 flop a byte, so bytes bound it; the scalar
+// kernel's one block per (sequence, kv head) walking its whole context
+// alone gives 128 blocks at S 16 x 8 kv heads and 8 at S 1, and loads
+// nothing while it computes. Here:
+//   Split over pages (flash-decoding). One block per (span of pages, kv
+//     head [x group of 8 query heads where g > 8], sequence) takes the
+//     span's K/V once for all (up to 8) query rows of its kv head. The
+//     span (a whole number of pages) comes from the host and depends on
+//     shapes only (S, heads, Bm * bs, bs, the SM count), never on ctx,
+//     so a sequence's bits do not depend on its neighbours'. Blocks whose span starts at or past
+//     lim = min(ctx, Bm * bs) exit at once; a dead slot's first block
+//     writes its zeros.
+//   Pipelined page loads. Each of the 4 warps walks its own 16-token
+//     chunks of the span (chunks w, w + 4, ...) through its own ring of 3
+//     stages in shared memory, filled by cp.async 16-byte copies (token
+//     rows found through the block table, page ids clamped to
+//     [0, nb - 1]; tokens past the span or lim zero-filled): two chunks
+//     stay in flight while one is folded, ~128 KB a SM at 2 blocks an SM.
+//     No block-wide barrier inside the walk. K/V stay bf16 in shared
+//     memory (rows padded to 272 bytes: ldmatrix without bank conflicts).
+//   Compute, on mma.sync m16n8k16 (wgmma's 64-row minimum would waste 60
+//     of 64 rows at g 4): S = Q K^T with the block's 8 query rows padded
+//     to 16 (q unscaled bf16 in registers, K^T by ldmatrix), scaled in
+//     fp32; each chunk folds into the warp's fp32 online softmax (m, l,
+//     acc) with the TPU kernel's formulas and sentinels (NEG_INF, p
+//     exactly 0 where masked); O^T += V^T P^T takes V^T by ldmatrix.trans
+//     and P^T straight from the score fragment, p kept fp32 as bf16
+//     hi + lo through two products (as the tensor-core prefill): ~150
+//     instructions a 16-token chunk, so the copies, not the fold, set
+//     the time. At the span's end the 4 warps' states merge (below) into
+//     the block's.
+//   One launch a layer. A span that is the sequence's only live one
+//     writes bf16 out directly. Otherwise each block writes its (m, l,
+//     acc) to fp32 scratch, fences, and takes a ticket from a counter of
+//     its (sequence, kv head, group); the last to arrive merges the live
+//     spans in ascending order and resets the counter to 0, so that the
+//     host keeps one zeroed counter buffer and never clears it.
+//   Merge (warps, then spans; fixed order, so two launches give the same
+//     bits): M = max_i m_i, w_i = exp(m_i - M), L = sum_i w_i l_i,
+//     A = sum_i w_i acc_i, out = A / L. One span is the plain fold itself.
+//   The plain twin, paged_decode_attention_split_plain, folds each span's
+//     pages in ascending order (the kernel folds 16-token chunks per
+//     warp, an fp32-rounding-level difference) and merges the spans with
+//     these formulas.
 //
 // The tensor-core prefill (paged_prefill_wgmma_kernel): one block per
 // (tile of 128 query rows, kv head, segment), two consumer warpgroups of
@@ -428,6 +477,429 @@ int launch(void (*kernel)(Params), dim3 grid, int threads, const Params& p,
 }
 
 // ---------------------------------------------------------------------------
+// the split decode (bf16, hd 128): spans of pages, a cp.async ring a warp
+// ---------------------------------------------------------------------------
+
+namespace pd_split {
+
+constexpr int D = 128;                 // head dim
+constexpr int R = 8;                   // query rows of a block (mma n)
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;    // == D: the merges give a thread a d
+constexpr int CT = 16;                 // tokens of a chunk (mma k)
+constexpr int STAGES = 3;              // chunks in a warp's ring
+constexpr int ROW = 2 * D + 16;        // bytes of a K or V row (16 padding)
+constexpr int STAGE_BYTES = 2 * CT * ROW;
+constexpr int RING_BYTES = WARPS * STAGES * STAGE_BYTES;
+
+struct Args {
+  const __nv_bfloat16* q;  // [S, nh, D]
+  const uint8_t* kv;       // [nb, bs, 2, nkv, D] bf16
+  const int* block_table;  // [S, Bm]
+  const int* ctx;          // [S]
+  __nv_bfloat16* out;      // [S, nh, D]
+  float* part_acc;         // [S * nkv * groups, nsplit, R, D]
+  float* part_ml;          // [S * nkv * groups, nsplit, R, 2]: m, l
+  int* counters;           // [S * nkv * groups], 0 between launches
+  int nh, nkv, nb, bs, Bm, span_pages, nsplit, groups;
+  float scale;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  // src-size 0 zero-fills the 16 bytes and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   tc::smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices; lane i gives the address of row i % 8 of
+// matrix i / 8, and register j gets matrix j's (row lane / 4, columns
+// 2 (lane % 4), + 1), or with .trans its transpose's
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(tc::smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(tc::smem_addr(p)));
+}
+
+// d (16 x 8 fp32) += a (16 x 16 bf16, row-major) b (16 x 8 bf16). With
+// gr = lane / 4, tq = lane % 4: a[0] (row gr, columns 2 tq, + 1), a[1]
+// row gr + 8, a[2] and a[3] the same 8 columns on; b0 (rows 2 tq, + 1,
+// column gr), b1 8 rows on; d[0], d[1] (row gr, columns 2 tq, + 1), d[2],
+// d[3] row gr + 8. The lower half of a word holds the lower index.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+      "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Lane j (and j + 16) of the warp: the pool row of token c0 + j, or 0
+// past `end`. The block-table read is issued a chunk ahead of its use
+// (the copies' "memory" clobber would otherwise hold it back until the
+// chunk before is issued, and the warp would wait on it every chunk).
+__device__ __forceinline__ int chunk_row(const int* bt, int nb, int bs,
+                                         int c0, int end, int lane) {
+  const int col = c0 + lane % CT;
+  return col < end ? min(max(__ldg(bt + col / bs), 0), nb - 1) * bs + col % bs
+                   : 0;
+}
+
+// the warp's copies of chunk c0 (tokens c0 .. c0 + CT - 1 at the pool rows
+// `row` of chunk_row, those at or past `end` zero-filled) into stage `st`
+// (K rows, then V rows): lanes 0-15 bring 16-byte piece t of each token's
+// K row, lanes 16-31 piece t of its V row. Token rows of the pool are
+// tok_bytes apart; piece_off is the lane's piece within one.
+__device__ __forceinline__ void load_chunk(const uint8_t* kv, int row,
+                                           size_t tok_bytes, uint8_t* st,
+                                           int c0, int end, size_t piece_off,
+                                           int lane) {
+  const int t = lane % CT, h = lane / CT;
+  uint8_t* dst = st + h * CT * ROW + 16 * t;
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    const int rj = __shfl_sync(0xffffffffu, row, j);
+    const bool ok = c0 + j < end;
+    cp_async16(dst + j * ROW, kv + (ok ? rj * tok_bytes + piece_off : 0), ok);
+  }
+}
+
+// Fold the chunk in stage `st` into the warp's state. S = Q K^T on
+// mma.sync with the R = 8 query rows padded to 16 (qa: row lane / 4's
+// A fragments, unscaled bf16; rows 8-15 are 0) and the chunk's 16 tokens
+// as two n8 tiles; O^T += V^T P^T with V^T from ldmatrix.trans and P^T
+// the score fragment itself (lane holds row lane / 4, tokens 2 tq, + 1,
+// 8 + 2 tq, + 1), p carried in fp32 as bf16 hi + lo through two products.
+// m, l: row lane / 4's; o[mt]: d 16 mt + lane / 4 (+ 8) of rows 2 tq and
+// 2 tq + 1.
+__device__ __forceinline__ void fold_chunk(const uint8_t* st,
+                                           const uint32_t (&qa)[8][2],
+                                           float scale, int c0, int end,
+                                           int lane, float& m, float& l,
+                                           float (&o)[8][4]) {
+  const int tq = lane % 4;
+  // this lane's ldmatrix row: matrix mi = lane / 8 is tokens 8 (mi / 2)..
+  // and d 8 (mi % 2).. of a 16-d step
+  const int mi = lane / 8;
+  const int off = ((mi / 2) * 8 + lane % 8) * ROW + (mi % 2) * 16;
+  const uint8_t* krow = st + off;
+  const uint8_t* vrow = st + CT * ROW + off;
+  float sc[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    uint32_t kb[4];
+    ldmatrix_x4(kb, krow + 32 * k);
+    mma_bf16(sc[0], qa[k][0], 0u, qa[k][1], 0u, kb[0], kb[1]);
+    mma_bf16(sc[1], qa[k][0], 0u, qa[k][1], 0u, kb[2], kb[3]);
+  }
+  // the online softmax over the chunk's 16 columns of row lane / 4 (the
+  // four lanes of a row hold four columns each)
+  float s[4] = {sc[0][0] * scale, sc[0][1] * scale, sc[1][0] * scale,
+                sc[1][1] * scale};
+  bool vis[4];
+  float mc = NEG_INF;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    vis[e] = c0 + (e / 2) * 8 + 2 * tq + e % 2 < end;
+    if (!vis[e]) s[e] = NEG_INF;
+    mc = fmaxf(mc, s[e]);
+  }
+  mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+  mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+  const float mn = fmaxf(m, mc);
+  const float alpha = expf(m - mn);
+  float p[4], sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    // explicit zero for masked columns (as the TPU kernel)
+    p[e] = vis[e] ? expf(s[e] - mn) : 0.f;
+    sum += p[e];
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  l = alpha * l + sum;
+  m = mn;
+  // P^T as the B operand, hi + lo
+  uint32_t ph[2], pl[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const __nv_bfloat16 h0 = __float2bfloat16_rn(p[2 * j]);
+    const __nv_bfloat16 h1 = __float2bfloat16_rn(p[2 * j + 1]);
+    ph[j] = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
+    pl[j] = pack_bf16(p[2 * j] - __bfloat162float(h0),
+                      p[2 * j + 1] - __bfloat162float(h1));
+  }
+  // the accumulator's rows 2 tq and 2 tq + 1: their alphas sit in lanes
+  // 8 tq and 8 tq + 4
+  const float a0 = __shfl_sync(0xffffffffu, alpha, 8 * tq);
+  const float a1 = __shfl_sync(0xffffffffu, alpha, 8 * tq + 4);
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt) {
+    o[mt][0] *= a0;
+    o[mt][1] *= a1;
+    o[mt][2] *= a0;
+    o[mt][3] *= a1;
+    uint32_t va[4];
+    ldmatrix_x4_trans(va, vrow + 32 * mt);
+    mma_bf16(o[mt], va[0], va[1], va[2], va[3], ph[0], ph[1]);
+    mma_bf16(o[mt], va[0], va[1], va[2], va[3], pl[0], pl[1]);
+  }
+}
+
+}  // namespace pd_split
+
+__global__ void __launch_bounds__(pd_split::THREADS, 2)
+    paged_decode_split_kernel(const pd_split::Args a) {
+  using namespace pd_split;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ int is_last;
+  __shared__ float merged_l[R];
+
+  const int split = blockIdx.x, kvg = blockIdx.y, s = blockIdx.z;
+  const int kvh = kvg / a.groups, grp = kvg % a.groups;
+  const int g = a.nh / a.nkv;
+  const int head0 = kvh * g + grp * R;  // the block's first query head
+  const int nr = min(R, g - grp * R);   // its real rows
+  const int seq = s * a.nkv * a.groups + kvg;
+  const int span = a.span_pages * a.bs;
+  // columns past the block table's Bm pages are never visited
+  const int lim = max(0, min(a.ctx[s], a.Bm * a.bs));
+  const int n_live = (lim + span - 1) / span;
+  const int start = split * span;
+  __nv_bfloat16* out = a.out + ((size_t)s * a.nh + head0) * D;
+  if (start >= lim) {
+    if (lim == 0 && split == 0)  // a dead slot gives 0
+      for (int e = threadIdx.x; e < nr * D; e += THREADS)
+        out[e] = __float2bfloat16_rn(0.f);
+    return;
+  }
+  const int end = min(start + span, lim);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nchunks = (end - start + CT - 1) / CT;
+  const int mine = warp < nchunks ? (nchunks - warp + WARPS - 1) / WARPS : 0;
+  uint8_t* ring = smem_raw;
+  uint8_t* wring = ring + warp * STAGES * STAGE_BYTES;
+  const int* bt = a.block_table + (size_t)s * a.Bm;
+  const uint8_t* kv = a.kv;
+  const int nb = a.nb, bs = a.bs;
+  const size_t tok_bytes = (size_t)2 * a.nkv * D * 2;
+  // this lane's 16-byte piece of a token: K (lanes 0-15) or V, at d 8 t
+  const size_t piece_off = (size_t)kvh * D * 2 +
+                           (lane / CT ? (size_t)a.nkv * D * 2 : 0) +
+                           16 * (lane % CT);
+  // chunk i of this warp starts at column c0_of(i); the page rows of the
+  // first STAGES chunks are read together, then each a chunk ahead
+  const auto c0_of = [=](int i) { return start + (warp + i * WARPS) * CT; };
+  int rows[STAGES];
+#pragma unroll
+  for (int i = 0; i < STAGES; ++i)
+    rows[i] = i < mine ? chunk_row(bt, nb, bs, c0_of(i), end, lane) : 0;
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < mine)
+      load_chunk(kv, rows[i], tok_bytes, wring + i * STAGE_BYTES, c0_of(i),
+                 end, piece_off, lane);
+    cp_async_commit();
+  }
+  int row_next = rows[STAGES - 1];
+  // q row lane / 4 as A fragments (unscaled bf16 pairs), while the first
+  // chunks load
+  const int gr = lane / 4, tq = lane % 4;
+  uint32_t qa[8][2];
+  const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+      a.q + ((size_t)s * a.nh + head0 + gr) * D);
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    qa[k][0] = gr < nr ? qrow[8 * k + tq] : 0u;
+    qa[k][1] = gr < nr ? qrow[8 * k + 4 + tq] : 0u;
+  }
+
+  float m = NEG_INF, l = 0.f, o[8][4];
+#pragma unroll
+  for (int mt = 0; mt < 8; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+  for (int i = 0; i < mine; ++i) {
+    // the stage chunk i - 1 left: every lane is past it (the __syncwarp
+    // that ends each iteration)
+    const int nxt = i + STAGES - 1;
+    if (nxt < mine)
+      load_chunk(kv, row_next, tok_bytes,
+                 wring + (nxt % STAGES) * STAGE_BYTES, c0_of(nxt), end,
+                 piece_off, lane);
+    cp_async_commit();
+    if (nxt + 1 < mine)
+      row_next = chunk_row(bt, nb, bs, c0_of(nxt + 1), end, lane);
+    cp_async_wait<STAGES - 1>();  // this lane's copies of chunk i landed
+    __syncwarp();                 // and every lane's
+    fold_chunk(wring + (i % STAGES) * STAGE_BYTES, qa, a.scale, c0_of(i),
+               end, lane, m, l, o);
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the merges from here on
+
+  // merge the warps' states (a warp with no chunk holds m = NEG_INF,
+  // l = 0, acc = 0 and weighs exactly 0; warp 0 always has the span's
+  // first, visible, column)
+  float* wm = reinterpret_cast<float*>(ring);  // [W][R]
+  float* wl = wm + WARPS * R;                  // [W][R]
+  float* wacc = wl + WARPS * R;                // [W][R][D]
+  if (tq == 0) {
+    wm[warp * R + gr] = m;
+    wl[warp * R + gr] = l;
+  }
+#pragma unroll
+  for (int mt = 0; mt < 8; ++mt) {
+    float* r0 = wacc + (warp * R + 2 * tq) * D + 16 * mt + gr;
+    r0[0] = o[mt][0];
+    r0[D] = o[mt][1];
+    r0[8] = o[mt][2];
+    r0[D + 8] = o[mt][3];
+  }
+  __syncthreads();
+  const int d = threadIdx.x;
+  float bm[R], bl[R], ba[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float M = wm[r];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) M = fmaxf(M, wm[w * R + r]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = expf(wm[w * R + r] - M);
+      L += wt * wl[w * R + r];
+      A += wt * wacc[(w * R + r) * D + d];
+    }
+    bm[r] = M;
+    bl[r] = L;
+    ba[r] = A;
+  }
+  if (n_live == 1) {  // the sequence's only live span: write out
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < nr) out[r * D + d] = __float2bfloat16_rn(ba[r] / bl[r]);
+    return;
+  }
+
+  // write this span's state, then take a ticket; the last span to arrive
+  // merges them all
+  const size_t pb = (size_t)seq * a.nsplit;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= nr) break;
+    a.part_acc[((pb + split) * R + r) * D + d] = ba[r];
+    if (d == 0) {
+      a.part_ml[((pb + split) * R + r) * 2] = bm[r];
+      a.part_ml[((pb + split) * R + r) * 2 + 1] = bl[r];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int ticket = atomicAdd(a.counters + seq, 1);
+    is_last = ticket == n_live - 1;
+    if (is_last) a.counters[seq] = 0;  // zero again for the next launch
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // spans 0 .. n_live - 1 in ascending order: weights and L per row
+  float* sm = reinterpret_cast<float*>(ring);  // [n_live][R]: m, then w
+  float* sl = sm + n_live * R;                 // [n_live][R]
+  const float* pml = a.part_ml + pb * R * 2;
+  for (int e = threadIdx.x; e < n_live * R; e += THREADS) {
+    if (e % R >= nr) continue;
+    sm[e] = __ldcg(pml + 2 * e);
+    sl[e] = __ldcg(pml + 2 * e + 1);
+  }
+  __syncthreads();
+  if (threadIdx.x < nr) {
+    const int r = threadIdx.x;
+    float M = sm[r];
+    for (int i = 1; i < n_live; ++i) M = fmaxf(M, sm[i * R + r]);
+    float L = 0.f;
+    for (int i = 0; i < n_live; ++i) {
+      const float wt = expf(sm[i * R + r] - M);
+      sm[i * R + r] = wt;
+      L += wt * sl[i * R + r];
+    }
+    merged_l[r] = L;
+  }
+  __syncthreads();
+  // a warp a row (rows r, r + 4), a lane 4 d; 8 spans' loads in flight
+  const int d4 = 4 * lane;
+  for (int r = warp; r < nr; r += WARPS) {
+    const float* pacc = a.part_acc + (pb * R + r) * D + d4;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int i = 0; i < n_live; ++i) {
+      const float4 x = __ldcg(
+          reinterpret_cast<const float4*>(pacc + (size_t)i * R * D));
+      const float wt = sm[i * R + r];
+      A.x += wt * x.x;
+      A.y += wt * x.y;
+      A.z += wt * x.z;
+      A.w += wt * x.w;
+    }
+    const float L = merged_l[r];
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(out + r * D + d4);
+    o2[0] = __floats2bfloat162_rn(A.x / L, A.y / L);
+    o2[1] = __floats2bfloat162_rn(A.z / L, A.w / L);
+  }
+}
+
+int launch_decode_split(const pd_split::Args& a, int S, cudaStream_t stream) {
+  constexpr int smem = pd_split::RING_BYTES;
+  // the span merge keeps two floats a (span, row) in the ring
+  if (2 * a.nsplit * pd_split::R * 4 > pd_split::RING_BYTES)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      paged_decode_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.nsplit, a.nkv * a.groups, S);
+  paged_decode_split_kernel<<<grid, pd_split::THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // the prefill on the tensor cores (bf16, hd 128): wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
@@ -642,6 +1114,41 @@ extern "C" int dstpu_paged_decode(int dtype, const void* q, const void* kv,
   if (dtype == 1)
     return launch(paged_decode_kernel<__nv_bfloat16>, grid, 256, p, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The split decode: bf16 q [S, nh, 128] and pool [nb, bs, 2, nkv, 128],
+// both contiguous and 16-byte aligned, nb * bs < 2^31 (the wrapper checks
+// all of it). span_pages comes from the host (shapes only); `part` holds
+// S * nkv * groups * nsplit * 8 * 130 floats (acc, then m and l) and
+// `counters` S * nkv * groups ints that are 0 (the kernel leaves them 0),
+// with groups = ceil(g / 8) blocks of 8 query rows a kv head and
+// nsplit = ceil(Bm / span_pages). Returns a cudaError_t (0 = launched).
+extern "C" int dstpu_paged_decode_split(const void* q, const void* kv,
+                                        const void* block_table,
+                                        const void* ctx, void* out,
+                                        void* part, void* counters, int S,
+                                        int nh, int nkv, int nb, int bs,
+                                        int Bm, int span_pages, float scale,
+                                        void* stream) {
+  if (S == 0) return 0;
+  if (span_pages < 1 || nkv < 1 || nh % nkv != 0)
+    return (int)cudaErrorInvalidValue;
+  const int groups = (nh / nkv + pd_split::R - 1) / pd_split::R;
+  const int nsplit = Bm > 0 ? (Bm + span_pages - 1) / span_pages : 1;
+  float* part_acc = static_cast<float*>(part);
+  float* part_ml = part_acc + (size_t)S * nkv * groups * nsplit *
+                                  pd_split::R * pd_split::D;
+  const pd_split::Args a{static_cast<const __nv_bfloat16*>(q),
+                         static_cast<const uint8_t*>(kv),
+                         static_cast<const int*>(block_table),
+                         static_cast<const int*>(ctx),
+                         static_cast<__nv_bfloat16*>(out),
+                         part_acc,
+                         part_ml,
+                         static_cast<int*>(counters),
+                         nh, nkv, nb, bs, Bm, span_pages, nsplit, groups,
+                         scale};
+  return launch_decode_split(a, S, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dstpu_paged_prefill(int dtype, const void* q, const void* kv,

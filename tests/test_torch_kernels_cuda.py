@@ -24,6 +24,14 @@ Run on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``
 (tests/conftest.py imports jax, which the card's machine need not have).
 
+The bf16 paged decode at head dim 128 takes the split kernel (spans of
+pages merged in the same launch): it is held to its plain twin at the
+span the host picked (block sizes 8 to 128, GQA groups 1, 4 and 8, dead
+slots, contexts past the table, S 1 x 1024 pages), must give the same
+bits on a second launch and whatever its neighbours' contexts, and must
+say so in its variant counters; fp32 and a misaligned bf16 q take the
+scalar kernel by the rule.
+
 The bf16 flash kernels at head dim 128 (forward, dK/dV, dQ) and the
 bf16 tgmm take the tensor-core kernels (wgmma fed by TMA); they are held
 to the same tolerances, must say so in their variant counters, read q,
@@ -58,6 +66,12 @@ pytestmark = pytest.mark.cuda
 
 NH, NKV, HD, BS, BM, NB = 32, 8, 128, 16, 48, 2048
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the split decode against its plain twin, as the largest error in an
+# output row (sequence, head) over that row's largest reference entry
+# (_row_rel_err): at long contexts the largest outputs are 0.05-0.1,
+# where a max-abs limit of 2e-2 would pass a merge that leaves out a
+# span's weight; one bf16 ulp of a row's largest entry is up to 7.8e-3
+DECODE_ROW_REL = 2e-2
 
 
 @pytest.fixture(scope="module")
@@ -102,6 +116,111 @@ def test_decode_kernel_matches_plain(card, dtype):
     assert err <= ATOL[dtype], err
 
 
+def _decode_case(dev, bs, g, S, pages, seed):
+    """A bf16 pool of block size bs and ``pages`` table entries a slot
+    (shuffled page ids), q of g query heads a kv head, and contexts:
+    ragged, a dead slot, one token, the table's whole span and past it."""
+    rng = np.random.default_rng(seed)
+    nb = S * pages + 3
+    kv = torch.from_numpy(rng.standard_normal(
+        (nb, bs, 2, NKV, HD), np.float32)).to(dev, torch.bfloat16)
+    bt = torch.from_numpy(rng.permutation(nb)[:S * pages].reshape(
+        S, pages).astype(np.int32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal(
+        (S, g * NKV, HD), np.float32)).to(dev, torch.bfloat16)
+    ctx = rng.integers(1, pages * bs + 1, S).astype(np.int32)
+    if S >= 5:
+        ctx[1:5] = [0, 1, pages * bs, pages * bs + 9]
+    return q, kv, bt, torch.from_numpy(ctx).to(dev)
+
+
+def _split_checked(q, kv, bt, ctx):
+    """Two launches of the split decode: same bits, counted by variant,
+    against the plain twin at the host's span, in each output row."""
+    variants = dict(pa.VARIANT_LAUNCHES)
+    out = pa.paged_decode_attention(q, kv, bt, ctx)
+    again = pa.paged_decode_attention(q, kv, bt, ctx)
+    torch.cuda.synchronize()
+    assert {k: pa.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
+        k: 2 * (k == "paged_decode/split") for k in variants}
+    assert torch.equal(out, again)
+    span = pa.decode_span_of(q, kv, bt)
+    ref = pa.paged_decode_attention_split_plain(q, kv, bt, ctx, HD ** -0.5,
+                                                span)
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= ATOL[torch.bfloat16], err
+    assert _row_rel_err(out, ref) <= DECODE_ROW_REL
+    return out
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
+def test_split_decode_matches_split_plain(card, bs, g):
+    """The split decode over a 768-token table at every block size the
+    pool takes and GQA groups 1, 4 and 8 (several spans a slot): a dead
+    slot gives exactly 0, a context past the table stops at it."""
+    q, kv, bt, ctx = _decode_case(card, bs, g, 8, 768 // bs, 30 + bs + g)
+    assert pa.paged_decode_variant(q, kv) == "split"
+    assert pa.decode_span_of(q, kv, bt) < bt.shape[1]
+    out = _split_checked(q, kv, bt, ctx)
+    assert torch.all(out[1] == 0)
+
+
+def test_split_decode_long_context(card):
+    """S 1 x 1024 pages of 16 tokens (16384 keys) in 64 spans, and a
+    context ending mid-page."""
+    q, kv, bt, ctx = _decode_case(card, 16, 4, 1, 1024, 40)
+    for n in (1024 * 16, 9999):
+        ctx.fill_(n)
+        _split_checked(q, kv, bt, ctx)
+
+
+def test_split_decode_is_batch_invariant(card):
+    """A sequence's output keeps its bits when its neighbours' contexts
+    change (the span comes from shapes alone)."""
+    q, kv, bt, ctx = _decode_case(card, 16, 4, 8, 48, 41)
+    out = pa.paged_decode_attention(q, kv, bt, ctx)
+    ctx2 = ctx.clone()
+    ctx2[0::2] = torch.tensor([3, 700, 0, 768], dtype=torch.int32,
+                              device=card)
+    out2 = pa.paged_decode_attention(q, kv, bt, ctx2)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1::2], out2[1::2])
+    assert not torch.equal(out[0::2], out2[0::2])
+
+
+@pytest.mark.parametrize("case", ["fp32", "misaligned"])
+def test_decode_rule_sends_to_simt(card, case):
+    """fp32, and a bf16 q 2 bytes off a 16-byte boundary, run the scalar
+    kernel by the rule; forcing "split" there raises, and "simt" forced
+    on the split kernel's inputs agrees with the plain fold."""
+    q, kv, bt, ctx = _decode_case(card, 16, 4, 8, 48, 42)
+    if case == "fp32":
+        q, kv = q.float(), kv.float()
+    else:
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+        qm = buf[1:].view(q.shape)
+        qm.copy_(q)
+        q = qm
+    assert pa.paged_decode_variant(q, kv) == "simt"
+    variants = dict(pa.VARIANT_LAUNCHES)
+    out = pa.paged_decode_attention(q, kv, bt, ctx)
+    torch.cuda.synchronize()
+    assert {k: pa.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
+        k: int(k == "paged_decode/simt") for k in variants}
+    ref = pa.paged_decode_attention_plain(q, kv, bt, ctx, HD ** -0.5)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= ATOL[q.dtype], err
+    with pytest.raises(ValueError, match="split decode"):
+        pa.paged_decode_attention(q, kv, bt, ctx, variant="split")
+    if case == "misaligned":
+        q2, kv2, bt2, ctx2 = _decode_case(card, 16, 4, 8, 48, 42)
+        simt = pa.paged_decode_attention(q2, kv2, bt2, ctx2, variant="simt")
+        err = (simt.float() - ref.float()).abs().max().item()
+        assert err <= ATOL[torch.bfloat16], err
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tq", [16, 128])
 def test_prefill_kernel_matches_plain(card, dtype, tq):
@@ -121,7 +240,7 @@ def test_prefill_kernel_matches_plain(card, dtype, tq):
     # bf16 at hd 128 and block size 16 takes the tensor-core kernel
     want = "wgmma" if dtype == torch.bfloat16 else "simt"
     assert {k: pa.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
-        f"paged_prefill/{v}": int(v == want) for v in ("wgmma", "simt")}
+        k: int(k == f"paged_prefill/{want}") for k in variants}
     ref = pa.paged_prefill_attention_plain(q, kv, bt, pos0, ctx, HD ** -0.5)
     assert torch.isfinite(out).all() and torch.all(out[1] == 0)
     err = (out.float() - ref.float()).abs().max().item()
@@ -164,6 +283,7 @@ def test_tensor_core_prefill_matches_plain_and_simt(card, tq, bs):
     simt = pa.paged_prefill_attention(q, kv, bt, pos0, ctx, variant="simt")
     torch.cuda.synchronize()
     assert {k: pa.VARIANT_LAUNCHES[k] - variants[k] for k in variants} == {
+        **{k: 0 for k in variants},
         "paged_prefill/wgmma": 2, "paged_prefill/simt": 1}
     assert torch.equal(out, again)
     assert torch.all(out[1] == 0) and torch.isfinite(out).all()
