@@ -126,6 +126,28 @@ Phases, each fatal on failure:
                the tensor-core kernel); loss and wq gradient through the
                flash path against the dense path on one microbatch; one
                more step under torch.profiler.
+  9. checkpoint — after phase 4, once its engine is freed: Llama-3-8B at
+               full width, 2 of its 32 layers (1.49 B parameters: the
+               vocabulary matrices hold most of the ~20.8 GB of state),
+               bf16 on fp32 masters, AdamW with a warm-up schedule, clip
+               1.0, micro 1 x GAS 2 x 2048 tokens from a shuffled,
+               seeded ``RepeatingLoader(DeepSpeedDataLoader(...))``.
+               Engine A (weights from seed 0) takes 2 steps, saves
+               synchronously into a temporary directory (the free space
+               is checked first: short space fails the phase), records a
+               bitwise checksum of every saved leaf, takes 3 more steps
+               (the reference losses) and is freed. Engine B (weights
+               from seed 1, ``checkpoint.async_save`` on) loads the tag
+               with the manifest's crc32 validation: every restored leaf
+               must checksum as saved. Then ``resume_data_iter`` and 3
+               steps with the flash launch counts read around them: the
+               losses must equal A's bit for bit, and the launches must be
+               what remat implies, all on the tensor-core kernels. A's tag
+               goes; B saves again asynchronously: ``latest`` must appear
+               only after the commit, and the tag must validate. Save,
+               load (manifest validation and tensor read apart) and the
+               async save's blocking and commit seconds are printed with
+               their GB/s.
   5. moe serve — ``InferenceEngineV2`` over ``get_model("mixtral-8x7b",
                num_layers=16)`` (full width, seeded bf16 weights): the
                serve phase's 8 requests drawn in Mixtral's 32000-token
@@ -164,8 +186,8 @@ Phases, each fatal on failure:
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
-and sparse train lines, the run's seconds, the card's name and power
-limit (nvidia-smi), and, last, the device line.
+sparse train and checkpoint lines, the run's seconds, the card's name
+and power limit (nvidia-smi), and, last, the device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
 package is not beside it.
@@ -174,8 +196,10 @@ package is not beside it.
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -340,6 +364,16 @@ SPARSE_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
                                       "params": {"lr": 1e-4}},
                            sparse_attention={"mode": "fixed"},
                            kernels={"blocksparse_block": 0})
+
+
+# phase 9: the checkpoint round trip (Llama-3-8B at 2 of 32 layers)
+CKPT_LAYERS, CKPT_ROWS, CKPT_BEFORE, CKPT_AFTER = 2, 16, 2, 3
+CKPT_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
+                   gradient_accumulation_steps=2,
+                   scheduler={"type": "WarmupLR",
+                              "params": {"warmup_num_steps": 10}})
+# the engine B of phase 9: async saves
+CKPT_ASYNC_CONFIG = dict(CKPT_CONFIG, checkpoint={"async_save": True})
 
 
 def fail(msg):
@@ -1565,6 +1599,174 @@ def train_phase(torch, zoo, initialize, fa, tf):
     return train, profile, {**launches, **variants}
 
 
+# -- phase 9: checkpoint ----------------------------------------------------
+
+
+def leaf_checksum(torch, t, chunk=1 << 26):
+    """A bitwise checksum of a tensor on the card: the int64 sums (mod
+    2**64) of its raw bits, plain and weighted by position (a swap of two
+    elements changes the second)."""
+    if t.dim() == 0:
+        return [t.item()]
+    bits = t.detach().contiguous().view(
+        {2: torch.int16, 4: torch.int32}[t.element_size()]).flatten()
+    s1 = s2 = 0
+    for start in range(0, bits.numel(), chunk):
+        c = bits[start:start + chunk].to(torch.int64)
+        pos = torch.arange(start + 1, start + 1 + c.numel(),
+                           device=c.device)
+        s1 = (s1 + int(c.sum())) % 2 ** 64
+        s2 = (s2 + int((c * pos).sum())) % 2 ** 64
+    return [s1, s2]
+
+
+def state_checksums(torch, engine):
+    """Per leaf of the saved state: its checksum."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    return {path: leaf_checksum(torch, t)
+            for path, t in leaves(engine._ckpt_io._state())}
+
+
+def ckpt_loader(DeepSpeedDataLoader, RepeatingLoader, vocab):
+    """Seeded token rows, shuffled (seed 7) and repeated: 16 rows make 8
+    microbatches an epoch, so the 5 steps restart the epoch."""
+    rng = np.random.default_rng(SEED + 9)
+    rows = [{"input_ids": rng.integers(0, vocab, (TRAIN_SEQ + 1,))
+             .astype(np.int32)} for _ in range(CKPT_ROWS)]
+    return RepeatingLoader(DeepSpeedDataLoader(rows, batch_size=1,
+                                               shuffle=True, seed=7))
+
+
+def timed_steps(torch, engine, it, n):
+    losses, secs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(it)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return losses, secs
+
+
+def checkpoint_phase(torch, zoo, initialize, fa, DeepSpeedDataLoader,
+                     RepeatingLoader, validate_manifest):
+    """Returns (checkpoint line, flash launches of the resumed steps)."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
+                          dtype=torch.float32, seed=SEED)
+    cfg = model.config
+    engine, *_ = initialize(model=model, config=dict(CKPT_CONFIG))
+    it = ckpt_loader(DeepSpeedDataLoader, RepeatingLoader, cfg.vocab_size)
+    before, _ = timed_steps(torch, engine, it, CKPT_BEFORE)
+    state_bytes = sum(t.nbytes for _, t in leaves(engine._ckpt_io._state()))
+    root = tempfile.mkdtemp(prefix="dstpu_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < 1.1 * state_bytes:
+            fail(f"checkpoint: {free / 1e9:.1f} GB free at {root}, the "
+                 f"state needs {state_bytes / 1e9:.1f} GB")
+        t0 = time.perf_counter()
+        tag_dir = engine.save_checkpoint(root)
+        save_s = time.perf_counter() - t0
+        sums = state_checksums(torch, engine)
+        ref, ref_s = timed_steps(torch, engine, it, CKPT_AFTER)
+        del engine, model, it
+        torch.cuda.empty_cache()
+
+        model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
+                              dtype=torch.float32, seed=SEED + 1)
+        engine, *_ = initialize(model=model, config=dict(CKPT_ASYNC_CONFIG))
+        if state_checksums(torch, engine) == sums:
+            fail("checkpoint: engine B starts from A's state")
+        t0 = time.perf_counter()
+        ckpt_dir, _ = engine.load_checkpoint(root)
+        load_s = time.perf_counter() - t0
+        parts = dict(engine._ckpt_io.last_load_s)
+        if ckpt_dir != tag_dir or engine.global_steps != CKPT_BEFORE:
+            fail(f"checkpoint: loaded {ckpt_dir} at step "
+                 f"{engine.global_steps}")
+        got = state_checksums(torch, engine)
+        bad = sorted(p for p in sums if got.get(p) != sums[p])
+        if bad or sorted(got) != sorted(sums):
+            fail(f"checkpoint: restored leaves differ from the saved ones: "
+                 f"{bad[:5]}")
+        src = ckpt_loader(DeepSpeedDataLoader, RepeatingLoader,
+                          cfg.vocab_size)
+        it = engine.resume_data_iter(src, source=src)
+        fa.reset_launch_counts()
+        resumed, step_s = timed_steps(torch, engine, it, CKPT_AFTER)
+        launches = dict(fa.LAUNCHES)
+        variants = dict(fa.VARIANT_LAUNCHES)
+        if resumed != ref:
+            fail(f"checkpoint: resumed losses {resumed} are not the "
+                 f"uninterrupted run's {ref}")
+        L, steps, gas = CKPT_LAYERS, CKPT_AFTER, 2
+        want = {"flash_fwd": steps * 2 * L * gas,  # forward + remat replay
+                "flash_bwd_dkdv": steps * L * gas,
+                "flash_bwd_dq": steps * L * gas}
+        if launches != want:
+            fail(f"checkpoint: flash launches {launches}, remat implies "
+                 f"{want}")
+        check_tensor_core("checkpoint", launches, variants,
+                          ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
+        shutil.rmtree(tag_dir)
+        os.remove(os.path.join(root, "latest"))
+
+        # the async save: 'latest' only after the commit
+        t0 = time.perf_counter()
+        async_dir = engine.save_checkpoint(root)
+        blocking_s = time.perf_counter() - t0
+        if os.path.exists(os.path.join(root, "latest")):
+            fail("checkpoint: the async save published 'latest' before "
+                 "its commit")
+        t0 = time.perf_counter()
+        engine._ckpt_io.commit_pending()
+        commit_s = time.perf_counter() - t0
+        with open(os.path.join(root, "latest")) as f:
+            latest = f.read().strip()
+        t0 = time.perf_counter()
+        doc = validate_manifest(async_dir)
+        async_validate_s = time.perf_counter() - t0
+        if latest != os.path.basename(async_dir) or doc is None or \
+                doc["global_steps"] != CKPT_BEFORE + CKPT_AFTER:
+            fail(f"checkpoint: async tag {async_dir}, latest {latest!r}, "
+                 f"manifest {doc and doc['tag']}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del engine, model, it
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gb = state_bytes / 1e9
+    line = {
+        "model": "llama3-8b", "layers": f"{CKPT_LAYERS} of 32",
+        "params": cfg.num_params(), "dtype": "bfloat16 compute, fp32 masters",
+        "micro": 1, "gas": 2, "seq": TRAIN_SEQ,
+        "state_gb": gb, "leaves": len(sums),
+        "save_s": save_s, "save_gb_per_s": gb / save_s,
+        "load_s": load_s, "load_gb_per_s": gb / load_s,
+        "load_validate_s": parts["validate"],
+        "load_validate_gb_per_s": gb / parts["validate"],
+        "load_read_s": parts["read"],
+        "load_read_gb_per_s": parts["bytes_read"] / 1e9 / parts["read"],
+        "async_blocking_s": blocking_s, "async_commit_s": commit_s,
+        "async_save_gb_per_s": gb / (blocking_s + commit_s),
+        "async_validate_s": async_validate_s,
+        "resumed_bit_identical": True, "losses_before": before,
+        "losses_reference": ref, "losses_resumed": resumed,
+        "restored_leaves_bit_equal": len(sums),
+        "step_ms_p50": float(np.median(step_s)) * 1e3,
+        "reference_step_ms_p50": float(np.median(ref_s)) * 1e3,
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "variant_launches": variants,
+    }
+    return line, {**launches, **variants}
+
+
 # -- phases 5 and 6: MoE serve and train ----------------------------------------
 
 
@@ -2241,7 +2443,8 @@ def main():
         log("no CUDA device (torch.cuda.is_available() is False)")
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch import (DeepSpeedDataLoader, RepeatingLoader,
+                                     initialize)
     from deepspeed_tpu_torch.inference import InferenceEngineV2, model_runner
     from deepspeed_tpu_torch.inference import weight_quant as wq
     from deepspeed_tpu_torch.models import transformer as tf
@@ -2254,6 +2457,7 @@ def main():
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quantization as qz
     from deepspeed_tpu_torch.parallel import moe
+    from deepspeed_tpu_torch.resilience import validate_manifest
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2444,6 +2648,17 @@ def main():
                                                        initialize, fa, tf)
     log(f"train: {train['step_ms_p50']:.1f} ms per step")
 
+    # 9. checkpoint: save, load and a bit-identical resume; phase 4's
+    # engine is gone
+    ckpt, ckpt_launches = checkpoint_phase(
+        torch, zoo, initialize, fa, DeepSpeedDataLoader, RepeatingLoader,
+        validate_manifest)
+    log(f"checkpoint: {ckpt['state_gb']:.1f} GB, save {ckpt['save_s']:.1f} "
+        f"s, load {ckpt['load_s']:.1f} s (validate "
+        f"{ckpt['load_validate_s']:.1f} s), async blocking "
+        f"{ckpt['async_blocking_s']:.1f} s + commit "
+        f"{ckpt['async_commit_s']:.1f} s; resumed bit-identical")
+
     # 8b. the engine with a sparse_attention block: the micro-step loop
     # over the dataloader, then eval; phase 4's engine is gone
     sparse_train, sparse_launches = sparse_train_phase(
@@ -2514,12 +2729,14 @@ def main():
                             f"{line}",
                 "launches": train_launches[name],
                 "launches_by_path": {"train": train_launches[name],
-                                     "moe_train": moe_train_launches[name]},
+                                     "moe_train": moe_train_launches[name],
+                                     "checkpoint": ckpt_launches[name]},
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
                            if k.startswith(name + "/")}
                     for path, lc in (("train", train_launches),
-                                     ("moe_train", moe_train_launches))},
+                                     ("moe_train", moe_train_launches),
+                                     ("checkpoint", ckpt_launches))},
                 "max_abs_err": b["max_abs_err"],
                 "max_row_rel_err": b.get("max_row_rel_err"),
                 "ms": b["ms"], "tflops": b["tflops"],
@@ -2682,6 +2899,7 @@ def main():
     print(json.dumps({"sparse_forward_profile": sparse_fwd_profile}),
           flush=True)
     print(json.dumps({"sparse_train": sparse_train}), flush=True)
+    print(json.dumps({"checkpoint": ckpt}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
           flush=True)
     print(card, flush=True)

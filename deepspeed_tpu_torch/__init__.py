@@ -27,6 +27,13 @@ where autograd records, the hand-written block-sparse forward kernel,
 ``training_data`` dataloader (``DeepSpeedDataLoader``,
 ``RepeatingLoader``) and its ``forward`` / ``backward`` / ``step``
 micro-step API.
+
+Slice 11: checkpoints and the resilience layer — the engine's
+``save_checkpoint`` / ``load_checkpoint`` / ``resume_data_iter`` /
+``module_state_dict`` (``checkpoint``, ``runtime.checkpoint_engine``),
+with ``resilience`` (manifests, the preemption guard, the data cursor,
+chaos injection, retry policy) and ``utils.telemetry``; the JAX on-disk
+contract with torch tensors.
 """
 
 from deepspeed_tpu_torch._device import kernels_available, resolve_device

@@ -1,0 +1,308 @@
+"""Engine checkpoint save/load (port of
+``deepspeed_tpu/checkpoint/state.py``).
+
+The JAX on-disk contract with torch tensors: ``<save_dir>/latest`` names
+the tag, and ``<save_dir>/<tag>/`` holds ``metadata.json`` (the JAX
+keys; ``mesh_shape`` and ``world_size`` as a one-device JAX engine
+writes them), ``manifest.json`` (``resilience/manifest.py``, the same
+schema) and ``state/``, one torch file per leaf
+(``runtime/checkpoint_engine.py``). The state is the compute-dtype
+params, the loss-scale state, and the optimizer's fp32 masters, moments
+and update count; the step counters travel in the metadata, as in JAX.
+
+The publish order is JAX's: every payload durable, then the metadata,
+the manifest and, last, ``latest``. Load validates the manifest before
+any tensor is read, falls back to the previous good tag on corruption,
+and copies into the engine's own tensors in place: the GAS > 1
+accumulation hooks hang on the compute params, and an fp32 model shares
+its tensors with the masters.
+
+The JAX offload, ZenFlow, 1-bit and ZeRO++ branches are not here: their
+config switches raise (ROADMAP queue A items 10 and 12). Universal
+checkpoints raise at the config (item 16). The multi-process agreement
+(``_agree``, the publish barrier, ``assert_same_across_processes``) is
+the identity at world size 1, and so is JAX's ``_validate_tag`` (every
+port checkpoint is saved on the one-device mesh); both arrive with
+item 5.
+"""
+
+from __future__ import annotations
+
+import atexit
+import json
+import logging
+import os
+import time
+import weakref
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from deepspeed_tpu_torch.resilience.manifest import (CheckpointCorruptError,
+                                                     find_latest_valid_tag,
+                                                     validate_manifest,
+                                                     write_manifest)
+from deepspeed_tpu_torch.resilience.resume import data_cursor
+from deepspeed_tpu_torch.runtime.checkpoint_engine import \
+    make_checkpoint_engine
+from deepspeed_tpu_torch.runtime.loss_scaler import LossScaleState
+from deepspeed_tpu_torch.runtime.optimizer import leaves
+from deepspeed_tpu_torch.utils import telemetry
+
+logger = logging.getLogger(__name__)
+
+LATEST_FILE = "latest"
+METADATA_FILE = "metadata.json"
+STATE_DIR = "state"
+FRAMEWORK_VERSION = "0.1.0"  # the project's version (pyproject.toml)
+# the mesh of a one-device JAX engine (its axes in parallel/topology.py)
+MESH_SHAPE = {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
+OPTIMIZER_KEYS = ("opt_master", "opt_mu", "opt_nu", "opt_count")
+
+
+class CheckpointIO:
+    """Bound to an Engine; owns its save/load. ``last_load_s`` holds the
+    last load's seconds by part (``validate``, ``read``) and bytes read."""
+
+    def __init__(self, engine):
+        # weakly, as the accumulation hooks do: a cycle would keep the
+        # engine's tensors until the garbage collector runs
+        self._engine = weakref.ref(engine)
+        self.ckpt_engine = make_checkpoint_engine(engine.config.checkpoint)
+        self._pending_commit = None  # (tag, save_dir, ckpt_dir, meta, latest)
+        self.last_load_s: Dict[str, float] = {}
+        # a final async save with no later step/save/load would otherwise
+        # never publish metadata + 'latest' — commit at interpreter exit
+        ref = weakref.ref(self)
+
+        def _commit_at_exit():
+            obj = ref()  # bind once: the object can be collected mid-expr
+            if obj is not None:
+                obj.commit_pending()
+
+        atexit.register(_commit_at_exit)
+
+    @property
+    def engine(self):
+        return self._engine()
+
+    # -- state tree ----------------------------------------------------
+    def _state(self) -> Dict[str, Any]:
+        """The saved tree: the engine's own tensors, and the host scalars
+        as 0-dim host tensors (a load copies into all of them in
+        place)."""
+        e = self.engine
+        ls = e.loss_scale_state
+        return {
+            "params": e.params,
+            "loss_scale": {
+                "scale": torch.tensor(ls.scale, dtype=torch.float64),
+                "good_steps": torch.tensor(ls.good_steps)},
+            "opt_master": e.opt_state.master,
+            "opt_mu": e.opt_state.mu,
+            "opt_nu": e.opt_state.nu,
+            "opt_count": torch.tensor(e.opt_state.count),
+        }
+
+    def _rconfig(self) -> Tuple[bool, bool]:
+        """(manifest on, checksums on) from the resilience block."""
+        r = self.engine.config.resilience
+        on = r.enabled and r.manifest
+        return on, r.manifest_checksums
+
+    # -- save ----------------------------------------------------------
+    def save(self, save_dir: str, tag: Optional[str] = None,
+             client_state: Optional[Dict] = None, save_latest: bool = True):
+        e = self.engine
+        self.commit_pending()  # at most one async save in flight
+        tag = tag or f"global_step{e.global_steps}"
+        ckpt_dir = os.path.join(os.path.abspath(save_dir), str(tag))
+        os.makedirs(ckpt_dir, exist_ok=True)
+
+        self.ckpt_engine.save(os.path.join(ckpt_dir, STATE_DIR), self._state())
+
+        # data-pipeline cursor: consumed GAS boundaries + loader state,
+        # snapshotted at this boundary so auto-resume replays the exact
+        # remaining batch stream (resilience/resume.py)
+        try:
+            cursor = data_cursor(e)
+        except Exception as err:
+            logger.warning(f"data cursor snapshot failed: {err}")
+            cursor = {}
+        meta = {
+            "tag": str(tag),
+            "framework_version": FRAMEWORK_VERSION,
+            "saved_at": time.time(),
+            "global_steps": e.global_steps,
+            "global_samples": e.global_samples,
+            "skipped_steps": e.skipped_steps,
+            "mesh_shape": dict(MESH_SHAPE),
+            "world_size": 1,
+            "zero_stage": e.config.zero_optimization.stage,
+            "data_cursor": cursor,
+            "config": e.config.to_dict(),
+            "client_state": client_state or {},
+        }
+        if e.config.checkpoint.async_save:
+            # decoupled: 'latest' is published at commit (next GAS boundary
+            # or the next save/load), reference engine.py:3273
+            self._pending_commit = (str(tag), save_dir, ckpt_dir, meta,
+                                    save_latest)
+            logger.info(f"checkpoint save in flight: {ckpt_dir}")
+            return ckpt_dir
+        self._publish(str(tag), save_dir, ckpt_dir, meta, save_latest)
+        logger.info(f"saved checkpoint: {ckpt_dir}")
+        return ckpt_dir
+
+    def _publish(self, tag, save_dir, ckpt_dir, meta, save_latest):
+        """Metadata + manifest + 'latest' pointer, only after the payload
+        is durable. Ordering matters: the manifest (the durability
+        witness) goes down before 'latest', so 'latest' never names a
+        checkpoint without one."""
+        with open(os.path.join(ckpt_dir, METADATA_FILE), "w") as f:
+            json.dump(meta, f, indent=2, default=str)
+        if self._rconfig()[0]:
+            write_manifest(
+                ckpt_dir, tag,
+                global_steps=int(meta.get("global_steps", 0)),
+                world={"mesh_shape": meta.get("mesh_shape", {}),
+                       "process_count": 1, "device_count": 1},
+                data_cursor=meta.get("data_cursor", {}))
+        if save_latest:
+            with open(os.path.join(os.path.abspath(save_dir),
+                                   LATEST_FILE), "w") as f:
+                f.write(str(tag))
+
+    def commit_pending(self):
+        """Block until an in-flight async save is durable, then publish;
+        a failed write raises and publishes nothing."""
+        if self._pending_commit is None:
+            return
+        tag, save_dir, ckpt_dir, meta, save_latest = self._pending_commit
+        self._pending_commit = None
+        self.ckpt_engine.commit(tag)
+        self._publish(tag, save_dir, ckpt_dir, meta, save_latest)
+        logger.info(f"saved checkpoint: {ckpt_dir}")
+
+    def maybe_commit(self):
+        """Polled at GAS boundaries (reference engine.py:3273): publish a
+        finished async save; a failed write abandons it and raises."""
+        if self._pending_commit is None:
+            return
+        try:
+            done = self.ckpt_engine.maybe_finalize()
+        except Exception:
+            self._pending_commit = None
+            raise
+        if done:
+            self.commit_pending()
+
+    # -- load ----------------------------------------------------------
+    def load(self, load_dir: str, tag: Optional[str] = None,
+             load_optimizer_states: bool = True
+             ) -> Tuple[Optional[str], Optional[Dict]]:
+        e = self.engine
+        self.commit_pending()
+        load_dir = os.path.abspath(load_dir)
+        if tag is None:
+            latest = os.path.join(load_dir, LATEST_FILE)
+            if os.path.exists(latest):
+                with open(latest) as f:
+                    tag = f.read().strip()
+        ckpt_dir = os.path.join(load_dir, str(tag)) if tag else ""
+        dir_ok = bool(tag) and os.path.isdir(ckpt_dir)
+        meta: Dict[str, Any] = {}
+        if dir_ok:
+            meta_path = os.path.join(ckpt_dir, METADATA_FILE)
+            if os.path.exists(meta_path):
+                with open(meta_path) as f:
+                    meta = json.load(f)
+        # manifest validation: a torn or corrupt save is REFUSED here,
+        # before any tensor restore — a silent bad restore is worse than
+        # a failed one
+        manifest_doc = manifest_err = None
+        check_manifest, checksums = self._rconfig()
+        t0 = time.perf_counter()
+        if dir_ok and check_manifest:
+            try:
+                manifest_doc = validate_manifest(ckpt_dir,
+                                                 check_checksums=checksums)
+            except CheckpointCorruptError as err:
+                manifest_err = err
+        validate_s = time.perf_counter() - t0
+        if tag is None:
+            logger.warning(f"no '{LATEST_FILE}' file at {load_dir}; "
+                           "nothing loaded")
+            return None, None
+        if not dir_ok:
+            raise FileNotFoundError(f"checkpoint not found: {ckpt_dir}")
+        if manifest_err is not None:
+            telemetry.count("resilience.corrupt_checkpoint",
+                            reason=str(tag))
+            fallback = find_latest_valid_tag(load_dir, exclude=[str(tag)],
+                                             check_checksums=checksums)
+            if fallback is None:
+                raise manifest_err
+            logger.error(
+                f"checkpoint '{tag}' failed manifest validation "
+                f"({manifest_err.reason}); falling back to the previous "
+                f"good tag '{fallback}'")
+            return self.load(load_dir, tag=fallback,
+                             load_optimizer_states=load_optimizer_states)
+        if manifest_doc is None and check_manifest:
+            logger.warning(
+                f"checkpoint '{tag}' has no manifest (saved before the "
+                "resilience subsystem, or by a non-primary writer): "
+                "accepting without integrity verification")
+
+        t0 = time.perf_counter()
+        state = self._state()
+        # the optimizer payloads (~3x the param bytes) are not read at
+        # all when they are not wanted
+        skip = () if load_optimizer_states else OPTIMIZER_KEYS
+        nbytes, _ = self.ckpt_engine.load(os.path.join(ckpt_dir, STATE_DIR),
+                                          state, skip=skip)
+        with torch.no_grad():
+            if load_optimizer_states:
+                e.opt_state.count = int(state["opt_count"])
+            else:
+                # masters drive the next update — re-seed them from the
+                # restored params or the step rolls the model back to init
+                logger.warning("optimizer state not restored: masters "
+                               "re-seeded from params, moments reset")
+                for (_, m), (_, p) in zip(leaves(e.opt_state.master),
+                                          leaves(e.params)):
+                    m.copy_(p)
+                for _, t in (*leaves(e.opt_state.mu),
+                             *leaves(e.opt_state.nu)):
+                    t.zero_()
+                e.opt_state.count = 0
+        if e.device.type == "cuda":
+            torch.cuda.synchronize(e.device)
+        ls = state["loss_scale"]
+        e.loss_scale_state = LossScaleState(float(ls["scale"]),
+                                            int(ls["good_steps"]))
+        e.global_steps = int(meta.get("global_steps", e.opt_state.count))
+        e.global_samples = int(meta.get("global_samples", 0))
+        e.skipped_steps = int(meta.get("skipped_steps", 0))
+        # data-pipeline cursor for deterministic auto-resume
+        # (engine.resume_data_iter / resilience/resume.py); the manifest
+        # copy wins — it is only written for fully-durable saves
+        e.loaded_data_cursor = ((manifest_doc or {}).get("data_cursor")
+                                or meta.get("data_cursor") or None)
+        self.last_load_s = {"validate": validate_s,
+                            "read": time.perf_counter() - t0,
+                            "bytes_read": nbytes}
+        logger.info(f"loaded checkpoint: {ckpt_dir} (tag={tag})")
+        return ckpt_dir, meta.get("client_state", {})
+
+
+def module_state_keys(tree) -> Dict[str, torch.Tensor]:
+    """``"."``-joined tree paths to leaves: the keys of the JAX engine's
+    ``module_state_dict`` for the same model."""
+    return {path.strip("/").replace("/", "."): t
+            for path, t in leaves(tree)}
+
+
+__all__ = ["CheckpointIO", "LATEST_FILE", "METADATA_FILE", "STATE_DIR",
+           "module_state_keys"]

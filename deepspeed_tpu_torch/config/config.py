@@ -6,8 +6,9 @@ Parsed: the batch triple and its solver (``resolve_batch_size``),
 ``fp16`` blocks, ``optimizer``, ``scheduler``,
 ``zero_optimization.stage``, the ``moe`` block (``ep_size`` 1), the
 ``serving`` block (``ServingConfig``, the serving engine's knobs), the
-``sparse_attention`` block (``SparseAttentionConfig``) and the
-``kernels`` block (``KernelsConfig``). A
+``sparse_attention`` block (``SparseAttentionConfig``), the
+``kernels`` block (``KernelsConfig``) and the ``checkpoint`` and
+``resilience`` blocks (``CheckpointConfig``, ``ResilienceConfig``). A
 block or switch of the JAX schema that this package does not run raises
 ``NotImplementedError`` naming its ROADMAP item: nothing the JAX engine
 would act on is silently ignored.
@@ -36,8 +37,6 @@ UNPORTED_BLOCKS = {
                                 "policies; the model's `remat` switch "
                                 "recomputes every layer)",
     "performance": f"{_A} 4 (dispatch-ahead, input prefetch, fp8 MLP)",
-    "checkpoint": f"{_A} 6 (checkpoint and resilience)",
-    "resilience": f"{_A} 6 (checkpoint and resilience)",
     "observability": f"{_A} 14 (observability)",
     "monitor": f"{_A} 14 (observability)",
     "comms_logger": f"{_A} 14 (observability)",
@@ -320,6 +319,83 @@ class KernelsConfig:
                     f"({_A} 3)")
 
 
+@dataclass
+class CheckpointConfig:
+    """The ``checkpoint`` block (reference runtime/config.py:439-471).
+    ``async_save`` selects the decoupled checkpoint engine;
+    ``tag_validation`` (Ignore | Warn | Fail, for a checkpoint saved on
+    another mesh) and ``use_node_local_storage`` have no effect on one
+    card, where every checkpoint is saved on the one-device mesh. ``load_universal`` and ``parallel_write_pipeline``
+    raise (ROADMAP queue A items 16 and 12)."""
+
+    tag_validation: str = "Warn"  # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write_pipeline: bool = False
+    async_save: bool = False
+
+    def validate(self) -> None:
+        if self.load_universal:
+            raise _unported("checkpoint.load_universal=True",
+                            f"{_A} 16 (universal checkpoints)")
+        if self.parallel_write_pipeline:
+            raise _unported(
+                "checkpoint.parallel_write_pipeline=True",
+                f"{_A} 12 (the fast checkpoint engine over the AIO "
+                "writer, with offload)")
+
+
+@dataclass
+class ResilienceConfig:
+    """The ``resilience`` block, with the JAX schema and validation.
+
+    ``preemption_guard`` installs a SIGTERM listener on the engine: the
+    first signal forces an emergency checkpoint at the next GAS boundary
+    within ``preemption_save_deadline_s``, into ``emergency_save_dir``
+    (default: the directory of the last ``save_checkpoint``); a second
+    signal escalates to immediate shutdown. ``manifest`` writes a
+    per-tag manifest (per-file sizes and crc32, data cursor) at publish
+    and validates it at load, falling back to the previous good tag;
+    ``manifest_checksums`` controls the crc32 pass at load. The
+    deadlines and retries (``init_timeout_s`` through ``jitter``) bound
+    the multi-process control-plane operations, of which one card has
+    none (they arrive with ROADMAP queue A item 5)."""
+
+    enabled: bool = True
+    preemption_guard: bool = True
+    preemption_save_deadline_s: float = 60.0
+    emergency_save_dir: Optional[str] = None
+    manifest: bool = True
+    manifest_checksums: bool = True
+    init_timeout_s: Optional[float] = None
+    collective_timeout_s: Optional[float] = None
+    max_retries: int = 2
+    backoff_base_s: float = 1.0
+    backoff_max_s: float = 30.0
+    jitter: float = 0.25
+
+    def validate(self) -> None:
+        if self.preemption_save_deadline_s <= 0:
+            raise ValueError(
+                f"resilience.preemption_save_deadline_s must be > 0, got "
+                f"{self.preemption_save_deadline_s}")
+        if self.max_retries < 0:
+            raise ValueError(
+                f"resilience.max_retries must be >= 0, got "
+                f"{self.max_retries}")
+        for name in ("backoff_base_s", "backoff_max_s", "jitter"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"resilience.{name} must be >= 0, got "
+                    f"{getattr(self, name)}")
+        for name in ("init_timeout_s", "collective_timeout_s"):
+            val = getattr(self, name)
+            if val is not None and val <= 0:
+                raise ValueError(
+                    f"resilience.{name} must be > 0 (or null for "
+                    f"unbounded), got {val}")
+
+
 def _block(klass, data, name):
     """A dataclass block from a dict (None means defaults); unknown keys
     warn, as the JAX ConfigModel does."""
@@ -355,6 +431,8 @@ class Config:
     serving: ServingConfig = field(default_factory=ServingConfig)
     sparse_attention: Optional[SparseAttentionConfig] = None
     kernels: KernelsConfig = field(default_factory=KernelsConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
 
     @classmethod
     def from_dict(cls, data: Optional[Dict[str, Any]]) -> "Config":
@@ -377,7 +455,7 @@ class Config:
             zero.pop(name, None)
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
                   "zero_optimization", "moe", "serving", "sparse_attention",
-                  "kernels"}
+                  "kernels", "checkpoint", "resilience"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         known = (scalars | blocks
                  | set(UNPORTED_BLOCKS) | set(UNPORTED_SWITCHES))
@@ -400,9 +478,17 @@ class Config:
                               else _block(SparseAttentionConfig,
                                           data["sparse_attention"],
                                           "sparse_attention")),
-            kernels=_block(KernelsConfig, data.get("kernels"), "kernels"))
+            kernels=_block(KernelsConfig, data.get("kernels"), "kernels"),
+            checkpoint=_block(CheckpointConfig, data.get("checkpoint"),
+                              "checkpoint"),
+            resilience=_block(ResilienceConfig, data.get("resilience"),
+                              "resilience"))
         cfg.validate()
         return cfg
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The config as nested dicts (the checkpoint's metadata.json)."""
+        return dataclasses.asdict(self)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -423,6 +509,8 @@ class Config:
         if self.sparse_attention is not None:
             self.sparse_attention.validate()
         self.kernels.validate()
+        self.checkpoint.validate()
+        self.resilience.validate()
 
     def resolve_batch_size(self, dp_world_size: int) -> None:
         """Solve train_batch = micro x GAS x dp (the JAX solver,
@@ -492,4 +580,5 @@ def load_config(config) -> Config:
 
 __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "BF16Config",
            "FP16Config", "ZeroConfig", "MoEConfig", "ServingConfig",
-           "SparseAttentionConfig", "KernelsConfig", "load_config"]
+           "SparseAttentionConfig", "KernelsConfig", "CheckpointConfig",
+           "ResilienceConfig", "load_config"]

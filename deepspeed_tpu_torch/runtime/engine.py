@@ -36,15 +36,27 @@ the model's forward runs in that dtype. ZeRO stages 0-3 are accepted and
 are the same math at world size 1; sharding over ranks is ROADMAP queue
 A item 5.
 
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``,
+``checkpoint/state.py``) and the resilience layer follow the JAX engine:
+a data cursor in every checkpoint (``resume_data_iter``), the chaos
+injector's step and input hooks (armed only by ``DSTPU_CHAOS``), a
+finished async save published at the next GAS boundary, and the
+``PreemptionGuard``: after a preemption notice the next GAS boundary
+lands an emergency checkpoint and sets ``preempted``. A checkpoint saved
+inside an accumulation window holds the state of the last update, as in
+JAX: the fp32 accumulators are not state, and the cursor counts whole
+windows, so a resume replays the window's microbatches.
+
 Not ported yet (ROADMAP queue A item 4 and later): dispatch-ahead, the
-input prefetcher, checkpoints, client optimizers and LR schedulers, and
-the watchdog, flight recorder, observability hub and chaos hooks.
+input prefetcher, client optimizers and LR schedulers, and the watchdog,
+flight recorder and observability hub.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 import weakref
 from typing import Any, Dict, List, Optional
 
@@ -52,12 +64,19 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
+from deepspeed_tpu_torch.checkpoint.state import (CheckpointIO,
+                                                  module_state_keys)
 from deepspeed_tpu_torch.config.config import Config, load_config
 from deepspeed_tpu_torch.models import moe_transformer
 from deepspeed_tpu_torch.models.transformer import loss_fn
 from deepspeed_tpu_torch.ops import attention as attn_ops
 from deepspeed_tpu_torch.ops.blocksparse_attention import \
     from_config as sparse_from_config
+from deepspeed_tpu_torch.resilience import resume
+from deepspeed_tpu_torch.resilience.chaos import get_chaos_injector
+from deepspeed_tpu_torch.resilience.policy import (_DeadlineExpired,
+                                                   run_with_deadline)
+from deepspeed_tpu_torch.resilience.preemption import PreemptionGuard
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
                                                      init_loss_scale,
@@ -169,6 +188,8 @@ class Engine:
             for _, p in leaves(self.params):
                 p.register_post_accumulate_grad_hook(fold)
 
+        self._init_resilience()
+        self._ckpt_io = CheckpointIO(self)
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
@@ -191,6 +212,24 @@ class Engine:
             f"{self.micro_batch_size}, gas="
             f"{self.gradient_accumulation_steps}, dtype={cdt}, "
             f"device={self.device}")
+
+    def _init_resilience(self) -> None:
+        """The resilience block (JAX ``engine.py:481-512``):
+        PreemptionGuard (SIGTERM -> emergency checkpoint at the next GAS
+        boundary) and the chaos injector, armed only when DSTPU_CHAOS is
+        set."""
+        self.preempted = False
+        self.loaded_data_cursor = None  # manifest cursor from last load
+        self._last_save_dir = None      # emergency-save fallback target
+        self._last_data_iter = None     # data_cursor loader-state source
+        rcfg = self.config.resilience
+        inj = get_chaos_injector()
+        self._chaos = inj if inj.armed else None
+        self._preempt_guard = None
+        if rcfg.enabled and rcfg.preemption_guard:
+            self._preempt_guard = PreemptionGuard(
+                save_deadline_s=rcfg.preemption_save_deadline_s)
+            self._preempt_guard.install()
 
     def _install_sparse_layout(self) -> None:
         """The ``sparse_attention`` block into the process-global
@@ -245,6 +284,8 @@ class Engine:
     def _next_microbatches(self, data_iter, n: int):
         out = []
         for i in range(n):
+            if self._chaos is not None:
+                self._chaos.on_input_batch()
             try:
                 out.append(next(data_iter))
             except StopIteration:
@@ -284,8 +325,11 @@ class Engine:
                 raise ValueError("train_batch needs data_iter or "
                                  "training_data")
             data_iter = iter(self.training_dataloader)
+        self._last_data_iter = data_iter  # data_cursor loader-state source
         batches = self._next_microbatches(data_iter,
                                           self.gradient_accumulation_steps)
+        if self._chaos is not None:
+            self._chaos.on_step(self.global_steps + 1)
         micro = []
         for mb in batches:
             loss, aux = self._loss_fn(self.model_config, self.params, mb)
@@ -331,7 +375,51 @@ class Engine:
         if self.global_steps % self.config.steps_per_print == 0:
             logger.info(f"step={self.global_steps}, loss={float(mean_loss):.4f}, "
                         f"lr={lr:.3e}, grad_norm={float(gnorm):.3f}")
+        # the GAS boundary: publish a finished async save, then land an
+        # emergency checkpoint after a preemption notice (JAX
+        # engine.py:1217,1233-1238)
+        self._ckpt_io.maybe_commit()
+        if (self._preempt_guard is not None
+                and self._preempt_guard.should_checkpoint()):
+            self._emergency_checkpoint()
         return mean_loss
+
+    def _emergency_checkpoint(self) -> None:
+        """Preemption-notice path: save and force-commit, bounded by
+        ``resilience.preemption_save_deadline_s``. Sets ``preempted`` so
+        the training loop can exit cleanly; a torn save is harmless (no
+        manifest => auto-resume falls back to the previous good tag)."""
+        guard = self._preempt_guard
+        save_dir = (self.config.resilience.emergency_save_dir
+                    or self._last_save_dir)
+        self.preempted = True
+        if save_dir is None:
+            logger.error(
+                "resilience: preemption notice but no checkpoint dir is "
+                "known (no prior save_checkpoint and no "
+                "resilience.emergency_save_dir) — exiting WITHOUT an "
+                "emergency save")
+            return
+        t0 = time.perf_counter()
+
+        def _save():
+            self.save_checkpoint(save_dir)
+            self._ckpt_io.commit_pending()  # async engines: force durable
+
+        try:
+            run_with_deadline(_save, guard.save_deadline_s,
+                              name="preempt_save")
+        except _DeadlineExpired:
+            logger.error(
+                f"resilience: emergency checkpoint blew its "
+                f"{guard.save_deadline_s:g}s deadline — exiting with the "
+                "save incomplete (manifest validation will reject it and "
+                "resume from the previous good tag)")
+            return
+        logger.warning(
+            f"resilience: emergency checkpoint committed to {save_dir} "
+            f"in {time.perf_counter() - t0:.2f}s; engine.preempted=True — "
+            "stop training and exit")
 
     # -- micro-step API (JAX engine.py:1387-1445) ---------------------------
     def forward(self, batch) -> torch.Tensor:
@@ -393,6 +481,62 @@ class Engine:
 
     def get_global_grad_norm(self) -> Optional[torch.Tensor]:
         return self._last_grad_norm
+
+    # -- checkpoints (JAX engine.py:2010-2105) ---------------------------
+    def module_state_dict(self) -> Dict[str, np.ndarray]:
+        """Host copy of the compute params: ``"."``-joined tree path ->
+        numpy array (the JAX engine's keys for the same model; bf16
+        leaves come back as fp32, numpy having no bf16)."""
+        return {k: (t.detach().float() if t.dtype == torch.bfloat16
+                    else t.detach()).cpu().numpy()
+                for k, t in module_state_keys(self.params).items()}
+
+    @torch.no_grad()
+    def load_module_state_dict(self, state_dict, strict: bool = True):
+        """Inverse of :meth:`module_state_dict`: each array into its fp32
+        master and the compute param, in place (the JAX engine sets the
+        params only, and its next update recasts them from the masters).
+        ``strict`` raises KeyError on missing AND unexpected keys."""
+        own = module_state_keys(self.params)
+        missing = sorted(set(own) - set(state_dict))
+        unexpected = sorted(set(state_dict) - set(own))
+        if strict and (missing or unexpected):
+            raise KeyError(
+                f"missing keys: {missing[:5]}"
+                f"{'...' if len(missing) > 5 else ''}; unexpected keys: "
+                f"{unexpected[:5]}{'...' if len(unexpected) > 5 else ''}")
+        masters = module_state_keys(self.opt_state.master)
+        for key, p in own.items():
+            if key in state_dict:
+                masters[key].copy_(torch.as_tensor(
+                    np.asarray(state_dict[key], dtype=np.float32)))
+                p.copy_(masters[key])
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest: bool = True):
+        self._last_save_dir = save_dir  # emergency-save fallback target
+        return self._ckpt_io.save(save_dir, tag=tag,
+                                  client_state=client_state,
+                                  save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None,
+                        load_module_strict: bool = True,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True):
+        """Returns (checkpoint dir, client_state), or (None, None) when
+        ``load_dir`` has no ``latest``. The LR schedule's position comes
+        back with the optimizer's update count."""
+        return self._ckpt_io.load(
+            load_dir, tag=tag, load_optimizer_states=load_optimizer_states)
+
+    def resume_data_iter(self, data_iter, source=None):
+        """Position ``data_iter`` at the first microbatch the checkpoint
+        never consumed, using the data cursor of the last
+        ``load_checkpoint`` (no-op on a fresh run). ``source`` names the
+        loader (e.g. a ``RepeatingLoader``) whose ``load_state_dict``
+        restores its epoch."""
+        return resume.resume_data_iter(data_iter, self.loaded_data_cursor,
+                                       source=source)
 
 
 __all__ = ["initialize", "Engine"]

@@ -1,9 +1,11 @@
 """Optimizer construction and mixed-precision master weights (port of
 ``deepspeed_tpu/runtime/optimizer.py``).
 
-``get_base_optimizer`` maps the config's optimizer name to an
-:class:`Adam` with optax's numerics: ``adam`` / ``adamw`` and their
-aliases. Other optimizers raise, naming the ROADMAP item.
+``get_base_optimizer`` maps the config's optimizer name (case and
+``_`` ignored, as in JAX) to an :class:`Adam` with optax's numerics:
+``adam`` / ``adamw`` and their aliases. Params it has no use for warn
+and are ignored, as in JAX. Other optimizers raise, naming the ROADMAP
+item.
 
 ``MixedPrecisionState`` holds fp32 masters and fp32 Adam moments;
 ``apply_mixed_precision_update`` is one optimizer step with the JAX
@@ -19,10 +21,13 @@ would be 11 GB.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 ADAM_ALIASES = {"adam", "fusedadam", "cpuadam"}
 ADAMW_ALIASES = {"adamw", "fusedadamw"}
@@ -77,7 +82,7 @@ def get_base_optimizer(opt_config, lr_schedule: Optional[Callable] = None
         from deepspeed_tpu_torch.config.config import OptimizerConfig
 
         opt_config = OptimizerConfig(type="adamw", params={})
-    name = opt_config.type.lower().replace("_", "").replace("-", "")
+    name = opt_config.type.lower().replace("_", "")
     p = dict(opt_config.params or {})
     lr = p.pop("lr", 1e-3)
     betas = p.pop("betas", (0.9, 0.999))
@@ -86,6 +91,9 @@ def get_base_optimizer(opt_config, lr_schedule: Optional[Callable] = None
                          0.01 if name in ADAMW_ALIASES else 0.0)
     p.pop("torch_adam", None)
     p.pop("adam_w_mode", None)
+    if p:  # DeepSpeed-style keys optax has no use for (bias_correction, ...)
+        logger.warning(f"optimizer '{opt_config.type}': ignoring params "
+                       f"{sorted(p)}")
     if name in UNPORTED_OPTIMIZERS:
         raise NotImplementedError(
             f"optimizer '{opt_config.type}' is not ported to "
@@ -93,9 +101,6 @@ def get_base_optimizer(opt_config, lr_schedule: Optional[Callable] = None
             "optimizers: lion, lamb, adafactor, muon, 1-bit)")
     if name not in ADAM_ALIASES | ADAMW_ALIASES:
         raise ValueError(f"unknown optimizer type '{opt_config.type}'")
-    if p:
-        raise ValueError(f"optimizer '{opt_config.type}': unknown params "
-                         f"{sorted(p)}")
     tx = Adam(lr=lr_schedule if lr_schedule is not None else lr,
               b1=float(betas[0]), b2=float(betas[1]), eps=float(eps),
               weight_decay=float(weight_decay),

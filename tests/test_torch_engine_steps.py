@@ -305,6 +305,11 @@ def test_sparse_wiring_overrides_warns_and_clears(caplog):
     ({"kernels": {"pages_per_compute_block": 0}}, ValueError, ">= 1"),
     ({"kernels": {"dispatch": "table"}}, ValueError, "auto|heuristic"),
     ({"kernels": {"table_path": "t.json"}}, NotImplementedError, "item 3"),
+    ({"resilience": {"preemption_save_deadline_s": 0}}, ValueError, "> 0"),
+    ({"resilience": {"max_retries": -1}}, ValueError, ">= 0"),
+    ({"resilience": {"jitter": -0.5}}, ValueError, "jitter must be >= 0"),
+    ({"resilience": {"collective_timeout_s": 0}}, ValueError,
+     "or null for unbounded"),
 ])
 def test_config_blocks_validate_as_jax_does(block, err, match):
     from deepspeed_tpu_torch.config.config import load_config

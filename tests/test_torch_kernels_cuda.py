@@ -1134,3 +1134,54 @@ def test_blocksparse_wrapper_raises_on_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="head_dim"):
         bs.blocksparse_attention_kernel(q[..., :32], k[..., :32],
                                         v[..., :32], cfg)
+
+
+def test_checkpoint_resume_on_the_card_is_bit_identical(card, tmp_path):
+    """A 2-layer model trained on the card (bf16 on fp32 masters, GAS 2,
+    the flash kernels at head dim 128 with remat), saved, resumed in a
+    fresh engine from other weights: the losses equal the uninterrupted
+    run's bit for bit, every flash launch on the tensor-core kernels."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.runtime import dataloader as dl
+
+    def engine(seed):
+        model = zoo.get_model("tiny", device=card, seed=seed,
+                              dtype=torch.float32, hidden_size=256,
+                              num_heads=2, num_kv_heads=2, max_seq_len=256,
+                              attn_impl="flash", remat=True)
+        return deepspeed_tpu_torch.initialize(model=model, config={
+            "train_micro_batch_size_per_chip": 2,
+            "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "scheduler": {"type": "WarmupLR",
+                          "params": {"warmup_num_steps": 4}},
+            "gradient_clipping": 1.0, "steps_per_print": 10_000})[0]
+
+    def loader():
+        rng = np.random.default_rng(7)
+        rows = [{"input_ids": rng.integers(0, 256, (257,)).astype(np.int32)}
+                for _ in range(12)]
+        return dl.RepeatingLoader(dl.DeepSpeedDataLoader(
+            rows, batch_size=2, shuffle=True, seed=7))
+
+    eng = engine(0)
+    it = loader()
+    got = [float(eng.train_batch(it)) for _ in range(2)]
+    eng.save_checkpoint(str(tmp_path))
+    ref = got + [float(eng.train_batch(it)) for _ in range(3)]
+    del eng, it
+    eng = engine(1)
+    eng.load_checkpoint(str(tmp_path))
+    src = loader()
+    it = eng.resume_data_iter(src, source=src)
+    fa.reset_launch_counts()
+    got += [float(eng.train_batch(it)) for _ in range(3)]
+    assert got == ref
+    # 2 layers x GAS 2 x 3 steps: forward and its remat replay, dK/dV, dQ
+    assert fa.LAUNCHES == {"flash_fwd": 24, "flash_bwd_dkdv": 12,
+                           "flash_bwd_dq": 12}
+    assert {k: v for k, v in fa.VARIANT_LAUNCHES.items() if v} == {
+        "flash_fwd/wgmma": 24, "flash_bwd_dkdv/wgmma": 12,
+        "flash_bwd_dq/wgmma": 12}

@@ -42,13 +42,17 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     assert len(files) >= 15
-    # the quantized-serving and block-sparse modules are among the files
-    # checked
+    # the quantized-serving, block-sparse, checkpoint and resilience
+    # modules are among the files checked
     rel = {os.path.relpath(p, PKG) for p in files}
     assert {"ops/quantization.py", "ops/fp_quantizer.py",
             "inference/weight_quant.py",
             "inference/ragged/kv_tier.py", "ops/blocksparse_attention.py",
-            "runtime/dataloader.py"} <= rel
+            "runtime/dataloader.py", "checkpoint/state.py",
+            "runtime/checkpoint_engine.py", "utils/telemetry.py",
+            "resilience/__init__.py", "resilience/chaos.py",
+            "resilience/manifest.py", "resilience/policy.py",
+            "resilience/preemption.py", "resilience/resume.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
@@ -100,6 +104,17 @@ def test_unported_options_raise():
     assert cfg.kernels.blocksparse_block == 64
     with pytest.raises(NotImplementedError, match="item 3"):
         load_config({"kernels": {"table_path": "table.json"}})
+    # the checkpoint and resilience blocks are ported; of the checkpoint
+    # block, universal checkpoints and the AIO write pipeline are not
+    assert not {"checkpoint", "resilience"} & set(UNPORTED_BLOCKS)
+    cfg = load_config({"checkpoint": {"async_save": True},
+                       "resilience": {"manifest_checksums": False}})
+    assert cfg.checkpoint.async_save
+    assert not cfg.resilience.manifest_checksums
+    with pytest.raises(NotImplementedError, match="item 16"):
+        load_config({"checkpoint": {"load_universal": True}})
+    with pytest.raises(NotImplementedError, match="item 12"):
+        load_config({"checkpoint": {"parallel_write_pipeline": True}})
 
 
 def test_seeded_init_is_reproducible_at_the_jax_scales():
