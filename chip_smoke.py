@@ -183,11 +183,45 @@ Phases, each fatal on failure:
                fixed layout, the flash path and the masked form on a
                dense layout: the last two must give the same losses
                within 2% at every step.
+  10. offload — after phase 9, once its engines are freed: ZeRO-Offload
+               (``zero_optimization.offload_optimizer``), the fp32
+               masters and AdamW moments on the host, stepped by the
+               native CPU Adam (``csrc/adam`` built with g++). 10a:
+               Llama-3-8B at full width, as deep as the host holds (12
+               bytes of host state a parameter against MemAvailable and
+               the command's 96 GiB, less 6 GB: the cut and its
+               reckoning are printed; 32 layers need 96.4 GB), bf16 on
+               fp32 host masters, AdamW lr 3e-4, ZeRO-3 config, clip 1.0,
+               ``offload_optimizer`` cpu with pinned staging, micro 2 x
+               GAS 1 x 2048 over phase 4's fixed batches: one warm-up and
+               three measured steps (flash launches exactly what remat
+               implies, all on the tensor-core kernels; finite, falling
+               losses; the native library in use), the step split into
+               device forward/backward, norm, device->host, host
+               optimizer and host->device (the copies' stream time
+               beside them), tokens/s, MFU on phase 4's formula, the
+               card's peak memory at init and in training, the host's
+               RSS, then one step under torch.profiler (the device's
+               idle share with and without the copies). 10b: phase 9's
+               2-layer model from one seed under the device optimizer,
+               the cpu tier and the NVMe tier (a temporary directory,
+               free space checked first), 3 steps each: cpu and nvme
+               losses equal, device and cpu within 3e-3 (JAX's
+               tolerance), the swap directory holds files; on the device
+               engine ``offload_states`` / ``reload_states`` frees the
+               card's bytes and restores every leaf bit for bit. 10c:
+               the cpu-tier engine saves through
+               ``checkpoint.parallel_write_pipeline`` (the AIO writer); a
+               fresh engine from another seed loads it and its 2 resumed
+               losses equal the uninterrupted run's bit for bit (flash
+               launches all tensor-core); save and load seconds and GB/s
+               beside phase 9's sync save. The phase's wall is printed.
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
-sparse train and checkpoint lines, the run's seconds, the card's name
-and power limit (nvidia-smi), and, last, the device line.
+sparse train, checkpoint, offload, offload profile, offload parity and
+offload checkpoint lines, the run's seconds, the card's name and power
+limit (nvidia-smi), and, last, the device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
 package is not beside it.
@@ -374,6 +408,28 @@ CKPT_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
                               "params": {"warmup_num_steps": 10}})
 # the engine B of phase 9: async saves
 CKPT_ASYNC_CONFIG = dict(CKPT_CONFIG, checkpoint={"async_save": True})
+# phase 10: ZeRO-Offload (fp32 masters and AdamW moments on the host,
+# the native CPU Adam). 10a: Llama-3-8B at full width and as deep as the
+# host holds (12 bytes of host state a parameter), micro 2 x GAS 1 x
+# 2048 over phase 4's fixed batches, 1 warm-up and 3 measured steps;
+# 10b / 10c: phase 9's 2 layers, 3 steps a tier, 2 resumed steps
+OFFLOAD_MICRO, OFFLOAD_MEASURED, OFFLOAD_SMALL_STEPS, OFFLOAD_RESUMED = \
+    2, 3, 3, 2
+OFFLOAD_CONFIG = dict(TRAIN_CONFIG,
+                      train_micro_batch_size_per_chip=OFFLOAD_MICRO,
+                      gradient_accumulation_steps=1,
+                      zero_optimization={"stage": 3, "offload_optimizer": {
+                          "device": "cpu", "pin_memory": True}})
+OFFLOAD_DEVICE_CONFIG = dict(OFFLOAD_CONFIG, zero_optimization={"stage": 3})
+# host memory beyond the optimizer state that the full-depth run leaves
+# free (allocator slack, the profiler's buffers, the kernel's reserve)
+OFFLOAD_HOST_MARGIN = 6e9
+# the host memory a one-card H100 command may use (96 GiB, less than the
+# host's MemTotal); a cgroup limit, where one is set, is read as well
+HOST_LIMIT_BYTES = 96 << 30
+# device optimizer vs host offload: JAX's tolerance
+# (tests/test_offload.py:236)
+OFFLOAD_TOL_REL = 3e-3
 
 
 def fail(msg):
@@ -1433,18 +1489,30 @@ def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+
+    def union(spans):
+        spans = sorted(spans)
+        if not spans:
+            return 0.0
+        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        return busy + cur_e - cur_s
+
+    busy = union(spans)
+    # the same union without the memcpy / memset engines' spans
+    compute = union([(e.time_range.start, e.time_range.end) for e in kern
+                     if "memcpy" not in e.name.lower()
+                     and "memset" not in e.name.lower()])
     return {"device_time_measured": True, "wall_s": wall_s,
             "device_busy_s": busy / 1e6,
             "device_idle_share": 1.0 - busy / 1e6 / wall_s,
+            "device_busy_without_copies_s": compute / 1e6,
+            "device_idle_share_without_copies": 1.0 - compute / 1e6 / wall_s,
             "kernels": len(kern),
             f"kernels_per_{unit}": len(kern) / units,
             "by_family": fams,
@@ -1765,6 +1833,373 @@ def checkpoint_phase(torch, zoo, initialize, fa, DeepSpeedDataLoader,
         "variant_launches": variants,
     }
     return line, {**launches, **variants}
+
+
+# -- phase 10: offload ----------------------------------------------------------
+
+
+def meminfo():
+    """/proc/meminfo in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            parts = value.split()
+            out[key] = int(parts[0]) * (1024 if parts[1:] == ["kB"] else 1)
+    return out
+
+
+def rss_bytes():
+    """(resident, peak resident) bytes of this process."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        resident = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return resident, peak
+
+
+def free_caches(torch):
+    """Hand the card's and the pinned host allocator's cached blocks
+    back, and the C heap's free pages to the host."""
+    import ctypes
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()
+    trim = getattr(ctypes.CDLL(None), "malloc_trim", None)  # glibc
+    if trim is not None:
+        trim(0)
+
+
+def host_memory_room(mem):
+    """Bytes the process may still allocate: MemAvailable, capped by the
+    command's limit (HOST_LIMIT_BYTES, or a lower cgroup limit) less
+    what the host already holds (MemTotal - MemAvailable)."""
+    limit = min(HOST_LIMIT_BYTES, mem["MemTotal"])
+    for path in ("/sys/fs/cgroup/memory.max",
+                 "/sys/fs/cgroup/memory/memory.limit_in_bytes"):
+        try:
+            with open(path) as f:
+                limit = min(limit, int(f.read().strip()))
+        except (OSError, ValueError):
+            pass  # no such cgroup file, or "max"
+    used = mem["MemTotal"] - mem["MemAvailable"]
+    return min(mem["MemAvailable"], limit - used), limit
+
+
+def offload_depth(zoo, off_mod, mem_available):
+    """The deepest Llama-3-8B whose host optimizer state (12 bytes a
+    parameter: the fp32 master, exp_avg and exp_avg_sq) and staging
+    buffers fit in ``mem_available`` (the room ``host_memory_room``
+    finds) less OFFLOAD_HOST_MARGIN. Returns (layers, the reckoning)."""
+    n1 = zoo.get_config("llama3-8b", num_layers=1).num_params()
+    n2 = zoo.get_config("llama3-8b", num_layers=2).num_params()
+    per_layer, base = n2 - n1, 2 * n1 - n2
+    c = off_mod.CHUNK_ELEMS
+    # 4 fp32 grad buffers (buffer_count's default), an fp32 scratch and
+    # two bf16 output buffers
+    staging = 4 * c * 4 + c * 4 + 2 * c * 2
+    room = mem_available - OFFLOAD_HOST_MARGIN - staging - 12 * base
+    layers = int(max(0, min(32, room // (12 * per_layer))))
+    full = 12 * (base + 32 * per_layer) + staging + OFFLOAD_HOST_MARGIN
+    reason = ("the host holds the full depth" if layers == 32 else
+              f"host room {mem_available / 1e9:.1f} GB < {full / 1e9:.1f}"
+              f" GB needed at 32 layers (12 B a parameter of host state, "
+              f"{staging / 1e9:.2f} GB of staging, "
+              f"{OFFLOAD_HOST_MARGIN / 1e9:.0f} GB margin): "
+              f"{layers} is the deepest that fits")
+    return layers, {"params_base": base, "params_per_layer": per_layer,
+                    "host_state_gb_at_32_layers": 12 * (base + 32 * per_layer)
+                    / 1e9, "staging_gb": staging / 1e9,
+                    "margin_gb": OFFLOAD_HOST_MARGIN / 1e9,
+                    "host_room_gb": mem_available / 1e9,
+                    "layers": layers, "reason": reason}
+
+
+def step_split(wall_s, parts):
+    """One offloaded step's seconds by part: the device forward and
+    backward (the wall up to the optimizer's sync), the norm, the host's
+    waits for the device->host copies, its scaling of bf16 grads, the
+    native step, the NVMe swap and the waits for the host->device
+    copies; the copies' own device time (CUDA events on the copy stream)
+    beside them: they run under the host step."""
+    return {"step_s": wall_s, "fwd_bwd_s": wall_s - parts["total"],
+            "norm_s": parts["norm"], "d2h_wait_s": parts["d2h_wait"],
+            "host_scale_s": parts["scale"],
+            "host_optimizer_s": parts["host_step"],
+            "swap_s": parts["swap"], "h2d_wait_s": parts["h2d_wait"],
+            "d2h_copy_device_s": parts.get("d2h_copy"),
+            "h2d_copy_device_s": parts.get("h2d_copy"),
+            "optimizer_total_s": parts["total"]}
+
+
+def offload_full_depth(torch, zoo, initialize, fa, builder, off_mod):
+    """Phase 10a. Returns (offload line, its profile line, flash
+    launches of the measured steps)."""
+    import resource
+
+    free_caches(torch)
+    torch.cuda.reset_peak_memory_stats()
+    mem = meminfo()
+    room, limit = host_memory_room(mem)
+    memlock = resource.getrlimit(resource.RLIMIT_MEMLOCK)
+    layers, reckoning = offload_depth(zoo, off_mod, room)
+    reckoning.update(mem_available_gb=mem["MemAvailable"] / 1e9,
+                     mem_total_gb=mem["MemTotal"] / 1e9,
+                     host_limit_gb=limit / 1e9)
+    log(f"offload: MemAvailable {mem['MemAvailable'] / 1e9:.1f} GB, "
+        f"limit {limit / 1e9:.1f} GB, room {room / 1e9:.1f} GB, ulimit -l "
+        f"{memlock}; {reckoning['reason']}")
+    if layers < 1:
+        fail(f"offload: the host holds no layer: {reckoning}")
+    t0 = time.perf_counter()
+    model = zoo.get_model("llama3-8b", num_layers=layers,
+                          dtype=torch.float32, seed=SEED)
+    cfg = model.config
+    engine, *_ = initialize(model=model, config=dict(OFFLOAD_CONFIG))
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if engine._offload is None or builder.native_status() != "built":
+        fail(f"offload: the native library is not in use: "
+             f"{builder.native_status()}")
+    native = {"status": builder.native_status(),
+              "library": os.path.basename(builder.require_native_lib()._name)}
+    _, data = fixed_batches(cfg.vocab_size, micro=OFFLOAD_MICRO)
+    losses = [float(engine.train_batch(data))]  # warm-up step
+    warm_split = step_split(float("nan"), engine._offload.last_step_s)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    step_s, parts = [], []
+    for _ in range(OFFLOAD_MEASURED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(data)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        parts.append(dict(engine._offload.last_step_s))
+    launches = dict(fa.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
+    L, steps = layers, OFFLOAD_MEASURED
+    want = {"flash_fwd": steps * 2 * L,  # forward + remat replay, GAS 1
+            "flash_bwd_dkdv": steps * L, "flash_bwd_dq": steps * L}
+    if launches != want:
+        fail(f"offload: flash launches {launches}, remat implies {want}")
+    check_tensor_core("offload", launches, variants,
+                      ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail(f"offload: losses {losses} not finite and falling")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rss, hwm = rss_bytes()
+    median = int(np.argsort(step_s)[len(step_s) // 2])
+    log(f"offload: {L} layers, steps {step_s} s, losses {losses}, split "
+        f"{step_split(step_s[median], parts[median])}")
+    tokens = OFFLOAD_MICRO * TRAIN_SEQ
+    p50 = float(np.median(step_s))
+    flops_tok = 6 * cfg.num_params() + 12 * L * cfg.hidden_size * TRAIN_SEQ
+    host_state = 12 * cfg.num_params()
+    line = {
+        "model": "llama3-8b", "layers": f"{L} of 32",
+        "depth_reckoning": reckoning, "params": cfg.num_params(),
+        "dtype": "bfloat16 compute, fp32 host masters",
+        "offload_optimizer": OFFLOAD_CONFIG["zero_optimization"][
+            "offload_optimizer"],
+        "micro": OFFLOAD_MICRO, "gas": 1, "seq": TRAIN_SEQ,
+        "tokens_per_step": tokens, "init_s": init_s,
+        "step_s": step_s, "step_ms_p50": p50 * 1e3,
+        "step_split_p50": step_split(step_s[median], parts[median]),
+        "warmup_step_split": warm_split,
+        "tokens_per_s": tokens / p50,
+        "mfu": tokens / p50 * flops_tok / PEAK_FLOPS["bfloat16"],
+        "flops_per_token": flops_tok,
+        "host_adam_gparam_per_s": cfg.num_params() / 1e9
+        / parts[median]["host_step"],
+        # the copy stream's busy time (CUDA events), fp32 grads down and
+        # bf16 params up
+        "d2h_gb_per_s": cfg.num_params() * 4 / 1e9
+        / parts[median].get("d2h_copy", float("nan")),
+        "h2d_gb_per_s": cfg.num_params() * 2 / 1e9
+        / parts[median].get("h2d_copy", float("nan")),
+        "init_peak_mem_gb": init_peak_gb, "peak_mem_gb": peak_gb,
+        "host_state_gb": host_state / 1e9, "host_rss_gb": rss / 1e9,
+        "host_rss_peak_gb": hwm / 1e9,
+        "mem_available_before_gb": mem["MemAvailable"] / 1e9,
+        "ulimit_l": list(memlock), "native": native,
+        "losses": losses, "grad_norm": float(engine.get_global_grad_norm()),
+        "global_steps": engine.global_steps, "launches": launches,
+        "launches_per_step": {k: v // steps for k, v in launches.items()},
+        "variant_launches": variants,
+    }
+    from torch.profiler import ProfilerActivity
+
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+    prof.__enter__()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_batch(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.__exit__(None, None, None)
+    profile = device_breakdown(torch, prof, wall, 1, unit="step")
+    profile["step_split"] = step_split(wall, engine._offload.last_step_s)
+    del prof, engine, model
+    free_caches(torch)
+    return line, profile, {**launches, **variants}
+
+
+def offload_small(torch, zoo, initialize, fa, ckpt):
+    """Phases 10b and 10c at phase 9's 2 layers. Returns (parity line,
+    checkpoint line, flash launches of the resumed steps)."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    n = zoo.get_config("llama3-8b", num_layers=CKPT_LAYERS).num_params()
+    root = tempfile.mkdtemp(prefix="dstpu_offload_")
+
+    def build(config, seed=SEED):
+        free_caches(torch)
+        model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
+                              dtype=torch.float32, seed=seed)
+        engine, *_ = initialize(model=model, config=config)
+        return engine, model
+
+    def batches(skip=0):
+        _, it = fixed_batches(zoo.get_config("llama3-8b").vocab_size,
+                              micro=OFFLOAD_MICRO)
+        for _ in range(skip):
+            next(it)
+        return it
+
+    try:
+        free = shutil.disk_usage(root).free
+        need = n * 12 + n * 14  # the NVMe tier's files and the checkpoint
+        if free < 1.1 * need:
+            fail(f"offload: {free / 1e9:.1f} GB free at {root}, the NVMe "
+                 f"tier and the checkpoint need {need / 1e9:.1f} GB")
+        # 10b: the device optimizer, then its states offloaded and back
+        engine, model = build(dict(OFFLOAD_DEVICE_CONFIG))
+        dev_losses, dev_s = timed_steps(torch, engine, batches(),
+                                        OFFLOAD_SMALL_STEPS)
+        sums = state_checksums(torch, engine)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        engine.offload_states()
+        torch.cuda.synchronize()
+        offload_s = time.perf_counter() - t0
+        freed = before - torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        engine.reload_states()
+        torch.cuda.synchronize()
+        reload_s = time.perf_counter() - t0
+        restored = state_checksums(torch, engine)
+        bad = sorted(p for p in sums if restored.get(p) != sums[p])
+        if bad or freed <= 0:
+            fail(f"offload: offload_states freed {freed} bytes; leaves "
+                 f"restored differently: {bad[:5]}")
+        del engine, model
+        # the cpu tier, saving through the pipelined AIO writer (10c)
+        cpu_cfg = dict(OFFLOAD_CONFIG,
+                       checkpoint={"parallel_write_pipeline": True})
+        engine, model = build(dict(cpu_cfg))
+        it = batches()
+        cpu_losses, cpu_s = timed_steps(torch, engine, it,
+                                        OFFLOAD_SMALL_STEPS)
+        cpu_split = step_split(cpu_s[-1], engine._offload.last_step_s)
+        state_bytes = sum(t.nbytes for _, t in
+                          leaves(engine._ckpt_io._state()))
+        ckpt_root = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        tag_dir = engine.save_checkpoint(ckpt_root)
+        save_s = time.perf_counter() - t0
+        ref, _ = timed_steps(torch, engine, it, OFFLOAD_RESUMED)
+        del engine, model
+        # the NVMe tier: the same steps, bit for bit
+        nvme_cfg = dict(OFFLOAD_CONFIG, zero_optimization={
+            "stage": 3, "offload_optimizer": {
+                "device": "nvme", "nvme_path": os.path.join(root, "swap"),
+                "pin_memory": True}})
+        engine, model = build(nvme_cfg)
+        nvme_losses, nvme_s = timed_steps(torch, engine, batches(),
+                                          OFFLOAD_SMALL_STEPS)
+        nvme_split = step_split(nvme_s[-1], engine._offload.last_step_s)
+        folder = engine._offload.swap_folder
+        swap_files = sorted(os.listdir(folder))
+        swap_bytes = sum(os.path.getsize(os.path.join(folder, f))
+                         for f in swap_files)
+        engine._offload.close()
+        del engine, model
+        if not swap_files:
+            fail(f"offload: the NVMe tier wrote nothing under {folder}")
+        if nvme_losses != cpu_losses:
+            fail(f"offload: nvme losses {nvme_losses} are not the cpu "
+                 f"tier's {cpu_losses}")
+        rel = float(np.max(np.abs(np.subtract(cpu_losses, dev_losses))
+                           / np.abs(dev_losses)))
+        if not rel <= OFFLOAD_TOL_REL:
+            fail(f"offload: cpu tier {cpu_losses} vs device optimizer "
+                 f"{dev_losses}: {rel:.2e} > {OFFLOAD_TOL_REL}")
+        # 10c: a fresh engine from another seed resumes the saved tag
+        engine, model = build(dict(cpu_cfg), seed=SEED + 1)
+        t0 = time.perf_counter()
+        ckpt_dir, _ = engine.load_checkpoint(ckpt_root)
+        load_s = time.perf_counter() - t0
+        parts = dict(engine._ckpt_io.last_load_s)
+        if ckpt_dir != tag_dir or engine.global_steps != OFFLOAD_SMALL_STEPS:
+            fail(f"offload: loaded {ckpt_dir} at step {engine.global_steps}")
+        fa.reset_launch_counts()
+        resumed, _ = timed_steps(torch, engine,
+                                 batches(skip=OFFLOAD_SMALL_STEPS),
+                                 OFFLOAD_RESUMED)
+        launches = dict(fa.LAUNCHES)
+        variants = dict(fa.VARIANT_LAUNCHES)
+        if resumed != ref:
+            fail(f"offload: resumed losses {resumed} are not the "
+                 f"uninterrupted run's {ref}")
+        L, steps = CKPT_LAYERS, OFFLOAD_RESUMED
+        want = {"flash_fwd": steps * 2 * L, "flash_bwd_dkdv": steps * L,
+                "flash_bwd_dq": steps * L}
+        if launches != want:
+            fail(f"offload checkpoint: flash launches {launches}, remat "
+                 f"implies {want}")
+        check_tensor_core("offload checkpoint", launches, variants,
+                          ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
+        del engine, model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_caches(torch)
+    gb = state_bytes / 1e9
+    parity = {
+        "model": "llama3-8b", "layers": f"{CKPT_LAYERS} of 32", "params": n,
+        "micro": OFFLOAD_MICRO, "gas": 1, "seq": TRAIN_SEQ,
+        "losses_device_optimizer": dev_losses, "losses_cpu": cpu_losses,
+        "losses_nvme": nvme_losses, "cpu_equals_nvme": True,
+        "cpu_vs_device_max_rel": rel, "tolerance_rel": OFFLOAD_TOL_REL,
+        "step_s_device_optimizer": dev_s, "step_s_cpu": cpu_s,
+        "step_s_nvme": nvme_s, "cpu_step_split": cpu_split,
+        "nvme_step_split": nvme_split, "swap_files": len(swap_files),
+        "swap_gb": swap_bytes / 1e9,
+        "offload_states": {"freed_gb": freed / 1e9, "offload_s": offload_s,
+                           "reload_s": reload_s,
+                           "restored_leaves_bit_equal": len(sums)},
+    }
+    line = {
+        "model": "llama3-8b", "layers": f"{CKPT_LAYERS} of 32",
+        "engine": "FastCheckpointEngine (parallel_write_pipeline)",
+        "state_gb": gb, "save_s": save_s, "save_gb_per_s": gb / save_s,
+        "load_s": load_s, "load_gb_per_s": gb / load_s,
+        "load_validate_s": parts["validate"], "load_read_s": parts["read"],
+        "phase9_sync_save_s": ckpt["save_s"],
+        "phase9_sync_save_gb_per_s": ckpt["save_gb_per_s"],
+        "resumed_bit_identical": True, "losses_reference": ref,
+        "losses_resumed": resumed, "launches": launches,
+        "variant_launches": variants,
+    }
+    return parity, line, {**launches, **variants}
 
 
 # -- phases 5 and 6: MoE serve and train ----------------------------------------
@@ -2456,8 +2891,10 @@ def main():
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.ops.native import builder as native_builder
     from deepspeed_tpu_torch.parallel import moe
     from deepspeed_tpu_torch.resilience import validate_manifest
+    from deepspeed_tpu_torch.runtime import offload as off_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2659,6 +3096,22 @@ def main():
         f"{ckpt['async_blocking_s']:.1f} s + commit "
         f"{ckpt['async_commit_s']:.1f} s; resumed bit-identical")
 
+    # 10. offload: full depth with the optimizer on the host, then the
+    # tiers' parity and a checkpoint through the AIO writer; phase 9's
+    # engines are gone
+    t0 = time.perf_counter()
+    offload, offload_profile, offload_launches = offload_full_depth(
+        torch, zoo, initialize, fa, native_builder, off_mod)
+    offload_parity, offload_ckpt, offload_ckpt_launches = offload_small(
+        torch, zoo, initialize, fa, ckpt)
+    offload_wall = time.perf_counter() - t0
+    split = offload["step_split_p50"]
+    log(f"offload: {offload['layers']} layers, step "
+        f"{offload['step_ms_p50']:.0f} ms (fwd+bwd {split['fwd_bwd_s']:.2f} "
+        f"s, host optimizer {split['host_optimizer_s']:.2f} s), cpu == "
+        f"nvme, Fast save {offload_ckpt['save_s']:.1f} s; phase 10 took "
+        f"{offload_wall:.0f} s")
+
     # 8b. the engine with a sparse_attention block: the micro-step loop
     # over the dataloader, then eval; phase 4's engine is gone
     sparse_train, sparse_launches = sparse_train_phase(
@@ -2728,15 +3181,21 @@ def main():
                 "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:"
                             f"{line}",
                 "launches": train_launches[name],
-                "launches_by_path": {"train": train_launches[name],
-                                     "moe_train": moe_train_launches[name],
-                                     "checkpoint": ckpt_launches[name]},
+                "launches_by_path": {
+                    "train": train_launches[name],
+                    "moe_train": moe_train_launches[name],
+                    "checkpoint": ckpt_launches[name],
+                    "offload": offload_launches[name],
+                    "offload_checkpoint": offload_ckpt_launches[name]},
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
                            if k.startswith(name + "/")}
                     for path, lc in (("train", train_launches),
                                      ("moe_train", moe_train_launches),
-                                     ("checkpoint", ckpt_launches))},
+                                     ("checkpoint", ckpt_launches),
+                                     ("offload", offload_launches),
+                                     ("offload_checkpoint",
+                                      offload_ckpt_launches))},
                 "max_abs_err": b["max_abs_err"],
                 "max_row_rel_err": b.get("max_row_rel_err"),
                 "ms": b["ms"], "tflops": b["tflops"],
@@ -2900,6 +3359,11 @@ def main():
           flush=True)
     print(json.dumps({"sparse_train": sparse_train}), flush=True)
     print(json.dumps({"checkpoint": ckpt}), flush=True)
+    print(json.dumps({"offload": offload}), flush=True)
+    print(json.dumps({"offload_profile": offload_profile}), flush=True)
+    print(json.dumps({"offload_parity": offload_parity}), flush=True)
+    print(json.dumps({"offload_checkpoint": offload_ckpt,
+                      "phase10_wall_s": offload_wall}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
           flush=True)
     print(card, flush=True)

@@ -34,6 +34,14 @@ Slice 11: checkpoints and the resilience layer — the engine's
 with ``resilience`` (manifests, the preemption guard, the data cursor,
 chaos injection, retry policy) and ``utils.telemetry``; the JAX on-disk
 contract with torch tensors.
+
+Slice 12: ZeRO-Offload on one card — ``zero_optimization.
+offload_optimizer`` (``runtime.offload``): the fp32 masters and moments
+on the host or a local disk, stepped by the native CPU Adam of the
+repository's ``csrc/`` (``ops.native``, built with g++), the async I/O
+and swap layers (``ops.native.aio``, ``runtime.swap_tensor``), the
+pipelined checkpoint writer (``io``, ``checkpoint.parallel_write_
+pipeline``) and ``utils.memspace``.
 """
 
 from deepspeed_tpu_torch._device import kernels_available, resolve_device

@@ -17,8 +17,16 @@ and copies into the engine's own tensors in place: the GAS > 1
 accumulation hooks hang on the compute params, and an fp32 model shares
 its tensors with the masters.
 
-The JAX offload, ZenFlow, 1-bit and ZeRO++ branches are not here: their
-config switches raise (ROADMAP queue A items 10 and 12). Universal
+With the optimizer offloaded (``runtime/offload.py``) the optimizer
+payload is JAX's offload branch: the host masters, moments and per-leaf
+Adam step counts under ``state/offload_optim_rank0/`` (the stem of JAX's
+``offload_optim_rank0.npz``), beside the params and ``opt_count``; on
+the NVMe tier they are read from the swap store for the save and
+written back after a load. A load that wants the optimizer state and
+finds no such payload raises ``FileNotFoundError`` (JAX's wording); with
+``load_optimizer_states=False`` the masters are re-seeded from the
+restored params. The ZenFlow, 1-bit and ZeRO++ branches are not here:
+their config switches raise (ROADMAP queue A items 10 and 12). Universal
 checkpoints raise at the config (item 16). The multi-process agreement
 (``_agree``, the publish barrier, ``assert_same_across_processes``) is
 the identity at world size 1, and so is JAX's ``_validate_tag`` (every
@@ -57,7 +65,7 @@ STATE_DIR = "state"
 FRAMEWORK_VERSION = "0.1.0"  # the project's version (pyproject.toml)
 # the mesh of a one-device JAX engine (its axes in parallel/topology.py)
 MESH_SHAPE = {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
-OPTIMIZER_KEYS = ("opt_master", "opt_mu", "opt_nu", "opt_count")
+OFFLOAD_KEY = "offload_optim_rank0"  # world size 1: one process
 
 
 class CheckpointIO:
@@ -87,22 +95,27 @@ class CheckpointIO:
         return self._engine()
 
     # -- state tree ----------------------------------------------------
-    def _state(self) -> Dict[str, Any]:
+    def _state(self, optimizer: bool = True) -> Dict[str, Any]:
         """The saved tree: the engine's own tensors, and the host scalars
         as 0-dim host tensors (a load copies into all of them in
-        place)."""
+        place). ``optimizer=False`` leaves the optimizer payload out."""
         e = self.engine
         ls = e.loss_scale_state
-        return {
+        state = {
             "params": e.params,
             "loss_scale": {
                 "scale": torch.tensor(ls.scale, dtype=torch.float64),
                 "good_steps": torch.tensor(ls.good_steps)},
-            "opt_master": e.opt_state.master,
-            "opt_mu": e.opt_state.mu,
-            "opt_nu": e.opt_state.nu,
-            "opt_count": torch.tensor(e.opt_state.count),
+            "opt_count": torch.tensor(e.update_count),
         }
+        if not optimizer:
+            return state
+        if e._offload is not None:
+            state[OFFLOAD_KEY] = e._offload.state_dict()
+        else:
+            state.update(opt_master=e.opt_state.master,
+                         opt_mu=e.opt_state.mu, opt_nu=e.opt_state.nu)
+        return state
 
     def _rconfig(self) -> Tuple[bool, bool]:
         """(manifest on, checksums on) from the resilience block."""
@@ -256,14 +269,31 @@ class CheckpointIO:
                 "accepting without integrity verification")
 
         t0 = time.perf_counter()
-        state = self._state()
+        state_dir = os.path.join(ckpt_dir, STATE_DIR)
+        if e._offload is not None and load_optimizer_states and \
+                not os.path.isdir(os.path.join(state_dir, OFFLOAD_KEY)):
+            raise FileNotFoundError(
+                "offload optimizer state missing at "
+                f"{os.path.join(state_dir, OFFLOAD_KEY)} — the host masters "
+                "would silently overwrite the restored params on the next "
+                "step. Pass load_optimizer_states=False to rebuild masters "
+                "(zeroed moments) from the checkpoint params instead.")
         # the optimizer payloads (~3x the param bytes) are not read at
         # all when they are not wanted
-        skip = () if load_optimizer_states else OPTIMIZER_KEYS
-        nbytes, _ = self.ckpt_engine.load(os.path.join(ckpt_dir, STATE_DIR),
-                                          state, skip=skip)
+        state = self._state(optimizer=load_optimizer_states)
+        skip = () if load_optimizer_states else ("opt_count",)
+        nbytes, _ = self.ckpt_engine.load(state_dir, state, skip=skip)
         with torch.no_grad():
-            if load_optimizer_states:
+            if e._offload is not None:
+                if load_optimizer_states:
+                    e._offload.load_state_dict(state[OFFLOAD_KEY])
+                    e._offload.count = int(state["opt_count"])
+                    e._offload.sync_params_from_masters(e.params)
+                else:
+                    logger.warning("optimizer state not restored: masters "
+                                   "re-seeded from params, moments reset")
+                    e._offload.reinit_masters(e.params)
+            elif load_optimizer_states:
                 e.opt_state.count = int(state["opt_count"])
             else:
                 # masters drive the next update — re-seed them from the
@@ -282,7 +312,7 @@ class CheckpointIO:
         ls = state["loss_scale"]
         e.loss_scale_state = LossScaleState(float(ls["scale"]),
                                             int(ls["good_steps"]))
-        e.global_steps = int(meta.get("global_steps", e.opt_state.count))
+        e.global_steps = int(meta.get("global_steps", e.update_count))
         e.global_samples = int(meta.get("global_samples", 0))
         e.skipped_steps = int(meta.get("skipped_steps", 0))
         # data-pipeline cursor for deterministic auto-resume
@@ -305,4 +335,4 @@ def module_state_keys(tree) -> Dict[str, torch.Tensor]:
 
 
 __all__ = ["CheckpointIO", "LATEST_FILE", "METADATA_FILE", "STATE_DIR",
-           "module_state_keys"]
+           "OFFLOAD_KEY", "module_state_keys"]

@@ -4,7 +4,8 @@ runs (port of ``deepspeed_tpu/config/config.py``).
 Parsed: the batch triple and its solver (``resolve_batch_size``),
 ``steps_per_print``, ``gradient_clipping``, ``seed``, the ``bf16`` and
 ``fp16`` blocks, ``optimizer``, ``scheduler``,
-``zero_optimization.stage``, the ``moe`` block (``ep_size`` 1), the
+``zero_optimization.stage`` and ``.offload_optimizer``
+(``OffloadOptimizerConfig``), the ``moe`` block (``ep_size`` 1), the
 ``serving`` block (``ServingConfig``, the serving engine's knobs), the
 ``sparse_attention`` block (``SparseAttentionConfig``), the
 ``kernels`` block (``KernelsConfig``) and the ``checkpoint`` and
@@ -60,9 +61,9 @@ UNPORTED_SWITCHES = {
 }
 # zero_optimization keys: accepted at their "off" values only
 ZERO_SWITCHES = {
-    "offload_param": (None, f"{_A} 12 (offload)"),
-    "offload_optimizer": (None, f"{_A} 12 (offload)"),
-    "zenflow": (None, f"{_A} 12 (offload)"),
+    "offload_param": (None, f"{_A} 11 (offload_param streams the layers "
+                            "with runtime/param_stream.py)"),
+    "zenflow": (None, f"{_A} 12 (ZenFlow, the second part of offload)"),
     "zero_quantized_weights": (False, f"{_A} 10 (ZeRO++)"),
     "zero_quantized_gradients": (False, f"{_A} 10 (ZeRO++)"),
     "zero_quantized_allreduce": (False, f"{_A} 10 (ZeRO++)"),
@@ -119,16 +120,65 @@ class FP16Config:
 
 
 @dataclass
+class OffloadOptimizerConfig:
+    """``zero_optimization.offload_optimizer`` (reference
+    runtime/zero/offload_config.py:52), with JAX's fields and checks.
+    ``device`` cpu keeps the fp32 masters and moments on the host, nvme
+    in files under ``nvme_path`` (``runtime/offload.py``);
+    ``buffer_count`` staging buffers stream the gradients to the host,
+    page-locked where ``pin_memory``; ``grad_transfer_dtype`` bf16 halves
+    the device->host bytes. ``pipeline_read``, ``pipeline_write`` and
+    ``ratio`` are accepted and have no effect, as in JAX."""
+
+    device: str = "none"  # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    grad_transfer_dtype: str = "fp32"  # fp32 | bf16
+    ratio: float = 1.0
+
+    def validate(self) -> None:
+        if self.device not in ("none", "cpu", "nvme"):
+            raise ValueError(
+                f"offload_optimizer.device must be none|cpu|nvme, "
+                f"got {self.device!r}")
+        if self.device == "nvme" and not self.nvme_path:
+            raise ValueError(
+                "offload_optimizer.device='nvme' requires nvme_path "
+                "(otherwise state would silently stay in host RAM)")
+        if self.grad_transfer_dtype not in ("fp32", "bf16"):
+            raise ValueError(
+                f"offload_optimizer.grad_transfer_dtype must be fp32|bf16, "
+                f"got {self.grad_transfer_dtype!r}")
+        if self.buffer_count < 1:
+            raise ValueError("offload_optimizer.buffer_count must be >= 1, "
+                             f"got {self.buffer_count}")
+
+
+@dataclass
 class ZeroConfig:
     """Stages 0-3 are the same math on one card (the JAX engine's stages
-    are shardings over ranks; sharding is ROADMAP queue A item 5)."""
+    are shardings over ranks; sharding is ROADMAP queue A item 5).
+    ``offload_optimizer`` moves the optimizer to the host
+    (``OffloadOptimizerConfig``)."""
 
     stage: int = 0
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
+
+    @property
+    def offload_device(self) -> str:
+        """"cpu" | "nvme" | "none"."""
+        off = self.offload_optimizer
+        return "none" if off is None else (off.device or "none")
 
     def validate(self) -> None:
         if self.stage not in (0, 1, 2, 3):
             raise ValueError(
                 f"zero_optimization.stage must be 0-3, got {self.stage}")
+        if self.offload_optimizer is not None:
+            self.offload_optimizer.validate()
 
 
 @dataclass
@@ -325,8 +375,11 @@ class CheckpointConfig:
     ``async_save`` selects the decoupled checkpoint engine;
     ``tag_validation`` (Ignore | Warn | Fail, for a checkpoint saved on
     another mesh) and ``use_node_local_storage`` have no effect on one
-    card, where every checkpoint is saved on the one-device mesh. ``load_universal`` and ``parallel_write_pipeline``
-    raise (ROADMAP queue A items 16 and 12)."""
+    card, where every checkpoint is saved on the one-device mesh.
+    ``parallel_write_pipeline`` selects the Fast engine (the payload
+    through the pipelined AIO writer); with ``async_save`` as well, the
+    decoupled engine wins, with a warning (as in JAX).
+    ``load_universal`` raises (ROADMAP queue A item 16)."""
 
     tag_validation: str = "Warn"  # Ignore | Warn | Fail
     load_universal: bool = False
@@ -338,11 +391,6 @@ class CheckpointConfig:
         if self.load_universal:
             raise _unported("checkpoint.load_universal=True",
                             f"{_A} 16 (universal checkpoints)")
-        if self.parallel_write_pipeline:
-            raise _unported(
-                "checkpoint.parallel_write_pipeline=True",
-                f"{_A} 12 (the fast checkpoint engine over the AIO "
-                "writer, with offload)")
 
 
 @dataclass
@@ -449,10 +497,18 @@ class Config:
         zero = dict(data.get("zero_optimization") or {})
         for name, (off, item) in ZERO_SWITCHES.items():
             value = zero.pop(name, off)
-            if not (_offload_off(value) if off is None else value == off):
+            if not (_offload_off(value) if name == "offload_param"
+                    else value == off):
                 raise _unported(f"zero_optimization.{name}={value!r}", item)
         for name in ZERO_NOOP_KEYS:
             zero.pop(name, None)
+        if zero.get("offload_optimizer") is not None:
+            off = zero["offload_optimizer"]
+            if isinstance(off, dict) and off.get("device") is None:
+                off = dict(off, device="none")
+            zero["offload_optimizer"] = _block(
+                OffloadOptimizerConfig, off,
+                "zero_optimization.offload_optimizer")
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
                   "zero_optimization", "moe", "serving", "sparse_attention",
                   "kernels", "checkpoint", "resilience"}
@@ -579,6 +635,6 @@ def load_config(config) -> Config:
 
 
 __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "BF16Config",
-           "FP16Config", "ZeroConfig", "MoEConfig", "ServingConfig",
+           "FP16Config", "OffloadOptimizerConfig", "ZeroConfig", "MoEConfig", "ServingConfig",
            "SparseAttentionConfig", "KernelsConfig", "CheckpointConfig",
            "ResilienceConfig", "load_config"]

@@ -36,6 +36,17 @@ the model's forward runs in that dtype. ZeRO stages 0-3 are accepted and
 are the same math at world size 1; sharding over ranks is ROADMAP queue
 A item 5.
 
+ZeRO-Offload (``zero_optimization.offload_optimizer``, device cpu or
+nvme; ``runtime/offload.py``): only the compute-dtype params and their
+grads live on the card. The fp32 masters and the optimizer moments live
+on the host (or on a local disk) and the native CPU optimizer steps them
+(adam, adamw, lion, adagrad, as in JAX), with the LR from the schedule
+at the update count. The grads then accumulate in ``p.grad`` in the
+compute dtype at GAS > 1 (``loss * scale / gas`` back-propagated per
+microbatch, JAX's offload numerics; no fp32 accumulators on the card),
+on both APIs. ``offload_states`` / ``reload_states`` empty and refill
+the card storage of the params and the device optimizer's state.
+
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``,
 ``checkpoint/state.py``) and the resilience layer follow the JAX engine:
 a data cursor in every checkpoint (``resume_data_iter``), the chaos
@@ -82,9 +93,11 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
                                                      init_loss_scale,
                                                      update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
+from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
 from deepspeed_tpu_torch.runtime.optimizer import (
     apply_mixed_precision_update, get_base_optimizer, init_mixed_precision,
     leaves, tree_map)
+from deepspeed_tpu_torch.utils import memspace
 
 logger = logging.getLogger(__name__)
 
@@ -162,19 +175,26 @@ class Engine:
 
         self.lr_schedule = get_lr_schedule(config.scheduler,
                                            base_lr=self._config_lr())
-        self.tx, self._base_lr = get_base_optimizer(config.optimizer,
-                                                    self.lr_schedule)
-        self.opt_state = init_mixed_precision(model.params(), self.tx)
         cdt = self.compute_dtype
-        with torch.no_grad():
-            self.params = tree_map(
-                lambda m: m.to(cdt, copy=True).requires_grad_(),
-                self.opt_state.master)
+        self._offload: Optional[HostOffloadOptimizer] = None
+        if config.zero_optimization.offload_device in ("cpu", "nvme"):
+            self.tx, self.opt_state = None, None
+            self._init_offload(model)
+        else:
+            self.tx, self._base_lr = get_base_optimizer(config.optimizer,
+                                                        self.lr_schedule)
+            self.opt_state = init_mixed_precision(model.params(), self.tx)
+            with torch.no_grad():
+                self.params = tree_map(
+                    lambda m: m.to(cdt, copy=True).requires_grad_(),
+                    self.opt_state.master)
         self.loss_scale_state = init_loss_scale(config.fp16)
+        self._offloaded_states: Optional[list] = None
         # GAS > 1: fp32 accumulators, one per parameter, filled by the
-        # hooks during backward and dropped after each update
+        # hooks during backward and dropped after each update (with the
+        # optimizer offloaded the grads accumulate in p.grad instead)
         self._grad_acc: Dict[torch.Tensor, torch.Tensor] = {}
-        if self.gradient_accumulation_steps > 1:
+        if self.gradient_accumulation_steps > 1 and self._offload is None:
             # the hooks hold the engine weakly: a bound method would make a
             # cycle (engine -> params -> hook -> engine) that keeps the
             # card's memory until the garbage collector runs
@@ -212,6 +232,38 @@ class Engine:
             f"{self.micro_batch_size}, gas="
             f"{self.gradient_accumulation_steps}, dtype={cdt}, "
             f"device={self.device}")
+
+    def _init_offload(self, model) -> None:
+        """The ZeRO-Offload branch (JAX ``engine.py:744-841``): the
+        compute-dtype params on the card, the fp32 masters and moments on
+        the host or the NVMe tier (``runtime/offload.py``), stepped by the
+        native CPU optimizer. An fp32 model on the card then shares its
+        tensors with the host masters on the cpu tier (its card copy is
+        freed, and it follows training, as the device path shares them);
+        on the nvme tier the model's tensors stay as they are."""
+        off = self.config.zero_optimization.offload_optimizer
+        ocfg = self.config.optimizer
+        src = model.params()
+        cdt = self.compute_dtype
+        with torch.no_grad():
+            self.params = tree_map(
+                lambda t: t.detach().to(cdt, copy=True).requires_grad_(),
+                src)
+        self._offload = HostOffloadOptimizer(
+            src, optimizer_name=(ocfg.type if ocfg else "adamw") or "adamw",
+            optimizer_params=dict((ocfg.params or {}) if ocfg else {}),
+            grad_clip=self.config.gradient_clipping,
+            nvme_path=off.nvme_path if off.device == "nvme" else None,
+            buffer_count=off.buffer_count, pin_memory=off.pin_memory,
+            grad_transfer_dtype=off.grad_transfer_dtype)
+        self._base_lr = self._offload.lr
+        if self._offload.tier == "cpu":
+            with torch.no_grad():
+                for path, leaf in leaves(src):
+                    master = self._offload.masters[path]
+                    if leaf.dtype == torch.float32 and \
+                            leaf.device != master.device:
+                        leaf.data = master.view(leaf.shape)
 
     def _init_resilience(self) -> None:
         """The resilience block (JAX ``engine.py:481-512``):
@@ -301,6 +353,15 @@ class Engine:
         return self.loss_scale_state.scale if self.config.fp16.enabled \
             else 1.0
 
+    def _backward_scale(self) -> float:
+        """What each microbatch's loss is multiplied by before backward:
+        the loss scale, over GAS when the optimizer is offloaded (there
+        the grads accumulate in p.grad in the compute dtype, as JAX's
+        offload step differentiates ``sum(loss * scale / gas)``)."""
+        if self._offload is not None:
+            return self._loss_scale() / self.gradient_accumulation_steps
+        return self._loss_scale()
+
     @torch.no_grad()
     def _fold_grad(self, p: torch.Tensor) -> None:
         """Post-accumulate hook (GAS > 1): ``p.grad`` (the gradient of one
@@ -333,7 +394,7 @@ class Engine:
         micro = []
         for mb in batches:
             loss, aux = self._loss_fn(self.model_config, self.params, mb)
-            (loss * self._loss_scale()).backward()
+            (loss * self._backward_scale()).backward()
             micro.append((loss.detach(), aux))
         return self._apply_update(micro)
 
@@ -342,16 +403,24 @@ class Engine:
         each microbatch's (loss, model metrics). Returns the mean loss."""
         fp16 = self.config.fp16.enabled
         scale = self._loss_scale()
-        if self.gradient_accumulation_steps > 1:
-            grads = tree_map(lambda p: self._grad_acc.get(p), self.params)
-        else:
-            grads = tree_map(lambda p: p.grad, self.params)
-        overflow = has_overflow(g for _, g in leaves(grads)) if fp16 else False
         lr = self.get_lr()[0]
-        gnorm = apply_mixed_precision_update(
-            self.opt_state, grads, self.tx, self.params,
-            grad_clip=self.config.gradient_clipping,
-            grad_scale=scale if fp16 else None, skip=overflow)
+        if self._offload is not None:
+            gnorm, overflow = self._offload.step(
+                tree_map(lambda p: p.grad, self.params), self.params, lr=lr,
+                grad_scale=scale if fp16 else None, skip_on_nonfinite=fp16)
+            gnorm = torch.tensor(gnorm, dtype=torch.float32)
+        else:
+            if self.gradient_accumulation_steps > 1:
+                grads = tree_map(lambda p: self._grad_acc.get(p),
+                                 self.params)
+            else:
+                grads = tree_map(lambda p: p.grad, self.params)
+            overflow = has_overflow(g for _, g in leaves(grads)) \
+                if fp16 else False
+            gnorm = apply_mixed_precision_update(
+                self.opt_state, grads, self.tx, self.params,
+                grad_clip=self.config.gradient_clipping,
+                grad_scale=scale if fp16 else None, skip=overflow)
         for _, p in leaves(self.params):
             p.grad = None
         self._grad_acc = {}
@@ -441,7 +510,7 @@ class Engine:
         pending_loss, aux = self._pending
         self._pending = None
         loss = pending_loss if loss is None else loss
-        (loss * self._loss_scale()).backward(retain_graph=retain_graph)
+        (loss * self._backward_scale()).backward(retain_graph=retain_graph)
         self._micro_losses.append((loss.detach(), aux))
         self.micro_steps += 1
         return loss
@@ -474,9 +543,18 @@ class Engine:
     def loss_scale(self) -> float:
         return self.loss_scale_state.scale
 
+    @property
+    def update_count(self) -> int:
+        """Updates applied so far (the LR schedule's position)."""
+        return (self._offload.count if self._offload is not None
+                else self.opt_state.count)
+
     def get_lr(self) -> List[float]:
         """The LR of the next update (the schedule at the count of
         updates applied so far)."""
+        if self._offload is not None:
+            return [float(self.lr_schedule(self._offload.count))
+                    if self.lr_schedule is not None else self._base_lr]
         return [self.tx.lr_at(self.opt_state.count)]
 
     def get_global_grad_norm(self) -> Optional[torch.Tensor]:
@@ -505,12 +583,71 @@ class Engine:
                 f"missing keys: {missing[:5]}"
                 f"{'...' if len(missing) > 5 else ''}; unexpected keys: "
                 f"{unexpected[:5]}{'...' if len(unexpected) > 5 else ''}")
-        masters = module_state_keys(self.opt_state.master)
+        masters = (None if self._offload is not None
+                   else module_state_keys(self.opt_state.master))
         for key, p in own.items():
-            if key in state_dict:
-                masters[key].copy_(torch.as_tensor(
-                    np.asarray(state_dict[key], dtype=np.float32)))
+            if key not in state_dict:
+                continue
+            value = torch.as_tensor(np.asarray(state_dict[key],
+                                               dtype=np.float32))
+            path = "/" + key.replace(".", "/")
+            if self._offload is not None:
+                self._offload.set_full_fp32_param(path, value)
+                p.copy_(value)
+            else:
+                masters[key].copy_(value)
                 p.copy_(masters[key])
+
+    # -- state offload between phases (JAX engine.py:1913-1978) ---------
+    OFFLOAD_STATE_KINDS = frozenset({"lp_params", "hp_params",
+                                     "optim_states", "lp_grads",
+                                     "contiguous_grad_buffer"})
+
+    @torch.no_grad()
+    def offload_states(self, include=None, device: str = "cpu",
+                       pin_memory: bool = True, non_blocking: bool = False):
+        """Move the engine's card-resident state to host memory, freeing
+        the card's bytes (reference engine.offload_states engine.py:5573).
+        ``include`` limits the set: "lp_params" / "hp_params" (the
+        compute params) and "optim_states" (the device optimizer's
+        masters and moments; an offloaded optimizer's already live on
+        the host); gradients hold no buffer between steps. Each tensor
+        keeps its identity (hooks, the model's shared masters): its card
+        storage is emptied and refilled by ``reload_states``."""
+        if device != "cpu":
+            raise ValueError("offload_states supports device='cpu' only")
+        include = set(include or ("lp_params", "optim_states"))
+        unknown = include - self.OFFLOAD_STATE_KINDS
+        if unknown:
+            raise ValueError(f"unknown offload_states entries {unknown}")
+        tensors = []
+        if include & {"lp_params", "hp_params"}:
+            tensors += [t for _, t in leaves(self.params)]
+        if "optim_states" in include and self.opt_state is not None:
+            st = self.opt_state
+            tensors += [t for tree in (st.master, st.mu, st.nu)
+                        for _, t in leaves(tree)]
+        out = list(self._offloaded_states or [])
+        for t in tensors:
+            store = t.untyped_storage()
+            if t.device.type == "cpu" or store.nbytes() == 0:
+                continue  # on the host already, or shares a storage moved
+            host = (memspace.put(t.detach(), "pinned_host") if pin_memory
+                    else t.detach().to("cpu"))
+            out.append((t, host, store.nbytes()))
+            store.resize_(0)
+        self._offloaded_states = out
+
+    @torch.no_grad()
+    def reload_states(self, non_blocking: bool = False):
+        """Inverse of :meth:`offload_states`: every tensor moved gets its
+        card storage and bytes back, in place."""
+        if self._offloaded_states is None:
+            return
+        for t, host, nbytes in self._offloaded_states:
+            t.untyped_storage().resize_(nbytes)
+            t.copy_(host, non_blocking=non_blocking)
+        self._offloaded_states = None
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest: bool = True):

@@ -159,8 +159,8 @@ def test_data_exhausted_mid_accumulation_raises():
     ({"moe": {"enabled": True, "ep_size": 2}}, "item 9"),
     ({"activation_checkpointing": {"policy": "dots_saveable"}}, "item 11"),
     ({"performance": {"pipeline_depth": 2}}, "item 4"),
-    ({"zero_optimization": {"stage": 3, "offload_optimizer":
-                            {"device": "cpu"}}}, "item 12"),
+    ({"zero_optimization": {"stage": 3, "zenflow":
+                            {"topk_ratio": 0.1}}}, "item 12"),
     ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
      "item 10"),
     ({"wall_clock_breakdown": True}, "item 14"),

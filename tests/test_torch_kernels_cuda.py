@@ -1185,3 +1185,58 @@ def test_checkpoint_resume_on_the_card_is_bit_identical(card, tmp_path):
     assert {k: v for k, v in fa.VARIANT_LAUNCHES.items() if v} == {
         "flash_fwd/wgmma": 24, "flash_bwd_dkdv/wgmma": 12,
         "flash_bwd_dq/wgmma": 12}
+
+
+def test_offload_tiers_on_the_card(card, tmp_path):
+    """A 2-layer model (hd 128, flash with remat) trained on the card with
+    the optimizer on the host: the cpu and nvme tiers give the same
+    losses, masters and params bit for bit, within 3e-3 of the device
+    optimizer (JAX's tolerance, tests/test_offload.py:236); the native
+    library is required and in use; offload_states frees the card bytes
+    and reload_states brings them back unchanged."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.ops.native import builder
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 256, (2, 257)).astype(np.int32)}
+               for _ in range(2)]
+
+    def run(off):
+        model = zoo.get_model("tiny", device=card, seed=0,
+                              dtype=torch.float32, hidden_size=256,
+                              num_heads=2, num_kv_heads=2, max_seq_len=256,
+                              attn_impl="flash", remat=True)
+        eng = deepspeed_tpu_torch.initialize(model=model, config={
+            "train_micro_batch_size_per_chip": 2,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+            "gradient_clipping": 1.0, "steps_per_print": 10_000,
+            "zero_optimization": {"stage": 3, "offload_optimizer": off}})[0]
+        losses = [float(eng.train_batch(iter([batches[i % 2]])))
+                  for i in range(4)]
+        return eng, losses
+
+    dev, want = run({"device": "none"})
+    sums = {p: t.clone() for p, t in leaves(dev.params)}
+    mu = dev.opt_state.mu["layers"]["attn"]["wq"].clone()
+    before = torch.cuda.memory_allocated()
+    dev.offload_states()
+    assert before - torch.cuda.memory_allocated() > 0
+    dev.reload_states()
+    assert all(torch.equal(sums[p], t) for p, t in leaves(dev.params))
+    assert torch.equal(mu, dev.opt_state.mu["layers"]["attn"]["wq"])
+    del dev
+    cpu, got = run({"device": "cpu", "pin_memory": True})
+    assert builder.native_status() == "built"
+    assert cpu._offload.last_step_s["d2h_copy"] > 0
+    nvme, got_nvme = run({"device": "nvme", "nvme_path": str(tmp_path),
+                          "pin_memory": True})
+    assert got == got_nvme
+    np.testing.assert_allclose(got, want, rtol=3e-3)
+    for p in cpu._offload.optimizers:
+        assert torch.equal(cpu._offload.full_fp32_param(p),
+                           nvme._offload.full_fp32_param(p))
+    for (_, a), (_, b) in zip(leaves(cpu.params), leaves(nvme.params)):
+        assert a.is_cuda and torch.equal(a, b)
+    nvme._offload.close()

@@ -42,8 +42,8 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     assert len(files) >= 15
-    # the quantized-serving, block-sparse, checkpoint and resilience
-    # modules are among the files checked
+    # the quantized-serving, block-sparse, checkpoint, resilience and
+    # offload modules are among the files checked
     rel = {os.path.relpath(p, PKG) for p in files}
     assert {"ops/quantization.py", "ops/fp_quantizer.py",
             "inference/weight_quant.py",
@@ -52,7 +52,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "runtime/checkpoint_engine.py", "utils/telemetry.py",
             "resilience/__init__.py", "resilience/chaos.py",
             "resilience/manifest.py", "resilience/policy.py",
-            "resilience/preemption.py", "resilience/resume.py"} <= rel
+            "resilience/preemption.py", "resilience/resume.py",
+            "utils/memspace.py", "ops/native/builder.py",
+            "ops/native/cpu_optimizer.py", "ops/native/aio.py",
+            "runtime/swap_tensor/swapper.py", "runtime/offload.py",
+            "io/fast_file_writer.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
@@ -104,8 +108,8 @@ def test_unported_options_raise():
     assert cfg.kernels.blocksparse_block == 64
     with pytest.raises(NotImplementedError, match="item 3"):
         load_config({"kernels": {"table_path": "table.json"}})
-    # the checkpoint and resilience blocks are ported; of the checkpoint
-    # block, universal checkpoints and the AIO write pipeline are not
+    # the checkpoint and resilience blocks are ported, the AIO write
+    # pipeline too; of the checkpoint block, universal checkpoints are not
     assert not {"checkpoint", "resilience"} & set(UNPORTED_BLOCKS)
     cfg = load_config({"checkpoint": {"async_save": True},
                        "resilience": {"manifest_checksums": False}})
@@ -113,8 +117,8 @@ def test_unported_options_raise():
     assert not cfg.resilience.manifest_checksums
     with pytest.raises(NotImplementedError, match="item 16"):
         load_config({"checkpoint": {"load_universal": True}})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        load_config({"checkpoint": {"parallel_write_pipeline": True}})
+    assert load_config({"checkpoint": {"parallel_write_pipeline": True}}
+                       ).checkpoint.parallel_write_pipeline
 
 
 def test_seeded_init_is_reproducible_at_the_jax_scales():
