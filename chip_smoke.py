@@ -216,12 +216,47 @@ Phases, each fatal on failure:
                losses equal the uninterrupted run's bit for bit (flash
                launches all tensor-core); save and load seconds and GB/s
                beside phase 9's sync save. The phase's wall is printed.
+  11. zenflow — after phase 10, once its engines are freed: ZenFlow
+               (``zero_optimization.zenflow`` at JAX's defaults: the top
+               1% of each leaf's coordinates on the card every step, the
+               rest in a native host Adam pass every 4 steps on a
+               thread), bf16 on fp32 host masters, AdamW lr 3e-4, clip
+               1.0, micro 2 x GAS 1 x 2048 over phase 4's fixed batches.
+               11a: Llama-3-8B at full width as deep as host and card
+               hold (16 bytes a parameter of host state, 10 / 8 on the
+               card at init / in training; both reckonings and the cut
+               printed); one interval of warm-up (the first selection and
+               the first ship: a fold needs a pass shipped an interval
+               earlier), then two measured intervals (gates: finite,
+               falling losses; flash launches as remat implies, all
+               tensor-core; the native library and no second host
+               optimizer; 2 ships and 2 folds; after each fold one
+               leaf's host masters at the kept coordinates equal the
+               card's values and its other coordinates the bf16 cast of
+               the masters), each step's wall by kind (steady, fold +
+               ship), tokens/s, MFU, each host pass's seconds and
+               Gparam/s, the collect's wait, the ship and fold walls and
+               copy-stream seconds, peak memory and host RSS, then one
+               interval under torch.profiler (idle share with and
+               without the copy engines). 11b: PR 12's blocking offload
+               step at 11a's depth, 1 warm-up and 2 steps, one profiled.
+               11c: phase 9's 2 layers at update interval 2 and select
+               interval 4, saved at step 3 (the pass shipped at step 2 in
+               flight), loaded by an engine from another seed: its 3
+               resumed losses equal the uninterrupted run's (``==``).
+               11d: sgd, momentum, lion, adagrad, lamb, adafactor and
+               muon at the lr of ``SWEEP_LR``, 3 steps of phase 9's 2
+               layers (finite losses, the last below the first; step
+               times; muon's Newton-Schulz share) and one update of a
+               small seeded tree on the card against the CPU (fp32, rtol
+               1e-4, atol 1e-6). The phase's wall is printed.
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
-sparse train, checkpoint, offload, offload profile, offload parity and
-offload checkpoint lines, the run's seconds, the card's name and power
-limit (nvidia-smi), and, last, the device line.
+sparse train, checkpoint, offload, offload profile, offload parity,
+offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
+checkpoint and optimizer sweep lines, the run's seconds, the card's name
+and power limit (nvidia-smi), and, last, the device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
 package is not beside it.
@@ -430,6 +465,42 @@ HOST_LIMIT_BYTES = 96 << 30
 # device optimizer vs host offload: JAX's tolerance
 # (tests/test_offload.py:236)
 OFFLOAD_TOL_REL = 3e-3
+# phase 11: ZenFlow (the top 1% of each leaf's coordinates on the card
+# every step, the rest in a host pass every 4 steps, overlapped; JAX's
+# defaults), bf16 on fp32 host masters, AdamW lr 3e-4, clip 1.0, micro 2
+# x GAS 1 x 2048 over phase 4's fixed batches. 11a: Llama-3-8B at full
+# width as deep as host and card hold (16 bytes a parameter on the host:
+# master, two moments, the shipped grads; 8 on the card in training:
+# bf16 params and grads, fp32 accumulators; 10 at init, with the fp32
+# model), one interval of warm-up (the first selection and the first
+# ship), two measured intervals, one profiled; 11b: the blocking offload
+# step at 11a's depth, 1 warm-up and 2 steps; 11c: phase 9's 2 layers at
+# interval 2 and select 4, saved at step 3, 3 resumed steps; 11d: each
+# optimizer for 3 steps at phase 9's 2 layers, micro 2 x GAS 1
+ZENFLOW_BLOCK = {"topk_ratio": 0.01, "update_interval": 4,
+                 "select_interval": 16, "overlap_step": True}
+ZENFLOW_CONFIG = dict(OFFLOAD_CONFIG, zero_optimization={
+    "stage": 3, "offload_optimizer": {"device": "cpu"},
+    "zenflow": ZENFLOW_BLOCK})
+ZENFLOW_CKPT_CONFIG = dict(ZENFLOW_CONFIG, zero_optimization={
+    "stage": 3, "offload_optimizer": {"device": "cpu"},
+    "zenflow": dict(ZENFLOW_BLOCK, update_interval=2, select_interval=4)})
+ZENFLOW_INTERVALS, ZENFLOW_BLOCKING_STEPS = 2, 2
+ZENFLOW_CKPT_BEFORE, ZENFLOW_CKPT_AFTER = 3, 3
+# card memory besides the 8 bytes a parameter: activations, the logits,
+# the top-k's temporaries on the largest leaf, allocator slack
+ZENFLOW_CARD_RESERVE = 12e9
+# 11d: an lr per optimizer for the 2-layer model's 3 steps
+SWEEP_LR = {"sgd": 1.0, "momentum": 0.1, "lion": 3e-5, "adagrad": 1.0,
+            "lamb": 1e-3, "adafactor": 1e-3, "muon": 3e-4}
+SWEEP_STEPS = 3
+# 11d: one update of a small tree on the card and on the CPU (fp32)
+SWEEP_TREE = {"layers": {"attn": {"wq": (2, 64, 4, 16),
+                                  "wo": (2, 4, 16, 64)},
+                         "mlp": {"wi": (2, 160, 320)},
+                         "ln1": {"scale": (2, 64)}},
+              "embed": {"tokens": (300, 64)}, "final_norm": {"scale": (64,)}}
+SWEEP_TOL_REL, SWEEP_TOL_ABS = 1e-4, 1e-6
 
 
 def fail(msg):
@@ -2202,6 +2273,439 @@ def offload_small(torch, zoo, initialize, fa, ckpt):
     return parity, line, {**launches, **variants}
 
 
+# -- phase 11: ZenFlow and the optimizer sweep ---------------------------------
+
+
+def zenflow_depth(zoo, off_mod, host_room, card_bytes):
+    """The deepest Llama-3-8B whose ZenFlow state fits both the host
+    (16 bytes a parameter, ZenFlow's four fp32 staging buffers and
+    OFFLOAD_HOST_MARGIN) and the card (10 bytes a parameter at init, 8
+    in training beside ZENFLOW_CARD_RESERVE). Returns (layers, the
+    reckoning)."""
+    n1 = zoo.get_config("llama3-8b", num_layers=1).num_params()
+    n2 = zoo.get_config("llama3-8b", num_layers=2).num_params()
+    per_layer, base = n2 - n1, 2 * n1 - n2
+    staging = 4 * off_mod.CHUNK_ELEMS * 4
+
+    def fit(room, per_param):
+        return int(max(0, min(32, (room - per_param * base)
+                              // (per_param * per_layer))))
+
+    host = fit(host_room - OFFLOAD_HOST_MARGIN - staging, 16)
+    card = min(fit(card_bytes, 10),
+               fit(card_bytes - ZENFLOW_CARD_RESERVE, 8))
+    layers = min(host, card)
+    n32 = base + 32 * per_layer
+    reason = ("host and card hold the full depth" if layers == 32 else
+              f"the {'host' if host <= card else 'card'} holds {layers} "
+              f"layers: host room {host_room / 1e9:.1f} GB against "
+              f"{(16 * n32 + staging + OFFLOAD_HOST_MARGIN) / 1e9:.1f} GB "
+              f"at 32 layers (16 B a parameter, {staging / 1e9:.2f} GB of "
+              f"staging, {OFFLOAD_HOST_MARGIN / 1e9:.0f} GB margin); card "
+              f"{card_bytes / 1e9:.1f} GB against {10 * n32 / 1e9:.1f} GB at"
+              f" init and {(8 * n32 + ZENFLOW_CARD_RESERVE) / 1e9:.1f} GB in"
+              f" training at 32 layers")
+    return layers, {"params_base": base, "params_per_layer": per_layer,
+                    "host_bytes_per_param": 16, "staging_gb": staging / 1e9,
+                    "margin_gb": OFFLOAD_HOST_MARGIN / 1e9,
+                    "host_room_gb": host_room / 1e9, "host_layers": host,
+                    "card_gb": card_bytes / 1e9,
+                    "card_bytes_per_param": {"init": 10, "train": 8},
+                    "card_reserve_gb": ZENFLOW_CARD_RESERVE / 1e9,
+                    "card_layers": card, "layers": layers, "reason": reason}
+
+
+def profiled_steps(torch, engine, data, n):
+    """``n`` steps under torch.profiler: (device breakdown, wall)."""
+    from torch.profiler import ProfilerActivity
+
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+    prof.__enter__()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        engine.train_batch(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.__exit__(None, None, None)
+    return device_breakdown(torch, prof, wall, n, unit="step")
+
+
+def step_kind(times):
+    return ("fold+ship" if "fold" in times and "ship" in times else
+            "fold" if "fold" in times else
+            "ship" if "ship" in times else "steady")
+
+
+def zenflow_full_depth(torch, zoo, initialize, fa, builder, off_mod):
+    """Phase 11a. Returns (line, profile line, flash launches of the
+    measured steps, the depth)."""
+    free_caches(torch)
+    torch.cuda.reset_peak_memory_stats()
+    mem = meminfo()
+    room, limit = host_memory_room(mem)
+    card = torch.cuda.get_device_properties(0).total_memory
+    layers, reckoning = zenflow_depth(zoo, off_mod, room, card)
+    log(f"zenflow: MemAvailable {mem['MemAvailable'] / 1e9:.1f} GB, limit "
+        f"{limit / 1e9:.1f} GB, room {room / 1e9:.1f} GB, card "
+        f"{card / 1e9:.1f} GB; {reckoning['reason']}")
+    if layers < 1:
+        fail(f"zenflow: host and card hold no layer: {reckoning}")
+    t0 = time.perf_counter()
+    model = zoo.get_model("llama3-8b", num_layers=layers,
+                          dtype=torch.float32, seed=SEED)
+    cfg = model.config
+    engine, *_ = initialize(model=model, config=dict(ZENFLOW_CONFIG))
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    zen = engine._zenflow
+    if zen is None or engine._offload is not None or \
+            builder.native_status() != "built":
+        fail(f"zenflow: not the one host optimizer, or the native library "
+             f"is not in use: {builder.native_status()}")
+    native = {"status": builder.native_status(),
+              "library": os.path.basename(builder.require_native_lib()._name)}
+    ui = ZENFLOW_BLOCK["update_interval"]
+    _, data = fixed_batches(cfg.vocab_size, micro=OFFLOAD_MICRO)
+    # the first interval: the first selection and the first ship
+    warm = [float(engine.train_batch(data)) for _ in range(ui)]
+    # after the window's last fold: the host masters at the kept
+    # coordinates hold the card's values (one leaf)
+    leaf = zen.paths.index("/layers/attn/wq")
+    folds = []
+    real_fold = zen._fold
+
+    def checked_fold(p_leaves):
+        keep = zen._idx[leaf]
+        if zen._protected[leaf] is not None:
+            keep = torch.cat([keep, zen._protected[leaf]])
+        real_fold(p_leaves)
+        card_vals = p_leaves[leaf].view(-1)[keep].float().cpu()
+        host_vals = zen._masters[leaf][keep.cpu()]
+        flat = p_leaves[leaf].view(-1)[:1 << 24]
+        cast = zen._masters[leaf][:1 << 24].to(flat.dtype).to(flat.device)
+        mask = torch.ones_like(flat, dtype=torch.bool)
+        mask[keep[keep < flat.numel()]] = False
+        folds.append({
+            "kept": int(keep.numel()),
+            "kept_max_abs_diff": float((card_vals - host_vals).abs().max()),
+            "others_equal_cast": bool(torch.equal(flat[mask], cast[mask]))})
+
+    zen._fold = checked_fold
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    counts0, passes0 = dict(zen.counts), len(zen.pass_s)
+    steps, losses = [], list(warm)
+    for _ in range(ZENFLOW_INTERVALS * ui):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        times = dict(zen.last_times)
+        steps.append({"step": engine.global_steps, "kind": step_kind(times),
+                      "wall_s": wall, **times})
+        losses.append(float(loss))
+    zen._fold = real_fold
+    launches = dict(fa.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
+    counts = {k: zen.counts[k] - counts0[k] for k in ("ships", "folds")}
+    L, n = layers, len(steps)
+    want = {"flash_fwd": n * 2 * L,  # forward + remat replay, GAS 1
+            "flash_bwd_dkdv": n * L, "flash_bwd_dq": n * L}
+    if launches != want:
+        fail(f"zenflow: flash launches {launches}, remat implies {want}")
+    check_tensor_core("zenflow", launches, variants,
+                      ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail(f"zenflow: losses {losses} not finite and falling")
+    if counts != {"ships": ZENFLOW_INTERVALS, "folds": ZENFLOW_INTERVALS}:
+        fail(f"zenflow: {counts} in the measured window, two intervals "
+             f"imply {ZENFLOW_INTERVALS} of each")
+    last = folds[-1] if folds else None
+    if last is None or last["kept_max_abs_diff"] != 0.0 or \
+            not last["others_equal_cast"]:
+        fail(f"zenflow: after the last fold the masters and the card's "
+             f"values disagree: {folds}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    zen.finalize()
+    rss, hwm = rss_bytes()
+    passes = zen.pass_s[passes0:passes0 + ZENFLOW_INTERVALS]
+    by_kind = {}
+    for st in steps:
+        by_kind.setdefault(st["kind"], []).append(st["wall_s"])
+    mean_s = float(np.mean([st["wall_s"] for st in steps]))
+    tokens = OFFLOAD_MICRO * TRAIN_SEQ
+    flops_tok = 6 * cfg.num_params() + 12 * L * cfg.hidden_size * TRAIN_SEQ
+    fold_steps = [st for st in steps if "fold" in st]
+    ship_steps = [st for st in steps if "ship" in st]
+    line = {
+        "model": "llama3-8b", "layers": f"{L} of 32",
+        "depth_reckoning": reckoning, "params": cfg.num_params(),
+        "dtype": "bfloat16 compute, fp32 host masters",
+        "zenflow": ZENFLOW_BLOCK, "micro": OFFLOAD_MICRO, "gas": 1,
+        "seq": TRAIN_SEQ, "tokens_per_step": tokens, "init_s": init_s,
+        "warmup_steps": ui, "steps": steps,
+        "step_s_mean": mean_s,
+        "step_s_mean_by_kind": {k: float(np.mean(v))
+                                for k, v in by_kind.items()},
+        "tokens_per_s": tokens / mean_s,
+        "mfu": tokens / mean_s * flops_tok / PEAK_FLOPS["bfloat16"],
+        "flops_per_token": flops_tok,
+        "host_pass_s": passes,
+        "host_adam_gparam_per_s": [cfg.num_params() / 1e9 / s
+                                   for s in passes],
+        "collect_wait_s": [st["collect_wait"] for st in fold_steps],
+        "ship_s": [st["ship"] for st in ship_steps],
+        "ship_copy_device_s": [st["ship_copy"] for st in ship_steps],
+        "fold_s": [st["fold"] for st in fold_steps],
+        "fold_copy_device_s": [st["fold_copy"] for st in fold_steps],
+        # the copy stream's busy time (CUDA events): fp32 grads down, bf16
+        # params up
+        "ship_d2h_gb_per_s": [cfg.num_params() * 4 / 1e9 / st["ship_copy"]
+                              if st["ship_copy"] else None
+                              for st in ship_steps],
+        "fold_h2d_gb_per_s": [cfg.num_params() * 2 / 1e9 / st["fold_copy"]
+                              if st["fold_copy"] else None
+                              for st in fold_steps],
+        "folds_checked": folds, "counts": counts,
+        "init_peak_mem_gb": init_peak_gb, "peak_mem_gb": peak_gb,
+        "host_state_gb": 16 * cfg.num_params() / 1e9,
+        "host_rss_gb": rss / 1e9, "host_rss_peak_gb": hwm / 1e9,
+        "native": native, "losses": losses,
+        "grad_norm": float(engine.get_global_grad_norm()),
+        "global_steps": engine.global_steps, "launches": launches,
+        "launches_per_step": {k: v // n for k, v in launches.items()},
+        "variant_launches": variants,
+    }
+    log(f"zenflow: {L} layers, steps "
+        f"{[(st['kind'], round(st['wall_s'], 3)) for st in steps]}, "
+        f"host passes {passes} s, losses {losses}")
+    # one interval under the profiler: three steady steps and a
+    # fold + ship
+    profile = profiled_steps(torch, engine, data, ui)
+    profile["steps"] = ui
+    zen.close()
+    del engine, model, zen
+    free_caches(torch)
+    return line, profile, {**launches, **variants}, layers
+
+
+def zenflow_blocking(torch, zoo, initialize, fa, layers):
+    """Phase 11b: PR 12's blocking offload step at 11a's depth. Returns
+    (line, flash launches of the measured steps)."""
+    free_caches(torch)
+    model = zoo.get_model("llama3-8b", num_layers=layers,
+                          dtype=torch.float32, seed=SEED)
+    cfg = model.config
+    engine, *_ = initialize(model=model, config=dict(OFFLOAD_CONFIG))
+    _, data = fixed_batches(cfg.vocab_size, micro=OFFLOAD_MICRO)
+    losses = [float(engine.train_batch(data))]
+    fa.reset_launch_counts()
+    more, step_s = timed_steps(torch, engine, data, ZENFLOW_BLOCKING_STEPS)
+    losses += more
+    launches = dict(fa.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
+    n = ZENFLOW_BLOCKING_STEPS
+    want = {"flash_fwd": n * 2 * layers, "flash_bwd_dkdv": n * layers,
+            "flash_bwd_dq": n * layers}
+    if launches != want:
+        fail(f"zenflow blocking: flash launches {launches}, remat implies "
+             f"{want}")
+    check_tensor_core("zenflow blocking", launches, variants,
+                      ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
+    if not all(np.isfinite(losses)):
+        fail(f"zenflow blocking: losses {losses}")
+    split = step_split(step_s[-1], engine._offload.last_step_s)
+    profile = profiled_steps(torch, engine, data, 1)
+    mean_s = float(np.mean(step_s))
+    tokens = OFFLOAD_MICRO * TRAIN_SEQ
+    flops_tok = 6 * cfg.num_params() + 12 * layers * cfg.hidden_size * \
+        TRAIN_SEQ
+    line = {"layers": f"{layers} of 32", "params": cfg.num_params(),
+            "step_s": step_s, "step_s_mean": mean_s,
+            "step_split_last": split, "tokens_per_s": tokens / mean_s,
+            "mfu": tokens / mean_s * flops_tok / PEAK_FLOPS["bfloat16"],
+            "losses": losses, "profile": profile, "launches": launches,
+            "variant_launches": variants}
+    del engine, model
+    free_caches(torch)
+    return line, {**launches, **variants}
+
+
+def zenflow_checkpoint(torch, zoo, initialize, fa):
+    """Phase 11c: saved at step 3 (the pass shipped at step 2 in
+    flight), loaded by a fresh engine from another seed, 3 resumed
+    losses equal to the uninterrupted run's. Returns (line, flash
+    launches of the resumed steps)."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    vocab = zoo.get_config("llama3-8b").vocab_size
+
+    def build(seed):
+        free_caches(torch)
+        model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
+                              dtype=torch.float32, seed=seed)
+        engine, *_ = initialize(model=model,
+                                config=dict(ZENFLOW_CKPT_CONFIG))
+        return engine, model
+
+    def batches(skip=0):
+        _, it = fixed_batches(vocab, micro=OFFLOAD_MICRO)
+        for _ in range(skip):
+            next(it)
+        return it
+
+    root = tempfile.mkdtemp(prefix="dstpu_zenflow_")
+    try:
+        engine, model = build(SEED)
+        it = batches()
+        before, _ = timed_steps(torch, engine, it, ZENFLOW_CKPT_BEFORE)
+        in_flight = engine._zenflow._worker.busy
+        n = model.config.num_params()
+        need = 18 * n  # masters, moments, accumulators, bf16 params
+        free = shutil.disk_usage(root).free
+        if free < 1.1 * need:
+            fail(f"zenflow checkpoint: {free / 1e9:.1f} GB free at {root}, "
+                 f"the state needs {need / 1e9:.1f} GB")
+        t0 = time.perf_counter()
+        engine.save_checkpoint(root)
+        save_s = time.perf_counter() - t0
+        state_gb = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, files in os.walk(root) for f in files) / 1e9
+        ref, _ = timed_steps(torch, engine, it, ZENFLOW_CKPT_AFTER)
+        engine._zenflow.close()
+        del engine, model
+        engine, model = build(SEED + 1)
+        t0 = time.perf_counter()
+        engine.load_checkpoint(root)
+        load_s = time.perf_counter() - t0
+        fa.reset_launch_counts()
+        resumed, step_s = timed_steps(
+            torch, engine, batches(ZENFLOW_CKPT_BEFORE), ZENFLOW_CKPT_AFTER)
+        launches = dict(fa.LAUNCHES)
+        variants = dict(fa.VARIANT_LAUNCHES)
+        if resumed != ref:
+            fail(f"zenflow checkpoint: resumed losses {resumed} are not the "
+                 f"uninterrupted run's {ref}")
+        L, k = CKPT_LAYERS, ZENFLOW_CKPT_AFTER
+        want = {"flash_fwd": k * 2 * L, "flash_bwd_dkdv": k * L,
+                "flash_bwd_dq": k * L}
+        if launches != want:
+            fail(f"zenflow checkpoint: flash launches {launches}, remat "
+                 f"implies {want}")
+        check_tensor_core("zenflow checkpoint", launches, variants,
+                          ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
+        leaves_n = len(list(leaves(engine.params)))
+        engine._zenflow.close()
+        del engine, model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_caches(torch)
+    return {"layers": f"{CKPT_LAYERS} of 32", "params": n,
+            "zenflow": ZENFLOW_CKPT_CONFIG["zero_optimization"]["zenflow"],
+            "pass_in_flight_at_save": in_flight, "state_gb": state_gb,
+            "save_s": save_s, "load_s": load_s, "leaves": leaves_n,
+            "losses_before": before, "losses_reference": ref,
+            "losses_resumed": resumed, "resumed_bit_identical": True,
+            "resumed_step_ms_p50": float(np.median(step_s)) * 1e3,
+            "launches": launches, "variant_launches": variants}, \
+        {**launches, **variants}
+
+
+def sweep_tree(torch, device, seed):
+    rng = np.random.default_rng(seed)
+
+    def make(shapes, scale):
+        return {k: (make(v, scale) if isinstance(v, dict) else
+                    torch.from_numpy((rng.standard_normal(v) * scale)
+                                     .astype(np.float32)).to(device))
+                for k, v in shapes.items()}
+
+    return make(SWEEP_TREE, 1.0), make(SWEEP_TREE, 0.1)
+
+
+def sweep_update_agrees(torch, opt_mod, name):
+    """One update of a seeded tree on the card and on the CPU (fp32, the
+    clip engaged): the largest error over rtol * |cpu| + atol, which
+    must stay <= 1."""
+    from deepspeed_tpu_torch.config.config import OptimizerConfig
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        params, grads = sweep_tree(torch, device, SEED + 11)
+        tx, _ = opt_mod.get_base_optimizer(OptimizerConfig(
+            type=name, params={"lr": SWEEP_LR[name]}))
+        state = opt_mod.init_mixed_precision(params, tx)
+        opt_mod.apply_mixed_precision_update(state, grads, tx, grad_clip=1.0)
+        out[device] = dict(opt_mod.leaves(state.master))
+    worst = 0.0
+    for path, want in out["cpu"].items():
+        got = out["cuda"][path].cpu()
+        worst = max(worst, float(((got - want).abs() / (
+            SWEEP_TOL_REL * want.abs() + SWEEP_TOL_ABS)).max()))
+    return worst
+
+
+def optimizer_sweep(torch, zoo, initialize):
+    """Phase 11d: each optimizer 3 steps of the 2-layer model (finite
+    losses, the last below the first) and one update of a small tree on
+    the card against the CPU. Returns the line."""
+    from deepspeed_tpu_torch.runtime import muon
+    from deepspeed_tpu_torch.runtime import optimizer as opt_mod
+
+    vocab = zoo.get_config("llama3-8b").vocab_size
+    out = {}
+    for name, lr in SWEEP_LR.items():
+        worst = sweep_update_agrees(torch, opt_mod, name)
+        if not worst <= 1.0:
+            fail(f"optimizer sweep: {name} on the card vs the CPU: "
+                 f"{worst:.3g} x (rtol {SWEEP_TOL_REL}, atol "
+                 f"{SWEEP_TOL_ABS})")
+        free_caches(torch)
+        model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
+                              dtype=torch.float32, seed=SEED)
+        config = dict(OFFLOAD_DEVICE_CONFIG,
+                      optimizer={"type": name, "params": {"lr": lr}})
+        engine, *_ = initialize(model=model, config=config)
+        _, data = fixed_batches(vocab, micro=OFFLOAD_MICRO)
+        losses, step_s = timed_steps(torch, engine, data, SWEEP_STEPS)
+        if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+            fail(f"optimizer sweep: {name} at lr {lr}: losses {losses} not "
+                 f"finite and falling")
+        row = {"lr": lr, "losses": losses, "step_s": step_s,
+               "step_ms_mean_after_first": float(np.mean(step_s[1:])) * 1e3,
+               "card_vs_cpu_worst_over_tol": worst,
+               "state_trees": sorted(engine.opt_state.named_trees())}
+        if name == "muon":
+            # one more step with the Newton-Schulz calls timed (a
+            # synchronize around each)
+            real, ns = muon.newton_schulz, []
+
+            def timed_ns(G, steps=5, eps=1e-7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = real(G, steps, eps)
+                torch.cuda.synchronize()
+                ns.append(time.perf_counter() - t0)
+                return x
+
+            muon.newton_schulz = timed_ns
+            try:
+                _, (wall,) = timed_steps(torch, engine, data, 1)
+            finally:
+                muon.newton_schulz = real
+            row.update(ns_s=sum(ns), ns_calls=len(ns), ns_step_s=wall,
+                       ns_share=sum(ns) / wall)
+        out[name] = row
+        del engine, model
+    free_caches(torch)
+    return {"layers": f"{CKPT_LAYERS} of 32", "micro": OFFLOAD_MICRO,
+            "gas": 1, "seq": TRAIN_SEQ, "optimizers": out}
+
+
 # -- phases 5 and 6: MoE serve and train ----------------------------------------
 
 
@@ -3112,6 +3616,25 @@ def main():
         f"nvme, Fast save {offload_ckpt['save_s']:.1f} s; phase 10 took "
         f"{offload_wall:.0f} s")
 
+    # 11. ZenFlow at full depth, the blocking step beside it, its
+    # checkpoint, and the optimizer sweep; phase 10's engines are gone
+    t0 = time.perf_counter()
+    zenflow, zenflow_profile, zenflow_launches, zf_layers = \
+        zenflow_full_depth(torch, zoo, initialize, fa, native_builder,
+                           off_mod)
+    zenflow_block, zenflow_block_launches = zenflow_blocking(
+        torch, zoo, initialize, fa, zf_layers)
+    zenflow_ckpt, zenflow_ckpt_launches = zenflow_checkpoint(
+        torch, zoo, initialize, fa)
+    sweep = optimizer_sweep(torch, zoo, initialize)
+    zenflow_wall = time.perf_counter() - t0
+    log(f"zenflow: {zenflow['layers']} layers, step mean "
+        f"{zenflow['step_s_mean']:.3f} s "
+        f"({zenflow['step_s_mean_by_kind']}) against the blocking "
+        f"{zenflow_block['step_s_mean']:.3f} s; resumed bit-identical; "
+        f"sweep {[(k, v['losses'][-1]) for k, v in sweep['optimizers'].items()]}"
+        f"; phase 11 took {zenflow_wall:.0f} s")
+
     # 8b. the engine with a sparse_attention block: the micro-step loop
     # over the dataloader, then eval; phase 4's engine is gone
     sparse_train, sparse_launches = sparse_train_phase(
@@ -3186,7 +3709,10 @@ def main():
                     "moe_train": moe_train_launches[name],
                     "checkpoint": ckpt_launches[name],
                     "offload": offload_launches[name],
-                    "offload_checkpoint": offload_ckpt_launches[name]},
+                    "offload_checkpoint": offload_ckpt_launches[name],
+                    "zenflow": zenflow_launches[name],
+                    "zenflow_blocking": zenflow_block_launches[name],
+                    "zenflow_checkpoint": zenflow_ckpt_launches[name]},
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
                            if k.startswith(name + "/")}
@@ -3195,7 +3721,12 @@ def main():
                                      ("checkpoint", ckpt_launches),
                                      ("offload", offload_launches),
                                      ("offload_checkpoint",
-                                      offload_ckpt_launches))},
+                                      offload_ckpt_launches),
+                                     ("zenflow", zenflow_launches),
+                                     ("zenflow_blocking",
+                                      zenflow_block_launches),
+                                     ("zenflow_checkpoint",
+                                      zenflow_ckpt_launches))},
                 "max_abs_err": b["max_abs_err"],
                 "max_row_rel_err": b.get("max_row_rel_err"),
                 "ms": b["ms"], "tflops": b["tflops"],
@@ -3364,6 +3895,12 @@ def main():
     print(json.dumps({"offload_parity": offload_parity}), flush=True)
     print(json.dumps({"offload_checkpoint": offload_ckpt,
                       "phase10_wall_s": offload_wall}), flush=True)
+    print(json.dumps({"zenflow": zenflow}), flush=True)
+    print(json.dumps({"zenflow_profile": zenflow_profile}), flush=True)
+    print(json.dumps({"zenflow_blocking": zenflow_block}), flush=True)
+    print(json.dumps({"zenflow_checkpoint": zenflow_ckpt}), flush=True)
+    print(json.dumps({"optimizer_sweep": sweep,
+                      "phase11_wall_s": zenflow_wall}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
           flush=True)
     print(card, flush=True)

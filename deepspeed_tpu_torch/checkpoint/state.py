@@ -25,8 +25,20 @@ the NVMe tier they are read from the swap store for the save and
 written back after a load. A load that wants the optimizer state and
 finds no such payload raises ``FileNotFoundError`` (JAX's wording); with
 ``load_optimizer_states=False`` the masters are re-seeded from the
-restored params. The ZenFlow, 1-bit and ZeRO++ branches are not here:
-their config switches raise (ROADMAP queue A items 10 and 12). Universal
+restored params.
+
+With ZenFlow (``runtime/zenflow.py``) the optimizer payload is JAX's
+ZenFlow branch: the whole importance-split state under
+``state/zenflow_rank0/`` (the stem of JAX's ``zenflow_rank0.npy``), one
+torch file per tensor under JAX's state-dict keys (``masters``,
+``host_opt/exp_avg``, ``idx``, ``acc``, ``protected``, ... by leaf
+path; ``steps``), and ``fold_due``, which JAX does not keep. The save
+waits for a host pass in flight first (``state_dict`` finalizes); the
+load reads the files with ``weights_only``, checks every shape before
+anything changes, and raises ``FileNotFoundError`` with JAX's wording
+when the payload is missing; ``load_optimizer_states=False`` rebuilds
+ZenFlow from the restored params. The 1-bit and ZeRO++ branches are not
+here: their config switches raise (ROADMAP queue A item 10). Universal
 checkpoints raise at the config (item 16). The multi-process agreement
 (``_agree``, the publish barrier, ``assert_same_across_processes``) is
 the identity at world size 1, and so is JAX's ``_validate_tag`` (every
@@ -51,10 +63,12 @@ from deepspeed_tpu_torch.resilience.manifest import (CheckpointCorruptError,
                                                      validate_manifest,
                                                      write_manifest)
 from deepspeed_tpu_torch.resilience.resume import data_cursor
-from deepspeed_tpu_torch.runtime.checkpoint_engine import \
-    make_checkpoint_engine
+from deepspeed_tpu_torch.runtime.checkpoint_engine import (
+    make_checkpoint_engine, read_files)
 from deepspeed_tpu_torch.runtime.loss_scaler import LossScaleState
-from deepspeed_tpu_torch.runtime.optimizer import leaves
+from deepspeed_tpu_torch.runtime.optimizer import (leaves,
+                                                   reset_optimizer_state,
+                                                   set_leaf)
 from deepspeed_tpu_torch.utils import telemetry
 
 logger = logging.getLogger(__name__)
@@ -66,6 +80,8 @@ FRAMEWORK_VERSION = "0.1.0"  # the project's version (pyproject.toml)
 # the mesh of a one-device JAX engine (its axes in parallel/topology.py)
 MESH_SHAPE = {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
 OFFLOAD_KEY = "offload_optim_rank0"  # world size 1: one process
+ZENFLOW_KEY = "zenflow_rank0"
+ZENFLOW_LEAF_KEYS = ("masters", "idx", "m", "v", "acc")
 
 
 class CheckpointIO:
@@ -110,11 +126,14 @@ class CheckpointIO:
         }
         if not optimizer:
             return state
-        if e._offload is not None:
+        if e._zenflow is not None:
+            state[ZENFLOW_KEY] = zenflow_tree(e._zenflow)
+        elif e._offload is not None:
             state[OFFLOAD_KEY] = e._offload.state_dict()
         else:
-            state.update(opt_master=e.opt_state.master,
-                         opt_mu=e.opt_state.mu, opt_nu=e.opt_state.nu)
+            state["opt_master"] = e.opt_state.master
+            for name, tree in e.opt_state.named_trees().items():
+                state[f"opt_{name}"] = tree
         return state
 
     def _rconfig(self) -> Tuple[bool, bool]:
@@ -270,6 +289,18 @@ class CheckpointIO:
 
         t0 = time.perf_counter()
         state_dir = os.path.join(ckpt_dir, STATE_DIR)
+        zen_sd = None
+        if e._zenflow is not None and load_optimizer_states:
+            zen_dir = os.path.join(state_dir, ZENFLOW_KEY)
+            if not os.path.isdir(zen_dir):
+                raise FileNotFoundError(
+                    "zenflow optimizer state missing on at least one "
+                    f"process (this rank's path: {zen_dir}). Pass "
+                    "load_optimizer_states=False to knowingly re-seed "
+                    "fresh importance-split state from the restored params")
+            zen_tree = read_files(zen_dir)
+            zen_sd = zenflow_state_dict(zen_tree, e._zenflow.paths)
+            e._zenflow.check_state_dict(zen_sd)
         if e._offload is not None and load_optimizer_states and \
                 not os.path.isdir(os.path.join(state_dir, OFFLOAD_KEY)):
             raise FileNotFoundError(
@@ -280,11 +311,20 @@ class CheckpointIO:
                 "(zeroed moments) from the checkpoint params instead.")
         # the optimizer payloads (~3x the param bytes) are not read at
         # all when they are not wanted
-        state = self._state(optimizer=load_optimizer_states)
+        state = self._state(optimizer=load_optimizer_states
+                            and e._zenflow is None)
         skip = () if load_optimizer_states else ("opt_count",)
         nbytes, _ = self.ckpt_engine.load(state_dir, state, skip=skip)
         with torch.no_grad():
-            if e._offload is not None:
+            if e._zenflow is not None:
+                if zen_sd is not None:
+                    e._zenflow.load_state_dict(zen_sd)
+                    nbytes += sum(t.nbytes for _, t in leaves(zen_tree))
+                else:
+                    logger.warning("optimizer state not restored: ZenFlow "
+                                   "rebuilt from the restored params")
+                    e._zenflow.reinit(e.params)
+            elif e._offload is not None:
                 if load_optimizer_states:
                     e._offload.load_state_dict(state[OFFLOAD_KEY])
                     e._offload.count = int(state["opt_count"])
@@ -303,10 +343,7 @@ class CheckpointIO:
                 for (_, m), (_, p) in zip(leaves(e.opt_state.master),
                                           leaves(e.params)):
                     m.copy_(p)
-                for _, t in (*leaves(e.opt_state.mu),
-                             *leaves(e.opt_state.nu)):
-                    t.zero_()
-                e.opt_state.count = 0
+                reset_optimizer_state(e.opt_state, e.tx)
         if e.device.type == "cuda":
             torch.cuda.synchronize(e.device)
         ls = state["loss_scale"]
@@ -327,6 +364,67 @@ class CheckpointIO:
         return ckpt_dir, meta.get("client_state", {})
 
 
+def zenflow_tree(zf) -> Dict[str, Any]:
+    """ZenFlow's state dict (JAX's keys, and ``fold_due``) as a tree of
+    tensors keyed by leaf path: the per-leaf lists become subtrees, the
+    scalars 0-dim tensors; a leaf with no protected set has no
+    ``protected`` file."""
+    sd = zf.state_dict()
+    tree: Dict[str, Any] = {
+        "steps": torch.tensor(sd["steps"], dtype=torch.int64),
+        "fold_due": torch.tensor(sd["fold_due"])}
+    for i, path in enumerate(zf.paths):
+        (master,), (opt,) = sd["masters"][i], sd["host_opt"][i]
+        set_leaf(tree.setdefault("masters", {}), path, master)
+        set_leaf(tree.setdefault("shard_index", {}), path,
+                 torch.tensor(sd["shard_index"][i][0], dtype=torch.int64))
+        for name in ("exp_avg", "exp_avg_sq"):
+            set_leaf(tree.setdefault("host_opt", {}).setdefault(name, {}),
+                     path, opt[name])
+        set_leaf(tree["host_opt"].setdefault("step", {}), path,
+                 torch.tensor(opt["step"], dtype=torch.int64))
+        for key in ZENFLOW_LEAF_KEYS[1:]:
+            set_leaf(tree.setdefault(key, {}), path, sd[key][i])
+        set_leaf(tree.setdefault("sel_step", {}), path,
+                 torch.tensor(sd["sel_step"][i], dtype=torch.int64))
+        set_leaf(tree.setdefault("updated_since_foldin", {}), path,
+                 torch.tensor(sd["updated_since_foldin"][i]))
+        if sd["protected"][i] is not None:
+            set_leaf(tree.setdefault("protected", {}), path,
+                     sd["protected"][i])
+    return tree
+
+
+def zenflow_state_dict(tree: Dict[str, Any], paths) -> Dict[str, Any]:
+    """Inverse of :func:`zenflow_tree`, for the leaves ``paths``."""
+    def get(key, path, required=True):
+        node = tree
+        for k in (*key.split("/"), *path.strip("/").split("/")):
+            node = node.get(k) if isinstance(node, dict) else None
+        if node is None and required:
+            raise ValueError(f"zenflow state has no '{key}' for leaf "
+                             f"{path}: a payload of another model")
+        return node
+
+    return {
+        "steps": int(tree["steps"]), "fold_due": bool(tree["fold_due"]),
+        "masters": [[get("masters", p)] for p in paths],
+        "shard_index": [[tuple(tuple(int(x) for x in row)
+                               for row in get("shard_index", p))]
+                        for p in paths],
+        "host_opt": [[{"exp_avg": get("host_opt/exp_avg", p),
+                       "exp_avg_sq": get("host_opt/exp_avg_sq", p),
+                       "step": int(get("host_opt/step", p))}]
+                     for p in paths],
+        **{key: [get(key, p) for p in paths]
+           for key in ZENFLOW_LEAF_KEYS[1:]},
+        "sel_step": [int(get("sel_step", p)) for p in paths],
+        "protected": [get("protected", p, required=False) for p in paths],
+        "updated_since_foldin": [bool(get("updated_since_foldin", p))
+                                 for p in paths],
+    }
+
+
 def module_state_keys(tree) -> Dict[str, torch.Tensor]:
     """``"."``-joined tree paths to leaves: the keys of the JAX engine's
     ``module_state_dict`` for the same model."""
@@ -335,4 +433,5 @@ def module_state_keys(tree) -> Dict[str, torch.Tensor]:
 
 
 __all__ = ["CheckpointIO", "LATEST_FILE", "METADATA_FILE", "STATE_DIR",
-           "OFFLOAD_KEY", "module_state_keys"]
+           "OFFLOAD_KEY", "ZENFLOW_KEY", "module_state_keys", "zenflow_tree",
+           "zenflow_state_dict"]

@@ -4,8 +4,9 @@ runs (port of ``deepspeed_tpu/config/config.py``).
 Parsed: the batch triple and its solver (``resolve_batch_size``),
 ``steps_per_print``, ``gradient_clipping``, ``seed``, the ``bf16`` and
 ``fp16`` blocks, ``optimizer``, ``scheduler``,
-``zero_optimization.stage`` and ``.offload_optimizer``
-(``OffloadOptimizerConfig``), the ``moe`` block (``ep_size`` 1), the
+``zero_optimization.stage``, ``.offload_optimizer``
+(``OffloadOptimizerConfig``) and ``.zenflow`` (``ZenFlowBlockConfig``),
+the ``moe`` block (``ep_size`` 1), the
 ``serving`` block (``ServingConfig``, the serving engine's knobs), the
 ``sparse_attention`` block (``SparseAttentionConfig``), the
 ``kernels`` block (``KernelsConfig``) and the ``checkpoint`` and
@@ -63,7 +64,6 @@ UNPORTED_SWITCHES = {
 ZERO_SWITCHES = {
     "offload_param": (None, f"{_A} 11 (offload_param streams the layers "
                             "with runtime/param_stream.py)"),
-    "zenflow": (None, f"{_A} 12 (ZenFlow, the second part of offload)"),
     "zero_quantized_weights": (False, f"{_A} 10 (ZeRO++)"),
     "zero_quantized_gradients": (False, f"{_A} 10 (ZeRO++)"),
     "zero_quantized_allreduce": (False, f"{_A} 10 (ZeRO++)"),
@@ -158,14 +158,44 @@ class OffloadOptimizerConfig:
 
 
 @dataclass
+class ZenFlowBlockConfig:
+    """``zero_optimization.zenflow`` (reference
+    runtime/zenflow/zenflow_config.py), with JAX's fields and checks:
+    the top ``topk_ratio`` of each leaf's coordinates update on the card
+    every step, the rest in a host pass every ``update_interval`` steps,
+    overlapped with training where ``overlap_step``; ``workers`` threads
+    split the host pass across leaves (``runtime/zenflow.py``)."""
+
+    topk_ratio: float = 0.01
+    update_interval: int = 4
+    select_interval: int = 16
+    overlap_step: bool = True
+    workers: int = 1
+
+    def validate(self) -> None:
+        if self.workers < 1:
+            raise ValueError(f"zenflow.workers must be >= 1, got "
+                             f"{self.workers}")
+        if not 0.0 < self.topk_ratio <= 1.0:
+            raise ValueError(
+                f"zenflow.topk_ratio must be in (0, 1], got "
+                f"{self.topk_ratio}")
+        if self.update_interval < 1 or self.select_interval < 1:
+            raise ValueError("zenflow intervals must be >= 1")
+
+
+@dataclass
 class ZeroConfig:
     """Stages 0-3 are the same math on one card (the JAX engine's stages
     are shardings over ranks; sharding is ROADMAP queue A item 5).
     ``offload_optimizer`` moves the optimizer to the host
-    (``OffloadOptimizerConfig``)."""
+    (``OffloadOptimizerConfig``); ``zenflow`` splits it between the card
+    and the host (``ZenFlowBlockConfig``; it needs the cpu tier, which
+    the engine checks, as JAX's does)."""
 
     stage: int = 0
     offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    zenflow: Optional[ZenFlowBlockConfig] = None
 
     @property
     def offload_device(self) -> str:
@@ -179,6 +209,8 @@ class ZeroConfig:
                 f"zero_optimization.stage must be 0-3, got {self.stage}")
         if self.offload_optimizer is not None:
             self.offload_optimizer.validate()
+        if self.zenflow is not None:
+            self.zenflow.validate()
 
 
 @dataclass
@@ -509,6 +541,9 @@ class Config:
             zero["offload_optimizer"] = _block(
                 OffloadOptimizerConfig, off,
                 "zero_optimization.offload_optimizer")
+        if zero.get("zenflow") is not None:
+            zero["zenflow"] = _block(ZenFlowBlockConfig, zero["zenflow"],
+                                     "zero_optimization.zenflow")
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
                   "zero_optimization", "moe", "serving", "sparse_attention",
                   "kernels", "checkpoint", "resilience"}
@@ -635,6 +670,7 @@ def load_config(config) -> Config:
 
 
 __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "BF16Config",
-           "FP16Config", "OffloadOptimizerConfig", "ZeroConfig", "MoEConfig", "ServingConfig",
+           "FP16Config", "OffloadOptimizerConfig", "ZenFlowBlockConfig",
+           "ZeroConfig", "MoEConfig", "ServingConfig",
            "SparseAttentionConfig", "KernelsConfig", "CheckpointConfig",
            "ResilienceConfig", "load_config"]

@@ -106,6 +106,26 @@ def read_tree(path: str, target: Tree,
     return nbytes, [p for p, _, _ in pairs]
 
 
+def read_files(path: str) -> Tree:
+    """Every leaf file under ``path``, mapped (``mmap``, weights only),
+    as a tree keyed by the files' paths: for a payload whose shapes the
+    engine cannot know beforehand (ZenFlow's protected sets)."""
+    out: Tree = {}
+    for dirpath, _, files in os.walk(path):
+        for name in files:
+            if not name.endswith(".pt"):
+                continue  # a .tmp of an interrupted write
+            rel = os.path.relpath(os.path.join(dirpath, name[:-3]), path)
+            node = out
+            keys = rel.split(os.sep)
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = torch.load(os.path.join(dirpath, name),
+                                        map_location="cpu",
+                                        weights_only=True, mmap=True)
+    return out
+
+
 class CheckpointEngine(abc.ABC):
     """Reference ABC: checkpoint_engine.py:21."""
 
@@ -239,4 +259,5 @@ def make_checkpoint_engine(checkpoint_config) -> CheckpointEngine:
 
 __all__ = ["CheckpointEngine", "SyncCheckpointEngine",
            "DecoupledCheckpointEngine", "FastCheckpointEngine",
-           "make_checkpoint_engine", "leaf_file", "read_tree", "write_tree"]
+           "make_checkpoint_engine", "leaf_file", "read_files", "read_tree",
+           "write_tree"]

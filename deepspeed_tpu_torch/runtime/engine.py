@@ -47,6 +47,15 @@ microbatch, JAX's offload numerics; no fp32 accumulators on the card),
 on both APIs. ``offload_states`` / ``reload_states`` empty and refill
 the card storage of the params and the device optimizer's state.
 
+ZenFlow (``zero_optimization.zenflow`` beside the cpu tier;
+``runtime/zenflow.py``) takes the host optimizer's place: the engine
+builds only the ZenFlow optimizer, whose fp32 masters come from the
+model's fp32 tensors leaf by leaf. Each update takes one coefficient for
+the unscaling and the clip (the fp32 global norm on the card), rounds it
+to the grads' dtype and multiplies the grads by it; an fp16 step with a
+non-finite norm is skipped without counting an update. The LR comes from
+the schedule at the update count.
+
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``,
 ``checkpoint/state.py``) and the resilience layer follow the JAX engine:
 a data cursor in every checkpoint (``resume_data_iter``), the chaos
@@ -58,13 +67,17 @@ inside an accumulation window holds the state of the last update, as in
 JAX: the fp32 accumulators are not state, and the cursor counts whole
 windows, so a resume replays the window's microbatches.
 
-Not ported yet (ROADMAP queue A item 4 and later): dispatch-ahead, the
-input prefetcher, client optimizers and LR schedulers, and the watchdog,
-flight recorder and observability hub.
+The JAX engine's ``set_lr``, ``zero_grad``, ``no_sync``, ``train`` /
+``eval`` and ``register_post_step_hook`` behave as there (hooks run at
+every ``global_steps`` increment, on both APIs, an fp16 step that skipped
+its update included). Not ported yet (ROADMAP queue A item 4 and later):
+dispatch-ahead, the input prefetcher, client optimizers and LR
+schedulers, and the watchdog, flight recorder and observability hub.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -77,7 +90,8 @@ import torch
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.checkpoint.state import (CheckpointIO,
                                                   module_state_keys)
-from deepspeed_tpu_torch.config.config import Config, load_config
+from deepspeed_tpu_torch.config.config import (Config, OptimizerConfig,
+                                               load_config)
 from deepspeed_tpu_torch.models import moe_transformer
 from deepspeed_tpu_torch.models.transformer import loss_fn
 from deepspeed_tpu_torch.ops import attention as attn_ops
@@ -95,8 +109,10 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
 from deepspeed_tpu_torch.runtime.optimizer import (
-    apply_mixed_precision_update, get_base_optimizer, init_mixed_precision,
-    leaves, tree_map)
+    apply_mixed_precision_update, get_base_optimizer, global_norm,
+    init_mixed_precision, leaves, tree_map)
+from deepspeed_tpu_torch.runtime.zenflow import (ZenFlowConfig,
+                                                 ZenFlowOptimizer)
 from deepspeed_tpu_torch.utils import memspace
 
 logger = logging.getLogger(__name__)
@@ -176,10 +192,21 @@ class Engine:
         self.lr_schedule = get_lr_schedule(config.scheduler,
                                            base_lr=self._config_lr())
         cdt = self.compute_dtype
+        zero = config.zero_optimization
+        if zero.zenflow is not None and zero.offload_device != "cpu":
+            raise ValueError(
+                "zero_optimization.zenflow requires "
+                "offload_optimizer.device='cpu' (ZenFlow keeps masters "
+                "host-resident; the NVMe swap tier does not apply), got "
+                f"device={zero.offload_device!r}")
         self._offload: Optional[HostOffloadOptimizer] = None
-        if config.zero_optimization.offload_device in ("cpu", "nvme"):
+        self._zenflow: Optional[ZenFlowOptimizer] = None
+        self._post_step_hooks: List = []
+        if zero.offload_device in ("cpu", "nvme"):
             self.tx, self.opt_state = None, None
-            self._init_offload(model)
+            self._zenflow = self._maybe_build_zenflow(model)
+            if self._zenflow is None:
+                self._init_offload(model)
         else:
             self.tx, self._base_lr = get_base_optimizer(config.optimizer,
                                                         self.lr_schedule)
@@ -194,7 +221,7 @@ class Engine:
         # hooks during backward and dropped after each update (with the
         # optimizer offloaded the grads accumulate in p.grad instead)
         self._grad_acc: Dict[torch.Tensor, torch.Tensor] = {}
-        if self.gradient_accumulation_steps > 1 and self._offload is None:
+        if self.gradient_accumulation_steps > 1 and not self._host_tier:
             # the hooks hold the engine weakly: a bound method would make a
             # cycle (engine -> params -> hook -> engine) that keeps the
             # card's memory until the garbage collector runs
@@ -233,6 +260,47 @@ class Engine:
             f"{self.gradient_accumulation_steps}, dtype={cdt}, "
             f"device={self.device}")
 
+    def _compute_params(self, src):
+        with torch.no_grad():
+            self.params = tree_map(
+                lambda t: t.detach().to(self.compute_dtype,
+                                        copy=True).requires_grad_(), src)
+
+    def _share_masters(self, src, master_of) -> None:
+        """An fp32 model on the card: each leaf rebound to its host master
+        (its card copy freed), so that it follows training."""
+        with torch.no_grad():
+            for path, leaf in leaves(src):
+                master = master_of(path)
+                if leaf.dtype == torch.float32 and \
+                        leaf.device != master.device:
+                    leaf.data = master.view(leaf.shape)
+
+    def _maybe_build_zenflow(self, model) -> Optional[ZenFlowOptimizer]:
+        """The ``zero_optimization.zenflow`` block (JAX
+        ``engine.py:1446-1478``): ZenFlow in the host optimizer's place,
+        with the optimizer block's lr, betas, eps and weight decay (0.0
+        unless set, under adamw too, as in JAX). None without the
+        block."""
+        zf = self.config.zero_optimization.zenflow
+        if zf is None:
+            return None
+        ocfg = self.config.optimizer
+        p = dict((ocfg.params or {}) if ocfg else {})
+        cfg = ZenFlowConfig(
+            topk_ratio=zf.topk_ratio, update_interval=zf.update_interval,
+            select_interval=zf.select_interval,
+            overlap_step=zf.overlap_step, workers=zf.workers,
+            betas=tuple(p.get("betas", (0.9, 0.999))),
+            eps=p.get("eps", 1e-8), weight_decay=p.get("weight_decay", 0.0))
+        src = model.params()
+        self._compute_params(src)
+        zen = ZenFlowOptimizer(src, cfg, lr=self._config_lr(),
+                               device=self.device)
+        self._base_lr = zen.lr
+        self._share_masters(src, zen.full_fp32_param)
+        return zen
+
     def _init_offload(self, model) -> None:
         """The ZeRO-Offload branch (JAX ``engine.py:744-841``): the
         compute-dtype params on the card, the fp32 masters and moments on
@@ -244,11 +312,7 @@ class Engine:
         off = self.config.zero_optimization.offload_optimizer
         ocfg = self.config.optimizer
         src = model.params()
-        cdt = self.compute_dtype
-        with torch.no_grad():
-            self.params = tree_map(
-                lambda t: t.detach().to(cdt, copy=True).requires_grad_(),
-                src)
+        self._compute_params(src)
         self._offload = HostOffloadOptimizer(
             src, optimizer_name=(ocfg.type if ocfg else "adamw") or "adamw",
             optimizer_params=dict((ocfg.params or {}) if ocfg else {}),
@@ -258,12 +322,7 @@ class Engine:
             grad_transfer_dtype=off.grad_transfer_dtype)
         self._base_lr = self._offload.lr
         if self._offload.tier == "cpu":
-            with torch.no_grad():
-                for path, leaf in leaves(src):
-                    master = self._offload.masters[path]
-                    if leaf.dtype == torch.float32 and \
-                            leaf.device != master.device:
-                        leaf.data = master.view(leaf.shape)
+            self._share_masters(src, self._offload.masters.get)
 
     def _init_resilience(self) -> None:
         """The resilience block (JAX ``engine.py:481-512``):
@@ -353,12 +412,17 @@ class Engine:
         return self.loss_scale_state.scale if self.config.fp16.enabled \
             else 1.0
 
+    @property
+    def _host_tier(self) -> bool:
+        """The optimizer is offloaded (the host tier or ZenFlow)."""
+        return self._offload is not None or self._zenflow is not None
+
     def _backward_scale(self) -> float:
         """What each microbatch's loss is multiplied by before backward:
         the loss scale, over GAS when the optimizer is offloaded (there
         the grads accumulate in p.grad in the compute dtype, as JAX's
         offload step differentiates ``sum(loss * scale / gas)``)."""
-        if self._offload is not None:
+        if self._host_tier:
             return self._loss_scale() / self.gradient_accumulation_steps
         return self._loss_scale()
 
@@ -409,6 +473,9 @@ class Engine:
                 tree_map(lambda p: p.grad, self.params), self.params, lr=lr,
                 grad_scale=scale if fp16 else None, skip_on_nonfinite=fp16)
             gnorm = torch.tensor(gnorm, dtype=torch.float32)
+        elif self._zenflow is not None:
+            gnorm, overflow = self._zenflow_apply(scale if fp16 else None,
+                                                  lr)
         else:
             if self.gradient_accumulation_steps > 1:
                 grads = tree_map(lambda p: self._grad_acc.get(p),
@@ -427,10 +494,12 @@ class Engine:
         if fp16:
             self.loss_scale_state = update_loss_scale(
                 self.loss_scale_state, overflow, self.config.fp16)
+        self._last_grad_norm = gnorm
         self.global_steps += 1
         self.global_samples += self.train_batch_size
+        for hook in self._post_step_hooks:
+            hook(self)
         self.skipped_steps += int(overflow)
-        self._last_grad_norm = gnorm
         mean_loss = torch.stack([loss for loss, _ in micro]).mean()
         self.last_metrics = {"loss": mean_loss, "grad_norm": gnorm, "lr": lr,
                              "loss_scale": self.loss_scale_state.scale,
@@ -452,6 +521,34 @@ class Engine:
                 and self._preempt_guard.should_checkpoint()):
             self._emergency_checkpoint()
         return mean_loss
+
+    @torch.no_grad()
+    def _zenflow_apply(self, scale: Optional[float], lr: float):
+        """The ZenFlow branch of the offloaded step (JAX
+        ``_offload_apply``): one coefficient applies the unscaling and
+        the clip, rounded to the grads' dtype; the fp32 norm stays on the
+        card unless fp16 needs the overflow decision. Returns (grad norm,
+        overflow)."""
+        grads = tree_map(lambda p: p.grad, self.params)
+        gnorm = global_norm(grads)
+        if scale and scale != 1.0:
+            gnorm = gnorm / scale
+        coef = torch.tensor(1.0 / (scale or 1.0), dtype=torch.float32,
+                            device=gnorm.device)
+        clip = self.config.gradient_clipping
+        if clip and clip > 0:
+            clip_t = torch.tensor(clip, dtype=torch.float32,
+                                  device=gnorm.device)
+            coef = coef * torch.clamp(clip_t / (gnorm + 1e-6), max=1.0)
+        overflow = bool(self.config.fp16.enabled
+                        and not torch.isfinite(gnorm))
+        if overflow:
+            return gnorm, True
+        if (clip and clip > 0) or (scale and scale != 1.0):
+            for _, g in leaves(grads):
+                g.mul_(coef.to(g.dtype))
+        self._zenflow.step(grads, self.params, lr=lr)
+        return gnorm, False
 
     def _emergency_checkpoint(self) -> None:
         """Preemption-notice path: save and force-commit, bounded by
@@ -546,16 +643,64 @@ class Engine:
     @property
     def update_count(self) -> int:
         """Updates applied so far (the LR schedule's position)."""
+        if self._zenflow is not None:
+            return self._zenflow.steps
         return (self._offload.count if self._offload is not None
                 else self.opt_state.count)
 
     def get_lr(self) -> List[float]:
         """The LR of the next update (the schedule at the count of
         updates applied so far)."""
-        if self._offload is not None:
-            return [float(self.lr_schedule(self._offload.count))
+        if self._host_tier:
+            return [float(self.lr_schedule(self.update_count))
                     if self.lr_schedule is not None else self._base_lr]
         return [self.tx.lr_at(self.opt_state.count)]
+
+    def set_lr(self, lr: float) -> None:
+        """Override the LR (JAX ``engine.py:1867``, the reference's
+        ``param_groups[0]['lr'] = x``): it becomes the base LR and the
+        optimizer block's ``lr``; a configured schedule is dropped, with
+        JAX's warning. The optimizer's state is kept."""
+        self._base_lr = float(lr)
+        if self.lr_schedule is not None:
+            logger.warning("set_lr/param_groups override disables the "
+                           "configured lr schedule")
+            self.lr_schedule = None
+        if self.config.optimizer is None:
+            self.config.optimizer = OptimizerConfig(
+                type="adamw", params={"lr": float(lr)})
+        self.config.optimizer.params = dict(
+            self.config.optimizer.params or {}, lr=float(lr))
+        if self.tx is not None:
+            self.tx, _ = get_base_optimizer(self.config.optimizer, None)
+
+    def zero_grad(self) -> None:
+        """Drop the micro-step accumulation (JAX ``engine.py:2053``): the
+        grads and losses of the backwards since the last update."""
+        for _, p in leaves(self.params):
+            p.grad = None
+        self._grad_acc = {}
+        self._micro_losses = []
+
+    def no_sync(self):
+        """A context manager that defers the data-parallel gradient sync
+        (JAX ``engine.py:1982``); at world size 1 there is none."""
+        return contextlib.nullcontext()
+
+    def train(self, mode: bool = True) -> "Engine":
+        """The module's train / eval mode (JAX ``engine.py:2001``); the
+        zoo's models have no mode-dependent layer."""
+        self.model.train(mode)
+        return self
+
+    def eval(self) -> "Engine":
+        return self.train(False)
+
+    def register_post_step_hook(self, fn):
+        """``fn(engine)`` runs at every ``global_steps`` increment (JAX
+        ``engine.py:1626``), in the order registered."""
+        self._post_step_hooks.append(fn)
+        return fn
 
     def get_global_grad_norm(self) -> Optional[torch.Tensor]:
         return self._last_grad_norm
@@ -583,7 +728,7 @@ class Engine:
                 f"missing keys: {missing[:5]}"
                 f"{'...' if len(missing) > 5 else ''}; unexpected keys: "
                 f"{unexpected[:5]}{'...' if len(unexpected) > 5 else ''}")
-        masters = (None if self._offload is not None
+        masters = (None if self._host_tier
                    else module_state_keys(self.opt_state.master))
         for key, p in own.items():
             if key not in state_dict:
@@ -591,8 +736,9 @@ class Engine:
             value = torch.as_tensor(np.asarray(state_dict[key],
                                                dtype=np.float32))
             path = "/" + key.replace(".", "/")
-            if self._offload is not None:
-                self._offload.set_full_fp32_param(path, value)
+            if self._host_tier:
+                (self._zenflow or self._offload).set_full_fp32_param(
+                    path, value)
                 p.copy_(value)
             else:
                 masters[key].copy_(value)
@@ -625,7 +771,8 @@ class Engine:
             tensors += [t for _, t in leaves(self.params)]
         if "optim_states" in include and self.opt_state is not None:
             st = self.opt_state
-            tensors += [t for tree in (st.master, st.mu, st.nu)
+            tensors += [t for tree in (st.master,
+                                       *st.named_trees().values())
                         for _, t in leaves(tree)]
         out = list(self._offloaded_states or [])
         for t in tensors:

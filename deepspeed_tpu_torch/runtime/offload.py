@@ -56,7 +56,7 @@ import torch
 from deepspeed_tpu_torch.ops.native.aio import PinnedBuffer
 from deepspeed_tpu_torch.ops.native.builder import require_native_lib
 from deepspeed_tpu_torch.ops.native.cpu_optimizer import CPU_OPTIMIZERS
-from deepspeed_tpu_torch.runtime.optimizer import leaves
+from deepspeed_tpu_torch.runtime.optimizer import leaves, set_leaf
 from deepspeed_tpu_torch.runtime.swap_tensor.swapper import TensorSwapStore
 
 logger = logging.getLogger(__name__)
@@ -64,13 +64,6 @@ logger = logging.getLogger(__name__)
 Tree = Dict[str, object]
 CHUNK_ELEMS = 1 << 26  # 256 MB of fp32 a staging buffer
 XFER_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
-
-
-def _set(tree: Tree, path: str, value) -> None:
-    keys = path.strip("/").split("/")
-    for k in keys[:-1]:
-        tree = tree.setdefault(k, {})
-    tree[keys[-1]] = value
 
 
 def _key(path: str) -> str:
@@ -426,10 +419,10 @@ class HostOffloadOptimizer:
         from the swap store, all at once, as in JAX."""
         out: Tree = {}
         for path, opt in self.optimizers.items():
-            _set(out.setdefault("master", {}), path, self._master_of(path))
+            set_leaf(out.setdefault("master", {}), path, self._master_of(path))
             for name, m in self._moments_of(path).items():
-                _set(out.setdefault(name, {}), path, m)
-            _set(out.setdefault("step", {}), path,
+                set_leaf(out.setdefault(name, {}), path, m)
+            set_leaf(out.setdefault("step", {}), path,
                  torch.tensor(opt.step_count, dtype=torch.int64))
         return out
 

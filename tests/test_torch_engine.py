@@ -159,12 +159,13 @@ def test_data_exhausted_mid_accumulation_raises():
     ({"moe": {"enabled": True, "ep_size": 2}}, "item 9"),
     ({"activation_checkpointing": {"policy": "dots_saveable"}}, "item 11"),
     ({"performance": {"pipeline_depth": 2}}, "item 4"),
-    ({"zero_optimization": {"stage": 3, "zenflow":
-                            {"topk_ratio": 0.1}}}, "item 12"),
+    ({"zero_optimization": {"stage": 3, "zenflow": {"topk_ratio": 0.1},
+                            "offload_optimizer": {"device": "cpu"},
+                            "offload_param": {"device": "cpu"}}}, "item 11"),
     ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
      "item 10"),
     ({"wall_clock_breakdown": True}, "item 14"),
-    ({"optimizer": {"type": "lion", "params": {}}}, "item 4"),
+    ({"optimizer": {"type": "onebitadam", "params": {}}}, "item 10"),
 ])
 def test_unported_config_raises(extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -1240,3 +1240,50 @@ def test_offload_tiers_on_the_card(card, tmp_path):
     for (_, a), (_, b) in zip(leaves(cpu.params), leaves(nvme.params)):
         assert a.is_cuda and torch.equal(a, b)
     nvme._offload.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("overlap", [True, False])
+def test_zenflow_on_the_card_follows_the_cpu(card, dtype, overlap):
+    """ZenFlow's ship and fold through the pinned staging buffers and the
+    side stream, in chunks of 1000 elements (many chunks a leaf, every
+    buffer reused): the same selections as on the CPU at every step (the
+    accumulators add the same grads exactly), and params and masters
+    within rtol 1e-6 (the card's pow may round the bias corrections one
+    ulp apart; a bf16 param may then round one bf16 step apart)."""
+    from deepspeed_tpu_torch.runtime import zenflow as zf
+
+    rng = np.random.default_rng(0)
+    tree = {"a": rng.standard_normal((64, 80)).astype(np.float32),
+            "b": rng.standard_normal(2500).astype(np.float32),
+            "c": rng.standard_normal((3, 16, 16)).astype(np.float32)}
+    cfg = zf.ZenFlowConfig(topk_ratio=0.05, update_interval=2,
+                           select_interval=3, overlap_step=overlap)
+    runs = {}
+    for device in (card, "cpu"):
+        opt = zf.ZenFlowOptimizer(
+            {k: torch.from_numpy(v).to(device) for k, v in tree.items()},
+            cfg, lr=1e-2, chunk_elems=1000)
+        p = {k: torch.from_numpy(v).to(device, dtype)
+             for k, v in tree.items()}
+        sel = []
+        for s in range(9):
+            g = {k: torch.from_numpy(np.random.default_rng(100 + s)
+                                     .standard_normal(v.shape)
+                                     .astype(np.float32)).to(device, dtype)
+                 for k, v in tree.items()}
+            opt.step(g, p)
+            sel.append([i.cpu() for i in opt._idx])
+        opt.finalize()
+        runs[str(device)] = (p, sel, [m.clone() for m in opt._masters],
+                             dict(opt.counts))
+        opt.close()
+    (pc, sc, mc, cc), (pp, sp, mp, cp) = runs[str(card)], runs["cpu"]
+    assert cc == cp and cc["folds"] >= 3
+    for a, b in zip(sc, sp):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    rtol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    for k in tree:
+        torch.testing.assert_close(pc[k].cpu(), pp[k], rtol=rtol, atol=1e-7)
+    for x, y in zip(mc, mp):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)

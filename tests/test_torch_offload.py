@@ -47,7 +47,8 @@ from deepspeed_tpu_torch.ops.native import cpu_optimizer as co
 from deepspeed_tpu_torch.runtime import offload as offload_mod
 from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
 from deepspeed_tpu_torch.runtime.optimizer import (
-    Adam, MixedPrecisionState, apply_mixed_precision_update, leaves)
+    Adam, MixedPrecisionState, apply_mixed_precision_update, leaves,
+    set_leaf)
 
 TINY = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
             max_seq_len=32, pos_emb="learned", norm="layernorm",
@@ -265,7 +266,7 @@ def test_streaming_in_chunks_gives_the_whole_leaf_bits(tmp_path):
         params = {p: t.to(torch.bfloat16) for p, t in leaves(src)}
         nested = {}
         for p, t in params.items():
-            offload_mod._set(nested, p, t)
+            set_leaf(nested, p, t)
         norms = [off.step(g, nested, grad_scale=64.0)[0] for g in grads]
         runs[name] = (norms, {p: off.full_fp32_param(p).clone()
                               for p in off.optimizers},
@@ -611,8 +612,9 @@ def test_config_checks():
     with pytest.raises(NotImplementedError, match="item 11"):
         load_config({"zero_optimization": {"offload_param": {
             "device": "cpu"}}})
-    with pytest.raises(NotImplementedError, match="item 12 \\(ZenFlow"):
-        load_config({"zero_optimization": {"zenflow": {"topk_ratio": 0.1}}})
+    zen = load_config({"zero_optimization": {"offload_optimizer": {
+        "device": "cpu"}, "zenflow": {"topk_ratio": 0.1}}}).zero_optimization
+    assert zen.zenflow.topk_ratio == 0.1 and zen.offload_device == "cpu"
     with pytest.raises(ValueError, match="host offload supports"):
         _engine(optimizer={"type": "sgd", "params": {"lr": 0.1}})
 

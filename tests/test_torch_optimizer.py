@@ -192,7 +192,19 @@ def test_optimizer_names():
     for name in ("Adam", "FusedAdam", "cpu_adam", "AdamW", "fused_adamw"):
         tx, _ = opt.get_base_optimizer(config_mod.OptimizerConfig(type=name))
         assert tx.decoupled == ("w" in name.lower())
-    for name in ("lion", "lamb", "adafactor", "muon", "onebitadam"):
+    kinds = {"sgd": opt.SGD, "momentum": opt.SGD, "lion": opt.Lion,
+             "FusedLion": opt.Lion, "cpu_lion": opt.Lion,
+             "adagrad": opt.Adagrad, "cpu_adagrad": opt.Adagrad,
+             "lamb": opt.Lamb, "fused_lamb": opt.Lamb,
+             "adafactor": opt.Adafactor}
+    for name, kind in kinds.items():
+        tx, _ = opt.get_base_optimizer(config_mod.OptimizerConfig(type=name))
+        assert type(tx) is kind, name
+    from deepspeed_tpu_torch.runtime.muon import Muon
+
+    assert type(opt.get_base_optimizer(
+        config_mod.OptimizerConfig(type="muon"))[0]) is Muon
+    for name in ("onebitadam", "OneBitLamb", "zero_one_adam"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             opt.get_base_optimizer(config_mod.OptimizerConfig(type=name))
     with pytest.raises(ValueError, match="unknown optimizer"):

@@ -1,6 +1,6 @@
-"""Package rules of the PyTorch port: no JAX and nothing of the JAX
-package inside it, the card by default, and loud errors for what is not
-ported yet."""
+"""Package rules of the PyTorch port: no JAX, no optax and nothing of
+the JAX package inside it, the card by default, and loud errors for what
+is not ported yet."""
 
 import ast
 import os
@@ -17,7 +17,7 @@ from deepspeed_tpu_torch.models import zoo
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(deepspeed_tpu_torch.__file__))
-FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "deepspeed_tpu")
 
 
 def _port_files():
@@ -42,8 +42,8 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     assert len(files) >= 15
-    # the quantized-serving, block-sparse, checkpoint, resilience and
-    # offload modules are among the files checked
+    # the quantized-serving, block-sparse, checkpoint, resilience,
+    # offload, ZenFlow and optimizer modules are among the files checked
     rel = {os.path.relpath(p, PKG) for p in files}
     assert {"ops/quantization.py", "ops/fp_quantizer.py",
             "inference/weight_quant.py",
@@ -56,7 +56,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "utils/memspace.py", "ops/native/builder.py",
             "ops/native/cpu_optimizer.py", "ops/native/aio.py",
             "runtime/swap_tensor/swapper.py", "runtime/offload.py",
-            "io/fast_file_writer.py"} <= rel
+            "io/fast_file_writer.py", "runtime/zenflow.py",
+            "runtime/muon.py", "runtime/optimizer.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
