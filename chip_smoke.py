@@ -127,8 +127,8 @@ Phases, each fatal on failure:
                flash path against the dense path on one microbatch; one
                more step under torch.profiler.
   9. checkpoint — after phase 4, once its engine is freed: Llama-3-8B at
-               full width, 2 of its 32 layers (1.49 B parameters: the
-               vocabulary matrices hold most of the ~20.8 GB of state),
+               full width, 1 of its 32 layers (1.27 B parameters: the
+               vocabulary matrices hold 83% of the ~17.8 GB of state),
                bf16 on fp32 masters, AdamW with a warm-up schedule, clip
                1.0, micro 1 x GAS 2 x 2048 tokens from a shuffled,
                seeded ``RepeatingLoader(DeepSpeedDataLoader(...))``.
@@ -190,7 +190,8 @@ Phases, each fatal on failure:
                Llama-3-8B at full width, as deep as the host holds (12
                bytes of host state a parameter against MemAvailable and
                the command's 96 GiB, less 6 GB: the cut and its
-               reckoning are printed; 32 layers need 96.4 GB), bf16 on
+               reckoning are printed; 32 layers need 96.4 GB), cut to 8
+               layers for the run's time limit, bf16 on
                fp32 host masters, AdamW lr 3e-4, ZeRO-3 config, clip 1.0,
                ``offload_optimizer`` cpu with pinned staging, micro 2 x
                GAS 1 x 2048 over phase 4's fixed batches: one warm-up and
@@ -203,7 +204,7 @@ Phases, each fatal on failure:
                card's peak memory at init and in training, the host's
                RSS, then one step under torch.profiler (the device's
                idle share with and without the copies). 10b: phase 9's
-               2-layer model from one seed under the device optimizer,
+               1-layer model from one seed under the device optimizer,
                the cpu tier and the NVMe tier (a temporary directory,
                free space checked first), 3 steps each: cpu and nvme
                losses equal, device and cpu within 3e-3 (JAX's
@@ -225,7 +226,7 @@ Phases, each fatal on failure:
                11a: Llama-3-8B at full width as deep as host and card
                hold (16 bytes a parameter of host state, 10 / 8 on the
                card at init / in training; both reckonings and the cut
-               printed); one interval of warm-up (the first selection and
+               printed), cut to 8 layers for the run's time limit; one interval of warm-up (the first selection and
                the first ship: a fold needs a pass shipped an interval
                earlier), then two measured intervals (gates: finite,
                falling losses; flash launches as remat implies, all
@@ -240,22 +241,65 @@ Phases, each fatal on failure:
                interval under torch.profiler (idle share with and
                without the copy engines). 11b: PR 12's blocking offload
                step at 11a's depth, 1 warm-up and 2 steps, one profiled.
-               11c: phase 9's 2 layers at update interval 2 and select
+               11c: phase 9's 1 layer at update interval 2 and select
                interval 4, saved at step 3 (the pass shipped at step 2 in
                flight), loaded by an engine from another seed: its 3
                resumed losses equal the uninterrupted run's (``==``).
                11d: sgd, momentum, lion, adagrad, lamb, adafactor and
-               muon at the lr of ``SWEEP_LR``, 3 steps of phase 9's 2
-               layers (finite losses, the last below the first; step
+               muon at the lr of ``SWEEP_LR``, 3 steps of 2 layers
+               (finite losses, the last below the first; step
                times; muon's Newton-Schulz share) and one update of a
                small seeded tree on the card against the CPU (fp32, rtol
                1e-4, atol 1e-6). The phase's wall is printed.
+  12. spec and engine — 12a-c right after phase 8a, on phase 3's model
+               (before phase 7, whose weight run quantizes it in place):
+               12a phase 3's 8 requests with speculative decoding
+               (prompt lookup, k 4) at fixed k, again (identical
+               streams), and with adaptive k; then a repetitive set of
+               the same lengths whose prompts repeat a seeded 32-token
+               motif, spec off and on. Each run: tokens/s, wall, TTFT,
+               decode gap, verify rounds, drafts proposed and accepted,
+               accepted tokens a verify round, backoff rounds, peak
+               memory, and the verify rounds' paged prefill launches by
+               variant, chunk shape and template. Gates: 64 tokens a
+               request; every verify round one paged prefill launch a
+               layer on the tensor-core kernel, no gather fallback;
+               accepted <= proposed; verify rounds on the repetitive
+               set; every paged launch on the fast kernels; each spec
+               stream equal to its plain run's (phase 3's, or the
+               repetitive set's spec-off run), or parting only at a near
+               tie: reruns of both runs (identical streams) record the
+               logits rows of the first parting tokens, and the plain
+               row's gap between the two chosen tokens must be no larger
+               than the max-abs difference of the two rows (each parting
+               printed). 12b ``TransformerDrafter
+               .small`` (head dim 16: dense attention by C5, no flash
+               launch) behind the same engine, served before and after
+               ``distill_from`` against the served model (its steps and
+               seconds printed), with the propose time a call and a
+               round, and 12a's stream gate. 12c B5 at the verify shape
+               (8 segments x Tq 8, 5 real rows, over 300-560-token
+               histories): the one-warpgroup tensor-core kernel twice,
+               bit for bit, against its plain version, then timed beside
+               its first version, the plain version, SDPA on gathered
+               K/V and the bound. 12d after phase 9: 2-layer
+               full-width Llama-3-8B at micro 2 x GAS 2 x 2048 over phase
+               4's fixed batches, AdamW at lr 3e-5: the blocking loop and pipeline_depth 2
+               + prefetch_depth 2, 6 steps each (losses ``==``; step p50
+               and, over 3 more steps under torch.profiler, the device's
+               idle share), the same model as a ``(loss_fn, params)``
+               pair over the functional forward (3 steps within rtol 1e-5
+               of the module engine) and a client ``torch.optim.AdamW``
+               against the config AdamW (3 steps, rtol 1e-4); flash
+               launches as remat implies, all tensor-core. The phase's
+               wall is printed.
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
 sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
-checkpoint and optimizer sweep lines, the run's seconds, the card's name
+checkpoint, optimizer sweep, spec serve, draft model, verify-shape
+prefill and A4 lines, the run's seconds, the card's name
 and power limit (nvidia-smi), and, last, the device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
@@ -435,8 +479,10 @@ SPARSE_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
                            kernels={"blocksparse_block": 0})
 
 
-# phase 9: the checkpoint round trip (Llama-3-8B at 2 of 32 layers)
-CKPT_LAYERS, CKPT_ROWS, CKPT_BEFORE, CKPT_AFTER = 2, 16, 2, 3
+# phase 9: the checkpoint round trip (Llama-3-8B at 1 of 32 layers: the
+# vocabulary matrices hold 83% of the state; 2 layers until phase 12
+# joined and the run had to stay inside its time limit)
+CKPT_LAYERS, CKPT_ROWS, CKPT_BEFORE, CKPT_AFTER = 1, 16, 2, 3
 CKPT_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
                    gradient_accumulation_steps=2,
                    scheduler={"type": "WarmupLR",
@@ -445,9 +491,12 @@ CKPT_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
 CKPT_ASYNC_CONFIG = dict(CKPT_CONFIG, checkpoint={"async_save": True})
 # phase 10: ZeRO-Offload (fp32 masters and AdamW moments on the host,
 # the native CPU Adam). 10a: Llama-3-8B at full width and as deep as the
-# host holds (12 bytes of host state a parameter), micro 2 x GAS 1 x
-# 2048 over phase 4's fixed batches, 1 warm-up and 3 measured steps;
-# 10b / 10c: phase 9's 2 layers, 3 steps a tier, 2 resumed steps
+# host holds (12 bytes of host state a parameter), cut to
+# OFFLOAD_MAX_LAYERS for the run's time limit (the host held 28), micro
+# 2 x GAS 1 x 2048 over phase 4's fixed batches, 1 warm-up and 3
+# measured steps; 10b / 10c: phase 9's 1 layer, 3 steps a tier, 2
+# resumed steps
+OFFLOAD_MAX_LAYERS = 8
 OFFLOAD_MICRO, OFFLOAD_MEASURED, OFFLOAD_SMALL_STEPS, OFFLOAD_RESUMED = \
     2, 3, 3, 2
 OFFLOAD_CONFIG = dict(TRAIN_CONFIG,
@@ -474,9 +523,12 @@ OFFLOAD_TOL_REL = 3e-3
 # bf16 params and grads, fp32 accumulators; 10 at init, with the fp32
 # model), one interval of warm-up (the first selection and the first
 # ship), two measured intervals, one profiled; 11b: the blocking offload
-# step at 11a's depth, 1 warm-up and 2 steps; 11c: phase 9's 2 layers at
+# step at 11a's depth, 1 warm-up and 2 steps; 11c: phase 9's 1 layer at
 # interval 2 and select 4, saved at step 3, 3 resumed steps; 11d: each
-# optimizer for 3 steps at phase 9's 2 layers, micro 2 x GAS 1
+# optimizer for 3 steps at 2 layers, micro 2 x GAS 1. 11a's depth is cut
+# to ZENFLOW_MAX_LAYERS for the run's time limit (the host held 20)
+ZENFLOW_MAX_LAYERS = 8
+SWEEP_LAYERS = 2
 ZENFLOW_BLOCK = {"topk_ratio": 0.01, "update_interval": 4,
                  "select_interval": 16, "overlap_step": True}
 ZENFLOW_CONFIG = dict(OFFLOAD_CONFIG, zero_optimization={
@@ -501,6 +553,33 @@ SWEEP_TREE = {"layers": {"attn": {"wq": (2, 64, 4, 16),
                          "ln1": {"scale": (2, 64)}},
               "embed": {"tokens": (300, 64)}, "final_norm": {"scale": (64,)}}
 SWEEP_TOL_REL, SWEEP_TOL_ABS = 1e-4, 1e-6
+# phase 12: speculative serving on phase 3's model (12a prompt lookup at
+# k 4, fixed and adaptive, and a repetitive request set whose prompts
+# repeat a 32-token motif; 12b a distilled draft model; 12c B5 at the
+# verify shape: 8 segments x Tq 8, 5 real rows, over 300-560-token
+# histories) and A4 on 2 layers (12d: the blocking and the
+# pipelined loop, a (loss_fn, params) model, a client torch AdamW)
+SPEC_K, SPEC_MOTIF = 4, 32
+# 150 steps (~15 s) where about a minute was the aim: the run's time
+# limit. The random-weight target's logits are nearly flat over 128256
+# tokens, and the held-out top-1 agreement stays 0.0 (PERF.md, PR 14)
+DRAFT_WINDOW, DRAFT_STEPS, DRAFT_BATCH = 64, 150, 16
+DRAFT_RESAMPLE, DRAFT_PREFIX = 50, 48
+VERIFY_S, VERIFY_TQ, VERIFY_REAL, VERIFY_CTX = 8, 8, 5, (300, 560)
+A4_LAYERS, A4_STEPS, A4_SHORT, A4_PROFILED = 2, 6, 3, 3
+# AdamW without a schedule at lr 3e-5: at phase 4's 3e-4 the 2-layer
+# model memorises the two fixed batches within two updates, and the
+# third loss then magnifies the rounding-level differences of two AdamW
+# implementations past A4_CLIENT_TOL_REL
+A4_LR = 3e-5
+A4_CONFIG = dict(TRAIN_CONFIG, optimizer={"type": "adamw",
+                                          "params": {"lr": A4_LR}})
+A4_PIPELINED = dict(A4_CONFIG, performance={"pipeline_depth": 2,
+                                            "prefetch_depth": 2})
+# (loss_fn, params) against the module engine: the same ops on the same
+# inputs; torch's AdamW against the engine's: the same update in another
+# order of operations, for 3 steps
+A4_FN_TOL_REL, A4_CLIENT_TOL_REL = 1e-5, 1e-4
 
 
 def fail(msg):
@@ -743,8 +822,6 @@ def check_prefill(torch, pa, timer, dtype, tq, S):
     in bf16 also the rule's scalar case (q 2 bytes off a 16-byte
     boundary) and the timings: kernel, the first (scalar) version on the
     same inputs, plain version, SDPA, bound."""
-    import torch.nn.functional as F
-
     rng = np.random.default_rng(20 + tq)
     kv, bt = make_pool(torch, rng, dtype, S)
     pos0_np = rng.integers(0, MAX_BLOCKS * BS - tq, S).astype(np.int32)
@@ -794,6 +871,21 @@ def check_prefill(torch, pa, timer, dtype, tq, S):
              f"max-abs {err_m}")
     res["misaligned_q"] = {"variant": "simt", "max_abs_err": err_m}
     del buf, qm, out_m
+    res.update(time_prefill(torch, pa, timer, q, kv, bt, pos0_np, ctx_np))
+    return res
+
+
+def time_prefill(torch, pa, timer, q, kv, bt, pos0_np, ctx_np):
+    """The prefill kernel, its first (scalar) version, the plain version
+    and SDPA on gathered K/V timed on the same inputs, and the bound."""
+    import torch.nn.functional as F
+
+    S, tq = q.shape[:2]
+    name = str(q.dtype).split(".")[-1]
+    scale = HD ** -0.5
+    pos0 = torch.from_numpy(pos0_np).cuda()
+    ctx = torch.from_numpy(ctx_np).cuda()
+    res = {}
     itm = q.element_size()
     qi = np.arange(tq)[None, :]
     vis = np.clip(np.minimum(pos0_np[:, None] + qi + 1,
@@ -1975,15 +2067,19 @@ def offload_depth(zoo, off_mod, mem_available):
     # two bf16 output buffers
     staging = 4 * c * 4 + c * 4 + 2 * c * 2
     room = mem_available - OFFLOAD_HOST_MARGIN - staging - 12 * base
-    layers = int(max(0, min(32, room // (12 * per_layer))))
+    fits = int(max(0, min(32, room // (12 * per_layer))))
+    layers = min(fits, OFFLOAD_MAX_LAYERS)
     full = 12 * (base + 32 * per_layer) + staging + OFFLOAD_HOST_MARGIN
-    reason = ("the host holds the full depth" if layers == 32 else
+    reason = ("the host holds the full depth" if fits == 32 else
               f"host room {mem_available / 1e9:.1f} GB < {full / 1e9:.1f}"
               f" GB needed at 32 layers (12 B a parameter of host state, "
               f"{staging / 1e9:.2f} GB of staging, "
               f"{OFFLOAD_HOST_MARGIN / 1e9:.0f} GB margin): "
-              f"{layers} is the deepest that fits")
+              f"{fits} is the deepest that fits")
+    if layers < fits:
+        reason += f"; cut to {layers} for the smoke's time limit"
     return layers, {"params_base": base, "params_per_layer": per_layer,
+                    "host_layers": fits, "max_layers": OFFLOAD_MAX_LAYERS,
                     "host_state_gb_at_32_layers": 12 * (base + 32 * per_layer)
                     / 1e9, "staging_gb": staging / 1e9,
                     "margin_gb": OFFLOAD_HOST_MARGIN / 1e9,
@@ -2124,7 +2220,7 @@ def offload_full_depth(torch, zoo, initialize, fa, builder, off_mod):
 
 
 def offload_small(torch, zoo, initialize, fa, ckpt):
-    """Phases 10b and 10c at phase 9's 2 layers. Returns (parity line,
+    """Phases 10b and 10c at phase 9's depth. Returns (parity line,
     checkpoint line, flash launches of the resumed steps)."""
     from deepspeed_tpu_torch.runtime.optimizer import leaves
 
@@ -2294,10 +2390,11 @@ def zenflow_depth(zoo, off_mod, host_room, card_bytes):
     host = fit(host_room - OFFLOAD_HOST_MARGIN - staging, 16)
     card = min(fit(card_bytes, 10),
                fit(card_bytes - ZENFLOW_CARD_RESERVE, 8))
-    layers = min(host, card)
+    layers = min(host, card, ZENFLOW_MAX_LAYERS)
     n32 = base + 32 * per_layer
     reason = ("host and card hold the full depth" if layers == 32 else
-              f"the {'host' if host <= card else 'card'} holds {layers} "
+              f"the {'host' if host <= card else 'card'} holds "
+              f"{min(host, card)} "
               f"layers: host room {host_room / 1e9:.1f} GB against "
               f"{(16 * n32 + staging + OFFLOAD_HOST_MARGIN) / 1e9:.1f} GB "
               f"at 32 layers (16 B a parameter, {staging / 1e9:.2f} GB of "
@@ -2305,6 +2402,9 @@ def zenflow_depth(zoo, off_mod, host_room, card_bytes):
               f"{card_bytes / 1e9:.1f} GB against {10 * n32 / 1e9:.1f} GB at"
               f" init and {(8 * n32 + ZENFLOW_CARD_RESERVE) / 1e9:.1f} GB in"
               f" training at 32 layers")
+    if layers < min(host, card):
+        reason += (f"; cut to {layers} (from {min(host, card)}) for the "
+                   "smoke's time limit")
     return layers, {"params_base": base, "params_per_layer": per_layer,
                     "host_bytes_per_param": 16, "staging_gb": staging / 1e9,
                     "margin_gb": OFFLOAD_HOST_MARGIN / 1e9,
@@ -2312,7 +2412,8 @@ def zenflow_depth(zoo, off_mod, host_room, card_bytes):
                     "card_gb": card_bytes / 1e9,
                     "card_bytes_per_param": {"init": 10, "train": 8},
                     "card_reserve_gb": ZENFLOW_CARD_RESERVE / 1e9,
-                    "card_layers": card, "layers": layers, "reason": reason}
+                    "card_layers": card, "max_layers": ZENFLOW_MAX_LAYERS,
+                    "layers": layers, "reason": reason}
 
 
 def profiled_steps(torch, engine, data, n):
@@ -2665,7 +2766,7 @@ def optimizer_sweep(torch, zoo, initialize):
                  f"{worst:.3g} x (rtol {SWEEP_TOL_REL}, atol "
                  f"{SWEEP_TOL_ABS})")
         free_caches(torch)
-        model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
+        model = zoo.get_model("llama3-8b", num_layers=SWEEP_LAYERS,
                               dtype=torch.float32, seed=SEED)
         config = dict(OFFLOAD_DEVICE_CONFIG,
                       optimizer={"type": name, "params": {"lr": lr}})
@@ -2702,11 +2803,569 @@ def optimizer_sweep(torch, zoo, initialize):
         out[name] = row
         del engine, model
     free_caches(torch)
-    return {"layers": f"{CKPT_LAYERS} of 32", "micro": OFFLOAD_MICRO,
+    return {"layers": f"{SWEEP_LAYERS} of 32", "micro": OFFLOAD_MICRO,
             "gas": 1, "seq": TRAIN_SEQ, "optimizers": out}
 
 
 # -- phases 5 and 6: MoE serve and train ----------------------------------------
+
+
+# -- phase 12: speculative serving and the rest of the one-card engine ------
+
+
+def repetitive_prompts(seed, vocab=128256):
+    """Phase 3's lengths and shared prefix, each prompt a seeded 32-token
+    motif repeated: a document or a code file being rewritten, the
+    traffic prompt lookup exists for."""
+    rng = np.random.default_rng(seed)
+    lens = [448, 64, 96, 160, 224, 288, 512, 320]
+    prompts = [np.tile(rng.integers(0, vocab, SPEC_MOTIF).astype(np.int32),
+                       -(-n // SPEC_MOTIF))[:n] for n in lens]
+    prompts[7][:256] = prompts[0][:256]
+    return prompts
+
+
+def verify_spy(pa, model_runner, eng):
+    """Count the paged prefill launches of ``eng``'s verify rounds by
+    variant, by the chunk's (S, Tq) and by the tensor-core kernel's
+    template (``<1>``: one warpgroup, where Tq x group <= 64). Returns
+    (the record, a function that removes the spy)."""
+    rec = {"rounds": 0, "launches": {"wgmma": 0, "simt": 0},
+           "by_chunk": {}, "by_template": {}}
+    real_fwd = model_runner.ragged_prefill_forward
+    real_spec = eng._try_spec_step
+    inside = [False]
+
+    def fwd(cfg, params, kv, seg_tokens, *rest):
+        if not inside[0]:
+            return real_fwd(cfg, params, kv, seg_tokens, *rest)
+        before = dict(pa.VARIANT_LAUNCHES)
+        out = real_fwd(cfg, params, kv, seg_tokens, *rest)
+        ran = prefill_variants_ran(pa, before)
+        S, tq = seg_tokens.shape
+        g = cfg.num_heads // cfg.kv_heads
+        rec["rounds"] += 1
+        for v, n in ran.items():
+            rec["launches"][v] += n
+        key = f"S{S}xTq{tq}"
+        rec["by_chunk"][key] = rec["by_chunk"].get(key, 0) + ran["wgmma"]
+        tpl = ("paged_prefill_wgmma_kernel<1>" if tq * g <= 64
+               else "paged_prefill_wgmma_kernel<2>")
+        rec["by_template"][tpl] = rec["by_template"].get(tpl, 0) \
+            + ran["wgmma"]
+        return out
+
+    def spec(eos_token_id):
+        inside[0] = True
+        try:
+            return real_spec(eos_token_id)
+        finally:
+            inside[0] = False
+
+    model_runner.ragged_prefill_forward = fwd
+    eng._try_spec_step = spec
+
+    def remove():
+        model_runner.ragged_prefill_forward = real_fwd
+        del eng._try_spec_step
+
+    return rec, remove
+
+
+def spec_run(torch, InferenceEngineV2, pa, model_runner, model, prompts,
+             label, **engine_kw):
+    """One serve of the 8-request workload with ``engine_kw``: the
+    streams, the serve's numbers and the launches by variant (those of
+    the verify rounds apart). Gates: 64 tokens a request; every paged
+    prefill and decode launch on the fast kernels; with speculation on,
+    every verify round on B5's tensor-core kernel and no gather
+    fallback."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = serve_engine(torch, InferenceEngineV2, model, **engine_kw)
+    spec_on = eng._drafter is not None
+    pa.reset_launch_counts()
+    rec, remove = verify_spy(pa, model_runner, eng)
+    try:
+        out, wall = serve_workload(torch, eng, prompts)
+    finally:
+        remove()
+    launches, variants = dict(pa.LAUNCHES), dict(pa.VARIANT_LAUNCHES)
+    if sorted(out) != list(range(8)) or any(len(v) != NEW_TOKENS
+                                            for v in out.values()):
+        fail(f"spec serve {label}: token counts "
+             f"{[len(out.get(u, [])) for u in range(8)]}")
+    check_tensor_core(f"spec serve {label}", launches, variants,
+                      ("paged_prefill", "paged_decode"))
+    st = eng.stats
+    if spec_on:
+        L = model.config.num_layers
+        if (st["spec_verify_gather_fallbacks"] != 0
+                or rec["launches"]["simt"] != 0
+                or rec["launches"]["wgmma"]
+                != L * st["spec_verify_kernel_rounds"]
+                or rec["rounds"] != st["spec_verify_kernel_rounds"]
+                or st["spec_verify_kernel_rounds"] != st["spec_steps"]):
+            fail(f"spec serve {label}: verify rounds {rec}, stats {st}")
+        if st["spec_accepted"] > st["spec_proposed"]:
+            fail(f"spec serve {label}: accepted {st['spec_accepted']} > "
+                 f"proposed {st['spec_proposed']}")
+    gen = sum(len(v) for v in out.values())
+    ttft = sorted(eng.latency["ttft_s"])
+    res = {"wall_s": wall, "generated_tokens_per_s": gen / wall,
+           "ttft_p50_s": ttft[len(ttft) // 2],
+           "decode_token_p50_s": float(np.median(
+               eng.latency["decode_token_s"])),
+           "spec_steps": st["spec_steps"],
+           "spec_proposed": st["spec_proposed"],
+           "spec_accepted": st["spec_accepted"],
+           "accepted_per_verify_round": (st["spec_accepted"]
+                                         / max(1, st["spec_steps"])),
+           "acceptance_rate": (st["spec_accepted"]
+                               / max(1, st["spec_proposed"])),
+           "spec_backoff_rounds": st["spec_backoff_rounds"],
+           "spec_verify_kernel_rounds": st["spec_verify_kernel_rounds"],
+           "spec_verify_gather_fallbacks":
+               st["spec_verify_gather_fallbacks"],
+           "verify_launches": rec,
+           "burst_steps": st["burst_steps"],
+           "decode_kernel_steps": st["decode_kernel_steps"],
+           "prefill_kernel_steps": st["prefill_kernel_steps"],
+           "launches": launches, "variant_launches": variants,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng
+    torch.cuda.empty_cache()
+    return out, res, {**launches, **variants}
+
+
+def row_recorder(model_runner, eng, targets):
+    """Record, for each ``uid: {P, ...}`` of ``targets``, the logits row
+    that ``eng``'s forwards last computed at query position P of that
+    sequence (the row whose argmax is the token after position P: later
+    rounds never recompute a position behind the frontier). The
+    sequence's row in each call is told by its block-table row. Returns
+    (the rows by (uid, P), a function that removes the spies)."""
+    rows = {}
+    real = {n: getattr(model_runner, n) for n in (
+        "ragged_decode_forward", "ragged_prefill_forward", "ragged_forward")}
+
+    def slots(bt):
+        bt_np = bt.cpu().numpy()
+        out = {}
+        for uid in targets:
+            seq = eng.state.seqs.get(uid)
+            if seq is None:
+                continue
+            blocks = np.asarray(seq.kv_blocks)
+            for i in range(bt_np.shape[0]):
+                if np.array_equal(bt_np[i, :len(blocks)], blocks):
+                    out[uid] = i
+                    break
+        return out
+
+    def decode(cfg, params, kv, tok, pos, bt, ctx):
+        logits, kv = real["ragged_decode_forward"](cfg, params, kv, tok, pos,
+                                                   bt, ctx)
+        pos_np = pos.cpu().numpy()
+        for uid, i in slots(bt).items():
+            if pos_np[i] in targets[uid]:
+                rows[(uid, int(pos_np[i]))] = logits[i].float().cpu()
+        return logits, kv
+
+    def prefill(cfg, params, kv, seg_tokens, pos0, nreal, bt):
+        logits, kv = real["ragged_prefill_forward"](cfg, params, kv,
+                                                    seg_tokens, pos0, nreal,
+                                                    bt)
+        pos0_np, nreal_np = pos0.cpu().numpy(), nreal.cpu().numpy()
+        for uid, i in slots(bt).items():
+            for P in targets[uid]:
+                qi = P - pos0_np[i]
+                if 0 <= qi < nreal_np[i]:
+                    rows[(uid, P)] = logits[i, qi].float().cpu()
+        return logits, kv
+
+    def gather(cfg, params, kv, tok, seq, pos, bt, num_tokens):
+        logits, kv = real["ragged_forward"](cfg, params, kv, tok, seq, pos,
+                                            bt, num_tokens)
+        seq_np = seq.cpu().numpy()[:int(num_tokens)]
+        pos_np = pos.cpu().numpy()[:int(num_tokens)]
+        for uid, i in slots(bt).items():
+            for P in targets[uid]:
+                hit = np.nonzero((seq_np == i) & (pos_np == P))[0]
+                if len(hit):
+                    rows[(uid, P)] = logits[hit[0]].float().cpu()
+        return logits, kv
+
+    model_runner.ragged_decode_forward = decode
+    model_runner.ragged_prefill_forward = prefill
+    model_runner.ragged_forward = gather
+
+    def remove():
+        for n, fn in real.items():
+            setattr(model_runner, n, fn)
+
+    return rows, remove
+
+
+def parting_targets(prompts, plain_out, spec_out):
+    """{uid: first parting index} of the streams that part, and the query
+    positions whose rows chose the parting tokens ({uid: {P}}: the row at
+    P yields the token at P + 1)."""
+    first = {}
+    for uid in range(8):
+        a, b = plain_out[uid], spec_out[uid]
+        if a != b:
+            first[uid] = next(i for i, (x, y) in enumerate(zip(a, b))
+                              if x != y)
+    return first, {uid: {len(prompts[uid]) + p - 1}
+                   for uid, p in first.items()}
+
+
+def recorded_serve(torch, InferenceEngineV2, model_runner, model, prompts,
+                   engine_kw, targets, expect, label):
+    """Serve the workload again with ``engine_kw``, recording the logits
+    rows of ``targets`` (``row_recorder``); the streams must come out as
+    ``expect`` (the runs are deterministic). Returns (the rows, the
+    wall)."""
+    eng = serve_engine(torch, InferenceEngineV2, model, **engine_kw)
+    rows, remove = row_recorder(model_runner, eng, targets)
+    try:
+        out, wall = serve_workload(torch, eng, prompts)
+    finally:
+        remove()
+    if out != expect:
+        fail(f"spec serve {label}: a rerun of the same engine config gave "
+             "other streams")
+    missing = {(u, P) for u, ps in targets.items() for P in ps} - set(rows)
+    if missing:
+        fail(f"spec serve {label}: rows {sorted(missing)} not seen")
+    del eng
+    torch.cuda.empty_cache()
+    return rows, wall
+
+
+class PartingGate:
+    """The near-tie gate on speculative streams against the plain path's
+    (phase 3's, or the repetitive set's spec-off run): identical, or each
+    stream that parts does so at a near tie. Each run's rows at its first
+    parting tokens come from a recorded rerun of that run, the plain
+    rows from one recorded rerun of the plain run for every pending
+    check (``check_pending``); the plain row's gap between the two chosen
+    tokens must be no larger than the max-abs difference between the two
+    rows. Any other parting fails."""
+
+    def __init__(self, torch, InferenceEngineV2, model_runner, model,
+                 ref_out=None):
+        self.args = (torch, InferenceEngineV2, model_runner, model)
+        self.ref_out = ref_out  # phase 3's streams
+        self.pending = []
+
+    def add(self, label, prompts, plain_out, spec_kw, spec_out, result,
+            spec_rows=None):
+        """Queue ``spec_out``'s check; ``spec_rows`` are rows recorded by
+        a rerun already made (else one is made here). The check's result
+        lands in ``result["vs_plain"]``."""
+        first, targets = parting_targets(prompts, plain_out, spec_out)
+        if first and spec_rows is None:
+            spec_rows, _ = recorded_serve(*self.args, prompts, spec_kw,
+                                          targets, spec_out, label)
+        self.pending.append((label, prompts, plain_out, spec_out, first,
+                             targets, spec_rows, result))
+        return targets
+
+    def check_pending(self, plain_kw, plain_rows=None):
+        """Evaluate every queued check against one recorded rerun of the
+        plain run (or ``plain_rows`` recorded already)."""
+        if not self.pending:
+            return
+        _, prompts, plain_out = self.pending[0][:3]
+        union = {}
+        for entry in self.pending:
+            for uid, ps in entry[5].items():
+                union.setdefault(uid, set()).update(ps)
+        if union and plain_rows is None:
+            plain_rows, _ = recorded_serve(*self.args, prompts, plain_kw,
+                                           union, plain_out, "plain rerun")
+        for (label, prompts, plain_out, spec_out, first, targets, spec_rows,
+             result) in self.pending:
+            partings = []
+            for uid, p in first.items():
+                key = (uid, len(prompts[uid]) + p - 1)
+                plain, spec = plain_rows[key], spec_rows[key]
+                a, b = plain_out[uid][p], spec_out[uid][p]
+                gap = float(plain[a] - plain[b])
+                diff = float((plain - spec).abs().max())
+                partings.append({"uid": uid, "position": p,
+                                 "plain_token": a, "spec_token": b,
+                                 "plain_gap": gap,
+                                 "rows_max_abs_diff": diff})
+                if not (plain.argmax() == a and spec.argmax() == b):
+                    fail(f"spec serve {label}: stream {uid}'s recorded rows "
+                         f"do not pick its tokens at {p}")
+                if gap > diff:
+                    fail(f"spec serve {label}: stream {uid} parts at {p} "
+                         f"with a plain-path gap {gap} > the paths' row "
+                         f"difference {diff}")
+            result["vs_plain"] = {"streams_parting": len(partings),
+                                  "partings": partings}
+        self.pending = []
+
+
+def spec_serve_phase(torch, InferenceEngineV2, pa, model_runner, model,
+                     prompts, gate):
+    """12a: phase 3's requests with prompt-lookup speculation at fixed k
+    (then a recorded rerun: identical streams) and adaptive k, queued on
+    ``gate`` against phase 3's streams; the repetitive set spec off and
+    on, gated against its own spec-off run here."""
+    runs, paths = {}, {}
+    kw = {"spec_decode": True, "spec_k": SPEC_K}
+    out, runs["lookup_k4"], paths["spec_serve/lookup_k4"] = spec_run(
+        torch, InferenceEngineV2, pa, model_runner, model, prompts,
+        "lookup_k4", **kw)
+    ref_out = gate.ref_out
+    _, targets = parting_targets(prompts, ref_out, out)
+    # the rerun records the rows the gate needs (its timing is not a
+    # measurement: the recorder reads positions back every forward)
+    rows, wall = recorded_serve(torch, InferenceEngineV2, model_runner,
+                                model, prompts, kw, targets, out,
+                                "lookup_k4 rerun")
+    runs["lookup_k4"]["rerun_identical"] = True
+    gate.add("lookup_k4", prompts, ref_out, kw, out, runs["lookup_k4"],
+             spec_rows=rows)
+    ada_kw = dict(kw, spec_adaptive_k=True)
+    out, runs["lookup_adaptive"], paths["spec_serve/lookup_adaptive"] = \
+        spec_run(torch, InferenceEngineV2, pa, model_runner, model, prompts,
+                 "lookup_adaptive", **ada_kw)
+    gate.add("lookup_adaptive", prompts, ref_out, ada_kw, out,
+             runs["lookup_adaptive"])
+    rep = repetitive_prompts(SEED + 5)
+    rep_out = {}
+    for label, engine_kw in (("repetitive_spec_off", {}),
+                             ("repetitive_lookup_k4", kw)):
+        rep_out[label], runs[label], paths[f"spec_serve/{label}"] = \
+            spec_run(torch, InferenceEngineV2, pa, model_runner, model, rep,
+                     label, **engine_kw)
+    if runs["repetitive_lookup_k4"]["spec_steps"] <= 0:
+        fail("spec serve: no verify round on the repetitive set")
+    rep_gate = PartingGate(*gate.args)
+    rep_gate.add("repetitive_lookup_k4", rep, rep_out["repetitive_spec_off"],
+                 kw, rep_out["repetitive_lookup_k4"],
+                 runs["repetitive_lookup_k4"])
+    rep_gate.check_pending({})
+    return runs, paths
+
+
+def draft_model_phase(torch, InferenceEngineV2, pa, fa, attn, model_runner,
+                      model, prompts, gate):
+    """12b: ``TransformerDrafter.small`` (hidden 32 over 2 heads: head dim
+    16, the dense attention path by C5) behind the same engine, before
+    and after ``distill_from`` against the served model; each run queued
+    on ``gate`` against phase 3's streams."""
+    from deepspeed_tpu_torch.inference.spec_decode import TransformerDrafter
+
+    if attn.auto_impl("cuda", torch.bfloat16, 16) != "xla":
+        fail("draft model: impl='auto' at head dim 16 is not the dense path")
+    drafter = TransformerDrafter.small(model.config.vocab_size,
+                                       window=DRAFT_WINDOW, seed=SEED)
+    timing = {"calls": 0, "s": 0.0}
+    real_propose = drafter.propose
+
+    def propose(tokens, k):
+        t0 = time.perf_counter()
+        ids = real_propose(tokens, k)
+        timing["calls"] += 1
+        timing["s"] += time.perf_counter() - t0
+        return ids
+
+    drafter.propose = propose
+    runs, paths = {}, {}
+    kw = {"drafter": drafter, "spec_k": SPEC_K}
+
+    def serve(label):
+        fa.reset_launch_counts()
+        timing.update(calls=0, s=0.0)
+        out, res, paths[f"spec_serve/{label}"] = spec_run(
+            torch, InferenceEngineV2, pa, model_runner, model, prompts,
+            label, **kw)
+        if any(fa.LAUNCHES.values()):
+            fail(f"draft model {label}: the drafter launched flash kernels "
+                 f"{fa.LAUNCHES} (head dim 16 must take the dense path)")
+        res["propose_calls"] = timing["calls"]
+        res["propose_ms_per_call"] = 1e3 * timing["s"] / max(1,
+                                                              timing["calls"])
+        res["propose_ms_per_round"] = 1e3 * timing["s"] / max(
+            1, res["spec_steps"] + res["burst_steps"])
+        runs[label] = res
+        gate.add(label, prompts, gate.ref_out, kw, out, res)
+
+    serve("draft_untrained")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = drafter.distill_from(model, steps=DRAFT_STEPS,
+                                   batch=DRAFT_BATCH, seed=SEED,
+                                   prefix_len=DRAFT_PREFIX,
+                                   resample_every=DRAFT_RESAMPLE)
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    serve("draft_distilled")
+    return {"distill": dict(summary, seconds=distill_s),
+            "runs": runs}, paths
+
+
+def check_prefill_verify(torch, pa, timer):
+    """12c: B5 at the verify shape: 8 segments x Tq 8 (5 real rows) over
+    300-560-token paged histories, bf16. The tensor-core kernel (one
+    warpgroup: Tq x group = 32) twice, bit for bit, against its plain
+    version; then timed beside its first version, the plain version,
+    SDPA on gathered K/V and the bound."""
+    rng = np.random.default_rng(40)
+    S, tq = VERIFY_S, VERIFY_TQ
+    kv, bt = make_pool(torch, rng, torch.bfloat16, S)
+    ctx_np = rng.integers(VERIFY_CTX[0], VERIFY_CTX[1] + 1,
+                          S).astype(np.int32)
+    pos0_np = (ctx_np - VERIFY_REAL).astype(np.int32)
+    pos0 = torch.from_numpy(pos0_np).cuda()
+    ctx = torch.from_numpy(ctx_np).cuda()
+    q = torch.from_numpy(rng.standard_normal((S, tq, NH, HD),
+                                             np.float32)).to("cuda",
+                                                             torch.bfloat16)
+    before = dict(pa.VARIANT_LAUNCHES)
+    out = pa.paged_prefill_attention(q, kv, bt, pos0, ctx)
+    again = pa.paged_prefill_attention(q, kv, bt, pos0, ctx)
+    ref = pa.paged_prefill_attention_plain(q, kv, bt, pos0, ctx, HD ** -0.5)
+    torch.cuda.synchronize()
+    ran = prefill_variants_ran(pa, before)
+    if ran != {"wgmma": 2, "simt": 0} or not torch.equal(out, again):
+        fail(f"paged_prefill verify shape: ran {ran} or reruns differ")
+    real = torch.arange(tq, device="cuda") < VERIFY_REAL
+    err = (out.float() - ref.float())[:, real].abs().max().item()
+    if err > TOL["bfloat16"] or not torch.isfinite(out[:, real]).all():
+        fail(f"paged_prefill verify shape: max-abs {err}")
+    res = {"variant": "wgmma", "max_abs_err": err,
+           "kernel": ("paged_prefill_wgmma_kernel<1>"
+                      if tq * (NH // NKV) <= 64 else
+                      "paged_prefill_wgmma_kernel<2>"),
+           "real_rows": VERIFY_REAL, "bit_identical_rerun": True}
+    res.update(time_prefill(torch, pa, timer, q, kv, bt, pos0_np, ctx_np))
+    return res
+
+
+def a4_phase(torch, zoo, initialize, fa, tf):
+    """12d: A4 on 2-layer full-width Llama-3-8B, micro 2 x GAS
+    2 x 2048 over phase 4's fixed batches: the blocking loop and
+    pipeline_depth 2 + prefetch_depth 2 (6 steps each, losses ``==``, a
+    profiled window of 3 more each), the same model as a ``(loss_fn,
+    params)`` pair over the functional forward (3 steps, within rtol 1e-5
+    of the module engine) and a client ``torch.optim.AdamW`` against the
+    config AdamW (3 steps, rtol 1e-4). Flash launches as remat implies,
+    all on the tensor-core kernels."""
+    L = A4_LAYERS
+
+    def model_():
+        return zoo.get_model("llama3-8b", num_layers=L, dtype=torch.float32,
+                             seed=SEED)
+
+    vocab = zoo.get_config("llama3-8b").vocab_size
+    fixed, _ = fixed_batches(vocab)
+    gas = TRAIN_GAS
+    batches = [fixed[i % 2] for i in range((A4_STEPS + A4_PROFILED) * gas)]
+    want = {"flash_fwd": 2 * L * TRAIN_GAS, "flash_bwd_dkdv": L * TRAIN_GAS,
+            "flash_bwd_dq": L * TRAIN_GAS}
+    launches_by_run = {}
+
+    def run(label, steps, config, profile=False, **init_kw):
+        torch.cuda.empty_cache()
+        model = init_kw.pop("model", None)
+        if model is None:
+            model = model_()
+        engine, *_ = initialize(model=init_kw.pop("loss_fn", model),
+                                config=dict(config), **init_kw)
+        fa.reset_launch_counts()
+        it = iter(batches[:steps * gas])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks, losses = [], []
+        for _ in range(steps):
+            losses.append(engine.train_batch(it))
+            marks.append(time.perf_counter())
+        engine.synchronize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        launches = {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}
+        got = {k: fa.LAUNCHES[k] for k in want}
+        if got != {k: v * steps for k, v in want.items()}:
+            fail(f"a4 {label}: flash launches {got}, remat implies "
+                 f"{ {k: v * steps for k, v in want.items()} }")
+        check_tensor_core(f"a4 {label}", fa.LAUNCHES, fa.VARIANT_LAUNCHES,
+                          ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
+        if not all(np.isfinite(losses)):
+            fail(f"a4 {label}: losses {losses}")
+        gaps = np.diff([t0] + marks)
+        res = {"losses": losses, "wall_s": wall,
+               "step_s": [float(x) for x in gaps],
+               # the first step carries the warm-up
+               "step_ms_p50": float(np.median(gaps[1:])) * 1e3,
+               "launches": launches}
+        if profile:
+            prof = start_profile(torch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pit = iter(batches[steps * gas:(steps + A4_PROFILED) * gas])
+            for _ in range(A4_PROFILED):
+                engine.train_batch(pit)
+            engine.synchronize()
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t1
+            prof.__exit__(None, None, None)
+            res["profile"] = device_breakdown(torch, prof, pwall,
+                                              A4_PROFILED, unit="step")
+            del prof
+        launches_by_run[label] = launches
+        del engine, model
+        torch.cuda.empty_cache()
+        return res
+
+    t_start = time.perf_counter()
+    blocking = run("blocking", A4_STEPS, A4_CONFIG, profile=True)
+    pipelined = run("pipelined", A4_STEPS, A4_PIPELINED, profile=True)
+    if pipelined["losses"] != blocking["losses"]:
+        fail(f"a4: pipelined losses {pipelined['losses']} != blocking "
+             f"{blocking['losses']}")
+    # the same model as a (loss_fn, params) pair over the functional
+    # forward (the flash kernels through attn_impl "auto" at head dim 128)
+    fn_model = model_()
+    cfg_c = dataclasses.replace(fn_model.config, dtype=torch.bfloat16)
+    fn = run("loss_fn_params", A4_SHORT, A4_CONFIG, model=fn_model,
+             loss_fn=lambda p, b: tf.loss_fn(cfg_c, p, b),
+             model_parameters=fn_model.params())
+    del fn_model
+    ref = np.asarray(blocking["losses"][:A4_SHORT])
+    fn_rel = float(np.max(np.abs(np.asarray(fn["losses"]) - ref) / ref))
+    if fn_rel > A4_FN_TOL_REL:
+        fail(f"a4: (loss_fn, params) losses {fn['losses']} vs the module "
+             f"engine's {ref.tolist()}: rel {fn_rel}")
+    # a client torch AdamW at the config AdamW's hyperparameters (the JAX
+    # mapping: weight decay 0.01, betas (0.9, 0.999), eps 1e-8)
+    cl_model = model_()
+    opt = torch.optim.AdamW(cl_model.parameters(), lr=A4_LR,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    client_cfg = {k: v for k, v in A4_CONFIG.items() if k != "optimizer"}
+    client = run("client_adamw", A4_SHORT, client_cfg, model=cl_model,
+                 optimizer=opt)
+    del cl_model, opt
+    cl_rel = float(np.max(np.abs(np.asarray(client["losses"]) - ref) / ref))
+    if cl_rel > A4_CLIENT_TOL_REL:
+        fail(f"a4: client AdamW losses {client['losses']} vs the config "
+             f"AdamW's {ref.tolist()}: rel {cl_rel}")
+    return {"model": "llama3-8b", "layers": f"{L} of 32",
+            "micro": TRAIN_MICRO, "gas": TRAIN_GAS, "seq": TRAIN_SEQ,
+            "blocking": blocking, "pipelined": pipelined,
+            "pipelined_equals_blocking": True,
+            "loss_fn_params": dict(fn, max_rel_vs_module=fn_rel),
+            "client_adamw": dict(client, max_rel_vs_config_adamw=cl_rel),
+            "wall_s": time.perf_counter() - t_start}, launches_by_run
 
 
 def check_tensor_core(phase, launches, variants,
@@ -3574,6 +4233,31 @@ def main():
     log(f"sparse forward: {sparse_fwd['forward_ms_p50']:.1f} ms at S "
         f"{SPARSE_SEQ}")
 
+    # 12a-c. speculative serving on the same model, before phase 7's
+    # weight run quantizes it: prompt lookup, the repetitive set, the
+    # draft model, and B5 timed at the verify shape
+    t12 = time.perf_counter()
+    gate = PartingGate(torch, InferenceEngineV2, model_runner, model,
+                       ref_out)
+    spec_serve, spec_paths = spec_serve_phase(
+        torch, InferenceEngineV2, pa, model_runner, model, ref_prompts, gate)
+    draft, draft_paths = draft_model_phase(
+        torch, InferenceEngineV2, pa, fa, attn, model_runner, model,
+        ref_prompts, gate)
+    # one recorded rerun of phase 3's serve for every queued check
+    gate.check_pending({})
+    timer = Timer(torch)
+    pre_verify = check_prefill_verify(torch, pa, timer)
+    del timer
+    torch.cuda.empty_cache()
+    phase12_serve_s = time.perf_counter() - t12
+    log("spec serve: " + ", ".join(
+        f"{k} {v['generated_tokens_per_s']:.0f} tok/s "
+        f"({v['accepted_per_verify_round']:.2f} accepted a round)"
+        for k, v in {**spec_serve, **draft["runs"]}.items())
+        + f"; B5 at the verify shape {pre_verify['ms']:.4f} ms; "
+        f"{phase12_serve_s:.0f} s")
+
     # 7. quantized serve on the same model (its last use: the int8
     # weight run quantizes it in place)
     quant_serve, quant_profile, quant_launches = quant_serve_phase(
@@ -3599,6 +4283,16 @@ def main():
         f"{ckpt['load_validate_s']:.1f} s), async blocking "
         f"{ckpt['async_blocking_s']:.1f} s + commit "
         f"{ckpt['async_commit_s']:.1f} s; resumed bit-identical")
+
+    # 12d. A4 on the card: the pipelined loop, a (loss_fn, params) model
+    # and a client optimizer at 2 layers; phase 9's engines are
+    # gone
+    t0 = time.perf_counter()
+    a4, a4_launches = a4_phase(torch, zoo, initialize, fa, tf)
+    phase12_s = phase12_serve_s + time.perf_counter() - t0
+    log(f"a4: blocking {a4['blocking']['step_ms_p50']:.1f} ms, pipelined "
+        f"{a4['pipelined']['step_ms_p50']:.1f} ms a step, losses equal; "
+        f"phase 12 took {phase12_s:.0f} s")
 
     # 10. offload: full depth with the optimizer on the host, then the
     # tiers' parity and a checkpoint through the AIO writer; phase 9's
@@ -3683,11 +4377,13 @@ def main():
                 "other": other}
 
     paged_paths = {"serve": {**launches, **serve_variants},
+                   **spec_paths, **draft_paths,
                    "moe_serve": moe_serve_launches,
                    **{f"quant_serve/{run}": lc
                       for run, lc in quant_launches.items()}}
     other_pre = {k: v for k, v in pre[16]["bfloat16"].items()}
     other_pre["max_abs_err_fp32"] = pre[16]["float32"]["max_abs_err"]
+    other_pre["verify_shape"] = pre_verify
 
     def flash_entry(name, line):
         b = flash[("bfloat16", "smoke")][name]
@@ -3712,7 +4408,9 @@ def main():
                     "offload_checkpoint": offload_ckpt_launches[name],
                     "zenflow": zenflow_launches[name],
                     "zenflow_blocking": zenflow_block_launches[name],
-                    "zenflow_checkpoint": zenflow_ckpt_launches[name]},
+                    "zenflow_checkpoint": zenflow_ckpt_launches[name],
+                    **{f"a4/{run}": lc[name]
+                       for run, lc in a4_launches.items()}},
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
                            if k.startswith(name + "/")}
@@ -3726,7 +4424,9 @@ def main():
                                      ("zenflow_blocking",
                                       zenflow_block_launches),
                                      ("zenflow_checkpoint",
-                                      zenflow_ckpt_launches))},
+                                      zenflow_ckpt_launches),
+                                     *((f"a4/{run}", lc) for run, lc
+                                       in a4_launches.items()))},
                 "max_abs_err": b["max_abs_err"],
                 "max_row_rel_err": b.get("max_row_rel_err"),
                 "ms": b["ms"], "tflops": b["tflops"],
@@ -3901,6 +4601,11 @@ def main():
     print(json.dumps({"zenflow_checkpoint": zenflow_ckpt}), flush=True)
     print(json.dumps({"optimizer_sweep": sweep,
                       "phase11_wall_s": zenflow_wall}), flush=True)
+    print(json.dumps({"spec_serve": spec_serve}), flush=True)
+    print(json.dumps({"draft_model": draft}), flush=True)
+    print(json.dumps({"paged_prefill_verify_shape": pre_verify}),
+          flush=True)
+    print(json.dumps({"a4": a4, "phase12_wall_s": phase12_s}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
           flush=True)
     print(card, flush=True)

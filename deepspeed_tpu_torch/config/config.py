@@ -9,8 +9,9 @@ Parsed: the batch triple and its solver (``resolve_batch_size``),
 the ``moe`` block (``ep_size`` 1), the
 ``serving`` block (``ServingConfig``, the serving engine's knobs), the
 ``sparse_attention`` block (``SparseAttentionConfig``), the
-``kernels`` block (``KernelsConfig``) and the ``checkpoint`` and
-``resilience`` blocks (``CheckpointConfig``, ``ResilienceConfig``). A
+``kernels`` block (``KernelsConfig``), the ``checkpoint`` and
+``resilience`` blocks (``CheckpointConfig``, ``ResilienceConfig``) and
+the ``performance`` block (``PerformanceConfig``). A
 block or switch of the JAX schema that this package does not run raises
 ``NotImplementedError`` naming its ROADMAP item: nothing the JAX engine
 would act on is silently ignored.
@@ -38,7 +39,6 @@ UNPORTED_BLOCKS = {
     "activation_checkpointing": f"{_A} 11 (activation checkpointing "
                                 "policies; the model's `remat` switch "
                                 "recomputes every layer)",
-    "performance": f"{_A} 4 (dispatch-ahead, input prefetch, fp8 MLP)",
     "observability": f"{_A} 14 (observability)",
     "monitor": f"{_A} 14 (observability)",
     "comms_logger": f"{_A} 14 (observability)",
@@ -260,11 +260,12 @@ class ServingConfig:
     cold prefix chains and preempted sessions out in pool-native format
     instead of discarding them.
 
-    Speculative decoding is not ported: ``spec_k``, ``spec_ngram`` and
-    ``spec_accept_alpha`` are validated and inert, and ``spec_decode`` or
-    ``spec_adaptive_k`` set true raise (ROADMAP queue A item 8); the
-    fleet's ``handoff_wire`` (other than "auto") and ``router`` raise
-    (item 13)."""
+    ``spec_decode`` turns on speculative decoding with prompt-lookup
+    drafts (``spec_ngram``), at most ``spec_k`` drafts a sequence a
+    round; ``spec_adaptive_k`` picks each request's draft length from
+    its acceptance EWMA (``spec_accept_alpha``) and the batch occupancy.
+    The fleet's ``handoff_wire`` (other than "auto") and ``router`` raise
+    (ROADMAP queue A item 13)."""
 
     max_queue_depth: Optional[int] = None
     prefix_cache: bool = True
@@ -307,16 +308,65 @@ class ServingConfig:
             raise ValueError(
                 f"serving.spec_accept_alpha must be in (0, 1], got "
                 f"{self.spec_accept_alpha}")
-        for name in ("spec_decode", "spec_adaptive_k"):
-            if getattr(self, name):
-                raise _unported(f"serving.{name}=True",
-                                f"{_A} 8 (speculative decoding)")
         if self.handoff_wire != "auto":
             raise _unported(f"serving.handoff_wire={self.handoff_wire!r}",
                             f"{_A} 13 (serving fleet and its KV wire)")
         if self.router is not None:
             raise _unported("block 'serving.router'",
                             f"{_A} 13 (serving fleet)")
+
+
+@dataclass
+class PerformanceConfig:
+    """The pipelined training loop (JAX ``PerformanceConfig``).
+
+    ``pipeline_depth`` is the number of dispatched, not yet resolved
+    ``train_batch`` steps the engine keeps in flight before it waits
+    (dispatch-ahead): 0 is the blocking loop. The
+    ``DSTPU_DISPATCH_AHEAD`` environment variable overrides it.
+    ``prefetch_depth`` bounds the background input prefetcher's buffer
+    (``runtime/prefetch.py``); 0 turns it off, and 0 is the port's
+    default (JAX's is 2): the prefetcher is asked for, and until then a
+    checkpoint's data cursor keeps the loader's own state.
+    ``param_prefetch_depth`` and ``overlap_depth`` (the streamed layer
+    stack, ROADMAP queue A item 11) and ``fp8_mlp`` (item 10) raise when
+    set."""
+
+    pipeline_depth: int = 0
+    prefetch_depth: int = 0
+    param_prefetch_depth: Optional[int] = None
+    fp8_mlp: bool = False
+    overlap_depth: Optional[int] = None
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.pipeline_depth < 0:
+            raise ValueError(
+                f"performance.pipeline_depth must be >= 0, got "
+                f"{self.pipeline_depth}")
+        if self.prefetch_depth < 0:
+            raise ValueError(
+                f"performance.prefetch_depth must be >= 0, got "
+                f"{self.prefetch_depth}")
+        if self.param_prefetch_depth is not None \
+                and self.param_prefetch_depth < 1:
+            raise ValueError(
+                f"performance.param_prefetch_depth must be >= 1, got "
+                f"{self.param_prefetch_depth}")
+        if self.overlap_depth is not None and self.overlap_depth < 0:
+            raise ValueError(
+                f"performance.overlap_depth must be >= 0, got "
+                f"{self.overlap_depth}")
+        if self.fp8_mlp:
+            raise _unported("performance.fp8_mlp=True",
+                            f"{_A} 10 (fp8 MLP, ops/fp_quantizer.py)")
+        for name in ("param_prefetch_depth", "overlap_depth"):
+            if getattr(self, name) is not None:
+                raise _unported(f"performance.{name}",
+                                f"{_A} 11 (the streamed layer stack, "
+                                "runtime/param_stream.py)")
 
 
 @dataclass
@@ -513,6 +563,8 @@ class Config:
     kernels: KernelsConfig = field(default_factory=KernelsConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    performance: PerformanceConfig = field(
+        default_factory=PerformanceConfig)
 
     @classmethod
     def from_dict(cls, data: Optional[Dict[str, Any]]) -> "Config":
@@ -546,7 +598,7 @@ class Config:
                                      "zero_optimization.zenflow")
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
                   "zero_optimization", "moe", "serving", "sparse_attention",
-                  "kernels", "checkpoint", "resilience"}
+                  "kernels", "checkpoint", "resilience", "performance"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         known = (scalars | blocks
                  | set(UNPORTED_BLOCKS) | set(UNPORTED_SWITCHES))
@@ -573,7 +625,9 @@ class Config:
             checkpoint=_block(CheckpointConfig, data.get("checkpoint"),
                               "checkpoint"),
             resilience=_block(ResilienceConfig, data.get("resilience"),
-                              "resilience"))
+                              "resilience"),
+            performance=_block(PerformanceConfig, data.get("performance"),
+                               "performance"))
         cfg.validate()
         return cfg
 
@@ -673,4 +727,4 @@ __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "BF16Config",
            "FP16Config", "OffloadOptimizerConfig", "ZenFlowBlockConfig",
            "ZeroConfig", "MoEConfig", "ServingConfig",
            "SparseAttentionConfig", "KernelsConfig", "CheckpointConfig",
-           "ResilienceConfig", "load_config"]
+           "ResilienceConfig", "PerformanceConfig", "load_config"]

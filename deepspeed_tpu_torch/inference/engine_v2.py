@@ -5,9 +5,20 @@ Host-side state (StateManager / BlockedAllocator / PrefixCache /
 SplitFuseScheduler) assembles dense int metadata per step
 (ragged_batch.py); the runner (model_runner.py) appends KV in place and
 attends through the paged kernels. ``put`` queues requests,
-``serve_step`` runs one round (a multi-token greedy decode burst when
-every live sequence is decoding, else one SplitFuse step), and
+``serve_step`` runs one round (at temperature 0: a speculative verify
+round when drafts are available, else a multi-token greedy decode burst
+when every live sequence is decoding; else one SplitFuse step), and
 ``generate_all`` drives rounds until every request finishes.
+
+Speculative decoding (``spec_decode`` / ``drafter``; ``spec_decode.py``):
+each verify round runs every live sequence's [last token, drafts...]
+chunk through the paged prefill kernel over its paged history
+(``_plan_prefill_segments`` and ``ragged_prefill_forward``, as the
+prefill steps do) and keeps the longest prefix of drafts that matches
+the model's argmax chain plus one bonus token, so greedy output is
+token-identical with speculation on or off. ``spec_adaptive_k`` picks
+each request's draft length from its measured acceptance and the batch
+occupancy.
 
 Quantized serving: ``kv_quant_bits`` (8, 4, "fp8") stores the KV pool
 as codes plus one fp32 scale per head vector; ``quantize_weights="int8"``
@@ -17,14 +28,15 @@ paged-out sessions (``page_out``) to host memory in the pool's own
 format, and resumes them without re-prefill. The same knobs come in
 through ``serving=ServingConfig(...)``.
 
-Not ported yet (ROADMAP queue A): speculative decoding, session
-migration, tensor parallelism, and the tracer / metrics hub / flight
+Not ported yet (ROADMAP queue A): session migration and the handoff
+wire, tensor parallelism, and the tracer / metrics hub / flight
 recorder / journal.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
@@ -40,6 +52,7 @@ from deepspeed_tpu_torch.inference.ragged import (BlockedAllocator,
                                                   PrefixCache, StateManager,
                                                   build_ragged_batch)
 from deepspeed_tpu_torch.inference.scheduler import SplitFuseScheduler
+from deepspeed_tpu_torch.inference.spec_decode import PromptLookupDrafter
 from deepspeed_tpu_torch.inference.weight_quant import quantize_params
 from deepspeed_tpu_torch.models.transformer import TransformerLM
 
@@ -79,8 +92,15 @@ class InferenceEngineV2:
     released once its int8 codes exist, so the model itself can no longer
     run its own forward. ``serving`` (a ``config.ServingConfig``), when
     given, supplies ``prefix_cache``, ``decode_steps``,
-    ``max_queue_depth``, ``kv_quant_bits``, ``host_kv_tier`` and
-    ``host_tier_mb`` in place of the keyword arguments."""
+    ``max_queue_depth``, ``kv_quant_bits``, ``host_kv_tier``,
+    ``host_tier_mb`` and the speculation knobs (``spec_decode``,
+    ``spec_k``, ``spec_ngram``, ``spec_adaptive_k``,
+    ``spec_accept_alpha``) in place of the keyword arguments.
+
+    ``spec_decode`` drafts with prompt lookup (``spec_ngram``); a
+    ``drafter`` (anything with ``propose(tokens, k)``) replaces it and
+    turns speculation on. ``spec_k`` is the most drafts a sequence
+    verifies a round."""
 
     def __init__(self, model: TransformerLM, kv_blocks: int = 256,
                  kv_block_size: int = 16, max_tokens_per_step: int = 128,
@@ -90,6 +110,10 @@ class InferenceEngineV2:
                  kv_quant_bits: Optional[object] = None,
                  quantize_weights: Optional[str] = None,
                  host_kv_tier: bool = False, host_tier_mb: int = 256,
+                 spec_decode: bool = False, spec_k: int = 4,
+                 spec_ngram: int = 3, drafter: Optional[Any] = None,
+                 spec_adaptive_k: bool = False,
+                 spec_accept_alpha: float = 0.25,
                  serving: Optional[Any] = None,
                  device: DeviceLike = None):
         if serving is not None:
@@ -101,6 +125,11 @@ class InferenceEngineV2:
             kv_quant_bits = serving.kv_quant_bits
             host_kv_tier = serving.host_kv_tier
             host_tier_mb = serving.host_tier_mb
+            spec_decode = serving.spec_decode
+            spec_k = serving.spec_k
+            spec_ngram = serving.spec_ngram
+            spec_adaptive_k = serving.spec_adaptive_k
+            spec_accept_alpha = serving.spec_accept_alpha
         if quantize_weights not in (None, "int8"):
             raise ValueError(f"quantize_weights supports 'int8', got "
                              f"{quantize_weights!r}")
@@ -157,6 +186,12 @@ class InferenceEngineV2:
                       "preempt_reasons": {},
                       "requeued": 0, "truncated": 0,
                       "prefix_hit_tokens": 0, "burst_steps": 0,
+                      "spec_steps": 0, "spec_proposed": 0,
+                      "spec_accepted": 0, "spec_backoff_rounds": 0,
+                      # verify rounds on the paged prefill kernel, and
+                      # those the padding rule sent to the gather path
+                      "spec_verify_kernel_rounds": 0,
+                      "spec_verify_gather_fallbacks": 0,
                       "paged_out": 0, "paged_in": 0,
                       "warm_resume_tokens": 0}
         # TTFT is put() -> first emitted token; decode latency is the gap
@@ -176,6 +211,26 @@ class InferenceEngineV2:
         # every live sequence is in steady decode (decode_steps=1 restores
         # strict per-token SplitFuse admission)
         self.decode_steps = max(1, int(decode_steps))
+        # speculative decoding: prompt-lookup drafts (or the caller's
+        # drafter) verified a round at a time; greedy acceptance keeps the
+        # stream token-identical to plain greedy
+        self.spec_k = max(1, int(spec_k))
+        self._drafter = drafter if drafter is not None else (
+            PromptLookupDrafter(max_ngram=spec_ngram) if spec_decode
+            else None)
+        # adaptive draft length: each request's k from its acceptance
+        # EWMA (the global one until it has its own) and the batch
+        # occupancy; off is the fixed-k path
+        self._spec_adaptive = bool(spec_adaptive_k)
+        self._spec_alpha = float(spec_accept_alpha)
+        self._spec_accept_ewma: Optional[float] = None    # global
+        self._seq_accept_ewma: Dict[int, float] = {}      # per request
+        self._spec_wasted_verify_tokens = 0
+        # the j-th draft's expected yield is a^j: draft while a^j >= cut,
+        # where the cut rises with occupancy (at full occupancy verify
+        # rows crowd out real decode tokens)
+        self._spec_cut_base = 0.25
+        self._spec_load_gain = 3.0
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -272,6 +327,7 @@ class InferenceEngineV2:
         self.state.release(uid)
         admit = self._admit_time.pop(uid, None)
         self._last_emit_time.pop(uid, None)
+        self._seq_accept_ewma.pop(uid, None)
         return admit
 
     def _requeue(self, seq, reason: str = "pool_exhausted") -> None:
@@ -319,8 +375,9 @@ class InferenceEngineV2:
         if (self.kv_cache.blocks_needed(seq.total_tokens + 1)
                 > self.max_blocks_per_seq):
             return False  # could never regrow: _requeue owns truncation
-        # the blocks holding real KV (the burst may have grown the block
-        # list past the frontier)
+        # the blocks holding real KV: a burst or rejected speculative
+        # drafts may have grown the block list past the accepted
+        # frontier, and those trailing blocks hold nothing to keep
         keep = self.kv_cache.blocks_needed(seq.seen_tokens)
         if keep <= 0 or keep > len(seq.kv_blocks):
             return False
@@ -334,7 +391,8 @@ class InferenceEngineV2:
             max_new_tokens=seq.max_new_tokens,
             prior_generated=seq.prior_generated,
             payload=payload, scales=scales,
-            admit_time=self._admit_time.get(seq.uid))
+            admit_time=self._admit_time.get(seq.uid),
+            spec_accept_ewma=self._seq_accept_ewma.get(seq.uid))
         if not tier.put_session(sess):
             return False
         # folded history rides in the queued request as the fallback: if
@@ -380,6 +438,8 @@ class InferenceEngineV2:
         seq.kv_blocks = np.asarray(blocks, np.int64)
         self.kv_cache.write_blocks(blocks, sess.payload, sess.scales)
         seq.resumed_from_tier = keep
+        if sess.spec_accept_ewma is not None:
+            self._seq_accept_ewma[sess.uid] = float(sess.spec_accept_ewma)
         self.stats["paged_in"] += 1
         self.stats["admitted"] += 1
         self.stats["warm_resume_tokens"] += sess.seen_tokens
@@ -453,6 +513,7 @@ class InferenceEngineV2:
             seg_plan = self._plan_prefill_segments(scheduled)
             if seg_plan is None:
                 self.stats["prefill_gather_fallbacks"] += 1
+                self.stats["fallback_reasons"]["padding"] += 1
             else:
                 self.stats["prefill_kernel_steps"] += 1
         elif decode_only:
@@ -550,7 +611,6 @@ class InferenceEngineV2:
         # the padded layout materializes S*tq token rows (incl. [S,tq,V]
         # fp32 logits); cap the blowup over the flat token budget
         if S * tq > 2 * self.max_tokens:
-            self.stats["fallback_reasons"]["padding"] += 1
             return None
         toks = np.zeros((S, tq), np.int32)
         pos0 = np.zeros(S, np.int32)
@@ -657,16 +717,189 @@ class InferenceEngineV2:
         self._release_finished()
         return emitted
 
+    def _spec_round_k(self, seq, occ: float) -> int:
+        """Draft length for ``seq`` this round: ``spec_k``, unless
+        adaptive speculation is on. Then the j-th draft's expected yield
+        is a^j (a = the request's acceptance EWMA, the global one while
+        it has none) and the request drafts while a^j >= cut, where the
+        cut rises with the batch occupancy ``occ``: an idle batch
+        speculates hard, a full one backs off toward k = 0. Only the
+        draft count changes; the accepted tokens are the argmax chain."""
+        if not self._spec_adaptive:
+            return self.spec_k
+        cut = min(0.95, self._spec_cut_base
+                  * (1.0 + self._spec_load_gain * occ))
+        a = self._seq_accept_ewma.get(seq.uid, self._spec_accept_ewma)
+        if a is None:
+            return self.spec_k  # no signal yet: speculate optimistically
+        a = min(max(a, 0.0), 0.99)
+        if a <= cut:
+            return 0
+        return max(0, min(self.spec_k, int(math.log(cut) / math.log(a))))
+
+    def _try_spec_step(self, eos_token_id: Optional[int]
+                       ) -> Optional[Dict[int, List[int]]]:
+        """One speculative greedy round: the drafter proposes up to
+        ``spec_k`` tokens per sequence and ONE forward verifies them.
+        Each sequence's chunk is [last real token, draft 1..k]; row j's
+        argmax is the greedy token after the history and drafts[:j], so
+        the longest matching draft prefix is accepted plus one bonus
+        token, and every emitted token is the model's own argmax chain.
+
+        The chunks go through the paged prefill kernel, one segment per
+        sequence over its paged history (``_plan_prefill_segments``);
+        the gather path runs only where that plan says the padding would
+        cost too much, and is counted in
+        ``stats["spec_verify_gather_fallbacks"]``. Only the greedy ids of
+        the chunk rows leave the device. Returns None when a burst or a
+        plain step should run instead (prefill pending, no drafts, or
+        the pool cannot hold the chunks)."""
+        live = [s for s in self.state.seqs.values() if not s.done]
+        if (self._drafter is None or not live or len(live) > self.max_seqs
+                or len(live) > self.max_tokens
+                or any((not s.in_decode) or s.pending_prefill for s in live)):
+            return None
+        # pass 1, without side effects: propose drafts and probe capacity.
+        # K/V is written for every chunk token (rejected drafts leave
+        # rows past the accepted frontier that the next real token
+        # overwrites), so the capacity must cover 1 + k a sequence:
+        # shrink a proposal rather than trip the per-seq cap, and leave
+        # the round to the plain step (which owns preemption) when the
+        # pool cannot cover even the plain decode tokens
+        chunks: List[np.ndarray] = []
+        total = 0
+        need_total = 0
+        n_drafted = 0
+        occ = len(live) / max(1, self.max_seqs)
+        adaptive_k_sum = 0
+        for s in live:
+            k_round = self._spec_round_k(s, occ)
+            adaptive_k_sum += k_round
+            k = min(k_round, s.gen_budget_left - 1,
+                    self.max_tokens - total - 1)
+            drafts: List[int] = []
+            if k > 0:
+                drafts = list(self._drafter.propose(
+                    s.input_tokens.tolist() + s.generated, k))[:k]
+            while drafts and (self.kv_cache.blocks_needed(
+                    s.seen_tokens + 1 + len(drafts))
+                    > self.max_blocks_per_seq):
+                drafts.pop()
+            blocks = self.kv_cache.blocks_needed(
+                s.seen_tokens + 1 + len(drafts))
+            if blocks > self.max_blocks_per_seq:
+                return None  # at the per-seq cap: the plain step decides
+            need_total += max(0, blocks - len(s.kv_blocks))
+            if drafts:
+                n_drafted += 1
+            t0 = (s.generated[-1] if s.generated
+                  else int(s.input_tokens[-1]))
+            chunks.append(np.asarray([t0] + drafts, np.int32))
+            total += 1 + len(drafts)
+        if n_drafted == 0:
+            if self._spec_adaptive and adaptive_k_sum == 0:
+                # the controller chose k = 0 across the batch (load high
+                # or acceptance low): a deliberate backoff, not a miss
+                self.stats["spec_backoff_rounds"] += 1
+            return None  # nothing proposed: the burst path is faster
+        if need_total > self.kv_cache.available_blocks:
+            return None
+        sched = []
+        for s, chunk in zip(live, chunks):
+            if not self.state.ensure_capacity(s, s.seen_tokens + len(chunk)):
+                raise RuntimeError("spec capacity probe said yes but KV "
+                                   "block allocation failed")
+            sched.append((s, chunk, s.seen_tokens))
+        batch = build_ragged_batch(sched, self.max_tokens, self.max_seqs,
+                                   self.max_blocks_per_seq)
+        kv = self.kv_cache.kv_state
+        seg_plan = (self._plan_prefill_segments(sched)
+                    if self._use_paged_kernel else None)
+        if seg_plan is not None:
+            n_segs = seg_plan[0].shape[0]
+            logits, new_kv = model_runner.ragged_prefill_forward(
+                self.cfg, self.params, kv, *seg_plan,
+                self._dev(batch.block_table[:n_segs]))
+            self.stats["spec_verify_kernel_rounds"] += 1
+        else:
+            logits, new_kv = model_runner.ragged_forward(
+                self.cfg, self.params, kv, self._dev(batch.token_ids),
+                self._dev(batch.token_seq), self._dev(batch.token_pos),
+                self._dev(batch.block_table), batch.num_tokens)
+            if self._use_paged_kernel:
+                self.stats["spec_verify_gather_fallbacks"] += 1
+        self.kv_cache.set_kv_state(new_kv)
+        # the greedy id of every chunk row, 4-8 bytes a row: never the
+        # [T, V] logits
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()
+        emitted: Dict[int, List[int]] = {}
+        cursor = 0
+        for slot, (s, chunk, start_pos) in enumerate(sched):
+            n = len(chunk)
+            if seg_plan is not None:
+                rows = greedy[slot, :n]
+            else:
+                rows = greedy[cursor:cursor + n]
+                cursor += n
+            emit = [int(rows[0])]
+            for j in range(1, n):
+                if int(chunk[j]) != emit[-1]:
+                    break  # draft j left the greedy chain
+                emit.append(int(rows[j]))
+            self.stats["spec_proposed"] += n - 1
+            self.stats["spec_accepted"] += len(emit) - 1
+            if n > 1:
+                # measured acceptance feeds the adaptive-k controller and
+                # the drafter's own counters
+                rate = (len(emit) - 1) / (n - 1)
+                a = self._spec_alpha
+                prev = self._seq_accept_ewma.get(s.uid)
+                self._seq_accept_ewma[s.uid] = (
+                    rate if prev is None else a * rate + (1 - a) * prev)
+                prev_g = self._spec_accept_ewma
+                self._spec_accept_ewma = (
+                    rate if prev_g is None else a * rate + (1 - a) * prev_g)
+                note = getattr(self._drafter, "note_result", None)
+                if note is not None:
+                    note(n - 1, len(emit) - 1)
+            # rows computed past the accepted frontier: the round's
+            # wasted work (what adaptive k trims under load)
+            self._spec_wasted_verify_tokens += n - len(emit)
+            budget_left = s.gen_budget_left
+            final: List[int] = []
+            for tok in emit:
+                final.append(tok)
+                if eos_token_id is not None and tok == eos_token_id:
+                    s.done = True
+                    break
+                if len(final) >= budget_left:
+                    s.done = True
+                    break
+            s.generated.extend(final)
+            s.seen_tokens = start_pos + len(final)
+            emitted[s.uid] = final
+        self.stats["spec_steps"] += 1
+        now = time.perf_counter()
+        for uid, toks in emitted.items():
+            if toks:
+                self._note_emitted(uid, len(toks), now)
+        self._release_finished()
+        return emitted
+
     def serve_step(self, temperature: float = 0.0, seed: int = 0,
                    eos_token_id: Optional[int] = None
                    ) -> Dict[int, List[int]]:
-        """One serving round: admit from the waiting queue, then run a
-        multi-token greedy burst (steady greedy decode) or a plain
-        SplitFuse step. Returns {uid: tokens emitted this round}."""
+        """One serving round: admit from the waiting queue, then run the
+        best step for the mix: at temperature 0 a speculative verify
+        round (drafts available), else a multi-token greedy burst
+        (steady greedy decode); otherwise a plain SplitFuse step.
+        Returns {uid: tokens emitted this round}."""
         self._admit_from_queue()
         out: Optional[Dict[int, List[int]]] = None
         if temperature == 0.0:
-            out = self._try_decode_burst(eos_token_id)
+            out = self._try_spec_step(eos_token_id)
+            if out is None:
+                out = self._try_decode_burst(eos_token_id)
         if out is None:
             emitted = self.step(temperature, seed, eos_token_id)
             out = {uid: [tok] for uid, tok in emitted.items()}

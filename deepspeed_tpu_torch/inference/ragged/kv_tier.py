@@ -55,6 +55,9 @@ class PagedSession:
     payload: np.ndarray               # [L, n_blocks, bs, 2, H, W], raw
     scales: Optional[np.ndarray]      # [L, n_blocks, bs, 2, H] | None
     admit_time: Optional[float] = None  # pending-TTFT stamp, if any
+    # the request's speculation acceptance EWMA: a resumed session drafts
+    # at its measured rate instead of starting cold
+    spec_accept_ewma: Optional[float] = None
 
     @property
     def n_blocks(self) -> int:

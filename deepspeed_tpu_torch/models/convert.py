@@ -1,6 +1,7 @@
 """Carry a JAX parameter tree across into a ``TransformerLM`` (an
-``MoETransformerLM`` for an MoE config), and a tree of tensors back out
-as numpy.
+``MoETransformerLM`` for an MoE config) or, leaf by leaf, into a plain
+tree of fp32 tensors (``fp32_tree``: a drafter's or a ``(loss_fn,
+params)`` model's params), and a tree of tensors back out as numpy.
 
 The JAX runner keeps fp32 params and casts each to the compute type at
 use (``.astype(dt)``); here every leaf is stored once, already in the
@@ -16,7 +17,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch._device import DeviceLike
+from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.models.moe_transformer import (MoETransformerConfig,
                                                         MoETransformerLM)
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
@@ -55,6 +56,27 @@ def params_from_jax(tree: Mapping[str, Any], cfg: TransformerConfig,
 
     copy(model.params(), tree, "")
     return model
+
+
+def fp32_tree(tree: Mapping[str, Any],
+              device: DeviceLike = None) -> Dict[str, Any]:
+    """Any tree of nested dicts (a JAX parameter tree such as a
+    ``TransformerDrafter``'s or a ``(loss_fn, params)`` model's, leaves
+    as numpy arrays or anything ``np.asarray`` reads; or tensors), leaf by
+    leaf, as fp32 tensors on ``device`` (default: the card) with the same
+    keys. A leaf that already is an fp32 tensor there is used as it is
+    (its updates are the caller's); every other leaf is copied."""
+    dev = resolve_device(device)
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            if x.dtype == torch.float32 and x.device == dev:
+                return x
+            return x.detach().to(device=dev, dtype=torch.float32, copy=True)
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    return {k: (fp32_tree(v, dev) if isinstance(v, Mapping) else leaf(v))
+            for k, v in tree.items()}
 
 
 def params_to_numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:

@@ -2,8 +2,11 @@
 and the block-sparse dispatch (port of ``deepspeed_tpu/ops/attention.py``).
 
 ``impl="auto"`` launches the hand-written flash kernels for CUDA tensors
-and takes the dense path for CPU tensors, which is what the JAX package
-does off the TPU. The JAX cost table, its ``FLASH_MIN_SEQ`` crossover and
+of a dtype and head dim the kernels are built for (``auto_impl``), and
+takes the dense path everywhere else: for CPU tensors, which is what the
+JAX package does off the TPU, and for head dims such as 16 or 32, which
+JAX's ``auto`` also serves densely. The choice is made from the shape,
+before any launch. The JAX cost table, its ``FLASH_MIN_SEQ`` crossover and
 its block-size heuristics are v5e measurements and are not carried over;
 the registry and table port is ROADMAP queue A item 3.
 
@@ -24,7 +27,8 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops import blocksparse_attention as bsa
-from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.flash_attention import (HEAD_DIMS,
+                                                     flash_attention)
 
 NEG_INF = -1e30
 
@@ -73,12 +77,23 @@ def xla_attention(q, k, v, causal: bool = True,
     return torch.einsum("bnqk,bknd->bqnd", probs, v)
 
 
+def auto_impl(device_type: str, dtype: torch.dtype, head_dim: int) -> str:
+    """What ``impl="auto"`` runs: "flash" on the card for fp32 or bf16 at
+    a head dim the flash kernels are built for (``HEAD_DIMS``), "xla"
+    (the dense path) for everything else. Pure in its arguments."""
+    if (device_type == "cuda" and dtype in (torch.float32, torch.bfloat16)
+            and head_dim in HEAD_DIMS):
+        return "flash"
+    return "xla"
+
+
 def multi_head_attention(q, k, v, causal: bool = True, impl: str = "auto",
                          segment_ids: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Dispatching entry point used by the model. ``impl``: "flash"
-    (the kernels; their plain versions on CPU tensors), "xla" (the dense
-    path), "auto" (flash for CUDA tensors, dense for CPU tensors),
+    (the kernels; their plain versions on CPU tensors; raises on a shape
+    the kernels do not take), "xla" (the dense path), "auto"
+    (``auto_impl``: flash for CUDA tensors the kernels take, else dense),
     "blocksparse" (the installed layout: the masked form under autograd,
     else the block-sparse kernel)."""
     if impl == "blocksparse":
@@ -97,7 +112,7 @@ def multi_head_attention(q, k, v, causal: bool = True, impl: str = "auto",
         return bsa.blocksparse_attention_kernel(q, k, v, _SPARSE_CONFIG,
                                                 causal=causal)
     if impl == "auto":
-        impl = "flash" if q.device.type == "cuda" else "xla"
+        impl = auto_impl(q.device.type, q.dtype, q.shape[-1])
     if impl == "flash":
         return flash_attention(q, k, v, causal=causal,
                                segment_ids=segment_ids)
@@ -107,5 +122,5 @@ def multi_head_attention(q, k, v, causal: bool = True, impl: str = "auto",
                      "xla, blocksparse")
 
 
-__all__ = ["repeat_kv_heads", "xla_attention", "multi_head_attention",
-           "set_sparse_config"]
+__all__ = ["repeat_kv_heads", "xla_attention", "auto_impl",
+           "multi_head_attention", "set_sparse_config"]

@@ -8,10 +8,11 @@ the loss trajectories diverge and "resumed" silently means "different
 run".
 
 The cursor that makes this work counts **consumed GAS boundaries**, not
-pulled batches: ``boundaries_consumed == engine.global_steps``. The port
-has no input prefetcher yet (ROADMAP queue A item 4), so every pulled
-batch is a consumed one and the cursor always carries the loader state
-(the JAX cursor leaves it out while a prefetcher has pulled ahead).
+pulled batches: ``boundaries_consumed == engine.global_steps``. Batches
+a ``PrefetchingIterator`` worker pulled ahead but the training loop
+never consumed are excluded: while a prefetcher runs the cursor leaves
+the loader's state out (it is "future" state) and a resume replays from
+the counts, which replays exactly what the dead run's buffer held.
 
 Restore strategies, in order of preference:
 
@@ -52,6 +53,11 @@ def data_cursor(engine) -> Dict[str, Any]:
     # loader state: prefer the stream train_batch actually consumed (a
     # RepeatingLoader is its own iterator, so the engine's last data_iter
     # often IS the stateful loader); fall back to the engine-owned one
+    # NOT captured while a prefetcher is active: its worker has pulled
+    # ahead of consumption, so the loader's epoch / offset are future
+    # values; the consumed-boundary counts above are the truthful cursor
+    if getattr(engine, "_prefetcher", None) is not None:
+        return cursor
     for source in (getattr(engine, "_last_data_iter", None),
                    getattr(engine, "training_dataloader", None)):
         state_fn = getattr(source, "state_dict", None)

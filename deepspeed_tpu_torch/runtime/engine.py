@@ -70,9 +70,30 @@ windows, so a resume replays the window's microbatches.
 The JAX engine's ``set_lr``, ``zero_grad``, ``no_sync``, ``train`` /
 ``eval`` and ``register_post_step_hook`` behave as there (hooks run at
 every ``global_steps`` increment, on both APIs, an fp16 step that skipped
-its update included). Not ported yet (ROADMAP queue A item 4 and later):
-dispatch-ahead, the input prefetcher, client optimizers and LR
-schedulers, and the watchdog, flight recorder and observability hub.
+its update included).
+
+A ``(loss_fn, params)`` pair trains as a model does
+(``initialize(model=loss_fn, model_parameters=params)``;
+``loss_fn(params, batch)`` returns a loss or ``(loss, aux)``): the engine
+keeps fp32 masters and compute-dtype copies of its leaves, by tree path,
+as for a zoo model. A client optimizer (``initialize(optimizer=...)``, a
+``torch.optim.Optimizer`` over the model's fp32 parameters, or a callable
+``params -> Optimizer``) steps the fp32 masters in the configured
+optimizer's place; the loss scaling, the clip and the accumulation stay
+the engine's, and its ``state_dict`` is the checkpoint's optimizer
+payload. A client LR scheduler is stored and returned, as JAX does.
+
+The pipelined loop (the ``performance`` block): with ``pipeline_depth``
+K (or ``DSTPU_DISPATCH_AHEAD``) up to K ``train_batch`` steps stay in
+flight and each step's host reads (the skipped-step count, logging) run
+when it drains; K = 0 is the blocking loop, which waits for each step.
+``synchronize()`` drains the window, and checkpoints, ``eval_batch``,
+``offload_states`` and ``module_state_dict`` drain first. With
+``prefetch_depth`` > 0 an iterator passed to ``train_batch`` a second
+time is handed to a ``PrefetchingIterator`` (``runtime/prefetch.py``)
+whose worker pulls the next boundaries and starts their copies to the
+card on a side stream. Not ported yet (ROADMAP queue A item 14): the
+watchdog, flight recorder and observability hub.
 """
 
 from __future__ import annotations
@@ -80,9 +101,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import time
 import weakref
-from typing import Any, Dict, List, Optional
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -93,6 +116,7 @@ from deepspeed_tpu_torch.checkpoint.state import (CheckpointIO,
 from deepspeed_tpu_torch.config.config import (Config, OptimizerConfig,
                                                load_config)
 from deepspeed_tpu_torch.models import moe_transformer
+from deepspeed_tpu_torch.models.convert import fp32_tree
 from deepspeed_tpu_torch.models.transformer import loss_fn
 from deepspeed_tpu_torch.ops import attention as attn_ops
 from deepspeed_tpu_torch.ops.blocksparse_attention import \
@@ -109,8 +133,11 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
 from deepspeed_tpu_torch.runtime.optimizer import (
-    apply_mixed_precision_update, get_base_optimizer, global_norm,
-    init_mixed_precision, leaves, tree_map)
+    MixedPrecisionState, apply_client_update, apply_mixed_precision_update,
+    get_base_optimizer, global_norm, init_mixed_precision, leaves, tree_map)
+from deepspeed_tpu_torch.runtime.prefetch import (PrefetchingIterator,
+                                                  map_batch, to_device_async,
+                                                  wait_ready)
 from deepspeed_tpu_torch.runtime.zenflow import (ZenFlowConfig,
                                                  ZenFlowOptimizer)
 from deepspeed_tpu_torch.utils import memspace
@@ -122,28 +149,71 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, collate_fn=None,
                config=None, config_params=None, device: DeviceLike = None):
     """Reference-parity entry point. ``model`` is a ``TransformerLM`` or
-    an ``MoETransformerLM`` (``models/zoo.get_model``); ``device``
-    defaults to the card. ``training_data`` (with an optional
-    ``collate_fn``) builds the returned dataloader.
-    Returns (engine, optimizer_view, dataloader, lr_schedule)."""
+    an ``MoETransformerLM`` (``models/zoo.get_model``), or a ``loss_fn``
+    with its ``model_parameters`` (a dict tree of tensors or numpy
+    arrays; ``loss_fn(params, batch)`` returns a loss or ``(loss,
+    aux)``); ``device`` defaults to the card. ``optimizer`` is a client
+    optimizer (a ``torch.optim.Optimizer`` over the model's fp32
+    parameters, or a callable ``params -> Optimizer``) and
+    ``lr_scheduler`` a client LR scheduler, stored and returned as JAX
+    does. ``training_data`` (with an optional ``collate_fn``) builds the
+    returned dataloader.
+    Returns (engine, optimizer_view, dataloader, lr_scheduler)."""
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
-    for name, value, item in (
-            ("optimizer", optimizer, "a client optimizer"),
-            ("model_parameters", model_parameters,
-             "a (loss_fn, params) model"),
-            ("lr_scheduler", lr_scheduler, "a client LR scheduler")):
-        if value is not None:
-            raise NotImplementedError(
-                f"initialize({name}=...): {item} is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP queue A item 4)")
     config = config if config is not None else config_params
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
     engine = Engine(model, load_config(config), device=device,
-                    training_data=training_data, collate_fn=collate_fn)
+                    training_data=training_data, collate_fn=collate_fn,
+                    model_parameters=model_parameters,
+                    client_optimizer=optimizer, lr_scheduler=lr_scheduler)
     return (engine, engine.optimizer, engine.training_dataloader,
-            engine.lr_schedule)
+            engine.lr_scheduler)
+
+
+class _FnModel:
+    """A bare ``(loss_fn, params)`` pair in the model protocol the engine
+    reads (JAX ``_FnModel``): ``params()`` gives the leaves as fp32
+    tensors on the engine's device (a leaf that already is one is used as
+    it is, so a client optimizer built over it steps the masters; others
+    are copied), ``loss`` returns ``(loss, aux)``."""
+
+    config = None
+
+    def __init__(self, loss_fn: Callable, params, device: torch.device):
+        if not isinstance(params, dict):
+            raise TypeError("model_parameters must be a dict tree of "
+                            "tensors or numpy arrays, got "
+                            f"{type(params).__name__}")
+        self._loss_fn = loss_fn
+        self.device = device
+        self._params = fp32_tree(params, device)
+
+    def params(self) -> Dict[str, Any]:
+        return self._params
+
+    def loss(self, params, batch):
+        out = self._loss_fn(params, batch)
+        return out if isinstance(out, tuple) else (out, {})
+
+    def train(self, mode: bool = True) -> "_FnModel":
+        return self
+
+
+class _InflightStep:
+    """One dispatched, not yet drained ``train_batch`` step: its event
+    on the compute stream and what its deferred host reads need."""
+
+    __slots__ = ("step", "loss", "lr", "grad_norm", "overflow", "event")
+
+    def __init__(self, step, loss, lr, grad_norm, overflow, event):
+        self.step = step
+        self.loss = loss
+        self.lr = lr
+        self.grad_norm = grad_norm
+        self.overflow = overflow
+        self.event = event
 
 
 class _OptimizerView:
@@ -163,11 +233,17 @@ class Engine:
     the same step through ``forward`` / ``backward`` / ``step``."""
 
     def __init__(self, model, config: Config, device: DeviceLike = None,
-                 training_data=None, collate_fn=None):
+                 training_data=None, collate_fn=None, model_parameters=None,
+                 client_optimizer=None, lr_scheduler=None):
+        self.device = resolve_device(device)
+        if callable(model) and not hasattr(model, "params"):
+            if model_parameters is None:
+                raise ValueError("a (loss_fn, params) model needs "
+                                 "model_parameters")
+            model = _FnModel(model, model_parameters, self.device)
         if not (hasattr(model, "params") and hasattr(model, "config")):
             raise TypeError("Engine needs a TransformerLM (models/zoo."
-                            "get_model); other models are not ported yet")
-        self.device = resolve_device(device)
+                            "get_model) or a (loss_fn, params) pair")
         if model.device != self.device:
             raise ValueError(f"the model's weights live on {model.device}, "
                              f"the engine runs on {self.device}: move the "
@@ -180,17 +256,28 @@ class Engine:
         self.train_batch_size = config.train_batch_size
         self.compute_dtype = config.compute_dtype
         over = {"dtype": self.compute_dtype}
-        if isinstance(model.config, moe_transformer.MoETransformerConfig):
+        if isinstance(model, _FnModel):
+            self._loss_fn = lambda _cfg, params, batch: model.loss(params,
+                                                                   batch)
+        elif isinstance(model.config, moe_transformer.MoETransformerConfig):
             self._loss_fn = moe_transformer.loss_fn
             if config.moe.impl != "auto":
                 over["moe_impl"] = config.moe.impl
         else:
             self._loss_fn = loss_fn
-        self.model_config = dataclasses.replace(model.config, **over)
+        self.model_config = (None if model.config is None else
+                             dataclasses.replace(model.config, **over))
         self._install_sparse_layout()
 
-        self.lr_schedule = get_lr_schedule(config.scheduler,
-                                           base_lr=self._config_lr())
+        # a client optimizer steps the masters in the configured
+        # optimizer's place; as in JAX it then has no schedule of the
+        # engine's, and ``lr_scheduler`` is the client's, returned as is
+        self._client_optimizer_present = client_optimizer is not None
+        self._client_opt = None
+        self.lr_schedule = (None if self._client_optimizer_present else
+                            get_lr_schedule(config.scheduler,
+                                            base_lr=self._config_lr()))
+        self.lr_scheduler = lr_scheduler or self.lr_schedule
         cdt = self.compute_dtype
         zero = config.zero_optimization
         if zero.zenflow is not None and zero.offload_device != "cpu":
@@ -203,10 +290,18 @@ class Engine:
         self._zenflow: Optional[ZenFlowOptimizer] = None
         self._post_step_hooks: List = []
         if zero.offload_device in ("cpu", "nvme"):
+            if self._client_optimizer_present:
+                raise ValueError(
+                    "a client optimizer steps the card's fp32 masters; "
+                    "zero_optimization.offload_optimizer steps host masters "
+                    "with the native optimizer of the optimizer block: "
+                    "pass one or the other")
             self.tx, self.opt_state = None, None
             self._zenflow = self._maybe_build_zenflow(model)
             if self._zenflow is None:
                 self._init_offload(model)
+        elif self._client_optimizer_present:
+            self._init_client_optimizer(model, client_optimizer)
         else:
             self.tx, self._base_lr = get_base_optimizer(config.optimizer,
                                                         self.lr_schedule)
@@ -236,6 +331,7 @@ class Engine:
                 p.register_post_accumulate_grad_hook(fold)
 
         self._init_resilience()
+        self._init_pipelining()
         self._ckpt_io = CheckpointIO(self)
         self.global_steps = 0
         self.global_samples = 0
@@ -265,6 +361,58 @@ class Engine:
             self.params = tree_map(
                 lambda t: t.detach().to(self.compute_dtype,
                                         copy=True).requires_grad_(), src)
+
+    def _init_client_optimizer(self, model, client_optimizer) -> None:
+        """The client-optimizer branch (JAX ``engine.py:314-315``, where
+        it is an optax transform): fp32 masters (a leaf of the model that
+        already is an fp32 tensor is its own master), compute copies, and
+        the client's ``torch.optim.Optimizer`` over the masters."""
+        self.tx, self._base_lr = None, None
+        masters = tree_map(lambda p: p if p.dtype == torch.float32
+                           else p.detach().float(), model.params())
+        self.opt_state = MixedPrecisionState(master=masters)
+        flat = [m for _, m in leaves(masters)]
+        if isinstance(client_optimizer, torch.optim.Optimizer):
+            own = {id(m) for m in flat}
+            for group in client_optimizer.param_groups:
+                if any(id(p) not in own for p in group["params"]):
+                    raise ValueError(
+                        "the client optimizer must be built over the "
+                        "model's fp32 parameters (the engine's masters); "
+                        "for a model in another dtype, or numpy "
+                        "model_parameters, pass a callable params -> "
+                        "torch.optim.Optimizer")
+            self._client_opt = client_optimizer
+        elif callable(client_optimizer):
+            self._client_opt = client_optimizer(flat)
+            if not isinstance(self._client_opt, torch.optim.Optimizer):
+                raise TypeError("the client optimizer callable must return "
+                                "a torch.optim.Optimizer, got "
+                                f"{type(self._client_opt).__name__}")
+        else:
+            raise TypeError("a client optimizer is a torch.optim.Optimizer "
+                            "or a callable params -> Optimizer, got "
+                            f"{type(client_optimizer).__name__}")
+        self._compute_params(masters)
+
+    def _init_pipelining(self) -> None:
+        """The ``performance`` block (JAX ``engine.py:520-541``):
+        dispatch-ahead of ``pipeline_depth`` steps (the
+        ``DSTPU_DISPATCH_AHEAD`` environment variable wins) and the input
+        prefetcher's depth."""
+        perf = self.config.performance
+        env_depth = os.environ.get("DSTPU_DISPATCH_AHEAD", "")
+        self._dispatch_ahead = (int(env_depth) if env_depth != ""
+                                else int(perf.pipeline_depth))
+        self._prefetch_depth = int(perf.prefetch_depth)
+        self._inflight: deque = deque()  # _InflightStep, oldest first
+        self._prefetcher: Optional[PrefetchingIterator] = None
+        self._prefetch_source = None  # the data_iter the prefetcher owns
+        self._copy_stream = None      # the prefetcher's side stream
+        if self._dispatch_ahead > 0:
+            logger.info(f"pipelined loop: dispatch-ahead depth "
+                        f"{self._dispatch_ahead}, input prefetch depth "
+                        f"{self._prefetch_depth}")
 
     def _share_masters(self, src, master_of) -> None:
         """An fp32 model on the card: each leaf rebound to its host master
@@ -356,7 +504,7 @@ class Engine:
             # kernels.blocksparse_block overrides the layout block
             scfg = dataclasses.replace(scfg, block=kblk)
         attn_ops.set_sparse_config(sparse_from_config(scfg))
-        if self.model_config.attn_impl != "blocksparse":
+        if getattr(self.model_config, "attn_impl", None) != "blocksparse":
             logger.warning(
                 "sparse_attention configured but the model's attn_impl "
                 "is not 'blocksparse' — dense attention will run; set "
@@ -379,20 +527,10 @@ class Engine:
         """A microbatch (a tree of dicts, lists, tuples and namedtuples
         over numpy arrays or tensors; ``None`` stays ``None``) on the
         engine's device."""
-        if batch is None:
-            return None
-        if isinstance(batch, dict):
-            return {k: self._to_device(v) for k, v in batch.items()}
-        if isinstance(batch, (list, tuple)):
-            cols = [self._to_device(v) for v in batch]
-            if hasattr(batch, "_fields"):
-                return type(batch)(*cols)
-            return type(batch)(cols)
-        if not isinstance(batch, torch.Tensor):
-            batch = torch.as_tensor(np.asarray(batch))
-        return batch.to(self.device)
+        return map_batch(batch, lambda t: t.to(self.device))
 
-    def _next_microbatches(self, data_iter, n: int):
+    def _pull_microbatches(self, data_iter, n: int) -> list:
+        """``n`` microbatches from ``data_iter``, as they come."""
         out = []
         for i in range(n):
             if self._chaos is not None:
@@ -405,7 +543,56 @@ class Engine:
                 raise RuntimeError(
                     f"data iterator exhausted mid-gradient-accumulation "
                     f"(got {i} of {n} microbatches)") from None
-        return [self._to_device(b) for b in out]
+        return out
+
+    def _next_microbatches(self, data_iter, n: int):
+        return [self._to_device(b)
+                for b in self._pull_microbatches(data_iter, n)]
+
+    def _next_batches(self, data_iter):
+        """One boundary's microbatches on the device, through the
+        background prefetcher when the caller streams (JAX
+        ``engine.py:1130-1151``): an iterator seen for the first time is
+        pulled synchronously (a one-shot ``iter([batch])`` must not be
+        consumed ahead of the caller); the SAME iterator passed again is
+        a stream and goes to a ``PrefetchingIterator`` whose worker pulls
+        the next boundaries and starts their copies to the card."""
+        gas = self.gradient_accumulation_steps
+        if self._prefetch_depth <= 0:
+            return self._next_microbatches(data_iter, gas)
+        if data_iter is self._prefetch_source:
+            if self._prefetcher is None:
+                self._prefetcher = PrefetchingIterator(
+                    self._producer(data_iter), depth=self._prefetch_depth,
+                    name="train-input")
+            batches, event = next(self._prefetcher)
+            return wait_ready(batches, event)
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+        self._prefetch_source = data_iter
+        return self._next_microbatches(data_iter, gas)
+
+    def _producer(self, data_iter):
+        """The prefetch worker's producer: one boundary pulled, and its
+        copies to the card started on the side stream. It holds the
+        engine weakly, so a worker never keeps an engine alive."""
+        gas = self.gradient_accumulation_steps
+        device = self.device
+        if device.type == "cuda" and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device)
+        stream = self._copy_stream
+        ref = weakref.ref(self)
+
+        def produce():
+            engine = ref()
+            if engine is None:
+                raise StopIteration
+            raw = engine._pull_microbatches(data_iter, gas)
+            del engine
+            return to_device_async(raw, device, stream)
+
+        return produce
 
     # -- training ------------------------------------------------------------
     def _loss_scale(self) -> float:
@@ -451,8 +638,8 @@ class Engine:
                                  "training_data")
             data_iter = iter(self.training_dataloader)
         self._last_data_iter = data_iter  # data_cursor loader-state source
-        batches = self._next_microbatches(data_iter,
-                                          self.gradient_accumulation_steps)
+        depth = self._effective_depth()
+        batches = self._next_batches(data_iter)
         if self._chaos is not None:
             self._chaos.on_step(self.global_steps + 1)
         micro = []
@@ -460,11 +647,53 @@ class Engine:
             loss, aux = self._loss_fn(self.model_config, self.params, mb)
             (loss * self._backward_scale()).backward()
             micro.append((loss.detach(), aux))
-        return self._apply_update(micro)
+        return self._apply_update(micro, depth=depth)
 
-    def _apply_update(self, micro: List[tuple]) -> torch.Tensor:
+    def _effective_depth(self) -> int:
+        """The dispatch-ahead window for the next step (JAX
+        ``engine.py:1162-1175``): the host optimizer tiers read the grads
+        inside the step, and post-step hooks expect a settled engine, so
+        both take the blocking loop."""
+        if self._dispatch_ahead <= 0 or self._host_tier \
+                or self._post_step_hooks:
+            return 0
+        return self._dispatch_ahead
+
+    def _drain_one(self) -> None:
+        """Resolve the oldest in-flight step: wait for its event, then run
+        its deferred host reads."""
+        entry = self._inflight.popleft()
+        if entry.event is not None:
+            entry.event.synchronize()
+        self._after_step_host(entry)
+
+    def _after_step_host(self, entry: _InflightStep) -> None:
+        """A step's host reads: its skipped-update count and its log
+        line. Under dispatch-ahead they run when the step drains."""
+        self.skipped_steps += int(entry.overflow)
+        if entry.step % self.config.steps_per_print == 0:
+            logger.info(f"step={entry.step}, loss={float(entry.loss):.4f}, "
+                        f"lr={entry.lr:.3e}, "
+                        f"grad_norm={float(entry.grad_norm):.3f}")
+
+    def synchronize(self) -> "Engine":
+        """Drain every dispatched, not yet resolved ``train_batch`` step
+        (JAX ``engine.py:1288``): wait for each and run its deferred host
+        reads. The engine calls it before checkpoints, ``eval_batch``,
+        ``offload_states`` and ``module_state_dict``; call it before
+        reading the counters mid-run. A no-op in the blocking loop."""
+        while self._inflight:
+            self._drain_one()
+        return self
+
+    def _apply_update(self, micro: List[tuple],
+                      depth: Optional[int] = None) -> torch.Tensor:
         """The optimizer step on the accumulated grads; ``micro`` holds
-        each microbatch's (loss, model metrics). Returns the mean loss."""
+        each microbatch's (loss, model metrics). Returns the mean loss.
+        ``depth`` (``train_batch``) is the dispatch-ahead window: the
+        step joins it and the oldest steps past ``depth`` drain (0 waits
+        for this one); None (the micro-step API) runs the host reads at
+        once."""
         fp16 = self.config.fp16.enabled
         scale = self._loss_scale()
         lr = self.get_lr()[0]
@@ -484,10 +713,15 @@ class Engine:
                 grads = tree_map(lambda p: p.grad, self.params)
             overflow = has_overflow(g for _, g in leaves(grads)) \
                 if fp16 else False
-            gnorm = apply_mixed_precision_update(
-                self.opt_state, grads, self.tx, self.params,
-                grad_clip=self.config.gradient_clipping,
-                grad_scale=scale if fp16 else None, skip=overflow)
+            kw = dict(grad_clip=self.config.gradient_clipping,
+                      grad_scale=scale if fp16 else None, skip=overflow)
+            if self._client_opt is not None:
+                gnorm = apply_client_update(self.opt_state, grads,
+                                            self._client_opt, self.params,
+                                            **kw)
+            else:
+                gnorm = apply_mixed_precision_update(
+                    self.opt_state, grads, self.tx, self.params, **kw)
         for _, p in leaves(self.params):
             p.grad = None
         self._grad_acc = {}
@@ -499,7 +733,6 @@ class Engine:
         self.global_samples += self.train_batch_size
         for hook in self._post_step_hooks:
             hook(self)
-        self.skipped_steps += int(overflow)
         mean_loss = torch.stack([loss for loss, _ in micro]).mean()
         self.last_metrics = {"loss": mean_loss, "grad_norm": gnorm, "lr": lr,
                              "loss_scale": self.loss_scale_state.scale,
@@ -510,9 +743,18 @@ class Engine:
             if key not in self.last_metrics:
                 self.last_metrics[key] = torch.stack(
                     [aux[key].detach().float() for _, aux in micro]).mean()
-        if self.global_steps % self.config.steps_per_print == 0:
-            logger.info(f"step={self.global_steps}, loss={float(mean_loss):.4f}, "
-                        f"lr={lr:.3e}, grad_norm={float(gnorm):.3f}")
+        event = None
+        if depth is not None and self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        entry = _InflightStep(self.global_steps, mean_loss, lr, gnorm,
+                              overflow, event)
+        if depth is None:
+            self._after_step_host(entry)
+        else:
+            self._inflight.append(entry)
+            while len(self._inflight) > depth:
+                self._drain_one()
         # the GAS boundary: publish a finished async save, then land an
         # emergency checkpoint after a preemption notice (JAX
         # engine.py:1217,1233-1238)
@@ -627,6 +869,7 @@ class Engine:
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
+        self.synchronize()
         loss, _aux = self._loss_fn(self.model_config, self.params,
                                    self._to_device(batch))
         return loss
@@ -654,13 +897,21 @@ class Engine:
         if self._host_tier:
             return [float(self.lr_schedule(self.update_count))
                     if self.lr_schedule is not None else self._base_lr]
+        if self._client_opt is not None:
+            return [float(self._client_opt.param_groups[0]["lr"])]
         return [self.tx.lr_at(self.opt_state.count)]
 
     def set_lr(self, lr: float) -> None:
         """Override the LR (JAX ``engine.py:1867``, the reference's
         ``param_groups[0]['lr'] = x``): it becomes the base LR and the
         optimizer block's ``lr``; a configured schedule is dropped, with
-        JAX's warning. The optimizer's state is kept."""
+        JAX's warning. The optimizer's state is kept. Raises with a
+        client optimizer, as JAX does (``engine.py:1883``)."""
+        if self._client_optimizer_present:
+            raise NotImplementedError(
+                "set_lr: the engine cannot re-point a client optimizer's "
+                "lr; set its param_groups' lr or rebuild the optimizer and "
+                "the engine")
         self._base_lr = float(lr)
         if self.lr_schedule is not None:
             logger.warning("set_lr/param_groups override disables the "
@@ -710,6 +961,7 @@ class Engine:
         """Host copy of the compute params: ``"."``-joined tree path ->
         numpy array (the JAX engine's keys for the same model; bf16
         leaves come back as fp32, numpy having no bf16)."""
+        self.synchronize()
         return {k: (t.detach().float() if t.dtype == torch.bfloat16
                     else t.detach()).cpu().numpy()
                 for k, t in module_state_keys(self.params).items()}
@@ -762,6 +1014,7 @@ class Engine:
         storage is emptied and refilled by ``reload_states``."""
         if device != "cpu":
             raise ValueError("offload_states supports device='cpu' only")
+        self.synchronize()
         include = set(include or ("lp_params", "optim_states"))
         unknown = include - self.OFFLOAD_STATE_KINDS
         if unknown:
@@ -799,6 +1052,7 @@ class Engine:
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest: bool = True):
         self._last_save_dir = save_dir  # emergency-save fallback target
+        self.synchronize()
         return self._ckpt_io.save(save_dir, tag=tag,
                                   client_state=client_state,
                                   save_latest=save_latest)

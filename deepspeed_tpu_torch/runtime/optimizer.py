@@ -458,3 +458,40 @@ def apply_mixed_precision_update(state: MixedPrecisionState, grads: Tree,
             flat_p[path].copy_(master)
     state.count = t
     return gnorm
+
+
+@torch.no_grad()
+def apply_client_update(state: MixedPrecisionState, grads: Tree,
+                        opt: "torch.optim.Optimizer",
+                        params: Optional[Tree] = None,
+                        grad_clip: float = 0.0,
+                        grad_scale: Optional[float] = None,
+                        skip: bool = False) -> torch.Tensor:
+    """``apply_mixed_precision_update`` with a client
+    ``torch.optim.Optimizer`` over the masters in ``tx``'s place: each
+    master's fp32 gradient (unscaled and clipped by the engine, as there)
+    goes into its ``.grad``, the optimizer steps once, and the compute
+    params are recast from the masters. Returns the global grad norm."""
+    gnorm = global_norm(grads, grad_scale)
+    if skip:
+        return gnorm
+    clip = None
+    if grad_clip and grad_clip > 0:
+        clip = torch.clamp(grad_clip / (gnorm + 1e-6), max=1.0)
+    flat_g = dict(leaves(grads))
+    masters = list(leaves(state.master))
+    for path, master in masters:
+        g = flat_g[path].float()
+        if grad_scale is not None:
+            g = g / grad_scale
+        if clip is not None:
+            g = g * clip
+        master.grad = g
+    opt.step()
+    flat_p = dict(leaves(params)) if params is not None else {}
+    for path, master in masters:
+        master.grad = None
+        if path in flat_p:
+            flat_p[path].copy_(master)
+    state.count += 1
+    return gnorm

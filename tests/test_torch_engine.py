@@ -158,7 +158,7 @@ def test_data_exhausted_mid_accumulation_raises():
     ({"sequence_parallel": {"size": 2}}, "item 11"),
     ({"moe": {"enabled": True, "ep_size": 2}}, "item 9"),
     ({"activation_checkpointing": {"policy": "dots_saveable"}}, "item 11"),
-    ({"performance": {"pipeline_depth": 2}}, "item 4"),
+    ({"performance": {"pipeline_depth": 2, "fp8_mlp": True}}, "item 10"),
     ({"zero_optimization": {"stage": 3, "zenflow": {"topk_ratio": 0.1},
                             "offload_optimizer": {"device": "cpu"},
                             "offload_param": {"device": "cpu"}}}, "item 11"),
@@ -187,8 +187,9 @@ def test_initialize_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         deepspeed_tpu_torch.initialize(model=model, config={})
-    # training_data builds the dataloader now (tests/test_torch_engine_
-    # steps.py); a client optimizer is what still raises
-    with pytest.raises(NotImplementedError, match="client optimizer"):
+    # training_data builds the dataloader and client optimizers are
+    # ported (tests/test_torch_engine_steps.py,
+    # tests/test_torch_engine_client.py); what is not an optimizer raises
+    with pytest.raises(TypeError, match="client optimizer"):
         deepspeed_tpu_torch.initialize(model=model, config={},
                                        optimizer=object(), device="cpu")

@@ -1287,3 +1287,23 @@ def test_zenflow_on_the_card_follows_the_cpu(card, dtype, overlap):
         torch.testing.assert_close(pc[k].cpu(), pp[k], rtol=rtol, atol=1e-7)
     for x, y in zip(mc, mp):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
+
+
+def test_c5_flash_raises_and_auto_is_dense(card):
+    """ROADMAP C5: on CUDA tensors of head dim 16 (the drafter's
+    shape) ``impl="flash"`` raises before any launch and ``impl="auto"``
+    computes the dense path, launching no flash kernel."""
+    from deepspeed_tpu_torch.ops import attention as at
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 64, 2, 16)).astype(np.float32)).to(card, torch.bfloat16)
+        for _ in range(3))
+    with pytest.raises(ValueError, match="head_dim"):
+        at.multi_head_attention(q, k, v, impl="flash")
+    before = dict(fa.LAUNCHES)
+    got = at.multi_head_attention(q, k, v, impl="auto")
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before
+    assert torch.equal(got, at.xla_attention(q, k, v))

@@ -354,8 +354,8 @@ def test_serving_config_drives_the_engine(pair):
 
 
 @pytest.mark.parametrize("block,err,match", [
-    ({"spec_decode": True}, NotImplementedError, "item 8"),
-    ({"spec_adaptive_k": True}, NotImplementedError, "item 8"),
+    ({"spec_k": 0}, ValueError, "spec_k"),
+    ({"handoff_wire": "raw"}, NotImplementedError, "item 13"),
     ({"handoff_wire": "int8"}, NotImplementedError, "item 13"),
     ({"router": {"replicas": 2}}, NotImplementedError, "item 13"),
     ({"kv_quant_bits": 3}, ValueError, "kv_quant_bits"),
@@ -365,5 +365,7 @@ def test_serving_config_drives_the_engine(pair):
 def test_serving_config_validates_like_jax(block, err, match):
     with pytest.raises(err, match=match):
         load_config({"serving": block})
-    inert = ServingConfig(spec_k=2, spec_ngram=5, spec_accept_alpha=0.5)
-    assert (inert.spec_k, inert.spec_ngram) == (2, 5)
+    spec = ServingConfig(spec_k=2, spec_ngram=5, spec_accept_alpha=0.5,
+                         spec_decode=True, spec_adaptive_k=True)
+    assert (spec.spec_k, spec.spec_ngram) == (2, 5)
+    assert spec.spec_decode and spec.spec_adaptive_k

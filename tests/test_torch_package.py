@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     assert len(files) >= 15
     # the quantized-serving, block-sparse, checkpoint, resilience,
-    # offload, ZenFlow and optimizer modules are among the files checked
+    # offload, ZenFlow, optimizer, speculation and prefetch modules are
+    # among the files checked
     rel = {os.path.relpath(p, PKG) for p in files}
     assert {"ops/quantization.py", "ops/fp_quantizer.py",
             "inference/weight_quant.py",
@@ -57,7 +58,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "ops/native/cpu_optimizer.py", "ops/native/aio.py",
             "runtime/swap_tensor/swapper.py", "runtime/offload.py",
             "io/fast_file_writer.py", "runtime/zenflow.py",
-            "runtime/muon.py", "runtime/optimizer.py"} <= rel
+            "runtime/muon.py", "runtime/optimizer.py",
+            "inference/spec_decode.py", "runtime/prefetch.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
@@ -89,14 +91,13 @@ def test_unported_options_raise():
     assert isinstance(zoo.get_config("mixtral-8x7b"), MoETransformerConfig)
     with pytest.raises(ValueError, match="unknown model"):
         zoo.get_config("no-such-model")
-    # the quantized KV rungs are ported; speculative decoding and the
+    # the quantized KV rungs and speculative decoding are ported; the
     # fleet's serving options are not
     for bits in (4, 8, "fp8"):
         assert KVCacheConfig(num_layers=1, kv_heads=1, head_dim=8,
                              quant_bits=bits).quant_bits == bits
     from deepspeed_tpu_torch.config.config import ServingConfig
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServingConfig(spec_decode=True)
+    assert ServingConfig(spec_decode=True, spec_adaptive_k=True).spec_decode
     with pytest.raises(NotImplementedError, match="item 13"):
         ServingConfig(router={"replicas": 2})
     # the sparse_attention and kernels blocks are ported; of the kernels
