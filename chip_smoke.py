@@ -293,13 +293,44 @@ Phases, each fatal on failure:
                against the config AdamW (3 steps, rtol 1e-4); flash
                launches as remat implies, all tensor-core. The phase's
                wall is printed.
+  13. dispatch and v1 engine — after phase 12c, on phase 3's model
+               (before phase 7, whose weight run quantizes it in place).
+               13a: ``tools.kernel_bench.run_kernel_bench()`` at its card
+               tier into a scratch table: flash (forward and backward,
+               B 2 x 32/8 heads of 128, causal, S 256, 512, 1024, 2048 and
+               4096) against ``xla_attention``, the paged decode (the
+               2048 x 16 bf16 pool's shape, S 16 x 768 tokens) against
+               the gathered dense reference, gmm forward and backward
+               (phase 2c's train_wi shape) against the dense per-group
+               product, and B9 (fixed, causal, S 8192) against the masked
+               form outside autograd; each row's kernel, fallback and
+               library ms, ratio and template printed. Gates: numerics,
+               every kernel of the arms launched (B1-B4, B7, B7T, B8,
+               B9), the dispatch probe (a losing flash bucket routes to
+               ``xla_attention`` bit for bit, a winning one launches the
+               kernel). 13b: ``init_inference`` over phase 3's model
+               (bf16, a 1024-row dense cache) with DSTPU_KERNEL_TABLE at
+               13a's table: ``forward`` at B 1 x S 2048 with the dispatch
+               decision printed, and exactly 32 flash launches (all
+               tensor-core) when the bucket won, none (32 dense
+               dispatches) when it lost; ``generate`` on 4 of phase 3's
+               prompts cut to 128 tokens, 32 new tokens each: wall,
+               tokens/s, TTFT, decode gap, peak memory, dense-cache
+               bytes; the streams against ``InferenceEngineV2``'s on the
+               same prompts (equal, or parting only at a near tie by
+               phase 12's rule, the v2 rows from a recorded rerun) and JAX's
+               teacher-forcing check under the same rule. 13c: the same
+               generate with int8 weights over a copy of the tree: 8
+               blockwise quantize launches at build, the dequantize 7 x
+               32 + 1 times a forward, agreement with 13b's streams. The
+               phase's wall is printed.
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
 sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
 checkpoint, optimizer sweep, spec serve, draft model, verify-shape
-prefill and A4 lines, the run's seconds, the card's name
+prefill, A4, kernel bench and v1 engine lines, the run's seconds, the card's name
 and power limit (nvidia-smi), and, last, the device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
@@ -580,6 +611,20 @@ A4_PIPELINED = dict(A4_CONFIG, performance={"pipeline_depth": 2,
 # inputs; torch's AdamW against the engine's: the same update in another
 # order of operations, for 3 steps
 A4_FN_TOL_REL, A4_CLIENT_TOL_REL = 1e-5, 1e-4
+# phase 13: the kernel bench at its card tier (13a), then the v1 engine
+# (init_inference) over phase 3's model: the forward at B 1 x S 2048, and
+# generate on 4 of phase 3's prompts cut to 128 tokens, 32 new tokens
+# each, with a 1024-row dense cache (13b); the same with int8 weights
+# (13c)
+V1_BATCH, V1_PROMPT, V1_NEW, V1_MAX_SEQ, V1_FORWARD_SEQ = 4, 128, 32, 1024, 2048
+# 13b/13c's near ties: the two rows' max-abs difference must itself stay
+# within V1_ROW_DIFF_FACTOR times phase 3's paged-prefill-vs-gather
+# logits difference, so that a v1 engine whose rows are wrong (K/V
+# written at the wrong rows) cannot pass as a near tie
+V1_ROW_DIFF_FACTOR = 2.0
+BENCH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                 "paged_decode", "gmm", "gmm_transposed", "tgmm",
+                 "blocksparse_fwd")
 
 
 def fail(msg):
@@ -3008,11 +3053,11 @@ def row_recorder(model_runner, eng, targets):
 
 
 def parting_targets(prompts, plain_out, spec_out):
-    """{uid: first parting index} of the streams that part, and the query
-    positions whose rows chose the parting tokens ({uid: {P}}: the row at
-    P yields the token at P + 1)."""
+    """{uid: first parting index} of the streams that part (``plain_out``
+    names them), and the query positions whose rows chose the parting
+    tokens ({uid: {P}}: the row at P yields the token at P + 1)."""
     first = {}
-    for uid in range(8):
+    for uid in sorted(plain_out):
         a, b = plain_out[uid], spec_out[uid]
         if a != b:
             first[uid] = next(i for i, (x, y) in enumerate(zip(a, b))
@@ -3088,27 +3133,42 @@ class PartingGate:
                                            union, plain_out, "plain rerun")
         for (label, prompts, plain_out, spec_out, first, targets, spec_rows,
              result) in self.pending:
-            partings = []
-            for uid, p in first.items():
-                key = (uid, len(prompts[uid]) + p - 1)
-                plain, spec = plain_rows[key], spec_rows[key]
-                a, b = plain_out[uid][p], spec_out[uid][p]
-                gap = float(plain[a] - plain[b])
-                diff = float((plain - spec).abs().max())
-                partings.append({"uid": uid, "position": p,
-                                 "plain_token": a, "spec_token": b,
-                                 "plain_gap": gap,
-                                 "rows_max_abs_diff": diff})
-                if not (plain.argmax() == a and spec.argmax() == b):
-                    fail(f"spec serve {label}: stream {uid}'s recorded rows "
-                         f"do not pick its tokens at {p}")
-                if gap > diff:
-                    fail(f"spec serve {label}: stream {uid} parts at {p} "
-                         f"with a plain-path gap {gap} > the paths' row "
-                         f"difference {diff}")
+            partings = check_partings(f"spec serve {label}", prompts, first,
+                                      plain_out, spec_out, plain_rows,
+                                      spec_rows)
             result["vs_plain"] = {"streams_parting": len(partings),
                                   "partings": partings}
         self.pending = []
+
+
+def check_partings(label, prompts, first, plain_out, spec_out, plain_rows,
+                   spec_rows, bound=None):
+    """The near-tie rule at each stream's first parting (``first``, from
+    ``parting_targets``): the rows recorded there (keyed (uid, P)) pick
+    the two streams' tokens, and the plain row's gap between them is no
+    larger than the max-abs difference between the two rows; with
+    ``bound`` that difference must itself stay within it (so rows that
+    are wrong cannot pass as a tie). Returns the partings."""
+    partings = []
+    for uid, p in first.items():
+        key = (uid, len(prompts[uid]) + p - 1)
+        plain, spec = plain_rows[key], spec_rows[key]
+        a, b = plain_out[uid][p], spec_out[uid][p]
+        gap = float(plain[a] - plain[b])
+        diff = float((plain - spec).abs().max())
+        partings.append({"uid": uid, "position": p, "plain_token": a,
+                         "spec_token": b, "plain_gap": gap,
+                         "rows_max_abs_diff": diff})
+        if not (plain.argmax() == a and spec.argmax() == b):
+            fail(f"{label}: stream {uid}'s recorded rows do not pick its "
+                 f"tokens at {p}")
+        if gap > diff:
+            fail(f"{label}: stream {uid} parts at {p} with a plain-path gap "
+                 f"{gap} > the paths' row difference {diff}")
+        if bound is not None and diff > bound:
+            fail(f"{label}: stream {uid}'s rows at {p} differ by {diff} > "
+                 f"{bound}")
+    return partings
 
 
 def spec_serve_phase(torch, InferenceEngineV2, pa, model_runner, model,
@@ -3818,6 +3878,319 @@ def sparse_train_phase(torch, zoo, initialize, bs, attn):
                   "engine_eval_by_variant": eval_variants}
 
 
+# -- phase 13: the kernel bench and the v1 inference engine -------------------
+
+
+def kernel_bench_phase(torch, kb, table_path):
+    """13a: ``run_kernel_bench()`` at the card tier (PERF.md's kernel-table
+    shapes; flash at S 256-4096) into ``table_path``, a scratch table that
+    no committed file shares. Fails on any gate violation (numerics, an
+    arm whose kernels did not launch, the dispatch probe). Returns the
+    payload with the kernels' launches summed over the arms."""
+    knobs = ("KERNEL_BENCH_KERNELS", "KERNEL_BENCH_FULL",
+             "KERNEL_BENCH_ITERS", "DSTPU_KERNEL_TABLE")
+    saved = {k: os.environ.pop(k, None) for k in knobs}
+    os.environ["KERNEL_BENCH_RECORD_PATH"] = table_path
+    try:
+        _, payload, ok = kb.run_kernel_bench()
+    finally:
+        del os.environ["KERNEL_BENCH_RECORD_PATH"]
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    if not ok:
+        fail(f"kernel bench: gate violations "
+             f"{json.dumps(payload['violations'])[:3000]}")
+    arms = [r["kernel"] for r in payload["entries"]]
+    if sorted(set(arms)) != ["blocksparse_attention", "flash_attention",
+                             "grouped_matmul", "paged_attention"]:
+        fail(f"kernel bench: arms {arms}")
+    launched = {}
+    for r in payload["entries"]:
+        for k, n in r["launches"].items():
+            launched[k] = launched.get(k, 0) + n
+    if any(launched.get(k, 0) <= 0 for k in BENCH_KERNELS):
+        fail(f"kernel bench: a kernel never launched: {launched}")
+    for r in payload["entries"]:
+        log(f"kernel bench {r['kernel']} {r['bucket']}: kernel "
+            f"{r['kernel_ms']} ms, dense fallback {r['xla_ms']} ms, ratio "
+            f"{r['ratio']} ({'win' if r['ratio'] >= 1.0 else 'loss'}), "
+            f"library {r['library_ms']} ms, template "
+            f"{r['blocks']['template']}, row errors {r['row_rel_err']}")
+    payload["launched"] = launched
+    with open(table_path) as f:
+        payload["table"] = json.load(f)
+    return payload
+
+
+def v1_prompts(prompts):
+    """V1_BATCH of phase 3's prompts cut to V1_PROMPT tokens (the first
+    ones at least that long)."""
+    return np.stack([p[:V1_PROMPT] for p in prompts
+                     if len(p) >= V1_PROMPT][:V1_BATCH])
+
+
+def v1_spy(torch, eng_mod):
+    """Record each of the v1 engine's sampled steps: its logits rows
+    (fp32, on the card) and the host time once the token exists. Returns
+    (rows, times, remove)."""
+    rows, times = [], []
+    real = eng_mod._sample
+
+    def spy(logits, temperature, top_k, generator=None):
+        tok = real(logits, temperature, top_k, generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        rows.append(logits.float().clone())
+        return tok
+
+    eng_mod._sample = spy
+
+    def remove():
+        eng_mod._sample = real
+
+    return rows, times, remove
+
+
+def v2_streams(torch, InferenceEngineV2, model_runner, model, prompts,
+               targets=None):
+    """The 4 prompts through ``InferenceEngineV2`` (phase 3's engine
+    settings), V1_NEW greedy tokens each; with ``targets`` the logits rows
+    there are recorded (``row_recorder``). Returns (streams, rows)."""
+    eng = serve_engine(torch, InferenceEngineV2, model)
+    rows, remove = ({}, None) if not targets else \
+        row_recorder(model_runner, eng, targets)
+    try:
+        eng.put(list(range(len(prompts))), list(prompts),
+                max_new_tokens=V1_NEW)
+        out = eng.generate_all()
+    finally:
+        if remove is not None:
+            remove()
+    del eng
+    torch.cuda.empty_cache()
+    return {u: [int(t) for t in toks] for u, toks in out.items()}, rows
+
+
+def v1_vs_v2_gate(torch, InferenceEngineV2, model_runner, model, prompts,
+                  v1_out, v1_rows, bound):
+    """Phase 12's near-tie rule (``check_partings``), the v2 engine as the
+    plain path and the v1 engine as the other: each v1 stream equals the
+    v2 engine's, or parts where the v2 row's gap between the two chosen
+    tokens is no larger than the two engines' rows' max-abs difference,
+    which stays within ``bound`` (the v2 rows from a recorded rerun, the
+    v1 rows from the measured run)."""
+    S = prompts.shape[1]
+    v1 = {b: v1_out[b, S:].tolist() for b in range(len(prompts))}
+    v2, _ = v2_streams(torch, InferenceEngineV2, model_runner, model,
+                       prompts)
+    first, targets = parting_targets(prompts, v2, v1)
+    partings = []
+    if first:
+        again, v2_rows = v2_streams(torch, InferenceEngineV2, model_runner,
+                                    model, prompts, targets)
+        if again != v2:
+            fail("v1 engine: a rerun of the v2 engine gave other streams")
+        rows = {(b, S + p - 1): v1_rows[p][b].cpu() for b, p in first.items()}
+        partings = check_partings("v1 engine against the v2 engine", prompts,
+                                  first, v2, v1, v2_rows, rows, bound)
+    return {"streams_parting": len(partings), "partings": partings,
+            "agreement": sum(x == y for b in v1 for x, y in zip(v1[b], v2[b]))
+            / (len(prompts) * V1_NEW)}
+
+
+def teacher_forcing(torch, eng, out, v1_rows, S, bound, label):
+    """JAX's check (tests/test_inference.py:79-93) under the near-tie
+    rule: each generated token is the argmax of the full forward over
+    everything before it, or a near tie there (the forward row's gap
+    between its argmax and the token no larger than the max-abs
+    difference between that row and the decode row that chose it, which
+    stays within ``bound``)."""
+    near = []
+    for i in range(S, out.shape[1]):
+        rows = eng.forward(out[:, :i])[:, -1].float()
+        for b in range(out.shape[0]):
+            tok, tf = int(out[b, i]), int(rows[b].argmax())
+            if tok == tf:
+                continue
+            gap = float(rows[b, tf] - rows[b, tok])
+            diff = float((rows[b] - v1_rows[i - S][b]).abs().max())
+            near.append({"stream": b, "position": i - S, "gap": gap,
+                         "rows_max_abs_diff": diff})
+            if gap > diff or diff > bound:
+                fail(f"{label} teacher forcing: stream {b} at {i - S}: "
+                     f"forward's argmax {tf} beats the token {tok} by {gap},"
+                     f" the rows differ by {diff} (at most {bound})")
+    return near
+
+
+def timed_generate(torch, eng, eng_mod, prompts):
+    """One measured ``generate`` of V1_NEW tokens a prompt with the
+    sample spy: (streams, rows, line of wall, tokens/s, TTFT, decode
+    gap, peak memory)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, times, remove = v1_spy(torch, eng_mod)
+    t0 = time.perf_counter()
+    try:
+        out = eng.generate(prompts, max_new_tokens=V1_NEW)
+    finally:
+        remove()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if out.shape != (len(prompts), prompts.shape[1] + V1_NEW) or \
+            not np.array_equal(out[:, :prompts.shape[1]], prompts):
+        fail(f"v1 engine: generate returned {out.shape}")
+    gen = len(prompts) * V1_NEW
+    return out, rows, {
+        "wall_s": wall, "generated_tokens": gen,
+        "generated_tokens_per_s": gen / wall,
+        "ttft_s": times[0] - t0,
+        "decode_token_s": (times[-1] - times[0]) / (len(times) - 1),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def dispatch_since(attn, before):
+    """The impl="auto" counts since ``before`` (a ``dispatch_stats()``)."""
+    return {k: v - before[k] for k, v in attn.dispatch_stats().items()}
+
+
+def no_card_losses(attn, label):
+    """The dispatch gate of the main-path phases: since the counts were
+    last set to 0, impl="auto" sent no CUDA call to the dense path on a
+    measured loss (a kernel that loses its bucket on the card is a
+    failure to be fixed, not a route). Returns the counts and sets them
+    to 0."""
+    stats = attn.dispatch_stats()
+    attn._reset_dispatch_stats()
+    if stats["card_losses"]:
+        fail(f"{label}: impl='auto' sent {stats['card_losses']} CUDA calls "
+             f"to the dense path on a measured loss ({stats})")
+    return stats
+
+
+def v1_engine_phase(torch, InferenceEngineV2, init_inference, eng_mod,
+                    model_runner, attn, fa, qz, wq, model, prompts,
+                    row_bound):
+    """13b and 13c on phase 3's model (DSTPU_KERNEL_TABLE names 13a's
+    table); ``row_bound`` bounds the rows' difference at a near tie.
+    Returns (the phase's line, launches by path)."""
+    cfg, L = model.config, model.config.num_layers
+    prompts = v1_prompts(prompts)
+    eng = init_inference(model, dtype=torch.bfloat16, max_seq_len=V1_MAX_SEQ,
+                         max_batch=V1_BATCH)
+    # 13b forward: the dispatch decision for the bucket, then one forward
+    # with the counts read around it
+    decision = attn.auto_decision("cuda", torch.bfloat16, V1_FORWARD_SEQ,
+                                  cfg.head_dim, True)
+    log(f"v1 forward dispatch at S {V1_FORWARD_SEQ}: {decision.source} "
+        f"({decision.reason})")
+    toks = np.random.default_rng(SEED + 13).integers(
+        0, cfg.vocab_size, (1, V1_FORWARD_SEQ)).astype(np.int32)
+    eng.forward(toks)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    before = attn.dispatch_stats()
+    t0 = time.perf_counter()
+    logits = eng.forward(toks)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    fwd_launches = {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}
+    stats = dispatch_since(attn, before)
+    if tuple(logits.shape) != (1, V1_FORWARD_SEQ, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"v1 forward: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    if decision.source != "kernel":
+        fail(f"v1 forward: flash lost its bucket on the card "
+             f"({decision.reason}): a kernel to fix, not a route to take")
+    if not (fwd_launches["flash_fwd"] == L and stats["kernel"] == L
+            and fwd_launches["flash_fwd/wgmma"] == L):
+        fail(f"v1 forward: decision {decision.source}, flash launches "
+             f"{fwd_launches}, dispatch {stats}")
+    forward = {"S": V1_FORWARD_SEQ, "decision": decision.source,
+               "reason": decision.reason, "ratio": decision.ratio,
+               "forward_s": forward_s, "dispatch": stats,
+               "launches": fwd_launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del logits
+    torch.cuda.empty_cache()
+
+    # 13b generate: a short warm-up, the measured run, the v2 engine's
+    # streams, teacher forcing
+    eng.generate(prompts, max_new_tokens=2)
+    out, rows, gen = timed_generate(torch, eng, eng_mod, prompts)
+    gen["dense_cache_bytes"] = (L * V1_BATCH * V1_MAX_SEQ * 2 * cfg.kv_heads
+                                * cfg.head_dim * 2)
+    gen["vs_v2"] = v1_vs_v2_gate(torch, InferenceEngineV2, model_runner,
+                                 model, prompts, out, rows, row_bound)
+    tf_launches0 = dict(fa.LAUNCHES)
+    before = attn.dispatch_stats()
+    gen["teacher_forcing_near_ties"] = teacher_forcing(
+        torch, eng, out, rows, prompts.shape[1], row_bound, "v1 engine")
+    gen["teacher_forcing_dispatch"] = dispatch_since(attn, before)
+    gen["teacher_forcing_flash_fwd"] = (fa.LAUNCHES["flash_fwd"]
+                                        - tf_launches0["flash_fwd"])
+    del eng, rows
+    torch.cuda.empty_cache()
+
+    # 13c int8 weights: a copy of the tree is quantized (the engine frees
+    # each copied leaf as its codes exist; phase 7 still needs the
+    # model's), B6 at build, 6b at every use
+    def copy(node):
+        return ({k: copy(v) for k, v in node.items()}
+                if isinstance(node, dict) else node.detach().clone())
+
+    tree = copy(model.params())
+    qz.reset_launch_counts()
+    t0 = time.perf_counter()
+    qeng = init_inference(model, params=tree, dtype=torch.bfloat16,
+                          max_seq_len=V1_MAX_SEQ, max_batch=V1_BATCH,
+                          quantize_weights="int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del tree
+    torch.cuda.empty_cache()
+    build_launches = dict(qz.LAUNCHES)
+    quantized = sorted(k for k, _ in wq_leaves(wq, qeng.params))
+    if build_launches["quantize_blockwise"] != len(quantized) or \
+            len(quantized) != 8 or build_launches["dequantize"]:
+        fail(f"v1 int8 weights: build launches {build_launches} for "
+             f"quantized leaves {quantized}")
+    qz.reset_launch_counts()
+    qout, qrows, qgen = timed_generate(torch, qeng, eng_mod, prompts)
+    use_launches = dict(qz.LAUNCHES)
+    forwards = 1 + V1_NEW  # the prefill and one forward a sampled token
+    if use_launches["dequantize"] != (7 * L + 1) * forwards or \
+            use_launches["quantize_blockwise"] or \
+            use_launches["kv_quantize_append"]:
+        fail(f"v1 int8 weights: launches {use_launches} over {forwards} "
+             f"forwards: dequantize must run 7 x {L} + 1 times a forward")
+    S = prompts.shape[1]
+    # the int8 engine's streams against its own full forwards, as 13b's
+    qgen["teacher_forcing_near_ties"] = teacher_forcing(
+        torch, qeng, qout, qrows, S, row_bound, "v1 int8 weights")
+    qgen.update({"build_s": build_s, "quantized_leaves": quantized,
+                 "weight_bytes": sum(v.nbytes for _, v in
+                                     wq_leaves(wq, qeng.params)),
+                 "build_launches": build_launches,
+                 "generate_launches": use_launches,
+                 "agreement_with_bf16_streams": float(
+                     (qout[:, S:] == out[:, S:]).mean())})
+    del qeng, qrows
+    torch.cuda.empty_cache()
+    line = {"model": "llama3-8b", "layers": L, "dtype": "bfloat16",
+            "prompts": [V1_BATCH, V1_PROMPT], "new_tokens": V1_NEW,
+            "max_seq_len": V1_MAX_SEQ, "forward": forward,
+            "generate": gen, "int8_weights": qgen}
+    paths = {"v1_forward": fwd_launches,
+             "v1_int8_weights_build": build_launches,
+             "v1_int8_weights_generate": use_launches}
+    return line, paths
+
+
 # -- phase 7: quantized serve --------------------------------------------------
 
 
@@ -4043,7 +4416,9 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deepspeed_tpu_torch import (DeepSpeedDataLoader, RepeatingLoader,
                                      initialize)
-    from deepspeed_tpu_torch.inference import InferenceEngineV2, model_runner
+    from deepspeed_tpu_torch.inference import (InferenceEngineV2,
+                                              init_inference, model_runner)
+    from deepspeed_tpu_torch.inference import engine as v1_engine
     from deepspeed_tpu_torch.inference import weight_quant as wq
     from deepspeed_tpu_torch.models import transformer as tf
     from deepspeed_tpu_torch.models import zoo
@@ -4052,12 +4427,14 @@ def main():
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops import kernel_table
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quantization as qz
     from deepspeed_tpu_torch.ops.native import builder as native_builder
     from deepspeed_tpu_torch.parallel import moe
     from deepspeed_tpu_torch.resilience import validate_manifest
     from deepspeed_tpu_torch.runtime import offload as off_mod
+    from deepspeed_tpu_torch.tools import kernel_bench as kb
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4164,6 +4541,7 @@ def main():
     del timer
     torch.cuda.empty_cache()
     log("kernels agree with their plain versions")
+    attn._reset_dispatch_stats()  # the main paths' dispatch from here
 
     # 3. serve: run 1 warms up and is the determinism reference; run 2
     # is the measured main path, with the launch counts read around it
@@ -4258,6 +4636,42 @@ def main():
         + f"; B5 at the verify shape {pre_verify['ms']:.4f} ms; "
         f"{phase12_serve_s:.0f} s")
 
+    # 13. the kernel bench into a scratch table, then the v1 engine over
+    # the same model with that table, before phase 7's weight run
+    # quantizes it
+    dispatch = {"3, 8a, 12a-c": no_card_losses(attn, "phases 3, 8a, 12a-c")}
+    t13 = time.perf_counter()
+    table_dir = tempfile.mkdtemp(prefix="dstpu_kernel_table_")
+    table_path = os.path.join(table_dir, "kernel_table.json")
+    bench = kernel_bench_phase(torch, kb, table_path)
+    attn._reset_dispatch_stats()  # 13a's probe is not a main path
+    t13b = time.perf_counter()
+    os.environ["DSTPU_KERNEL_TABLE"] = table_path
+    kernel_table.invalidate_cache()
+    try:
+        v1, v1_paths = v1_engine_phase(
+            torch, InferenceEngineV2, init_inference, v1_engine,
+            model_runner, attn, fa, qz, wq, model, ref_prompts,
+            V1_ROW_DIFF_FACTOR * agree["max_abs_diff"])
+    finally:
+        del os.environ["DSTPU_KERNEL_TABLE"]
+        kernel_table.invalidate_cache()
+        shutil.rmtree(table_dir, ignore_errors=True)
+    dispatch["13b-c"] = no_card_losses(attn, "phase 13b-c")
+    phase13_s = time.perf_counter() - t13
+    g = v1["generate"]
+    log(f"v1 engine: forward {v1['forward']['forward_s'] * 1e3:.1f} ms "
+        f"({v1['forward']['decision']}); generate {g['wall_s']:.2f} s, "
+        f"{g['generated_tokens_per_s']:.0f} tok/s, TTFT "
+        f"{g['ttft_s'] * 1e3:.1f} ms, decode gap "
+        f"{g['decode_token_s'] * 1e3:.1f} ms, peak {g['peak_mem_gb']:.1f} "
+        f"GB, dense cache {g['dense_cache_bytes'] / 1e9:.2f} GB, "
+        f"{g['vs_v2']['streams_parting']} streams part from the v2 "
+        f"engine's; int8 weights {v1['int8_weights']['wall_s']:.2f} s, "
+        f"agreement {v1['int8_weights']['agreement_with_bf16_streams']:.3f}"
+        f"; kernel bench {t13b - t13:.0f} s; phase 13 took "
+        f"{phase13_s:.0f} s")
+
     # 7. quantized serve on the same model (its last use: the int8
     # weight run quantizes it in place)
     quant_serve, quant_profile, quant_launches = quant_serve_phase(
@@ -4344,6 +4758,10 @@ def main():
         torch, zoo, initialize, fa, gm)
     log(f"moe train: {moe_train['step_ms_p50']:.1f} ms per step; "
         f"{time.perf_counter() - t_start:.0f} s since the build began")
+    dispatch["7, 4, 9, 12d, 10, 11, 8b, 5, 6"] = no_card_losses(
+        attn, "phases 7, 4, 9, 12d, 10, 11, 8b, 5, 6")
+    log(f"impl='auto' dispatch by phases, no measured loss on the card: "
+        f"{json.dumps(dispatch)}")
 
     def entry(name, replaces, res, other, kernels, paths):
         b = res["bfloat16"]
@@ -4355,6 +4773,7 @@ def main():
                 "replaces": replaces, "launches": launches[name],
                 "launches_by_path": {path: lc[name]
                                      for path, lc in paths.items()},
+                "kernel_bench_launches": bench["launched"].get(name, 0),
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
                            if k.startswith(name + "/")}
@@ -4410,7 +4829,9 @@ def main():
                     "zenflow_blocking": zenflow_block_launches[name],
                     "zenflow_checkpoint": zenflow_ckpt_launches[name],
                     **{f"a4/{run}": lc[name]
-                       for run, lc in a4_launches.items()}},
+                       for run, lc in a4_launches.items()},
+                    "v1_forward": v1_paths["v1_forward"][name]},
+                "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
                            if k.startswith(name + "/")}
@@ -4426,7 +4847,9 @@ def main():
                                      ("zenflow_checkpoint",
                                       zenflow_ckpt_launches),
                                      *((f"a4/{run}", lc) for run, lc
-                                       in a4_launches.items()))},
+                                       in a4_launches.items()),
+                                     ("v1_forward",
+                                      v1_paths["v1_forward"]))},
                 "max_abs_err": b["max_abs_err"],
                 "max_row_rel_err": b.get("max_row_rel_err"),
                 "ms": b["ms"], "tflops": b["tflops"],
@@ -4452,6 +4875,7 @@ def main():
                 "launches": moe_train_launches[name],
                 "launches_by_path": {"moe_serve": moe_serve_launches[name],
                                      "moe_train": moe_train_launches[name]},
+                "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
                            if k.startswith(name + "/")}
@@ -4496,8 +4920,11 @@ def main():
                             f"{line}",
                 "replaces_note": note,
                 "launches": quant_launches[main_run][name],
-                "launches_by_path": {run: lc[name] for run, lc in
-                                     quant_launches.items()},
+                "launches_by_path": {
+                    **{run: lc[name] for run, lc in quant_launches.items()},
+                    **{run: v1_paths[run][name] for run in (
+                        "v1_int8_weights_build",
+                        "v1_int8_weights_generate")}},
                 "max_abs_err": res["max_abs_err"], "bit_equal": True,
                 "variant": "simt", "ms": res["ms"],
                 # one version: its first is itself
@@ -4524,6 +4951,7 @@ def main():
                         sparse_fwd_launches["blocksparse_fwd"],
                     **{k: v for k, v in sparse_launches.items()
                        if not isinstance(v, dict)}},
+                "kernel_bench_launches": bench["launched"]["blocksparse_fwd"],
                 "variant_launches_by_path": {
                     "full_depth_forward": {
                         k: v for k, v in sparse_fwd_launches.items()
@@ -4606,6 +5034,10 @@ def main():
     print(json.dumps({"paged_prefill_verify_shape": pre_verify}),
           flush=True)
     print(json.dumps({"a4": a4, "phase12_wall_s": phase12_s}), flush=True)
+    print(json.dumps({"kernel_bench": bench}), flush=True)
+    print(json.dumps({"v1_engine": v1, "phase13_wall_s": phase13_s,
+                      "dispatch_by_phases": dispatch}),
+          flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
           flush=True)
     print(card, flush=True)

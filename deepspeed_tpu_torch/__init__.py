@@ -42,12 +42,36 @@ repository's ``csrc/`` (``ops.native``, built with g++), the async I/O
 and swap layers (``ops.native.aio``, ``runtime.swap_tensor``), the
 pipelined checkpoint writer (``io``, ``checkpoint.parallel_write_
 pipeline``) and ``utils.memspace``.
+
+Slice 13: ZenFlow (``runtime.zenflow``: the top coordinates stepped on
+the card, the rest by the native host Adam overlapped with the card's
+steps), the remaining optimizers (``runtime.optimizer``,
+``runtime.muon``) and the engine's remaining one-card methods.
+
+Slice 14: speculative decoding on the ragged engine
+(``inference.spec_decode``: prompt lookup and a draft model, verified
+through the paged prefill kernel), ``(loss_fn, params)`` models, client
+optimizers and schedulers, the prefetcher and dispatch-ahead
+(``runtime.prefetch``).
+
+Slice 15: the measured kernel dispatch — ``ops.kernel_table`` (JAX's
+``kernel_table/v1`` rows, scoped to "cuda" and the card's name, or
+"cpu"), ``ops.registry`` (``dispatch_op``: the compat probe, the table,
+the heuristic) behind ``impl="auto"``, the ``kernels.dispatch`` and
+``kernels.table_path`` config keys; the kernel bench that writes the
+table (``python -m deepspeed_tpu_torch.tools.kernel_bench``) and the
+environment report (``python -m deepspeed_tpu_torch.launcher.report``);
+and the v1 inference engine, ``init_inference`` (``inference.engine``,
+a dense KV cache through ``model_runner.forward_with_cache``).
 """
 
 from deepspeed_tpu_torch._device import kernels_available, resolve_device
+from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
+                                                  init_inference)
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
 from deepspeed_tpu_torch.runtime.engine import initialize
 
-__all__ = ["initialize", "kernels_available", "resolve_device",
-           "DeepSpeedDataLoader", "RepeatingLoader"]
+__all__ = ["initialize", "init_inference", "InferenceEngine",
+           "kernels_available", "resolve_device", "DeepSpeedDataLoader",
+           "RepeatingLoader"]

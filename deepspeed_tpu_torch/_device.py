@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -41,12 +41,22 @@ def nvcc_path() -> Optional[str]:
     return cand if os.path.exists(cand) else None
 
 
-def kernels_available() -> bool:
+def kernels_status() -> Tuple[bool, str]:
     """Can the hand-written Hopper kernels build and run here: a CUDA
-    device of compute capability >= 9.0 and ``nvcc``. Counterpart of the
-    JAX package's TPU probe (``ops/registry.py`` ``_tpu_probe``)."""
+    device of compute capability >= 9.0 and ``nvcc``; when not, why not.
+    Counterpart of the JAX package's TPU probe (``ops/registry.py``
+    ``_tpu_probe``)."""
     if not torch.cuda.is_available():
-        return False
-    if torch.cuda.get_device_capability() < (9, 0):
-        return False
-    return nvcc_path() is not None
+        return False, "no CUDA device (torch.cuda.is_available() is False)"
+    cap = torch.cuda.get_device_capability()
+    if cap < (9, 0):
+        return False, (f"compute capability {cap[0]}.{cap[1]}: the kernels "
+                       "are built for sm_90")
+    if nvcc_path() is None:
+        return False, "nvcc not found (PATH, CUDA_HOME/bin)"
+    return True, ""
+
+
+def kernels_available() -> bool:
+    """``kernels_status`` as a bool."""
+    return kernels_status()[0]

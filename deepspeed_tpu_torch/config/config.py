@@ -402,14 +402,17 @@ class SparseAttentionConfig:
 class KernelsConfig:
     """The ``kernels`` block, with the JAX schema and validation. The
     port acts on ``blocksparse_block`` (0 follows
-    ``sparse_attention.block``): the engine builds the layout at that
-    block. The geometry knobs (``flash_block_*``,
-    ``pages_per_compute_block``, ``gmm_block_*``) and ``dispatch`` are
+    ``sparse_attention.block``: the engine builds the layout at that
+    block), ``dispatch`` ("auto": ``impl="auto"`` follows the measured
+    kernel table, then the heuristic; "heuristic": the heuristic alone)
+    and ``table_path`` (the kernel table to read; None:
+    ``ops/kernel_table.table_path()``); ``initialize`` installs the block
+    with ``ops.attention.set_kernel_config``. The geometry knobs
+    (``flash_block_*``, ``pages_per_compute_block``, ``gmm_block_*``) are
     validated and not used, as the kernels accept their block arguments:
-    the Hopper kernels fix their own tiles and there is no cost table
-    yet. A value other than the JAX default warns that it has no effect,
-    so JAX configs load and nothing set is dropped unseen;
-    ``table_path`` raises (ROADMAP queue A item 3)."""
+    the Hopper kernels fix their own tiles. A geometry value other than
+    the JAX default warns that it has no effect, so JAX configs load and
+    nothing set is dropped unseen."""
 
     flash_block_q: int = 0
     flash_block_k: int = 0
@@ -437,18 +440,14 @@ class KernelsConfig:
             raise ValueError(
                 f"kernels.dispatch must be auto|heuristic, got "
                 f"{self.dispatch!r}")
-        if self.table_path is not None:
-            raise _unported("kernels.table_path",
-                            f"{_A} 3 (kernel registry and table)")
         for f in dataclasses.fields(self):
-            if f.name in ("blocksparse_block", "table_path"):
+            if f.name in ("blocksparse_block", "dispatch", "table_path"):
                 continue
             v = getattr(self, f.name)
             if v != f.default:
                 warnings.warn(
                     f"kernels.{f.name}={v!r} has no effect here: the "
-                    f"Hopper kernels fix their own tiles and dispatch "
-                    f"({_A} 3)")
+                    f"Hopper kernels fix their own tiles")
 
 
 @dataclass

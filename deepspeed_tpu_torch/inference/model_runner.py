@@ -1,5 +1,7 @@
-"""Ragged paged-KV forwards over the ``TransformerLM`` parameter tree
-(port of ``deepspeed_tpu/inference/model_runner.py``).
+"""Inference forwards over the ``TransformerLM`` parameter tree (port of
+``deepspeed_tpu/inference/model_runner.py``): the dense-cache forward of
+the v1 engine (``forward_with_cache``) and the ragged paged-KV forwards
+of the v2 engine.
 
 Plain functions on tensors: (cfg, params, kv_data, metadata) ->
 (logits, kv_data). ``params`` is ``TransformerLM.params()``, the JAX tree
@@ -46,6 +48,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch._device import resolve_device
 from deepspeed_tpu_torch.inference.weight_quant import QuantizedTensor
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     _norm, _proj, act_fn,
@@ -216,6 +219,72 @@ def _scratch_pool(cfg: TransformerConfig, kv_data, kv_scales):
     nb, bs, _, nkv, _ = kv_data.shape[1:]
     return torch.empty((nb, bs, 2, nkv, cfg.head_dim), dtype=cfg.dtype,
                        device=kv_data.device)
+
+
+# ---------------------------------------------------------------------------
+# dense-cache path (v1 engine)
+# ---------------------------------------------------------------------------
+
+
+def init_dense_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                     dtype=None, device=None) -> torch.Tensor:
+    """cache: [L, B, max_len, 2, kv_heads, head_dim] zeros in ``dtype``
+    (default ``cfg.dtype``) on ``device`` (default the card)."""
+    return torch.zeros((cfg.num_layers, batch, max_len, 2, cfg.kv_heads,
+                        cfg.head_dim), dtype=dtype or cfg.dtype,
+                       device=resolve_device(device))
+
+
+@torch.no_grad()
+def forward_with_cache(cfg: TransformerConfig, params: Params,
+                       tokens: torch.Tensor, cache: torch.Tensor,
+                       start_pos: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] starting at absolute position ``start_pos``; returns
+    (logits [B, S, V] fp32, cache). Works for prefill (S = prompt length,
+    start_pos = 0) and decode (S = 1).
+
+    This step's K/V are written IN PLACE at cache rows [start_pos,
+    start_pos + S) before attention reads them; the returned cache is the
+    same tensor. Attention is JAX's dense masked form over all max_len
+    rows, a query at position p seeing rows 0..p: scores in the compute
+    dtype divided by sqrt(head_dim) in that dtype, fp32 softmax,
+    probabilities cast back before the product with V. GQA heads are
+    grouped, not repeated (q head h reads kv head h // group, as
+    ``jnp.repeat`` does)."""
+    B, S = tokens.shape
+    L, _, max_len, _, nkv, hd = cache.shape
+    if start_pos + S > max_len:
+        raise ValueError(f"rows [{start_pos}, {start_pos + S}) do not fit "
+                         f"a cache of {max_len}")
+    dt = cfg.dtype
+    g = cfg.num_heads // nkv
+    dev = tokens.device
+    positions = start_pos + torch.arange(S, device=dev)[None, :]  # [1, S]
+
+    x = _embed(cfg, params, tokens, positions)  # [B, S, H]
+    rope = _rope_of(cfg, positions)
+    key_pos = torch.arange(max_len, device=dev)
+    mask = key_pos[None, None, None, None, :] <= \
+        positions[:, None, None, :, None]  # [1, 1, 1, S, max_len]
+    sqrt_hd = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dt)
+    for l in range(L):
+        lp = _layer(params, l)
+        kv_layer = cache[l]  # [B, max_len, 2, nkv, hd]
+        y = _norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
+        q, k, v = _qkv(cfg, lp, y, rope)  # q [B, S, nh, hd]
+        kv_layer[:, start_pos:start_pos + S] = torch.stack(
+            [k, v], dim=2).to(kv_layer.dtype)
+        k_all = kv_layer[:, :, 0].to(dt)  # [B, max_len, nkv, hd]
+        v_all = kv_layer[:, :, 1].to(dt)
+        qg = q.reshape(B, S, nkv, g, hd)
+        scores = torch.einsum("bskgd,bmkd->bkgsm", qg, k_all) / sqrt_hd
+        scores = torch.where(mask, scores.float(),
+                             torch.full((), -1e30, device=dev))
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        attn = torch.einsum("bkgsm,bmkd->bskgd", probs, v_all)
+        attn = _attn_out(cfg, lp, attn.reshape(B, S, nkv * g, hd))
+        x = _residual(cfg, lp, x, attn)
+    return _unembed(cfg, params, x), cache
 
 
 # ---------------------------------------------------------------------------

@@ -305,11 +305,15 @@ def _unstack_layers(layers: Dict[str, Any], num_layers: int):
     """The stacked ``[L, ...]`` layer tree as L trees of views. One
     ``unbind`` per leaf, so the backward stacks each leaf's L gradients
     once instead of scattering every layer's into a full-size zero
-    tensor."""
+    tensor. A leaf that is neither a tensor nor a dict (a weight-only
+    int8 ``QuantizedTensor``) is indexed per layer, and dequantizes at
+    its use (``.to(dt)``)."""
     def walk(node):
         if isinstance(node, torch.Tensor):
             return torch.unbind(node, 0)
-        return {k: walk(v) for k, v in node.items()}
+        if hasattr(node, "items"):
+            return {k: walk(v) for k, v in node.items()}
+        return tuple(node[l] for l in range(num_layers))
 
     def pick(node, l):
         if isinstance(node, tuple):

@@ -27,7 +27,10 @@ config, as the JAX engine does.
 The ``sparse_attention`` block builds its layout (at
 ``kernels.blocksparse_block`` when that is set) and installs it for
 ``attn_impl="blocksparse"``; an engine without the block clears any
-layout a previous engine installed.
+layout a previous engine installed. The ``kernels`` block (the dispatch
+policy and the kernel table's path) goes into the same process-global
+dispatcher (``ops.attention.set_kernel_config``, JAX
+``engine.py:212``).
 
 The engine takes its fp32 masters from the model's current tensors (a
 model built in fp32 shares them, so its parameters follow training) and
@@ -268,6 +271,8 @@ class Engine:
         self.model_config = (None if model.config is None else
                              dataclasses.replace(model.config, **over))
         self._install_sparse_layout()
+        # the dispatch policy and table path for impl="auto"
+        attn_ops.set_kernel_config(self.config.kernels)
 
         # a client optimizer steps the masters in the configured
         # optimizer's place; as in JAX it then has no schedule of the

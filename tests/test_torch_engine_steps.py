@@ -281,12 +281,13 @@ def test_sparse_wiring_overrides_warns_and_clears(caplog):
                                    attention="bidirectional")
     with caplog.at_level(logging.WARNING), pytest.warns(UserWarning) as rec:
         deepspeed_tpu_torch.initialize(model=model, config=cfg, device="cpu")
-    # the geometry knobs and dispatch set away from the JAX defaults warn
-    # that they have no effect; blocksparse_block does not
+    # the geometry knobs set away from the JAX defaults warn that they
+    # have no effect; blocksparse_block and dispatch (installed for
+    # impl="auto") do not
     inert = sorted(str(w.message).split("=")[0] for w in rec
                    if "has no effect" in str(w.message))
-    assert inert == ["kernels.dispatch", "kernels.flash_block_q",
-                     "kernels.gmm_block_m"]
+    assert inert == ["kernels.flash_block_q", "kernels.gmm_block_m"]
+    assert attn._KERNEL_CONFIG.dispatch == "heuristic"
     text = caplog.text
     assert "attn_impl is not 'blocksparse'" in text
     assert "bidirectional" in text
@@ -295,6 +296,7 @@ def test_sparse_wiring_overrides_warns_and_clears(caplog):
     deepspeed_tpu_torch.initialize(model=model, config=dict(
         CFG, sparse_attention=None), device="cpu")
     assert attn._SPARSE_CONFIG is None
+    assert attn._KERNEL_CONFIG.dispatch == "auto"
 
 
 @pytest.mark.parametrize("block,err,match", [
@@ -304,7 +306,7 @@ def test_sparse_wiring_overrides_warns_and_clears(caplog):
     ({"kernels": {"blocksparse_block": 24}}, ValueError, "power of two"),
     ({"kernels": {"pages_per_compute_block": 0}}, ValueError, ">= 1"),
     ({"kernels": {"dispatch": "table"}}, ValueError, "auto|heuristic"),
-    ({"kernels": {"table_path": "t.json"}}, NotImplementedError, "item 3"),
+    ({"kernels": {"flash_block_q": 100}}, ValueError, "power of two"),
     ({"resilience": {"preemption_save_deadline_s": 0}}, ValueError, "> 0"),
     ({"resilience": {"max_retries": -1}}, ValueError, ">= 0"),
     ({"resilience": {"jitter": -0.5}}, ValueError, "jitter must be >= 0"),

@@ -1307,3 +1307,137 @@ def test_c5_flash_raises_and_auto_is_dense(card):
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before
     assert torch.equal(got, at.xla_attention(q, k, v))
+
+
+# -- the measured dispatch and the v1 engine on the card ------------------------
+
+
+@pytest.fixture
+def table(tmp_path, monkeypatch):
+    """A scratch kernel table that both the bench and the dispatch read;
+    the installed kernels config cleared."""
+    from deepspeed_tpu_torch.ops import attention as at
+    from deepspeed_tpu_torch.ops import kernel_table
+
+    path = tmp_path / "kernel_table.json"
+    monkeypatch.setenv("DSTPU_KERNEL_TABLE", str(path))
+    monkeypatch.setenv("KERNEL_BENCH_RECORD_PATH", str(path))
+    at.set_kernel_config(None)
+    kernel_table.invalidate_cache()
+    yield path
+    kernel_table.invalidate_cache()
+
+
+def test_kernel_bench_writes_cuda_rows_named_by_the_card(card, table,
+                                                         monkeypatch):
+    """The bench's small tier on the card: every arm's kernels launch,
+    its gates pass, and each row is a "cuda" row naming this card."""
+    from deepspeed_tpu_torch.tools import kernel_bench as kb
+
+    monkeypatch.setenv("KERNEL_BENCH_FULL", "0")
+    monkeypatch.setenv("KERNEL_BENCH_ITERS", "2")
+    _, payload, ok = kb.run_kernel_bench()
+    assert ok, payload["violations"]
+    assert payload["backend"] == "cuda"
+    name = torch.cuda.get_device_name()
+    assert payload["device"] == name
+    doc = __import__("json").loads(table.read_text())
+    rows = [e for b in doc["entries"].values() for e in b.values()]
+    assert len(rows) == 4
+    assert all(e["backend"] == "cuda" and e["device"] == name for e in rows)
+    for r in payload["entries"]:
+        assert r["numerics_ok"] and r["row_rel_err"]["out"] <= 3e-2, r
+        assert r["launches"] and min(r["launches"].values()) > 0, r
+        assert r["blocks"]["template"] in ("wgmma", "simt", "split",
+                                           "wgmma+simt")
+
+
+@pytest.mark.parametrize("ratio", [0.5, 2.0])
+def test_planted_row_routes_on_the_card(card, table, ratio):
+    """A losing cuda row for this card routes impl="auto" to
+    xla_attention bit for bit with no flash launch, and is counted as a
+    loss on the card (the smoke's main paths allow none); a winning one
+    launches the flash kernel."""
+    from deepspeed_tpu_torch.ops import attention as at
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import kernel_table
+
+    kernel_table.record("flash_attention", "s512_d128_causal", 1.0, ratio,
+                        path=str(table))
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((1, 500, 8, 128), np.float32)
+                         ).to(card, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((1, 500, 2, 128),
+                                                 np.float32)
+                             ).to(card, torch.bfloat16) for _ in range(2))
+    before, stats = dict(fa.LAUNCHES), at.dispatch_stats()
+    got = at.multi_head_attention(q, k, v, impl="auto")
+    torch.cuda.synchronize()
+    assert at.dispatch_stats()["card_losses"] - stats["card_losses"] == (
+        1 if ratio < 1.0 else 0)
+    if ratio < 1.0:
+        assert fa.LAUNCHES == before
+        assert torch.equal(got, at.xla_attention(q, k, v))
+    else:
+        assert fa.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+        assert torch.equal(got, fa.flash_attention(q, k, v))
+
+
+def test_failing_probe_on_a_cuda_tensor_raises(card, table, monkeypatch):
+    from deepspeed_tpu_torch.ops import attention as at
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import registry
+
+    monkeypatch.setattr(registry, "_card_status",
+                        lambda: (False, "nvcc not found (test)"))
+    q = torch.zeros((1, 64, 4, 128), device=card, dtype=torch.bfloat16)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        at.multi_head_attention(q, q, q, impl="auto")
+    assert fa.LAUNCHES == before
+
+
+def test_v1_generate_on_the_card_follows_the_cpu(card):
+    """A small fp32 Llama-style v1 engine (head dim 64) generates on the
+    card what it generates on the CPU, or parts only at a near tie: the
+    CPU row's gap between the two chosen tokens no larger than the
+    max-abs difference between the two rows."""
+    from deepspeed_tpu_torch.inference import engine as eng_mod
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.models.convert import (params_from_jax,
+                                                    params_to_numpy)
+
+    over = dict(pos_emb="rope", norm="rmsnorm", activation="swiglu",
+                hidden_size=256, num_heads=4, num_kv_heads=2, ffn_size=512,
+                tie_embeddings=False, num_layers=2)
+    cpu_model = zoo.get_model("tiny", device="cpu", dtype=torch.float32,
+                              seed=3, **over)
+    card_model = params_from_jax(params_to_numpy(cpu_model.params()),
+                                 cpu_model.config, device=card)
+    prompt = np.random.default_rng(2).integers(1, 256, (2, 20)).astype(
+        np.int32)
+    runs = {}
+    real = eng_mod._sample
+    for name, model in (("cpu", cpu_model), ("card", card_model)):
+        rows = []
+
+        def spy(logits, temperature, top_k, generator=None, rows=rows):
+            rows.append(logits.float().cpu())
+            return real(logits, temperature, top_k, generator)
+
+        eng_mod._sample = spy
+        try:
+            eng = init_inference(model, dtype=torch.float32, max_seq_len=64)
+            runs[name] = (eng.generate(prompt, max_new_tokens=12), rows)
+        finally:
+            eng_mod._sample = real
+    (cpu_out, cpu_rows), (card_out, card_rows) = runs["cpu"], runs["card"]
+    for b in range(2):
+        a, c = cpu_out[b, 20:].tolist(), card_out[b, 20:].tolist()
+        if a == c:
+            continue
+        p = next(i for i, (x, y) in enumerate(zip(a, c)) if x != y)
+        gap = float(cpu_rows[p][b, a[p]] - cpu_rows[p][b, c[p]])
+        diff = float((cpu_rows[p][b] - card_rows[p][b]).abs().max())
+        assert gap <= diff, (b, p, gap, diff)

@@ -43,8 +43,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = list(_port_files())
     assert len(files) >= 15
     # the quantized-serving, block-sparse, checkpoint, resilience,
-    # offload, ZenFlow, optimizer, speculation and prefetch modules are
-    # among the files checked
+    # offload, ZenFlow, optimizer, speculation, prefetch, dispatch, kernel
+    # bench, report and v1 engine modules are among the files checked
     rel = {os.path.relpath(p, PKG) for p in files}
     assert {"ops/quantization.py", "ops/fp_quantizer.py",
             "inference/weight_quant.py",
@@ -59,7 +59,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "runtime/swap_tensor/swapper.py", "runtime/offload.py",
             "io/fast_file_writer.py", "runtime/zenflow.py",
             "runtime/muon.py", "runtime/optimizer.py",
-            "inference/spec_decode.py", "runtime/prefetch.py"} <= rel
+            "inference/spec_decode.py", "runtime/prefetch.py",
+            "ops/kernel_table.py", "ops/registry.py",
+            "tools/kernel_bench.py", "launcher/report.py",
+            "inference/engine.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
@@ -100,16 +103,16 @@ def test_unported_options_raise():
     assert ServingConfig(spec_decode=True, spec_adaptive_k=True).spec_decode
     with pytest.raises(NotImplementedError, match="item 13"):
         ServingConfig(router={"replicas": 2})
-    # the sparse_attention and kernels blocks are ported; of the kernels
-    # block only the kernel table's path is not
+    # the sparse_attention and kernels blocks are ported, the kernel
+    # table's path too
     from deepspeed_tpu_torch.config.config import UNPORTED_BLOCKS, load_config
     assert not {"sparse_attention", "kernels"} & set(UNPORTED_BLOCKS)
     cfg = load_config({"sparse_attention": {"mode": "bigbird"},
                        "kernels": {"blocksparse_block": 64}})
     assert cfg.sparse_attention.mode == "bigbird"
     assert cfg.kernels.blocksparse_block == 64
-    with pytest.raises(NotImplementedError, match="item 3"):
-        load_config({"kernels": {"table_path": "table.json"}})
+    assert load_config({"kernels": {"table_path": "table.json"}}
+                       ).kernels.table_path == "table.json"
     # the checkpoint and resilience blocks are ported, the AIO write
     # pipeline too; of the checkpoint block, universal checkpoints are not
     assert not {"checkpoint", "resilience"} & set(UNPORTED_BLOCKS)
