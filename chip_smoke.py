@@ -204,7 +204,9 @@ Phases, each fatal on failure:
                card's peak memory at init and in training, the host's
                RSS, then one step under torch.profiler (the device's
                idle share with and without the copies). 10b: phase 9's
-               1-layer model from one seed under the device optimizer,
+               1-layer model at a 16384-token vocabulary
+               (``CKPT_SMALL_VOCAB``) from one seed under the device
+               optimizer,
                the cpu tier and the NVMe tier (a temporary directory,
                free space checked first), 3 steps each: cpu and nvme
                losses equal, device and cpu within 3e-3 (JAX's
@@ -241,8 +243,8 @@ Phases, each fatal on failure:
                interval under torch.profiler (idle share with and
                without the copy engines). 11b: PR 12's blocking offload
                step at 11a's depth, 1 warm-up and 2 steps, one profiled.
-               11c: phase 9's 1 layer at update interval 2 and select
-               interval 4, saved at step 3 (the pass shipped at step 2 in
+               11c: phase 9's 1 layer at 10b's vocabulary, update
+               interval 2 and select interval 4, saved at step 3 (the pass shipped at step 2 in
                flight), loaded by an engine from another seed: its 3
                resumed losses equal the uninterrupted run's (``==``).
                11d: sgd, momentum, lion, adagrad, lamb, adafactor and
@@ -324,13 +326,32 @@ Phases, each fatal on failure:
                blockwise quantize launches at build, the dequantize 7 x
                32 + 1 times a forward, agreement with 13b's streams. The
                phase's wall is printed.
+  14. zero — after phase 12d, on its model size and phase 4's fixed
+               batches. 14a: ``comm.init_distributed`` joins a one-rank
+               NCCL group through a file store in a temporary directory
+               (no TCP port; backend nccl, world size 1, rank 0 gated).
+               14b: 2-layer full-width Llama-3-8B, bf16 on fp32 masters,
+               AdamW at lr 3e-5, clip 1.0, micro 2 x GAS 2 x 2048, 3
+               steps at each of ZeRO stages 0, 1, 2 and 3 (the comms
+               logger on). Gates: every stage's losses and final fp32
+               masters equal stage 0's bit for bit; the collectives the
+               comms logger counted equal those the plan implies,
+               derived from the model's leaves and the remat setting
+               (stage 3: each layer's leaves all-gathered in the forward
+               and again in the recompute, each reduce-scattered in the
+               backward); flash launches as remat implies, all
+               tensor-core; no measured loss routed to the dense path.
+               Per stage: step p50, peak memory, collectives and bytes
+               by op. The group is destroyed at the end, so the phases
+               after it run without one. The phase's wall is printed.
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
 sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
 checkpoint, optimizer sweep, spec serve, draft model, verify-shape
-prefill, A4, kernel bench and v1 engine lines, the run's seconds, the card's name
+prefill, A4, kernel bench, v1 engine and zero lines, the run's seconds,
+the card's name
 and power limit (nvidia-smi), and, last, the device line.
 
 Exits non-zero with no result when there is no CUDA device or when the
@@ -520,6 +541,11 @@ CKPT_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
                               "params": {"warmup_num_steps": 10}})
 # the engine B of phase 9: async saves
 CKPT_ASYNC_CONFIG = dict(CKPT_CONFIG, checkpoint={"async_save": True})
+# phases 10b, 10c and 11c: phase 9's 1 layer with the vocabulary cut to
+# CKPT_SMALL_VOCAB rows. The full vocabulary's two matrices hold 83% of
+# the state and made their round trips ~140 s of disk time; phase 9 keeps
+# the full model, and every gate of 10b-10c and 11c stays
+CKPT_SMALL_VOCAB = 16384
 # phase 10: ZeRO-Offload (fp32 masters and AdamW moments on the host,
 # the native CPU Adam). 10a: Llama-3-8B at full width and as deep as the
 # host holds (12 bytes of host state a parameter), cut to
@@ -611,6 +637,9 @@ A4_PIPELINED = dict(A4_CONFIG, performance={"pipeline_depth": 2,
 # inputs; torch's AdamW against the engine's: the same update in another
 # order of operations, for 3 steps
 A4_FN_TOL_REL, A4_CLIENT_TOL_REL = 1e-5, 1e-4
+# phase 14: ZeRO stages 0-3 on a one-rank NCCL group, at phase 12d's depth
+# and lr over phase 4's fixed batches, ZERO_STEPS steps a stage
+ZERO_STAGES, ZERO_STEPS = (0, 1, 2, 3), 3
 # phase 13: the kernel bench at its card tier (13a), then the v1 engine
 # (init_inference) over phase 3's model: the forward at B 1 x S 2048, and
 # generate on 4 of phase 3's prompts cut to 128 tokens, 32 new tokens
@@ -2269,19 +2298,20 @@ def offload_small(torch, zoo, initialize, fa, ckpt):
     checkpoint line, flash launches of the resumed steps)."""
     from deepspeed_tpu_torch.runtime.optimizer import leaves
 
-    n = zoo.get_config("llama3-8b", num_layers=CKPT_LAYERS).num_params()
+    n = zoo.get_config("llama3-8b", num_layers=CKPT_LAYERS,
+                       vocab_size=CKPT_SMALL_VOCAB).num_params()
     root = tempfile.mkdtemp(prefix="dstpu_offload_")
 
     def build(config, seed=SEED):
         free_caches(torch)
         model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
+                              vocab_size=CKPT_SMALL_VOCAB,
                               dtype=torch.float32, seed=seed)
         engine, *_ = initialize(model=model, config=config)
         return engine, model
 
     def batches(skip=0):
-        _, it = fixed_batches(zoo.get_config("llama3-8b").vocab_size,
-                              micro=OFFLOAD_MICRO)
+        _, it = fixed_batches(CKPT_SMALL_VOCAB, micro=OFFLOAD_MICRO)
         for _ in range(skip):
             next(it)
         return it
@@ -2387,6 +2417,7 @@ def offload_small(torch, zoo, initialize, fa, ckpt):
     gb = state_bytes / 1e9
     parity = {
         "model": "llama3-8b", "layers": f"{CKPT_LAYERS} of 32", "params": n,
+        "vocab": CKPT_SMALL_VOCAB,
         "micro": OFFLOAD_MICRO, "gas": 1, "seq": TRAIN_SEQ,
         "losses_device_optimizer": dev_losses, "losses_cpu": cpu_losses,
         "losses_nvme": nvme_losses, "cpu_equals_nvme": True,
@@ -2401,6 +2432,7 @@ def offload_small(torch, zoo, initialize, fa, ckpt):
     }
     line = {
         "model": "llama3-8b", "layers": f"{CKPT_LAYERS} of 32",
+        "vocab": CKPT_SMALL_VOCAB,
         "engine": "FastCheckpointEngine (parallel_write_pipeline)",
         "state_gb": gb, "save_s": save_s, "save_gb_per_s": gb / save_s,
         "load_s": load_s, "load_gb_per_s": gb / load_s,
@@ -2687,12 +2719,13 @@ def zenflow_checkpoint(torch, zoo, initialize, fa):
     launches of the resumed steps)."""
     from deepspeed_tpu_torch.runtime.optimizer import leaves
 
-    vocab = zoo.get_config("llama3-8b").vocab_size
+    vocab = CKPT_SMALL_VOCAB
 
     def build(seed):
         free_caches(torch)
         model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
-                              dtype=torch.float32, seed=seed)
+                              vocab_size=vocab, dtype=torch.float32,
+                              seed=seed)
         engine, *_ = initialize(model=model,
                                 config=dict(ZENFLOW_CKPT_CONFIG))
         return engine, model
@@ -2750,7 +2783,7 @@ def zenflow_checkpoint(torch, zoo, initialize, fa):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free_caches(torch)
-    return {"layers": f"{CKPT_LAYERS} of 32", "params": n,
+    return {"layers": f"{CKPT_LAYERS} of 32", "params": n, "vocab": vocab,
             "zenflow": ZENFLOW_CKPT_CONFIG["zero_optimization"]["zenflow"],
             "pass_in_flight_at_save": in_flight, "state_gb": state_gb,
             "save_s": save_s, "load_s": load_s, "leaves": leaves_n,
@@ -3878,6 +3911,156 @@ def sparse_train_phase(torch, zoo, initialize, bs, attn):
                   "engine_eval_by_variant": eval_variants}
 
 
+# -- phase 14: ZeRO stages on a one-rank NCCL group ---------------------------
+
+
+def zero_collectives(tf, cfg, stage, gas):
+    """The collectives one step issues on a one-rank group at ``stage``,
+    derived from the model's leaves (a leaf with an ``embed`` dim
+    shards) and its remat setting: per leaf and microbatch (stage 2's
+    gradient scatter, stage 3's gathers and scatters), or per leaf and
+    step (the boundary's all-reduce, stages 1-2's gather of the updated
+    params), plus the global norm's and the mean loss's all-reduces."""
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    axes = dict(flat(tf.logical_axes(cfg)))
+    sharded = [p for p, ax in axes.items() if "embed" in ax]
+    rep = len(axes) - len(sharded)
+    layer = sum(p.startswith("layers/") for p in sharded)
+    top = len(sharded) - layer
+    L, remat = cfg.num_layers, 2 if cfg.remat else 1
+    return {0: {"all_reduce": len(axes) + 2},
+            1: {"all_reduce": len(axes) + 2, "all_gather": len(sharded)},
+            2: {"reduce_scatter": len(sharded) * gas,
+                "all_reduce": rep + 2, "all_gather": len(sharded)},
+            3: {"all_gather": (top + layer * L * remat) * gas,
+                "reduce_scatter": (top + layer * L) * gas,
+                "all_reduce": rep + 2}}[stage]
+
+
+def zero_phase(torch, zoo, initialize, fa, tf, attn):
+    """14a: a one-rank NCCL group through a file store; 14b: ZeRO stages
+    0-3 on 2-layer full-width Llama-3-8B, each stage equal to stage 0
+    bit for bit, its collectives those the plan implies. Returns (the
+    phase's line, flash launches by stage)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+    from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
+
+    t_start = time.perf_counter()
+    L, gas, steps = A4_LAYERS, TRAIN_GAS, ZERO_STEPS
+    cfg = zoo.get_config("llama3-8b", num_layers=L)
+    fixed, _ = fixed_batches(cfg.vocab_size)
+    batches = [fixed[i % 2] for i in range(steps * gas)]
+    want_flash = {"flash_fwd": 2 * L * gas * steps,
+                  "flash_bwd_dkdv": L * gas * steps,
+                  "flash_bwd_dq": L * gas * steps}
+    store = tempfile.mkdtemp(prefix="dstpu_pg_")
+    stages, launches_by_stage = {}, {}
+    ref_losses = ref_masters = None
+    logger = get_comms_logger()
+    try:
+        t0 = time.perf_counter()
+        comm.init_distributed(dist_backend="nccl",
+                              init_method=f"file://{store}/store",
+                              num_processes=1, process_id=0, timeout=600)
+        init_s = time.perf_counter() - t0
+        group = {"backend": comm.get_backend(),
+                 "world_size": comm.get_world_size(),
+                 "rank": comm.get_rank(), "init_s": init_s}
+        if (group["backend"], group["world_size"], group["rank"]) != \
+                ("nccl", 1, 0):
+            fail(f"zero: process group {group}, want nccl, 1, 0")
+        for stage in ZERO_STAGES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = zoo.get_model("llama3-8b", num_layers=L,
+                                  dtype=torch.float32, seed=SEED)
+            engine, *_ = initialize(model=model, config=dict(
+                A4_CONFIG, zero_optimization={"stage": stage},
+                comms_logger={"enabled": True}))
+            if not engine.mesh.distributed or engine._zero is None:
+                fail(f"zero: stage {stage} engine is not on the group")
+            logger.reset()
+            fa.reset_launch_counts()
+            it = iter(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            marks, losses = [], []
+            for _ in range(steps):
+                losses.append(engine.train_batch(it))
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            losses = [float(x) for x in losses]
+            counts = logger.counts()
+            nbytes = logger.totals()
+            launches = {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}
+            dispatch = no_card_losses(attn, f"zero stage {stage}")
+            got = {k: fa.LAUNCHES[k] for k in want_flash}
+            if got != want_flash:
+                fail(f"zero stage {stage}: flash launches {got}, remat "
+                     f"implies {want_flash}")
+            check_tensor_core(f"zero stage {stage}", fa.LAUNCHES,
+                              fa.VARIANT_LAUNCHES,
+                              ("flash_fwd", "flash_bwd_dkdv",
+                               "flash_bwd_dq"))
+            want = {k: v * steps for k, v in
+                    zero_collectives(tf, cfg, stage, gas).items()}
+            if counts != want:
+                fail(f"zero stage {stage}: collectives {counts}, the plan "
+                     f"implies {want}")
+            if not all(np.isfinite(losses)):
+                fail(f"zero stage {stage}: losses {losses}")
+            masters = {p: m.detach().cpu() for p, m in
+                       leaves(engine.opt_state.master)}
+            if ref_losses is None:
+                ref_losses, ref_masters = losses, masters
+            else:
+                if losses != ref_losses:
+                    fail(f"zero stage {stage}: losses {losses} != stage "
+                         f"0's {ref_losses}")
+                bad = [p for p in ref_masters
+                       if not torch.equal(masters[p], ref_masters[p])]
+                if bad or sorted(masters) != sorted(ref_masters):
+                    fail(f"zero stage {stage}: fp32 masters differ from "
+                         f"stage 0's: {bad[:5]}")
+            gaps = np.diff([t0] + marks)
+            stages[str(stage)] = {
+                "losses": losses,
+                "step_s": [float(x) for x in gaps],
+                # the first step carries the warm-up
+                "step_ms_p50": float(np.median(gaps[1:])) * 1e3,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "collectives": counts, "collective_bytes": nbytes,
+                "collectives_per_step": {k: v // steps
+                                         for k, v in counts.items()},
+                "bytes_per_step": {k: v / steps for k, v in nbytes.items()},
+                "launches": launches, "dispatch": dispatch}
+            launches_by_stage[f"zero/stage{stage}"] = launches
+            log(f"zero stage {stage}: step p50 "
+                f"{stages[str(stage)]['step_ms_p50']:.1f} ms, peak "
+                f"{stages[str(stage)]['peak_mem_gb']:.1f} GB, "
+                f"collectives {counts}, bytes "
+                f"{ {k: round(v / 1e9, 3) for k, v in nbytes.items()} } GB")
+            del engine, model, masters, it
+        del ref_masters
+    finally:
+        comm.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"model": "llama3-8b", "layers": f"{L} of 32",
+            "micro": TRAIN_MICRO, "gas": gas, "seq": TRAIN_SEQ,
+            "steps": steps, "group": group, "stages": stages,
+            "stages_equal_stage0_bitwise": True,
+            "collectives_match_plan": True,
+            "wall_s": time.perf_counter() - t_start}, launches_by_stage
+
+
 # -- phase 13: the kernel bench and the v1 inference engine -------------------
 
 
@@ -4708,6 +4891,13 @@ def main():
         f"{a4['pipelined']['step_ms_p50']:.1f} ms a step, losses equal; "
         f"phase 12 took {phase12_s:.0f} s")
 
+    # 14. ZeRO stages 0-3 on a one-rank NCCL group, at 12d's depth; the
+    # group is gone before phase 10 (each stage gates its own dispatch)
+    dispatch["7, 4, 9, 12d"] = no_card_losses(attn, "phases 7, 4, 9, 12d")
+    zero, zero_launches = zero_phase(torch, zoo, initialize, fa, tf, attn)
+    log(f"zero: stages {list(zero['stages'])} equal stage 0 bit for bit, "
+        f"collectives as planned; phase 14 took {zero['wall_s']:.0f} s")
+
     # 10. offload: full depth with the optimizer on the host, then the
     # tiers' parity and a checkpoint through the AIO writer; phase 9's
     # engines are gone
@@ -4758,8 +4948,10 @@ def main():
         torch, zoo, initialize, fa, gm)
     log(f"moe train: {moe_train['step_ms_p50']:.1f} ms per step; "
         f"{time.perf_counter() - t_start:.0f} s since the build began")
-    dispatch["7, 4, 9, 12d, 10, 11, 8b, 5, 6"] = no_card_losses(
-        attn, "phases 7, 4, 9, 12d, 10, 11, 8b, 5, 6")
+    dispatch["10, 11, 8b, 5, 6"] = no_card_losses(
+        attn, "phases 10, 11, 8b, 5, 6")
+    dispatch["14"] = {stage: line["dispatch"]
+                      for stage, line in zero["stages"].items()}
     log(f"impl='auto' dispatch by phases, no measured loss on the card: "
         f"{json.dumps(dispatch)}")
 
@@ -4830,6 +5022,7 @@ def main():
                     "zenflow_checkpoint": zenflow_ckpt_launches[name],
                     **{f"a4/{run}": lc[name]
                        for run, lc in a4_launches.items()},
+                    **{run: lc[name] for run, lc in zero_launches.items()},
                     "v1_forward": v1_paths["v1_forward"][name]},
                 "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
@@ -4848,6 +5041,7 @@ def main():
                                       zenflow_ckpt_launches),
                                      *((f"a4/{run}", lc) for run, lc
                                        in a4_launches.items()),
+                                     *zero_launches.items(),
                                      ("v1_forward",
                                       v1_paths["v1_forward"]))},
                 "max_abs_err": b["max_abs_err"],
@@ -5038,6 +5232,7 @@ def main():
     print(json.dumps({"v1_engine": v1, "phase13_wall_s": phase13_s,
                       "dispatch_by_phases": dispatch}),
           flush=True)
+    print(json.dumps({"zero": zero}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
           flush=True)
     print(card, flush=True)

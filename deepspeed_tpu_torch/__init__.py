@@ -63,15 +63,25 @@ table (``python -m deepspeed_tpu_torch.tools.kernel_bench``) and the
 environment report (``python -m deepspeed_tpu_torch.launcher.report``);
 and the v1 inference engine, ``init_inference`` (``inference.engine``,
 a dense KV cache through ``model_runner.forward_with_cache``).
+
+Slice 16: ZeRO stages 1-3 across ranks on ``torch.distributed`` (NCCL
+on the card, gloo on the CPU): ``comm`` (named-axis collectives, the
+comms logger), ``parallel.topology`` (``build_mesh``,
+``TopologyConfig``), ``runtime.sharding`` (the plan and the stage-3
+gather at use), ``runtime.zero``, ``runtime.sparse_tensor`` and
+``utils.tensor_fragment``; checkpoints saved and loaded at any world
+size.
 """
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch._device import kernels_available, resolve_device
 from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
                                                   init_inference)
+from deepspeed_tpu_torch.parallel.topology import TopologyConfig, build_mesh
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
 from deepspeed_tpu_torch.runtime.engine import initialize
 
 __all__ = ["initialize", "init_inference", "InferenceEngine",
            "kernels_available", "resolve_device", "DeepSpeedDataLoader",
-           "RepeatingLoader"]
+           "RepeatingLoader", "build_mesh", "TopologyConfig", "comm"]

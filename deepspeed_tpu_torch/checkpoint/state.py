@@ -47,11 +47,23 @@ metadata's ``client_optimizer`` record; a load hands them back through
 ``load_state_dict``, so a resumed run steps bit for bit as the
 uninterrupted one. The 1-bit and ZeRO++ branches are not
 here: their config switches raise (ROADMAP queue A item 10). Universal
-checkpoints raise at the config (item 16). The multi-process agreement
-(``_agree``, the publish barrier, ``assert_same_across_processes``) is
-the identity at world size 1, and so is JAX's ``_validate_tag`` (every
-port checkpoint is saved on the one-device mesh); both arrive with
-item 5.
+checkpoints raise at the config (item 16).
+
+Across ranks (ZeRO on a process group) every rank writes the blocks it
+owns: a leaf that shards over the fsdp ranks is one file per block,
+``<leaf>.block<j>of<n>.pt`` (the metadata's ``zero_blocks`` names each
+such leaf and its dim), and rank 0 writes the replicated leaves under
+their plain names, so no rank ever holds more than its own blocks. A
+world-size-1 save is the one-file-a-leaf layout above. The ranks agree
+that their writes are durable (``_agree``) before rank 0 publishes the
+metadata, the manifest and ``latest``, between two barriers. A load
+first asserts that every rank sees the same tag; each rank then maps
+the files that overlap its block of each leaf and copies the overlap,
+so a checkpoint loads at any world size and any stage. A load onto
+another mesh than the save's is legal and loud (JAX's
+``_validate_tag``): a warning, ``resilience.resharded_restore`` counted
+once, and ``checkpoint.tag_validation`` "Fail" refuses it. (The elastic
+batch re-check waits for ROADMAP queue A item 16's elasticity.)
 """
 
 from __future__ import annotations
@@ -66,13 +78,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.resilience.manifest import (CheckpointCorruptError,
                                                      find_latest_valid_tag,
                                                      validate_manifest,
                                                      write_manifest)
 from deepspeed_tpu_torch.resilience.resume import data_cursor
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (
-    make_checkpoint_engine, read_files)
+    leaf_file, make_checkpoint_engine, read_files)
 from deepspeed_tpu_torch.runtime.loss_scaler import LossScaleState
 from deepspeed_tpu_torch.runtime.optimizer import (leaves,
                                                    reset_optimizer_state,
@@ -87,6 +100,7 @@ STATE_DIR = "state"
 FRAMEWORK_VERSION = "0.1.0"  # the project's version (pyproject.toml)
 # the mesh of a one-device JAX engine (its axes in parallel/topology.py)
 MESH_SHAPE = {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
+BLOCKS_KEY = "zero_blocks"  # metadata: {"count": n, "dims": {leaf: dim}}
 OFFLOAD_KEY = "offload_optim_rank0"  # world size 1: one process
 ZENFLOW_KEY = "zenflow_rank0"
 CLIENT_KEY = "opt_client"
@@ -187,6 +201,35 @@ class CheckpointIO:
         opt.load_state_dict({"state": state, "param_groups": groups})
         return nbytes
 
+    def _validate_tag(self, meta: Dict, tag: str) -> None:
+        """A load onto another mesh than the save's (JAX
+        ``_validate_tag``, reference ``_checkpoint_tag_validation``
+        engine.py:4540) is legal, the state resharded, but never silent:
+        a warning and ``resilience.resharded_restore`` counted once;
+        ``checkpoint.tag_validation`` "Fail" refuses it."""
+        if not meta:
+            return
+        e = self.engine
+        saved_mesh = meta.get("mesh_shape")
+        cur_mesh = {k: int(v) for k, v in e.mesh.shape.items()}
+        if not saved_mesh or saved_mesh == cur_mesh:
+            return
+        telemetry.count("resilience.resharded_restore",
+                        reason=f"{saved_mesh} -> {cur_mesh}")
+        logger.warning(
+            f"resharded restore: checkpoint '{tag}' was saved on mesh "
+            f"{saved_mesh} (world_size {meta.get('world_size', '?')}), "
+            f"loading onto {cur_mesh} (world_size "
+            f"{comm.get_world_size()})")
+        mode = e.config.checkpoint.tag_validation.lower()
+        if mode == "ignore":
+            return
+        msg = (f"checkpoint '{tag}' was saved on mesh {saved_mesh}, "
+               f"loading onto {cur_mesh}: state will be resharded")
+        if mode == "fail":
+            raise ValueError(msg)
+        logger.warning(msg)
+
     def _rconfig(self) -> Tuple[bool, bool]:
         """(manifest on, checksums on) from the resilience block."""
         r = self.engine.config.resilience
@@ -207,7 +250,9 @@ class CheckpointIO:
         if e._client_opt is not None:
             state[CLIENT_KEY], client_record = self._client_payload(
                 e._client_opt)
-        self.ckpt_engine.save(os.path.join(ckpt_dir, STATE_DIR), state)
+        count, index, dims = self._blocks(state)
+        self.ckpt_engine.save(os.path.join(ckpt_dir, STATE_DIR),
+                              self._rank_tree(state, count, index, dims))
 
         # data-pipeline cursor: consumed GAS boundaries + loader state,
         # snapshotted at this boundary so auto-resume replays the exact
@@ -224,8 +269,8 @@ class CheckpointIO:
             "global_steps": e.global_steps,
             "global_samples": e.global_samples,
             "skipped_steps": e.skipped_steps,
-            "mesh_shape": dict(MESH_SHAPE),
-            "world_size": 1,
+            "mesh_shape": {k: int(v) for k, v in e.mesh.shape.items()},
+            "world_size": comm.get_world_size(),
             "zero_stage": e.config.zero_optimization.stage,
             "data_cursor": cursor,
             "config": e.config.to_dict(),
@@ -233,6 +278,8 @@ class CheckpointIO:
         }
         if client_record is not None:
             meta["client_optimizer"] = client_record
+        if count > 1:
+            meta[BLOCKS_KEY] = {"count": count, "dims": dims}
         if e.config.checkpoint.async_save:
             # decoupled: 'latest' is published at commit (next GAS boundary
             # or the next save/load), reference engine.py:3273
@@ -244,11 +291,69 @@ class CheckpointIO:
         logger.info(f"saved checkpoint: {ckpt_dir}")
         return ckpt_dir
 
+    def _blocks(self, state) -> Tuple[int, int, Dict[str, int]]:
+        """(blocks a sharded leaf has, this rank's block, leaf path -> its
+        shard dim) for the engine's state tree: the params by their stage-3
+        dims, the masters and the master-shaped optimizer state by their
+        dims from stage 1."""
+        zero = self.engine._zero
+        if zero is None or zero.fsdp_n == 1:
+            return 1, 0, {}
+        masters = dict(leaves(self.engine.opt_state.master)) \
+            if self.engine.opt_state is not None else {}
+        dims: Dict[str, int] = {}
+        for leaf_path, t in leaves(state):
+            top, _, path = leaf_path.strip("/").partition("/")
+            path = "/" + path
+            if top == "params":
+                d = zero.param_dim.get(path)
+            elif top.startswith("opt_") and path in masters and \
+                    t.shape == masters[path].shape:
+                d = zero.opt_dim.get(path)
+            else:
+                d = None
+            if d is not None:
+                dims[leaf_path] = d
+        return zero.fsdp_n, zero.fsdp_index, dims
+
+    def _rank_tree(self, state, count: int, index: int,
+                   dims: Dict[str, int]):
+        """What this rank writes: its block of each sharded leaf (under
+        ``<leaf>.block<index>of<count>``; one writer a block, the rank at
+        dp index 0) and, on rank 0, the replicated leaves."""
+        if comm.get_world_size() == 1:
+            return state
+        coords = self.engine.mesh.coords()
+        writes_blocks = all(v == 0 for a, v in coords.items() if a != "fsdp")
+        out: Dict[str, Any] = {}
+        for leaf_path, t in leaves(state):
+            if leaf_path in dims:
+                if writes_blocks:
+                    set_leaf(out, f"{leaf_path}.block{index}of{count}", t)
+            elif comm.get_rank() == 0:
+                set_leaf(out, leaf_path, t)
+        return out
+
+    @staticmethod
+    def _agree(done: bool, failed: bool) -> Tuple[bool, bool]:
+        """Every rank's (done, failed) folded: (all done, any failed).
+        Every rank with a pending commit calls this in lockstep."""
+        if comm.get_world_size() == 1:
+            return done, failed
+        return (not comm.any_process(not done),
+                comm.any_process(failed))
+
     def _publish(self, tag, save_dir, ckpt_dir, meta, save_latest):
-        """Metadata + manifest + 'latest' pointer, only after the payload
-        is durable. Ordering matters: the manifest (the durability
-        witness) goes down before 'latest', so 'latest' never names a
-        checkpoint without one."""
+        """Barrier + metadata + manifest + 'latest' pointer, only after
+        every rank's payload is durable. Ordering matters: the manifest
+        (the durability witness) goes down before 'latest', so 'latest'
+        never names a checkpoint without one."""
+        comm.barrier()
+        if comm.get_rank() == 0:
+            self._write_published(tag, save_dir, ckpt_dir, meta, save_latest)
+        comm.barrier()  # no rank reads 'latest' before it is written
+
+    def _write_published(self, tag, save_dir, ckpt_dir, meta, save_latest):
         with open(os.path.join(ckpt_dir, METADATA_FILE), "w") as f:
             json.dump(meta, f, indent=2, default=str)
         if self._rconfig()[0]:
@@ -256,7 +361,8 @@ class CheckpointIO:
                 ckpt_dir, tag,
                 global_steps=int(meta.get("global_steps", 0)),
                 world={"mesh_shape": meta.get("mesh_shape", {}),
-                       "process_count": 1, "device_count": 1},
+                       "process_count": meta.get("world_size", 1),
+                       "device_count": meta.get("world_size", 1)},
                 data_cursor=meta.get("data_cursor", {}))
         if save_latest:
             with open(os.path.join(os.path.abspath(save_dir),
@@ -270,7 +376,17 @@ class CheckpointIO:
             return
         tag, save_dir, ckpt_dir, meta, save_latest = self._pending_commit
         self._pending_commit = None
-        self.ckpt_engine.commit(tag)
+        err = None
+        try:
+            self.ckpt_engine.commit(tag)
+        except Exception as e:  # noqa: BLE001 — agreed on below
+            err = e
+        _, any_failed = self._agree(True, err is not None)
+        if any_failed:
+            if err is not None:
+                raise err
+            raise RuntimeError(f"async checkpoint '{tag}' failed on "
+                               "another rank; not publishing")
         self._publish(tag, save_dir, ckpt_dir, meta, save_latest)
         logger.info(f"saved checkpoint: {ckpt_dir}")
 
@@ -279,11 +395,20 @@ class CheckpointIO:
         finished async save; a failed write abandons it and raises."""
         if self._pending_commit is None:
             return
+        err = None
         try:
             done = self.ckpt_engine.maybe_finalize()
-        except Exception:
+        except Exception as e:  # noqa: BLE001 — agreed on below
+            err, done = e, True
+        # every rank must agree the save is done before any enters the
+        # publish barrier (a rank-local error joins the agreement too)
+        done, any_failed = self._agree(done, err is not None)
+        if any_failed:
             self._pending_commit = None
-            raise
+            if err is not None:
+                raise err
+            raise RuntimeError("async checkpoint save failed on another "
+                               "rank; pending save abandoned")
         if done:
             self.commit_pending()
 
@@ -320,6 +445,14 @@ class CheckpointIO:
             except CheckpointCorruptError as err:
                 manifest_err = err
         validate_s = time.perf_counter() - t0
+        # every rank must see the SAME checkpoint; the collective runs
+        # before any early return, or a disagreeing rank would leave its
+        # peers hung inside it
+        comm.assert_same_across_processes(
+            "checkpoint_load",
+            [str(tag) if tag else "<missing-latest>", int(dir_ok),
+             int(meta.get("global_steps", -1)),
+             int(load_optimizer_states), int(manifest_err is None)])
         if tag is None:
             logger.warning(f"no '{LATEST_FILE}' file at {load_dir}; "
                            "nothing loaded")
@@ -344,13 +477,16 @@ class CheckpointIO:
                 f"checkpoint '{tag}' has no manifest (saved before the "
                 "resilience subsystem, or by a non-primary writer): "
                 "accepting without integrity verification")
+        self._validate_tag(meta, str(tag))
 
         t0 = time.perf_counter()
         state_dir = os.path.join(ckpt_dir, STATE_DIR)
         zen_sd = None
         if e._zenflow is not None and load_optimizer_states:
             zen_dir = os.path.join(state_dir, ZENFLOW_KEY)
-            if not os.path.isdir(zen_dir):
+            # agreed on by every rank: one rank raising alone would hang
+            # its peers' next collective
+            if comm.any_process(not os.path.isdir(zen_dir)):
                 raise FileNotFoundError(
                     "zenflow optimizer state missing on at least one "
                     f"process (this rank's path: {zen_dir}). Pass "
@@ -372,7 +508,14 @@ class CheckpointIO:
         state = self._state(optimizer=load_optimizer_states
                             and e._zenflow is None)
         skip = () if load_optimizer_states else ("opt_count",)
-        nbytes, _ = self.ckpt_engine.load(state_dir, state, skip=skip)
+        count, index, dims = self._blocks(state)
+        saved = meta.get(BLOCKS_KEY)
+        if count == 1 and saved is None:
+            nbytes, _ = self.ckpt_engine.load(state_dir, state, skip=skip)
+        else:
+            nbytes = read_blocks(
+                state_dir, state, skip, (count, index, dims),
+                (saved["count"], saved["dims"]) if saved else (1, {}))
         with torch.no_grad():
             if e._zenflow is not None:
                 if zen_sd is not None:
@@ -428,6 +571,64 @@ class CheckpointIO:
                             "bytes_read": nbytes}
         logger.info(f"loaded checkpoint: {ckpt_dir} (tag={tag})")
         return ckpt_dir, meta.get("client_state", {})
+
+
+def read_blocks(path: str, target, skip, layout, saved) -> int:
+    """Fill each leaf of ``target`` (this rank's blocks, or whole leaves)
+    from the files under ``path`` that overlap it, whatever the save's
+    world size: ``layout`` is (blocks, this rank's block, leaf -> dim) of
+    the target, ``saved`` (blocks, leaf -> dim) of the save. Every file is
+    mapped and checked (dtype, whole shape) before any tensor changes.
+    Returns the bytes copied."""
+    count, index, dims = layout
+    saved_count, saved_dims = saved
+    skip = {f"/{k}" for k in skip}
+    pairs = []
+    for leaf_path, dst in leaves(target):
+        if any(leaf_path == s or leaf_path.startswith(s + "/")
+               for s in skip):
+            continue
+        d_t = dims.get(leaf_path)
+        d_s = saved_dims.get(leaf_path)
+        full = list(dst.shape)
+        lo_t = [0] * dst.dim()
+        if d_t is not None:
+            full[d_t] *= count
+            lo_t[d_t] = index * dst.shape[d_t]
+        names = ([(leaf_path, 0)] if d_s is None else
+                 [(f"{leaf_path}.block{j}of{saved_count}", j)
+                  for j in range(saved_count)])
+        for name, j in names:
+            src = torch.load(leaf_file(path, name), map_location="cpu",
+                             weights_only=True, mmap=True)
+            whole = list(src.shape) if isinstance(src, torch.Tensor) else None
+            if whole is not None and d_s is not None:
+                whole[d_s] *= saved_count
+            if whole != full or src.dtype != dst.dtype:
+                got = (whole, src.dtype) if whole is not None \
+                    else type(src).__name__
+                raise ValueError(
+                    f"checkpoint leaf {leaf_path}: saved {got}, the engine "
+                    f"holds {(full, dst.dtype)}")
+            lo_s = [0] * src.dim()
+            if d_s is not None:
+                lo_s[d_s] = j * src.shape[d_s]
+            dv, sv = dst, src
+            for k in range(dst.dim()):
+                a = max(lo_t[k], lo_s[k])
+                b = min(lo_t[k] + dst.shape[k], lo_s[k] + src.shape[k])
+                if a >= b:
+                    break
+                dv = dv.narrow(k, a - lo_t[k], b - a)
+                sv = sv.narrow(k, a - lo_s[k], b - a)
+            else:
+                pairs.append((dv, sv))
+    nbytes = 0
+    with torch.no_grad():
+        for dv, sv in pairs:
+            dv.copy_(sv)
+            nbytes += sv.numel() * sv.element_size()
+    return nbytes
 
 
 def zenflow_tree(zf) -> Dict[str, Any]:

@@ -3,8 +3,9 @@ runs (port of ``deepspeed_tpu/config/config.py``).
 
 Parsed: the batch triple and its solver (``resolve_batch_size``),
 ``steps_per_print``, ``gradient_clipping``, ``seed``, the ``bf16`` and
-``fp16`` blocks, ``optimizer``, ``scheduler``,
-``zero_optimization.stage``, ``.offload_optimizer``
+``fp16`` blocks, ``optimizer``, ``scheduler``, the ``comms_logger``
+block (``CommsLoggerConfig``), ``zero_optimization.stage``,
+``.offload_optimizer``
 (``OffloadOptimizerConfig``) and ``.zenflow`` (``ZenFlowBlockConfig``),
 the ``moe`` block (``ep_size`` 1), the
 ``serving`` block (``ServingConfig``, the serving engine's knobs), the
@@ -41,7 +42,6 @@ UNPORTED_BLOCKS = {
                                 "recomputes every layer)",
     "observability": f"{_A} 14 (observability)",
     "monitor": f"{_A} 14 (observability)",
-    "comms_logger": f"{_A} 14 (observability)",
     "flops_profiler": f"{_A} 16 (profiling)",
     "tensorboard": f"{_A} 14 (observability)",
     "csv_monitor": f"{_A} 14 (observability)",
@@ -56,9 +56,6 @@ UNPORTED_SWITCHES = {
     "wall_clock_breakdown": (False, f"{_A} 14 (observability)"),
     "memory_breakdown": (False, f"{_A} 14 (observability)"),
     "dump_state": (False, f"{_A} 14 (observability)"),
-    "prescale_gradients": (False, f"{_A} 5 (ZeRO and communication)"),
-    "gradient_predivide_factor": (1.0, f"{_A} 5 (ZeRO and communication)"),
-    "communication_data_type": (None, f"{_A} 5 (ZeRO and communication)"),
 }
 # zero_optimization keys: accepted at their "off" values only
 ZERO_SWITCHES = {
@@ -71,8 +68,10 @@ ZERO_SWITCHES = {
     "mics_shard_size": (-1, f"{_A} 10 (ZeRO++ MiCS)"),
     "mics_hierarchical_params_gather": (False, f"{_A} 10 (ZeRO++ MiCS)"),
 }
-# zero_optimization tuning knobs with no effect on one card (they bound
-# bucketing and persistence across ranks)
+# zero_optimization tuning knobs that JAX parses and never reads (XLA
+# schedules and fuses its collectives; ``param_persistence_threshold``
+# feeds only the compile passes, ROADMAP queue A item 16): accepted at any
+# world size, with no effect, as there
 ZERO_NOOP_KEYS = ("reduce_bucket_size", "allgather_bucket_size",
                   "overlap_comm", "contiguous_gradients", "reduce_scatter",
                   "round_robin_gradients", "sub_group_size",
@@ -102,6 +101,20 @@ class OptimizerConfig:
 class SchedulerConfig:
     type: Optional[str] = None
     params: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class CommsLoggerConfig:
+    """The ``comms_logger`` block (reference utils/comms_logging.py:67):
+    ``comm.configure`` arms the comms logger, which records every
+    executed collective (op, input bytes, mesh axis); ``prof_ops``
+    limits it to the named ops. ``debug`` is accepted, as in JAX."""
+
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: list = field(default_factory=list)
 
 
 @dataclass
@@ -186,8 +199,9 @@ class ZenFlowBlockConfig:
 
 @dataclass
 class ZeroConfig:
-    """Stages 0-3 are the same math on one card (the JAX engine's stages
-    are shardings over ranks; sharding is ROADMAP queue A item 5).
+    """Stages 0-3 shard the fp32 masters and moments, then the gradients,
+    then the params over the ranks of a process group (``runtime/zero``);
+    on one process without a group they are the same math.
     ``offload_optimizer`` moves the optimizer to the host
     (``OffloadOptimizerConfig``); ``zenflow`` splits it between the card
     and the host (``ZenFlowBlockConfig``; it needs the cpu tier, which
@@ -217,7 +231,8 @@ class ZeroConfig:
 class MoEConfig:
     """The JAX ``moe`` block. The engine applies ``impl`` to an MoE
     model's config; the other fields are the model zoo's defaults, as in
-    the JAX engine. On one card ``ep_size`` must be 1."""
+    the JAX engine. ``ep_size`` must be 1 (the expert all-to-all across
+    ranks is ROADMAP queue A item 9)."""
 
     enabled: bool = False
     ep_size: int = 1
@@ -454,9 +469,10 @@ class KernelsConfig:
 class CheckpointConfig:
     """The ``checkpoint`` block (reference runtime/config.py:439-471).
     ``async_save`` selects the decoupled checkpoint engine;
-    ``tag_validation`` (Ignore | Warn | Fail, for a checkpoint saved on
-    another mesh) and ``use_node_local_storage`` have no effect on one
-    card, where every checkpoint is saved on the one-device mesh.
+    ``tag_validation`` (Ignore | Warn | Fail) decides what a load onto
+    another mesh than the save's does after its warning (the state is
+    resharded); ``use_node_local_storage`` has no effect (every rank
+    writes its own blocks under one directory).
     ``parallel_write_pipeline`` selects the Fast engine (the payload
     through the pipelined AIO writer); with ``async_save`` as well, the
     decoupled engine wins, with a warning (as in JAX).
@@ -487,8 +503,8 @@ class ResilienceConfig:
     and validates it at load, falling back to the previous good tag;
     ``manifest_checksums`` controls the crc32 pass at load. The
     deadlines and retries (``init_timeout_s`` through ``jitter``) bound
-    the multi-process control-plane operations, of which one card has
-    none (they arrive with ROADMAP queue A item 5)."""
+    the multi-process control-plane operations of ``comm``: the
+    rendezvous, the barrier and the cross-process asserts."""
 
     enabled: bool = True
     preemption_guard: bool = True
@@ -550,6 +566,12 @@ class Config:
     gradient_accumulation_steps: Any = None
     steps_per_print: int = 10
     gradient_clipping: float = 0.0
+    # parsed as JAX parses them; nothing in JAX's engine reads them (its
+    # gradient reductions are XLA's), and the port's reduce in the
+    # gradient's own dtype and divide once after the sum
+    prescale_gradients: bool = False
+    gradient_predivide_factor: float = 1.0
+    communication_data_type: Optional[str] = None
     seed: int = 42
     bf16: BF16Config = field(default_factory=BF16Config)
     fp16: FP16Config = field(default_factory=FP16Config)
@@ -557,6 +579,8 @@ class Config:
     scheduler: Optional[SchedulerConfig] = None
     zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
+    comms_logger: CommsLoggerConfig = field(
+        default_factory=CommsLoggerConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     sparse_attention: Optional[SparseAttentionConfig] = None
     kernels: KernelsConfig = field(default_factory=KernelsConfig)
@@ -596,8 +620,9 @@ class Config:
             zero["zenflow"] = _block(ZenFlowBlockConfig, zero["zenflow"],
                                      "zero_optimization.zenflow")
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
-                  "zero_optimization", "moe", "serving", "sparse_attention",
-                  "kernels", "checkpoint", "resilience", "performance"}
+                  "zero_optimization", "moe", "comms_logger", "serving",
+                  "sparse_attention", "kernels", "checkpoint", "resilience",
+                  "performance"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         known = (scalars | blocks
                  | set(UNPORTED_BLOCKS) | set(UNPORTED_SWITCHES))
@@ -615,6 +640,8 @@ class Config:
                               "scheduler")),
             zero_optimization=_block(ZeroConfig, zero, "zero_optimization"),
             moe=_block(MoEConfig, data.get("moe"), "moe"),
+            comms_logger=_block(CommsLoggerConfig, data.get("comms_logger"),
+                                "comms_logger"),
             serving=_block(ServingConfig, data.get("serving"), "serving"),
             sparse_attention=(None if data.get("sparse_attention") is None
                               else _block(SparseAttentionConfig,
@@ -722,7 +749,8 @@ def load_config(config) -> Config:
     return Config.from_dict(config)
 
 
-__all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "BF16Config",
+__all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "CommsLoggerConfig",
+           "BF16Config",
            "FP16Config", "OffloadOptimizerConfig", "ZenFlowBlockConfig",
            "ZeroConfig", "MoEConfig", "ServingConfig",
            "SparseAttentionConfig", "KernelsConfig", "CheckpointConfig",

@@ -21,11 +21,11 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from deepspeed_tpu_torch.models import transformer as tf
 from deepspeed_tpu_torch.parallel.moe import GateConfig, moe_ffn
+from deepspeed_tpu_torch.runtime import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +101,24 @@ def param_shapes(cfg: MoETransformerConfig) -> Dict[str, Any]:
     return tree
 
 
+def logical_axes(cfg: MoETransformerConfig) -> Dict[str, Any]:
+    """Logical axis names per param leaf (JAX's): the dense model's, with
+    the router and the expert stacks in the MLP's place."""
+    axes = tf.logical_axes(cfg)
+    moe = {
+        "router": ("layers", "embed", None),
+        "experts": {
+            "wi": ("layers", "expert", "embed", "mlp"),
+            "wo": ("layers", "expert", "mlp", "embed"),
+        },
+    }
+    if cfg.activation == "swiglu":
+        moe["experts"]["wg"] = ("layers", "expert", "embed", "mlp")
+    axes["layers"]["moe"] = moe
+    del axes["layers"]["mlp"]
+    return axes
+
+
 def _moe_layer(cfg: MoETransformerConfig, x, layer_params, rope,
                train: bool):
     """Transformer block with the MoE FFN. Returns (x, l_aux fp32)."""
@@ -133,31 +151,28 @@ def _moe_layer(cfg: MoETransformerConfig, x, layer_params, rope,
 def apply(cfg: MoETransformerConfig, params: Dict[str, Any],
           tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
           train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V] fp32, total aux loss fp32)."""
+    """tokens [B, S] -> (logits [B, S, V] fp32, total aux loss fp32);
+    under a ZeRO-3 fetch hook each layer gathers its leaves, as the dense
+    model's ``apply_hidden`` does."""
     B, S = tokens.shape
-    dt = cfg.dtype
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :]
-    x = F.embedding(tokens.long(), params["embed"]["tokens"].to(dt))
-    if cfg.pos_emb == "learned":
-        x = x + params["embed"]["positions"].to(dt)[positions.long()]
+    fetch = sharding.active_fetch()
+    x = tf.embed_tokens(cfg, params, tokens, positions, fetch)
     rope = (tf.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.pos_emb == "rope" else None)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer_params in tf._unstack_layers(params["layers"], cfg.num_layers):
         if cfg.remat:
             x, l_aux = torch.utils.checkpoint.checkpoint(
-                _moe_layer, cfg, x, layer_params, rope, train,
-                use_reentrant=False)
+                tf.fetched_layer, fetch, _moe_layer, cfg, x, layer_params,
+                rope, train, use_reentrant=False)
         else:
-            x, l_aux = _moe_layer(cfg, x, layer_params, rope, train)
+            x, l_aux = tf.fetched_layer(fetch, _moe_layer, cfg, x,
+                                        layer_params, rope, train)
         aux_total = aux_total + l_aux
-    x = tf._norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"]["tokens"].to(dt).t())
-    else:
-        logits = torch.matmul(x, params["unembed"]["kernel"].to(dt))
-    return logits.float(), aux_total
+    x = tf.final_norm_of(cfg, params, x, fetch)
+    return tf.unembed(cfg, params, x, fetch), aux_total
 
 
 def loss_fn(cfg: MoETransformerConfig, params: Dict[str, Any],
@@ -193,4 +208,4 @@ class MoETransformerLM(tf.TransformerLM):
 
 
 __all__ = ["MoETransformerConfig", "MoETransformerLM", "apply", "loss_fn",
-           "param_shapes"]
+           "logical_axes", "param_shapes"]

@@ -34,6 +34,7 @@ from torch import nn
 
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.ops.attention import multi_head_attention
+from deepspeed_tpu_torch.runtime import sharding
 
 # JAX config switches of branches this package does not run yet: field ->
 # (the values that mean "off", what to port first)
@@ -47,8 +48,8 @@ _UNPORTED_SWITCHES = {
     "tiled_mlp": ((0, 1), f"{_A11} (tiled MLP, tiled_compute.py)"),
     "fp8_mlp": ((False,), "ROADMAP queue A item 10 (fp8 MLP, "
                           "ops/fp_quantizer.py)"),
-    "param_host_offload": ((False,), "ROADMAP queue A item 12 (parameter "
-                                     "offload)"),
+    "param_host_offload": ((False,), f"{_A11} (parameter offload, "
+                                     "runtime/param_stream.py)"),
 }
 
 
@@ -233,6 +234,47 @@ def _is_leaf(node) -> bool:
     return isinstance(node, tuple)
 
 
+def logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Logical axis names per param leaf (JAX's; they drive the ZeRO
+    sharding, ``runtime/sharding.py``)."""
+    axes: Dict[str, Any] = {
+        "embed": {"tokens": ("vocab", "embed")},
+        "layers": {
+            "attn": {
+                "wq": ("layers", "embed", "heads", "head_dim"),
+                "wk": ("layers", "embed", "kv_heads", "head_dim"),
+                "wv": ("layers", "embed", "kv_heads", "head_dim"),
+                "wo": ("layers", "heads", "head_dim", "embed"),
+            },
+            "mlp": {
+                "wi": ("layers", "embed", "mlp"),
+                "wo": ("layers", "mlp", "embed"),
+            },
+            "ln1": {"scale": ("layers", "embed")},
+            "ln2": {"scale": ("layers", "embed")},
+        },
+        "final_norm": {"scale": ("embed",)},
+    }
+    if cfg.norm == "layernorm":
+        axes["layers"]["ln1"]["bias"] = ("layers", "embed")
+        axes["layers"]["ln2"]["bias"] = ("layers", "embed")
+        axes["final_norm"]["bias"] = ("embed",)
+    if cfg.use_biases:
+        axes["layers"]["attn"]["bq"] = ("layers", "heads", "head_dim")
+        axes["layers"]["attn"]["bk"] = ("layers", "kv_heads", "head_dim")
+        axes["layers"]["attn"]["bv"] = ("layers", "kv_heads", "head_dim")
+        axes["layers"]["attn"]["bo"] = ("layers", "embed")
+        axes["layers"]["mlp"]["bi"] = ("layers", "mlp")
+        axes["layers"]["mlp"]["bo"] = ("layers", "embed")
+    if cfg.pos_emb == "learned":
+        axes["embed"]["positions"] = ("seq", "embed")
+    if cfg.activation == "swiglu":
+        axes["layers"]["mlp"]["wg"] = ("layers", "embed", "mlp")
+    if not cfg.tie_embeddings:
+        axes["unembed"] = {"kernel": ("embed", "vocab")}
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # training forward
 # ---------------------------------------------------------------------------
@@ -324,30 +366,69 @@ def _unstack_layers(layers: Dict[str, Any], num_layers: int):
     return [pick(views, l) for l in range(num_layers)]
 
 
+def fetched_layer(fetch, fn, cfg, x, layer_params, *args):
+    """``fn(cfg, x, layer_params, *args)`` on the layer's gathered
+    leaves when a ZeRO-3 fetch hook is on (``runtime/sharding.py``); a
+    remat'd layer runs this whole, so its recompute gathers again."""
+    if fetch is not None:
+        layer_params = fetch.layer(layer_params)
+    return fn(cfg, x, layer_params, *args)
+
+
+def embed_tokens(cfg, params, tokens, positions, fetch):
+    """The token (and learned position) embeddings in cfg.dtype, each
+    table gathered at its use under a fetch hook."""
+    dt = cfg.dtype
+    x = F.embedding(tokens.long(),
+                    sharding.fetched(fetch, params, "/embed/tokens").to(dt))
+    if cfg.pos_emb == "learned":
+        x = x + sharding.fetched(fetch, params, "/embed/positions").to(
+            dt)[positions.long()]
+    return x
+
+
+def final_norm_of(cfg, params, x, fetch):
+    return _norm(x, {k: sharding.fetched(fetch, params, f"/final_norm/{k}")
+                     for k in params["final_norm"]}, cfg.norm, cfg.norm_eps)
+
+
+def unembed(cfg, params, x, fetch):
+    """fp32 logits of the hidden states (the LM head gathered at its use
+    under a fetch hook)."""
+    if cfg.tie_embeddings:
+        table = sharding.fetched(fetch, params, "/embed/tokens")
+        return torch.matmul(x, table.to(cfg.dtype).t()).float()
+    kernel = sharding.fetched(fetch, params, "/unembed/kernel")
+    return torch.matmul(x, kernel.to(cfg.dtype)).float()
+
+
 def apply_hidden(cfg: TransformerConfig, params: Dict[str, Any],
                  tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
                  final_norm: bool = True) -> torch.Tensor:
     """Forward pass up to (and including, unless ``final_norm=False``)
-    the final norm: tokens [B, S] -> hidden [B, S, H] in cfg.dtype."""
+    the final norm: tokens [B, S] -> hidden [B, S, H] in cfg.dtype. Under
+    a ZeRO-3 fetch hook (``sharding.active_fetch``) each layer gathers
+    its leaves inside the layer (JAX's ``streamed_layers_prefetch(fetch=
+    fsdp_gather_slice, grad_sink=fsdp_scatter_grads)``), and the
+    embeddings and the final norm are gathered at their use."""
     B, S = tokens.shape
-    dt = cfg.dtype
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :]
-    x = F.embedding(tokens.long(), params["embed"]["tokens"].to(dt))
-    if cfg.pos_emb == "learned":
-        x = x + params["embed"]["positions"].to(dt)[positions.long()]
+    fetch = sharding.active_fetch()
+    x = embed_tokens(cfg, params, tokens, positions, fetch)
     rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.pos_emb == "rope" else None)
     for layer_params in _unstack_layers(params["layers"], cfg.num_layers):
         if cfg.remat:
             x = torch.utils.checkpoint.checkpoint(
-                _layer, cfg, x, layer_params, rope, use_reentrant=False)
+                fetched_layer, fetch, _layer, cfg, x, layer_params, rope,
+                use_reentrant=False)
         else:
-            x = _layer(cfg, x, layer_params, rope)
+            x = fetched_layer(fetch, _layer, cfg, x, layer_params, rope)
     if not final_norm:
         return x
-    return _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return final_norm_of(cfg, params, x, fetch)
 
 
 def apply(cfg: TransformerConfig, params: Dict[str, Any],
@@ -355,11 +436,7 @@ def apply(cfg: TransformerConfig, params: Dict[str, Any],
           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward pass: tokens [B, S] -> logits [B, S, V] float32."""
     x = apply_hidden(cfg, params, tokens, positions)
-    if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"]["tokens"].to(cfg.dtype).t())
-    else:
-        logits = torch.matmul(x, params["unembed"]["kernel"].to(cfg.dtype))
-    return logits.float()
+    return unembed(cfg, params, x, sharding.active_fetch())
 
 
 def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],

@@ -1,10 +1,11 @@
 """Chaos harness: injected faults with assertable outcomes (copy of
 ``deepspeed_tpu/resilience/chaos.py``, which imports no JAX).
 
-In the port the engine calls ``on_step`` and ``on_input_batch``; the
-collective and wire hooks wait for their callers (the communication
-layer, ROADMAP queue A item 5, and the serving fleet's transport, item
-13), and the flight recorder and journal records for item 14.
+In the port the engine calls ``on_step`` and ``on_input_batch``, and
+``comm`` calls ``on_collective`` at each control-plane op (the barrier
+and the cross-process asserts, as in JAX); the wire hooks wait for the
+serving fleet's transport (ROADMAP queue A item 13), and the flight
+recorder and journal records for item 14.
 
 Fault tolerance that has never met a fault is a hypothesis. This module
 injects the failures the resilience subsystem claims to survive — a rank

@@ -2,8 +2,11 @@
 
 ``DeepSpeedDataLoader`` batches an indexable or iterable dataset into
 numpy batches (dicts of stacked arrays, or whatever ``collate_fn``
-returns); the engine moves each batch to its device. One card means world
-size 1: the loader reads the whole sample space. The index order is a
+returns); the engine moves each batch to its device. Across ranks each
+process reads its contiguous share of the sample space (JAX's
+``_num_procs`` / ``_proc_id``: the process group's world size and rank,
+taken when the loader is built); one process reads all of it. The
+index order is a
 pure function of ``(seed, epoch)`` (``np.random.default_rng(seed +
 epoch)``, as in JAX), so a given seed and epoch give JAX's batches.
 ``RepeatingLoader`` restarts an exhausted loader at the next epoch.
@@ -38,8 +41,7 @@ def default_collate(samples: Sequence[Any]):
 
 
 class DeepSpeedDataLoader:
-    """Batches an indexable or iterable dataset (world size 1: the
-    JAX loader's one-process case)."""
+    """Batches an indexable or iterable dataset for this rank."""
 
     def __init__(self, dataset, batch_size: int,
                  collate_fn: Optional[Callable] = None,
@@ -52,6 +54,10 @@ class DeepSpeedDataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self._epoch = 0
+        from deepspeed_tpu_torch import comm
+
+        self._num_procs = comm.get_world_size()
+        self._proc_id = comm.get_rank()
         self._warned_stream_shuffle = False
         try:
             self._len = len(dataset)
@@ -61,8 +67,9 @@ class DeepSpeedDataLoader:
     def __len__(self):
         if self._len is None:
             raise TypeError("iterable dataset has no length")
-        n = self._len // self.batch_size
-        if not self.drop_last and self._len % self.batch_size:
+        per_proc = self._len // self._num_procs
+        n = per_proc // self.batch_size
+        if not self.drop_last and per_proc % self.batch_size:
             n += 1
         return n
 
@@ -101,15 +108,19 @@ class DeepSpeedDataLoader:
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(idx)
-        end = (self._len - self._len % self.batch_size if self.drop_last
-               else self._len)
+        per_proc = self._len // self._num_procs
+        idx = idx[self._proc_id * per_proc:(self._proc_id + 1) * per_proc]
+        end = (per_proc - per_proc % self.batch_size if self.drop_last
+               else per_proc)
         for start in range(0, end, self.batch_size):
             chunk = idx[start:start + self.batch_size]
             yield self.collate_fn([self.dataset[int(i)] for i in chunk])
 
     def _iter_stream(self):
         buf = []
-        for sample in self.dataset:
+        for i, sample in enumerate(self.dataset):
+            if i % self._num_procs != self._proc_id:
+                continue
             buf.append(sample)
             if len(buf) == self.batch_size:
                 yield self.collate_fn(buf)

@@ -35,9 +35,27 @@ dispatcher (``ops.attention.set_kernel_config``, JAX
 The engine takes its fp32 masters from the model's current tensors (a
 model built in fp32 shares them, so its parameters follow training) and
 keeps compute-dtype params (``config.compute_dtype``) that require grad;
-the model's forward runs in that dtype. ZeRO stages 0-3 are accepted and
-are the same math at world size 1; sharding over ranks is ROADMAP queue
-A item 5.
+the model's forward runs in that dtype.
+
+ZeRO across ranks (``comm``, ``parallel/topology``,
+``runtime/sharding`` and ``runtime/zero``): ``initialize`` joins the
+job's process group (``comm.init_distributed``: NCCL on the card, gloo
+on the CPU) and builds JAX's default mesh, fsdp = world at stage >= 1,
+dp = world at stage 0; the batch triple is solved against the
+data-parallel size and each rank's data iterator yields its own rows.
+Stage 1 steps each rank's block of the fp32 masters and moments (the
+``embed`` dim of each leaf over the fsdp ranks) and all-gathers the
+updated compute params; stage 2 reduce-scatters each gradient as it is
+ready (the fp32 accumulators of GAS > 1 are blocks too); stage 3 keeps
+the compute params as blocks and gathers each layer at its use
+(``sharding.param_fetch``), its gradient reduce-scattered in the
+backward. The global-norm clip sums each rank's part and all-reduces
+one fp32 scalar; fp16's overflow decision is agreed across ranks; the
+loss is averaged over the ranks. Without a process group (one process)
+the engine runs as before, with no collective. At world size > 1 the
+optimizer offload tiers, ZenFlow, MoE models, a client optimizer or a
+non-elementwise optimizer at stage >= 1, and mesh axes other than dp
+and fsdp raise ``NotImplementedError`` naming their ROADMAP item.
 
 ZeRO-Offload (``zero_optimization.offload_optimizer``, device cpu or
 nvme; ``runtime/offload.py``): only the compute-dtype params and their
@@ -113,17 +131,20 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.checkpoint.state import (CheckpointIO,
                                                   module_state_keys)
 from deepspeed_tpu_torch.config.config import (Config, OptimizerConfig,
                                                load_config)
 from deepspeed_tpu_torch.models import moe_transformer
+from deepspeed_tpu_torch.models import transformer as tf_model
 from deepspeed_tpu_torch.models.convert import fp32_tree
 from deepspeed_tpu_torch.models.transformer import loss_fn
 from deepspeed_tpu_torch.ops import attention as attn_ops
 from deepspeed_tpu_torch.ops.blocksparse_attention import \
     from_config as sparse_from_config
+from deepspeed_tpu_torch.parallel import topology as topo
 from deepspeed_tpu_torch.resilience import resume
 from deepspeed_tpu_torch.resilience.chaos import get_chaos_injector
 from deepspeed_tpu_torch.resilience.policy import (_DeadlineExpired,
@@ -135,27 +156,59 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
                                                      update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
+from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.runtime.optimizer import (
-    MixedPrecisionState, apply_client_update, apply_mixed_precision_update,
-    get_base_optimizer, global_norm, init_mixed_precision, leaves, tree_map)
+    SGD, Adagrad, Adam, Lion, MixedPrecisionState, apply_client_update,
+    apply_mixed_precision_update, get_base_optimizer, global_norm,
+    init_mixed_precision, leaves, set_leaf, tree_map)
 from deepspeed_tpu_torch.runtime.prefetch import (PrefetchingIterator,
                                                   map_batch, to_device_async,
                                                   wait_ready)
 from deepspeed_tpu_torch.runtime.zenflow import (ZenFlowConfig,
                                                  ZenFlowOptimizer)
+from deepspeed_tpu_torch.runtime.zero import ZeroPartition
 from deepspeed_tpu_torch.utils import memspace
 
 logger = logging.getLogger(__name__)
+_A = "ROADMAP queue A item"
+# the optimizers whose step is elementwise, so a rank can step its block
+# of the masters alone (Lamb's trust ratio, Adafactor's factored moments
+# and Muon's Newton-Schulz read whole leaves)
+ELEMENTWISE_OPTIMIZERS = (Adam, SGD, Lion, Adagrad)
+
+
+def _on_mesh(method):
+    """Run an engine method with the engine's mesh as the global one (two
+    engines in one process each set it at init; the collectives read
+    it, in the backward too)."""
+    def wrapper(self, *args, **kwargs):
+        with topo.use_mesh(self.mesh):
+            return method(self, *args, **kwargs)
+
+    wrapper.__name__ = method.__name__
+    wrapper.__doc__ = method.__doc__
+    return wrapper
+
+
+def _map_with_path(fn, tree, prefix: str = ""):
+    return {k: (_map_with_path(fn, v, f"{prefix}/{k}")
+                if isinstance(v, dict) else fn(f"{prefix}/{k}", v))
+            for k, v in tree.items()}
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
-               training_data=None, lr_scheduler=None, collate_fn=None,
-               config=None, config_params=None, device: DeviceLike = None):
+               training_data=None, lr_scheduler=None, mesh=None,
+               topology=None, dist_init_required: Optional[bool] = None,
+               collate_fn=None, config=None, config_params=None,
+               device: DeviceLike = None):
     """Reference-parity entry point. ``model`` is a ``TransformerLM`` or
     an ``MoETransformerLM`` (``models/zoo.get_model``), or a ``loss_fn``
     with its ``model_parameters`` (a dict tree of tensors or numpy
     arrays; ``loss_fn(params, batch)`` returns a loss or ``(loss,
-    aux)``); ``device`` defaults to the card. ``optimizer`` is a client
+    aux)``); ``device`` defaults to the card. The job's process group is
+    joined first (``comm.init_distributed``; nothing for one process);
+    ``mesh`` (``parallel/topology.build_mesh``) or ``topology`` (its
+    sizes) replace the default mesh. ``optimizer`` is a client
     optimizer (a ``torch.optim.Optimizer`` over the model's fp32
     parameters, or a callable ``params -> Optimizer``) and
     ``lr_scheduler`` a client LR scheduler, stored and returned as JAX
@@ -167,8 +220,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     config = config if config is not None else config_params
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
-    engine = Engine(model, load_config(config), device=device,
-                    training_data=training_data, collate_fn=collate_fn,
+    comm.init_distributed(dist_init_required=dist_init_required,
+                          device=resolve_device(device))
+    engine = Engine(model, load_config(config), device=device, mesh=mesh,
+                    topology=topology, training_data=training_data,
+                    collate_fn=collate_fn,
                     model_parameters=model_parameters,
                     client_optimizer=optimizer, lr_scheduler=lr_scheduler)
     return (engine, engine.optimizer, engine.training_dataloader,
@@ -236,7 +292,8 @@ class Engine:
     the same step through ``forward`` / ``backward`` / ``step``."""
 
     def __init__(self, model, config: Config, device: DeviceLike = None,
-                 training_data=None, collate_fn=None, model_parameters=None,
+                 mesh=None, topology=None, training_data=None,
+                 collate_fn=None, model_parameters=None,
                  client_optimizer=None, lr_scheduler=None):
         self.device = resolve_device(device)
         if callable(model) and not hasattr(model, "params"):
@@ -253,7 +310,15 @@ class Engine:
                              "model or pass device=")
         self.model = model
         self.config = config
-        config.resolve_batch_size(1)  # one card: world size 1
+        self._client_optimizer_present = client_optimizer is not None
+        # the mesh (JAX engine.py:161-167): the ranks over the named axes
+        self.mesh = mesh if mesh is not None else \
+            self._default_mesh(topology)
+        topo.set_global_mesh(self.mesh)
+        self.dp_world_size = topo.get_data_parallel_world_size(self.mesh)
+        config.resolve_batch_size(self.dp_world_size)
+        self.plan = sharding.make_sharding_plan(config, self.mesh)
+        comm.configure(config)
         self.micro_batch_size = config.train_micro_batch_size_per_chip
         self.gradient_accumulation_steps = config.gradient_accumulation_steps
         self.train_batch_size = config.train_batch_size
@@ -277,7 +342,6 @@ class Engine:
         # a client optimizer steps the masters in the configured
         # optimizer's place; as in JAX it then has no schedule of the
         # engine's, and ``lr_scheduler`` is the client's, returned as is
-        self._client_optimizer_present = client_optimizer is not None
         self._client_opt = None
         self.lr_schedule = (None if self._client_optimizer_present else
                             get_lr_schedule(config.scheduler,
@@ -285,6 +349,19 @@ class Engine:
         self.lr_scheduler = lr_scheduler or self.lr_schedule
         cdt = self.compute_dtype
         zero = config.zero_optimization
+        # ZeRO across ranks: on a process group (any world size)
+        self._zero: Optional[ZeroPartition] = None
+        self._fetch: Optional[sharding.LayerFetch] = None
+        if self.mesh.distributed:
+            self._check_world(model)
+        if self.mesh.distributed and \
+                zero.offload_device not in ("cpu", "nvme"):
+            logical = self._logical_axes(model)
+            self._zero = ZeroPartition(self.plan, self.mesh, logical,
+                                       zero.stage)
+            self._zero.check(model.params())
+            if any(d is not None for d in self._zero.param_dim.values()):
+                self._fetch = sharding.LayerFetch(logical)
         if zero.zenflow is not None and zero.offload_device != "cpu":
             raise ValueError(
                 "zero_optimization.zenflow requires "
@@ -310,18 +387,31 @@ class Engine:
         else:
             self.tx, self._base_lr = get_base_optimizer(config.optimizer,
                                                         self.lr_schedule)
-            self.opt_state = init_mixed_precision(model.params(), self.tx)
-            with torch.no_grad():
-                self.params = tree_map(
-                    lambda m: m.to(cdt, copy=True).requires_grad_(),
-                    self.opt_state.master)
+            if self._zero is not None:
+                self._init_zero_state(model)
+            else:
+                self.opt_state = init_mixed_precision(model.params(),
+                                                      self.tx)
+                with torch.no_grad():
+                    self.params = tree_map(
+                        lambda m: m.to(cdt, copy=True).requires_grad_(),
+                        self.opt_state.master)
         self.loss_scale_state = init_loss_scale(config.fp16)
         self._offloaded_states: Optional[list] = None
         # GAS > 1: fp32 accumulators, one per parameter, filled by the
         # hooks during backward and dropped after each update (with the
-        # optimizer offloaded the grads accumulate in p.grad instead)
+        # optimizer offloaded the grads accumulate in p.grad instead);
+        # ZeRO's reduce-scattered gradient blocks at GAS 1
         self._grad_acc: Dict[torch.Tensor, torch.Tensor] = {}
-        if self.gradient_accumulation_steps > 1 and not self._host_tier:
+        self._grad_shards: Dict[torch.Tensor, torch.Tensor] = {}
+        self._scatter_dims: Dict[torch.Tensor, int] = {}
+        if self._zero is not None:
+            for path, p in leaves(self.params):
+                d = self._zero.scatter_dim(path)
+                if d is not None:
+                    self._scatter_dims[p] = d
+        if (self.gradient_accumulation_steps > 1 or self._scatter_dims) \
+                and not self._host_tier:
             # the hooks hold the engine weakly: a bound method would make a
             # cycle (engine -> params -> hook -> engine) that keeps the
             # card's memory until the garbage collector runs
@@ -330,7 +420,7 @@ class Engine:
             def fold(p: torch.Tensor) -> None:
                 engine = ref()
                 if engine is not None:  # else the engine is gone
-                    engine._fold_grad(p)
+                    engine._on_grad(p)
 
             for _, p in leaves(self.params):
                 p.register_post_accumulate_grad_hook(fold)
@@ -353,13 +443,120 @@ class Engine:
             self.training_dataloader = DeepSpeedDataLoader(
                 training_data, batch_size=self.micro_batch_size,
                 collate_fn=collate_fn)
-        n_params = sum(p.numel() for _, p in leaves(self.params))
+        n_params = sum(p.numel() for _, p in leaves(model.params()))
+        # every rank must have resolved the same geometry (reference
+        # assert_ints_same_as_other_ranks at ZeRO init)
+        comm.assert_same_across_processes(
+            "engine_init", [
+                self.micro_batch_size, self.gradient_accumulation_steps,
+                self.train_batch_size, config.zero_optimization.stage,
+                n_params] + [f"{a}={s}" for a, s in self.mesh.shape.items()])
         logger.info(
             f"engine ready: {n_params / 1e6:.1f}M params, zero_stage="
-            f"{config.zero_optimization.stage}, micro="
+            f"{config.zero_optimization.stage}, dp={self.dp_world_size}, "
+            f"micro="
             f"{self.micro_batch_size}, gas="
             f"{self.gradient_accumulation_steps}, dtype={cdt}, "
             f"device={self.device}")
+
+    def _default_mesh(self, topology):
+        """JAX's default mesh (``engine.py:654-679``) over the world's
+        ranks: fsdp = world at stage >= 1, dp = world at stage 0 (ep
+        from the moe block; pp, tp and sp blocks raise at the config)."""
+        if topology is not None:
+            return topo.build_mesh(topology)
+        cfg = self.config
+        sizes = dict(ep=cfg.moe.ep_size if cfg.moe.enabled else 1)
+        if cfg.zero_optimization.stage >= 1:
+            sizes.update(fsdp=-1, dp=1)
+        else:
+            sizes.update(dp=-1, fsdp=1)
+        return topo.build_mesh(topo.TopologyConfig(**sizes))
+
+    def _check_world(self, model) -> None:
+        """What does not run across ranks yet raises, naming its item."""
+        world = comm.get_world_size()
+        if world <= 1:
+            return
+        zero = self.config.zero_optimization
+        if zero.offload_device in ("cpu", "nvme") or zero.zenflow is not None:
+            raise NotImplementedError(
+                f"zero_optimization.offload_optimizer / zenflow at world "
+                f"size {world}: the host optimizer tiers run on one rank; "
+                f"across ranks they are {_A} 5's leftover (JAX config C, "
+                "ZenFlow on the fsdp mesh)")
+        if isinstance(getattr(model, "config", None),
+                      moe_transformer.MoETransformerConfig):
+            raise NotImplementedError(
+                f"an MoE model at world size {world}: {_A} 9 (MoE across "
+                "ranks: the expert all-to-all and the router's losses over "
+                "the global batch)")
+        for axis, item in (("pp", 11), ("sp", 11), ("tp", 11), ("ep", 9)):
+            if self.mesh.shape[axis] > 1:
+                raise NotImplementedError(
+                    f"mesh axis {axis}={self.mesh.shape[axis]}: {_A} "
+                    f"{item}")
+        if zero.stage >= 1 and self._client_optimizer_present:
+            raise NotImplementedError(
+                f"a client optimizer at ZeRO stage {zero.stage} and world "
+                f"size {world}: it steps whole tensors, the ranks hold "
+                f"blocks of the masters ({_A} 5's leftover)")
+
+    def _logical_axes(self, model) -> Dict[str, Any]:
+        """The model's logical axes (JAX's ``logical_axes``); a ``(loss_fn,
+        params)`` pair takes JAX's fallback: dim 0 is the embed dim."""
+        if isinstance(model, _FnModel):
+            return tree_map(lambda p: tuple("embed" if i == 0 else None
+                                            for i in range(p.dim())),
+                            model.params())
+        if isinstance(model.config, moe_transformer.MoETransformerConfig):
+            return moe_transformer.logical_axes(model.config)
+        return tf_model.logical_axes(model.config)
+
+    @torch.no_grad()
+    def _init_zero_state(self, model) -> None:
+        """ZeRO's state on a process group: this rank's block of each fp32
+        master (and the moments beside it) and the compute params, full
+        or (stage 3) this rank's block. At one fsdp rank a block is the
+        whole leaf: an fp32 model then shares its tensors with the
+        masters, as without a process group."""
+        zero = self._zero
+        if zero.fsdp_n > 1 and not isinstance(self.tx,
+                                              ELEMENTWISE_OPTIMIZERS):
+            raise NotImplementedError(
+                f"optimizer {type(self.tx).__name__} at ZeRO stage "
+                f"{zero.stage} over {zero.fsdp_n} ranks: its step reads "
+                f"whole leaves, the ranks hold blocks ({_A} 5's leftover)")
+        src = model.params()
+
+        def master(path, p):
+            blk = zero.block(path, p.detach(), "opt")
+            return blk.clone() if blk.shape != p.shape else blk
+
+        self.opt_state = init_mixed_precision(_map_with_path(master, src),
+                                              self.tx)
+        self.params = _map_with_path(
+            lambda path, p: zero.block(path, p.detach(), "param").to(
+                self.compute_dtype, copy=True).contiguous().requires_grad_(),
+            src)
+
+    def shard_batch(self, batch, leading_dims: int = 1):
+        """This process's batch on the engine's device (JAX
+        ``engine.py:1098``): as in JAX's multi-process contract, each
+        rank's data iterator yields the rank's own rows, which
+        ``topology.batch_sharding(mesh).take`` cuts from a global batch."""
+        return self._to_device(batch)
+
+    def _model_loss(self, batch):
+        """The model's (loss, aux) on ``batch``; at stage 3 under the fetch
+        hook (a ``(loss_fn, params)`` model gathers its whole tree)."""
+        if self._fetch is None:
+            return self._loss_fn(self.model_config, self.params, batch)
+        if isinstance(self.model, _FnModel):
+            return self._loss_fn(self.model_config,
+                                 self._fetch.tree(self.params), batch)
+        with sharding.param_fetch(self._fetch):
+            return self._loss_fn(self.model_config, self.params, batch)
 
     def _compute_params(self, src):
         with torch.no_grad():
@@ -619,19 +816,46 @@ class Engine:
         return self._loss_scale()
 
     @torch.no_grad()
-    def _fold_grad(self, p: torch.Tensor) -> None:
-        """Post-accumulate hook (GAS > 1): ``p.grad`` (the gradient of one
-        microbatch's ``loss * scale``, compute dtype) into p's fp32
-        accumulator as ``g.float() * (1/gas)``, then free it: the product
-        and the sum each round once, as JAX's ``acc + g * (1/gas)``."""
-        g = p.grad.float().mul_(1.0 / self.gradient_accumulation_steps)
+    def _on_grad(self, p: torch.Tensor) -> None:
+        """Post-accumulate hook: a gradient that shards while its param
+        does not (ZeRO stage 2) is reduce-scattered to this rank's block
+        at once and the full one freed; at GAS > 1 the (block of the)
+        gradient folds into its fp32 accumulator."""
+        dim = self._scatter_dims.get(p)
+        if dim is None:
+            if self.gradient_accumulation_steps > 1:
+                self._fold_grad(p)
+            return
+        g = comm.reduce_scatter(p.grad, "fsdp", scatter_dim=dim)
         p.grad = None
+        if self.gradient_accumulation_steps > 1:
+            self._fold(p, g)
+        elif p in self._grad_shards:
+            self._grad_shards[p].add_(g)
+        else:
+            self._grad_shards[p] = g
+
+    @torch.no_grad()
+    def _fold_grad(self, p: torch.Tensor) -> None:
+        """GAS > 1: ``p.grad`` into p's fp32 accumulator, then freed."""
+        g = p.grad
+        p.grad = None
+        self._fold(p, g)
+
+    @torch.no_grad()
+    def _fold(self, p: torch.Tensor, g: torch.Tensor) -> None:
+        """``g`` (the gradient of one microbatch's ``loss * scale``,
+        compute dtype) into p's fp32 accumulator as ``g.float() *
+        (1/gas)``: the product and the sum each round once, as JAX's
+        ``acc + g * (1/gas)``."""
+        g = g.float().mul_(1.0 / self.gradient_accumulation_steps)
         acc = self._grad_acc.get(p)
         if acc is None:
             self._grad_acc[p] = g
         else:
             acc.add_(g)
 
+    @_on_mesh
     def train_batch(self, data_iter=None) -> torch.Tensor:
         """One training step over ``gradient_accumulation_steps``
         microbatches from ``data_iter`` (default: a fresh pass over the
@@ -649,7 +873,7 @@ class Engine:
             self._chaos.on_step(self.global_steps + 1)
         micro = []
         for mb in batches:
-            loss, aux = self._loss_fn(self.model_config, self.params, mb)
+            loss, aux = self._model_loss(mb)
             (loss * self._backward_scale()).backward()
             micro.append((loss.detach(), aux))
         return self._apply_update(micro, depth=depth)
@@ -715,10 +939,22 @@ class Engine:
                 grads = tree_map(lambda p: self._grad_acc.get(p),
                                  self.params)
             else:
-                grads = tree_map(lambda p: p.grad, self.params)
+                grads = tree_map(lambda p: self._grad_shards.get(p, p.grad),
+                                 self.params)
+            kw = {}
+            if self._zero is not None:
+                grads = self._zero_grads(grads)
             overflow = has_overflow(g for _, g in leaves(grads)) \
                 if fp16 else False
-            kw = dict(grad_clip=self.config.gradient_clipping,
+            if self._zero is not None:
+                if fp16:  # no rank skips a step another takes
+                    overflow = comm.any_process(overflow)
+                kw = dict(gnorm=global_norm(
+                    grads, scale if fp16 else None,
+                    include=self._zero.owned,
+                    reduce=self._zero.norm_reduce),
+                    publish=self._zero.publish)
+            kw.update(grad_clip=self.config.gradient_clipping,
                       grad_scale=scale if fp16 else None, skip=overflow)
             if self._client_opt is not None:
                 gnorm = apply_client_update(self.opt_state, grads,
@@ -730,6 +966,7 @@ class Engine:
         for _, p in leaves(self.params):
             p.grad = None
         self._grad_acc = {}
+        self._grad_shards = {}
         if fp16:
             self.loss_scale_state = update_loss_scale(
                 self.loss_scale_state, overflow, self.config.fp16)
@@ -739,6 +976,9 @@ class Engine:
         for hook in self._post_step_hooks:
             hook(self)
         mean_loss = torch.stack([loss for loss, _ in micro]).mean()
+        if self._zero is not None:  # the mean over the data ranks
+            mean_loss = comm.all_reduce(mean_loss, topo.BATCH_AXES,
+                                        op="mean")
         self.last_metrics = {"loss": mean_loss, "grad_norm": gnorm, "lr": lr,
                              "loss_scale": self.loss_scale_state.scale,
                              "overflow": overflow}
@@ -768,6 +1008,16 @@ class Engine:
                 and self._preempt_guard.should_checkpoint()):
             self._emergency_checkpoint()
         return mean_loss
+
+    def _zero_grads(self, grads):
+        """The accumulated gradients reduced over the data ranks (means,
+        in place) and cut to this rank's master blocks."""
+        flat = dict(leaves(grads))
+        self._zero.reduce(flat)
+        out: Dict[str, Any] = {}
+        for path, g in flat.items():
+            set_leaf(out, path, self._zero.opt_grad(path, g))
+        return out
 
     @torch.no_grad()
     def _zenflow_apply(self, scale: Optional[float], lr: float):
@@ -835,16 +1085,17 @@ class Engine:
             "stop training and exit")
 
     # -- micro-step API (JAX engine.py:1387-1445) ---------------------------
+    @_on_mesh
     def forward(self, batch) -> torch.Tensor:
-        """One microbatch's loss, keeping the autograd graph for
-        :meth:`backward`."""
-        loss, aux = self._loss_fn(self.model_config, self.params,
-                                  self._to_device(batch))
+        """One microbatch's loss (this rank's rows), keeping the autograd
+        graph for :meth:`backward`."""
+        loss, aux = self._model_loss(self._to_device(batch))
         self._pending = (loss, aux)
         return loss
 
     __call__ = forward
 
+    @_on_mesh
     def backward(self, loss: Optional[torch.Tensor] = None,
                  retain_graph: bool = False) -> torch.Tensor:
         """Back-propagate ``loss`` (default: the last ``forward``'s) into
@@ -862,6 +1113,7 @@ class Engine:
     def is_gradient_accumulation_boundary(self) -> bool:
         return self.micro_steps % self.gradient_accumulation_steps == 0
 
+    @_on_mesh
     def step(self) -> None:
         """Apply the update at the accumulation boundary; a no-op
         elsewhere."""
@@ -872,11 +1124,15 @@ class Engine:
         micro, self._micro_losses = self._micro_losses, []
         self._apply_update(micro)
 
+    @_on_mesh
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
+        """The loss of this rank's rows (averaged over the data ranks on
+        a process group, as JAX's global loss)."""
         self.synchronize()
-        loss, _aux = self._loss_fn(self.model_config, self.params,
-                                   self._to_device(batch))
+        loss, _aux = self._model_loss(self._to_device(batch))
+        if self._zero is not None:
+            loss = comm.all_reduce(loss, topo.BATCH_AXES, op="mean")
         return loss
 
     # -- state accessors -----------------------------------------------------
@@ -936,11 +1192,14 @@ class Engine:
         for _, p in leaves(self.params):
             p.grad = None
         self._grad_acc = {}
+        self._grad_shards = {}
         self._micro_losses = []
 
     def no_sync(self):
         """A context manager that defers the data-parallel gradient sync
-        (JAX ``engine.py:1982``); at world size 1 there is none."""
+        (JAX ``engine.py:1982``): the sync already waits for the
+        accumulation boundary (stages 0-1), or is the per-microbatch
+        reduce-scatter that ZeRO 2-3 cannot defer."""
         return contextlib.nullcontext()
 
     def train(self, mode: bool = True) -> "Engine":
@@ -958,6 +1217,29 @@ class Engine:
         self._post_step_hooks.append(fn)
         return fn
 
+    @torch.no_grad()
+    def full_grad(self, path: str) -> Optional[torch.Tensor]:
+        """The gradient of leaf ``path`` accumulated since the last update
+        (the micro-step path), reduced over the data ranks as the update
+        will see it; None when there is none. Collective on a process
+        group: every rank calls it."""
+        p = self.params
+        for k in path.strip("/").split("/"):
+            p = p[k]
+        g = (self._grad_acc.get(p) if self.gradient_accumulation_steps > 1
+             else self._grad_shards.get(p, p.grad))
+        if g is None or self._zero is None:
+            return g
+        zero = self._zero
+        with topo.use_mesh(self.mesh):
+            if zero.grad_dim.get(path) is None:
+                g = comm.all_reduce(g, topo.BATCH_AXES)
+            else:
+                if self.mesh.shape["dp"] > 1:
+                    g = comm.all_reduce(g, "dp")
+                g = zero.full(path, g, "grad")
+        return g / zero.dp_n if zero.dp_n > 1 else g
+
     def get_global_grad_norm(self) -> Optional[torch.Tensor]:
         return self._last_grad_norm
 
@@ -967,9 +1249,13 @@ class Engine:
         numpy array (the JAX engine's keys for the same model; bf16
         leaves come back as fp32, numpy having no bf16)."""
         self.synchronize()
+        with topo.use_mesh(self.mesh):
+            full = {k: (t if self._zero is None else self._zero.full(
+                        "/" + k.replace(".", "/"), t.detach(), "param"))
+                    for k, t in module_state_keys(self.params).items()}
         return {k: (t.detach().float() if t.dtype == torch.bfloat16
                     else t.detach()).cpu().numpy()
-                for k, t in module_state_keys(self.params).items()}
+                for k, t in full.items()}
 
     @torch.no_grad()
     def load_module_state_dict(self, state_dict, strict: bool = True):
@@ -997,6 +1283,10 @@ class Engine:
                 (self._zenflow or self._offload).set_full_fp32_param(
                     path, value)
                 p.copy_(value)
+            elif self._zero is not None:
+                with topo.use_mesh(self.mesh):
+                    masters[key].copy_(self._zero.block(path, value))
+                    p.copy_(self._zero.block(path, value, "param"))
             else:
                 masters[key].copy_(value)
                 p.copy_(masters[key])

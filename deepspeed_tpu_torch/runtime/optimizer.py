@@ -410,19 +410,29 @@ def reset_optimizer_state(state: MixedPrecisionState, tx: Optimizer) -> None:
 
 
 @torch.no_grad()
-def global_norm(grads: Tree, grad_scale: Optional[float] = None
-                ) -> torch.Tensor:
+def global_norm(grads: Tree, grad_scale: Optional[float] = None,
+                include: Optional[Callable[[str], bool]] = None,
+                reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                = None) -> torch.Tensor:
     """fp32 global L2 norm of the (unscaled) grads, leaf by leaf, in
     chunks of ``NORM_CHUNK`` elements (an fp32 copy of one chunk at a
-    time)."""
+    time). Across ranks (ZeRO), ``include`` picks the leaves this rank
+    counts and ``reduce`` sums the ranks' fp32 sums of squares."""
     total = None
-    for _, g in leaves(grads):
+    for path, g in leaves(grads):
+        if include is not None and not include(path):
+            continue
         for part in g.detach().reshape(-1).split(NORM_CHUNK):
             g32 = part.float()
             if grad_scale is not None:
                 g32 = g32 / grad_scale
             sq = torch.sum(g32 * g32)
             total = sq if total is None else total + sq
+    if total is None:
+        dev = next((g.device for _, g in leaves(grads)), None)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+    if reduce is not None:
+        total = reduce(total)
     return torch.sqrt(total)
 
 
@@ -431,13 +441,20 @@ def apply_mixed_precision_update(state: MixedPrecisionState, grads: Tree,
                                  tx: Optimizer, params: Optional[Tree] = None,
                                  grad_clip: float = 0.0,
                                  grad_scale: Optional[float] = None,
-                                 skip: bool = False) -> torch.Tensor:
+                                 skip: bool = False,
+                                 gnorm: Optional[torch.Tensor] = None,
+                                 publish: Optional[Callable] = None
+                                 ) -> torch.Tensor:
     """One optimizer step, in place. ``grads`` is a tree like the masters
     in any float type; ``params`` (optional) are the compute-dtype
-    params, recast from the updated masters. ``grad_scale`` divides the
+    params, recast from the updated masters (by ``publish(path, master,
+    param)`` where given: ZeRO's gather). ``grad_scale`` divides the
     grads (loss-scale unscaling); ``skip`` (an overflow step) leaves
-    everything unchanged. Returns the global grad norm (fp32, 0-dim)."""
-    gnorm = global_norm(grads, grad_scale)
+    everything unchanged; ``gnorm`` is the global norm when the caller
+    computed it (across ranks). Returns the global grad norm (fp32,
+    0-dim)."""
+    if gnorm is None:
+        gnorm = global_norm(grads, grad_scale)
     if skip:
         return gnorm
     clip = None
@@ -455,7 +472,10 @@ def apply_mixed_precision_update(state: MixedPrecisionState, grads: Tree,
             g = g * clip
         tx.update_leaf(path, master, g, state.leaf_state(path), t, lr)
         if path in flat_p:
-            flat_p[path].copy_(master)
+            if publish is not None:
+                publish(path, master, flat_p[path])
+            else:
+                flat_p[path].copy_(master)
     state.count = t
     return gnorm
 
@@ -466,13 +486,16 @@ def apply_client_update(state: MixedPrecisionState, grads: Tree,
                         params: Optional[Tree] = None,
                         grad_clip: float = 0.0,
                         grad_scale: Optional[float] = None,
-                        skip: bool = False) -> torch.Tensor:
+                        skip: bool = False,
+                        gnorm: Optional[torch.Tensor] = None,
+                        publish: Optional[Callable] = None) -> torch.Tensor:
     """``apply_mixed_precision_update`` with a client
     ``torch.optim.Optimizer`` over the masters in ``tx``'s place: each
     master's fp32 gradient (unscaled and clipped by the engine, as there)
     goes into its ``.grad``, the optimizer steps once, and the compute
     params are recast from the masters. Returns the global grad norm."""
-    gnorm = global_norm(grads, grad_scale)
+    if gnorm is None:
+        gnorm = global_norm(grads, grad_scale)
     if skip:
         return gnorm
     clip = None
@@ -492,6 +515,9 @@ def apply_client_update(state: MixedPrecisionState, grads: Tree,
     for path, master in masters:
         master.grad = None
         if path in flat_p:
-            flat_p[path].copy_(master)
+            if publish is not None:
+                publish(path, master, flat_p[path])
+            else:
+                flat_p[path].copy_(master)
     state.count += 1
     return gnorm

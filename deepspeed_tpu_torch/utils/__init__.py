@@ -1,1 +1,2 @@
-"""Process-wide utilities (telemetry counters)."""
+"""Process-wide utilities (telemetry counters, the comms logger, the
+fragment accessors of partitioned state)."""

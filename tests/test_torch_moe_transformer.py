@@ -202,7 +202,8 @@ def test_moe_config_block_and_unported_switches():
         zoo.get_config("tiny-moe", moe_impl="einsum")
     with pytest.raises(ValueError, match="unknown moe_impl"):
         zoo.get_config("tiny-moe", moe_impl="bogus")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # parameter streaming is item 11's param_stream, as offload_param is
+    with pytest.raises(NotImplementedError, match="item 11"):
         zoo.get_config("tiny-moe", param_host_offload=True)
     model = zoo.get_model("tiny-moe", device="cpu", dtype=torch.float32,
                           **SMALL)

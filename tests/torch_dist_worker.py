@@ -1,0 +1,367 @@
+"""One rank of the port's multi-process CPU tests (gloo).
+
+Usage: python torch_dist_worker.py MODES WORKDIR RANK WORLD
+
+Joins a gloo process group of WORLD ranks through a file store under
+WORKDIR (no TCP port), runs each mode of the comma-separated MODES on the
+inputs the test wrote to ``WORKDIR/inputs.pt``, writes what it measured
+to ``WORKDIR/out_<rank>.pt`` and leaves the group. It imports torch and
+the port only (never JAX); the tests hold its results against JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+sys.path.insert(0, REPO)
+
+from deepspeed_tpu_torch import comm  # noqa: E402
+from deepspeed_tpu_torch.runtime.optimizer import leaves  # noqa: E402
+
+PG_TIMEOUT_S = 120
+
+
+def _port_model(inp):
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+
+    if inp["preset"] is None:
+        from deepspeed_tpu_torch.models.transformer import TransformerConfig
+
+        cfg = TransformerConfig(dtype=torch.float32, **inp["model_kw"])
+    else:
+        cfg = zoo.get_config(inp["preset"], dtype=torch.float32,
+                             **inp["model_kw"])
+    return params_from_jax(inp["params"], cfg, device="cpu")
+
+
+def _rows(batch, rank, world):
+    from deepspeed_tpu_torch.parallel.topology import BatchSlice
+
+    return BatchSlice(rank, world).take(batch)
+
+
+def _engine(inp, stage, extra=None, **kw):
+    import deepspeed_tpu_torch
+
+    config = {**inp["config"], "zero_optimization": {"stage": stage},
+              **(extra or {})}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=kw.pop("model", None) or _port_model(inp), config=config,
+        device="cpu", **kw)
+    return engine
+
+
+def _masters(engine, paths):
+    from deepspeed_tpu_torch.utils import tensor_fragment as tfr
+
+    full = {p: tfr.safe_get_full_fp32_param(engine, p) for p in paths}
+    local = {p: tfr.safe_get_local_fp32_param(engine, p) for p in paths}
+    moments = {p: (tfr.safe_get_full_optimizer_state(engine, p, "exp_avg"),
+                   tfr.safe_get_full_optimizer_state(engine, p,
+                                                     "exp_avg_sq"))
+               for p in paths}
+    return full, local, moments
+
+
+def _paths(engine):
+    return [p.strip("/") for p, _ in leaves(engine.opt_state.master)]
+
+
+def mode_zero(inp, rank, world, out):
+    """Each stage over ``inp["stages"]`` on both APIs: losses, the full and
+    local masters, the moments and the comms logger's counts."""
+    from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
+
+    gas = inp["config"]["gradient_accumulation_steps"]
+    batches = [_rows(b, rank, world) for b in inp["batches"]]
+    steps = len(batches) // gas
+    res = {}
+    for stage in inp["stages"]:
+        for api in ("train_batch", "micro"):
+            engine = _engine(inp, stage,
+                             extra={"comms_logger": {"enabled": True}})
+            get_comms_logger().reset()
+            losses = []
+            for s in range(steps):
+                mbs = batches[s * gas:(s + 1) * gas]
+                if api == "train_batch":
+                    losses.append(float(engine.train_batch(iter(mbs))))
+                    continue
+                for mb in mbs:
+                    loss = engine(mb)
+                    engine.backward(loss)
+                    engine.step()
+                losses.append(float(engine.last_metrics["loss"]))
+            counts = dict(get_comms_logger().counts())
+            full, local, moments = _masters(engine, _paths(engine))
+            res[(stage, api)] = {"losses": losses, "full": full,
+                                 "local": local, "moments": moments,
+                                 "counts": counts}
+            del engine
+    if world == 2:  # a (loss_fn, params) model gathers its whole tree
+        res[3, "loss_fn"] = _fn_run(inp, batches, gas, steps)
+    out["zero"] = res
+
+
+def _fn_run(inp, batches, gas, steps):
+    """Stage 3 with the model as a ``(loss_fn, params)`` pair over the
+    functional forward (JAX's fallback axes: dim 0 of each leaf)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    model = _port_model(inp)
+    cfg = model.config
+    config = {**inp["config"], "zero_optimization": {"stage": 3}}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=lambda p, b: tf.loss_fn(cfg, p, b),
+        model_parameters=model.params(), config=config, device="cpu")
+    losses = [float(engine.train_batch(iter(batches[s * gas:(s + 1) * gas])))
+              for s in range(steps)]
+    full, _, _ = _masters(engine, _paths(engine))
+    return {"losses": losses, "full": full,
+            "fetch": engine._fetch is not None}
+
+
+def mode_raises(inp, rank, world, out):
+    """What is not ported across ranks raises NotImplementedError naming
+    its ROADMAP item."""
+    from deepspeed_tpu_torch.models import zoo
+
+    cases = {
+        "offload": lambda: _engine(inp, 3, extra={"zero_optimization": {
+            "stage": 3, "offload_optimizer": {"device": "cpu"}}}),
+        "zenflow": lambda: _engine(inp, 3, extra={"zero_optimization": {
+            "stage": 3, "offload_optimizer": {"device": "cpu"},
+            "zenflow": {"topk_ratio": 0.1}}}),
+        "moe": lambda: _engine(inp, 3, model=zoo.get_model(
+            "tiny-moe", device="cpu", dtype=torch.float32,
+            vocab_size=256, hidden_size=64, num_layers=1, num_heads=4,
+            max_seq_len=64), extra={"moe": {"enabled": True}}),
+        "tp": lambda: _engine(inp, 3, topology={"tp": world, "dp": 1}),
+        "lamb": lambda: _engine(inp, 2, extra={"optimizer": {
+            "type": "lamb", "params": {"lr": 1e-3}}}),
+        "client": lambda: _client_engine(inp),
+    }
+    got = {}
+    for name, build in cases.items():
+        try:
+            build()
+            got[name] = None
+        except NotImplementedError as e:
+            got[name] = str(e)
+    out["raises"] = got
+
+
+def _client_engine(inp):
+    model = _port_model(inp)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+    return _engine(inp, 1, model=model, optimizer=opt)
+
+
+def mode_ckpt(inp, rank, world, out):
+    """Load the world-size-1 checkpoint (the masters and moments must be
+    its own, bit for bit, and the load counted as a reshard), train one
+    more step and save at this world size."""
+    from deepspeed_tpu_torch.utils import telemetry
+
+    ck = inp["ckpt"]
+    engine = _engine(inp, ck["stage"])
+    telemetry.reset()
+    engine.load_checkpoint(ck["load_dir"])
+    paths = _paths(engine)
+    full, _, moments = _masters(engine, paths)
+    loaded = {"full": full, "moments": moments,
+              "resharded": telemetry.get("resilience.resharded_restore"),
+              "global_steps": engine.global_steps}
+    gas = inp["config"]["gradient_accumulation_steps"]
+    mbs = [_rows(b, rank, world) for b in inp["batches"][:gas]]
+    loaded["loss_after"] = float(engine.train_batch(iter(mbs)))
+    engine.save_checkpoint(ck["save_dir"])
+    full, _, moments = _masters(engine, paths)
+    out["ckpt"] = {"loaded": loaded, "saved": {"full": full,
+                                               "moments": moments}}
+
+
+def mode_comm(inp, rank, world, out):
+    """Each collective of ``comm`` on the inputs' per-rank arrays over the
+    fsdp axis, the probes and the cross-process assert."""
+    from deepspeed_tpu_torch.parallel import topology
+    from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
+
+    topology.set_global_mesh(topology.build_mesh({"dp": 1, "fsdp": world}))
+    logger = get_comms_logger()
+    logger.enabled = True
+    logger.reset()
+    x = torch.as_tensor(inp["x"][rank])
+    res = {
+        "all_reduce_sum": comm.all_reduce(x, "fsdp"),
+        "all_reduce_mean": comm.all_reduce(x, "fsdp", op="avg"),
+        "all_reduce_max": comm.all_reduce(x, "fsdp", op="max"),
+        "all_gather": comm.all_gather(x, "fsdp"),
+        "all_gather_dim1": comm.all_gather(x, "fsdp", gather_dim=1),
+        "all_gather_stacked": comm.all_gather(x, "fsdp", tiled=False),
+        "reduce_scatter": comm.reduce_scatter(x, "fsdp"),
+        "reduce_scatter_dim1": comm.reduce_scatter(x, "fsdp",
+                                                   scatter_dim=1),
+        "all_to_all": comm.all_to_all(x, "fsdp", split_dim=1,
+                                      concat_dim=0),
+        "ppermute": comm.ppermute(x, "fsdp", [(i, (i + 1) % world)
+                                              for i in range(world)]),
+        "broadcast": comm.broadcast(x, "fsdp", root=1),
+        "logged": (dict(logger.counts()), dict(logger.totals())),
+        "axis_index": comm.axis_index("fsdp"),
+        "axis_size": comm.axis_size("fsdp"),
+        "probes": (comm.has_all_gather_into_tensor(),
+                   comm.has_reduce_scatter_tensor(),
+                   comm.has_coalescing_manager()),
+        "any_process": (comm.any_process(rank == world - 1),
+                        comm.any_process(False)),
+    }
+    comm.assert_same_across_processes("same", [3, "tag"])
+    try:
+        comm.assert_same_across_processes("diverging", [rank])
+        res["diverging"] = None
+    except RuntimeError as e:
+        res["diverging"] = str(e)
+    comm.barrier()
+    out["comm"] = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                   for k, v in res.items()}
+
+
+def mode_sparse(inp, rank, world, out):
+    """``sparse_allreduce`` of each rank's embedding gradient over dp."""
+    from deepspeed_tpu_torch.parallel import topology
+    from deepspeed_tpu_torch.runtime.sparse_tensor import sparse_allreduce
+
+    topology.set_global_mesh(topology.build_mesh({"dp": world}))
+    out["sparse"] = sparse_allreduce(
+        torch.as_tensor(inp["grads"][rank]),
+        torch.as_tensor(inp["tokens"][rank])).numpy()
+
+
+def mode_fragments(inp, rank, world, out):
+    """JAX's fragment cases (tests/test_fragments.py) at this world size."""
+    from deepspeed_tpu_torch.utils import tensor_fragment as tfr
+
+    engine = _engine(inp, 3)
+    res = {"wq_full": tfr.safe_get_full_fp32_param(engine, "layers/attn/wq"),
+           "wi_full": tfr.safe_get_full_fp32_param(engine, "layers/mlp/wi"),
+           "wi_local": tfr.safe_get_local_fp32_param(engine,
+                                                     "layers/mlp/wi")}
+    tfr.safe_set_full_fp32_param(
+        engine, "final_norm/scale",
+        np.full(inp["model_kw"]["hidden_size"], 2.0, np.float32))
+    res["scale_full"] = tfr.safe_get_full_fp32_param(engine,
+                                                     "final_norm/scale")
+    res["scale_param"] = engine.params["final_norm"]["scale"].detach() \
+        .float().numpy().copy()
+    batch = _rows(inp["batches"][0], rank, world)
+    engine.train_batch(iter([batch]))
+    res["mu"] = tfr.safe_get_full_optimizer_state(engine, "layers/attn/wq",
+                                                  "exp_avg")
+    res["nu"] = tfr.safe_get_full_optimizer_state(engine, "layers/attn/wq",
+                                                  "exp_avg_sq")
+    res["grad_before"] = tfr.safe_get_full_grad(engine, "layers/attn/wq")
+    engine.backward(engine(batch))
+    res["grad"] = tfr.safe_get_full_grad(engine, "layers/attn/wq")
+    engine.step()
+    res["grad_after"] = tfr.safe_get_full_grad(engine, "layers/attn/wq")
+    try:
+        tfr.safe_get_full_fp32_param(engine, "layers/nope/wq")
+        res["bad_path"] = None
+    except KeyError as e:
+        res["bad_path"] = str(e)
+    out["fragments"] = res
+
+
+MODES = {"zero": mode_zero, "raises": mode_raises, "ckpt": mode_ckpt,
+         "comm": mode_comm, "sparse": mode_sparse,
+         "fragments": mode_fragments}
+
+
+class Ranks:
+    """WORLD ranks of this script running ``modes`` on ``inputs`` (fresh
+    interpreters, one thread each, never a fork). ``join`` waits for them
+    and returns each rank's outputs; a rank that fails, or that outlives
+    the deadline, fails the caller with the logs' tails."""
+
+    def __init__(self, modes: str, workdir: str, world: int, inputs,
+                 timeout: float = 300):
+        os.makedirs(workdir, exist_ok=True)
+        torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+        self.workdir, self.world = workdir, world
+        self.deadline = time.monotonic() + timeout
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                   PYTHONPATH=REPO)
+        self.procs, self.logs = [], []
+        for rank in range(world):
+            log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), modes, workdir,
+                 str(rank), str(world)], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+
+    def join(self) -> list:
+        failed = None
+        try:
+            for rank, p in enumerate(self.procs):
+                try:
+                    rc = p.wait(timeout=max(
+                        1.0, self.deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    failed = f"rank {rank} still running at its deadline"
+                    break
+                if rc != 0 and failed is None:
+                    failed = f"rank {rank} exited with {rc}"
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in self.logs:
+                log.close()
+        if failed is not None:
+            tails = []
+            for rank in range(self.world):
+                with open(os.path.join(self.workdir,
+                                       f"rank{rank}.log")) as f:
+                    tails.append(f"--- rank {rank}\n" + f.read()[-3000:])
+            raise AssertionError(failed + "\n" + "\n".join(tails))
+        return [torch.load(os.path.join(self.workdir, f"out_{r}.pt"),
+                           weights_only=False) for r in range(self.world)]
+
+
+def main(argv):
+    modes, workdir, rank, world = argv[1], argv[2], int(argv[3]), \
+        int(argv[4])
+    torch.set_num_threads(1)
+    comm.init_distributed(
+        init_method="file://" + os.path.join(workdir, "store"),
+        num_processes=world, process_id=rank, device="cpu",
+        timeout=PG_TIMEOUT_S)
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    out = {}
+    try:
+        for mode in modes.split(","):
+            MODES[mode](inp, rank, world, out)
+    except BaseException:
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
+        comm.destroy()
+
+
+if __name__ == "__main__":
+    main(sys.argv)
