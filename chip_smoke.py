@@ -344,13 +344,39 @@ Phases, each fatal on failure:
                Per stage: step p50, peak memory, collectives and bytes
                by op. The group is destroyed at the end, so the phases
                after it run without one. The phase's wall is printed.
+  15. observability — 15c right after phase 13, on phase 3's model
+               (before phase 7 quantizes it): phase 3's 8 requests with
+               every request traced and the engine's series labelled;
+               gates: streams ``==`` phase 3's, every trace's phases
+               close, the labelled TTFT histogram counts 8 and the
+               emitted tokens 512, ``snapshot()`` has JAX's keys (less
+               ``handoff_wire``), the dispatch gauges on the hub. 15a
+               after phase 14: 12d's 2-layer step at pipeline depth 2,
+               8 steps with observability on (JSONL, Prometheus, the
+               watchdog, the profiler over steps 5-6), then off; gates:
+               losses and fp32 masters ``==``, a step row a step whose
+               MFU the row recomputes, the window MFU of steps 3-8
+               within 2% of the smoke's (the model's flops_per_token
+               over 989e12 on both sides; the S 2048 figure printed
+               beside), the same count of CUDA sync-debug warnings on
+               and off over steps 3-8, one kernel_dispatch event per
+               memoised decision, the trace naming the three flash
+               wgmma kernels as remat implies and the region ranges;
+               printed: step p50 on and off, device ms by range, the
+               counted regions' FLOPs against their ranges' time, the
+               roofline. 15b: two more steps with a small watchdog
+               threshold, a post-step hook holding the second past it:
+               one report (stacks, device memory), train.stalls 1, a
+               flight dump with the step's entry and the previous
+               step's drain.
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
 sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
 checkpoint, optimizer sweep, spec serve, draft model, verify-shape
-prefill, A4, kernel bench, v1 engine and zero lines, the run's seconds,
+prefill, A4, kernel bench, v1 engine, zero, observability and
+observability serve lines, the run's seconds,
 the card's name
 and power limit (nvidia-smi), and, last, the device line.
 
@@ -651,6 +677,17 @@ V1_BATCH, V1_PROMPT, V1_NEW, V1_MAX_SEQ, V1_FORWARD_SEQ = 4, 128, 32, 1024, 2048
 # logits difference, so that a v1 engine whose rows are wrong (K/V
 # written at the wrong rows) cannot pass as a near tie
 V1_ROW_DIFF_FACTOR = 2.0
+# phase 15: observability on 12d's 2-layer step (15a) at pipeline depth 2,
+# 8 steps: 1-2 warm up, 3-8 the measured window (MFU, sync warnings),
+# OBS_TRACE profiled; the window MFU within OBS_MFU_TOL of the smoke's
+# (JAX's test_mfu_agrees_with_bench_formula); 15b's watchdog threshold
+OBS_CONFIG = dict(A4_CONFIG, performance={"pipeline_depth": 2})
+OBS_STEPS, OBS_WINDOW, OBS_TRACE, OBS_MFU_TOL = 8, (3, 8), (5, 6), 0.02
+OBS_WD_FACTOR, OBS_WD_MIN_S = 2.0, 0.05
+OBS_RANGES = ("attention", "mlp", "norm", "rope", "vocab_head", "optimizer")
+OBS_FLASH_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
+                     "flash_bwd_dkdv": "flash_bwd_dkdv_wgmma_kernel",
+                     "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel"}
 BENCH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                  "paged_decode", "gmm", "gmm_transposed", "tgmm",
                  "blocksparse_fwd")
@@ -1684,38 +1721,49 @@ def serve_once(torch, zoo, InferenceEngineV2, profile=False,
     return model, eng, out, wall, prompts
 
 
+def kernel_family(name):
+    """A kernel's family by its name: each hand kernel, the library's
+    matmuls, copies, and ``other`` (the elementwise passes and
+    reductions)."""
+    n = name.lower()
+    grouped = "gmm_kernel" in n or "gmm_wgmma_kernel" in n
+    return ("blocksparse_fwd" if "blocksparse_fwd" in n else
+            "quantize_blockwise" if "quantize_blockwise_kernel" in n else
+            "kv_quantize_append" if "kv_quantize_append_kernel" in n else
+            "dequantize" if "dequantize_kernel" in n else
+            "paged_decode" if "paged_decode" in n else
+            "paged_prefill" if "paged_prefill" in n else
+            "flash_fwd" if ("flash_fwd_kernel" in n
+                            or "flash_fwd_wgmma_kernel" in n) else
+            "flash_bwd_dkdv" if "flash_bwd_dkdv" in n else
+            "flash_bwd_dq" if "flash_bwd_dq" in n else
+            "tgmm" if "tgmm_kernel" in n or "tgmm_wgmma_kernel" in n else
+            "gmm_transposed" if grouped and ", true>" in n else
+            "gmm" if grouped else
+            "matmul" if any(k in n for k in ("gemm", "xmma", "cutlass",
+                                             "cublas", "matmul",
+                                             "nvjet")) else
+            "copy" if "memcpy" in n or "memset" in n else "other")
+
+
 def device_breakdown(torch, prof, wall_s, units, unit="generated_token"):
     """Device time of a profiled run by kernel family, the union of busy
     intervals, and the idle share of the host wall time; ``units`` of
     ``unit`` (generated tokens, train steps) divide the kernel count."""
     from torch.autograd import DeviceType
 
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # kernels only: a record_function range (the model's region ranges,
+    # utils/annotate.py) also leaves a device-side annotation spanning
+    # the kernels it encloses
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in OBS_RANGES]
     if not kern:
         return {"device_time_measured": False}
     fams = {}
     spans = []
     for e in kern:
-        n = e.name.lower()
-        grouped = "gmm_kernel" in n or "gmm_wgmma_kernel" in n
-        fam = ("blocksparse_fwd" if "blocksparse_fwd" in n else
-               "quantize_blockwise" if "quantize_blockwise_kernel" in n else
-               "kv_quantize_append" if "kv_quantize_append_kernel" in n else
-               "dequantize" if "dequantize_kernel" in n else
-               "paged_decode" if "paged_decode" in n else
-               "paged_prefill" if "paged_prefill" in n else
-               "flash_fwd" if ("flash_fwd_kernel" in n
-                               or "flash_fwd_wgmma_kernel" in n) else
-               "flash_bwd_dkdv" if "flash_bwd_dkdv" in n else
-               "flash_bwd_dq" if "flash_bwd_dq" in n else
-               "tgmm" if ("tgmm_kernel" in n
-                          or "tgmm_wgmma_kernel" in n) else
-               "gmm_transposed" if grouped and ", true>" in n else
-               "gmm" if grouped else
-               "matmul" if any(k in n for k in ("gemm", "xmma", "cutlass",
-                                                "cublas", "matmul",
-                                                "nvjet")) else
-               "copy" if "memcpy" in n or "memset" in n else "other")
+        fam = kernel_family(e.name)
         us = e.time_range.end - e.time_range.start
         f = fams.setdefault(fam, {"ms": 0.0, "kernels": 0})
         f["ms"] += us / 1e3
@@ -4580,6 +4628,438 @@ def quant_serve_phase(torch, InferenceEngineV2, pa, qz, wq, model, prompts,
         launches
 
 
+# -- phase 15: observability ------------------------------------------------
+
+
+def obs_rows(path):
+    return [json.loads(l) for l in open(path).read().splitlines()]
+
+
+def obs_trace_kernels(trace_path):
+    """Launches of each flash wgmma kernel and the names of the ranges in
+    a Chrome trace."""
+    events = json.load(open(trace_path))["traceEvents"]
+    kernels = {k: 0 for k in OBS_FLASH_KERNELS.values()}
+    ranges = set()
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "kernel":
+            for k in kernels:
+                if k in name:
+                    kernels[k] += 1
+        elif e.get("cat") in ("user_annotation", "gpu_user_annotation"):
+            ranges.add(name)
+    return kernels, ranges
+
+
+def obs_train_run(torch, zoo, initialize, fa, enabled, tmp):
+    """Phase 15a's 8 steps of 2-layer Llama-3-8B with observability on
+    (JSONL, Prometheus, the watchdog, the profiler over OBS_TRACE) or
+    off. Steps 1-2 warm up, the window drains, then steps 3-8 run with
+    the CUDA sync debug mode warning and are timed together. Returns the
+    engine, the losses, the window's wall, its step gaps and its sync
+    warnings."""
+    import warnings
+
+    model = zoo.get_model("llama3-8b", num_layers=A4_LAYERS,
+                          dtype=torch.float32, seed=SEED)
+    obs = {"enabled": enabled}
+    if enabled:
+        obs.update(jsonl_path=os.path.join(tmp, "metrics.jsonl"),
+                   prometheus_path=os.path.join(tmp, "metrics.prom"),
+                   prometheus_every_steps=1, watchdog={"enabled": True})
+        os.environ["DSTPU_TRACE_STEPS"] = f"{OBS_TRACE[0]}:{OBS_TRACE[1]}"
+        os.environ["DSTPU_TRACE_DIR"] = os.path.join(tmp, "trace")
+    try:
+        engine, *_ = initialize(model=model,
+                                config=dict(OBS_CONFIG, observability=obs))
+    finally:
+        os.environ.pop("DSTPU_TRACE_STEPS", None)
+        os.environ.pop("DSTPU_TRACE_DIR", None)
+    del model
+    fixed, _ = fixed_batches(zoo.get_config("llama3-8b").vocab_size)
+    it = iter([fixed[i % 2] for i in range(OBS_STEPS * TRAIN_GAS)])
+    fa.reset_launch_counts()
+    losses = [engine.train_batch(it) for _ in range(OBS_WINDOW[0] - 1)]
+    engine.synchronize()
+    torch.cuda.synchronize()
+    marks = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for _ in range(OBS_WINDOW[1] - OBS_WINDOW[0] + 1):
+                losses.append(engine.train_batch(it))
+                marks.append(time.perf_counter())
+            engine.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the Python line that called each synchronizing operation (the
+    # mode's one-time notice that it is a prototype is not one)
+    syncs = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    losses = [float(x) for x in losses]
+    return engine, losses, wall, np.diff([t0] + marks), syncs
+
+
+def obs_train_phase(torch, zoo, initialize, fa, attn, tf):
+    """15a: the 2-layer train step with observability on and off: losses
+    and fp32 masters ``==``, a step_trace row a step whose MFU the row
+    recomputes, the hub's window MFU against the smoke's own within
+    OBS_MFU_TOL, the same sync warnings, the Chrome trace of OBS_TRACE
+    with the flash wgmma kernels as remat implies and the region ranges;
+    device ms by range beside the counted regions; the roofline. 15b: two
+    more steps on the on-engine with a small watchdog threshold, the
+    second held past it by a post-step hook: one report with stacks and
+    the device memory section, train.stalls 1, a flight dump with the
+    step's entry and the previous step's drain. Returns (the phase's
+    line, flash launches of the on and off runs)."""
+    from deepspeed_tpu_torch.observability import (attribute_step,
+                                                   device_ms_by_region,
+                                                   get_hub, reset_hub)
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dstpu_obs_")
+    flight_dir = os.path.join(tmp, "flight")
+    os.environ["DSTPU_FLIGHT_DIR"] = flight_dir
+    L, gas, steps = A4_LAYERS, TRAIN_GAS, OBS_STEPS
+    want = {"flash_fwd": 2 * L * gas, "flash_bwd_dkdv": L * gas,
+            "flash_bwd_dq": L * gas}
+    try:
+        torch.cuda.empty_cache()
+        engine, losses_on, wall_on, gaps_on, syncs_on = obs_train_run(
+            torch, zoo, initialize, fa, True, tmp)
+        launches = {"on": {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}}
+        got = {k: fa.LAUNCHES[k] for k in want}
+        if got != {k: v * steps for k, v in want.items()}:
+            fail(f"observability on: flash launches {got}, remat implies "
+                 f"{ {k: v * steps for k, v in want.items()} }")
+        check_tensor_core("observability on", fa.LAUNCHES,
+                          fa.VARIANT_LAUNCHES, tuple(want))
+        masters_on = {p: m.detach().to("cpu", copy=True)
+                      for p, m in leaves(engine.opt_state.master)}
+        hub = engine.hub
+        rows = [r for r in obs_rows(os.path.join(tmp, "metrics.jsonl"))
+                if r["kind"] == "step_trace"]
+        if [r["step"] for r in rows] != list(range(1, steps + 1)):
+            fail(f"observability: step_trace rows of steps "
+                 f"{[r['step'] for r in rows]}, want 1..{steps}")
+        fpt = engine.model.flops_per_token()
+        cfg = engine.model_config
+        tokens = TRAIN_MICRO * gas * TRAIN_SEQ
+        for r in rows:
+            again = (r["tokens_per_sec_per_chip"] * r["flops_per_token"]
+                     / (r["peak_tflops"] * 1e12))
+            if (r["tokens"] != tokens or r["flops_per_token"] != fpt
+                    or r["peak_tflops"] != PEAK_FLOPS["bfloat16"] / 1e12
+                    or abs(r["mfu"] - again) > 1e-12 * again):
+                fail(f"observability: step row {r['step']} {r}")
+        n_win = OBS_WINDOW[1] - OBS_WINDOW[0] + 1
+        window_mfu = hub.window_mfu(last_n=n_win)
+        smoke_mfu = n_win * tokens / wall_on * fpt / PEAK_FLOPS["bfloat16"]
+        mfu_rel = abs(window_mfu - smoke_mfu) / smoke_mfu
+        if mfu_rel > OBS_MFU_TOL:
+            fail(f"observability: window MFU {window_mfu} vs the smoke's "
+                 f"{smoke_mfu} (rel {mfu_rel})")
+        flops_2048 = (6 * cfg.num_params()
+                      + 12 * L * cfg.hidden_size * TRAIN_SEQ)
+        # the dispatch export: one kernel_dispatch event per memoised
+        # decision (the engine's set_kernel_config cleared the memo)
+        events = obs_rows(os.path.join(tmp, "metrics.jsonl"))
+        dispatch = [e for e in events if e["kind"] == "kernel_dispatch"]
+        gauges = hub.snapshot()["gauges"]
+        if (len(dispatch) != len(attn._DECISIONS) or not dispatch
+                or gauges.get("kernel.attention.pallas") != 1.0):
+            fail(f"observability: {len(dispatch)} kernel_dispatch events "
+                 f"for {len(attn._DECISIONS)} decisions, gauge "
+                 f"{gauges.get('kernel.attention.pallas')}")
+        # the profiler window: whole steps, the flash kernels by name
+        cap = engine._trace_capture
+        if cap is None or not cap.done or not cap.trace_path:
+            fail("observability: the DSTPU_TRACE_STEPS capture did not run")
+        n_tr = OBS_TRACE[1] - OBS_TRACE[0] + 1
+        traced, ranges = obs_trace_kernels(cap.trace_path)
+        want_tr = {OBS_FLASH_KERNELS[k]: v * n_tr for k, v in want.items()}
+        if traced != want_tr:
+            fail(f"observability: the trace holds flash kernels {traced}, "
+                 f"remat implies {want_tr}")
+        need = {*OBS_RANGES, *(f"train_step#{s}" for s in
+                               range(OBS_TRACE[0], OBS_TRACE[1] + 1))}
+        if not need <= ranges:
+            fail(f"observability: ranges missing from the trace: "
+                 f"{sorted(need - ranges)}")
+        by_range = device_ms_by_region(cap.profiler, family=kernel_family)
+        busy = sum(by_range["ms"].values())
+        regions = attribute_step(
+            dataclasses.replace(cfg, dtype=torch.bfloat16), TRAIN_MICRO,
+            TRAIN_SEQ)
+        per_step = {k: v / n_tr for k, v in by_range["ms"].items()}
+        row_of = {"attn": "attention", "mlp": "mlp",
+                  "vocab_head": "vocab_head", "optimizer": "optimizer"}
+        attribution = {}
+        for r in regions:
+            ms = per_step.get(row_of.get(r.region, ""), 0.0)
+            flops = r.flops * (gas if r.region != "optimizer" else 1)
+            attribution[r.region] = {
+                "gflops_per_step": flops / 1e9,
+                "gb_per_step": r.bytes_accessed
+                * (gas if r.region != "optimizer" else 1) / 1e9,
+                "range_device_ms_per_step": ms,
+                "achieved_tflops": (flops / (ms / 1e3) / 1e12
+                                    if ms > 0 else None), "note": r.note}
+        roof = engine.roofline(step_seconds=wall_on / n_win)
+        rows_win = rows[OBS_WINDOW[0] - 1:]
+        line = {
+            "model": "llama3-8b", "layers": f"{L} of 32",
+            "micro": TRAIN_MICRO, "gas": gas, "seq": TRAIN_SEQ,
+            "pipeline_depth": OBS_CONFIG["performance"]["pipeline_depth"],
+            "losses": losses_on,
+            "step_ms_p50_on": float(np.median(gaps_on)) * 1e3,
+            "row_wall_ms": [r["wall_ms"] for r in rows],
+            "host_gap_ms": [r["host_gap_ms"] for r in rows],
+            "window_mfu": window_mfu, "smoke_mfu": smoke_mfu,
+            "mfu_rel_diff": mfu_rel, "flops_per_token": fpt,
+            "flops_per_token_s2048": flops_2048,
+            "mfu_s2048": smoke_mfu * flops_2048 / fpt,
+            "sync_warnings_on": len(syncs_on),
+            "sync_sites": {site: syncs_on.count(site)
+                           for site in sorted(set(syncs_on))},
+            "dispatch_events": len(dispatch),
+            "trace": {"steps": list(OBS_TRACE), "flash_kernels": traced,
+                      "device_ms_by_range": by_range["ms"],
+                      "kernels_by_range": by_range["kernels"],
+                      "device_ms_by_range_and_family": by_range["by_family"],
+                      "device_busy_ms": busy},
+            "attribution": attribution, "roofline": roof,
+            "device_mem": rows_win[-1].get("device_mem"),
+            "compile_events": sum(r["compile_events"] for r in rows),
+        }
+        # 15b: the watchdog drill
+        wd = engine.watchdog
+        stalls_before = hub.snapshot()["counters"].get("train.stalls", 0.0)
+        wd.factor, wd.min_seconds = OBS_WD_FACTOR, OBS_WD_MIN_S
+        threshold = wd.threshold()
+        calls = []
+
+        def hang(_engine):
+            calls.append(1)
+            if len(calls) == 2:
+                time.sleep(3 * threshold + 0.5)
+
+        engine.register_post_step_hook(hang)
+        t15b = time.perf_counter()
+        it = iter(fixed_batches(cfg.vocab_size)[0] * gas)
+        for _ in range(2):
+            engine.train_batch(it)
+        drill_s = time.perf_counter() - t15b
+        stalls = hub.snapshot()["counters"].get("train.stalls", 0.0) \
+            - stalls_before
+        reports = [e for e in obs_rows(os.path.join(tmp, "metrics.jsonl"))
+                   if e["kind"] == "stall_report"]
+        dump_path = os.path.join(flight_dir, "flight_rank0_watchdog.json")
+        dump = (json.load(open(dump_path)) if os.path.exists(dump_path)
+                else {"events": []})
+        kinds = [(e["kind"], e.get("step")) for e in dump["events"]]
+        stalled = steps + 2
+        if (wd.stalls != 1 or stalls != 1.0 or len(reports) != 1
+                or "python stacks:" not in reports[0]["report"]
+                or "device memory: {" not in reports[0]["report"]
+                or ("step_entry", stalled) not in kinds
+                or ("step_drain", stalled - 1) not in kinds):
+            fail(f"watchdog drill: {wd.stalls} reports fired, train.stalls "
+                 f"+{stalls}, {len(reports)} in the JSONL, dump events "
+                 f"{kinds[-6:]}")
+        line["watchdog_drill"] = {
+            "threshold_s": threshold, "stalls": wd.stalls,
+            "drill_s": drill_s, "dump_events": len(dump["events"]),
+            "report_lines": reports[0]["report"].count("\n") + 1}
+        wd.stop()
+        del engine, hub
+        reset_hub()  # the temporary JSONL and Prometheus sinks go
+        torch.cuda.empty_cache()
+        # the same 8 steps with observability off
+        engine, losses_off, wall_off, gaps_off, syncs_off = obs_train_run(
+            torch, zoo, initialize, fa, False, tmp)
+        launches["off"] = {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}
+        if engine.hub is not None or engine.flight is not None:
+            fail("observability off: the engine built a hub or a recorder")
+        if losses_off != losses_on:
+            fail(f"observability: losses on {losses_on} != off "
+                 f"{losses_off}")
+        bad = [p for p, m in leaves(engine.opt_state.master)
+               if not torch.equal(m.detach().cpu(), masters_on[p])]
+        if bad:
+            fail(f"observability: fp32 masters differ on and off: {bad}")
+        if len(syncs_off) != len(syncs_on):
+            fail(f"observability: {len(syncs_on)} sync warnings on, "
+                 f"{len(syncs_off)} off: {syncs_on[:3]}")
+        line.update(step_ms_p50_off=float(np.median(gaps_off)) * 1e3,
+                    sync_warnings_off=len(syncs_off), wall_on_s=wall_on,
+                    wall_off_s=wall_off, masters_equal=True,
+                    losses_equal=True)
+        del engine, masters_on
+        torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("DSTPU_FLIGHT_DIR", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    line["wall_s"] = time.perf_counter() - t_start
+    return line, launches
+
+
+class HostClock:
+    """Stands in for one of the serve's observability objects (the hub,
+    a histogram, the tracer, the flight recorder) and sums the host
+    seconds and the count of its method calls into ``acc``."""
+
+    def __init__(self, inner, acc):
+        self._inner, self._acc = inner, acc
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if not callable(attr):
+            return attr
+        acc = self._acc
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return attr(*args, **kwargs)
+            finally:
+                acc[0] += time.perf_counter() - t0
+                acc[1] += 1
+
+        return timed
+
+
+class NoObservability:
+    """The serve's observability objects switched off: every call does
+    nothing and the tracer reads as disabled."""
+
+    enabled = False
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+OBS_SERVE_ATTRS = ("_hub", "_ttft_hist", "_decode_hist", "_step_hist",
+                   "_admission_hist", "_spec_hist", "tracer", "_flight")
+
+
+def swap_serve_observability(eng, wrap):
+    """Put ``wrap(obj)`` in place of each of the serve's observability
+    objects: the engine's, the scheduler's tracer, the prefix cache's
+    hub."""
+    for name in OBS_SERVE_ATTRS:
+        setattr(eng, name, wrap(getattr(eng, name)))
+    eng.scheduler.tracer = eng.tracer
+    cache = eng.kv_cache.prefix_cache
+    if cache is not None:
+        cache._hub = wrap(cache._hub)
+
+
+# 15c's serves after the gated one, from fresh engines
+OBS_SERVE_AB = ("off", "on", "on", "off")
+OBS_SNAPSHOT_KEYS = {
+    "ttft", "decode_token_latency", "step_latency", "admission_wait",
+    "queue_depth", "queue_wait_depth", "pending_prefill_tokens",
+    "kv_free_blocks", "kv_quant_bits", "batch_seq_occupancy",
+    "batch_token_occupancy", "scheduler", "stats", "request_trace",
+    "burst_efficiency", "prefix_cache"}
+
+
+def obs_serve_phase(torch, InferenceEngineV2, pa, model, prompts, ref_out,
+                    phase3_wall):
+    """15c: phase 3's 8 requests on its model with every request traced
+    (sample rate 1.0) and the engine's series labelled: streams ``==``
+    phase 3's, every trace's phases close, the labelled TTFT histogram
+    counts 8 and the emitted tokens 512, ``snapshot()`` has JAX's keys
+    (less ``handoff_wire``), the dispatch gauges are on the hub. The
+    host seconds inside the observability objects are summed over that
+    serve; then OBS_SERVE_AB serves it again from fresh engines with
+    observability off and on, each stream ``==`` phase 3's. Returns (the
+    phase's line, paged launches)."""
+    from deepspeed_tpu_torch.observability import (check_phase_closure,
+                                                   get_hub,
+                                                   slo_attribution,
+                                                   slo_attribution_markdown)
+
+    t_start = time.perf_counter()
+    label = {"phase": "15c"}
+    eng = serve_engine(torch, InferenceEngineV2, model,
+                       request_trace={"sample_rate": 1.0},
+                       metric_labels=label)
+    # the host seconds spent in the hub, the histograms, the tracer and
+    # the flight recorder, as the serve calls them
+    acc = [0.0, 0]
+    swap_serve_observability(eng, lambda obj: HostClock(obj, acc))
+    pa.reset_launch_counts()
+    out, wall = serve_workload(torch, eng, prompts)
+    obs_s, obs_calls = acc
+    launches = {**pa.LAUNCHES, **pa.VARIANT_LAUNCHES}
+    eng._hub = eng._hub._inner  # snapshot() and request_traces() below
+    eng.tracer = eng.scheduler.tracer = eng.tracer._inner
+    if out != ref_out:
+        fail("observability serve: streams differ from phase 3's")
+    traces = eng.request_traces()
+    try:
+        closure = check_phase_closure(traces)
+    except AssertionError as e:
+        fail(f"observability serve: a trace's phases do not close: {e}")
+    snap = get_hub().snapshot()
+    ttft = snap["histograms"].get('serve.ttft_seconds{phase="15c"}', {})
+    emitted = snap["counters"].get('serve.tokens_emitted{phase="15c"}')
+    keys = set(eng.snapshot())
+    if (len(traces) != 8 or closure["checked"] != 8
+            or ttft.get("count") != 8 or emitted != 8 * NEW_TOKENS
+            or keys != OBS_SNAPSHOT_KEYS
+            or "kernel.attention.pallas" not in snap["gauges"]
+            or "kernel.flash_fallback_ratio" not in snap["gauges"]):
+        fail(f"observability serve: {len(traces)} traces ({closure}), "
+             f"ttft count {ttft.get('count')}, emitted {emitted}, snapshot "
+             f"keys {sorted(keys ^ OBS_SNAPSHOT_KEYS)}, gauges "
+             f"{sorted(k for k in snap['gauges'] if k.startswith('kernel'))}")
+    report = slo_attribution(traces)
+    hists = {name: {"p50": h["p50"], "p99": h["p99"], "count": h["count"]}
+             for name, h in snap["histograms"].items()
+             if name.endswith('{phase="15c"}')}
+    steps = snap["histograms"]['serve.step_seconds{phase="15c"}']["count"]
+    del eng
+    # the same serve with observability off and on, alternated, from
+    # fresh engines: the walls, the streams == phase 3's
+    ab = {"off": [], "on": []}
+    for i, mode in enumerate(OBS_SERVE_AB):
+        eng = serve_engine(torch, InferenceEngineV2, model,
+                           request_trace={"sample_rate": 1.0},
+                           metric_labels={"phase": f"15c-{i}"})
+        if mode == "off":
+            swap_serve_observability(eng, lambda obj: NoObservability())
+        got, ab_wall = serve_workload(torch, eng, prompts)
+        del eng
+        if got != ref_out:
+            fail(f"observability serve, {mode}: streams differ from "
+                 f"phase 3's")
+        ab[mode].append(ab_wall)
+    line = {"wall_s": wall, "phase3_wall_s": phase3_wall,
+            "traces": len(traces), "closure": closure,
+            "histograms": hists, "slo_attribution": {
+                k: report[k] for k in ("phase_seconds", "ttft", "e2e")},
+            "slo_markdown": slo_attribution_markdown(report),
+            "snapshot_keys": sorted(keys), "launches": launches,
+            "host_observability": {
+                "seconds": obs_s, "calls": obs_calls, "serve_steps": steps,
+                "us_per_step": obs_s / steps * 1e6,
+                "share_of_wall": obs_s / wall},
+            "walls_off_on": ab,
+            "on_minus_off_ms_per_step": (np.mean(ab["on"])
+                                         - np.mean(ab["off"])) / steps * 1e3,
+            "phase_s": time.perf_counter() - t_start}
+    torch.cuda.empty_cache()
+    return line, launches
+
+
 def wq_leaves(wq, params, path=""):
     """(path, QuantizedTensor) for every quantized leaf of ``params``."""
     for k, v in params.items():
@@ -4855,6 +5335,19 @@ def main():
         f"; kernel bench {t13b - t13:.0f} s; phase 13 took "
         f"{phase13_s:.0f} s")
 
+    # 15c. the same serve with every request traced, before phase 7's
+    # weight run quantizes the model
+    obs_serve, obs_serve_launches = obs_serve_phase(
+        torch, InferenceEngineV2, pa, model, ref_prompts, ref_out,
+        serve["wall_s"])
+    log(f"observability serve: {obs_serve['wall_s']:.2f} s against phase "
+        f"3's {serve['wall_s']:.2f} s; {obs_serve['traces']} traces close; "
+        f"{obs_serve['host_observability']['us_per_step']:.0f} us of "
+        f"observability host time a serve step; off / on walls "
+        f"{obs_serve['walls_off_on']}; phase 15c took "
+        f"{obs_serve['phase_s']:.0f} s\n"
+        + obs_serve["slo_markdown"])
+
     # 7. quantized serve on the same model (its last use: the int8
     # weight run quantizes it in place)
     quant_serve, quant_profile, quant_launches = quant_serve_phase(
@@ -4897,6 +5390,17 @@ def main():
     zero, zero_launches = zero_phase(torch, zoo, initialize, fa, tf, attn)
     log(f"zero: stages {list(zero['stages'])} equal stage 0 bit for bit, "
         f"collectives as planned; phase 14 took {zero['wall_s']:.0f} s")
+
+    # 15a-b. observability on the 2-layer step, on and off, and the
+    # watchdog drill; phase 14's group is gone
+    obs, obs_launches = obs_train_phase(torch, zoo, initialize, fa, attn, tf)
+    log(f"observability: step p50 {obs['step_ms_p50_on']:.1f} ms on, "
+        f"{obs['step_ms_p50_off']:.1f} off; window MFU "
+        f"{obs['window_mfu']:.4f} vs the smoke's {obs['smoke_mfu']:.4f} "
+        f"(at S 2048 {obs['mfu_s2048']:.4f}); sync warnings "
+        f"{obs['sync_warnings_on']} / {obs['sync_warnings_off']}; device ms "
+        f"by range {json.dumps(obs['trace']['device_ms_by_range'])}; "
+        f"phase 15a-b took {obs['wall_s']:.0f} s")
 
     # 10. offload: full depth with the optimizer on the host, then the
     # tiers' parity and a checkpoint through the AIO writer; phase 9's
@@ -4988,6 +5492,7 @@ def main():
                 "other": other}
 
     paged_paths = {"serve": {**launches, **serve_variants},
+                   "observability_serve": obs_serve_launches,
                    **spec_paths, **draft_paths,
                    "moe_serve": moe_serve_launches,
                    **{f"quant_serve/{run}": lc
@@ -5023,6 +5528,8 @@ def main():
                     **{f"a4/{run}": lc[name]
                        for run, lc in a4_launches.items()},
                     **{run: lc[name] for run, lc in zero_launches.items()},
+                    **{f"observability_{run}": lc[name]
+                       for run, lc in obs_launches.items()},
                     "v1_forward": v1_paths["v1_forward"][name]},
                 "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
@@ -5042,6 +5549,8 @@ def main():
                                      *((f"a4/{run}", lc) for run, lc
                                        in a4_launches.items()),
                                      *zero_launches.items(),
+                                     *((f"observability_{run}", lc) for run,
+                                       lc in obs_launches.items()),
                                      ("v1_forward",
                                       v1_paths["v1_forward"]))},
                 "max_abs_err": b["max_abs_err"],
@@ -5233,6 +5742,8 @@ def main():
                       "dispatch_by_phases": dispatch}),
           flush=True)
     print(json.dumps({"zero": zero}), flush=True)
+    print(json.dumps({"observability": obs}), flush=True)
+    print(json.dumps({"observability_serve": obs_serve}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
           flush=True)
     print(card, flush=True)

@@ -30,6 +30,8 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from deepspeed_tpu_torch.observability.flight_recorder import \
+    get_flight_recorder
 from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
 
 __all__ = [
@@ -330,11 +332,15 @@ def _global_rank(group, index: int) -> int:
 
 
 def _record(op: str, x, axis, log_name: Optional[str] = None) -> None:
-    """One executed collective in the comms logger: its op, its input's
-    bytes and its axis, recorded as it is issued."""
+    """One executed collective in the comms logger (its op, its input's
+    bytes and its axis) and in the flight recorder's ring, recorded as it
+    is issued (JAX records a span at trace time; an eager NCCL call
+    returns before the collective runs, so the port's is an instant)."""
     nbytes = int(x.numel() * x.element_size()) \
         if isinstance(x, torch.Tensor) else 0
     get_comms_logger().record(op, nbytes, axis, log_name)
+    get_flight_recorder().record("collective", op=log_name or op,
+                                 bytes=nbytes, axis=str(axis))
 
 
 def all_reduce(x: torch.Tensor, axis, op: str = "sum",

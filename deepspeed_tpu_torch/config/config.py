@@ -12,7 +12,13 @@ the ``moe`` block (``ep_size`` 1), the
 ``sparse_attention`` block (``SparseAttentionConfig``), the
 ``kernels`` block (``KernelsConfig``), the ``checkpoint`` and
 ``resilience`` blocks (``CheckpointConfig``, ``ResilienceConfig``) and
-the ``performance`` block (``PerformanceConfig``). A
+the ``performance`` block (``PerformanceConfig``), the
+``observability`` block (``ObservabilityConfig`` with its
+``watchdog`` and ``request_trace`` blocks), the ``monitor`` block
+(``MonitorConfig``; the top-level ``tensorboard`` / ``csv_monitor`` /
+``wandb`` / ``comet`` blocks hoisted into it) and the
+``wall_clock_breakdown`` / ``memory_breakdown`` / ``dump_state``
+switches. A
 block or switch of the JAX schema that this package does not run raises
 ``NotImplementedError`` naming its ROADMAP item: nothing the JAX engine
 would act on is silently ignored.
@@ -40,23 +46,13 @@ UNPORTED_BLOCKS = {
     "activation_checkpointing": f"{_A} 11 (activation checkpointing "
                                 "policies; the model's `remat` switch "
                                 "recomputes every layer)",
-    "observability": f"{_A} 14 (observability)",
-    "monitor": f"{_A} 14 (observability)",
     "flops_profiler": f"{_A} 16 (profiling)",
-    "tensorboard": f"{_A} 14 (observability)",
-    "csv_monitor": f"{_A} 14 (observability)",
-    "wandb": f"{_A} 14 (observability)",
-    "comet": f"{_A} 14 (observability)",
     "compile": f"{_A} 16 (compile passes)",
     "elasticity": f"{_A} 16 (elasticity)",
     "data_efficiency": f"{_A} 16 (data pipeline)",
 }
-# top-level switches of the JAX schema: accepted at their defaults only
-UNPORTED_SWITCHES = {
-    "wall_clock_breakdown": (False, f"{_A} 14 (observability)"),
-    "memory_breakdown": (False, f"{_A} 14 (observability)"),
-    "dump_state": (False, f"{_A} 14 (observability)"),
-}
+_FLEET = f"{_A} 14's fleet part (the fleet publisher and aggregator)"
+_FLEET_SERVING = f"{_A} 13 (the serving fleet)"
 # zero_optimization keys: accepted at their "off" values only
 ZERO_SWITCHES = {
     "offload_param": (None, f"{_A} 11 (offload_param streams the layers "
@@ -541,6 +537,187 @@ class ResilienceConfig:
                     f"unbounded), got {val}")
 
 
+@dataclass
+class WatchdogConfig:
+    """Stall watchdog (observability/watchdog.py): a step exceeding
+    ``max(factor * rolling_mean_step_time, min_seconds)`` triggers a
+    report with Python stacks and device memory stats. Env overrides:
+    DSTPU_WATCHDOG=0, DSTPU_WATCHDOG_FACTOR, DSTPU_WATCHDOG_MIN_S."""
+
+    enabled: bool = True
+    factor: float = 8.0
+    min_seconds: float = 30.0
+
+
+@dataclass
+class RequestTraceConfig:
+    """Per-request serving traces (observability/request_trace.py): every
+    request records a typed span timeline; at FINISH a tail-based
+    sampler keeps every SLO violator (TTFT > ``slo_deadline_ms``) plus a
+    ``sample_rate`` random slice of the rest in a ``ring_size`` ring.
+    Env overrides: DSTPU_REQUEST_TRACE=0, DSTPU_REQ_TRACE_SAMPLE,
+    DSTPU_REQ_TRACE_RING, DSTPU_REQ_TRACE_SLO_MS."""
+
+    enabled: bool = True
+    sample_rate: float = 0.05
+    ring_size: int = 4096
+    slo_deadline_ms: Optional[float] = None
+
+    def validate(self) -> None:
+        if not 0.0 <= self.sample_rate <= 1.0:
+            raise ValueError(
+                f"observability.request_trace.sample_rate must be in "
+                f"[0, 1], got {self.sample_rate}")
+        if self.ring_size < 1:
+            raise ValueError(
+                f"observability.request_trace.ring_size must be >= 1, "
+                f"got {self.ring_size}")
+        if self.slo_deadline_ms is not None and self.slo_deadline_ms <= 0:
+            raise ValueError(
+                f"observability.request_trace.slo_deadline_ms must be "
+                f"> 0 (or null), got {self.slo_deadline_ms}")
+
+
+@dataclass
+class ClockSyncConfig:
+    """The fleet's per-channel clock sync (JAX's fields and defaults).
+    Parsed; a value other than its default raises, naming ROADMAP queue
+    A item 13: the channels it syncs are the serving fleet's."""
+
+    enabled: bool = True
+    rounds: int = 8
+    resync_seconds: float = 5.0
+    k: int = 5
+    window: int = 32
+    min_samples: int = 3
+
+    def validate(self) -> None:
+        _defaults_only(self, "observability.clock_sync", _FLEET_SERVING)
+
+
+@dataclass
+class JournalConfig:
+    """The fleet's black-box journal (JAX's fields and defaults; off by
+    default). Parsed; a value other than its default raises, naming
+    ROADMAP queue A item 13."""
+
+    enabled: bool = False
+    dir: str = "dstpu_journal"
+    max_mb: float = 64.0
+
+    def validate(self) -> None:
+        _defaults_only(self, "observability.journal", _FLEET_SERVING)
+
+
+def _defaults_only(block, name: str, item: str) -> None:
+    for f in dataclasses.fields(block):
+        value = getattr(block, f.name)
+        if value != f.default:
+            raise _unported(f"{name}.{f.name}={value!r}", item)
+
+
+@dataclass
+class ObservabilityConfig:
+    """The ``observability`` block (JAX's schema; the hub is on by
+    default). Per-step ``StepTrace`` rows flow to the process-wide hub
+    (observability/hub.py); ``jsonl_path`` / ``prometheus_path`` stream
+    them to disk (env: DSTPU_METRICS_JSONL / DSTPU_METRICS_PROM), the
+    Prometheus page every ``prometheus_every_steps`` steps;
+    ``step_history`` bounds the in-memory rows. ``xla_cost_analysis``
+    (JAX's name; env DSTPU_ROOFLINE=1) turns on the engine's roofline
+    after step 2, from the counted step (observability/attribution.py).
+    ``flight_events`` sizes the crash flight recorder's ring (0
+    disables it). ``watchdog`` and ``request_trace`` are their blocks.
+    Not ported: ``run_dir`` (the fleet publisher; ``publish_every_steps``
+    and ``stale_after_seconds`` are its knobs, accepted and unused as in
+    a JAX run without a run dir), ``quant_stats`` (ROADMAP queue A item
+    10), ``clock_sync`` and ``journal`` (item 13)."""
+
+    enabled: bool = True
+    quant_stats: bool = False
+    jsonl_path: Optional[str] = None
+    prometheus_path: Optional[str] = None
+    prometheus_every_steps: int = 10
+    step_history: int = 512
+    xla_cost_analysis: bool = False
+    run_dir: Optional[str] = None
+    publish_every_steps: int = 1
+    stale_after_seconds: float = 30.0
+    flight_events: int = 4096
+    watchdog: WatchdogConfig = field(default_factory=WatchdogConfig)
+    request_trace: RequestTraceConfig = field(
+        default_factory=RequestTraceConfig)
+    clock_sync: ClockSyncConfig = field(default_factory=ClockSyncConfig)
+    journal: JournalConfig = field(default_factory=JournalConfig)
+
+    @classmethod
+    def from_dict(cls, data) -> "ObservabilityConfig":
+        data = dict(data or {})
+        subs = {"watchdog": WatchdogConfig,
+                "request_trace": RequestTraceConfig,
+                "clock_sync": ClockSyncConfig, "journal": JournalConfig}
+        for name, klass in subs.items():
+            data[name] = _block(klass, data.get(name),
+                                f"observability.{name}")
+        return _block(cls, data, "observability")
+
+    def validate(self) -> None:
+        self.request_trace.validate()
+        self.clock_sync.validate()
+        self.journal.validate()
+        if self.flight_events < 0:
+            raise ValueError(
+                f"observability.flight_events must be >= 0, got "
+                f"{self.flight_events}")
+        if self.publish_every_steps < 1:
+            raise ValueError(
+                f"observability.publish_every_steps must be >= 1, got "
+                f"{self.publish_every_steps}")
+        if self.run_dir:
+            raise _unported(f"observability.run_dir={self.run_dir!r}",
+                            _FLEET)
+        if self.quant_stats:
+            raise _unported("observability.quant_stats=True",
+                            f"{_A} 10 (ZeRO++'s quantization telemetry)")
+
+
+@dataclass
+class MonitorBackendConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJob"
+    team: Optional[str] = None
+    project: Optional[str] = None
+    group: Optional[str] = None
+
+
+@dataclass
+class MonitorConfig:
+    """The ``monitor`` block (reference deepspeed/monitor/config.py;
+    ``monitor/monitor.MonitorMaster``). The reference's top-level
+    ``tensorboard`` / ``csv_monitor`` / ``wandb`` / ``comet`` blocks are
+    hoisted into it, as JAX does."""
+
+    tensorboard: MonitorBackendConfig = field(
+        default_factory=MonitorBackendConfig)
+    csv_monitor: MonitorBackendConfig = field(
+        default_factory=MonitorBackendConfig)
+    wandb: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
+    comet: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
+    jsonl: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
+
+    @classmethod
+    def from_dict(cls, data, top) -> "MonitorConfig":
+        data = dict(data or {})
+        for name in ("tensorboard", "csv_monitor", "wandb", "comet"):
+            if top.get(name) is not None:
+                data[name] = top[name]
+        return _block(cls, {
+            k: _block(MonitorBackendConfig, v, f"monitor.{k}")
+            if isinstance(v, dict) or v is None else v
+            for k, v in data.items()}, "monitor")
+
+
 def _block(klass, data, name):
     """A dataclass block from a dict (None means defaults); unknown keys
     warn, as the JAX ConfigModel does."""
@@ -588,6 +765,15 @@ class Config:
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     performance: PerformanceConfig = field(
         default_factory=PerformanceConfig)
+    observability: ObservabilityConfig = field(
+        default_factory=ObservabilityConfig)
+    monitor: MonitorConfig = field(default_factory=MonitorConfig)
+    # JAX's switches: the timers' log line every steps_per_print, the
+    # memory breadcrumbs at init, and dump_state (parsed; JAX reads it
+    # nowhere either)
+    wall_clock_breakdown: bool = False
+    memory_breakdown: bool = False
+    dump_state: bool = False
 
     @classmethod
     def from_dict(cls, data: Optional[Dict[str, Any]]) -> "Config":
@@ -598,9 +784,6 @@ class Config:
         for name, item in UNPORTED_BLOCKS.items():
             if data.get(name) is not None:
                 raise _unported(f"block '{name}'", item)
-        for name, (default, item) in UNPORTED_SWITCHES.items():
-            if data.get(name, default) != default:
-                raise _unported(f"'{name}={data[name]!r}'", item)
         zero = dict(data.get("zero_optimization") or {})
         for name, (off, item) in ZERO_SWITCHES.items():
             value = zero.pop(name, off)
@@ -622,10 +805,11 @@ class Config:
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
                   "zero_optimization", "moe", "comms_logger", "serving",
                   "sparse_attention", "kernels", "checkpoint", "resilience",
-                  "performance"}
+                  "performance", "observability", "monitor"}
+        monitors = {"tensorboard", "csv_monitor", "wandb", "comet"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
-        known = (scalars | blocks
-                 | set(UNPORTED_BLOCKS) | set(UNPORTED_SWITCHES))
+        known = (scalars | blocks | monitors
+                 | set(UNPORTED_BLOCKS))
         for key in sorted(set(data) - known):
             warnings.warn(f"Config: ignoring unknown config key '{key}'")
         cfg = cls(
@@ -653,7 +837,10 @@ class Config:
             resilience=_block(ResilienceConfig, data.get("resilience"),
                               "resilience"),
             performance=_block(PerformanceConfig, data.get("performance"),
-                               "performance"))
+                               "performance"),
+            observability=ObservabilityConfig.from_dict(
+                data.get("observability")),
+            monitor=MonitorConfig.from_dict(data.get("monitor"), data))
         cfg.validate()
         return cfg
 
@@ -682,6 +869,7 @@ class Config:
         self.kernels.validate()
         self.checkpoint.validate()
         self.resilience.validate()
+        self.observability.validate()
 
     def resolve_batch_size(self, dp_world_size: int) -> None:
         """Solve train_batch = micro x GAS x dp (the JAX solver,
@@ -754,4 +942,7 @@ __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "CommsLoggerConfig",
            "FP16Config", "OffloadOptimizerConfig", "ZenFlowBlockConfig",
            "ZeroConfig", "MoEConfig", "ServingConfig",
            "SparseAttentionConfig", "KernelsConfig", "CheckpointConfig",
-           "ResilienceConfig", "PerformanceConfig", "load_config"]
+           "ResilienceConfig", "PerformanceConfig", "ObservabilityConfig",
+           "WatchdogConfig", "RequestTraceConfig", "ClockSyncConfig",
+           "JournalConfig", "MonitorConfig", "MonitorBackendConfig",
+           "load_config"]

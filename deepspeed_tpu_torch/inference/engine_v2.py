@@ -28,9 +28,20 @@ paged-out sessions (``page_out``) to host memory in the pool's own
 format, and resumes them without re-prefill. The same knobs come in
 through ``serving=ServingConfig(...)``.
 
+Observability (JAX ``engine_v2.py:268-303``): the serving histograms
+(``serve.ttft_seconds``, ``serve.decode_token_seconds``,
+``serve.step_seconds``, ``serve.admission_wait_seconds``,
+``serve.spec_accepted_len``), counters and gauges in the process-wide
+hub at JAX's emit points, one flight record a serve step, and the
+per-request tracer (``observability/request_trace.py``:
+``request_trace`` takes the ``observability.request_trace`` block or a
+dict; tail-sampled span timelines and SLO attribution). All of it is
+host work per step and per request; none of it touches the card.
+``log_summary``, ``request_traces`` and ``snapshot`` read it back.
+
 Not ported yet (ROADMAP queue A): session migration and the handoff
-wire, tensor parallelism, and the tracer / metrics hub / flight
-recorder / journal.
+wire (item 13; ``snapshot`` has no ``handoff_wire`` key), tensor
+parallelism, and the journal.
 """
 
 from __future__ import annotations
@@ -55,6 +66,13 @@ from deepspeed_tpu_torch.inference.scheduler import SplitFuseScheduler
 from deepspeed_tpu_torch.inference.spec_decode import PromptLookupDrafter
 from deepspeed_tpu_torch.inference.weight_quant import quantize_params
 from deepspeed_tpu_torch.models.transformer import TransformerLM
+from deepspeed_tpu_torch.observability.clocksync import wall_time
+from deepspeed_tpu_torch.observability.flight_recorder import (
+    get_flight_recorder, install_crash_handlers)
+from deepspeed_tpu_torch.observability.hub import get_hub
+from deepspeed_tpu_torch.observability.request_trace import RequestTracer
+from deepspeed_tpu_torch.utils import telemetry
+from deepspeed_tpu_torch.utils.logging import log_dist
 
 # latency samples kept per engine (oldest dropped first)
 _LATENCY_WINDOW = 4096
@@ -73,6 +91,8 @@ class _QueuedRequest:
     # original put() time while TTFT is still unmeasured; None once the
     # request has emitted its first token (pre-preemption)
     admit_time: Optional[float] = None
+    # a preemption victim back in the queue (its ADMIT span is a requeue)
+    requeued: bool = False
     # the victim's KV is parked in the host tier (ragged/kv_tier.py):
     # admission restores blocks and resumes decode instead of
     # re-prefilling; ``tokens`` carries the folded history anyway as the
@@ -100,7 +120,10 @@ class InferenceEngineV2:
     ``spec_decode`` drafts with prompt lookup (``spec_ngram``); a
     ``drafter`` (anything with ``propose(tokens, k)``) replaces it and
     turns speculation on. ``spec_k`` is the most drafts a sequence
-    verifies a round."""
+    verifies a round. ``request_trace`` configures the request tracer
+    (the ``observability.request_trace`` block or a dict; env overrides
+    as in JAX); ``metric_labels`` tags every ``serve.*`` series of this
+    engine (a replica id)."""
 
     def __init__(self, model: TransformerLM, kv_blocks: int = 256,
                  kv_block_size: int = 16, max_tokens_per_step: int = 128,
@@ -115,6 +138,8 @@ class InferenceEngineV2:
                  spec_adaptive_k: bool = False,
                  spec_accept_alpha: float = 0.25,
                  serving: Optional[Any] = None,
+                 request_trace: Optional[Any] = None,
+                 metric_labels: Optional[Dict[str, str]] = None,
                  device: DeviceLike = None):
         if serving is not None:
             # the config block is the source of truth for config-driven
@@ -154,16 +179,21 @@ class InferenceEngineV2:
         # routes padded writes there): shrink the allocator so it is
         # never handed out
         self.kv_cache.allocator = BlockedAllocator(kv_blocks - 1)
+        # per-replica metric labels: engines in one process tag their
+        # serve.* series so aggregation never collapses them into one
+        self._metric_labels = dict(metric_labels) if metric_labels else None
         # shared-prefix KV reuse: full blocks whose content-hash chain
         # matches a cached prefix are shared by reference and skip prefill
         if prefix_cache:
-            self.kv_cache.prefix_cache = PrefixCache(kv_block_size)
+            self.kv_cache.prefix_cache = PrefixCache(
+                kv_block_size, metric_labels=self._metric_labels)
         # host-memory KV tier: KV pressure PAGES blocks out (in the pool's
         # own storage format) instead of evicting them — cold prefix
         # chains and preempted sessions come back without re-prefill
         if host_kv_tier:
             self.kv_cache.host_tier = HostKVTier(
-                capacity_bytes=int(host_tier_mb) << 20)
+                capacity_bytes=int(host_tier_mb) << 20,
+                metric_labels=self._metric_labels)
 
         self.state = StateManager(self.kv_cache,
                                   max_tracked_sequences=4 * max_seqs_per_step,
@@ -231,6 +261,32 @@ class InferenceEngineV2:
         # rows crowd out real decode tokens)
         self._spec_cut_base = 0.25
         self._spec_load_gain = 3.0
+        # request-latency observability: the histograms live in the
+        # process-wide hub so serving percentiles land on the same
+        # Prometheus page as training metrics
+        self._hub = get_hub()
+        lbl = self._metric_labels
+        self._ttft_hist = self._hub.histogram("serve.ttft_seconds",
+                                              labels=lbl)
+        self._decode_hist = self._hub.histogram("serve.decode_token_seconds",
+                                                labels=lbl)
+        self._step_hist = self._hub.histogram("serve.step_seconds",
+                                              labels=lbl)
+        self._admission_hist = self._hub.histogram(
+            "serve.admission_wait_seconds", labels=lbl)
+        self._spec_hist = self._hub.histogram("serve.spec_accepted_len",
+                                              labels=lbl)
+        # serving shares the crash flight recorder: a wedged serve step
+        # dumps the last admits and steps as a training hang does
+        self._flight = get_flight_recorder()
+        install_crash_handlers()
+        # per-request span timelines, tail-sampled at FINISH; the tracer
+        # registers the in-flight requests as crash-dump context
+        self.tracer = RequestTracer.from_config(
+            request_trace, hub=self._hub, flight=self._flight)
+        self.scheduler.tracer = self.tracer
+        self._burst_tokens = 0
+        self._burst_capacity = 0
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -290,17 +346,23 @@ class InferenceEngineV2:
                 uid=uid, tokens=toks, max_new_tokens=max_new_tokens,
                 enqueue_time=now, admit_time=now))
             self.stats["queued"] += 1
+            self._hub.counter_add("serve.requests", labels=self._metric_labels)
+            self.tracer.on_enqueue(uid, len(toks),
+                                   queue_depth=len(self._queue))
         self._admit_from_queue()
+        self._hub.gauge("serve.queue_wait_depth", len(self._queue),
+                        labels=self._metric_labels)
 
     def _admit_from_queue(self) -> None:
         """Admit waiting requests strictly FIFO while capacity lasts.
         Strict head-of-line order keeps big prompts from starving behind
         a stream of small ones; the rotation fairness lives in the
         scheduler's prefill scan instead."""
+        now = time.perf_counter()
         while self._queue and self.can_schedule(len(self._queue[0].tokens)):
             req = self._queue.popleft()
             if req.paged:
-                outcome = self._try_page_in(req)
+                outcome = self._try_page_in(req, now)
                 if outcome == "stall":
                     # the session's blocks don't fit RIGHT NOW (live
                     # pressure): keep FIFO order and retry next round
@@ -313,12 +375,20 @@ class InferenceEngineV2:
             seq = self.state.get_or_create(req.uid, req.tokens,
                                            req.max_new_tokens)
             seq.prior_generated = req.prior_generated
+            self.tracer.on_admit(req.uid, wait_s=now - req.enqueue_time,
+                                 requeued=req.requeued)
             skipped = self.state.attach_prefix(seq)
             if skipped:
                 self.stats["prefix_hit_tokens"] += skipped
+                self._hub.counter_add("serve.prefix_hit_tokens", skipped,
+                                      labels=self._metric_labels)
+                self.tracer.on_prefix_hit(req.uid, skipped)
             if req.admit_time is not None:
                 self._admit_time[req.uid] = req.admit_time
+            self._admission_hist.observe(now - req.enqueue_time)
             self.stats["admitted"] += 1
+        self._hub.gauge("serve.queue_wait_depth", len(self._queue),
+                        labels=self._metric_labels)
 
     def _release_seq(self, uid: int) -> Optional[float]:
         """The ONE sequence-teardown path: frees state + KV and pops the
@@ -346,18 +416,31 @@ class InferenceEngineV2:
             seq.done = True
             seq.truncated = True
             self.stats["truncated"] += 1
+            self.tracer.on_finish(seq.uid, "truncated")
             self._release_seq(seq.uid)
+            log_dist(f"uid={seq.uid} at per-seq KV cap on preemption: "
+                     "truncated", ranks=[0])
             return
+        self.tracer.on_preempt(seq.uid, reason=reason,
+                               generated=len(seq.generated))
         prior = seq.prior_generated + len(seq.generated)
         admit = self._release_seq(seq.uid)
         self._queue.appendleft(_QueuedRequest(
             uid=seq.uid, tokens=tokens, max_new_tokens=seq.max_new_tokens,
             enqueue_time=time.perf_counter(), prior_generated=prior,
-            admit_time=admit))
+            admit_time=admit, requeued=True))
         self.stats["preempted"] += 1
         self.stats["preempt_reasons"][reason] = \
             self.stats["preempt_reasons"].get(reason, 0) + 1
         self.stats["requeued"] += 1
+        self._count_preempted(reason)
+
+    def _count_preempted(self, reason: str) -> None:
+        self._hub.counter_add("serve.preempted", labels=self._metric_labels)
+        self._hub.counter_add(f"serve.preempted_reason.{reason}",
+                              labels=self._metric_labels)
+        self._hub.gauge("serve.queue_wait_depth", len(self._queue),
+                        labels=self._metric_labels)
 
     def _page_out(self, seq, reason: str = "paged_out") -> bool:
         """Preempt ``seq`` by PAGING its KV to the host tier instead of
@@ -395,6 +478,8 @@ class InferenceEngineV2:
             spec_accept_ewma=self._seq_accept_ewma.get(seq.uid))
         if not tier.put_session(sess):
             return False
+        self.tracer.on_preempt(seq.uid, reason=reason,
+                               generated=len(seq.generated))
         # folded history rides in the queued request as the fallback: if
         # the tier spills the session before readmission, admission
         # degrades to the ordinary prefix-recompute path
@@ -406,14 +491,15 @@ class InferenceEngineV2:
         self._queue.appendleft(_QueuedRequest(
             uid=seq.uid, tokens=tokens, max_new_tokens=seq.max_new_tokens,
             enqueue_time=time.perf_counter(), prior_generated=prior,
-            admit_time=admit, paged=True))
+            admit_time=admit, requeued=True, paged=True))
         self.stats["preempted"] += 1
         self.stats["preempt_reasons"][reason] = \
             self.stats["preempt_reasons"].get(reason, 0) + 1
         self.stats["paged_out"] += 1
+        self._count_preempted(reason)
         return True
 
-    def _try_page_in(self, req: _QueuedRequest) -> str:
+    def _try_page_in(self, req: _QueuedRequest, now: float) -> str:
         """Warm-resume a ``paged`` queued request from the host tier.
         Returns ``"resumed"`` (decode continues, zero prefill),
         ``"stall"`` (session present but the pool can't take its blocks
@@ -443,10 +529,15 @@ class InferenceEngineV2:
         self.stats["paged_in"] += 1
         self.stats["admitted"] += 1
         self.stats["warm_resume_tokens"] += sess.seen_tokens
+        self._hub.counter_add("serve.warm_resume_tokens", sess.seen_tokens,
+                              labels=self._metric_labels)
+        self.tracer.on_admit(req.uid, wait_s=now - req.enqueue_time,
+                             requeued=True)
         if sess.admit_time is not None:
             self._admit_time[req.uid] = sess.admit_time
         elif req.admit_time is not None:
             self._admit_time[req.uid] = req.admit_time
+        self._admission_hist.observe(now - req.enqueue_time)
         return "resumed"
 
     def page_out(self, uid: int) -> bool:
@@ -480,6 +571,7 @@ class InferenceEngineV2:
              eos_token_id: Optional[int] = None) -> Dict[int, int]:
         """Run one SplitFuse step. Returns {uid: new_token} for sequences
         that produced a token this step."""
+        t0 = time.perf_counter()
         self._admit_from_queue()
         scheduled = self.scheduler.schedule()
         self._release_finished()
@@ -497,9 +589,13 @@ class InferenceEngineV2:
                 # a lone sequence the pool cannot grow for: requeueing
                 # would readmit it into the same wall, so end it
                 victim = live[0]
+                log_dist(
+                    f"KV pool exhausted by lone uid={victim.uid}: "
+                    "truncated (pool smaller than one request)", ranks=[0])
                 victim.done = True
                 victim.truncated = True
                 self.stats["truncated"] += 1
+                self.tracer.on_finish(victim.uid, "truncated")
                 self._release_seq(victim.uid)
             return {}
         batch = build_ragged_batch(scheduled, self.max_tokens, self.max_seqs,
@@ -514,8 +610,23 @@ class InferenceEngineV2:
             if seg_plan is None:
                 self.stats["prefill_gather_fallbacks"] += 1
                 self.stats["fallback_reasons"]["padding"] += 1
+                # warned once per reason, then counted (log_summary(),
+                # telemetry.get())
+                telemetry.count(
+                    "serve.prefill_gather_fallback",
+                    "padding: paged prefill fell "
+                    "back to the gather path — flat-layout serve step, "
+                    "no paged kernel; see log_summary()")
             else:
                 self.stats["prefill_kernel_steps"] += 1
+            # the share of mixed prefill steps that lost the paged kernel
+            # to the gather path, per replica
+            attempts = (self.stats["prefill_gather_fallbacks"]
+                        + self.stats["prefill_kernel_steps"])
+            self._hub.gauge(
+                "serve.paged_fallback_ratio",
+                self.stats["prefill_gather_fallbacks"] / max(1, attempts),
+                labels=self._metric_labels)
         elif decode_only:
             self.stats["decode_kernel_steps"] += 1
 
@@ -584,8 +695,23 @@ class InferenceEngineV2:
                 if seq.gen_budget_left <= 0:
                     seq.done = True
         now = time.perf_counter()
+        self._step_hist.observe(now - t0)
+        self._flight.record("serve_step", tokens=batch.num_tokens,
+                            emitted=len(emitted),
+                            wall_ms=round((now - t0) * 1000.0, 3))
+        if self.tracer.enabled:
+            # one PREFILL span per prompt chunk this step advanced, its
+            # start backdated by the step wall (on the tracer's clock)
+            wall_ms = (now - t0) * 1e3
+            t_start = wall_time() - (now - t0)
+            for seq, new_tokens, start_pos in scheduled:
+                if start_pos < len(seq.input_tokens):
+                    self.tracer.on_prefill(seq.uid, t_start, wall_ms,
+                                           tokens=len(new_tokens),
+                                           start_pos=start_pos)
         for uid in emitted:
             self._note_emitted(uid, 1, now)
+        self._update_serve_gauges()
         self._release_finished()
         return emitted
 
@@ -623,22 +749,59 @@ class InferenceEngineV2:
 
     def _release_finished(self) -> None:
         for seq in [s for s in self.state.seqs.values() if s.done]:
+            self.tracer.on_finish(
+                seq.uid, "truncated" if seq.truncated else "finished")
             self._release_seq(seq.uid)
 
-    def _note_emitted(self, uid: int, n_tokens: int, now: float) -> None:
+    def _note_emitted(self, uid: int, n_tokens: int, now: float,
+                      spec_overhead_ms: float = 0.0) -> None:
         """Fold ``n_tokens`` just-emitted tokens of ``uid`` into the
-        latency samples: the first token of a request is its TTFT; later
-        tokens record the gap since the previous emission."""
+        latency samples and histograms: the first token of a request is
+        its TTFT; later tokens record the gap since the previous
+        emission. ``spec_overhead_ms`` is this request's share of a
+        verify round's rejected-draft compute (its DECODE_EMIT span)."""
+        self.tracer.on_emit(uid, n_tokens,
+                            spec_overhead_ms=spec_overhead_ms)
+        self._hub.counter_add("serve.tokens_emitted", n_tokens,
+                              labels=self._metric_labels)
         admit = self._admit_time.pop(uid, None)
         last = self._last_emit_time.get(uid)
         if admit is not None:
             self.latency["ttft_s"].append(now - admit)
+            self._ttft_hist.observe(now - admit)
             n_tokens -= 1
             last = now
         if last is not None and n_tokens > 0:
             per_tok = (now - last) / n_tokens
             self.latency["decode_token_s"].extend([per_tok] * n_tokens)
+            for _ in range(n_tokens):
+                self._decode_hist.observe(per_tok)
         self._last_emit_time[uid] = now
+
+    def _update_serve_gauges(self) -> None:
+        live = [s for s in self.state.seqs.values() if not s.done]
+        lbl = self._metric_labels
+        self._hub.gauge("serve.queue_depth", len(live), labels=lbl)
+        self._hub.gauge("serve.queue_wait_depth", len(self._queue),
+                        labels=lbl)
+        self._hub.gauge("serve.pending_prefill_tokens",
+                        sum(s.pending_prefill for s in live), labels=lbl)
+        self._hub.gauge("serve.kv_free_blocks", self.kv_cache.free_blocks,
+                        labels=lbl)
+        if self.kv_cache.prefix_cache is not None:
+            self._hub.gauge("serve.prefix_cached_blocks",
+                            self.kv_cache.prefix_cache.cached_blocks,
+                            labels=lbl)
+        self._hub.gauge("serve.batch_seq_occupancy",
+                        self.scheduler.last_scheduled_seqs
+                        / max(1, self.max_seqs), labels=lbl)
+        self._hub.gauge("serve.batch_token_occupancy",
+                        self.scheduler.last_scheduled_tokens
+                        / max(1, self.max_tokens), labels=lbl)
+        if self._burst_capacity > 0:
+            self._hub.gauge("serve.burst_efficiency",
+                            self._burst_tokens / self._burst_capacity,
+                            labels=lbl)
 
     def _try_decode_burst(self, eos_token_id: Optional[int]
                           ) -> Optional[Dict[int, List[int]]]:
@@ -648,6 +811,7 @@ class InferenceEngineV2:
         prefill pending, and KV capacity for the whole burst (the block
         tables are frozen for its duration). Returns None when a single
         SplitFuse step should run instead."""
+        t0 = time.perf_counter()
         live = [s for s in self.state.seqs.values() if not s.done]
         if (self.decode_steps <= 1 or not live or len(live) > self.max_seqs
                 or any((not s.in_decode) or s.pending_prefill for s in live)):
@@ -711,9 +875,14 @@ class InferenceEngineV2:
             s.seen_tokens += len(accepted)
             emitted[s.uid] = accepted
         now = time.perf_counter()
+        self._step_hist.observe(now - t0)
+        # burst efficiency: tokens kept over the K x live slots computed
+        self._burst_tokens += sum(len(v) for v in emitted.values())
+        self._burst_capacity += K * len(live)
         for uid, toks_u in emitted.items():
             if toks_u:
                 self._note_emitted(uid, len(toks_u), now)
+        self._update_serve_gauges()
         self._release_finished()
         return emitted
 
@@ -810,6 +979,7 @@ class InferenceEngineV2:
                 raise RuntimeError("spec capacity probe said yes but KV "
                                    "block allocation failed")
             sched.append((s, chunk, s.seen_tokens))
+        t_start = time.perf_counter()
         batch = build_ragged_batch(sched, self.max_tokens, self.max_seqs,
                                    self.max_blocks_per_seq)
         kv = self.kv_cache.kv_state
@@ -833,6 +1003,7 @@ class InferenceEngineV2:
         # [T, V] logits
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()
         emitted: Dict[int, List[int]] = {}
+        wasted_rows: Dict[int, int] = {}
         cursor = 0
         for slot, (s, chunk, start_pos) in enumerate(sched):
             n = len(chunk)
@@ -848,6 +1019,15 @@ class InferenceEngineV2:
                 emit.append(int(rows[j]))
             self.stats["spec_proposed"] += n - 1
             self.stats["spec_accepted"] += len(emit) - 1
+            # drafted / accepted counters beside the accepted-length
+            # histogram, so the acceptance rate is derivable on the page
+            self._hub.counter_add("serve.spec_drafted_tokens", n - 1,
+                                  labels=self._metric_labels)
+            self._hub.counter_add("serve.spec_accepted_tokens",
+                                  len(emit) - 1, labels=self._metric_labels)
+            self.tracer.on_spec(s.uid, drafted=n - 1,
+                                accepted=len(emit) - 1)
+            self._spec_hist.observe(len(emit) - 1)
             if n > 1:
                 # measured acceptance feeds the adaptive-k controller and
                 # the drafter's own counters
@@ -864,7 +1044,11 @@ class InferenceEngineV2:
                     note(n - 1, len(emit) - 1)
             # rows computed past the accepted frontier: the round's
             # wasted work (what adaptive k trims under load)
-            self._spec_wasted_verify_tokens += n - len(emit)
+            wasted = n - len(emit)
+            if wasted:
+                self._spec_wasted_verify_tokens += wasted
+                self._hub.counter_add("serve.spec_wasted_verify_tokens",
+                                      wasted, labels=self._metric_labels)
             budget_left = s.gen_budget_left
             final: List[int] = []
             for tok in emit:
@@ -878,11 +1062,26 @@ class InferenceEngineV2:
             s.generated.extend(final)
             s.seen_tokens = start_pos + len(final)
             emitted[s.uid] = final
+            wasted_rows[s.uid] = n - len(final)
         self.stats["spec_steps"] += 1
+        if self._spec_accept_ewma is not None:
+            self._hub.gauge("serve.spec_accept_ewma", self._spec_accept_ewma,
+                            labels=self._metric_labels)
         now = time.perf_counter()
+        self._step_hist.observe(now - t_start)
+        round_wall_ms = (now - t_start) * 1e3
+        self._flight.record("serve_step", tokens=batch.num_tokens,
+                            emitted=sum(len(v) for v in emitted.values()),
+                            spec=True, wall_ms=round(round_wall_ms, 3))
         for uid, toks in emitted.items():
             if toks:
-                self._note_emitted(uid, len(toks), now)
+                # this request's share of the round spent on rows past
+                # its accepted frontier: its decode phase's spec overhead
+                self._note_emitted(
+                    uid, len(toks), now,
+                    spec_overhead_ms=round_wall_ms * wasted_rows[uid]
+                    / max(1, batch.num_tokens))
+        self._update_serve_gauges()
         self._release_finished()
         return emitted
 
@@ -928,12 +1127,80 @@ class InferenceEngineV2:
         requests too."""
         tier = self.kv_cache.host_tier
         for uid in uids:
+            self.tracer.on_finish(uid, "flushed")
             self._release_seq(uid)
             if tier is not None and tier.has_session(uid):
                 tier.pop_session(uid)  # flushed sessions never resume
         drop = set(uids)
         if any(r.uid in drop for r in self._queue):
             self._queue = deque(r for r in self._queue if r.uid not in drop)
+
+    def log_summary(self) -> Dict[str, Any]:
+        """Serve-path telemetry (JAX ``engine_v2.py:1442``): kernel vs
+        gather-fallback step counts, with fallback reasons. A nonzero
+        ``prefill_gather_fallbacks`` means prefill ran the flat gather
+        path."""
+        s = dict(self.stats)
+        s["fallback_reasons"] = dict(self.stats["fallback_reasons"])
+        s["preempt_reasons"] = dict(self.stats["preempt_reasons"])
+        log_dist(f"InferenceEngineV2 summary: {s}", ranks=[0])
+        return s
+
+    def request_traces(self, last: int = 0):
+        """Finished (tail-sampled) request traces — the input to
+        ``slo_attribution``."""
+        return self.tracer.finished(last=last)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Serving observability snapshot (JAX ``engine_v2.py:1460``):
+        request-latency percentiles (TTFT, per decode token, step and
+        admission wait: p50 / p95 / p99), queue and occupancy gauges, the
+        kernel / fallback counters and the tracer's state. JAX's keys,
+        less ``handoff_wire`` (ROADMAP queue A item 13)."""
+        live = [s for s in self.state.seqs.values() if not s.done]
+        out: Dict[str, Any] = {
+            "ttft": self._ttft_hist.snapshot(),
+            "decode_token_latency": self._decode_hist.snapshot(),
+            "step_latency": self._step_hist.snapshot(),
+            "admission_wait": self._admission_hist.snapshot(),
+            "queue_depth": len(live),
+            "queue_wait_depth": len(self._queue),
+            "pending_prefill_tokens": sum(s.pending_prefill for s in live),
+            "kv_free_blocks": self.kv_cache.free_blocks,
+            "kv_quant_bits": self.kv_cache.quant_bits,
+            "batch_seq_occupancy": (self.scheduler.last_scheduled_seqs
+                                    / max(1, self.max_seqs)),
+            "batch_token_occupancy": (self.scheduler.last_scheduled_tokens
+                                      / max(1, self.max_tokens)),
+            "scheduler": dict(self.scheduler.stats),
+            "stats": dict(self.stats,
+                          fallback_reasons=dict(
+                              self.stats["fallback_reasons"]),
+                          preempt_reasons=dict(
+                              self.stats["preempt_reasons"])),
+            "request_trace": self.tracer.snapshot(),
+        }
+        if self._burst_capacity > 0:
+            out["burst_efficiency"] = (self._burst_tokens
+                                       / self._burst_capacity)
+        if self.kv_cache.prefix_cache is not None:
+            out["prefix_cache"] = self.kv_cache.prefix_cache.snapshot()
+        if self.stats["spec_proposed"] > 0:
+            out["spec_drafted_tokens"] = self.stats["spec_proposed"]
+            out["spec_accepted_tokens"] = self.stats["spec_accepted"]
+            out["spec_acceptance_rate"] = (self.stats["spec_accepted"]
+                                           / self.stats["spec_proposed"])
+            out["spec_accepted_len"] = self._spec_hist.snapshot()
+        if self._spec_accept_ewma is not None:
+            out["spec_accept_ewma"] = self._spec_accept_ewma
+        if self._spec_wasted_verify_tokens:
+            out["spec_wasted_verify_tokens"] = self._spec_wasted_verify_tokens
+        tier = self.kv_cache.host_tier
+        if tier is not None:
+            out["host_tier"] = tier.snapshot()
+        if self._drafter is not None and hasattr(self._drafter, "stats"):
+            out["drafter"] = dict(self._drafter.stats)
+        return out
 
 
 def _sample_np(logits_row: np.ndarray, temperature: float, seed: int) -> int:

@@ -58,6 +58,7 @@ from deepspeed_tpu_torch.ops.paged_attention import (paged_decode_attention,
 from deepspeed_tpu_torch.ops.quantization import (dequantize,
                                                   kv_quantize_append)
 from deepspeed_tpu_torch.parallel.moe import moe_ffn
+from deepspeed_tpu_torch.utils.annotate import range_pop, range_push, region
 
 Params = Dict[str, Any]
 
@@ -110,6 +111,7 @@ def _rope_of(cfg: TransformerConfig, positions):
     return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
+@region("attention")
 def _qkv(cfg: TransformerConfig, layer_params, y, rope):
     """Project y [..., H] to q/k/v with rope applied. Returns q [.., nh, hd],
     k/v [.., nkv, hd] (GQA heads NOT repeated — cache stays small)."""
@@ -127,6 +129,7 @@ def _qkv(cfg: TransformerConfig, layer_params, y, rope):
     return q, k, v
 
 
+@region("mlp")
 def _mlp(cfg: TransformerConfig, layer_params, x):
     if "moe" in layer_params:
         return _moe_mlp(cfg, layer_params, x)
@@ -147,6 +150,7 @@ def _mlp(cfg: TransformerConfig, layer_params, x):
     return x + out
 
 
+@region("mlp")
 def _moe_mlp(cfg, layer_params, x):
     """MoE FFN for the serving runners. Token dropping is off: serving
     routes every token (capacity = tokens)."""
@@ -160,6 +164,7 @@ def _moe_mlp(cfg, layer_params, x):
     return x + (out[0] if y.dim() == 2 else out)
 
 
+@region("attention")
 def _attn_out(cfg: TransformerConfig, layer_params, attn):
     """attn [..., nh, hd] -> [..., H] through wo (+ bo)."""
     wo = _weight(layer_params["attn"]["wo"], attn.dtype)
@@ -183,6 +188,7 @@ def _embed(cfg: TransformerConfig, params, ids, positions):
     return x
 
 
+@region("vocab_head")
 def _unembed(cfg: TransformerConfig, params, x):
     x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -410,11 +416,13 @@ def ragged_prefill_forward(cfg: TransformerConfig, params: Params,
         lp = _layer(params, l)
         y = _norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, y, rope)  # q [S, Tq, nh, hd]
+        rng = range_push("attention")  # None unless a profiler is on
         kv_read = _append_and_read(
             kv_data[l], None if kv_scales is None else kv_scales[l], page,
             offset, k, v, scratch)
         attn = paged_prefill_attention(q.to(dt).contiguous(), kv_read,
                                        block_table, seg_pos0, ctx_lens)
+        range_pop(rng)
         x = _residual(cfg, lp, x, _attn_out(cfg, lp, attn.to(dt)))
     return _unembed(cfg, params, x), kv_state
 
@@ -463,11 +471,13 @@ def ragged_decode_forward(cfg: TransformerConfig, params: Params,
         lp = _layer(params, l)
         y = _norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, y, rope)  # q [S, nh, hd]
+        rng = range_push("attention")  # None unless a profiler is on
         kv_read = _append_and_read(
             kv_data[l], None if kv_scales is None else kv_scales[l], page,
             offset, k, v, scratch)
         attn = paged_decode_attention(q.to(dt).contiguous(), kv_read,
                                       block_table, context_lens)
+        range_pop(rng)
         x = _residual(cfg, lp, x, _attn_out(cfg, lp, attn.to(dt)))
     return _unembed(cfg, params, x), kv_state
 

@@ -1,6 +1,6 @@
 """Host-memory KV tier: page blocks out instead of evicting them (port of
-``deepspeed_tpu/inference/ragged/kv_tier.py`` :48-260, numpy only,
-without the metrics hub's gauges and counters).
+``deepspeed_tpu/inference/ragged/kv_tier.py`` :48-260, numpy only;
+the hub's ``serve.host_tier_*`` gauges and page counters as in JAX).
 
 Below the device pool (``kv_cache.py``), host memory holds KV blocks in
 the pool's own storage format: a quantized pool's codes and per-vector
@@ -75,8 +75,13 @@ class HostKVTier:
     """Byte-budgeted host store of paged-out KV blocks (chains by
     content-hash key, sessions by uid), LRU within each kind."""
 
-    def __init__(self, capacity_bytes: int = DEFAULT_CAPACITY_MB << 20):
+    def __init__(self, capacity_bytes: int = DEFAULT_CAPACITY_MB << 20,
+                 metric_labels: Optional[Dict[str, str]] = None):
+        from deepspeed_tpu_torch.observability.hub import get_hub
+
         self.capacity_bytes = int(capacity_bytes)
+        self._metric_labels = dict(metric_labels) if metric_labels else None
+        self._hub = get_hub()
         # chain key -> (payload [L, bs, 2, H, W], scales [L, bs, 2, H]|None)
         self._chains: OrderedDict = OrderedDict()
         self._sessions: "OrderedDict[int, PagedSession]" = OrderedDict()
@@ -85,6 +90,14 @@ class HostKVTier:
                       "sessions_out": 0, "sessions_in": 0,
                       "evicted_chain_blocks": 0, "evicted_sessions": 0,
                       "rejected_oversize": 0}
+
+    def _gauges(self) -> None:
+        self._hub.gauge("serve.host_tier_bytes", self._bytes,
+                        labels=self._metric_labels)
+        self._hub.gauge("serve.host_tier_blocks", self.total_blocks,
+                        labels=self._metric_labels)
+        self._hub.gauge("serve.host_tier_sessions", len(self._sessions),
+                        labels=self._metric_labels)
 
     # -- accounting ----------------------------------------------------
 
@@ -150,6 +163,9 @@ class HostKVTier:
             self._chains[key] = (p, s)
             self._bytes += nb
             self.stats["chain_blocks_out"] += 1
+        self._hub.counter_add("serve.host_tier_pages_out", len(keys),
+                              labels=self._metric_labels)
+        self._gauges()
 
     def has_block(self, key: str) -> bool:
         return key in self._chains
@@ -164,6 +180,9 @@ class HostKVTier:
             return None
         self._bytes -= self._entry_bytes(*ent)
         self.stats["chain_blocks_in"] += 1
+        self._hub.counter_add("serve.host_tier_pages_in",
+                              labels=self._metric_labels)
+        self._gauges()
         return ent
 
     # -- sessions (paged-out live sequences) ---------------------------
@@ -182,6 +201,9 @@ class HostKVTier:
         self._sessions[sess.uid] = sess
         self._bytes += nb
         self.stats["sessions_out"] += 1
+        self._hub.counter_add("serve.host_tier_pages_out", sess.n_blocks,
+                              labels=self._metric_labels)
+        self._gauges()
         return True
 
     def has_session(self, uid: int) -> bool:
@@ -199,6 +221,9 @@ class HostKVTier:
             return None
         self._bytes -= sess.nbytes
         self.stats["sessions_in"] += 1
+        self._hub.counter_add("serve.host_tier_pages_in", sess.n_blocks,
+                              labels=self._metric_labels)
+        self._gauges()
         return sess
 
     # -- introspection -------------------------------------------------

@@ -1,6 +1,8 @@
 """Shared-prefix KV block cache (content-hash prefix matching); port of
-``deepspeed_tpu/inference/ragged/prefix_cache.py`` without the metrics
-hub.
+``deepspeed_tpu/inference/ragged/prefix_cache.py``. Every lookup, miss
+and eviction also lands as a hub counter (``serve.prefix_lookups``,
+``serve.prefix_misses``, ``serve.prefix_evicted_blocks``), labelled per
+replica when ``metric_labels`` is given, as in JAX.
 
 Repeated system prompts are the dominant prefill cost in production
 serving: every request carries the same first N tokens, and the KV for
@@ -44,8 +46,13 @@ class PrefixCache:
     """Content-addressed registry of full KV blocks with refcounts and
     LRU eviction of idle entries."""
 
-    def __init__(self, block_size: int):
+    def __init__(self, block_size: int,
+                 metric_labels: Optional[Dict[str, str]] = None):
+        from deepspeed_tpu_torch.observability.hub import get_hub
+
         self.block_size = int(block_size)
+        self._metric_labels = dict(metric_labels) if metric_labels else None
+        self._hub = get_hub()
         self._block_of: Dict[str, int] = {}      # key -> block id
         self._refs: Dict[str, int] = {}          # key -> live holders
         self._idle: "OrderedDict[str, int]" = OrderedDict()  # LRU, ref==0
@@ -77,11 +84,15 @@ class PrefixCache:
             keys.append(key)
             blocks.append(blk)
             prev = key
+        self._hub.counter_add("serve.prefix_lookups",
+                              labels=self._metric_labels)
         if keys:
             self.stats["hits"] += 1
             self.stats["hit_tokens"] += len(keys) * bs
         else:
             self.stats["misses"] += 1
+            self._hub.counter_add("serve.prefix_misses",
+                                  labels=self._metric_labels)
         return keys, blocks
 
     def get(self, key: str) -> Optional[int]:
@@ -158,6 +169,9 @@ class PrefixCache:
             del self._block_of[key]
             out.append((key, blk))
         self.stats["evicted"] += len(out)
+        if out:
+            self._hub.counter_add("serve.prefix_evicted_blocks", len(out),
+                                  labels=self._metric_labels)
         return out
 
     def snapshot(self) -> Dict[str, int]:

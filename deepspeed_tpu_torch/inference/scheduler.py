@@ -28,13 +28,20 @@ class SplitFuseScheduler:
         # out — sustained growth means the token budget is undersized
         # for the arrival rate.
         self.stats = {"steps": 0, "decode_tokens": 0, "prefill_tokens": 0,
-                      "kv_starved_skips": 0, "prefill_starvation_steps": 0}
+                      "kv_starved_skips": 0, "prefill_starvation_steps": 0,
+                      # decode tokens of sequences whose KV came back
+                      # from the host tier: warm-resume work the pool
+                      # never re-prefilled
+                      "resumed_decode_tokens": 0}
         self.last_scheduled_seqs = 0
         self.last_scheduled_tokens = 0
         # rotating start for the prefill scan: insertion order alone lets
         # an early long prompt re-win the tail budget every step and
         # starve later arrivals
         self._prefill_rr = 0
+        # the engine's RequestTracer (observability/request_trace.py):
+        # KV-starved skips land as markers on the starved request's lane
+        self.tracer = None
 
     def schedule(self) -> List[Tuple[SequenceDescriptor, np.ndarray, int]]:
         """Pick (seq, new_tokens, start_pos) chunks for the next step.
@@ -54,11 +61,15 @@ class SplitFuseScheduler:
                 continue
             if not self.state.ensure_capacity(seq, seq.seen_tokens + 1):
                 self.stats["kv_starved_skips"] += 1
+                if self.tracer is not None:
+                    self.tracer.note(seq.uid, "KV_STARVED", at="decode")
                 continue  # KV OOM: leave for a later step
             tok = (seq.generated[-1] if seq.generated
                    else int(seq.input_tokens[-1]))
             out.append((seq, np.asarray([tok], np.int32), seq.seen_tokens))
             self.stats["decode_tokens"] += 1
+            if seq.resumed_from_tier:
+                self.stats["resumed_decode_tokens"] += 1
             budget -= 1
             slots -= 1
 
@@ -79,6 +90,8 @@ class SplitFuseScheduler:
             chunk = min(seq.pending_prefill, budget)
             if not self.state.ensure_capacity(seq, seq.seen_tokens + chunk):
                 self.stats["kv_starved_skips"] += 1
+                if self.tracer is not None:
+                    self.tracer.note(seq.uid, "KV_STARVED", at="prefill")
                 continue
             toks = seq.input_tokens[seq.seen_tokens:seq.seen_tokens + chunk]
             out.append((seq, toks.astype(np.int32), seq.seen_tokens))

@@ -26,6 +26,7 @@ import torch.utils.checkpoint
 from deepspeed_tpu_torch.models import transformer as tf
 from deepspeed_tpu_torch.parallel.moe import GateConfig, moe_ffn
 from deepspeed_tpu_torch.runtime import sharding
+from deepspeed_tpu_torch.utils.annotate import region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,14 +139,20 @@ def _moe_layer(cfg: MoETransformerConfig, x, layer_params, rope,
                          wo.reshape(-1, wo.shape[-1]))
 
     y = tf._norm(x, layer_params["ln2"], cfg.norm, cfg.norm_eps)
-    out, aux = moe_ffn(y, layer_params["moe"]["router"],
-                       layer_params["moe"]["experts"], cfg.gate,
-                       activation=cfg.activation, train=train,
-                       impl=cfg.moe_impl)
+    out, aux = _moe_mlp(cfg, y, layer_params, train)
     l_aux = aux["l_aux"] * cfg.aux_loss_weight
     if cfg.z_loss_weight:
         l_aux = l_aux + aux["l_zloss"] * cfg.z_loss_weight
     return x + out, l_aux
+
+
+@region("mlp")
+def _moe_mlp(cfg: MoETransformerConfig, y, layer_params, train: bool):
+    """The MoE FFN of a block on its normed input: (out, aux)."""
+    return moe_ffn(y, layer_params["moe"]["router"],
+                   layer_params["moe"]["experts"], cfg.gate,
+                   activation=cfg.activation, train=train,
+                   impl=cfg.moe_impl)
 
 
 def apply(cfg: MoETransformerConfig, params: Dict[str, Any],

@@ -35,6 +35,7 @@ from torch import nn
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.ops.attention import multi_head_attention
 from deepspeed_tpu_torch.runtime import sharding
+from deepspeed_tpu_torch.utils.annotate import region
 
 # JAX config switches of branches this package does not run yet: field ->
 # (the values that mean "off", what to port first)
@@ -145,6 +146,7 @@ def act_fn(name: str):
     raise ValueError(f"unknown activation {name!r}")
 
 
+@region("norm")
 def _norm(x: torch.Tensor, p: Dict[str, torch.Tensor], kind: str,
           eps: float) -> torch.Tensor:
     """LayerNorm / RMSNorm computed in fp32 and cast back to x's type."""
@@ -171,6 +173,7 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 
+@region("rope")
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """Rotary embedding of x [..., heads, head_dim] (math in fp32, cast
@@ -295,9 +298,18 @@ def _attention(q, k, v, cfg: TransformerConfig, causal: bool = True):
 def _layer(cfg: TransformerConfig, x, layer_params, rope):
     """One transformer block; x [B, S, H] in cfg.dtype. ``rope`` is the
     forward's (cos, sin) tables or None."""
+    x = x.to(cfg.dtype)
+    attn = _attention_half(cfg, x, layer_params, rope)
+    return _layer_mlp(cfg, x, attn, layer_params)
+
+
+@region("attention")
+def _attention_half(cfg: TransformerConfig, x, layer_params, rope):
+    """The attention half of the block: norm, the q / k / v projections,
+    rope, attention and the output projection (the residual add is the
+    MLP half's)."""
     ap = layer_params["attn"]
     dt = cfg.dtype
-    x = x.to(dt)
     y = _norm(x, layer_params["ln1"], cfg.norm, cfg.norm_eps)
     q = _proj(y, ap["wq"].to(dt))
     k = _proj(y, ap["wk"].to(dt))
@@ -315,9 +327,10 @@ def _layer(cfg: TransformerConfig, x, layer_params, rope):
                         wo.reshape(-1, wo.shape[-1]))
     if cfg.use_biases:
         attn = attn + ap["bo"].to(dt)
-    return _layer_mlp(cfg, x, attn, layer_params)
+    return attn
 
 
+@region("mlp")
 def _layer_mlp(cfg: TransformerConfig, x, attn, layer_params):
     """Residual add and the MLP half of the block (sequential, or
     Falcon's parallel block where both branches read the pre-attention
@@ -454,7 +467,17 @@ def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],
         mask = mask.float()
         if mask.shape[1] == tokens.shape[1] and "labels" not in batch:
             mask = mask[:, 1:]
-    logits = apply(cfg, params, inputs)
+    hidden = apply_hidden(cfg, params, inputs)
+    return lm_head_loss(cfg, params, hidden, labels, mask)
+
+
+@region("vocab_head")
+def lm_head_loss(cfg: TransformerConfig, params: Dict[str, Any], hidden,
+                 labels, mask):
+    """The LM head and the cross-entropy on the final-normed hidden
+    states: (loss, {"loss", "ntokens"}); ``mask`` None counts every
+    position."""
+    logits = unembed(cfg, params, hidden, sharding.active_fetch())
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold

@@ -15,7 +15,8 @@ never reaches the table. JAX's ``FLASH_MIN_SEQ`` crossover and its block
 heuristics are v5e measurements and are not carried over; nor is its
 "flash unavailable -> XLA" route: on the card a kernel that does not
 build raises, so ``flash_fallbacks`` stays 0. ``kernels.dispatch =
-"heuristic"`` (``set_kernel_config``) skips the table. A measured loss
+"heuristic"`` (``set_kernel_config``) skips the table. Each new
+decision is published to the observability hub (``_export_dispatch``). A measured loss
 on a CUDA tensor is also counted apart (``dispatch_stats()
 ["card_losses"]``): ``chip_smoke.py`` fails a main-path phase that
 routed one, so a kernel that loses its bucket on the card shows as a
@@ -159,7 +160,29 @@ def auto_decision(device_type: str, dtype: torch.dtype, seq: int,
     if decision is None:
         decision = _DECISIONS[key] = _decide(device_type, dtype, bucket,
                                              head_dim, heuristic, path, kcfg)
+        _export_dispatch("attention", decision.source, decision.reason,
+                         bucket)
     return decision
+
+
+def _export_dispatch(region: str, source: str, reason: str,
+                     bucket: str) -> None:
+    """Publish a new decision to the observability hub (JAX
+    ``attention.py:171-187``): the ``kernel.<region>.pallas`` gauge (JAX's
+    name; 1.0 when the hand kernel runs), the flash fallback ratio and
+    one ``kernel_dispatch`` event. JAX exports once per compiled program;
+    the port decides per call and exports once per memoised decision, so
+    the calls that hit the memo cost no hub traffic. Never creates a
+    hub."""
+    from deepspeed_tpu_torch.observability.hub import peek_hub
+
+    hub = peek_hub()
+    if hub is None:
+        return
+    hub.gauge(f"kernel.{region}.pallas", 1.0 if source == "kernel" else 0.0)
+    hub.gauge("kernel.flash_fallback_ratio", flash_fallback_ratio())
+    hub.record_event("kernel_dispatch", region=region, source=source,
+                     reason=reason, bucket=bucket)
 
 
 def _decide(device_type, dtype, bucket, head_dim, heuristic, path, kcfg

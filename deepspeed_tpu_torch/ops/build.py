@@ -18,6 +18,7 @@ import time
 from typing import Dict, Iterable, Optional
 
 from deepspeed_tpu_torch._device import nvcc_path
+from deepspeed_tpu_torch.observability.hub import note_compile
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -48,8 +49,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     one ``nvcc`` process per source, all started together. Returns the
     seconds each build took (0.0 when it was already built). The
     compiler's resource report (``-Xptxas -v``) is kept beside each
-    library as ``<lib>.log``. Raises RuntimeError when nvcc is missing
-    or a build fails."""
+    library as ``<lib>.log``. Each source compiled counts as one of the
+    hub's compile events (``observability.hub.note_compile``). Raises
+    RuntimeError when nvcc is missing or a build fails."""
     names = list(SOURCES if names is None else names)
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -82,6 +84,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    if procs:  # the hub's compile events (JAX: XLA compilations)
+        note_compile(sum(seconds[n] for n in procs), events=len(procs))
     return seconds
 
 

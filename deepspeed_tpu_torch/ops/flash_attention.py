@@ -288,8 +288,50 @@ def _seg_ptr(segment_ids) -> Optional[int]:
     return None if segment_ids is None else segment_ids.data_ptr()
 
 
+# FLOPs a (query row, key column) pair costs each kernel, per head dim
+_PAIR_FLOPS = {"flash_fwd": 4, "flash_bwd_dkdv": 8, "flash_bwd_dq": 6}
+
+
+def kernel_work(name: str, q: torch.Tensor, k: torch.Tensor,
+                causal: bool) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one launch of kernel ``name`` on q [B, S, Hq,
+    D] and k, v [B, S, Hkv, D]: the pairs of the TILE x TILE tiles it
+    computes (causal: the key tiles up to the diagonal, the diagonal
+    tile whole) at 4·D FLOPs a pair forward (QKᵀ, PV), 8·D for dK/dV
+    (QKᵀ, PᵀdO, dO Vᵀ, dSᵀQ) and 6·D for dQ (QKᵀ, dO Vᵀ, dS K); each
+    input read once, each output written once (segment ids left out).
+    The work counter of ``observability/attribution.py`` reads it."""
+    B, S, hq, D = q.shape
+    hkv = k.shape[2]
+    n = -(-S // TILE)
+    rows = [min(TILE, S - i * TILE) for i in range(n)]
+    pairs = sum(rows[i] * (sum(rows[:i + 1]) if causal else S)
+                for i in range(n))
+    flops = float(_PAIR_FLOPS[name] * D * B * hq * pairs)
+    it = q.element_size()
+    qo = B * S * hq * D * it     # q, o, dO, dq: one q-shaped tensor
+    kv = B * S * hkv * D * it    # k, v, dk, dv: one kv-shaped tensor
+    stat = B * hq * S * 4        # lse, delta
+    nbytes = {"flash_fwd": 2 * qo + 2 * kv + stat,
+              "flash_bwd_dkdv": 2 * qo + 4 * kv + 2 * stat,
+              "flash_bwd_dq": 3 * qo + 2 * kv + 2 * stat}[name]
+    return flops, float(nbytes)
+
+
+def _meta_launch(name: str, q, k, causal: bool) -> None:
+    """A meta pass (attribution's counter): the kernel's work, reported
+    in place of a launch."""
+    from deepspeed_tpu_torch.observability.attribution import report_kernel
+
+    report_kernel(name, *kernel_work(name, q, k, causal))
+
+
 def _flash_fwd(q, k, v, segment_ids, causal: bool, scale: float):
     """Returns (o [B, S, Hq, D] in q.dtype, lse [B, Hq, S] fp32)."""
+    if q.device.type == "meta":
+        _meta_launch("flash_fwd", q, k, causal)
+        return (torch.empty_like(q), q.new_empty(
+            (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32))
     if not _use_kernel(q, k, v, segment_ids):
         return flash_fwd_plain(q, k, v, segment_ids, causal, scale)
     return _flash_fwd_launch(q, k, v, segment_ids, causal, scale,
@@ -353,6 +395,9 @@ def flash_bwd_dkdv(q, k, v, segment_ids, lse, delta, do, causal: bool,
                    scale: float):
     """dK, dV through a dK/dV kernel (CPU tensors: the plain version).
     lse and delta are [B, Hq, S] fp32."""
+    if q.device.type == "meta":
+        _meta_launch("flash_bwd_dkdv", q, k, causal)
+        return torch.empty_like(k), torch.empty_like(v)
     if not _bwd_use_kernel(q, k, v, segment_ids, lse, delta, do):
         return flash_bwd_dkdv_plain(q, k, v, segment_ids, lse, delta, do,
                                     causal, scale)
@@ -363,6 +408,9 @@ def flash_bwd_dkdv(q, k, v, segment_ids, lse, delta, do, causal: bool,
 def flash_bwd_dq(q, k, v, segment_ids, lse, delta, do, causal: bool,
                  scale: float):
     """dQ through a dQ kernel (CPU tensors: the plain version)."""
+    if q.device.type == "meta":
+        _meta_launch("flash_bwd_dq", q, k, causal)
+        return torch.empty_like(q)
     if not _bwd_use_kernel(q, k, v, segment_ids, lse, delta, do):
         return flash_bwd_dq_plain(q, k, v, segment_ids, lse, delta, do,
                                   causal, scale)
@@ -469,4 +517,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 __all__ = ["flash_attention", "flash_bwd_dkdv", "flash_bwd_dq",
            "flash_fwd_plain", "flash_bwd_dkdv_plain", "flash_bwd_dq_plain",
            "flash_variant", "LAUNCHES", "VARIANT_LAUNCHES",
-           "reset_launch_counts", "HEAD_DIMS"]
+           "reset_launch_counts", "HEAD_DIMS", "kernel_work"]

@@ -28,8 +28,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Optional
 
+from deepspeed_tpu_torch.observability.hub import note_compile
 from deepspeed_tpu_torch.ops.build import BUILD_DIR
 
 logger = logging.getLogger(__name__)
@@ -87,9 +89,12 @@ def _build(srcs, verbose: bool):
         # workers) never write through the same inode
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [cxx, *BASE_FLAGS, *flags, *srcs, "-o", tmp, "-lpthread"]
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=not verbose, text=True)
         if proc.returncode == 0:
             os.replace(tmp, path)  # atomic: loaders see all or none
+            # one of the hub's compile events (JAX: XLA compilations)
+            note_compile(time.perf_counter() - t0)
             return path, flags, errors
         errors.append(f"{' '.join(cmd)}: {(proc.stderr or '')[-500:]}")
     return None, None, errors

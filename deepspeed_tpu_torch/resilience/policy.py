@@ -73,8 +73,7 @@ class CommTimeoutError(RuntimeError):
 
 def _flight_tail(last: int = 24) -> str:
     """Best-effort flight-ring tail; never raises (a half-torn process
-    must still be able to raise). The port's flight recorder lands with
-    ROADMAP queue A item 14; until then the tail is empty."""
+    must still be able to raise)."""
     try:
         from deepspeed_tpu_torch.observability.flight_recorder import \
             get_flight_recorder

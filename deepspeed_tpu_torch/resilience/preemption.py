@@ -13,9 +13,10 @@ at its next GAS boundary (``Engine`` checks :meth:`should_checkpoint`
 there, saves, and commits under :attr:`save_deadline_s`). A second
 signal means the grace window is closing faster than we can save — it
 escalates: the previously-installed handler (or the default
-disposition) runs, preserving "killed by SIGTERM" exit semantics. The
-flight-recorder records and dump are best-effort, and wait for the
-port's flight recorder (ROADMAP queue A item 14).
+disposition) runs, preserving "killed by SIGTERM" exit semantics. Each
+notice and the escalation leave a flight-recorder record, and the
+escalation dumps the ring (``observability/flight_recorder.py``, whose
+own SIGTERM handler chains with this one in either order).
 
 The guard is also the programmatic preemption entry point:
 :meth:`request` lets the chaos harness and tests trigger the same path
@@ -154,7 +155,7 @@ class PreemptionGuard:
                 pass
             os.kill(os.getpid(), signum)
 
-    # -- flight recorder (best-effort; ROADMAP queue A item 14) ---------
+    # -- flight recorder (best-effort: a signal handler never raises) -----
     @staticmethod
     def _record(kind: str, **fields) -> None:
         try:

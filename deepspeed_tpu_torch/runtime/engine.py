@@ -113,8 +113,29 @@ when it drains; K = 0 is the blocking loop, which waits for each step.
 ``prefetch_depth`` > 0 an iterator passed to ``train_batch`` a second
 time is handed to a ``PrefetchingIterator`` (``runtime/prefetch.py``)
 whose worker pulls the next boundaries and starts their copies to the
-card on a side stream. Not ported yet (ROADMAP queue A item 14): the
-watchdog, flight recorder and observability hub.
+card on a side stream.
+
+Observability (the ``observability`` block, on by default; JAX
+``engine.py:432-479``): the wall-clock and throughput timers, the
+monitor backends (``monitor``), the process-wide metrics hub, the stall
+watchdog, the crash flight recorder (with its crash handlers) and the
+``DSTPU_TRACE_STEPS`` profiler capture. Each ``train_batch`` step leaves
+``step_entry`` / ``step_dispatch`` / ``step_drain`` records in the
+flight ring, and when it drains a ``StepTrace`` row goes to the hub:
+tokens, tokens/s, MFU (``flops_per_token`` over the card's peak,
+``observability/roofline.py``), loss, grad norm, lr, loss scale, comm
+and kernel-build deltas and the allocator's counters. The row is built
+from host values only: at the end of each step, before its event is
+recorded, the loss and grad norm are copied into pinned host memory
+without blocking, and the drain reads them after the event; nothing in
+the row waits on the card. The watchdog is armed around the blocking
+step and, under dispatch-ahead, around the window in flight.
+``roofline()`` classifies the counted step (``observability/
+attribution.count_step``). ``wall_clock_breakdown`` logs the timers
+every ``steps_per_print`` steps (and makes the micro-step API's timers
+wait for the card, as JAX's always do), ``memory_breakdown`` logs the
+memory breadcrumbs at init. The micro-step API takes the timers and the
+flight records; as in JAX it emits no step row.
 """
 
 from __future__ import annotations
@@ -167,7 +188,15 @@ from deepspeed_tpu_torch.runtime.prefetch import (PrefetchingIterator,
 from deepspeed_tpu_torch.runtime.zenflow import (ZenFlowConfig,
                                                  ZenFlowOptimizer)
 from deepspeed_tpu_torch.runtime.zero import ZeroPartition
+from deepspeed_tpu_torch.utils import memory as mem_util
 from deepspeed_tpu_torch.utils import memspace
+from deepspeed_tpu_torch.utils.logging import process_rank
+from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
+                                             FORWARD_GLOBAL_TIMER,
+                                             STEP_GLOBAL_TIMER,
+                                             TRAIN_BATCH_TIMER,
+                                             SynchronizedWallClockTimer,
+                                             ThroughputTimer)
 
 logger = logging.getLogger(__name__)
 _A = "ROADMAP queue A item"
@@ -261,18 +290,37 @@ class _FnModel:
 
 
 class _InflightStep:
-    """One dispatched, not yet drained ``train_batch`` step: its event
-    on the compute stream and what its deferred host reads need."""
+    """One dispatched, not yet drained step: its event on the compute
+    stream and what its deferred host reads need. ``host`` holds the
+    loss and the grad norm in host memory (pinned, filled by a
+    non-blocking copy ordered before the event on a card; the tensors
+    themselves on the CPU)."""
 
-    __slots__ = ("step", "loss", "lr", "grad_norm", "overflow", "event")
+    __slots__ = ("step", "lr", "loss_scale", "overflow", "event", "host",
+                 "samples", "tokens", "host_ms", "host_t0", "sync")
 
-    def __init__(self, step, loss, lr, grad_norm, overflow, event):
+    def __init__(self, step, lr, loss_scale, overflow, event, host,
+                 samples, tokens=None, host_ms=None, host_t0=None,
+                 sync=True):
         self.step = step
-        self.loss = loss
         self.lr = lr
-        self.grad_norm = grad_norm
+        self.loss_scale = loss_scale
         self.overflow = overflow
         self.event = event
+        self.host = host
+        self.samples = samples
+        self.tokens = tokens
+        self.host_ms = host_ms
+        self.host_t0 = host_t0
+        self.sync = sync
+
+    def values(self):
+        """(loss, grad norm) as floats. On a card the pinned copies land
+        when the step's event completes, so this waits on it (a no-op
+        for a drained step)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return float(self.host[0]), float(self.host[1])
 
 
 class _OptimizerView:
@@ -310,6 +358,9 @@ class Engine:
                              "model or pass device=")
         self.model = model
         self.config = config
+        mem_util.configure(config.memory_breakdown)
+        mem_util.see_memory_usage("engine init: before model setup",
+                                  device=self.device)
         self._client_optimizer_present = client_optimizer is not None
         # the mesh (JAX engine.py:161-167): the ranks over the named axes
         self.mesh = mesh if mesh is not None else \
@@ -425,6 +476,7 @@ class Engine:
             for _, p in leaves(self.params):
                 p.register_post_accumulate_grad_hook(fold)
 
+        self._init_observability()
         self._init_resilience()
         self._init_pipelining()
         self._ckpt_io = CheckpointIO(self)
@@ -458,6 +510,7 @@ class Engine:
             f"{self.micro_batch_size}, gas="
             f"{self.gradient_accumulation_steps}, dtype={cdt}, "
             f"device={self.device}")
+        mem_util.see_memory_usage("engine init: ready", device=self.device)
 
     def _default_mesh(self, topology):
         """JAX's default mesh (``engine.py:654-679``) over the world's
@@ -674,6 +727,74 @@ class Engine:
         if self._offload.tier == "cpu":
             self._share_masters(src, self._offload.masters.get)
 
+    def _init_observability(self) -> None:
+        """The timers, the monitor, the hub, the watchdog, the flight
+        recorder and the profiler capture (JAX ``engine.py:432-479``).
+        A sink that cannot open warns and the step goes on without it;
+        a block the port does not run raises."""
+        self.timers = SynchronizedWallClockTimer()
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_batch_size,
+            steps_per_output=self.config.steps_per_print)
+        self.monitor = self._build_monitor()
+        self.hub = None
+        self.watchdog = None
+        self.flight = None
+        self._trace_capture = None
+        self._last_drain_t: Optional[float] = None
+        self._flops_per_token: Optional[float] = None
+        self._peak: Optional[tuple] = None
+        self._roofline_cost: Optional[Dict[str, float]] = None
+        self._last_batch_shape: Optional[tuple] = None
+        self._obs_cfg = self.config.observability
+        if not self._obs_cfg.enabled:
+            return
+        from deepspeed_tpu_torch.observability import (StallWatchdog,
+                                                       TraceCapture, get_hub)
+        from deepspeed_tpu_torch.observability import flight_recorder as fr
+
+        ref = weakref.ref(self)  # a bound method would keep the engine
+
+        def on_stall(report: str) -> None:
+            engine = ref()
+            if engine is not None:
+                engine._on_stall_report(report)
+
+        try:
+            self.hub = get_hub()
+            self.hub.configure(self._obs_cfg, rank=process_rank())
+            self.watchdog = StallWatchdog.from_config(
+                self._obs_cfg.watchdog, report_fn=on_stall)
+            self._trace_capture = TraceCapture.from_env()
+        except NotImplementedError:
+            raise
+        except Exception as e:  # a sink that cannot open
+            logger.warning(f"observability hub disabled: {e}")
+        self.flight = fr.get_flight_recorder()
+        self.flight.configure(capacity=self._obs_cfg.flight_events,
+                              rank=process_rank())
+        if not self.flight.enabled:
+            self.flight = None
+        else:
+            fr.install_crash_handlers()
+
+    def _monitor_events(self, events) -> None:
+        """The monitor backends' events; a backend that cannot write (a
+        full disk) warns and the monitor goes off, the step goes on."""
+        if self.monitor is None:
+            return
+        try:
+            self.monitor.write_events(events)
+        except OSError as e:
+            logger.warning(f"monitor disabled after a write error: {e}")
+            self.monitor = None
+
+    def _build_monitor(self):
+        from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
+
+        master = MonitorMaster(self.config.monitor)
+        return master if master.enabled else None
+
     def _init_resilience(self) -> None:
         """The resilience block (JAX ``engine.py:481-512``):
         PreemptionGuard (SIGTERM -> emergency checkpoint at the next GAS
@@ -868,15 +989,39 @@ class Engine:
             data_iter = iter(self.training_dataloader)
         self._last_data_iter = data_iter  # data_cursor loader-state source
         depth = self._effective_depth()
+        if self._trace_capture is not None and \
+                self._trace_capture.wants_start(self.global_steps + 1):
+            # the capture starts with nothing in flight: it holds whole
+            # steps of its window and nothing before
+            self.synchronize()
+        host_t0 = time.perf_counter()
+        if depth == 0:
+            self.timers(TRAIN_BATCH_TIMER).start()
+            self.tput_timer.start()
         batches = self._next_batches(data_iter)
+        ids = batches[0].get("input_ids") if hasattr(batches[0], "get") \
+            else None
+        if ids is not None and ids.dim() == 2:
+            self._last_batch_shape = (ids.shape[0], ids.shape[1] - 1)
+        step_no = self.global_steps + 1
         if self._chaos is not None:
-            self._chaos.on_step(self.global_steps + 1)
+            self._chaos.on_step(step_no)
+        if self.flight is not None:
+            self.flight.record("step_entry", step=step_no,
+                               inflight=len(self._inflight))
+        if self._trace_capture is not None:
+            self._trace_capture.on_step_begin(step_no)
+        if depth == 0 and self.watchdog is not None:
+            # armed until the step's event is waited on: a wedged step
+            # fires a stack / memory report
+            self.watchdog.arm(step_no)
         micro = []
         for mb in batches:
             loss, aux = self._model_loss(mb)
             (loss * self._backward_scale()).backward()
             micro.append((loss.detach(), aux))
-        return self._apply_update(micro, depth=depth)
+        return self._apply_update(micro, depth=depth, host_t0=host_t0,
+                                  tokens=_batch_tokens(batches))
 
     def _effective_depth(self) -> int:
         """The dispatch-ahead window for the next step (JAX
@@ -890,20 +1035,73 @@ class Engine:
 
     def _drain_one(self) -> None:
         """Resolve the oldest in-flight step: wait for its event, then run
-        its deferred host reads."""
+        its deferred host reads and emit its trace row (JAX
+        ``engine.py:1242-1286``)."""
         entry = self._inflight.popleft()
         if entry.event is not None:
             entry.event.synchronize()
-        self._after_step_host(entry)
+        if self._trace_capture is not None:
+            # a capture that ends here stops and writes its trace inside
+            # the step's span, so the rows' walls still add up to the
+            # run's wall
+            self._trace_capture.on_step_end(entry.step)
+        if entry.sync:
+            # the blocking loop: the timers' start / stop pair
+            self._after_step_host(entry)
+            self.timers(TRAIN_BATCH_TIMER).stop()
+            wall_ms = self._last_step_wall_ms()
+            if self.watchdog is not None:
+                self.watchdog.disarm()
+                self.watchdog.observe(wall_ms / 1000.0, entry.step)
+            self._last_drain_t = time.perf_counter()
+        else:
+            resolved_t = time.perf_counter()
+            # drain-to-drain span ~ this step's device time once the
+            # window is full; during fill it degrades to dispatch->done
+            base = (entry.host_t0 if self._last_drain_t is None
+                    else max(self._last_drain_t, entry.host_t0))
+            wall_ms = (resolved_t - base) * 1000.0
+            self._last_drain_t = resolved_t
+            self._after_step_host(entry, wall_s=wall_ms / 1000.0)
+            self.timers(TRAIN_BATCH_TIMER).record_ms(wall_ms)
+            if self.watchdog is not None:
+                self.watchdog.observe(wall_ms / 1000.0, entry.step)
+                if self._inflight:
+                    self.watchdog.arm(self._inflight[0].step,
+                                      window=len(self._inflight))
+                else:
+                    self.watchdog.disarm()
+        if self.flight is not None:
+            self.flight.record("step_drain", step=entry.step,
+                               wall_ms=round(wall_ms, 3),
+                               inflight=len(self._inflight))
+        if self.hub is not None:
+            self._emit_step_trace(entry, wall_ms,
+                                  inflight=len(self._inflight))
 
-    def _after_step_host(self, entry: _InflightStep) -> None:
-        """A step's host reads: its skipped-update count and its log
-        line. Under dispatch-ahead they run when the step drains."""
+    def _after_step_host(self, entry: _InflightStep,
+                         wall_s: Optional[float] = None) -> None:
+        """A step's host reads (JAX ``engine.py:1659``): its
+        skipped-update count, the throughput timer, its log line, the
+        monitor's events and the timers' breakdown. Under dispatch-ahead
+        they run when the step drains; ``wall_s`` set means the span was
+        measured drain to drain."""
         self.skipped_steps += int(entry.overflow)
+        if wall_s is None:
+            self.tput_timer.stop(global_step=True)
+        else:
+            self.tput_timer.record(wall_s)
+        loss, gnorm = entry.values()
         if entry.step % self.config.steps_per_print == 0:
-            logger.info(f"step={entry.step}, loss={float(entry.loss):.4f}, "
-                        f"lr={entry.lr:.3e}, "
-                        f"grad_norm={float(entry.grad_norm):.3f}")
+            logger.info(f"step={entry.step}, loss={loss:.4f}, "
+                        f"lr={entry.lr:.3e}, grad_norm={gnorm:.3f}")
+        self._monitor_events([
+            ("Train/Samples/train_loss", loss, entry.samples),
+            ("Train/Samples/lr", entry.lr, entry.samples)])
+        if self.config.wall_clock_breakdown and \
+                entry.step % self.config.steps_per_print == 0:
+            self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER,
+                             STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER])
 
     def synchronize(self) -> "Engine":
         """Drain every dispatched, not yet resolved ``train_batch`` step
@@ -916,13 +1114,16 @@ class Engine:
         return self
 
     def _apply_update(self, micro: List[tuple],
-                      depth: Optional[int] = None) -> torch.Tensor:
+                      depth: Optional[int] = None,
+                      host_t0: Optional[float] = None,
+                      tokens: Optional[int] = None) -> torch.Tensor:
         """The optimizer step on the accumulated grads; ``micro`` holds
         each microbatch's (loss, model metrics). Returns the mean loss.
         ``depth`` (``train_batch``) is the dispatch-ahead window: the
         step joins it and the oldest steps past ``depth`` drain (0 waits
         for this one); None (the micro-step API) runs the host reads at
-        once."""
+        once. ``host_t0`` and ``tokens`` (``train_batch``) are the step's
+        start on the host clock and its trained tokens."""
         fp16 = self.config.fp16.enabled
         scale = self._loss_scale()
         lr = self.get_lr()[0]
@@ -988,16 +1189,36 @@ class Engine:
             if key not in self.last_metrics:
                 self.last_metrics[key] = torch.stack(
                     [aux[key].detach().float() for _, aux in micro]).mean()
+        host = self._to_host((mean_loss, gnorm))
         event = None
-        if depth is not None and self.device.type == "cuda":
+        if self.device.type == "cuda":
+            # what the host reads of ``host`` wait on: the drain under
+            # dispatch-ahead, ``values()`` on the micro-step API
             event = torch.cuda.Event()
             event.record()
-        entry = _InflightStep(self.global_steps, mean_loss, lr, gnorm,
-                              overflow, event)
+        sync = depth is None or depth == 0
+        entry = _InflightStep(
+            self.global_steps, lr, self.loss_scale_state.scale, overflow,
+            event, host, self.global_samples, tokens=tokens,
+            host_ms=(None if host_t0 is None
+                     else (time.perf_counter() - host_t0) * 1000.0),
+            host_t0=host_t0, sync=sync)
+        if self.flight is not None and host_t0 is not None:
+            self.flight.record("step_dispatch", step=entry.step,
+                               host_ms=round(entry.host_ms, 3))
         if depth is None:
             self._after_step_host(entry)
         else:
             self._inflight.append(entry)
+            if not sync and self.watchdog is not None:
+                # one deadline budgets the whole window in flight (the
+                # oldest step's, scaled by the window): between calls the
+                # window stays armed, so a wedged step still fires
+                self.watchdog.arm(self._inflight[0].step,
+                                  window=len(self._inflight))
+            if self._trace_capture is not None and \
+                    self._trace_capture.wants_drain(entry.step):
+                depth = 0  # the capture ends with whole steps in it
             while len(self._inflight) > depth:
                 self._drain_one()
         # the GAS boundary: publish a finished async save, then land an
@@ -1008,6 +1229,19 @@ class Engine:
                 and self._preempt_guard.should_checkpoint()):
             self._emergency_checkpoint()
         return mean_loss
+
+    def _to_host(self, tensors) -> torch.Tensor:
+        """The 0-dim ``tensors`` as one fp32 host vector: on a card a
+        pinned buffer filled by non-blocking copies (ordered on the
+        compute stream before the step's event; read after it), on the
+        CPU the values themselves."""
+        if self.device.type != "cuda":
+            return torch.stack([t.detach().float().reshape(())
+                                for t in tensors])
+        buf = torch.empty(len(tensors), dtype=torch.float32, pin_memory=True)
+        for i, t in enumerate(tensors):
+            buf[i].copy_(t.detach().reshape(()), non_blocking=True)
+        return buf
 
     def _zero_grads(self, grads):
         """The accumulated gradients reduced over the data ranks (means,
@@ -1089,8 +1323,10 @@ class Engine:
     def forward(self, batch) -> torch.Tensor:
         """One microbatch's loss (this rank's rows), keeping the autograd
         graph for :meth:`backward`."""
+        self.timers(FORWARD_GLOBAL_TIMER).start()
         loss, aux = self._model_loss(self._to_device(batch))
         self._pending = (loss, aux)
+        self.timers(FORWARD_GLOBAL_TIMER).stop(block=self._timer_block(loss))
         return loss
 
     __call__ = forward
@@ -1102,13 +1338,22 @@ class Engine:
         the accumulated grads."""
         if self._pending is None:
             raise RuntimeError("backward() called without a prior forward()")
+        self.timers(BACKWARD_GLOBAL_TIMER).start()
         pending_loss, aux = self._pending
         self._pending = None
         loss = pending_loss if loss is None else loss
         (loss * self._backward_scale()).backward(retain_graph=retain_graph)
         self._micro_losses.append((loss.detach(), aux))
         self.micro_steps += 1
+        self.timers(BACKWARD_GLOBAL_TIMER).stop(
+            block=self._timer_block(loss))
         return loss
+
+    def _timer_block(self, t: torch.Tensor):
+        """What the micro-step timers wait for: ``t`` under
+        ``wall_clock_breakdown`` (JAX's timers always block), else
+        nothing (host time, no wait)."""
+        return t if self.config.wall_clock_breakdown else None
 
     def is_gradient_accumulation_boundary(self) -> bool:
         return self.micro_steps % self.gradient_accumulation_steps == 0
@@ -1121,8 +1366,16 @@ class Engine:
             return
         if not self._micro_losses:
             raise RuntimeError("step() called without accumulated gradients")
+        self.timers(STEP_GLOBAL_TIMER).start()
+        if self.flight is not None:
+            self.flight.record("step_entry", step=self.global_steps + 1,
+                               inflight=0, api="micro")
         micro, self._micro_losses = self._micro_losses, []
-        self._apply_update(micro)
+        loss = self._apply_update(micro)
+        if self.flight is not None:
+            self.flight.record("step_drain", step=self.global_steps,
+                               api="micro")
+        self.timers(STEP_GLOBAL_TIMER).stop(block=self._timer_block(loss))
 
     @_on_mesh
     @torch.no_grad()
@@ -1242,6 +1495,148 @@ class Engine:
 
     def get_global_grad_norm(self) -> Optional[torch.Tensor]:
         return self._last_grad_norm
+
+    # -- observability (JAX engine.py:1702-1860) ---------------------------
+    def _last_step_wall_ms(self) -> float:
+        records = self.timers(TRAIN_BATCH_TIMER).records
+        return records[-1] if records else 0.0
+
+    def _on_stall_report(self, report: str) -> None:
+        if self.hub is not None:
+            self.hub.counter_add("train.stalls")
+            self.hub.record_event("stall_report", step=self.global_steps,
+                                  report=report)
+
+    def _model_flops_per_token(self) -> Optional[float]:
+        if self._flops_per_token is None:
+            fn = getattr(self.model, "flops_per_token", None)
+            self._flops_per_token = float(fn()) if callable(fn) else 0.0
+        return self._flops_per_token or None
+
+    def _peaks(self) -> tuple:
+        """(bf16 peak TFLOP/s, HBM GB/s) of the engine's device, looked
+        up once (None for a card not in the table)."""
+        if self._peak is None:
+            from deepspeed_tpu_torch.observability import roofline as rl
+
+            self._peak = (rl.detect_peak_tflops(self.device),
+                          rl.detect_hbm_gbps(self.device))
+        return self._peak
+
+    def _emit_step_trace(self, entry: _InflightStep, wall_ms: float,
+                         inflight: int = 0) -> None:
+        """The step's ``StepTrace`` row into the hub (JAX
+        ``engine.py:1740-1802``), from host values only. A sink that
+        fails warns and the step goes on."""
+        from deepspeed_tpu_torch.observability import StepTrace
+        from deepspeed_tpu_torch.observability.roofline import mfu
+
+        dt = wall_ms / 1000.0
+        tokens = entry.tokens
+        n_chips = max(1, comm.get_world_size())
+        tps = tokens / dt if (tokens and dt > 0) else None
+        tps_chip = tps / n_chips if tps else None
+        mfu_val = fpt = peak = None
+        if tps_chip:
+            fpt = self._model_flops_per_token()
+            peak = self._peaks()[0]
+            if fpt and peak:
+                mfu_val = mfu(tps_chip, fpt, peak)
+        loss, gnorm = entry.values()
+        comm_total, comm_delta = self.hub.comm_deltas()
+        compile_d = self.hub.compile_delta()
+        trace = StepTrace(
+            step=entry.step, wall_ms=wall_ms, tokens=tokens,
+            tokens_per_sec=tps, tokens_per_sec_per_chip=tps_chip,
+            n_chips=n_chips, loss=loss, grad_norm=gnorm, lr=float(entry.lr),
+            loss_scale=float(entry.loss_scale),
+            overflow=bool(entry.overflow), skipped_steps=self.skipped_steps,
+            mfu=mfu_val, mfu_source="model" if mfu_val else None,
+            flops_per_token=fpt, peak_tflops=peak,
+            host_gap_ms=entry.host_ms, inflight=inflight,
+            compile_events=int(compile_d["events"]),
+            compile_secs=compile_d["secs"],
+            comm_bytes_total=comm_total or None,
+            comm_bytes_delta=comm_delta or None,
+            device_mem=mem_util.device_memory_stats(self.device))
+        self.hub.record_step(trace)
+        if entry.step % self.config.steps_per_print == 0:
+            events = [("Train/Samples/step_seconds", dt, entry.samples)]
+            if tps is not None:
+                events.append(("Train/Samples/tokens_per_sec", tps,
+                               entry.samples))
+            if mfu_val is not None:
+                events.append(("Train/Samples/mfu", mfu_val, entry.samples))
+            self._monitor_events(events)
+        if self._roofline_cost is None and entry.step >= 2 and (
+                os.environ.get("DSTPU_ROOFLINE", "") == "1"
+                or self._obs_cfg.xla_cost_analysis):
+            try:
+                self.roofline()
+            except Exception as e:  # observability must never fail a step
+                logger.warning(f"roofline failed: {e}")
+                self._roofline_cost = {}
+
+    def roofline(self, step_seconds: Optional[float] = None
+                 ) -> Dict[str, Any]:
+        """Classify the train step against the card's roofline (JAX
+        ``engine.py:1804``). JAX lowers and compiles the step once more
+        for XLA's cost analysis; the port counts the step on the meta
+        device (``attribution.count_step``: every op's FLOPs and bytes,
+        the flash kernels' work by formula, the remat recompute, GAS
+        microbatches and the optimizer), once, cached. Opt-in via
+        ``observability.xla_cost_analysis`` (JAX's key) or
+        ``DSTPU_ROOFLINE=1`` (then it runs once, after step 2). Needs one
+        prior ``train_batch`` for the batch shape; counts a dense
+        ``TransformerLM`` (another model raises). ``step_seconds``
+        defaults to the mean of the last 8 step walls (JAX: the last
+        one)."""
+        from deepspeed_tpu_torch.observability import roofline as rl
+        from deepspeed_tpu_torch.observability.attribution import count_step
+
+        if not self._roofline_cost:
+            if self._last_batch_shape is None:
+                raise RuntimeError(
+                    "roofline() needs one prior train_batch() (the batch "
+                    "shape comes from it)")
+            cfg = self.model_config
+            if not isinstance(cfg, tf_model.TransformerConfig) or \
+                    isinstance(cfg, moe_transformer.MoETransformerConfig):
+                raise NotImplementedError(
+                    "roofline() counts a dense TransformerLM step; "
+                    f"{type(self.model).__name__} is not counted")
+            micro, seq = self._last_batch_shape
+            gas = self.gradient_accumulation_steps
+            self._roofline_cost = count_step(
+                cfg, micro, seq, gas=gas,
+                grad_bytes_per_param=4 if gas > 1 else
+                torch.empty((), dtype=self.compute_dtype).element_size(),
+                device_type=self.device.type)
+        if step_seconds is None:
+            # drain-to-drain walls add up over a window, not one by one
+            # (under dispatch-ahead a step that drains with another reads
+            # near 0): the mean of the last 8, the first step's warm-up
+            # left out where there are more
+            records = self.timers(TRAIN_BATCH_TIMER).records
+            recent = (records[1:] if len(records) > 1 else records)[-8:]
+            step_seconds = (sum(recent) / len(recent) / 1000.0
+                            if recent and sum(recent) > 0 else None)
+        peak, hbm = self._peaks()
+        if not peak or not hbm:
+            raise RuntimeError(
+                f"roofline(): no peak rates for {self.device} "
+                "(observability/roofline.py)")
+        summary = rl.roofline_summary(self._roofline_cost, peak, hbm,
+                                      step_seconds=step_seconds)
+        if self.hub is not None:
+            self.hub.record_event("roofline", step=self.global_steps,
+                                  **summary)
+            self.hub.gauge("train.arithmetic_intensity",
+                           summary["arithmetic_intensity"])
+            if "hw_flops_utilization" in summary:
+                self.hub.gauge("train.hw_flops_utilization",
+                               summary["hw_flops_utilization"])
+        return summary
 
     # -- checkpoints (JAX engine.py:2010-2105) ---------------------------
     def module_state_dict(self) -> Dict[str, np.ndarray]:
@@ -1370,6 +1765,23 @@ class Engine:
         restores its epoch."""
         return resume.resume_data_iter(data_iter, self.loaded_data_cursor,
                                        source=source)
+
+
+def _batch_tokens(batches) -> Optional[int]:
+    """Trained tokens in one boundary (JAX ``_batch_tokens``): each
+    microbatch's ``input_ids`` [B, S+1] trains B x S next-token
+    positions (the count a benchmark divides by); None when the batch
+    has no such array."""
+    total = 0
+    for mb in batches:
+        ids = mb.get("input_ids") if hasattr(mb, "get") else None
+        if ids is None:
+            return None
+        shape = tuple(ids.shape)
+        if len(shape) < 2 or shape[-1] < 2:
+            return None
+        total += int(np.prod(shape[:-1])) * (shape[-1] - 1)
+    return total
 
 
 __all__ = ["initialize", "Engine"]

@@ -31,6 +31,8 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.utils.annotate import trace_range
+
 logger = logging.getLogger(__name__)
 
 ADAM_ALIASES = {"adam", "fusedadam", "cpuadam"}
@@ -452,7 +454,14 @@ def apply_mixed_precision_update(state: MixedPrecisionState, grads: Tree,
     grads (loss-scale unscaling); ``skip`` (an overflow step) leaves
     everything unchanged; ``gnorm`` is the global norm when the caller
     computed it (across ranks). Returns the global grad norm (fp32,
-    0-dim)."""
+    0-dim). The step runs in the "optimizer" profiler range."""
+    with trace_range("optimizer"):
+        return _mixed_precision_update(state, grads, tx, params, grad_clip,
+                                       grad_scale, skip, gnorm, publish)
+
+
+def _mixed_precision_update(state, grads, tx, params, grad_clip, grad_scale,
+                            skip, gnorm, publish):
     if gnorm is None:
         gnorm = global_norm(grads, grad_scale)
     if skip:
@@ -493,7 +502,15 @@ def apply_client_update(state: MixedPrecisionState, grads: Tree,
     ``torch.optim.Optimizer`` over the masters in ``tx``'s place: each
     master's fp32 gradient (unscaled and clipped by the engine, as there)
     goes into its ``.grad``, the optimizer steps once, and the compute
-    params are recast from the masters. Returns the global grad norm."""
+    params are recast from the masters. Returns the global grad norm.
+    The step runs in the "optimizer" profiler range."""
+    with trace_range("optimizer"):
+        return _client_update(state, grads, opt, params, grad_clip,
+                              grad_scale, skip, gnorm, publish)
+
+
+def _client_update(state, grads, opt, params, grad_clip, grad_scale, skip,
+                   gnorm, publish):
     if gnorm is None:
         gnorm = global_norm(grads, grad_scale)
     if skip:

@@ -164,7 +164,7 @@ def test_data_exhausted_mid_accumulation_raises():
                             "offload_param": {"device": "cpu"}}}, "item 11"),
     ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
      "item 10"),
-    ({"wall_clock_breakdown": True}, "item 14"),
+    ({"observability": {"run_dir": "fleet_run"}}, "item 14"),
     ({"optimizer": {"type": "onebitadam", "params": {}}}, "item 10"),
 ])
 def test_unported_config_raises(extra, match):

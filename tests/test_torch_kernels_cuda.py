@@ -1441,3 +1441,52 @@ def test_v1_generate_on_the_card_follows_the_cpu(card):
         gap = float(cpu_rows[p][b, a[p]] - cpu_rows[p][b, c[p]])
         diff = float((cpu_rows[p][b] - card_rows[p][b]).abs().max())
         assert gap <= diff, (b, p, gap, diff)
+
+
+@pytest.mark.parametrize("api", ["micro", "blocking", "pipelined"])
+def test_logged_loss_is_the_step_loss_on_the_card(card, api):
+    """The loss and grad norm a step logs and sends to the monitor are the
+    step's own, in every loop, while the stream is still busy when the
+    host reads them: a post-step hook queues a ~0.1 s device sleep ahead
+    of the loss's pinned copy."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import zoo
+
+    model = zoo.get_model("tiny", device=card, seed=0, dtype=torch.float32,
+                          attn_impl="xla")
+    eng = deepspeed_tpu_torch.initialize(model=model, config={
+        "train_micro_batch_size_per_chip": 2,
+        "gradient_accumulation_steps": 2,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+        "bf16": {"enabled": False}, "steps_per_print": 1,
+        "performance": {"pipeline_depth": 2 if api == "pipelined" else 0}
+    })[0]
+    seen = []
+    eng._monitor_events = lambda events: seen.extend(
+        v for name, v, _ in events if name == "Train/Samples/train_loss")
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 64, (2, 17)).astype(np.int32)}
+               for _ in range(6)]
+    losses = []
+    if api == "micro":
+        eng.register_post_step_hook(lambda e: torch.cuda._sleep(1 << 28))
+        for i in range(3):
+            for b in batches[2 * i:2 * i + 2]:
+                eng.backward(eng(b))
+                eng.step()
+            losses.append(float(eng.last_metrics["loss"]))
+    else:
+        # a post-step hook forces the blocking loop; the sleep goes into
+        # the model's loss instead
+        real = eng._model_loss
+
+        def slow_loss(mb):
+            torch.cuda._sleep(1 << 27)
+            return real(mb)
+
+        eng._model_loss = slow_loss
+        it = iter(batches)
+        out = [eng.train_batch(it) for _ in range(3)]
+        eng.synchronize()
+        losses = [float(x) for x in out]
+    assert seen == losses

@@ -44,8 +44,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(files) >= 15
     # the quantized-serving, block-sparse, checkpoint, resilience,
     # offload, ZenFlow, optimizer, speculation, prefetch, dispatch, kernel
-    # bench, report, v1 engine and ZeRO-across-ranks modules are among the
-    # files checked
+    # bench, report, v1 engine, ZeRO-across-ranks and observability modules
+    # are among the files checked
     rel = {os.path.relpath(p, PKG) for p in files}
     assert {"ops/quantization.py", "ops/fp_quantizer.py",
             "inference/weight_quant.py",
@@ -66,7 +66,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "inference/engine.py", "comm/comm.py", "comm/__init__.py",
             "parallel/topology.py", "runtime/sharding.py",
             "runtime/zero.py", "runtime/sparse_tensor.py",
-            "utils/tensor_fragment.py", "utils/comms_logging.py"} <= rel
+            "utils/tensor_fragment.py", "utils/comms_logging.py",
+            "observability/__init__.py", "observability/hub.py",
+            "observability/sinks.py", "observability/histogram.py",
+            "observability/step_trace.py", "observability/roofline.py",
+            "observability/attribution.py",
+            "observability/profile_trace.py", "observability/watchdog.py",
+            "observability/flight_recorder.py",
+            "observability/request_trace.py", "observability/clocksync.py",
+            "utils/annotate.py", "utils/timer.py", "utils/memory.py",
+            "utils/logging.py", "monitor/monitor.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
