@@ -127,8 +127,9 @@ Phases, each fatal on failure:
                flash path against the dense path on one microbatch; one
                more step under torch.profiler.
   9. checkpoint — after phase 4, once its engine is freed: Llama-3-8B at
-               full width, 1 of its 32 layers (1.27 B parameters: the
-               vocabulary matrices hold 83% of the ~17.8 GB of state),
+               full width, 1 of its 32 layers, its vocabulary cut to
+               16384 rows (``CKPT_SMALL_VOCAB``; at 128256 rows the
+               vocabulary matrices held 83% of ~17.8 GB of state),
                bf16 on fp32 masters, AdamW with a warm-up schedule, clip
                1.0, micro 1 x GAS 2 x 2048 tokens from a shuffled,
                seeded ``RepeatingLoader(DeepSpeedDataLoader(...))``.
@@ -369,14 +370,46 @@ Phases, each fatal on failure:
                one report (stacks, device memory), train.stalls 1, a
                flight dump with the step's entry and the previous
                step's drain.
+  16. a11 — after phase 10, once its engines are freed, on full-width
+               Llama-3-8B, bf16 on fp32 masters. 16a: at 2 layers, micro
+               2 x GAS 2 x 2048, 3 steps under each
+               ``activation_checkpointing.policy`` (nothing_saveable,
+               dots_saveable, save_qkv_attn_out, save_attn_mlp,
+               offload_dots_host, none) from one seed: losses and every
+               fp32 master ``==`` nothing_saveable's, flash forwards two
+               a layer and microbatch where the recompute launches it
+               again and one where the policy keeps its output (or runs
+               no remat), all on the tensor-core kernels; step p50 and
+               peak memory. 16b: the same with tiled_logits 8 and
+               tiled_mlp 4, losses within 2e-3 of the untiled run, the
+               peak drop beside the [B, S, V] fp32 logits' bytes. 16c: 2
+               layers at S 32768, micro 1, tiled_logits 16: one forward
+               and backward through the flash path (after a warm-up),
+               attn_chunks 8, that with ``fpdt_host_kv`` and that with
+               ``fpdt_host_residual``: loss within 2e-2 and every
+               gradient leaf's cosine at least 0.99 against the flash
+               run, every gradient leaf's row error within 3e-2 against
+               the mode it extends (the hosted mode's vocab head leaves,
+               summed over its 8 chunks, by the cosine), bytes staged to
+               the host; step time and peak memory per mode. 16d: ``offload_param`` on cpu with the cpu optimizer
+               tier at phase 10a's depth, micro 2 x GAS 1: the stack in
+               pinned host memory, 1 warm-up and 3 steps held to 10a's
+               losses (the first ``==``, all within 3e-3), flash
+               launches as the per-layer recompute implies, each layer
+               fetched twice a step, then 2 steps at param_prefetch_depth
+               1 and serialized; one layer's fetch GB/s on the copy
+               stream; the card's peak over its state through one
+               forward and backward at the depth and at half of it must
+               differ by less than one layer's bf16 params and saved
+               input.
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
 sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
 checkpoint, optimizer sweep, spec serve, draft model, verify-shape
-prefill, A4, kernel bench, v1 engine, zero, observability and
-observability serve lines, the run's seconds,
+prefill, A4, kernel bench, v1 engine, zero, observability,
+observability serve and a11 lines, the run's seconds,
 the card's name
 and power limit (nvidia-smi), and, last, the device line.
 
@@ -557,9 +590,10 @@ SPARSE_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
                            kernels={"blocksparse_block": 0})
 
 
-# phase 9: the checkpoint round trip (Llama-3-8B at 1 of 32 layers: the
-# vocabulary matrices hold 83% of the state; 2 layers until phase 12
-# joined and the run had to stay inside its time limit)
+# phase 9: the checkpoint round trip (Llama-3-8B at full width, 1 of 32
+# layers, the vocabulary cut to CKPT_SMALL_VOCAB rows: the full
+# vocabulary's two matrices held 83% of the 17.8 GB of state, ~110 s of
+# disk time, and phase 16 needed the room; 2 layers until phase 12 joined)
 CKPT_LAYERS, CKPT_ROWS, CKPT_BEFORE, CKPT_AFTER = 1, 16, 2, 3
 CKPT_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
                    gradient_accumulation_steps=2,
@@ -567,10 +601,10 @@ CKPT_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_chip=1,
                               "params": {"warmup_num_steps": 10}})
 # the engine B of phase 9: async saves
 CKPT_ASYNC_CONFIG = dict(CKPT_CONFIG, checkpoint={"async_save": True})
-# phases 10b, 10c and 11c: phase 9's 1 layer with the vocabulary cut to
+# phases 9, 10b, 10c and 11c: 1 layer with the vocabulary cut to
 # CKPT_SMALL_VOCAB rows. The full vocabulary's two matrices hold 83% of
-# the state and made their round trips ~140 s of disk time; phase 9 keeps
-# the full model, and every gate of 10b-10c and 11c stays
+# the state and made the round trips ~140 s (10b-c, 11c) and ~110 s (9)
+# of disk time; every gate of the four phases stays
 CKPT_SMALL_VOCAB = 16384
 # phase 10: ZeRO-Offload (fp32 masters and AdamW moments on the host,
 # the native CPU Adam). 10a: Llama-3-8B at full width and as deep as the
@@ -688,6 +722,42 @@ OBS_RANGES = ("attention", "mlp", "norm", "rope", "vocab_head", "optimizer")
 OBS_FLASH_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
                      "flash_bwd_dkdv": "flash_bwd_dkdv_wgmma_kernel",
                      "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel"}
+# phase 16: A11's one-card parts on full-width Llama-3-8B, bf16 on fp32
+# masters. 16a: each activation-checkpointing policy at phase 12d's 2
+# layers, phase 4's micro 2 x GAS 2 x 2048 over its fixed batches, 3 steps
+# from one seed; losses and masters == nothing_saveable's; one flash
+# forward a layer and microbatch where the policy keeps its output
+# (AC_KEEPS_FLASH), two where the recompute launches it again. 16b: the
+# same with tiled_logits 8 + tiled_mlp 4, held to 16a's untiled run at
+# JAX's tolerance (tests/test_long_context.py:269). 16c: 2 layers at S
+# 32768, micro 1, tiled_logits 16 in every run; one forward and backward
+# each through the flash path, attn_chunks 8, that with fpdt_host_kv and
+# that with fpdt_host_residual. Against the flash run, phase 4's
+# flash-vs-dense gate (the chunked paths round the scores to bf16 as the
+# dense path does): the loss within 2e-2, each gradient leaf's cosine at
+# least 0.99 (the bf16 flash run's own weight-gradient rows part from an
+# fp32 run's by ~5e-2 at small widths); each FPDT mode against the one
+# it extends (the host moves are exact copies): every gradient leaf
+# within ROADMAP C's bf16 row-error limit against the masked form (the
+# hosted mode's vocab head leaves by the cosine alone: its loss sums them
+# over the 8 residual chunks, the tiled loss over 16 tiles). 16d: offload_param on cpu beside the cpu
+# optimizer tier at phase 10a's depth, micro 2 x GAS 1, 1 warm-up and 3
+# steps held to 10a's losses (the first ==, every one within
+# OFFLOAD_TOL_REL: the streamed stack's norm is summed on the host); then
+# STREAM_DEPTH_STEPS steps at param_prefetch_depth 1 and serialized (0)
+AC_POLICIES = ("nothing_saveable", "dots_saveable", "save_qkv_attn_out",
+               "save_attn_mlp", "offload_dots_host", "none")
+AC_KEEPS_FLASH = ("save_qkv_attn_out", "save_attn_mlp", "none")
+AC_LAYERS, AC_STEPS = 2, 3
+TILED_LOGITS, TILED_MLP, TILED_TOL_REL = 8, 4, 2e-3
+FPDT_SEQ, FPDT_CHUNKS, FPDT_TILED_LOGITS = 32768, 8, 16
+FPDT_GRAD_TOL_ROW = 3e-2
+VOCAB_HEAD_LEAVES = ("/unembed/", "/final_norm/")
+STREAM_DEPTHS, STREAM_DEPTH_STEPS = (2, 1, 0), 2
+STREAM_CONFIG = dict(OFFLOAD_CONFIG, zero_optimization={
+    "stage": 3, "offload_optimizer": {"device": "cpu", "pin_memory": True},
+    "offload_param": {"device": "cpu"}},
+    performance={"param_prefetch_depth": STREAM_DEPTHS[0]})
 BENCH_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                  "paged_decode", "gmm", "gmm_transposed", "tgmm",
                  "blocksparse_fwd")
@@ -2011,7 +2081,8 @@ def checkpoint_phase(torch, zoo, initialize, fa, DeepSpeedDataLoader,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
-                          dtype=torch.float32, seed=SEED)
+                          vocab_size=CKPT_SMALL_VOCAB, dtype=torch.float32,
+                          seed=SEED)
     cfg = model.config
     engine, *_ = initialize(model=model, config=dict(CKPT_CONFIG))
     it = ckpt_loader(DeepSpeedDataLoader, RepeatingLoader, cfg.vocab_size)
@@ -2032,6 +2103,7 @@ def checkpoint_phase(torch, zoo, initialize, fa, DeepSpeedDataLoader,
         torch.cuda.empty_cache()
 
         model = zoo.get_model("llama3-8b", num_layers=CKPT_LAYERS,
+                              vocab_size=CKPT_SMALL_VOCAB,
                               dtype=torch.float32, seed=SEED + 1)
         engine, *_ = initialize(model=model, config=dict(CKPT_ASYNC_CONFIG))
         if state_checksums(torch, engine) == sums:
@@ -2097,6 +2169,7 @@ def checkpoint_phase(torch, zoo, initialize, fa, DeepSpeedDataLoader,
     gb = state_bytes / 1e9
     line = {
         "model": "llama3-8b", "layers": f"{CKPT_LAYERS} of 32",
+        "vocab": CKPT_SMALL_VOCAB,
         "params": cfg.num_params(), "dtype": "bfloat16 compute, fp32 masters",
         "micro": 1, "gas": 2, "seq": TRAIN_SEQ,
         "state_gb": gb, "leaves": len(sums),
@@ -5070,6 +5143,331 @@ def wq_leaves(wq, params, path=""):
             yield p, v
 
 
+# -- phase 16: A11's one-card parts -------------------------------------------
+
+
+def a11_model(torch, zoo, layers, **over):
+    """Full-width Llama-3-8B at ``layers`` layers from SEED, fp32 on the
+    card (the engine's masters)."""
+    return zoo.get_model("llama3-8b", num_layers=layers, dtype=torch.float32,
+                         seed=SEED, **over)
+
+
+def master_sums(torch, engine):
+    """Per fp32 master leaf: its bitwise checksum."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    return {path: leaf_checksum(torch, t)
+            for path, t in leaves(engine.opt_state.master)}
+
+
+def flash_want(steps, layers, micro, recompute):
+    """The flash launches of ``steps`` steps of ``micro`` microbatches
+    through ``layers`` layers: a forward a layer and microbatch, twice
+    when the recompute launches it again."""
+    n = steps * layers * micro
+    return {"flash_fwd": n * (2 if recompute else 1), "flash_bwd_dkdv": n,
+            "flash_bwd_dq": n}
+
+
+def a11_steps(torch, engine, data, fa, n):
+    """``n`` timed steps with the flash counts and the peak read around
+    them: (losses, seconds, launches with variants, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, secs = timed_steps(torch, engine, data, n)
+    return (losses, secs, {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES},
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def ac_policy_phase(torch, zoo, initialize, fa):
+    """16a and 16b. Returns (line, flash launches by run)."""
+    runs, paths, ref = {}, {}, None
+    for name, policy, over in [(p, p, {}) for p in AC_POLICIES] + [
+            ("tiled", "nothing_saveable",
+             {"tiled_logits": TILED_LOGITS, "tiled_mlp": TILED_MLP})]:
+        free_caches(torch)
+        model = a11_model(torch, zoo, AC_LAYERS, **over)
+        engine, *_ = initialize(model=model, config=dict(
+            TRAIN_CONFIG, activation_checkpointing={"policy": policy}))
+        _, data = fixed_batches(model.config.vocab_size)
+        losses, secs, launches, peak = a11_steps(torch, engine, data, fa,
+                                                 AC_STEPS)
+        want = flash_want(AC_STEPS, AC_LAYERS, TRAIN_GAS,
+                          policy not in AC_KEEPS_FLASH)
+        got = {k: launches[k] for k in want}
+        if got != want:
+            fail(f"a11 {name}: flash launches {got}, the policy implies "
+                 f"{want}")
+        check_tensor_core(f"a11 {name}", launches, launches,
+                          ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
+        if not all(np.isfinite(losses)):
+            fail(f"a11 {name}: losses {losses}")
+        runs[name] = {"policy": policy, **over, "losses": losses,
+                      "step_s": secs,
+                      "step_ms_p50": float(np.median(secs)) * 1e3,
+                      "peak_mem_gb": peak, "launches": launches}
+        paths[f"a11/{name}"] = launches
+        sums = master_sums(torch, engine)
+        if ref is None:
+            ref = (losses, sums)
+        elif name != "tiled":
+            bad = sorted(p for p in sums if sums[p] != ref[1][p])
+            if losses != ref[0] or bad:
+                fail(f"a11 {name}: losses {losses} / masters {bad[:4]} are "
+                     f"not nothing_saveable's {ref[0]}")
+            runs[name]["equal_to_nothing_saveable"] = True
+        del engine, model
+    base = runs["nothing_saveable"]
+    tiled = runs["tiled"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(tiled["losses"],
+                                                   base["losses"]))
+    logits_gb = TRAIN_MICRO * TRAIN_SEQ * 128256 * 4 / 1e9
+    if not rel <= TILED_TOL_REL:
+        fail(f"a11 tiled: losses {tiled['losses']} against untiled "
+             f"{base['losses']} (rel {rel:.2e} > {TILED_TOL_REL})")
+    tiled.update(loss_max_rel_diff=rel,
+                 peak_drop_gb=base["peak_mem_gb"] - tiled["peak_mem_gb"],
+                 logits_fp32_gb=logits_gb)
+    free_caches(torch)
+    return {"model": "llama3-8b", "layers": f"{AC_LAYERS} of 32",
+            "micro": TRAIN_MICRO, "gas": TRAIN_GAS, "seq": TRAIN_SEQ,
+            "steps": AC_STEPS, "runs": runs}, paths
+
+
+def fpdt_phase(torch, zoo, tf, fa, memspace):
+    """16c: one forward and backward a mode at S FPDT_SEQ, each held to
+    the flash run. Returns (line, flash launches by mode)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    free_caches(torch)
+    model = zoo.get_model("llama3-8b", num_layers=AC_LAYERS,
+                          dtype=torch.bfloat16, seed=SEED,
+                          max_seq_len=FPDT_SEQ)
+    base = dataclasses.replace(model.config, tiled_logits=FPDT_TILED_LOGITS)
+    params = {k: v for k, v in model.params().items()}
+    flat = [t for _, t in leaves(params)]
+    for t in flat:
+        t.requires_grad_()
+    rng = np.random.default_rng(SEED + 16)
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+        0, base.vocab_size, (1, FPDT_SEQ + 1)).astype(np.int32)).cuda()}
+    modes = {"flash": {}, "chunked": {"attn_chunks": FPDT_CHUNKS},
+             "host_kv": {"attn_chunks": FPDT_CHUNKS, "fpdt_host_kv": True},
+             "hosted_residual": {"attn_chunks": FPDT_CHUNKS,
+                                 "fpdt_host_kv": True,
+                                 "fpdt_host_residual": True}}
+    out, paths, ref, prev, prev_name = {}, {}, None, None, None
+    for name, over in [("flash", {})] + list(modes.items()):
+        cfg = dataclasses.replace(base, **over)
+        for t in flat:
+            t.grad = None
+        free_caches(torch)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fa.reset_launch_counts()
+        memspace.reset_transfer_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = tf.loss_fn(cfg, params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grads = {p: t.grad for p, t in leaves(params)}
+        line = {**over, "loss": loss.item(), "step_s": wall,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_over_state_gb": (torch.cuda.max_memory_allocated()
+                                       - before) / 1e9,
+                "host_bytes_staged": memspace.TRANSFER_STATS[
+                    "to_host_bytes"],
+                "host_bytes_fetched": memspace.TRANSFER_STATS[
+                    "to_device_bytes"],
+                "launches": {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES}}
+        if not np.isfinite(line["loss"]):
+            fail(f"fpdt {name}: loss {line['loss']}")
+        if ref is None:
+            ref = (line["loss"], {p: g.detach().clone()
+                                  for p, g in grads.items()})
+            out["flash_warmup"] = line
+            continue
+        if name != "flash":
+            rel = abs(line["loss"] - ref[0]) / abs(ref[0])
+            errs = {p: row_rel_err(torch, grads[p], ref[1][p],
+                                   GRAD_ROW_FLOOR) for p in grads}
+            cos = {p: (torch.sum(grads[p].float() * ref[1][p].float())
+                       / (grads[p].float().norm() * ref[1][p].float().norm()
+                          ).clamp_min(1e-30)).item() for p in grads}
+            line.update(loss_rel_diff=rel, grad_row_rel_err=errs,
+                        grad_cosine=cos)
+            if not (rel <= TRAIN_LOSS_TOL_REL
+                    and min(cos.values()) >= TRAIN_GRAD_COS_MIN):
+                fail(f"fpdt {name}: loss rel {rel:.2e}, gradient cosines "
+                     f"{cos} against the flash run")
+            if prev is not None:
+                # the host moves are exact: each mode against the one it
+                # extends, at ROADMAP C's row-error limit; the hosted
+                # loss sums the vocab head's gradient over the 8 residual
+                # chunks where the tiled loss sums 16 tiles (JAX's design),
+                # another order of bf16 adds, so those leaves are held by
+                # the cosine above
+                errs = {p: row_rel_err(torch, grads[p], prev[p],
+                                       GRAD_ROW_FLOOR) for p in grads}
+                line.update(extends=prev_name, grad_row_rel_err_vs_it=errs)
+                if over.get("fpdt_host_residual"):
+                    errs = {p: e for p, e in errs.items()
+                            if not p.startswith(VOCAB_HEAD_LEAVES)}
+                worst = max(errs, key=errs.get)
+                if errs[worst] > FPDT_GRAD_TOL_ROW:
+                    fail(f"fpdt {name}: gradient row error {errs[worst]:.2e}"
+                         f" at {worst} against {prev_name}")
+            prev = {p: g.detach().clone() for p, g in grads.items()}
+            prev_name = name
+            if over.get("fpdt_host_kv") and not line["host_bytes_staged"]:
+                fail(f"fpdt {name}: nothing went to the host")
+        else:
+            want = flash_want(1, AC_LAYERS, 1, True)
+            if {k: line["launches"][k] for k in want} != want:
+                fail(f"fpdt flash: launches {line['launches']}, remat "
+                     f"implies {want}")
+        out[name] = line
+        paths[f"fpdt/{name}"] = line["launches"]
+    del model, params, flat, grads, ref, prev
+    free_caches(torch)
+    return {"model": "llama3-8b", "layers": f"{AC_LAYERS} of 32",
+            "seq": FPDT_SEQ, "micro": 1, "tiled_logits": FPDT_TILED_LOGITS,
+            "modes": out}, paths
+
+
+def fetch_gb_per_s(torch, memspace, layer):
+    """One layer's host leaves fetched on the copy stream, timed with
+    events there: the median GB/s of 5 fetches."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    host = [t for _, t in leaves(layer)]
+    nbytes = sum(t.numel() * t.element_size() for t in host)
+    stream = memspace.copy_stream(torch.device("cuda"))
+    secs = []
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(stream)
+        got = [memspace.fetch(t, "cuda") for t in host]
+        b.record(stream)
+        for g in got:
+            g.wait()
+        torch.cuda.synchronize()
+        secs.append(a.elapsed_time(b) / 1e3)
+    return nbytes / 1e9 / float(np.median(secs[1:])), nbytes
+
+
+def stream_peak(torch, tf, engine, batch, layers):
+    """The card's peak over the engine's state through one forward and
+    backward of the streamed stack cut to ``layers`` layers."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.runtime.optimizer import leaves, tree_map
+
+    cfg = dataclasses.replace(engine.model_config, num_layers=layers)
+    params = dict(engine.params,
+                  layers=tree_map(lambda t: t[:layers],
+                                  engine.params["layers"]))
+    free_caches(torch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = tf.loss_fn(cfg, params, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    engine.zero_grad()
+    return peak
+
+
+def stream_phase(torch, zoo, initialize, fa, tf, ps, memspace, ref):
+    """16d: the layer stack streamed from the host at phase 10a's depth,
+    held to 10a's resident offload losses. Returns (line, flash launches
+    of the measured steps)."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    layers = ref["layers_n"]
+    free_caches(torch)
+    t0 = time.perf_counter()
+    model = a11_model(torch, zoo, layers)
+    engine, *_ = initialize(model=model, config=dict(STREAM_CONFIG))
+    init_s = time.perf_counter() - t0
+    cfg = engine.model_config
+    stack = engine.params["layers"]
+    if not (cfg.param_host_offload and all(
+            memspace.is_on_host(t) for _, t in leaves(stack))):
+        fail("stream: the layer stack is not in pinned host memory")
+    fixed, data = fixed_batches(cfg.vocab_size, micro=OFFLOAD_MICRO)
+    losses = [float(engine.train_batch(data))]  # warm-up step
+    ps.reset_fetch_stats()
+    m_losses, secs, launches, peak = a11_steps(torch, engine, data, fa,
+                                               OFFLOAD_MEASURED)
+    losses += m_losses
+    fetched = dict(ps.FETCH_STATS)
+    want = flash_want(OFFLOAD_MEASURED, layers, 1, True)
+    if {k: launches[k] for k in want} != want:
+        fail(f"stream: flash launches {launches}, the streamed stack's "
+             f"recompute implies {want}")
+    check_tensor_core("stream", launches, launches,
+                      ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"))
+    stack_bytes = sum(t.numel() * t.element_size() for _, t in leaves(stack))
+    if fetched["layers"] != OFFLOAD_MEASURED * 2 * layers or \
+            fetched["bytes"] != OFFLOAD_MEASURED * 2 * stack_bytes:
+        fail(f"stream: fetched {fetched}, the stack ({stack_bytes} bytes) "
+             f"twice a step implies {2 * layers} layers a step")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    if losses[0] != ref["losses"][0] or max(rel) > OFFLOAD_TOL_REL:
+        fail(f"stream: losses {losses} against the resident offload step's "
+             f"{ref['losses']}")
+    by_depth = {2: {"step_s": secs,
+                    "step_ms_p50": float(np.median(secs)) * 1e3}}
+    for depth in STREAM_DEPTHS[1:]:
+        engine.model_config = dataclasses.replace(
+            cfg, prefetch_depth=max(depth, 1), serialize_fetch=depth == 0)
+        d_losses, d_secs, _, _ = a11_steps(torch, engine, data, fa,
+                                           STREAM_DEPTH_STEPS)
+        by_depth[depth] = {"step_s": d_secs, "losses": d_losses,
+                           "step_ms_p50": float(np.median(d_secs)) * 1e3}
+    engine.model_config = cfg
+    gbps, layer_bytes = fetch_gb_per_s(
+        torch, memspace, {k: v[0] for k, v in leaves(stack)})
+    mb = {k: torch.from_numpy(v).cuda() for k, v in fixed[0].items()}
+    peaks = {n: stream_peak(torch, tf, engine, mb, n)
+             for n in (layers, layers // 2)}
+    saved_input = OFFLOAD_MICRO * TRAIN_SEQ * cfg.hidden_size * 2
+    limit = layer_bytes + saved_input
+    diff = peaks[layers] - peaks[layers // 2]
+    if not abs(diff) < limit:
+        fail(f"stream: peak over the state {peaks} at {layers} and "
+             f"{layers // 2} layers differ by {diff} bytes, more than one "
+             f"layer's bf16 params and saved input ({limit})")
+    line = {"model": "llama3-8b", "layers": f"{layers} of 32",
+            "micro": OFFLOAD_MICRO, "gas": 1, "seq": TRAIN_SEQ,
+            "init_s": init_s, "losses": losses,
+            "resident_offload_losses": ref["losses"],
+            "loss_rel_diff": rel, "peak_mem_gb": peak,
+            "step_ms_p50_by_prefetch_depth": {
+                str(k): v["step_ms_p50"] for k, v in by_depth.items()},
+            "by_prefetch_depth": by_depth,
+            "resident_offload_step_ms_p50": ref["step_ms_p50"],
+            "fetch_gb_per_s": gbps, "layer_bytes": layer_bytes,
+            "fetched_per_step": {k: v / OFFLOAD_MEASURED
+                                 for k, v in fetched.items()},
+            "peak_over_state_bytes": {str(k): v for k, v in peaks.items()},
+            "peak_flat_limit_bytes": limit, "launches": launches}
+    del engine, model, stack
+    free_caches(torch)
+    return line, launches
+
+
 def main():
     import torch
 
@@ -5097,7 +5495,9 @@ def main():
     from deepspeed_tpu_torch.parallel import moe
     from deepspeed_tpu_torch.resilience import validate_manifest
     from deepspeed_tpu_torch.runtime import offload as off_mod
+    from deepspeed_tpu_torch.runtime import param_stream
     from deepspeed_tpu_torch.tools import kernel_bench as kb
+    from deepspeed_tpu_torch.utils import memspace
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5418,6 +5818,36 @@ def main():
         f"nvme, Fast save {offload_ckpt['save_s']:.1f} s; phase 10 took "
         f"{offload_wall:.0f} s")
 
+    # 16. A11's one-card parts: the checkpointing policies and the tiled
+    # paths at 2 layers, FPDT at S 32768, the streamed stack at phase
+    # 10a's depth held to 10a's losses; phase 10's engines are gone
+    t0 = time.perf_counter()
+    a11, a11_paths = ac_policy_phase(torch, zoo, initialize, fa)
+    t16c = time.perf_counter()
+    fpdt_line, fpdt_paths = fpdt_phase(torch, zoo, tf, fa, memspace)
+    t16d = time.perf_counter()
+    stream, stream_launches = stream_phase(
+        torch, zoo, initialize, fa, tf, param_stream, memspace,
+        {"layers_n": int(offload["layers"].split()[0]),
+         "losses": offload["losses"], "step_ms_p50": offload["step_ms_p50"]})
+    a11_wall = time.perf_counter() - t0
+    a11_paths.update(fpdt_paths)
+    a11_paths["stream"] = stream_launches
+    runs = a11["runs"]
+    log("a11: policies " + ", ".join(
+        f"{k} {v['step_ms_p50']:.0f} ms / {v['peak_mem_gb']:.1f} GB"
+        for k, v in runs.items()) + " (losses and masters equal); tiled "
+        f"peak drop {runs['tiled']['peak_drop_gb']:.2f} GB against "
+        f"{runs['tiled']['logits_fp32_gb']:.2f} GB of fp32 logits; fpdt "
+        + ", ".join(f"{k} {v['step_s']:.1f} s / {v['peak_mem_gb']:.1f} GB"
+                    for k, v in fpdt_line["modes"].items())
+        + f"; stream {stream['layers']} step p50 by prefetch depth "
+        f"{stream['step_ms_p50_by_prefetch_depth']} ms, fetch "
+        f"{stream['fetch_gb_per_s']:.1f} GB/s; 16a-b "
+        f"{t16c - t0:.0f} s, 16c {t16d - t16c:.0f} s, 16d "
+        f"{time.perf_counter() - t16d:.0f} s; phase 16 took "
+        f"{a11_wall:.0f} s")
+
     # 11. ZenFlow at full depth, the blocking step beside it, its
     # checkpoint, and the optimizer sweep; phase 10's engines are gone
     t0 = time.perf_counter()
@@ -5530,6 +5960,7 @@ def main():
                     **{run: lc[name] for run, lc in zero_launches.items()},
                     **{f"observability_{run}": lc[name]
                        for run, lc in obs_launches.items()},
+                    **{run: lc[name] for run, lc in a11_paths.items()},
                     "v1_forward": v1_paths["v1_forward"][name]},
                 "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
@@ -5551,6 +5982,7 @@ def main():
                                      *zero_launches.items(),
                                      *((f"observability_{run}", lc) for run,
                                        lc in obs_launches.items()),
+                                     *a11_paths.items(),
                                      ("v1_forward",
                                       v1_paths["v1_forward"]))},
                 "max_abs_err": b["max_abs_err"],
@@ -5744,6 +6176,9 @@ def main():
     print(json.dumps({"zero": zero}), flush=True)
     print(json.dumps({"observability": obs}), flush=True)
     print(json.dumps({"observability_serve": obs_serve}), flush=True)
+    print(json.dumps({"a11": {"policies": a11, "fpdt": fpdt_line,
+                              "stream": stream, "phase16_wall_s": a11_wall}}),
+          flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
           flush=True)
     print(card, flush=True)

@@ -4,9 +4,11 @@ runs (port of ``deepspeed_tpu/config/config.py``).
 Parsed: the batch triple and its solver (``resolve_batch_size``),
 ``steps_per_print``, ``gradient_clipping``, ``seed``, the ``bf16`` and
 ``fp16`` blocks, ``optimizer``, ``scheduler``, the ``comms_logger``
-block (``CommsLoggerConfig``), ``zero_optimization.stage``,
+block (``CommsLoggerConfig``), the ``activation_checkpointing`` block
+(``ActivationCheckpointingConfig``), ``zero_optimization.stage``,
 ``.offload_optimizer``
-(``OffloadOptimizerConfig``) and ``.zenflow`` (``ZenFlowBlockConfig``),
+(``OffloadOptimizerConfig``), ``.offload_param`` (``OffloadParamConfig``)
+and ``.zenflow`` (``ZenFlowBlockConfig``),
 the ``moe`` block (``ep_size`` 1), the
 ``serving`` block (``ServingConfig``, the serving engine's knobs), the
 ``sparse_attention`` block (``SparseAttentionConfig``), the
@@ -43,9 +45,6 @@ UNPORTED_BLOCKS = {
     "tensor_parallel": f"{_A} 11 (tensor parallelism)",
     "sequence_parallel": f"{_A} 11 (sequence parallelism)",
     "pipeline": f"{_A} 11 (pipeline parallelism)",
-    "activation_checkpointing": f"{_A} 11 (activation checkpointing "
-                                "policies; the model's `remat` switch "
-                                "recomputes every layer)",
     "flops_profiler": f"{_A} 16 (profiling)",
     "compile": f"{_A} 16 (compile passes)",
     "elasticity": f"{_A} 16 (elasticity)",
@@ -55,8 +54,6 @@ _FLEET = f"{_A} 14's fleet part (the fleet publisher and aggregator)"
 _FLEET_SERVING = f"{_A} 13 (the serving fleet)"
 # zero_optimization keys: accepted at their "off" values only
 ZERO_SWITCHES = {
-    "offload_param": (None, f"{_A} 11 (offload_param streams the layers "
-                            "with runtime/param_stream.py)"),
     "zero_quantized_weights": (False, f"{_A} 10 (ZeRO++)"),
     "zero_quantized_gradients": (False, f"{_A} 10 (ZeRO++)"),
     "zero_quantized_allreduce": (False, f"{_A} 10 (ZeRO++)"),
@@ -97,6 +94,26 @@ class OptimizerConfig:
 class SchedulerConfig:
     type: Optional[str] = None
     params: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` block (reference
+    runtime/activation_checkpointing/checkpointing.py:1029), JAX's
+    fields: ``policy`` picks what a remat'd layer keeps
+    (``runtime/activation_checkpointing.POLICIES``), ``cpu_checkpointing``
+    keeps it in pinned host memory, ``partition_activations`` is the
+    identity at tp = 1, ``contiguous_memory_optimization`` has no effect
+    (logged); ``number_checkpoints``, ``synchronize_checkpoint_boundary``
+    and ``profile`` are accepted and have no effect, as in JAX."""
+
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: str = "nothing_saveable"
 
 
 @dataclass
@@ -167,6 +184,29 @@ class OffloadOptimizerConfig:
 
 
 @dataclass
+class OffloadParamConfig:
+    """``zero_optimization.offload_param`` (reference
+    runtime/zero/offload_config.py:21), with JAX's fields: ``device``
+    cpu keeps the model's stacked layer subtrees in pinned host memory
+    and streams them a layer at a time (``runtime/param_stream.py``);
+    nvme is accepted and held in host memory as in JAX (the NVMe tier is
+    the optimizer state's). ``buffer_count``, ``buffer_size`` and
+    ``pin_memory`` are accepted and have no effect, as in JAX."""
+
+    device: str = "none"  # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    pin_memory: bool = False
+
+    def validate(self) -> None:
+        if self.device not in ("none", "cpu", "nvme"):
+            raise ValueError(
+                f"offload_param.device must be none|cpu|nvme, "
+                f"got {self.device!r}")
+
+
+@dataclass
 class ZenFlowBlockConfig:
     """``zero_optimization.zenflow`` (reference
     runtime/zenflow/zenflow_config.py), with JAX's fields and checks:
@@ -199,13 +239,22 @@ class ZeroConfig:
     then the params over the ranks of a process group (``runtime/zero``);
     on one process without a group they are the same math.
     ``offload_optimizer`` moves the optimizer to the host
-    (``OffloadOptimizerConfig``); ``zenflow`` splits it between the card
-    and the host (``ZenFlowBlockConfig``; it needs the cpu tier, which
-    the engine checks, as JAX's does)."""
+    (``OffloadOptimizerConfig``); ``offload_param`` streams the layer
+    stack from the host (``OffloadParamConfig``; it needs the optimizer
+    on the host, which the engine checks, as JAX's does); ``zenflow``
+    splits the optimizer between the card and the host
+    (``ZenFlowBlockConfig``; it needs the cpu tier)."""
 
     stage: int = 0
     offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    offload_param: Optional[OffloadParamConfig] = None
     zenflow: Optional[ZenFlowBlockConfig] = None
+
+    @property
+    def offload_param_device(self) -> str:
+        """"cpu" | "nvme" | "none"."""
+        off = self.offload_param
+        return "none" if off is None else (off.device or "none")
 
     @property
     def offload_device(self) -> str:
@@ -219,6 +268,8 @@ class ZeroConfig:
                 f"zero_optimization.stage must be 0-3, got {self.stage}")
         if self.offload_optimizer is not None:
             self.offload_optimizer.validate()
+        if self.offload_param is not None:
+            self.offload_param.validate()
         if self.zenflow is not None:
             self.zenflow.validate()
 
@@ -339,9 +390,10 @@ class PerformanceConfig:
     (``runtime/prefetch.py``); 0 turns it off, and 0 is the port's
     default (JAX's is 2): the prefetcher is asked for, and until then a
     checkpoint's data cursor keeps the loader's own state.
-    ``param_prefetch_depth`` and ``overlap_depth`` (the streamed layer
-    stack, ROADMAP queue A item 11) and ``fp8_mlp`` (item 10) raise when
-    set."""
+    ``param_prefetch_depth`` (the layers in flight ahead of the compute
+    on the ``offload_param`` stream) and ``overlap_depth`` reach the
+    model's config (``prefetch_depth``, ``overlap_depth``) through the
+    engine, as in JAX; ``fp8_mlp`` (item 10) raises when set."""
 
     pipeline_depth: int = 0
     prefetch_depth: int = 0
@@ -373,11 +425,6 @@ class PerformanceConfig:
         if self.fp8_mlp:
             raise _unported("performance.fp8_mlp=True",
                             f"{_A} 10 (fp8 MLP, ops/fp_quantizer.py)")
-        for name in ("param_prefetch_depth", "overlap_depth"):
-            if getattr(self, name) is not None:
-                raise _unported(f"performance.{name}",
-                                f"{_A} 11 (the streamed layer stack, "
-                                "runtime/param_stream.py)")
 
 
 @dataclass
@@ -758,6 +805,8 @@ class Config:
     moe: MoEConfig = field(default_factory=MoEConfig)
     comms_logger: CommsLoggerConfig = field(
         default_factory=CommsLoggerConfig)
+    activation_checkpointing: ActivationCheckpointingConfig = field(
+        default_factory=ActivationCheckpointingConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     sparse_attention: Optional[SparseAttentionConfig] = None
     kernels: KernelsConfig = field(default_factory=KernelsConfig)
@@ -792,6 +841,12 @@ class Config:
                 raise _unported(f"zero_optimization.{name}={value!r}", item)
         for name in ZERO_NOOP_KEYS:
             zero.pop(name, None)
+        if _offload_off(zero.get("offload_param")):
+            zero.pop("offload_param", None)
+        else:
+            zero["offload_param"] = _block(
+                OffloadParamConfig, zero["offload_param"],
+                "zero_optimization.offload_param")
         if zero.get("offload_optimizer") is not None:
             off = zero["offload_optimizer"]
             if isinstance(off, dict) and off.get("device") is None:
@@ -803,7 +858,8 @@ class Config:
             zero["zenflow"] = _block(ZenFlowBlockConfig, zero["zenflow"],
                                      "zero_optimization.zenflow")
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
-                  "zero_optimization", "moe", "comms_logger", "serving",
+                  "zero_optimization", "moe", "comms_logger",
+                  "activation_checkpointing", "serving",
                   "sparse_attention", "kernels", "checkpoint", "resilience",
                   "performance", "observability", "monitor"}
         monitors = {"tensorboard", "csv_monitor", "wandb", "comet"}
@@ -826,6 +882,10 @@ class Config:
             moe=_block(MoEConfig, data.get("moe"), "moe"),
             comms_logger=_block(CommsLoggerConfig, data.get("comms_logger"),
                                 "comms_logger"),
+            activation_checkpointing=_block(
+                ActivationCheckpointingConfig,
+                data.get("activation_checkpointing"),
+                "activation_checkpointing"),
             serving=_block(ServingConfig, data.get("serving"), "serving"),
             sparse_attention=(None if data.get("sparse_attention") is None
                               else _block(SparseAttentionConfig,
@@ -939,7 +999,8 @@ def load_config(config) -> Config:
 
 __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "CommsLoggerConfig",
            "BF16Config",
-           "FP16Config", "OffloadOptimizerConfig", "ZenFlowBlockConfig",
+           "FP16Config", "OffloadOptimizerConfig", "OffloadParamConfig",
+           "ActivationCheckpointingConfig", "ZenFlowBlockConfig",
            "ZeroConfig", "MoEConfig", "ServingConfig",
            "SparseAttentionConfig", "KernelsConfig", "CheckpointConfig",
            "ResilienceConfig", "PerformanceConfig", "ObservabilityConfig",

@@ -9,9 +9,11 @@ parameter tree is the JAX one: ``layers.moe.router`` [L, h, E] and
 place of ``layers.mlp``.
 
 ``apply`` returns (logits, the summed aux loss); ``remat`` wraps each
-layer in ``torch.utils.checkpoint`` as the dense model does. The
-pipeline and ``param_host_offload`` branches are not ported: a pipeline
-config block and the ``param_host_offload`` switch raise.
+layer in ``torch.utils.checkpoint`` as the dense model does. With
+``param_host_offload`` (the engine's ``offload_param``) the layer stack,
+experts included, streams from pinned host memory a layer at a time
+(``runtime/param_stream.py``), as in JAX. The pipeline branch is not
+ported: a pipeline config block raises.
 """
 
 from __future__ import annotations
@@ -169,6 +171,25 @@ def apply(cfg: MoETransformerConfig, params: Dict[str, Any],
     rope = (tf.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.pos_emb == "rope" else None)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if cfg.param_host_offload:
+        # ZeRO-Infinity streaming of the expert stack (JAX's branch): a
+        # fetch inside each remat'd layer, so the card holds one layer's
+        # experts at a time and the recompute fetches again
+        from deepspeed_tpu_torch.runtime import param_stream
+
+        def streamed(x, lp):
+            return _moe_layer(cfg, x, param_stream.fetch_layer(
+                lp, tokens.device), rope, train)
+
+        for lp in param_stream.host_layers(params["layers"], cfg.num_layers):
+            if cfg.remat:
+                x, l_aux = torch.utils.checkpoint.checkpoint(
+                    streamed, x, lp, use_reentrant=False)
+            else:
+                x, l_aux = streamed(x, lp)
+            aux_total = aux_total + l_aux
+        x = tf.final_norm_of(cfg, params, x, fetch)
+        return tf.unembed(cfg, params, x, fetch), aux_total
     for layer_params in tf._unstack_layers(params["layers"], cfg.num_layers):
         if cfg.remat:
             x, l_aux = torch.utils.checkpoint.checkpoint(

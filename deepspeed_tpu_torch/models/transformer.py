@@ -15,16 +15,32 @@ reads ``params["layers"]["attn"]["wq"][l]`` exactly where the JAX runner
 scans over the same leaf.
 
 The JAX layer scan is a Python loop here; ``remat`` wraps each layer in
-``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
-default ``nothing_saveable`` policy. The pipeline, FPDT, host-offload,
-overlap, qwZ, tiled and fp8 branches are not ported: their config
-switches raise ``NotImplementedError`` naming their ROADMAP item.
+``runtime/activation_checkpointing.checkpoint_wrapper`` under
+``remat_policy`` (None: the engine's ``activation_checkpointing.policy``,
+by default ``nothing_saveable``), and the layer names its ``qkv_proj``,
+``attn_kernel_out``, ``attn_out`` and ``mlp_out`` tensors for the named
+policies. The long-context branches run as in JAX: ``tiled_mlp`` and
+``tiled_logits`` (``parallel/tiled_compute.py``; the tiled loss fuses the
+final norm, the unembed and the cross-entropy a tile at a time),
+``attn_chunks`` (FPDT chunked attention), ``fpdt_host_kv`` (K/V tiles in
+pinned host memory, the rest of the block fused per chunk) and
+``fpdt_host_residual`` (the residual stream as host chunks between
+layers: ``apply_hidden_hosted`` / ``hosted_logits_loss``), all in
+``parallel/fpdt.py``. ``param_host_offload`` (set by the engine from
+``zero_optimization.offload_param``) streams the layer stack from pinned
+host memory (``runtime/param_stream.py``): by default with
+``prefetch_depth`` layers in flight on a copy stream, or, with
+``serialize_fetch`` or ``prefetch_stream=False``, a fetch inside each
+remat'd layer. The pipeline, sequence-parallel, qwZ and fp8 branches are
+not ported: their switches raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -33,7 +49,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
-from deepspeed_tpu_torch.ops.attention import multi_head_attention
+from deepspeed_tpu_torch.ops.attention import (multi_head_attention,
+                                               repeat_kv_heads)
+from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
 from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.utils.annotate import region
 
@@ -41,16 +59,10 @@ from deepspeed_tpu_torch.utils.annotate import region
 # (the values that mean "off", what to port first)
 _A11 = "ROADMAP queue A item 11"
 _UNPORTED_SWITCHES = {
-    "sequence_parallel": ((False,), f"{_A11} (Ulysses / ring attention)"),
-    "attn_chunks": ((0, 1), f"{_A11} (FPDT chunked attention)"),
-    "fpdt_host_kv": ((False,), f"{_A11} (FPDT host KV)"),
-    "fpdt_host_residual": ((False,), f"{_A11} (FPDT hosted residual)"),
-    "tiled_logits": ((0, 1), f"{_A11} (tiled logits, tiled_compute.py)"),
-    "tiled_mlp": ((0, 1), f"{_A11} (tiled MLP, tiled_compute.py)"),
+    "sequence_parallel": ((False,), f"{_A11}'s multi-card part (Ulysses / "
+                                    "ring attention)"),
     "fp8_mlp": ((False,), "ROADMAP queue A item 10 (fp8 MLP, "
                           "ops/fp_quantizer.py)"),
-    "param_host_offload": ((False,), f"{_A11} (parameter offload, "
-                                     "runtime/param_stream.py)"),
 }
 
 
@@ -79,17 +91,40 @@ class TransformerConfig:
     use_biases: bool = False
     # Falcon-style parallel residual: x + attn(ln1(x)) + mlp(ln2(x))
     parallel_block: bool = False
-    # recompute each layer in the backward (torch.utils.checkpoint)
+    # recompute each layer in the backward (activation checkpointing)
     remat: bool = True
+    # None defers to the engine's activation_checkpointing.policy; a name
+    # here wins over the config
+    remat_policy: Optional[str] = None
     attn_impl: str = "auto"  # auto | xla | flash | blocksparse (ops/attention)
     sequence_parallel: bool = False
+    # FPDT chunked attention: query chunks, 0/1 = off
     attn_chunks: int = 0
+    # FPDT host KV: the K/V tiles in pinned host memory (attn_chunks,
+    # at least 2, chunks)
     fpdt_host_kv: bool = False
+    # FPDT hosted residual: the residual stream as host chunks between
+    # layers (needs fpdt_host_kv and the sequential block; the loss goes
+    # through loss_fn)
     fpdt_host_residual: bool = False
+    # ALST tiled compute: sequence tiles, 0/1 = off
     tiled_logits: int = 0
     tiled_mlp: int = 0
     fp8_mlp: bool = False
+    # ZeRO-Infinity streaming of the layer stack (the engine sets it from
+    # zero_optimization.offload_param)
     param_host_offload: bool = False
+    # the streamed stack's knobs; None resolves from the environment at
+    # construction, as in JAX: DSTPU_PREFETCH (the prefetch streamer, 1),
+    # DSTPU_SERIALIZE_FETCH (a fetch inside each remat'd layer, 0),
+    # DSTPU_PREFETCH_DEPTH (layers in flight, 2), DSTPU_GRADS_TO_HOST (1)
+    # and DSTPU_OVERLAP_DEPTH (0; the engine bridges
+    # performance.overlap_depth onto it)
+    prefetch_stream: Optional[bool] = None
+    serialize_fetch: Optional[bool] = None
+    prefetch_depth: Optional[int] = None
+    grads_to_host: Optional[bool] = None
+    overlap_depth: Optional[int] = None
 
     def __post_init__(self):
         for name, (off, item) in _UNPORTED_SWITCHES.items():
@@ -98,6 +133,26 @@ class TransformerConfig:
                 raise NotImplementedError(
                     f"TransformerConfig.{name}={value!r} is not ported to "
                     f"deepspeed_tpu_torch yet: {item}")
+        for name, env, default, kind in (
+                ("prefetch_stream", "DSTPU_PREFETCH", "1", bool),
+                ("serialize_fetch", "DSTPU_SERIALIZE_FETCH", "0", bool),
+                ("prefetch_depth", "DSTPU_PREFETCH_DEPTH", "2", int),
+                ("grads_to_host", "DSTPU_GRADS_TO_HOST", "1", bool),
+                ("overlap_depth", "DSTPU_OVERLAP_DEPTH", "0", int)):
+            if getattr(self, name) is None:
+                object.__setattr__(self, name,
+                                   kind(int(os.environ.get(env, default))))
+        if self.fpdt_host_residual:
+            if not self.fpdt_host_kv:
+                raise ValueError(
+                    "fpdt_host_residual requires fpdt_host_kv (the "
+                    "residual stack rides the same chunk grid as the "
+                    "KV tiles)")
+            if self.parallel_block:
+                raise ValueError(
+                    "fpdt_host_residual requires the fused sequential "
+                    "block (attention+MLP per chunk); parallel_block "
+                    "is not chunk-fusable this way")
 
     @property
     def kv_heads(self) -> int:
@@ -290,16 +345,64 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _attention(q, k, v, cfg: TransformerConfig, causal: bool = True):
-    """The plain attention branch (sequence parallelism and chunked
-    attention raise at config construction)."""
+    """The attention op: FPDT chunked attention with ``attn_chunks`` > 1,
+    else ``multi_head_attention`` (sequence parallelism raises at config
+    construction)."""
+    if cfg.attn_chunks > 1:
+        from deepspeed_tpu_torch.parallel.fpdt import chunked_attention
+
+        return chunked_attention(q, k, v, causal=causal,
+                                 q_chunks=cfg.attn_chunks)
     return multi_head_attention(q, k, v, causal=causal, impl=cfg.attn_impl)
+
+
+def _fpdt_post_fn(cfg: TransformerConfig, layer_params):
+    """The fused block tail of the fpdt paths, per chunk: residual add,
+    ln2 and the MLP."""
+    ap = layer_params["attn"]
+    dt = cfg.dtype
+
+    def post_fn(x_chunk, attn_chunk):
+        if cfg.use_biases:
+            attn_chunk = attn_chunk + ap["bo"].to(dt)
+        xc = x_chunk + attn_chunk
+        return xc + _mlp(cfg, _norm(xc, layer_params["ln2"], cfg.norm,
+                                    cfg.norm_eps), layer_params["mlp"])
+
+    return post_fn
 
 
 def _layer(cfg: TransformerConfig, x, layer_params, rope):
     """One transformer block; x [B, S, H] in cfg.dtype. ``rope`` is the
     forward's (cos, sin) tables or None."""
     x = x.to(cfg.dtype)
+    if cfg.fpdt_host_kv:
+        return _fpdt_layer(cfg, x, layer_params, rope)
     attn = _attention_half(cfg, x, layer_params, rope)
+    return _layer_mlp(cfg, x, attn, layer_params)
+
+
+@region("attention")
+def _fpdt_layer(cfg: TransformerConfig, x, layer_params, rope):
+    """The host-KV block (JAX ``_layer``'s ``fpdt_host_kv`` branch): q, k,
+    v and the context never exist at full S on the card, ln1 and (for the
+    sequential block) the residual add and the MLP run per chunk."""
+    from deepspeed_tpu_torch.parallel.fpdt import fpdt_attention_block
+
+    ap = layer_params["attn"]
+    fuse_mlp = not cfg.parallel_block and "mlp" in layer_params
+    res = fpdt_attention_block(
+        x, ap, rope, num_heads=cfg.num_heads, kv_heads=cfg.kv_heads,
+        head_dim=cfg.head_dim, q_chunks=max(cfg.attn_chunks, 2),
+        causal=True, use_biases=cfg.use_biases,
+        norm_fn=lambda t: _norm(t, layer_params["ln1"], cfg.norm,
+                                cfg.norm_eps),
+        post_fn=_fpdt_post_fn(cfg, layer_params) if fuse_mlp else None)
+    if fuse_mlp:
+        return res
+    attn = res
+    if cfg.use_biases:
+        attn = attn + ap["bo"].to(cfg.dtype)
     return _layer_mlp(cfg, x, attn, layer_params)
 
 
@@ -311,22 +414,29 @@ def _attention_half(cfg: TransformerConfig, x, layer_params, rope):
     ap = layer_params["attn"]
     dt = cfg.dtype
     y = _norm(x, layer_params["ln1"], cfg.norm, cfg.norm_eps)
-    q = _proj(y, ap["wq"].to(dt))
-    k = _proj(y, ap["wk"].to(dt))
-    v = _proj(y, ap["wv"].to(dt))
-    if cfg.use_biases:
-        q = q + ap["bq"].to(dt)
-        k = k + ap["bk"].to(dt)
-        v = v + ap["bv"].to(dt)
+    qkv = []
+    for name in ("q", "k", "v"):
+        with ac.checkpoint_name("qkv_proj"):
+            t = _proj(y, ap[f"w{name}"].to(dt))
+            if cfg.use_biases:
+                t = t + ap[f"b{name}"].to(dt)
+        qkv.append(t)
+    q, k, v = qkv
     if rope is not None:
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
-    attn = _attention(q, k, v, cfg)
+    if cfg.attn_chunks > 1:
+        # the chunked path splits on the head axis and needs equal q / kv
+        # head counts; the flash kernels read grouped KV natively
+        k, v = repeat_kv_heads(q, k, v)
+    with ac.checkpoint_name("attn_kernel_out"):
+        attn = _attention(q, k, v, cfg)
     wo = ap["wo"].to(dt)
-    attn = torch.matmul(attn.reshape(*attn.shape[:-2], -1),
-                        wo.reshape(-1, wo.shape[-1]))
-    if cfg.use_biases:
-        attn = attn + ap["bo"].to(dt)
+    with ac.checkpoint_name("attn_out"):
+        attn = torch.matmul(attn.reshape(*attn.shape[:-2], -1),
+                            wo.reshape(-1, wo.shape[-1]))
+        if cfg.use_biases:
+            attn = attn + ap["bo"].to(dt)
     return attn
 
 
@@ -336,10 +446,27 @@ def _layer_mlp(cfg: TransformerConfig, x, attn, layer_params):
     Falcon's parallel block where both branches read the pre-attention
     residual)."""
     mp = layer_params["mlp"]
-    dt = cfg.dtype
     if not cfg.parallel_block:
         x = x + attn
-    y = _norm(x, layer_params["ln2"], cfg.norm, cfg.norm_eps)
+    if cfg.tiled_mlp > 1:
+        # position-wise, so the sequence is chunked (ALST TiledMLP): ln2
+        # runs inside the tile too, so its fp32 intermediate is tile-sized
+        from deepspeed_tpu_torch.parallel.tiled_compute import tiled_mlp
+
+        out = tiled_mlp(lambda t: _mlp(cfg, _norm(
+            t, layer_params["ln2"], cfg.norm, cfg.norm_eps), mp), x,
+            cfg.tiled_mlp)
+    else:
+        out = _mlp(cfg, _norm(x, layer_params["ln2"], cfg.norm,
+                              cfg.norm_eps), mp)
+    if cfg.parallel_block:
+        return x + attn + out
+    return x + out
+
+
+def _mlp(cfg: TransformerConfig, y, mp):
+    """The MLP on its normed input (``mlp_out`` names its output)."""
+    dt = cfg.dtype
     if cfg.activation == "swiglu":
         z = F.silu(torch.matmul(y, mp["wg"].to(dt))) * torch.matmul(
             y, mp["wi"].to(dt))
@@ -348,12 +475,11 @@ def _layer_mlp(cfg: TransformerConfig, x, attn, layer_params):
         if cfg.use_biases:
             pre = pre + mp["bi"].to(dt)
         z = act_fn(cfg.activation)(pre)
-    out = torch.matmul(z, mp["wo"].to(dt))
-    if cfg.use_biases:
-        out = out + mp["bo"].to(dt)
-    if cfg.parallel_block:
-        return x + attn + out
-    return x + out
+    with ac.checkpoint_name("mlp_out"):
+        out = torch.matmul(z, mp["wo"].to(dt))
+        if cfg.use_biases:
+            out = out + mp["bo"].to(dt)
+    return out
 
 
 def _unstack_layers(layers: Dict[str, Any], num_layers: int):
@@ -426,29 +552,166 @@ def apply_hidden(cfg: TransformerConfig, params: Dict[str, Any],
     fsdp_gather_slice, grad_sink=fsdp_scatter_grads)``), and the
     embeddings and the final norm are gathered at their use."""
     B, S = tokens.shape
+    if cfg.fpdt_host_residual:
+        raise ValueError(
+            "fpdt_host_residual: use apply_hidden_hosted / the loss path "
+            "(apply_hidden would build the full-S buffer this mode "
+            "removes)")
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :]
     fetch = sharding.active_fetch()
     x = embed_tokens(cfg, params, tokens, positions, fetch)
     rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.pos_emb == "rope" else None)
-    for layer_params in _unstack_layers(params["layers"], cfg.num_layers):
-        if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(
-                fetched_layer, fetch, _layer, cfg, x, layer_params, rope,
-                use_reentrant=False)
-        else:
-            x = fetched_layer(fetch, _layer, cfg, x, layer_params, rope)
+    if cfg.param_host_offload:
+        x = _streamed_stack(cfg, params["layers"], x, rope)
+    else:
+        step = (ac.checkpoint_wrapper(fetched_layer, policy=cfg.remat_policy)
+                if cfg.remat else fetched_layer)
+        for layer_params in _unstack_layers(params["layers"],
+                                            cfg.num_layers):
+            x = step(fetch, _layer, cfg, x, layer_params, rope)
     if not final_norm:
         return x
     return final_norm_of(cfg, params, x, fetch)
+
+
+def _streamed_stack(cfg: TransformerConfig, layers, x, rope):
+    """ZeRO-Infinity streaming of the host layer stack (JAX
+    ``apply_hidden``'s ``param_host_offload`` branch): the prefetch
+    streamer (``prefetch_depth`` layers in flight, a per-layer recompute:
+    ``nothing_saveable``), or, with ``serialize_fetch`` or
+    ``prefetch_stream=False``, a fetch inside each remat'd layer on the
+    compute stream."""
+    from deepspeed_tpu_torch.runtime import param_stream
+
+    if sharding.active_fetch() is not None:
+        raise NotImplementedError(
+            "offload_param with a ZeRO-3 fetch across ranks: "
+            f"{_A11}'s multi-card part (the fsdp overlap_depth branch)")
+    if cfg.prefetch_stream and not cfg.serialize_fetch:
+        if cfg.remat and cfg.remat_policy not in (None, "nothing_saveable"):
+            from deepspeed_tpu_torch.utils.logging import warning_once
+
+            warning_once(
+                "offload_param prefetch streaming remats per layer "
+                f"(nothing_saveable); remat_policy={cfg.remat_policy!r} "
+                "does not apply to the streamed stack")
+        return param_stream.streamed_layers_prefetch(
+            lambda xx, lp: _layer(cfg, xx, lp, rope), layers, x,
+            length=cfg.num_layers, prefetch_depth=cfg.prefetch_depth,
+            grads_to_host=cfg.grads_to_host,
+            overlap_depth=cfg.overlap_depth or 0)
+    return param_stream.scan_streamed(
+        lambda xx, lp: _layer(cfg, xx, lp, rope), x, layers,
+        length=cfg.num_layers, remat=cfg.remat,
+        remat_policy=cfg.remat_policy, device=x.device)
+
+
+def apply_hidden_hosted(cfg: TransformerConfig, params: Dict[str, Any],
+                        tokens: torch.Tensor,
+                        positions: Optional[torch.Tensor] = None):
+    """The ``fpdt_host_residual`` forward: tokens [B, S] -> the residual
+    stream as a tuple of host chunks [B, C, H] (the padded sequence on
+    the chunk grid; no final norm: the hosted loss fuses it a chunk at a
+    time). The card holds one chunk (and one KV tile) at a time.
+
+    Returns (chunks, S, C)."""
+    from deepspeed_tpu_torch.parallel import fpdt
+
+    B, S = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = torch.arange(S, device=dev)[None, :]
+    positions = positions.expand(B, S)
+    T = max(cfg.attn_chunks, 2)
+    C = -(-S // T)
+    Sp = T * C
+    fetch = sharding.active_fetch()
+    if fetch is not None:
+        raise NotImplementedError(
+            "fpdt_host_residual with a ZeRO-3 fetch across ranks: "
+            f"{_A11}'s multi-card part")
+    tokens_p = torch.nn.functional.pad(tokens, (0, Sp - S))
+    pos_p = torch.nn.functional.pad(positions, (0, Sp - S))
+    # the embedding, chunk by chunk, each chunk straight to the host
+    x_t = tuple(fpdt.to_host(embed_tokens(
+        cfg, params, tokens_p[:, t * C:(t + 1) * C],
+        pos_p[:, t * C:(t + 1) * C], None)) for t in range(T))
+    rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.pos_emb == "rope" else None)
+    if "mlp" not in params["layers"]:
+        raise ValueError("fpdt_host_residual needs the fused sequential "
+                         "block (mlp present, parallel_block off)")
+    layers = params["layers"]
+    if cfg.param_host_offload:
+        from deepspeed_tpu_torch.runtime import param_stream
+
+        slices = [param_stream.fetch_layer(lp, dev) for lp in
+                  param_stream.host_layers(layers, cfg.num_layers)]
+    else:
+        slices = _unstack_layers(layers, cfg.num_layers)
+    for lp in slices:
+        x_t = fpdt.fpdt_hosted_layer(
+            x_t, lp, rope, seq_len=S, q_chunks=T, num_heads=cfg.num_heads,
+            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+            use_biases=cfg.use_biases, norm_kind=cfg.norm,
+            norm_eps=cfg.norm_eps, activation=cfg.activation, device=dev)
+    return x_t, S, C
+
+
+def _hosted_chunk_nll(cfg, params, host, lbl, m, device):
+    from deepspeed_tpu_torch.parallel.fpdt import to_device
+
+    h = _norm(to_device(host, device), params["final_norm"], cfg.norm,
+              cfg.norm_eps)
+    logits = unembed(cfg, params, h, None)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lbl.long()[..., None])[..., 0]
+    return ((logz - gold) * m).sum(), m.sum()
+
+
+@region("vocab_head")
+def hosted_logits_loss(cfg: TransformerConfig, params, x_t, labels, mask,
+                       S: int, C: int):
+    """Fused final norm + unembed + cross-entropy over the host residual
+    chunks (the hosted twin of ``tiled_logits_loss``; each chunk is
+    fetched again in its recompute). Returns (masked nll sum, mask
+    total)."""
+    B = labels.shape[0]
+    dev = labels.device
+    Sp = len(x_t) * C
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=dev)
+    labels_p = torch.nn.functional.pad(labels, (0, Sp - S))
+    mask_p = torch.nn.functional.pad(mask.float(), (0, Sp - S))
+    nll_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for t, host in enumerate(x_t):
+        a, b = torch.utils.checkpoint.checkpoint(
+            _hosted_chunk_nll, cfg, params, host,
+            labels_p[:, t * C:(t + 1) * C], mask_p[:, t * C:(t + 1) * C],
+            dev, use_reentrant=False)
+        nll_sum = nll_sum + a
+        total = total + b
+    return nll_sum, total
 
 
 def apply(cfg: TransformerConfig, params: Dict[str, Any],
           tokens: torch.Tensor,
           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Forward pass: tokens [B, S] -> logits [B, S, V] float32."""
-    x = apply_hidden(cfg, params, tokens, positions)
+    if cfg.fpdt_host_residual:
+        # small-shape path: the hosted chunks assembled on the card (the
+        # long-context use goes through loss_fn)
+        from deepspeed_tpu_torch.parallel.fpdt import to_device
+
+        x_t, S, _ = apply_hidden_hosted(cfg, params, tokens, positions)
+        x = torch.cat([to_device(c, tokens.device) for c in x_t],
+                      dim=1)[:, :S]
+        x = final_norm_of(cfg, params, x, None)
+    else:
+        x = apply_hidden(cfg, params, tokens, positions)
     return unembed(cfg, params, x, sharding.active_fetch())
 
 
@@ -467,8 +730,49 @@ def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],
         mask = mask.float()
         if mask.shape[1] == tokens.shape[1] and "labels" not in batch:
             mask = mask[:, 1:]
+    if cfg.fpdt_host_residual:
+        # the residual lives on the host; the loss fuses the final norm,
+        # the unembed and the cross-entropy per fetched chunk
+        x_t, S, C = apply_hidden_hosted(cfg, params, inputs)
+        return _mean_loss(*hosted_logits_loss(cfg, params, x_t, labels,
+                                              mask, S, C))
+    if cfg.tiled_logits > 1:
+        # neither the [B, S, V] logits nor the [B, S, H] fp32 normed
+        # hidden exist: the final norm runs inside each tile
+        hidden = apply_hidden(cfg, params, inputs, final_norm=False)
+        return _mean_loss(*tiled_lm_loss(cfg, params, hidden, labels,
+                                         mask))
     hidden = apply_hidden(cfg, params, inputs)
     return lm_head_loss(cfg, params, hidden, labels, mask)
+
+
+def _mean_loss(nll_sum, total):
+    total = torch.clamp(total, min=1.0)
+    loss = nll_sum / total
+    return loss, {"loss": loss, "ntokens": total}
+
+
+@region("vocab_head")
+def tiled_lm_loss(cfg: TransformerConfig, params: Dict[str, Any], hidden,
+                  labels, mask):
+    """``tiled_logits_loss`` on the hidden states before the final norm:
+    (masked nll sum, mask total)."""
+    from deepspeed_tpu_torch.parallel.tiled_compute import tiled_logits_loss
+
+    fetch = sharding.active_fetch()
+    fnorm = {k: sharding.fetched(fetch, params, f"/final_norm/{k}")
+             for k in params["final_norm"]}
+    if cfg.tie_embeddings:
+        table = sharding.fetched(fetch, params, "/embed/tokens").to(cfg.dtype)
+        transpose = True
+    else:
+        table = sharding.fetched(fetch, params, "/unembed/kernel").to(
+            cfg.dtype)
+        transpose = False
+    return tiled_logits_loss(
+        hidden, table, labels, mask, cfg.tiled_logits,
+        transpose_unembed=transpose,
+        tile_transform=lambda h: _norm(h, fnorm, cfg.norm, cfg.norm_eps))
 
 
 @region("vocab_head")

@@ -36,17 +36,18 @@ The two non-compute buckets are JAX's analytic transfer models:
 - ``param_fetch``: the per-layer param bytes x layers x (fwd + bwd) that
   a layer-streaming run would move over the host link
   (``DSTPU_FETCH_GBPS``, default the H100's PCIe Gen5 x16 link at its
-  nominal 64 GB/s a direction). The port keeps its params resident
-  (``offload_param`` is ROADMAP queue A item 11), so the row reports the
-  floor a stream would need.
+  nominal 64 GB/s a direction); ``offload_param`` streams them
+  (``runtime/param_stream.py``), a resident run's row is the floor a
+  stream would need.
 
 :func:`device_ms_by_region` reads a ``torch.profiler`` capture of the
 model's region ranges (``utils/annotate.py``) and gives the card's time
 by region, the measured side of the same table.
 
-The long-context tier (``attribute_longctx_step``) and the quantized-comm
-attribution (``attribute_quant_step``) raise, naming ROADMAP queue A
-items 11 and 10.
+The long-context tier (``attribute_longctx_step``) is JAX's analytic
+model (its sequence-parallel rows are formulas: nothing runs across
+cards); the quantized-comm attribution (``attribute_quant_step``)
+raises, naming ROADMAP queue A item 10.
 """
 
 from __future__ import annotations
@@ -425,12 +426,68 @@ def _shape_tree(shapes):
             for k, v in shapes.items()}
 
 
-def attribute_longctx_step(*args, **kwargs) -> List[RegionCost]:
-    """JAX's analytic long-context tier (sequence-parallel collectives,
-    FPDT's host-KV stream): not ported."""
-    raise NotImplementedError(
-        "attribute_longctx_step: ROADMAP queue A item 11 (sequence "
-        "parallelism and FPDT's host-KV stream are not ported)")
+def attribute_longctx_step(*, seq_len: int, hidden_size: int,
+                           num_heads: int,
+                           num_kv_heads: Optional[int] = None,
+                           head_dim: Optional[int] = None,
+                           num_layers: int = 1, batch_size: int = 1,
+                           sp: int = 1, strategy: Optional[str] = None,
+                           attn_chunks: int = 0,
+                           fpdt_host_kv: bool = False,
+                           dtype_bytes: int = 2) -> List[RegionCost]:
+    """JAX's analytic costs of the long-context regions of one forward
+    and backward, per card: **attn** (causal 6 B S^2 H / sp FLOPs; q, out
+    and the per-chunk KV rereads), **sp_comm** (the sequence-parallel
+    collectives of ``strategy`` over ``sp`` ranks: Ulysses' 4
+    all-to-alls, ring's sp - 1 KV hops, FPDT's KV all-gather and
+    reduce-scatter; zero at sp 1) and **host_kv_stream** (FPDT's host KV:
+    the K/V stacks down once, then the causal average of (chunks + 1) / 2
+    stacks up a pass, twice for the backward). Zero-cost regions are
+    still emitted."""
+    kv = num_kv_heads or num_heads
+    D = head_dim or hidden_size // num_heads
+    H = hidden_size
+    B, S, L = batch_size, seq_len, num_layers
+    p = max(int(sp), 1)
+    db = dtype_bytes
+
+    attn_flops = 6.0 * B * float(S) * S * H / p * L
+    kv_bytes = 2.0 * B * S * kv * D * db          # full K+V stacks
+    chunks = max(int(attn_chunks), 1)
+    attn_bytes = (2.0 * B * (S / p) * num_heads * D * db
+                  + chunks * kv_bytes / p) * L
+
+    if p > 1:
+        frac = (p - 1) / p
+        if strategy == "ulysses" and chunks <= 1:
+            per_layer = (2.0 * B * S * num_heads * D
+                         + 2.0 * B * S * kv * D) * db * frac
+            note = "ulysses: 4 all-to-alls/layer (q,out + k,v @ GQA width)"
+        elif strategy == "ring" and chunks <= 1:
+            per_layer = kv_bytes * frac
+            note = f"ring: {p - 1} ppermute KV hops/layer"
+        else:
+            per_layer = kv_bytes * frac
+            note = ("fpdt+sp: KV all-gather fwd / reduce-scatter bwd "
+                    "per layer")
+        sp_bytes = per_layer * 2 * L              # fwd + bwd
+    else:
+        sp_bytes, note = 0.0, "sp=1: no sequence-parallel collectives"
+    regions = [
+        RegionCost("attn", attn_flops, attn_bytes,
+                   note=f"causal, per chip (S/sp={S // p} query rows), "
+                        "x num_layers"),
+        RegionCost("sp_comm", 0.0, sp_bytes, note=note, overlapped=True),
+    ]
+    if fpdt_host_kv:
+        hk_bytes = kv_bytes * (1.0 + (chunks + 1) / 2.0) * 2 * L
+        hk_note = (f"D2H once + causal-avg H2D over {chunks} chunks, "
+                   "x2 bwd, x num_layers")
+    else:
+        hk_bytes, hk_note = 0.0, "KV resident on device (no spill)"
+    regions.append(RegionCost("host_kv_stream", 0.0, hk_bytes,
+                              note=hk_note, overlapped=True))
+    return regions
 
 
 def attribute_quant_step(*args, **kwargs) -> List[RegionCost]:

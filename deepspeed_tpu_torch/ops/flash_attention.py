@@ -37,6 +37,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
+
 NEG_INF = -1e30
 TILE = 64            # query rows and key columns per kernel tile
 HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
@@ -476,7 +478,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal):
         scale = 1.0 / math.sqrt(q.shape[-1])
-        o, lse = _flash_fwd(q, k, v, segment_ids, causal, scale)
+        # one opaque step for an activation-checkpointing policy: kept
+        # whole (o and lse) or launched again in the recompute
+        o, lse = ac.saved_call(_flash_fwd, q, k, v, segment_ids, causal,
+                               scale)
         ctx.save_for_backward(q, k, v, segment_ids, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o

@@ -68,6 +68,19 @@ microbatch, JAX's offload numerics; no fp32 accumulators on the card),
 on both APIs. ``offload_states`` / ``reload_states`` empty and refill
 the card storage of the params and the device optimizer's state.
 
+ZeRO-Infinity's param tier (``zero_optimization.offload_param`` beside
+the cpu or nvme optimizer tier; ``runtime/param_stream.py``): the
+model's stacked layer subtrees (``host_param_paths``, else ``layers``)
+live in pinned host memory in the compute dtype, the model streams them
+a layer at a time (``performance.param_prefetch_depth`` layers ahead,
+bridged onto the model's config with ``overlap_depth``), their fp32
+gradients land on the host inside the backward, and the host optimizer
+writes the updated stack in place. Without the host optimizer it raises,
+and ZenFlow falls back to the blocking offload step, as in JAX. The
+``activation_checkpointing`` block configures
+``runtime/activation_checkpointing`` (the policy a remat'd layer runs
+under), as JAX's engine does.
+
 ZenFlow (``zero_optimization.zenflow`` beside the cpu tier;
 ``runtime/zenflow.py``) takes the host optimizer's place: the engine
 builds only the ZenFlow optimizer, whose fp32 masters come from the
@@ -177,6 +190,8 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (has_overflow,
                                                      update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
+from deepspeed_tpu_torch.runtime import activation_checkpointing as act_ckpt
+from deepspeed_tpu_torch.runtime import param_stream
 from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.runtime.optimizer import (
     SGD, Adagrad, Adam, Lion, MixedPrecisionState, apply_client_update,
@@ -370,12 +385,16 @@ class Engine:
         config.resolve_batch_size(self.dp_world_size)
         self.plan = sharding.make_sharding_plan(config, self.mesh)
         comm.configure(config)
+        act_ckpt.configure(config.activation_checkpointing)
         self.micro_batch_size = config.train_micro_batch_size_per_chip
         self.gradient_accumulation_steps = config.gradient_accumulation_steps
         self.train_batch_size = config.train_batch_size
         self.compute_dtype = config.compute_dtype
         over = {"dtype": self.compute_dtype}
-        if isinstance(model, _FnModel):
+        if isinstance(model, _FnModel) or not isinstance(
+                model, tf_model.TransformerLM):
+            # a (loss_fn, params) pair, or a model of its own (the
+            # host_param_paths protocol): its loss on the engine's params
             self._loss_fn = lambda _cfg, params, batch: model.loss(params,
                                                                    batch)
         elif isinstance(model.config, moe_transformer.MoETransformerConfig):
@@ -384,6 +403,16 @@ class Engine:
                 over["moe_impl"] = config.moe.impl
         else:
             self._loss_fn = loss_fn
+        # the performance block's streamed-stack knobs reach the model's
+        # config (JAX engine.py:223-246)
+        perf = config.performance
+        mfields = ({f.name for f in dataclasses.fields(model.config)}
+                   if dataclasses.is_dataclass(model.config) else set())
+        if perf.param_prefetch_depth is not None and \
+                "prefetch_depth" in mfields:
+            over["prefetch_depth"] = int(perf.param_prefetch_depth)
+        if perf.overlap_depth is not None and "overlap_depth" in mfields:
+            over["overlap_depth"] = int(perf.overlap_depth)
         self.model_config = (None if model.config is None else
                              dataclasses.replace(model.config, **over))
         self._install_sparse_layout()
@@ -422,6 +451,12 @@ class Engine:
         self._offload: Optional[HostOffloadOptimizer] = None
         self._zenflow: Optional[ZenFlowOptimizer] = None
         self._post_step_hooks: List = []
+        # offload_param: the model's stacked subtrees that stream from the
+        # host (the host_param_paths protocol, else TransformerLM's layers)
+        self._param_host_offload = zero.offload_param_device != "none"
+        proto = getattr(model, "host_param_paths", None)
+        self._host_param_paths = (tuple(proto) if proto is not None
+                                  else ("layers",))
         if zero.offload_device in ("cpu", "nvme"):
             if self._client_optimizer_present:
                 raise ValueError(
@@ -447,6 +482,7 @@ class Engine:
                     self.params = tree_map(
                         lambda m: m.to(cdt, copy=True).requires_grad_(),
                         self.opt_state.master)
+        self._setup_param_host_offload()
         self.loss_scale_state = init_loss_scale(config.fp16)
         self._offloaded_states: Optional[list] = None
         # GAS > 1: fp32 accumulators, one per parameter, filled by the
@@ -612,10 +648,67 @@ class Engine:
             return self._loss_fn(self.model_config, self.params, batch)
 
     def _compute_params(self, src):
+        """The compute-dtype params from ``src``; under ``offload_param``
+        the streamed subtrees go straight to pinned host memory (never
+        whole on the card)."""
         with torch.no_grad():
-            self.params = tree_map(
-                lambda t: t.detach().to(self.compute_dtype,
-                                        copy=True).requires_grad_(), src)
+            hosted = {k for k in self._host_param_paths if k in src} \
+                if self._param_host_offload else set()
+            def card(t):
+                return t.detach().to(self.compute_dtype,
+                                     copy=True).requires_grad_()
+
+            self.params = {
+                k: (tree_map(lambda t: t.requires_grad_(),
+                             param_stream.pin_to_host(v, self.compute_dtype))
+                    if k in hosted else
+                    card(v) if isinstance(v, torch.Tensor) else
+                    tree_map(card, v))
+                for k, v in src.items()}
+
+    def _setup_param_host_offload(self) -> None:
+        """ZeRO-Infinity's param tier (JAX ``engine.py:1480-1545``): the
+        model's stacked layer subtrees live in pinned host memory, in the
+        compute dtype, and the model streams them a layer at a time
+        (``runtime/param_stream.py``); their gradients land on the host,
+        where the host optimizer steps them and writes the stack back in
+        place. Requires the host optimizer tier."""
+        if not self._param_host_offload:
+            return
+        pcfg = self.config.zero_optimization.offload_param
+        if pcfg.device == "nvme":
+            logger.warning("offload_param.device='nvme': layer params are "
+                           "held in pinned host RAM (the NVMe tier applies "
+                           "to optimizer state); proceeding with cpu "
+                           "placement")
+        if self._offload is None:
+            raise ValueError(
+                "offload_param requires offload_optimizer (the ZeRO-"
+                "Infinity pairing): add zero_optimization."
+                "offload_optimizer.device='cpu'")
+        if self.mesh.shape.get("pp", 1) > 1:
+            raise ValueError("offload_param does not compose with the "
+                             "pipeline-parallel layer path yet")
+        mcfg = self.model_config
+        if getattr(self.model, "host_param_paths", None) is not None:
+            # the protocol: the model streams its declared subtrees when
+            # its param_host_offload flag is on
+            self.model.param_host_offload = True
+        elif mcfg is not None and hasattr(mcfg, "param_host_offload"):
+            updates = {"param_host_offload": True}
+            if not mcfg.remat:
+                logger.warning("offload_param requires per-layer remat to "
+                               "keep the stack off the card; enabling remat")
+                updates["remat"] = True
+            self.model_config = dataclasses.replace(mcfg, **updates)
+        else:
+            raise ValueError(
+                "offload_param needs a model that supports streaming: "
+                "either config.param_host_offload (TransformerLM family) "
+                "or the host_param_paths protocol "
+                "(runtime/param_stream.py)")
+        logger.info("offload_param: layer params pinned to host memory; "
+                    "the step streams one layer at a time")
 
     def _init_client_optimizer(self, model, client_optimizer) -> None:
         """The client-optimizer branch (JAX ``engine.py:314-315``, where
@@ -687,6 +780,11 @@ class Engine:
         block."""
         zf = self.config.zero_optimization.zenflow
         if zf is None:
+            return None
+        if self._param_host_offload:
+            logger.warning("zenflow does not compose with offload_param "
+                           "streaming; falling back to the blocking "
+                           "offload step")
             return None
         ocfg = self.config.optimizer
         p = dict((ocfg.params or {}) if ocfg else {})
@@ -1129,7 +1227,7 @@ class Engine:
         lr = self.get_lr()[0]
         if self._offload is not None:
             gnorm, overflow = self._offload.step(
-                tree_map(lambda p: p.grad, self.params), self.params, lr=lr,
+                tree_map(self._grad_of, self.params), self.params, lr=lr,
                 grad_scale=scale if fp16 else None, skip_on_nonfinite=fp16)
             gnorm = torch.tensor(gnorm, dtype=torch.float32)
         elif self._zenflow is not None:
@@ -1166,6 +1264,7 @@ class Engine:
                     self.opt_state, grads, self.tx, self.params, **kw)
         for _, p in leaves(self.params):
             p.grad = None
+            param_stream.clear_host_grad(p)
         self._grad_acc = {}
         self._grad_shards = {}
         if fp16:
@@ -1229,6 +1328,12 @@ class Engine:
                 and self._preempt_guard.should_checkpoint()):
             self._emergency_checkpoint()
         return mean_loss
+
+    @staticmethod
+    def _grad_of(p: torch.Tensor) -> Optional[torch.Tensor]:
+        """``p.grad``, or a streamed stack's fp32 host gradient
+        (``runtime/param_stream.py``)."""
+        return p.grad if p.grad is not None else param_stream.host_grad(p)
 
     def _to_host(self, tensors) -> torch.Tensor:
         """The 0-dim ``tensors`` as one fp32 host vector: on a card a
@@ -1444,6 +1549,7 @@ class Engine:
         grads and losses of the backwards since the last update."""
         for _, p in leaves(self.params):
             p.grad = None
+            param_stream.clear_host_grad(p)
         self._grad_acc = {}
         self._grad_shards = {}
         self._micro_losses = []

@@ -26,6 +26,14 @@ leaf is one shard. One ``step``:
      (the GAS > 1 bookkeeping and any hooks stay bound), on the same
      stream, from one of two output buffers.
 
+A leaf whose gradient and compute param already live in host memory
+(the layer stack under ``offload_param``, ``runtime/param_stream.py``,
+its gradient in fp32) skips the copies: the chunk of its gradient is
+scaled in place on the host (the same fp32 product), the native step
+writes the bf16 chunk straight into the host param, and its norm is
+summed on the host (``torch.dot``), in the same leaf order, so the clip
+coefficient differs from the all-card sum at rounding level.
+
 Streaming bounds the host's staging memory at ``buffer_count`` chunks
 (JAX copies every gradient to the host before the first update: at
 Llama-3-8B's 8.03 B parameters that would add 32 GB of fp32 gradients),
@@ -122,6 +130,7 @@ class HostOffloadOptimizer:
         self.chunk_elems = max(1, min(int(chunk_elems), max(numel)))
         self._bufs = None  # staging buffers, made at the first step
         self._stream = None
+        self._host_leaves = False  # some grads live on the host already
         self.last_step_s: Dict[str, float] = {}
         logger.info(f"host offload optimizer: {len(numel)} leaves, "
                     f"{sum(numel) / 1e6:.1f}M elements on "
@@ -187,9 +196,15 @@ class HostOffloadOptimizer:
         for _, g in leaves(grads):
             flat = g.detach().reshape(-1)
             for part in flat.split(CHUNK_ELEMS):
-                x = part.to(self.xfer_dtype).float()
-                sq = torch.sum(x * x)
-                total = sq if total is None else total + sq
+                if part.device.type == "cpu" and self._host_leaves:
+                    # a streamed leaf: its gradient crossed already, in
+                    # fp32, and is summed where it is
+                    x = part if part.dtype == torch.float32 else part.float()
+                    sq = torch.dot(x, x)
+                else:
+                    x = part.to(self.xfer_dtype).float()
+                    sq = torch.sum(x * x)
+                total = sq if total is None else total + sq.to(total.device)
         sq = float(total)
         if grad_scale and grad_scale != 1.0:
             sq /= grad_scale ** 2
@@ -206,7 +221,11 @@ class HostOffloadOptimizer:
         flat_g, flat_p = dict(leaves(grads)), dict(leaves(params))
         if sorted(flat_g) != sorted(self.optimizers):
             raise ValueError("grad tree does not match the offloaded leaves")
-        device = next(iter(flat_g.values())).device
+        devices = {g.device for g in flat_g.values()}
+        # an engine on the card with some grads on the host already
+        self._host_leaves = len({d.type for d in devices}) > 1
+        device = next((d for d in devices if d.type != "cpu"),
+                      next(iter(devices)))
         if device.type == "cuda":
             # the backward's tail finishes here, so "norm" times the norm
             torch.cuda.synchronize(device)
@@ -268,15 +287,21 @@ class HostOffloadOptimizer:
             events[kind].append((a, b))
             return b
 
+        def hosted(path):
+            return self._host_leaves and flat_g[path].device.type == "cpu"
+
         def d2h(i):
             path, s, n = chunks[i]
+            if hosted(path):
+                return None  # read where it is
             src = flat_g[path].detach().reshape(-1)[s:s + n]
             dst = bufs["grad"][i % nb][:n]
+            coef_t = coef_host if src.device.type == "cpu" else coef_dev
 
             def copy():
                 x = src.to(self.xfer_dtype)
                 if on_device:
-                    x = x.mul(coef_dev)
+                    x = x.mul(coef_t)
                 dst.copy_(x, non_blocking=True)
 
             return timed("d2h", copy)
@@ -292,6 +317,12 @@ class HostOffloadOptimizer:
         pending = deque(d2h(i) for i in range(min(nb, len(chunks))))
         for i, (path, s, n) in enumerate(chunks):
             wait(pending.popleft(), "d2h_wait")
+            if hosted(path):
+                self._host_chunk(flat_g, flat_p, path, s, n, lr, coef,
+                                 coef_host, t)
+                if i + nb < len(chunks):
+                    pending.append(d2h(i + nb))
+                continue
             g = bufs["grad"][i % nb][:n]
             t0 = clock()
             if coef != 1.0 and not on_device:
@@ -333,6 +364,33 @@ class HostOffloadOptimizer:
                 t[f"{kind}_copy"] = sum(a.elapsed_time(b)
                                         for a, b in pairs) / 1e3
         return t
+
+    def _host_chunk(self, flat_g, flat_p, path, s, n, lr, coef, coef_host,
+                    t) -> None:
+        """One chunk of a host-resident leaf: its fp32 gradient scaled in
+        place (it is consumed by this step), the native step, the bf16
+        param written in place."""
+        clock = time.perf_counter
+        g = flat_g[path].detach().reshape(-1)[s:s + n]
+        t0 = clock()
+        if g.dtype != torch.float32:
+            g = self._bufs["grad32"][:n].copy_(g)
+        if coef != 1.0:
+            g.mul_(coef_host)
+        t1 = clock()
+        t["scale"] += t1 - t0
+        master, state = self._host_state(path, s, n)
+        t["swap"] += clock() - t1
+        param = flat_p[path].detach().reshape(-1)[s:s + n]
+        out = param if param.dtype == torch.bfloat16 else None
+        t0 = clock()
+        self.optimizers[path].update(master, g, state, out, lr)
+        t["host_step"] += clock() - t0
+        if out is None and param.data_ptr() != master.data_ptr():
+            param.copy_(master)
+        t0 = clock()
+        self._write_back(path, s, master, state)
+        t["swap"] += clock() - t0
 
     def _host_state(self, path: str, s: int, n: int):
         """The master and moment chunks of ``path`` at [s, s + n): views

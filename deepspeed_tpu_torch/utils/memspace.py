@@ -11,11 +11,21 @@ plain host memory, ``memory_kind_of`` reports ``"unpinned_host"`` (the
 kind JAX reports for its CPU arrays) and ``is_on_host`` is False; the
 numerics are unchanged. This is the degradation contract of the JAX
 module's docstring.
+
+The asynchronous moves of the streamed paths (the FPDT KV tiles and
+residual chunks, the layer stack of ``offload_param``, the offloaded
+activation saves) go through one side stream a card (``copy_stream``):
+``fetch`` copies pinned host memory to the card and ``offload`` the card
+to fresh pinned host memory, each returning a ``Transfer`` whose event
+the consumer waits on (``wait`` on the compute stream, ``host_wait`` on
+the host). The source (and a fetched tensor) is marked with
+``record_stream`` so that the allocator does not hand its memory out
+before the copy is done. On the CPU the moves are plain copies.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -71,5 +81,101 @@ def is_on_host(t: Any) -> bool:
     return memory_kind_of(t) == "pinned_host"
 
 
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+# bytes moved by ``fetch`` (host -> card) and ``offload`` (card -> host)
+# since the last ``reset_transfer_stats``
+TRANSFER_STATS = {"to_device_bytes": 0, "to_host_bytes": 0}
+
+
+def reset_transfer_stats() -> None:
+    TRANSFER_STATS.update(to_device_bytes=0, to_host_bytes=0)
+
+
+def copy_stream(device: torch.device) -> Optional["torch.cuda.Stream"]:
+    """The side stream of the card ``device`` that carries the streamed
+    paths' copies (one a card, made at first use); None off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    s = _STREAMS.get(device)
+    if s is None:
+        s = _STREAMS[device] = torch.cuda.Stream(device)
+    return s
+
+
+class Transfer:
+    """A copy issued on the copy stream: ``tensor`` is its destination,
+    valid on the compute stream after ``wait()`` and on the host after
+    ``host_wait()``."""
+
+    __slots__ = ("tensor", "event")
+
+    def __init__(self, tensor: torch.Tensor, event=None):
+        self.tensor, self.event = tensor, event
+
+    def wait(self) -> torch.Tensor:
+        if self.event is not None:
+            torch.cuda.current_stream(self.event.device).wait_event(
+                self.event)
+        return self.tensor
+
+    def host_wait(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.tensor
+
+
+def fetch(host: torch.Tensor, device: torch.device,
+          dtype: Optional[torch.dtype] = None) -> Transfer:
+    """``host`` (pinned host memory) copied to ``device`` on its copy
+    stream, cast to ``dtype`` on the card; off the card a plain copy."""
+    device = torch.device(device)
+    TRANSFER_STATS["to_device_bytes"] += host.numel() * host.element_size()
+    stream = copy_stream(device)
+    if stream is None:
+        return Transfer(host.to(device, dtype or host.dtype, copy=True))
+    cur = torch.cuda.current_stream(device)
+    raw = torch.empty(host.shape, dtype=host.dtype, device=device)
+    stream.wait_stream(cur)  # raw's memory is free on the compute stream
+    with torch.cuda.stream(stream):
+        raw.copy_(host, non_blocking=True)
+        out = raw
+        if dtype is not None and dtype != raw.dtype:
+            out = raw.to(dtype)
+            out.record_stream(cur)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    raw.record_stream(stream)
+    return Transfer(out, ev)
+
+
+def offload(t: torch.Tensor, dtype: Optional[torch.dtype] = None,
+            out: Optional[torch.Tensor] = None) -> Transfer:
+    """The card tensor ``t`` copied into pinned host memory (``out``, or
+    a fresh tensor of ``dtype``) on its copy stream, after the compute
+    stream's work so far; off the card a plain copy."""
+    dtype = dtype or t.dtype
+    TRANSFER_STATS["to_host_bytes"] += t.numel() * dtype.itemsize
+    stream = copy_stream(t.device)
+    if stream is None:
+        if out is None:
+            return Transfer(t.detach().to("cpu", dtype, copy=True))
+        return Transfer(out.copy_(t.detach()))
+    if out is None:
+        out = torch.empty(t.shape, dtype=dtype, pin_memory=True)
+    src = t.detach()
+    stream.wait_stream(torch.cuda.current_stream(t.device))
+    with torch.cuda.stream(stream):
+        out.copy_(src if src.dtype == dtype else src.to(dtype),
+                  non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    src.record_stream(stream)
+    return Transfer(out, ev)
+
+
 __all__ = ["KINDS", "memories_supported", "put", "put_tree",
-           "memory_kind_of", "is_on_host"]
+           "memory_kind_of", "is_on_host", "copy_stream", "Transfer",
+           "fetch", "offload", "TRANSFER_STATS", "reset_transfer_stats"]

@@ -139,9 +139,11 @@ def test_markdown_and_split_equal_jax():
 
 
 def test_unported_tiers_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        p_attr.attribute_longctx_step(seq_len=4096, hidden_size=64,
-                                      num_heads=4)
+    # the long-context tier is ported with A11 (its rows against JAX's:
+    # test_longctx_tier_matches_jax)
+    assert [r.region for r in p_attr.attribute_longctx_step(
+        seq_len=4096, hidden_size=64, num_heads=4)] == [
+        "attn", "sp_comm", "host_kv_stream"]
     with pytest.raises(NotImplementedError, match="item 10"):
         p_attr.attribute_quant_step(None)
     with pytest.raises(RuntimeError, match="counting pass"):
@@ -181,3 +183,14 @@ def test_counted_config_resolves_the_cards_route(small_cfg):
     assert p_attr.counted_config(cfg, "cuda").attn_impl == "flash"
     assert p_attr.counted_config(cfg, "cpu").attn_impl == "xla"
     assert not p_attr.counted_config(cfg).remat
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sp=1), dict(sp=4, strategy="ulysses"), dict(sp=4, strategy="ring"),
+    dict(sp=2, attn_chunks=8, fpdt_host_kv=True),
+    dict(attn_chunks=8, fpdt_host_kv=True, num_kv_heads=1, batch_size=2)])
+def test_longctx_tier_matches_jax(kw):
+    args = {**dict(seq_len=32768, hidden_size=4096, num_heads=32,
+                   num_kv_heads=8, num_layers=2), **kw}
+    assert [r.to_dict() for r in p_attr.attribute_longctx_step(**args)] == \
+        [r.to_dict() for r in j_attr.attribute_longctx_step(**args)]

@@ -157,11 +157,12 @@ def test_data_exhausted_mid_accumulation_raises():
     ({"pipeline": {"stages": 2}}, "item 11"),
     ({"sequence_parallel": {"size": 2}}, "item 11"),
     ({"moe": {"enabled": True, "ep_size": 2}}, "item 9"),
-    ({"activation_checkpointing": {"policy": "dots_saveable"}}, "item 11"),
+    ({"tensor_parallel": {"tp_size": 2}}, "item 11"),
     ({"performance": {"pipeline_depth": 2, "fp8_mlp": True}}, "item 10"),
-    ({"zero_optimization": {"stage": 3, "zenflow": {"topk_ratio": 0.1},
+    ({"zero_optimization": {"stage": 3,
                             "offload_optimizer": {"device": "cpu"},
-                            "offload_param": {"device": "cpu"}}}, "item 11"),
+                            "offload_param": {"device": "cpu"}},
+      "tensor_parallel": {"tp_size": 2}}, "item 11"),
     ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
      "item 10"),
     ({"observability": {"run_dir": "fleet_run"}}, "item 14"),

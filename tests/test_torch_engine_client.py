@@ -397,11 +397,15 @@ def test_performance_block_checks():
             ({"pipeline_depth": -1}, ValueError, "pipeline_depth"),
             ({"prefetch_depth": -1}, ValueError, "prefetch_depth"),
             ({"fp8_mlp": True}, NotImplementedError, "item 10"),
-            ({"param_prefetch_depth": 2}, NotImplementedError, "item 11"),
-            ({"overlap_depth": 1}, NotImplementedError, "item 11"),
+            ({"overlap_depth": -1}, ValueError, "overlap_depth"),
             ({"param_prefetch_depth": 0}, ValueError, ">= 1")):
         with pytest.raises(err, match=match):
             load_config({"performance": block})
+    # the streamed stack's knobs parse (A11; they reach the model's config
+    # through the engine, tests/test_torch_param_stream.py)
+    perf = load_config({"performance": {"param_prefetch_depth": 2,
+                                        "overlap_depth": 1}}).performance
+    assert (perf.param_prefetch_depth, perf.overlap_depth) == (2, 1)
 
 
 # -- (loss_fn, params) models and client optimizers against JAX ---------------

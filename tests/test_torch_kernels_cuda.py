@@ -1490,3 +1490,133 @@ def test_logged_loss_is_the_step_loss_on_the_card(card, api):
         eng.synchronize()
         losses = [float(x) for x in out]
     assert seen == losses
+
+
+# -- A11's one-card parts ----------------------------------------------------
+
+
+@pytest.mark.parametrize("policy", ["dots_saveable", "save_qkv_attn_out",
+                                    "save_attn_mlp", "offload_dots_host",
+                                    "none"])
+def test_checkpoint_policies_are_bit_equal_on_the_card(card, policy):
+    """One bf16 layer at hd 128 through the flash kernels: every policy's
+    loss and gradients equal nothing_saveable's bit for bit, and the flash
+    forward launches again in the recompute only where the policy does
+    not keep its output."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    model = zoo.get_model("llama3-8b", device=card, seed=0,
+                          dtype=torch.bfloat16, num_layers=1,
+                          hidden_size=1024, num_heads=8, num_kv_heads=2,
+                          ffn_size=2048, vocab_size=4096)
+    batch = {"input_ids": torch.randint(
+        0, 4096, (2, 513), device=card,
+        generator=torch.Generator(card).manual_seed(0))}
+
+    def run(name):
+        cfg = dataclasses.replace(model.config, remat_policy=name)
+        params = {k: v for k, v in model.params().items()}
+        flat = [t for _, t in leaves(params)]
+        for t in flat:
+            t.requires_grad_()
+            t.grad = None
+        fa.reset_launch_counts()
+        loss, _ = tf.loss_fn(cfg, params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (loss.item(), [t.grad.clone() for t in flat],
+                fa.LAUNCHES["flash_fwd"])
+
+    ref = run("nothing_saveable")
+    got = run(policy)
+    assert got[0] == ref[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+    assert ref[2] == 2
+    assert got[2] == (1 if policy in ("save_qkv_attn_out", "save_attn_mlp",
+                                      "none") else 2)
+
+
+def test_streamed_layer_fetches_on_the_copy_stream(card):
+    """The prefetch streamer on the card: each layer fetched from pinned
+    host memory on the copy stream (twice a step), its gradients landed
+    in the stack's pinned fp32 host buffer, equal to the plain loop's."""
+    from deepspeed_tpu_torch.runtime import param_stream as ps
+    from deepspeed_tpu_torch.utils import memspace
+
+    L, H = 4, 256
+    g = torch.Generator().manual_seed(0)
+    w = (torch.randn(L, H, H, generator=g) / 16).to(torch.bfloat16)
+    stack = {"w": w.pin_memory().requires_grad_()}
+    x0 = torch.randn(8, H, generator=g).to(card, torch.bfloat16)
+
+    def layer(x, p):
+        return torch.tanh(x @ p["w"])
+
+    assert memspace.is_on_host(stack["w"])
+    ps.reset_fetch_stats()
+    x = x0.clone().requires_grad_()
+    y = ps.streamed_layers_prefetch(layer, stack, x, prefetch_depth=2)
+    (y.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert ps.FETCH_STATS["layers"] == 2 * L
+    got = ps.host_grad(stack["w"])
+    assert got.dtype == torch.float32 and got.is_pinned()
+    ref_w = w.to(card).requires_grad_()
+    xr0 = x0.clone().requires_grad_()
+    xr = xr0
+    for i in range(L):
+        xr = layer(xr, {"w": ref_w[i]})
+    (xr.float() ** 2).sum().backward()
+    assert torch.equal(y, xr)
+    assert torch.equal(got, ref_w.grad.float().cpu())
+    assert torch.equal(x.grad, xr0.grad)
+
+
+def test_host_kv_tile_ring_on_the_card(card):
+    """The host-KV block at S 2048, 8 chunks, GQA 32/8, hd 128, bf16: its
+    K/V tiles go to pinned host memory and stream back on the copy
+    stream; its output matches the dense path on the same weights at
+    bf16 row error 3e-2 (ROADMAP C's masked-form limit: both round the
+    scores to bf16), its gradients by phase 4's cosine of 0.99 (the
+    dense path also rounds the probabilities to bf16)."""
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops.attention import xla_attention
+    from deepspeed_tpu_torch.parallel import fpdt
+    from deepspeed_tpu_torch.utils import memspace
+
+    S, Hd, N, Nkv, D = 2048, 1024, 32, 8, 128
+    g = torch.Generator(card).manual_seed(0)
+
+    def rnd(*shape, scale=0.05):
+        return (torch.randn(shape, generator=g, device=card) * scale).to(
+            torch.bfloat16).requires_grad_()
+
+    y = rnd(1, S, Hd, scale=1.0)
+    ap = {"wq": rnd(Hd, N, D), "wk": rnd(Hd, Nkv, D), "wv": rnd(Hd, Nkv, D),
+          "wo": rnd(N, D, Hd)}
+    rope = tf.rope_tables(torch.arange(S, device=card)[None], D, 500000.0)
+    memspace.reset_transfer_stats()
+    out = fpdt.fpdt_attention_block(y, ap, rope, num_heads=N, kv_heads=Nkv,
+                                    head_dim=D, q_chunks=8)
+    (out.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert memspace.TRANSFER_STATS["to_host_bytes"] > 0
+    got = [out.detach()] + [t.grad.clone() for t in [y, *ap.values()]]
+    for t in [y, *ap.values()]:
+        t.grad = None
+    q = tf.apply_rope(tf._proj(y, ap["wq"]), *rope)
+    k = tf.apply_rope(tf._proj(y, ap["wk"]), *rope)
+    v = tf._proj(y, ap["wv"])
+    ref = xla_attention(q, k, v, causal=True).reshape(1, S, -1) @ \
+        ap["wo"].reshape(-1, Hd)
+    (ref.float() ** 2).sum().backward()
+    want = [ref.detach()] + [t.grad for t in [y, *ap.values()]]
+    assert _row_rel_err(got[0], want[0], 1e-4) <= 3e-2
+    for a, b in zip(got[1:], want[1:]):
+        a, b = a.float(), b.float()
+        assert torch.sum(a * b) / (a.norm() * b.norm()) >= 0.99

@@ -202,9 +202,10 @@ def test_moe_config_block_and_unported_switches():
         zoo.get_config("tiny-moe", moe_impl="einsum")
     with pytest.raises(ValueError, match="unknown moe_impl"):
         zoo.get_config("tiny-moe", moe_impl="bogus")
-    # parameter streaming is item 11's param_stream, as offload_param is
-    with pytest.raises(NotImplementedError, match="item 11"):
-        zoo.get_config("tiny-moe", param_host_offload=True)
+    # parameter streaming (A11's param_stream) is ported: the expert stack
+    # streams too (tests/test_torch_param_stream.py)
+    assert zoo.get_config("tiny-moe",
+                          param_host_offload=True).param_host_offload
     model = zoo.get_model("tiny-moe", device="cpu", dtype=torch.float32,
                           **SMALL)
     base = {"train_micro_batch_size_per_chip": 1,

@@ -609,9 +609,13 @@ def test_config_checks():
         "device"] == "cpu"
     assert load_config({"zero_optimization": {"offload_optimizer": {
         "device": None}}}).zero_optimization.offload_device == "none"
-    with pytest.raises(NotImplementedError, match="item 11"):
+    par = load_config({"zero_optimization": {"offload_param": {
+        "device": "cpu"}}}).zero_optimization
+    assert (par.offload_param.device, par.offload_param_device) == ("cpu",
+                                                                    "cpu")
+    with pytest.raises(ValueError, match="offload_param.device"):
         load_config({"zero_optimization": {"offload_param": {
-            "device": "cpu"}}})
+            "device": "gpu"}}})
     zen = load_config({"zero_optimization": {"offload_optimizer": {
         "device": "cpu"}, "zenflow": {"topk_ratio": 0.1}}}).zero_optimization
     assert zen.zenflow.topk_ratio == 0.1 and zen.offload_device == "cpu"

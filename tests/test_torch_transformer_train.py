@@ -132,11 +132,16 @@ def test_apply_logits_and_model_protocol():
 
 
 def test_unported_switches_raise():
-    for field, value in (("sequence_parallel", True), ("attn_chunks", 4),
-                         ("fp8_mlp", True), ("tiled_logits", 8),
-                         ("tiled_mlp", 2), ("fpdt_host_kv", True)):
+    for field, value in (("sequence_parallel", True), ("fp8_mlp", True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             zoo.get_config("tiny", **{field: value})
+    # A11's one-card switches are ported (tests/test_torch_long_context.py,
+    # tests/test_torch_param_stream.py)
+    for field, value in (("attn_chunks", 4), ("tiled_logits", 8),
+                         ("tiled_mlp", 2), ("fpdt_host_kv", True),
+                         ("param_host_offload", True)):
+        assert getattr(zoo.get_config("tiny", **{field: value}),
+                       field) == value
     zoo.get_config("tiny", attn_chunks=1, tiled_logits=0)  # both mean off
 
 
