@@ -383,20 +383,24 @@ Phases, each fatal on failure:
                peak memory. 16b: the same with tiled_logits 8 and
                tiled_mlp 4, losses within 2e-3 of the untiled run, the
                peak drop beside the [B, S, V] fp32 logits' bytes. 16c: 2
-               layers at S 32768, micro 1, tiled_logits 16: one forward
-               and backward through the flash path (after a warm-up),
-               attn_chunks 8, that with ``fpdt_host_kv`` and that with
-               ``fpdt_host_residual``: loss within 2e-2 and every
-               gradient leaf's cosine at least 0.99 against the flash
-               run, every gradient leaf's row error within 3e-2 against
-               the mode it extends (the hosted mode's vocab head leaves,
-               summed over its 8 chunks, by the cosine), bytes staged to
-               the host; step time and peak memory per mode. 16d: ``offload_param`` on cpu with the cpu optimizer
+               layers at S 32768, micro 1, tiled_logits 8 (the FPDT
+               chunk count, so the hosted and the tiled vocab head add
+               on one grid): one forward and backward through the flash
+               path (after a warm-up), attn_chunks 8, that with
+               ``fpdt_host_kv`` and that with ``fpdt_host_residual``:
+               loss within 1e-4 and every gradient leaf's cosine at
+               least 0.999 against the flash run, every gradient leaf's
+               row error within 3e-2 against the mode it extends, bytes
+               staged to the host; step time and peak memory per mode.
+               16d: ``offload_param`` on cpu with the cpu optimizer
                tier at phase 10a's depth, micro 2 x GAS 1: the stack in
                pinned host memory, 1 warm-up and 3 steps held to 10a's
                losses (the first ``==``, all within 3e-3), flash
                launches as the per-layer recompute implies, each layer
-               fetched twice a step, then 2 steps at param_prefetch_depth
+               fetched twice a step; from that state one forward and
+               backward at param_prefetch_depth 2, 1 and serialized
+               (0) whose losses and fp32 host gradients of the stack
+               must be ``==``; then 2 timed steps at param_prefetch_depth
                1 and serialized; one layer's fetch GB/s on the copy
                stream; the card's peak over its state through one
                forward and backward at the depth and at half of it must
@@ -730,29 +734,32 @@ OBS_FLASH_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
 # (AC_KEEPS_FLASH), two where the recompute launches it again. 16b: the
 # same with tiled_logits 8 + tiled_mlp 4, held to 16a's untiled run at
 # JAX's tolerance (tests/test_long_context.py:269). 16c: 2 layers at S
-# 32768, micro 1, tiled_logits 16 in every run; one forward and backward
-# each through the flash path, attn_chunks 8, that with fpdt_host_kv and
-# that with fpdt_host_residual. Against the flash run, phase 4's
-# flash-vs-dense gate (the chunked paths round the scores to bf16 as the
-# dense path does): the loss within 2e-2, each gradient leaf's cosine at
-# least 0.99 (the bf16 flash run's own weight-gradient rows part from an
-# fp32 run's by ~5e-2 at small widths); each FPDT mode against the one
-# it extends (the host moves are exact copies): every gradient leaf
-# within ROADMAP C's bf16 row-error limit against the masked form (the
-# hosted mode's vocab head leaves by the cosine alone: its loss sums them
-# over the 8 residual chunks, the tiled loss over 16 tiles). 16d: offload_param on cpu beside the cpu
-# optimizer tier at phase 10a's depth, micro 2 x GAS 1, 1 warm-up and 3
-# steps held to 10a's losses (the first ==, every one within
-# OFFLOAD_TOL_REL: the streamed stack's norm is summed on the host); then
-# STREAM_DEPTH_STEPS steps at param_prefetch_depth 1 and serialized (0)
+# 32768, micro 1, tiled_logits FPDT_CHUNKS in every run (the hosted
+# loss sums the vocab head over the residual's chunks: on the same grid
+# as the tiled loss's tiles, the two add the same bf16 partial sums);
+# one forward and backward each through the flash path, attn_chunks 8,
+# that with fpdt_host_kv and that with fpdt_host_residual. Against the
+# flash run (the chunked paths round the scores to bf16 as the dense
+# path does): the loss within FPDT_LOSS_TOL_REL and each gradient leaf's
+# cosine at least FPDT_GRAD_COS_MIN (the card read 1.4e-6 and 0.9999);
+# each FPDT mode against the one it extends (the host moves are exact
+# copies): every gradient leaf within ROADMAP C's bf16 row-error limit.
+# 16d: offload_param on cpu beside the cpu optimizer tier at phase 10a's
+# depth, micro 2 x GAS 1, 1 warm-up and 3 steps held to 10a's losses
+# (the first ==, every one within OFFLOAD_TOL_REL: the streamed stack's
+# norm is summed on the host); then, from that state, one forward and
+# backward of a microbatch at param_prefetch_depth 2, 1 and serialized
+# (0): the losses and the fp32 host gradients of the stack ==; then
+# STREAM_DEPTH_STEPS timed steps at param_prefetch_depth 1 and 0
 AC_POLICIES = ("nothing_saveable", "dots_saveable", "save_qkv_attn_out",
                "save_attn_mlp", "offload_dots_host", "none")
 AC_KEEPS_FLASH = ("save_qkv_attn_out", "save_attn_mlp", "none")
 AC_LAYERS, AC_STEPS = 2, 3
 TILED_LOGITS, TILED_MLP, TILED_TOL_REL = 8, 4, 2e-3
-FPDT_SEQ, FPDT_CHUNKS, FPDT_TILED_LOGITS = 32768, 8, 16
+FPDT_SEQ, FPDT_CHUNKS = 32768, 8
+FPDT_TILED_LOGITS = FPDT_CHUNKS
 FPDT_GRAD_TOL_ROW = 3e-2
-VOCAB_HEAD_LEAVES = ("/unembed/", "/final_norm/")
+FPDT_LOSS_TOL_REL, FPDT_GRAD_COS_MIN = 1e-4, 0.999
 STREAM_DEPTHS, STREAM_DEPTH_STEPS = (2, 1, 0), 2
 STREAM_CONFIG = dict(OFFLOAD_CONFIG, zero_optimization={
     "stage": 3, "offload_optimizer": {"device": "cpu", "pin_memory": True},
@@ -5302,23 +5309,16 @@ def fpdt_phase(torch, zoo, tf, fa, memspace):
                           ).clamp_min(1e-30)).item() for p in grads}
             line.update(loss_rel_diff=rel, grad_row_rel_err=errs,
                         grad_cosine=cos)
-            if not (rel <= TRAIN_LOSS_TOL_REL
-                    and min(cos.values()) >= TRAIN_GRAD_COS_MIN):
+            if not (rel <= FPDT_LOSS_TOL_REL
+                    and min(cos.values()) >= FPDT_GRAD_COS_MIN):
                 fail(f"fpdt {name}: loss rel {rel:.2e}, gradient cosines "
                      f"{cos} against the flash run")
             if prev is not None:
                 # the host moves are exact: each mode against the one it
-                # extends, at ROADMAP C's row-error limit; the hosted
-                # loss sums the vocab head's gradient over the 8 residual
-                # chunks where the tiled loss sums 16 tiles (JAX's design),
-                # another order of bf16 adds, so those leaves are held by
-                # the cosine above
+                # extends, every leaf at ROADMAP C's row-error limit
                 errs = {p: row_rel_err(torch, grads[p], prev[p],
                                        GRAD_ROW_FLOOR) for p in grads}
                 line.update(extends=prev_name, grad_row_rel_err_vs_it=errs)
-                if over.get("fpdt_host_residual"):
-                    errs = {p: e for p, e in errs.items()
-                            if not p.startswith(VOCAB_HEAD_LEAVES)}
                 worst = max(errs, key=errs.get)
                 if errs[worst] > FPDT_GRAD_TOL_ROW:
                     fail(f"fpdt {name}: gradient row error {errs[worst]:.2e}"
@@ -5386,6 +5386,44 @@ def stream_peak(torch, tf, engine, batch, layers):
     return peak
 
 
+def stream_depths_agree(torch, tf, ps, engine, batch):
+    """One forward and backward of ``batch`` from the engine's state at
+    each of STREAM_DEPTHS (0: the serialized fetch): their losses and the
+    stack's fp32 host gradients must be ``==``. Returns the losses by
+    depth."""
+    import dataclasses
+
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    cfg = engine.model_config
+    stack = [(p, t) for p, t in leaves(engine.params["layers"])]
+    losses, ref = {}, None
+    for depth in STREAM_DEPTHS:
+        engine.zero_grad()
+        run = dataclasses.replace(cfg, prefetch_depth=max(depth, 1),
+                                  serialize_fetch=depth == 0)
+        free_caches(torch)
+        loss, _ = tf.loss_fn(run, engine.params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        losses[depth] = loss.item()
+        grads = {p: ps.host_grad(t) for p, t in stack}
+        if any(g is None for g in grads.values()):
+            fail(f"stream: depth {depth} landed no host gradient for "
+                 f"{sorted(p for p, g in grads.items() if g is None)}")
+        if ref is None:
+            ref = (losses[depth], {p: g.clone() for p, g in grads.items()})
+            continue
+        bad = sorted(p for p, g in grads.items()
+                     if not torch.equal(g, ref[1][p]))
+        if losses[depth] != ref[0] or bad:
+            fail(f"stream: at param_prefetch_depth {depth} the loss "
+                 f"{losses[depth]} / host gradients {bad} are not depth "
+                 f"{STREAM_DEPTHS[0]}'s {ref[0]}")
+    engine.zero_grad()
+    return losses
+
+
 def stream_phase(torch, zoo, initialize, fa, tf, ps, memspace, ref):
     """16d: the layer stack streamed from the host at phase 10a's depth,
     held to 10a's resident offload losses. Returns (line, flash launches
@@ -5427,6 +5465,8 @@ def stream_phase(torch, zoo, initialize, fa, tf, ps, memspace, ref):
     if losses[0] != ref["losses"][0] or max(rel) > OFFLOAD_TOL_REL:
         fail(f"stream: losses {losses} against the resident offload step's "
              f"{ref['losses']}")
+    mb = {k: torch.from_numpy(v).cuda() for k, v in fixed[0].items()}
+    probe = stream_depths_agree(torch, tf, ps, engine, mb)
     by_depth = {2: {"step_s": secs,
                     "step_ms_p50": float(np.median(secs)) * 1e3}}
     for depth in STREAM_DEPTHS[1:]:
@@ -5439,7 +5479,6 @@ def stream_phase(torch, zoo, initialize, fa, tf, ps, memspace, ref):
     engine.model_config = cfg
     gbps, layer_bytes = fetch_gb_per_s(
         torch, memspace, {k: v[0] for k, v in leaves(stack)})
-    mb = {k: torch.from_numpy(v).cuda() for k, v in fixed[0].items()}
     peaks = {n: stream_peak(torch, tf, engine, mb, n)
              for n in (layers, layers // 2)}
     saved_input = OFFLOAD_MICRO * TRAIN_SEQ * cfg.hidden_size * 2
@@ -5453,6 +5492,9 @@ def stream_phase(torch, zoo, initialize, fa, tf, ps, memspace, ref):
             "micro": OFFLOAD_MICRO, "gas": 1, "seq": TRAIN_SEQ,
             "init_s": init_s, "losses": losses,
             "resident_offload_losses": ref["losses"],
+            "one_step_losses_by_prefetch_depth": {
+                str(k): v for k, v in probe.items()},
+            "depths_equal": True,
             "loss_rel_diff": rel, "peak_mem_gb": peak,
             "step_ms_p50_by_prefetch_depth": {
                 str(k): v["step_ms_p50"] for k, v in by_depth.items()},

@@ -391,9 +391,11 @@ class PerformanceConfig:
     default (JAX's is 2): the prefetcher is asked for, and until then a
     checkpoint's data cursor keeps the loader's own state.
     ``param_prefetch_depth`` (the layers in flight ahead of the compute
-    on the ``offload_param`` stream) and ``overlap_depth`` reach the
-    model's config (``prefetch_depth``, ``overlap_depth``) through the
-    engine, as in JAX; ``fp8_mlp`` (item 10) raises when set."""
+    on the ``offload_param`` stream) reaches the model's config
+    (``prefetch_depth``) through the engine, as in JAX. ``overlap_depth``
+    parses and has no effect: it places JAX's scheduling barriers, which
+    an eager program does not have (its fsdp branch is item 11's
+    multi-card part); ``fp8_mlp`` (item 10) raises when set."""
 
     pipeline_depth: int = 0
     prefetch_depth: int = 0

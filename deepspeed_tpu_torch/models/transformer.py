@@ -16,8 +16,9 @@ scans over the same leaf.
 
 The JAX layer scan is a Python loop here; ``remat`` wraps each layer in
 ``runtime/activation_checkpointing.checkpoint_wrapper`` under
-``remat_policy`` (None: the engine's ``activation_checkpointing.policy``,
-by default ``nothing_saveable``), and the layer names its ``qkv_proj``,
+``remat_policy`` (None: the configured ``activation_checkpointing.policy``,
+by default ``nothing_saveable``; an engine pins its own, resolved at
+build), and the layer names its ``qkv_proj``,
 ``attn_kernel_out``, ``attn_out`` and ``mlp_out`` tensors for the named
 policies. The long-context branches run as in JAX: ``tiled_mlp`` and
 ``tiled_logits`` (``parallel/tiled_compute.py``; the tiled loss fuses the
@@ -30,8 +31,7 @@ layers: ``apply_hidden_hosted`` / ``hosted_logits_loss``), all in
 ``zero_optimization.offload_param``) streams the layer stack from pinned
 host memory (``runtime/param_stream.py``): by default with
 ``prefetch_depth`` layers in flight on a copy stream, or, with
-``serialize_fetch`` or ``prefetch_stream=False``, a fetch inside each
-remat'd layer. The pipeline, sequence-parallel, qwZ and fp8 branches are
+``serialize_fetch``, a fetch inside each remat'd layer. The pipeline, sequence-parallel, qwZ and fp8 branches are
 not ported: their switches raise ``NotImplementedError`` naming their
 ROADMAP item.
 """
@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -93,9 +92,11 @@ class TransformerConfig:
     parallel_block: bool = False
     # recompute each layer in the backward (activation checkpointing)
     remat: bool = True
-    # None defers to the engine's activation_checkpointing.policy; a name
-    # here wins over the config
-    remat_policy: Optional[str] = None
+    # a policy name (runtime/activation_checkpointing.POLICIES); None
+    # defers to the module's configured policy. A name here wins over an
+    # engine's activation_checkpointing.policy; the engine pins the
+    # resolved policy (a SavePolicy) on its copy of the config
+    remat_policy: Optional[Any] = None
     attn_impl: str = "auto"  # auto | xla | flash | blocksparse (ops/attention)
     sequence_parallel: bool = False
     # FPDT chunked attention: query chunks, 0/1 = off
@@ -114,17 +115,13 @@ class TransformerConfig:
     # ZeRO-Infinity streaming of the layer stack (the engine sets it from
     # zero_optimization.offload_param)
     param_host_offload: bool = False
-    # the streamed stack's knobs; None resolves from the environment at
-    # construction, as in JAX: DSTPU_PREFETCH (the prefetch streamer, 1),
-    # DSTPU_SERIALIZE_FETCH (a fetch inside each remat'd layer, 0),
-    # DSTPU_PREFETCH_DEPTH (layers in flight, 2), DSTPU_GRADS_TO_HOST (1)
-    # and DSTPU_OVERLAP_DEPTH (0; the engine bridges
-    # performance.overlap_depth onto it)
-    prefetch_stream: Optional[bool] = None
-    serialize_fetch: Optional[bool] = None
-    prefetch_depth: Optional[int] = None
-    grads_to_host: Optional[bool] = None
-    overlap_depth: Optional[int] = None
+    # the streamed stack: layers in flight ahead of the compute on the copy
+    # stream (the engine sets it from performance.param_prefetch_depth);
+    # serialize_fetch fetches each layer inside its remat'd step on the
+    # compute stream instead (no overlap: the control the stream is
+    # measured against)
+    prefetch_depth: int = 2
+    serialize_fetch: bool = False
 
     def __post_init__(self):
         for name, (off, item) in _UNPORTED_SWITCHES.items():
@@ -133,15 +130,6 @@ class TransformerConfig:
                 raise NotImplementedError(
                     f"TransformerConfig.{name}={value!r} is not ported to "
                     f"deepspeed_tpu_torch yet: {item}")
-        for name, env, default, kind in (
-                ("prefetch_stream", "DSTPU_PREFETCH", "1", bool),
-                ("serialize_fetch", "DSTPU_SERIALIZE_FETCH", "0", bool),
-                ("prefetch_depth", "DSTPU_PREFETCH_DEPTH", "2", int),
-                ("grads_to_host", "DSTPU_GRADS_TO_HOST", "1", bool),
-                ("overlap_depth", "DSTPU_OVERLAP_DEPTH", "0", int)):
-            if getattr(self, name) is None:
-                object.__setattr__(self, name,
-                                   kind(int(os.environ.get(env, default))))
         if self.fpdt_host_residual:
             if not self.fpdt_host_kv:
                 raise ValueError(
@@ -580,17 +568,16 @@ def _streamed_stack(cfg: TransformerConfig, layers, x, rope):
     """ZeRO-Infinity streaming of the host layer stack (JAX
     ``apply_hidden``'s ``param_host_offload`` branch): the prefetch
     streamer (``prefetch_depth`` layers in flight, a per-layer recompute:
-    ``nothing_saveable``), or, with ``serialize_fetch`` or
-    ``prefetch_stream=False``, a fetch inside each remat'd layer on the
-    compute stream."""
+    ``nothing_saveable``), or, with ``serialize_fetch``, a fetch inside
+    each remat'd layer on the compute stream."""
     from deepspeed_tpu_torch.runtime import param_stream
 
     if sharding.active_fetch() is not None:
         raise NotImplementedError(
             "offload_param with a ZeRO-3 fetch across ranks: "
             f"{_A11}'s multi-card part (the fsdp overlap_depth branch)")
-    if cfg.prefetch_stream and not cfg.serialize_fetch:
-        if cfg.remat and cfg.remat_policy not in (None, "nothing_saveable"):
+    if not cfg.serialize_fetch:
+        if cfg.remat and ac.resolve_policy(cfg.remat_policy) is not None:
             from deepspeed_tpu_torch.utils.logging import warning_once
 
             warning_once(
@@ -599,9 +586,7 @@ def _streamed_stack(cfg: TransformerConfig, layers, x, rope):
                 "does not apply to the streamed stack")
         return param_stream.streamed_layers_prefetch(
             lambda xx, lp: _layer(cfg, xx, lp, rope), layers, x,
-            length=cfg.num_layers, prefetch_depth=cfg.prefetch_depth,
-            grads_to_host=cfg.grads_to_host,
-            overlap_depth=cfg.overlap_depth or 0)
+            length=cfg.num_layers, prefetch_depth=cfg.prefetch_depth)
     return param_stream.scan_streamed(
         lambda xx, lp: _layer(cfg, xx, lp, rope), x, layers,
         length=cfg.num_layers, remat=cfg.remat,

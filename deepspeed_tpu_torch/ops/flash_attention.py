@@ -8,7 +8,11 @@ they run the plain PyTorch versions beside them, which fold key tiles in
 the kernels' order. ``_FlashAttention`` (a ``torch.autograd.Function``)
 stands for the JAX custom VJP ``_flash`` (``:488-513``): it saves q, k,
 v, o and the per-row logsumexp, and its backward recomputes the
-probabilities from them.
+probabilities from them. Its forward goes through PyTorch's dispatcher as
+the operator ``dstpu::flash_fwd`` (:data:`FLASH_FWD_OP`, which returns
+fresh ``o`` and ``lse``), so that a dispatch mode, such as an
+activation-checkpointing policy's, sees the kernel as one op and can keep
+its outputs or run it again.
 
 What the TPU wrapper does for its tiling and this port does not: pad S
 to a block multiple (with -2/-1 segment ids), swap ``[B, S, H, D]`` to
@@ -36,8 +40,6 @@ import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-
-from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
 
 NEG_INF = -1e30
 TILE = 64            # query rows and key columns per kernel tile
@@ -328,12 +330,17 @@ def _meta_launch(name: str, q, k, causal: bool) -> None:
     report_kernel(name, *kernel_work(name, q, k, causal))
 
 
+def _fwd_outputs_like(q):
+    """Empty (o, lse) for q: [B, S, Hq, D] in q.dtype, [B, Hq, S] fp32."""
+    return (torch.empty_like(q), q.new_empty(
+        (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32))
+
+
 def _flash_fwd(q, k, v, segment_ids, causal: bool, scale: float):
     """Returns (o [B, S, Hq, D] in q.dtype, lse [B, Hq, S] fp32)."""
     if q.device.type == "meta":
         _meta_launch("flash_fwd", q, k, causal)
-        return (torch.empty_like(q), q.new_empty(
-            (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32))
+        return _fwd_outputs_like(q)
     if not _use_kernel(q, k, v, segment_ids):
         return flash_fwd_plain(q, k, v, segment_ids, causal, scale)
     return _flash_fwd_launch(q, k, v, segment_ids, causal, scale,
@@ -471,6 +478,26 @@ def _flash_bwd(q, k, v, segment_ids, o, lse, do, causal: bool,
 # ---------------------------------------------------------------------------
 
 
+@torch.library.custom_op("dstpu::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  segment_ids: Optional[torch.Tensor], causal: bool,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_flash_fwd`` as a dispatcher operator (every device, the meta
+    pass included)."""
+    return _flash_fwd(q, k, v, segment_ids, causal, scale)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, segment_ids, causal, scale):
+    # the meta pass (attribution's counter) reports the kernel's work
+    if q.device.type == "meta":
+        return _flash_fwd(q, k, v, segment_ids, causal, scale)
+    return _fwd_outputs_like(q)
+
+
+FLASH_FWD_OP = torch.ops.dstpu.flash_fwd.default
+
+
 class _FlashAttention(torch.autograd.Function):
     """The custom VJP ``_flash``: forward kernel, then both backward
     kernels from the saved q, k, v, o and lse."""
@@ -478,10 +505,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal):
         scale = 1.0 / math.sqrt(q.shape[-1])
-        # one opaque step for an activation-checkpointing policy: kept
-        # whole (o and lse) or launched again in the recompute
-        o, lse = ac.saved_call(_flash_fwd, q, k, v, segment_ids, causal,
-                               scale)
+        # through the dispatcher: an activation-checkpointing policy keeps
+        # o and lse whole or launches the kernel again in the recompute
+        o, lse = FLASH_FWD_OP(q, k, v, segment_ids, causal, scale)
         ctx.save_for_backward(q, k, v, segment_ids, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o

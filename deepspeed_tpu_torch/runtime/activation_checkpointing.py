@@ -23,13 +23,17 @@ Each knob and its counterpart here:
     :func:`checkpoint_name` (``qkv_proj``, ``attn_kernel_out``,
     ``attn_out``, ``mlp_out``); ``none`` / ``everything`` run the layer
     without remat.
-  * A named tensor is the last matmul, or the last :func:`saved_call`,
+  * A named tensor is the last matmul, or the last flash forward,
     issued inside its ``checkpoint_name`` region: the region saves its
     output and recomputes the rest, as JAX's ``checkpoint_name`` names a
-    value. The flash kernels run outside PyTorch's dispatcher, so a
-    dispatch mode cannot see them: the flash forward is a
-    :func:`saved_call`, one opaque step that a policy can keep (its
-    ``o`` and ``lse``) or recompute whole.
+    value. The flash forward is the dispatcher operator
+    ``dstpu::flash_fwd`` (``ops/flash_attention.FLASH_FWD_OP``): one op
+    that a policy keeps whole (its ``o`` and ``lse``) or launches again.
+  * An engine resolves its block's policy and ``cpu_checkpointing`` once,
+    onto its model's ``remat_policy`` (:func:`engine_policy`): a later
+    :func:`configure`, another engine's, does not change what its steps
+    keep. The module-level settings serve the direct
+    :func:`checkpoint` API and a model without an engine.
   * ``cpu_checkpointing`` and ``offload_dots_host`` -> the saved outputs
     go to pinned host memory on the card's copy stream
     (``utils/memspace.py``) and come back to the card in the recompute.
@@ -59,6 +63,7 @@ import torch.utils.checkpoint
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_map
 
+from deepspeed_tpu_torch.ops.flash_attention import FLASH_FWD_OP
 from deepspeed_tpu_torch.utils import memspace
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -87,6 +92,9 @@ _aten = torch.ops.aten
 _DOTS = frozenset((_aten.mm.default, _aten.addmm.default,
                    _aten.bmm.default, _aten.baddbmm.default))
 _DOTS_NO_BATCH = frozenset((_aten.mm.default, _aten.addmm.default))
+# the ops whose output a checkpoint_name region names: the matmuls and
+# the flash forward
+_NAMEABLE = _DOTS | {FLASH_FWD_OP}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +111,10 @@ class SavePolicy:
         if self.dots == "all":
             return func in _DOTS
         return self.dots == "no_batch" and func in _DOTS_NO_BATCH
+
+
+# a full recompute, as a value an engine pins on its model's config
+SAVE_NOTHING = SavePolicy()
 
 
 def configure(config=None, partition_activations: Optional[bool] = None,
@@ -139,19 +151,39 @@ def is_configured() -> bool:
     return bool(_GLOBAL_CONFIG)
 
 
-def resolve_policy(name: Optional[str] = None,
-                   cpu_checkpointing: bool = False):
+def resolve_policy(name=None, cpu_checkpointing: bool = False):
     """Policy name -> a :class:`SavePolicy`, or the sentinels None (save
-    nothing: full recompute) and ``"everything"`` (no remat)."""
-    name = name or _GLOBAL_CONFIG.get("policy", "nothing_saveable")
+    nothing: full recompute) and ``"everything"`` (no remat). The
+    module-level settings fill in what the call leaves out; a policy
+    already resolved (:func:`engine_policy`) is returned as it is."""
+    if isinstance(name, SavePolicy):
+        return None if name == SAVE_NOTHING else name
+    return _resolve(name or _GLOBAL_CONFIG.get("policy", "nothing_saveable"),
+                    bool(cpu_checkpointing
+                         or _GLOBAL_CONFIG.get("cpu_checkpointing")))
+
+
+def engine_policy(block, model_policy=None):
+    """What an engine's model keeps, resolved from its own settings
+    alone: the model's ``remat_policy`` (a name wins over the block), else
+    the ``activation_checkpointing`` block's policy, with the block's
+    ``cpu_checkpointing``. Returns a :class:`SavePolicy`
+    (:data:`SAVE_NOTHING` for a full recompute) or ``"everything"``."""
+    if isinstance(model_policy, SavePolicy):
+        return model_policy
+    resolved = _resolve(
+        model_policy or getattr(block, "policy", "nothing_saveable"),
+        bool(getattr(block, "cpu_checkpointing", False)))
+    return SAVE_NOTHING if resolved is None else resolved
+
+
+def _resolve(name: str, offload: bool):
     canonical = POLICIES.get(name)
     if canonical is None:
         raise ValueError(f"unknown activation checkpointing policy "
                          f"'{name}' (choose from {sorted(POLICIES)})")
     if canonical == "everything":
         return "everything"  # remat explicitly disabled: offload n/a
-    offload = bool(cpu_checkpointing
-                   or _GLOBAL_CONFIG.get("cpu_checkpointing"))
     if isinstance(canonical, tuple) and canonical[0] == "names":
         # the host-offload request holds for named saves too
         return SavePolicy(names=canonical[1], offload=offload)
@@ -182,7 +214,7 @@ def _stack(attr: str) -> list:
 def checkpoint_name(name: str):
     """Name the tensor computed inside the block (JAX's
     ``checkpoint_name``): a policy that lists ``name`` keeps the last
-    matmul or :func:`saved_call` output of the block. A no-op outside a
+    matmul or flash forward output of the block. A no-op outside a
     checkpointed call."""
     frames = _stack("frames")
     frame = frames[-1] if frames else None
@@ -208,16 +240,14 @@ class _Entry:
 
 
 class _Frame:
-    """The record of one checkpointed call: per op (or saved call), in
-    issue order, what the forward kept."""
+    """The record of one checkpointed call: per op, in issue order, what
+    the forward kept."""
 
     def __init__(self, policy: SavePolicy):
         self.policy = policy
         self.entries = defaultdict(list)
         self.counts = defaultdict(int)
         self.regions: List[list] = []  # [name, last candidate entry]
-        self.opaque = 0
-        self.replaying = False
 
     # forward
     def open_region(self, name: str) -> None:
@@ -234,7 +264,7 @@ class _Frame:
         if self.policy.saves_op(key):
             self._keep(entry, out)
         elif candidate and self.regions:
-            # the region's output so far: its last matmul or saved call
+            # the region's output so far: its last matmul or flash forward
             self.regions[-1][1:] = [entry, out]
 
     def _keep(self, entry: _Entry, out) -> None:
@@ -304,9 +334,11 @@ class _SaveMode(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        # an op's own aten calls (the flash forward's plain version) run
+        # below this handler, unseen
         out = func(*args, **(kwargs or {}))
-        if not self.frame.opaque and not _aliases(func):
-            self.frame.record(func, out, candidate=func in _DOTS)
+        if not _aliases(func):
+            self.frame.record(func, out, candidate=func in _NAMEABLE)
         return out
 
 
@@ -317,49 +349,15 @@ class _ReplayMode(TorchDispatchMode):
 
     def __enter__(self):
         self.frame.counts.clear()
-        self.frame.replaying = True
-        _stack("frames").append(self.frame)
         return super().__enter__()
 
-    def __exit__(self, *exc):
-        _stack("frames").pop()
-        self.frame.replaying = False
-        return super().__exit__(*exc)
-
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if self.frame.opaque or _aliases(func):
+        if _aliases(func):
             return func(*args, **(kwargs or {}))
         entry = self.frame.take(func)
         if entry.saved is None:
             return func(*args, **(kwargs or {}))
         return self.frame.restore(entry)
-
-
-_SAVED_CALL = "saved_call"
-
-
-def saved_call(fn: Callable, *args):
-    """``fn(*args)`` as one step a policy can keep or recompute whole
-    (a kernel launched outside the dispatcher: the flash forward). Its
-    output is the region's candidate, as a matmul's is. Outside a
-    checkpointed call it is ``fn(*args)``."""
-    frames = _stack("frames")
-    frame = frames[-1] if frames else None
-    if frame is None:
-        return fn(*args)
-    replay = frame.replaying
-    if replay:
-        entry = frame.take(_SAVED_CALL)
-        if entry.saved is not None:
-            return frame.restore(entry)
-    frame.opaque += 1
-    try:
-        out = fn(*args)
-    finally:
-        frame.opaque -= 1
-    if not replay:
-        frame.record(_SAVED_CALL, out, candidate=True)
-    return out
 
 
 class _Contexts:
@@ -440,5 +438,6 @@ def model_parallel_rng(seed: int, axis: str = "tp",
 
 
 __all__ = ["POLICIES", "SavePolicy", "configure", "is_configured",
-           "resolve_policy", "checkpoint_name", "saved_call",
+           "resolve_policy", "engine_policy", "SAVE_NOTHING",
+           "checkpoint_name",
            "checkpoint_wrapper", "checkpoint", "model_parallel_rng"]

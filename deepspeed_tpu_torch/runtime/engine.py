@@ -73,13 +73,16 @@ the cpu or nvme optimizer tier; ``runtime/param_stream.py``): the
 model's stacked layer subtrees (``host_param_paths``, else ``layers``)
 live in pinned host memory in the compute dtype, the model streams them
 a layer at a time (``performance.param_prefetch_depth`` layers ahead,
-bridged onto the model's config with ``overlap_depth``), their fp32
+bridged onto the model's config; ``overlap_depth`` parses and has no
+effect on one card), their fp32
 gradients land on the host inside the backward, and the host optimizer
 writes the updated stack in place. Without the host optimizer it raises,
 and ZenFlow falls back to the blocking offload step, as in JAX. The
 ``activation_checkpointing`` block configures
-``runtime/activation_checkpointing`` (the policy a remat'd layer runs
-under), as JAX's engine does.
+``runtime/activation_checkpointing``, as JAX's engine does, and its
+policy and ``cpu_checkpointing``, resolved at build, are pinned on the
+engine's model config (``remat_policy``), so that another engine's block
+does not change what this one's remat'd layers keep.
 
 ZenFlow (``zero_optimization.zenflow`` beside the cpu tier;
 ``runtime/zenflow.py``) takes the host optimizer's place: the engine
@@ -411,8 +414,11 @@ class Engine:
         if perf.param_prefetch_depth is not None and \
                 "prefetch_depth" in mfields:
             over["prefetch_depth"] = int(perf.param_prefetch_depth)
-        if perf.overlap_depth is not None and "overlap_depth" in mfields:
-            over["overlap_depth"] = int(perf.overlap_depth)
+        if "remat_policy" in mfields:
+            # resolved here, once: a later configure() (another engine's)
+            # does not change what this engine's steps keep
+            over["remat_policy"] = act_ckpt.engine_policy(
+                config.activation_checkpointing, model.config.remat_policy)
         self.model_config = (None if model.config is None else
                              dataclasses.replace(model.config, **over))
         self._install_sparse_layout()

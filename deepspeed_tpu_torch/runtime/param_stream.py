@@ -34,10 +34,10 @@ Copies run on the card's copy stream (``utils/memspace.py``):
 flight ahead of the compute in the forward and behind it in the
 backward; :func:`fetch_slice` (and so :func:`scan_streamed`, and the
 model's serialized mode) copies on the compute stream, right before the
-layer, with no overlap. ``overlap_depth`` and :func:`pin_stage` are
-JAX's scheduling barriers; an eager program issues each copy where the
-code stands, before the layer's compute, so :func:`pin_stage` is the
-identity here.
+layer, with no overlap. :func:`pin_stage` is JAX's scheduling barrier;
+an eager program issues each copy where the code stands, before the
+layer's compute, so it is the identity here, and JAX's
+``overlap_depth`` has nothing to place.
 """
 
 from __future__ import annotations
@@ -182,7 +182,7 @@ def pin_stage(anchor: Any, pinned: Any):
 
 def scan_streamed(body: Callable[[Any, Any], Any], carry: Any,
                   stacked_tree: Any, *, length: Optional[int] = None,
-                  remat: bool = True, remat_policy: Optional[str] = None,
+                  remat: bool = True, remat_policy: Any = None,
                   device=None) -> Any:
     """A loop over a host layer stack, fetching one slice per step inside
     the (optionally remat'd) body: body(carry, layer_params) -> carry.
@@ -205,11 +205,9 @@ def scan_streamed(body: Callable[[Any, Any], Any], carry: Any,
 
 
 class _StreamSpec:
-    def __init__(self, layer_fn, paths, length, depth, grads_to_host,
-                 device):
+    def __init__(self, layer_fn, paths, length, depth, device):
         self.layer_fn, self.paths = layer_fn, paths
         self.L, self.D = length, depth
-        self.grads_to_host = grads_to_host
         self.device = device
 
 
@@ -257,7 +255,6 @@ class _Streamed(torch.autograd.Function):
         order = list(range(L - 1, -1, -1))
         bufs = deque(_issue(spec, stack, i) for i in order[:D])
         pending = []
-        on_card: List[list] = [None] * L
         for n, i in enumerate(order):
             cur = bufs.popleft()
             if n + D < L:
@@ -271,14 +268,8 @@ class _Streamed(torch.autograd.Function):
             gy = got[0]
             dps = [torch.zeros_like(p) if g is None else g
                    for g, p in zip(got[1:], ps)]
-            if spec.grads_to_host:
-                # layer i's gradients leave while layer i-1 recomputes
-                pending += [_land(t, i, g) for t, g in zip(stack, dps)]
-            else:
-                on_card[i] = dps
-        if not spec.grads_to_host:
-            pending += [_land(t, i, on_card[i][j]) for i in range(L)
-                        for j, t in enumerate(stack)]
+            # layer i's gradients leave while layer i-1 recomputes
+            pending += [_land(t, i, g) for t, g in zip(stack, dps)]
         for p in pending:
             if p is not None:
                 p.host_wait()
@@ -289,21 +280,15 @@ def streamed_layers_prefetch(layer_fn: Callable[..., Any],
                              stacked_tree: Any, x: torch.Tensor,
                              length: Optional[int] = None,
                              extra: tuple = (),
-                             prefetch_depth: int = 1,
-                             grads_to_host: bool = True,
-                             overlap_depth: int = 0) -> torch.Tensor:
+                             prefetch_depth: int = 1) -> torch.Tensor:
     """ZeRO-Infinity layer streaming with explicit prefetch (JAX's
     DeepCompile-prefetch analog): ``layer_fn(x, layer_params, *extra)``
     over a host ``[L, ...]`` stacked tree, ``prefetch_depth`` layers in
     flight ahead of the compute. Per-layer recompute is the
     ``nothing_saveable`` policy; the card holds the layers in flight, one
-    layer's transient gradients and the L layer inputs.
-    ``grads_to_host`` sends each layer's gradients to the stacks' host
-    buffers (:func:`host_grad`) inside the backward (False: kept on the
-    card, sent at the end).
-    ``overlap_depth`` is accepted (JAX's barriers; see the module
-    docstring). ``extra`` must not need gradients."""
-    del overlap_depth
+    layer's transient gradients and the L layer inputs. Each layer's
+    gradients go to the stacks' host buffers (:func:`host_grad`) inside
+    the backward. ``extra`` must not need gradients."""
     flat = _flatten(stacked_tree)
     if length is None:
         length = flat[0][1].shape[0]
@@ -312,8 +297,7 @@ def streamed_layers_prefetch(layer_fn: Callable[..., Any],
     def fn(xx, params):
         return layer_fn(xx, params, *extra)
 
-    spec = _StreamSpec(fn, [p for p, _ in flat], length, depth,
-                       grads_to_host, x.device)
+    spec = _StreamSpec(fn, [p for p, _ in flat], length, depth, x.device)
     return _Streamed.apply(spec, x, *[t for _, t in flat])
 
 

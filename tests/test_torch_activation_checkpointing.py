@@ -10,8 +10,8 @@ gradients atol 1e-4, ``tests/test_torch_transformer_train.py``'s), and
 the policies against each other bit for bit. What each policy keeps is
 counted: the flash forwards launched again in the recompute and the
 matmuls the backward recomputes. The engine configures the module from
-its ``activation_checkpointing`` block, as JAX's does, and trains under
-a named policy as JAX's engine does.
+its ``activation_checkpointing`` block, as JAX's does, pins its own
+policy, and trains under a named policy as JAX's engine does.
 """
 
 import types
@@ -288,8 +288,71 @@ def test_a_recompute_that_differs_raises():
 
 
 def test_saved_call_and_names_outside_a_checkpoint_are_plain():
+    """Outside a checkpointed call a name is a no-op and the flash
+    forward's operator is the wrapper's plain call."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 8, h, 64)).astype(
+        np.float32)) for h in (2, 1, 1))
     with ac.checkpoint_name("qkv_proj"):
-        assert ac.saved_call(lambda a: a + 1, 1) == 2
+        got = fa.FLASH_FWD_OP(q, k, v, None, True, 0.125)
+    want = fa._flash_fwd(q, k, v, None, True, 0.125)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("policy, cpu, model_policy, want", [
+    ("nothing_saveable", False, None, ac.SAVE_NOTHING),
+    ("nothing_saveable", True, None,
+     ac.SavePolicy(dots="no_batch", offload=True)),
+    ("save_attn_out", True, None,
+     ac.SavePolicy(names=("attn_out",), offload=True)),
+    ("dots_saveable", False, "save_qkv_proj",
+     ac.SavePolicy(names=("qkv_proj",))),
+    ("none", True, None, "everything")])
+def test_engine_policy_reads_its_own_block_alone(policy, cpu, model_policy,
+                                                 want):
+    """engine_policy resolves from the block and the model's name alone,
+    whatever the module-level settings say; resolve_policy hands the
+    pinned value back unchanged (a full recompute as None)."""
+    ac.configure(policy="dots_saveable", cpu_checkpointing=not cpu)
+    block = ActivationCheckpointingConfig(policy=policy,
+                                          cpu_checkpointing=cpu)
+    got = ac.engine_policy(block, model_policy)
+    assert got == want
+    assert ac.resolve_policy(got) == (None if want == ac.SAVE_NOTHING
+                                      else want)
+
+
+def test_each_engine_keeps_its_own_policy(monkeypatch):
+    """An engine pins its block's policy and cpu_checkpointing at build:
+    a second engine built with others leaves the first one's saves as
+    they were (JAX's compiled step keeps the policy it was traced
+    with)."""
+    calls = []
+    orig = fa._flash_fwd
+    monkeypatch.setattr(fa, "_flash_fwd",
+                        lambda *a: calls.append(1) or orig(*a))
+
+    def build(policy, **block):
+        cfg = _engine_cfg(policy)
+        cfg["activation_checkpointing"].update(block)
+        model = zoo.get_model("tiny", device="cpu", dtype=torch.float32,
+                              seed=0, **LLAMA)
+        return deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                              device="cpu")[0]
+
+    a = build("save_attn_mlp")
+    b = build("nothing_saveable", cpu_checkpointing=True)
+    assert ac._GLOBAL_CONFIG["policy"] == "nothing_saveable"
+    assert a.model_config.remat_policy == ac.SavePolicy(
+        names=("qkv_proj", "attn_kernel_out", "attn_out", "mlp_out"))
+    assert b.model_config.remat_policy == ac.SavePolicy(dots="no_batch",
+                                                        offload=True)
+    # micro 2 x GAS 2 through 2 layers: a flash forward a layer and
+    # microbatch where the policy keeps its output, two where not
+    for eng, want in ((a, 4), (b, 8), (a, 4)):
+        calls.clear()
+        assert np.isfinite(float(eng.train_batch(_stream(2))))
+        assert len(calls) == want
 
 
 def test_partition_activations_identity_at_tp1_and_raises_beyond():

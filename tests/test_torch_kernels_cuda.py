@@ -1541,10 +1541,12 @@ def test_checkpoint_policies_are_bit_equal_on_the_card(card, policy):
                                       "none") else 2)
 
 
-def test_streamed_layer_fetches_on_the_copy_stream(card):
-    """The prefetch streamer on the card: each layer fetched from pinned
-    host memory on the copy stream (twice a step), its gradients landed
-    in the stack's pinned fp32 host buffer, equal to the plain loop's."""
+@pytest.mark.parametrize("depth", [1, 2])
+def test_streamed_layer_fetches_on_the_copy_stream(card, depth):
+    """The prefetch streamer on the card at ``depth`` layers in flight:
+    each layer fetched from pinned host memory on the copy stream (twice
+    a step), its gradients landed in the stack's pinned fp32 host buffer,
+    equal to the plain loop's."""
     from deepspeed_tpu_torch.runtime import param_stream as ps
     from deepspeed_tpu_torch.utils import memspace
 
@@ -1560,7 +1562,7 @@ def test_streamed_layer_fetches_on_the_copy_stream(card):
     assert memspace.is_on_host(stack["w"])
     ps.reset_fetch_stats()
     x = x0.clone().requires_grad_()
-    y = ps.streamed_layers_prefetch(layer, stack, x, prefetch_depth=2)
+    y = ps.streamed_layers_prefetch(layer, stack, x, prefetch_depth=depth)
     (y.float() ** 2).sum().backward()
     torch.cuda.synchronize()
     assert ps.FETCH_STATS["layers"] == 2 * L

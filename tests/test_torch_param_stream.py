@@ -4,8 +4,8 @@ the engine's ``offload_param``) against JAX's
 :375-560 contracts).
 
 The streamer: bit-identical to the plain loop over the stack, forward
-and gradients, at every prefetch depth, with the gradients sent to the
-host or kept on the card (JAX asserts the same against its scan), under
+and gradients, at every prefetch depth, with the gradients landed in
+the host buffers (JAX asserts the same against its scan), under
 an outer recompute too; its output equals JAX's streamer on the same
 numpy stack. The engine: the stack lives on the host (in the compute
 dtype), trains, follows the plain offload engine bit for bit on the CPU
@@ -88,15 +88,13 @@ def test_forward_bit_identical_to_the_loop(dtype, depth):
     assert got.dtype == ref.dtype and torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("grads_to_host", [True, False])
 @pytest.mark.parametrize("depth", [1, 2, 4])
-def test_grads_bit_identical_to_the_loop(depth, grads_to_host):
+def test_grads_bit_identical_to_the_loop(depth):
     stack, x = _stack(torch.float32)
     (_loop(stack, x) ** 2).sum().backward()
     ref = {k: v.grad.clone() for k, v in stack.items()}, x.grad.clone()
     stack2, x2 = _stack(torch.float32)
-    y = ps.streamed_layers_prefetch(_layer, stack2, x2, prefetch_depth=depth,
-                                    grads_to_host=grads_to_host)
+    y = ps.streamed_layers_prefetch(_layer, stack2, x2, prefetch_depth=depth)
     (y ** 2).sum().backward()
     assert torch.equal(x2.grad, ref[1])
     for k in ("w", "b"):
@@ -133,7 +131,7 @@ def test_streamer_matches_jax_and_counts_its_fetches():
     stack, x = _stack(torch.float32)
     ps.reset_fetch_stats()
     y = ps.streamed_layers_prefetch(_layer, stack, x, prefetch_depth=2,
-                                    extra=(), overlap_depth=1)
+                                    extra=())
     (y ** 2).sum().backward()
     want = jax_streamed(lambda c, p: jnp.tanh(c @ p["w"] + p["b"]), s, xn,
                         prefetch_depth=2)
@@ -322,12 +320,15 @@ def test_nvme_placement_warns_and_holds_the_stack_in_host_memory(caplog):
 
 
 def test_performance_knobs_reach_the_model_config():
-    """performance.param_prefetch_depth / overlap_depth override the
-    model's environment-resolved values (JAX engine.py:223-246)."""
+    """performance.param_prefetch_depth overrides the model's prefetch
+    depth (JAX engine.py:223-246); overlap_depth parses and places
+    nothing on one card."""
     eng = _engine(extra={"performance": {"param_prefetch_depth": 3,
                                          "overlap_depth": 1}})
-    assert (eng.model_config.prefetch_depth,
-            eng.model_config.overlap_depth) == (3, 1)
+    assert eng.model_config.prefetch_depth == 3
+    assert eng.config.performance.overlap_depth == 1
+    assert not hasattr(eng.model_config, "overlap_depth")
+    assert _engine().model_config.prefetch_depth == 2
     jeng, *_ = dstpu.initialize(
         model=JaxLM(JaxConfig(**dict(TINY, param_host_offload=True))),
         config={"train_micro_batch_size_per_chip": 1,
