@@ -406,6 +406,28 @@ Phases, each fatal on failure:
                forward and backward at the depth and at half of it must
                differ by less than one layer's bf16 params and saved
                input.
+  17. zeropp — after phase 14, on its model, shape, config and batches,
+               on a one-rank NCCL group of its own, 3 steps a run. 17a:
+               the ZeRO++ stage 1-2 step with qwZ + qgZ, then with qar,
+               qwZ at stage 3 and qgZ at stage 3 (fsdp = 1: it disarms,
+               counts ``zeropp.qgz_disabled`` once and must equal phase
+               14's stage 3 ``==``); the armed runs' losses within rtol
+               0.05 of phase 14's exact stage; the B6 quantize and 6b
+               dequantize launches exactly as the plan implies (two a
+               leaf a step for the stage 1-2 step; a gather of each
+               layer leaf with a block, forward and remat replay, and
+               the LM head, a microbatch, under stage-3 qwZ); the
+               logged wire bytes beside bf16's. 17b: 1-bit Adam at
+               freeze_step 2 for 4 steps against Adam (no clipping),
+               the warmup within 3e-3. 17c: the fp8 MLP, every MLP
+               product through ``torch._scaled_mm`` (counted), the
+               first loss within 5% of phase 14's bf16 stage 0 and not
+               equal to it; step p50 and peak memory beside it. 17d:
+               Mixtral-8x7B at phase 6's 2 layers with
+               ``moe_impl="einsum"`` at capacity factors 1.25 and 4.0:
+               no gmm launch, the dropped share of one forward of the
+               trained model; at 4.0 nothing dropped and one MoE layer
+               within the bf16 row limit 3e-2 of the grouped path.
 Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
@@ -413,7 +435,7 @@ sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
 checkpoint, optimizer sweep, spec serve, draft model, verify-shape
 prefill, A4, kernel bench, v1 engine, zero, observability,
-observability serve and a11 lines, the run's seconds,
+observability serve, a11 and zeropp lines, the run's seconds,
 the card's name
 and power limit (nvidia-smi), and, last, the device line.
 
@@ -704,6 +726,20 @@ A4_FN_TOL_REL, A4_CLIENT_TOL_REL = 1e-5, 1e-4
 # phase 14: ZeRO stages 0-3 on a one-rank NCCL group, at phase 12d's depth
 # and lr over phase 4's fixed batches, ZERO_STEPS steps a stage
 ZERO_STAGES, ZERO_STEPS = (0, 1, 2, 3), 3
+# phase 17: ZeRO++ (17a) on phase 14's model, shape, config and batches,
+# ZPP_STEPS steps a run on a one-rank NCCL group, the armed runs held to
+# phase 14's exact stage within JAX's rtol (tests/test_zeropp.py:56-69);
+# 1-bit Adam (17b) at ONEBIT_FREEZE, its warmup held to Adam (both
+# without clipping: 1-bit clips the update, Adam the gradient) within
+# JAX's rtol 3e-3 (tests/test_onebit.py:65-87); the fp8 MLP (17c), its
+# first loss within JAX's relative 5% of the bf16 run's
+# (tests/test_fp8_mlp.py:66-80); the einsum dispatch (17d) on phase 6's
+# Mixtral at JAX's default capacity factor and at E / k, where nothing
+# drops and one MoE layer holds to the grouped path at the bf16 row limit
+ZPP_STEPS, ZPP_RTOL = 3, 0.05
+ONEBIT_FREEZE, ONEBIT_STEPS, ONEBIT_WARM_RTOL = 2, 4, 3e-3
+FP8_STEPS, FP8_REL = 3, 0.05
+EINSUM_CAPACITY, EINSUM_STEPS, EINSUM_ROW_TOL = (1.25, 4.0), 3, 3e-2
 # phase 13: the kernel bench at its card tier (13a), then the v1 engine
 # (init_inference) over phase 3's model: the forward at B 1 x S 2048, and
 # generate on 4 of phase 3's prompts cut to 128 tokens, 32 new tokens
@@ -4189,6 +4225,296 @@ def zero_phase(torch, zoo, initialize, fa, tf, attn):
             "wall_s": time.perf_counter() - t_start}, launches_by_stage
 
 
+# -- phase 17: ZeRO++, 1-bit Adam, the fp8 MLP and the einsum dispatch --------
+
+
+def quant_expected(torch, tf, sharding, cfg, engine, run, gas, steps):
+    """B6 / 6b launches the plan implies over ``steps`` steps (each
+    quantize has its dequantize): the ZeRO++ stage 1-2 step quantizes
+    every leaf twice a step (its gradient reduce and its gather, or qar's
+    two hops); qwZ at stage 3 once a gather: the layer leaves that have a
+    block, at each forward and remat replay of each microbatch, and the
+    LM head once a microbatch."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    if run in ("zpp", "qar"):
+        return 2 * len(list(leaves(engine.params))) * steps
+    if run != "qwz3":
+        return 0
+    rules = (sharding.TP_RULES + sharding.EP_RULES + sharding.PP_RULES
+             + sharding.FSDP_RULES)
+    axes = dict(leaves(tf.logical_axes(cfg)))
+    shapes = {p: tuple(v[0]) for p, v in leaves(tf.param_shapes(cfg))}
+    layer = 0
+    for path, ax in axes.items():
+        if not path.startswith("/layers/"):
+            continue
+        spec = sharding.spec_from_logical(ax[1:], rules)
+        if sharding.fsdp_dim(spec) is not None and sharding.qwz_plan(
+                shapes[path][1:], spec, engine.mesh) is not None:
+            layer += 1
+    remat = 2 if cfg.remat else 1
+    return (layer * cfg.num_layers * remat + 1) * gas * steps
+
+
+def zpp_run(torch, zoo, initialize, qz, fpq, gm, fa, config, steps, batches,
+            model_kw=None, name="llama3-8b"):
+    """One engine on ``config`` for ``steps`` steps: losses, step times,
+    peak memory, the quantize / fp8 / gmm launches of the steps and the
+    comms logger's bytes a step."""
+    from deepspeed_tpu_torch.utils import telemetry
+    from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.reset()
+    model = zoo.get_model(name, dtype=torch.float32, seed=SEED,
+                          **(model_kw or {}))
+    engine, *_ = initialize(model=model, config=dict(
+        config, comms_logger={"enabled": True}))
+    get_comms_logger().reset()
+    qz.reset_launch_counts()
+    fpq.reset_launch_counts()
+    gm.reset_launch_counts()
+    fa.reset_launch_counts()
+    it = iter(batches)
+    marks, losses = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(engine.train_batch(it))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    out = {"losses": [float(x) for x in losses],
+           "step_s": [float(x) for x in np.diff([t0] + marks)],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "quant_launches": dict(qz.LAUNCHES),
+           "fp8_launches": dict(fpq.FP8_LAUNCHES),
+           "gmm_launches": dict(gm.LAUNCHES),
+           "flash_launches": dict(fa.LAUNCHES),
+           "bytes_per_step": {k: v / steps for k, v in
+                              get_comms_logger().totals().items()},
+           "telemetry": telemetry.snapshot(),
+           "flags": {k: bool(getattr(engine, k)) for k in
+                     ("_zeropp", "_onebit", "_qwz_stage3", "_qgz_stage3")}}
+    gaps = out["step_s"]
+    out["step_ms_p50"] = float(np.median(gaps[1:] if len(gaps) > 1
+                                         else gaps)) * 1e3
+    return out, engine, model
+
+
+def zeropp_phase(torch, zoo, initialize, fa, tf, qz, gm, moe, zero):
+    """17a ZeRO++ on 2-layer full-width Llama-3-8B (a one-rank NCCL
+    group): the stage 1-2 step with qwZ + qgZ, with qar, qwZ at stage 3
+    and qgZ at stage 3, which disarms at fsdp = 1 as in JAX; 17b 1-bit
+    Adam; 17c the fp8 MLP; 17d the einsum dispatch on 2-layer Mixtral.
+    ``zero`` is phase 14's line (its exact stages are 17a's references).
+    Returns (the phase's line, launches by path)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import fp_quantizer as fpq
+    from deepspeed_tpu_torch.runtime import sharding
+
+    t_start = time.perf_counter()
+    L, gas, steps = A4_LAYERS, TRAIN_GAS, ZPP_STEPS
+    cfg = zoo.get_config("llama3-8b", num_layers=L)
+    fixed, _ = fixed_batches(cfg.vocab_size)
+    batches = [fixed[i % 2] for i in range(ONEBIT_STEPS * gas)]
+    store = tempfile.mkdtemp(prefix="dstpu_pg_")
+    runs, paths = {}, {}
+    exact = {st: zero["stages"][st]["losses"] for st in ("0", "1", "3")}
+    try:
+        comm.init_distributed(dist_backend="nccl",
+                              init_method=f"file://{store}/store",
+                              num_processes=1, process_id=0, timeout=600)
+        # 17a: ZeRO++
+        zq = {"zpp": (1, {"zero_quantized_weights": True,
+                          "zero_quantized_gradients": True}),
+              "qar": (1, {"zero_quantized_allreduce": True}),
+              "qwz3": (3, {"zero_quantized_weights": True}),
+              "qgz3": (3, {"zero_quantized_gradients": True})}
+        for run, (stage, flags) in zq.items():
+            out, engine, model = zpp_run(
+                torch, zoo, initialize, qz, fpq, gm, fa, dict(
+                    A4_CONFIG, zero_optimization=dict(stage=stage, **flags)),
+                steps, batches, {"num_layers": L})
+            want = quant_expected(torch, tf, sharding, cfg, engine, run,
+                                  gas, steps)
+            got = out["quant_launches"]
+            if got["quantize_blockwise"] != want or \
+                    got["dequantize"] != want:
+                fail(f"zeropp {run}: quantize / dequantize launches "
+                     f"{got}, the plan implies {want} each")
+            ref = exact["1" if stage == 1 else "3"]
+            if run == "qgz3":
+                # fsdp = 1: JAX's rule disarms qgZ, with one count
+                if out["flags"]["_qgz_stage3"] or out["telemetry"].get(
+                        "zeropp.qgz_disabled") != 1:
+                    fail(f"zeropp qgz3: flags {out['flags']}, telemetry "
+                         f"{out['telemetry']}; want disarmed, counted once")
+                if out["losses"] != ref:
+                    fail(f"zeropp qgz3: losses {out['losses']} != plain "
+                         f"stage 3's {ref}")
+            else:
+                flag = "_zeropp" if stage == 1 else "_qwz_stage3"
+                if not out["flags"][flag]:
+                    fail(f"zeropp {run}: {flag} did not arm")
+                rel = np.abs(np.asarray(out["losses"]) - ref) / np.abs(ref)
+                if not np.all(np.isfinite(out["losses"])) or \
+                        rel.max() > ZPP_RTOL:
+                    fail(f"zeropp {run}: losses {out['losses']} against "
+                         f"the exact stage's {ref} (rtol {ZPP_RTOL})")
+                out["max_rel_vs_exact"] = float(rel.max())
+            out["param_elements"] = sum(p.numel()
+                                        for p in model.parameters())
+            wire = {k: v for k, v in out["bytes_per_step"].items()
+                    if k.startswith(("qgz", "qwz", "qar"))}
+            out["quant_wire_bytes_per_step"] = sum(wire.values())
+            # int8 codes are a byte an element: bf16 would move two
+            out["bf16_wire_bytes_per_step"] = 2 * sum(
+                v for k, v in wire.items() if not k.endswith("scales"))
+            out["wire_by_name"] = wire
+            out["launches_per_step"] = {k: v // steps for k, v in
+                                        got.items()}
+            paths[f"zeropp/{run}"] = got
+            runs[run] = out
+            log(f"zeropp {run}: losses {out['losses']}, step p50 "
+                f"{out['step_ms_p50']:.1f} ms, peak "
+                f"{out['peak_mem_gb']:.1f} GB, quantize / dequantize "
+                f"{got['quantize_blockwise']} / {got['dequantize']}, "
+                f"quantized wire {out['quant_wire_bytes_per_step'] / 1e9:.3f}"
+                f" GB a step against bf16's "
+                f"{out['bf16_wire_bytes_per_step'] / 1e9:.3f}")
+            del engine, model
+        # the wire per element: codes + fp32 scales against bf16's 2 B
+        for run, block in (("zpp", 256), ("qwz3", 128)):
+            runs[run]["wire_bytes_per_element"] = 1 + 4 / block
+            runs[run]["bf16_bytes_per_element"] = 2
+        # 17b: 1-bit Adam, its warmup against Adam
+        nb = dict(A4_CONFIG, gradient_clipping=0.0,
+                  zero_optimization={"stage": 0})
+        adam, e, m = zpp_run(torch, zoo, initialize, qz, fpq, gm, fa, dict(
+            nb, optimizer={"type": "adam", "params": {
+                "lr": A4_LR, "weight_decay": 0.0}}), ONEBIT_FREEZE,
+            batches, {"num_layers": L})
+        del e, m
+        onebit, e, m = zpp_run(torch, zoo, initialize, qz, fpq, gm, fa, dict(
+            nb, optimizer={"type": "onebitadam", "params": {
+                "lr": A4_LR, "freeze_step": ONEBIT_FREEZE}}), ONEBIT_STEPS,
+            batches, {"num_layers": L})
+        del e, m
+        warm = np.asarray(onebit["losses"][:ONEBIT_FREEZE])
+        rel = np.abs(warm - adam["losses"]) / np.abs(adam["losses"])
+        if rel.max() > ONEBIT_WARM_RTOL or not onebit["flags"]["_onebit"] \
+                or not np.all(np.isfinite(onebit["losses"])):
+            fail(f"onebit: losses {onebit['losses']}, Adam's "
+                 f"{adam['losses']} (warmup rtol {ONEBIT_WARM_RTOL})")
+        runs["adam"], runs["onebit"] = adam, onebit
+        runs["onebit"]["warmup_max_rel_vs_adam"] = float(rel.max())
+        log(f"onebit: losses {onebit['losses']}, Adam {adam['losses']}, "
+            f"step p50 {onebit['step_ms_p50']:.1f} ms")
+        # 17c: the fp8 MLP against phase 14's stage 0 (bf16)
+        fp8, e, m = zpp_run(torch, zoo, initialize, qz, fpq, gm, fa, dict(
+            A4_CONFIG, zero_optimization={"stage": 0},
+            performance={"fp8_mlp": True}), FP8_STEPS, batches,
+            {"num_layers": L})
+        del e, m
+        bf16_first = exact["0"][0]
+        rel = abs(fp8["losses"][0] - bf16_first) / abs(bf16_first)
+        want = 3 * L * (2 if cfg.remat else 1) * gas * FP8_STEPS
+        if fp8["fp8_launches"]["fp8_matmul"] != want or rel > FP8_REL or \
+                fp8["losses"][0] == bf16_first or \
+                not np.all(np.isfinite(fp8["losses"])):
+            fail(f"fp8: first loss {fp8['losses'][0]} against bf16's "
+                 f"{bf16_first} (relative {FP8_REL}, not equal), fp8 "
+                 f"products {fp8['fp8_launches']} (want {want})")
+        fp8["first_loss_rel_vs_bf16"] = rel
+        fp8["bf16_step_ms_p50"] = zero["stages"]["0"]["step_ms_p50"]
+        fp8["bf16_peak_mem_gb"] = zero["stages"]["0"]["peak_mem_gb"]
+        runs["fp8_mlp"] = fp8
+        paths["fp8_mlp"] = fp8["fp8_launches"]
+        log(f"fp8 mlp: losses {fp8['losses']} (bf16 first "
+            f"{bf16_first}), step p50 {fp8['step_ms_p50']:.1f} ms vs "
+            f"{fp8['bf16_step_ms_p50']:.1f}, peak {fp8['peak_mem_gb']:.1f} "
+            f"vs {fp8['bf16_peak_mem_gb']:.1f} GB")
+    finally:
+        comm.destroy()
+        shutil.rmtree(store, ignore_errors=True)
+        torch.cuda.empty_cache()
+    # 17d: the einsum dispatch on phase 6's Mixtral (no group)
+    mcfg = zoo.get_config("mixtral-8x7b", num_layers=MOE_TRAIN_LAYERS)
+    mfixed, _ = fixed_batches(mcfg.vocab_size, MOE_TRAIN_MICRO)
+    mbatches = [mfixed[i % 2] for i in range(EINSUM_STEPS * MOE_TRAIN_GAS)]
+    einsum = {}
+    for cf in EINSUM_CAPACITY:
+        out, engine, model = zpp_run(
+            torch, zoo, initialize, qz, fpq, gm, fa, MOE_TRAIN_CONFIG,
+            EINSUM_STEPS, mbatches,
+            {"num_layers": MOE_TRAIN_LAYERS, "moe_impl": "einsum",
+             "capacity_factor": cf}, name="mixtral-8x7b")
+        if any(out["gmm_launches"].values()) or \
+                not np.all(np.isfinite(out["losses"])):
+            fail(f"einsum cf {cf}: losses {out['losses']}, gmm launches "
+                 f"{out['gmm_launches']} (the einsum path runs none)")
+        # the dropped share of the (token, choice) pairs in one more
+        # forward of the trained model on the training batch, every layer
+        seen = []
+        gating = moe.top_k_gating
+
+        def recording(logits, gate, cap):
+            out = gating(logits, gate, cap)
+            seen.append((float(out[1].sum()), logits.shape[0]
+                         * logits.shape[1] * gate.top_k))
+            return out
+
+        moe.top_k_gating = recording
+        try:
+            engine.eval_batch(mbatches[0])
+        finally:
+            moe.top_k_gating = gating
+        out["dropped_frac"] = 1.0 - sum(k for k, _ in seen) / sum(
+            n for _, n in seen)
+        # at E / k, one MoE layer on a normed input against the grouped path
+        lp = {k: v[0] for k, v in
+              engine.params["layers"]["moe"]["experts"].items()}
+        router = engine.params["layers"]["moe"]["router"][0]
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        y = torch.randn((1, TRAIN_SEQ, mcfg.hidden_size), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        gate = engine.model_config.gate
+        with torch.no_grad():
+            logits = torch.einsum("bsh,he->bse", y, router.to(y.dtype))
+            cap = moe.compute_capacity(TRAIN_SEQ, gate)
+            _, dispatch, _ = moe.top_k_gating(logits, gate, cap)
+            out["random_input_dropped_frac"] = 1.0 - float(
+                dispatch.sum()) / (TRAIN_SEQ * gate.top_k)
+            out["capacity"] = cap
+            if cf == EINSUM_CAPACITY[-1]:
+                a, _ = moe.moe_ffn(y, router, lp, gate, impl="einsum")
+                b, _ = moe.moe_ffn(y, router, lp, gate, impl="grouped")
+                out["grouped_max_row_rel_err"] = row_rel_err(
+                    torch, a.float(), b.float())
+                if out["dropped_frac"] != 0.0 or \
+                        out["random_input_dropped_frac"] != 0.0 or \
+                        out["grouped_max_row_rel_err"] > EINSUM_ROW_TOL:
+                    fail(f"einsum cf {cf}: dropped {out['dropped_frac']}, "
+                         f"row error against the grouped path "
+                         f"{out['grouped_max_row_rel_err']} (limit "
+                         f"{EINSUM_ROW_TOL})")
+        einsum[str(cf)] = out
+        paths[f"einsum/cf{cf}"] = out["gmm_launches"]
+        log(f"einsum cf {cf}: losses {out['losses']}, step p50 "
+            f"{out['step_ms_p50']:.1f} ms, peak {out['peak_mem_gb']:.1f} GB, "
+            f"dropped {out['dropped_frac']:.4f}")
+        del engine, model, lp, router
+        torch.cuda.empty_cache()
+    return {"model": "llama3-8b", "layers": f"{L} of 32",
+            "micro": TRAIN_MICRO, "gas": gas, "seq": TRAIN_SEQ,
+            "runs": runs, "einsum": {"model": "mixtral-8x7b",
+                                     "layers": f"{MOE_TRAIN_LAYERS} of 32",
+                                     "runs": einsum},
+            "wall_s": time.perf_counter() - t_start}, paths
+
+
 # -- phase 13: the kernel bench and the v1 inference engine -------------------
 
 
@@ -5833,6 +6159,13 @@ def main():
     log(f"zero: stages {list(zero['stages'])} equal stage 0 bit for bit, "
         f"collectives as planned; phase 14 took {zero['wall_s']:.0f} s")
 
+    # 17. ZeRO++, 1-bit Adam and the fp8 MLP on phase 14's model and
+    # batches (a one-rank group of their own), then the einsum dispatch on
+    # phase 6's Mixtral; phase 14's engines are gone
+    zeropp, zeropp_paths = zeropp_phase(torch, zoo, initialize, fa, tf, qz,
+                                        gm, moe, zero)
+    log(f"zeropp: phase 17 took {zeropp['wall_s']:.0f} s")
+
     # 15a-b. observability on the 2-layer step, on and off, and the
     # watchdog drill; phase 14's group is gone
     obs, obs_launches = obs_train_phase(torch, zoo, initialize, fa, attn, tf)
@@ -6101,7 +6434,10 @@ def main():
                     **{run: lc[name] for run, lc in quant_launches.items()},
                     **{run: v1_paths[run][name] for run in (
                         "v1_int8_weights_build",
-                        "v1_int8_weights_generate")}},
+                        "v1_int8_weights_generate")},
+                    # ZeRO++'s training path (phase 17a)
+                    **{run: lc[name] for run, lc in zeropp_paths.items()
+                       if run.startswith("zeropp/") and name in lc}},
                 "max_abs_err": res["max_abs_err"], "bit_equal": True,
                 "variant": "simt", "ms": res["ms"],
                 # one version: its first is itself
@@ -6216,6 +6552,7 @@ def main():
                       "dispatch_by_phases": dispatch}),
           flush=True)
     print(json.dumps({"zero": zero}), flush=True)
+    print(json.dumps({"zeropp": zeropp}), flush=True)
     print(json.dumps({"observability": obs}), flush=True)
     print(json.dumps({"observability_serve": obs_serve}), flush=True)
     print(json.dumps({"a11": {"policies": a11, "fpdt": fpdt_line,

@@ -45,9 +45,16 @@ tensors under ``state/opt_client/state/<param index>/<name>`` and its
 ``param_groups`` (and any state value that is not a tensor) in the
 metadata's ``client_optimizer`` record; a load hands them back through
 ``load_state_dict``, so a resumed run steps bit for bit as the
-uninterrupted one. The 1-bit and ZeRO++ branches are not
-here: their config switches raise (ROADMAP queue A item 10). Universal
-checkpoints raise at the config (item 16).
+uninterrupted one. Universal checkpoints raise at the config (item 16).
+
+Under the 1-bit and ZeRO++ stage 1-2 steps (``runtime/onebit.py``,
+``runtime/zeropp.py``) each rank writes its own optimizer state under
+``state/quant_rank<r>/`` (the ZeRO++ flat master, moment blocks and step;
+the 1-bit masters, moments and this rank's error feedback, which JAX
+holds as one array with a leading dp dim); a load reads it back at the
+same world size. ``load_optimizer_states=False`` re-seeds the masters
+from the restored params with zeroed moments and keeps the step count,
+as JAX's ``reseed_state_from_params`` does.
 
 Across ranks (ZeRO on a process group) every rank writes the blocks it
 owns: a leaf that shards over the fsdp ranks is one file per block,
@@ -153,6 +160,10 @@ class CheckpointIO:
             state[ZENFLOW_KEY] = zenflow_tree(e._zenflow)
         elif e._offload is not None:
             state[OFFLOAD_KEY] = e._offload.state_dict()
+        elif e._quant_step is not None:
+            qs = e._quant_step.state
+            state[quant_key()] = dict(qs.named_trees(),
+                                      step=torch.tensor(qs.step))
         else:
             state["opt_master"] = e.opt_state.master
             for name, tree in e.opt_state.named_trees().items():
@@ -251,8 +262,9 @@ class CheckpointIO:
             state[CLIENT_KEY], client_record = self._client_payload(
                 e._client_opt)
         count, index, dims = self._blocks(state)
+        ep = self._ep_blocks(state)
         self.ckpt_engine.save(os.path.join(ckpt_dir, STATE_DIR),
-                              self._rank_tree(state, count, index, dims))
+                              self._rank_tree(state, count, index, dims, ep))
 
         # data-pipeline cursor: consumed GAS boundaries + loader state,
         # snapshotted at this boundary so auto-resume replays the exact
@@ -278,8 +290,10 @@ class CheckpointIO:
         }
         if client_record is not None:
             meta["client_optimizer"] = client_record
-        if count > 1:
+        if count > 1 or ep[2]:
             meta[BLOCKS_KEY] = {"count": count, "dims": dims}
+            if ep[2]:
+                meta[BLOCKS_KEY]["ep"] = {"count": ep[0], "dims": ep[2]}
         if e.config.checkpoint.async_save:
             # decoupled: 'latest' is published at commit (next GAS boundary
             # or the next save/load), reference engine.py:3273
@@ -316,18 +330,47 @@ class CheckpointIO:
                 dims[leaf_path] = d
         return zero.fsdp_n, zero.fsdp_index, dims
 
+    def _ep_blocks(self, state) -> Tuple[int, int, Dict[str, int]]:
+        """(ep ranks, this rank's ep index, leaf path -> its expert dim):
+        under expert parallelism each ep rank holds its own E/ep experts
+        of an expert leaf, in every role."""
+        zero = self.engine._zero
+        if zero is None or zero.ep_n == 1:
+            return 1, 0, {}
+        dims: Dict[str, int] = {}
+        for leaf_path, t in leaves(state):
+            top, _, path = leaf_path.strip("/").partition("/")
+            e = zero.ep_dim.get("/" + path)
+            if (top == "params" or top.startswith("opt_")) and e is not None:
+                dims[leaf_path] = e
+        return zero.ep_n, zero.ep_index, dims
+
     def _rank_tree(self, state, count: int, index: int,
-                   dims: Dict[str, int]):
+                   dims: Dict[str, int], ep=(1, 0, {})):
         """What this rank writes: its block of each sharded leaf (under
         ``<leaf>.block<index>of<count>``; one writer a block, the rank at
-        dp index 0) and, on rank 0, the replicated leaves."""
+        dp index 0), its ep index's experts of an expert leaf (under
+        ``<leaf>.ep<e>of<n>``, then the block) and, on rank 0, the
+        replicated leaves."""
         if comm.get_world_size() == 1:
             return state
         coords = self.engine.mesh.coords()
         writes_blocks = all(v == 0 for a, v in coords.items() if a != "fsdp")
+        writes_experts = all(v == 0 for a, v in coords.items()
+                             if a not in ("fsdp", "ep"))
+        ep_n, ep_index, ep_dims = ep
         out: Dict[str, Any] = {}
+        own = "/" + quant_key()
         for leaf_path, t in leaves(state):
-            if leaf_path in dims:
+            if leaf_path.startswith(own + "/"):  # this rank's own state
+                set_leaf(out, leaf_path, t)
+            elif leaf_path in ep_dims:
+                if writes_experts:
+                    name = f"{leaf_path}.ep{ep_index}of{ep_n}"
+                    if leaf_path in dims:
+                        name += f".block{index}of{count}"
+                    set_leaf(out, name, t)
+            elif leaf_path in dims:
                 if writes_blocks:
                     set_leaf(out, f"{leaf_path}.block{index}of{count}", t)
             elif comm.get_rank() == 0:
@@ -495,6 +538,15 @@ class CheckpointIO:
             zen_tree = read_files(zen_dir)
             zen_sd = zenflow_state_dict(zen_tree, e._zenflow.paths)
             e._zenflow.check_state_dict(zen_sd)
+        if e._quant_step is not None and load_optimizer_states and \
+                comm.any_process(not os.path.isdir(
+                    os.path.join(state_dir, quant_key()))):
+            raise FileNotFoundError(
+                "the 1-bit / ZeRO++ optimizer state of at least one rank "
+                f"is missing (this rank's path: "
+                f"{os.path.join(state_dir, quant_key())}); pass "
+                "load_optimizer_states=False to re-seed the masters from "
+                "the restored params")
         if e._offload is not None and load_optimizer_states and \
                 not os.path.isdir(os.path.join(state_dir, OFFLOAD_KEY)):
             raise FileNotFoundError(
@@ -509,13 +561,16 @@ class CheckpointIO:
                             and e._zenflow is None)
         skip = () if load_optimizer_states else ("opt_count",)
         count, index, dims = self._blocks(state)
+        ep = self._ep_blocks(state)
         saved = meta.get(BLOCKS_KEY)
-        if count == 1 and saved is None:
+        if count == 1 and not ep[2] and saved is None:
             nbytes, _ = self.ckpt_engine.load(state_dir, state, skip=skip)
         else:
+            saved_ep = (saved or {}).get("ep", {"count": 1, "dims": {}})
             nbytes = read_blocks(
                 state_dir, state, skip, (count, index, dims),
-                (saved["count"], saved["dims"]) if saved else (1, {}))
+                (saved["count"], saved["dims"]) if saved else (1, {}),
+                ep, (saved_ep["count"], saved_ep["dims"]))
         with torch.no_grad():
             if e._zenflow is not None:
                 if zen_sd is not None:
@@ -534,6 +589,13 @@ class CheckpointIO:
                     logger.warning("optimizer state not restored: masters "
                                    "re-seeded from params, moments reset")
                     e._offload.reinit_masters(e.params)
+            elif e._quant_step is not None:
+                if load_optimizer_states:
+                    e._quant_step.state.step = int(state[quant_key()]["step"])
+                else:
+                    logger.warning("optimizer state not restored: masters "
+                                   "re-seeded from params, moments reset")
+                    e.reseed_quant_masters()
             elif load_optimizer_states:
                 e.opt_state.count = int(state["opt_count"])
                 if e._client_opt is not None:
@@ -545,9 +607,10 @@ class CheckpointIO:
                 # restored params or the step rolls the model back to init
                 logger.warning("optimizer state not restored: masters "
                                "re-seeded from params, moments reset")
-                for (_, m), (_, p) in zip(leaves(e.opt_state.master),
-                                          leaves(e.params)):
-                    m.copy_(p)
+                for (path, m), (_, p) in zip(leaves(e.opt_state.master),
+                                             leaves(e.params)):
+                    m.copy_(p if e._zero is None
+                            else e._zero.master_of_param(path, p))
                 if e._client_opt is not None:
                     e._client_opt.state.clear()
                     e.opt_state.count = 0
@@ -573,46 +636,56 @@ class CheckpointIO:
         return ckpt_dir, meta.get("client_state", {})
 
 
-def read_blocks(path: str, target, skip, layout, saved) -> int:
+def read_blocks(path: str, target, skip, layout, saved,
+                ep_layout=(1, 0, {}), ep_saved=(1, {})) -> int:
     """Fill each leaf of ``target`` (this rank's blocks, or whole leaves)
     from the files under ``path`` that overlap it, whatever the save's
     world size: ``layout`` is (blocks, this rank's block, leaf -> dim) of
-    the target, ``saved`` (blocks, leaf -> dim) of the save. Every file is
-    mapped and checked (dtype, whole shape) before any tensor changes.
-    Returns the bytes copied."""
-    count, index, dims = layout
-    saved_count, saved_dims = saved
+    the target, ``saved`` (blocks, leaf -> dim) of the save, and
+    ``ep_layout`` / ``ep_saved`` the same for the expert dim of the expert
+    leaves. Every file is mapped and checked (dtype, whole shape) before
+    any tensor changes. Returns the bytes copied."""
+    cuts_t = [layout, ep_layout]
+    cuts_s = [saved, ep_saved]
     skip = {f"/{k}" for k in skip}
     pairs = []
     for leaf_path, dst in leaves(target):
         if any(leaf_path == s or leaf_path.startswith(s + "/")
                for s in skip):
             continue
-        d_t = dims.get(leaf_path)
-        d_s = saved_dims.get(leaf_path)
         full = list(dst.shape)
         lo_t = [0] * dst.dim()
-        if d_t is not None:
-            full[d_t] *= count
-            lo_t[d_t] = index * dst.shape[d_t]
-        names = ([(leaf_path, 0)] if d_s is None else
-                 [(f"{leaf_path}.block{j}of{saved_count}", j)
-                  for j in range(saved_count)])
-        for name, j in names:
+        for count, index, dims in cuts_t:
+            d_t = dims.get(leaf_path)
+            if d_t is not None:
+                full[d_t] *= count
+                lo_t[d_t] = index * dst.shape[d_t]
+        d_b, d_e = (c[1].get(leaf_path) for c in cuts_s)
+        n_b, n_e = saved[0], ep_saved[0]
+        names = []
+        for e in (range(n_e) if d_e is not None else [None]):
+            for j in (range(n_b) if d_b is not None else [None]):
+                name = leaf_path
+                if e is not None:
+                    name += f".ep{e}of{n_e}"
+                if j is not None:
+                    name += f".block{j}of{n_b}"
+                names.append((name, j, e))
+        for name, j, e in names:
             src = torch.load(leaf_file(path, name), map_location="cpu",
                              weights_only=True, mmap=True)
             whole = list(src.shape) if isinstance(src, torch.Tensor) else None
-            if whole is not None and d_s is not None:
-                whole[d_s] *= saved_count
+            lo_s = [0] * len(whole or ())
+            for d, n, i in ((d_b, n_b, j), (d_e, n_e, e)):
+                if whole is not None and d is not None:
+                    lo_s[d] = i * src.shape[d]
+                    whole[d] *= n
             if whole != full or src.dtype != dst.dtype:
                 got = (whole, src.dtype) if whole is not None \
                     else type(src).__name__
                 raise ValueError(
                     f"checkpoint leaf {leaf_path}: saved {got}, the engine "
                     f"holds {(full, dst.dtype)}")
-            lo_s = [0] * src.dim()
-            if d_s is not None:
-                lo_s[d_s] = j * src.shape[d_s]
             dv, sv = dst, src
             for k in range(dst.dim()):
                 a = max(lo_t[k], lo_s[k])
@@ -690,6 +763,11 @@ def zenflow_state_dict(tree: Dict[str, Any], paths) -> Dict[str, Any]:
         "updated_since_foldin": [bool(get("updated_since_foldin", p))
                                  for p in paths],
     }
+
+
+def quant_key() -> str:
+    """The 1-bit / ZeRO++ payload of this rank."""
+    return f"quant_rank{comm.get_rank()}"
 
 
 def module_state_keys(tree) -> Dict[str, torch.Tensor]:

@@ -8,8 +8,8 @@ block (``CommsLoggerConfig``), the ``activation_checkpointing`` block
 (``ActivationCheckpointingConfig``), ``zero_optimization.stage``,
 ``.offload_optimizer``
 (``OffloadOptimizerConfig``), ``.offload_param`` (``OffloadParamConfig``)
-and ``.zenflow`` (``ZenFlowBlockConfig``),
-the ``moe`` block (``ep_size`` 1), the
+and ``.zenflow`` (``ZenFlowBlockConfig``), ZeRO++'s switches (qwZ, qgZ,
+qar, hpZ, MiCS), the ``moe`` block (``ep_size`` any), the
 ``serving`` block (``ServingConfig``, the serving engine's knobs), the
 ``sparse_attention`` block (``SparseAttentionConfig``), the
 ``kernels`` block (``KernelsConfig``), the ``checkpoint`` and
@@ -52,15 +52,6 @@ UNPORTED_BLOCKS = {
 }
 _FLEET = f"{_A} 14's fleet part (the fleet publisher and aggregator)"
 _FLEET_SERVING = f"{_A} 13 (the serving fleet)"
-# zero_optimization keys: accepted at their "off" values only
-ZERO_SWITCHES = {
-    "zero_quantized_weights": (False, f"{_A} 10 (ZeRO++)"),
-    "zero_quantized_gradients": (False, f"{_A} 10 (ZeRO++)"),
-    "zero_quantized_allreduce": (False, f"{_A} 10 (ZeRO++)"),
-    "zero_hpz_partition_size": (1, f"{_A} 10 (ZeRO++)"),
-    "mics_shard_size": (-1, f"{_A} 10 (ZeRO++ MiCS)"),
-    "mics_hierarchical_params_gather": (False, f"{_A} 10 (ZeRO++ MiCS)"),
-}
 # zero_optimization tuning knobs that JAX parses and never reads (XLA
 # schedules and fuses its collectives; ``param_persistence_threshold``
 # feeds only the compile passes, ROADMAP queue A item 16): accepted at any
@@ -249,6 +240,17 @@ class ZeroConfig:
     offload_optimizer: Optional[OffloadOptimizerConfig] = None
     offload_param: Optional[OffloadParamConfig] = None
     zenflow: Optional[ZenFlowBlockConfig] = None
+    # ZeRO++ (runtime/zeropp.py, runtime/qgz.py, runtime/sharding.py):
+    # hpZ shards within a group of ranks (fsdp = group, dp = replicas)
+    zero_hpz_partition_size: int = 1
+    zero_quantized_weights: bool = False  # qwZ: int8 param all-gather
+    zero_quantized_gradients: bool = False  # qgZ: quantized grad reduce
+    # qar: quantized all-reduce of the gradients (int8 reduce-scatter +
+    # int8 all-gather); it owns the gradient wire as qgZ does
+    zero_quantized_allreduce: bool = False
+    # MiCS: the same construction as hpZ, its group from mics_shard_size
+    mics_shard_size: int = -1
+    mics_hierarchical_params_gather: bool = False
 
     @property
     def offload_param_device(self) -> str:
@@ -272,14 +274,21 @@ class ZeroConfig:
             self.offload_param.validate()
         if self.zenflow is not None:
             self.zenflow.validate()
+        if self.zero_hpz_partition_size < 1:
+            raise ValueError("zero_hpz_partition_size must be >= 1")
+        if self.zero_quantized_allreduce and self.zero_quantized_gradients:
+            raise ValueError(
+                "zero_quantized_allreduce (qar) and "
+                "zero_quantized_gradients (qgZ) both own the gradient "
+                "wire — enable at most one")
 
 
 @dataclass
 class MoEConfig:
     """The JAX ``moe`` block. The engine applies ``impl`` to an MoE
     model's config; the other fields are the model zoo's defaults, as in
-    the JAX engine. ``ep_size`` must be 1 (the expert all-to-all across
-    ranks is ROADMAP queue A item 9)."""
+    the JAX engine. ``ep_size`` > 1 puts the experts on an ``ep`` mesh
+    axis (``parallel/moe.py``'s all-to-all dispatch)."""
 
     enabled: bool = False
     ep_size: int = 1
@@ -294,11 +303,8 @@ class MoEConfig:
     impl: str = "auto"  # auto | grouped | einsum
 
     def validate(self) -> None:
-        if self.enabled and self.ep_size > 1:
-            raise _unported(
-                f"moe.ep_size={self.ep_size}",
-                f"{_A} 9 (the ep > 1 all-to-all dispatch), over the ranks "
-                f"of item 5")
+        if self.ep_size < 1:
+            raise ValueError(f"moe.ep_size must be >= 1, got {self.ep_size}")
         if self.impl not in ("auto", "grouped", "einsum"):
             raise ValueError(f"moe.impl must be auto, grouped or einsum, "
                              f"got {self.impl!r}")
@@ -395,7 +401,8 @@ class PerformanceConfig:
     (``prefetch_depth``) through the engine, as in JAX. ``overlap_depth``
     parses and has no effect: it places JAX's scheduling barriers, which
     an eager program does not have (its fsdp branch is item 11's
-    multi-card part); ``fp8_mlp`` (item 10) raises when set."""
+    multi-card part); ``fp8_mlp`` runs the dense MLP's three products in
+    e4m3 with straight-through gradients (``ops/fp_quantizer.py``)."""
 
     pipeline_depth: int = 0
     prefetch_depth: int = 0
@@ -424,9 +431,6 @@ class PerformanceConfig:
             raise ValueError(
                 f"performance.overlap_depth must be >= 0, got "
                 f"{self.overlap_depth}")
-        if self.fp8_mlp:
-            raise _unported("performance.fp8_mlp=True",
-                            f"{_A} 10 (fp8 MLP, ops/fp_quantizer.py)")
 
 
 @dataclass
@@ -679,8 +683,9 @@ class ObservabilityConfig:
     disables it). ``watchdog`` and ``request_trace`` are their blocks.
     Not ported: ``run_dir`` (the fleet publisher; ``publish_every_steps``
     and ``stale_after_seconds`` are its knobs, accepted and unused as in
-    a JAX run without a run dir), ``quant_stats`` (ROADMAP queue A item
-    10), ``clock_sync`` and ``journal`` (item 13)."""
+    a JAX run without a run dir), ``clock_sync`` and ``journal`` (item
+    13). ``quant_stats`` turns on ZeRO++'s quantization telemetry
+    (``observability/quant_stats.py``; env DSTPU_QUANT_STATS=1)."""
 
     enabled: bool = True
     quant_stats: bool = False
@@ -725,9 +730,6 @@ class ObservabilityConfig:
         if self.run_dir:
             raise _unported(f"observability.run_dir={self.run_dir!r}",
                             _FLEET)
-        if self.quant_stats:
-            raise _unported("observability.quant_stats=True",
-                            f"{_A} 10 (ZeRO++'s quantization telemetry)")
 
 
 @dataclass
@@ -836,11 +838,6 @@ class Config:
             if data.get(name) is not None:
                 raise _unported(f"block '{name}'", item)
         zero = dict(data.get("zero_optimization") or {})
-        for name, (off, item) in ZERO_SWITCHES.items():
-            value = zero.pop(name, off)
-            if not (_offload_off(value) if name == "offload_param"
-                    else value == off):
-                raise _unported(f"zero_optimization.{name}={value!r}", item)
         for name in ZERO_NOOP_KEYS:
             zero.pop(name, None)
         if _offload_off(zero.get("offload_param")):

@@ -3,7 +3,9 @@
 
 The dense model's attention, norm and rope (``models/transformer.py``,
 so training attention goes through the flash kernels) with the FFN
-swapped for ``parallel/moe.py``'s dropless grouped-GEMM dispatch. The
+swapped for ``parallel/moe.py``'s dispatch (dropless grouped-GEMM, or
+the capacity-padded einsum under ``moe_impl="einsum"``); on an ep mesh
+each rank's expert stacks hold its E/ep experts. The
 parameter tree is the JAX one: ``layers.moe.router`` [L, h, E] and
 ``layers.moe.experts.{wi, wg}`` [L, E, h, f] / ``wo`` [L, E, f, h] in
 place of ``layers.mlp``.
@@ -41,16 +43,13 @@ class MoETransformerConfig(tf.TransformerConfig):
     drop_tokens: bool = True
     aux_loss_weight: float = 0.01
     z_loss_weight: float = 0.0
-    # "auto" | "grouped" (dropless grouped-GEMM); "einsum" is not ported
+    # "auto" | "grouped" (dropless grouped-GEMM) | "einsum" (capacity-
+    # padded GShard dispatch)
     moe_impl: str = "auto"
 
     def __post_init__(self):
         super().__post_init__()
-        if self.moe_impl == "einsum":
-            raise NotImplementedError(
-                "moe_impl='einsum' (the capacity-padded dispatch) is not "
-                "ported to deepspeed_tpu_torch yet: ROADMAP queue A item 9")
-        if self.moe_impl not in ("auto", "grouped"):
+        if self.moe_impl not in ("auto", "grouped", "einsum"):
             raise ValueError(f"unknown moe_impl {self.moe_impl!r}; known: "
                              "auto, grouped, einsum")
 

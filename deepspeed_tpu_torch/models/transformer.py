@@ -31,9 +31,11 @@ layers: ``apply_hidden_hosted`` / ``hosted_logits_loss``), all in
 ``zero_optimization.offload_param``) streams the layer stack from pinned
 host memory (``runtime/param_stream.py``): by default with
 ``prefetch_depth`` layers in flight on a copy stream, or, with
-``serialize_fetch``, a fetch inside each remat'd layer. The pipeline, sequence-parallel, qwZ and fp8 branches are
-not ported: their switches raise ``NotImplementedError`` naming their
-ROADMAP item.
+``serialize_fetch``, a fetch inside each remat'd layer. ``fp8_mlp`` runs
+the MLP's products in e4m3 with straight-through gradients
+(``ops/fp_quantizer.fp8_matmul_ste``).
+The pipeline and sequence-parallel branches are not ported: their
+switches raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,8 +62,6 @@ _A11 = "ROADMAP queue A item 11"
 _UNPORTED_SWITCHES = {
     "sequence_parallel": ((False,), f"{_A11}'s multi-card part (Ulysses / "
                                     "ring attention)"),
-    "fp8_mlp": ((False,), "ROADMAP queue A item 10 (fp8 MLP, "
-                          "ops/fp_quantizer.py)"),
 }
 
 
@@ -453,18 +453,27 @@ def _layer_mlp(cfg: TransformerConfig, x, attn, layer_params):
 
 
 def _mlp(cfg: TransformerConfig, y, mp):
-    """The MLP on its normed input (``mlp_out`` names its output)."""
+    """The MLP on its normed input (``mlp_out`` names its output); under
+    ``fp8_mlp`` its three products run in fp8 with straight-through
+    gradients (JAX's ``fp8_matmul_ste``)."""
     dt = cfg.dtype
-    if cfg.activation == "swiglu":
-        z = F.silu(torch.matmul(y, mp["wg"].to(dt))) * torch.matmul(
-            y, mp["wi"].to(dt))
+    if cfg.fp8_mlp:
+        from deepspeed_tpu_torch.ops.fp_quantizer import fp8_matmul_ste
+
+        def matmul(a, w):
+            return fp8_matmul_ste(a, w.to(dt), out_dtype=dt)
     else:
-        pre = torch.matmul(y, mp["wi"].to(dt))
+        def matmul(a, w):
+            return torch.matmul(a, w.to(dt))
+    if cfg.activation == "swiglu":
+        z = F.silu(matmul(y, mp["wg"])) * matmul(y, mp["wi"])
+    else:
+        pre = matmul(y, mp["wi"])
         if cfg.use_biases:
             pre = pre + mp["bi"].to(dt)
         z = act_fn(cfg.activation)(pre)
     with ac.checkpoint_name("mlp_out"):
-        out = torch.matmul(z, mp["wo"].to(dt))
+        out = matmul(z, mp["wo"])
         if cfg.use_biases:
             out = out + mp["bo"].to(dt)
     return out

@@ -46,8 +46,10 @@ by region, the measured side of the same table.
 
 The long-context tier (``attribute_longctx_step``) is JAX's analytic
 model (its sequence-parallel rows are formulas: nothing runs across
-cards); the quantized-comm attribution (``attribute_quant_step``)
-raises, naming ROADMAP queue A item 10.
+cards); so is the quantized-comm tier (``attribute_quant_step``: the
+stage-3 param gather and the gradient reduction under qwZ / qgZ / qar /
+hpZ, their bytes a card and their link mix, JAX's formulas; the links
+default to an HGX H100 node's).
 """
 
 from __future__ import annotations
@@ -492,11 +494,129 @@ def attribute_longctx_step(*, seq_len: int, hidden_size: int,
     return regions
 
 
-def attribute_quant_step(*args, **kwargs) -> List[RegionCost]:
-    """JAX's quantized-comm attribution (qwZ / qgZ / hpZ): not ported."""
-    raise NotImplementedError(
-        "attribute_quant_step: ROADMAP queue A item 10 (ZeRO++'s "
-        "quantized collectives are not ported)")
+# the quantized-collective tier (ZeRO++): the per-card bytes of the
+# stage-3 param gather and the gradient reduction, their link mix set by
+# the factorization hpZ controls. Analytic, as in JAX. The default links
+# are an HGX H100 node's: NVLink 4 at 450 GB/s a direction (900 GB/s
+# total a card), and one 400 Gb/s NDR InfiniBand port a card between
+# nodes (50 GB/s); DSTPU_ICI_GBPS / DSTPU_DCN_GBPS override them.
+_DEFAULT_ICI_GBPS = 450.0
+_DEFAULT_DCN_GBPS = 50.0
+
+
+def _wire_ratio(bits: int, block: int, full_bytes: float) -> float:
+    """(int payload + fp32 scale per block) / full-precision bytes."""
+    return (bits / 8.0 + 4.0 / block) / full_bytes
+
+
+def attribute_quant_step(cfg, *, qwz: bool = False, qgz: bool = False,
+                         qar: bool = False, hpz: int = 1,
+                         n_chips: int = 16, slice_size: int = 8,
+                         ici_gbps: Optional[float] = None,
+                         dcn_gbps: Optional[float] = None
+                         ) -> List[RegionCost]:
+    """Per-chip analytic costs of the two quantized-collective regions
+    for one fwd+bwd step of ``cfg`` on ``n_chips`` cards arranged in
+    slices of ``slice_size`` (a node: link "ici" is the intra-node
+    NVLink, "dcn" the inter-node network; JAX's names):
+
+    - **param_fetch** — the stage-3 per-layer param all-gather: each
+      chip receives (g-1)/g of every layer's params, fwd + bwd, where
+      g is the gather group (hpZ partition k when set, else all
+      chips). qwZ turns the bf16 wire into int8 payload + one fp32
+      scale per QWZ_BLOCK ((1+4/128)/2 ≈ 0.52×); hpZ keeps the group
+      intra-slice so the bytes ride ICI instead of DCN.
+    - **grad_reduce** — the qgZ reduction: level 1 moves every
+      gradient element once over the fsdp group ((g1-1)/g1 of the fp32
+      wire); when hpZ splits the mesh a second level reduces partial
+      sums over the dp axis across slices. qgZ quantizes level 1 to
+      int8 and the inter-slice level to int4, each + fp32 scales per
+      QGZ_BLOCK. ``qar`` replaces the reduce entirely with the
+      EQuARX-style quantized all-reduce: an int8 reduce-scatter plus an
+      int8 all-gather over the full dp axis, each hop moving (N-1)/N of
+      the gradient wire + fp32 scales per QUANT_BLOCK (qar and qgZ are
+      mutually exclusive, mirroring ZeroConfig.validate).
+
+    Each region's ``gbps``/``link`` pin the byte-weighted effective
+    bandwidth of its level mix, so the roofline ms reflects the link
+    flip, not just the byte shrink."""
+    from deepspeed_tpu_torch.runtime.qgz import QGZ_BLOCK
+    from deepspeed_tpu_torch.runtime.sharding import QWZ_BLOCK
+
+    ici = (ici_gbps if ici_gbps is not None
+           else float(os.environ.get("DSTPU_ICI_GBPS", _DEFAULT_ICI_GBPS)))
+    dcn = (dcn_gbps if dcn_gbps is not None
+           else float(os.environ.get("DSTPU_DCN_GBPS", _DEFAULT_DCN_GBPS)))
+    N = max(int(n_chips), 1)
+    S = max(min(int(slice_size), N), 1)
+    k = max(int(hpz), 1)
+    L = cfg.num_layers
+
+    layer_elems = _tree_bytes(_per_layer_shapes(cfg), 1)
+    n_params = cfg.num_params()
+
+    # -- param_fetch: per-layer all-gather, fwd + bwd -------------------
+    g = k if k > 1 else N
+    frac = (g - 1) / g if g > 1 else 0.0
+    fetch_full = 2.0 * layer_elems * frac * L * 2     # bf16 wire
+    w_ratio = _wire_ratio(8, QWZ_BLOCK, 2.0) if qwz else 1.0
+    fetch_bytes = fetch_full * w_ratio
+    fetch_link = "ici" if (k > 1 and k <= S) or N <= S else "dcn"
+    fetch_gbps_eff = ici if fetch_link == "ici" else dcn
+    fetch_note = (
+        ("int8+scales all-gather" if qwz else "bf16 all-gather")
+        + f" over g={g} ({fetch_link.upper()})"
+        + (f", hpZ k={k} keeps it intra-slice" if k > 1 else ""))
+
+    if qar and qgz:
+        raise ValueError("qar and qgz are mutually exclusive (both own "
+                         "the gradient wire)")
+
+    # -- grad_reduce: qgZ level structure -------------------------------
+    g1 = k if k > 1 else N
+    dp = N // g1 if k > 1 else 1
+    l1_link = "ici" if g1 <= S else "dcn"
+    l1_frac = (g1 - 1) / g1 if g1 > 1 else 0.0
+    l1_ratio = _wire_ratio(8, QGZ_BLOCK, 4.0) if qgz else 1.0
+    l1_bytes = 4.0 * n_params * l1_frac * l1_ratio
+    l2_frac = (dp - 1) / dp if dp > 1 else 0.0
+    l2_ratio = _wire_ratio(4, QGZ_BLOCK, 4.0) if qgz else 1.0
+    l2_bytes = 4.0 * n_params * l2_frac * l2_ratio
+    l1_ms = l1_bytes / ((ici if l1_link == "ici" else dcn) * 1e9) * 1e3
+    l2_ms = l2_bytes / (dcn * 1e9) * 1e3
+    red_bytes = l1_bytes + l2_bytes
+    red_ms = l1_ms + l2_ms
+    red_gbps = (red_bytes / (red_ms * 1e6)) if red_ms > 0 else ici
+    red_link = (l1_link if dp <= 1
+                else f"{l1_link}+dcn")
+    red_note = (
+        (f"int8 level1 over fsdp={g1} ({l1_link.upper()})" if qgz
+         else f"fp32 reduce over fsdp={g1} ({l1_link.upper()})")
+        + ((f" + {'int4' if qgz else 'fp32'} level2 over dp={dp} (DCN)")
+           if dp > 1 else ""))
+
+    if qar:
+        # qar overrides the level structure: one flat int8 all-reduce
+        # (reduce-scatter + all-gather) over the full dp axis; fp32
+        # scales per QUANT_BLOCK on both hops
+        from deepspeed_tpu_torch.runtime.zeropp import QUANT_BLOCK
+        ar_frac = (N - 1) / N if N > 1 else 0.0
+        ar_ratio = _wire_ratio(8, QUANT_BLOCK, 4.0)
+        red_link = "ici" if N <= S else "dcn"
+        ar_gbps = ici if red_link == "ici" else dcn
+        red_bytes = 2.0 * 4.0 * n_params * ar_frac * ar_ratio
+        red_ms = red_bytes / (ar_gbps * 1e9) * 1e3
+        red_gbps = ar_gbps
+        red_note = (f"qar: int8 reduce-scatter + int8 all-gather over "
+                    f"dp={N} ({red_link.upper()})")
+
+    return [
+        RegionCost("param_fetch", 0.0, fetch_bytes, note=fetch_note,
+                   overlapped=True, gbps=fetch_gbps_eff,
+                   link=fetch_link),
+        RegionCost("grad_reduce", 0.0, red_bytes, note=red_note,
+                   overlapped=False, gbps=red_gbps, link=red_link),
+    ]
 
 
 # ---------------------------------------------------------------------------

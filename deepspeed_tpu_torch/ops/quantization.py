@@ -31,9 +31,14 @@ tensors it runs the plain PyTorch version beside it. Every operation is
 one IEEE-rounded step in both, so they agree bit for bit. There is no
 other path: no fallback when a build or a launch fails.
 
-The quantized collectives (``quantized_all_gather``,
-``quantized_psum_scatter``, ``quantized_all_reduce``, :201-260) wait for
-ROADMAP queue A item 10.
+The quantized collectives of ZeRO++ (``quantized_all_gather``,
+``quantized_psum_scatter``, ``quantized_all_reduce``; JAX :201-260) are
+bodies over ``comm``: each quantizes with ``quantize_blockwise`` (the
+kernel on the card), moves the codes (int8, or int4 packed two to a
+byte) and the fp32 scales, and dequantizes with ``dequantize`` (the
+kernel on the card; it unpacks int4 itself). As in JAX they quantize
+at every group size, one rank included. The comms logger records the
+codes' and the scales' bytes, the wire.
 
 ``LAUNCHES`` counts kernel launches per kernel (the plain versions never
 count), so a run can show that its main path went through the kernels.
@@ -316,6 +321,88 @@ def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor, bits: int = 8,
     blk = block if n % block == 0 else min(block, n)
     qb = q.reshape(*q.shape[:-1], n // blk, blk)
     return dequantize(qb, scale, dtype).reshape(q.shape)
+
+
+def _dequantize_rows(q: torch.Tensor, s: torch.Tensor, bits: int, n: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Codes [..., n] (int8) or [..., n / 2] (packed int4) with their
+    block scales [..., n / blk] back to ``dtype`` [..., n], in one
+    ``dequantize`` (the unpack included)."""
+    nb = s.shape[-1]
+    w = q.shape[-1] // nb
+    out = dequantize(q.reshape(*q.shape[:-1], nb, w), s, dtype)
+    return out.reshape(*q.shape[:-1], n)
+
+
+def _encode(x: torch.Tensor, bits: int, block: int):
+    q, s = quantize_blockwise(x, bits=bits, block=block)
+    return (pack_int4(q) if bits == 4 else q), s
+
+
+def quantized_all_gather(x: torch.Tensor, axis, bits: int = 8,
+                         block: int = DEFAULT_BLOCK,
+                         log_name: str = "quantized_all_gather"
+                         ) -> torch.Tensor:
+    """qwZ: the all-gather along dim 0 with an int8 / int4 wire
+    (reference quantized weight all-gather, partition_parameters.py:1446):
+    quantize this rank's block, gather codes and scales, dequantize to
+    ``x``'s dtype."""
+    from deepspeed_tpu_torch import comm
+
+    q, s = _encode(x, bits, block)
+    qg = comm.all_gather(q, axis, gather_dim=0, log_name=log_name)
+    sg = comm.all_gather(s, axis, gather_dim=0,
+                         log_name=f"{log_name}_scales")
+    return _dequantize_rows(qg, sg, bits, x.shape[-1], x.dtype)
+
+
+def quantized_psum_scatter(x: torch.Tensor, axis, bits: int = 8,
+                           block: int = DEFAULT_BLOCK,
+                           log_name: str = "quantized_psum_scatter"
+                           ) -> torch.Tensor:
+    """qgZ: the mean-reducing scatter of dim 0 with a quantized wire
+    (reference all_to_all_quant_reduce, coalesced_collectives.py:31):
+    quantize, all-to-all codes and scales (block r of dim 0 to rank r),
+    dequantize in fp32, sum over the source ranks in rank order, divide
+    by the group size; returns this rank's block in ``x``'s dtype."""
+    from deepspeed_tpu_torch import comm
+
+    n = comm.axis_size(axis)
+    shard = x.shape[0] // n
+    q, s = _encode(x, bits, block)
+    qt = comm.all_to_all(q, axis, split_dim=0, concat_dim=0,
+                         log_name=log_name)
+    st = comm.all_to_all(s, axis, split_dim=0, concat_dim=0,
+                         log_name=f"{log_name}_scales")
+    vals = _dequantize_rows(qt, st, bits, x.shape[-1], torch.float32)
+    vals = vals.reshape(n, shard, *x.shape[1:])
+    acc = vals[0].clone()
+    for r in range(1, n):
+        acc += vals[r]
+    # a tensor divisor: CUDA's division by a Python scalar multiplies by
+    # its reciprocal; ``full`` fills on the device (no host copy, no sync)
+    n_t = torch.full((), float(n), dtype=torch.float32, device=acc.device)
+    return (acc / n_t).to(x.dtype)
+
+
+def quantized_all_reduce(x: torch.Tensor, axis, bits: int = 8,
+                         block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """qar (EQuARX, arXiv:2506.17615): ``quantized_psum_scatter`` then
+    ``quantized_all_gather`` of the reduced blocks, so both wire phases
+    move codes; the full mean on every rank. Dim 0 is padded to a
+    multiple of the group size and the padding stripped after."""
+    from deepspeed_tpu_torch import comm
+
+    n = comm.axis_size(axis)
+    d0 = x.shape[0]
+    pad = (-d0) % n
+    xp = x if pad == 0 else torch.cat(
+        [x, x.new_zeros((pad, *x.shape[1:]))], dim=0)
+    shard = quantized_psum_scatter(xp, axis, bits=bits, block=block,
+                                   log_name="qar_scatter")
+    full = quantized_all_gather(shard, axis, bits=bits, block=block,
+                                log_name="qar_gather")
+    return full[:d0] if pad else full
 
 
 def kv_quantize(x: torch.Tensor, bits=8) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -41,7 +41,8 @@ MESH_AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 BATCH_AXES = ("dp", "fsdp", "ep")  # the batch dim shards over the data axes
 SEQ_AXIS = "sp"
 # the axis tuples that get a group of their own besides the single axes
-_GROUPED_AXES = (BATCH_AXES, ("dp", "fsdp"))
+# (qgZ's replica level reduces over dp and ep together)
+_GROUPED_AXES = (BATCH_AXES, ("dp", "fsdp"), ("dp", "ep"))
 
 AxisName = Union[str, Tuple[str, ...]]
 

@@ -52,10 +52,26 @@ the compute params as blocks and gathers each layer at its use
 backward. The global-norm clip sums each rank's part and all-reduces
 one fp32 scalar; fp16's overflow decision is agreed across ranks; the
 loss is averaged over the ranks. Without a process group (one process)
-the engine runs as before, with no collective. At world size > 1 the
-optimizer offload tiers, ZenFlow, MoE models, a client optimizer or a
-non-elementwise optimizer at stage >= 1, and mesh axes other than dp
-and fsdp raise ``NotImplementedError`` naming their ROADMAP item.
+the engine runs as before, with no collective. An MoE model's experts
+split over the ``ep`` ranks (``moe.ep_size``): each rank holds E/ep of
+every expert stack, a dense gradient reduces over every token rank and an
+expert gradient over the dp x fsdp ranks that share the expert. At world
+size > 1 the optimizer offload tiers, ZenFlow, a client optimizer or a
+non-elementwise optimizer at stage >= 1, tp-split experts and the pp, sp
+and tp axes raise ``NotImplementedError`` naming their ROADMAP item.
+
+ZeRO++ (JAX ``engine.py:293-420``): the stage 1-2 step (qgZ / qwZ / qar
+over dp, ``runtime/zeropp.py``) where it applies (AdamW, no fp16, MoE,
+offload, client optimizer or hpZ / MiCS; the default mesh is then dp =
+world); qwZ's int8 gather at stage 3 (not with MoE, counted in
+``zeropp.qwz_disabled``); qgZ's quantized reduction at stages 2-3 with
+fsdp > 1 and no pp (``runtime/qgz.py``; below that it warns and counts
+``zeropp.qgz_disabled``), under which MoE layers dispatch by einsum and
+expert gradients reduce over ep with the quantized wire; hpZ / MiCS as
+fsdp = the group, dp = the replicas. The 1-bit optimizers
+(``runtime/onebit.py``) replace the optimizer block's. Both steps run
+on ``train_batch`` only and take ``set_lr`` without a rebuild.
+``performance.fp8_mlp`` reaches the model's ``fp8_mlp``.
 
 ZeRO-Offload (``zero_optimization.offload_optimizer``, device cpu or
 nvme; ``runtime/offload.py``): only the compute-dtype params and their
@@ -206,6 +222,8 @@ from deepspeed_tpu_torch.runtime.prefetch import (PrefetchingIterator,
 from deepspeed_tpu_torch.runtime.zenflow import (ZenFlowConfig,
                                                  ZenFlowOptimizer)
 from deepspeed_tpu_torch.runtime.zero import ZeroPartition
+from deepspeed_tpu_torch.runtime import onebit as onebit_mod
+from deepspeed_tpu_torch.runtime import zeropp as zeropp_mod
 from deepspeed_tpu_torch.utils import memory as mem_util
 from deepspeed_tpu_torch.utils import memspace
 from deepspeed_tpu_torch.utils.logging import process_rank
@@ -380,6 +398,12 @@ class Engine:
         mem_util.see_memory_usage("engine init: before model setup",
                                   device=self.device)
         self._client_optimizer_present = client_optimizer is not None
+        # the 1-bit optimizers (runtime/onebit.py) take the optimizer
+        # block's place (JAX engine.py:293-302)
+        self._onebit = onebit_mod.onebit_name(config) in \
+            onebit_mod.ONEBIT_OPTIMIZERS
+        if self._onebit:
+            onebit_mod.validate_onebit_config(config)
         # the mesh (JAX engine.py:161-167): the ranks over the named axes
         self.mesh = mesh if mesh is not None else \
             self._default_mesh(topology)
@@ -388,6 +412,7 @@ class Engine:
         config.resolve_batch_size(self.dp_world_size)
         self.plan = sharding.make_sharding_plan(config, self.mesh)
         comm.configure(config)
+        self._init_zeropp_flags(config)
         act_ckpt.configure(config.activation_checkpointing)
         self.micro_batch_size = config.train_micro_batch_size_per_chip
         self.gradient_accumulation_steps = config.gradient_accumulation_steps
@@ -414,6 +439,8 @@ class Engine:
         if perf.param_prefetch_depth is not None and \
                 "prefetch_depth" in mfields:
             over["prefetch_depth"] = int(perf.param_prefetch_depth)
+        if perf.fp8_mlp and "fp8_mlp" in mfields:
+            over["fp8_mlp"] = True
         if "remat_policy" in mfields:
             # resolved here, once: a later configure() (another engine's)
             # does not change what this engine's steps keep
@@ -440,14 +467,25 @@ class Engine:
         self._fetch: Optional[sharding.LayerFetch] = None
         if self.mesh.distributed:
             self._check_world(model)
+        # the ZeRO++ stage 1-2 step and the 1-bit step reduce their own
+        # gradients (runtime/zeropp.py, runtime/onebit.py)
+        self._quant_step = None
         if self.mesh.distributed and \
-                zero.offload_device not in ("cpu", "nvme"):
+                zero.offload_device not in ("cpu", "nvme") and \
+                not (self._zeropp or self._onebit):
             logical = self._logical_axes(model)
             self._zero = ZeroPartition(self.plan, self.mesh, logical,
-                                       zero.stage)
+                                       zero.stage, qgz=self._qgz_stage3)
             self._zero.check(model.params())
-            if any(d is not None for d in self._zero.param_dim.values()):
-                self._fetch = sharding.LayerFetch(logical)
+            stage3 = any(d is not None
+                         for d in self._zero.param_dim.values())
+            experts = self._zero.qgz_experts()
+            if stage3 or experts:
+                self._fetch = sharding.LayerFetch(
+                    logical, qwz_bits=8 if self._qwz_stage3 else None,
+                    qgz=self._zero.qgz_of if self._qgz_stage3 else None,
+                    experts=self._zero.expert_gather_of if experts else None,
+                    stage3=stage3)
         if zero.zenflow is not None and zero.offload_device != "cpu":
             raise ValueError(
                 "zero_optimization.zenflow requires "
@@ -476,6 +514,8 @@ class Engine:
                 self._init_offload(model)
         elif self._client_optimizer_present:
             self._init_client_optimizer(model, client_optimizer)
+        elif self._onebit or self._zeropp:
+            self._init_quant_step(model)
         else:
             self.tx, self._base_lr = get_base_optimizer(config.optimizer,
                                                         self.lr_schedule)
@@ -519,6 +559,7 @@ class Engine:
                 p.register_post_accumulate_grad_hook(fold)
 
         self._init_observability()
+        self._init_quant_stats()
         self._init_resilience()
         self._init_pipelining()
         self._ckpt_io = CheckpointIO(self)
@@ -556,17 +597,138 @@ class Engine:
 
     def _default_mesh(self, topology):
         """JAX's default mesh (``engine.py:654-679``) over the world's
-        ranks: fsdp = world at stage >= 1, dp = world at stage 0 (ep
-        from the moe block; pp, tp and sp blocks raise at the config)."""
+        ranks: dp = world for the ZeRO++ stage 1-2 step, fsdp = the group
+        and dp = the replicas under hpZ / MiCS, else fsdp = world at
+        stage >= 1 and dp = world at stage 0 (ep from the moe block; pp,
+        tp and sp blocks raise at the config)."""
         if topology is not None:
             return topo.build_mesh(topology)
         cfg = self.config
         sizes = dict(ep=cfg.moe.ep_size if cfg.moe.enabled else 1)
-        if cfg.zero_optimization.stage >= 1:
+        z = cfg.zero_optimization
+        hpz, mics = z.zero_hpz_partition_size, z.mics_shard_size
+        group = hpz if hpz > 1 else (mics if mics > 0 else 0)
+        if self._zeropp_applicable(cfg) and not self._onebit:
+            # the quantized-collective step shards its masters over dp
+            sizes.update(dp=-1, fsdp=1)
+        elif z.stage >= 1 and group > 1:
+            # hpZ and MiCS: shard within a group of ranks, replicate
+            # across the groups
+            sizes.update(fsdp=group, dp=-1)
+        elif z.stage >= 1:
             sizes.update(fsdp=-1, dp=1)
         else:
             sizes.update(dp=-1, fsdp=1)
         return topo.build_mesh(topo.TopologyConfig(**sizes))
+
+    def _zeropp_applicable(self, config) -> bool:
+        """The ZeRO++ stage 1-2 step's preconditions (JAX
+        ``engine.py:623-660``; the 1-bit exclusion is checked by the
+        callers): fp16, MoE, offload, a client optimizer, hpZ / MiCS and
+        optimizers other than Adam(W) take the standard path, and so do
+        meshes with fsdp, sp, ep or pp ranks (qgZ's stage 2-3 reduction
+        serves those)."""
+        z = config.zero_optimization
+        opt = ((config.optimizer.type if config.optimizer else "")
+               or "adamw").lower().replace("_", "").replace("-", "")
+        mesh = getattr(self, "mesh", None)
+        return (zeropp_mod.zeropp_enabled(config)
+                and z.offload_device == "none"
+                and not config.fp16.enabled
+                and not config.moe.enabled
+                and not self._client_optimizer_present
+                and z.zero_hpz_partition_size <= 1
+                and z.mics_shard_size <= 0
+                and (mesh is None or all(mesh.shape.get(a, 1) == 1 for a in
+                                         ("fsdp", "sp", "ep", "pp")))
+                and opt in ("adam", "adamw", "fusedadam", "fusedadamw"))
+
+    def _init_zeropp_flags(self, config) -> None:
+        """Which ZeRO++ parts arm, with JAX's warnings and telemetry
+        (``engine.py:342-420``): the stage 1-2 step; qwZ's int8 stage-3
+        gather (not with MoE); qgZ's quantized reduction at stages 2-3
+        (fsdp > 1, no pp)."""
+        from deepspeed_tpu_torch.utils import telemetry
+
+        zq = config.zero_optimization
+        self._zeropp = self._zeropp_applicable(config) and not self._onebit
+        self._qwz_stage3 = (zq.stage == 3 and zq.zero_quantized_weights
+                            and not config.moe.enabled)
+        if zq.stage == 3 and zq.zero_quantized_weights \
+                and not self._qwz_stage3:
+            telemetry.count("zeropp.qwz_disabled", "moe")
+            logger.warning("ZeRO++ qwZ stage-3 is inert for this config "
+                           "(moe) — layer gathers stay full-width")
+        if self._qwz_stage3:
+            logger.info("ZeRO++ qwZ: stage-3 int8 quantized parameter "
+                        "all-gather enabled (fsdp axis)")
+        shape = self.mesh.shape
+        self._qgz_stage3 = (zq.stage >= 2 and zq.zero_quantized_gradients
+                            and shape.get("pp", 1) <= 1
+                            and shape.get("fsdp", 1) > 1)
+        if self._qgz_stage3:
+            logger.info(
+                "ZeRO++ qgZ: stage-3 quantized gradient reduction enabled "
+                f"(int8 over fsdp={shape['fsdp']}"
+                + (f", int8 expert-grads over ep={shape['ep']}"
+                   if shape.get("ep", 1) > 1 else "")
+                + (f", int4 over dp={shape['dp']}"
+                   if shape.get("dp", 1) > 1 else "") + ")")
+        elif zq.stage == 3 and zq.zero_quantized_gradients:
+            telemetry.count("zeropp.qgz_disabled",
+                            "config outside qgZ support matrix")
+            logger.warning(
+                "ZeRO++ qgZ at stage 3 requires no optimizer offload, "
+                "no pp axis, and fsdp > 1 — this config fails that, so "
+                "gradients reduce at full width")
+        if (zq.zero_quantized_weights or zq.zero_quantized_gradients) \
+                and not self._zeropp and not self._qwz_stage3 \
+                and not self._qgz_stage3:
+            logger.warning(
+                "ZeRO++ flags (qwZ/qgZ) are wired for: stage 1-2 with "
+                "adam/adamw (no client optimizer), bf16, no optimizer "
+                "offload, no MoE, no sp/pp axes, no hpZ/MiCS grouping, no "
+                "1-bit optimizer; or stage-3 zero_quantized_weights/"
+                "zero_quantized_gradients (dense models). This config "
+                "fails those, so the quantized path is disabled and the "
+                "standard step runs")
+
+    @torch.no_grad()
+    def _init_quant_step(self, model) -> None:
+        """The 1-bit step (replicated fp32 masters, each rank's error
+        feedback) or the ZeRO++ stage 1-2 step (this rank's flat block of
+        each master over dp), over compute params the step writes."""
+        cfg = self.config
+        self.tx, self.opt_state = None, None
+        src = model.params()
+        self._compute_params(src)
+        if self._onebit:
+            opt = onebit_mod.parse_onebit_params(
+                onebit_mod.onebit_name(cfg),
+                cfg.optimizer.params if cfg.optimizer else {})
+            self._base_lr = float(opt["lr"])
+            self.lr_schedule = get_lr_schedule(cfg.scheduler,
+                                               base_lr=self._base_lr)
+            self.lr_scheduler = self.lr_schedule
+            masters = {path: p.detach().float().clone()
+                       for path, p in leaves(src)}
+            self._quant_step = onebit_mod.OneBitStep(
+                masters, opt, self.lr_schedule, cfg.gradient_clipping)
+            return
+        p = dict((cfg.optimizer.params or {}) if cfg.optimizer else {})
+        z = cfg.zero_optimization
+        self._base_lr = self._config_lr()
+        self._quant_step = zeropp_mod.ZeroppStep(
+            src, dp=self.mesh.axis_size("dp"),
+            rank=self.mesh.axis_index("dp"), lr_schedule=self.lr_schedule,
+            base_lr=self._base_lr,
+            betas=tuple(p.get("betas", (0.9, 0.999))),
+            eps=float(p.get("eps", 1e-8)),
+            weight_decay=float(p.get("weight_decay", 0.01)),
+            grad_clip=cfg.gradient_clipping,
+            qg_enabled=z.zero_quantized_gradients, qg_bits=8,
+            qw_enabled=z.zero_quantized_weights, qw_bits=8,
+            qar_enabled=z.zero_quantized_allreduce, qar_bits=8)
 
     def _check_world(self, model) -> None:
         """What does not run across ranks yet raises, naming its item."""
@@ -581,12 +743,13 @@ class Engine:
                 f"across ranks they are {_A} 5's leftover (JAX config C, "
                 "ZenFlow on the fsdp mesh)")
         if isinstance(getattr(model, "config", None),
-                      moe_transformer.MoETransformerConfig):
+                      moe_transformer.MoETransformerConfig) and \
+                self.mesh.shape["tp"] > 1:
             raise NotImplementedError(
-                f"an MoE model at world size {world}: {_A} 9 (MoE across "
-                "ranks: the expert all-to-all and the router's losses over "
-                "the global batch)")
-        for axis, item in (("pp", 11), ("sp", 11), ("tp", 11), ("ep", 9)):
+                f"an MoE model on tp={self.mesh.shape['tp']}: the tp-split "
+                f"experts (the tp psum and the routing digest) are {_A} "
+                "9's leftover, with item 11's tensor parallelism")
+        for axis, item in (("pp", 11), ("sp", 11), ("tp", 11)):
             if self.mesh.shape[axis] > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis}={self.mesh.shape[axis]}: {_A} "
@@ -645,13 +808,14 @@ class Engine:
     def _model_loss(self, batch):
         """The model's (loss, aux) on ``batch``; at stage 3 under the fetch
         hook (a ``(loss_fn, params)`` model gathers its whole tree)."""
-        if self._fetch is None:
-            return self._loss_fn(self.model_config, self.params, batch)
-        if isinstance(self.model, _FnModel):
-            return self._loss_fn(self.model_config,
-                                 self._fetch.tree(self.params), batch)
-        with sharding.param_fetch(self._fetch):
-            return self._loss_fn(self.model_config, self.params, batch)
+        with sharding.qgz_groups(self._qgz_stage3):
+            if self._fetch is None:
+                return self._loss_fn(self.model_config, self.params, batch)
+            if isinstance(self.model, _FnModel):
+                return self._loss_fn(self.model_config,
+                                     self._fetch.tree(self.params), batch)
+            with sharding.param_fetch(self._fetch):
+                return self._loss_fn(self.model_config, self.params, batch)
 
     def _compute_params(self, src):
         """The compute-dtype params from ``src``; under ``offload_param``
@@ -830,6 +994,27 @@ class Engine:
         self._base_lr = self._offload.lr
         if self._offload.tier == "cpu":
             self._share_masters(src, self._offload.masters.get)
+
+    def _init_quant_stats(self) -> None:
+        """ZeRO++'s quantization telemetry (JAX ``engine.py:590-615``):
+        with qwZ or qgZ on, an init-time ``quant.*`` sample of the params
+        when collection is configured, else one warning that the error
+        and the wire bytes go unmeasured."""
+        z = self.config.zero_optimization
+        if not (z.zero_quantized_weights or z.zero_quantized_gradients):
+            return
+        from deepspeed_tpu_torch.observability import quant_stats
+        from deepspeed_tpu_torch.utils.logging import warning_once
+
+        if quant_stats.collection_configured(self.config.observability):
+            quant_stats.install_engine_collector(self)
+        else:
+            warning_once(
+                "ZeRO++ quantization (zero_quantized_weights/"
+                "zero_quantized_gradients) is enabled but no quant.* "
+                "collection is configured — quantization error and wire "
+                "bytes are unmeasured. Set observability.quant_stats=true "
+                "or DSTPU_QUANT_STATS=1.")
 
     def _init_observability(self) -> None:
         """The timers, the monitor, the hub, the watchdog, the flight
@@ -1239,6 +1424,12 @@ class Engine:
         elif self._zenflow is not None:
             gnorm, overflow = self._zenflow_apply(scale if fp16 else None,
                                                   lr)
+        elif self._quant_step is not None:
+            acc = self.gradient_accumulation_steps > 1
+            grads = {path: (self._grad_acc.get(p) if acc else p.grad)
+                     for path, p in leaves(self.params)}
+            gnorm = self._quant_step.step(grads, self.params)
+            overflow = False
         else:
             if self.gradient_accumulation_steps > 1:
                 grads = tree_map(lambda p: self._grad_acc.get(p),
@@ -1282,7 +1473,7 @@ class Engine:
         for hook in self._post_step_hooks:
             hook(self)
         mean_loss = torch.stack([loss for loss, _ in micro]).mean()
-        if self._zero is not None:  # the mean over the data ranks
+        if self.mesh.distributed:  # the mean over the data ranks
             mean_loss = comm.all_reduce(mean_loss, topo.BATCH_AXES,
                                         op="mean")
         self.last_metrics = {"loss": mean_loss, "grad_norm": gnorm, "lr": lr,
@@ -1434,6 +1625,10 @@ class Engine:
     def forward(self, batch) -> torch.Tensor:
         """One microbatch's loss (this rank's rows), keeping the autograd
         graph for :meth:`backward`."""
+        if self._onebit or self._zeropp:
+            raise RuntimeError(
+                "the 1-bit and ZeRO++ stage 1-2 steps run on the "
+                "train_batch() path only; use engine.train_batch(...)")
         self.timers(FORWARD_GLOBAL_TIMER).start()
         loss, aux = self._model_loss(self._to_device(batch))
         self._pending = (loss, aux)
@@ -1495,7 +1690,7 @@ class Engine:
         a process group, as JAX's global loss)."""
         self.synchronize()
         loss, _aux = self._model_loss(self._to_device(batch))
-        if self._zero is not None:
+        if self.mesh.distributed:
             loss = comm.all_reduce(loss, topo.BATCH_AXES, op="mean")
         return loss
 
@@ -1513,13 +1708,15 @@ class Engine:
         """Updates applied so far (the LR schedule's position)."""
         if self._zenflow is not None:
             return self._zenflow.steps
+        if self._quant_step is not None:
+            return self._quant_step.state.step
         return (self._offload.count if self._offload is not None
                 else self.opt_state.count)
 
     def get_lr(self) -> List[float]:
         """The LR of the next update (the schedule at the count of
         updates applied so far)."""
-        if self._host_tier:
+        if self._host_tier or self._quant_step is not None:
             return [float(self.lr_schedule(self.update_count))
                     if self.lr_schedule is not None else self._base_lr]
         if self._client_opt is not None:
@@ -1531,7 +1728,17 @@ class Engine:
         ``param_groups[0]['lr'] = x``): it becomes the base LR and the
         optimizer block's ``lr``; a configured schedule is dropped, with
         JAX's warning. The optimizer's state is kept. Raises with a
-        client optimizer, as JAX does (``engine.py:1883``)."""
+        client optimizer, as JAX does (``engine.py:1883``). The 1-bit and
+        ZeRO++ steps take the LR as an override, with no rebuild."""
+        if self._quant_step is not None:
+            self._quant_step.lr_override = float(lr)
+            self._base_lr = float(lr)
+            if self.lr_schedule is not None:
+                logger.warning("set_lr override disables the configured "
+                               "lr schedule for the runtime-lr step")
+                self.lr_schedule = None
+                self._quant_step.lr_schedule = None
+            return
         if self._client_optimizer_present:
             raise NotImplementedError(
                 "set_lr: the engine cannot re-point a client optimizer's "
@@ -1760,8 +1967,9 @@ class Engine:
             full = {k: (t if self._zero is None else self._zero.full(
                         "/" + k.replace(".", "/"), t.detach(), "param"))
                     for k, t in module_state_keys(self.params).items()}
-        return {k: (t.detach().float() if t.dtype == torch.bfloat16
-                    else t.detach()).cpu().numpy()
+        # a copy: on the CPU ``.numpy()`` would alias the live params
+        return {k: np.array((t.detach().float() if t.dtype == torch.bfloat16
+                             else t.detach()).cpu().numpy(), copy=True)
                 for k, t in full.items()}
 
     @torch.no_grad()
@@ -1778,7 +1986,7 @@ class Engine:
                 f"missing keys: {missing[:5]}"
                 f"{'...' if len(missing) > 5 else ''}; unexpected keys: "
                 f"{unexpected[:5]}{'...' if len(unexpected) > 5 else ''}")
-        masters = (None if self._host_tier
+        masters = (None if self._host_tier or self._quant_step is not None
                    else module_state_keys(self.opt_state.master))
         for key, p in own.items():
             if key not in state_dict:
@@ -1794,9 +2002,34 @@ class Engine:
                 with topo.use_mesh(self.mesh):
                     masters[key].copy_(self._zero.block(path, value))
                     p.copy_(self._zero.block(path, value, "param"))
+            elif self._quant_step is not None:
+                p.copy_(value)
             else:
                 masters[key].copy_(value)
                 p.copy_(masters[key])
+        if self._quant_step is not None:
+            self.reseed_quant_masters(moments=False)
+
+    @torch.no_grad()
+    def reseed_quant_masters(self, moments: bool = True) -> None:
+        """The 1-bit / ZeRO++ fp32 masters from the compute params (after
+        a load of the params alone); ``moments`` also zeroes the moments
+        and the error feedback (JAX's ``reseed_state_from_params``)."""
+        qs = self._quant_step
+        if isinstance(qs, zeropp_mod.ZeroppStep):
+            fresh = zeropp_mod.reseed_state_from_params(
+                self.params, qs.state, qs.dp, qs.rank)
+            if moments:
+                qs.state = fresh
+            else:
+                for k, v in fresh.master.items():
+                    qs.state.master[k].copy_(v)
+            return
+        for path, p in leaves(self.params):
+            qs.state.master[path].copy_(p.float())
+            if moments:
+                for tree in (qs.state.m, qs.state.v, qs.state.error):
+                    tree[path].zero_()
 
     # -- state offload between phases (JAX engine.py:1913-1978) ---------
     OFFLOAD_STATE_KINDS = frozenset({"lp_params", "hp_params",

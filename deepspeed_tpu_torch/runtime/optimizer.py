@@ -42,7 +42,7 @@ ADAGRAD_ALIASES = {"adagrad", "cpuadagrad"}
 LAMB_ALIASES = {"lamb", "fusedlamb"}
 # optimizers of the JAX package that wait for a later item (the 1-bit
 # family compresses the gradient exchange across ranks)
-UNPORTED_OPTIMIZERS = {"onebitadam", "onebitlamb", "zerooneadam"}
+ONEBIT_OPTIMIZERS = {"onebitadam", "onebitlamb", "zerooneadam"}
 NORM_CHUNK = 1 << 26
 
 Tree = Dict[str, Any]
@@ -321,11 +321,11 @@ def get_base_optimizer(opt_config, lr_schedule: Optional[Callable] = None
     if p:  # DeepSpeed-style keys optax has no use for (bias_correction, ...)
         logger.warning(f"optimizer '{opt_config.type}': ignoring params "
                        f"{sorted(p)}")
-    if name in UNPORTED_OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer '{opt_config.type}' is not ported to "
-            "deepspeed_tpu_torch yet: ROADMAP queue A item 10 (the 1-bit "
-            "optimizers compress the gradient exchange across ranks)")
+    if name in ONEBIT_OPTIMIZERS:
+        raise ValueError(
+            f"optimizer '{opt_config.type}' is a 1-bit optimizer: the "
+            "engine builds it (runtime/onebit.py), with its compressed "
+            "momentum exchange across ranks")
     if name in ADAMW_ALIASES | ADAM_ALIASES:
         tx = Adam(lr=lr_arg, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                   decoupled=name in ADAMW_ALIASES)

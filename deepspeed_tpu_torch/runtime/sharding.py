@@ -27,13 +27,20 @@ hook (``param_fetch`` / ``active_fetch``) inside each remat'd layer, so
 the recompute gathers again, as DeepSpeed's stage 3 re-fetches. The
 engine installs the hook at stage 3.
 
-Not ported, with their reasons: the qwZ parts (``qwz_context``,
-``quantized_param_fetch``, ``qwz_sequence_barrier``) go with ROADMAP
-queue A item 10; ``vocab_parallel_lookup`` with item 11 (tensor
-parallelism); the GSPMD-only context managers ``disable_constraints`` /
-``manual_axes`` / ``vmapped_axes``, ``constrain_activation``,
-``named_sharding`` and ``effective_dtype`` have no eager counterpart:
-there is no partitioner to steer.
+ZeRO++ at stage 3 (qwZ): under an armed ``qwz_context`` the gather moves
+int8 codes and fp32 scales (``quantized_param_fetch``: the B6 quantize
+on this rank's shard, both gathered over fsdp, the 6b dequantize), with
+the straight-through backward (the reduce-scatter, or qgZ's quantized
+reduction when the fetch carries one). ``qwz_sequence_barrier`` is the
+identity: an eager program issues each gather where the code stands.
+hpZ and MiCS build fsdp = the group and dp = the replicas
+(``make_sharding_plan`` keeps the state sharded over the fsdp group).
+
+Not ported, with their reasons: ``vocab_parallel_lookup`` goes with
+ROADMAP queue A item 11 (tensor parallelism); the GSPMD-only context
+managers ``disable_constraints`` / ``manual_axes`` / ``vmapped_axes``,
+``constrain_activation``, ``named_sharding`` and ``effective_dtype`` have
+no eager counterpart: there is no partitioner to steer.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -218,9 +226,10 @@ def z3_leaf_spec(path: str, spec: Spec) -> Spec:
 
 
 def make_sharding_plan(config, mesh) -> ShardingPlan:
-    """Compile the config's ZeRO choices into rule tables (JAX's; the
-    hpZ branch needs ``zero_hpz_partition_size`` > 1, which the config
-    refuses: ROADMAP queue A item 10)."""
+    """Compile the config's ZeRO choices into rule tables (JAX's). Under
+    hpZ / MiCS the mesh is fsdp = group, dp = replicas, and the state
+    shards over the group (JAX's hpZ splits it over dp x fsdp as well:
+    the same values, held ``dp`` times)."""
     stage = config.zero_optimization.stage
     base: list = list(TP_RULES) + list(EP_RULES) + list(PP_RULES)
     param_rules = list(base)
@@ -232,7 +241,11 @@ def make_sharding_plan(config, mesh) -> ShardingPlan:
     opt_rules = list(base)
     if stage >= 1:
         opt_rules += list(FSDP_RULES)
-    if stage >= 1 and mesh.shape["fsdp"] == 1 and mesh.shape["dp"] > 1:
+    from deepspeed_tpu_torch.runtime.zeropp import zeropp_enabled
+
+    # the ZeRO++ stage 1-2 step shards its masters over dp itself
+    if stage >= 1 and mesh.shape["fsdp"] == 1 and mesh.shape["dp"] > 1 \
+            and not zeropp_enabled(config):
         logger.warning(
             "ZeRO stage >= 1 configured but mesh fsdp axis is 1; state will "
             "not shard. Put your data-parallel degree on the fsdp axis "
@@ -276,19 +289,207 @@ def _gathers(axis: str = "fsdp") -> bool:
     return mesh is not None and mesh.issues(axis)
 
 
+def _scatter_back(grad, dim, axis, qgz):
+    """A gathered leaf's gradient back to this rank's block: the exact
+    reduce-scatter (summed over the ranks), or qgZ's quantized reduction
+    (the mean over the data ranks)."""
+    if qgz is not None:
+        return qgz(grad).to(grad.dtype)
+    return comm.reduce_scatter(grad, axis, scatter_dim=dim)
+
+
 class _FsdpGather(torch.autograd.Function):
     """Forward: all-gather a shard along ``dim``; backward: reduce-scatter
     the full gradient back to this rank's block (summed over ranks)."""
 
     @staticmethod
-    def forward(ctx, shard, dim, axis):
-        ctx.dim, ctx.axis = dim, axis
+    def forward(ctx, shard, dim, axis, qgz):
+        ctx.dim, ctx.axis, ctx.qgz = dim, axis, qgz
         return comm.all_gather(shard, axis, gather_dim=dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return comm.reduce_scatter(grad, ctx.axis, scatter_dim=ctx.dim), \
-            None, None
+        return _scatter_back(grad, ctx.dim, ctx.axis, ctx.qgz), None, None, \
+            None
+
+
+# ---------------------------------------------------------------------------
+# ZeRO++ qwZ: the int8 stage-3 gather
+# ---------------------------------------------------------------------------
+
+_QWZ_BITS: Optional[int] = None
+QWZ_BLOCK = 128
+
+
+def configure_qwz(bits: Optional[int]) -> None:
+    """Arm / disarm the quantized stage-3 fetch (int8 only, as in JAX)."""
+    global _QWZ_BITS
+    if bits is not None and bits != 8:
+        raise ValueError(f"qwZ stage-3 fetch supports int8 only, got {bits}")
+    _QWZ_BITS = bits
+
+
+class qwz_context:
+    """Scoped qwZ arming: ``with qwz_context(8): model.loss(...)``."""
+
+    def __init__(self, bits: Optional[int]):
+        self._bits = bits
+
+    def __enter__(self):
+        global _QWZ_BITS
+        self._prev = _QWZ_BITS
+        configure_qwz(self._bits)
+
+    def __exit__(self, *a):
+        global _QWZ_BITS
+        _QWZ_BITS = self._prev
+        return False
+
+
+def qwz_active() -> bool:
+    return _QWZ_BITS is not None
+
+
+def qwz_sequence_barrier(weight, value):
+    """JAX orders a qwZ fetch after ``value`` on its CPU simulator; an
+    eager program issues each gather where the code stands: the
+    identity."""
+    return weight, value
+
+
+def qwz_plan(shape, spec: Spec, mesh) -> Optional[Tuple[int, int]]:
+    """(the dim that carries the quantization blocks, the block) of a
+    stage-3 leaf under qwZ, or None when the exact gather runs: no fsdp
+    dim, no other dim, or no block > 1 tiles the chosen dim (JAX's
+    ``quantized_param_fetch`` rule: the last unsharded dim, else the
+    last non-fsdp one)."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+
+    def has_fsdp(e):
+        return e == "fsdp" or (isinstance(e, tuple) and "fsdp" in e)
+
+    if not any(has_fsdp(e) for e in entries):
+        return None
+    candidates = [i for i, e in enumerate(entries) if not has_fsdp(e)]
+    if not candidates:
+        return None
+    unsharded = [i for i in candidates if entries[i] is None]
+    ax = unsharded[-1] if unsharded else candidates[-1]
+    div = 1
+    for a in (() if entries[ax] is None else
+              (entries[ax],) if isinstance(entries[ax], str)
+              else entries[ax]):
+        div *= mesh.shape.get(a, 1)
+    n = shape[ax]
+    if n % max(div, 1):
+        return None
+    block = math.gcd(n // max(div, 1), QWZ_BLOCK)
+    return (ax, block) if block > 1 else None
+
+
+class _QwzGather(torch.autograd.Function):
+    """qwZ: this rank's shard quantized along ``ax`` (B6), int8 codes and
+    fp32 scales all-gathered along ``dim``, dequantized (6b) to the
+    shard's dtype. The backward is straight through: the gradient goes
+    back as the exact gather's does. Nothing full-width is saved."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, axis, ax, block, qgz):
+        from deepspeed_tpu_torch.ops.quantization import (dequantize,
+                                                          quantize_blockwise)
+
+        ctx.dim, ctx.axis, ctx.qgz = dim, axis, qgz
+        moved = shard.movedim(ax, -1).contiguous()
+        d = dim if dim < ax else dim - 1  # the fsdp dim after the move
+        q, s = quantize_blockwise(moved, bits=8, block=block)
+        sg = comm.all_gather(s, axis, gather_dim=d, log_name="qwz_scales")
+        qg = comm.all_gather(q, axis, gather_dim=d,
+                             log_name="qwz_param_fetch")
+        nb = s.shape[-1]
+        out = dequantize(qg.reshape(*qg.shape[:-1], nb, block), sg,
+                         shard.dtype)
+        return out.reshape(qg.shape).movedim(-1, ax)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_scatter_back(grad.contiguous(), ctx.dim, ctx.axis,
+                              ctx.qgz),
+                None, None, None, None, None)
+
+
+def quantized_param_fetch(x: torch.Tensor, logical_axes, path: str = "",
+                          qgz=None) -> torch.Tensor:
+    """qwZ stage-3 fetch of one shard ``x`` (JAX's function of the same
+    name): the int8 gather over fsdp when qwZ is armed, the mesh has
+    fsdp ranks and the leaf's rule gives a block; else the exact gather
+    (``gather_leaf``)."""
+    rules = TP_RULES + EP_RULES + PP_RULES + FSDP_RULES
+    spec = z3_leaf_spec(path, spec_from_logical(logical_axes, rules))
+    dim = fsdp_dim(spec)
+    if dim is None or not _gathers():
+        return x
+    plan = None
+    if _QWZ_BITS is not None:
+        full = list(x.shape)
+        full[dim] *= comm.axis_size("fsdp")
+        plan = qwz_plan(full, spec, topology._GLOBAL_MESH)
+    if plan is None:
+        return _FsdpGather.apply(x, dim, "fsdp", qgz)
+    return _QwzGather.apply(x, dim, "fsdp", plan[0], plan[1], qgz)
+
+
+# ---------------------------------------------------------------------------
+# qgZ's groups: each rank's gradient is its group's
+# ---------------------------------------------------------------------------
+# JAX's qgZ takes one gradient per batch-shard group (a vmap), and its MoE
+# layers then dispatch by einsum over the whole expert stack (a shard_map
+# cannot map a vmapped axis), with each group's own routing statistics.
+# The engine marks its forward with ``qgz_groups`` so the MoE layer does
+# the same; under ep the fetch gathers each expert leaf whole, and its
+# backward reduces the group's gradient over every expert with qgZ's
+# levels (the ep level onto the expert dim: ``runtime/qgz.py`` level 2).
+
+_QGZ_GROUPS = False
+
+
+@contextlib.contextmanager
+def qgz_groups(active: bool):
+    global _QGZ_GROUPS
+    prev, _QGZ_GROUPS = _QGZ_GROUPS, bool(active)
+    try:
+        yield
+    finally:
+        _QGZ_GROUPS = prev
+
+
+def qgz_groups_active() -> bool:
+    return _QGZ_GROUPS
+
+
+class _ExpertGather(torch.autograd.Function):
+    """An expert leaf's block (its E/ep experts, and its fsdp shard at
+    stage 3) gathered whole: over fsdp, then over ep along the expert
+    dim. The backward reduces the whole gradient with ``reduce`` (qgZ's
+    levels, the mean over the data ranks as this rank's block) and, where
+    the param is whole over fsdp (stage 2), gathers the block back (fp32,
+    exact) to the param's shape."""
+
+    @staticmethod
+    def forward(ctx, t, fdim, edim, reduce, regather):
+        ctx.reduce, ctx.regather = reduce, regather
+        out = t
+        if fdim is not None:
+            out = comm.all_gather(out, "fsdp", gather_dim=fdim)
+        return comm.all_gather(out.contiguous(), "ep", gather_dim=edim)
+
+    @staticmethod
+    def backward(ctx, g):
+        blk = ctx.reduce(g.contiguous())
+        if ctx.regather is not None:
+            blk = comm.all_gather(blk.contiguous(), "fsdp",
+                                  gather_dim=ctx.regather,
+                                  log_name="qgz_regather")
+        return blk.to(g.dtype), None, None, None, None
 
 
 def gather_leaf(t: torch.Tensor, dim: Optional[int],
@@ -297,7 +498,7 @@ def gather_leaf(t: torch.Tensor, dim: Optional[int],
     its gradient flows back reduce-scattered."""
     if dim is None or not _gathers(axis):
         return t
-    return _FsdpGather.apply(t, dim, axis)
+    return _FsdpGather.apply(t, dim, axis, None)
 
 
 def _walk_with_logical(params, logical, fn, path=""):
@@ -307,57 +508,93 @@ def _walk_with_logical(params, logical, fn, path=""):
             for k in params}
 
 
-def _param_dim(path: str, axes) -> Optional[int]:
-    """The dim a stage-3 param shards along (the full rules; a z3 leaf
-    keeps its param whole)."""
-    rules = TP_RULES + EP_RULES + PP_RULES + FSDP_RULES
-    return fsdp_dim(z3_leaf_spec(path, spec_from_logical(axes, rules)))
-
-
 def fsdp_gather_slice(layer_tree: Any, logical_tree: Any,
-                      prefix: str = "/layers") -> Any:
+                      prefix: str = "/layers", qgz=None, experts=None,
+                      stage3: bool = True) -> Any:
     """The stage-3 fetch hook (JAX's ``fsdp_gather_slice`` with its
     ``fsdp_scatter_grads`` as the backward): one layer's shards gathered
-    along each leaf's ``embed`` dim through ``_FsdpGather``, whose
-    backward reduce-scatters the layer's gradient to the shards. The
-    port's layer loop has already unbound the ``[L, ...]`` stack into
-    per-layer views, so ``layer_tree`` is layer i's and
-    ``logical_tree`` its per-layer axes (the ``"layers"`` dim dropped);
-    ``prefix`` is the layer tree's path, for the z3 leaf patterns."""
+    along each leaf's ``embed`` dim, whose backward reduce-scatters the
+    layer's gradient to the shards (int8 under qwZ; qgZ's reduction when
+    ``qgz(path, axes)`` gives one). The port's layer loop has already
+    unbound the ``[L, ...]`` stack into per-layer views, so
+    ``layer_tree`` is layer i's and ``logical_tree`` its per-layer axes
+    (the ``"layers"`` dim dropped); ``prefix`` is the layer tree's path,
+    for the z3 leaf patterns. ``experts(path, axes)`` (qgZ's groups under
+    ep) gives an expert leaf's whole-stack gather (fsdp dim, expert dim,
+    reduce, regather dim), or None; ``stage3`` False gathers nothing
+    else (a stage-2 fetch of the expert leaves only)."""
     if not _gathers():
         return layer_tree
-    return _walk_with_logical(
-        layer_tree, logical_tree,
-        lambda t, axes, path: gather_leaf(t, _param_dim(path, axes)),
-        prefix)
+
+    def fetch(t, axes, path):
+        plan = None if experts is None else experts(path, axes)
+        if plan is not None:
+            return _ExpertGather.apply(t, *plan)
+        if not stage3:
+            return t
+        return quantized_param_fetch(
+            t, axes, path, None if qgz is None else qgz(path, axes))
+
+    return _walk_with_logical(layer_tree, logical_tree, fetch, prefix)
 
 
 class LayerFetch:
     """The stage-3 fetch hook the model's layer loop calls: ``layer``
     gathers one layer's shards, ``leaf`` one top-level leaf at its use
-    (the embeddings, the final norm, the LM head)."""
+    (the embeddings, the final norm, the LM head). ``qwz_bits`` arms the
+    int8 gather around each fetch (JAX arms it around the engine's own
+    trace); ``qgz(path, axes)`` gives a leaf's quantized gradient
+    reduction, or None."""
 
-    def __init__(self, logical_tree: Dict[str, Any]):
+    def __init__(self, logical_tree: Dict[str, Any],
+                 qwz_bits: Optional[int] = None, qgz=None, experts=None,
+                 stage3: bool = True):
         self.logical = logical_tree
+        self.qwz_bits = qwz_bits
+        self.qgz = qgz
+        self.experts = experts
+        self.stage3 = stage3
+        self._cache: Dict[Any, torch.Tensor] = {}  # one forward's leaves
         # a (loss_fn, params) tree need not have a layer stack
         self.layer_axes = _map_axes(lambda _p, ax: ax[1:],
                                     logical_tree.get("layers", {}))
 
+    def _red(self, path, axes):
+        return None if self.qgz is None else self.qgz(path, axes)
+
     def layer(self, layer_tree):
-        return fsdp_gather_slice(layer_tree, self.layer_axes)
+        with qwz_context(self.qwz_bits):
+            return fsdp_gather_slice(layer_tree, self.layer_axes,
+                                     qgz=self.qgz, experts=self.experts,
+                                     stage3=self.stage3)
 
     def leaf(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """A top-level leaf gathered once a forward (a tied embedding's
+        two uses share one gather, so its gradient reduces once, as
+        JAX's does)."""
+        if not self.stage3:
+            return t
+        key = (path, id(t))
+        if key in self._cache:
+            return self._cache[key]
         node = self.logical
         for k in path.strip("/").split("/"):
             node = node[k]
-        return gather_leaf(t, _param_dim(path, node))
+        # JAX quantizes the LM head's fetch, not the embeddings' lookup
+        bits = self.qwz_bits if path.strip("/") == "unembed/kernel" \
+            else None
+        with qwz_context(bits):
+            out = quantized_param_fetch(t, node, path, self._red(path, node))
+        self._cache[key] = out
+        return out
 
     def tree(self, params):
         """Every leaf of a params tree gathered (a ``(loss_fn, params)``
         model, whose layer loop has no hook)."""
         return _walk_with_logical(
             params, self.logical,
-            lambda t, axes, path: gather_leaf(t, _param_dim(path, axes)))
+            lambda t, axes, path: quantized_param_fetch(
+                t, axes, path, self._red(path, axes)))
 
 
 _FETCH: Optional[LayerFetch] = None
@@ -370,10 +607,14 @@ def param_fetch(fetch: Optional[LayerFetch]):
     remat recompute in the backward gathers again with it."""
     global _FETCH
     prev, _FETCH = _FETCH, fetch
+    if fetch is not None:
+        fetch._cache.clear()
     try:
         yield fetch
     finally:
         _FETCH = prev
+        if fetch is not None:
+            fetch._cache.clear()
 
 
 def active_fetch() -> Optional[LayerFetch]:
@@ -395,4 +636,7 @@ __all__ = ["LOGICAL_AXES", "TP_RULES", "FSDP_RULES", "EP_RULES", "PP_RULES",
            "make_sharding_plan", "set_z3_leaf_modules",
            "unset_z3_leaf_modules", "get_z3_leaf_modules", "z3_leaf_spec",
            "fsdp_dim", "shard_of", "gather_leaf", "fsdp_gather_slice",
-           "LayerFetch", "param_fetch", "active_fetch", "fetched"]
+           "LayerFetch", "param_fetch", "active_fetch", "fetched",
+           "QWZ_BLOCK", "configure_qwz", "qwz_context",
+           "qwz_active", "qwz_sequence_barrier", "qwz_plan",
+           "quantized_param_fetch", "qgz_groups", "qgz_groups_active"]

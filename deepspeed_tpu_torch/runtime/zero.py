@@ -22,6 +22,19 @@ compute param (stage 3). Rank r holds block r of that dim over the
 
 At world size 1 on a one-rank group these collectives all run (and are
 the identity), so each stage's numbers equal stage 0's bit for bit.
+
+With expert parallelism (ep > 1) each rank holds the E/ep experts of its
+ep index in every role (the expert dim of an expert leaf, from the
+plan's ``EP_RULES``, is never gathered): an expert gradient, already
+summed over the ep ranks by the dispatch's all-to-all backward, reduces
+over the dp x fsdp ranks that share the expert; a dense gradient over
+every token rank, dp x fsdp x ep; both become means over all of them.
+
+Under ZeRO++'s qgZ (stages 2-3, fsdp > 1) a gradient reduces with a
+quantized wire (``runtime/qgz.reduce_leaf``): at stage 2 the full
+gradients accumulate (fp32 at GAS > 1) and each is reduced once at the
+boundary, as JAX reduces its per-group gradients once a step; at stage
+3 the gather's backward reduces each microbatch's layer gradient.
 """
 
 from __future__ import annotations
@@ -35,10 +48,20 @@ from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.parallel.topology import BATCH_AXES
 from deepspeed_tpu_torch.runtime.optimizer import leaves
 from deepspeed_tpu_torch.runtime.sharding import fsdp_dim, shard_of
+from deepspeed_tpu_torch.runtime import qgz as qgz_mod
 
 logger = logging.getLogger(__name__)
 
 FSDP = "fsdp"
+EXPERT_REDUCE = ("dp", "fsdp")
+
+
+def _ep_dim(spec) -> Optional[int]:
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        if "ep" in axes:
+            return d
+    return None
 
 
 class ZeroPartition:
@@ -46,25 +69,39 @@ class ZeroPartition:
     step's collectives for one engine on a process group."""
 
     def __init__(self, plan, mesh, logical_tree: Dict[str, Any],
-                 stage: int):
+                 stage: int, qgz: bool = False):
         self.mesh = mesh
+        self.plan = plan
         self.stage = stage
+        self.qgz = qgz
         self.fsdp_n = mesh.axis_size(FSDP)
         self.fsdp_index = mesh.axis_index(FSDP)
         self.dp_n = mesh.axis_size(BATCH_AXES)
+        self.ep_n = mesh.axis_size("ep")
+        self.ep_index = mesh.axis_index("ep")
+        self.dp_index = mesh.axis_index("dp")
 
         def dims(tree):
             return {path: fsdp_dim(spec) for path, spec in leaves(tree)}
 
         self.param_dim = dims(plan.param_shardings(logical_tree))
-        self.grad_dim = dims(plan.grad_shardings(logical_tree))
+        self.grad_spec = dict(leaves(plan.grad_shardings(logical_tree)))
+        self.grad_dim = {p: fsdp_dim(s) for p, s in self.grad_spec.items()}
         self.opt_dim = dims(plan.opt_shardings(logical_tree))
+        self.ep_dim = {path: _ep_dim(spec) for path, spec in
+                       leaves(plan.param_shardings(logical_tree))}
 
     # -- layout ---------------------------------------------------------------
     def check(self, params) -> None:
         """Every sharded dim splits evenly over the fsdp ranks (JAX
         refuses an uneven sharding too)."""
         for path, p in leaves(params):
+            e = self.ep_dim.get(path)
+            if e is not None and p.shape[e] % self.ep_n:
+                raise ValueError(
+                    f"leaf {path} of shape {tuple(p.shape)}: its "
+                    f"{p.shape[e]} experts do not split over {self.ep_n} "
+                    "ep ranks")
             d = self.opt_dim.get(path)
             if d is not None and p.shape[d] % self.fsdp_n:
                 raise ValueError(
@@ -75,45 +112,122 @@ class ZeroPartition:
     def block(self, path: str, t: torch.Tensor, role: str = "opt"
               ) -> torch.Tensor:
         """This rank's block of a full leaf for ``role`` (opt, grad or
-        param): a view, or ``t`` where the role does not shard."""
-        return shard_of(t, getattr(self, f"{role}_dim").get(path))
+        param): a view, or ``t`` where the role does not shard; an expert
+        leaf's experts are this rank's E/ep first."""
+        return shard_of(self.experts(path, t),
+                        getattr(self, f"{role}_dim").get(path))
+
+    def master_of_param(self, path: str, p: torch.Tensor) -> torch.Tensor:
+        """This rank's master block from its compute param (a re-seed):
+        the same block at stage 3, else the param's opt block (its
+        experts are this rank's already)."""
+        if self.param_dim.get(path) is not None:
+            return p
+        return shard_of(p, self.opt_dim.get(path))
+
+    def experts(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's E/ep experts of a full expert leaf (a view)."""
+        return shard_of(t, self.ep_dim.get(path), "ep")
 
     def scatter_dim(self, path: str) -> Optional[int]:
         """The dim to reduce-scatter a full gradient along as it is
-        ready: its gradient shards and its param does not."""
-        if self.param_dim.get(path) is None:
+        ready: its gradient shards and its param does not (never under
+        qgZ, which reduces the accumulated gradient once)."""
+        if self.param_dim.get(path) is None and not self.qgz:
             return self.grad_dim.get(path)
         return None
+
+    # -- qgZ ------------------------------------------------------------------
+    def _qgz_reduce(self, g: torch.Tensor, spec) -> torch.Tensor:
+        exp_dim = next((d for d, e in enumerate(spec)
+                        if e == "ep" or (isinstance(e, tuple) and "ep" in e)),
+                       None)
+        return qgz_mod.reduce_leaf(g, spec, self.mesh,
+                                   part_dim=fsdp_dim(spec), exp_dim=exp_dim)
+
+    def expert_gather_of(self, path: str, axes):
+        """Under qgZ's groups on an ep mesh: an expert leaf's whole-stack
+        gather for the fetch (its param's fsdp dim, its expert dim, the
+        reduction of its whole gradient, the dim its stage-2 block is
+        gathered back along), or None for other leaves."""
+        spec = self.plan.param_spec(axes)
+        edim = _ep_dim(spec)
+        if edim is None:
+            return None
+        fdim = fsdp_dim(spec)
+        gspec = self.plan.grad_spec(axes)
+        gdim = fsdp_dim(gspec)
+
+        def reduce(g):
+            return qgz_mod.reduce_leaf(g, gspec, self.mesh, part_dim=gdim,
+                                       exp_dim=edim, experts_local=False)
+
+        return fdim, edim, reduce, (gdim if fdim is None else None)
+
+    def qgz_experts(self) -> bool:
+        """Whether qgZ's groups reduce the expert leaves in the fetch."""
+        return self.qgz and self.ep_n > 1
+
+    def qgz_of(self, path: str, axes):
+        """The stage-3 gather's backward for a leaf under qgZ: its
+        layer gradient reduced with the quantized wire to this rank's
+        block (the mean over the data ranks)."""
+        spec = self.plan.grad_spec(axes)
+        return lambda g: self._qgz_reduce(g, spec)
 
     # -- the step -------------------------------------------------------------
     @torch.no_grad()
     def reduce(self, grads: Dict[str, torch.Tensor]) -> None:
         """The gradients' sums over the data ranks as means, in place:
         a full gradient all-reduced over the data axes, a shard (already
-        summed over fsdp) over dp where dp has ranks."""
+        summed over fsdp) over dp where dp has ranks. Under qgZ a full
+        gradient is replaced by its quantized reduction (this rank's
+        block); a stage-3 shard is already the mean."""
         for path, g in grads.items():
+            if self.qgz:
+                expert = self.qgz_experts() and \
+                    self.ep_dim.get(path) is not None
+                if self.param_dim.get(path) is None and not expert:
+                    grads[path] = self._qgz_reduce(g, self.grad_spec[path])
+                continue
             if self.grad_dim.get(path) is None:
-                comm.all_reduce(g, BATCH_AXES, out=g)
-            elif self.mesh.shape["dp"] > 1:
-                comm.all_reduce(g, "dp", out=g)
+                axes = EXPERT_REDUCE if self.ep_dim.get(path) is not None \
+                    else BATCH_AXES
+                comm.all_reduce(g, axes, out=g)
+            else:  # summed over fsdp already: the other data axes
+                axes = "dp" if self.ep_dim.get(path) is not None \
+                    else ("dp", "ep")
+                if self.mesh.axis_size(axes) > 1:
+                    comm.all_reduce(g, axes, out=g)
             if self.dp_n > 1:
                 g.div_(self.dp_n)
 
     def opt_grad(self, path: str, g: torch.Tensor) -> torch.Tensor:
-        """The part of a reduced gradient this rank's master block takes."""
+        """The part of a reduced gradient this rank's master block takes
+        (a reduced expert gradient holds this rank's experts already)."""
         if self.grad_dim.get(path) is None:
             return self.block(path, g, "opt")
+        if self.qgz_experts() and self.ep_dim.get(path) is not None \
+                and self.param_dim.get(path) is None:
+            return shard_of(g, self.opt_dim.get(path))
         return g
 
     def owned(self, path: str) -> bool:
         """Whether this rank counts ``path`` in the global norm: its
-        block of a sharded leaf, or a replicated leaf on fsdp rank 0."""
-        return self.opt_dim.get(path) is not None and self.fsdp_n > 1 \
+        block of a sharded leaf, or a replicated leaf on fsdp rank 0
+        (with ep ranks: a dense leaf on ep rank 0 and dp rank 0, an
+        expert leaf on every ep rank)."""
+        mine = self.opt_dim.get(path) is not None and self.fsdp_n > 1 \
             or self.fsdp_index == 0
+        if self.ep_n == 1:
+            return mine
+        return mine and self.dp_index == 0 and (
+            self.ep_dim.get(path) is not None or self.ep_index == 0)
 
     def norm_reduce(self, sq: torch.Tensor) -> torch.Tensor:
         """The ranks' sums of squares summed (one fp32 scalar)."""
-        return comm.all_reduce(sq, FSDP, out=sq)
+        return comm.all_reduce(sq, FSDP if self.ep_n == 1 else BATCH_AXES,
+                               out=sq)
 
     @torch.no_grad()
     def publish(self, path: str, master: torch.Tensor,
@@ -133,9 +247,12 @@ class ZeroPartition:
         """The full leaf from each rank's ``role`` block (collective:
         every rank calls it)."""
         d = getattr(self, f"{role}_dim").get(path)
-        if d is None:
-            return t
-        return comm.all_gather(t.contiguous(), FSDP, gather_dim=d)
+        if d is not None:
+            t = comm.all_gather(t.contiguous(), FSDP, gather_dim=d)
+        e = self.ep_dim.get(path)
+        if e is not None and self.ep_n > 1:
+            t = comm.all_gather(t.contiguous(), "ep", gather_dim=e)
+        return t
 
 
 __all__ = ["ZeroPartition"]

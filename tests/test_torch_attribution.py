@@ -144,8 +144,11 @@ def test_unported_tiers_raise_naming_their_items():
     assert [r.region for r in p_attr.attribute_longctx_step(
         seq_len=4096, hidden_size=64, num_heads=4)] == [
         "attn", "sp_comm", "host_kv_stream"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        p_attr.attribute_quant_step(None)
+    # the quantized-comm tier is ported with A10
+    # (tests/test_torch_fp8_quant_stats.py holds its rows against JAX's)
+    assert [r.region for r in p_attr.attribute_quant_step(
+        zoo.get_config("tiny"), qwz=True, qgz=True)] == [
+        "param_fetch", "grad_reduce"]
     with pytest.raises(RuntimeError, match="counting pass"):
         p_attr.report_kernel("flash_fwd", 1.0, 1.0)
 

@@ -156,21 +156,37 @@ def test_data_exhausted_mid_accumulation_raises():
 @pytest.mark.parametrize("extra,match", [
     ({"pipeline": {"stages": 2}}, "item 11"),
     ({"sequence_parallel": {"size": 2}}, "item 11"),
-    ({"moe": {"enabled": True, "ep_size": 2}}, "item 9"),
+    ({"elasticity": {"enabled": True}}, "item 16"),
     ({"tensor_parallel": {"tp_size": 2}}, "item 11"),
-    ({"performance": {"pipeline_depth": 2, "fp8_mlp": True}}, "item 10"),
+    ({"compile": {"enabled": True}}, "item 16"),
     ({"zero_optimization": {"stage": 3,
                             "offload_optimizer": {"device": "cpu"},
                             "offload_param": {"device": "cpu"}},
       "tensor_parallel": {"tp_size": 2}}, "item 11"),
-    ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
-     "item 10"),
+    ({"data_efficiency": {"enabled": True}}, "item 16"),
     ({"observability": {"run_dir": "fleet_run"}}, "item 14"),
-    ({"optimizer": {"type": "onebitadam", "params": {}}}, "item 10"),
+    ({"observability": {"journal": {"enabled": True}}}, "item 13"),
 ])
 def test_unported_config_raises(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         _port_engine(extra=extra)
+
+
+@pytest.mark.parametrize("extra,flag", [
+    ({"moe": {"enabled": True, "ep_size": 1, "impl": "einsum"}}, None),
+    ({"performance": {"pipeline_depth": 2, "fp8_mlp": True}}, None),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
+     "_qwz_stage3"),
+    ({"optimizer": {"type": "onebitadam", "params": {}}}, "_onebit"),
+], ids=["moe_einsum", "fp8_mlp", "qwz_stage3", "onebitadam"])
+def test_a9_a10_configs_build(extra, flag):
+    """What raised naming items 9 and 10 builds now (ZeRO++, the 1-bit
+    optimizers, the fp8 MLP, the einsum dispatch); qwZ at stage 3 on one
+    process has no fsdp ranks to gather over, so it arms and moves
+    nothing, as in JAX."""
+    engine = _port_engine(extra=extra)
+    if flag is not None:
+        assert getattr(engine, flag)
 
 
 def test_accepted_no_op_settings():

@@ -396,7 +396,6 @@ def test_performance_block_checks():
     for block, err, match in (
             ({"pipeline_depth": -1}, ValueError, "pipeline_depth"),
             ({"prefetch_depth": -1}, ValueError, "prefetch_depth"),
-            ({"fp8_mlp": True}, NotImplementedError, "item 10"),
             ({"overlap_depth": -1}, ValueError, "overlap_depth"),
             ({"param_prefetch_depth": 0}, ValueError, ">= 1")):
         with pytest.raises(err, match=match):
@@ -406,6 +405,8 @@ def test_performance_block_checks():
     perf = load_config({"performance": {"param_prefetch_depth": 2,
                                         "overlap_depth": 1}}).performance
     assert (perf.param_prefetch_depth, perf.overlap_depth) == (2, 1)
+    # the fp8 MLP is ported (A10): the switch parses
+    assert load_config({"performance": {"fp8_mlp": True}}).performance.fp8_mlp
 
 
 # -- (loss_fn, params) models and client optimizers against JAX ---------------

@@ -326,8 +326,7 @@ def test_ported_config_keys_are_accepted(extra):
 @pytest.mark.parametrize("extra,error,match", [
     ({"observability": {"run_dir": "fleet"}}, NotImplementedError,
      "item 14's fleet part"),
-    ({"observability": {"quant_stats": True}}, NotImplementedError,
-     "item 10"),
+    ({"compile": {"enabled": True}}, NotImplementedError, "item 16"),
     ({"observability": {"clock_sync": {"rounds": 4}}}, NotImplementedError,
      "item 13"),
     ({"observability": {"journal": {"enabled": True}}}, NotImplementedError,
@@ -343,7 +342,7 @@ def test_ported_config_keys_are_accepted(extra):
      "flight_events must be >= 0"),
     ({"observability": {"publish_every_steps": 0}}, ValueError,
      "publish_every_steps must be >= 1"),
-], ids=["run_dir", "quant_stats", "clock_sync", "journal", "flops_profiler",
+], ids=["run_dir", "compile", "clock_sync", "journal", "flops_profiler",
         "sample_rate", "ring_size", "slo_deadline", "flight_events",
         "publish_every"])
 def test_config_keys_that_still_raise(extra, error, match):

@@ -1622,3 +1622,63 @@ def test_host_kv_tile_ring_on_the_card(card):
     for a, b in zip(got[1:], want[1:]):
         a, b = a.float(), b.float()
         assert torch.sum(a * b) / (a.norm() * b.norm()) >= 0.99
+
+
+# -- ZeRO++'s quantized collectives and the fp8 product ----------------------
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_collectives_one_rank_nccl_equal_their_cpu_twins(card,
+                                                                   bits,
+                                                                   tmp_path):
+    """On a one-rank NCCL group the quantized gather, scatter and
+    all-reduce launch B6 and 6b and give their CPU twins' bits (the
+    same bodies on CPU tensors without a group: quantize, dequantize)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.parallel import topology
+
+    x = torch.randn(64, 512, generator=torch.Generator().manual_seed(1))
+    cpu = {"gather": qz.quantized_all_gather(x, "dp", bits, 128),
+           "scatter": qz.quantized_psum_scatter(x, "dp", bits, 128),
+           "all_reduce": qz.quantized_all_reduce(x, "dp", bits, 128)}
+    comm.init_distributed(dist_backend="nccl",
+                          init_method=f"file://{tmp_path}/store",
+                          num_processes=1, process_id=0, device=card)
+    try:
+        topology.set_global_mesh(topology.build_mesh({"dp": 1}))
+        qz.reset_launch_counts()
+        xc = x.to(card)
+        got = {"gather": qz.quantized_all_gather(xc, "dp", bits, 128),
+               "scatter": qz.quantized_psum_scatter(xc, "dp", bits, 128),
+               "all_reduce": qz.quantized_all_reduce(xc, "dp", bits, 128)}
+        torch.cuda.synchronize()
+        # one quantize and one dequantize a hop; qar has two hops
+        assert qz.LAUNCHES["quantize_blockwise"] == 4
+        assert qz.LAUNCHES["dequantize"] == 4
+    finally:
+        comm.destroy()
+    for name, want in cpu.items():
+        assert torch.equal(got[name].cpu(), want), name
+
+
+def test_fp8_matmul_on_the_card_within_its_bound(card):
+    """``torch._scaled_mm`` on e4m3 operands against the fp32 product of
+    the same fp8 values: each fp8 x fp8 term is exact in fp32, so the two
+    part only by the accumulation over K = 4096 terms in another order,
+    at most K x 2^-24 of the largest |a| |b| sum."""
+    from deepspeed_tpu_torch.ops import fp_quantizer as fpq
+
+    g = torch.Generator(card).manual_seed(0)
+    a = torch.randn(256, 4096, generator=g, device=card).to(torch.bfloat16)
+    b = (torch.randn(4096, 512, generator=g, device=card) * 0.02).to(
+        torch.bfloat16)
+    fpq.reset_launch_counts()
+    got = fpq.fp8_matmul(a, b, out_dtype=torch.float32)
+    assert fpq.FP8_LAUNCHES["fp8_matmul"] == 1
+    sa, sb = fpq._tensor_scale(a, "e4m3"), fpq._tensor_scale(b, "e4m3")
+    qa = (a.float() / sa).to(torch.float8_e4m3fn).float()
+    qb = (b.float() / sb).to(torch.float8_e4m3fn).float()
+    want = (qa @ qb) * (sa * sb)
+    mag = (qa.abs() @ qb.abs()) * (sa * sb)
+    assert float(((got - want).abs() / mag.amax()).max()) <= 4096 * 2 ** -24

@@ -198,8 +198,8 @@ def test_presets_are_full_width():
 
 
 def test_moe_config_block_and_unported_switches():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        zoo.get_config("tiny-moe", moe_impl="einsum")
+    # the capacity-padded einsum dispatch is ported (A9)
+    assert zoo.get_config("tiny-moe", moe_impl="einsum").moe_impl == "einsum"
     with pytest.raises(ValueError, match="unknown moe_impl"):
         zoo.get_config("tiny-moe", moe_impl="bogus")
     # parameter streaming (A11's param_stream) is ported: the expert stack
@@ -210,12 +210,17 @@ def test_moe_config_block_and_unported_switches():
                           **SMALL)
     base = {"train_micro_batch_size_per_chip": 1,
             "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        deepspeed_tpu_torch.initialize(model=model, config=dict(
-            base, moe={"enabled": True, "impl": "einsum"}), device="cpu")
+    ein, *_ = deepspeed_tpu_torch.initialize(model=model, config=dict(
+        base, moe={"enabled": True, "impl": "einsum"}), device="cpu")
+    assert ein.model_config.moe_impl == "einsum"
     with pytest.raises(ValueError, match="moe.impl"):
         deepspeed_tpu_torch.initialize(model=model, config=dict(
             base, moe={"impl": "bogus"}), device="cpu")
+    # MoE inside the pipeline waits for A11's pipeline
+    with pytest.raises(NotImplementedError, match="item 11"):
+        deepspeed_tpu_torch.initialize(model=model, config=dict(
+            base, moe={"enabled": True}, pipeline={"stages": 2}),
+            device="cpu")
     eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=dict(
         base, moe={"enabled": True, "ep_size": 1}), device="cpu")
     assert eng.model_config.moe_impl == "auto"

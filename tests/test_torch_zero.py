@@ -258,6 +258,7 @@ def test_world_one_collectives_match_the_plan(runs, stage):
 
 @pytest.mark.parametrize("case,item", [
     ("offload", "item 5"), ("zenflow", "item 5"), ("moe", "item 9"),
+    ("qgz_offload", "item 5"),
     ("tp", "item 11"), ("lamb", "item 5"), ("client", "item 5")])
 def test_not_ported_across_ranks_raises(runs, case, item):
     for out in runs["port"][2]:

@@ -146,8 +146,13 @@ def mode_raises(inp, rank, world, out):
         "moe": lambda: _engine(inp, 3, model=zoo.get_model(
             "tiny-moe", device="cpu", dtype=torch.float32,
             vocab_size=256, hidden_size=64, num_layers=1, num_heads=4,
-            max_seq_len=64), extra={"moe": {"enabled": True}}),
+            max_seq_len=64), extra={"moe": {"enabled": True}},
+            topology={"tp": world, "dp": 1}),
         "tp": lambda: _engine(inp, 3, topology={"tp": world, "dp": 1}),
+        # qgZ beside the host optimizer across ranks waits with the tiers
+        "qgz_offload": lambda: _engine(inp, 3, extra={"zero_optimization": {
+            "stage": 3, "zero_quantized_gradients": True,
+            "offload_optimizer": {"device": "cpu"}}}),
         "lamb": lambda: _engine(inp, 2, extra={"optimizer": {
             "type": "lamb", "params": {"lr": 1e-3}}}),
         "client": lambda: _client_engine(inp),
@@ -284,9 +289,161 @@ def mode_fragments(inp, rank, world, out):
     out["fragments"] = res
 
 
+def mode_quant_coll(inp, rank, world, out):
+    """The quantized collectives on this rank's ``coll_x`` over a dp mesh
+    of the world, int8 and int4: their outputs and the wire bytes the
+    comms logger recorded."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.parallel import topology
+    from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
+
+    topology.set_global_mesh(topology.build_mesh({"dp": world}))
+    log = get_comms_logger()
+    log.enabled = True
+    x = torch.as_tensor(inp["coll_x"][rank])
+    res = {}
+    for bits in (8, 4):
+        log.reset()
+        res[bits] = {
+            "gather": qz.quantized_all_gather(x, "dp", bits=bits,
+                                              block=inp["block"]),
+            "scatter": qz.quantized_psum_scatter(x, "dp", bits=bits,
+                                                 block=inp["block"]),
+            "all_reduce": qz.quantized_all_reduce(x, "dp", bits=bits,
+                                                  block=inp["block"]),
+            "bytes": dict(log.totals())}
+    log.enabled = False
+    topology.set_global_mesh(None)
+    out["quant_coll"] = res
+
+
+def _run_model(inp, spec):
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+
+    if spec.get("moe"):
+        cfg = zoo.get_config("tiny-moe", dtype=torch.float32,
+                             **inp["moe_kw"])
+        return params_from_jax(inp["moe_params"], cfg, device="cpu")
+    return _port_model(inp)
+
+
+def mode_engines(inp, rank, world, out):
+    """Each run of ``inp["runs"]`` (a name, the config over the shared
+    one, a topology, steps, and what else to do): its losses, the full
+    params after, the telemetry counts, the comms logger's bytes and
+    counts by log name, and the quantize / dequantize launches (plain
+    versions count none on the CPU)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel.topology import BatchSlice
+    from deepspeed_tpu_torch.utils import telemetry
+    from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
+
+    res = {}
+    for spec in inp["runs"]:
+        if world not in spec.get("worlds", (world,)):
+            continue
+        telemetry.reset()
+        config = {**inp["config"], **spec["config"],
+                  "comms_logger": {"enabled": True}}
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=_run_model(inp, spec), config=config, device="cpu",
+            topology=spec.get("topology"))
+        get_comms_logger().reset()
+        batches = inp["moe_batches" if spec.get("moe") else "batches"]
+        mesh = engine.mesh
+        rows = BatchSlice(mesh.axis_index(("dp", "fsdp", "ep")),
+                          mesh.axis_size(("dp", "fsdp", "ep")))
+        gas = engine.gradient_accumulation_steps
+        mine = [rows.take(b) for b in batches]
+        steps = spec.get("steps", len(mine) // gas)
+        losses, metrics = [], []
+        for s in range(steps):
+            if spec.get("set_lr_at") is not None and \
+                    s == spec["set_lr_at"][0]:
+                engine.set_lr(spec["set_lr_at"][1])
+            mbs = mine[(s * gas) % len(mine):][:gas]
+            losses.append(float(engine.train_batch(iter(mbs))))
+            metrics.append({k: float(v) for k, v in
+                            engine.last_metrics.items()
+                            if isinstance(v, torch.Tensor) and v.numel() == 1})
+        rec = {"losses": losses, "metrics": metrics,
+               "params": engine.module_state_dict(),
+               "telemetry": telemetry.snapshot(),
+               "bytes": dict(get_comms_logger().totals()),
+               "counts": dict(get_comms_logger().counts()),
+               "mesh": dict(mesh.shape),
+               "flags": {k: bool(getattr(engine, k, False)) for k in
+                         ("_zeropp", "_onebit", "_qwz_stage3",
+                          "_qgz_stage3")}}
+        if spec.get("moe"):
+            rec["local_experts"] = int(
+                engine.params["layers"]["moe"]["experts"]["wi"].shape[1])
+        if spec.get("ckpt"):
+            d = os.path.join(inp["workdir"], spec["name"])
+            engine.save_checkpoint(d)
+            more = [float(engine.train_batch(iter(mine[:gas])))
+                    for _ in range(2)]
+            fresh, *_ = deepspeed_tpu_torch.initialize(
+                model=_run_model(inp, spec), config=config, device="cpu",
+                topology=spec.get("topology"))
+            fresh.load_checkpoint(d)
+            again = [float(fresh.train_batch(iter(mine[:gas])))
+                     for _ in range(2)]
+            reseed, *_ = deepspeed_tpu_torch.initialize(
+                model=_run_model(inp, spec), config=config, device="cpu",
+                topology=spec.get("topology"))
+            reseed.load_checkpoint(d, load_optimizer_states=False)
+            rec["ckpt"] = {"more": more, "again": again,
+                           "reseed_params": reseed.module_state_dict(),
+                           "saved_params": rec["params"]}
+        res[spec["name"]] = rec
+        del engine
+    out["engines"] = res
+
+
+def mode_moe_fn(inp, rank, world, out):
+    """JAX's ``moe_ffn_dropless`` on an ep mesh of the world (or dp x ep)
+    through the port's global-token mode: the output, the gradients of
+    a fixed projection of it, the aux statistics and the replicated-token
+    count, per case."""
+    from deepspeed_tpu_torch.parallel import moe, topology
+    from deepspeed_tpu_torch.utils import telemetry
+
+    res = {}
+    for case in inp["moe_cases"]:
+        if world not in case.get("worlds", (world,)):
+            continue
+        topology.set_global_mesh(topology.build_mesh(case["mesh"]))
+        mesh = topology._GLOBAL_MESH
+        telemetry.reset()
+        cfg = moe.GateConfig(**case["gate"])
+        ep = mesh.shape["ep"]
+        e_loc = cfg.num_experts // ep
+        lo = mesh.axis_index("ep") * e_loc
+        x = torch.tensor(case["x"], requires_grad=True)
+        router = torch.tensor(case["router"], requires_grad=True)
+        experts = {k: torch.tensor(v[lo:lo + e_loc], requires_grad=True)
+                   for k, v in case["experts"].items()}
+        y, aux = moe.moe_ffn_dropless(x, router, experts, cfg,
+                                      activation=case["activation"],
+                                      global_tokens=True)
+        (y * torch.tensor(case["proj"])).sum().backward()
+        res[case["name"]] = {
+            "out": y.detach().numpy(),
+            "aux": {k: v.detach().numpy() for k, v in aux.items()},
+            "dx": x.grad.numpy(), "drouter": router.grad.numpy(),
+            "dexperts": {k: v.grad.numpy() for k, v in experts.items()},
+            "lo": lo, "replicated": telemetry.get(
+                "moe.grouped_replicated_tokens")}
+        topology.set_global_mesh(None)
+    out["moe_fn"] = res
+
+
 MODES = {"zero": mode_zero, "raises": mode_raises, "ckpt": mode_ckpt,
          "comm": mode_comm, "sparse": mode_sparse,
-         "fragments": mode_fragments}
+         "fragments": mode_fragments, "quant_coll": mode_quant_coll,
+         "engines": mode_engines, "moe_fn": mode_moe_fn}
 
 
 class Ranks:
