@@ -737,6 +737,12 @@ ZERO_STAGES, ZERO_STEPS = (0, 1, 2, 3), 3
 # Mixtral at JAX's default capacity factor and at E / k, where nothing
 # drops and one MoE layer holds to the grouped path at the bf16 row limit
 ZPP_STEPS, ZPP_RTOL = 3, 0.05
+# 17a's bit-for-bit checks take the first input of each (dtype, bits,
+# block) that a run hands B6 with QCHECK_ELEMS[0] <= numel <=
+# QCHECK_ELEMS[1] (a layer leaf: Llama-3-8B's wk / wv, not the vocab
+# table): the zpp run's flat [rows, 256] fp32 gradient, qwZ stage 3's
+# bf16 layer leaf at block 128
+QCHECK_ELEMS = (1 << 20, 1 << 24)
 ONEBIT_FREEZE, ONEBIT_STEPS, ONEBIT_WARM_RTOL = 2, 4, 3e-3
 FP8_STEPS, FP8_REL = 3, 0.05
 EINSUM_CAPACITY, EINSUM_STEPS, EINSUM_ROW_TOL = (1.25, 4.0), 3, 3e-2
@@ -4257,6 +4263,44 @@ def quant_expected(torch, tf, sharding, cfg, engine, run, gas, steps):
     return (layer * cfg.num_layers * remat + 1) * gas * steps
 
 
+def record_quantize_inputs(qz, seen):
+    """Wraps ``qz.quantize_blockwise`` (the path looks it up at each
+    call) so that it keeps a copy of the first input of each (dtype,
+    bits, block) within QCHECK_ELEMS in ``seen``. Returns the undo."""
+    real = qz.quantize_blockwise
+
+    def recording(x, bits=8, block=qz.DEFAULT_BLOCK):
+        key = (x.dtype, bits, block)
+        if key not in seen and \
+                QCHECK_ELEMS[0] <= x.numel() <= QCHECK_ELEMS[1]:
+            seen[key] = x.detach().clone()
+        return real(x, bits=bits, block=block)
+
+    qz.quantize_blockwise = recording
+    return lambda: setattr(qz, "quantize_blockwise", real)
+
+
+def check_path_quant(torch, qz, x, bits, block, out_dtype, what):
+    """B6 and 6b on an input the training path handed B6: the codes and
+    scales against the plain quantize, the dequantize to ``out_dtype``
+    (the path's) against the plain one, bit for bit."""
+    q, s = qz.quantize_blockwise(x, bits=bits, block=block)
+    rq, rs = qz._quantize_ref(x, bits, block)
+    qb = q.reshape(*q.shape[:-1], x.shape[-1] // block, block)
+    d = qz.dequantize(qb, s, out_dtype)
+    rd = qz.dequantize_plain(qb, s, out_dtype)
+    torch.cuda.synchronize()
+    bad = [name for name, a, b in (("codes", q, rq), ("scales", s, rs),
+                                   ("dequantize", d, rd))
+           if not torch.equal(a, b)]
+    if bad:
+        fail(f"{what}: B6 / 6b on the path's {tuple(x.shape)} {x.dtype} "
+             f"input at block {block} (dequantized to {out_dtype}) differ "
+             f"from the plain versions in {bad}")
+    return {"shape": list(x.shape), "dtype": str(x.dtype), "block": block,
+            "out_dtype": str(out_dtype), "bit_equal": True}
+
+
 def zpp_run(torch, zoo, initialize, qz, fpq, gm, fa, config, steps, batches,
             model_kw=None, name="llama3-8b"):
     """One engine on ``config`` for ``steps`` steps: losses, step times,
@@ -4312,6 +4356,7 @@ def zeropp_phase(torch, zoo, initialize, fa, tf, qz, gm, moe, zero):
     Returns (the phase's line, launches by path)."""
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.ops import fp_quantizer as fpq
+    from deepspeed_tpu_torch.parallel import topology
     from deepspeed_tpu_torch.runtime import sharding
 
     t_start = time.perf_counter()
@@ -4332,11 +4377,17 @@ def zeropp_phase(torch, zoo, initialize, fa, tf, qz, gm, moe, zero):
               "qar": (1, {"zero_quantized_allreduce": True}),
               "qwz3": (3, {"zero_quantized_weights": True}),
               "qgz3": (3, {"zero_quantized_gradients": True})}
+        seen = {run: {} for run in zq}
         for run, (stage, flags) in zq.items():
-            out, engine, model = zpp_run(
-                torch, zoo, initialize, qz, fpq, gm, fa, dict(
-                    A4_CONFIG, zero_optimization=dict(stage=stage, **flags)),
-                steps, batches, {"num_layers": L})
+            undo = record_quantize_inputs(qz, seen[run])
+            try:
+                out, engine, model = zpp_run(
+                    torch, zoo, initialize, qz, fpq, gm, fa, dict(
+                        A4_CONFIG,
+                        zero_optimization=dict(stage=stage, **flags)),
+                    steps, batches, {"num_layers": L})
+            finally:
+                undo()
             want = quant_expected(torch, tf, sharding, cfg, engine, run,
                                   gas, steps)
             got = out["quant_launches"]
@@ -4369,9 +4420,16 @@ def zeropp_phase(torch, zoo, initialize, fa, tf, qz, gm, moe, zero):
             wire = {k: v for k, v in out["bytes_per_step"].items()
                     if k.startswith(("qgz", "qwz", "qar"))}
             out["quant_wire_bytes_per_step"] = sum(wire.values())
-            # int8 codes are a byte an element: bf16 would move two
-            out["bf16_wire_bytes_per_step"] = 2 * sum(
-                v for k, v in wire.items() if not k.endswith("scales"))
+            # the elements on the wire, from the logged codes' bytes (a
+            # byte an int8 code; packed int4 two codes a byte): bf16
+            # would move two bytes each
+            elements = sum(v * (2 if k.endswith("int4") else 1)
+                           for k, v in wire.items()
+                           if not k.endswith("scales"))
+            out["bf16_wire_bytes_per_step"] = 2 * elements
+            out["wire_bytes_per_element"] = (
+                out["quant_wire_bytes_per_step"] / elements
+                if elements else None)
             out["wire_by_name"] = wire
             out["launches_per_step"] = {k: v // steps for k, v in
                                         got.items()}
@@ -4385,10 +4443,28 @@ def zeropp_phase(torch, zoo, initialize, fa, tf, qz, gm, moe, zero):
                 f" GB a step against bf16's "
                 f"{out['bf16_wire_bytes_per_step'] / 1e9:.3f}")
             del engine, model
-        # the wire per element: codes + fp32 scales against bf16's 2 B
-        for run, block in (("zpp", 256), ("qwz3", 128)):
-            runs[run]["wire_bytes_per_element"] = 1 + 4 / block
-            runs[run]["bf16_bytes_per_element"] = 2
+        # B6 / 6b on the path's own inputs, bit for bit against the plain
+        # versions: the zpp run's gradient (dequantized to fp32, as the
+        # reduce does) and qwZ stage 3's layer leaf (to bf16)
+        grad_key = (torch.float32, 8, 256)
+        leaf_key = (torch.bfloat16, 8, sharding.QWZ_BLOCK)
+        for run, key in (("zpp", grad_key), ("qwz3", leaf_key)):
+            if key not in seen[run]:
+                fail(f"zeropp {run}: the path handed B6 no {key} input "
+                     f"within {QCHECK_ELEMS} elements")
+            runs[run]["path_quant_check"] = check_path_quant(
+                torch, qz, seen[run][key], 8, key[2], key[0],
+                f"zeropp {run}")
+        # the quantized collectives on the one-rank NCCL group, on the
+        # zpp run's gradient; their CPU twins run after the group is gone
+        grad = seen["zpp"][grad_key]
+        collectives = {"psum_scatter": qz.quantized_psum_scatter,
+                       "all_gather": qz.quantized_all_gather,
+                       "all_reduce": qz.quantized_all_reduce}
+        topology.set_global_mesh(topology.build_mesh({"dp": 1}))
+        on_card = {name: fn(grad, "dp", 8, 256).cpu()
+                   for name, fn in collectives.items()}
+        seen.clear()
         # 17b: 1-bit Adam, its warmup against Adam
         nb = dict(A4_CONFIG, gradient_clipping=0.0,
                   zero_optimization={"stage": 0})
@@ -4440,6 +4516,17 @@ def zeropp_phase(torch, zoo, initialize, fa, tf, qz, gm, moe, zero):
         comm.destroy()
         shutil.rmtree(store, ignore_errors=True)
         torch.cuda.empty_cache()
+    topology.set_global_mesh(None)
+    grad = grad.cpu()
+    differ = [name for name, fn in collectives.items()
+              if not torch.equal(on_card[name], fn(grad, "dp", 8, 256))]
+    if differ:
+        fail(f"zeropp: the quantized collectives on the one-rank NCCL group "
+             f"differ from their CPU twins on the path's "
+             f"{tuple(grad.shape)} gradient: {differ}")
+    collectives_check = {"shape": list(grad.shape), "block": 256,
+                         "bit_equal": sorted(collectives)}
+    del grad, on_card
     # 17d: the einsum dispatch on phase 6's Mixtral (no group)
     mcfg = zoo.get_config("mixtral-8x7b", num_layers=MOE_TRAIN_LAYERS)
     mfixed, _ = fixed_batches(mcfg.vocab_size, MOE_TRAIN_MICRO)
@@ -4509,7 +4596,8 @@ def zeropp_phase(torch, zoo, initialize, fa, tf, qz, gm, moe, zero):
         torch.cuda.empty_cache()
     return {"model": "llama3-8b", "layers": f"{L} of 32",
             "micro": TRAIN_MICRO, "gas": gas, "seq": TRAIN_SEQ,
-            "runs": runs, "einsum": {"model": "mixtral-8x7b",
+            "runs": runs, "collectives_vs_cpu": collectives_check,
+            "einsum": {"model": "mixtral-8x7b",
                                      "layers": f"{MOE_TRAIN_LAYERS} of 32",
                                      "runs": einsum},
             "wall_s": time.perf_counter() - t_start}, paths

@@ -49,12 +49,12 @@ uninterrupted one. Universal checkpoints raise at the config (item 16).
 
 Under the 1-bit and ZeRO++ stage 1-2 steps (``runtime/onebit.py``,
 ``runtime/zeropp.py``) each rank writes its own optimizer state under
-``state/quant_rank<r>/`` (the ZeRO++ flat master, moment blocks and step;
-the 1-bit masters, moments and this rank's error feedback, which JAX
-holds as one array with a leading dp dim); a load reads it back at the
-same world size. ``load_optimizer_states=False`` re-seeds the masters
-from the restored params with zeroed moments and keeps the step count,
-as JAX's ``reseed_state_from_params`` does.
+``state/quant_rank<r>/`` (the ZeRO++ step's flat master and moment
+blocks, ``opt_master`` / ``opt_mu`` / ``opt_nu``; the 1-bit masters,
+moments, step and this rank's error feedback, which JAX holds as one
+array with a leading dp dim); a load reads it back at the same world
+size. ``load_optimizer_states=False`` re-seeds the masters from the
+restored params with zeroed moments.
 
 Across ranks (ZeRO on a process group) every rank writes the blocks it
 owns: a leaf that shards over the fsdp ranks is one file per block,
@@ -165,9 +165,13 @@ class CheckpointIO:
             state[quant_key()] = dict(qs.named_trees(),
                                       step=torch.tensor(qs.step))
         else:
-            state["opt_master"] = e.opt_state.master
+            opt = {"opt_master": e.opt_state.master}
             for name, tree in e.opt_state.named_trees().items():
-                state[f"opt_{name}"] = tree
+                opt[f"opt_{name}"] = tree
+            if _per_rank(e):
+                state[quant_key()] = opt
+            else:
+                state.update(opt)
         return state
 
     @staticmethod
@@ -538,7 +542,8 @@ class CheckpointIO:
             zen_tree = read_files(zen_dir)
             zen_sd = zenflow_state_dict(zen_tree, e._zenflow.paths)
             e._zenflow.check_state_dict(zen_sd)
-        if e._quant_step is not None and load_optimizer_states and \
+        if (e._quant_step is not None or _per_rank(e)) and \
+                load_optimizer_states and \
                 comm.any_process(not os.path.isdir(
                     os.path.join(state_dir, quant_key()))):
             raise FileNotFoundError(
@@ -768,6 +773,12 @@ def zenflow_state_dict(tree: Dict[str, Any], paths) -> Dict[str, Any]:
 def quant_key() -> str:
     """The 1-bit / ZeRO++ payload of this rank."""
     return f"quant_rank{comm.get_rank()}"
+
+
+def _per_rank(engine) -> bool:
+    """Whether each rank's optimizer state is its own (the ZeRO++ stage
+    1-2 step's flat blocks, ``runtime/zeropp.FlatPartition``)."""
+    return engine._zero is not None and engine._zero.per_rank_state
 
 
 def module_state_keys(tree) -> Dict[str, torch.Tensor]:

@@ -685,7 +685,7 @@ class ObservabilityConfig:
     and ``stale_after_seconds`` are its knobs, accepted and unused as in
     a JAX run without a run dir), ``clock_sync`` and ``journal`` (item
     13). ``quant_stats`` turns on ZeRO++'s quantization telemetry
-    (``observability/quant_stats.py``; env DSTPU_QUANT_STATS=1)."""
+    (``observability/quant_stats.py``)."""
 
     enabled: bool = True
     quant_stats: bool = False

@@ -46,6 +46,8 @@ class MoETransformerConfig(tf.TransformerConfig):
     # "auto" | "grouped" (dropless grouped-GEMM) | "einsum" (capacity-
     # padded GShard dispatch)
     moe_impl: str = "auto"
+    # each batch group's own routing statistics (moe_ffn's group_stats)
+    group_stats: bool = False
 
     def __post_init__(self):
         super().__post_init__()
@@ -153,7 +155,7 @@ def _moe_mlp(cfg: MoETransformerConfig, y, layer_params, train: bool):
     return moe_ffn(y, layer_params["moe"]["router"],
                    layer_params["moe"]["experts"], cfg.gate,
                    activation=cfg.activation, train=train,
-                   impl=cfg.moe_impl)
+                   impl=cfg.moe_impl, group_stats=cfg.group_stats)
 
 
 def apply(cfg: MoETransformerConfig, params: Dict[str, Any],

@@ -499,7 +499,7 @@ def attribute_longctx_step(*, seq_len: int, hidden_size: int,
 # the factorization hpZ controls. Analytic, as in JAX. The default links
 # are an HGX H100 node's: NVLink 4 at 450 GB/s a direction (900 GB/s
 # total a card), and one 400 Gb/s NDR InfiniBand port a card between
-# nodes (50 GB/s); DSTPU_ICI_GBPS / DSTPU_DCN_GBPS override them.
+# nodes (50 GB/s); ``attribute_quant_step``'s arguments override them.
 _DEFAULT_ICI_GBPS = 450.0
 _DEFAULT_DCN_GBPS = 50.0
 
@@ -512,8 +512,8 @@ def _wire_ratio(bits: int, block: int, full_bytes: float) -> float:
 def attribute_quant_step(cfg, *, qwz: bool = False, qgz: bool = False,
                          qar: bool = False, hpz: int = 1,
                          n_chips: int = 16, slice_size: int = 8,
-                         ici_gbps: Optional[float] = None,
-                         dcn_gbps: Optional[float] = None
+                         ici_gbps: float = _DEFAULT_ICI_GBPS,
+                         dcn_gbps: float = _DEFAULT_DCN_GBPS
                          ) -> List[RegionCost]:
     """Per-chip analytic costs of the two quantized-collective regions
     for one fwd+bwd step of ``cfg`` on ``n_chips`` cards arranged in
@@ -543,10 +543,7 @@ def attribute_quant_step(cfg, *, qwz: bool = False, qgz: bool = False,
     from deepspeed_tpu_torch.runtime.qgz import QGZ_BLOCK
     from deepspeed_tpu_torch.runtime.sharding import QWZ_BLOCK
 
-    ici = (ici_gbps if ici_gbps is not None
-           else float(os.environ.get("DSTPU_ICI_GBPS", _DEFAULT_ICI_GBPS)))
-    dcn = (dcn_gbps if dcn_gbps is not None
-           else float(os.environ.get("DSTPU_DCN_GBPS", _DEFAULT_DCN_GBPS)))
+    ici, dcn = float(ici_gbps), float(dcn_gbps)
     N = max(int(n_chips), 1)
     S = max(min(int(slice_size), N), 1)
     k = max(int(hpz), 1)

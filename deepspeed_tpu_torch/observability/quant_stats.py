@@ -9,8 +9,7 @@ integer payload plus one fp32 scale a block, shared with
 ``observability/attribution.attribute_quant_step``), the per-region
 measures (``measure_*`` on real tensors), the export (``quant.*`` hub
 gauges and counters, one ``quant_stats`` event, a flight-recorder dump
-context), ``collection_configured`` (``observability.quant_stats`` or
-``DSTPU_QUANT_STATS=1``), the engine's init-time collector and the
+context), ``collection_configured`` (``observability.quant_stats``), the engine's init-time collector and the
 acceptance gates. The quant bench (``run_quant_bench`` and its helpers)
 goes with ROADMAP queue A item 15's ``tools/quant_sweep.py``.
 """
@@ -19,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -64,7 +62,7 @@ def _f32(x) -> torch.Tensor:
 # corrupt_scale: multiply the first block's scale by 64 before
 # quantizing — the dequantized block lands on a 64x-coarser grid, so
 # max_rel_error jumps ~0.004 -> ~0.25 and every SNR gate fails. Armed
-# from env (BENCH_QUANT_INJECT / DSTPU_QUANT_CHAOS) or set_injection().
+# by set_injection().
 _INJECT: Optional[str] = None
 INJECTION_MODES = ("corrupt_scale",)
 
@@ -578,13 +576,10 @@ def publish(stats: Sequence[QuantRegionStats], hub=None, step=None) -> None:
         pass
 
 
-def collection_configured(obs_cfg=None, env=None) -> bool:
-    """Is quant.* collection on? ``observability.quant_stats`` config
-    flag or DSTPU_QUANT_STATS=1 env — the warn-once in engine init fires
-    when quantization runs without this."""
-    env = os.environ if env is None else env
-    if str(env.get("DSTPU_QUANT_STATS", "")).strip() in ("1", "true"):
-        return True
+def collection_configured(obs_cfg=None) -> bool:
+    """Is quant.* collection on (the ``observability.quant_stats``
+    flag)? The warn-once in engine init fires when quantization runs
+    without it."""
     return bool(getattr(obs_cfg, "quant_stats", False))
 
 

@@ -157,6 +157,20 @@ class _TokenMean(torch.autograd.Function):
                                log_name="moe_stats_grad"), None
 
 
+class _GatherExperts(torch.autograd.Function):
+    """This rank's E/ep experts of a stack gathered whole over ep (dim 0);
+    the gradient reduce-scatters back to this rank's experts (summed over
+    the ep ranks)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        return comm.all_gather(w.contiguous(), "ep", gather_dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.reduce_scatter(g.contiguous(), "ep", scatter_dim=0)
+
+
 def _mesh():
     from deepspeed_tpu_torch.parallel import topology
 
@@ -170,21 +184,13 @@ def _mesh_sizes() -> Dict[str, int]:
 
 def _grouped_unsupported_reason(cfg: GateConfig) -> Optional[str]:
     """Why the grouped path cannot run on the current mesh (None: it
-    can): experts that do not divide over ep, or qgZ's per-group
-    gradients on a mesh with token ranks (JAX's vmapped axes: an
-    engine-internal mode, so even an explicit "grouped" degrades,
-    marked [soft])."""
-    from deepspeed_tpu_torch.runtime import sharding
-
-    sizes = _mesh_sizes()
-    ep = sizes.get("ep", 1)
+    can): experts that do not divide over ep. JAX's other reason, qgZ's
+    per-group gradients on a mesh with token ranks, is the engine's: it
+    resolves ``moe_impl="einsum"`` and ``group_stats`` onto the model's
+    config at build (``runtime/engine.py``)."""
+    ep = _mesh_sizes().get("ep", 1)
     if ep > 1 and cfg.num_experts % ep:
         return f"num_experts={cfg.num_experts} not divisible by ep={ep}"
-    grouped = sorted(a for a in TOKEN_AXES + ("sp",)
-                     if sizes.get(a, 1) > 1)
-    if sharding.qgz_groups_active() and grouped:
-        return (f"token axes {grouped} reduce per group (qgZ): grouped "
-                "dispatch uses the einsum path [soft]")
     return None
 
 
@@ -481,7 +487,7 @@ def moe_ffn_dropless(x: torch.Tensor, router_w: torch.Tensor,
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor,
             expert_params: Dict[str, torch.Tensor], cfg: GateConfig,
             activation: str = "swiglu", train: bool = True,
-            impl: str = "auto"
+            impl: str = "auto", group_stats: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full MoE FFN block. x: [B, S, H]; router_w: [H, E];
     expert_params: wi/wo(/wg) with leading expert dim [E, ...].
@@ -490,7 +496,10 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor,
     overflow tokens, pads underflow: fixed E x C FLOPs); "grouped" the
     dropless grouped-GEMM path; "auto" the grouped path wherever it runs
     (everywhere but E % ep != 0, where it falls back to einsum with a
-    ``moe.grouped_fallback`` count; "grouped" raises there)."""
+    ``moe.grouped_fallback`` count; "grouped" raises there).
+    ``group_stats``: the einsum path's loss reads this batch group's own
+    routing statistics, not their mean over the token ranks (the engine
+    sets it, with "einsum", under qgZ's per-group gradients)."""
     if impl not in ("auto", "grouped", "einsum"):
         raise ValueError(f"unknown moe impl {impl!r}; known: auto, "
                          "grouped, einsum")
@@ -499,7 +508,7 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor,
         if reason is None:
             return moe_ffn_dropless(x, router_w, expert_params, cfg,
                                     activation=activation, train=train)
-        if impl == "grouped" and "[soft]" not in reason:
+        if impl == "grouped":
             raise ValueError(
                 f"moe_ffn: impl='grouped' is unsupported on this mesh: "
                 f"{reason} (use impl='auto' to allow the einsum fallback)")
@@ -507,17 +516,15 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor,
 
         telemetry.count("moe.grouped_fallback", reason)
     return _moe_ffn_einsum(x, router_w, expert_params, cfg, activation,
-                           train)
+                           train, group_stats)
 
 
 def _moe_ffn_einsum(x, router_w, expert_params, cfg: GateConfig,
-                    activation: str, train: bool):
+                    activation: str, train: bool, group_stats: bool):
     """JAX's capacity-padded dispatch: [B, S, H] x [B, S, E, C] ->
     [B, E, C, H], the expert FFN as einsums, the combine back. Under ep
     the expert stack is gathered over the ep ranks (the gradient
     reduce-scatters back to each rank's E/ep)."""
-    from deepspeed_tpu_torch.runtime.sharding import gather_leaf
-
     dt = x.dtype
     S = x.shape[1]
     logits = torch.einsum("bsh,he->bse", x, router_w.to(dt))
@@ -529,7 +536,7 @@ def _moe_ffn_einsum(x, router_w, expert_params, cfg: GateConfig,
     def expert(name):
         w = expert_params[name]
         if w.shape[0] != cfg.num_experts and ep > 1:
-            w = gather_leaf(w, 0, "ep")
+            w = _GatherExperts.apply(w)
         return w.to(dt)
 
     wi, wo = expert("wi"), expert("wo")
@@ -543,12 +550,9 @@ def _moe_ffn_einsum(x, router_w, expert_params, cfg: GateConfig,
                         approximate="tanh")
     expert_out = torch.einsum("becf,efh->bech", hidden, wo)
     out = torch.einsum("bech,bsec->bsh", expert_out, combine.to(dt))
-    from deepspeed_tpu_torch.runtime import sharding
-
     token_ranks = tuple(a for a in TOKEN_AXES
                         if _mesh_sizes().get(a, 1) > 1)
-    # under qgZ's groups each group's loss reads its own statistics
-    if token_ranks and not sharding.qgz_groups_active():
+    if token_ranks and not group_stats:
         # the gate's statistics over the token ranks, JAX's global batch
         gates = torch.softmax(logits.float(), dim=-1)
         stats = {"me": gates.mean(dim=(0, 1)),

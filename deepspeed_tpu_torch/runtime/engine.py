@@ -60,17 +60,20 @@ size > 1 the optimizer offload tiers, ZenFlow, a client optimizer or a
 non-elementwise optimizer at stage >= 1, tp-split experts and the pp, sp
 and tp axes raise ``NotImplementedError`` naming their ROADMAP item.
 
-ZeRO++ (JAX ``engine.py:293-420``): the stage 1-2 step (qgZ / qwZ / qar
-over dp, ``runtime/zeropp.py``) where it applies (AdamW, no fp16, MoE,
-offload, client optimizer or hpZ / MiCS; the default mesh is then dp =
-world); qwZ's int8 gather at stage 3 (not with MoE, counted in
-``zeropp.qwz_disabled``); qgZ's quantized reduction at stages 2-3 with
-fsdp > 1 and no pp (``runtime/qgz.py``; below that it warns and counts
-``zeropp.qgz_disabled``), under which MoE layers dispatch by einsum and
-expert gradients reduce over ep with the quantized wire; hpZ / MiCS as
-fsdp = the group, dp = the replicas. The 1-bit optimizers
-(``runtime/onebit.py``) replace the optimizer block's. Both steps run
-on ``train_batch`` only and take ``set_lr`` without a rebuild.
+ZeRO++ (JAX ``engine.py:293-420``): the stage 1-2 step where it applies
+(AdamW, no fp16, MoE, offload, client optimizer or hpZ / MiCS; the
+default mesh is then dp = world): the ZeRO step over
+``runtime/zeropp.FlatPartition`` (qgZ / qwZ / qar over dp on JAX's flat
+layout, the update ``zeropp.adamw``); qwZ's int8 gather at stage 3 (not
+with MoE, counted in ``zeropp.qwz_disabled``); qgZ's quantized
+reduction at stages 2-3 with fsdp > 1 and no pp (``runtime/qgz.py``;
+below that it warns and counts ``zeropp.qgz_disabled``), under which the
+engine sets the MoE model's ``moe_impl="einsum"`` and ``group_stats``
+and expert gradients reduce over ep with the quantized wire; hpZ / MiCS
+as fsdp = the group, dp = the replicas. The 1-bit optimizers
+(``runtime/onebit.py``) replace the optimizer block's. The ZeRO++ and
+1-bit steps run on ``train_batch`` only; both take ``set_lr`` without a
+rebuild.
 ``performance.fp8_mlp`` reaches the model's ``fp8_mlp``.
 
 ZeRO-Offload (``zero_optimization.offload_optimizer``, device cpu or
@@ -429,6 +432,9 @@ class Engine:
             self._loss_fn = moe_transformer.loss_fn
             if config.moe.impl != "auto":
                 over["moe_impl"] = config.moe.impl
+            if self._qgz_stage3:
+                over.update(self._qgz_moe_dispatch(
+                    over.get("moe_impl", model.config.moe_impl)))
         else:
             self._loss_fn = loss_fn
         # the performance block's streamed-stack knobs reach the model's
@@ -462,17 +468,24 @@ class Engine:
         self.lr_scheduler = lr_scheduler or self.lr_schedule
         cdt = self.compute_dtype
         zero = config.zero_optimization
-        # ZeRO across ranks: on a process group (any world size)
+        # ZeRO across ranks: on a process group (any world size); the
+        # ZeRO++ stage 1-2 step's flat partition at any mesh, as JAX's
+        # step quantizes at every axis size
         self._zero: Optional[ZeroPartition] = None
         self._fetch: Optional[sharding.LayerFetch] = None
         if self.mesh.distributed:
             self._check_world(model)
-        # the ZeRO++ stage 1-2 step and the 1-bit step reduce their own
-        # gradients (runtime/zeropp.py, runtime/onebit.py)
+        # the 1-bit step reduces its own gradients (runtime/onebit.py)
         self._quant_step = None
-        if self.mesh.distributed and \
+        if self._zeropp:
+            self._zero = zeropp_mod.FlatPartition(
+                self.plan, self.mesh, self._logical_axes(model), zero.stage,
+                model.params(), qg=zero.zero_quantized_gradients,
+                qw=zero.zero_quantized_weights,
+                qar=zero.zero_quantized_allreduce)
+        elif self.mesh.distributed and \
                 zero.offload_device not in ("cpu", "nvme") and \
-                not (self._zeropp or self._onebit):
+                not self._onebit:
             logical = self._logical_axes(model)
             self._zero = ZeroPartition(self.plan, self.mesh, logical,
                                        zero.stage, qgz=self._qgz_stage3)
@@ -514,11 +527,18 @@ class Engine:
                 self._init_offload(model)
         elif self._client_optimizer_present:
             self._init_client_optimizer(model, client_optimizer)
-        elif self._onebit or self._zeropp:
+        elif self._onebit:
             self._init_quant_step(model)
         else:
-            self.tx, self._base_lr = get_base_optimizer(config.optimizer,
-                                                        self.lr_schedule)
+            if self._zeropp:
+                self._base_lr = self._config_lr()
+                self.tx = zeropp_mod.adamw(
+                    dict((config.optimizer.params or {})
+                         if config.optimizer else {}),
+                    self.lr_schedule, self._base_lr)
+            else:
+                self.tx, self._base_lr = get_base_optimizer(
+                    config.optimizer, self.lr_schedule)
             if self._zero is not None:
                 self._init_zero_state(model)
             else:
@@ -693,42 +713,41 @@ class Engine:
                 "fails those, so the quantized path is disabled and the "
                 "standard step runs")
 
+    def _qgz_moe_dispatch(self, impl: str) -> Dict[str, Any]:
+        """The MoE layers' dispatch under qgZ (JAX ``parallel/moe.py``'s
+        ``_grouped_unsupported_reason``): qgZ reduces one gradient a
+        group of batch ranks, so the layers dispatch by einsum over the
+        whole expert stack and each group's loss reads its own routing
+        statistics; even an explicit "grouped" steps aside, counted
+        once as ``moe.grouped_fallback``."""
+        from deepspeed_tpu_torch.utils import telemetry
+
+        if impl != "einsum":
+            reason = ("token axes reduce per group (qgZ): grouped "
+                      "dispatch uses the einsum path")
+            telemetry.count("moe.grouped_fallback", reason)
+            logger.info(f"moe_impl={impl!r}: {reason}")
+        return {"moe_impl": "einsum", "group_stats": True}
+
     @torch.no_grad()
     def _init_quant_step(self, model) -> None:
-        """The 1-bit step (replicated fp32 masters, each rank's error
-        feedback) or the ZeRO++ stage 1-2 step (this rank's flat block of
-        each master over dp), over compute params the step writes."""
+        """The 1-bit step: replicated fp32 masters and each rank's error
+        feedback, over compute params the step writes."""
         cfg = self.config
         self.tx, self.opt_state = None, None
         src = model.params()
         self._compute_params(src)
-        if self._onebit:
-            opt = onebit_mod.parse_onebit_params(
-                onebit_mod.onebit_name(cfg),
-                cfg.optimizer.params if cfg.optimizer else {})
-            self._base_lr = float(opt["lr"])
-            self.lr_schedule = get_lr_schedule(cfg.scheduler,
-                                               base_lr=self._base_lr)
-            self.lr_scheduler = self.lr_schedule
-            masters = {path: p.detach().float().clone()
-                       for path, p in leaves(src)}
-            self._quant_step = onebit_mod.OneBitStep(
-                masters, opt, self.lr_schedule, cfg.gradient_clipping)
-            return
-        p = dict((cfg.optimizer.params or {}) if cfg.optimizer else {})
-        z = cfg.zero_optimization
-        self._base_lr = self._config_lr()
-        self._quant_step = zeropp_mod.ZeroppStep(
-            src, dp=self.mesh.axis_size("dp"),
-            rank=self.mesh.axis_index("dp"), lr_schedule=self.lr_schedule,
-            base_lr=self._base_lr,
-            betas=tuple(p.get("betas", (0.9, 0.999))),
-            eps=float(p.get("eps", 1e-8)),
-            weight_decay=float(p.get("weight_decay", 0.01)),
-            grad_clip=cfg.gradient_clipping,
-            qg_enabled=z.zero_quantized_gradients, qg_bits=8,
-            qw_enabled=z.zero_quantized_weights, qw_bits=8,
-            qar_enabled=z.zero_quantized_allreduce, qar_bits=8)
+        opt = onebit_mod.parse_onebit_params(
+            onebit_mod.onebit_name(cfg),
+            cfg.optimizer.params if cfg.optimizer else {})
+        self._base_lr = float(opt["lr"])
+        self.lr_schedule = get_lr_schedule(cfg.scheduler,
+                                           base_lr=self._base_lr)
+        self.lr_scheduler = self.lr_schedule
+        masters = {path: p.detach().float().clone()
+                   for path, p in leaves(src)}
+        self._quant_step = onebit_mod.OneBitStep(
+            masters, opt, self.lr_schedule, cfg.gradient_clipping)
 
     def _check_world(self, model) -> None:
         """What does not run across ranks yet raises, naming its item."""
@@ -808,14 +827,13 @@ class Engine:
     def _model_loss(self, batch):
         """The model's (loss, aux) on ``batch``; at stage 3 under the fetch
         hook (a ``(loss_fn, params)`` model gathers its whole tree)."""
-        with sharding.qgz_groups(self._qgz_stage3):
-            if self._fetch is None:
-                return self._loss_fn(self.model_config, self.params, batch)
-            if isinstance(self.model, _FnModel):
-                return self._loss_fn(self.model_config,
-                                     self._fetch.tree(self.params), batch)
-            with sharding.param_fetch(self._fetch):
-                return self._loss_fn(self.model_config, self.params, batch)
+        if self._fetch is None:
+            return self._loss_fn(self.model_config, self.params, batch)
+        if isinstance(self.model, _FnModel):
+            return self._loss_fn(self.model_config,
+                                 self._fetch.tree(self.params), batch)
+        with sharding.param_fetch(self._fetch):
+            return self._loss_fn(self.model_config, self.params, batch)
 
     def _compute_params(self, src):
         """The compute-dtype params from ``src``; under ``offload_param``
@@ -1013,8 +1031,7 @@ class Engine:
                 "ZeRO++ quantization (zero_quantized_weights/"
                 "zero_quantized_gradients) is enabled but no quant.* "
                 "collection is configured — quantization error and wire "
-                "bytes are unmeasured. Set observability.quant_stats=true "
-                "or DSTPU_QUANT_STATS=1.")
+                "bytes are unmeasured. Set observability.quant_stats=true.")
 
     def _init_observability(self) -> None:
         """The timers, the monitor, the hub, the watchdog, the flight
@@ -1727,9 +1744,10 @@ class Engine:
         """Override the LR (JAX ``engine.py:1867``, the reference's
         ``param_groups[0]['lr'] = x``): it becomes the base LR and the
         optimizer block's ``lr``; a configured schedule is dropped, with
-        JAX's warning. The optimizer's state is kept. Raises with a
-        client optimizer, as JAX does (``engine.py:1883``). The 1-bit and
-        ZeRO++ steps take the LR as an override, with no rebuild."""
+        JAX's warning. The optimizer and its state are kept, with the new
+        LR in place of the old (so the ZeRO++ step keeps its AdamW). Raises
+        with a client optimizer, as JAX does (``engine.py:1883``). The
+        1-bit step takes the LR as an override."""
         if self._quant_step is not None:
             self._quant_step.lr_override = float(lr)
             self._base_lr = float(lr)
@@ -1755,7 +1773,7 @@ class Engine:
         self.config.optimizer.params = dict(
             self.config.optimizer.params or {}, lr=float(lr))
         if self.tx is not None:
-            self.tx, _ = get_base_optimizer(self.config.optimizer, None)
+            self.tx = dataclasses.replace(self.tx, lr=float(lr))
 
     def zero_grad(self) -> None:
         """Drop the micro-step accumulation (JAX ``engine.py:2053``): the
@@ -2012,19 +2030,10 @@ class Engine:
 
     @torch.no_grad()
     def reseed_quant_masters(self, moments: bool = True) -> None:
-        """The 1-bit / ZeRO++ fp32 masters from the compute params (after
-        a load of the params alone); ``moments`` also zeroes the moments
-        and the error feedback (JAX's ``reseed_state_from_params``)."""
+        """The 1-bit step's fp32 masters from the compute params (after a
+        load of the params alone); ``moments`` also zeroes the moments
+        and the error feedback."""
         qs = self._quant_step
-        if isinstance(qs, zeropp_mod.ZeroppStep):
-            fresh = zeropp_mod.reseed_state_from_params(
-                self.params, qs.state, qs.dp, qs.rank)
-            if moments:
-                qs.state = fresh
-            else:
-                for k, v in fresh.master.items():
-                    qs.state.master[k].copy_(v)
-            return
         for path, p in leaves(self.params):
             qs.state.master[path].copy_(p.float())
             if moments:

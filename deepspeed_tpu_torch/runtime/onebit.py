@@ -23,11 +23,22 @@ from typing import Callable, Dict, Optional
 import torch
 
 from deepspeed_tpu_torch import comm
-from deepspeed_tpu_torch.runtime.zeropp import _f32, _leaf
 
 logger = logging.getLogger(__name__)
 
 ONEBIT_OPTIMIZERS = ("onebitadam", "zerooneadam", "onebitlamb")
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    """An fp32 scalar filled on ``device`` (no host copy, so no sync)."""
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
+def _leaf(tree, path: str):
+    node = tree
+    for k in path.strip("/").split("/"):
+        node = node[k]
+    return node
 
 
 def onebit_name(config) -> str:

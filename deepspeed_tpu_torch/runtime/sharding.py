@@ -444,26 +444,11 @@ def quantized_param_fetch(x: torch.Tensor, logical_axes, path: str = "",
 # JAX's qgZ takes one gradient per batch-shard group (a vmap), and its MoE
 # layers then dispatch by einsum over the whole expert stack (a shard_map
 # cannot map a vmapped axis), with each group's own routing statistics.
-# The engine marks its forward with ``qgz_groups`` so the MoE layer does
-# the same; under ep the fetch gathers each expert leaf whole, and its
-# backward reduces the group's gradient over every expert with qgZ's
-# levels (the ep level onto the expert dim: ``runtime/qgz.py`` level 2).
-
-_QGZ_GROUPS = False
-
-
-@contextlib.contextmanager
-def qgz_groups(active: bool):
-    global _QGZ_GROUPS
-    prev, _QGZ_GROUPS = _QGZ_GROUPS, bool(active)
-    try:
-        yield
-    finally:
-        _QGZ_GROUPS = prev
-
-
-def qgz_groups_active() -> bool:
-    return _QGZ_GROUPS
+# The engine resolves that dispatch onto the model's config (``moe_impl``
+# and ``group_stats``); under ep the fetch gathers each expert leaf whole,
+# and its backward reduces the group's gradient over every expert with
+# qgZ's levels (the ep level onto the expert dim: ``runtime/qgz.py`` level
+# 2).
 
 
 class _ExpertGather(torch.autograd.Function):
@@ -639,4 +624,4 @@ __all__ = ["LOGICAL_AXES", "TP_RULES", "FSDP_RULES", "EP_RULES", "PP_RULES",
            "LayerFetch", "param_fetch", "active_fetch", "fetched",
            "QWZ_BLOCK", "configure_qwz", "qwz_context",
            "qwz_active", "qwz_sequence_barrier", "qwz_plan",
-           "quantized_param_fetch", "qgz_groups", "qgz_groups_active"]
+           "quantized_param_fetch"]

@@ -68,6 +68,11 @@ class ZeroPartition:
     """Per-leaf shard dims (by the params tree's ``/a/b`` paths) and the
     step's collectives for one engine on a process group."""
 
+    # the optimizer state's blocks are views of the full leaves that the
+    # checkpoint writes by block (``runtime/zeropp.FlatPartition``'s are
+    # each rank's own)
+    per_rank_state = False
+
     def __init__(self, plan, mesh, logical_tree: Dict[str, Any],
                  stage: int, qgz: bool = False):
         self.mesh = mesh

@@ -4,23 +4,26 @@ weight all-gather (qwZ) and the quantized all-reduce (qar) over the
 
 Reference: ZeRO++ (docs/_tutorials/zeropp.md), ``all_to_all_quant_reduce``
 (runtime/comm/coalesced_collectives.py:31) and the quantized weight
-all-gather. Per step and per parameter leaf, after the backward:
+all-gather. The step is the engine's ZeRO step (``runtime/zero.py``'s
+``ZeroPartition``: its ``reduce`` and ``publish`` around the optimizer's
+AdamW) over ``FlatPartition``, whose collectives are the quantized ones.
+Per step and per parameter leaf, after the backward:
 
   this rank's gradient, flattened, padded to a multiple of dp x 256 and
   viewed as [rows, 256] -> the quantized mean-reducing scatter
   (``ops/quantization.quantized_psum_scatter``: int8 codes and fp32
   scales all-to-all, dequantized and summed in fp32 in rank order), or
   with qar the quantized all-reduce and this rank's rows of it, or with
-  neither the exact reduce-scatter -> AdamW on this rank's flat block of
-  the fp32 master -> the block all-gathered (int8 under qwZ) back into
-  the compute param.
+  neither the exact reduce-scatter -> AdamW (``runtime/optimizer.Adam``)
+  on this rank's flat block of the fp32 master -> the block all-gathered
+  (int8 under qwZ) back into the compute param.
 
-The master layout is JAX's: each leaf flattened and padded, rank r holds
-the r-th of dp equal contiguous blocks (JAX's ``[dp, shard]`` array,
-``P('dp')`` on dim 0). As in JAX the step is AdamW only, its LR comes
-from the schedule at the incremented step count (or ``set_lr``'s
-override), and the global norm sums each rank's block and all-reduces
-one fp32 scalar. The quantize and the dequantize are the B6 / 6b
+The master layout is JAX's flat one: each leaf flattened and padded, rank
+r holds the r-th of dp equal contiguous blocks (JAX's ``[dp, shard]``
+array, ``P('dp')`` on dim 0). ZeRO's own layout (a block of the leaf's
+embed dim over fsdp) would not do: the quantize blocks are rows of 256
+of the flat padded leaf, so only this layout quantizes the same values
+as JAX, code for code. The quantize and the dequantize are the B6 / 6b
 kernels on the card (``ops/quantization.LAUNCHES``).
 """
 
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -36,12 +39,14 @@ from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.ops.quantization import (quantized_all_gather,
                                                   quantized_all_reduce,
                                                   quantized_psum_scatter)
-from deepspeed_tpu_torch.runtime.optimizer import leaves
+from deepspeed_tpu_torch.runtime.optimizer import Adam, leaves
+from deepspeed_tpu_torch.runtime.zero import ZeroPartition
 
 logger = logging.getLogger(__name__)
 
 QUANT_BLOCK = 256
 DP = "dp"
+QUANT_BITS = 8
 
 
 def _pad_len(n: int, dp: int) -> int:
@@ -49,159 +54,123 @@ def _pad_len(n: int, dp: int) -> int:
     return int(math.ceil(n / unit)) * unit
 
 
-def _f32(x: float, device) -> torch.Tensor:
-    """An fp32 scalar filled on ``device`` (no host copy, so no sync)."""
-    return torch.full((), x, dtype=torch.float32, device=device)
+def flat_padded(t: torch.Tensor, dp: int, dtype=None) -> torch.Tensor:
+    """``t`` flattened and zero-padded to a multiple of dp x 256."""
+    n = t.numel()
+    f = torch.zeros(_pad_len(n, dp), dtype=dtype or t.dtype,
+                    device=t.device)
+    f[:n] = t.detach().reshape(-1)
+    return f
 
 
-class ZeroppState:
-    """This rank's flat fp32 master, moment blocks (one ``[shard]`` tensor
-    a leaf, by ``/a/b`` path) and the step count."""
-
-    def __init__(self, master: Dict[str, torch.Tensor],
-                 m: Dict[str, torch.Tensor], v: Dict[str, torch.Tensor],
-                 step: int = 0):
-        self.master, self.m, self.v, self.step = master, m, v, step
-
-    def named_trees(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        return {"master": self.master, "m": self.m, "v": self.v}
+def flat_block(t: torch.Tensor, dp: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s block of ``t`` in JAX's layout: the r-th of dp
+    equal contiguous blocks of the flat padded leaf (a fresh tensor)."""
+    f = flat_padded(t, dp)
+    shard = f.numel() // dp
+    return f[rank * shard:(rank + 1) * shard].clone()
 
 
-def _masters_from_leaves(params, dp: int, rank: int
-                         ) -> Dict[str, torch.Tensor]:
-    """Param leaves -> this rank's block of the flat padded fp32 master
-    (the single home of the pad invariant; at init and at a re-seed)."""
-    out = {}
-    for path, x in leaves(params):
-        n = x.numel()
-        n_pad = _pad_len(n, dp)
-        f = torch.zeros(n_pad, dtype=torch.float32, device=x.device)
-        f[:n] = x.detach().reshape(-1).float()
-        shard = n_pad // dp
-        out[path] = f[rank * shard:(rank + 1) * shard].clone()
-    return out
+class FlatPartition(ZeroPartition):
+    """ZeRO's step over the dp ranks in JAX's flat ZeRO++ layout: every
+    role's dim is None (the param and its gradient are whole; the opt
+    block is a flat [shard] slice), the gradients reduce with qgZ / qar
+    (or exactly, under qwZ alone) and the masters publish with qwZ's
+    int8 gather (or the exact one). Each rank's optimizer state is its
+    own (``per_rank_state``: the checkpoint writes it under the rank)."""
 
+    per_rank_state = True
 
-def init_state(params, dp: int, rank: int) -> ZeroppState:
-    master = _masters_from_leaves(params, dp, rank)
-    return ZeroppState(master, {k: torch.zeros_like(v)
-                                for k, v in master.items()},
-                       {k: torch.zeros_like(v) for k, v in master.items()})
-
-
-def reseed_state_from_params(params, state: ZeroppState, dp: int,
-                             rank: int) -> ZeroppState:
-    """Fp32 masters (zeroed moments) from restored params: the recovery
-    path when a checkpoint lacks, or skips, the optimizer state, so the
-    next step's all-gather does not roll the model back to init."""
-    fresh = init_state(params, dp, rank)
-    fresh.step = state.step
-    return fresh
-
-
-class ZeroppStep:
-    """The quantized step over one engine's compute params (a tree of
-    tensors updated in place)."""
-
-    def __init__(self, params, dp: int, rank: int, lr_schedule:
-                 Optional[Callable], base_lr: float, betas, eps: float,
-                 weight_decay: float, grad_clip: float, qg_enabled: bool,
-                 qg_bits: int, qw_enabled: bool, qw_bits: int,
-                 qar_enabled: bool = False, qar_bits: int = 8):
-        self.dp, self.rank = dp, rank
-        self.lr_schedule, self.base_lr = lr_schedule, float(base_lr)
-        self.b1, self.b2 = (float(b) for b in betas)
-        self.eps, self.wd = float(eps), float(weight_decay)
-        self.grad_clip = grad_clip
-        self.qg, self.qg_bits = qg_enabled, qg_bits
-        self.qw, self.qw_bits = qw_enabled, qw_bits
-        self.qar, self.qar_bits = qar_enabled, qar_bits
-        self.lr_override: Optional[float] = None
+    def __init__(self, plan, mesh, logical_tree, stage: int, params,
+                 qg: bool, qw: bool, qar: bool):
+        super().__init__(plan, mesh, logical_tree, stage)
+        for dims in (self.param_dim, self.grad_dim, self.opt_dim):
+            dims.update(dict.fromkeys(dims))
+        self.dp, self.rank = mesh.axis_size(DP), mesh.axis_index(DP)
+        self.qg, self.qw, self.qar = qg, qw, qar
         self.shapes = {path: tuple(p.shape) for path, p in leaves(params)}
-        self.state = init_state(params, dp, rank)
         logger.info(
-            f"ZeRO++ step: dp={dp}, "
-            + (f"qar=int{qar_bits}" if qar_enabled
-               else (f"qgZ=int{qg_bits}" if qg_enabled else "qgZ=off"))
-            + (f", qwZ=int{qw_bits}" if qw_enabled else ", qwZ=off"))
+            f"ZeRO++ step: dp={self.dp}, "
+            + (f"qar=int{QUANT_BITS}" if qar
+               else (f"qgZ=int{QUANT_BITS}" if qg else "qgZ=off"))
+            + (f", qwZ=int{QUANT_BITS}" if qw else ", qwZ=off"))
 
-    def lr_at(self, step: int) -> float:
-        """The LR of the step that takes the count to ``step``."""
-        if self.lr_override is not None:
-            return self.lr_override
-        if self.lr_schedule is not None:
-            return float(self.lr_schedule(step))
-        return self.base_lr
+    def block(self, path: str, t: torch.Tensor, role: str = "opt"
+              ) -> torch.Tensor:
+        """This rank's flat [shard] block of a full leaf (role opt; a
+        fresh tensor), or ``t`` (param and grad are whole)."""
+        return flat_block(t, self.dp, self.rank) if role == "opt" else t
 
-    def _reduce(self, path: str, g: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the mean gradient, flat [shard] fp32."""
-        n = g.numel()
-        n_pad = _pad_len(n, self.dp)
-        flat = torch.zeros(n_pad, dtype=torch.float32, device=g.device)
-        flat[:n] = g.reshape(-1).float()
-        flat = flat.reshape(-1, QUANT_BLOCK)
-        if self.qar:
-            full = quantized_all_reduce(flat, DP, bits=self.qar_bits,
-                                        block=QUANT_BLOCK)
-            rows = flat.shape[0] // self.dp
-            red = full[self.rank * rows:(self.rank + 1) * rows]
-        elif self.qg:
-            red = quantized_psum_scatter(flat, DP, bits=self.qg_bits,
-                                         block=QUANT_BLOCK,
-                                         log_name="qgz_dp")
-        else:  # qwZ alone: the exact reduce
-            red = comm.reduce_scatter(flat, DP, scatter_dim=0)
-            red = red / _f32(float(self.dp), red.device)
-        return red.reshape(-1)
+    def master_of_param(self, path: str, p: torch.Tensor) -> torch.Tensor:
+        return self.block(path, p)
 
     @torch.no_grad()
-    def step(self, grads: Dict[str, torch.Tensor], params) -> torch.Tensor:
-        """One update from this rank's gradients (by path; fp32 or the
-        compute dtype, unreduced): the params are written in place.
-        Returns the global gradient norm (fp32, 0-dim)."""
-        st = self.state
-        shards: List[tuple] = [(path, self._reduce(path, g))
-                               for path, g in grads.items()]
-        dev = shards[0][1].device
-        sq = torch.zeros((), dtype=torch.float32, device=dev)
-        for _, gs in shards:
-            sq += torch.sum(gs * gs)
-        gnorm = torch.sqrt(comm.all_reduce(sq, DP))
-        if self.grad_clip and self.grad_clip > 0:
-            scale = torch.clamp(self.grad_clip / (gnorm + 1e-6), max=1.0)
+    def reduce(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Each full gradient replaced by this rank's flat block of the
+        mean over the dp ranks (fp32)."""
+        for path, g in grads.items():
+            flat = flat_padded(g, self.dp, torch.float32).reshape(
+                -1, QUANT_BLOCK)
+            if self.qar:
+                full = quantized_all_reduce(flat, DP, bits=QUANT_BITS,
+                                            block=QUANT_BLOCK)
+                rows = flat.shape[0] // self.dp
+                red = full[self.rank * rows:(self.rank + 1) * rows]
+            elif self.qg:
+                red = quantized_psum_scatter(flat, DP, bits=QUANT_BITS,
+                                             block=QUANT_BLOCK,
+                                             log_name="qgz_dp")
+            else:  # qwZ alone: the exact reduce
+                red = comm.reduce_scatter(flat, DP, scatter_dim=0)
+                red = red / torch.full((), float(self.dp),
+                                       dtype=torch.float32,
+                                       device=red.device)
+            grads[path] = red.reshape(-1)
+
+    def opt_grad(self, path: str, g: torch.Tensor) -> torch.Tensor:
+        return g
+
+    def owned(self, path: str) -> bool:
+        return True
+
+    def norm_reduce(self, sq: torch.Tensor) -> torch.Tensor:
+        return comm.all_reduce(sq, DP, out=sq)
+
+    @torch.no_grad()
+    def publish(self, path: str, master: torch.Tensor,
+                param: torch.Tensor) -> None:
+        """The compute param from every rank's updated flat block: the
+        int8 gather of the fp32 blocks under qwZ, else the exact gather
+        of the blocks cast first."""
+        if self.qw:
+            full = quantized_all_gather(
+                master.reshape(-1, QUANT_BLOCK), DP, bits=QUANT_BITS,
+                block=QUANT_BLOCK, log_name="qwz_dp").reshape(-1)
         else:
-            scale = _f32(1.0, dev)
-        st.step += 1
-        lr = _f32(self.lr_at(st.step), dev)
-        t = _f32(float(st.step), dev)
-        b1, b2 = self.b1, self.b2
-        bc1 = 1 - torch.pow(_f32(b1, dev), t)
-        bc2 = 1 - torch.pow(_f32(b2, dev), t)
-        for path, gs in shards:
-            g_ = gs * scale
-            mm = st.master[path]
-            mi = st.m[path].mul_(b1).add_(g_ * (1 - b1))
-            vi = st.v[path].mul_(b2).add_(g_ * g_ * (1 - b2))
-            upd = lr * ((mi / bc1) / (torch.sqrt(vi / bc2) + self.eps)
-                        + self.wd * mm)
-            mm.sub_(upd)
-            if self.qw:
-                full = quantized_all_gather(
-                    mm.reshape(-1, QUANT_BLOCK), DP, bits=self.qw_bits,
-                    block=QUANT_BLOCK, log_name="qwz_dp").reshape(-1)
-            else:
-                full = comm.all_gather(mm, DP, gather_dim=0)
-            shape = self.shapes[path]
-            p = _leaf(params, path)
-            p.copy_(full[:math.prod(shape)].reshape(shape))
-        return gnorm
+            full = comm.all_gather(master.to(param.dtype), DP, gather_dim=0)
+        param.copy_(full[:param.numel()].reshape(param.shape))
+
+    def full(self, path: str, t: torch.Tensor, role: str = "opt"
+             ) -> torch.Tensor:
+        if role != "opt":
+            return t
+        shape = self.shapes[path]
+        f = comm.all_gather(t.contiguous(), DP, gather_dim=0)
+        return f[:math.prod(shape)].reshape(shape)
 
 
-def _leaf(tree, path: str):
-    node = tree
-    for k in path.strip("/").split("/"):
-        node = node[k]
-    return node
+def adamw(opt_params: Dict, lr_schedule: Optional[Callable],
+          base_lr: float) -> Adam:
+    """JAX's ZeRO++ update as the optimizer's AdamW: decoupled weight
+    decay (0.01 unless given, whichever of Adam and AdamW the block
+    names), the block's betas and eps, and the LR at the count the
+    update takes the step to (JAX's ``lr_schedule(step + 1)``)."""
+    b1, b2 = (float(b) for b in opt_params.get("betas", (0.9, 0.999)))
+    lr = (float(base_lr) if lr_schedule is None
+          else (lambda count: lr_schedule(count + 1)))
+    return Adam(lr=lr, b1=b1, b2=b2, eps=float(opt_params.get("eps", 1e-8)),
+                weight_decay=float(opt_params.get("weight_decay", 0.01)),
+                decoupled=True)
 
 
 def zeropp_enabled(config) -> bool:
@@ -211,5 +180,5 @@ def zeropp_enabled(config) -> bool:
                  or z.zero_quantized_allreduce))
 
 
-__all__ = ["QUANT_BLOCK", "ZeroppState", "ZeroppStep", "init_state",
-           "reseed_state_from_params", "zeropp_enabled"]
+__all__ = ["QUANT_BLOCK", "FlatPartition", "adamw", "flat_block",
+           "flat_padded", "zeropp_enabled"]

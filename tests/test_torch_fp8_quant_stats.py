@@ -5,6 +5,7 @@ against the JAX package on the CPU (``tests/test_fp8_mlp.py``'s
 tolerances; the measures on the same tensors)."""
 
 import math
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -197,8 +198,9 @@ def test_engine_collects_or_warns(monkeypatch):
     snap = pqs.last_snapshot()
     assert snap["regions"][0]["region"] == "qwz_param_fetch"
     assert "dstpu_quant_qwz_param_fetch_snr_db" in get_hub().to_prometheus()
-    assert pqs.collection_configured(env={"DSTPU_QUANT_STATS": "1"})
-    assert not pqs.collection_configured(env={})
+    assert pqs.collection_configured(SimpleNamespace(quant_stats=True))
+    assert not pqs.collection_configured(SimpleNamespace(quant_stats=False))
+    assert not pqs.collection_configured(None)
     reset_hub()
 
 

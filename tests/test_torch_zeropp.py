@@ -466,8 +466,8 @@ def test_qgz_reduce_leaf_exact_path_without_ranks():
 
 def test_zeropp_master_layout_is_jax_flat_blocks():
     params = {"w": torch.arange(300, dtype=torch.float32).reshape(3, 100)}
-    st = zeropp.init_state(params, dp=2, rank=1)
+    blk = zeropp.flat_block(params["w"], dp=2, rank=1)
     # padded to dp x 256 = 512, rank 1 holds elements 256..511
     want = torch.zeros(256)
     want[:44] = torch.arange(256, 300, dtype=torch.float32)
-    assert torch.equal(st.master["/w"], want)
+    assert torch.equal(blk, want)
