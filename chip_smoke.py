@@ -856,6 +856,23 @@ class Timer:
         torch.cuda.synchronize()
         return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
+    def ms_back_to_back(self, fn, n=100):
+        """Mean ms of ``n`` launches in a row with no flush between: the
+        card sleeps while the host queues them all, so no host gap
+        enters the span."""
+        torch = self.torch
+        fn()
+        self.flush_buf.zero_()
+        torch.cuda._sleep(100_000_000)  # ~50 ms: the host queues ahead
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+
 
 def ptxas_report(build_log):
     """One line per kernel of nvcc's -Xptxas -v output: its (demangled,
@@ -1569,6 +1586,122 @@ def check_kv_append(torch, qz, timer, bits, ntok, dtype):
     res["shape"] = {"tokens": ntok, "kv_heads": NKV, "head_dim": HD,
                     "pool": [KV_BLOCKS, BS, 2, NKV, W], "k_dtype":
                     str(dtype).split(".")[-1]}
+    return res
+
+
+def check_kv_append_dequant(torch, qz, timer, bits, ntok, mode):
+    """K4, the KV append folded into the layer's dequantize, in each
+    design: into the 2048 x 16 layer pool (mode "pool", the paged
+    forwards) or through a MAX_SEQS x MAX_BLOCKS table that reads pages
+    the step appends to (mode "table", the gather forward), against its
+    plain version (K2's, then K3's of the pool or of the table's pages)
+    bit for bit outside the scratch page, where the 3 padding tokens'
+    writes race. Timed, flushed and back to back, against the two
+    launches it replaces: 6a then 6b on the pool, or 6a then the gather
+    forward's page copy and 6b."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(80 + ntok)
+    W = HD // 2 if bits == 4 else HD
+    pdt = {8: torch.int8, 4: torch.uint8, "fp8": torch.float8_e4m3fn}[bits]
+    codes = torch.randint(0, 256, (KV_BLOCKS, BS, 2, NKV, W), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    if bits == "fp8":
+        codes[(codes & 0x7F) == 0x7F] = 0  # no NaN codes
+    init_sc = torch.rand((KV_BLOCKS, BS, 2, NKV), generator=gen,
+                         device="cuda")
+    slots = torch.randperm((KV_BLOCKS - 1) * BS, generator=gen,
+                           device="cuda")[:ntok]
+    page, offset = slots // BS, slots % BS
+    page[-3:], offset[-3:] = KV_BLOCKS - 1, BS - 1
+    top = {8: 127, 4: 7, "fp8": 448}[bits]
+    k, v = (quant_values(torch, gen, (ntok, NKV, HD), HD, top,
+                         torch.bfloat16) for _ in range(2))
+    table, lead = None, (KV_BLOCKS,)
+    if mode == "table":
+        table = torch.randperm(KV_BLOCKS - 1, generator=gen, device="cuda")[
+            :MAX_SEQS * MAX_BLOCKS].reshape(MAX_SEQS, MAX_BLOCKS)
+        table[:, 0] = slots[:MAX_SEQS] // BS  # pages the step appends to
+        table[1, 1] = table[0, 0]      # one read twice
+        lead = tuple(table.shape)
+
+    def fresh():
+        return (codes.clone().view(pdt), init_sc.clone(),
+                torch.empty((*lead, BS, 2, NKV, HD), dtype=torch.bfloat16,
+                            device="cuda"))
+
+    pool, sc, want = fresh()
+    qz.kv_append_dequantize_plain(pool, sc, page, offset, k, v, bits, want,
+                                  table)
+    want_pool, want_sc = pool.view(torch.uint8), sc
+    keep = slice(None, -1) if mode == "pool" else slice(None)
+    res = {"bit_equal": True, "max_abs_err": 0.0, "designs": {}}
+    for design in qz.FUSED_DESIGNS:
+        pool, sc, out = fresh()
+
+        def fused():
+            return qz.kv_append_dequantize(pool, sc, page, offset, k, v,
+                                           bits, out, table, design=design)
+        fused()
+        torch.cuda.synchronize()
+        if not (bit_equal(torch, pool.view(torch.uint8)[:-1],
+                          want_pool[:-1])
+                and bit_equal(torch, sc[:-1], want_sc[:-1])
+                and bit_equal(torch, out[keep], want[keep])):
+            fail(f"kv_append_dequantize {design} bits {bits} ntok {ntok} "
+                 f"{mode}: not bit-equal to kv_quantize_append_plain then "
+                 f"dequantize_plain")
+        res["designs"][design] = {"ms": timer.ms(fused),
+                                  "back_to_back_ms":
+                                      timer.ms_back_to_back(fused)}
+
+        def read_only():  # the same launch with no token to append
+            return qz.kv_append_dequantize(pool, sc, page[:0], offset[:0],
+                                           k[:0], v[:0], bits, out, table,
+                                           design=design)
+        res["designs"][design]["no_append_ms"] = timer.ms(read_only)
+    pool, sc, out = fresh()
+
+    def append():
+        qz.kv_quantize_append(pool, sc, page, offset, k, v, bits)
+
+    if mode == "pool":
+        def read():
+            qz.dequantize(pool, sc, torch.bfloat16, out=out)
+    else:
+        def read():
+            qz.dequantize(qz.pool_pages(pool, table), sc[table],
+                          torch.bfloat16, out=out)
+
+    def both():
+        append()
+        read()
+
+    for name, fn in (("append", append), ("read", read), ("both", both)):
+        res[name] = {"ms": timer.ms(fn),
+                     "back_to_back_ms": timer.ms_back_to_back(fn)}
+    chosen = res["designs"][qz.DEFAULT_FUSED_DESIGN]
+    res["ms"], res["back_to_back_ms"] = chosen["ms"], \
+        chosen["back_to_back_ms"]
+    # the fused launch less the read alone: what the append still costs
+    res["append_marginal_ms"] = res["ms"] - res["read"]["ms"]
+    res["append_marginal_back_to_back_ms"] = \
+        res["back_to_back_ms"] - res["read"]["back_to_back_ms"]
+    vecs = 2 * ntok * NKV
+    rows = out.numel() // HD
+    # K and V, page / offset read once, their codes and scales written
+    # once; each output row's codes and scale read once (the table too)
+    # and its values written once
+    nbytes = (vecs * HD * k.element_size() + vecs * (W + 4) + 2 * ntok * 8
+              + rows * (W + 4 + 2 * HD)
+              + (0 if table is None else table.numel() * 8))
+    res["bound_ms"], res["bound_by"] = bound(nbytes, 4 * vecs * HD
+                                             + rows * HD, "float32")
+    res["plain_ms"] = timer.ms(lambda: qz.kv_append_dequantize_plain(
+        pool, sc, page, offset, k, v, bits, out, table), iters=3, warmup=1)
+    res["shape"] = {"tokens": ntok, "mode": mode, "kv_heads": NKV,
+                    "head_dim": HD, "pool": [KV_BLOCKS, BS, 2, NKV, W],
+                    "out": list(out.shape), "payload_dtype":
+                    str(pdt).split(".")[-1], "k_dtype": "bfloat16"}
     return res
 
 

@@ -19,14 +19,14 @@ only ever hit that block, so the unspecified order of duplicate writes
 is harmless.
 
 A quantized pool comes as the (payload, fp32 scales) pair of
-``BlockedKVCache.kv_state``. Every forward then appends first, through
-the quantize-on-append kernel (``ops/quantization.kv_quantize_append``:
-K and V of every token in one launch per layer), and reads after, so
-each token attends the dequantized value of its own K/V, as in JAX. The
-decode and prefill forwards dequantize the whole layer pool into one
+``BlockedKVCache.kv_state``. Every forward then appends first and reads
+after, so each token attends the dequantized value of its own K/V, as
+in JAX, in one launch a layer (``ops/quantization.kv_append_dequantize``:
+the quantize-on-append of every token's K and V, then the dequantize).
+The decode and prefill forwards dequantize the whole layer pool into one
 scratch tensor in the compute dtype, allocated once per forward and
 reused by every layer, and run the paged kernels on it; the gather path
-dequantizes only the gathered pages. Weights go through ``_weight``,
+dequantizes only the block table's pages. Weights go through ``_weight``,
 which dequantizes a ``QuantizedTensor`` (weight-only int8,
 ``inference/weight_quant.py``) one layer's slice at a time.
 
@@ -55,8 +55,7 @@ from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     apply_rope, rope_tables)
 from deepspeed_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                      paged_prefill_attention)
-from deepspeed_tpu_torch.ops.quantization import (dequantize,
-                                                  kv_quantize_append)
+from deepspeed_tpu_torch.ops.quantization import kv_append_dequantize
 from deepspeed_tpu_torch.parallel.moe import moe_ffn
 from deepspeed_tpu_torch.utils.annotate import range_pop, range_push, region
 
@@ -94,14 +93,6 @@ def _kv_bits(kv_layer) -> object:
     if kv_layer.dtype == torch.float8_e4m3fn:
         return "fp8"
     return 4 if kv_layer.dtype == torch.uint8 else 8
-
-
-def _pool_codes(kv_layer, index):
-    """``kv_layer[index]`` on the payload's bytes (indexing has no fp8
-    kernel on every backend), viewed back in the payload's dtype."""
-    if kv_layer.dtype == torch.float8_e4m3fn:
-        return kv_layer.view(torch.uint8)[index].view(kv_layer.dtype)
-    return kv_layer[index]
 
 
 def _rope_of(cfg: TransformerConfig, positions):
@@ -206,25 +197,26 @@ def _append_kv(kv_layer, page, offset, k, v) -> None:
 
 def _append_and_read(kv_layer, kv_sc, page, offset, k, v, scratch):
     """Append this step's K/V to one layer's pool and return the pool
-    the paged kernels read: the pool itself when unquantized; else the
-    codes appended through the quantize-on-append kernel, then the
-    whole layer dequantized into ``scratch`` (compute dtype)."""
+    the paged kernels read: the pool itself when unquantized; else, in
+    one launch, the codes appended and the whole layer dequantized into
+    ``scratch`` (compute dtype)."""
     if kv_sc is None:
         _append_kv(kv_layer, page, offset, k, v)
         return kv_layer
-    kv_quantize_append(kv_layer, kv_sc, page, offset, k.contiguous(),
-                       v.contiguous(), _kv_bits(kv_layer))
-    return dequantize(kv_layer, kv_sc, scratch.dtype, out=scratch)
+    return kv_append_dequantize(kv_layer, kv_sc, page, offset,
+                                k.contiguous(), v.contiguous(),
+                                _kv_bits(kv_layer), scratch)
 
 
-def _scratch_pool(cfg: TransformerConfig, kv_data, kv_scales):
-    """One layer's pool in the compute dtype, the dequantize target that
-    every layer of a forward reuses (None for an unquantized pool)."""
+def _scratch_pool(cfg: TransformerConfig, kv_data, kv_scales, lead=None):
+    """One layer's pool in the compute dtype (or, with ``lead``, the
+    pages of a [S, Bm] block table), the dequantize target that every
+    layer of a forward reuses (None for an unquantized pool)."""
     if kv_scales is None:
         return None
     nb, bs, _, nkv, _ = kv_data.shape[1:]
-    return torch.empty((nb, bs, 2, nkv, cfg.head_dim), dtype=cfg.dtype,
-                       device=kv_data.device)
+    return torch.empty((*(lead or (nb,)), bs, 2, nkv, cfg.head_dim),
+                       dtype=cfg.dtype, device=kv_data.device)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +332,8 @@ def ragged_forward(cfg: TransformerConfig, params: Params,
     key_pos = torch.arange(max_ctx, device=dev)
     mask = key_pos[None, None, None, :] <= pos[:, None, None, None]
     sqrt_hd = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dt)
+    # the quantized pool: only the table's pages are dequantized
+    scratch = _scratch_pool(cfg, kv_data, kv_scales, lead=(Smax, Bm))
     for l in range(cfg.num_layers):
         lp = _layer(params, l)
         kv_layer = kv_data[l]
@@ -349,12 +343,10 @@ def ragged_forward(cfg: TransformerConfig, params: Params,
             _append_kv(kv_layer, page, offset, k, v)
             gathered = kv_layer[bt]
         else:
-            kv_sc = kv_scales[l]
-            kv_quantize_append(kv_layer, kv_sc, page, offset,
-                               k.contiguous(), v.contiguous(),
-                               _kv_bits(kv_layer))
-            # dequantize only the gathered pages, never the pool
-            gathered = dequantize(_pool_codes(kv_layer, bt), kv_sc[bt], dt)
+            gathered = kv_append_dequantize(
+                kv_layer, kv_scales[l], page, offset,
+                k.contiguous(), v.contiguous(), _kv_bits(kv_layer), scratch,
+                block_table=bt)
         # each slot's pages gathered dense: [S, Lmax, 2, nkv, hd]
         gathered = gathered.reshape(Smax, max_ctx, 2, nkv, hd)
         k_seq = gathered[:, :, 0][seq]  # [T, Lmax, nkv, hd]

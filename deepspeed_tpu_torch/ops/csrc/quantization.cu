@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 namespace {
 
 constexpr int WARPS = 8;  // warps (vectors) per thread block
@@ -161,15 +163,13 @@ __global__ void __launch_bounds__(THREADS)
 // the int4 pack needs no exchange between lanes.
 // ---------------------------------------------------------------------------
 
+// quantize vector w = (token t, plane, head h) of the step into the pool
 template <typename T, int KIND, int PAIRS>
-__global__ void __launch_bounds__(THREADS) kv_quantize_append_kernel(
+__device__ __forceinline__ void append_vector(
     const T* __restrict__ k, const T* __restrict__ v,
     const long long* __restrict__ page, const long long* __restrict__ offset,
-    uint8_t* __restrict__ kv, float* __restrict__ scales, int ntok, int nkv,
-    int hd, int bs, int W) {
-  const int lane = threadIdx.x & 31;
-  const long long w = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (w >= (long long)ntok * 2 * nkv) return;
+    uint8_t* __restrict__ kv, float* __restrict__ scales, long long w,
+    int nkv, int hd, int bs, int W, int lane) {
   const int h = (int)(w % nkv);
   const int plane = (int)((w / nkv) & 1);
   const long long t = w / (2 * nkv);
@@ -210,6 +210,18 @@ __global__ void __launch_bounds__(THREADS) kv_quantize_append_kernel(
   if (lane == 0) scales[row] = s;
 }
 
+template <typename T, int KIND, int PAIRS>
+__global__ void __launch_bounds__(THREADS) kv_quantize_append_kernel(
+    const T* __restrict__ k, const T* __restrict__ v,
+    const long long* __restrict__ page, const long long* __restrict__ offset,
+    uint8_t* __restrict__ kv, float* __restrict__ scales, int ntok, int nkv,
+    int hd, int bs, int W) {
+  const long long w = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (w >= (long long)ntok * 2 * nkv) return;
+  append_vector<T, KIND, PAIRS>(k, v, page, offset, kv, scales, w, nkv, hd,
+                                bs, W, threadIdx.x & 31);
+}
+
 // ---------------------------------------------------------------------------
 // K3: dequantize. One warp per row of n values; lane l handles VEC
 // consecutive values at a time (VEC 4 needs n % 4 == 0 and aligned rows).
@@ -229,6 +241,49 @@ __device__ __forceinline__ float code_value(const uint8_t* __restrict__ pr,
   return (float)(int8_t)pr[c];
 }
 
+// four consecutive codes (one 4-byte load of int8 / e4m3, 2 bytes of
+// int4); L2 only (ld.global.cg) where other blocks of the same launch
+// wrote them
+template <int KIND, bool L2_ONLY = false>
+__device__ __forceinline__ uint32_t load_codes4(const uint8_t* pr, int c0) {
+  if (KIND == KIND_INT4) {
+    const unsigned short* p =
+        reinterpret_cast<const unsigned short*>(pr + c0 / 2);
+    return L2_ONLY ? __ldcg(p) : *p;
+  }
+  const unsigned int* p = reinterpret_cast<const unsigned int*>(pr + c0);
+  return L2_ONLY ? __ldcg(p) : *p;
+}
+
+// their values times the scale, one rounding, one vector store
+template <int KIND, typename O>
+__device__ __forceinline__ void store_values4(uint32_t raw, float s,
+                                              O* __restrict__ dst) {
+  float q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (KIND == KIND_INT4) {
+      const int nib = (raw >> (4 * i)) & 0x0F;
+      q[i] = (float)(nib > 7 ? nib - 16 : nib);
+    } else {
+      const uint8_t byte = (uint8_t)(raw >> (8 * i));
+      if (KIND == KIND_FP8) {
+        const __half_raw hr = __nv_cvt_fp8_to_halfraw(byte, __NV_E4M3);
+        q[i] = __half2float(__half(hr));
+      } else {
+        q[i] = (float)(int8_t)byte;
+      }
+    }
+  }
+  alignas(16) O o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = from_f32<O>(__fmul_rn(q[i], s));
+  if (sizeof(O) == 4)
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(o);
+  else
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
+}
+
 template <int KIND, typename O, int VEC>
 __global__ void __launch_bounds__(THREADS)
     dequantize_kernel(const uint8_t* __restrict__ payload,
@@ -241,41 +296,159 @@ __global__ void __launch_bounds__(THREADS)
   const float s = scales[row];
   O* orow = out + row * n;
   for (int c0 = lane * VEC; c0 < n; c0 += 32 * VEC) {
-    if (VEC == 4) {
-      float q[4];
-      if (KIND == KIND_INT4) {
-        const uint16_t two = *reinterpret_cast<const uint16_t*>(pr + c0 / 2);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int nib = (two >> (4 * i)) & 0x0F;
-          q[i] = (float)(nib > 7 ? nib - 16 : nib);
-        }
-      } else {
-        const uint32_t four = *reinterpret_cast<const uint32_t*>(pr + c0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint8_t byte = (uint8_t)(four >> (8 * i));
-          if (KIND == KIND_FP8) {
-            const __half_raw hr = __nv_cvt_fp8_to_halfraw(byte, __NV_E4M3);
-            q[i] = __half2float(__half(hr));
-          } else {
-            q[i] = (float)(int8_t)byte;
-          }
-        }
-      }
-      alignas(16) O o[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[i] = from_f32<O>(__fmul_rn(q[i], s));
-      if (sizeof(O) == 4) {
-        *reinterpret_cast<float4*>(orow + c0) =
-            *reinterpret_cast<const float4*>(o);
-      } else {
-        *reinterpret_cast<uint2*>(orow + c0) =
-            *reinterpret_cast<const uint2*>(o);
-      }
-    } else {
+    if (VEC == 4)
+      store_values4<KIND, O>(load_codes4<KIND>(pr, c0), s, orow + c0);
+    else
       orow[c0] = from_f32<O>(__fmul_rn(code_value<KIND>(pr, c0), s));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: kv_append_dequantize. K2's append of the step's K and V, then K3's
+// dequantize of the layer pool (or of a block table's pages) into `out`,
+// in one launch. The dequantize must not read a row the append is still
+// writing, nor write a row's output from codes older than the append's.
+//
+// DESIGN_GRID: a cooperative grid of co-resident blocks; every warp
+// appends (grid-stride), the grid syncs, every warp dequantizes
+// (grid-stride, two rows in flight).
+//
+// DESIGN_ORDERED: K3's grid with the append blocks in front. Each append
+// warp also stamps its (page, offset) position with this launch's epoch;
+// each append block then releases a 64-bit counter. A dequantize warp
+// loads its row's codes and scale first, then (thread 0 of its block)
+// acquires the counter, and loads the row again only if its position
+// carries this epoch: the wait overlaps the loads, and only appended rows
+// are read twice. The counter only grows (the host passes the value it
+// must reach), so no launch has to reset it. The wait relies on blocks
+// being dispatched in index order, as CUB's decoupled look-back does: a
+// dequantize block that spins is always behind every append block it
+// waits for.
+// ---------------------------------------------------------------------------
+
+constexpr int DESIGN_GRID = 0;
+constexpr int DESIGN_ORDERED = 1;
+
+struct FusedArgs {
+  const void* k;
+  const void* v;
+  const long long* page;
+  const long long* offset;
+  uint8_t* kv;
+  float* scales;
+  void* out;
+  const long long* table;  // null: the whole pool
+  long long rows;          // output rows (of n values)
+  long long per_page;      // rows of one page (bs * 2 * nkv)
+  int ntok, nkv, hd, bs, W, n;
+  // DESIGN_ORDERED
+  unsigned long long* released;  // append blocks released, ever
+  unsigned long long target;     // its value once this launch's are
+  int* stamps;                   // [nb * bs] epoch of the last append
+  int epoch;
+  unsigned int append_blocks;
+};
+
+// output row r's source row in the pool: itself, or through the table
+__device__ __forceinline__ long long source_row(const long long* table,
+                                                long long per_page,
+                                                long long r) {
+  if (table == nullptr) return r;
+  return table[r / per_page] * per_page + r % per_page;
+}
+
+template <typename T, int KIND, int PAIRS>
+__global__ void __launch_bounds__(THREADS)
+    kv_append_dequantize_kernel(const FusedArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long nw = (long long)gridDim.x * WARPS;
+  const long long gw = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const long long nvec = (long long)a.ntok * 2 * a.nkv;
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  T* out = static_cast<T*>(a.out);
+  for (long long w = gw; w < nvec; w += nw)
+    append_vector<T, KIND, PAIRS>(k, v, a.page, a.offset, a.kv, a.scales, w,
+                                  a.nkv, a.hd, a.bs, a.W, lane);
+  cooperative_groups::this_grid().sync();
+  constexpr int U = 2;  // rows in flight a warp
+  for (long long base = gw; base < a.rows; base += U * nw) {
+    for (int c0 = lane * 4; c0 < a.n; c0 += 128) {
+      uint32_t raw[U];
+      float s[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long r = base + u * nw;
+        if (r < a.rows) {
+          const long long src = source_row(a.table, a.per_page, r);
+          raw[u] = load_codes4<KIND, true>(a.kv + src * a.W, c0);
+          s[u] = __ldcg(a.scales + src);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long r = base + u * nw;
+        if (r < a.rows) store_values4<KIND, T>(raw[u], s[u], out + r * a.n + c0);
+      }
     }
+  }
+}
+
+template <typename T, int KIND, int PAIRS>
+__global__ void __launch_bounds__(THREADS)
+    kv_append_dequantize_ordered_kernel(const FusedArgs a) {
+  const int lane = threadIdx.x & 31;
+  if (blockIdx.x < a.append_blocks) {
+    const long long w = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+    if (w < (long long)a.ntok * 2 * a.nkv) {
+      append_vector<T, KIND, PAIRS>(static_cast<const T*>(a.k),
+                                    static_cast<const T*>(a.v), a.page,
+                                    a.offset, a.kv, a.scales, w, a.nkv, a.hd,
+                                    a.bs, a.W, lane);
+      const long long t = w / (2 * a.nkv);
+      if (lane == 0) a.stamps[a.page[t] * a.bs + a.offset[t]] = a.epoch;
+    }
+    __threadfence();  // this thread's writes, visible on the card
+    __syncthreads();
+    if (threadIdx.x == 0) atomicAdd(a.released, 1ull);  // release
+    return;
+  }
+  const long long r =
+      (long long)(blockIdx.x - a.append_blocks) * WARPS + (threadIdx.x >> 5);
+  const bool live = r < a.rows;
+  const long long src = live ? source_row(a.table, a.per_page, r) : 0;
+  const uint8_t* pr = a.kv + src * a.W;
+  // the row as it may be (loaded while the append may still run)
+  uint32_t raw[2];  // n <= 256: at most two groups of 4 a lane
+  float s = 0.0f;
+  if (live) {
+    s = __ldcg(a.scales + src);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c0 = lane * 4 + 128 * i;
+      if (c0 < a.n) raw[i] = load_codes4<KIND, true>(pr, c0);
+    }
+  }
+  if (threadIdx.x == 0) {  // acquire: every append block has released
+    const volatile unsigned long long* released = a.released;
+    while (*released < a.target) __nanosleep(32);
+    __threadfence();
+  }
+  __syncthreads();
+  if (!live) return;
+  if (__ldcg(a.stamps + src / (2 * a.nkv)) == a.epoch) {  // appended now
+    s = __ldcg(a.scales + src);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c0 = lane * 4 + 128 * i;
+      if (c0 < a.n) raw[i] = load_codes4<KIND, true>(pr, c0);
+    }
+  }
+  T* orow = static_cast<T*>(a.out) + r * a.n;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c0 = lane * 4 + 128 * i;
+    if (c0 < a.n) store_values4<KIND, T>(raw[i], s, orow + c0);
   }
 }
 
@@ -384,6 +557,51 @@ int launch_dequant(int out_dtype, const void* payload, const void* scales,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T, int KIND, int PAIRS>
+int launch_fused_pairs(FusedArgs a, int design, cudaStream_t s) {
+  const long long nvec = (long long)a.ntok * 2 * a.nkv;
+  if (design == DESIGN_ORDERED) {
+    kv_append_dequantize_ordered_kernel<T, KIND, PAIRS>
+        <<<a.append_blocks + grid_for(a.rows), THREADS, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (design != DESIGN_GRID) return (int)cudaErrorInvalidValue;
+  auto kernel = kv_append_dequantize_kernel<T, KIND, PAIRS>;
+  static int per_sm = 0;  // co-resident blocks an SM, asked once
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  const long long want = grid_for(nvec > (a.rows + 1) / 2 ? nvec
+                                                          : (a.rows + 1) / 2);
+  const long long most = (long long)per_sm * sms;
+  const unsigned int g = (unsigned int)(want < most ? want : most);
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(g),
+                                          dim3(THREADS), args, 0, s);
+}
+
+template <typename T, int KIND>
+int launch_fused_kind(const FusedArgs& a, int design, cudaStream_t s) {
+  const int pairs = (a.hd + 63) / 64;
+  if (pairs <= 1) return launch_fused_pairs<T, KIND, 1>(a, design, s);
+  if (pairs <= 2) return launch_fused_pairs<T, KIND, 2>(a, design, s);
+  if (pairs <= 4) return launch_fused_pairs<T, KIND, 4>(a, design, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_fused(int kind, const FusedArgs& a, int design, cudaStream_t s) {
+  if (kind == KIND_INT8) return launch_fused_kind<T, KIND_INT8>(a, design, s);
+  if (kind == KIND_INT4) return launch_fused_kind<T, KIND_INT4>(a, design, s);
+  if (kind == KIND_FP8) return launch_fused_kind<T, KIND_FP8>(a, design, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. kind: 0 = int8,
@@ -439,6 +657,39 @@ extern "C" int dstpu_dequantize(int kind, int out_dtype, const void* payload,
     return launch_dequant<KIND_FP8>(out_dtype, payload, scales, out, rows, n,
                                     W, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K4: page / offset [ntok] int64, k / v [ntok, nkv, hd] and out in one
+// float type (0 / 1 / 2), table [rows / per_page] int64 or null (out is
+// then the pool's shape); hd a multiple of 4, at most 256. DESIGN_ORDERED
+// also takes `released` (a uint64 counter; returns the value it must
+// reach, through *target) and `stamps` (nb * bs int32 positions) with
+// this launch's epoch (never 0 and never one an earlier launch on these
+// stamps used).
+extern "C" int dstpu_kv_append_dequantize(
+    int dtype, int kind, const void* k, const void* v, const void* page,
+    const void* offset, void* kv, void* scales, void* out, const void* table,
+    long long rows, int ntok, int nkv, int hd, int bs, int W, int design,
+    void* released, unsigned long long* target, void* stamps, int epoch,
+    void* stream) {
+  if (hd % 4 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned int append_blocks = grid_for((long long)ntok * 2 * nkv);
+  FusedArgs a{k, v, static_cast<const long long*>(page),
+              static_cast<const long long*>(offset),
+              static_cast<uint8_t*>(kv), static_cast<float*>(scales), out,
+              static_cast<const long long*>(table), rows,
+              (long long)bs * 2 * nkv, ntok, nkv, hd, bs, W, hd,
+              static_cast<unsigned long long*>(released),
+              *target + append_blocks, static_cast<int*>(stamps), epoch,
+              append_blocks};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = (int)cudaErrorInvalidValue;
+  if (dtype == 0) rc = launch_fused<float>(kind, a, design, s);
+  if (dtype == 1) rc = launch_fused<__nv_bfloat16>(kind, a, design, s);
+  if (dtype == 2) rc = launch_fused<__half>(kind, a, design, s);
+  if (rc == 0 && design == DESIGN_ORDERED) *target = a.target;
+  return rc;
 }
 
 extern "C" const char* dstpu_cuda_error_string(int code) {

@@ -9,7 +9,7 @@ storage until ``pack_int4`` puts two in a byte (the even index in the
 low nibble). ``kv_quantize`` uses one scale per head vector (block =
 head_dim); its ``"fp8"`` rung stores e4m3 values (``fp_quantizer.py``).
 
-Three hand-written Hopper kernels (``csrc/quantization.cu``) carry the
+Four hand-written Hopper kernels (``csrc/quantization.cu``) carry the
 quantized serving path:
 
 - ``quantize_blockwise`` (the TPU ``_quant_kernel``): int8 codes and one
@@ -25,6 +25,14 @@ quantized serving path:
   ``kv_dequantize(kv_unpack(...))``, which is also what JAX's
   ``_dequantize_ref`` and the never-launched TPU ``_dequant_kernel``
   compute.
+- ``kv_append_dequantize``: ``kv_quantize_append`` and the layer's
+  ``dequantize`` after it in one launch, the whole pool (the paged
+  forwards) or a block table's pages (the gather forward) into a scratch
+  in the compute dtype. The step's K and V are a few hundred KB, three
+  orders of magnitude below what a launch costs, so no standalone append
+  kernel comes near its bound: it rides in the dequantize launch that
+  every quantized layer runs anyway. Its plain version is, by
+  definition, the append's plain version then the dequantize's.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU
 tensors it runs the plain PyTorch version beside it. Every operation is
@@ -58,7 +66,8 @@ DEFAULT_BLOCK = 256
 MAX_KERNEL_BLOCK = 1024
 
 LAUNCHES: Dict[str, int] = {"quantize_blockwise": 0,
-                            "kv_quantize_append": 0, "dequantize": 0}
+                            "kv_quantize_append": 0, "dequantize": 0,
+                            "kv_append_dequantize": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # payload storage dtype -> kernel kind (int8 codes, packed int4, e4m3)
@@ -176,6 +185,27 @@ def dequantize_plain(payload: torch.Tensor, scales: torch.Tensor,
     return kv_dequantize(kv_unpack(payload, bits), scales, bits, dtype)
 
 
+def pool_pages(kv_layer: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``kv_layer[index]`` on the payload's bytes (indexing has no fp8
+    kernel on every backend), viewed back in the payload's dtype."""
+    return _bytes(kv_layer)[index].view(kv_layer.dtype)
+
+
+def kv_append_dequantize_plain(kv_layer, kv_scales, page, offset, k, v, bits,
+                               out, block_table=None) -> torch.Tensor:
+    """``kv_append_dequantize`` in plain PyTorch: the append's plain
+    version, then the layer pool (or ``block_table``'s pages) dequantized
+    into ``out``."""
+    kv_quantize_append_plain(kv_layer, kv_scales, page, offset, k, v, bits)
+    if block_table is None:
+        res = dequantize_plain(kv_layer, kv_scales, out.dtype)
+    else:
+        bt = block_table.long()
+        res = dequantize_plain(pool_pages(kv_layer, bt), kv_scales[bt],
+                               out.dtype)
+    return out.copy_(res)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -198,6 +228,10 @@ def _lib() -> ctypes.CDLL:
         lib.dstpu_kv_quantize_append.restype = I
         lib.dstpu_dequantize.argtypes = [I, I, P, P, P, L, I, I, P]
         lib.dstpu_dequantize.restype = I
+        lib.dstpu_kv_append_dequantize.argtypes = [
+            I, I, P, P, P, P, P, P, P, P, L, I, I, I, I, I, I, P,
+            ctypes.POINTER(ctypes.c_ulonglong), P, I, P]
+        lib.dstpu_kv_append_dequantize.restype = I
         lib.dstpu_cuda_error_string.argtypes = [I]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -416,19 +450,9 @@ def kv_quantize(x: torch.Tensor, bits=8) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s[..., 0]
 
 
-def kv_quantize_append(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
-                       page: torch.Tensor, offset: torch.Tensor,
-                       k: torch.Tensor, v: torch.Tensor, bits) -> None:
-    """Quantize-on-append, in place: token i's K and V (one fp32 scale
-    per head vector) land packed at (page[i], offset[i], plane 0 / 1) of
-    one layer's pool.
-
-    kv_layer  [nb, bs, 2, nkv, W] int8 (bits 8), uint8 (bits 4, W =
-              head_dim / 2) or float8_e4m3fn (bits "fp8")
-    kv_scales [nb, bs, 2, nkv] fp32
-    page, offset  int64 (or int32), any shape; k, v [*page.shape, nkv,
-              head_dim] in fp32, bf16 or fp16
-    """
+def _check_append(kv_layer, kv_scales, page, offset, k, v, bits) -> int:
+    """The pool, its scales and the step's K / V fit one another (the
+    kind of ``bits`` is returned)."""
     if kv_layer.dim() != 5 or kv_layer.shape[2] != 2:
         raise ValueError(f"kv_layer must be [nb, bs, 2, nkv, W], got "
                          f"{tuple(kv_layer.shape)}")
@@ -447,16 +471,38 @@ def kv_quantize_append(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
         raise ValueError(f"k/v {tuple(k.shape)} / {tuple(v.shape)} and "
                          f"page/offset {tuple(page.shape)} do not fit a "
                          f"pool of {tuple(kv_layer.shape)}")
+    return want_kind
+
+
+def _check_kernel_dtypes(name, k, v, kv_scales) -> None:
+    if k.dtype not in _DTYPE_CODE or v.dtype != k.dtype:
+        raise TypeError(f"{name} takes float32, bfloat16 or float16 K and "
+                        f"V of one type, got {k.dtype} and {v.dtype}")
+    if kv_scales.dtype != torch.float32:
+        raise TypeError(f"kv_scales must be float32, got {kv_scales.dtype}")
+
+
+def kv_quantize_append(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
+                       page: torch.Tensor, offset: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor, bits) -> None:
+    """Quantize-on-append, in place: token i's K and V (one fp32 scale
+    per head vector) land packed at (page[i], offset[i], plane 0 / 1) of
+    one layer's pool.
+
+    kv_layer  [nb, bs, 2, nkv, W] int8 (bits 8), uint8 (bits 4, W =
+              head_dim / 2) or float8_e4m3fn (bits "fp8")
+    kv_scales [nb, bs, 2, nkv] fp32
+    page, offset  int64 (or int32), any shape; k, v [*page.shape, nkv,
+              head_dim] in fp32, bf16 or fp16
+    """
+    want_kind = _check_append(kv_layer, kv_scales, page, offset, k, v, bits)
+    nb, bs, _, nkv, W = kv_layer.shape
+    hd = k.shape[-1]
     if not _on_card(kv_layer, kv_scales, page, offset, k, v):
         kv_quantize_append_plain(kv_layer, kv_scales, page, offset, k, v,
                                  bits)
         return
-    if k.dtype not in _DTYPE_CODE or v.dtype != k.dtype:
-        raise TypeError(f"kv_quantize_append takes float32, bfloat16 or "
-                        f"float16 K and V of one type, got {k.dtype} and "
-                        f"{v.dtype}")
-    if kv_scales.dtype != torch.float32:
-        raise TypeError(f"kv_scales must be float32, got {kv_scales.dtype}")
+    _check_kernel_dtypes("kv_quantize_append", k, v, kv_scales)
     page = page.reshape(-1).long()
     offset = offset.reshape(-1).long()
     rc = _lib().dstpu_kv_quantize_append(
@@ -465,3 +511,89 @@ def kv_quantize_append(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
         kv_scales.data_ptr(), page.numel(), nkv, hd, bs, W, _stream(k))
     _raise_on(rc, "kv_quantize_append")
     LAUNCHES["kv_quantize_append"] += 1
+
+
+# kv_append_dequantize's orderings of the append before the dequantize
+# (csrc/quantization.cu K4) and the one the forwards take
+FUSED_DESIGNS = {"grid": 0, "ordered": 1}
+DEFAULT_FUSED_DESIGN = "grid"
+
+
+class _OrderState:
+    """The ordered design's per-(device, stream) state: a uint64 count of
+    released append blocks that only grows (``target``, the value the
+    last launch made it reach), and the epoch stamps of the pool
+    positions (``epoch``, the last launch's, never reused)."""
+
+    def __init__(self, dev: torch.device, positions: int):
+        self.released = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.target = ctypes.c_ulonglong(0)
+        self.stamps = torch.zeros(positions, dtype=torch.int32, device=dev)
+        self.epoch = 0
+
+    def next_epoch(self, positions: int) -> int:
+        if self.stamps.numel() < positions or self.epoch >= 2 ** 31 - 1:
+            self.stamps = torch.zeros(max(positions, self.stamps.numel()),
+                                      dtype=torch.int32,
+                                      device=self.stamps.device)
+            self.epoch = 0
+        self.epoch += 1
+        return self.epoch
+
+
+_ORDER: Dict[Tuple[int, int], _OrderState] = {}
+
+
+def kv_append_dequantize(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
+                         page: torch.Tensor, offset: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor, bits,
+                         out: torch.Tensor,
+                         block_table: Optional[torch.Tensor] = None,
+                         design: str = DEFAULT_FUSED_DESIGN) -> torch.Tensor:
+    """``kv_quantize_append`` then the layer's ``dequantize``, in one
+    launch: the step's K and V quantized into the pool in place (as
+    ``kv_quantize_append``), then the pool read back into ``out`` in
+    ``k``'s dtype (as ``dequantize``), bit for bit the two in sequence.
+
+    out  [nb, bs, 2, nkv, head_dim] (the whole layer pool), or with
+         ``block_table`` [S, Bm] that table's pages, [S, Bm, bs, 2, nkv,
+         head_dim]
+    The other arguments as ``kv_quantize_append``. Returns ``out``."""
+    kind = _check_append(kv_layer, kv_scales, page, offset, k, v, bits)
+    nb, bs, _, nkv, W = kv_layer.shape
+    hd = k.shape[-1]
+    lead = (nb,) if block_table is None else tuple(block_table.shape)
+    if tuple(out.shape) != (*lead, bs, 2, nkv, hd):
+        raise ValueError(f"out must be {(*lead, bs, 2, nkv, hd)}, got "
+                         f"{tuple(out.shape)}")
+    table = () if block_table is None else (block_table,)
+    if not _on_card(kv_layer, kv_scales, page, offset, k, v, out, *table):
+        return kv_append_dequantize_plain(kv_layer, kv_scales, page, offset,
+                                          k, v, bits, out, block_table)
+    _check_kernel_dtypes("kv_append_dequantize", k, v, kv_scales)
+    if out.dtype != k.dtype:
+        raise TypeError(f"out must be K's dtype {k.dtype}, got {out.dtype}")
+    if hd % 4 or hd > 256:
+        raise ValueError(f"kv_append_dequantize takes a head_dim that is a "
+                         f"multiple of 4, at most 256, got {hd}")
+    page = page.reshape(-1).long()
+    offset = offset.reshape(-1).long()
+    if block_table is not None:
+        block_table = block_table.reshape(-1).long()
+    stream = _stream(k)
+    st = _ORDER.get((k.device.index, stream))
+    if st is None:
+        st = _ORDER[(k.device.index, stream)] = _OrderState(k.device,
+                                                            nb * bs)
+    rc = _lib().dstpu_kv_append_dequantize(
+        _DTYPE_CODE[k.dtype], kind, k.data_ptr(), v.data_ptr(),
+        page.data_ptr(), offset.data_ptr(), kv_layer.data_ptr(),
+        kv_scales.data_ptr(), out.data_ptr(),
+        None if block_table is None else block_table.data_ptr(),
+        out.numel() // hd, page.numel(), nkv, hd, bs, W,
+        FUSED_DESIGNS[design], st.released.data_ptr(),
+        ctypes.byref(st.target), st.stamps.data_ptr(),
+        st.next_epoch(nb * bs), stream)
+    _raise_on(rc, "kv_append_dequantize")
+    LAUNCHES["kv_append_dequantize"] += 1
+    return out

@@ -33,6 +33,7 @@ import logging
 import math
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch import comm
@@ -159,6 +160,52 @@ class FlatPartition(ZeroPartition):
         return f[:math.prod(shape)].reshape(shape)
 
 
+def _bias_correction(b: float, t: int, device) -> torch.Tensor:
+    """``1 - b ** t`` in fp32 with JAX's float exponent (``b **
+    step.astype(float32)``): the power rounded once to fp32, then the
+    fp32 subtraction. The optimizer's integer power rounds each product
+    (optax's count is an integer) and parts from it at t = 3, b = 0.999."""
+    p = np.float32(np.float64(np.float32(b)) ** t)
+    return torch.tensor(np.float32(1.0) - p, device=device)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The fp32 square root, correctly rounded as XLA's: PyTorch's CPU
+    fp32 ``sqrt`` parts from it in the last place on about a sixth of
+    values, so on the CPU it is taken in fp64 and rounded once (the card's
+    ``sqrtf`` is exact)."""
+    if x.device.type == "cpu":
+        return x.double().sqrt_().float()
+    return x.sqrt()
+
+
+class ZeroppAdam(Adam):
+    """The AdamW of JAX's ZeRO++ step, in its own expression order
+    (``deepspeed_tpu/runtime/zeropp.py`` ``_local_step_inner``):
+
+      m = b1 * m + (1 - b1) * g;  v = b2 * v + (1 - b2) * g * g
+      master -= lr * (m / bc1 / (sqrt(v / bc2) + eps) + wd * master)
+
+    XLA's CPU compile rewrites ``a / b / c`` to ``a / (b * c)`` and
+    contracts each ``x * y + z`` whose product feeds an add into one
+    fused multiply-add on the left product, so each step here is the
+    same single rounding: ``torch.add(z, y, alpha=x)`` is that FMA
+    (vectorised on the CPU, contracted by nvcc on the card). Optax's
+    order, which ``Adam`` follows, fuses the other product of the moment
+    updates and rounds the bias correction's power in steps."""
+
+    def update_leaf(self, path, master, g, st, t, lr):
+        dev = master.device
+        bc1 = _bias_correction(self.b1, t, dev)
+        bc2 = _bias_correction(self.b2, t, dev)
+        mu, nu = st["mu"], st["nu"]
+        mu.copy_(torch.add(g * (1.0 - self.b1), mu, alpha=self.b1))
+        nu.copy_(torch.add(g * (1.0 - self.b2) * g, nu, alpha=self.b2))
+        denom = _sqrt(nu / bc2).add_(self.eps).mul_(bc1)
+        update = torch.add(mu / denom, master, alpha=self.weight_decay)
+        master.add_(update, alpha=-lr)
+
+
 def adamw(opt_params: Dict, lr_schedule: Optional[Callable],
           base_lr: float) -> Adam:
     """JAX's ZeRO++ update as the optimizer's AdamW: decoupled weight
@@ -168,9 +215,11 @@ def adamw(opt_params: Dict, lr_schedule: Optional[Callable],
     b1, b2 = (float(b) for b in opt_params.get("betas", (0.9, 0.999)))
     lr = (float(base_lr) if lr_schedule is None
           else (lambda count: lr_schedule(count + 1)))
-    return Adam(lr=lr, b1=b1, b2=b2, eps=float(opt_params.get("eps", 1e-8)),
-                weight_decay=float(opt_params.get("weight_decay", 0.01)),
-                decoupled=True)
+    return ZeroppAdam(lr=lr, b1=b1, b2=b2,
+                      eps=float(opt_params.get("eps", 1e-8)),
+                      weight_decay=float(opt_params.get("weight_decay",
+                                                        0.01)),
+                      decoupled=True)
 
 
 def zeropp_enabled(config) -> bool:
@@ -180,5 +229,5 @@ def zeropp_enabled(config) -> bool:
                  or z.zero_quantized_allreduce))
 
 
-__all__ = ["QUANT_BLOCK", "FlatPartition", "adamw", "flat_block",
-           "flat_padded", "zeropp_enabled"]
+__all__ = ["QUANT_BLOCK", "FlatPartition", "ZeroppAdam", "adamw",
+           "flat_block", "flat_padded", "zeropp_enabled"]

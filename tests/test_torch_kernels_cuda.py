@@ -11,8 +11,8 @@ groups, an over-sum and an under-sum (bf16 there takes the tensor-core
 kernel, fp32 the scalar one; the variant counters must say which ran and
 two launches must give the same bits), at odd sizes (the scalar kernel)
 and from a misaligned bf16 view (the scalar kernel); and the
-quantize kernels (blockwise quantize, KV quantize-on-append, dequantize)
-at Llama-3-8B shapes, held to their plain versions bit for bit (every
+quantize kernels (blockwise quantize, KV quantize-on-append, dequantize,
+and the fused append and dequantize) at Llama-3-8B shapes, held to their plain versions bit for bit (every
 operation is one IEEE-rounded step in both), with exact .5 ties, all-zero
 blocks and values at the edges of the grid among the inputs; and the
 block-sparse forward over the five layout modes, layout blocks 16 to
@@ -858,6 +858,72 @@ def test_dequantize_kernel_matches_plain(card, bits, out_dtype):
     assert torch.equal(out, qz.dequantize_plain(payload, sc, out_dtype))
     assert odd.shape[-1] == 6
     assert torch.equal(odd, qz.dequantize_plain(part, sc, out_dtype))
+
+
+@pytest.mark.parametrize("design", ["grid", "ordered"])
+@pytest.mark.parametrize("mode", ["pool", "table"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bits", [8, 4, "fp8"])
+@pytest.mark.parametrize("ntok", [16, 256])
+def test_kv_append_dequantize_kernel_matches_plain(card, ntok, bits, dtype,
+                                                   mode, design):
+    """The fused append and dequantize at the decode (16 tokens) and
+    prefill (256) shapes, into the whole 2048-page pool or through a
+    16 x 48 block table that reads pages the step appends to, bit for
+    bit its plain version (outside the scratch page, where the padding
+    tokens' writes race); a second launch on the same inputs gives the
+    same bits."""
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    rng = np.random.default_rng(ntok + 1)
+    W = HD // 2 if bits == 4 else HD
+    pdt = {8: torch.int8, 4: torch.uint8, "fp8": torch.float8_e4m3fn}[bits]
+    codes = rng.integers(0, 256, (NB, BS, 2, NKV, W), dtype=np.uint8)
+    if bits == "fp8":
+        codes[(codes & 0x7F) == 0x7F] = 0  # no NaN codes
+    init = torch.from_numpy(codes).to(card)
+    init_sc = torch.from_numpy(rng.random((NB, BS, 2, NKV),
+                                          np.float32)).to(card)
+    slots = rng.permutation((NB - 1) * BS)[:ntok]
+    page = torch.from_numpy(slots // BS).to(card)
+    offset = torch.from_numpy(slots % BS).to(card)
+    page[-3:], offset[-3:] = NB - 1, BS - 1
+    top = {8: 127, 4: 7, "fp8": 448}[bits]
+    k, v = (torch.from_numpy(_quant_values(rng, ntok * NKV, HD, top)
+                             .reshape(ntok, NKV, HD)).to(card, dtype)
+            for _ in range(2))
+    table = None
+    lead = (NB,)
+    if mode == "table":
+        pages = rng.permutation(NB - 1)[:16 * BM].reshape(16, BM)
+        pages[:, 0] = slots[:16] // BS  # pages the step appends to
+        pages[1, 1] = pages[0, 0]       # and one read twice
+        table = torch.from_numpy(pages).to(card)
+        lead = tuple(table.shape)
+    outs, pools, scs = [], [], []
+    for run in ("kernel", "again", "plain"):
+        pool, sc = init.clone().view(pdt), init_sc.clone()
+        out = torch.empty((*lead, BS, 2, NKV, HD), dtype=dtype, device=card)
+        before = qz.LAUNCHES["kv_append_dequantize"]
+        if run == "plain":
+            qz.kv_append_dequantize_plain(pool, sc, page, offset, k, v,
+                                          bits, out, table)
+        else:
+            got = qz.kv_append_dequantize(pool, sc, page, offset, k, v,
+                                          bits, out, table, design=design)
+            assert got is out
+            assert qz.LAUNCHES["kv_append_dequantize"] == before + 1
+        outs.append(out)
+        pools.append(pool.view(torch.uint8))
+        scs.append(sc)
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        assert torch.equal(pools[i][:-1], pools[2][:-1])
+        assert torch.equal(scs[i][:-1], scs[2][:-1])
+        if mode == "pool":
+            assert torch.equal(outs[i][:-1], outs[2][:-1])
+        else:
+            assert torch.equal(outs[i], outs[2])
 
 
 def test_weight_quantization_on_card_matches_cpu(card):

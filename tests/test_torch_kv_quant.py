@@ -1,6 +1,7 @@
 """Quantized KV pools of the port against the JAX package: the int8 /
-int4 / fp8 rungs of ``KVCacheConfig`` and ``BlockedKVCache``, the four
-ragged forwards over a quantized pool, and greedy engine streams.
+int4 / fp8 rungs of ``KVCacheConfig`` and ``BlockedKVCache``, the fused
+append-and-dequantize, the four ragged forwards over a quantized pool,
+and greedy engine streams.
 
 Weights come from the JAX ``model.init(PRNGKey(0))`` through
 ``params_from_jax``; pools and metadata are made with numpy from a seed
@@ -25,6 +26,7 @@ import torch
 from deepspeed_tpu.inference import InferenceEngineV2 as JaxEngine
 from deepspeed_tpu.inference import model_runner as jax_runner
 from deepspeed_tpu.models.zoo import get_model as jax_get_model
+from deepspeed_tpu.ops.pallas import quantization as jq
 from deepspeed_tpu_torch.config.config import ServingConfig, load_config
 from deepspeed_tpu_torch.inference import InferenceEngineV2
 from deepspeed_tpu_torch.inference import model_runner as runner
@@ -32,6 +34,7 @@ from deepspeed_tpu_torch.inference.ragged import (BlockedKVCache,
                                                   KVCacheConfig)
 from deepspeed_tpu_torch.models import zoo
 from deepspeed_tpu_torch.models.convert import params_from_jax
+from deepspeed_tpu_torch.ops import quantization as tq
 
 LLAMA = dict(pos_emb="rope", norm="rmsnorm", activation="swiglu",
              num_kv_heads=1, ffn_size=128, tie_embeddings=False)
@@ -113,6 +116,145 @@ def test_unquantized_pool_stays_a_bare_tensor():
     assert kv.data.dtype == torch.float32
     payload, scales = kv.read_blocks_host([1, 3])
     assert scales is None and payload.shape == (2, 2, 4, 2, 2, 16)
+
+
+# -- the fused append and dequantize -------------------------------------------
+
+
+def _fused_case(bits, dtype, seed=21):
+    """One layer pool of random codes and scales, 7 tokens (5 real, two of
+    them into page 2, which both table rows read; 2 padding tokens routed
+    to the scratch page's last row) and a table over pages 0-5."""
+    nb, bs, nkv, hd = 7, 4, 2, 32
+    W = hd // 2 if bits == 4 else hd
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, (nb, bs, 2, nkv, W), dtype=np.uint8)
+    if bits == "fp8":
+        codes[(codes & 0x7F) >= 0x78] = 0x30  # no NaN
+    scales = rng.uniform(0.005, 0.02, codes.shape[:-1]).astype(np.float32)
+    page = np.array([2, 2, 0, 5, 3, nb - 1, nb - 1])
+    offset = np.array([0, 3, 1, 2, 3, bs - 1, bs - 1])
+    k, v = ((rng.standard_normal((7, nkv, hd))
+             * rng.uniform(0.1, 20, (7, nkv, 1))).astype(np.float32)
+            for _ in range(2))
+    k[1, 0] = 0.0  # an all-zero head vector (scale 1)
+    if dtype == "bfloat16":  # values both frameworks hold exactly
+        k, v = (torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+                for x in (k, v))
+    table = np.array([[2, 0, 4], [5, 2, 1]])
+    return codes, scales, page, offset, k, v, table
+
+
+@pytest.mark.parametrize("mode", ["pool", "table"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", RUNGS)
+def test_fused_append_dequantize_is_jax_sequence(bits, dtype, mode):
+    """``kv_append_dequantize`` on the CPU against JAX's kv_quantize ->
+    kv_pack -> scatter -> kv_dequantize(kv_unpack(pool)) (or of
+    ``pool[block_table]``), bit for bit: codes and scales outside the
+    scratch page, and every value written out."""
+    codes, scales, page, offset, k, v, table = _fused_case(bits, dtype)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jpool = jnp.asarray(codes if bits == 4 else codes.view(JAX_DTYPE[bits]))
+    jsc = jnp.asarray(scales)
+    for plane, x in ((0, k), (1, v)):
+        q, s = jq.kv_quantize(jnp.asarray(x).astype(jdt), bits=bits)
+        jpool = jpool.at[page, offset, plane].set(jq.kv_pack(q, bits))
+        jsc = jsc.at[page, offset, plane].set(s)
+    read, rsc = (jpool, jsc) if mode == "pool" else (jpool[table],
+                                                     jsc[table])
+    want = jq.kv_dequantize(jq.kv_unpack(read, bits), rsc, dtype=jdt)
+
+    pool = torch.from_numpy(codes.copy()).view(POOL_DTYPE[bits])
+    sc = torch.from_numpy(scales.copy())
+    bt = None if mode == "pool" else torch.from_numpy(table)
+    out = torch.empty((*(table.shape if bt is not None else (7,)),
+                       4, 2, 2, 32), dtype=tdt)
+    got = tq.kv_append_dequantize(
+        pool, sc, torch.from_numpy(page), torch.from_numpy(offset),
+        torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt), bits, out,
+        block_table=bt)
+    assert got is out
+    np.testing.assert_array_equal(
+        pool.view(torch.uint8).numpy()[:-1],
+        np.asarray(jpool).view(np.uint8)[:-1])
+    np.testing.assert_array_equal(sc.numpy()[:-1].view(np.uint32),
+                                  np.asarray(jsc)[:-1].view(np.uint32))
+    got_bits = got.float().numpy().view(np.uint32)
+    want_bits = np.asarray(want.astype(jnp.float32)).view(np.uint32)
+    if mode == "pool":  # the scratch page's rows raced between padding
+        got_bits, want_bits = got_bits[:-1], want_bits[:-1]
+    np.testing.assert_array_equal(got_bits, want_bits)
+    # the padding landed in the scratch page's last row only
+    assert not np.array_equal(pool.view(torch.uint8).numpy()[-1, -1],
+                              codes[-1, -1])
+    np.testing.assert_array_equal(pool.view(torch.uint8).numpy()[-1, :-1],
+                                  codes[-1, :-1])
+    assert tq.LAUNCHES["kv_append_dequantize"] == 0  # plain: no launch
+
+
+def test_fused_append_dequantize_rejects_a_wrong_out():
+    codes, scales, page, offset, k, v, table = _fused_case(8, "float32")
+    args = (torch.from_numpy(codes).view(torch.int8),
+            torch.from_numpy(scales), torch.from_numpy(page),
+            torch.from_numpy(offset), torch.from_numpy(k),
+            torch.from_numpy(v), 8)
+    with pytest.raises(ValueError, match="out must be"):
+        tq.kv_append_dequantize(*args, torch.empty((7, 4, 2, 2, 16)))
+    with pytest.raises(ValueError, match="out must be"):
+        tq.kv_append_dequantize(*args, torch.empty((7, 4, 2, 2, 32)),
+                                block_table=torch.from_numpy(table))
+
+
+def _spy_fused(monkeypatch):
+    """Count the runner's fused calls; the standalone append and
+    dequantize wrappers raise if anything reaches them."""
+    calls = []
+    fused = runner.kv_append_dequantize
+
+    def counting(*a, **kw):
+        calls.append(kw.get("block_table") is not None)
+        return fused(*a, **kw)
+
+    def never(*a, **kw):
+        raise AssertionError("a standalone KV append or dequantize ran")
+
+    monkeypatch.setattr(runner, "kv_append_dequantize", counting)
+    monkeypatch.setattr(tq, "kv_quantize_append", never)
+    monkeypatch.setattr(tq, "dequantize", never)
+    return calls
+
+
+@pytest.mark.parametrize("forward", ["prefill", "decode", "gather"])
+@pytest.mark.parametrize("bits", RUNGS)
+def test_forwards_append_and_read_in_one_call_a_layer(pair, monkeypatch,
+                                                      bits, forward):
+    """Each ragged forward over a quantized pool appends and reads a
+    layer through ``kv_append_dequantize`` once (the gather forward with
+    its block table), never the standalone append or dequantize."""
+    _, _, cfg = pair
+    params = _port_model(pair).params()
+    calls = _spy_fused(monkeypatch)
+    _, tpool = _both(*_pool(cfg, bits, 13), bits)
+    S = 3
+    bt = _t(_table(14, S))
+    rng = np.random.default_rng(15)
+    if forward == "prefill":
+        toks = rng.integers(0, cfg.vocab_size, (S, 4)).astype(np.int32)
+        runner.ragged_prefill_forward(
+            cfg, params, tpool, _t(toks), _t(np.array([3, 0, 9], np.int32)),
+            _t(np.array([4, 2, 0], np.int32)), bt)
+    elif forward == "decode":
+        toks = rng.integers(0, cfg.vocab_size, S).astype(np.int32)
+        pos = np.array([4, 0, 12], np.int32)
+        runner.ragged_decode_forward(cfg, params, tpool, _t(toks), _t(pos),
+                                     bt, _t(pos + 1))
+    else:
+        toks = rng.integers(0, cfg.vocab_size, 6).astype(np.int32)
+        runner.ragged_forward(
+            cfg, params, tpool, _t(toks), _t(np.array([0, 0, 1, 2, 2, 0])),
+            _t(np.array([5, 6, 0, 7, 8, 0])), bt, 5)
+    assert calls == [forward == "gather"] * cfg.num_layers
 
 
 # -- the four forwards over a quantized pool ---------------------------------
