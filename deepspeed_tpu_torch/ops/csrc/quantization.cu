@@ -308,26 +308,27 @@ __global__ void __launch_bounds__(THREADS)
 // dequantize of the layer pool (or of a block table's pages) into `out`,
 // in one launch. The dequantize must not read a row the append is still
 // writing, nor write a row's output from codes older than the append's.
-//
-// DESIGN_GRID: a cooperative grid of co-resident blocks; every warp
-// appends (grid-stride), the grid syncs, every warp dequantizes
-// (grid-stride, two rows in flight).
-//
-// DESIGN_ORDERED: K3's grid with the append blocks in front. Each append
-// warp also stamps its (page, offset) position with this launch's epoch;
-// each append block then releases a 64-bit counter. A dequantize warp
-// loads its row's codes and scale first, then (thread 0 of its block)
-// acquires the counter, and loads the row again only if its position
-// carries this epoch: the wait overlaps the loads, and only appended rows
-// are read twice. The counter only grows (the host passes the value it
-// must reach), so no launch has to reset it. The wait relies on blocks
-// being dispatched in index order, as CUB's decoupled look-back does: a
-// dequantize block that spins is always behind every append block it
-// waits for.
+// A persistent grid (as many blocks as the SMs hold): every warp appends
+// (grid-stride over the step's vectors, so the appenders are the lowest
+// blocks), then dequantizes (grid-stride over the output rows, two rows
+// in flight). Between the two, by ordering:
+//   ORDER_SYNC      a cooperative launch whose grid syncs.
+//   ORDER_RELEASE   each appender block releases a 64-bit counter and
+//                   every block acquires it (thread 0 spins). The counter
+//                   only grows: the host passes the value it must reach.
+//                   A spinning block never holds back an appender: blocks
+//                   are dispatched in index order (as CUB's decoupled
+//                   look-back relies on), so every appender is resident
+//                   before any block that waits for it.
+//   ORDER_PREFETCH  as RELEASE, and each warp loads its first two rows
+//                   before it waits; appenders stamp each position they
+//                   write with this launch's epoch, and a prefetched row
+//                   whose position carries it is loaded again.
 // ---------------------------------------------------------------------------
 
-constexpr int DESIGN_GRID = 0;
-constexpr int DESIGN_ORDERED = 1;
+constexpr int ORDER_SYNC = 0;
+constexpr int ORDER_RELEASE = 1;
+constexpr int ORDER_PREFETCH = 2;
 
 struct FusedArgs {
   const void* k;
@@ -341,12 +342,11 @@ struct FusedArgs {
   long long rows;          // output rows (of n values)
   long long per_page;      // rows of one page (bs * 2 * nkv)
   int ntok, nkv, hd, bs, W, n;
-  // DESIGN_ORDERED
-  unsigned long long* released;  // append blocks released, ever
-  unsigned long long target;     // its value once this launch's are
+  unsigned long long* released;  // appender blocks released, ever
+  unsigned long long target;     // its value once this launch's have
   int* stamps;                   // [nb * bs] epoch of the last append
   int epoch;
-  unsigned int append_blocks;
+  unsigned int append_blocks;    // blocks with a vector to append
 };
 
 // output row r's source row in the pool: itself, or through the table
@@ -357,98 +357,92 @@ __device__ __forceinline__ long long source_row(const long long* table,
   return table[r / per_page] * per_page + r % per_page;
 }
 
-template <typename T, int KIND, int PAIRS>
+template <typename T, int KIND, int PAIRS, int ORDER>
 __global__ void __launch_bounds__(THREADS)
     kv_append_dequantize_kernel(const FusedArgs a) {
   const int lane = threadIdx.x & 31;
   const long long nw = (long long)gridDim.x * WARPS;
   const long long gw = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   const long long nvec = (long long)a.ntok * 2 * a.nkv;
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
   T* out = static_cast<T*>(a.out);
-  for (long long w = gw; w < nvec; w += nw)
-    append_vector<T, KIND, PAIRS>(k, v, a.page, a.offset, a.kv, a.scales, w,
-                                  a.nkv, a.hd, a.bs, a.W, lane);
-  cooperative_groups::this_grid().sync();
-  constexpr int U = 2;  // rows in flight a warp
-  for (long long base = gw; base < a.rows; base += U * nw) {
-    for (int c0 = lane * 4; c0 < a.n; c0 += 128) {
-      uint32_t raw[U];
-      float s[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const long long r = base + u * nw;
-        if (r < a.rows) {
-          const long long src = source_row(a.table, a.per_page, r);
-          raw[u] = load_codes4<KIND, true>(a.kv + src * a.W, c0);
-          s[u] = __ldcg(a.scales + src);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const long long r = base + u * nw;
-        if (r < a.rows) store_values4<KIND, T>(raw[u], s[u], out + r * a.n + c0);
-      }
-    }
-  }
-}
-
-template <typename T, int KIND, int PAIRS>
-__global__ void __launch_bounds__(THREADS)
-    kv_append_dequantize_ordered_kernel(const FusedArgs a) {
-  const int lane = threadIdx.x & 31;
-  if (blockIdx.x < a.append_blocks) {
-    const long long w = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-    if (w < (long long)a.ntok * 2 * a.nkv) {
-      append_vector<T, KIND, PAIRS>(static_cast<const T*>(a.k),
-                                    static_cast<const T*>(a.v), a.page,
-                                    a.offset, a.kv, a.scales, w, a.nkv, a.hd,
-                                    a.bs, a.W, lane);
+  for (long long w = gw; w < nvec; w += nw) {
+    append_vector<T, KIND, PAIRS>(static_cast<const T*>(a.k),
+                                  static_cast<const T*>(a.v), a.page,
+                                  a.offset, a.kv, a.scales, w, a.nkv, a.hd,
+                                  a.bs, a.W, lane);
+    if (ORDER == ORDER_PREFETCH && lane == 0) {
       const long long t = w / (2 * a.nkv);
-      if (lane == 0) a.stamps[a.page[t] * a.bs + a.offset[t]] = a.epoch;
+      a.stamps[a.page[t] * a.bs + a.offset[t]] = a.epoch;
     }
-    __threadfence();  // this thread's writes, visible on the card
+  }
+  // PREFETCH: the first two rows' first codes, loaded before the wait
+  const int c = lane * 4;
+  const long long r0 = gw, r1 = gw + nw;
+  long long src0 = 0, src1 = 0;
+  uint32_t raw0 = 0, raw1 = 0;
+  float s0 = 0.0f, s1 = 0.0f;
+  if (ORDER == ORDER_PREFETCH && c < a.n) {
+    if (r0 < a.rows) {
+      src0 = source_row(a.table, a.per_page, r0);
+      raw0 = load_codes4<KIND, true>(a.kv + src0 * a.W, c);
+      s0 = __ldcg(a.scales + src0);
+    }
+    if (r1 < a.rows) {
+      src1 = source_row(a.table, a.per_page, r1);
+      raw1 = load_codes4<KIND, true>(a.kv + src1 * a.W, c);
+      s1 = __ldcg(a.scales + src1);
+    }
+  }
+  if (ORDER == ORDER_SYNC) {
+    cooperative_groups::this_grid().sync();
+  } else {
+    if (blockIdx.x < a.append_blocks) {  // release
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) atomicAdd(a.released, 1ull);
+    }
+    if (threadIdx.x == 0) {  // acquire
+      const volatile unsigned long long* released = a.released;
+      while (*released < a.target) __nanosleep(32);
+      __threadfence();
+    }
     __syncthreads();
-    if (threadIdx.x == 0) atomicAdd(a.released, 1ull);  // release
-    return;
   }
-  const long long r =
-      (long long)(blockIdx.x - a.append_blocks) * WARPS + (threadIdx.x >> 5);
-  const bool live = r < a.rows;
-  const long long src = live ? source_row(a.table, a.per_page, r) : 0;
-  const uint8_t* pr = a.kv + src * a.W;
-  // the row as it may be (loaded while the append may still run)
-  uint32_t raw[2];  // n <= 256: at most two groups of 4 a lane
-  float s = 0.0f;
-  if (live) {
-    s = __ldcg(a.scales + src);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c0 = lane * 4 + 128 * i;
-      if (c0 < a.n) raw[i] = load_codes4<KIND, true>(pr, c0);
+  if (ORDER == ORDER_PREFETCH && c < a.n) {
+    // load again a row whose position this launch appended to
+    if (r0 < a.rows) {
+      if (__ldcg(a.stamps + src0 / (2 * a.nkv)) == a.epoch) {
+        raw0 = load_codes4<KIND, true>(a.kv + src0 * a.W, c);
+        s0 = __ldcg(a.scales + src0);
+      }
+      store_values4<KIND, T>(raw0, s0, out + r0 * a.n + c);
+    }
+    if (r1 < a.rows) {
+      if (__ldcg(a.stamps + src1 / (2 * a.nkv)) == a.epoch) {
+        raw1 = load_codes4<KIND, true>(a.kv + src1 * a.W, c);
+        s1 = __ldcg(a.scales + src1);
+      }
+      store_values4<KIND, T>(raw1, s1, out + r1 * a.n + c);
     }
   }
-  if (threadIdx.x == 0) {  // acquire: every append block has released
-    const volatile unsigned long long* released = a.released;
-    while (*released < a.target) __nanosleep(32);
-    __threadfence();
-  }
-  __syncthreads();
-  if (!live) return;
-  if (__ldcg(a.stamps + src / (2 * a.nkv)) == a.epoch) {  // appended now
-    s = __ldcg(a.scales + src);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c0 = lane * 4 + 128 * i;
-      if (c0 < a.n) raw[i] = load_codes4<KIND, true>(pr, c0);
+  for (long long base = gw; base < a.rows; base += 2 * nw) {
+    const long long rb = base + nw;
+    const long long sa = source_row(a.table, a.per_page, base);
+    const long long sb =
+        rb < a.rows ? source_row(a.table, a.per_page, rb) : 0;
+    const int from = ORDER == ORDER_PREFETCH && base == gw ? c + 128 : c;
+    for (int c0 = from; c0 < a.n; c0 += 128) {
+      const uint32_t qa = load_codes4<KIND, true>(a.kv + sa * a.W, c0);
+      const float fa = __ldcg(a.scales + sa);
+      uint32_t qb = 0;
+      float fb = 0.0f;
+      if (rb < a.rows) {
+        qb = load_codes4<KIND, true>(a.kv + sb * a.W, c0);
+        fb = __ldcg(a.scales + sb);
+      }
+      store_values4<KIND, T>(qa, fa, out + base * a.n + c0);
+      if (rb < a.rows) store_values4<KIND, T>(qb, fb, out + rb * a.n + c0);
     }
-  }
-  T* orow = static_cast<T*>(a.out) + r * a.n;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c0 = lane * 4 + 128 * i;
-    if (c0 < a.n) store_values4<KIND, T>(raw[i], s, orow + c0);
   }
 }
 
@@ -557,16 +551,9 @@ int launch_dequant(int out_dtype, const void* payload, const void* scales,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int KIND, int PAIRS>
-int launch_fused_pairs(FusedArgs a, int design, cudaStream_t s) {
-  const long long nvec = (long long)a.ntok * 2 * a.nkv;
-  if (design == DESIGN_ORDERED) {
-    kv_append_dequantize_ordered_kernel<T, KIND, PAIRS>
-        <<<a.append_blocks + grid_for(a.rows), THREADS, 0, s>>>(a);
-    return (int)cudaGetLastError();
-  }
-  if (design != DESIGN_GRID) return (int)cudaErrorInvalidValue;
-  auto kernel = kv_append_dequantize_kernel<T, KIND, PAIRS>;
+template <typename T, int KIND, int PAIRS, int ORDER>
+int launch_fused_order(FusedArgs& a, cudaStream_t s) {
+  auto kernel = kv_append_dequantize_kernel<T, KIND, PAIRS, ORDER>;
   static int per_sm = 0;  // co-resident blocks an SM, asked once
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -576,17 +563,35 @@ int launch_fused_pairs(FusedArgs a, int design, cudaStream_t s) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         THREADS, 0);
   if (err != cudaSuccess) return (int)err;
-  const long long want = grid_for(nvec > (a.rows + 1) / 2 ? nvec
-                                                          : (a.rows + 1) / 2);
+  const long long nvec = (long long)a.ntok * 2 * a.nkv;
+  const long long rows_u = (a.rows + 1) / 2;  // two rows a warp a pass
+  const long long want = grid_for(nvec > rows_u ? nvec : rows_u);
   const long long most = (long long)per_sm * sms;
   const unsigned int g = (unsigned int)(want < most ? want : most);
-  void* args[] = {&a};
-  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(g),
-                                          dim3(THREADS), args, 0, s);
+  a.append_blocks = grid_for(nvec) < g ? grid_for(nvec) : g;
+  if (ORDER == ORDER_SYNC) {
+    void* args[] = {&a};
+    return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(g),
+                                            dim3(THREADS), args, 0, s);
+  }
+  a.target += a.append_blocks;
+  kernel<<<g, THREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int KIND, int PAIRS>
+int launch_fused_pairs(FusedArgs& a, int order, cudaStream_t s) {
+  if (order == ORDER_SYNC)
+    return launch_fused_order<T, KIND, PAIRS, ORDER_SYNC>(a, s);
+  if (order == ORDER_RELEASE)
+    return launch_fused_order<T, KIND, PAIRS, ORDER_RELEASE>(a, s);
+  if (order == ORDER_PREFETCH)
+    return launch_fused_order<T, KIND, PAIRS, ORDER_PREFETCH>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int KIND>
-int launch_fused_kind(const FusedArgs& a, int design, cudaStream_t s) {
+int launch_fused_kind(FusedArgs& a, int design, cudaStream_t s) {
   const int pairs = (a.hd + 63) / 64;
   if (pairs <= 1) return launch_fused_pairs<T, KIND, 1>(a, design, s);
   if (pairs <= 2) return launch_fused_pairs<T, KIND, 2>(a, design, s);
@@ -595,7 +600,7 @@ int launch_fused_kind(const FusedArgs& a, int design, cudaStream_t s) {
 }
 
 template <typename T>
-int launch_fused(int kind, const FusedArgs& a, int design, cudaStream_t s) {
+int launch_fused(int kind, FusedArgs& a, int design, cudaStream_t s) {
   if (kind == KIND_INT8) return launch_fused_kind<T, KIND_INT8>(a, design, s);
   if (kind == KIND_INT4) return launch_fused_kind<T, KIND_INT4>(a, design, s);
   if (kind == KIND_FP8) return launch_fused_kind<T, KIND_FP8>(a, design, s);
@@ -661,11 +666,10 @@ extern "C" int dstpu_dequantize(int kind, int out_dtype, const void* payload,
 
 // K4: page / offset [ntok] int64, k / v [ntok, nkv, hd] and out in one
 // float type (0 / 1 / 2), table [rows / per_page] int64 or null (out is
-// then the pool's shape); hd a multiple of 4, at most 256. DESIGN_ORDERED
-// also takes `released` (a uint64 counter; returns the value it must
-// reach, through *target) and `stamps` (nb * bs int32 positions) with
-// this launch's epoch (never 0 and never one an earlier launch on these
-// stamps used).
+// then the pool's shape); hd a multiple of 4, at most 256. `released` is
+// a uint64 counter that only this stream's launches touch and *target
+// the value the last of them made it reach (updated here); `stamps` has
+// nb * bs int32 positions and `epoch` was never used on them before.
 extern "C" int dstpu_kv_append_dequantize(
     int dtype, int kind, const void* k, const void* v, const void* page,
     const void* offset, void* kv, void* scales, void* out, const void* table,
@@ -674,21 +678,19 @@ extern "C" int dstpu_kv_append_dequantize(
     void* stream) {
   if (hd % 4 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return (int)cudaErrorInvalidValue;
-  const unsigned int append_blocks = grid_for((long long)ntok * 2 * nkv);
   FusedArgs a{k, v, static_cast<const long long*>(page),
               static_cast<const long long*>(offset),
               static_cast<uint8_t*>(kv), static_cast<float*>(scales), out,
               static_cast<const long long*>(table), rows,
               (long long)bs * 2 * nkv, ntok, nkv, hd, bs, W, hd,
-              static_cast<unsigned long long*>(released),
-              *target + append_blocks, static_cast<int*>(stamps), epoch,
-              append_blocks};
+              static_cast<unsigned long long*>(released), *target,
+              static_cast<int*>(stamps), epoch, 0u};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = (int)cudaErrorInvalidValue;
   if (dtype == 0) rc = launch_fused<float>(kind, a, design, s);
   if (dtype == 1) rc = launch_fused<__nv_bfloat16>(kind, a, design, s);
   if (dtype == 2) rc = launch_fused<__half>(kind, a, design, s);
-  if (rc == 0 && design == DESIGN_ORDERED) *target = a.target;
+  if (rc == 0) *target = a.target;
   return rc;
 }
 

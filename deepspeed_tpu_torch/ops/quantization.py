@@ -515,12 +515,12 @@ def kv_quantize_append(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
 
 # kv_append_dequantize's orderings of the append before the dequantize
 # (csrc/quantization.cu K4) and the one the forwards take
-FUSED_DESIGNS = {"grid": 0, "ordered": 1}
-DEFAULT_FUSED_DESIGN = "grid"
+FUSED_DESIGNS = {"sync": 0, "release": 1, "prefetch": 2}
+DEFAULT_FUSED_DESIGN = "sync"
 
 
 class _OrderState:
-    """The ordered design's per-(device, stream) state: a uint64 count of
+    """The release orderings' per-(device, stream) state: a uint64 count of
     released append blocks that only grows (``target``, the value the
     last launch made it reach), and the epoch stamps of the pool
     positions (``epoch``, the last launch's, never reused)."""
