@@ -67,8 +67,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cooperative_groups.h>
-
 namespace {
 
 constexpr int WARPS = 8;  // warps (vectors) per thread block
@@ -255,33 +253,50 @@ __device__ __forceinline__ uint32_t load_codes4(const uint8_t* pr, int c0) {
   return L2_ONLY ? __ldcg(p) : *p;
 }
 
+// code i of a packed word (int4: nibble i; int8 / e4m3: byte i)
+template <int KIND>
+__device__ __forceinline__ float code_of(uint32_t raw, int i) {
+  if (KIND == KIND_INT4) {
+    const int nib = (raw >> (4 * i)) & 0x0F;
+    return (float)(nib > 7 ? nib - 16 : nib);
+  }
+  const uint8_t byte = (uint8_t)(raw >> (8 * i));
+  if (KIND == KIND_FP8) {
+    const __half_raw hr = __nv_cvt_fp8_to_halfraw(byte, __NV_E4M3);
+    return __half2float(__half(hr));
+  }
+  return (float)(int8_t)byte;
+}
+
 // their values times the scale, one rounding, one vector store
 template <int KIND, typename O>
 __device__ __forceinline__ void store_values4(uint32_t raw, float s,
                                               O* __restrict__ dst) {
-  float q[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (KIND == KIND_INT4) {
-      const int nib = (raw >> (4 * i)) & 0x0F;
-      q[i] = (float)(nib > 7 ? nib - 16 : nib);
-    } else {
-      const uint8_t byte = (uint8_t)(raw >> (8 * i));
-      if (KIND == KIND_FP8) {
-        const __half_raw hr = __nv_cvt_fp8_to_halfraw(byte, __NV_E4M3);
-        q[i] = __half2float(__half(hr));
-      } else {
-        q[i] = (float)(int8_t)byte;
-      }
-    }
-  }
   alignas(16) O o[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = from_f32<O>(__fmul_rn(q[i], s));
+  for (int i = 0; i < 4; ++i)
+    o[i] = from_f32<O>(__fmul_rn(code_of<KIND>(raw, i), s));
   if (sizeof(O) == 4)
     *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(o);
   else
     *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
+}
+
+// eight codes (int8 / e4m3: lo then hi; int4: all in lo) the same way
+template <int KIND, typename O>
+__device__ __forceinline__ void store_values8(uint32_t lo, uint32_t hi,
+                                              float s, O* __restrict__ dst) {
+  alignas(16) O o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float q = KIND == KIND_INT4 ? code_of<KIND>(lo, i)
+                                      : code_of<KIND>(i < 4 ? lo : hi, i & 3);
+    o[i] = from_f32<O>(__fmul_rn(q, s));
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  const uint4* src = reinterpret_cast<const uint4*>(o);
+  d[0] = src[0];
+  if (sizeof(O) == 4) d[1] = src[1];
 }
 
 template <int KIND, typename O, int VEC>
@@ -310,25 +325,17 @@ __global__ void __launch_bounds__(THREADS)
 // writing, nor write a row's output from codes older than the append's.
 // A persistent grid (as many blocks as the SMs hold): every warp appends
 // (grid-stride over the step's vectors, so the appenders are the lowest
-// blocks), then dequantizes (grid-stride over the output rows, two rows
-// in flight). Between the two, by ordering:
-//   ORDER_SYNC      a cooperative launch whose grid syncs.
-//   ORDER_RELEASE   each appender block releases a 64-bit counter and
-//                   every block acquires it (thread 0 spins). The counter
-//                   only grows: the host passes the value it must reach.
-//                   A spinning block never holds back an appender: blocks
-//                   are dispatched in index order (as CUB's decoupled
-//                   look-back relies on), so every appender is resident
-//                   before any block that waits for it.
-//   ORDER_PREFETCH  as RELEASE, and each warp loads its first two rows
-//                   before it waits; appenders stamp each position they
-//                   write with this launch's epoch, and a prefetched row
-//                   whose position carries it is loaded again.
+// blocks); each appender block then releases a 64-bit counter and every
+// block acquires it (thread 0 spins) before it dequantizes. The counter
+// only grows: the host passes the value it must reach, so no launch
+// resets it. A spinning block never holds back an appender: blocks are
+// dispatched in index order (as CUB's decoupled look-back relies on), so
+// every appender is resident before any block that waits for it. The
+// dequantize strides over the output (WIDE: 8 values a lane, 16-byte
+// stores; else 4, K3's loads and stores), two loads in flight a lane,
+// reading codes and scales from L2 (other blocks of this launch wrote
+// some of them).
 // ---------------------------------------------------------------------------
-
-constexpr int ORDER_SYNC = 0;
-constexpr int ORDER_RELEASE = 1;
-constexpr int ORDER_PREFETCH = 2;
 
 struct FusedArgs {
   const void* k;
@@ -344,104 +351,88 @@ struct FusedArgs {
   int ntok, nkv, hd, bs, W, n;
   unsigned long long* released;  // appender blocks released, ever
   unsigned long long target;     // its value once this launch's have
-  int* stamps;                   // [nb * bs] epoch of the last append
-  int epoch;
   unsigned int append_blocks;    // blocks with a vector to append
 };
 
 // output row r's source row in the pool: itself, or through the table
 __device__ __forceinline__ long long source_row(const long long* table,
-                                                long long per_page,
-                                                long long r) {
+                                                unsigned int per_page,
+                                                unsigned int r) {
   if (table == nullptr) return r;
   return table[r / per_page] * per_page + r % per_page;
 }
 
-template <typename T, int KIND, int PAIRS, int ORDER>
+// the codes and scale of the VEC output values from value e (a multiple
+// of VEC; a row holds n)
+template <int KIND, int VEC>
+__device__ __forceinline__ void load_chunk(const uint8_t* kv,
+                                           const float* scales,
+                                           const long long* table,
+                                           unsigned int per_page,
+                                           unsigned int n, int W,
+                                           unsigned int e, uint32_t& lo,
+                                           uint32_t& hi, float& s) {
+  const unsigned int r = e / n;
+  const int c = (int)(e - r * n);
+  const long long src = source_row(table, per_page, r);
+  const uint8_t* pr = kv + src * W;
+  s = __ldcg(scales + src);
+  hi = 0;
+  if (VEC == 4) {
+    lo = load_codes4<KIND, true>(pr, c);
+  } else if (KIND == KIND_INT4) {
+    lo = __ldcg(reinterpret_cast<const unsigned int*>(pr + c / 2));
+  } else {
+    const uint2 two = __ldcg(reinterpret_cast<const uint2*>(pr + c));
+    lo = two.x;
+    hi = two.y;
+  }
+}
+
+template <typename T, int KIND, int PAIRS, int VEC>
 __global__ void __launch_bounds__(THREADS)
     kv_append_dequantize_kernel(const FusedArgs a) {
   const int lane = threadIdx.x & 31;
   const long long nw = (long long)gridDim.x * WARPS;
   const long long gw = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   const long long nvec = (long long)a.ntok * 2 * a.nkv;
-  T* out = static_cast<T*>(a.out);
-  for (long long w = gw; w < nvec; w += nw) {
+  for (long long w = gw; w < nvec; w += nw)
     append_vector<T, KIND, PAIRS>(static_cast<const T*>(a.k),
                                   static_cast<const T*>(a.v), a.page,
                                   a.offset, a.kv, a.scales, w, a.nkv, a.hd,
                                   a.bs, a.W, lane);
-    if (ORDER == ORDER_PREFETCH && lane == 0) {
-      const long long t = w / (2 * a.nkv);
-      a.stamps[a.page[t] * a.bs + a.offset[t]] = a.epoch;
-    }
-  }
-  // PREFETCH: the first two rows' first codes, loaded before the wait
-  const int c = lane * 4;
-  const long long r0 = gw, r1 = gw + nw;
-  long long src0 = 0, src1 = 0;
-  uint32_t raw0 = 0, raw1 = 0;
-  float s0 = 0.0f, s1 = 0.0f;
-  if (ORDER == ORDER_PREFETCH && c < a.n) {
-    if (r0 < a.rows) {
-      src0 = source_row(a.table, a.per_page, r0);
-      raw0 = load_codes4<KIND, true>(a.kv + src0 * a.W, c);
-      s0 = __ldcg(a.scales + src0);
-    }
-    if (r1 < a.rows) {
-      src1 = source_row(a.table, a.per_page, r1);
-      raw1 = load_codes4<KIND, true>(a.kv + src1 * a.W, c);
-      s1 = __ldcg(a.scales + src1);
-    }
-  }
-  if (ORDER == ORDER_SYNC) {
-    cooperative_groups::this_grid().sync();
-  } else {
-    if (blockIdx.x < a.append_blocks) {  // release
-      __threadfence();
-      __syncthreads();
-      if (threadIdx.x == 0) atomicAdd(a.released, 1ull);
-    }
-    if (threadIdx.x == 0) {  // acquire
-      const volatile unsigned long long* released = a.released;
-      while (*released < a.target) __nanosleep(32);
-      __threadfence();
-    }
+  if (blockIdx.x < a.append_blocks) {  // release
+    __threadfence();
     __syncthreads();
+    if (threadIdx.x == 0) atomicAdd(a.released, 1ull);
   }
-  if (ORDER == ORDER_PREFETCH && c < a.n) {
-    // load again a row whose position this launch appended to
-    if (r0 < a.rows) {
-      if (__ldcg(a.stamps + src0 / (2 * a.nkv)) == a.epoch) {
-        raw0 = load_codes4<KIND, true>(a.kv + src0 * a.W, c);
-        s0 = __ldcg(a.scales + src0);
-      }
-      store_values4<KIND, T>(raw0, s0, out + r0 * a.n + c);
-    }
-    if (r1 < a.rows) {
-      if (__ldcg(a.stamps + src1 / (2 * a.nkv)) == a.epoch) {
-        raw1 = load_codes4<KIND, true>(a.kv + src1 * a.W, c);
-        s1 = __ldcg(a.scales + src1);
-      }
-      store_values4<KIND, T>(raw1, s1, out + r1 * a.n + c);
-    }
+  if (threadIdx.x == 0) {  // acquire
+    const volatile unsigned long long* released = a.released;
+    while (*released < a.target) __nanosleep(32);
+    __threadfence();
   }
-  for (long long base = gw; base < a.rows; base += 2 * nw) {
-    const long long rb = base + nw;
-    const long long sa = source_row(a.table, a.per_page, base);
-    const long long sb =
-        rb < a.rows ? source_row(a.table, a.per_page, rb) : 0;
-    const int from = ORDER == ORDER_PREFETCH && base == gw ? c + 128 : c;
-    for (int c0 = from; c0 < a.n; c0 += 128) {
-      const uint32_t qa = load_codes4<KIND, true>(a.kv + sa * a.W, c0);
-      const float fa = __ldcg(a.scales + sa);
-      uint32_t qb = 0;
-      float fb = 0.0f;
-      if (rb < a.rows) {
-        qb = load_codes4<KIND, true>(a.kv + sb * a.W, c0);
-        fb = __ldcg(a.scales + sb);
-      }
-      store_values4<KIND, T>(qa, fa, out + base * a.n + c0);
-      if (rb < a.rows) store_values4<KIND, T>(qb, fb, out + rb * a.n + c0);
+  __syncthreads();
+  T* out = static_cast<T*>(a.out);
+  // 32-bit offsets: the host checks that the output has fewer than 2^31
+  // values
+  const unsigned int total = (unsigned int)(a.rows * a.n);
+  const unsigned int nt = gridDim.x * THREADS * VEC;
+  for (unsigned int e = (blockIdx.x * THREADS + threadIdx.x) * VEC;
+       e < total; e += 2 * nt) {
+    const unsigned int e2 = e + nt;
+    uint32_t lo, hi, lo2 = 0, hi2 = 0;
+    float s, s2 = 0.0f;
+    load_chunk<KIND, VEC>(a.kv, a.scales, a.table, a.per_page, a.n, a.W, e,
+                          lo, hi, s);
+    if (e2 < total)
+      load_chunk<KIND, VEC>(a.kv, a.scales, a.table, a.per_page, a.n, a.W,
+                            e2, lo2, hi2, s2);
+    if (VEC == 8) {
+      store_values8<KIND, T>(lo, hi, s, out + e);
+      if (e2 < total) store_values8<KIND, T>(lo2, hi2, s2, out + e2);
+    } else {
+      store_values4<KIND, T>(lo, s, out + e);
+      if (e2 < total) store_values4<KIND, T>(lo2, s2, out + e2);
     }
   }
 }
@@ -551,9 +542,9 @@ int launch_dequant(int out_dtype, const void* payload, const void* scales,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int KIND, int PAIRS, int ORDER>
-int launch_fused_order(FusedArgs& a, cudaStream_t s) {
-  auto kernel = kv_append_dequantize_kernel<T, KIND, PAIRS, ORDER>;
+template <typename T, int KIND, int PAIRS, int VEC>
+int launch_fused_vec(FusedArgs& a, cudaStream_t s) {
+  auto kernel = kv_append_dequantize_kernel<T, KIND, PAIRS, VEC>;
   static int per_sm = 0;  // co-resident blocks an SM, asked once
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -564,29 +555,23 @@ int launch_fused_order(FusedArgs& a, cudaStream_t s) {
                                                         THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   const long long nvec = (long long)a.ntok * 2 * a.nkv;
-  const long long rows_u = (a.rows + 1) / 2;  // two rows a warp a pass
-  const long long want = grid_for(nvec > rows_u ? nvec : rows_u);
+  // two chunks of VEC values a thread a pass
+  const long long chunk_blocks =
+      (a.rows * a.n / VEC + 2 * THREADS - 1) / (2 * THREADS);
+  const long long want = grid_for(nvec) > chunk_blocks ? grid_for(nvec)
+                                                       : chunk_blocks;
   const long long most = (long long)per_sm * sms;
   const unsigned int g = (unsigned int)(want < most ? want : most);
   a.append_blocks = grid_for(nvec) < g ? grid_for(nvec) : g;
-  if (ORDER == ORDER_SYNC) {
-    void* args[] = {&a};
-    return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(g),
-                                            dim3(THREADS), args, 0, s);
-  }
   a.target += a.append_blocks;
   kernel<<<g, THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int KIND, int PAIRS>
-int launch_fused_pairs(FusedArgs& a, int order, cudaStream_t s) {
-  if (order == ORDER_SYNC)
-    return launch_fused_order<T, KIND, PAIRS, ORDER_SYNC>(a, s);
-  if (order == ORDER_RELEASE)
-    return launch_fused_order<T, KIND, PAIRS, ORDER_RELEASE>(a, s);
-  if (order == ORDER_PREFETCH)
-    return launch_fused_order<T, KIND, PAIRS, ORDER_PREFETCH>(a, s);
+int launch_fused_pairs(FusedArgs& a, int design, cudaStream_t s) {
+  if (design == 0) return launch_fused_vec<T, KIND, PAIRS, 4>(a, s);
+  if (design == 1) return launch_fused_vec<T, KIND, PAIRS, 8>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -666,25 +651,22 @@ extern "C" int dstpu_dequantize(int kind, int out_dtype, const void* payload,
 
 // K4: page / offset [ntok] int64, k / v [ntok, nkv, hd] and out in one
 // float type (0 / 1 / 2), table [rows / per_page] int64 or null (out is
-// then the pool's shape); hd a multiple of 4, at most 256. `released` is
+// then the pool's shape); hd a multiple of 8, at most 256. `released` is
 // a uint64 counter that only this stream's launches touch and *target
-// the value the last of them made it reach (updated here); `stamps` has
-// nb * bs int32 positions and `epoch` was never used on them before.
+// the value the last of them made it reach (updated here).
 extern "C" int dstpu_kv_append_dequantize(
     int dtype, int kind, const void* k, const void* v, const void* page,
     const void* offset, void* kv, void* scales, void* out, const void* table,
     long long rows, int ntok, int nkv, int hd, int bs, int W, int design,
-    void* released, unsigned long long* target, void* stamps, int epoch,
-    void* stream) {
-  if (hd % 4 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
-  if (rows <= 0) return (int)cudaErrorInvalidValue;
+    void* released, unsigned long long* target, void* stream) {
+  if (hd % 8 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || rows * hd >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   FusedArgs a{k, v, static_cast<const long long*>(page),
               static_cast<const long long*>(offset),
               static_cast<uint8_t*>(kv), static_cast<float*>(scales), out,
               static_cast<const long long*>(table), rows,
               (long long)bs * 2 * nkv, ntok, nkv, hd, bs, W, hd,
-              static_cast<unsigned long long*>(released), *target,
-              static_cast<int*>(stamps), epoch, 0u};
+              static_cast<unsigned long long*>(released), *target, 0u};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = (int)cudaErrorInvalidValue;
   if (dtype == 0) rc = launch_fused<float>(kind, a, design, s);

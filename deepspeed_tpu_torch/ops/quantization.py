@@ -230,7 +230,7 @@ def _lib() -> ctypes.CDLL:
         lib.dstpu_dequantize.restype = I
         lib.dstpu_kv_append_dequantize.argtypes = [
             I, I, P, P, P, P, P, P, P, P, L, I, I, I, I, I, I, P,
-            ctypes.POINTER(ctypes.c_ulonglong), P, I, P]
+            ctypes.POINTER(ctypes.c_ulonglong), P]
         lib.dstpu_kv_append_dequantize.restype = I
         lib.dstpu_cuda_error_string.argtypes = [I]
         lib.dstpu_cuda_error_string.restype = ctypes.c_char_p
@@ -513,35 +513,14 @@ def kv_quantize_append(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
     LAUNCHES["kv_quantize_append"] += 1
 
 
-# kv_append_dequantize's orderings of the append before the dequantize
-# (csrc/quantization.cu K4) and the one the forwards take
-FUSED_DESIGNS = {"sync": 0, "release": 1, "prefetch": 2}
-DEFAULT_FUSED_DESIGN = "sync"
-
-
-class _OrderState:
-    """The release orderings' per-(device, stream) state: a uint64 count of
-    released append blocks that only grows (``target``, the value the
-    last launch made it reach), and the epoch stamps of the pool
-    positions (``epoch``, the last launch's, never reused)."""
-
-    def __init__(self, dev: torch.device, positions: int):
-        self.released = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.target = ctypes.c_ulonglong(0)
-        self.stamps = torch.zeros(positions, dtype=torch.int32, device=dev)
-        self.epoch = 0
-
-    def next_epoch(self, positions: int) -> int:
-        if self.stamps.numel() < positions or self.epoch >= 2 ** 31 - 1:
-            self.stamps = torch.zeros(max(positions, self.stamps.numel()),
-                                      dtype=torch.int32,
-                                      device=self.stamps.device)
-            self.epoch = 0
-        self.epoch += 1
-        return self.epoch
-
-
-_ORDER: Dict[Tuple[int, int], _OrderState] = {}
+# kv_append_dequantize's dequantize widths (csrc/quantization.cu K4: 4 or
+# 8 values a lane) and the one the forwards take
+FUSED_DESIGNS = {"vec4": 0, "vec8": 1}
+DEFAULT_FUSED_DESIGN = "vec8"
+# per (device, stream): a uint64 count of released appender blocks that
+# only grows, and the value the last launch made it reach
+_RELEASED: Dict[Tuple[int, int],
+                Tuple[torch.Tensor, ctypes.c_ulonglong]] = {}
 
 
 def kv_append_dequantize(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
@@ -573,27 +552,28 @@ def kv_append_dequantize(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
     _check_kernel_dtypes("kv_append_dequantize", k, v, kv_scales)
     if out.dtype != k.dtype:
         raise TypeError(f"out must be K's dtype {k.dtype}, got {out.dtype}")
-    if hd % 4 or hd > 256:
+    if hd % 8 or hd > 256 or out.numel() >= 2 ** 31:
         raise ValueError(f"kv_append_dequantize takes a head_dim that is a "
-                         f"multiple of 4, at most 256, got {hd}")
+                         f"multiple of 8, at most 256 (got {hd}), and an out "
+                         f"of fewer than 2^31 values")
     page = page.reshape(-1).long()
     offset = offset.reshape(-1).long()
     if block_table is not None:
         block_table = block_table.reshape(-1).long()
     stream = _stream(k)
-    st = _ORDER.get((k.device.index, stream))
-    if st is None:
-        st = _ORDER[(k.device.index, stream)] = _OrderState(k.device,
-                                                            nb * bs)
+    key = (k.device.index, stream)
+    if key not in _RELEASED:
+        _RELEASED[key] = (torch.zeros(1, dtype=torch.int64, device=k.device),
+                          ctypes.c_ulonglong(0))
+    released, target = _RELEASED[key]
     rc = _lib().dstpu_kv_append_dequantize(
         _DTYPE_CODE[k.dtype], kind, k.data_ptr(), v.data_ptr(),
         page.data_ptr(), offset.data_ptr(), kv_layer.data_ptr(),
         kv_scales.data_ptr(), out.data_ptr(),
         None if block_table is None else block_table.data_ptr(),
         out.numel() // hd, page.numel(), nkv, hd, bs, W,
-        FUSED_DESIGNS[design], st.released.data_ptr(),
-        ctypes.byref(st.target), st.stamps.data_ptr(),
-        st.next_epoch(nb * bs), stream)
+        FUSED_DESIGNS[design], released.data_ptr(), ctypes.byref(target),
+        stream)
     _raise_on(rc, "kv_append_dequantize")
     LAUNCHES["kv_append_dequantize"] += 1
     return out

@@ -860,7 +860,7 @@ def test_dequantize_kernel_matches_plain(card, bits, out_dtype):
     assert torch.equal(odd, qz.dequantize_plain(part, sc, out_dtype))
 
 
-@pytest.mark.parametrize("design", ["sync", "release", "prefetch"])
+@pytest.mark.parametrize("design", ["vec4", "vec8"])
 @pytest.mark.parametrize("mode", ["pool", "table"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("bits", [8, 4, "fp8"])
