@@ -58,12 +58,16 @@ Phases, each fatal on failure:
                Llama-3-8B ([4096, 14336], bf16 and fp32, block 128 and
                256, 8 and 4 bits), the KV quantize-on-append at decode
                (16 tokens) and prefill (256 tokens) for int8, int4 and
-               fp8 into a 2048 x 16 layer pool, and the dequantize of
-               that pool in each rung and of one quantized weight; inputs
-               hold exact .5 ties, all-zero blocks and values at both ends
-               of the grid. Kernel and plain version timed with CUDA
-               events beside the bound (no single PyTorch call computes
-               either function, so there is no library yardstick).
+               fp8 into a 2048 x 16 layer pool, the dequantize of that
+               pool in each rung and of one quantized weight, and the two
+               folded into one launch (the append, then the pool or a
+               16 x 48 block table's pages read back) at both token
+               counts and rungs; inputs hold exact .5 ties, all-zero
+               blocks and values at both ends of the grid. Kernel and
+               plain version timed with CUDA events beside the bound (no
+               single PyTorch call computes either function, so there is
+               no library yardstick); the folded launch also back to
+               back, beside the append then the read timed both ways.
   2e. blocksparse — the block-sparse forward (B9) against its plain
                version and against the masked form (after
                repeat_kv_heads), fp32 and bf16, B 1, 32 q heads of 128:
@@ -102,8 +106,9 @@ Phases, each fatal on failure:
                tokens and back (the restored blocks hold the bytes paged
                out; no prefill after the resume; 64 tokens), and last
                int8 weights over a bf16 pool, which quantizes the model
-               in place. Launch counts per run: the append and the
-               dequantize once per layer per forward on the KV runs; the
+               in place. Launch counts per run: the folded append and
+               dequantize once per layer per forward on the KV runs (the
+               standalone append and dequantize never); the
                blockwise quantize once per quantized leaf (8) and the
                dequantize 7 x 32 + 1 times per forward on the weight run;
                every paged prefill launch on the tensor-core kernel and
@@ -857,9 +862,10 @@ class Timer:
         return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
     def ms_back_to_back(self, fn, n=100):
-        """Mean ms of ``n`` launches in a row with no flush between: the
-        card sleeps while the host queues them all, so no host gap
-        enters the span."""
+        """(card ms, host ms) a call over ``n`` calls in a row with no
+        flush between: the card sleeps while the host queues them all,
+        so no host gap enters the card's span, and the host's span is
+        what the calls cost it (the wrapper and the launch)."""
         torch = self.torch
         fn()
         self.flush_buf.zero_()
@@ -867,11 +873,13 @@ class Timer:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
+        t0 = time.perf_counter()
         for _ in range(n):
             fn()
+        host = (time.perf_counter() - t0) * 1e3 / n
         b.record()
         torch.cuda.synchronize()
-        return a.elapsed_time(b) / n
+        return a.elapsed_time(b) / n, host
 
 
 def ptxas_report(build_log):
@@ -1590,9 +1598,8 @@ def check_kv_append(torch, qz, timer, bits, ntok, dtype):
 
 
 def check_kv_append_dequant(torch, qz, timer, bits, ntok, mode):
-    """K4, the KV append folded into the layer's dequantize, in each
-    design: into the 2048 x 16 layer pool (mode "pool", the paged
-    forwards) or through a MAX_SEQS x MAX_BLOCKS table that reads pages
+    """K4, the KV append folded into the layer's dequantize: into the
+    2048 x 16 layer pool (mode "pool", the paged forwards) or through a MAX_SEQS x MAX_BLOCKS table that reads pages
     the step appends to (mode "table", the gather forward), against its
     plain version (K2's, then K3's of the pool or of the table's pages)
     bit for bit outside the scratch page, where the 3 padding tokens'
@@ -1634,31 +1641,27 @@ def check_kv_append_dequant(torch, qz, timer, bits, ntok, mode):
                                   table)
     want_pool, want_sc = pool.view(torch.uint8), sc
     keep = slice(None, -1) if mode == "pool" else slice(None)
-    res = {"bit_equal": True, "max_abs_err": 0.0, "designs": {}}
-    for design in qz.FUSED_DESIGNS:
-        pool, sc, out = fresh()
+    pool, sc, out = fresh()
 
-        def fused():
-            return qz.kv_append_dequantize(pool, sc, page, offset, k, v,
-                                           bits, out, table, design=design)
-        fused()
-        torch.cuda.synchronize()
-        if not (bit_equal(torch, pool.view(torch.uint8)[:-1],
-                          want_pool[:-1])
-                and bit_equal(torch, sc[:-1], want_sc[:-1])
-                and bit_equal(torch, out[keep], want[keep])):
-            fail(f"kv_append_dequantize {design} bits {bits} ntok {ntok} "
-                 f"{mode}: not bit-equal to kv_quantize_append_plain then "
-                 f"dequantize_plain")
-        res["designs"][design] = {"ms": timer.ms(fused),
-                                  "back_to_back_ms":
-                                      timer.ms_back_to_back(fused)}
+    def fused():
+        return qz.kv_append_dequantize(pool, sc, page, offset, k, v, bits,
+                                       out, table)
 
-        def read_only():  # the same launch with no token to append
-            return qz.kv_append_dequantize(pool, sc, page[:0], offset[:0],
-                                           k[:0], v[:0], bits, out, table,
-                                           design=design)
-        res["designs"][design]["no_append_ms"] = timer.ms(read_only)
+    def read_only():  # the same launch with no token to append
+        return qz.kv_append_dequantize(pool, sc, page[:0], offset[:0],
+                                       k[:0], v[:0], bits, out, table)
+
+    fused()
+    torch.cuda.synchronize()
+    if not (bit_equal(torch, pool.view(torch.uint8)[:-1], want_pool[:-1])
+            and bit_equal(torch, sc[:-1], want_sc[:-1])
+            and bit_equal(torch, out[keep], want[keep])):
+        fail(f"kv_append_dequantize bits {bits} ntok {ntok} {mode}: not "
+             f"bit-equal to kv_quantize_append_plain then dequantize_plain")
+    b2b, host = timer.ms_back_to_back(fused)
+    res = {"bit_equal": True, "max_abs_err": 0.0, "ms": timer.ms(fused),
+           "back_to_back_ms": b2b, "host_ms": host,
+           "no_append_ms": timer.ms(read_only)}
     pool, sc, out = fresh()
 
     def append():
@@ -1677,11 +1680,9 @@ def check_kv_append_dequant(torch, qz, timer, bits, ntok, mode):
         read()
 
     for name, fn in (("append", append), ("read", read), ("both", both)):
-        res[name] = {"ms": timer.ms(fn),
-                     "back_to_back_ms": timer.ms_back_to_back(fn)}
-    chosen = res["designs"][qz.DEFAULT_FUSED_DESIGN]
-    res["ms"], res["back_to_back_ms"] = chosen["ms"], \
-        chosen["back_to_back_ms"]
+        b2b, host = timer.ms_back_to_back(fn)
+        res[name] = {"ms": timer.ms(fn), "back_to_back_ms": b2b,
+                     "host_ms": host}
     # the fused launch less the read alone: what the append still costs
     res["append_marginal_ms"] = res["ms"] - res["read"]["ms"]
     res["append_marginal_back_to_back_ms"] = \
@@ -1982,7 +1983,9 @@ def kernel_family(name):
     return ("blocksparse_fwd" if "blocksparse_fwd" in n else
             "quantize_blockwise" if "quantize_blockwise_kernel" in n else
             "kv_quantize_append" if "kv_quantize_append_kernel" in n else
-            "dequantize" if "dequantize_kernel" in n else
+            # before "dequantize": its name holds "dequantize_kernel"
+            "kv_append_dequantize" if "kv_append_dequantize_kernel" in n
+            else "dequantize" if "dequantize_kernel" in n else
             "paged_decode" if "paged_decode" in n else
             "paged_prefill" if "paged_prefill" in n else
             "flash_fwd" if ("flash_fwd_kernel" in n
@@ -5140,11 +5143,13 @@ def quant_serve_phase(torch, InferenceEngineV2, pa, qz, wq, model, prompts,
 
     def kv_gates(label, line):
         lc, fwd = line["launches"], line["model_forwards"]
-        if lc["kv_quantize_append"] != L * fwd or \
-                lc["dequantize"] != L * fwd or lc["quantize_blockwise"]:
+        if lc["kv_append_dequantize"] != L * fwd or \
+                lc["kv_quantize_append"] or lc["dequantize"] or \
+                lc["quantize_blockwise"]:
             fail(f"quant serve {label}: launches {lc} over {fwd} forwards: "
-                 f"kv_quantize_append and dequantize must run once per "
-                 f"layer per forward ({L * fwd}), quantize_blockwise never")
+                 f"kv_append_dequantize must run once per layer per "
+                 f"forward ({L * fwd}); kv_quantize_append, dequantize and "
+                 f"quantize_blockwise never")
         if min(lc["paged_decode"], lc["paged_prefill"]) <= 0:
             fail(f"quant serve {label}: a paged kernel never ran: {lc}")
 
@@ -5239,7 +5244,8 @@ def quant_serve_phase(torch, InferenceEngineV2, pa, qz, wq, model, prompts,
     lc, fwd = line["launches"], line["model_forwards"]
     want_k3 = (7 * L + 1) * fwd
     if (lc["quantize_blockwise"] != len(quantized) or len(quantized) != 8
-            or lc["dequantize"] != want_k3 or lc["kv_quantize_append"]):
+            or lc["dequantize"] != want_k3 or lc["kv_quantize_append"]
+            or lc["kv_append_dequantize"]):
         fail(f"quant serve int8 weights: launches {lc} over {fwd} forwards "
              f"(quantized leaves {quantized}): quantize_blockwise once per "
              f"leaf (8), dequantize {want_k3}")
@@ -6153,6 +6159,23 @@ def main():
                                                  torch.float32)
     deq = {case: check_dequant(torch, qz, wq, timer, case)
            for case in (8, 4, "fp8", "weight")}
+    fused = {(bits, ntok, mode): check_kv_append_dequant(torch, qz, timer,
+                                                         bits, ntok, mode)
+             for bits in (8, 4, "fp8") for ntok in (16, 256)
+             for mode in ("pool", "table")}
+    for (bits, ntok, mode), r in fused.items():
+        log(f"kv_append_dequantize bits {bits} {ntok} tokens {mode}: "
+            f"{r['ms'] * 1e3:.1f} us flushed, {r['back_to_back_ms'] * 1e3:.1f}"
+            f" back to back (no token appended: {r['no_append_ms'] * 1e3:.1f})"
+            f"; 6a then the read {r['both']['ms'] * 1e3:.1f} / "
+            f"{r['both']['back_to_back_ms'] * 1e3:.1f}, the read alone "
+            f"{r['read']['ms'] * 1e3:.1f} / "
+            f"{r['read']['back_to_back_ms'] * 1e3:.1f}, 6a alone "
+            f"{r['append']['ms'] * 1e3:.1f} / "
+            f"{r['append']['back_to_back_ms'] * 1e3:.1f}; bound "
+            f"{r['bound_ms'] * 1e3:.1f} us; host a call "
+            f"{r['host_ms'] * 1e3:.1f} us against "
+            f"{r['both']['host_ms'] * 1e3:.1f} for the two")
     torch.cuda.empty_cache()
     # 2e. block-sparse forward against its plain version and the masked
     # form
@@ -6641,10 +6664,16 @@ def main():
                 "(one launch per eligible leaf)",
                 "kv_quantize_append":
                 "the same quantize at block = head_dim (kv_quantize :152), "
-                "fused with kv_pack and the scatter into the pool",
+                "fused with kv_pack and the scatter into the pool; off the "
+                "serve path since kv_append_dequantize carries it",
                 "dequantize":
                 "the never-launched TPU _dequant_kernel and kv_dequantize "
-                ":175"}[name]
+                ":175; on the int8-weight, v1 and ZeRO++ paths",
+                "kv_append_dequantize":
+                "kv_quantize (:152) at block = head_dim with kv_pack and "
+                "the pool scatter, then the layer's kv_dequantize (:175) "
+                "of the whole pool or of a block table's pages, in one "
+                "launch"}[name]
         return {"name": name, "route": "cuda",
                 "source": "deepspeed_tpu_torch/ops/csrc/quantization.cu",
                 "replaces": f"deepspeed_tpu/ops/pallas/quantization.py:"
@@ -6668,7 +6697,13 @@ def main():
                 "library_call": "none: no single PyTorch call computes a "
                                 "blockwise absmax quantize or a scaled "
                                 "dequantize",
-                "shape": res["shape"], "other": other}
+                "shape": res["shape"], "other": other,
+                # the fused kernel's other timings and the launches it
+                # replaces (6a, then the read), flushed and back to back
+                **{k: res[k] for k in (
+                    "back_to_back_ms", "host_ms", "no_append_ms", "append",
+                    "read", "both", "append_marginal_ms",
+                    "append_marginal_back_to_back_ms") if k in res}}
 
     def sparse_entry():
         b = sparse[("bfloat16", "main")]
@@ -6733,7 +6768,11 @@ def main():
                     {"/".join(map(str, k)): v for k, v in kv_app.items()
                      if k != (8, 16)}, "int8"),
         quant_entry("dequantize", 82, deq[8],
-                    {str(k): v for k, v in deq.items() if k != 8}, "int8"),
+                    {str(k): v for k, v in deq.items() if k != 8},
+                    "int8_weights"),
+        quant_entry("kv_append_dequantize", 152, fused[(8, 16, "pool")],
+                    {"/".join(map(str, k)): v for k, v in fused.items()
+                     if k != (8, 16, "pool")}, "int8"),
         sparse_entry(),
     ]}
     print(json.dumps(kernels), flush=True)

@@ -13,6 +13,12 @@
 //   dequantize_kernel         <- _dequant_kernel (:82, never launched on the
 //                                TPU: dequantize_blockwise runs
 //                                _dequantize_ref :60) and kv_dequantize (:175)
+//   kv_append_dequantize_kernel <- kv_append_dequantize's two in one launch:
+//                                the serving runner's KV append and the
+//                                layer's kv_dequantize right after it
+//                                (model_runner.py :262-282, :418-429,
+//                                :505-513), so the append costs no launch
+//                                of its own on the KV-rung serve path
 //
 // What they compute (the JAX functions, to the bit):
 //   scale = absmax / qmax (qmax 127 for 8 bits, 7 for 4), or 1.0 when the
@@ -59,7 +65,10 @@
 //     128: 117.4 MB read, 58.7 MB + 1.8 MB written: 53 us.
 //   kv_quantize_append at decode (16 tokens x 2 x 8 heads x 128) moves a
 //     few tens of KB: well under a microsecond of bytes, so the launch
-//     bounds it.
+//     bounds it. Hence kv_append_dequantize: the append rides in the
+//     dequantize launch that each quantized layer runs anyway, whose
+//     bytes (the pool's codes and scales read, the bf16 pool written)
+//     bound the two together.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -225,20 +234,6 @@ __global__ void __launch_bounds__(THREADS) kv_quantize_append_kernel(
 // consecutive values at a time (VEC 4 needs n % 4 == 0 and aligned rows).
 // ---------------------------------------------------------------------------
 
-template <int KIND>
-__device__ __forceinline__ float code_value(const uint8_t* __restrict__ pr,
-                                            int c) {
-  if (KIND == KIND_INT4) {
-    const int byte = pr[c >> 1];
-    const int nib = (c & 1) ? (byte >> 4) : (byte & 0x0F);
-    return (float)(nib > 7 ? nib - 16 : nib);
-  } else if (KIND == KIND_FP8) {
-    const __half_raw hr = __nv_cvt_fp8_to_halfraw(pr[c], __NV_E4M3);
-    return __half2float(__half(hr));
-  }
-  return (float)(int8_t)pr[c];
-}
-
 // four consecutive codes (one 4-byte load of int8 / e4m3, 2 bytes of
 // int4); L2 only (ld.global.cg) where other blocks of the same launch
 // wrote them
@@ -266,6 +261,14 @@ __device__ __forceinline__ float code_of(uint32_t raw, int i) {
     return __half2float(__half(hr));
   }
   return (float)(int8_t)byte;
+}
+
+// code c of a row
+template <int KIND>
+__device__ __forceinline__ float code_value(const uint8_t* __restrict__ pr,
+                                            int c) {
+  return KIND == KIND_INT4 ? code_of<KIND>(pr[c >> 1], c & 1)
+                           : code_of<KIND>(pr[c], 0);
 }
 
 // their values times the scale, one rounding, one vector store
@@ -331,10 +334,17 @@ __global__ void __launch_bounds__(THREADS)
 // resets it. A spinning block never holds back an appender: blocks are
 // dispatched in index order (as CUB's decoupled look-back relies on), so
 // every appender is resident before any block that waits for it. The
-// dequantize strides over the output (WIDE: 8 values a lane, 16-byte
-// stores; else 4, K3's loads and stores), two loads in flight a lane,
-// reading codes and scales from L2 (other blocks of this launch wrote
-// some of them).
+// dequantize strides over the output, two loads in flight a lane, reading
+// codes and scales from L2 (other blocks of this launch wrote some of
+// them): 4 values a lane over the whole pool (K3's loads and stores), 8
+// through a table (16-byte stores), the faster of the two in each mode.
+//
+// Measured (chip_smoke.py phase 2d, H100 80GB HBM3, 700 W; 2048 x 16
+// int8 pool, bf16 out, L2 flushed): 82.0 us with the 16 tokens of a
+// decode step, 84.2 with 256, against K3 alone 82.9 and K2 then K3 86.8
+// / 87.0. A cooperative grid that syncs took 89-92 us, and K3's grid with
+// the appenders in front, each dequantize block acquiring the counter
+// itself, 153-158: the wait lengthens every block.
 // ---------------------------------------------------------------------------
 
 struct FusedArgs {
@@ -569,26 +579,25 @@ int launch_fused_vec(FusedArgs& a, cudaStream_t s) {
 }
 
 template <typename T, int KIND, int PAIRS>
-int launch_fused_pairs(FusedArgs& a, int design, cudaStream_t s) {
-  if (design == 0) return launch_fused_vec<T, KIND, PAIRS, 4>(a, s);
-  if (design == 1) return launch_fused_vec<T, KIND, PAIRS, 8>(a, s);
-  return (int)cudaErrorInvalidValue;
+int launch_fused_pairs(FusedArgs& a, cudaStream_t s) {
+  if (a.table == nullptr) return launch_fused_vec<T, KIND, PAIRS, 4>(a, s);
+  return launch_fused_vec<T, KIND, PAIRS, 8>(a, s);
 }
 
 template <typename T, int KIND>
-int launch_fused_kind(FusedArgs& a, int design, cudaStream_t s) {
+int launch_fused_kind(FusedArgs& a, cudaStream_t s) {
   const int pairs = (a.hd + 63) / 64;
-  if (pairs <= 1) return launch_fused_pairs<T, KIND, 1>(a, design, s);
-  if (pairs <= 2) return launch_fused_pairs<T, KIND, 2>(a, design, s);
-  if (pairs <= 4) return launch_fused_pairs<T, KIND, 4>(a, design, s);
+  if (pairs <= 1) return launch_fused_pairs<T, KIND, 1>(a, s);
+  if (pairs <= 2) return launch_fused_pairs<T, KIND, 2>(a, s);
+  if (pairs <= 4) return launch_fused_pairs<T, KIND, 4>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int launch_fused(int kind, FusedArgs& a, int design, cudaStream_t s) {
-  if (kind == KIND_INT8) return launch_fused_kind<T, KIND_INT8>(a, design, s);
-  if (kind == KIND_INT4) return launch_fused_kind<T, KIND_INT4>(a, design, s);
-  if (kind == KIND_FP8) return launch_fused_kind<T, KIND_FP8>(a, design, s);
+int launch_fused(int kind, FusedArgs& a, cudaStream_t s) {
+  if (kind == KIND_INT8) return launch_fused_kind<T, KIND_INT8>(a, s);
+  if (kind == KIND_INT4) return launch_fused_kind<T, KIND_INT4>(a, s);
+  if (kind == KIND_FP8) return launch_fused_kind<T, KIND_FP8>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -657,7 +666,7 @@ extern "C" int dstpu_dequantize(int kind, int out_dtype, const void* payload,
 extern "C" int dstpu_kv_append_dequantize(
     int dtype, int kind, const void* k, const void* v, const void* page,
     const void* offset, void* kv, void* scales, void* out, const void* table,
-    long long rows, int ntok, int nkv, int hd, int bs, int W, int design,
+    long long rows, int ntok, int nkv, int hd, int bs, int W,
     void* released, unsigned long long* target, void* stream) {
   if (hd % 8 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
   if (rows <= 0 || rows * hd >= (1ll << 31)) return (int)cudaErrorInvalidValue;
@@ -669,9 +678,9 @@ extern "C" int dstpu_kv_append_dequantize(
               static_cast<unsigned long long*>(released), *target, 0u};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = (int)cudaErrorInvalidValue;
-  if (dtype == 0) rc = launch_fused<float>(kind, a, design, s);
-  if (dtype == 1) rc = launch_fused<__nv_bfloat16>(kind, a, design, s);
-  if (dtype == 2) rc = launch_fused<__half>(kind, a, design, s);
+  if (dtype == 0) rc = launch_fused<float>(kind, a, s);
+  if (dtype == 1) rc = launch_fused<__nv_bfloat16>(kind, a, s);
+  if (dtype == 2) rc = launch_fused<__half>(kind, a, s);
   if (rc == 0) *target = a.target;
   return rc;
 }

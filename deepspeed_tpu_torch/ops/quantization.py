@@ -229,7 +229,7 @@ def _lib() -> ctypes.CDLL:
         lib.dstpu_dequantize.argtypes = [I, I, P, P, P, L, I, I, P]
         lib.dstpu_dequantize.restype = I
         lib.dstpu_kv_append_dequantize.argtypes = [
-            I, I, P, P, P, P, P, P, P, P, L, I, I, I, I, I, I, P,
+            I, I, P, P, P, P, P, P, P, P, L, I, I, I, I, I, P,
             ctypes.POINTER(ctypes.c_ulonglong), P]
         lib.dstpu_kv_append_dequantize.restype = I
         lib.dstpu_cuda_error_string.argtypes = [I]
@@ -513,12 +513,9 @@ def kv_quantize_append(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
     LAUNCHES["kv_quantize_append"] += 1
 
 
-# kv_append_dequantize's dequantize widths (csrc/quantization.cu K4: 4 or
-# 8 values a lane) and the one the forwards take
-FUSED_DESIGNS = {"vec4": 0, "vec8": 1}
-DEFAULT_FUSED_DESIGN = "vec8"
-# per (device, stream): a uint64 count of released appender blocks that
-# only grows, and the value the last launch made it reach
+# kv_append_dequantize's order (csrc/quantization.cu K4), per (device,
+# stream): a uint64 count of released appender blocks that only grows,
+# and the value the last launch made it reach
 _RELEASED: Dict[Tuple[int, int],
                 Tuple[torch.Tensor, ctypes.c_ulonglong]] = {}
 
@@ -527,8 +524,8 @@ def kv_append_dequantize(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
                          page: torch.Tensor, offset: torch.Tensor,
                          k: torch.Tensor, v: torch.Tensor, bits,
                          out: torch.Tensor,
-                         block_table: Optional[torch.Tensor] = None,
-                         design: str = DEFAULT_FUSED_DESIGN) -> torch.Tensor:
+                         block_table: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """``kv_quantize_append`` then the layer's ``dequantize``, in one
     launch: the step's K and V quantized into the pool in place (as
     ``kv_quantize_append``), then the pool read back into ``out`` in
@@ -537,7 +534,9 @@ def kv_append_dequantize(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
     out  [nb, bs, 2, nkv, head_dim] (the whole layer pool), or with
          ``block_table`` [S, Bm] that table's pages, [S, Bm, bs, 2, nkv,
          head_dim]
-    The other arguments as ``kv_quantize_append``. Returns ``out``."""
+    The other arguments as ``kv_quantize_append``. Returns ``out``. Each
+    launch waits for a count the host passes it, so it cannot be captured
+    into a CUDA graph (a replay would wait for a stale count)."""
     kind = _check_append(kv_layer, kv_scales, page, offset, k, v, bits)
     nb, bs, _, nkv, W = kv_layer.shape
     hd = k.shape[-1]
@@ -556,6 +555,9 @@ def kv_append_dequantize(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
         raise ValueError(f"kv_append_dequantize takes a head_dim that is a "
                          f"multiple of 8, at most 256 (got {hd}), and an out "
                          f"of fewer than 2^31 values")
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("kv_append_dequantize cannot be captured into a "
+                           "CUDA graph")
     page = page.reshape(-1).long()
     offset = offset.reshape(-1).long()
     if block_table is not None:
@@ -572,8 +574,7 @@ def kv_append_dequantize(kv_layer: torch.Tensor, kv_scales: torch.Tensor,
         kv_scales.data_ptr(), out.data_ptr(),
         None if block_table is None else block_table.data_ptr(),
         out.numel() // hd, page.numel(), nkv, hd, bs, W,
-        FUSED_DESIGNS[design], released.data_ptr(), ctypes.byref(target),
-        stream)
+        released.data_ptr(), ctypes.byref(target), stream)
     _raise_on(rc, "kv_append_dequantize")
     LAUNCHES["kv_append_dequantize"] += 1
     return out

@@ -860,13 +860,12 @@ def test_dequantize_kernel_matches_plain(card, bits, out_dtype):
     assert torch.equal(odd, qz.dequantize_plain(part, sc, out_dtype))
 
 
-@pytest.mark.parametrize("design", ["vec4", "vec8"])
 @pytest.mark.parametrize("mode", ["pool", "table"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("bits", [8, 4, "fp8"])
 @pytest.mark.parametrize("ntok", [16, 256])
 def test_kv_append_dequantize_kernel_matches_plain(card, ntok, bits, dtype,
-                                                   mode, design):
+                                                   mode):
     """The fused append and dequantize at the decode (16 tokens) and
     prefill (256) shapes, into the whole 2048-page pool or through a
     16 x 48 block table that reads pages the step appends to, bit for
@@ -910,7 +909,7 @@ def test_kv_append_dequantize_kernel_matches_plain(card, ntok, bits, dtype,
                                           bits, out, table)
         else:
             got = qz.kv_append_dequantize(pool, sc, page, offset, k, v,
-                                          bits, out, table, design=design)
+                                          bits, out, table)
             assert got is out
             assert qz.LAUNCHES["kv_append_dequantize"] == before + 1
         outs.append(out)

@@ -471,3 +471,40 @@ def test_zeropp_master_layout_is_jax_flat_blocks():
     want = torch.zeros(256)
     want[:44] = torch.arange(256, 300, dtype=torch.float32)
     assert torch.equal(blk, want)
+
+
+@pytest.mark.parametrize("step", [1, 2, 3, 50])
+def test_zeropp_adamw_is_jax_step_update_bit_for_bit(step):
+    """The stage 1-2 update on the same fp32 (master, m, v, g) equals the
+    update of JAX's ZeRO++ step (``_local_step_inner``'s expression,
+    jitted as XLA's CPU compile runs it), bit for bit: its fused
+    multiply-adds, ``m / (bc1 * (sqrt(v / bc2) + eps))``, the float
+    exponent of the bias corrections, the correctly rounded sqrt."""
+    b1, b2, eps, wd, lr = 0.9, 0.999, 1e-8, 0.01, 1e-2
+    rng = np.random.default_rng(step)
+    n = 1 << 14
+    mm = (rng.standard_normal(n) * 0.05).astype(np.float32)
+    m = (rng.standard_normal(n) * 1e-4).astype(np.float32)
+    v = (np.abs(rng.standard_normal(n)) * 1e-8).astype(np.float32)
+    g = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+
+    @jax.jit
+    def jax_update(mm, m, v, g, step, lr):
+        # deepspeed_tpu/runtime/zeropp.py, the per-leaf update
+        mi = b1 * m + (1 - b1) * g
+        vi = b2 * v + (1 - b2) * g * g
+        mhat = mi / (1 - b1 ** step.astype(jnp.float32))
+        vhat = vi / (1 - b2 ** step.astype(jnp.float32))
+        upd = lr * (mhat / (jnp.sqrt(vhat) + eps) + wd * mm)
+        return mm - upd, mi, vi
+
+    want = [np.asarray(x) for x in jax_update(
+        mm, m, v, g, jnp.asarray(step, jnp.int32),
+        jnp.asarray(lr, jnp.float32))]
+    master, st = torch.from_numpy(mm.copy()), {
+        "mu": torch.from_numpy(m.copy()), "nu": torch.from_numpy(v.copy())}
+    zeropp.adamw({}, None, lr).update_leaf("w", master, torch.from_numpy(g),
+                                           st, step, lr)
+    for got, ref in zip((master, st["mu"], st["nu"]), want):
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      ref.view(np.uint32))
