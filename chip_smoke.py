@@ -1599,13 +1599,14 @@ def check_kv_append(torch, qz, timer, bits, ntok, dtype):
 
 def check_kv_append_dequant(torch, qz, timer, bits, ntok, mode):
     """K4, the KV append folded into the layer's dequantize: into the
-    2048 x 16 layer pool (mode "pool", the paged forwards) or through a MAX_SEQS x MAX_BLOCKS table that reads pages
-    the step appends to (mode "table", the gather forward), against its
-    plain version (K2's, then K3's of the pool or of the table's pages)
-    bit for bit outside the scratch page, where the 3 padding tokens'
-    writes race. Timed, flushed and back to back, against the two
-    launches it replaces: 6a then 6b on the pool, or 6a then the gather
-    forward's page copy and 6b."""
+    2048 x 16 layer pool (mode "pool", the paged forwards) or through a
+    MAX_SEQS x MAX_BLOCKS table that reads pages the step appends to
+    (mode "table", the gather forward), against its plain version (K2's,
+    then K3's of the pool or of the table's pages) bit for bit outside
+    the scratch page, where the 3 padding tokens' writes race. Timed,
+    flushed and back to back, against the two launches it replaces: 6a
+    then 6b on the pool, or 6a then the gather forward's page copy and
+    6b."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(80 + ntok)
     W = HD // 2 if bits == 4 else HD
@@ -1628,7 +1629,7 @@ def check_kv_append_dequant(torch, qz, timer, bits, ntok, mode):
         table = torch.randperm(KV_BLOCKS - 1, generator=gen, device="cuda")[
             :MAX_SEQS * MAX_BLOCKS].reshape(MAX_SEQS, MAX_BLOCKS)
         table[:, 0] = slots[:MAX_SEQS] // BS  # pages the step appends to
-        table[1, 1] = table[0, 0]      # one read twice
+        table[1, 1] = table[0, 0]  # one read twice
         lead = tuple(table.shape)
 
     def fresh():

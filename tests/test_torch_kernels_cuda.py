@@ -12,9 +12,10 @@ kernel, fp32 the scalar one; the variant counters must say which ran and
 two launches must give the same bits), at odd sizes (the scalar kernel)
 and from a misaligned bf16 view (the scalar kernel); and the
 quantize kernels (blockwise quantize, KV quantize-on-append, dequantize,
-and the fused append and dequantize) at Llama-3-8B shapes, held to their plain versions bit for bit (every
-operation is one IEEE-rounded step in both), with exact .5 ties, all-zero
-blocks and values at the edges of the grid among the inputs; and the
+and the fused append and dequantize) at Llama-3-8B shapes, held to
+their plain versions bit for bit (every operation is one IEEE-rounded
+step in both), with exact .5 ties, all-zero blocks and values at the
+edges of the grid among the inputs; and the
 block-sparse forward over the five layout modes, layout blocks 16 to
 256, a ragged S, GQA 32/8 and 32/32, and a custom layout with an empty
 row.

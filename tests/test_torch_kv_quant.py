@@ -118,7 +118,7 @@ def test_unquantized_pool_stays_a_bare_tensor():
     assert scales is None and payload.shape == (2, 2, 4, 2, 2, 16)
 
 
-# -- the fused append and dequantize -------------------------------------------
+# -- the fused append and dequantize ------------------------------------------
 
 
 def _fused_case(bits, dtype, seed=21):
