@@ -196,7 +196,7 @@ Phases, each fatal on failure:
                Llama-3-8B at full width, as deep as the host holds (12
                bytes of host state a parameter against MemAvailable and
                the command's 96 GiB, less 6 GB: the cut and its
-               reckoning are printed; 32 layers need 96.4 GB), cut to 8
+               reckoning are printed; 32 layers need 96.4 GB), cut to 4
                layers for the run's time limit, bf16 on
                fp32 host masters, AdamW lr 3e-4, ZeRO-3 config, clip 1.0,
                ``offload_optimizer`` cpu with pinned staging, micro 2 x
@@ -234,7 +234,7 @@ Phases, each fatal on failure:
                11a: Llama-3-8B at full width as deep as host and card
                hold (16 bytes a parameter of host state, 10 / 8 on the
                card at init / in training; both reckonings and the cut
-               printed), cut to 8 layers for the run's time limit; one interval of warm-up (the first selection and
+               printed), cut to 4 layers for the run's time limit; one interval of warm-up (the first selection and
                the first ship: a fold needs a pass shipped an interval
                earlier), then two measured intervals (gates: finite,
                falling losses; flash launches as remat implies, all
@@ -433,14 +433,42 @@ Phases, each fatal on failure:
                no gmm launch, the dropped share of one forward of the
                trained model; at 4.0 nothing dropped and one MoE layer
                within the bf16 row limit 3e-2 of the grouped path.
-Then it prints the kernels line, the serve, profile, train, train
+  18. tp      — last, when this process holds no model: tensor
+               parallelism at tp 2, two processes of this script
+               (``--tp-rank R DIR``) joined by gloo on the one card (NCCL
+               refuses two ranks a card; gloo copies each collective
+               through the host, so no wall here speaks for NVLink),
+               each probing which collectives gloo takes on card
+               tensors. 18a: full-width, full-depth Llama-3-8B bf16, each
+               rank built as its slice of phase 3's seeded model (16
+               query and 4 kv heads), ``InferenceEngineV2`` on phase 3's
+               8 requests: the ranks' streams equal, the first prefill
+               step's last-row logits (each prompt's first 64 tokens)
+               within a row error of 3e-2 of phase 3's, every paged
+               launch on the split / wgmma kernel at 16 / 4 heads and a
+               pool of 4 kv heads; the share of tokens equal to phase 3's
+               printed. 18b: 2 layers at micro 2 x GAS 2 x 2048 over
+               phase 4's fixed batches, bf16 on fp32 masters,
+               ``partition_activations`` on, 3 steps: losses within 2e-2
+               of the same run at tp 1 in this process, the flash
+               launches what remat implies, all wgmma at 16 / 4 heads of
+               128; step walls and tokens/s printed. 18c: 2-layer
+               Mixtral-8x7B with tp-split experts (F 7168 a rank), one
+               step within 2e-2 of phase 6's first loss, the routing
+               digest 0, gmm at F 7168, every grouped matmul on wgmma;
+               then a 16-token serve of two requests (the ranks' streams
+               equal). Phase 2 checks the paged kernels and the flash
+               kernels at 16 / 4 heads too.
+Each phase's wall is logged as it ends and printed with the run's
+seconds. Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
 quant serve, quant serve profile, sparse forward, sparse forward profile
 sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
 checkpoint, optimizer sweep, spec serve, draft model, verify-shape
 prefill, A4, kernel bench, v1 engine, zero, observability,
-observability serve, a11 and zeropp lines, the run's seconds,
+observability serve, a11, zeropp and tp lines, the run's seconds
+and phase walls,
 the card's name
 and power limit (nvidia-smi), and, last, the device line.
 
@@ -448,6 +476,7 @@ Exits non-zero with no result when there is no CUDA device or when the
 package is not beside it.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -496,9 +525,12 @@ KV_BLOCKS, MAX_BLOCKS, MAX_SEQS, MAX_TOKENS = 2048, 48, 16, 256
 NEW_TOKENS, DECODE_STEPS, SEED = 64, 8, 0
 FLASH_CASES = {  # B, S, Hq, Hkv, D, causal, segment lengths
     "smoke": (2, 2048, 32, 8, 128, True, None),
+    # a tp = 2 rank's share of the smoke shape's heads (phase 18)
+    "tp2": (2, 2048, 16, 4, 128, True, None),
     "odd": (1, 1000, 4, 4, 128, False, (400, 350, 250)),
     "hd64": (2, 300, 8, 2, 64, True, None),
 }
+FLASH_TIMED = ("smoke", "tp2")
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_MICRO, TRAIN_GAS, TRAIN_MEASURED = \
     8, 2048, 2, 2, 4
 TRAIN_CONFIG = {
@@ -640,11 +672,12 @@ CKPT_SMALL_VOCAB = 16384
 # phase 10: ZeRO-Offload (fp32 masters and AdamW moments on the host,
 # the native CPU Adam). 10a: Llama-3-8B at full width and as deep as the
 # host holds (12 bytes of host state a parameter), cut to
-# OFFLOAD_MAX_LAYERS for the run's time limit (the host held 28), micro
+# OFFLOAD_MAX_LAYERS for the run's time limit (the host held 28; 8 until
+# phase 18 joined), micro
 # 2 x GAS 1 x 2048 over phase 4's fixed batches, 1 warm-up and 3
 # measured steps; 10b / 10c: phase 9's 1 layer, 3 steps a tier, 2
 # resumed steps
-OFFLOAD_MAX_LAYERS = 8
+OFFLOAD_MAX_LAYERS = 4
 OFFLOAD_MICRO, OFFLOAD_MEASURED, OFFLOAD_SMALL_STEPS, OFFLOAD_RESUMED = \
     2, 3, 3, 2
 OFFLOAD_CONFIG = dict(TRAIN_CONFIG,
@@ -674,8 +707,9 @@ OFFLOAD_TOL_REL = 3e-3
 # step at 11a's depth, 1 warm-up and 2 steps; 11c: phase 9's 1 layer at
 # interval 2 and select 4, saved at step 3, 3 resumed steps; 11d: each
 # optimizer for 3 steps at 2 layers, micro 2 x GAS 1. 11a's depth is cut
-# to ZENFLOW_MAX_LAYERS for the run's time limit (the host held 20)
-ZENFLOW_MAX_LAYERS = 8
+# to ZENFLOW_MAX_LAYERS for the run's time limit (the host held 20; 8
+# until phase 18 joined)
+ZENFLOW_MAX_LAYERS = 4
 SWEEP_LAYERS = 2
 ZENFLOW_BLOCK = {"topk_ratio": 0.01, "update_interval": 4,
                  "select_interval": 16, "overlap_step": True}
@@ -1037,7 +1071,20 @@ def time_decode(torch, pa, timer, res, q, kv, bt, ctx, ctx_np):
     return res
 
 
-def check_decode(torch, pa, timer, dtype, S=MAX_SEQS):
+@contextlib.contextmanager
+def head_counts(nh, nkv):
+    """The paged-kernel checks at another head count: a tp rank's share
+    of the model's heads (phase 2's 16 / 4 rows)."""
+    global NH, NKV
+    saved = NH, NKV
+    NH, NKV = nh, nkv
+    try:
+        yield
+    finally:
+        NH, NKV = saved
+
+
+def check_decode(torch, pa, timer, dtype, S=MAX_SEQS, long_context=True):
     rng = np.random.default_rng(10)
     kv, bt = make_pool(torch, rng, dtype, S)
     ctx_np = rng.integers(1, MAX_BLOCKS * BS + 1, S).astype(np.int32)
@@ -1050,6 +1097,8 @@ def check_decode(torch, pa, timer, dtype, S=MAX_SEQS):
     if dtype != torch.bfloat16:
         return res
     time_decode(torch, pa, timer, res, q, kv, bt, ctx, ctx_np)
+    if not long_context:
+        return res
     # the long contexts, every slot full, from the same pool
     res["long_context"] = {}
     for case, (S_l, n) in DECODE_LONG.items():
@@ -1276,7 +1325,7 @@ def check_flash(torch, fa, timer, dtype, case):
         if res[kern]["max_row_rel_err"] > GRAD_TOL_REL[name]:
             fail(f"{kern} {name} {case}: {res[kern]} over "
                  f"{GRAD_TOL_REL[name]} of a gradient row's largest entry")
-    if not (dtype == torch.bfloat16 and case == "smoke"):
+    if not (dtype == torch.bfloat16 and case in FLASH_TIMED):
         return res
 
     B, S, hq, hkv, D, _, _ = FLASH_CASES[case]
@@ -6064,6 +6113,461 @@ def stream_phase(torch, zoo, initialize, fa, tf, ps, memspace, ref):
     return line, launches
 
 
+# -- phase 18: tensor parallelism, two ranks on the one card ------------------
+# Two processes, one tp rank each, joined by gloo on the one H100 (NCCL
+# refuses two ranks on one card): gloo copies each collective through
+# the host, so nothing here says what NVLink would give. 18a: full-width, full-depth Llama-3-8B bf16 at tp 2 (16 / 4
+# heads a rank) serving phase 3's 8 requests; 18b: phase 12d's 2 layers
+# trained at tp 2 with partition_activations, against the same run at tp
+# 1 in the parent; 18c: 2-layer Mixtral-8x7B at tp 2 (F 7168 a rank),
+# one step against phase 6's first and a short serve.
+
+TP = 2
+TP_TRAIN_LAYERS, TP_TRAIN_STEPS = 2, 3
+TP_TRAIN_CONFIG = dict(TRAIN_CONFIG, activation_checkpointing={
+    "partition_activations": True})
+# bf16 at tp 2 adds the row-parallel partial sums in another order than
+# one rank does: the losses within 2e-2, the first prefill's logits within
+# phase 2's bf16 row-error scale
+TP_LOSS_TOL_REL, TP_LOGIT_ROW_TOL = 2e-2, 3e-2
+TP_ROWS_TQ = 64  # the shortest of phase 3's prompts
+TP_RANK_TIMEOUT_S = 600
+TP_MOE_SERVE_TOKENS = 16
+
+
+def prefill_rows(torch, model_runner, sharding, cfg, params, prompts, nkv):
+    """Each prompt's first TP_ROWS_TQ tokens through one paged prefill
+    step on a fresh pool: the last row's fp32 logits [8, V] on the host
+    (at tp > 1 this rank's vocab slice of each row, gathered whole)."""
+    S, nblk = len(prompts), TP_ROWS_TQ // BS
+    toks = torch.from_numpy(np.stack([p[:TP_ROWS_TQ] for p in prompts])
+                            ).cuda()
+    bt = torch.arange(S * nblk, dtype=torch.int32,
+                      device="cuda").reshape(S, nblk)
+    pool = torch.zeros((cfg.num_layers, S * nblk + 1, BS, 2, nkv, HD),
+                       dtype=cfg.dtype, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    logits, _ = model_runner.ragged_prefill_forward(
+        cfg, params, pool, toks, torch.zeros(S, **i32),
+        torch.full((S,), TP_ROWS_TQ, **i32), bt, gather_logits=False)
+    rows = sharding.tp_gather(logits[:, -1].contiguous())
+    return rows.float().cpu().numpy()
+
+
+def tp_train_reference(torch, zoo, initialize):
+    """18b's run at tp 1 in this process: the losses of 3 steps."""
+    torch.cuda.empty_cache()
+    model = zoo.get_model("llama3-8b", num_layers=TP_TRAIN_LAYERS,
+                          dtype=torch.float32, seed=SEED)
+    engine, *_ = initialize(model=model, config=dict(TP_TRAIN_CONFIG))
+    _, data = fixed_batches(model.config.vocab_size)
+    losses = [float(engine.train_batch(data))
+              for _ in range(TP_TRAIN_STEPS)]
+    del engine, model
+    torch.cuda.empty_cache()
+    return losses
+
+
+class _Recorder:
+    """Wraps a module function to record a key of each call's arguments
+    (a check beside the launch counts, which the wrappers keep)."""
+
+    def __init__(self, module, name, key):
+        self.module, self.name, self.key = module, name, key
+        self.fn = getattr(module, name)
+        self.seen = set()
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        self.seen.add(self.key(*args))
+        return self.fn(*args, **kwargs)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+        return sorted(self.seen)
+
+
+def tp_serve_rank(torch, zoo, InferenceEngineV2, model_runner, pa,
+                  sharding, topo, mesh, rank):
+    """18a on this rank: returns its streams, launches and the first
+    prefill step's last-row logits (gathered)."""
+    heads = [_Recorder(model_runner, n, lambda q, kv, *a, n=n: (
+        n, int(q.shape[-2]), int(kv.shape[-2])))
+        for n in ("paged_decode_attention", "paged_prefill_attention")]
+    t0 = time.perf_counter()
+    model = zoo.get_model("llama3-8b", device="cuda", seed=SEED,
+                          tp=(rank, TP))
+    build_s = time.perf_counter() - t0
+    eng = serve_engine(torch, InferenceEngineV2, model, mesh=mesh)
+    prompts = prompts_for(SEED + 1)
+    pa.reset_launch_counts()
+    out, wall = serve_workload(torch, eng, prompts)
+    launches = {**pa.LAUNCHES, **pa.VARIANT_LAUNCHES}
+    with topo.use_mesh(mesh):
+        rows = prefill_rows(torch, model_runner, sharding, model.config,
+                            model.params(), prompts, NKV // TP)
+    shapes = [h.restore() for h in heads]
+    gen = sum(len(v) for v in out.values())
+    line = {"streams": {str(k): v for k, v in out.items()},
+            "wall_s": wall, "generated_tokens_per_s": gen / wall,
+            "build_s": build_s, "launches": launches,
+            "kernel_heads": shapes, "pool_kv_heads": int(
+                eng.kv_cache.data.shape[4]),
+            "stats": {k: eng.stats[k] for k in (
+                "prefill_kernel_steps", "decode_kernel_steps",
+                "burst_steps", "prefill_gather_fallbacks")},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng, model
+    torch.cuda.empty_cache()
+    return line, rows
+
+
+def tp_train_rank(torch, zoo, initialize, fa, tf, mesh, rank):
+    """18b on this rank: 3 steps of 2-layer Llama-3-8B at tp 2."""
+    torch.cuda.reset_peak_memory_stats()
+    heads = _Recorder(tf, "multi_head_attention", lambda q, k, v: (
+        int(q.shape[-2]), int(k.shape[-2]), int(q.shape[-1])))
+    model = zoo.get_model("llama3-8b", device="cuda",
+                          num_layers=TP_TRAIN_LAYERS, dtype=torch.float32,
+                          seed=SEED, tp=(rank, TP))
+    engine, *_ = initialize(model=model, config=dict(TP_TRAIN_CONFIG),
+                            mesh=mesh)
+    _, data = fixed_batches(model.config.vocab_size)
+    fa.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(TP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(data)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    tokens = TRAIN_MICRO * TRAIN_GAS * TRAIN_SEQ
+    p50 = float(np.median(step_s))
+    line = {"losses": losses, "step_s": step_s, "step_ms_p50": p50 * 1e3,
+            "tokens_per_s": tokens / p50, "tokens_per_step": tokens,
+            "launches": {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES},
+            "attention_heads": heads.restore(),
+            "local_wq": list(engine.params["layers"]["attn"]["wq"].shape),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del engine, model
+    torch.cuda.empty_cache()
+    return line
+
+
+def tp_moe_rank(torch, zoo, initialize, InferenceEngineV2, fa, gm, moe,
+                mesh, rank):
+    """18c on this rank: one step of 2-layer Mixtral-8x7B with tp-split
+    experts, then a short serve of the bf16 model."""
+    torch.cuda.reset_peak_memory_stats()
+    digests = []
+    core = moe._dropless_shard_core
+
+    def recorded_core(*args, **kwargs):
+        out, stats = core(*args, **kwargs)
+        digests.append(stats["dispatch_digest_mismatch"])
+        return out, stats
+
+    moe._dropless_shard_core = recorded_core
+    widths = _Recorder(moe, "gmm", lambda lhs, rhs, *a: tuple(
+        int(d) for d in rhs.shape))
+    model = zoo.get_model("mixtral-8x7b", device="cuda",
+                          num_layers=MOE_TRAIN_LAYERS, dtype=torch.float32,
+                          seed=SEED, tp=(rank, TP))
+    engine, *_ = initialize(model=model, config=dict(MOE_TRAIN_CONFIG),
+                            mesh=mesh)
+    _, data = fixed_batches(model.config.vocab_size, MOE_TRAIN_MICRO)
+    fa.reset_launch_counts()
+    gm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(engine.train_batch(data))
+    torch.cuda.synchronize()
+    train = {"loss": loss, "step_s": time.perf_counter() - t0,
+             "launches": {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES,
+                          **gm.LAUNCHES, **gm.VARIANT_LAUNCHES},
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del engine, model
+    torch.cuda.empty_cache()
+    model = zoo.get_model("mixtral-8x7b", device="cuda",
+                          num_layers=MOE_TRAIN_LAYERS, seed=SEED,
+                          tp=(rank, TP))
+    eng = InferenceEngineV2(model, kv_blocks=256, kv_block_size=BS,
+                            max_tokens_per_step=MAX_TOKENS,
+                            max_seqs_per_step=4, max_blocks_per_seq=MAX_BLOCKS,
+                            decode_steps=DECODE_STEPS, mesh=mesh)
+    prompts = prompts_for(SEED + 1, MOE_VOCAB)[1:3]
+    gm.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.put([0, 1], prompts, max_new_tokens=TP_MOE_SERVE_TOKENS)
+    out = eng.generate_all()
+    torch.cuda.synchronize()
+    serve = {"streams": {str(k): v for k, v in out.items()},
+             "wall_s": time.perf_counter() - t0,
+             "launches": {**gm.LAUNCHES, **gm.VARIANT_LAUNCHES}}
+    moe._dropless_shard_core = core
+    mismatch = float(torch.stack(digests).max()) if digests else None
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"train": train, "serve": serve, "gmm_rhs_shapes":
+            widths.restore(), "dispatch_digest_mismatch": mismatch,
+            "dispatch_calls": len(digests)}
+
+
+def probe_gloo_cuda(torch):
+    """Which collectives gloo takes on card tensors (the port hands it
+    card tensors): op -> "ok" or the error's first line."""
+    import torch.distributed as dist
+
+    x = torch.ones(8, device="cuda")
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_bf16": lambda: dist.all_reduce(x.bfloat16()),
+        "all_gather_into_tensor_bf16": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * TP, device="cuda", dtype=torch.bfloat16),
+            x.bfloat16()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * TP, device="cuda"), x.clone()),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // TP, device="cuda"), x.clone()),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(8, device="cuda"), x.clone()),
+    }
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 (recorded, not hidden)
+            out[name] = (str(e).strip().splitlines() or [repr(e)])[0][:200]
+        dist.barrier()
+    return out
+
+
+def tp_rank_main(rank, workdir):
+    """One tp rank of phase 18 (``chip_smoke.py --tp-rank R DIR``): joins
+    the gloo group of TP ranks through a file store under DIR, runs
+    18a-c and writes what it measured to DIR/out_R.json."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.inference import InferenceEngineV2, model_runner
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.parallel import moe
+    from deepspeed_tpu_torch.parallel import topology as topo
+    from deepspeed_tpu_torch.runtime import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(
+        dist_backend="gloo", device="cuda", num_processes=TP,
+        process_id=rank, timeout=TP_RANK_TIMEOUT_S,
+        init_method="file://" + os.path.join(workdir, "store"))
+    mesh = topo.build_mesh({"tp": TP, "dp": 1})
+    res = {"rank": rank, "backend": comm.get_backend(),
+           "gloo_cuda": probe_gloo_cuda(torch)}
+    log(f"tp rank {rank}: gloo on card tensors {res['gloo_cuda']}")
+    try:
+        t0 = time.perf_counter()
+        res["serve"], rows = tp_serve_rank(
+            torch, zoo, InferenceEngineV2, model_runner, pa, sharding, topo,
+            mesh, rank)
+        np.save(os.path.join(workdir, f"rows_{rank}.npy"), rows)
+        t1 = time.perf_counter()
+        res["train"] = tp_train_rank(torch, zoo, initialize, fa, tf, mesh,
+                                     rank)
+        t2 = time.perf_counter()
+        res["moe"] = tp_moe_rank(torch, zoo, initialize, InferenceEngineV2,
+                                 fa, gm, moe, mesh, rank)
+        res["walls_s"] = {"18a": t1 - t0, "18b": t2 - t1,
+                          "18c": time.perf_counter() - t2}
+    finally:
+        with open(os.path.join(workdir, f"out_{rank}.json"), "w") as f:
+            json.dump(res, f)
+        comm.destroy()
+    return 0
+
+
+def tp_phase(torch, zoo, initialize, ref_rows, ref_out, moe_first_loss):
+    """Phase 18 (the parent holds no model): the tp-1 train reference,
+    then TP ranks of this script on the card. Gates on what they
+    measured; returns (the line, launches by path)."""
+    t0 = time.perf_counter()
+    ref_losses = tp_train_reference(torch, zoo, initialize)
+    ref_s = time.perf_counter() - t0
+    workdir = tempfile.mkdtemp(prefix="dstpu_tp_")
+    procs, logs = [], []
+    try:
+        for rank in range(TP):
+            log_f = open(os.path.join(workdir, f"rank{rank}.log"), "w")
+            logs.append(log_f)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank",
+                 str(rank), workdir], stdout=log_f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
+        failed = None
+        for rank, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {rank} still running at its deadline"
+                break
+            if rc != 0 and failed is None:
+                failed = f"rank {rank} exited with {rc}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log_f in logs:
+            log_f.close()
+    tails = []
+    for rank in range(TP):
+        with open(os.path.join(workdir, f"rank{rank}.log")) as f:
+            tails.append(f"--- tp rank {rank}\n" + f.read()[-4000:])
+    if failed is not None:
+        fail(f"tp: {failed}\n" + "\n".join(tails))
+    ranks = []
+    for rank in range(TP):
+        with open(os.path.join(workdir, f"out_{rank}.json")) as f:
+            ranks.append(json.load(f))
+    rows = [np.load(os.path.join(workdir, f"rows_{r}.npy"))
+            for r in range(TP)]
+    shutil.rmtree(workdir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+
+    # 18a
+    serves = [r["serve"] for r in ranks]
+    streams = serves[0]["streams"]
+    if any(s["streams"] != streams for s in serves[1:]):
+        fail("tp serve: the ranks' streams differ")
+    if sorted(streams) != [str(u) for u in range(8)] or any(
+            len(v) != NEW_TOKENS for v in streams.values()):
+        fail(f"tp serve: token counts {[len(v) for v in streams.values()]}")
+    row_err = float(np.max(np.abs(rows[0] - ref_rows).max(-1)
+                           / np.abs(ref_rows).max(-1)))
+    if not np.array_equal(rows[0], rows[1]) or not np.isfinite(row_err) \
+            or row_err > TP_LOGIT_ROW_TOL:
+        fail(f"tp serve: first prefill logits row error {row_err} over "
+             f"{TP_LOGIT_ROW_TOL} of phase 3's (or the ranks differ)")
+    same = sum(int(a == b) for u in range(8)
+               for a, b in zip(streams[str(u)], ref_out[u]))
+    for s in serves:
+        lc = s["launches"]
+        check_tensor_core("tp serve", lc, lc, ("paged_prefill",
+                                               "paged_decode"))
+        if min(lc["paged_prefill"], lc["paged_decode"]) <= 0:
+            fail(f"tp serve: a paged kernel never launched: {lc}")
+        want = [["paged_decode_attention", NH // TP, NKV // TP]]
+        if s["kernel_heads"] != [want, [["paged_prefill_attention",
+                                         NH // TP, NKV // TP]]] \
+                or s["pool_kv_heads"] != NKV // TP:
+            fail(f"tp serve: kernels at heads {s['kernel_heads']}, pool "
+                 f"{s['pool_kv_heads']}; a rank's share is "
+                 f"{NH // TP} / {NKV // TP}")
+    # 18b
+    trains = [r["train"] for r in ranks]
+    losses = trains[0]["losses"]
+    if trains[1]["losses"] != losses:
+        fail("tp train: the ranks' losses differ")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if not np.all(np.isfinite(losses)) or loss_rel > TP_LOSS_TOL_REL:
+        fail(f"tp train: losses {losses} against tp 1's {ref_losses}")
+    L, steps = TP_TRAIN_LAYERS, TP_TRAIN_STEPS
+    want = {"flash_fwd": steps * 2 * L * TRAIN_GAS,
+            "flash_bwd_dkdv": steps * L * TRAIN_GAS,
+            "flash_bwd_dq": steps * L * TRAIN_GAS}
+    for t in trains:
+        lc = t["launches"]
+        if {k: lc[k] for k in want} != want:
+            fail(f"tp train: flash launches {lc}, remat implies {want}")
+        check_tensor_core("tp train", lc, lc, tuple(want))
+        if t["attention_heads"] != [[NH // TP, NKV // TP, HD]]:
+            fail(f"tp train: attention at heads {t['attention_heads']}")
+    # 18c
+    moes = [r["moe"] for r in ranks]
+    moe_rel = abs(moes[0]["train"]["loss"] - moe_first_loss) / abs(
+        moe_first_loss)
+    if moes[1]["train"]["loss"] != moes[0]["train"]["loss"] or \
+            moe_rel > TP_LOSS_TOL_REL:
+        fail(f"tp moe: losses {[m['train']['loss'] for m in moes]} against "
+             f"phase 6's first {moe_first_loss}")
+    F_tp = 14336 // TP
+    for m in moes:
+        if m["dispatch_digest_mismatch"] != 0.0 or not m["dispatch_calls"]:
+            fail(f"tp moe: dispatch digests {m['dispatch_digest_mismatch']}"
+                 f" over {m['dispatch_calls']} calls")
+        widths = {tuple(w[1:]) for w in m["gmm_rhs_shapes"]}
+        if widths != {(4096, F_tp), (F_tp, 4096)}:
+            fail(f"tp moe: gmm at rhs {m['gmm_rhs_shapes']}, expected F "
+                 f"{F_tp}")
+        lc = m["train"]["launches"]
+        check_tensor_core("tp moe train", lc, lc, (
+            "gmm", "gmm_transposed", "tgmm", "flash_fwd", "flash_bwd_dkdv",
+            "flash_bwd_dq"))
+        if min(lc[k] for k in ("gmm", "gmm_transposed", "tgmm")) <= 0 or \
+                m["serve"]["launches"]["gmm"] <= 0:
+            fail(f"tp moe: grouped matmuls not launched {lc}")
+        check_tensor_core("tp moe serve", m["serve"]["launches"],
+                          m["serve"]["launches"], ("gmm",))
+    if moes[1]["serve"]["streams"] != moes[0]["serve"]["streams"]:
+        fail("tp moe serve: the ranks' streams differ")
+    tokens = TRAIN_MICRO * TRAIN_GAS * TRAIN_SEQ
+    line = {
+        "ranks": TP, "backend": ranks[0]["backend"],
+        "gloo_takes_card_tensors": ranks[0]["gloo_cuda"],
+        "note": "two ranks on one card over gloo, which copies each "
+                "collective through the host: no NVLink, no speed claim",
+        "serve": {"model": "llama3-8b", "layers": 32, "dtype": "bfloat16",
+                  "heads_per_rank": [NH // TP, NKV // TP],
+                  "wall_s": [s["wall_s"] for s in serves],
+                  "generated_tokens_per_s": [s["generated_tokens_per_s"]
+                                             for s in serves],
+                  "build_s": [s["build_s"] for s in serves],
+                  "first_prefill_row_rel_err": row_err,
+                  "tokens_equal_to_phase3": same / (8 * NEW_TOKENS),
+                  "launches": [s["launches"] for s in serves],
+                  "stats": serves[0]["stats"],
+                  "peak_mem_gb": [s["peak_mem_gb"] for s in serves]},
+        "train": {"layers": L, "micro": TRAIN_MICRO, "gas": TRAIN_GAS,
+                  "seq": TRAIN_SEQ, "partition_activations": True,
+                  "losses": losses, "tp1_losses": ref_losses,
+                  "max_loss_rel_diff": loss_rel,
+                  "step_s": [t["step_s"] for t in trains],
+                  "step_ms_p50": [t["step_ms_p50"] for t in trains],
+                  "tokens_per_s": [t["tokens_per_s"] for t in trains],
+                  "tokens_per_step": tokens,
+                  "local_wq": trains[0]["local_wq"],
+                  "launches": [t["launches"] for t in trains],
+                  "peak_mem_gb": [t["peak_mem_gb"] for t in trains],
+                  "tp1_reference_s": ref_s},
+        "moe": {"layers": MOE_TRAIN_LAYERS, "ffn_per_rank": F_tp,
+                "loss": moes[0]["train"]["loss"],
+                "phase6_first_loss": moe_first_loss,
+                "loss_rel_diff": moe_rel,
+                "dispatch_digest_mismatch": 0.0,
+                "dispatch_calls": [m["dispatch_calls"] for m in moes],
+                "gmm_rhs_shapes": moes[0]["gmm_rhs_shapes"],
+                "step_s": [m["train"]["step_s"] for m in moes],
+                "train_launches": [m["train"]["launches"] for m in moes],
+                "serve_launches": [m["serve"]["launches"] for m in moes],
+                "serve_wall_s": [m["serve"]["wall_s"] for m in moes],
+                "peak_mem_gb": [m["train"]["peak_mem_gb"] for m in moes]},
+        "walls_s": {**ranks[0]["walls_s"], "tp1_reference": ref_s,
+                    "phase": wall},
+    }
+    paths = {"tp_serve": serves[0]["launches"],
+             "tp_train": trains[0]["launches"],
+             "tp_moe_train": moes[0]["train"]["launches"],
+             "tp_moe_serve": moes[0]["serve"]["launches"]}
+    return line, paths
+
+
 def main():
     import torch
 
@@ -6091,7 +6595,7 @@ def main():
     from deepspeed_tpu_torch.parallel import moe
     from deepspeed_tpu_torch.resilience import validate_manifest
     from deepspeed_tpu_torch.runtime import offload as off_mod
-    from deepspeed_tpu_torch.runtime import param_stream
+    from deepspeed_tpu_torch.runtime import param_stream, sharding
     from deepspeed_tpu_torch.tools import kernel_bench as kb
     from deepspeed_tpu_torch.utils import memspace
 
@@ -6099,6 +6603,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = card_identity()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # each phase's wall, from the previous mark to its own
+    walls = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        walls[name] = now - t_mark[0]
+        t_mark[0] = now
+        log(f"phase {name}: {walls[name]:.1f} s")
 
     # 1. build
     t_start = t0 = time.perf_counter()
@@ -6109,6 +6623,7 @@ def main():
     for src, lines in ptxas.items():
         for line in lines:
             log(f"ptxas {src}: {line}")
+    mark("1 build")
 
     # 2. kernels
     timer = Timer(torch)
@@ -6120,6 +6635,20 @@ def main():
                                             tq, S),
                    "bfloat16": check_prefill(torch, pa, timer,
                                              torch.bfloat16, tq, S)}
+    # the same checks at a tp = 2 rank's share of the heads (phase 18)
+    with head_counts(NH // TP, NKV // TP):
+        dec_tp = {name: check_decode(torch, pa, timer, dtype,
+                                     long_context=False)
+                  for name, dtype in (("float32", torch.float32),
+                                      ("bfloat16", torch.bfloat16))}
+        pre_tp = {name: check_prefill(torch, pa, timer, dtype, 128, 4)
+                  for name, dtype in (("float32", torch.float32),
+                                      ("bfloat16", torch.bfloat16))}
+    log(f"paged kernels at {NH // TP} / {NKV // TP} heads: decode "
+        f"{dec_tp['bfloat16']['variant']} {dec_tp['bfloat16']['ms']:.4f} ms"
+        f" (bound {dec_tp['bfloat16']['bound_ms']:.4f}), prefill tq=128 "
+        f"{pre_tp['bfloat16']['variant']} {pre_tp['bfloat16']['ms']:.4f} ms"
+        f" (bound {pre_tp['bfloat16']['bound_ms']:.4f})")
     # 2b. flash kernels
     flash = {(name, case): check_flash(torch, fa, timer, dtype, case)
              for case in FLASH_CASES
@@ -6139,9 +6668,10 @@ def main():
                     f" ms ({r['bound_by']}), torch._grouped_mm "
                     f"{r['library_ms']} ms, first version (simt) "
                     f"{r['first_version_ms']:.2f} ms")
-    for kern in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
-        r = flash[("bfloat16", "smoke")][kern]
-        log(f"{kern} smoke: {r['variant']} {r['ms']:.3f} ms "
+    for kern, case in [(k, c) for c in FLASH_TIMED for k in (
+            "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")]:
+        r = flash[("bfloat16", case)][kern]
+        log(f"{kern} {case}: {r['variant']} {r['ms']:.3f} ms "
             f"({r['tflops']:.0f} TFLOP/s), bound {r['bound_ms']:.4f} ms, "
             f"SDPA {r['library_ms']:.3f} ms, first version (simt) "
             f"{r['first_version_ms']:.3f} ms, max row rel err "
@@ -6217,6 +6747,7 @@ def main():
     del timer
     torch.cuda.empty_cache()
     log("kernels agree with their plain versions")
+    mark("2 kernels")
     attn._reset_dispatch_stats()  # the main paths' dispatch from here
 
     # 3. serve: run 1 warms up and is the determinism reference; run 2
@@ -6245,6 +6776,9 @@ def main():
                       ("paged_prefill", "paged_decode"))
     agree = check_paths_agree(torch, model_runner, model, prompts)
     ref_prompts = prompts
+    # phase 18a's reference: the first prefill step's logits at tp 1
+    tp_ref_rows = prefill_rows(torch, model_runner, sharding, model.config,
+                               model.params(), prompts, NKV)
     ttft = sorted(eng.latency["ttft_s"])
     gen = sum(len(v) for v in out.values())
     prompt_tokens = sum(len(p) for p in prompts)
@@ -6277,6 +6811,7 @@ def main():
         fail("serve: the profiled run gave other streams")
     profile = device_breakdown(torch, prof, prof_wall, gen)
     del prof
+    mark("3 serve")
 
     # 8a. the block-sparse forward at full depth on the same model, before
     # phase 7's weight run quantizes it
@@ -6286,6 +6821,7 @@ def main():
     torch.cuda.empty_cache()
     log(f"sparse forward: {sparse_fwd['forward_ms_p50']:.1f} ms at S "
         f"{SPARSE_SEQ}")
+    mark("8a sparse forward")
 
     # 12a-c. speculative serving on the same model, before phase 7's
     # weight run quantizes it: prompt lookup, the repetitive set, the
@@ -6311,6 +6847,7 @@ def main():
         for k, v in {**spec_serve, **draft["runs"]}.items())
         + f"; B5 at the verify shape {pre_verify['ms']:.4f} ms; "
         f"{phase12_serve_s:.0f} s")
+    mark("12a-c spec serve")
 
     # 13. the kernel bench into a scratch table, then the v1 engine over
     # the same model with that table, before phase 7's weight run
@@ -6347,6 +6884,7 @@ def main():
         f"agreement {v1['int8_weights']['agreement_with_bf16_streams']:.3f}"
         f"; kernel bench {t13b - t13:.0f} s; phase 13 took "
         f"{phase13_s:.0f} s")
+    mark("13 kernel bench, v1")
 
     # 15c. the same serve with every request traced, before phase 7's
     # weight run quantizes the model
@@ -6360,6 +6898,7 @@ def main():
         f"{obs_serve['walls_off_on']}; phase 15c took "
         f"{obs_serve['phase_s']:.0f} s\n"
         + obs_serve["slo_markdown"])
+    mark("15c observability serve")
 
     # 7. quantized serve on the same model (its last use: the int8
     # weight run quantizes it in place)
@@ -6369,12 +6908,14 @@ def main():
     torch.cuda.empty_cache()
     log("quant serve: " + ", ".join(
         f"{k} {v['wall_s']:.2f} s" for k, v in quant_serve["runs"].items()))
+    mark("7 quant serve")
 
     # 4. train: the serve model is gone; the launch counts are read
     # around the measured steps
     train, train_profile, train_launches = train_phase(torch, zoo,
                                                        initialize, fa, tf)
     log(f"train: {train['step_ms_p50']:.1f} ms per step")
+    mark("4 train")
 
     # 9. checkpoint: save, load and a bit-identical resume; phase 4's
     # engine is gone
@@ -6386,6 +6927,7 @@ def main():
         f"{ckpt['load_validate_s']:.1f} s), async blocking "
         f"{ckpt['async_blocking_s']:.1f} s + commit "
         f"{ckpt['async_commit_s']:.1f} s; resumed bit-identical")
+    mark("9 checkpoint")
 
     # 12d. A4 on the card: the pipelined loop, a (loss_fn, params) model
     # and a client optimizer at 2 layers; phase 9's engines are
@@ -6396,6 +6938,7 @@ def main():
     log(f"a4: blocking {a4['blocking']['step_ms_p50']:.1f} ms, pipelined "
         f"{a4['pipelined']['step_ms_p50']:.1f} ms a step, losses equal; "
         f"phase 12 took {phase12_s:.0f} s")
+    mark("12d a4")
 
     # 14. ZeRO stages 0-3 on a one-rank NCCL group, at 12d's depth; the
     # group is gone before phase 10 (each stage gates its own dispatch)
@@ -6403,6 +6946,7 @@ def main():
     zero, zero_launches = zero_phase(torch, zoo, initialize, fa, tf, attn)
     log(f"zero: stages {list(zero['stages'])} equal stage 0 bit for bit, "
         f"collectives as planned; phase 14 took {zero['wall_s']:.0f} s")
+    mark("14 zero")
 
     # 17. ZeRO++, 1-bit Adam and the fp8 MLP on phase 14's model and
     # batches (a one-rank group of their own), then the einsum dispatch on
@@ -6410,6 +6954,7 @@ def main():
     zeropp, zeropp_paths = zeropp_phase(torch, zoo, initialize, fa, tf, qz,
                                         gm, moe, zero)
     log(f"zeropp: phase 17 took {zeropp['wall_s']:.0f} s")
+    mark("17 zeropp")
 
     # 15a-b. observability on the 2-layer step, on and off, and the
     # watchdog drill; phase 14's group is gone
@@ -6421,6 +6966,7 @@ def main():
         f"{obs['sync_warnings_on']} / {obs['sync_warnings_off']}; device ms "
         f"by range {json.dumps(obs['trace']['device_ms_by_range'])}; "
         f"phase 15a-b took {obs['wall_s']:.0f} s")
+    mark("15a-b observability")
 
     # 10. offload: full depth with the optimizer on the host, then the
     # tiers' parity and a checkpoint through the AIO writer; phase 9's
@@ -6437,6 +6983,7 @@ def main():
         f"s, host optimizer {split['host_optimizer_s']:.2f} s), cpu == "
         f"nvme, Fast save {offload_ckpt['save_s']:.1f} s; phase 10 took "
         f"{offload_wall:.0f} s")
+    mark("10 offload")
 
     # 16. A11's one-card parts: the checkpointing policies and the tiled
     # paths at 2 layers, FPDT at S 32768, the streamed stack at phase
@@ -6467,6 +7014,7 @@ def main():
         f"{t16c - t0:.0f} s, 16c {t16d - t16c:.0f} s, 16d "
         f"{time.perf_counter() - t16d:.0f} s; phase 16 took "
         f"{a11_wall:.0f} s")
+    mark("16 a11")
 
     # 11. ZenFlow at full depth, the blocking step beside it, its
     # checkpoint, and the optimizer sweep; phase 10's engines are gone
@@ -6486,6 +7034,7 @@ def main():
         f"{zenflow_block['step_s_mean']:.3f} s; resumed bit-identical; "
         f"sweep {[(k, v['losses'][-1]) for k, v in sweep['optimizers'].items()]}"
         f"; phase 11 took {zenflow_wall:.0f} s")
+    mark("11 zenflow")
 
     # 8b. the engine with a sparse_attention block: the micro-step loop
     # over the dataloader, then eval; phase 4's engine is gone
@@ -6502,6 +7051,23 @@ def main():
         torch, zoo, initialize, fa, gm)
     log(f"moe train: {moe_train['step_ms_p50']:.1f} ms per step; "
         f"{time.perf_counter() - t_start:.0f} s since the build began")
+    mark("8b, 5, 6")
+
+    # 18. tensor parallelism: two ranks on the card; no model is held here
+    torch.cuda.empty_cache()
+    moe_first = moe_train["losses_total_lm_aux"][0][0]
+    tp_line, tp_paths = tp_phase(torch, zoo, initialize, tp_ref_rows,
+                                 ref_out, moe_first)
+    log(f"tp: serve {tp_line['serve']['wall_s']} s, first prefill row "
+        f"error {tp_line['serve']['first_prefill_row_rel_err']:.2e}, "
+        f"{tp_line['serve']['tokens_equal_to_phase3']:.3f} of the tokens "
+        f"equal phase 3's; train losses {tp_line['train']['losses']} against"
+        f" {tp_line['train']['tp1_losses']}, step p50 "
+        f"{tp_line['train']['step_ms_p50']} ms, "
+        f"{tp_line['train']['tokens_per_s']} tokens/s; moe loss "
+        f"{tp_line['moe']['loss']:.4f} against {moe_first:.4f}; walls "
+        f"{json.dumps(tp_line['walls_s'])} (gloo on one card: no NVLink)")
+    mark("18 tp")
     dispatch["10, 11, 8b, 5, 6"] = no_card_losses(
         attn, "phases 10, 11, 8b, 5, 6")
     dispatch["14"] = {stage: line["dispatch"]
@@ -6542,12 +7108,14 @@ def main():
                 "other": other}
 
     paged_paths = {"serve": {**launches, **serve_variants},
+                   "tp_serve": tp_paths["tp_serve"],
                    "observability_serve": obs_serve_launches,
                    **spec_paths, **draft_paths,
                    "moe_serve": moe_serve_launches,
                    **{f"quant_serve/{run}": lc
                       for run, lc in quant_launches.items()}}
     other_pre = {k: v for k, v in pre[16]["bfloat16"].items()}
+    other_pre["tp_heads_16_4"] = pre_tp
     other_pre["max_abs_err_fp32"] = pre[16]["float32"]["max_abs_err"]
     other_pre["verify_shape"] = pre_verify
 
@@ -6581,7 +7149,9 @@ def main():
                     **{f"observability_{run}": lc[name]
                        for run, lc in obs_launches.items()},
                     **{run: lc[name] for run, lc in a11_paths.items()},
-                    "v1_forward": v1_paths["v1_forward"][name]},
+                    "v1_forward": v1_paths["v1_forward"][name],
+                    "tp_train": tp_paths["tp_train"][name],
+                    "tp_moe_train": tp_paths["tp_moe_train"][name]},
                 "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
@@ -6629,7 +7199,11 @@ def main():
                             f"{line}",
                 "launches": moe_train_launches[name],
                 "launches_by_path": {"moe_serve": moe_serve_launches[name],
-                                     "moe_train": moe_train_launches[name]},
+                                     "moe_train": moe_train_launches[name],
+                                     "tp_moe_train":
+                                         tp_paths["tp_moe_train"][name],
+                                     "tp_moe_serve":
+                                         tp_paths["tp_moe_serve"][name]},
                 "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
@@ -6750,7 +7324,8 @@ def main():
         entry("paged_decode",
               "deepspeed_tpu/ops/pallas/paged_attention.py:77", dec,
               {"long_context": dec["bfloat16"]["long_context"],
-               "float32": dec["float32"]}, DECODE_KERNELS, paged_paths),
+               "float32": dec["float32"], "tp_heads_16_4": dec_tp},
+              DECODE_KERNELS, paged_paths),
         entry("paged_prefill",
               "deepspeed_tpu/ops/pallas/paged_attention.py:117", pre[128],
               other_pre, PREFILL_KERNELS, paged_paths),
@@ -6819,8 +7394,9 @@ def main():
     print(json.dumps({"a11": {"policies": a11, "fpdt": fpdt_line,
                               "stream": stream, "phase16_wall_s": a11_wall}}),
           flush=True)
-    print(json.dumps({"run_seconds": time.perf_counter() - t_start}),
-          flush=True)
+    print(json.dumps({"tp": tp_line}), flush=True)
+    print(json.dumps({"run_seconds": time.perf_counter() - t_start,
+                      "phase_walls_s": walls}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6829,4 +7405,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":
+        sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

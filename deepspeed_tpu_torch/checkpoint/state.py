@@ -66,7 +66,14 @@ that their writes are durable (``_agree``) before rank 0 publishes the
 metadata, the manifest and ``latest``, between two barriers. A load
 first asserts that every rank sees the same tag; each rank then maps
 the files that overlap its block of each leaf and copies the overlap,
-so a checkpoint loads at any world size and any stage. A load onto
+so a checkpoint loads at any world size and any stage. Under expert
+parallelism each ep rank's experts of an expert leaf are files of their
+own (``<leaf>.ep<e>of<n>``, then the block), and under tensor
+parallelism each tp rank's slice of a leaf that shards over tp
+(``<leaf>.tp<t>of<n>``, then the ep and block cuts), written by the rank
+whose other mesh coordinates are 0; the metadata's ``zero_blocks``
+records each cut (``ep``, ``tp``), so any tp and fsdp loads any other.
+A load onto
 another mesh than the save's is legal and loud (JAX's
 ``_validate_tag``): a warning, ``resilience.resharded_restore`` counted
 once, and ``checkpoint.tag_validation`` "Fail" refuses it. (The elastic
@@ -76,6 +83,7 @@ batch re-check waits for ROADMAP queue A item 16's elasticity.)
 from __future__ import annotations
 
 import atexit
+import itertools
 import json
 import logging
 import os
@@ -267,8 +275,10 @@ class CheckpointIO:
                 e._client_opt)
         count, index, dims = self._blocks(state)
         ep = self._ep_blocks(state)
+        tp = self._tp_blocks(state)
         self.ckpt_engine.save(os.path.join(ckpt_dir, STATE_DIR),
-                              self._rank_tree(state, count, index, dims, ep))
+                              self._rank_tree(state, count, index, dims, ep,
+                                              tp))
 
         # data-pipeline cursor: consumed GAS boundaries + loader state,
         # snapshotted at this boundary so auto-resume replays the exact
@@ -294,10 +304,12 @@ class CheckpointIO:
         }
         if client_record is not None:
             meta["client_optimizer"] = client_record
-        if count > 1 or ep[2]:
+        if count > 1 or ep[2] or tp[2]:
             meta[BLOCKS_KEY] = {"count": count, "dims": dims}
-            if ep[2]:
-                meta[BLOCKS_KEY]["ep"] = {"count": ep[0], "dims": ep[2]}
+            for key, cut in (("ep", ep), ("tp", tp)):
+                if cut[2]:
+                    meta[BLOCKS_KEY][key] = {"count": cut[0],
+                                             "dims": cut[2]}
         if e.config.checkpoint.async_save:
             # decoupled: 'latest' is published at commit (next GAS boundary
             # or the next save/load), reference engine.py:3273
@@ -349,36 +361,50 @@ class CheckpointIO:
                 dims[leaf_path] = e
         return zero.ep_n, zero.ep_index, dims
 
+    def _tp_blocks(self, state) -> Tuple[int, int, Dict[str, int]]:
+        """(tp ranks, this rank's tp index, leaf path -> its tp dim): under
+        tensor parallelism each tp rank holds its slice of a leaf that
+        shards over tp, in every master-shaped role."""
+        zero = self.engine._zero
+        if zero is None or getattr(zero, "tp_n", 1) == 1:
+            return 1, 0, {}
+        masters = dict(leaves(self.engine.opt_state.master))
+        dims: Dict[str, int] = {}
+        for leaf_path, t in leaves(state):
+            top, _, path = leaf_path.strip("/").partition("/")
+            path = "/" + path
+            d = zero.tp_dim.get(path)
+            if d is not None and (top == "params" or (
+                    top.startswith("opt_") and path in masters
+                    and t.shape == masters[path].shape)):
+                dims[leaf_path] = d
+        return zero.tp_n, zero.tp_index, dims
+
     def _rank_tree(self, state, count: int, index: int,
-                   dims: Dict[str, int], ep=(1, 0, {})):
-        """What this rank writes: its block of each sharded leaf (under
-        ``<leaf>.block<index>of<count>``; one writer a block, the rank at
-        dp index 0), its ep index's experts of an expert leaf (under
-        ``<leaf>.ep<e>of<n>``, then the block) and, on rank 0, the
-        replicated leaves."""
+                   dims: Dict[str, int], ep=(1, 0, {}), tp=(1, 0, {})):
+        """What this rank writes: its slice of each sharded leaf, named by
+        its cuts in order (``<leaf>.tp<t>of<n>``, ``.ep<e>of<n>``,
+        ``.block<j>of<n>``), when its mesh coordinates off those cuts' axes
+        are 0 (one writer a file), and, on rank 0, the replicated
+        leaves."""
         if comm.get_world_size() == 1:
             return state
         coords = self.engine.mesh.coords()
-        writes_blocks = all(v == 0 for a, v in coords.items() if a != "fsdp")
-        writes_experts = all(v == 0 for a, v in coords.items()
-                             if a not in ("fsdp", "ep"))
-        ep_n, ep_index, ep_dims = ep
+        cuts = (("tp", "tp", tp), ("ep", "ep", ep),
+                ("block", "fsdp", (count, index, dims)))
         out: Dict[str, Any] = {}
         own = "/" + quant_key()
         for leaf_path, t in leaves(state):
             if leaf_path.startswith(own + "/"):  # this rank's own state
                 set_leaf(out, leaf_path, t)
-            elif leaf_path in ep_dims:
-                if writes_experts:
-                    name = f"{leaf_path}.ep{ep_index}of{ep_n}"
-                    if leaf_path in dims:
-                        name += f".block{index}of{count}"
-                    set_leaf(out, name, t)
-            elif leaf_path in dims:
-                if writes_blocks:
-                    set_leaf(out, f"{leaf_path}.block{index}of{count}", t)
-            elif comm.get_rank() == 0:
-                set_leaf(out, leaf_path, t)
+                continue
+            axes, name = set(), leaf_path
+            for tag, axis, (n, i, cut_dims) in cuts:
+                if leaf_path in cut_dims:
+                    axes.add(axis)
+                    name += f".{tag}{i}of{n}"
+            if all(v == 0 for a, v in coords.items() if a not in axes):
+                set_leaf(out, name, t)
         return out
 
     @staticmethod
@@ -567,15 +593,19 @@ class CheckpointIO:
         skip = () if load_optimizer_states else ("opt_count",)
         count, index, dims = self._blocks(state)
         ep = self._ep_blocks(state)
+        tp = self._tp_blocks(state)
         saved = meta.get(BLOCKS_KEY)
-        if count == 1 and not ep[2] and saved is None:
+        if count == 1 and not ep[2] and not tp[2] and saved is None:
             nbytes, _ = self.ckpt_engine.load(state_dir, state, skip=skip)
         else:
-            saved_ep = (saved or {}).get("ep", {"count": 1, "dims": {}})
+            none = {"count": 1, "dims": {}}
+            saved_ep = (saved or {}).get("ep", none)
+            saved_tp = (saved or {}).get("tp", none)
             nbytes = read_blocks(
                 state_dir, state, skip, (count, index, dims),
                 (saved["count"], saved["dims"]) if saved else (1, {}),
-                ep, (saved_ep["count"], saved_ep["dims"]))
+                ep, (saved_ep["count"], saved_ep["dims"]),
+                tp, (saved_tp["count"], saved_tp["dims"]))
         with torch.no_grad():
             if e._zenflow is not None:
                 if zen_sd is not None:
@@ -642,16 +672,19 @@ class CheckpointIO:
 
 
 def read_blocks(path: str, target, skip, layout, saved,
-                ep_layout=(1, 0, {}), ep_saved=(1, {})) -> int:
+                ep_layout=(1, 0, {}), ep_saved=(1, {}),
+                tp_layout=(1, 0, {}), tp_saved=(1, {})) -> int:
     """Fill each leaf of ``target`` (this rank's blocks, or whole leaves)
     from the files under ``path`` that overlap it, whatever the save's
     world size: ``layout`` is (blocks, this rank's block, leaf -> dim) of
     the target, ``saved`` (blocks, leaf -> dim) of the save, and
-    ``ep_layout`` / ``ep_saved`` the same for the expert dim of the expert
-    leaves. Every file is mapped and checked (dtype, whole shape) before
-    any tensor changes. Returns the bytes copied."""
-    cuts_t = [layout, ep_layout]
-    cuts_s = [saved, ep_saved]
+    ``ep_layout`` / ``ep_saved`` and ``tp_layout`` / ``tp_saved`` the same
+    for the expert dim of the expert leaves and the tp dim of the
+    tp-sharded leaves. Every file is mapped and checked (dtype, whole
+    shape) before any tensor changes. Returns the bytes copied."""
+    # in file-name order: tp, ep, block
+    cuts_t = [tp_layout, ep_layout, layout]
+    cuts_s = [("tp", tp_saved), ("ep", ep_saved), ("block", saved)]
     skip = {f"/{k}" for k in skip}
     pairs = []
     for leaf_path, dst in leaves(target):
@@ -665,24 +698,18 @@ def read_blocks(path: str, target, skip, layout, saved,
             if d_t is not None:
                 full[d_t] *= count
                 lo_t[d_t] = index * dst.shape[d_t]
-        d_b, d_e = (c[1].get(leaf_path) for c in cuts_s)
-        n_b, n_e = saved[0], ep_saved[0]
-        names = []
-        for e in (range(n_e) if d_e is not None else [None]):
-            for j in (range(n_b) if d_b is not None else [None]):
-                name = leaf_path
-                if e is not None:
-                    name += f".ep{e}of{n_e}"
-                if j is not None:
-                    name += f".block{j}of{n_b}"
-                names.append((name, j, e))
-        for name, j, e in names:
+        # each saved cut of this leaf: (tag, count, dim)
+        scut = [(tag, n, dims.get(leaf_path)) for tag, (n, dims) in cuts_s
+                if dims.get(leaf_path) is not None]
+        for idx in itertools.product(*(range(n) for _, n, _ in scut)):
+            name = leaf_path + "".join(
+                f".{tag}{i}of{n}" for (tag, n, _), i in zip(scut, idx))
             src = torch.load(leaf_file(path, name), map_location="cpu",
                              weights_only=True, mmap=True)
             whole = list(src.shape) if isinstance(src, torch.Tensor) else None
             lo_s = [0] * len(whole or ())
-            for d, n, i in ((d_b, n_b, j), (d_e, n_e, e)):
-                if whole is not None and d is not None:
+            for (_, n, d), i in zip(scut, idx):
+                if whole is not None:
                     lo_s[d] = i * src.shape[d]
                     whole[d] *= n
             if whole != full or src.dtype != dst.dtype:

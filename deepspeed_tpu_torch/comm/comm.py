@@ -18,6 +18,12 @@ Differences from the JAX facade:
     size, on every backend, so the CPU and the card take one path;
   * the world is the ranks (JAX: devices); ``get_rank`` is the process
     rank in both.
+
+NCCL is the default for ranks on cards of their own. NCCL refuses two
+ranks on one card, so ranks that share a card join with
+``dist_backend="gloo"``; gloo takes card tensors for every collective
+here (it copies them through the host itself; probed on the card by
+``chip_smoke.py``'s phase 18).
 """
 
 from __future__ import annotations

@@ -42,7 +42,6 @@ import torch
 _A = "ROADMAP queue A item"
 # top-level blocks of the JAX schema this package does not run yet
 UNPORTED_BLOCKS = {
-    "tensor_parallel": f"{_A} 11 (tensor parallelism)",
     "sequence_parallel": f"{_A} 11 (sequence parallelism)",
     "pipeline": f"{_A} 11 (pipeline parallelism)",
     "flops_profiler": f"{_A} 16 (profiling)",
@@ -308,6 +307,21 @@ class MoEConfig:
         if self.impl not in ("auto", "grouped", "einsum"):
             raise ValueError(f"moe.impl must be auto, grouped or einsum, "
                              f"got {self.impl!r}")
+
+
+@dataclass
+class TensorParallelConfig:
+    """The JAX ``tensor_parallel`` block (``TensorParallelConfig``):
+    ``autotp_size`` is the mesh's tp axis (the engine's default mesh),
+    ``tp_grain_size`` is parsed and read nowhere, as in JAX. A key JAX
+    does not know (``tp_size``) warns and is ignored, as there."""
+
+    autotp_size: int = 1
+    tp_grain_size: int = 1
+
+    @property
+    def size(self) -> int:
+        return max(1, self.autotp_size)
 
 
 @dataclass
@@ -807,6 +821,8 @@ class Config:
     scheduler: Optional[SchedulerConfig] = None
     zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
+    tensor_parallel: TensorParallelConfig = field(
+        default_factory=TensorParallelConfig)
     comms_logger: CommsLoggerConfig = field(
         default_factory=CommsLoggerConfig)
     activation_checkpointing: ActivationCheckpointingConfig = field(
@@ -857,7 +873,8 @@ class Config:
             zero["zenflow"] = _block(ZenFlowBlockConfig, zero["zenflow"],
                                      "zero_optimization.zenflow")
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
-                  "zero_optimization", "moe", "comms_logger",
+                  "zero_optimization", "moe", "tensor_parallel",
+                  "comms_logger",
                   "activation_checkpointing", "serving",
                   "sparse_attention", "kernels", "checkpoint", "resilience",
                   "performance", "observability", "monitor"}
@@ -879,6 +896,9 @@ class Config:
                               "scheduler")),
             zero_optimization=_block(ZeroConfig, zero, "zero_optimization"),
             moe=_block(MoEConfig, data.get("moe"), "moe"),
+            tensor_parallel=_block(TensorParallelConfig,
+                                   data.get("tensor_parallel"),
+                                   "tensor_parallel"),
             comms_logger=_block(CommsLoggerConfig, data.get("comms_logger"),
                                 "comms_logger"),
             activation_checkpointing=_block(

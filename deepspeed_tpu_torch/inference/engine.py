@@ -8,9 +8,16 @@ power of two of at least 16 tokens, then decodes one token a step
 through ``model_runner.forward_with_cache`` (the dense masked attention
 JAX uses there too), greedy or sampled.
 
-Differences from JAX: no mesh and no tensor parallelism (ROADMAP queue A
-item 11; ``tensor_parallel={"tp_size": n > 1}`` or a ``mesh`` raises);
-sampling draws from a ``torch.Generator`` seeded by ``seed`` (JAX's
+Tensor parallelism (``mesh`` with a tp axis, or
+``init_inference(tensor_parallel={"tp_size": n})``): one process is one
+rank; each keeps its tp slice of the weights (``tp_params``: JAX's
+``TP_PARAM_RULES`` over the logical axes; a model built as one tp rank's
+slice is taken as is), runs its heads, and the forwards issue the tp
+collectives (``runtime/sharding.py``) under the engine's mesh, so every
+rank gets the whole logits and samples the same tokens. As in JAX, tp
+must divide both head counts and ``quantize_weights`` refuses tp > 1.
+
+Differences from JAX: sampling draws from a ``torch.Generator`` seeded by ``seed`` (JAX's
 ``jax.random`` gives other draws; greedy decoding is the same); the
 engine runs on the model's device and, as the v2 engine does,
 ``quantize_weights="int8"`` takes over the tree it quantizes (each
@@ -24,16 +31,61 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.config.config import UNPORTED_BLOCKS, _unported
 from deepspeed_tpu_torch.inference import model_runner
 from deepspeed_tpu_torch.inference.weight_quant import (QuantizedTensor,
                                                         quantize_params)
+from deepspeed_tpu_torch.parallel.topology import on_mesh
 
 
 def _first_leaf(tree):
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
     return tree
+
+
+def check_tp(cfg, mesh, quantize_weights: Optional[str]) -> int:
+    """The mesh's tp size after JAX's checks (``engine.py:58-75``): tp
+    divides both head counts, and weight-only int8 serves at tp 1 only."""
+    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+    for name, heads in (("num_heads", cfg.num_heads),
+                        ("kv_heads", cfg.kv_heads)):
+        if heads % tp:
+            raise ValueError(
+                f"tp={tp} does not divide {name}={heads}: the TP "
+                "placement shards the head axes evenly (reference "
+                "AutoTP has the same constraint); lower tp or use "
+                "a model whose head counts divide")
+    if quantize_weights is not None and quantize_weights != "int8":
+        raise ValueError(
+            f"quantize_weights supports 'int8', got {quantize_weights!r}")
+    if quantize_weights is not None and tp > 1:
+        raise ValueError(
+            "quantize_weights does not compose with tp>1 yet "
+            "(blockwise payloads have an extra rank the TP "
+            "specs don't cover); serve unquantized or tp=1")
+    return tp
+
+
+def tp_params(model, params, mesh):
+    """This rank's tp slice of ``params`` (the model's tree; a leaf that
+    is the slice already is kept): each leaf that ``TP_RULES`` shards
+    over the logical axes is narrowed to the mesh's tp index."""
+    from deepspeed_tpu_torch.models.transformer import leaf_shapes, tp_dims
+    from deepspeed_tpu_torch.runtime.sharding import tp_local
+
+    n = mesh.shape["tp"]
+    index = mesh.axis_index("tp")
+    dims = tp_dims(model.logical_axes(model.config))
+    full = leaf_shapes(model.param_shapes(model.config))
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        d = dims.get(path)
+        return node if d is None else tp_local(node, d, full[path][d], n,
+                                               index)
+
+    return walk(params, "")
 
 
 class InferenceEngine:
@@ -45,19 +97,19 @@ class InferenceEngine:
     read leaf by leaf as numpy (``models/convert.params_from_jax``);
     ``dtype`` is the dense cache's type, as in JAX. ``seed`` is accepted
     for JAX's signature (JAX initialises the weights from it when
-    ``params`` is None; a port model carries its own seeded weights)."""
+    ``params`` is None; a port model carries its own seeded weights).
+    ``mesh`` (default: the global mesh) with a tp axis serves this rank's
+    tp slice."""
 
     def __init__(self, model, mesh: Optional[Any] = None,
                  params: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.bfloat16, max_batch: int = 8,
                  max_seq_len: Optional[int] = None, seed: int = 0,
                  quantize_weights: Optional[str] = None):
-        if mesh is not None:
-            raise _unported("mesh", UNPORTED_BLOCKS["tensor_parallel"])
-        if quantize_weights is not None and quantize_weights != "int8":
-            raise ValueError(
-                f"quantize_weights supports 'int8', got "
-                f"{quantize_weights!r}")
+        from deepspeed_tpu_torch.parallel import topology as topo
+
+        self.mesh = mesh if mesh is not None else topo._GLOBAL_MESH
+        self.tp = check_tp(model.config, self.mesh, quantize_weights)
         self.model = model
         self.cfg = model.config
         self.device = model.device
@@ -79,6 +131,8 @@ class InferenceEngine:
         if where != self.device:
             raise ValueError(f"params live on {where}, the model on "
                              f"{self.device}")
+        if self.tp > 1:
+            params = tp_params(model, params, self.mesh)
         if quantize_weights is not None:
             # weight-only int8: eligible leaves become int8 blocks
             # (the blockwise quantize kernel on the card), dequantized
@@ -89,6 +143,7 @@ class InferenceEngine:
     # -- API --------------------------------------------------------------
 
     @torch.no_grad()
+    @on_mesh
     def forward(self, tokens) -> torch.Tensor:
         """Full-sequence logits [B, S, V] fp32 (no cache), through the
         model's forward."""
@@ -100,6 +155,7 @@ class InferenceEngine:
 
     __call__ = forward
 
+    @on_mesh
     def generate(self, tokens, max_new_tokens: int = 32,
                  temperature: float = 0.0, top_k: int = 0,
                  seed: int = 0, eos_token_id: Optional[int] = None
@@ -199,19 +255,22 @@ def init_inference(model=None, tensor_parallel: Optional[Dict] = None,
     """``deepspeed.init_inference`` counterpart (JAX ``init_inference``).
 
     model: a ``TransformerLM`` or a model-zoo name (built on the card).
-    tensor_parallel: {"tp_size": 1} only (tp > 1 is ROADMAP queue A item
-    11)."""
+    tensor_parallel: {"tp_size": N} builds a tp mesh over the world's
+    ranks when neither ``mesh`` nor a global mesh is given, as in JAX."""
+    from deepspeed_tpu_torch.parallel import topology as topo
+
     if isinstance(model, str):
         from deepspeed_tpu_torch.models.zoo import get_model
 
         model = get_model(model)
     tp_size = (tensor_parallel or {}).get("tp_size", 1)
-    if tp_size != 1:
-        raise _unported(f"tensor_parallel.tp_size={tp_size}",
-                        UNPORTED_BLOCKS["tensor_parallel"])
+    if mesh is None:
+        mesh = topo._GLOBAL_MESH
+    if mesh is None:
+        mesh = topo.build_mesh(topo.TopologyConfig(dp=-1, tp=tp_size))
     return InferenceEngine(model, mesh=mesh, params=params, dtype=dtype,
                            max_batch=max_batch, max_seq_len=max_seq_len,
                            **kwargs)
 
 
-__all__ = ["InferenceEngine", "init_inference"]
+__all__ = ["InferenceEngine", "init_inference", "check_tp", "tp_params"]

@@ -1,5 +1,5 @@
 """FastGen-style ragged continuous-batching engine (port of
-``deepspeed_tpu/inference/engine_v2.py``, one device, no mesh).
+``deepspeed_tpu/inference/engine_v2.py``).
 
 Host-side state (StateManager / BlockedAllocator / PrefixCache /
 SplitFuseScheduler) assembles dense int metadata per step
@@ -39,9 +39,21 @@ dict; tail-sampled span timelines and SLO attribution). All of it is
 host work per step and per request; none of it touches the card.
 ``log_summary``, ``request_traces`` and ``snapshot`` read it back.
 
+Tensor parallelism (``mesh`` with a tp axis, default the global mesh):
+one process is one rank and holds its tp slice of the weights and a KV
+pool of ``kv_heads / tp`` heads (JAX's per-shard pool); the runner's
+forwards run the paged kernels on the local heads and issue the tp
+collectives under the engine's mesh, and the rows a step reads are
+gathered whole, so every rank picks the same tokens. The scheduler's
+decisions depend only on the requests and the tokens, so the ranks
+issue the same collectives in the same order, provided every rank gets
+the same ``put`` calls. As in JAX, tp must divide both head counts and
+``quantize_weights`` refuses tp > 1; speculation, the quantized pool and
+page-out run on the local pool.
+
 Not ported yet (ROADMAP queue A): session migration and the handoff
-wire (item 13; ``snapshot`` has no ``handoff_wire`` key), tensor
-parallelism, and the journal.
+wire (item 13; ``snapshot`` has no ``handoff_wire`` key), and the
+journal.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ import torch
 
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.inference import model_runner
+from deepspeed_tpu_torch.inference.engine import check_tp, tp_params
 from deepspeed_tpu_torch.inference.ragged import (BlockedAllocator,
                                                   BlockedKVCache, HostKVTier,
                                                   KVCacheConfig, PagedSession,
@@ -71,6 +84,9 @@ from deepspeed_tpu_torch.observability.flight_recorder import (
     get_flight_recorder, install_crash_handlers)
 from deepspeed_tpu_torch.observability.hub import get_hub
 from deepspeed_tpu_torch.observability.request_trace import RequestTracer
+from deepspeed_tpu_torch.parallel import topology as topo
+from deepspeed_tpu_torch.parallel.topology import on_mesh
+from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.utils import telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -140,7 +156,7 @@ class InferenceEngineV2:
                  serving: Optional[Any] = None,
                  request_trace: Optional[Any] = None,
                  metric_labels: Optional[Dict[str, str]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Any] = None):
         if serving is not None:
             # the config block is the source of truth for config-driven
             # deployments (its own validation already ran)
@@ -155,22 +171,24 @@ class InferenceEngineV2:
             spec_ngram = serving.spec_ngram
             spec_adaptive_k = serving.spec_adaptive_k
             spec_accept_alpha = serving.spec_accept_alpha
-        if quantize_weights not in (None, "int8"):
-            raise ValueError(f"quantize_weights supports 'int8', got "
-                             f"{quantize_weights!r}")
+        self.mesh = mesh if mesh is not None else topo._GLOBAL_MESH
+        self._tp = check_tp(model.config, self.mesh, quantize_weights)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model weights live on {model.device}, the "
                              f"engine runs on {self.device}")
         self.model, self.cfg = model, model.config
         self.params = model.params()
+        if self._tp > 1:
+            self.params = tp_params(model, self.params, self.mesh)
         if quantize_weights is not None:
             # weight-only int8: each leaf's full-precision storage goes as
             # soon as its codes exist, so the two trees never coexist
             self.params = quantize_params(self.params)
 
         kv_cfg = KVCacheConfig(
-            num_layers=self.cfg.num_layers, kv_heads=self.cfg.kv_heads,
+            num_layers=self.cfg.num_layers,
+            kv_heads=self.cfg.kv_heads // self._tp,
             head_dim=self.cfg.head_dim, block_size=kv_block_size,
             num_blocks=kv_blocks, dtype=self.cfg.dtype,
             quant_bits=kv_quant_bits)
@@ -567,6 +585,7 @@ class InferenceEngineV2:
 
     # -- steps ----------------------------------------------------------------
 
+    @on_mesh
     def step(self, temperature: float = 0.0, seed: int = 0,
              eos_token_id: Optional[int] = None) -> Dict[int, int]:
         """Run one SplitFuse step. Returns {uid: new_token} for sequences
@@ -631,11 +650,14 @@ class InferenceEngineV2:
             self.stats["decode_kernel_steps"] += 1
 
         kv = self.kv_cache.kv_state
+        # at tp > 1 the logits stay vocab-sharded: only the rows read
+        # below are gathered
+        sharded = {} if self._tp == 1 else {"gather_logits": False}
         if seg_plan is not None:
             n_segs = seg_plan[0].shape[0]
             logits, new_kv = model_runner.ragged_prefill_forward(
                 self.cfg, self.params, kv, *seg_plan,
-                self._dev(batch.block_table[:n_segs]))
+                self._dev(batch.block_table[:n_segs]), **sharded)
         elif decode_only:
             # compact per-slot arrays: token i belongs to slot i; pad out
             # to max_seqs (token budget may be smaller than the slot budget)
@@ -647,12 +669,12 @@ class InferenceEngineV2:
             logits, new_kv = model_runner.ragged_decode_forward(
                 self.cfg, self.params, kv, self._dev(d_tok),
                 self._dev(d_pos), self._dev(batch.block_table),
-                self._dev(batch.ctx_lens))
+                self._dev(batch.ctx_lens), **sharded)
         else:
             logits, new_kv = model_runner.ragged_forward(
                 self.cfg, self.params, kv, self._dev(batch.token_ids),
                 self._dev(batch.token_seq), self._dev(batch.token_pos),
-                self._dev(batch.block_table), batch.num_tokens)
+                self._dev(batch.block_table), batch.num_tokens, **sharded)
         self.kv_cache.set_kv_state(new_kv)
 
         # sample on the device and fetch only token ids (greedy) or just
@@ -677,7 +699,12 @@ class InferenceEngineV2:
 
         emitted: Dict[int, int] = {}
         if consumers:
-            rows = logits.reshape(-1, logits.shape[-1])[self._dev(flat_idx)]
+            rows = sharding.tp_gather(
+                logits.reshape(-1, logits.shape[-1])[self._dev(flat_idx)])
+            if rows.shape[-1] != self.cfg.vocab_size:
+                raise RuntimeError(
+                    f"serve step: {rows.shape[-1]} logits a row for a "
+                    f"vocabulary of {self.cfg.vocab_size}")
             if temperature == 0.0:
                 toks_np = torch.argmax(rows.float(), dim=-1).cpu().numpy()
             else:
@@ -1085,6 +1112,7 @@ class InferenceEngineV2:
         self._release_finished()
         return emitted
 
+    @on_mesh
     def serve_step(self, temperature: float = 0.0, seed: int = 0,
                    eos_token_id: Optional[int] = None
                    ) -> Dict[int, List[int]]:

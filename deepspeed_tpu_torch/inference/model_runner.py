@@ -37,6 +37,15 @@ outside any kernel with the same cast points. A layer that holds
 ``moe`` (``MoETransformerLM``) runs its FFN through the dropless MoE
 dispatch (``parallel/moe.py``, the grouped-matmul kernels) on every
 path.
+
+Tensor parallelism (JAX's ``_tp_shard_map``): on a mesh whose tp
+collectives communicate the params are this rank's tp slice and the pool
+holds ``nkv/tp`` kv heads; the paged kernels run on the local q and kv
+heads, ``wo`` and the MLP's down are followed by the all-reduce
+(``sharding.tp_reduce``), the embedding is the vocab-parallel lookup and
+the logits come back whole (``sharding.tp_gather``), so every rank picks
+the same token. ``gather_logits=False`` leaves them vocab-sharded for a
+caller that gathers only the rows it reads.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from deepspeed_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                      paged_prefill_attention)
 from deepspeed_tpu_torch.ops.quantization import kv_append_dequantize
 from deepspeed_tpu_torch.parallel.moe import moe_ffn
+from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.utils.annotate import range_pop, range_push, region
 
 Params = Dict[str, Any]
@@ -135,7 +145,7 @@ def _mlp(cfg: TransformerConfig, layer_params, x):
         if cfg.use_biases:
             pre = pre + mp["bi"]
         z = act_fn(cfg.activation)(pre)
-    out = torch.matmul(z, _weight(mp["wo"], dt))
+    out = sharding.tp_reduce(torch.matmul(z, _weight(mp["wo"], dt)))
     if cfg.use_biases:
         out = out + mp["bo"]
     return x + out
@@ -159,8 +169,8 @@ def _moe_mlp(cfg, layer_params, x):
 def _attn_out(cfg: TransformerConfig, layer_params, attn):
     """attn [..., nh, hd] -> [..., H] through wo (+ bo)."""
     wo = _weight(layer_params["attn"]["wo"], attn.dtype)
-    out = torch.matmul(attn.reshape(*attn.shape[:-2], -1),
-                       wo.reshape(-1, wo.shape[-1]))
+    out = sharding.tp_reduce(torch.matmul(
+        attn.reshape(*attn.shape[:-2], -1), wo.reshape(-1, wo.shape[-1])))
     if cfg.use_biases:
         out = out + layer_params["attn"]["bo"]
     return out
@@ -173,21 +183,28 @@ def _residual(cfg: TransformerConfig, layer_params, x, attn):
 
 
 def _embed(cfg: TransformerConfig, params, ids, positions):
-    x = F.embedding(ids.long(), params["embed"]["tokens"])
+    if sharding.tp_size() > 1:
+        x = sharding.vocab_parallel_lookup(params["embed"]["tokens"], ids,
+                                           vocab=cfg.vocab_size)
+    else:
+        x = F.embedding(ids.long(), params["embed"]["tokens"])
     if cfg.pos_emb == "learned":
         x = x + params["embed"]["positions"][positions.long()]
     return x
 
 
 @region("vocab_head")
-def _unembed(cfg: TransformerConfig, params, x):
+def _unembed(cfg: TransformerConfig, params, x, gather: bool = True):
+    """fp32 logits; at tp > 1 this rank's vocab slice, all-gathered
+    whole unless ``gather`` is False."""
     x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"]["tokens"].t())
     else:
         logits = torch.matmul(x, _weight(params["unembed"]["kernel"],
                                          x.dtype))
-    return logits.float()
+    logits = logits.float()
+    return sharding.tp_gather(logits) if gather else logits
 
 
 def _append_kv(kv_layer, page, offset, k, v) -> None:
@@ -227,9 +244,11 @@ def _scratch_pool(cfg: TransformerConfig, kv_data, kv_scales, lead=None):
 def init_dense_cache(cfg: TransformerConfig, batch: int, max_len: int,
                      dtype=None, device=None) -> torch.Tensor:
     """cache: [L, B, max_len, 2, kv_heads, head_dim] zeros in ``dtype``
-    (default ``cfg.dtype``) on ``device`` (default the card)."""
-    return torch.zeros((cfg.num_layers, batch, max_len, 2, cfg.kv_heads,
-                        cfg.head_dim), dtype=dtype or cfg.dtype,
+    (default ``cfg.dtype``) on ``device`` (default the card); at tp > 1
+    this rank's ``kv_heads / tp``."""
+    return torch.zeros((cfg.num_layers, batch, max_len, 2,
+                        cfg.kv_heads // sharding.tp_size(), cfg.head_dim),
+                       dtype=dtype or cfg.dtype,
                        device=resolve_device(device))
 
 
@@ -255,7 +274,7 @@ def forward_with_cache(cfg: TransformerConfig, params: Params,
         raise ValueError(f"rows [{start_pos}, {start_pos + S}) do not fit "
                          f"a cache of {max_len}")
     dt = cfg.dtype
-    g = cfg.num_heads // nkv
+    g = cfg.num_heads // cfg.kv_heads
     dev = tokens.device
     positions = start_pos + torch.arange(S, device=dev)[None, :]  # [1, S]
 
@@ -294,7 +313,8 @@ def forward_with_cache(cfg: TransformerConfig, params: Params,
 def ragged_forward(cfg: TransformerConfig, params: Params,
                    kv_data: torch.Tensor, token_ids: torch.Tensor,
                    token_seq: torch.Tensor, token_pos: torch.Tensor,
-                   block_table: torch.Tensor, num_tokens
+                   block_table: torch.Tensor, num_tokens,
+                   gather_logits: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ragged step over flat tokens (plain gather attention).
 
@@ -314,8 +334,8 @@ def ragged_forward(cfg: TransformerConfig, params: Params,
     Smax, Bm = block_table.shape
     nb, bs = kv_data.shape[1], kv_data.shape[2]
     dt = cfg.dtype
-    nkv, hd = cfg.kv_heads, cfg.head_dim
-    g = cfg.num_heads // nkv
+    nkv, hd = kv_data.shape[4], cfg.head_dim  # this rank's kv heads
+    g = cfg.num_heads // cfg.kv_heads
     dev = token_ids.device
     is_real = torch.arange(T, device=dev) < int(num_tokens)
     seq = token_seq.long()
@@ -359,7 +379,7 @@ def ragged_forward(cfg: TransformerConfig, params: Params,
         attn = torch.einsum("tkgm,tmkd->tkgd", probs, v_seq)
         attn = _attn_out(cfg, lp, attn.reshape(T, nkv * g, hd))
         x = _residual(cfg, lp, x, attn)
-    return _unembed(cfg, params, x), kv_state
+    return _unembed(cfg, params, x, gather_logits), kv_state
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +391,8 @@ def ragged_forward(cfg: TransformerConfig, params: Params,
 def ragged_prefill_forward(cfg: TransformerConfig, params: Params,
                            kv_data: torch.Tensor, seg_tokens: torch.Tensor,
                            seg_pos0: torch.Tensor, seg_nreal: torch.Tensor,
-                           block_table: torch.Tensor
+                           block_table: torch.Tensor,
+                           gather_logits: bool = True
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill chunks, one segment per sequence slot.
 
@@ -416,7 +437,7 @@ def ragged_prefill_forward(cfg: TransformerConfig, params: Params,
                                        block_table, seg_pos0, ctx_lens)
         range_pop(rng)
         x = _residual(cfg, lp, x, _attn_out(cfg, lp, attn.to(dt)))
-    return _unembed(cfg, params, x), kv_state
+    return _unembed(cfg, params, x, gather_logits), kv_state
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +449,8 @@ def ragged_prefill_forward(cfg: TransformerConfig, params: Params,
 def ragged_decode_forward(cfg: TransformerConfig, params: Params,
                           kv_data: torch.Tensor, token_ids: torch.Tensor,
                           token_pos: torch.Tensor, block_table: torch.Tensor,
-                          context_lens: torch.Tensor
+                          context_lens: torch.Tensor,
+                          gather_logits: bool = True
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step: exactly one new token per live slot. Dead slots
     have context_lens == 0: their K/V writes go to the scratch page and
@@ -471,7 +493,7 @@ def ragged_decode_forward(cfg: TransformerConfig, params: Params,
                                       block_table, context_lens)
         range_pop(rng)
         x = _residual(cfg, lp, x, _attn_out(cfg, lp, attn.to(dt)))
-    return _unembed(cfg, params, x), kv_state
+    return _unembed(cfg, params, x, gather_logits), kv_state
 
 
 @torch.no_grad()

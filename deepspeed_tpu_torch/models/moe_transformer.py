@@ -14,8 +14,10 @@ place of ``layers.mlp``.
 layer in ``torch.utils.checkpoint`` as the dense model does. With
 ``param_host_offload`` (the engine's ``offload_param``) the layer stack,
 experts included, streams from pinned host memory a layer at a time
-(``runtime/param_stream.py``), as in JAX. The pipeline branch is not
-ported: a pipeline config block raises.
+(``runtime/param_stream.py``), as in JAX. At tp > 1 the attention is
+the dense model's column / row pair and each rank holds F/tp of every
+expert (``parallel/moe.py`` all-reduces the combine). The pipeline
+branch is not ported: a pipeline config block raises.
 """
 
 from __future__ import annotations
@@ -129,7 +131,8 @@ def _moe_layer(cfg: MoETransformerConfig, x, layer_params, rope,
     ap = layer_params["attn"]
     dt = cfg.dtype
     x = x.to(dt)
-    y = tf._norm(x, layer_params["ln1"], cfg.norm, cfg.norm_eps)
+    y = sharding.tp_copy(tf._norm(x, layer_params["ln1"], cfg.norm,
+                                  cfg.norm_eps))
     q = tf._proj(y, ap["wq"].to(dt))
     k = tf._proj(y, ap["wk"].to(dt))
     v = tf._proj(y, ap["wv"].to(dt))
@@ -138,8 +141,8 @@ def _moe_layer(cfg: MoETransformerConfig, x, layer_params, rope,
         k = tf.apply_rope(k, *rope)
     attn = tf._attention(q, k, v, cfg)
     wo = ap["wo"].to(dt)
-    x = x + torch.matmul(attn.reshape(*attn.shape[:-2], -1),
-                         wo.reshape(-1, wo.shape[-1]))
+    x = x + sharding.tp_reduce(torch.matmul(
+        attn.reshape(*attn.shape[:-2], -1), wo.reshape(-1, wo.shape[-1])))
 
     y = tf._norm(x, layer_params["ln2"], cfg.norm, cfg.norm_eps)
     out, aux = _moe_mlp(cfg, y, layer_params, train)
@@ -163,7 +166,8 @@ def apply(cfg: MoETransformerConfig, params: Dict[str, Any],
           train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V] fp32, total aux loss fp32);
     under a ZeRO-3 fetch hook each layer gathers its leaves, as the dense
-    model's ``apply_hidden`` does."""
+    model's ``apply_hidden`` does. At tp > 1 the logits are this rank's
+    vocab slice (``sharding.tp_gather`` makes them whole)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :]
@@ -182,6 +186,7 @@ def apply(cfg: MoETransformerConfig, params: Dict[str, Any],
             return _moe_layer(cfg, x, param_stream.fetch_layer(
                 lp, tokens.device), rope, train)
 
+        tf._one_tp_rank("offload_param")
         for lp in param_stream.host_layers(params["layers"], cfg.num_layers):
             if cfg.remat:
                 x, l_aux = torch.utils.checkpoint.checkpoint(
@@ -212,9 +217,7 @@ def loss_fn(cfg: MoETransformerConfig, params: Dict[str, Any],
     tokens = batch["input_ids"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     logits, aux_loss = apply(cfg, params, inputs, train=True)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = (logz - gold).mean()
+    nll = sharding.vocab_parallel_nll(logits, labels).mean()
     total = nll + aux_loss
     return total, {"loss": total, "lm_loss": nll, "aux_loss": aux_loss,
                    "ntokens": torch.tensor(float(labels.numel()),
@@ -226,11 +229,12 @@ class MoETransformerLM(tf.TransformerLM):
     model protocol (``apply``, ``loss``, ``flops_per_token``)."""
 
     param_shapes = staticmethod(param_shapes)
+    logical_axes = staticmethod(logical_axes)
 
     def apply(self, params: Dict[str, Any], tokens: torch.Tensor,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         logits, _ = apply(self.config, params, tokens, positions, train=False)
-        return logits
+        return sharding.tp_gather(logits)
 
     def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         return loss_fn(self.config, params, batch)

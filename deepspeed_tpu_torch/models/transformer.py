@@ -34,6 +34,18 @@ host memory (``runtime/param_stream.py``): by default with
 ``serialize_fetch``, a fetch inside each remat'd layer. ``fp8_mlp`` runs
 the MLP's products in e4m3 with straight-through gradients
 (``ops/fp_quantizer.fp8_matmul_ste``).
+
+Tensor parallelism: on a mesh whose tp collectives communicate
+(``runtime/sharding.tp_size() > 1``) each leaf is this rank's slice
+under JAX's ``TP_RULES`` (``nh/tp`` query and ``nkv/tp`` kv heads, the
+MLP width and the vocab over tp), and the forward issues the
+collectives GSPMD would insert: q/k/v and the MLP's gate/up are
+column-parallel (``sharding.tp_copy`` on their input), ``wo`` and the
+MLP's down row-parallel (``sharding.tp_reduce`` after them, before any
+bias), the embedding is ``vocab_parallel_lookup`` and the losses take
+the vocab-sharded logits through ``vocab_parallel_nll``; ``apply``
+gathers them whole. The FPDT host paths and the streamed stack stay on
+one tp rank.
 The pipeline and sequence-parallel branches are not ported: their
 switches raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -360,11 +372,21 @@ def _fpdt_post_fn(cfg: TransformerConfig, layer_params):
     return post_fn
 
 
+def _one_tp_rank(what: str) -> None:
+    """A branch that runs on whole heads raises at tp > 1."""
+    if sharding.tp_size() > 1:
+        raise NotImplementedError(
+            f"{what} at tp={sharding.tp_size()} is not ported yet: a TP "
+            "leftover listed under ROADMAP queue A's A11 TP entry (the "
+            "FPDT host paths and the streamed stack run whole heads)")
+
+
 def _layer(cfg: TransformerConfig, x, layer_params, rope):
     """One transformer block; x [B, S, H] in cfg.dtype. ``rope`` is the
     forward's (cos, sin) tables or None."""
     x = x.to(cfg.dtype)
     if cfg.fpdt_host_kv:
+        _one_tp_rank("fpdt_host_kv")
         return _fpdt_layer(cfg, x, layer_params, rope)
     attn = _attention_half(cfg, x, layer_params, rope)
     return _layer_mlp(cfg, x, attn, layer_params)
@@ -401,7 +423,8 @@ def _attention_half(cfg: TransformerConfig, x, layer_params, rope):
     MLP half's)."""
     ap = layer_params["attn"]
     dt = cfg.dtype
-    y = _norm(x, layer_params["ln1"], cfg.norm, cfg.norm_eps)
+    y = sharding.tp_copy(_norm(x, layer_params["ln1"], cfg.norm,
+                               cfg.norm_eps))
     qkv = []
     for name in ("q", "k", "v"):
         with ac.checkpoint_name("qkv_proj"):
@@ -423,8 +446,10 @@ def _attention_half(cfg: TransformerConfig, x, layer_params, rope):
     with ac.checkpoint_name("attn_out"):
         attn = torch.matmul(attn.reshape(*attn.shape[:-2], -1),
                             wo.reshape(-1, wo.shape[-1]))
-        if cfg.use_biases:
-            attn = attn + ap["bo"].to(dt)
+    # row-parallel: this rank's heads give a partial sum
+    attn = sharding.tp_reduce(attn)
+    if cfg.use_biases:
+        attn = attn + ap["bo"].to(dt)
     return attn
 
 
@@ -457,6 +482,7 @@ def _mlp(cfg: TransformerConfig, y, mp):
     ``fp8_mlp`` its three products run in fp8 with straight-through
     gradients (JAX's ``fp8_matmul_ste``)."""
     dt = cfg.dtype
+    y = sharding.tp_copy(y)
     if cfg.fp8_mlp:
         from deepspeed_tpu_torch.ops.fp_quantizer import fp8_matmul_ste
 
@@ -474,8 +500,9 @@ def _mlp(cfg: TransformerConfig, y, mp):
         z = act_fn(cfg.activation)(pre)
     with ac.checkpoint_name("mlp_out"):
         out = matmul(z, mp["wo"])
-        if cfg.use_biases:
-            out = out + mp["bo"].to(dt)
+    out = sharding.tp_reduce(out)  # row-parallel over the MLP width
+    if cfg.use_biases:
+        out = out + mp["bo"].to(dt)
     return out
 
 
@@ -515,8 +542,12 @@ def embed_tokens(cfg, params, tokens, positions, fetch):
     """The token (and learned position) embeddings in cfg.dtype, each
     table gathered at its use under a fetch hook."""
     dt = cfg.dtype
-    x = F.embedding(tokens.long(),
-                    sharding.fetched(fetch, params, "/embed/tokens").to(dt))
+    table = sharding.fetched(fetch, params, "/embed/tokens").to(dt)
+    if sharding.tp_size() > 1:  # the vocab rows shard over tp
+        x = sharding.vocab_parallel_lookup(table, tokens,
+                                           vocab=cfg.vocab_size)
+    else:
+        x = F.embedding(tokens.long(), table)
     if cfg.pos_emb == "learned":
         x = x + sharding.fetched(fetch, params, "/embed/positions").to(
             dt)[positions.long()]
@@ -530,7 +561,9 @@ def final_norm_of(cfg, params, x, fetch):
 
 def unembed(cfg, params, x, fetch):
     """fp32 logits of the hidden states (the LM head gathered at its use
-    under a fetch hook)."""
+    under a fetch hook); at tp > 1 this rank's vocab slice of them
+    (``sharding.tp_gather`` makes them whole)."""
+    x = sharding.tp_copy(x)
     if cfg.tie_embeddings:
         table = sharding.fetched(fetch, params, "/embed/tokens")
         return torch.matmul(x, table.to(cfg.dtype).t()).float()
@@ -561,6 +594,7 @@ def apply_hidden(cfg: TransformerConfig, params: Dict[str, Any],
     rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.pos_emb == "rope" else None)
     if cfg.param_host_offload:
+        _one_tp_rank("offload_param")
         x = _streamed_stack(cfg, params["layers"], x, rope)
     else:
         step = (ac.checkpoint_wrapper(fetched_layer, policy=cfg.remat_policy)
@@ -613,6 +647,7 @@ def apply_hidden_hosted(cfg: TransformerConfig, params: Dict[str, Any],
     Returns (chunks, S, C)."""
     from deepspeed_tpu_torch.parallel import fpdt
 
+    _one_tp_rank("fpdt_host_residual")
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -706,7 +741,8 @@ def apply(cfg: TransformerConfig, params: Dict[str, Any],
         x = final_norm_of(cfg, params, x, None)
     else:
         x = apply_hidden(cfg, params, tokens, positions)
-    return unembed(cfg, params, x, sharding.active_fetch())
+    return sharding.tp_gather(unembed(cfg, params, x,
+                                      sharding.active_fetch()))
 
 
 def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],
@@ -776,9 +812,8 @@ def lm_head_loss(cfg: TransformerConfig, params: Dict[str, Any], hidden,
     states: (loss, {"loss", "ntokens"}); ``mask`` None counts every
     position."""
     logits = unembed(cfg, params, hidden, sharding.active_fetch())
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    # at tp > 1 over the vocab-sharded logits (never gathered)
+    nll = sharding.vocab_parallel_nll(logits, labels)
     if mask is None:
         mask = torch.ones_like(nll)
     total = torch.clamp(mask.sum(), min=1.0)
@@ -798,29 +833,47 @@ class TransformerLM(nn.Module):
     (``models/convert.py``). The two frameworks' generators give
     different numbers from the same seed: parity tests carry the JAX
     weights across instead.
+
+    ``tp=(index, size)`` builds one tp rank's model: each leaf that
+    ``TP_RULES`` shards is drawn whole from the same seeded stream (so
+    every rank's slices come from one model) and only this rank's slice
+    is kept, so no rank holds the whole model; ``self.tp`` records it.
     """
 
     def __init__(self, config: TransformerConfig, *, device: DeviceLike = None,
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0,
+                 tp: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.config = config
+        self.tp = tuple(tp) if tp is not None and tp[1] > 1 else None
         dev = resolve_device(device)
         gen = None
         if seed is not None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
+        self._tp_specs = (None if self.tp is None else
+                          tp_dims(self.logical_axes(config)))
         self.tree = self._build(self.param_shapes(config), dev, gen)
 
     param_shapes = staticmethod(param_shapes)
+    logical_axes = staticmethod(logical_axes)
 
-    def _build(self, node, dev, gen):
+    def _build(self, node, dev, gen, path=""):
         if _is_leaf(node):
             shape, init = node
+            keep = None if self.tp is None else self._tp_specs.get(path)
+            if keep is not None and shape[keep] % self.tp[1]:
+                raise ValueError(f"tp={self.tp[1]} does not divide dim "
+                                 f"{keep} of leaf {path} {tuple(shape)}")
             t = torch.empty(shape, dtype=self.config.dtype, device=dev)
             if gen is not None:
                 _init_leaf(t, init, gen)
+            if keep is not None:  # this rank's slice, the rest freed
+                n = shape[keep] // self.tp[1]
+                t = t.narrow(keep, self.tp[0] * n, n).clone()
             return nn.Parameter(t, requires_grad=False)
-        children = {k: self._build(v, dev, gen) for k, v in node.items()}
+        children = {k: self._build(v, dev, gen, f"{path}/{k}")
+                    for k, v in node.items()}
         if all(isinstance(c, nn.Parameter) for c in children.values()):
             return nn.ParameterDict(children)
         # a node with both leaves and subtrees (the MoE ``layers.moe``:
@@ -861,6 +914,29 @@ class TransformerLM(nn.Module):
 
     def num_params(self) -> int:
         return self.config.num_params()
+
+
+def tp_dims(axes, path: str = "") -> Dict[str, int]:
+    """``/a/b`` path -> the dim ``TP_RULES`` shard over tp, for the leaves
+    of a logical-axes tree that shard at all."""
+    if _is_leaf(axes):
+        d = sharding.axis_dim(sharding.spec_from_logical(
+            axes, sharding.TP_RULES), "tp")
+        return {} if d is None else {path: d}
+    out: Dict[str, int] = {}
+    for k, v in axes.items():
+        out.update(tp_dims(v, f"{path}/{k}"))
+    return out
+
+
+def leaf_shapes(shapes, path: str = "") -> Dict[str, Tuple[int, ...]]:
+    """``/a/b`` path -> the whole shape, of a ``param_shapes`` tree."""
+    if _is_leaf(shapes):
+        return {path: tuple(shapes[0])}
+    out: Dict[str, Tuple[int, ...]] = {}
+    for k, v in shapes.items():
+        out.update(leaf_shapes(v, f"{path}/{k}"))
+    return out
 
 
 @torch.no_grad()

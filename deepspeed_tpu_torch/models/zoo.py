@@ -91,15 +91,18 @@ def get_config(name: str, **overrides) -> TransformerConfig:
 
 
 def get_model(name: str, *, device: DeviceLike = None,
-              seed: Optional[int] = 0, **overrides) -> TransformerLM:
+              seed: Optional[int] = 0, tp=None,
+              **overrides) -> TransformerLM:
     """Instantiate a preset with weights drawn from ``seed`` on
     ``device`` (the card unless the caller says otherwise), optionally
     overriding config fields (e.g. ``dtype=torch.float32``,
-    ``num_layers=2``); a ``MoETransformerLM`` for the MoE presets."""
+    ``num_layers=2``); a ``MoETransformerLM`` for the MoE presets.
+    ``tp=(index, size)`` keeps one tp rank's slice of each leaf
+    (``TransformerLM``)."""
     cfg = get_config(name, **overrides)
     cls = MoETransformerLM if isinstance(cfg, MoETransformerConfig) \
         else TransformerLM
-    return cls(cfg, device=device, seed=seed)
+    return cls(cfg, device=device, seed=seed, tp=tp)
 
 
 __all__ = ["CONFIGS", "get_config", "get_model"]

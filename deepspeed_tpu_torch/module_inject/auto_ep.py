@@ -123,8 +123,8 @@ def ep_model_init(params, mesh=None, ep_size: int = 0,
                   preset: str = "default", dtype=None):
     """Restack an HF MoE tree and keep this rank's share: each expert
     stack's E/ep experts of this rank's ep index (tp dims stay whole:
-    tensor parallelism is item 11). Returns (local tree of torch tensors,
-    specs). An expert count that does not divide ep replicates, with a
+    ``auto_tp.tp_model_init`` cuts those). Returns (local tree of torch
+    tensors, specs). An expert count that does not divide ep replicates, with a
     warning, as in JAX."""
     from deepspeed_tpu_torch.parallel import topology as topo
 

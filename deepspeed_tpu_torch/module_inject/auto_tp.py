@@ -1,4 +1,4 @@
-"""AutoTP's path classification (port of the classifying half of
+"""AutoTP: tensor parallelism for parameter trees (port of
 ``deepspeed_tpu/module_inject/auto_tp.py``).
 
 Reference: ``deepspeed/module_inject/auto_tp.py:194`` classifies each
@@ -8,9 +8,13 @@ path of a tree (HF-style parameter trees, the zoo's trees, plain dicts)
 is classified by the same name policy (q / k / v / gate / up -> column;
 o_proj / down / fc2 -> row; embeddings -> vocab-sharded; norms and
 biases -> replicated) into a spec, a tuple of mesh axis names (the port's
-form of JAX's ``PartitionSpec``). ``AutoEP`` builds on it. Applying the
-specs to a tensor-parallel model (``tp_model_init``, the engines' TP
-path) is ROADMAP queue A item 11 and raises.
+form of JAX's ``PartitionSpec``). ``AutoEP`` builds on it.
+``tp_model_init`` applies the specs: where JAX ``device_put``s each leaf
+onto the mesh with its spec, one process is one rank here, and it keeps
+this rank's slice of each leaf (a leaf that does not divide stays whole,
+with JAX's warning). The zoo models' own tp placement (the engines' TP
+path) follows the logical axes and ``runtime/sharding.TP_RULES``, as
+JAX's engines do.
 """
 
 from __future__ import annotations
@@ -143,9 +147,50 @@ def _divisible(shape: Tuple[int, ...], spec: Spec, mesh) -> bool:
 
 def tp_model_init(params, mesh=None, tp_size: int = 0,
                   policy: Optional[str] = None, dtype=None):
-    raise NotImplementedError(
-        "tp_model_init (placing a tree for tensor parallelism) is not "
-        "ported to deepspeed_tpu_torch yet: ROADMAP queue A item 11 (TP)")
+    """This rank's slice of a parameter tree for tensor-parallel
+    execution (JAX ``tp_model_init``; reference ``deepspeed.tp_model_init``
+    __init__.py:408). ``params`` holds tensors or numpy arrays (a JAX
+    tree read as numpy); without ``mesh`` one is built from ``tp_size``
+    as JAX does (tp = ``tp_size``, dp the rest of the world's ranks).
+
+    Returns (local params as tensors, spec tree). A leaf whose shape does
+    not divide the tp axis stays whole (replicated), with a warning."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.parallel import topology as topo
+    from deepspeed_tpu_torch.utils.logging import log_dist, logger
+
+    if mesh is None:
+        if tp_size <= 0:
+            raise ValueError("tp_model_init needs mesh or tp_size")
+        mesh = topo.build_mesh(topo.TopologyConfig(tp=tp_size, dp=-1))
+    atp = AutoTP(policy=policy)
+    specs = atp.infer_specs(params)
+    coords = mesh.coords()
+
+    def place(path, x):
+        shape = _shape(x)
+        spec = atp.spec_for(path, shape)
+        t = torch.from_numpy(np.asarray(x)) if not isinstance(
+            x, torch.Tensor) else x
+        if dtype is not None:
+            t = t.to(dtype)
+        if not _divisible(shape, spec, mesh):
+            logger.warning(
+                f"AutoTP: shape {shape} not divisible by tp axis for spec "
+                f"{spec}; replicating")
+            return t
+        for dim, axis in enumerate(spec):
+            if axis is not None and mesh.shape[axis] > 1:
+                n = shape[dim] // mesh.shape[axis]
+                t = t.narrow(dim, coords[axis] * n, n)
+        return t.contiguous()
+
+    local = _walk(params, place)
+    log_dist(f"AutoTP over tp={mesh.shape.get('tp', 1)}: "
+             f"{atp.summary(params)}", ranks=[0])
+    return local, specs
 
 
 __all__ = ["SEP", "AutoTP", "tp_model_init"]

@@ -19,8 +19,13 @@ The einsum path under ep gathers the expert stack over ep (its backward
 reduce-scatters the expert gradients back). ``global_tokens=True`` takes
 JAX's whole batch instead and places the tokens as JAX's shard_map does
 (batch, then sequence; ``moe.grouped_replicated_tokens`` counts the
-axes that place nothing). tp-split experts raise (ROADMAP queue A item
-9's leftover, with item 11's tensor parallelism).
+axes that place nothing). With tp > 1 every expert's FFN width splits
+over tp (each rank holds F/tp of ``wi`` / ``wg`` / ``wo``): the ranks
+route the same tokens, the rows enter the experts through
+``sharding.tp_copy`` and the combine weights too (each rank's weight
+gradient is a partial sum), the fp32 combine is all-reduced over tp
+(JAX ``moe.py:415``) and ``dispatch_digest_mismatch`` says whether the
+tp ranks routed alike (JAX's order-sensitive digest, ``:326-338``).
 
 Deliberate differences from the JAX core, each the same function:
 - no padding of the sorted rows to a multiple of 128 (a TPU tile rule;
@@ -43,8 +48,8 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.ops.grouped_matmul import gmm
+from deepspeed_tpu_torch.runtime import sharding
 
-_A9 = "ROADMAP queue A item 9"
 TOKEN_AXES = ("dp", "fsdp", "ep")
 
 
@@ -251,13 +256,9 @@ def _dropless_shard_core(x: torch.Tensor, router_w: torch.Tensor,
     expert and run through the whole (local) expert stack; with ep > 1
     ``expert_params`` hold this rank's E/ep experts and rows travel to
     their owner's rank and back (the reference's dispatch / combine pair,
-    sharded_moe.py:589-685). Returns (out [B, S, H] in x's type, routing
-    statistics)."""
-    if tp > 1:
-        raise NotImplementedError(
-            f"the dropless dispatch with tp={tp} (tp-split experts, the tp "
-            f"psum and the routing digest) is {_A9}'s leftover, with item "
-            "11's tensor parallelism")
+    sharded_moe.py:589-685). With tp > 1 the experts hold this rank's
+    F/tp and the combine is summed over tp. Returns (out [B, S, H] in x's
+    type, routing statistics)."""
     B, S, H = x.shape
     E, k = cfg.num_experts, cfg.top_k
     e_loc = E // ep
@@ -292,11 +293,17 @@ def _dropless_shard_core(x: torch.Tensor, router_w: torch.Tensor,
         "ep_dropped_frac": torch.zeros(1, device=dev),
         "dispatch_digest_mismatch": torch.zeros(1, device=dev),
     }
+    if tp > 1:
+        stats["dispatch_digest_mismatch"] = _digest_mismatch(flat_expert)
+        # the experts see this rank's F/tp: the rows and the combine
+        # weights enter the tp region (their gradients are partial sums)
+        flat_x = sharding.tp_copy(flat_x)
+        flat_w = sharding.tp_copy(flat_w)
 
     if ep > 1:
         out = _ep_dispatch(flat_x, flat_expert, flat_w, token_idx,
                            expert_params, cfg, activation, ep, train, stats)
-        return out.to(dt).reshape(B, S, H), stats
+        return sharding.tp_reduce(out).to(dt).reshape(B, S, H), stats
 
     order = torch.argsort(flat_expert, stable=True)          # [m0]
     sorted_x = flat_x[token_idx[order]]                      # [m0, H]
@@ -309,7 +316,24 @@ def _dropless_shard_core(x: torch.Tensor, router_w: torch.Tensor,
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(m0, device=dev)
     out = contrib[inverse].reshape(tokens, k, H).sum(dim=1)
+    out = sharding.tp_reduce(out)  # the F/tp partials (fp32)
     return out.to(dt).reshape(B, S, H), stats
+
+
+_DIGEST_MUL = 2654435761
+_DIGEST_ADD = 12345
+
+
+def _digest_mismatch(flat_expert: torch.Tensor) -> torch.Tensor:
+    """1.0 where the tp ranks' routing digests differ, else 0.0 ([1]
+    fp32): JAX's uint32 sum of ``expert * (row * 2654435761 + 12345)``,
+    its max against its min over tp."""
+    rows = torch.arange(flat_expert.numel(), device=flat_expert.device)
+    weight = (rows * _DIGEST_MUL + _DIGEST_ADD) % (1 << 32)
+    dig = ((flat_expert.long() * weight).sum() % (1 << 32)).reshape(1)
+    hi = comm.all_reduce(dig, "tp", op="max", log_name="moe_digest")
+    lo = comm.all_reduce(dig, "tp", op="min", log_name="moe_digest")
+    return (hi != lo).float()
 
 
 def _ep_dispatch(flat_x, flat_expert, flat_w, token_idx, expert_params,
@@ -530,7 +554,10 @@ def _moe_ffn_einsum(x, router_w, expert_params, cfg: GateConfig,
     logits = torch.einsum("bsh,he->bse", x, router_w.to(dt))
     capacity = compute_capacity(S, cfg, train=train)
     combine, dispatch, aux = top_k_gating(logits, cfg, capacity)
-    dispatched = torch.einsum("bsh,bsec->bech", x, dispatch.to(dt))
+    # at tp > 1 the experts hold F/tp: their input and the combine
+    # weights enter the tp region, the combine leaves it summed
+    dispatched = sharding.tp_copy(
+        torch.einsum("bsh,bsec->bech", x, dispatch.to(dt)))
     ep = _mesh_sizes().get("ep", 1)
 
     def expert(name):
@@ -549,7 +576,8 @@ def _moe_ffn_einsum(x, router_w, expert_params, cfg: GateConfig,
         hidden = F.gelu(torch.einsum("bech,ehf->becf", dispatched, wi),
                         approximate="tanh")
     expert_out = torch.einsum("becf,efh->bech", hidden, wo)
-    out = torch.einsum("bech,bsec->bsh", expert_out, combine.to(dt))
+    out = sharding.tp_reduce(torch.einsum(
+        "bech,bsec->bsh", expert_out, sharding.tp_copy(combine.to(dt))))
     token_ranks = tuple(a for a in TOKEN_AXES
                         if _mesh_sizes().get(a, 1) > 1)
     if token_ranks and not group_stats:

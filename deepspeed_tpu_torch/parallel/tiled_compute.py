@@ -66,16 +66,16 @@ def tiled_mlp(mlp_fn: Callable, x: torch.Tensor, n_tiles: int,
 
 
 def _tile_nll(h, lbl, m, unembed, transpose_unembed, tile_transform):
+    from deepspeed_tpu_torch.runtime import sharding
+
     if tile_transform is not None:
         h = tile_transform(h)
+    h = sharding.tp_copy(h)  # a vocab-sharded head at tp > 1
     if transpose_unembed:
         logits = torch.matmul(h, unembed.t())
     else:
         logits = torch.matmul(h, unembed)
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lbl.long()[..., None])[..., 0]
-    nll = (logz - gold) * m
+    nll = sharding.vocab_parallel_nll(logits.float(), lbl) * m
     return nll.sum(), m.sum()
 
 

@@ -255,6 +255,19 @@ class use_mesh:
         return False
 
 
+def on_mesh(method):
+    """Run an engine method with the engine's ``mesh`` as the global one
+    (engines in one process each set their own; the collectives read it,
+    in the backward too)."""
+    def wrapper(self, *args, **kwargs):
+        with use_mesh(self.mesh):
+            return method(self, *args, **kwargs)
+
+    wrapper.__name__ = method.__name__
+    wrapper.__doc__ = method.__doc__
+    return wrapper
+
+
 def _axis_size(mesh: Optional[Mesh], axis: str) -> int:
     mesh = mesh or get_global_mesh()
     return mesh.shape[axis]
@@ -329,7 +342,7 @@ def replicated(mesh: Mesh) -> BatchSlice:
 
 __all__ = ["MESH_AXES", "BATCH_AXES", "SEQ_AXIS", "TopologyConfig", "Mesh",
            "BatchSlice", "build_mesh", "set_global_mesh", "get_global_mesh",
-           "use_mesh", "get_data_parallel_world_size",
+           "use_mesh", "on_mesh", "get_data_parallel_world_size",
            "get_model_parallel_world_size", "get_tensor_parallel_world_size",
            "get_pipeline_parallel_world_size",
            "get_expert_parallel_world_size",

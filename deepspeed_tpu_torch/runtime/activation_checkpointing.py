@@ -39,9 +39,13 @@ Each knob and its counterpart here:
     (``utils/memspace.py``) and come back to the card in the recompute.
     They never pass through saved-tensor hooks, so they compose with the
     checkpoint's own hooks.
-  * ``partition_activations`` -> the identity at tp = 1, as in JAX
-    (``_partition_constraint``); at tp > 1 it raises (ROADMAP queue A
-    item 11's TP part).
+  * ``partition_activations`` -> JAX's ``_partition_constraint``: at
+    tp > 1 the checkpointed call's first tensor argument (the residual
+    stream) enters the checkpoint as this rank's 1/tp of its last dim
+    (``sharding.tp_slice``, whose backward all-gathers the gradient) and
+    is all-gathered inside it, so the checkpoint keeps the slice and the
+    recompute gathers again; a last dim that does not divide stays
+    whole. The identity at tp = 1.
   * ``contiguous_memory_optimization`` -> accepted, no effect (the
     caching allocator packs the recompute's buffers), with JAX's log
     line.
@@ -64,11 +68,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_map
 
 from deepspeed_tpu_torch.ops.flash_attention import FLASH_FWD_OP
+from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.utils import memspace
 from deepspeed_tpu_torch.utils.logging import logger
-
-_A11_TP = ("ROADMAP queue A item 11's TP part (tensor parallelism; "
-           "partition_activations shards the saved activations over tp)")
 
 # remat policy registry (config activation_checkpointing.policy), JAX's
 POLICIES = {
@@ -372,16 +374,22 @@ class _Contexts:
         return _SaveMode(frame), _ReplayMode(frame)
 
 
-def _check_partition(part: bool) -> None:
-    if not part:
-        return
-    from deepspeed_tpu_torch.parallel import topology
+def _remat(function: Callable, resolved) -> Callable:
+    """``function`` under the resolved policy's checkpoint."""
+    if resolved == "everything":
+        return function
+    if resolved is None:
+        def inner(*args, **kwargs):
+            return torch.utils.checkpoint.checkpoint(
+                function, *args, use_reentrant=False, **kwargs)
+        return inner
+    contexts = _Contexts(resolved)
 
-    mesh = topology._GLOBAL_MESH
-    if mesh is not None and mesh.shape.get("tp", 1) > 1:
-        raise NotImplementedError(
-            f"activation_checkpointing.partition_activations at tp="
-            f"{mesh.shape['tp']}: {_A11_TP}")
+    def inner(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(
+            function, *args, use_reentrant=False, context_fn=contexts,
+            **kwargs)
+    return inner
 
 
 def checkpoint_wrapper(function: Callable,
@@ -392,27 +400,30 @@ def checkpoint_wrapper(function: Callable,
     resolved = resolve_policy(policy, cpu_checkpointing)
     part = (_GLOBAL_CONFIG.get("partition_activations", False)
             if partition_activations is None else partition_activations)
-
-    if resolved == "everything":
-        inner = function
-    elif resolved is None:
-        def inner(*args, **kwargs):
-            return torch.utils.checkpoint.checkpoint(
-                function, *args, use_reentrant=False, **kwargs)
-    else:
-        contexts = _Contexts(resolved)
-
-        def inner(*args, **kwargs):
-            return torch.utils.checkpoint.checkpoint(
-                function, *args, use_reentrant=False, context_fn=contexts,
-                **kwargs)
-
+    inner = _remat(function, resolved)
     if not part:
         return inner
 
+    def gathered(i):
+        def fn(*args, **kwargs):
+            args = list(args)
+            args[i] = sharding.tp_gather(args[i])
+            return function(*args, **kwargs)
+        return fn
+
     def wrapped(*args, **kwargs):
-        _check_partition(part)  # the identity at tp = 1, as in JAX
-        return inner(*args, **kwargs)
+        # JAX's _partition_constraint on the first array argument (the
+        # residual stream): the identity at tp = 1 or when its last dim
+        # does not divide
+        i = next((j for j, a in enumerate(args)
+                  if isinstance(a, torch.Tensor)), None)
+        n = sharding.tp_size()
+        if i is None or n == 1 or args[i].dim() < 1 or \
+                args[i].shape[-1] % n:
+            return inner(*args, **kwargs)
+        args = list(args)
+        args[i] = sharding.tp_slice(args[i])
+        return _remat(gathered(i), resolved)(*args, **kwargs)
 
     return wrapped
 

@@ -5,7 +5,9 @@ numpy batches (dicts of stacked arrays, or whatever ``collate_fn``
 returns); the engine moves each batch to its device. Across ranks each
 process reads its contiguous share of the sample space (JAX's
 ``_num_procs`` / ``_proc_id``: the process group's world size and rank,
-taken when the loader is built); one process reads all of it. The
+taken when the loader is built; on a mesh, the data ranks and this
+rank's data index, so the ranks of one tp group read the same rows); one
+process reads all of it. The
 index order is a
 pure function of ``(seed, epoch)`` (``np.random.default_rng(seed +
 epoch)``, as in JAX), so a given seed and epoch give JAX's batches.
@@ -56,8 +58,16 @@ class DeepSpeedDataLoader:
         self._epoch = 0
         from deepspeed_tpu_torch import comm
 
-        self._num_procs = comm.get_world_size()
-        self._proc_id = comm.get_rank()
+        from deepspeed_tpu_torch.parallel import topology
+
+        mesh = topology._GLOBAL_MESH
+        if mesh is not None and mesh.distributed:
+            # the data ranks: the ranks of one tp group read the same rows
+            self._num_procs = mesh.axis_size(topology.BATCH_AXES)
+            self._proc_id = mesh.axis_index(topology.BATCH_AXES)
+        else:
+            self._num_procs = comm.get_world_size()
+            self._proc_id = comm.get_rank()
         self._warned_stream_shuffle = False
         try:
             self._len = len(dataset)

@@ -57,8 +57,19 @@ split over the ``ep`` ranks (``moe.ep_size``): each rank holds E/ep of
 every expert stack, a dense gradient reduces over every token rank and an
 expert gradient over the dp x fsdp ranks that share the expert. At world
 size > 1 the optimizer offload tiers, ZenFlow, a client optimizer or a
-non-elementwise optimizer at stage >= 1, tp-split experts and the pp, sp
-and tp axes raise ``NotImplementedError`` naming their ROADMAP item.
+non-elementwise optimizer at stage >= 1 and the pp and sp axes raise
+``NotImplementedError`` naming their ROADMAP item.
+
+Tensor parallelism (``tensor_parallel.autotp_size``, or a mesh with a
+tp axis): each rank holds its tp slice of every leaf ``TP_RULES``
+shards (heads, kv heads, the MLP width, the vocab; ZeRO's fsdp blocks
+are blocks of that slice) and the model issues the tp collectives
+(``runtime/sharding.py``). The ranks of one tp group read the same
+batch rows (``topology.batch_sharding`` and the dataloader count data
+ranks only), the loss is averaged over the data ranks, and the clip's
+norm sums the tp-sharded leaves over tp and a replicated leaf once. An
+MoE model's experts split their FFN width over tp. ZeRO++, the 1-bit
+optimizers, a client optimizer and ``offload_param`` raise at tp > 1.
 
 ZeRO++ (JAX ``engine.py:293-420``): the stage 1-2 step where it applies
 (AdamW, no fp16, MoE, offload, client optimizer or hpZ / MiCS; the
@@ -243,19 +254,6 @@ _A = "ROADMAP queue A item"
 # of the masters alone (Lamb's trust ratio, Adafactor's factored moments
 # and Muon's Newton-Schulz read whole leaves)
 ELEMENTWISE_OPTIMIZERS = (Adam, SGD, Lion, Adagrad)
-
-
-def _on_mesh(method):
-    """Run an engine method with the engine's mesh as the global one (two
-    engines in one process each set it at init; the collectives read
-    it, in the backward too)."""
-    def wrapper(self, *args, **kwargs):
-        with topo.use_mesh(self.mesh):
-            return method(self, *args, **kwargs)
-
-    wrapper.__name__ = method.__name__
-    wrapper.__doc__ = method.__doc__
-    return wrapper
 
 
 def _map_with_path(fn, tree, prefix: str = ""):
@@ -488,7 +486,8 @@ class Engine:
                 not self._onebit:
             logical = self._logical_axes(model)
             self._zero = ZeroPartition(self.plan, self.mesh, logical,
-                                       zero.stage, qgz=self._qgz_stage3)
+                                       zero.stage, qgz=self._qgz_stage3,
+                                       full_shapes=self._full_shapes(model))
             self._zero.check(model.params())
             stage3 = any(d is not None
                          for d in self._zero.param_dim.values())
@@ -619,12 +618,14 @@ class Engine:
         """JAX's default mesh (``engine.py:654-679``) over the world's
         ranks: dp = world for the ZeRO++ stage 1-2 step, fsdp = the group
         and dp = the replicas under hpZ / MiCS, else fsdp = world at
-        stage >= 1 and dp = world at stage 0 (ep from the moe block; pp,
-        tp and sp blocks raise at the config)."""
+        stage >= 1 and dp = world at stage 0 (ep from the moe block, tp
+        from the tensor_parallel block's ``autotp_size``, as JAX's
+        ``engine.py:659``; the pp and sp blocks raise at the config)."""
         if topology is not None:
             return topo.build_mesh(topology)
         cfg = self.config
-        sizes = dict(ep=cfg.moe.ep_size if cfg.moe.enabled else 1)
+        sizes = dict(ep=cfg.moe.ep_size if cfg.moe.enabled else 1,
+                     tp=cfg.tensor_parallel.size)
         z = cfg.zero_optimization
         hpz, mics = z.zero_hpz_partition_size, z.mics_shard_size
         group = hpz if hpz > 1 else (mics if mics > 0 else 0)
@@ -761,14 +762,15 @@ class Engine:
                 f"size {world}: the host optimizer tiers run on one rank; "
                 f"across ranks they are {_A} 5's leftover (JAX config C, "
                 "ZenFlow on the fsdp mesh)")
-        if isinstance(getattr(model, "config", None),
-                      moe_transformer.MoETransformerConfig) and \
-                self.mesh.shape["tp"] > 1:
+        tp = self.mesh.shape["tp"]
+        if tp > 1 and (self._zeropp or self._onebit or self._qwz_stage3
+                       or self._qgz_stage3 or self._client_optimizer_present
+                       or zero.offload_param_device != "none"):
             raise NotImplementedError(
-                f"an MoE model on tp={self.mesh.shape['tp']}: the tp-split "
-                f"experts (the tp psum and the routing digest) are {_A} "
-                "9's leftover, with item 11's tensor parallelism")
-        for axis, item in (("pp", 11), ("sp", 11), ("tp", 11)):
+                f"ZeRO++, the 1-bit optimizers, a client optimizer and "
+                f"offload_param at tp={tp} are not ported yet: the TP "
+                f"leftovers of {_A} 4, 10 and 12")
+        for axis, item in (("pp", 11), ("sp", 11)):
             if self.mesh.shape[axis] > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis}={self.mesh.shape[axis]}: {_A} "
@@ -778,6 +780,16 @@ class Engine:
                 f"a client optimizer at ZeRO stage {zero.stage} and world "
                 f"size {world}: it steps whole tensors, the ranks hold "
                 f"blocks of the masters ({_A} 5's leftover)")
+
+    @staticmethod
+    def _full_shapes(model) -> Optional[Dict[str, tuple]]:
+        """Each leaf's whole shape by ``/a/b`` path (a model built as one
+        tp rank's slice holds less), or None for a model without
+        ``param_shapes``."""
+        shapes = getattr(model, "param_shapes", None)
+        if shapes is None or getattr(model, "config", None) is None:
+            return None
+        return tf_model.leaf_shapes(shapes(model.config))
 
     def _logical_axes(self, model) -> Dict[str, Any]:
         """The model's logical axes (JAX's ``logical_axes``); a ``(loss_fn,
@@ -1282,7 +1294,7 @@ class Engine:
         else:
             acc.add_(g)
 
-    @_on_mesh
+    @topo.on_mesh
     def train_batch(self, data_iter=None) -> torch.Tensor:
         """One training step over ``gradient_accumulation_steps``
         microbatches from ``data_iter`` (default: a fresh pass over the
@@ -1638,7 +1650,7 @@ class Engine:
             "stop training and exit")
 
     # -- micro-step API (JAX engine.py:1387-1445) ---------------------------
-    @_on_mesh
+    @topo.on_mesh
     def forward(self, batch) -> torch.Tensor:
         """One microbatch's loss (this rank's rows), keeping the autograd
         graph for :meth:`backward`."""
@@ -1654,7 +1666,7 @@ class Engine:
 
     __call__ = forward
 
-    @_on_mesh
+    @topo.on_mesh
     def backward(self, loss: Optional[torch.Tensor] = None,
                  retain_graph: bool = False) -> torch.Tensor:
         """Back-propagate ``loss`` (default: the last ``forward``'s) into
@@ -1681,7 +1693,7 @@ class Engine:
     def is_gradient_accumulation_boundary(self) -> bool:
         return self.micro_steps % self.gradient_accumulation_steps == 0
 
-    @_on_mesh
+    @topo.on_mesh
     def step(self) -> None:
         """Apply the update at the accumulation boundary; a no-op
         elsewhere."""
@@ -1700,7 +1712,7 @@ class Engine:
                                api="micro")
         self.timers(STEP_GLOBAL_TIMER).stop(block=self._timer_block(loss))
 
-    @_on_mesh
+    @topo.on_mesh
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
         """The loss of this rank's rows (averaged over the data ranks on
@@ -1824,6 +1836,9 @@ class Engine:
         with topo.use_mesh(self.mesh):
             if zero.grad_dim.get(path) is None:
                 g = comm.all_reduce(g, topo.BATCH_AXES)
+                d = zero.tp_dim.get(path)
+                if d is not None:  # this rank's tp slice made whole
+                    g = comm.all_gather(g.contiguous(), "tp", gather_dim=d)
             else:
                 if self.mesh.shape["dp"] > 1:
                     g = comm.all_reduce(g, "dp")

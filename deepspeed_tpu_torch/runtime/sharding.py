@@ -36,8 +36,18 @@ identity: an eager program issues each gather where the code stands.
 hpZ and MiCS build fsdp = the group and dp = the replicas
 (``make_sharding_plan`` keeps the state sharded over the fsdp group).
 
-Not ported, with their reasons: ``vocab_parallel_lookup`` goes with
-ROADMAP queue A item 11 (tensor parallelism); the GSPMD-only context
+Tensor parallelism (``TP_RULES``: heads, kv heads, the MLP width and
+the vocab over ``tp``): where JAX lets GSPMD insert the collectives, the
+port issues them through autograd Functions, Megatron's pair:
+``tp_copy`` (the identity; the backward all-reduces) before a
+column-parallel projection and ``tp_reduce`` (the all-reduce; the
+backward is the identity) after a row-parallel one. ``tp_gather`` makes
+vocab-sharded logits whole, ``vocab_parallel_lookup`` is JAX's masked
+local gather and all-reduce, ``vocab_parallel_nll`` the cross-entropy of
+vocab-sharded logits (the max and the sum all-reduced, never the logits
+gathered), and ``tp_local`` a leaf's tp slice.
+
+Not ported, with their reasons: the GSPMD-only context
 managers ``disable_constraints`` / ``manual_axes`` / ``vmapped_axes``,
 ``constrain_activation``, ``named_sharding`` and ``effective_dtype`` have
 no eager counterpart: there is no partitioner to steer.
@@ -255,13 +265,19 @@ def make_sharding_plan(config, mesh) -> ShardingPlan:
                         opt_rules=tuple(opt_rules))
 
 
-def fsdp_dim(spec: Spec) -> Optional[int]:
-    """The dim of ``spec`` that shards over ``fsdp``, or None."""
+def axis_dim(spec: Spec, axis: str) -> Optional[int]:
+    """The dim of ``spec`` that shards over mesh axis ``axis``, or
+    None."""
     for d, entry in enumerate(spec):
         axes = (entry,) if isinstance(entry, str) else (entry or ())
-        if "fsdp" in axes:
+        if axis in axes:
             return d
     return None
+
+
+def fsdp_dim(spec: Spec) -> Optional[int]:
+    """The dim of ``spec`` that shards over ``fsdp``, or None."""
+    return axis_dim(spec, "fsdp")
 
 
 def shard_of(t: torch.Tensor, dim: Optional[int], axis: str = "fsdp"
@@ -616,6 +632,176 @@ def fetched(fetch: Optional[LayerFetch], params: Dict[str, Any],
     return node if fetch is None else fetch.leaf(path, node)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the collectives GSPMD inserts for the TP_RULES specs
+# ---------------------------------------------------------------------------
+# JAX places the heads, the MLP width and the vocab over tp and lets XLA
+# insert the collectives. An eager program writes them (Megatron's
+# column / row pair): a column-parallel projection takes its replicated
+# input through ``tp_copy`` (the identity; its backward sums the ranks'
+# partial input gradients), a row-parallel one gives a partial sum that
+# ``tp_reduce`` all-reduces (its backward is the identity: the gradient
+# of a replicated value is the same on every rank). Each is a no-op
+# where the mesh has no tp ranks.
+
+TP = "tp"
+
+
+def tp_size() -> int:
+    """The tp ranks of the global mesh when its tp collectives
+    communicate (1 otherwise: the model then holds whole leaves)."""
+    mesh = topology._GLOBAL_MESH
+    if mesh is None or mesh.shape.get(TP, 1) == 1 or not mesh.issues(TP):
+        return 1
+    return mesh.shape[TP]
+
+
+def tp_index() -> int:
+    return topology._GLOBAL_MESH.axis_index(TP) if tp_size() > 1 else 0
+
+
+class _TpCopy(torch.autograd.Function):
+    """Into the tp region: the identity; the backward all-reduces."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_reduce(g.contiguous(), TP, log_name="tp_copy_grad")
+
+
+class _TpReduce(torch.autograd.Function):
+    """Out of the tp region: the all-reduce; the backward is the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return comm.all_reduce(x.contiguous(), TP, log_name="tp_reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _TpGather(torch.autograd.Function):
+    """The ranks' slices of the last dim all-gathered; the backward
+    keeps this rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n = x.shape[-1]
+        return comm.all_gather(x.contiguous(), TP, gather_dim=-1,
+                               log_name="tp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, tp_index() * ctx.n, ctx.n).contiguous()
+
+
+class _TpSlice(torch.autograd.Function):
+    """This rank's slice of a replicated tensor's last dim; the backward
+    all-gathers the ranks' gradient slices."""
+
+    @staticmethod
+    def forward(ctx, x):
+        n = x.shape[-1] // tp_size()
+        return x.narrow(-1, tp_index() * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_gather(g.contiguous(), TP, gather_dim=-1,
+                               log_name="tp_slice_grad")
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """A replicated input entering a column-parallel op."""
+    return _TpCopy.apply(x) if tp_size() > 1 else x
+
+
+def tp_reduce(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel op's partial sums, summed over the tp ranks."""
+    return _TpReduce.apply(x) if tp_size() > 1 else x
+
+
+def tp_gather(x: torch.Tensor) -> torch.Tensor:
+    """Vocab-sharded logits (the last dim) made whole on every rank."""
+    return _TpGather.apply(x) if tp_size() > 1 else x
+
+
+def tp_slice(x: torch.Tensor) -> torch.Tensor:
+    """This rank's 1/tp of a replicated tensor's last dim (JAX's rule:
+    a dim that does not divide stays whole)."""
+    n = tp_size()
+    if n == 1 or x.shape[-1] % n:
+        return x
+    return _TpSlice.apply(x)
+
+
+def vocab_parallel_lookup(table: torch.Tensor, ids: torch.Tensor,
+                          axis: str = TP,
+                          vocab: Optional[int] = None) -> torch.Tensor:
+    """Embedding lookup on a vocab-sharded table (JAX
+    ``runtime/sharding.py:549``): each rank gathers the ids of its own
+    vocab rows, zeroes the others and the all-reduce assembles the row
+    each token hit. The ids are clamped to [0, V) first, as XLA's gather
+    clamps. The backward is the masked scatter-add into this rank's
+    rows. ``table`` is this rank's [V/tp, H] rows; with no tp ranks, or
+    a whole table (``vocab`` rows: a vocab that does not divide stays
+    whole), the plain gather."""
+    if axis != TP:
+        raise ValueError(f"vocab_parallel_lookup shards over tp, got "
+                         f"axis {axis!r}")
+    n = tp_size()
+    if n <= 1 or table.shape[0] == vocab:
+        return table[ids.long()]
+    shard = table.shape[0]
+    V = shard * n
+    ids = ids.long().clamp(0, V - 1)
+    local = ids - tp_index() * shard
+    valid = (local >= 0) & (local < shard)
+    rows = table[torch.where(valid, local, torch.zeros_like(local))]
+    rows = rows * valid[..., None].to(rows.dtype)
+    return tp_reduce(rows)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """The cross-entropy (logsumexp - gold) of vocab-sharded fp32 logits
+    [..., V/tp] without gathering them: the max and the sum of the
+    exponentials all-reduced over tp, the gold logit from the rank that
+    holds it. Whole logits (no tp ranks) take ``logsumexp`` as before."""
+    labels = labels.long()
+    if tp_size() == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        return logz - torch.gather(logits, -1, labels[..., None])[..., 0]
+    shard = logits.shape[-1]
+    m = comm.all_reduce(logits.detach().amax(dim=-1), TP, op="max",
+                        log_name="tp_ce_max")
+    s = tp_reduce(torch.exp(logits - m[..., None]).sum(dim=-1))
+    logz = torch.log(s) + m
+    local = labels - tp_index() * shard
+    valid = (local >= 0) & (local < shard)
+    gold = torch.gather(logits, -1, torch.where(
+        valid, local, torch.zeros_like(local))[..., None])[..., 0]
+    gold = tp_reduce(gold * valid.to(gold.dtype))
+    return logz - gold
+
+
+def tp_local(t, dim: Optional[int], full: int, n: int, index: int):
+    """This rank's tp slice of a leaf along ``dim`` (a view): ``t``
+    itself when it is already the slice (``full / n`` long there) or
+    ``dim`` is None."""
+    if dim is None or n == 1 or t.shape[dim] * n == full != t.shape[dim]:
+        return t
+    if t.shape[dim] != full or full % n:
+        raise ValueError(f"a leaf of shape {tuple(t.shape)}: dim {dim} is "
+                         f"neither {full} nor its 1/{n} slice")
+    size = full // n
+    return t.narrow(dim, index * size, size)
+
+
 __all__ = ["LOGICAL_AXES", "TP_RULES", "FSDP_RULES", "EP_RULES", "PP_RULES",
            "ACT_RULES", "spec_from_logical", "ShardingPlan",
            "make_sharding_plan", "set_z3_leaf_modules",
@@ -624,4 +810,6 @@ __all__ = ["LOGICAL_AXES", "TP_RULES", "FSDP_RULES", "EP_RULES", "PP_RULES",
            "LayerFetch", "param_fetch", "active_fetch", "fetched",
            "QWZ_BLOCK", "configure_qwz", "qwz_context",
            "qwz_active", "qwz_sequence_barrier", "qwz_plan",
-           "quantized_param_fetch"]
+           "quantized_param_fetch", "tp_size", "tp_index", "tp_copy",
+           "tp_reduce", "tp_gather", "tp_slice", "vocab_parallel_lookup",
+           "vocab_parallel_nll", "axis_dim", "tp_local"]

@@ -30,6 +30,13 @@ summed over the ep ranks by the dispatch's all-to-all backward, reduces
 over the dp x fsdp ranks that share the expert; a dense gradient over
 every token rank, dp x fsdp x ep; both become means over all of them.
 
+With tensor parallelism (tp > 1) every role of a leaf that ``TP_RULES``
+shards (heads, kv heads, the MLP width, the vocab) is this rank's tp
+slice first: the fsdp block is a block of that slice, and the data-axis
+reductions run within the ranks of one tp index (the groups of
+``BATCH_AXES`` never span tp). The global norm sums a tp-sharded leaf's
+squares over tp as well and counts a replicated leaf once (tp index 0).
+
 Under ZeRO++'s qgZ (stages 2-3, fsdp > 1) a gradient reduces with a
 quantized wire (``runtime/qgz.reduce_leaf``): at stage 2 the full
 gradients accumulate (fp32 at GAS > 1) and each is reduced once at the
@@ -47,21 +54,14 @@ import torch
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.parallel.topology import BATCH_AXES
 from deepspeed_tpu_torch.runtime.optimizer import leaves
-from deepspeed_tpu_torch.runtime.sharding import fsdp_dim, shard_of
+from deepspeed_tpu_torch.runtime.sharding import (axis_dim, fsdp_dim,
+                                                  shard_of, tp_local)
 from deepspeed_tpu_torch.runtime import qgz as qgz_mod
 
 logger = logging.getLogger(__name__)
 
 FSDP = "fsdp"
 EXPERT_REDUCE = ("dp", "fsdp")
-
-
-def _ep_dim(spec) -> Optional[int]:
-    for d, entry in enumerate(spec):
-        axes = (entry,) if isinstance(entry, str) else (entry or ())
-        if "ep" in axes:
-            return d
-    return None
 
 
 class ZeroPartition:
@@ -74,7 +74,8 @@ class ZeroPartition:
     per_rank_state = False
 
     def __init__(self, plan, mesh, logical_tree: Dict[str, Any],
-                 stage: int, qgz: bool = False):
+                 stage: int, qgz: bool = False,
+                 full_shapes: Optional[Dict[str, tuple]] = None):
         self.mesh = mesh
         self.plan = plan
         self.stage = stage
@@ -85,6 +86,8 @@ class ZeroPartition:
         self.ep_n = mesh.axis_size("ep")
         self.ep_index = mesh.axis_index("ep")
         self.dp_index = mesh.axis_index("dp")
+        self.tp_n = mesh.axis_size("tp")
+        self.tp_index = mesh.axis_index("tp")
 
         def dims(tree):
             return {path: fsdp_dim(spec) for path, spec in leaves(tree)}
@@ -93,14 +96,30 @@ class ZeroPartition:
         self.grad_spec = dict(leaves(plan.grad_shardings(logical_tree)))
         self.grad_dim = {p: fsdp_dim(s) for p, s in self.grad_spec.items()}
         self.opt_dim = dims(plan.opt_shardings(logical_tree))
-        self.ep_dim = {path: _ep_dim(spec) for path, spec in
+        self.ep_dim = {path: axis_dim(spec, "ep") for path, spec in
                        leaves(plan.param_shardings(logical_tree))}
+        # the tp dim of each leaf and its whole length (``full_shapes``:
+        # the model's leaf shapes before any slicing)
+        self.tp_dim: Dict[str, Optional[int]] = {}
+        self.tp_full: Dict[str, int] = {}
+        if self.tp_n > 1:
+            for path, spec in leaves(plan.param_shardings(logical_tree)):
+                d = axis_dim(spec, "tp")
+                if d is not None:
+                    self.tp_dim[path] = d
+                    self.tp_full[path] = full_shapes[path][d]
 
     # -- layout ---------------------------------------------------------------
     def check(self, params) -> None:
-        """Every sharded dim splits evenly over the fsdp ranks (JAX
-        refuses an uneven sharding too)."""
+        """Every sharded dim splits evenly over the tp, ep and fsdp ranks
+        (JAX refuses an uneven sharding too)."""
         for path, p in leaves(params):
+            t = self.tp_dim.get(path)
+            if t is not None and self.tp_full[path] % self.tp_n:
+                raise ValueError(
+                    f"tp={self.tp_n} does not divide dim {t} "
+                    f"({self.tp_full[path]}) of leaf {path}")
+            p = self.tp(path, p)
             e = self.ep_dim.get(path)
             if e is not None and p.shape[e] % self.ep_n:
                 raise ValueError(
@@ -119,8 +138,14 @@ class ZeroPartition:
         """This rank's block of a full leaf for ``role`` (opt, grad or
         param): a view, or ``t`` where the role does not shard; an expert
         leaf's experts are this rank's E/ep first."""
-        return shard_of(self.experts(path, t),
+        return shard_of(self.experts(path, self.tp(path, t)),
                         getattr(self, f"{role}_dim").get(path))
+
+    def tp(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's tp slice of a leaf (a view; ``t`` where it is the
+        slice already or the leaf is replicated over tp)."""
+        return tp_local(t, self.tp_dim.get(path), self.tp_full.get(path, 0),
+                        self.tp_n, self.tp_index)
 
     def master_of_param(self, path: str, p: torch.Tensor) -> torch.Tensor:
         """This rank's master block from its compute param (a re-seed):
@@ -156,7 +181,7 @@ class ZeroPartition:
         reduction of its whole gradient, the dim its stage-2 block is
         gathered back along), or None for other leaves."""
         spec = self.plan.param_spec(axes)
-        edim = _ep_dim(spec)
+        edim = axis_dim(spec, "ep")
         if edim is None:
             return None
         fdim = fsdp_dim(spec)
@@ -221,18 +246,24 @@ class ZeroPartition:
         """Whether this rank counts ``path`` in the global norm: its
         block of a sharded leaf, or a replicated leaf on fsdp rank 0
         (with ep ranks: a dense leaf on ep rank 0 and dp rank 0, an
-        expert leaf on every ep rank)."""
+        expert leaf on every ep rank; with tp ranks: a tp-sharded leaf
+        on every tp rank, a replicated one on tp rank 0)."""
         mine = self.opt_dim.get(path) is not None and self.fsdp_n > 1 \
             or self.fsdp_index == 0
+        if self.tp_n > 1 and self.tp_dim.get(path) is None:
+            mine = mine and self.tp_index == 0
         if self.ep_n == 1:
             return mine
         return mine and self.dp_index == 0 and (
             self.ep_dim.get(path) is not None or self.ep_index == 0)
 
     def norm_reduce(self, sq: torch.Tensor) -> torch.Tensor:
-        """The ranks' sums of squares summed (one fp32 scalar)."""
-        return comm.all_reduce(sq, FSDP if self.ep_n == 1 else BATCH_AXES,
-                               out=sq)
+        """The ranks' sums of squares summed (one fp32 scalar): over the
+        data ranks, then over tp."""
+        comm.all_reduce(sq, FSDP if self.ep_n == 1 else BATCH_AXES, out=sq)
+        if self.tp_n > 1:
+            comm.all_reduce(sq, "tp", out=sq)
+        return sq
 
     @torch.no_grad()
     def publish(self, path: str, master: torch.Tensor,
@@ -257,6 +288,9 @@ class ZeroPartition:
         e = self.ep_dim.get(path)
         if e is not None and self.ep_n > 1:
             t = comm.all_gather(t.contiguous(), "ep", gather_dim=e)
+        d = self.tp_dim.get(path)
+        if d is not None:
+            t = comm.all_gather(t.contiguous(), "tp", gather_dim=d)
         return t
 
 

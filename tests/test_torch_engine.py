@@ -168,6 +168,18 @@ def test_data_exhausted_mid_accumulation_raises():
     ({"observability": {"journal": {"enabled": True}}}, "item 13"),
 ])
 def test_unported_config_raises(extra, match):
+    if "tensor_parallel" in extra:
+        # the tensor_parallel block is ported: JAX's TensorParallelConfig
+        # knows autotp_size, so its tp_size warns and is ignored there and
+        # here, and the engine's mesh keeps tp = 1 as JAX's does
+        from deepspeed_tpu.config.config import load_config as jax_config
+
+        assert jax_config(dict(extra)).tensor_parallel.size == 1
+        with pytest.warns(UserWarning, match="tp_size"):
+            engine = _port_engine(extra=extra)
+        assert engine.config.tensor_parallel.size == 1
+        assert engine.mesh.shape["tp"] == 1
+        return
     with pytest.raises(NotImplementedError, match=match):
         _port_engine(extra=extra)
 

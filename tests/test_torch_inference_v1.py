@@ -12,6 +12,8 @@ engine and their argmax equal.
 
 import jax
 import jax.numpy as jnp
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -222,12 +224,24 @@ def test_limits_raise(tiny):
 
 
 def test_tp_and_mesh_raise_naming_item_11(tiny):
+    """TP is ported (tests/test_torch_tp.py serves it on two ranks); on
+    one process JAX's checks hold: a tp mesh needs as many ranks, and tp
+    must divide both head counts."""
+    from deepspeed_tpu_torch.inference.engine import check_tp
+    from deepspeed_tpu_torch.parallel import topology
+
     _, _, model = tiny
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # as in JAX, a global mesh (an earlier engine's) wins over tp_size
+    topology.set_global_mesh(None)
+    with pytest.raises(ValueError, match="fixed axes product 2"):
         init_inference(model, tensor_parallel={"tp_size": 2},
                        dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        init_inference(model, mesh=object(), dtype=torch.float32)
+    mesh3 = types.SimpleNamespace(shape={"tp": 3})
+    with pytest.raises(ValueError, match="tp=3 does not divide num_heads"):
+        check_tp(model.config, mesh3, None)
+    with pytest.raises(ValueError, match="does not compose with tp>1"):
+        check_tp(model.config, types.SimpleNamespace(shape={"tp": 2}),
+                 "int8")
     # tp_size 1 is the one card
     init_inference(model, tensor_parallel={"tp_size": 1},
                    dtype=torch.float32)

@@ -176,9 +176,22 @@ def test_moe_ffn_dispatch_and_unported_paths():
         moe.moe_ffn(*args, impl="bogus")
     with pytest.raises(ValueError, match="experts per ep rank"):
         moe._dropless_shard_core(*args, "swiglu", ep=2)
-    # tp-split experts wait for item 11's TP
-    with pytest.raises(NotImplementedError, match="item 9"):
-        moe._dropless_shard_core(*args, "swiglu", tp=2)
+    # tp-split experts: each tp rank's F/2 of every expert gives a
+    # partial sum (one process has no tp ranks to reduce over, so the
+    # core returns it), and the two partials sum to the whole FFN, as
+    # JAX's psum over tp does; the ranks routed alike (digest 0)
+    x_, router_, experts_, cfg_ = args
+    F_ = experts_["wi"].shape[-1]
+    halves = []
+    for lo in (0, F_ // 2):
+        part = {k: (v[..., lo:lo + F_ // 2] if k != "wo"
+                    else v[:, lo:lo + F_ // 2]) for k, v in experts_.items()}
+        y_, st_ = moe._dropless_shard_core(x_, router_, part, cfg_,
+                                           "swiglu", tp=2)
+        assert float(st_["dispatch_digest_mismatch"][0]) == 0.0
+        halves.append(y_)
+    np.testing.assert_allclose((halves[0] + halves[1]).numpy(), a.numpy(),
+                               rtol=1e-5, atol=1e-5)
     for tokens, g, train in ((64, gate, True), (64, gate, False),
                              (3, gate, True),
                              (64, dataclasses.replace(gate, drop_tokens=False),

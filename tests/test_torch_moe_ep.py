@@ -340,12 +340,32 @@ def test_token_placement_is_jax_rule():
 
 
 def test_tp_split_experts_still_raise():
+    """tp-split experts are ported: the two tp ranks' F/2 partials
+    (summed here; the mesh's all-reduce on ranks) equal JAX's dropless
+    core over the whole experts, and the ranks route alike. The tp mesh
+    itself runs in tests/test_torch_tp.py."""
     cfg = pmoe.GateConfig(num_experts=4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pmoe._dropless_shard_core(
-            torch.zeros(1, 2, 8), torch.zeros(8, 4),
-            {"wi": torch.zeros(4, 8, 8), "wo": torch.zeros(4, 8, 8),
-             "wg": torch.zeros(4, 8, 8)}, cfg, "swiglu", tp=2)
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(1, 6, 8)).astype(np.float32)
+    router = rng.normal(size=(8, 4)).astype(np.float32)
+    experts = {k: (rng.normal(size=(4, 8, 8)) * 0.3).astype(np.float32)
+               for k in ("wi", "wo", "wg")}
+    want, _ = jmoe._dropless_shard_core(
+        jnp.asarray(x), jnp.asarray(router),
+        {k: jnp.asarray(v) for k, v in experts.items()}, jmoe.GateConfig(
+            num_experts=4), "swiglu")
+    got = 0
+    for lo in (0, 4):
+        part = {k: torch.from_numpy(np.ascontiguousarray(
+            v[:, lo:lo + 4] if k == "wo" else v[..., lo:lo + 4]))
+            for k, v in experts.items()}
+        y, stats = pmoe._dropless_shard_core(
+            torch.from_numpy(x), torch.from_numpy(router), part, cfg,
+            "swiglu", tp=2)
+        assert float(stats["dispatch_digest_mismatch"][0]) == 0.0
+        got = got + y
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 # -- AutoEP -------------------------------------------------------------------

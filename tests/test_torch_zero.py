@@ -263,6 +263,11 @@ def test_world_one_collectives_match_the_plan(runs, stage):
 def test_not_ported_across_ranks_raises(runs, case, item):
     for out in runs["port"][2]:
         msg = out["raises"][case]
+        if case in ("tp", "moe"):
+            # ported: a dense or MoE model on a tp mesh builds (and
+            # tests/test_torch_tp.py follows JAX's tp engines)
+            assert msg is None, (case, msg)
+            continue
         assert msg is not None and item in msg, (case, msg)
 
 

@@ -376,6 +376,8 @@ def mode_engines(inp, rank, world, out):
                "flags": {k: bool(getattr(engine, k, False)) for k in
                          ("_zeropp", "_onebit", "_qwz_stage3",
                           "_qgz_stage3")}}
+        rec["local_shapes"] = {path: tuple(t.shape)
+                               for path, t in leaves(engine.params)}
         if spec.get("moe"):
             rec["local_experts"] = int(
                 engine.params["layers"]["moe"]["experts"]["wi"].shape[1])
@@ -418,13 +420,23 @@ def mode_moe_fn(inp, rank, world, out):
         mesh = topology._GLOBAL_MESH
         telemetry.reset()
         cfg = moe.GateConfig(**case["gate"])
-        ep = mesh.shape["ep"]
+        ep, tp = mesh.shape["ep"], mesh.shape["tp"]
         e_loc = cfg.num_experts // ep
         lo = mesh.axis_index("ep") * e_loc
         x = torch.tensor(case["x"], requires_grad=True)
         router = torch.tensor(case["router"], requires_grad=True)
-        experts = {k: torch.tensor(v[lo:lo + e_loc], requires_grad=True)
-                   for k, v in case["experts"].items()}
+        # each tp rank's F/tp of every expert (the mlp dim: last of wi /
+        # wg, dim 1 of wo)
+        f_loc = case["experts"]["wi"].shape[-1] // tp
+        flo = mesh.axis_index("tp") * f_loc
+
+        def local(k, v):
+            v = v[lo:lo + e_loc]
+            v = v[:, flo:flo + f_loc] if k == "wo" else \
+                v[..., flo:flo + f_loc]
+            return torch.tensor(np.ascontiguousarray(v), requires_grad=True)
+
+        experts = {k: local(k, v) for k, v in case["experts"].items()}
         y, aux = moe.moe_ffn_dropless(x, router, experts, cfg,
                                       activation=case["activation"],
                                       global_tokens=True)
@@ -434,16 +446,195 @@ def mode_moe_fn(inp, rank, world, out):
             "aux": {k: v.detach().numpy() for k, v in aux.items()},
             "dx": x.grad.numpy(), "drouter": router.grad.numpy(),
             "dexperts": {k: v.grad.numpy() for k, v in experts.items()},
-            "lo": lo, "replicated": telemetry.get(
+            "lo": lo, "flo": flo, "replicated": telemetry.get(
                 "moe.grouped_replicated_tokens")}
         topology.set_global_mesh(None)
     out["moe_fn"] = res
 
 
+def _tp_mesh(world):
+    from deepspeed_tpu_torch.parallel import topology
+
+    topology.set_global_mesh(None)
+    return topology.build_mesh({"tp": world, "dp": 1})
+
+
+def _tp_vocab(inp, world):
+    """``vocab_parallel_lookup`` on this rank's rows of the table: the
+    rows and the gradient of sum(rows^2 * proj) in this rank's rows,
+    fp32 and bf16."""
+    from deepspeed_tpu_torch.parallel import topology
+    from deepspeed_tpu_torch.runtime import sharding
+
+    v = inp["vocab"]
+    mesh = _tp_mesh(world)
+    topology.set_global_mesh(mesh)
+    rows_n = v["table"].shape[0] // world
+    lo = mesh.axis_index("tp") * rows_n
+    res = {"lo": lo}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        table = torch.tensor(v["table"][lo:lo + rows_n], requires_grad=True)
+        rows = sharding.vocab_parallel_lookup(table.to(dt),
+                                              torch.tensor(v["ids"]))
+        loss = (rows.float() ** 2 * torch.tensor(v["proj"])).sum()
+        loss.backward()
+        res[name] = {"rows": rows.detach().float().numpy(),
+                     "dtype": str(rows.dtype),
+                     "grad": table.grad.numpy()}
+    topology.set_global_mesh(None)
+    return res
+
+
+def _tp_serve(inp, world):
+    """The v2 engine's greedy streams at tp = world (MHA and GQA), its
+    pool's kv heads and the kernel steps; the v1 engine's generate
+    through ``tensor_parallel``; JAX's refusals."""
+    from deepspeed_tpu_torch.inference.engine import init_inference
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.parallel import topology
+
+    res = {}
+    for case in inp["serve"]:
+        cfg = zoo.get_config(case["preset"], dtype=torch.float32,
+                             **case["model_kw"])
+        model = params_from_jax(case["params"], cfg, device="cpu")
+        mesh = _tp_mesh(world)
+        eng = InferenceEngineV2(model, device="cpu", mesh=mesh,
+                                **inp["serve_kw"])
+        prompts = case["prompts"]
+        eng.put(list(prompts), [np.asarray(p) for p in prompts.values()],
+                max_new_tokens=case["max_new"])
+        got = eng.generate_all()
+        rec = {"streams": {int(k): list(map(int, v))
+                           for k, v in got.items()},
+               "pool_kv_heads": int(eng.kv_cache.data.shape[4]),
+               "kernel_steps": (eng.stats["decode_kernel_steps"],
+                                eng.stats["prefill_kernel_steps"],
+                                eng.stats["prefill_gather_fallbacks"]),
+               "paged": eng._use_paged_kernel}
+        # what JAX's v2 engine runs at tp runs here: speculation (prompt
+        # lookup) and a quantized pool (the fused append and dequantize on
+        # this rank's heads)
+        rec["variants"] = {}
+        for name, kw in inp["serve_variants"].items():
+            eng = InferenceEngineV2(model, device="cpu", mesh=_tp_mesh(world),
+                                    **inp["serve_kw"], **kw)
+            eng.put(list(prompts), [np.asarray(p) for p in prompts.values()],
+                    max_new_tokens=case["max_new"])
+            rec["variants"][name] = {int(k): list(map(int, v)) for k, v in
+                                     eng.generate_all().items()}
+        topology.set_global_mesh(None)
+        v1 = init_inference(model, tensor_parallel={"tp_size": world},
+                            dtype=torch.float32, max_seq_len=64)
+        rec["v1"] = v1.generate(np.asarray(case["v1_prompt"], np.int32),
+                                max_new_tokens=3)
+        topology.set_global_mesh(None)
+        res[case["name"]] = rec
+    errors = {}
+    for name, kw, qw in (("kv1", {"num_kv_heads": 1}, None),
+                         ("int8", {}, "int8")):
+        cfg = zoo.get_config("tiny", dtype=torch.float32, **kw)
+        model = zoo.get_model("tiny", device="cpu", dtype=torch.float32,
+                              **kw)
+        try:
+            InferenceEngineV2(model, device="cpu", mesh=_tp_mesh(world),
+                              quantize_weights=qw, **inp["serve_kw"])
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+        del cfg
+    topology.set_global_mesh(None)
+    res["errors"] = errors
+    return res
+
+
+def _tp_grads(inp, world, partition: bool):
+    """One microbatch's loss and full gradients of a tp = world engine
+    (remat on), with ``partition_activations`` on or off."""
+    import deepspeed_tpu_torch
+
+    config = {**inp["config"], "zero_optimization": {"stage": 0},
+              "activation_checkpointing": {
+                  "partition_activations": partition}}
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_port_model(inp), config=config, device="cpu",
+        topology={"tp": world, "dp": 1})
+    loss = engine(inp["batches"][0])
+    engine.backward(loss)
+    paths = [p for p, _ in leaves(engine.params)]
+    grads = {p: engine.full_grad(p).numpy() for p in paths}
+    return float(loss), grads
+
+
+def _tp_ckpt(inp, world):
+    """A tp = world stage-1 engine saves after two steps; the same mesh
+    resumes bit for bit, and a tp = 1 mesh (fsdp = world) loads the same
+    params."""
+    import deepspeed_tpu_torch
+
+    d = os.path.join(inp["workdir"], "tp_ckpt")
+    config = {**inp["config"], "zero_optimization": {"stage": 1}}
+    batches = inp["batches"]
+
+    def build(topo):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=_port_model(inp), config=config, device="cpu",
+            topology=topo)
+        return eng
+
+    tp_topo = {"tp": world, "dp": 1}
+    eng = build(tp_topo)
+    for b in batches[:2]:
+        eng.train_batch(iter([b]))
+    eng.save_checkpoint(d)
+    saved = eng.module_state_dict()
+    more = [float(eng.train_batch(iter([b]))) for b in batches[2:4]]
+    fresh = build(tp_topo)
+    fresh.load_checkpoint(d)
+    again = [float(fresh.train_batch(iter([b]))) for b in batches[2:4]]
+    flat = build({"fsdp": world, "dp": 1})
+    flat.load_checkpoint(d)
+    files = sorted(os.listdir(os.path.join(d, "global_step2", "state",
+                                           "params", "layers", "attn")))
+    return {"saved": saved, "more": more, "again": again,
+            "tp1_params": flat.module_state_dict(), "files": files}
+
+
+def mode_tp(inp, rank, world, out):
+    """Tensor parallelism at tp = world: the vocab-parallel lookup,
+    ``tp_model_init`` on JAX's AutoTP trees, the serving engines,
+    ``partition_activations``' gradients and a checkpoint."""
+    from deepspeed_tpu_torch.module_inject.auto_tp import tp_model_init
+
+    res = {"vocab": _tp_vocab(inp, world)}
+    trees = {}
+    for name, tree in inp["autotp"].items():
+        local, specs = tp_model_init(tree, tp_size=world)
+        trees[name] = ({k: v.numpy() for k, v in _flat(local).items()},
+                       specs)
+    res["autotp"] = trees
+    res["serve"] = _tp_serve(inp, world)
+    res["grads"] = {part: _tp_grads(inp, world, part)
+                    for part in (False, True)}
+    res["ckpt"] = _tp_ckpt(inp, world)
+    out["tp"] = res
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}.{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
 MODES = {"zero": mode_zero, "raises": mode_raises, "ckpt": mode_ckpt,
          "comm": mode_comm, "sparse": mode_sparse,
          "fragments": mode_fragments, "quant_coll": mode_quant_coll,
-         "engines": mode_engines, "moe_fn": mode_moe_fn}
+         "engines": mode_engines, "moe_fn": mode_moe_fn, "tp": mode_tp}
 
 
 class Ranks:
@@ -458,8 +649,11 @@ class Ranks:
         torch.save(inputs, os.path.join(workdir, "inputs.pt"))
         self.workdir, self.world = workdir, world
         self.deadline = time.monotonic() + timeout
+        # MKL's COMPATIBLE branch gives the same bits on every x86-64
+        # host, so the ranks' fp32 arithmetic (and a quantized engine's
+        # rounding ties) does not depend on the host's instruction set
         env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
-                   PYTHONPATH=REPO)
+                   MKL_CBWR="COMPATIBLE", PYTHONPATH=REPO)
         self.procs, self.logs = [], []
         for rank in range(world):
             log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
