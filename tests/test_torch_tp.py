@@ -75,6 +75,7 @@ ENGINES = {
     "tp2_sgd": (dict(_z(0), optimizer={"type": "sgd", "params": {
         "lr": 0.5}}), TP2, 2, {}),
     "tp2_fsdp2_z0": (_z(0), TP2_FSDP2, 4, {}),
+    "tp2_fsdp2_z2": (_z(2), TP2_FSDP2, 4, {}),
     "tp2_fsdp2_z3": (_z(3), TP2_FSDP2, 4, {}),
     "moe_tp2": (_z(0), TP2, 2, {"moe": True}),
     "moe_tp2_einsum": (dict(_z(1), moe={"enabled": True, "impl": "einsum"}),
