@@ -196,7 +196,7 @@ Phases, each fatal on failure:
                Llama-3-8B at full width, as deep as the host holds (12
                bytes of host state a parameter against MemAvailable and
                the command's 96 GiB, less 6 GB: the cut and its
-               reckoning are printed; 32 layers need 96.4 GB), cut to 4
+               reckoning are printed; 32 layers need 96.4 GB), cut to 2
                layers for the run's time limit, bf16 on
                fp32 host masters, AdamW lr 3e-4, ZeRO-3 config, clip 1.0,
                ``offload_optimizer`` cpu with pinned staging, micro 2 x
@@ -234,7 +234,7 @@ Phases, each fatal on failure:
                11a: Llama-3-8B at full width as deep as host and card
                hold (16 bytes a parameter of host state, 10 / 8 on the
                card at init / in training; both reckonings and the cut
-               printed), cut to 4 layers for the run's time limit; one interval of warm-up (the first selection and
+               printed), cut to 2 layers for the run's time limit; one interval of warm-up (the first selection and
                the first ship: a fold needs a pass shipped an interval
                earlier), then two measured intervals (gates: finite,
                falling losses; flash launches as remat implies, all
@@ -459,6 +459,29 @@ Phases, each fatal on failure:
                then a 16-token serve of two requests (the ranks' streams
                equal). Phase 2 checks the paged kernels and the flash
                kernels at 16 / 4 heads too.
+  19. sp, pp  — after phase 18, the same two-process pattern
+               (``--sp-rank R DIR``), each rank first probing gloo's
+               all-to-all and batched send / receive on card tensors.
+               19a: 18b's 2 layers of Llama-3-8B at full width, trained
+               at sp 2 with Ulysses (each rank its half of every
+               sequence, cut after the next-token shift), 3 steps:
+               losses within 2e-2 of 18b's tp-1 reference, the flash
+               launches what remat implies, all wgmma, on 16 / 16 heads
+               at the whole 2048 tokens. 19b: the same at
+               ``sp_mode="ring"`` (no flash: the ring's blocks are plain
+               torch). 19c: the 2 layers at pp 2, one a stage, the same
+               4 sequences a step as micro 4 x GAS 1 (M 4; the head
+               over 4 sequence tiles, ``tiled_logits``, as 4 rows of
+               whole fp32 logits do not fit two ranks), the
+               "waves" schedule at window 2 and "save_boundaries": the
+               losses within 2e-2 of the reference and of each other,
+               the flash launches each schedule's recompute implies.
+               19d: 2-layer Mixtral-8x7B at pp 2, one step (M 2: phase
+               6's two one-row microbatches) within 2e-2 of phase 6's
+               first loss, gmm / gmm_transposed / tgmm launched on
+               every stage, no token replicated. Step walls and per-rank
+               peaks printed; gloo copies through the host, so no wall
+               here speaks for NVLink.
 Each phase's wall is logged as it ends and printed with the run's
 seconds. Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
@@ -467,7 +490,8 @@ sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
 checkpoint, optimizer sweep, spec serve, draft model, verify-shape
 prefill, A4, kernel bench, v1 engine, zero, observability,
-observability serve, a11, zeropp and tp lines, the run's seconds
+observability serve, a11, zeropp, tp and sp / pp lines, the run's
+seconds
 and phase walls,
 the card's name
 and power limit (nvidia-smi), and, last, the device line.
@@ -527,10 +551,13 @@ FLASH_CASES = {  # B, S, Hq, Hkv, D, causal, segment lengths
     "smoke": (2, 2048, 32, 8, 128, True, None),
     # a tp = 2 rank's share of the smoke shape's heads (phase 18)
     "tp2": (2, 2048, 16, 4, 128, True, None),
+    # a Ulysses sp = 2 rank's heads, KV repeated to the query count, at
+    # the whole sequence (phase 19a)
+    "sp2": (2, 2048, 16, 16, 128, True, None),
     "odd": (1, 1000, 4, 4, 128, False, (400, 350, 250)),
     "hd64": (2, 300, 8, 2, 64, True, None),
 }
-FLASH_TIMED = ("smoke", "tp2")
+FLASH_TIMED = ("smoke", "tp2", "sp2")
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_MICRO, TRAIN_GAS, TRAIN_MEASURED = \
     8, 2048, 2, 2, 4
 TRAIN_CONFIG = {
@@ -673,11 +700,11 @@ CKPT_SMALL_VOCAB = 16384
 # the native CPU Adam). 10a: Llama-3-8B at full width and as deep as the
 # host holds (12 bytes of host state a parameter), cut to
 # OFFLOAD_MAX_LAYERS for the run's time limit (the host held 28; 8 until
-# phase 18 joined), micro
+# phase 18 joined, 4 until phase 19 did), micro
 # 2 x GAS 1 x 2048 over phase 4's fixed batches, 1 warm-up and 3
 # measured steps; 10b / 10c: phase 9's 1 layer, 3 steps a tier, 2
 # resumed steps
-OFFLOAD_MAX_LAYERS = 4
+OFFLOAD_MAX_LAYERS = 2
 OFFLOAD_MICRO, OFFLOAD_MEASURED, OFFLOAD_SMALL_STEPS, OFFLOAD_RESUMED = \
     2, 3, 3, 2
 OFFLOAD_CONFIG = dict(TRAIN_CONFIG,
@@ -708,8 +735,8 @@ OFFLOAD_TOL_REL = 3e-3
 # interval 2 and select 4, saved at step 3, 3 resumed steps; 11d: each
 # optimizer for 3 steps at 2 layers, micro 2 x GAS 1. 11a's depth is cut
 # to ZENFLOW_MAX_LAYERS for the run's time limit (the host held 20; 8
-# until phase 18 joined)
-ZENFLOW_MAX_LAYERS = 4
+# until phase 18 joined, 4 until phase 19 did)
+ZENFLOW_MAX_LAYERS = 2
 SWEEP_LAYERS = 2
 ZENFLOW_BLOCK = {"topk_ratio": 0.01, "update_interval": 4,
                  "select_interval": 16, "overlap_step": True}
@@ -742,10 +769,11 @@ SWEEP_TOL_REL, SWEEP_TOL_ABS = 1e-4, 1e-6
 # histories) and A4 on 2 layers (12d: the blocking and the
 # pipelined loop, a (loss_fn, params) model, a client torch AdamW)
 SPEC_K, SPEC_MOTIF = 4, 32
-# 150 steps (~15 s) where about a minute was the aim: the run's time
-# limit. The random-weight target's logits are nearly flat over 128256
-# tokens, and the held-out top-1 agreement stays 0.0 (PERF.md, PR 14)
-DRAFT_WINDOW, DRAFT_STEPS, DRAFT_BATCH = 64, 150, 16
+# 50 steps (150 until phase 19 joined) where about a minute was the aim:
+# the run's time limit. The random-weight target's logits are nearly flat
+# over 128256 tokens, and the held-out top-1 agreement stays 0.0, at 150
+# steps too (PERF.md)
+DRAFT_WINDOW, DRAFT_STEPS, DRAFT_BATCH = 64, 50, 16
 DRAFT_RESAMPLE, DRAFT_PREFIX = 50, 48
 VERIFY_S, VERIFY_TQ, VERIFY_REAL, VERIFY_CTX = 8, 8, 5, (300, 560)
 A4_LAYERS, A4_STEPS, A4_SHORT, A4_PROFILED = 2, 6, 3, 3
@@ -6400,45 +6428,8 @@ def tp_phase(torch, zoo, initialize, ref_rows, ref_out, moe_first_loss):
     t0 = time.perf_counter()
     ref_losses = tp_train_reference(torch, zoo, initialize)
     ref_s = time.perf_counter() - t0
-    workdir = tempfile.mkdtemp(prefix="dstpu_tp_")
-    procs, logs = [], []
-    try:
-        for rank in range(TP):
-            log_f = open(os.path.join(workdir, f"rank{rank}.log"), "w")
-            logs.append(log_f)
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--tp-rank",
-                 str(rank), workdir], stdout=log_f, stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
-        failed = None
-        for rank, p in enumerate(procs):
-            try:
-                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                failed = f"rank {rank} still running at its deadline"
-                break
-            if rc != 0 and failed is None:
-                failed = f"rank {rank} exited with {rc}"
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log_f in logs:
-            log_f.close()
-    tails = []
-    for rank in range(TP):
-        with open(os.path.join(workdir, f"rank{rank}.log")) as f:
-            tails.append(f"--- tp rank {rank}\n" + f.read()[-4000:])
-    if failed is not None:
-        fail(f"tp: {failed}\n" + "\n".join(tails))
-    ranks = []
-    for rank in range(TP):
-        with open(os.path.join(workdir, f"out_{rank}.json")) as f:
-            ranks.append(json.load(f))
-    rows = [np.load(os.path.join(workdir, f"rows_{r}.npy"))
-            for r in range(TP)]
-    shutil.rmtree(workdir, ignore_errors=True)
+    ranks = run_two_ranks("--tp-rank", "tp", arrays=("rows",))
+    rows = [r.pop("rows") for r in ranks]
     wall = time.perf_counter() - t0
 
     # 18a
@@ -6565,6 +6556,399 @@ def tp_phase(torch, zoo, initialize, ref_rows, ref_out, moe_first_loss):
              "tp_train": trains[0]["launches"],
              "tp_moe_train": moes[0]["train"]["launches"],
              "tp_moe_serve": moes[0]["serve"]["launches"]}
+    return line, paths
+
+
+# 19. sequence and pipeline parallelism: two ranks of this script on the
+# card (gloo), 18b's 2 layers and phase 6's Mixtral layers
+SP = PP = 2
+PP_MICRO = TRAIN_MICRO * TRAIN_GAS  # the reference's 4 sequences a step
+PP_TRAIN_CONFIG = dict(TRAIN_CONFIG,
+                       train_micro_batch_size_per_chip=PP_MICRO,
+                       gradient_accumulation_steps=1)
+# the head over 4 sequence tiles: at 4 rows a microbatch the whole fp32
+# logits ([4, 2048, 128256], 4.2 GB) and their gradient do not fit two
+# ranks on one card (the width is whole)
+PP_TILED_LOGITS = 4
+PP_SCHEDULES = {"waves": {"schedule": "waves", "window": 2},
+                "save_boundaries": {"schedule": "save_boundaries"}}
+PP_MOE_CONFIG = dict(MOE_TRAIN_CONFIG,
+                     train_micro_batch_size_per_chip=MOE_TRAIN_MICRO *
+                     MOE_TRAIN_GAS, gradient_accumulation_steps=1)
+
+
+def probe_gloo_sp(torch):
+    """gloo's all-to-all on card tensors (the Ulysses exchange) and the
+    port's ``comm.ppermute`` on them (the pipeline's shift and the
+    ring's hop: gloo's raw batched send / receive reads a card tensor's
+    pointer and aborts the process, ``writev ... Bad address``, so the
+    port stages it through the host): op -> "ok" or the error's first
+    line."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import comm
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.arange(8, device="cuda", dtype=torch.float32) + 8 * rank
+    out = {}
+
+    def a2a(dt):
+        y = torch.empty(8, device="cuda", dtype=dt)
+        dist.all_to_all_single(y, x.to(dt))
+        want = torch.cat([torch.arange(8 // world) + 8 * r + rank *
+                          (8 // world) for r in range(world)]).to(dt)
+        if not torch.equal(y.cpu(), want):
+            raise AssertionError(f"all_to_all gave {y.tolist()}")
+
+    def p2p():
+        src = (rank - 1) % world
+        y = comm.ppermute(x, "dp", [(i, (i + 1) % world)
+                                    for i in range(world)])
+        if not y.is_cuda or not torch.equal(y.cpu(), torch.arange(8.0) +
+                                            8 * src):
+            raise AssertionError(f"ppermute gave {y.tolist()}")
+
+    for name, op in (("all_to_all_single", lambda: a2a(torch.float32)),
+                     ("all_to_all_single_bf16", lambda: a2a(torch.bfloat16)),
+                     ("ppermute_staged", p2p)):
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 (recorded, then gated)
+            out[name] = (str(e).strip().splitlines() or [repr(e)])[0][:200]
+        dist.barrier()
+    return out
+
+
+def timed_train(torch, engine, batches, steps):
+    """``steps`` steps over ``batches`` (cycled): losses and step walls."""
+    losses, step_s = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(iter(
+            batches[(i * engine.gradient_accumulation_steps) % len(batches):]
+            [:engine.gradient_accumulation_steps]))))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return losses, step_s
+
+
+def sp_train_rank(torch, zoo, initialize, fa, attn, topo, mesh, mode):
+    """19a / 19b on this rank: 18b's 2 layers at sp 2 (``mode`` the
+    model's sp_mode), each microbatch cut to this rank's half."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    heads = _Recorder(attn, "multi_head_attention", lambda q, k, v, **kw: (
+        int(q.shape[-2]), int(k.shape[-2]), int(q.shape[1]),
+        int(q.shape[-1])))
+    model = zoo.get_model("llama3-8b", device="cuda",
+                          num_layers=TP_TRAIN_LAYERS, dtype=torch.float32,
+                          seed=SEED, sequence_parallel=True, sp_mode=mode)
+    engine, *_ = initialize(model=model, config=dict(TRAIN_CONFIG),
+                            mesh=mesh)
+    fixed, _ = fixed_batches(model.config.vocab_size)
+    mine = [topo.batch_sharding(mesh).take(b) for b in fixed]
+    fa.reset_launch_counts()
+    losses, step_s = timed_train(torch, engine, mine, TP_TRAIN_STEPS)
+    line = {"losses": losses, "step_s": step_s,
+            "step_ms_p50": float(np.median(step_s)) * 1e3,
+            "launches": {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES},
+            "attention_heads": heads.restore(),
+            "local_seq": int(mine[0]["input_ids"].shape[1]),
+            "model": {k: getattr(engine.model_config, k) for k in
+                      ("sequence_parallel", "sp_mode", "attn_chunks")},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del engine, model
+    torch.cuda.empty_cache()
+    return line
+
+
+def pp_train_rank(torch, zoo, initialize, fa, mesh):
+    """19c on this rank: 18b's 2 layers at pp 2 (one a stage), the
+    reference's 4 sequences a step as one batch of 4 (M 4), under each
+    schedule."""
+    fixed, _ = fixed_batches(zoo.get_config("llama3-8b").vocab_size)
+    batch = {"input_ids": np.concatenate([b["input_ids"] for b in fixed])}
+    out = {}
+    for name, block in PP_SCHEDULES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = zoo.get_model("llama3-8b", device="cuda",
+                              num_layers=TP_TRAIN_LAYERS,
+                              dtype=torch.float32, seed=SEED,
+                              tiled_logits=PP_TILED_LOGITS,
+                              pp=(mesh.axis_index("pp"), PP))
+        # [0]: the rest of the tuple (the optimizer view) holds the
+        # engine, which must be gone before the next schedule's
+        engine = initialize(model=model, config=dict(
+            PP_TRAIN_CONFIG, pipeline=block), mesh=mesh)[0]
+        fa.reset_launch_counts()
+        losses, step_s = timed_train(torch, engine, [batch], TP_TRAIN_STEPS)
+        out[name] = {
+            "losses": losses, "step_s": step_s,
+            "step_ms_p50": float(np.median(step_s)) * 1e3,
+            "launches": {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES},
+            "stage_layers": int(
+                engine.params["layers"]["attn"]["wq"].shape[0]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del engine, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_moe_rank(torch, zoo, initialize, fa, gm, mesh):
+    """19d on this rank: 2-layer Mixtral-8x7B at pp 2, one step on phase
+    6's two one-row microbatches as one batch of 2 (M 2)."""
+    from deepspeed_tpu_torch.utils import telemetry
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    telemetry.reset()
+    # each stage's model is its one layer (drawn whole from the seed):
+    # two whole 2-layer fp32 Mixtrals beside their state do not fit
+    model = zoo.get_model("mixtral-8x7b", device="cuda",
+                          num_layers=MOE_TRAIN_LAYERS, dtype=torch.float32,
+                          seed=SEED, pp=(mesh.axis_index("pp"), PP))
+    engine, *_ = initialize(model=model, config=dict(PP_MOE_CONFIG),
+                            mesh=mesh)
+    fixed, _ = fixed_batches(model.config.vocab_size, MOE_TRAIN_MICRO)
+    batch = {"input_ids": np.concatenate([b["input_ids"] for b in fixed])}
+    fa.reset_launch_counts()
+    gm.reset_launch_counts()
+    losses, step_s = timed_train(torch, engine, [batch], 1)
+    line = {"loss": losses[0], "step_s": step_s[0],
+            "launches": {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES,
+                         **gm.LAUNCHES, **gm.VARIANT_LAUNCHES},
+            "replicated_tokens": telemetry.get(
+                "moe.grouped_replicated_tokens"),
+            "stage_layers": int(
+                engine.params["layers"]["moe"]["experts"]["wi"].shape[0]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del engine, model
+    torch.cuda.empty_cache()
+    return line
+
+
+def sp_rank_main(rank, workdir):
+    """One rank of phase 19 (``chip_smoke.py --sp-rank R DIR``): joins the
+    gloo group of two ranks through a file store under DIR, runs 19a-d
+    and writes what it measured to DIR/out_R.json."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.ops import attention as attn
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+    from deepspeed_tpu_torch.parallel import topology as topo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(
+        dist_backend="gloo", device="cuda", num_processes=SP,
+        process_id=rank, timeout=TP_RANK_TIMEOUT_S,
+        init_method="file://" + os.path.join(workdir, "store"))
+    res = {"rank": rank, "backend": comm.get_backend(),
+           "gloo_cuda": {**probe_gloo_cuda(torch), **probe_gloo_sp(torch)}}
+    log(f"sp rank {rank}: gloo on card tensors {res['gloo_cuda']}")
+    try:
+        walls = {}
+        t0 = time.perf_counter()
+        sp_mesh = topo.build_mesh({"sp": SP, "dp": 1})
+        for key, mode in (("19a", "ulysses"), ("19b", "ring")):
+            res[key] = sp_train_rank(torch, zoo, initialize, fa, attn, topo,
+                                     sp_mesh, mode)
+            walls[key] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        pp_mesh = topo.build_mesh({"pp": PP, "dp": 1})
+        res["19c"] = pp_train_rank(torch, zoo, initialize, fa, pp_mesh)
+        walls["19c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["19d"] = pp_moe_rank(torch, zoo, initialize, fa, gm, pp_mesh)
+        walls["19d"] = time.perf_counter() - t0
+        res["walls_s"] = walls
+        # this rank's impl="auto" decisions (the parent's gate reads them)
+        res["dispatch"] = attn.dispatch_stats()
+    finally:
+        with open(os.path.join(workdir, f"out_{rank}.json"), "w") as f:
+            json.dump(res, f)
+        comm.destroy()
+    return 0
+
+
+def run_two_ranks(flag, label, arrays=()):
+    """Two processes of this script (``flag R DIR``) on the card: each
+    rank's JSON line (with each ``<name>_R.npy`` it saved, for the names
+    in ``arrays``), or a failure with the logs' tails."""
+    workdir = tempfile.mkdtemp(prefix="dstpu_%s_" % label.replace("/", "_"))
+    procs, logs = [], []
+    try:
+        for rank in range(2):
+            log_f = open(os.path.join(workdir, f"rank{rank}.log"), "w")
+            logs.append(log_f)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag,
+                 str(rank), workdir], stdout=log_f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
+        failed = None
+        for rank, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {rank} still running at its deadline"
+                break
+            if rc != 0 and failed is None:
+                failed = f"rank {rank} exited with {rc}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log_f in logs:
+            log_f.close()
+    tails = []
+    for rank in range(2):
+        with open(os.path.join(workdir, f"rank{rank}.log")) as f:
+            tails.append(f"--- {label} rank {rank}\n" + f.read()[-4000:])
+    if failed is not None:
+        fail(f"{label}: {failed}\n" + "\n".join(tails))
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(workdir, f"out_{rank}.json")) as f:
+            ranks.append(json.load(f))
+        for name in arrays:
+            ranks[rank][name] = np.load(os.path.join(
+                workdir, f"{name}_{rank}.npy"))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return ranks
+
+
+def sp_pp_phase(torch, ref_losses, moe_first_loss):
+    """Phase 19 (the parent holds no model): two ranks of this script on
+    the card. Gates on what they measured against 18b's tp-1 reference
+    losses and phase 6's first; returns (the line, launches by path)."""
+    t0 = time.perf_counter()
+    ranks = run_two_ranks("--sp-rank", "sp/pp")
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        bad = {k: v for k, v in r["gloo_cuda"].items() if v != "ok"}
+        if bad:
+            fail(f"sp/pp: gloo refuses card tensors for {bad}")
+        if r["dispatch"]["card_losses"]:
+            fail(f"sp/pp rank {r['rank']}: impl='auto' sent CUDA calls to "
+                 f"the dense path on a measured loss ({r['dispatch']})")
+
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    L, steps, gas = TP_TRAIN_LAYERS, TP_TRAIN_STEPS, TRAIN_GAS
+    line = {"ranks": SP, "backend": ranks[0]["backend"],
+            "gloo_takes_card_tensors": ranks[0]["gloo_cuda"],
+            "note": "two ranks on one card over gloo, which copies each "
+                    "collective through the host: no NVLink, no speed "
+                    "claim", "reference_losses": ref_losses}
+    # 19a, 19b
+    for key, mode in (("19a", "ulysses"), ("19b", "ring")):
+        runs = [r[key] for r in ranks]
+        losses = runs[0]["losses"]
+        if runs[1]["losses"] != losses:
+            fail(f"sp {mode}: the ranks' losses differ")
+        d = rel(losses, ref_losses)
+        if not np.all(np.isfinite(losses)) or d > TP_LOSS_TOL_REL:
+            fail(f"sp {mode}: losses {losses} against tp 1's {ref_losses}")
+        for rr in runs:
+            if rr["model"]["sp_mode"] != mode or rr["local_seq"] != \
+                    TRAIN_SEQ // SP:
+                fail(f"sp {mode}: model {rr['model']}, local sequence "
+                     f"{rr['local_seq']}")
+            lc = rr["launches"]
+            if mode == "ulysses":
+                want = {"flash_fwd": steps * 2 * L * gas,
+                        "flash_bwd_dkdv": steps * L * gas,
+                        "flash_bwd_dq": steps * L * gas}
+                if {k: lc[k] for k in want} != want:
+                    fail(f"sp ulysses: flash launches {lc}, remat implies "
+                         f"{want}")
+                check_tensor_core("sp ulysses train", lc, lc, tuple(want))
+                if rr["attention_heads"] != [[NH // SP, NH // SP,
+                                              TRAIN_SEQ, HD]]:
+                    fail(f"sp ulysses: attention at {rr['attention_heads']}"
+                         f"; a rank's share is {NH // SP} / {NH // SP} "
+                         f"heads at {TRAIN_SEQ} tokens")
+            elif lc["flash_fwd"]:
+                fail(f"sp ring: flash launched {lc}: the ring's blocks are "
+                     "plain torch")
+        line[mode] = {"losses": losses, "max_loss_rel_diff": d,
+                      "step_s": [rr["step_s"] for rr in runs],
+                      "step_ms_p50": [rr["step_ms_p50"] for rr in runs],
+                      "launches": [rr["launches"] for rr in runs],
+                      "attention_heads": runs[0]["attention_heads"],
+                      "peak_mem_gb": [rr["peak_mem_gb"] for rr in runs]}
+    # 19c
+    pp = {}
+    for name in PP_SCHEDULES:
+        runs = [r["19c"][name] for r in ranks]
+        losses = runs[0]["losses"]
+        if runs[1]["losses"] != losses:
+            fail(f"pp {name}: the stages' losses differ")
+        d = rel(losses, ref_losses)
+        if not np.all(np.isfinite(losses)) or d > TP_LOSS_TOL_REL:
+            fail(f"pp {name}: losses {losses} against tp 1's {ref_losses}")
+        M = PP_MICRO  # min(B, 2 PP) at B = 4
+        # the forward, the stage recomputed in the backward, and under
+        # waves each wave's forward again to regenerate its boundaries
+        fwd = M * (3 if name == "waves" else 2)
+        want = {"flash_fwd": steps * fwd, "flash_bwd_dkdv": steps * M,
+                "flash_bwd_dq": steps * M}
+        for rr in runs:
+            lc = rr["launches"]
+            if {k: lc[k] for k in want} != want or rr["stage_layers"] != 1:
+                fail(f"pp {name}: flash launches {lc} (want {want}), "
+                     f"{rr['stage_layers']} layers a stage")
+            check_tensor_core(f"pp {name} train", lc, lc, tuple(want))
+        pp[name] = {"losses": losses, "max_loss_rel_diff": d,
+                    "step_s": [rr["step_s"] for rr in runs],
+                    "step_ms_p50": [rr["step_ms_p50"] for rr in runs],
+                    "launches": [rr["launches"] for rr in runs],
+                    "peak_mem_gb": [rr["peak_mem_gb"] for rr in runs]}
+    between = rel(pp["waves"]["losses"], pp["save_boundaries"]["losses"])
+    if between > TP_LOSS_TOL_REL:
+        fail(f"pp: the schedules' losses part by {between}")
+    line["pp"] = {"micro": PP_MICRO, "gas": 1, "microbatches": PP_MICRO,
+                  "window_waves": 2, "tiled_logits": PP_TILED_LOGITS,
+                  "schedules": pp,
+                  "schedules_max_rel_diff": between}
+    # 19d
+    moes = [r["19d"] for r in ranks]
+    moe_rel = abs(moes[0]["loss"] - moe_first_loss) / abs(moe_first_loss)
+    if moes[1]["loss"] != moes[0]["loss"] or moe_rel > TP_LOSS_TOL_REL:
+        fail(f"pp moe: losses {[m['loss'] for m in moes]} against phase 6's"
+             f" first {moe_first_loss}")
+    for m in moes:
+        lc = m["launches"]
+        if min(lc[k] for k in ("gmm", "gmm_transposed", "tgmm")) <= 0 or \
+                m["stage_layers"] != 1 or m["replicated_tokens"]:
+            fail(f"pp moe: launches {lc}, {m['stage_layers']} layers a "
+                 f"stage, {m['replicated_tokens']} replicated dispatches")
+        check_tensor_core("pp moe train", lc, lc, (
+            "gmm", "gmm_transposed", "tgmm", "flash_fwd", "flash_bwd_dkdv",
+            "flash_bwd_dq"))
+    line["pp_moe"] = {"layers": MOE_TRAIN_LAYERS, "loss": moes[0]["loss"],
+                      "phase6_first_loss": moe_first_loss,
+                      "loss_rel_diff": moe_rel,
+                      "replicated_tokens": moes[0]["replicated_tokens"],
+                      "step_s": [m["step_s"] for m in moes],
+                      "launches": [m["launches"] for m in moes],
+                      "peak_mem_gb": [m["peak_mem_gb"] for m in moes]}
+    line["walls_s"] = {**ranks[0]["walls_s"], "phase": wall}
+    line["dispatch"] = [r["dispatch"] for r in ranks]
+    paths = {"sp_train": ranks[0]["19a"]["launches"],
+             **{f"pp_train/{name}/stage{i}": r["19c"][name]["launches"]
+                for name in PP_SCHEDULES for i, r in enumerate(ranks)},
+             **{f"pp_moe_train/stage{i}": r["19d"]["launches"]
+                for i, r in enumerate(ranks)}}
     return line, paths
 
 
@@ -7068,10 +7452,29 @@ def main():
         f"{tp_line['moe']['loss']:.4f} against {moe_first:.4f}; walls "
         f"{json.dumps(tp_line['walls_s'])} (gloo on one card: no NVLink)")
     mark("18 tp")
+
+    # 19. sequence and pipeline parallelism: two ranks on the card again
+    torch.cuda.empty_cache()
+    sp_line, sp_paths = sp_pp_phase(torch, tp_line["train"]["tp1_losses"],
+                                    moe_first)
+    log(f"sp / pp: ulysses losses {sp_line['ulysses']['losses']} (step p50 "
+        f"{sp_line['ulysses']['step_ms_p50']} ms, peak "
+        f"{sp_line['ulysses']['peak_mem_gb']} GB), ring "
+        f"{sp_line['ring']['losses']} (peak {sp_line['ring']['peak_mem_gb']}"
+        f" GB), pp waves {sp_line['pp']['schedules']['waves']['losses']} "
+        f"(peak {sp_line['pp']['schedules']['waves']['peak_mem_gb']} GB), "
+        f"save_boundaries "
+        f"{sp_line['pp']['schedules']['save_boundaries']['losses']} (peak "
+        f"{sp_line['pp']['schedules']['save_boundaries']['peak_mem_gb']} "
+        f"GB), moe {sp_line['pp_moe']['loss']:.4f} against "
+        f"{moe_first:.4f}; walls {json.dumps(sp_line['walls_s'])} (gloo on "
+        f"one card: no NVLink)")
+    mark("19 sp pp")
     dispatch["10, 11, 8b, 5, 6"] = no_card_losses(
         attn, "phases 10, 11, 8b, 5, 6")
     dispatch["14"] = {stage: line["dispatch"]
                       for stage, line in zero["stages"].items()}
+    dispatch["19 (a rank each)"] = sp_line["dispatch"]
     log(f"impl='auto' dispatch by phases, no measured loss on the card: "
         f"{json.dumps(dispatch)}")
 
@@ -7151,7 +7554,8 @@ def main():
                     **{run: lc[name] for run, lc in a11_paths.items()},
                     "v1_forward": v1_paths["v1_forward"][name],
                     "tp_train": tp_paths["tp_train"][name],
-                    "tp_moe_train": tp_paths["tp_moe_train"][name]},
+                    "tp_moe_train": tp_paths["tp_moe_train"][name],
+                    **{run: lc[name] for run, lc in sp_paths.items()}},
                 "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
@@ -7203,7 +7607,10 @@ def main():
                                      "tp_moe_train":
                                          tp_paths["tp_moe_train"][name],
                                      "tp_moe_serve":
-                                         tp_paths["tp_moe_serve"][name]},
+                                         tp_paths["tp_moe_serve"][name],
+                                     **{run: lc[name] for run, lc in
+                                        sp_paths.items()
+                                        if run.startswith("pp_moe")}},
                 "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
@@ -7395,6 +7802,7 @@ def main():
                               "stream": stream, "phase16_wall_s": a11_wall}}),
           flush=True)
     print(json.dumps({"tp": tp_line}), flush=True)
+    print(json.dumps({"sp_pp": sp_line}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start,
                       "phase_walls_s": walls}), flush=True)
     print(card, flush=True)
@@ -7407,4 +7815,6 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":
         sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--sp-rank":
+        sys.exit(sp_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

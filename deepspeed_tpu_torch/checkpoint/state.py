@@ -73,6 +73,10 @@ parallelism each tp rank's slice of a leaf that shards over tp
 (``<leaf>.tp<t>of<n>``, then the ep and block cuts), written by the rank
 whose other mesh coordinates are 0; the metadata's ``zero_blocks``
 records each cut (``ep``, ``tp``), so any tp and fsdp loads any other.
+Under pipeline parallelism each stage's layers of a stacked layer leaf
+are files of their own (``<leaf>.pp<s>of<n>``, before the other cuts),
+so a pp save loads at any pp, pp 1 included; the sp ranks hold the same
+state and the one at sp index 0 writes it.
 A load onto
 another mesh than the save's is legal and loud (JAX's
 ``_validate_tag``): a warning, ``resilience.resharded_restore`` counted
@@ -276,9 +280,10 @@ class CheckpointIO:
         count, index, dims = self._blocks(state)
         ep = self._ep_blocks(state)
         tp = self._tp_blocks(state)
+        pp = self._tp_blocks(state, "pp")
         self.ckpt_engine.save(os.path.join(ckpt_dir, STATE_DIR),
                               self._rank_tree(state, count, index, dims, ep,
-                                              tp))
+                                              tp, pp))
 
         # data-pipeline cursor: consumed GAS boundaries + loader state,
         # snapshotted at this boundary so auto-resume replays the exact
@@ -304,9 +309,9 @@ class CheckpointIO:
         }
         if client_record is not None:
             meta["client_optimizer"] = client_record
-        if count > 1 or ep[2] or tp[2]:
+        if count > 1 or ep[2] or tp[2] or pp[2]:
             meta[BLOCKS_KEY] = {"count": count, "dims": dims}
-            for key, cut in (("ep", ep), ("tp", tp)):
+            for key, cut in (("ep", ep), ("tp", tp), ("pp", pp)):
                 if cut[2]:
                     meta[BLOCKS_KEY][key] = {"count": cut[0],
                                              "dims": cut[2]}
@@ -361,36 +366,40 @@ class CheckpointIO:
                 dims[leaf_path] = e
         return zero.ep_n, zero.ep_index, dims
 
-    def _tp_blocks(self, state) -> Tuple[int, int, Dict[str, int]]:
+    def _tp_blocks(self, state, axis: str = "tp"
+                   ) -> Tuple[int, int, Dict[str, int]]:
         """(tp ranks, this rank's tp index, leaf path -> its tp dim): under
         tensor parallelism each tp rank holds its slice of a leaf that
-        shards over tp, in every master-shaped role."""
+        shards over tp, in every master-shaped role; the same for the
+        stages of a stacked layer leaf with ``axis="pp"``."""
         zero = self.engine._zero
-        if zero is None or getattr(zero, "tp_n", 1) == 1:
+        if zero is None or getattr(zero, f"{axis}_n", 1) == 1:
             return 1, 0, {}
         masters = dict(leaves(self.engine.opt_state.master))
         dims: Dict[str, int] = {}
         for leaf_path, t in leaves(state):
             top, _, path = leaf_path.strip("/").partition("/")
             path = "/" + path
-            d = zero.tp_dim.get(path)
+            d = getattr(zero, f"{axis}_dim").get(path)
             if d is not None and (top == "params" or (
                     top.startswith("opt_") and path in masters
                     and t.shape == masters[path].shape)):
                 dims[leaf_path] = d
-        return zero.tp_n, zero.tp_index, dims
+        return getattr(zero, f"{axis}_n"), getattr(zero, f"{axis}_index"), \
+            dims
 
     def _rank_tree(self, state, count: int, index: int,
-                   dims: Dict[str, int], ep=(1, 0, {}), tp=(1, 0, {})):
+                   dims: Dict[str, int], ep=(1, 0, {}), tp=(1, 0, {}),
+                   pp=(1, 0, {})):
         """What this rank writes: its slice of each sharded leaf, named by
-        its cuts in order (``<leaf>.tp<t>of<n>``, ``.ep<e>of<n>``,
-        ``.block<j>of<n>``), when its mesh coordinates off those cuts' axes
-        are 0 (one writer a file), and, on rank 0, the replicated
-        leaves."""
+        its cuts in order (``<leaf>.pp<s>of<n>``, ``.tp<t>of<n>``,
+        ``.ep<e>of<n>``, ``.block<j>of<n>``), when its mesh coordinates off
+        those cuts' axes are 0 (one writer a file), and, on rank 0, the
+        replicated leaves."""
         if comm.get_world_size() == 1:
             return state
         coords = self.engine.mesh.coords()
-        cuts = (("tp", "tp", tp), ("ep", "ep", ep),
+        cuts = (("pp", "pp", pp), ("tp", "tp", tp), ("ep", "ep", ep),
                 ("block", "fsdp", (count, index, dims)))
         out: Dict[str, Any] = {}
         own = "/" + quant_key()
@@ -594,18 +603,22 @@ class CheckpointIO:
         count, index, dims = self._blocks(state)
         ep = self._ep_blocks(state)
         tp = self._tp_blocks(state)
+        pp = self._tp_blocks(state, "pp")
         saved = meta.get(BLOCKS_KEY)
-        if count == 1 and not ep[2] and not tp[2] and saved is None:
+        if count == 1 and not ep[2] and not tp[2] and not pp[2] and \
+                saved is None:
             nbytes, _ = self.ckpt_engine.load(state_dir, state, skip=skip)
         else:
             none = {"count": 1, "dims": {}}
             saved_ep = (saved or {}).get("ep", none)
             saved_tp = (saved or {}).get("tp", none)
+            saved_pp = (saved or {}).get("pp", none)
             nbytes = read_blocks(
                 state_dir, state, skip, (count, index, dims),
                 (saved["count"], saved["dims"]) if saved else (1, {}),
                 ep, (saved_ep["count"], saved_ep["dims"]),
-                tp, (saved_tp["count"], saved_tp["dims"]))
+                tp, (saved_tp["count"], saved_tp["dims"]),
+                pp, (saved_pp["count"], saved_pp["dims"]))
         with torch.no_grad():
             if e._zenflow is not None:
                 if zen_sd is not None:
@@ -673,18 +686,21 @@ class CheckpointIO:
 
 def read_blocks(path: str, target, skip, layout, saved,
                 ep_layout=(1, 0, {}), ep_saved=(1, {}),
-                tp_layout=(1, 0, {}), tp_saved=(1, {})) -> int:
+                tp_layout=(1, 0, {}), tp_saved=(1, {}),
+                pp_layout=(1, 0, {}), pp_saved=(1, {})) -> int:
     """Fill each leaf of ``target`` (this rank's blocks, or whole leaves)
     from the files under ``path`` that overlap it, whatever the save's
     world size: ``layout`` is (blocks, this rank's block, leaf -> dim) of
     the target, ``saved`` (blocks, leaf -> dim) of the save, and
     ``ep_layout`` / ``ep_saved`` and ``tp_layout`` / ``tp_saved`` the same
     for the expert dim of the expert leaves and the tp dim of the
-    tp-sharded leaves. Every file is mapped and checked (dtype, whole
-    shape) before any tensor changes. Returns the bytes copied."""
-    # in file-name order: tp, ep, block
-    cuts_t = [tp_layout, ep_layout, layout]
-    cuts_s = [("tp", tp_saved), ("ep", ep_saved), ("block", saved)]
+    tp-sharded leaves, and ``pp_layout`` / ``pp_saved`` for the stages
+    of the stacked layer leaves. Every file is mapped and checked (dtype,
+    whole shape) before any tensor changes. Returns the bytes copied."""
+    # in file-name order: pp, tp, ep, block
+    cuts_t = [pp_layout, tp_layout, ep_layout, layout]
+    cuts_s = [("pp", pp_saved), ("tp", tp_saved), ("ep", ep_saved),
+              ("block", saved)]
     skip = {f"/{k}" for k in skip}
     pairs = []
     for leaf_path, dst in leaves(target):

@@ -23,7 +23,9 @@ NCCL is the default for ranks on cards of their own. NCCL refuses two
 ranks on one card, so ranks that share a card join with
 ``dist_backend="gloo"``; gloo takes card tensors for every collective
 here (it copies them through the host itself; probed on the card by
-``chip_smoke.py``'s phase 18).
+``chip_smoke.py``'s phases 18 and 19), but its point-to-point send and
+receive read the raw pointer, so ``ppermute`` stages a card tensor
+through the host under gloo.
 """
 
 from __future__ import annotations
@@ -460,7 +462,10 @@ def ppermute(x: torch.Tensor, axis, perm: Sequence[Sequence[int]],
     if not issue:
         hit = [s for s, d in perm if d == me]
         return x.clone() if hit else torch.zeros_like(x)
-    src = x.contiguous()
+    # gloo's send / receive read the raw pointer (a card tensor aborts
+    # the process): stage it through the host
+    staged = x.is_cuda and get_backend() == "gloo"
+    src = x.contiguous().cpu() if staged else x.contiguous()
     out = torch.zeros_like(src)
     ops = []
     for s, d in perm:
@@ -476,7 +481,7 @@ def ppermute(x: torch.Tensor, axis, perm: Sequence[Sequence[int]],
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return out
+    return out.to(x.device) if staged else out
 
 
 def broadcast(x: torch.Tensor, axis, root: int = 0,

@@ -10,6 +10,8 @@ block (``CommsLoggerConfig``), the ``activation_checkpointing`` block
 (``OffloadOptimizerConfig``), ``.offload_param`` (``OffloadParamConfig``)
 and ``.zenflow`` (``ZenFlowBlockConfig``), ZeRO++'s switches (qwZ, qgZ,
 qar, hpZ, MiCS), the ``moe`` block (``ep_size`` any), the
+``sequence_parallel`` and ``pipeline`` blocks
+(``SequenceParallelConfig``, ``PipelineConfig``), the
 ``serving`` block (``ServingConfig``, the serving engine's knobs), the
 ``sparse_attention`` block (``SparseAttentionConfig``), the
 ``kernels`` block (``KernelsConfig``), the ``checkpoint`` and
@@ -42,8 +44,6 @@ import torch
 _A = "ROADMAP queue A item"
 # top-level blocks of the JAX schema this package does not run yet
 UNPORTED_BLOCKS = {
-    "sequence_parallel": f"{_A} 11 (sequence parallelism)",
-    "pipeline": f"{_A} 11 (pipeline parallelism)",
     "flops_profiler": f"{_A} 16 (profiling)",
     "compile": f"{_A} 16 (compile passes)",
     "elasticity": f"{_A} 16 (elasticity)",
@@ -307,6 +307,45 @@ class MoEConfig:
         if self.impl not in ("auto", "grouped", "einsum"):
             raise ValueError(f"moe.impl must be auto, grouped or einsum, "
                              f"got {self.impl!r}")
+
+
+@dataclass
+class SequenceParallelConfig:
+    """The JAX ``sequence_parallel`` block: ``size`` is the mesh's sp
+    axis (the engine's default mesh); ``auto_plan`` lets the engine
+    compose ``parallel/auto_sp.plan_sequence_parallel``'s plan onto the
+    model's config at init (strategy, FPDT chunks, host-KV spill against
+    ``hbm_budget_gb``, GiB a card). ``mode``, ``tiled_mlp``,
+    ``tiled_logits`` and ``tile_size`` are parsed and read nowhere, as in
+    JAX (the model's ``sp_mode`` and tiling switches decide)."""
+
+    size: int = 1
+    mode: str = "ulysses"  # ulysses | ring
+    tiled_mlp: bool = False
+    tiled_logits: bool = False
+    tile_size: int = 0
+    auto_plan: bool = True
+    hbm_budget_gb: Optional[float] = None
+
+
+@dataclass
+class PipelineConfig:
+    """The JAX ``pipeline`` block: ``stages`` is the mesh's pp axis;
+    ``microbatches`` (0: ``min(batch, 2 * stages)``), ``window`` (0:
+    ``2 * stages``) and ``schedule`` ("waves": waves of ``window``
+    microbatches, each recomputed in the backward; "save_boundaries":
+    one pass that keeps every stage boundary) scope
+    ``parallel/pipeline.pipelined_layers`` to the engine's steps.
+    ``partition_method`` and ``activation_checkpoint_interval`` are
+    parsed and read nowhere, as in JAX (the stages split the layers
+    evenly and the stage body is recomputed)."""
+
+    stages: int = 1
+    partition_method: str = "uniform"
+    activation_checkpoint_interval: int = 0
+    microbatches: int = 0
+    window: int = 0
+    schedule: str = "waves"
 
 
 @dataclass
@@ -823,6 +862,9 @@ class Config:
     moe: MoEConfig = field(default_factory=MoEConfig)
     tensor_parallel: TensorParallelConfig = field(
         default_factory=TensorParallelConfig)
+    sequence_parallel: SequenceParallelConfig = field(
+        default_factory=SequenceParallelConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     comms_logger: CommsLoggerConfig = field(
         default_factory=CommsLoggerConfig)
     activation_checkpointing: ActivationCheckpointingConfig = field(
@@ -874,7 +916,7 @@ class Config:
                                      "zero_optimization.zenflow")
         blocks = {"bf16", "fp16", "optimizer", "scheduler",
                   "zero_optimization", "moe", "tensor_parallel",
-                  "comms_logger",
+                  "sequence_parallel", "pipeline", "comms_logger",
                   "activation_checkpointing", "serving",
                   "sparse_attention", "kernels", "checkpoint", "resilience",
                   "performance", "observability", "monitor"}
@@ -899,6 +941,11 @@ class Config:
             tensor_parallel=_block(TensorParallelConfig,
                                    data.get("tensor_parallel"),
                                    "tensor_parallel"),
+            sequence_parallel=_block(SequenceParallelConfig,
+                                     data.get("sequence_parallel"),
+                                     "sequence_parallel"),
+            pipeline=_block(PipelineConfig, data.get("pipeline"),
+                            "pipeline"),
             comms_logger=_block(CommsLoggerConfig, data.get("comms_logger"),
                                 "comms_logger"),
             activation_checkpointing=_block(
@@ -1020,7 +1067,8 @@ __all__ = ["Config", "OptimizerConfig", "SchedulerConfig", "CommsLoggerConfig",
            "BF16Config",
            "FP16Config", "OffloadOptimizerConfig", "OffloadParamConfig",
            "ActivationCheckpointingConfig", "ZenFlowBlockConfig",
-           "ZeroConfig", "MoEConfig", "ServingConfig",
+           "ZeroConfig", "MoEConfig", "SequenceParallelConfig",
+           "PipelineConfig", "ServingConfig",
            "SparseAttentionConfig", "KernelsConfig", "CheckpointConfig",
            "ResilienceConfig", "PerformanceConfig", "ObservabilityConfig",
            "WatchdogConfig", "RequestTraceConfig", "ClockSyncConfig",

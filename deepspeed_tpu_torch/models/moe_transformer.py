@@ -16,8 +16,15 @@ layer in ``torch.utils.checkpoint`` as the dense model does. With
 experts included, streams from pinned host memory a layer at a time
 (``runtime/param_stream.py``), as in JAX. At tp > 1 the attention is
 the dense model's column / row pair and each rank holds F/tp of every
-expert (``parallel/moe.py`` all-reduces the combine). The pipeline
-branch is not ported: a pipeline config block raises.
+expert (``parallel/moe.py`` all-reduces the combine). Under
+``sequence_parallel`` the KV heads are repeated before the sp attention
+(JAX's ``repeat_kv_heads``), each rank routes its own sequence block's
+tokens (the routing statistics averaged over the sp ranks too, as JAX's
+sequence-sharded dispatch averages its shards'), and the LM loss is the
+mean over the global tokens. On a pp mesh the layer stack runs as
+``parallel/pipeline.pipelined_layers`` with the aux loss threaded
+through the stages and averaged over the microbatches (JAX's
+``with_aux``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import torch
 import torch.utils.checkpoint
 
 from deepspeed_tpu_torch.models import transformer as tf
+from deepspeed_tpu_torch.ops.attention import repeat_kv_heads
+from deepspeed_tpu_torch.parallel import pipeline, topology
 from deepspeed_tpu_torch.parallel.moe import GateConfig, moe_ffn
 from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.utils.annotate import region
@@ -139,6 +148,10 @@ def _moe_layer(cfg: MoETransformerConfig, x, layer_params, rope,
     if rope is not None:
         q = tf.apply_rope(q, *rope)
         k = tf.apply_rope(k, *rope)
+    if cfg.sequence_parallel or cfg.attn_chunks > 1:
+        # the head-split paths need equal q / kv head counts; the plain
+        # path keeps KV grouped for the GQA-native flash kernels
+        k, v = repeat_kv_heads(q, k, v)
     attn = tf._attention(q, k, v, cfg)
     wo = ap["wo"].to(dt)
     x = x + sharding.tp_reduce(torch.matmul(
@@ -170,12 +183,21 @@ def apply(cfg: MoETransformerConfig, params: Dict[str, Any],
     vocab slice (``sharding.tp_gather`` makes them whole)."""
     B, S = tokens.shape
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None, :]
+        positions = tf.local_positions(cfg, S, tokens.device)
     fetch = sharding.active_fetch()
     x = tf.embed_tokens(cfg, params, tokens, positions, fetch)
     rope = (tf.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.pos_emb == "rope" else None)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if pipeline.pipeline_enabled(topology._GLOBAL_MESH):
+        # pp > 1: the stage pipeline threading the aux loss through the
+        # stages (each stage recomputed in the backward)
+        x, aux_total = pipeline.pipelined_layers(
+            lambda c, lp: tf.fetched_layer(fetch, _moe_layer, cfg, c, lp,
+                                           rope, train),
+            params["layers"], x, with_aux=True)
+        x = tf.final_norm_of(cfg, params, x, fetch)
+        return tf.unembed(cfg, params, x, fetch), aux_total
     if cfg.param_host_offload:
         # ZeRO-Infinity streaming of the expert stack (JAX's branch): a
         # fetch inside each remat'd layer, so the card holds one layer's
@@ -213,15 +235,23 @@ def loss_fn(cfg: MoETransformerConfig, params: Dict[str, Any],
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal-LM cross-entropy (a plain mean over every next token) plus
-    the aux loss; batch: {input_ids [B, S]}."""
+    the aux loss; batch: {input_ids [B, S]} (under sp each rank's
+    sequence block after the shift, {input_ids, labels}; the mean is
+    over the global tokens)."""
     tokens = batch["input_ids"]
-    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    inputs, labels, _ = tf.lm_batch({k: v for k, v in batch.items()
+                                     if k != "loss_mask"})
     logits, aux_loss = apply(cfg, params, inputs, train=True)
-    nll = sharding.vocab_parallel_nll(logits, labels).mean()
+    count = torch.tensor(float(labels.numel()), device=tokens.device)
+    if sharding.sp_size() > 1:
+        count = sharding.sp_sum(count)
+        nll = sharding.sp_sum(
+            sharding.vocab_parallel_nll(logits, labels).sum()) / count
+    else:
+        nll = sharding.vocab_parallel_nll(logits, labels).mean()
     total = nll + aux_loss
     return total, {"loss": total, "lm_loss": nll, "aux_loss": aux_loss,
-                   "ntokens": torch.tensor(float(labels.numel()),
-                                           device=tokens.device)}
+                   "ntokens": count}
 
 
 class MoETransformerLM(tf.TransformerLM):

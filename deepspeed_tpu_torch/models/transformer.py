@@ -46,8 +46,23 @@ bias), the embedding is ``vocab_parallel_lookup`` and the losses take
 the vocab-sharded logits through ``vocab_parallel_nll``; ``apply``
 gathers them whole. The FPDT host paths and the streamed stack stay on
 one tp rank.
-The pipeline and sequence-parallel branches are not ported: their
-switches raise ``NotImplementedError`` naming their ROADMAP item.
+
+Sequence parallelism (``sequence_parallel``, an sp mesh axis whose
+collectives communicate): each rank's batch is its block of the
+sequence, cut after the next-token shift (``topology.batch_sharding``),
+its positions start at ``sp_index * S_local`` (rope and learned
+positions), the KV heads are repeated to the query count before the sp
+attention (JAX's ``repeat_kv_heads``), and ``_attention`` dispatches as
+JAX's does: ``sp_mode="ring"`` to ``parallel/ring_attention``, else
+Ulysses (``parallel/ulysses``, whose local attention is the flash
+kernels or FPDT's chunks). The loss is the mean over the global tokens:
+each rank's NLL sum and token count summed over sp (``sharding.sp_sum``).
+FPDT's host KV over the sp ranks raises (ROADMAP queue A item 11's
+leftover), the hosted residual with sp raises JAX's error.
+
+Pipeline parallelism (a pp mesh axis): the layer stack runs as
+``parallel/pipeline.pipelined_layers`` over this stage's L / PP layers
+(the stage recomputed in the backward, as JAX's is).
 """
 
 from __future__ import annotations
@@ -64,17 +79,12 @@ from torch import nn
 from deepspeed_tpu_torch._device import DeviceLike, resolve_device
 from deepspeed_tpu_torch.ops.attention import (multi_head_attention,
                                                repeat_kv_heads)
+from deepspeed_tpu_torch.parallel import pipeline, topology
 from deepspeed_tpu_torch.runtime import activation_checkpointing as ac
 from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.utils.annotate import region
 
-# JAX config switches of branches this package does not run yet: field ->
-# (the values that mean "off", what to port first)
 _A11 = "ROADMAP queue A item 11"
-_UNPORTED_SWITCHES = {
-    "sequence_parallel": ((False,), f"{_A11}'s multi-card part (Ulysses / "
-                                    "ring attention)"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +92,7 @@ class TransformerConfig:
     """Architecture switches covering the GPT-2/Llama families (the
     JAX ``TransformerConfig``'s fields this package runs; ``dtype`` is
     the compute and storage type of the weights, and the activations'
-    type in the forward). Switches of unported branches exist so that
-    setting them raises instead of being ignored."""
+    type in the forward)."""
 
     vocab_size: int = 50257
     hidden_size: int = 768
@@ -110,7 +119,9 @@ class TransformerConfig:
     # resolved policy (a SavePolicy) on its copy of the config
     remat_policy: Optional[Any] = None
     attn_impl: str = "auto"  # auto | xla | flash | blocksparse (ops/attention)
+    # sp attention over the sp mesh axis: ulysses (all-to-all) | ring
     sequence_parallel: bool = False
+    sp_mode: str = "ulysses"
     # FPDT chunked attention: query chunks, 0/1 = off
     attn_chunks: int = 0
     # FPDT host KV: the K/V tiles in pinned host memory (attn_chunks,
@@ -136,12 +147,9 @@ class TransformerConfig:
     serialize_fetch: bool = False
 
     def __post_init__(self):
-        for name, (off, item) in _UNPORTED_SWITCHES.items():
-            value = getattr(self, name)
-            if value not in off:
-                raise NotImplementedError(
-                    f"TransformerConfig.{name}={value!r} is not ported to "
-                    f"deepspeed_tpu_torch yet: {item}")
+        if self.sp_mode not in ("ulysses", "ring"):
+            raise ValueError(
+                f"sp_mode must be ulysses|ring, got {self.sp_mode!r}")
         if self.fpdt_host_residual:
             if not self.fpdt_host_kv:
                 raise ValueError(
@@ -153,6 +161,11 @@ class TransformerConfig:
                     "fpdt_host_residual requires the fused sequential "
                     "block (attention+MLP per chunk); parallel_block "
                     "is not chunk-fusable this way")
+            if self.sequence_parallel:
+                raise ValueError(
+                    "fpdt_host_residual does not compose with "
+                    "sequence_parallel: the residual lives as a host "
+                    "chunk stack, which cannot also be sharded over sp")
 
     @property
     def kv_heads(self) -> int:
@@ -345,9 +358,20 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _attention(q, k, v, cfg: TransformerConfig, causal: bool = True):
-    """The attention op: FPDT chunked attention with ``attn_chunks`` > 1,
-    else ``multi_head_attention`` (sequence parallelism raises at config
-    construction)."""
+    """The attention op (JAX's dispatch): under ``sequence_parallel`` the
+    ring (already blockwise: ``attn_chunks`` adds nothing there) or
+    Ulysses; else FPDT chunked attention with ``attn_chunks`` > 1, else
+    ``multi_head_attention``."""
+    if cfg.sequence_parallel:
+        if cfg.sp_mode == "ring":
+            from deepspeed_tpu_torch.parallel.ring_attention import \
+                ring_attention
+
+            return ring_attention(q, k, v, causal=causal)
+        from deepspeed_tpu_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, causal=causal, impl=cfg.attn_impl,
+                                 attn_chunks=cfg.attn_chunks)
     if cfg.attn_chunks > 1:
         from deepspeed_tpu_torch.parallel.fpdt import chunked_attention
 
@@ -387,6 +411,12 @@ def _layer(cfg: TransformerConfig, x, layer_params, rope):
     x = x.to(cfg.dtype)
     if cfg.fpdt_host_kv:
         _one_tp_rank("fpdt_host_kv")
+        if cfg.sequence_parallel and sharding.sp_size() > 1:
+            from deepspeed_tpu_torch.parallel.fpdt import _A11_SP
+
+            raise NotImplementedError(
+                f"fpdt_host_kv with sequence_parallel at sp="
+                f"{sharding.sp_size()}: {_A11_SP}")
         return _fpdt_layer(cfg, x, layer_params, rope)
     attn = _attention_half(cfg, x, layer_params, rope)
     return _layer_mlp(cfg, x, attn, layer_params)
@@ -436,9 +466,9 @@ def _attention_half(cfg: TransformerConfig, x, layer_params, rope):
     if rope is not None:
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
-    if cfg.attn_chunks > 1:
-        # the chunked path splits on the head axis and needs equal q / kv
-        # head counts; the flash kernels read grouped KV natively
+    if cfg.sequence_parallel or cfg.attn_chunks > 1:
+        # the sp and chunked paths split on the head axis and need equal
+        # q / kv head counts; the flash kernels read grouped KV natively
         k, v = repeat_kv_heads(q, k, v)
     with ac.checkpoint_name("attn_kernel_out"):
         attn = _attention(q, k, v, cfg)
@@ -588,12 +618,18 @@ def apply_hidden(cfg: TransformerConfig, params: Dict[str, Any],
             "(apply_hidden would build the full-S buffer this mode "
             "removes)")
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None, :]
+        positions = local_positions(cfg, S, tokens.device)
     fetch = sharding.active_fetch()
     x = embed_tokens(cfg, params, tokens, positions, fetch)
     rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.pos_emb == "rope" else None)
-    if cfg.param_host_offload:
+    if pipeline.pipeline_enabled(topology._GLOBAL_MESH):
+        # pp > 1: the stack as a microbatched stage pipeline (each stage
+        # recomputed in the backward, as JAX's is)
+        x = pipeline.pipelined_layers(
+            lambda c, lp: fetched_layer(fetch, _layer, cfg, c, lp, rope),
+            params["layers"], x)
+    elif cfg.param_host_offload:
         _one_tp_rank("offload_param")
         x = _streamed_stack(cfg, params["layers"], x, rope)
     else:
@@ -605,6 +641,23 @@ def apply_hidden(cfg: TransformerConfig, params: Dict[str, Any],
     if not final_norm:
         return x
     return final_norm_of(cfg, params, x, fetch)
+
+
+def local_positions(cfg: TransformerConfig, S: int, device) -> torch.Tensor:
+    """[1, S] positions of this rank's tokens: its sequence block's under
+    sp (from ``sp_index * S``), else 0..S-1. A sequence-parallel mesh
+    needs the model's ``sequence_parallel`` (its attention exchanges the
+    blocks)."""
+    pos = torch.arange(S, device=device)[None, :]
+    if sharding.sp_size() > 1:
+        if not cfg.sequence_parallel:
+            raise ValueError(
+                f"an sp mesh axis of {sharding.sp_size()} ranks gives each "
+                "rank a block of the sequence: the model needs "
+                "sequence_parallel=True (the sequence_parallel block's "
+                "auto_plan sets it)")
+        pos = pos + sharding.sp_index() * S
+    return pos
 
 
 def _streamed_stack(cfg: TransformerConfig, layers, x, rope):
@@ -750,16 +803,7 @@ def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal-LM cross-entropy. batch: {input_ids [B, S]} or
     {input_ids, labels, loss_mask}, as tensors on the model's device."""
-    tokens = batch["input_ids"]
-    if "labels" in batch:
-        inputs, labels = tokens, batch["labels"]
-    else:
-        inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    mask = batch.get("loss_mask")
-    if mask is not None:
-        mask = mask.float()
-        if mask.shape[1] == tokens.shape[1] and "labels" not in batch:
-            mask = mask[:, 1:]
+    inputs, labels, mask = lm_batch(batch)
     if cfg.fpdt_host_residual:
         # the residual lives on the host; the loss fuses the final norm,
         # the unembed and the cross-entropy per fetched chunk
@@ -776,7 +820,33 @@ def loss_fn(cfg: TransformerConfig, params: Dict[str, Any],
     return lm_head_loss(cfg, params, hidden, labels, mask)
 
 
+def lm_batch(batch: Dict[str, torch.Tensor]):
+    """(inputs, labels, fp32 loss mask or None) of a causal-LM batch:
+    {input_ids [B, S + 1]} shifted, or {input_ids, labels, loss_mask} as
+    given. Under sp each rank's batch is its sequence block, cut after
+    the shift (``topology.batch_sharding``), so it carries labels."""
+    tokens = batch["input_ids"]
+    if "labels" in batch:
+        inputs, labels = tokens, batch["labels"]
+    elif sharding.sp_size() > 1:
+        raise ValueError(
+            "under sequence parallelism each rank's batch is its block of "
+            "the sequence after the next-token shift ({input_ids, labels}"
+            "): cut it with topology.batch_sharding(mesh).take or "
+            "parallel.ulysses.UlyssesSPDataLoaderAdapter")
+    else:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask.float()
+        if mask.shape[1] == tokens.shape[1] and "labels" not in batch:
+            mask = mask[:, 1:]
+    return inputs, labels, mask
+
+
 def _mean_loss(nll_sum, total):
+    # under sp the global tokens' sums (each rank's part summed)
+    nll_sum, total = sharding.sp_sum(nll_sum), sharding.sp_sum(total)
     total = torch.clamp(total, min=1.0)
     loss = nll_sum / total
     return loss, {"loss": loss, "ntokens": total}
@@ -816,8 +886,9 @@ def lm_head_loss(cfg: TransformerConfig, params: Dict[str, Any], hidden,
     nll = sharding.vocab_parallel_nll(logits, labels)
     if mask is None:
         mask = torch.ones_like(nll)
-    total = torch.clamp(mask.sum(), min=1.0)
-    loss = (nll * mask).sum() / total
+    # the mean over the global tokens: under sp each rank's sums summed
+    total = torch.clamp(sharding.sp_sum(mask.sum()), min=1.0)
+    loss = sharding.sp_sum((nll * mask).sum()) / total
     return loss, {"loss": loss, "ntokens": total}
 
 
@@ -838,14 +909,18 @@ class TransformerLM(nn.Module):
     ``TP_RULES`` shards is drawn whole from the same seeded stream (so
     every rank's slices come from one model) and only this rank's slice
     is kept, so no rank holds the whole model; ``self.tp`` records it.
+    ``pp=(stage, stages)`` likewise keeps one pipeline stage's
+    ``L / stages`` layers of each stacked layer leaf (``self.pp``).
     """
 
     def __init__(self, config: TransformerConfig, *, device: DeviceLike = None,
                  seed: Optional[int] = 0,
-                 tp: Optional[Tuple[int, int]] = None):
+                 tp: Optional[Tuple[int, int]] = None,
+                 pp: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.config = config
         self.tp = tuple(tp) if tp is not None and tp[1] > 1 else None
+        self.pp = tuple(pp) if pp is not None and pp[1] > 1 else None
         dev = resolve_device(device)
         gen = None
         if seed is not None:
@@ -871,6 +946,12 @@ class TransformerLM(nn.Module):
             if keep is not None:  # this rank's slice, the rest freed
                 n = shape[keep] // self.tp[1]
                 t = t.narrow(keep, self.tp[0] * n, n).clone()
+            if self.pp is not None and path.startswith("/layers/"):
+                if shape[0] % self.pp[1]:
+                    raise AssertionError(f"num_layers {shape[0]} must "
+                                         f"divide pp {self.pp[1]}")
+                n = shape[0] // self.pp[1]  # this stage's layers
+                t = t.narrow(0, self.pp[0] * n, n).clone()
             return nn.Parameter(t, requires_grad=False)
         children = {k: self._build(v, dev, gen, f"{path}/{k}")
                     for k, v in node.items()}

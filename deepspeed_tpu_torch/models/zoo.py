@@ -91,18 +91,18 @@ def get_config(name: str, **overrides) -> TransformerConfig:
 
 
 def get_model(name: str, *, device: DeviceLike = None,
-              seed: Optional[int] = 0, tp=None,
+              seed: Optional[int] = 0, tp=None, pp=None,
               **overrides) -> TransformerLM:
     """Instantiate a preset with weights drawn from ``seed`` on
     ``device`` (the card unless the caller says otherwise), optionally
     overriding config fields (e.g. ``dtype=torch.float32``,
     ``num_layers=2``); a ``MoETransformerLM`` for the MoE presets.
-    ``tp=(index, size)`` keeps one tp rank's slice of each leaf
-    (``TransformerLM``)."""
+    ``tp=(index, size)`` keeps one tp rank's slice of each leaf,
+    ``pp=(stage, stages)`` one stage's layers (``TransformerLM``)."""
     cfg = get_config(name, **overrides)
     cls = MoETransformerLM if isinstance(cfg, MoETransformerConfig) \
         else TransformerLM
-    return cls(cfg, device=device, seed=seed, tp=tp)
+    return cls(cfg, device=device, seed=seed, tp=tp, pp=pp)
 
 
 __all__ = ["CONFIGS", "get_config", "get_model"]

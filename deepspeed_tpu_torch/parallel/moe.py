@@ -40,6 +40,7 @@ Deliberate differences from the JAX core, each the same function:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -158,8 +159,13 @@ class _TokenMean(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return comm.all_reduce(g.contiguous(), ctx.axis, op="mean",
-                               log_name="moe_stats_grad"), None
+        g = comm.all_reduce(g.contiguous(), ctx.axis, op="mean",
+                            log_name="moe_stats_grad")
+        if "sp" in ctx.axis:
+            # the engine sums the gradients over sp (each sp rank's is its
+            # part) where it averages them over the data ranks
+            g = g / _mesh().shape["sp"]
+        return g, None
 
 
 class _GatherExperts(torch.autograd.Function):
@@ -185,6 +191,45 @@ def _mesh():
 def _mesh_sizes() -> Dict[str, int]:
     mesh = _mesh()
     return dict(mesh.shape) if mesh is not None else {}
+
+
+def _stat_axes(sizes: Dict[str, int]) -> Tuple[str, ...]:
+    """The token ranks the routing statistics average over: the data
+    axes with ranks, and the sp ranks (each holds a sequence block)."""
+    if sharding.sp_size() > 1:
+        return tuple(TOKEN_AXES) + ("sp",)
+    return tuple(a for a in TOKEN_AXES if sizes.get(a, 1) > 1)
+
+
+# data axes whose ranks hold the same tokens (a pipeline microbatch that
+# does not split over them): the dropless dispatch places its tokens
+# over them by the sequence, as JAX's dispatch places a batch that its
+# token axes cannot split
+_REPLICATED: Tuple[str, ...] = ()
+
+
+@contextlib.contextmanager
+def replicated_tokens(axes):
+    """Within: ``axes``' ranks hold the same tokens (``parallel/
+    pipeline.py``'s microbatches)."""
+    global _REPLICATED
+    prev, _REPLICATED = _REPLICATED, tuple(axes)
+    try:
+        yield
+    finally:
+        _REPLICATED = prev
+
+
+def _seq_placement(S: int, axes, sizes: Dict[str, int]):
+    """(the axes of ``axes`` the sequence splits over, greedy in JAX's
+    order, the others)."""
+    seq, prod = [], 1
+    for a in TOKEN_AXES:
+        sz = sizes.get(a, 1)
+        if a in axes and sz > 1 and S % (prod * sz) == 0:
+            seq.append(a)
+            prod *= sz
+    return tuple(seq), tuple(a for a in axes if a not in seq)
 
 
 def _grouped_unsupported_reason(cfg: GateConfig) -> Optional[str]:
@@ -475,8 +520,8 @@ def moe_ffn_dropless(x: torch.Tensor, router_w: torch.Tensor,
     mesh = _mesh()
     sizes = _mesh_sizes()
     ep, tp = sizes.get("ep", 1), sizes.get("tp", 1)
-    token_ranks = [a for a in TOKEN_AXES if sizes.get(a, 1) > 1]
-    if mesh is None or (not token_ranks and tp == 1):
+    axes = _stat_axes(sizes)
+    if mesh is None or (not axes and tp == 1):
         out, stats = _dropless_shard_core(x, router_w, expert_params, cfg,
                                           activation, train=train)
         return out, _aux_from_stats(stats, cfg)
@@ -496,15 +541,27 @@ def moe_ffn_dropless(x: torch.Tensor, router_w: torch.Tensor,
                 f"batch {x.shape[0]}x{x.shape[1]} not shardable over all "
                 f"token axes { {a: sizes.get(a, 1) for a in TOKEN_AXES} }")
         x = _slice_tokens(_slice_tokens(x, batch_axes, 0), seq_axes, 1)
+    elif _REPLICATED:
+        seq_axes, unplaced = _seq_placement(x.shape[1], _REPLICATED, sizes)
+        if unplaced:
+            from deepspeed_tpu_torch.utils import telemetry
+
+            telemetry.count(
+                "moe.grouped_replicated_tokens",
+                f"batch {x.shape[0]}x{x.shape[1]} not shardable over all "
+                f"token axes { {a: sizes.get(a, 1) for a in TOKEN_AXES} }")
+        x = _slice_tokens(x, seq_axes, 1)
     out, stats = _dropless_shard_core(x, router_w, expert_params, cfg,
                                       activation, ep=ep, tp=tp, train=train)
-    axes = tuple(token_ranks)
-    stats = {key: _TokenMean.apply(v, axes) for key, v in stats.items()}
+    if axes:
+        stats = {key: _TokenMean.apply(v, axes) for key, v in stats.items()}
     if global_tokens:
         if seq_axes:
             out = _GatherTokens.apply(out, seq_axes, 1)
         if batch_axes:
             out = _GatherTokens.apply(out, batch_axes, 0)
+    elif seq_axes:  # each rank's part of the copies' cotangent
+        out = sharding.gather_sum(out, seq_axes, 1, "moe_tokens")
     return out, _aux_from_stats(stats, cfg)
 
 
@@ -578,8 +635,7 @@ def _moe_ffn_einsum(x, router_w, expert_params, cfg: GateConfig,
     expert_out = torch.einsum("becf,efh->bech", hidden, wo)
     out = sharding.tp_reduce(torch.einsum(
         "bech,bsec->bsh", expert_out, sharding.tp_copy(combine.to(dt))))
-    token_ranks = tuple(a for a in TOKEN_AXES
-                        if _mesh_sizes().get(a, 1) > 1)
+    token_ranks = _stat_axes(_mesh_sizes())
     if token_ranks and not group_stats:
         # the gate's statistics over the token ranks, JAX's global batch
         gates = torch.softmax(logits.float(), dim=-1)
@@ -596,4 +652,5 @@ def _moe_ffn_einsum(x, router_w, expert_params, cfg: GateConfig,
 
 
 __all__ = ["GateConfig", "compute_capacity", "top_k_gating", "top_k",
-           "moe_ffn", "moe_ffn_dropless", "token_placement", "TOKEN_AXES"]
+           "moe_ffn", "moe_ffn_dropless", "token_placement", "TOKEN_AXES",
+           "replicated_tokens"]

@@ -41,8 +41,11 @@ MESH_AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 BATCH_AXES = ("dp", "fsdp", "ep")  # the batch dim shards over the data axes
 SEQ_AXIS = "sp"
 # the axis tuples that get a group of their own besides the single axes
-# (qgZ's replica level reduces over dp and ep together)
-_GROUPED_AXES = (BATCH_AXES, ("dp", "fsdp"), ("dp", "ep"))
+# (qgZ's replica level reduces over dp and ep together; a gradient sums
+# over the sp ranks beside its data axes)
+_GROUPED_AXES = (BATCH_AXES, ("dp", "fsdp"), ("dp", "ep"),
+                 BATCH_AXES + (SEQ_AXIS,), ("dp", "fsdp", SEQ_AXIS),
+                 ("dp", "ep", SEQ_AXIS), ("dp", SEQ_AXIS))
 
 AxisName = Union[str, Tuple[str, ...]]
 
@@ -149,6 +152,11 @@ class Mesh:
             return None
         key = tuple(a for a in MESH_AXES if a in axes)
         if key not in self._groups:
+            # the same ranks under a grouped key that adds one-rank axes
+            for other, pg in self._groups.items():
+                if set(key) <= set(other) and all(
+                        self.shape[a] == 1 for a in set(other) - set(key)):
+                    return pg
             raise ValueError(
                 f"no process group for mesh axes {key}: the mesh builds "
                 f"the single axes and {_GROUPED_AXES}")
@@ -308,18 +316,39 @@ def get_fsdp_world_size(mesh: Optional[Mesh] = None) -> int:
 class BatchSlice:
     """This rank's part of a global batch: the ``index``-th of ``count``
     equal row blocks of dim 0 (JAX's ``batch_sharding`` places the same
-    rows on device ``index``)."""
+    rows on device ``index``), and, with ``seq_count`` > 1, the
+    ``seq_index``-th of as many blocks of the sequence (dim 1).
+
+    The sequence cut follows the next-token shift, never precedes it: a
+    causal-LM batch (``input_ids`` [B, S + 1] without ``labels``) becomes
+    its inputs and labels first (``loss_mask`` shifted as the loss
+    shifts it), as JAX's ``loss_fn`` shifts the global batch before
+    anything is sharded. A sequence that does not split is padded at its
+    end to the next multiple of ``seq_count`` (JAX's ring attention pads
+    to the ring size), with ``loss_mask`` 0 on the padding."""
 
     index: int
     count: int
+    seq_index: int = 0
+    seq_count: int = 1
 
     def take(self, batch):
-        """The rank's rows of every array in ``batch`` (dicts, lists and
-        tuples of numpy arrays or tensors)."""
+        """The rank's rows (and sequence block) of every array in
+        ``batch`` (dicts, lists and tuples of numpy arrays or
+        tensors)."""
+        rows = self._rows(batch)
+        if self.seq_count == 1:
+            return rows
+        if isinstance(rows, dict) and "input_ids" in rows \
+                and "labels" not in rows:
+            rows = shift_tokens(rows)
+        return self._seq(rows)
+
+    def _rows(self, batch):
         if isinstance(batch, dict):
-            return {k: self.take(v) for k, v in batch.items()}
+            return {k: self._rows(v) for k, v in batch.items()}
         if isinstance(batch, (list, tuple)):
-            return type(batch)(self.take(v) for v in batch)
+            return type(batch)(self._rows(v) for v in batch)
         n = batch.shape[0]
         if n % self.count:
             raise ValueError(f"batch of {n} rows does not split into "
@@ -327,13 +356,66 @@ class BatchSlice:
         step = n // self.count
         return batch[self.index * step:(self.index + 1) * step]
 
+    def _seq(self, batch):
+        if isinstance(batch, dict):
+            if "labels" in batch and "loss_mask" not in batch:
+                lab = batch["labels"]
+                batch = dict(batch, loss_mask=_ones_like(lab))
+            return {k: self._seq(v) for k, v in batch.items()}
+        if isinstance(batch, (list, tuple)):
+            return type(batch)(self._seq(v) for v in batch)
+        if batch.ndim < 2:
+            return batch
+        S = batch.shape[1]
+        pad = (-S) % self.seq_count
+        if pad:
+            batch = _pad_dim1(batch, pad)
+        step = (S + pad) // self.seq_count
+        return batch[:, self.seq_index * step:(self.seq_index + 1) * step]
+
+
+def _ones_like(x):
+    if isinstance(x, np.ndarray):
+        return np.ones(x.shape, np.float32)
+    import torch
+
+    return torch.ones(x.shape, dtype=torch.float32, device=x.device)
+
+
+def _pad_dim1(x, pad: int):
+    """``x`` with ``pad`` zero columns after its dim 1 (a loss mask's
+    padding is 0 too)."""
+    if isinstance(x, np.ndarray):
+        widths = [(0, 0)] * x.ndim
+        widths[1] = (0, pad)
+        return np.pad(x, widths)
+    import torch
+
+    shape = list(x.shape)
+    shape[1] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=1)
+
+
+def shift_tokens(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """A causal-LM batch's next-token shift (JAX ``loss_fn``): inputs
+    ``input_ids[:, :-1]``, labels ``input_ids[:, 1:]``, and a
+    ``loss_mask`` as long as ``input_ids`` loses its first column."""
+    tokens = batch["input_ids"]
+    out = dict(batch, input_ids=tokens[:, :-1], labels=tokens[:, 1:])
+    mask = batch.get("loss_mask")
+    if mask is not None and mask.shape[1] == tokens.shape[1]:
+        out["loss_mask"] = mask[:, 1:]
+    return out
+
 
 def batch_sharding(mesh: Mesh) -> BatchSlice:
-    """The batch over all data axes: this rank's rows. (The sequence dim
-    shards over sp in JAX; sp > 1 is not ported, ROADMAP queue A item
-    11.)"""
+    """The batch over all data axes and the sequence over sp: this rank's
+    rows, and its sequence block after the next-token shift (JAX's
+    ``PartitionSpec(BATCH_AXES, SEQ_AXIS)``). The pp and tp ranks of one
+    data index read the same rows."""
     return BatchSlice(mesh.axis_index(BATCH_AXES),
-                      mesh.axis_size(BATCH_AXES))
+                      mesh.axis_size(BATCH_AXES),
+                      mesh.axis_index(SEQ_AXIS), mesh.shape[SEQ_AXIS])
 
 
 def replicated(mesh: Mesh) -> BatchSlice:
@@ -341,7 +423,7 @@ def replicated(mesh: Mesh) -> BatchSlice:
 
 
 __all__ = ["MESH_AXES", "BATCH_AXES", "SEQ_AXIS", "TopologyConfig", "Mesh",
-           "BatchSlice", "build_mesh", "set_global_mesh", "get_global_mesh",
+           "BatchSlice", "shift_tokens", "build_mesh", "set_global_mesh", "get_global_mesh",
            "use_mesh", "on_mesh", "get_data_parallel_world_size",
            "get_model_parallel_world_size", "get_tensor_parallel_world_size",
            "get_pipeline_parallel_world_size",

@@ -57,8 +57,29 @@ split over the ``ep`` ranks (``moe.ep_size``): each rank holds E/ep of
 every expert stack, a dense gradient reduces over every token rank and an
 expert gradient over the dp x fsdp ranks that share the expert. At world
 size > 1 the optimizer offload tiers, ZenFlow, a client optimizer or a
-non-elementwise optimizer at stage >= 1 and the pp and sp axes raise
-``NotImplementedError`` naming their ROADMAP item.
+non-elementwise optimizer at stage >= 1 raise ``NotImplementedError``
+naming their ROADMAP item.
+
+Sequence parallelism (``sequence_parallel.size``, or a mesh with an sp
+axis): each rank's batch is its rows and its block of the sequence,
+cut after the next-token shift (``topology.batch_sharding``; the
+engine's own dataloader is cut so). At init the engine composes
+``parallel/auto_sp``'s plan onto the model's config under JAX's opt-in
+rule (``self.sp_plan``). The model's loss is the mean over the global
+tokens on every sp rank, every gradient sums over the sp ranks, and
+the clip's norm counts each leaf on sp rank 0.
+
+Pipeline parallelism (``pipeline.stages``, or a pp mesh axis): each
+rank holds its stage's L / PP layers of the stacked layer leaves and
+the model runs ``parallel/pipeline.pipelined_layers`` under the
+``pipeline`` block's microbatches, window and schedule. Every stage
+computes the same loss; the engine back-propagates the last stage's
+(the others' backward carries zeros, so their collectives still run),
+sums the gradients of the leaves every stage holds over pp, and the
+clip's norm sums the stages' layers and counts a replicated leaf once.
+At sp > 1 or pp > 1, ZeRO++, the 1-bit optimizers and a client
+optimizer raise (ROADMAP queue A item 11's leftovers); ``offload_param``
+at pp raises JAX's error.
 
 Tensor parallelism (``tensor_parallel.autotp_size``, or a mesh with a
 tp axis): each rank holds its tp slice of every leaf ``TP_RULES``
@@ -211,6 +232,7 @@ from deepspeed_tpu_torch.models.transformer import loss_fn
 from deepspeed_tpu_torch.ops import attention as attn_ops
 from deepspeed_tpu_torch.ops.blocksparse_attention import \
     from_config as sparse_from_config
+from deepspeed_tpu_torch.parallel import pipeline as pipeline_mod
 from deepspeed_tpu_torch.parallel import topology as topo
 from deepspeed_tpu_torch.resilience import resume
 from deepspeed_tpu_torch.resilience.chaos import get_chaos_injector
@@ -408,6 +430,8 @@ class Engine:
         # the mesh (JAX engine.py:161-167): the ranks over the named axes
         self.mesh = mesh if mesh is not None else \
             self._default_mesh(topology)
+        self._pp_last = self.mesh.axis_index("pp") == \
+            self.mesh.shape["pp"] - 1
         topo.set_global_mesh(self.mesh)
         self.dp_world_size = topo.get_data_parallel_world_size(self.mesh)
         config.resolve_batch_size(self.dp_world_size)
@@ -452,6 +476,7 @@ class Engine:
                 config.activation_checkpointing, model.config.remat_policy)
         self.model_config = (None if model.config is None else
                              dataclasses.replace(model.config, **over))
+        self.sp_plan = self._plan_sequence_parallel()
         self._install_sparse_layout()
         # the dispatch policy and table path for impl="auto"
         attn_ops.set_kernel_config(self.config.kernels)
@@ -618,13 +643,15 @@ class Engine:
         """JAX's default mesh (``engine.py:654-679``) over the world's
         ranks: dp = world for the ZeRO++ stage 1-2 step, fsdp = the group
         and dp = the replicas under hpZ / MiCS, else fsdp = world at
-        stage >= 1 and dp = world at stage 0 (ep from the moe block, tp
+        stage >= 1 and dp = world at stage 0 (pp from the pipeline block,
+        sp from the sequence_parallel block, ep from the moe block, tp
         from the tensor_parallel block's ``autotp_size``, as JAX's
-        ``engine.py:659``; the pp and sp blocks raise at the config)."""
+        ``engine.py:658-661``)."""
         if topology is not None:
             return topo.build_mesh(topology)
         cfg = self.config
-        sizes = dict(ep=cfg.moe.ep_size if cfg.moe.enabled else 1,
+        sizes = dict(pp=cfg.pipeline.stages, sp=cfg.sequence_parallel.size,
+                     ep=cfg.moe.ep_size if cfg.moe.enabled else 1,
                      tp=cfg.tensor_parallel.size)
         z = cfg.zero_optimization
         hpz, mics = z.zero_hpz_partition_size, z.mics_shard_size
@@ -658,6 +685,8 @@ class Engine:
                 and not config.fp16.enabled
                 and not config.moe.enabled
                 and not self._client_optimizer_present
+                and config.sequence_parallel.size == 1
+                and config.pipeline.stages == 1
                 and z.zero_hpz_partition_size <= 1
                 and z.mics_shard_size <= 0
                 and (mesh is None or all(mesh.shape.get(a, 1) == 1 for a in
@@ -756,6 +785,10 @@ class Engine:
         if world <= 1:
             return
         zero = self.config.zero_optimization
+        if self.mesh.shape["pp"] > 1 and zero.offload_param_device != "none":
+            # JAX's refusal (engine.py:1505-1507), before the tiers'
+            raise ValueError("offload_param does not compose with the "
+                             "pipeline-parallel layer path yet")
         if zero.offload_device in ("cpu", "nvme") or zero.zenflow is not None:
             raise NotImplementedError(
                 f"zero_optimization.offload_optimizer / zenflow at world "
@@ -770,11 +803,19 @@ class Engine:
                 f"ZeRO++, the 1-bit optimizers, a client optimizer and "
                 f"offload_param at tp={tp} are not ported yet: the TP "
                 f"leftovers of {_A} 4, 10 and 12")
-        for axis, item in (("pp", 11), ("sp", 11)):
-            if self.mesh.shape[axis] > 1:
+        own_step = (zero.zero_quantized_weights
+                    or zero.zero_quantized_gradients
+                    or zero.zero_quantized_allreduce
+                    or zero.zero_hpz_partition_size > 1
+                    or zero.mics_shard_size > 0 or self._onebit
+                    or self._client_optimizer_present)
+        for axis in ("sp", "pp"):
+            n = self.mesh.shape[axis]
+            if n > 1 and own_step:
                 raise NotImplementedError(
-                    f"mesh axis {axis}={self.mesh.shape[axis]}: {_A} "
-                    f"{item}")
+                    f"ZeRO++ (qwZ, qgZ, qar, hpZ / MiCS), the 1-bit "
+                    f"optimizers and a client optimizer at {axis}={n} are "
+                    f"not ported yet: {_A} 11's {axis} leftovers")
         if zero.stage >= 1 and self._client_optimizer_present:
             raise NotImplementedError(
                 f"a client optimizer at ZeRO stage {zero.stage} and world "
@@ -838,14 +879,50 @@ class Engine:
 
     def _model_loss(self, batch):
         """The model's (loss, aux) on ``batch``; at stage 3 under the fetch
-        hook (a ``(loss_fn, params)`` model gathers its whole tree)."""
-        if self._fetch is None:
-            return self._loss_fn(self.model_config, self.params, batch)
-        if isinstance(self.model, _FnModel):
-            return self._loss_fn(self.model_config,
-                                 self._fetch.tree(self.params), batch)
-        with sharding.param_fetch(self._fetch):
-            return self._loss_fn(self.model_config, self.params, batch)
+        hook (a ``(loss_fn, params)`` model gathers its whole tree), under
+        the pipeline block's schedule."""
+        pcfg = self.config.pipeline
+        with pipeline_mod.schedule_defaults(pcfg.microbatches, pcfg.window,
+                                            pcfg.schedule):
+            if self._fetch is None:
+                return self._loss_fn(self.model_config, self.params, batch)
+            if isinstance(self.model, _FnModel):
+                return self._loss_fn(self.model_config,
+                                     self._fetch.tree(self.params), batch)
+            with sharding.param_fetch(self._fetch):
+                return self._loss_fn(self.model_config, self.params, batch)
+
+    def _plan_sequence_parallel(self):
+        """JAX's sequence-parallel planner at init (``engine.py:247-285``):
+        with an sp axis > 1, opted in (the model's ``sequence_parallel``
+        or ``sequence_parallel.size`` > 1) and ``auto_plan`` on, the
+        plan is composed onto the model's config; returns it (or
+        None)."""
+        sp_cfg = self.config.sequence_parallel
+        mcfg = self.model_config
+        if not (sp_cfg.auto_plan and mcfg is not None
+                and hasattr(mcfg, "num_heads")
+                and self.mesh.shape["sp"] > 1
+                and (getattr(mcfg, "sequence_parallel", False)
+                     or sp_cfg.size > 1)):
+            return None
+        from deepspeed_tpu_torch.parallel.auto_sp import \
+            plan_sequence_parallel
+        from deepspeed_tpu_torch.utils.logging import log_dist
+
+        budget = sp_cfg.hbm_budget_gb
+        plan = plan_sequence_parallel(
+            mcfg.max_seq_len, mcfg.num_heads,
+            getattr(mcfg, "num_kv_heads", None), self.mesh,
+            int(budget * 2 ** 30) if budget else None,
+            head_dim=mcfg.head_dim, hidden_size=mcfg.hidden_size,
+            batch_size=self.config.train_micro_batch_size_per_chip or 1,
+            dtype_bytes=torch.empty((), dtype=mcfg.dtype).element_size())
+        new = plan.apply(mcfg)
+        if new is not mcfg:
+            self.model_config = new
+            log_dist("sp planner: " + "; ".join(plan.reasons), ranks=[0])
+        return plan
 
     def _compute_params(self, src):
         """The compute-dtype params from ``src``; under ``offload_param``
@@ -1249,7 +1326,12 @@ class Engine:
         """What each microbatch's loss is multiplied by before backward:
         the loss scale, over GAS when the optimizer is offloaded (there
         the grads accumulate in p.grad in the compute dtype, as JAX's
-        offload step differentiates ``sum(loss * scale / gas)``)."""
+        offload step differentiates ``sum(loss * scale / gas)``). On a pp
+        mesh, 0 on every stage but the last: each stage computes the same
+        loss, and the last one's backward is the loss's (the others'
+        still run the pipeline's collectives)."""
+        if not self._pp_last:
+            return 0.0
         if self._host_tier:
             return self._loss_scale() / self.gradient_accumulation_steps
         return self._loss_scale()
@@ -1305,6 +1387,10 @@ class Engine:
                 raise ValueError("train_batch needs data_iter or "
                                  "training_data")
             data_iter = iter(self.training_dataloader)
+            if self.mesh.shape["sp"] > 1:  # this rank's sequence blocks
+                cut = topo.BatchSlice(0, 1, self.mesh.axis_index("sp"),
+                                      self.mesh.shape["sp"])
+                data_iter = map(cut.take, data_iter)
         self._last_data_iter = data_iter  # data_cursor loader-state source
         depth = self._effective_depth()
         if self._trace_capture is not None and \
@@ -1576,13 +1662,30 @@ class Engine:
 
     def _zero_grads(self, grads):
         """The accumulated gradients reduced over the data ranks (means,
-        in place) and cut to this rank's master blocks."""
+        in place) and cut to this rank's master blocks. On a pp mesh a
+        leaf the stage did not use (a middle stage's embedding) has no
+        gradient: zeros stand in, as every rank joins each reduction."""
         flat = dict(leaves(grads))
+        for path, g in flat.items():
+            if g is None:
+                flat[path] = self._no_grad(path)
         self._zero.reduce(flat)
         out: Dict[str, Any] = {}
         for path, g in flat.items():
             set_leaf(out, path, self._zero.opt_grad(path, g))
         return out
+
+    def _no_grad(self, path: str) -> torch.Tensor:
+        """Zeros of the shape ``path``'s accumulated gradient has (its
+        stage-2 block where it scatters)."""
+        p = self.params
+        for k in path.strip("/").split("/"):
+            p = p[k]
+        dt = torch.float32 if self.gradient_accumulation_steps > 1 \
+            else p.dtype
+        z = torch.zeros(p.shape, dtype=dt, device=p.device)
+        d = self._scatter_dims.get(p)
+        return sharding.shard_of(z, d).contiguous() if d is not None else z
 
     @torch.no_grad()
     def _zenflow_apply(self, scale: Optional[float], lr: float):
@@ -1835,14 +1938,19 @@ class Engine:
         zero = self._zero
         with topo.use_mesh(self.mesh):
             if zero.grad_dim.get(path) is None:
-                g = comm.all_reduce(g, topo.BATCH_AXES)
-                d = zero.tp_dim.get(path)
-                if d is not None:  # this rank's tp slice made whole
-                    g = comm.all_gather(g.contiguous(), "tp", gather_dim=d)
+                g = comm.all_reduce(g, zero._with_sp(topo.BATCH_AXES))
+                for axis, dims in (("tp", zero.tp_dim), ("pp", zero.pp_dim)):
+                    d = dims.get(path)
+                    if d is not None:  # this rank's slice made whole
+                        g = comm.all_gather(g.contiguous(), axis,
+                                            gather_dim=d)
             else:
-                if self.mesh.shape["dp"] > 1:
-                    g = comm.all_reduce(g, "dp")
+                axes = zero._with_sp("dp")
+                if self.mesh.axis_size(axes) > 1:
+                    g = comm.all_reduce(g, axes)
                 g = zero.full(path, g, "grad")
+            if zero.pp_n > 1 and path not in zero.pp_dim:
+                g = comm.all_reduce(g, "pp")
         return g / zero.dp_n if zero.dp_n > 1 else g
 
     def get_global_grad_norm(self) -> Optional[torch.Tensor]:

@@ -789,6 +789,78 @@ def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor
     return logz - gold
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: each sp rank holds its block of the sequence
+# ---------------------------------------------------------------------------
+# A token-wise op needs nothing; attention exchanges over sp
+# (``parallel/ulysses.py``, ``parallel/ring_attention.py``) and the loss
+# sums each rank's part. Every sp rank's loss is then the whole one, and
+# each rank's gradients are its part of the whole gradient: the engine
+# sums them over sp, so ``sp_sum``'s backward is the identity.
+
+SP = "sp"
+
+
+def sp_size() -> int:
+    """The sp ranks of the global mesh when its sp collectives
+    communicate (1 otherwise)."""
+    mesh = topology._GLOBAL_MESH
+    if mesh is None or mesh.shape.get(SP, 1) == 1 or not mesh.issues(SP):
+        return 1
+    return mesh.shape[SP]
+
+
+def sp_index() -> int:
+    return topology._GLOBAL_MESH.axis_index(SP) if sp_size() > 1 else 0
+
+
+class _SpSum(torch.autograd.Function):
+    """A per-rank partial sum summed over sp; the backward is the
+    identity (each rank's gradient is its part, summed by the engine)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return comm.all_reduce(x.contiguous(), SP, log_name="sp_loss_sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _GatherSum(torch.autograd.Function):
+    """This rank's block all-gathered over ``axes`` along ``dim``; the
+    backward reduce-scatters (sums the ranks' cotangents of the whole and
+    keeps this rank's block), as each rank's cotangent is its part of the
+    whole one."""
+
+    @staticmethod
+    def forward(ctx, x, axes, dim, log_name):
+        ctx.axes, ctx.dim, ctx.log_name = axes, dim, log_name
+        return comm.all_gather(x.contiguous(), axes, gather_dim=dim,
+                               log_name=log_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.reduce_scatter(g.contiguous(), ctx.axes,
+                                   scatter_dim=ctx.dim,
+                                   log_name=ctx.log_name + "_grad"), \
+            None, None, None
+
+
+def gather_sum(x: torch.Tensor, axes, dim: int,
+               log_name: str = "gather") -> torch.Tensor:
+    """``x``'s blocks over ``axes`` made whole along ``dim`` (``_GatherSum``;
+    the identity where the axes have no ranks)."""
+    if not axes or comm.axis_size(axes) == 1:
+        return x
+    return _GatherSum.apply(x, axes, dim, log_name)
+
+
+def sp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the sp ranks (the identity without them)."""
+    return _SpSum.apply(x) if sp_size() > 1 else x
+
+
 def tp_local(t, dim: Optional[int], full: int, n: int, index: int):
     """This rank's tp slice of a leaf along ``dim`` (a view): ``t``
     itself when it is already the slice (``full / n`` long there) or
@@ -812,4 +884,5 @@ __all__ = ["LOGICAL_AXES", "TP_RULES", "FSDP_RULES", "EP_RULES", "PP_RULES",
            "qwz_active", "qwz_sequence_barrier", "qwz_plan",
            "quantized_param_fetch", "tp_size", "tp_index", "tp_copy",
            "tp_reduce", "tp_gather", "tp_slice", "vocab_parallel_lookup",
-           "vocab_parallel_nll", "axis_dim", "tp_local"]
+           "vocab_parallel_nll", "axis_dim", "tp_local", "sp_size",
+           "sp_index", "sp_sum", "gather_sum"]

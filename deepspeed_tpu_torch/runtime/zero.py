@@ -37,6 +37,20 @@ reductions run within the ranks of one tp index (the groups of
 ``BATCH_AXES`` never span tp). The global norm sums a tp-sharded leaf's
 squares over tp as well and counts a replicated leaf once (tp index 0).
 
+With sequence parallelism (sp > 1) every sp rank holds the same
+params and computes its part of each gradient (its sequence block's):
+the data-axis reductions sum over the sp ranks too (the groups of
+``BATCH_AXES`` + sp), without dividing, and the global norm counts a
+leaf on sp rank 0. With pipeline parallelism (pp > 1) each rank holds
+its stage's L / PP layers of every stacked layer leaf (dim 0 over pp,
+``PP_RULES``; ZeRO's fsdp blocks are blocks of that slice); a stage's
+layer gradients are its own, while a leaf every stage holds (the
+embedding, the final norm, the LM head) sums over pp, where only the
+stages that use it contributed (the engine back-propagates the last
+stage's loss: the head's gradient comes from the last stage, the
+embedding's from the first). The global norm sums the stages' squares
+and counts a replicated leaf on pp rank 0.
+
 Under ZeRO++'s qgZ (stages 2-3, fsdp > 1) a gradient reduces with a
 quantized wire (``runtime/qgz.reduce_leaf``): at stage 2 the full
 gradients accumulate (fp32 at GAS > 1) and each is reduced once at the
@@ -88,6 +102,10 @@ class ZeroPartition:
         self.dp_index = mesh.axis_index("dp")
         self.tp_n = mesh.axis_size("tp")
         self.tp_index = mesh.axis_index("tp")
+        self.sp_n = mesh.axis_size("sp")
+        self.sp_index = mesh.axis_index("sp")
+        self.pp_n = mesh.axis_size("pp")
+        self.pp_index = mesh.axis_index("pp")
 
         def dims(tree):
             return {path: fsdp_dim(spec) for path, spec in leaves(tree)}
@@ -102,12 +120,20 @@ class ZeroPartition:
         # the model's leaf shapes before any slicing)
         self.tp_dim: Dict[str, Optional[int]] = {}
         self.tp_full: Dict[str, int] = {}
-        if self.tp_n > 1:
+        # the same for the stacked layer dim over pp
+        self.pp_dim: Dict[str, Optional[int]] = {}
+        self.pp_full: Dict[str, int] = {}
+        for axis, n, dims, full in (("tp", self.tp_n, self.tp_dim,
+                                     self.tp_full),
+                                    ("pp", self.pp_n, self.pp_dim,
+                                     self.pp_full)):
+            if n == 1:
+                continue
             for path, spec in leaves(plan.param_shardings(logical_tree)):
-                d = axis_dim(spec, "tp")
+                d = axis_dim(spec, axis)
                 if d is not None:
-                    self.tp_dim[path] = d
-                    self.tp_full[path] = full_shapes[path][d]
+                    dims[path] = d
+                    full[path] = full_shapes[path][d]
 
     # -- layout ---------------------------------------------------------------
     def check(self, params) -> None:
@@ -119,6 +145,10 @@ class ZeroPartition:
                 raise ValueError(
                     f"tp={self.tp_n} does not divide dim {t} "
                     f"({self.tp_full[path]}) of leaf {path}")
+            if path in self.pp_dim and self.pp_full[path] % self.pp_n:
+                raise AssertionError(
+                    f"num_layers {self.pp_full[path]} must divide pp "
+                    f"{self.pp_n}")
             p = self.tp(path, p)
             e = self.ep_dim.get(path)
             if e is not None and p.shape[e] % self.ep_n:
@@ -142,8 +172,11 @@ class ZeroPartition:
                         getattr(self, f"{role}_dim").get(path))
 
     def tp(self, path: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's tp slice of a leaf (a view; ``t`` where it is the
-        slice already or the leaf is replicated over tp)."""
+        """This rank's stage and tp slice of a leaf (a view; ``t`` where
+        it is the slice already or the leaf is replicated over pp and
+        tp)."""
+        t = tp_local(t, self.pp_dim.get(path), self.pp_full.get(path, 0),
+                     self.pp_n, self.pp_index)
         return tp_local(t, self.tp_dim.get(path), self.tp_full.get(path, 0),
                         self.tp_n, self.tp_index)
 
@@ -206,11 +239,17 @@ class ZeroPartition:
         return lambda g: self._qgz_reduce(g, spec)
 
     # -- the step -------------------------------------------------------------
+    def _with_sp(self, axes):
+        """``axes`` and sp, when sp has ranks."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return axes + ("sp",) if self.sp_n > 1 else axes
+
     @torch.no_grad()
     def reduce(self, grads: Dict[str, torch.Tensor]) -> None:
         """The gradients' sums over the data ranks as means, in place:
         a full gradient all-reduced over the data axes, a shard (already
-        summed over fsdp) over dp where dp has ranks. Under qgZ a full
+        summed over fsdp) over dp where dp has ranks; both summed over sp
+        too, and a leaf every stage holds over pp. Under qgZ a full
         gradient is replaced by its quantized reduction (this rank's
         block); a stage-3 shard is already the mean."""
         for path, g in grads.items():
@@ -223,20 +262,24 @@ class ZeroPartition:
             if self.grad_dim.get(path) is None:
                 axes = EXPERT_REDUCE if self.ep_dim.get(path) is not None \
                     else BATCH_AXES
-                comm.all_reduce(g, axes, out=g)
+                comm.all_reduce(g, self._with_sp(axes), out=g)
             else:  # summed over fsdp already: the other data axes
-                axes = "dp" if self.ep_dim.get(path) is not None \
-                    else ("dp", "ep")
+                axes = self._with_sp("dp" if self.ep_dim.get(path)
+                                     is not None else ("dp", "ep"))
                 if self.mesh.axis_size(axes) > 1:
                     comm.all_reduce(g, axes, out=g)
+            if self.pp_n > 1 and path not in self.pp_dim:
+                comm.all_reduce(g, "pp", out=g)
             if self.dp_n > 1:
                 g.div_(self.dp_n)
 
     def opt_grad(self, path: str, g: torch.Tensor) -> torch.Tensor:
         """The part of a reduced gradient this rank's master block takes
-        (a reduced expert gradient holds this rank's experts already)."""
+        (a reduced expert gradient holds this rank's experts already, and
+        every gradient its tp and pp slices: only the fsdp block is
+        cut)."""
         if self.grad_dim.get(path) is None:
-            return self.block(path, g, "opt")
+            return shard_of(g, self.opt_dim.get(path))
         if self.qgz_experts() and self.ep_dim.get(path) is not None \
                 and self.param_dim.get(path) is None:
             return shard_of(g, self.opt_dim.get(path))
@@ -247,11 +290,16 @@ class ZeroPartition:
         block of a sharded leaf, or a replicated leaf on fsdp rank 0
         (with ep ranks: a dense leaf on ep rank 0 and dp rank 0, an
         expert leaf on every ep rank; with tp ranks: a tp-sharded leaf
-        on every tp rank, a replicated one on tp rank 0)."""
+        on every tp rank, a replicated one on tp rank 0; on sp rank 0;
+        with pp ranks: a stage's layers on their stage, a leaf every
+        stage holds on pp rank 0)."""
         mine = self.opt_dim.get(path) is not None and self.fsdp_n > 1 \
             or self.fsdp_index == 0
         if self.tp_n > 1 and self.tp_dim.get(path) is None:
             mine = mine and self.tp_index == 0
+        if self.pp_n > 1 and path not in self.pp_dim:
+            mine = mine and self.pp_index == 0
+        mine = mine and self.sp_index == 0
         if self.ep_n == 1:
             return mine
         return mine and self.dp_index == 0 and (
@@ -259,10 +307,12 @@ class ZeroPartition:
 
     def norm_reduce(self, sq: torch.Tensor) -> torch.Tensor:
         """The ranks' sums of squares summed (one fp32 scalar): over the
-        data ranks, then over tp."""
+        data ranks, then over tp, sp and pp."""
         comm.all_reduce(sq, FSDP if self.ep_n == 1 else BATCH_AXES, out=sq)
-        if self.tp_n > 1:
-            comm.all_reduce(sq, "tp", out=sq)
+        for axis, n in (("tp", self.tp_n), ("sp", self.sp_n),
+                        ("pp", self.pp_n)):
+            if n > 1:
+                comm.all_reduce(sq, axis, out=sq)
         return sq
 
     @torch.no_grad()
@@ -291,6 +341,9 @@ class ZeroPartition:
         d = self.tp_dim.get(path)
         if d is not None:
             t = comm.all_gather(t.contiguous(), "tp", gather_dim=d)
+        d = self.pp_dim.get(path)
+        if d is not None:
+            t = comm.all_gather(t.contiguous(), "pp", gather_dim=d)
         return t
 
 

@@ -180,6 +180,22 @@ def test_unported_config_raises(extra, match):
         assert engine.config.tensor_parallel.size == 1
         assert engine.mesh.shape["tp"] == 1
         return
+    if "pipeline" in extra or "sequence_parallel" in extra:
+        # ported (tests/test_torch_pipeline.py, tests/test_torch_sp.py):
+        # two stages or two sp ranks do not fit one rank's mesh, and the
+        # port refuses it in JAX's words
+        from deepspeed_tpu.config.config import load_config as jax_config
+        from deepspeed_tpu.parallel import topology as jtopo
+
+        cfg = jax_config(dict(extra))
+        with pytest.raises(ValueError) as want:
+            jtopo.TopologyConfig(
+                pp=cfg.pipeline.stages, sp=cfg.sequence_parallel.size,
+                fsdp=-1, dp=1).sizes(1)
+        with pytest.raises(ValueError) as got:
+            _port_engine(extra=extra)
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(NotImplementedError, match=match):
         _port_engine(extra=extra)
 

@@ -216,8 +216,9 @@ def test_moe_config_block_and_unported_switches():
     with pytest.raises(ValueError, match="moe.impl"):
         deepspeed_tpu_torch.initialize(model=model, config=dict(
             base, moe={"impl": "bogus"}), device="cpu")
-    # MoE inside the pipeline waits for A11's pipeline
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # MoE inside the pipeline is ported (tests/test_torch_pipeline.py's
+    # config B): two stages do not fit one rank's mesh
+    with pytest.raises(ValueError, match="not divisible by fixed axes"):
         deepspeed_tpu_torch.initialize(model=model, config=dict(
             base, moe={"enabled": True}, pipeline={"stages": 2}),
             device="cpu")

@@ -132,8 +132,12 @@ def test_apply_logits_and_model_protocol():
 
 
 def test_unported_switches_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.get_config("tiny", sequence_parallel=True)
+    # sequence parallelism is ported (tests/test_torch_sp.py): the switch
+    # builds, and its mode is checked as JAX checks it
+    cfg = zoo.get_config("tiny", sequence_parallel=True, sp_mode="ring")
+    assert cfg.sequence_parallel and cfg.sp_mode == "ring"
+    with pytest.raises(ValueError, match="sp_mode must be ulysses|ring"):
+        zoo.get_config("tiny", sequence_parallel=True, sp_mode="bogus")
     # the fp8 MLP is ported (A10; tests/test_torch_fp8_quant_stats.py)
     assert zoo.get_config("tiny", fp8_mlp=True).fp8_mlp
     # A11's one-card switches are ported (tests/test_torch_long_context.py,

@@ -321,10 +321,15 @@ def _run_model(inp, spec):
     from deepspeed_tpu_torch.models import zoo
     from deepspeed_tpu_torch.models.convert import params_from_jax
 
+    over = spec.get("model_over", {})
     if spec.get("moe"):
         cfg = zoo.get_config("tiny-moe", dtype=torch.float32,
-                             **inp["moe_kw"])
+                             **{**inp["moe_kw"], **over})
         return params_from_jax(inp["moe_params"], cfg, device="cpu")
+    if over or "params" in spec:
+        return _port_model(dict(inp, model_kw={**inp["model_kw"], **over},
+                                params=inp["params_by"][spec["params"]]
+                                if "params" in spec else inp["params"]))
     return _port_model(inp)
 
 
@@ -335,7 +340,7 @@ def mode_engines(inp, rank, world, out):
     counts by log name, and the quantize / dequantize launches (plain
     versions count none on the CPU)."""
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.parallel.topology import BatchSlice
+    from deepspeed_tpu_torch.parallel.topology import batch_sharding
     from deepspeed_tpu_torch.utils import telemetry
     from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
 
@@ -350,10 +355,12 @@ def mode_engines(inp, rank, world, out):
             model=_run_model(inp, spec), config=config, device="cpu",
             topology=spec.get("topology"))
         get_comms_logger().reset()
-        batches = inp["moe_batches" if spec.get("moe") else "batches"]
+        batches = inp[spec.get("batches", "moe_batches" if spec.get("moe")
+                               else "batches")]
         mesh = engine.mesh
-        rows = BatchSlice(mesh.axis_index(("dp", "fsdp", "ep")),
-                          mesh.axis_size(("dp", "fsdp", "ep")))
+        # this rank's rows over the data axes (and its sequence block
+        # over sp, cut after the next-token shift)
+        rows = batch_sharding(mesh)
         gas = engine.gradient_accumulation_steps
         mine = [rows.take(b) for b in batches]
         steps = spec.get("steps", len(mine) // gas)
@@ -378,6 +385,8 @@ def mode_engines(inp, rank, world, out):
                           "_qgz_stage3")}}
         rec["local_shapes"] = {path: tuple(t.shape)
                                for path, t in leaves(engine.params)}
+        rec["model"] = {k: getattr(engine.model_config, k, None) for k in
+                        ("sequence_parallel", "sp_mode", "attn_chunks")}
         if spec.get("moe"):
             rec["local_experts"] = int(
                 engine.params["layers"]["moe"]["experts"]["wi"].shape[1])
@@ -399,9 +408,197 @@ def mode_engines(inp, rank, world, out):
             rec["ckpt"] = {"more": more, "again": again,
                            "reseed_params": reseed.module_state_dict(),
                            "saved_params": rec["params"]}
+            if spec.get("load_at"):  # the save onto another mesh
+                other, *_ = deepspeed_tpu_torch.initialize(
+                    model=_run_model(inp, spec), config=config,
+                    device="cpu", topology=spec["load_at"])
+                other.load_checkpoint(d)
+                rec["ckpt"]["load_at_params"] = other.module_state_dict()
+                rec["ckpt"]["load_at_mesh"] = dict(other.mesh.shape)
+                rec["ckpt"]["files"] = sorted(os.listdir(os.path.join(
+                    d, "global_step%d" % steps, "state", "params", "layers",
+                    "attn")))
+                del other
         res[spec["name"]] = rec
         del engine
     out["engines"] = res
+
+
+def _attn_fn(topology, case, rank):
+    """One attention case of ``mode_sp_fn`` on this rank's blocks: the
+    output and the gradients of q, k and v against ``proj``."""
+    from deepspeed_tpu_torch.parallel.ring_attention import ring_attention
+    from deepspeed_tpu_torch.parallel.ulysses import ulysses_attention
+
+    mesh = topology._GLOBAL_MESH
+    sp, tp = mesh.shape["sp"], mesh.shape["tp"]
+    si, ti = mesh.axis_index("sp"), mesh.axis_index("tp")
+    S = case["q"].shape[1]
+    s_loc = -(-S // sp)
+
+    def block(a, heads=True):
+        a = np.asarray(a)
+        if a.shape[1] < s_loc * sp:  # the padding to the ring size
+            pad = [(0, 0)] * a.ndim
+            pad[1] = (0, s_loc * sp - a.shape[1])
+            a = np.pad(a, pad)
+        a = a[:, si * s_loc:(si + 1) * s_loc]
+        if heads and a.ndim == 4:
+            n = a.shape[2] // tp
+            a = a[:, :, ti * n:(ti + 1) * n]
+        return np.ascontiguousarray(a)
+
+    q, k, v = (torch.tensor(block(case[n]), requires_grad=True)
+               for n in ("q", "k", "v"))
+    seg = None if case.get("seg") is None else \
+        torch.tensor(block(case["seg"], heads=False))
+    if case["kind"] == "ulysses":
+        out = ulysses_attention(q, k, v, causal=case["causal"], impl="xla",
+                                segment_ids=seg)
+    else:
+        out = ring_attention(q, k, v, causal=case["causal"],
+                             segment_ids=seg,
+                             seq_len=S if S % sp else None)
+    (out * torch.tensor(block(case["proj"]))).sum().backward()
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(),
+            "dk": k.grad.numpy(), "dv": v.grad.numpy(), "sp_index": si,
+            "tp_index": ti, "s_loc": s_loc}
+
+
+def mode_sp_fn(inp, rank, world, out):
+    """Ulysses and ring attention on each case's mesh (sp, or tp x sp) at
+    this world size: each rank's output block and gradients, the comms
+    logger's counts and the ring's dense-fallback count."""
+    from deepspeed_tpu_torch.parallel import topology
+    from deepspeed_tpu_torch.utils import telemetry
+    from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
+
+    res = {}
+    log = get_comms_logger()
+    for case in inp["sp_cases"]:
+        if world not in case.get("worlds", (world,)):
+            continue
+        topology.set_global_mesh(topology.build_mesh(case["mesh"]))
+        log.enabled = True
+        log.reset()
+        telemetry.reset()
+        res[case["name"]] = _attn_fn(topology, case, rank)
+        res[case["name"]]["counts"] = dict(log.counts())
+        res[case["name"]]["fallback"] = telemetry.get(
+            "ring_attention.dense_fallback")
+        log.enabled = False
+        topology.set_global_mesh(None)
+    out["sp_fn"] = res
+
+
+def mode_pp_fn(inp, rank, world, out):
+    """``pipelined_layers`` of JAX's test layer (tanh(c @ w) + c) over each
+    case's pp mesh: the output and the gradients of this stage's
+    layers and of x against ``proj``."""
+    from deepspeed_tpu_torch.parallel import topology
+    from deepspeed_tpu_torch.parallel.pipeline import pipelined_layers
+
+    res = {}
+    for case in inp["pp_cases"]:
+        if world not in case.get("worlds", (world,)):
+            continue
+        topology.set_global_mesh(topology.build_mesh(case["mesh"]))
+        mesh = topology._GLOBAL_MESH
+        pp, stage = mesh.shape["pp"], mesh.axis_index("pp")
+        L = case["w"].shape[0]
+        w = torch.tensor(case["w"][stage * L // pp:(stage + 1) * L // pp],
+                         requires_grad=True)
+        rows = topology.batch_sharding(mesh)
+        x = torch.tensor(rows.take(case["x"]), requires_grad=True)
+        y = pipelined_layers(lambda c, wl: torch.tanh(c @ wl) + c, w, x,
+                             **case["kw"])
+        (y * torch.tensor(rows.take(case["proj"]))).sum().backward()
+        res[case["name"]] = {"out": y.detach().numpy(),
+                             "dw": w.grad.numpy(), "dx": x.grad.numpy(),
+                             "stage": stage,
+                             "data_index": mesh.axis_index(
+                                 ("dp", "fsdp", "ep"))}
+        topology.set_global_mesh(None)
+    out["pp_fn"] = res
+
+
+def mode_sp_raises(inp, rank, world, out):
+    """What stays out at sp > 1 or pp > 1 raises: each case's exception
+    type and message (None when it built and ran)."""
+    import deepspeed_tpu_torch
+
+    batch = inp["batches"][0]
+
+    def engine(over=None, extra=None, topology=None, optimizer=None):
+        spec = {"model_over": over} if over else {}
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=_run_model(inp, spec),
+            config={**inp["config"], **(extra or {})}, device="cpu",
+            topology=topology, optimizer=optimizer)
+        from deepspeed_tpu_torch.parallel.topology import batch_sharding
+
+        eng.train_batch(iter([batch_sharding(eng.mesh).take(batch)]))
+
+    sp = {"sp": world, "dp": 1}
+    pp = {"pp": world, "dp": 1}
+    seq = {"sequence_parallel": True}
+    cases = {
+        "qwz_sp": lambda: engine(seq, {"zero_optimization": {
+            "stage": 3, "zero_quantized_weights": True}}, sp),
+        "qgz_pp": lambda: engine(None, {"zero_optimization": {
+            "stage": 2, "zero_quantized_gradients": True}}, pp),
+        "onebit_sp": lambda: engine(seq, {"optimizer": {
+            "type": "onebitadam", "params": {"lr": 1e-3}}}, sp),
+        "client_pp": lambda: engine(None, None, pp, optimizer=lambda p:
+                                    torch.optim.SGD(p, lr=0.1)),
+        "offload_param_pp": lambda: engine(None, {"zero_optimization": {
+            "stage": 3, "offload_optimizer": {"device": "cpu"},
+            "offload_param": {"device": "cpu"}}}, pp),
+        "fpdt_host_kv_sp": lambda: engine(
+            dict(seq, fpdt_host_kv=True, attn_chunks=2), None, sp),
+        "dense_model_sp": lambda: engine(None, {"sequence_parallel": {
+            "size": world, "auto_plan": False}}),
+        "unshifted_sp": lambda: _unshifted(inp, world),
+    }
+    got = {}
+    for name, build in cases.items():
+        try:
+            build()
+            got[name] = None
+        except (NotImplementedError, ValueError, AssertionError) as e:
+            got[name] = (type(e).__name__, str(e))
+    out["sp_raises"] = got
+
+
+def _unshifted(inp, world):
+    """An sp engine handed whole rows (not its sequence block)."""
+    import deepspeed_tpu_torch
+
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=_run_model(inp, {"model_over": {"sequence_parallel": True}}),
+        config=inp["config"], device="cpu",
+        topology={"sp": world, "dp": 1})
+    eng.train_batch(iter([inp["batches"][0]]))
+
+
+def mode_domino(inp, rank, world, out):
+    """JAX's Domino layer at tp = world with 1 and 2 chunks, and a
+    two-layer stack, on this rank's copy of the batch."""
+    from deepspeed_tpu_torch.parallel import topology
+    from deepspeed_tpu_torch.parallel.domino import (
+        DominoTransformer, domino_transformer_layer)
+
+    mesh = topology.build_mesh({"tp": world, "dp": 1})
+    case = inp["domino"]
+    params = {k: torch.tensor(v) for k, v in case["params"].items()}
+    x = torch.tensor(case["x"])
+    res = {c: domino_transformer_layer(params, x, num_heads=case["heads"],
+                                       num_chunks=c, mesh=mesh).numpy()
+           for c in (1, 2)}
+    stack = DominoTransformer(2, x.shape[-1], case["params"]["w1"].shape[1],
+                              case["heads"], dtype=torch.float32)
+    res["stack"] = stack.apply([params, params], x, mesh=mesh).numpy()
+    out["domino"] = res
 
 
 def mode_moe_fn(inp, rank, world, out):
@@ -634,7 +831,9 @@ def _flat(tree, prefix=""):
 MODES = {"zero": mode_zero, "raises": mode_raises, "ckpt": mode_ckpt,
          "comm": mode_comm, "sparse": mode_sparse,
          "fragments": mode_fragments, "quant_coll": mode_quant_coll,
-         "engines": mode_engines, "moe_fn": mode_moe_fn, "tp": mode_tp}
+         "engines": mode_engines, "moe_fn": mode_moe_fn, "tp": mode_tp,
+         "sp_fn": mode_sp_fn, "pp_fn": mode_pp_fn, "domino": mode_domino,
+         "sp_raises": mode_sp_raises}
 
 
 class Ranks:
