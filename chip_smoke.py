@@ -86,8 +86,9 @@ Phases, each fatal on failure:
                the same inputs), plain version and SDPA with the layout
                as a boolean mask (a yardstick the port never calls)
                timed with CUDA events against the bound.
-  3. serve   — ``InferenceEngineV2`` over ``get_model("llama3-8b")`` at
-               full width and depth with seeded bf16 weights: 8 requests
+  3. serve   — ``InferenceEngineV2`` over ``get_model("llama3-8b",
+               num_layers=16)`` at full width (16 of its 32 layers, 32
+               until phase 20 joined) with seeded bf16 weights: 8 requests
                (64-512 prompt tokens, two sharing a 256-token prefix),
                64 new tokens each, through ``put`` and ``generate_all``.
                The kernels' launch counts are read around this run. A
@@ -117,8 +118,8 @@ Phases, each fatal on failure:
                Agreement with phase 3's bf16 streams is reported.
   8a. sparse forward — right after phase 3's profile, on its model:
                ``loss_fn`` with ``attn_impl="blocksparse"`` and the fixed
-               layout under no_grad at B 1 x S 8192, all 32 layers:
-               exactly 32 B9 launches a forward, all on the tensor-core
+               layout under no_grad at B 1 x S 8192, all its layers:
+               exactly one B9 launch a layer a forward, all on the tensor-core
                kernel, a finite loss, layer 0's
                q/k/v through the kernel against the masked form; forward
                time p50 over 3 runs and a profile (B9's share).
@@ -155,11 +156,11 @@ Phases, each fatal on failure:
                async save's blocking and commit seconds are printed with
                their GB/s.
   5. moe serve — ``InferenceEngineV2`` over ``get_model("mixtral-8x7b",
-               num_layers=16)`` (full width, seeded bf16 weights): the
+               num_layers=8)`` (full width, seeded bf16 weights): the
                serve phase's 8 requests drawn in Mixtral's 32000-token
                vocabulary, 64 new tokens each. A second engine from the
                same seed must give identical streams; gmm launches are a
-               multiple of 3 x 16; layer 0's MoE FFN through the kernel
+               multiple of 3 x 8; layer 0's MoE FFN through the kernel
                agrees with the same FFN on the plain gmm on one prefill
                batch, and makes the host wait nowhere (CUDA's sync debug
                mode); every gmm launch went through the tensor-core kernel
@@ -439,7 +440,7 @@ Phases, each fatal on failure:
                refuses two ranks a card; gloo copies each collective
                through the host, so no wall here speaks for NVLink),
                each probing which collectives gloo takes on card
-               tensors. 18a: full-width, full-depth Llama-3-8B bf16, each
+               tensors. 18a: full-width Llama-3-8B bf16 at phase 3's depth, each
                rank built as its slice of phase 3's seeded model (16
                query and 4 kv heads), ``InferenceEngineV2`` on phase 3's
                8 requests: the ranks' streams equal, the first prefill
@@ -449,7 +450,7 @@ Phases, each fatal on failure:
                pool of 4 kv heads; the share of tokens equal to phase 3's
                printed. 18b: 2 layers at micro 2 x GAS 2 x 2048 over
                phase 4's fixed batches, bf16 on fp32 masters,
-               ``partition_activations`` on, 3 steps: losses within 2e-2
+               ``partition_activations`` on, 2 steps: losses within 2e-2
                of the same run at tp 1 in this process, the flash
                launches what remat implies, all wgmma at 16 / 4 heads of
                128; step walls and tokens/s printed. 18c: 2-layer
@@ -464,7 +465,7 @@ Phases, each fatal on failure:
                all-to-all and batched send / receive on card tensors.
                19a: 18b's 2 layers of Llama-3-8B at full width, trained
                at sp 2 with Ulysses (each rank its half of every
-               sequence, cut after the next-token shift), 3 steps:
+               sequence, cut after the next-token shift), 2 steps:
                losses within 2e-2 of 18b's tp-1 reference, the flash
                launches what remat implies, all wgmma, on 16 / 16 heads
                at the whole 2048 tokens. 19b: the same at
@@ -482,6 +483,27 @@ Phases, each fatal on failure:
                every stage, no token replicated. Step walls and per-rank
                peaks printed; gloo copies through the host, so no wall
                here speaks for NVLink.
+  20. host    — after phase 19, the same two-process pattern
+               (``--host-rank R DIR``) at fsdp 2: 2-layer Llama-3-8B at
+               full width, bf16 on fp32 masters, micro 1 a rank x GAS 1
+               x 2048 (phase 10a's two sequences as the global batch).
+               20a the cpu offload tier at stage 2 and 20e
+               ``offload_param``'s streamed stack at stage 3, each
+               within 5e-3 of phase 10a's one-rank losses; 20a' the nvme
+               tier for one step, equal to 20a's first, in a swap folder
+               of each rank's own; 20b dry-run config C's ZenFlow block
+               at stage 2, 4 steps, within 5e-3 of the same run at one
+               rank in this process and on JAX's ship / fold schedule;
+               20c stage 3 with qgZ's int8 wire before the host copy,
+               within rtol 0.05 of 20a, one B6 and one 6b launch a
+               quantized reduction the plan implies; 20d stage 3 with
+               ``overlap_depth`` 1 against 0 for one step, its loss and
+               gradient norm equal (else within 1e-3, recorded), its
+               layers gathered by the overlap stream;
+               20f Lamb and Muon at stage 2 within 5e-3 of phase 11d's
+               losses. Every run: the ranks' losses equal, the flash
+               launches remat implies, all wgmma; per-rank step walls,
+               peak card memory and host RSS printed.
 Each phase's wall is logged as it ends and printed with the run's
 seconds. Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
@@ -490,7 +512,8 @@ sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
 checkpoint, optimizer sweep, spec serve, draft model, verify-shape
 prefill, A4, kernel bench, v1 engine, zero, observability,
-observability serve, a11, zeropp, tp and sp / pp lines, the run's
+observability serve, a11, zeropp, tp, sp / pp and host tiers lines,
+the run's
 seconds
 and phase walls,
 the card's name
@@ -546,6 +569,10 @@ TRAIN_LOSS_TOL_REL, TRAIN_GRAD_COS_MIN = 2e-2, 0.99
 
 NH, NKV, HD, BS = 32, 8, 128, 16
 KV_BLOCKS, MAX_BLOCKS, MAX_SEQS, MAX_TOKENS = 2048, 48, 16, 256
+# the Llama-3-8B serve of phase 3 (and the phases on its model: 7, 8a,
+# 12a-c, 13, 15c, 18a) at full width, cut in depth for the run's time
+# (32 until phase 20 joined)
+SERVE_LAYERS = 16
 NEW_TOKENS, DECODE_STEPS, SEED = 64, 8, 0
 FLASH_CASES = {  # B, S, Hq, Hkv, D, causal, segment lengths
     "smoke": (2, 2048, 32, 8, 128, True, None),
@@ -568,9 +595,10 @@ TRAIN_CONFIG = {
     "gradient_clipping": 1.0,
 }
 # MoE phases: Mixtral-8x7B at full width, cut in depth to fit one card
-# (serve: 16 of 32 layers, 23.5 B parameters, 47 GB in bf16; train: 2
-# layers, 3.17 B parameters x 16 bytes of state)
-MOE_SERVE_LAYERS, MOE_VOCAB = 16, 32000
+# and the run's time (serve: 8 of 32 layers, 11.9 B parameters, 24 GB in
+# bf16, 16 until phase 20 joined; train: 2 layers, 3.17 B parameters x
+# 16 bytes of state)
+MOE_SERVE_LAYERS, MOE_VOCAB = 8, 32000
 MOE_TRAIN_LAYERS, MOE_TRAIN_MICRO, MOE_TRAIN_GAS = 2, 1, 2
 MOE_TRAIN_CONFIG = dict(TRAIN_CONFIG,
                         train_micro_batch_size_per_chip=MOE_TRAIN_MICRO,
@@ -2041,6 +2069,8 @@ def serve_workload(torch, eng, prompts, on_round=None):
 def serve_once(torch, zoo, InferenceEngineV2, profile=False,
                preset="llama3-8b", vocab=128256, model=None, **over):
     if model is None:
+        if preset == "llama3-8b":
+            over.setdefault("num_layers", SERVE_LAYERS)
         model = zoo.get_model(preset, device="cuda", seed=SEED, **over)
     eng = serve_engine(torch, InferenceEngineV2, model)
     prompts = prompts_for(SEED + 1, vocab)
@@ -4071,7 +4101,7 @@ def moe_train_phase(torch, zoo, initialize, fa, gm):
 
 
 def sparse_forward_phase(torch, tf, attn, bs, model):
-    """Phase 3's full-depth bf16 Llama-3-8B, ``loss_fn`` with
+    """Phase 3's bf16 Llama-3-8B (SERVE_LAYERS deep), ``loss_fn`` with
     ``attn_impl="blocksparse"`` and the fixed layout under no_grad at
     B 1 x S 8192. Returns (the line, its profile line, B9 launches of
     the main-path forward)."""
@@ -6144,14 +6174,15 @@ def stream_phase(torch, zoo, initialize, fa, tf, ps, memspace, ref):
 # -- phase 18: tensor parallelism, two ranks on the one card ------------------
 # Two processes, one tp rank each, joined by gloo on the one H100 (NCCL
 # refuses two ranks on one card): gloo copies each collective through
-# the host, so nothing here says what NVLink would give. 18a: full-width, full-depth Llama-3-8B bf16 at tp 2 (16 / 4
+# the host, so nothing here says what NVLink would give. 18a: full-width Llama-3-8B (phase 3's depth) bf16 at tp 2 (16 / 4
 # heads a rank) serving phase 3's 8 requests; 18b: phase 12d's 2 layers
 # trained at tp 2 with partition_activations, against the same run at tp
 # 1 in the parent; 18c: 2-layer Mixtral-8x7B at tp 2 (F 7168 a rank),
 # one step against phase 6's first and a short serve.
 
 TP = 2
-TP_TRAIN_LAYERS, TP_TRAIN_STEPS = 2, 3
+# 2 steps (3 until phase 20 joined)
+TP_TRAIN_LAYERS, TP_TRAIN_STEPS = 2, 2
 TP_TRAIN_CONFIG = dict(TRAIN_CONFIG, activation_checkpointing={
     "partition_activations": True})
 # bf16 at tp 2 adds the row-parallel partial sums in another order than
@@ -6183,7 +6214,7 @@ def prefill_rows(torch, model_runner, sharding, cfg, params, prompts, nkv):
 
 
 def tp_train_reference(torch, zoo, initialize):
-    """18b's run at tp 1 in this process: the losses of 3 steps."""
+    """18b's run at tp 1 in this process: the losses of its steps."""
     torch.cuda.empty_cache()
     model = zoo.get_model("llama3-8b", num_layers=TP_TRAIN_LAYERS,
                           dtype=torch.float32, seed=SEED)
@@ -6224,7 +6255,7 @@ def tp_serve_rank(torch, zoo, InferenceEngineV2, model_runner, pa,
         for n in ("paged_decode_attention", "paged_prefill_attention")]
     t0 = time.perf_counter()
     model = zoo.get_model("llama3-8b", device="cuda", seed=SEED,
-                          tp=(rank, TP))
+                          num_layers=SERVE_LAYERS, tp=(rank, TP))
     build_s = time.perf_counter() - t0
     eng = serve_engine(torch, InferenceEngineV2, model, mesh=mesh)
     prompts = prompts_for(SEED + 1)
@@ -6952,6 +6983,356 @@ def sp_pp_phase(torch, ref_losses, moe_first_loss):
     return line, paths
 
 
+# -- phase 20: ZeRO's host tiers and the whole-leaf optimizers across ranks --
+#
+# Two ranks of this script on the card over gloo (as phases 18-19), at
+# fsdp 2 (dp 1): 2-layer Llama-3-8B at full width (h 4096, 32 / 8 heads,
+# ffn 14336, vocab 128256), bf16 on fp32 masters, micro 1 a rank x GAS 1
+# x 2048 over phase 4's two fixed sequences (a rank takes its row: the
+# global batch is phase 10a's micro 2). 20a: the cpu offload tier at
+# stage 2; 20a': the nvme tier, one step; 20b: dry-run config C's ZenFlow
+# block (topk 0.05, update_interval 2, select_interval 4, workers 2) at
+# stage 2; 20c: stage 3 with qgZ's int8 wire before the host copy; 20d:
+# stage 3 with overlap_depth 1 against 0 (the device optimizer), one
+# step (its loss and gradient norm); 20e:
+# offload_param's streamed stack at stage 3 beside the host optimizer;
+# 20f: Lamb and Muon at stage 2 (phase 11d's lrs). The one-rank
+# references: 10a's losses (20a, 20e: its config and batch at one rank),
+# 11d's (20f), and ZenFlow's run here (20b).
+
+HOST_RANKS = 2
+HOST_LAYERS, HOST_STEPS, HOST_ZEN_STEPS = 2, 2, 4
+HOST_BASE = dict(OFFLOAD_CONFIG, train_micro_batch_size_per_chip=1)
+HOST_OFFLOAD = {"device": "cpu", "pin_memory": True}
+HOST_ZENFLOW = {"topk_ratio": 0.05, "update_interval": 2,
+                "select_interval": 4, "workers": 2}
+HOST_RUNS = {
+    "20a": ({"zero_optimization": {"stage": 2,
+                                   "offload_optimizer": HOST_OFFLOAD}},
+            HOST_STEPS),
+    "20a_nvme": ({"zero_optimization": {"stage": 2, "offload_optimizer": {
+        "device": "nvme", "nvme_path": "@workdir"}}}, 1),
+    "20b": ({"zero_optimization": {"stage": 2, "offload_optimizer": {
+        "device": "cpu"}, "zenflow": HOST_ZENFLOW}}, HOST_ZEN_STEPS),
+    "20c": ({"zero_optimization": {"stage": 3, "offload_optimizer":
+                                   HOST_OFFLOAD,
+                                   "zero_quantized_gradients": True}},
+            HOST_STEPS),
+    "20d_depth0": ({"zero_optimization": {"stage": 3},
+                    "performance": {"overlap_depth": 0}}, 1),
+    "20d_depth1": ({"zero_optimization": {"stage": 3},
+                    "performance": {"overlap_depth": 1}}, 1),
+    "20e": ({"zero_optimization": {"stage": 3, "offload_optimizer":
+                                   HOST_OFFLOAD,
+                                   "offload_param": {"device": "cpu"}}},
+            HOST_STEPS),
+    "20f_lamb": ({"zero_optimization": {"stage": 2}, "optimizer": {
+        "type": "lamb", "params": {"lr": SWEEP_LR["lamb"]}}}, HOST_STEPS),
+    "20f_muon": ({"zero_optimization": {"stage": 2}, "optimizer": {
+        "type": "muon", "params": {"lr": SWEEP_LR["muon"]}}}, HOST_STEPS),
+}
+# the one-rank bound (phase 19's), qgZ's against the exact wire (JAX's
+# tests/test_qgz_stage3.py rtol), and the overlap's when the card's bits
+# differ from the remat'd loop's
+HOST_LOSS_TOL_REL, HOST_QGZ_RTOL, HOST_OVERLAP_TOL = 5e-3, 5e-2, 1e-3
+
+
+def host_config(run, workdir):
+    cfg, _ = HOST_RUNS[run]
+    config = dict(HOST_BASE, **cfg)
+    off = config["zero_optimization"].get("offload_optimizer", {})
+    if off.get("nvme_path") == "@workdir":
+        config["zero_optimization"] = dict(
+            config["zero_optimization"], offload_optimizer=dict(
+                off, nvme_path=os.path.join(workdir, "nvme")))
+    return config
+
+
+def qgz_plan_quantizes(engine, tf, sharding, qgz_mod):
+    """The quantized reductions a qgZ stage-3 step issues at GAS 1 (one
+    B6 and one 6b each at fsdp 2, dp 1): a layer leaf's per-layer
+    gradient in the gather's backward (L a step), a top-level leaf's
+    once; those whose gradient has an fsdp block and a quantization
+    block (``runtime/qgz.leaf_block``)."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    zero, cfg, mesh = engine._zero, engine.model_config, engine.mesh
+    shapes = {p: tuple(v[0]) for p, v in leaves(tf.param_shapes(cfg))}
+    n = 0
+    for path, ax in leaves(tf.logical_axes(cfg)):
+        layer = path.startswith("/layers/") and \
+            zero.param_dim.get(path) is not None
+        spec = zero.plan.grad_spec(ax[1:] if layer else ax)
+        shape = shapes[path][1:] if layer else shapes[path]
+        if sharding.fsdp_dim(spec) is not None and \
+                qgz_mod.leaf_block(shape, spec, mesh) > 1:
+            n += cfg.num_layers if layer else 1
+    return n
+
+
+def host_run(torch, zoo, initialize, fa, qz, run, rank, mesh, workdir):
+    """One run of phase 20 on this rank: losses, step walls, flash and
+    quantize launches, peak card memory and host RSS, the host tier's
+    seconds by part, ZenFlow's counts, the NVMe swap folder."""
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.parallel import topology as topo
+    from deepspeed_tpu_torch.runtime import param_stream
+    from deepspeed_tpu_torch.runtime import qgz as qgz_mod
+    from deepspeed_tpu_torch.runtime import sharding
+
+    free_caches(torch)
+    torch.cuda.reset_peak_memory_stats()
+    config = host_config(run, workdir)
+    steps = HOST_RUNS[run][1]
+    model = zoo.get_model("llama3-8b", num_layers=HOST_LAYERS,
+                          dtype=torch.float32, seed=SEED)
+    engine = initialize(model=model, config=config, mesh=mesh)[0]
+    fixed, _ = fixed_batches(model.config.vocab_size, micro=OFFLOAD_MICRO)
+    mine = [topo.batch_sharding(mesh).take(b) for b in fixed]
+    fa.reset_launch_counts()
+    qz.reset_launch_counts()
+    param_stream.reset_fetch_stats()
+    losses, step_s, norms = [], [], []
+    for i in range(steps):
+        got, wall = timed_train(torch, engine, mine[i % len(mine):], 1)
+        losses += got
+        step_s += wall
+        norms.append(float(engine.get_global_grad_norm()))
+    rss, hwm = rss_bytes()
+    line = {"losses": losses, "step_s": step_s, "grad_norms": norms,
+            "step_ms_p50": float(np.median(step_s)) * 1e3,
+            "launches": {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES},
+            "quant_launches": dict(qz.LAUNCHES),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "host_rss_gb": rss / 1e9, "host_rss_peak_gb": hwm / 1e9,
+            "local_rows": int(mine[0]["input_ids"].shape[0]),
+            "mesh": dict(engine.mesh.shape),
+            "qgz": bool(engine._qgz_stage3),
+            "resident_gathers": param_stream.RESIDENT_STATS["gathers"],
+            "streamed_layers": param_stream.FETCH_STATS["layers"]}
+    if engine._qgz_stage3:
+        line["qgz_plan_quantizes_per_step"] = qgz_plan_quantizes(
+            engine, tf, sharding, qgz_mod)
+    if engine._offload is not None:
+        off = engine._offload
+        line["host_step_s"] = dict(off.last_step_s)
+        line["host_elements"] = int(sum(o.n for o in off.optimizers.values()))
+        if off.tier == "nvme":
+            line["swap_folder"] = off.swap_folder
+            line["swap_files"] = len(os.listdir(off.swap_folder))
+    if engine._zenflow is not None:
+        zen = engine._zenflow
+        zen.finalize()
+        line.update(zenflow_counts=dict(zen.counts),
+                    zenflow_last_times=dict(zen.last_times),
+                    zenflow_pass_s=list(zen.pass_s),
+                    selected=int(sum(i.numel() for i in zen._idx)),
+                    host_elements=int(sum(zen._sizes)))
+    if engine._offload is not None:
+        engine._offload.close()
+    del engine, model
+    free_caches(torch)
+    return line
+
+
+def host_rank_main(rank, workdir):
+    """One rank of phase 20 (``chip_smoke.py --host-rank R DIR``): joins
+    the gloo group of two ranks through a file store under DIR, runs
+    20a-f at fsdp 2 and writes what it measured to DIR/out_R.json."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.ops import attention as attn
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.parallel import topology as topo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(
+        dist_backend="gloo", device="cuda", num_processes=HOST_RANKS,
+        process_id=rank, timeout=TP_RANK_TIMEOUT_S,
+        init_method="file://" + os.path.join(workdir, "store"))
+    res = {"rank": rank, "backend": comm.get_backend(),
+           "gloo_cuda": probe_gloo_cuda(torch)}
+    try:
+        mesh = topo.build_mesh({"fsdp": HOST_RANKS, "dp": 1})
+        walls = {}
+        for run in HOST_RUNS:
+            t0 = time.perf_counter()
+            res[run] = host_run(torch, zoo, initialize, fa, qz, run, rank,
+                                mesh, workdir)
+            walls[run] = time.perf_counter() - t0
+            log(f"host rank {rank} {run}: losses {res[run]['losses']}, "
+                f"{walls[run]:.1f} s")
+        res["walls_s"] = walls
+        res["dispatch"] = attn.dispatch_stats()
+    finally:
+        with open(os.path.join(workdir, f"out_{rank}.json"), "w") as f:
+            json.dump(res, f)
+        comm.destroy()
+    return 0
+
+
+def zenflow_reference(torch, zoo, initialize):
+    """20b's one-rank run: config C's ZenFlow block on the global batch
+    (micro 2, one rank, no process group)."""
+    free_caches(torch)
+    model = zoo.get_model("llama3-8b", num_layers=HOST_LAYERS,
+                          dtype=torch.float32, seed=SEED)
+    config = dict(host_config("20b", ""), train_micro_batch_size_per_chip=
+                  OFFLOAD_MICRO)
+    engine = initialize(model=model, config=config)[0]
+    fixed, _ = fixed_batches(model.config.vocab_size, micro=OFFLOAD_MICRO)
+    losses, step_s = timed_train(torch, engine, fixed, HOST_ZEN_STEPS)
+    engine._zenflow.finalize()
+    counts = dict(engine._zenflow.counts)
+    del engine, model
+    free_caches(torch)
+    return {"losses": losses, "step_s": step_s, "zenflow_counts": counts}
+
+
+def host_phase(torch, zoo, initialize, offload_losses, sweep):
+    """Phase 20 (the parent holds no model): 20b's one-rank reference,
+    then two ranks of this script on the card. Gates on what they
+    measured; returns (the line, launches by path)."""
+    t0 = time.perf_counter()
+    zen_ref = zenflow_reference(torch, zoo, initialize)
+    ref_s = time.perf_counter() - t0
+    ranks = run_two_ranks("--host-rank", "host tiers")
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        bad = {k: v for k, v in r["gloo_cuda"].items() if v != "ok"}
+        if bad:
+            fail(f"host tiers: gloo refuses card tensors for {bad}")
+        if r["dispatch"]["card_losses"]:
+            fail(f"host tiers rank {r['rank']}: impl='auto' sent CUDA "
+                 f"calls to the dense path on a measured loss "
+                 f"({r['dispatch']})")
+
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    L = HOST_LAYERS
+    refs = {"20a": offload_losses[:HOST_STEPS],
+            "20b": zen_ref["losses"], "20e": offload_losses[:HOST_STEPS],
+            "20f_lamb": sweep["optimizers"]["lamb"]["losses"][:HOST_STEPS],
+            "20f_muon": sweep["optimizers"]["muon"]["losses"][:HOST_STEPS]}
+    line = {"ranks": HOST_RANKS, "mesh": {"fsdp": HOST_RANKS, "dp": 1},
+            "backend": ranks[0]["backend"], "layers": f"{L} of 32",
+            "micro_per_rank": 1, "gas": 1, "seq": TRAIN_SEQ,
+            "note": "two ranks on one card over gloo, which copies each "
+                    "collective through the host: no NVLink, no speed "
+                    "claim", "runs": {}}
+    paths = {}
+    for run, (_, steps) in HOST_RUNS.items():
+        runs = [r[run] for r in ranks]
+        losses = runs[0]["losses"]
+        if runs[1]["losses"] != losses:
+            fail(f"host tiers {run}: the ranks' losses differ "
+                 f"({[rr['losses'] for rr in runs]})")
+        if not np.all(np.isfinite(losses)):
+            fail(f"host tiers {run}: losses {losses}")
+        row = {"losses": losses, "grad_norms": runs[0]["grad_norms"],
+               **{k: [rr[k] for rr in runs] for k in (
+                   "step_s", "step_ms_p50", "peak_mem_gb", "host_rss_gb",
+                   "host_rss_peak_gb", "launches")}}
+        for k in ("host_step_s", "host_elements", "swap_folder",
+                  "swap_files", "zenflow_counts", "zenflow_pass_s",
+                  "zenflow_last_times", "selected", "quant_launches",
+                  "qgz_plan_quantizes_per_step", "resident_gathers",
+                  "streamed_layers"):
+            if k in runs[0]:
+                row[k] = [rr[k] for rr in runs]
+        if run in refs:
+            d = rel(losses, refs[run])
+            row.update(reference=refs[run], max_loss_rel_diff=d)
+            if d > HOST_LOSS_TOL_REL:
+                fail(f"host tiers {run}: losses {losses} against the "
+                     f"one-rank {refs[run]} ({d:.2e} > "
+                     f"{HOST_LOSS_TOL_REL})")
+        want = {"flash_fwd": steps * 2 * L, "flash_bwd_dkdv": steps * L,
+                "flash_bwd_dq": steps * L}
+        for rr in runs:
+            lc = rr["launches"]
+            if {k: lc[k] for k in want} != want:
+                fail(f"host tiers {run}: flash launches {lc}, remat "
+                     f"implies {want}")
+            check_tensor_core(f"host tiers {run}", lc, lc, tuple(want))
+            if rr["local_rows"] != 1 or rr["mesh"]["fsdp"] != HOST_RANKS:
+                fail(f"host tiers {run}: {rr['local_rows']} rows a rank on "
+                     f"mesh {rr['mesh']}")
+        line["runs"][run] = row
+        for i, rr in enumerate(runs):
+            paths[f"host/{run}/rank{i}"] = {**rr["launches"],
+                                            **rr["quant_launches"]}
+    runs = line["runs"]
+    # 20a': the nvme tier steps the cpu tier's values: its step equals
+    # 20a's first, in a folder of each rank's own
+    if runs["20a_nvme"]["losses"][0] != runs["20a"]["losses"][0]:
+        fail(f"host tiers nvme: {runs['20a_nvme']['losses']} against the "
+             f"cpu tier's {runs['20a']['losses'][:1]}")
+    folders = runs["20a_nvme"]["swap_folder"]
+    if [os.path.basename(f) for f in folders] != ["rank0", "rank1"] or \
+            min(runs["20a_nvme"]["swap_files"]) < 1:
+        fail(f"host tiers nvme: swap folders {folders}")
+    # 20b: each rank ships and folds on JAX's schedule (overlap: the
+    # pass folds at the next interval boundary)
+    ui = HOST_ZENFLOW["update_interval"]
+    want_zen = {"ships": HOST_ZEN_STEPS // ui,
+                "host_passes": HOST_ZEN_STEPS // ui,
+                "folds": HOST_ZEN_STEPS // ui - 1}
+    for counts in runs["20b"]["zenflow_counts"] + [zen_ref[
+            "zenflow_counts"]]:
+        if counts != want_zen:
+            fail(f"host tiers zenflow: counts {counts}, the schedule "
+                 f"implies {want_zen}")
+    # 20c: qgZ within JAX's rtol of the exact wire, one B6 and one 6b
+    # a quantized reduction
+    d = rel(runs["20c"]["losses"], runs["20a"]["losses"])
+    runs["20c"]["rel_to_20a"] = d
+    if d > HOST_QGZ_RTOL:
+        fail(f"host tiers qgz: losses {runs['20c']['losses']} against "
+             f"20a's {runs['20a']['losses']} ({d:.3f} > {HOST_QGZ_RTOL})")
+    for ql, per in zip(runs["20c"]["quant_launches"],
+                       runs["20c"]["qgz_plan_quantizes_per_step"]):
+        want_q = per * HOST_STEPS
+        if ql["quantize_blockwise"] != want_q or ql["dequantize"] != want_q \
+                or want_q <= 0:
+            fail(f"host tiers qgz: B6 / 6b launches {ql}, the plan "
+                 f"implies {want_q} each")
+    for run in HOST_RUNS:
+        if run != "20c" and any(sum(q.values()) for q in
+                                runs[run]["quant_launches"]):
+            fail(f"host tiers {run}: quantize launches "
+                 f"{runs[run]['quant_launches']} without qgZ")
+    # 20d: the overlap stream is pure schedule: the step's loss and its
+    # gradient norm (the backward's reductions) as depth 0's
+    d0, d1 = runs["20d_depth0"], runs["20d_depth1"]
+    got = d1["losses"] + d1["grad_norms"]
+    want = d0["losses"] + d0["grad_norms"]
+    if got != want:
+        diff = rel(got, want)
+        d1["differs_from_depth0"] = diff
+        if diff > HOST_OVERLAP_TOL:
+            fail(f"host tiers overlap: depth 1 loss / grad norm {got} "
+                 f"against depth 0's {want}")
+    want_g = 2 * L * HOST_RUNS["20d_depth1"][1]
+    if d1["resident_gathers"] != [want_g] * 2 or \
+            d0["resident_gathers"] != [0, 0]:
+        fail(f"host tiers overlap: resident gathers {d1['resident_gathers']}"
+             f" (want {want_g} a rank), {d0['resident_gathers']} at depth 0")
+    # 20e: the stack streamed from the host, two fetches a layer a step
+    if runs["20e"]["streamed_layers"] != [2 * L * HOST_STEPS] * 2:
+        fail(f"host tiers offload_param: streamed "
+             f"{runs['20e']['streamed_layers']} layers")
+    line.update(zenflow_reference=zen_ref, reference_s=ref_s,
+                walls_s={**ranks[0]["walls_s"], "phase": wall},
+                dispatch=[r["dispatch"] for r in ranks])
+    return line, paths
+
+
 def main():
     import torch
 
@@ -7197,7 +7578,7 @@ def main():
     del prof
     mark("3 serve")
 
-    # 8a. the block-sparse forward at full depth on the same model, before
+    # 8a. the block-sparse forward on phase 3's model, before
     # phase 7's weight run quantizes it
     torch.cuda.empty_cache()
     sparse_fwd, sparse_fwd_profile, sparse_fwd_launches = \
@@ -7470,11 +7851,25 @@ def main():
         f"{moe_first:.4f}; walls {json.dumps(sp_line['walls_s'])} (gloo on "
         f"one card: no NVLink)")
     mark("19 sp pp")
+
+    # 20. the host tiers and the whole-leaf optimizers across two ranks
+    torch.cuda.empty_cache()
+    host_line, host_paths = host_phase(torch, zoo, initialize,
+                                       offload["losses"], sweep)
+    hr = host_line["runs"]
+    log("host tiers: " + "; ".join(
+        f"{run} losses {r['losses']} (rel {r.get('max_loss_rel_diff')}), "
+        f"p50 {r['step_ms_p50']} ms, peak {r['peak_mem_gb']} GB, rss "
+        f"{r['host_rss_gb']} GB" for run, r in hr.items())
+        + f"; walls {json.dumps(host_line['walls_s'])} (gloo on one card: "
+        "no NVLink)")
+    mark("20 host tiers")
     dispatch["10, 11, 8b, 5, 6"] = no_card_losses(
         attn, "phases 10, 11, 8b, 5, 6")
     dispatch["14"] = {stage: line["dispatch"]
                       for stage, line in zero["stages"].items()}
     dispatch["19 (a rank each)"] = sp_line["dispatch"]
+    dispatch["20 (a rank each)"] = host_line["dispatch"]
     log(f"impl='auto' dispatch by phases, no measured loss on the card: "
         f"{json.dumps(dispatch)}")
 
@@ -7555,7 +7950,8 @@ def main():
                     "v1_forward": v1_paths["v1_forward"][name],
                     "tp_train": tp_paths["tp_train"][name],
                     "tp_moe_train": tp_paths["tp_moe_train"][name],
-                    **{run: lc[name] for run, lc in sp_paths.items()}},
+                    **{run: lc[name] for run, lc in sp_paths.items()},
+                    **{run: lc[name] for run, lc in host_paths.items()}},
                 "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
@@ -7669,7 +8065,10 @@ def main():
                         "v1_int8_weights_generate")},
                     # ZeRO++'s training path (phase 17a)
                     **{run: lc[name] for run, lc in zeropp_paths.items()
-                       if run.startswith("zeropp/") and name in lc}},
+                       if run.startswith("zeropp/") and name in lc},
+                    # qgZ before the host copy across ranks (phase 20c)
+                    **{run: lc[name] for run, lc in host_paths.items()
+                       if run.startswith("host/20c/") and name in lc}},
                 "max_abs_err": res["max_abs_err"], "bit_equal": True,
                 "variant": "simt", "ms": res["ms"],
                 # one version: its first is itself
@@ -7803,6 +8202,7 @@ def main():
           flush=True)
     print(json.dumps({"tp": tp_line}), flush=True)
     print(json.dumps({"sp_pp": sp_line}), flush=True)
+    print(json.dumps({"host_tiers": host_line}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start,
                       "phase_walls_s": walls}), flush=True)
     print(card, flush=True)
@@ -7817,4 +8217,6 @@ if __name__ == "__main__":
         sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
     if len(sys.argv) == 4 and sys.argv[1] == "--sp-rank":
         sys.exit(sp_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--host-rank":
+        sys.exit(host_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

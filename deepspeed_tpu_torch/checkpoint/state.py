@@ -22,10 +22,12 @@ payload is JAX's offload branch: the host masters, moments and per-leaf
 Adam step counts under ``state/offload_optim_rank0/`` (the stem of JAX's
 ``offload_optim_rank0.npz``), beside the params and ``opt_count``; on
 the NVMe tier they are read from the swap store for the save and
-written back after a load. A load that wants the optimizer state and
-finds no such payload raises ``FileNotFoundError`` (JAX's wording); with
-``load_optimizer_states=False`` the masters are re-seeded from the
-restored params.
+written back after a load. Across ranks each rank writes its own blocks
+under ``state/offload_optim_rank<r>/`` and resumes them at the same
+world size (another world size raises; the params load at any). A load
+that wants the optimizer state and finds no such payload raises
+``FileNotFoundError`` (JAX's wording); with ``load_optimizer_states=
+False`` the masters are re-seeded from the restored params.
 
 With ZenFlow (``runtime/zenflow.py``) the optimizer payload is JAX's
 ZenFlow branch: the whole importance-split state under
@@ -37,7 +39,11 @@ waits for a host pass in flight first (``state_dict`` finalizes); the
 load reads the files with ``weights_only``, checks every shape before
 anything changes, and raises ``FileNotFoundError`` with JAX's wording
 when the payload is missing; ``load_optimizer_states=False`` rebuilds
-ZenFlow from the restored params.
+ZenFlow from the restored params. Across ranks each rank writes its own
+``state/zenflow_rank<r>/`` with JAX's ``shard_index`` of its blocks; a
+load at the same world size reads its own, at another it reads every
+saved rank's and reslices them to its blocks
+(``runtime/zenflow.reslice_state``, JAX's reslice).
 
 With a client ``torch.optim.Optimizer`` the optimizer payload is the
 fp32 masters (``opt_master``) and the optimizer's ``state_dict``: its
@@ -106,6 +112,7 @@ from deepspeed_tpu_torch.resilience.resume import data_cursor
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     leaf_file, make_checkpoint_engine, read_files)
 from deepspeed_tpu_torch.runtime.loss_scaler import LossScaleState
+from deepspeed_tpu_torch.runtime.zenflow import reslice_state
 from deepspeed_tpu_torch.runtime.optimizer import (leaves,
                                                    reset_optimizer_state,
                                                    set_leaf)
@@ -120,8 +127,11 @@ FRAMEWORK_VERSION = "0.1.0"  # the project's version (pyproject.toml)
 # the mesh of a one-device JAX engine (its axes in parallel/topology.py)
 MESH_SHAPE = {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
 BLOCKS_KEY = "zero_blocks"  # metadata: {"count": n, "dims": {leaf: dim}}
-OFFLOAD_KEY = "offload_optim_rank0"  # world size 1: one process
+# the per-rank payloads, by rank 0's name (``rank_key`` names a rank's)
+OFFLOAD_KEY = "offload_optim_rank0"
 ZENFLOW_KEY = "zenflow_rank0"
+ZENFLOW_STEM = ZENFLOW_KEY[:-1]
+QUANT_KEY = "quant_rank0"
 CLIENT_KEY = "opt_client"
 ZENFLOW_LEAF_KEYS = ("masters", "idx", "m", "v", "acc")
 
@@ -169,9 +179,9 @@ class CheckpointIO:
         if not optimizer:
             return state
         if e._zenflow is not None:
-            state[ZENFLOW_KEY] = zenflow_tree(e._zenflow)
+            state[rank_key(ZENFLOW_KEY)] = zenflow_tree(e._zenflow)
         elif e._offload is not None:
-            state[OFFLOAD_KEY] = e._offload.state_dict()
+            state[rank_key(OFFLOAD_KEY)] = e._offload.state_dict()
         elif e._quant_step is not None:
             qs = e._quant_step.state
             state[quant_key()] = dict(qs.named_trees(),
@@ -343,8 +353,11 @@ class CheckpointIO:
             if top == "params":
                 d = zero.param_dim.get(path)
             elif top.startswith("opt_") and path in masters and \
-                    t.shape == masters[path].shape:
-                d = zero.opt_dim.get(path)
+                    self.engine._client_opt is None:
+                d = getattr(self.engine.tx, "state_dim", lambda p, n, d: d)(
+                    path, top[4:], zero.opt_dim.get(path)) \
+                    if t.shape != masters[path].shape else \
+                    zero.opt_dim.get(path)
             else:
                 d = None
             if d is not None:
@@ -402,9 +415,10 @@ class CheckpointIO:
         cuts = (("pp", "pp", pp), ("tp", "tp", tp), ("ep", "ep", ep),
                 ("block", "fsdp", (count, index, dims)))
         out: Dict[str, Any] = {}
-        own = "/" + quant_key()
+        own = tuple("/" + rank_key(k) + "/" for k in
+                    (QUANT_KEY, OFFLOAD_KEY, ZENFLOW_KEY))
         for leaf_path, t in leaves(state):
-            if leaf_path.startswith(own + "/"):  # this rank's own state
+            if leaf_path.startswith(own):  # this rank's own state
                 set_leaf(out, leaf_path, t)
                 continue
             axes, name = set(), leaf_path
@@ -564,18 +578,27 @@ class CheckpointIO:
         t0 = time.perf_counter()
         state_dir = os.path.join(ckpt_dir, STATE_DIR)
         zen_sd = None
+        saved_world = int(meta.get("world_size", 1))
         if e._zenflow is not None and load_optimizer_states:
-            zen_dir = os.path.join(state_dir, ZENFLOW_KEY)
+            # a save at another world size: every saved rank's payload,
+            # resliced to this rank's blocks (JAX's reslice)
+            ranks = ([comm.get_rank()] if saved_world == comm.get_world_size()
+                     else list(range(saved_world)))
+            zen_dirs = [os.path.join(state_dir, f"{ZENFLOW_STEM}{r}")
+                        for r in ranks]
             # agreed on by every rank: one rank raising alone would hang
             # its peers' next collective
-            if comm.any_process(not os.path.isdir(zen_dir)):
+            if comm.any_process(not all(map(os.path.isdir, zen_dirs))):
                 raise FileNotFoundError(
                     "zenflow optimizer state missing on at least one "
-                    f"process (this rank's path: {zen_dir}). Pass "
+                    f"process (this rank's paths: {zen_dirs}). Pass "
                     "load_optimizer_states=False to knowingly re-seed "
                     "fresh importance-split state from the restored params")
-            zen_tree = read_files(zen_dir)
-            zen_sd = zenflow_state_dict(zen_tree, e._zenflow.paths)
+            zen_trees = [read_files(d) for d in zen_dirs]
+            sds = [zenflow_state_dict(t, e._zenflow.paths)
+                   for t in zen_trees]
+            zen_sd = sds[0] if len(ranks) == 1 and ranks[0] == \
+                comm.get_rank() else reslice_state(sds, e._zenflow.blocks)
             e._zenflow.check_state_dict(zen_sd)
         if (e._quant_step is not None or _per_rank(e)) and \
                 load_optimizer_states and \
@@ -587,14 +610,23 @@ class CheckpointIO:
                 f"{os.path.join(state_dir, quant_key())}); pass "
                 "load_optimizer_states=False to re-seed the masters from "
                 "the restored params")
-        if e._offload is not None and load_optimizer_states and \
-                not os.path.isdir(os.path.join(state_dir, OFFLOAD_KEY)):
-            raise FileNotFoundError(
-                "offload optimizer state missing at "
-                f"{os.path.join(state_dir, OFFLOAD_KEY)} — the host masters "
-                "would silently overwrite the restored params on the next "
-                "step. Pass load_optimizer_states=False to rebuild masters "
-                "(zeroed moments) from the checkpoint params instead.")
+        if e._offload is not None and load_optimizer_states:
+            off_dir = os.path.join(state_dir, rank_key(OFFLOAD_KEY))
+            if comm.any_process(not os.path.isdir(off_dir)):
+                raise FileNotFoundError(
+                    "offload optimizer state missing at "
+                    f"{off_dir} (on at least one rank) — the host masters "
+                    "would silently overwrite the restored params on the "
+                    "next step. Pass load_optimizer_states=False to "
+                    "rebuild masters (zeroed moments) from the checkpoint "
+                    "params instead.")
+            if saved_world != comm.get_world_size():
+                raise ValueError(
+                    f"offload optimizer state saved at world size "
+                    f"{saved_world}, loaded at {comm.get_world_size()}: "
+                    "each rank's host blocks resume at the same world "
+                    "size only; pass load_optimizer_states=False to "
+                    "rebuild the masters from the checkpoint params")
         # the optimizer payloads (~3x the param bytes) are not read at
         # all when they are not wanted
         state = self._state(optimizer=load_optimizer_states
@@ -623,20 +655,24 @@ class CheckpointIO:
             if e._zenflow is not None:
                 if zen_sd is not None:
                     e._zenflow.load_state_dict(zen_sd)
-                    nbytes += sum(t.nbytes for _, t in leaves(zen_tree))
+                    nbytes += sum(t.nbytes for tree in zen_trees
+                                  for _, t in leaves(tree))
                 else:
                     logger.warning("optimizer state not restored: ZenFlow "
                                    "rebuilt from the restored params")
-                    e._zenflow.reinit(e.params)
+                    e._zenflow.reinit(e._master_blocks_of_params())
             elif e._offload is not None:
                 if load_optimizer_states:
-                    e._offload.load_state_dict(state[OFFLOAD_KEY])
+                    e._offload.load_state_dict(state[rank_key(OFFLOAD_KEY)])
                     e._offload.count = int(state["opt_count"])
-                    e._offload.sync_params_from_masters(e.params)
+                    blocks = e._host_blocks()
+                    e._offload.sync_params_from_masters(blocks)
+                    if e._zero is not None:
+                        e._publish_blocks(blocks)
                 else:
                     logger.warning("optimizer state not restored: masters "
                                    "re-seeded from params, moments reset")
-                    e._offload.reinit_masters(e.params)
+                    e._offload.reinit_masters(e._master_blocks_of_params())
             elif e._quant_step is not None:
                 if load_optimizer_states:
                     e._quant_step.state.step = int(state[quant_key()]["step"])
@@ -657,8 +693,12 @@ class CheckpointIO:
                                "re-seeded from params, moments reset")
                 for (path, m), (_, p) in zip(leaves(e.opt_state.master),
                                              leaves(e.params)):
-                    m.copy_(p if e._zero is None
-                            else e._zero.master_of_param(path, p))
+                    if e._zero is None:
+                        m.copy_(p)
+                    elif e._client_opt is not None:  # whole masters
+                        m.copy_(e._zero.full(path, p, "param"))
+                    else:
+                        m.copy_(e._zero.master_of_param(path, p))
                 if e._client_opt is not None:
                     e._client_opt.state.clear()
                     e.opt_state.count = 0
@@ -813,9 +853,15 @@ def zenflow_state_dict(tree: Dict[str, Any], paths) -> Dict[str, Any]:
     }
 
 
+def rank_key(key: str) -> str:
+    """This rank's name of a per-rank payload (``..._rank0`` at world
+    size 1, JAX's file stems)."""
+    return key[:key.rindex("rank") + 4] + str(comm.get_rank())
+
+
 def quant_key() -> str:
     """The 1-bit / ZeRO++ payload of this rank."""
-    return f"quant_rank{comm.get_rank()}"
+    return rank_key(QUANT_KEY)
 
 
 def _per_rank(engine) -> bool:

@@ -85,6 +85,7 @@ from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.utils.annotate import region
 
 _A11 = "ROADMAP queue A item 11"
+_A17 = "ROADMAP queue A item 17"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +146,11 @@ class TransformerConfig:
     # measured against)
     prefetch_depth: int = 2
     serialize_fetch: bool = False
+    # JAX's stage-3 resident overlap (the engine sets it from
+    # performance.overlap_depth): under a ZeRO-3 fetch hook over fsdp
+    # ranks the layer stack runs through the overlap engine, layer i + k's
+    # gather issued before layer i's compute (0: the remat'd loop)
+    overlap_depth: int = 0
 
     def __post_init__(self):
         if self.sp_mode not in ("ulysses", "ring"):
@@ -632,6 +638,9 @@ def apply_hidden(cfg: TransformerConfig, params: Dict[str, Any],
     elif cfg.param_host_offload:
         _one_tp_rank("offload_param")
         x = _streamed_stack(cfg, params["layers"], x, rope)
+    elif cfg.overlap_depth and fetch is not None and fetch.stage3 and \
+            sharding.fsdp_size() > 1:
+        x = _overlapped_stack(cfg, params["layers"], x, rope, fetch)
     else:
         step = (ac.checkpoint_wrapper(fetched_layer, policy=cfg.remat_policy)
                 if cfg.remat else fetched_layer)
@@ -668,10 +677,20 @@ def _streamed_stack(cfg: TransformerConfig, layers, x, rope):
     each remat'd layer on the compute stream."""
     from deepspeed_tpu_torch.runtime import param_stream
 
-    if sharding.active_fetch() is not None:
-        raise NotImplementedError(
-            "offload_param with a ZeRO-3 fetch across ranks: "
-            f"{_A11}'s multi-card part (the fsdp overlap_depth branch)")
+    fetch = sharding.active_fetch()
+    whole = sink = None
+    if fetch is not None and fetch.stage3 and sharding.fsdp_size() > 1:
+        # a host stack of ZeRO-3 blocks: each fetched layer gathered over
+        # fsdp, its gradient reduce-scattered back before it lands
+        if cfg.serialize_fetch:
+            raise NotImplementedError(
+                "offload_param's serialize_fetch with a ZeRO-3 stack over "
+                f"fsdp ranks: the prefetch stream runs it ({_A17})")
+        axes = fetch.layer_axes
+        whole = lambda tree: sharding.fsdp_gather_layer(  # noqa: E731
+            tree, None, axes)
+        sink = lambda tree: sharding.fsdp_scatter_grads(  # noqa: E731
+            tree, axes, fetch.qgz)
     if not cfg.serialize_fetch:
         if cfg.remat and ac.resolve_policy(cfg.remat_policy) is not None:
             from deepspeed_tpu_torch.utils.logging import warning_once
@@ -682,11 +701,32 @@ def _streamed_stack(cfg: TransformerConfig, layers, x, rope):
                 "does not apply to the streamed stack")
         return param_stream.streamed_layers_prefetch(
             lambda xx, lp: _layer(cfg, xx, lp, rope), layers, x,
-            length=cfg.num_layers, prefetch_depth=cfg.prefetch_depth)
+            length=cfg.num_layers, prefetch_depth=cfg.prefetch_depth,
+            whole=whole, sink=sink)
     return param_stream.scan_streamed(
         lambda xx, lp: _layer(cfg, xx, lp, rope), x, layers,
         length=cfg.num_layers, remat=cfg.remat,
         remat_policy=cfg.remat_policy, device=x.device)
+
+
+def _overlapped_stack(cfg: TransformerConfig, layers, x, rope, fetch):
+    """JAX's stage-3 resident overlap (``models/transformer.py:831-850``):
+    the overlap engine over the resident block stack, the per-layer fsdp
+    gather as its fetch (``overlap_depth`` layers ahead) and the
+    per-layer reduce-scatter as its gradient sink, per-layer
+    recompute."""
+    from deepspeed_tpu_torch.runtime import param_stream
+
+    if fetch.qwz_bits is not None or fetch.experts is not None:
+        raise NotImplementedError(
+            "performance.overlap_depth with qwZ's int8 gather or qgZ's "
+            f"expert groups: the remat'd layer loop runs them ({_A17})")
+    axes = fetch.layer_axes
+    return param_stream.resident_layers_prefetch(
+        lambda xx, lp: _layer(cfg, xx, lp, rope), layers, x,
+        fetch=lambda stack, i: sharding.fsdp_gather_layer(stack, i, axes),
+        grad_sink=lambda g: sharding.fsdp_scatter_grads(g, axes, fetch.qgz),
+        length=cfg.num_layers, prefetch_depth=cfg.overlap_depth)
 
 
 def apply_hidden_hosted(cfg: TransformerConfig, params: Dict[str, Any],

@@ -55,10 +55,18 @@ loss is averaged over the ranks. Without a process group (one process)
 the engine runs as before, with no collective. An MoE model's experts
 split over the ``ep`` ranks (``moe.ep_size``): each rank holds E/ep of
 every expert stack, a dense gradient reduces over every token rank and an
-expert gradient over the dp x fsdp ranks that share the expert. At world
-size > 1 the optimizer offload tiers, ZenFlow, a client optimizer or a
-non-elementwise optimizer at stage >= 1 raise ``NotImplementedError``
-naming their ROADMAP item.
+expert gradient over the dp x fsdp ranks that share the expert. Lamb,
+Adafactor and Muon step their blocks with the whole leaf's norms, means
+and (Muon) matrices (``optimizer.MasterBlocks``); a client optimizer steps
+whole masters on every rank from the gathered gradient blocks; the
+optimizer offload tiers and ZenFlow step each rank's blocks on the host
+(below). At tp, pp or ep > 1 the whole-leaf optimizers, and at tp, sp,
+pp or ep > 1 the host tiers, raise ``NotImplementedError`` naming ROADMAP
+queue A item 17. With ``performance.overlap_depth`` > 0 at stage 3 the
+layer stack runs through JAX's resident overlap stream
+(``param_stream.resident_layers_prefetch``: the per-layer fsdp gather
+issued ``overlap_depth`` layers ahead, the per-layer reduce-scatter in
+the backward), the remat'd loop's values in another order.
 
 Sequence parallelism (``sequence_parallel.size``, or a mesh with an sp
 axis): each rank's batch is its rows and its block of the sequence,
@@ -117,18 +125,28 @@ at the update count. The grads then accumulate in ``p.grad`` in the
 compute dtype at GAS > 1 (``loss * scale / gas`` back-propagated per
 microbatch, JAX's offload numerics; no fp32 accumulators on the card),
 on both APIs. ``offload_states`` / ``reload_states`` empty and refill
-the card storage of the params and the device optimizer's state.
+the card storage of the params and the device optimizer's state. Across
+ranks (dp x fsdp) each rank's host tier holds its ZeRO blocks (the NVMe
+tier one swap directory a rank): at the boundary the accumulated
+gradients are reduced over the data ranks (stage 2's reduce-scatter
+runs then; qgZ's int8 wire where it is on) and cut to the rank's blocks
+on the card before they cross to the host, the norm counts each block
+once, and the updated compute-dtype blocks are all-gathered at stages
+1-2 (stage 3's params are the blocks).
 
 ZeRO-Infinity's param tier (``zero_optimization.offload_param`` beside
 the cpu or nvme optimizer tier; ``runtime/param_stream.py``): the
 model's stacked layer subtrees (``host_param_paths``, else ``layers``)
 live in pinned host memory in the compute dtype, the model streams them
 a layer at a time (``performance.param_prefetch_depth`` layers ahead,
-bridged onto the model's config; ``overlap_depth`` parses and has no
-effect on one card), their fp32
+bridged onto the model's config; ``overlap_depth`` is the stage-3
+overlap below, with no effect on one card), their fp32
 gradients land on the host inside the backward, and the host optimizer
 writes the updated stack in place. Without the host optimizer it raises,
-and ZenFlow falls back to the blocking offload step, as in JAX. The
+and ZenFlow falls back to the blocking offload step, as in JAX. Across
+ranks the host stack holds the stage's param blocks: at stage 3 each
+fetched layer is gathered over fsdp on the card and its gradient
+reduce-scattered back before it lands. The
 ``activation_checkpointing`` block configures
 ``runtime/activation_checkpointing``, as JAX's engine does, and its
 policy and ``cpu_checkpointing``, resolved at build, are pinned on the
@@ -142,7 +160,9 @@ model's fp32 tensors leaf by leaf. Each update takes one coefficient for
 the unscaling and the clip (the fp32 global norm on the card), rounds it
 to the grads' dtype and multiplies the grads by it; an fp16 step with a
 non-finite norm is skipped without counting an update. The LR comes from
-the schedule at the update count.
+the schedule at the update count. Across ranks ZenFlow steps the rank's
+blocks of the reduced gradients (its selection JAX's global top-k, the
+ranks' candidates merged) and the blocks are gathered as offload's.
 
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``,
 ``checkpoint/state.py``) and the resilience layer follow the JAX engine:
@@ -249,13 +269,13 @@ from deepspeed_tpu_torch.runtime import activation_checkpointing as act_ckpt
 from deepspeed_tpu_torch.runtime import param_stream
 from deepspeed_tpu_torch.runtime import sharding
 from deepspeed_tpu_torch.runtime.optimizer import (
-    SGD, Adagrad, Adam, Lion, MixedPrecisionState, apply_client_update,
-    apply_mixed_precision_update, get_base_optimizer, global_norm,
-    init_mixed_precision, leaves, set_leaf, tree_map)
+    SGD, Adagrad, Adam, Lion, MasterBlocks, MixedPrecisionState,
+    apply_client_update, apply_mixed_precision_update, get_base_optimizer,
+    global_norm, init_mixed_precision, leaves, set_leaf, tree_map)
 from deepspeed_tpu_torch.runtime.prefetch import (PrefetchingIterator,
                                                   map_batch, to_device_async,
                                                   wait_ready)
-from deepspeed_tpu_torch.runtime.zenflow import (ZenFlowConfig,
+from deepspeed_tpu_torch.runtime.zenflow import (LeafBlock, ZenFlowConfig,
                                                  ZenFlowOptimizer)
 from deepspeed_tpu_torch.runtime.zero import ZeroPartition
 from deepspeed_tpu_torch.runtime import onebit as onebit_mod
@@ -274,7 +294,7 @@ logger = logging.getLogger(__name__)
 _A = "ROADMAP queue A item"
 # the optimizers whose step is elementwise, so a rank can step its block
 # of the masters alone (Lamb's trust ratio, Adafactor's factored moments
-# and Muon's Newton-Schulz read whole leaves)
+# and Muon's Newton-Schulz read whole leaves: they take ``MasterBlocks``)
 ELEMENTWISE_OPTIMIZERS = (Adam, SGD, Lion, Adagrad)
 
 
@@ -469,6 +489,10 @@ class Engine:
             over["prefetch_depth"] = int(perf.param_prefetch_depth)
         if perf.fp8_mlp and "fp8_mlp" in mfields:
             over["fp8_mlp"] = True
+        if perf.overlap_depth is not None and "overlap_depth" in mfields:
+            # JAX's stage-3 resident overlap (engine.py:223-246); it acts
+            # under a ZeRO-3 fetch over fsdp ranks only
+            over["overlap_depth"] = int(perf.overlap_depth)
         if "remat_policy" in mfields:
             # resolved here, once: a later configure() (another engine's)
             # does not change what this engine's steps keep
@@ -506,9 +530,7 @@ class Engine:
                 model.params(), qg=zero.zero_quantized_gradients,
                 qw=zero.zero_quantized_weights,
                 qar=zero.zero_quantized_allreduce)
-        elif self.mesh.distributed and \
-                zero.offload_device not in ("cpu", "nvme") and \
-                not self._onebit:
+        elif self.mesh.distributed and not self._onebit:
             logical = self._logical_axes(model)
             self._zero = ZeroPartition(self.plan, self.mesh, logical,
                                        zero.stage, qgz=self._qgz_stage3,
@@ -581,8 +603,12 @@ class Engine:
         # ZeRO's reduce-scattered gradient blocks at GAS 1
         self._grad_acc: Dict[torch.Tensor, torch.Tensor] = {}
         self._grad_shards: Dict[torch.Tensor, torch.Tensor] = {}
+        # a host tier's compute-dtype blocks of the params it gathers
+        self._blk_bufs: Dict[str, torch.Tensor] = {}
         self._scatter_dims: Dict[torch.Tensor, int] = {}
-        if self._zero is not None:
+        if self._zero is not None and not self._host_tier:
+            # the host tiers reduce the accumulated gradient once, at the
+            # boundary, before it crosses to the host
             for path, p in leaves(self.params):
                 d = self._zero.scatter_dim(path)
                 if d is not None:
@@ -789,12 +815,16 @@ class Engine:
             # JAX's refusal (engine.py:1505-1507), before the tiers'
             raise ValueError("offload_param does not compose with the "
                              "pipeline-parallel layer path yet")
-        if zero.offload_device in ("cpu", "nvme") or zero.zenflow is not None:
+        host = zero.offload_device in ("cpu", "nvme") or \
+            zero.zenflow is not None
+        wide = {a: self.mesh.shape[a] for a in ("tp", "sp", "pp", "ep")
+                if self.mesh.shape[a] > 1}
+        if host and wide:
             raise NotImplementedError(
-                f"zero_optimization.offload_optimizer / zenflow at world "
-                f"size {world}: the host optimizer tiers run on one rank; "
-                f"across ranks they are {_A} 5's leftover (JAX config C, "
-                "ZenFlow on the fsdp mesh)")
+                f"zero_optimization.offload_optimizer / zenflow at "
+                + ", ".join(f"{a}={n}" for a, n in wide.items())
+                + ": the host optimizer tiers run on dp x fsdp meshes; "
+                f"the tp / sp / pp / ep leftovers are {_A} 17")
         tp = self.mesh.shape["tp"]
         if tp > 1 and (self._zeropp or self._onebit or self._qwz_stage3
                        or self._qgz_stage3 or self._client_optimizer_present
@@ -802,7 +832,7 @@ class Engine:
             raise NotImplementedError(
                 f"ZeRO++, the 1-bit optimizers, a client optimizer and "
                 f"offload_param at tp={tp} are not ported yet: the TP "
-                f"leftovers of {_A} 4, 10 and 12")
+                f"leftovers of items 4, 10 and 12, now {_A} 17")
         own_step = (zero.zero_quantized_weights
                     or zero.zero_quantized_gradients
                     or zero.zero_quantized_allreduce
@@ -816,11 +846,6 @@ class Engine:
                     f"ZeRO++ (qwZ, qgZ, qar, hpZ / MiCS), the 1-bit "
                     f"optimizers and a client optimizer at {axis}={n} are "
                     f"not ported yet: {_A} 11's {axis} leftovers")
-        if zero.stage >= 1 and self._client_optimizer_present:
-            raise NotImplementedError(
-                f"a client optimizer at ZeRO stage {zero.stage} and world "
-                f"size {world}: it steps whole tensors, the ranks hold "
-                f"blocks of the masters ({_A} 5's leftover)")
 
     @staticmethod
     def _full_shapes(model) -> Optional[Dict[str, tuple]]:
@@ -851,12 +876,21 @@ class Engine:
         whole leaf: an fp32 model then shares its tensors with the
         masters, as without a process group."""
         zero = self._zero
-        if zero.fsdp_n > 1 and not isinstance(self.tx,
-                                              ELEMENTWISE_OPTIMIZERS):
-            raise NotImplementedError(
-                f"optimizer {type(self.tx).__name__} at ZeRO stage "
-                f"{zero.stage} over {zero.fsdp_n} ranks: its step reads "
-                f"whole leaves, the ranks hold blocks ({_A} 5's leftover)")
+        if not isinstance(self.tx, ELEMENTWISE_OPTIMIZERS):
+            # tp, pp and ep cut leaves outside ZeRO's fsdp blocks (sp
+            # ranks hold the same leaves)
+            wide = {a: n for a in ("tp", "pp", "ep")
+                    if (n := self.mesh.shape[a]) > 1}
+            if wide:
+                raise NotImplementedError(
+                    f"optimizer {type(self.tx).__name__} with "
+                    + ", ".join(f"{a}={n}" for a, n in wide.items())
+                    + f": its step reads whole leaves; over dp x fsdp it "
+                    f"runs, the tp / pp / ep leftovers are {_A} 17")
+            if zero.fsdp_n > 1:
+                # its norms and means sum the ranks' parts (JAX's global
+                # semantics under GSPMD)
+                self.tx.blocks = MasterBlocks(zero.opt_dim, zero.fsdp_n)
         src = model.params()
 
         def master(path, p):
@@ -925,22 +959,32 @@ class Engine:
         return plan
 
     def _compute_params(self, src):
-        """The compute-dtype params from ``src``; under ``offload_param``
-        the streamed subtrees go straight to pinned host memory (never
-        whole on the card)."""
+        """The compute-dtype params from ``src`` (this rank's blocks at
+        ZeRO stage 3); under ``offload_param`` the streamed subtrees go
+        straight to pinned host memory (never whole on the card)."""
         with torch.no_grad():
             hosted = {k for k in self._host_param_paths if k in src} \
                 if self._param_host_offload else set()
-            def card(t):
+            zero = self._zero
+
+            def card(path, t):
+                if zero is not None:  # this rank's stage-3 block
+                    t = zero.block(path, t.detach(), "param")
                 return t.detach().to(self.compute_dtype,
-                                     copy=True).requires_grad_()
+                                     copy=True).contiguous().requires_grad_()
+
+            def blocks(k, v):  # this rank's stage-3 blocks of a subtree
+                return v if zero is None else _map_with_path(
+                    lambda path, t: zero.block(path, t.detach(), "param"),
+                    v, f"/{k}")
 
             self.params = {
                 k: (tree_map(lambda t: t.requires_grad_(),
-                             param_stream.pin_to_host(v, self.compute_dtype))
+                             param_stream.pin_to_host(blocks(k, v),
+                                                      self.compute_dtype))
                     if k in hosted else
-                    card(v) if isinstance(v, torch.Tensor) else
-                    tree_map(card, v))
+                    card(f"/{k}", v) if isinstance(v, torch.Tensor) else
+                    _map_with_path(card, v, f"/{k}"))
                 for k, v in src.items()}
 
     def _setup_param_host_offload(self) -> None:
@@ -991,7 +1035,10 @@ class Engine:
         """The client-optimizer branch (JAX ``engine.py:314-315``, where
         it is an optax transform): fp32 masters (a leaf of the model that
         already is an fp32 tensor is its own master), compute copies, and
-        the client's ``torch.optim.Optimizer`` over the masters."""
+        the client's ``torch.optim.Optimizer`` over the masters. Across
+        ranks the masters stay whole on every rank (the optimizer steps
+        whole tensors, as at world size 1) and the compute params are the
+        stage's blocks."""
         self.tx, self._base_lr = None, None
         masters = tree_map(lambda p: p if p.dtype == torch.float32
                            else p.detach().float(), model.params())
@@ -1073,10 +1120,22 @@ class Engine:
             eps=p.get("eps", 1e-8), weight_decay=p.get("weight_decay", 0.0))
         src = model.params()
         self._compute_params(src)
-        zen = ZenFlowOptimizer(src, cfg, lr=self._config_lr(),
-                               device=self.device)
+        blocks, gather = None, None
+        zero = self._zero
+        if zero is not None and zero.fsdp_n > 1:
+            blocks = {path: LeafBlock(tuple(p.shape), zero.opt_dim.get(path),
+                                      zero.fsdp_index, zero.fsdp_n)
+                      for path, p in leaves(src)}
+
+            def gather(t):
+                return comm.all_gather(t.contiguous(), "fsdp", gather_dim=0)
+
+        zen = ZenFlowOptimizer(self._opt_blocks(src), cfg,
+                               lr=self._config_lr(), device=self.device,
+                               blocks=blocks, gather=gather)
         self._base_lr = zen.lr
-        self._share_masters(src, zen.full_fp32_param)
+        if self._whole_blocks:
+            self._share_masters(src, zen.full_fp32_param)
         return zen
 
     def _init_offload(self, model) -> None:
@@ -1092,15 +1151,74 @@ class Engine:
         src = model.params()
         self._compute_params(src)
         self._offload = HostOffloadOptimizer(
-            src, optimizer_name=(ocfg.type if ocfg else "adamw") or "adamw",
+            self._opt_blocks(src),
+            optimizer_name=(ocfg.type if ocfg else "adamw") or "adamw",
             optimizer_params=dict((ocfg.params or {}) if ocfg else {}),
             grad_clip=self.config.gradient_clipping,
             nvme_path=off.nvme_path if off.device == "nvme" else None,
             buffer_count=off.buffer_count, pin_memory=off.pin_memory,
-            grad_transfer_dtype=off.grad_transfer_dtype)
+            grad_transfer_dtype=off.grad_transfer_dtype,
+            rank=comm.get_rank())
         self._base_lr = self._offload.lr
-        if self._offload.tier == "cpu":
+        if self._offload.tier == "cpu" and self._whole_blocks:
             self._share_masters(src, self._offload.masters.get)
+
+    @property
+    def _whole_blocks(self) -> bool:
+        """Every master block is its whole leaf (no process group, or one
+        fsdp rank)."""
+        return self._zero is None or self._zero.fsdp_n == 1
+
+    def _opt_blocks(self, src):
+        """This rank's master block of each leaf of ``src`` (a view; the
+        tree itself without a ZeRO partition)."""
+        if self._zero is None:
+            return src
+        return _map_with_path(
+            lambda path, p: self._zero.block(path, p.detach(), "opt"), src)
+
+    def _master_blocks_of_params(self):
+        """This rank's master block of each compute param (a re-seed)."""
+        if self._zero is None:
+            return self.params
+        return _map_with_path(self._zero.master_of_param, self.params)
+
+    def _host_blocks(self, fill: bool = False):
+        """The compute-dtype tree a host tier writes its updated blocks
+        into: a param that is its own block (stage 3, or a leaf that does
+        not shard) itself, else a card buffer of this rank's block that
+        ``_publish_blocks`` gathers into the param (``fill``: holding the
+        param's current values first, for ZenFlow's in-place update)."""
+        zero = self._zero
+        if zero is None:
+            return self.params
+        bufs = self._blk_bufs
+
+        def blk(path, p):
+            d = zero.opt_dim.get(path)
+            if zero.param_dim.get(path) is not None or d is None \
+                    or zero.fsdp_n == 1:
+                return p
+            if path not in bufs:
+                bufs[path] = torch.empty_like(
+                    zero.block(path, p.detach(), "opt"),
+                    memory_format=torch.contiguous_format)
+            if fill:
+                bufs[path].copy_(zero.block(path, p.detach(), "opt"))
+            return bufs[path]
+
+        return _map_with_path(blk, self.params)
+
+    @torch.no_grad()
+    def _publish_blocks(self, blocks) -> None:
+        """Each param from the updated blocks (ZeRO stages 1-2: the
+        all-gather of the compute-dtype blocks over fsdp)."""
+        flat = dict(leaves(blocks))
+        for path, p in leaves(self.params):
+            b = flat[path]
+            if b is not p:  # a host stack's blocks gather on the card
+                p.copy_(comm.all_gather(b.to(self.device), "fsdp",
+                                        gather_dim=self._zero.opt_dim[path]))
 
     def _init_quant_stats(self) -> None:
         """ZeRO++'s quantization telemetry (JAX ``engine.py:590-615``):
@@ -1532,10 +1650,7 @@ class Engine:
         scale = self._loss_scale()
         lr = self.get_lr()[0]
         if self._offload is not None:
-            gnorm, overflow = self._offload.step(
-                tree_map(self._grad_of, self.params), self.params, lr=lr,
-                grad_scale=scale if fp16 else None, skip_on_nonfinite=fp16)
-            gnorm = torch.tensor(gnorm, dtype=torch.float32)
+            gnorm, overflow = self._offload_step(scale if fp16 else None, lr)
         elif self._zenflow is not None:
             gnorm, overflow = self._zenflow_apply(scale if fp16 else None,
                                                   lr)
@@ -1568,6 +1683,8 @@ class Engine:
             kw.update(grad_clip=self.config.gradient_clipping,
                       grad_scale=scale if fp16 else None, skip=overflow)
             if self._client_opt is not None:
+                if self._zero is not None:
+                    grads, kw["publish"] = self._client_whole(grads)
                 gnorm = apply_client_update(self.opt_state, grads,
                                             self._client_opt, self.params,
                                             **kw)
@@ -1641,6 +1758,45 @@ class Engine:
             self._emergency_checkpoint()
         return mean_loss
 
+    def _client_whole(self, grads):
+        """A client optimizer across ranks steps whole leaves on every
+        rank: the reduced gradient blocks gathered whole, and a publish
+        that cuts each updated master to the param's block."""
+        zero = self._zero
+        with torch.no_grad():
+            whole = _map_with_path(lambda path, g: zero.full(path, g),
+                                   grads)
+
+        def publish(path, master, param):
+            param.copy_(zero.block(path, master, "param"))
+
+        return whole, publish
+
+    def _offload_step(self, scale: Optional[float], lr: float):
+        """The host tier's update (JAX ``_offload_apply``): across ranks
+        the accumulated gradients are reduced over the data ranks and cut
+        to this rank's blocks on the card (qgZ's quantized wire where it
+        is on) before they cross to the host, the norm counts each block
+        once, and the updated compute-dtype blocks are gathered as the
+        stage gathers them. Returns (grad norm, overflow)."""
+        fp16 = self.config.fp16.enabled
+        grads = tree_map(self._grad_of, self.params)
+        if self._zero is None:
+            gnorm, overflow = self._offload.step(
+                grads, self.params, lr=lr, grad_scale=scale,
+                skip_on_nonfinite=fp16)
+            return torch.tensor(gnorm, dtype=torch.float32), overflow
+        zero = self._zero
+        grads = self._zero_grads(grads)
+        blocks = self._host_blocks()
+        gnorm, overflow = self._offload.step(
+            grads, blocks, lr=lr, grad_scale=scale, skip_on_nonfinite=fp16,
+            include=zero.owned,
+            reduce=lambda sq: zero.norm_reduce(sq.to(self.device)))
+        if not overflow:
+            self._publish_blocks(blocks)
+        return torch.tensor(gnorm, dtype=torch.float32), overflow
+
     @staticmethod
     def _grad_of(p: torch.Tensor) -> Optional[torch.Tensor]:
         """``p.grad``, or a streamed stack's fp32 host gradient
@@ -1666,9 +1822,22 @@ class Engine:
         leaf the stage did not use (a middle stage's embedding) has no
         gradient: zeros stand in, as every rank joins each reduction."""
         flat = dict(leaves(grads))
+        nccl = comm.get_backend() == "nccl"
         for path, g in flat.items():
             if g is None:
                 flat[path] = self._no_grad(path)
+                continue
+            if nccl and g.device.type == "cpu":
+                # a streamed stack's host gradient: NCCL reduces card
+                # tensors only
+                g = flat[path] = g.to(self.device)
+            if self._host_tier:
+                # the host tiers keep whole gradients through the window:
+                # stage 2's reduce-scatter runs once, at the boundary
+                d = self._zero.scatter_dim(path)
+                if d is not None:
+                    flat[path] = comm.reduce_scatter(g, "fsdp",
+                                                     scatter_dim=d)
         self._zero.reduce(flat)
         out: Dict[str, Any] = {}
         for path, g in flat.items():
@@ -1695,7 +1864,13 @@ class Engine:
         card unless fp16 needs the overflow decision. Returns (grad norm,
         overflow)."""
         grads = tree_map(lambda p: p.grad, self.params)
-        gnorm = global_norm(grads)
+        zero = self._zero
+        if zero is None:
+            gnorm = global_norm(grads)
+        else:  # this rank's blocks of the reduced grads
+            grads = self._zero_grads(grads)
+            gnorm = global_norm(grads, include=zero.owned,
+                                reduce=zero.norm_reduce)
         if scale and scale != 1.0:
             gnorm = gnorm / scale
         coef = torch.tensor(1.0 / (scale or 1.0), dtype=torch.float32,
@@ -1712,7 +1887,12 @@ class Engine:
         if (clip and clip > 0) or (scale and scale != 1.0):
             for _, g in leaves(grads):
                 g.mul_(coef.to(g.dtype))
-        self._zenflow.step(grads, self.params, lr=lr)
+        if zero is None:
+            self._zenflow.step(grads, self.params, lr=lr)
+        else:
+            blocks = self._host_blocks(fill=True)
+            self._zenflow.step(grads, blocks, lr=lr)
+            self._publish_blocks(blocks)
         return gnorm, False
 
     def _emergency_checkpoint(self) -> None:
@@ -2136,12 +2316,21 @@ class Engine:
                                                dtype=np.float32))
             path = "/" + key.replace(".", "/")
             if self._host_tier:
-                (self._zenflow or self._offload).set_full_fp32_param(
-                    path, value)
-                p.copy_(value)
+                tier = self._zenflow or self._offload
+                if self._zero is not None:
+                    with topo.use_mesh(self.mesh):
+                        tier.set_full_fp32_param(
+                            path, self._zero.block(path, value))
+                        p.copy_(self._zero.block(path, value, "param"))
+                else:
+                    tier.set_full_fp32_param(path, value)
+                    p.copy_(value)
             elif self._zero is not None:
                 with topo.use_mesh(self.mesh):
-                    masters[key].copy_(self._zero.block(path, value))
+                    # a client optimizer's masters are whole leaves
+                    masters[key].copy_(
+                        value if self._client_opt is not None
+                        else self._zero.block(path, value))
                     p.copy_(self._zero.block(path, value, "param"))
             elif self._quant_step is not None:
                 p.copy_(value)

@@ -7,7 +7,9 @@ scaled to Adam's RMS (``match_rms``); every other leaf (embeddings, the
 unembedding, norms, biases) gets AdamW, as JAX's ``optax.multi_transform``
 routes them. The Newton-Schulz products are ``torch.matmul`` in fp32,
 batched over the stacked layer dim (JAX computes them outside any Pallas
-kernel).
+kernel). Over ZeRO's fsdp blocks (``blocks``) a rank gathers its block
+of each matrix's momentum update, orthogonalizes the whole matrix and
+keeps its block; the AdamW leaves step their blocks.
 """
 
 from __future__ import annotations
@@ -113,6 +115,11 @@ class Muon(Optimizer):
         mom = st["mu"]
         mom.copy_(self.beta * mom + g)
         eff = self.beta * mom + g if self.nesterov else mom
+        blocks = self.blocks
+        if blocks is not None:
+            # Newton-Schulz reads the whole matrix: the ranks' blocks of
+            # the momentum update gathered, this rank's block kept
+            eff = blocks.whole(path, eff)
         mats = matricize(eff)
         m, n = mats.shape[-2], mats.shape[-1]
         ortho = newton_schulz(mats, self.ns_steps)
@@ -122,6 +129,8 @@ class Muon(Optimizer):
         ortho = ortho * (0.2 * torch.sqrt(torch.tensor(
             float(max(m, n)), dtype=torch.float32, device=g.device)))
         upd = ortho.reshape(eff.shape)
+        if blocks is not None:
+            upd = blocks.block(path, upd)
         if self.weight_decay:
             upd = upd + self.weight_decay * master
         master.add_(upd * -lr)

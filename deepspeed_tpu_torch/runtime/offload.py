@@ -1,14 +1,21 @@
-"""ZeRO-Offload on one card: host fp32 masters and moments, stepped by
-the native CPU optimizer (port of ``deepspeed_tpu/runtime/offload.py``).
+"""ZeRO-Offload: host fp32 masters and moments, stepped by the native
+CPU optimizer (port of ``deepspeed_tpu/runtime/offload.py``).
 
 The card computes the gradients in the compute dtype; the fp32 masters
 and the optimizer moments live on the host (``offload_optimizer.device
 "cpu"``) or in files on a local disk (``"nvme"``). At world size 1 each
-leaf is one shard. One ``step``:
+leaf is one shard. Across ranks each rank holds the host state of its
+own ZeRO block of every leaf (the engine hands it the blocks of
+``runtime/zero.ZeroPartition``, JAX's unique addressable shards), steps
+only those, and the engine gathers the updated compute-dtype blocks as
+the stage gathers them. One ``step``:
 
   1. the global gradient norm, on the card in fp32, one chunk at a time,
      with one host sync (JAX sums the host copies in double: the two
-     differ at rounding level, ROADMAP C);
+     differ at rounding level, ROADMAP C); across ranks each element is
+     counted once, on the rank that owns it (``include``, JAX's
+     ``_owned_keys``), and the ranks' sums of squares are summed
+     (``reduce``);
   2. one coefficient that applies the loss-scale unscaling and the clip
      (``clip / (gnorm + 1e-6)`` where the norm exceeds the clip), and the
      fp16-only overflow skip (a non-finite norm leaves everything as it
@@ -43,7 +50,8 @@ masters and moments are never pinned (96 GB at 8 B parameters may
 exceed the lock limit).
 
 On the NVMe tier each leaf's master and moments are three files of a
-``TensorSwapStore`` under ``<nvme_path>/dstpu_opt_swap_<pid>/rank0``;
+``TensorSwapStore`` under ``<nvme_path>/dstpu_opt_swap_<pid>/rank<r>``
+(one directory a rank, as JAX's ``rank<process_index>``);
 a step reads each chunk's ranges into page-aligned buffers, steps them
 and writes them back, so the resident optimizer state is one chunk. Both
 tiers run the same native step on the same values in the same order:
@@ -91,7 +99,7 @@ class HostOffloadOptimizer:
                  grad_clip: float = 0.0, nvme_path: Optional[str] = None,
                  buffer_count: int = 4, pin_memory: bool = False,
                  grad_transfer_dtype: str = "fp32",
-                 chunk_elems: int = CHUNK_ELEMS):
+                 chunk_elems: int = CHUNK_ELEMS, rank: int = 0):
         require_native_lib()  # no numpy fallback: fail here, loudly
         optimizer_params = dict(optimizer_params or {})
         self.lr = float(optimizer_params.pop("lr", 1e-3))
@@ -115,7 +123,7 @@ class HostOffloadOptimizer:
         self._swap: Optional[TensorSwapStore] = None
         if nvme_path:
             self.swap_folder = os.path.join(
-                nvme_path, f"dstpu_opt_swap_{os.getpid()}", "rank0")
+                nvme_path, f"dstpu_opt_swap_{os.getpid()}", f"rank{rank}")
             self._swap = TensorSwapStore(self.swap_folder)
         self._moments_on_disk: set = set()
 
@@ -186,14 +194,17 @@ class HostOffloadOptimizer:
             self._stream = torch.cuda.Stream(device)
 
     @torch.no_grad()
-    def grad_norm(self, grads: Tree, grad_scale: Optional[float] = None
-                  ) -> float:
+    def grad_norm(self, grads: Tree, grad_scale: Optional[float] = None,
+                  include=None, reduce=None) -> float:
         """The global L2 norm of the unscaled grads as they cross to the
         host (cast to the transfer dtype): squares summed in fp32 on the
         grads' device, ``CHUNK_ELEMS`` at a time (whatever the staging
-        chunk), read once."""
+        chunk), read once. ``include(path)`` picks the leaves this rank
+        counts and ``reduce`` sums the ranks' fp32 sums (across ranks)."""
         total = None
-        for _, g in leaves(grads):
+        for path, g in leaves(grads):
+            if include is not None and not include(path):
+                continue
             flat = g.detach().reshape(-1)
             for part in flat.split(CHUNK_ELEMS):
                 if part.device.type == "cpu" and self._host_leaves:
@@ -205,6 +216,11 @@ class HostOffloadOptimizer:
                     x = part.to(self.xfer_dtype).float()
                     sq = torch.sum(x * x)
                 total = sq if total is None else total + sq.to(total.device)
+        if total is None:
+            dev = next(g.device for _, g in leaves(grads))
+            total = torch.zeros((), dtype=torch.float32, device=dev)
+        if reduce is not None:
+            total = reduce(total.float())
         sq = float(total)
         if grad_scale and grad_scale != 1.0:
             sq /= grad_scale ** 2
@@ -213,10 +229,13 @@ class HostOffloadOptimizer:
     @torch.no_grad()
     def step(self, grads: Tree, params: Tree, lr: Optional[float] = None,
              grad_scale: Optional[float] = None,
-             skip_on_nonfinite: bool = False) -> Tuple[float, bool]:
+             skip_on_nonfinite: bool = False, include=None,
+             reduce=None) -> Tuple[float, bool]:
         """One update: the masters and moments in place, and ``params``
-        (the engine's compute params, same tree) recast from the masters
-        in place. Returns (grad norm, overflow)."""
+        (the engine's compute params, same tree; this rank's blocks
+        across ranks) recast from the masters in place. ``include`` and
+        ``reduce`` make the norm global across ranks (``grad_norm``).
+        Returns (grad norm, overflow)."""
         lr = self.lr if lr is None else float(lr)
         flat_g, flat_p = dict(leaves(grads)), dict(leaves(params))
         if sorted(flat_g) != sorted(self.optimizers):
@@ -230,7 +249,7 @@ class HostOffloadOptimizer:
             # the backward's tail finishes here, so "norm" times the norm
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        gnorm = self.grad_norm(grads, grad_scale)
+        gnorm = self.grad_norm(grads, grad_scale, include, reduce)
         norm_s = time.perf_counter() - t0
         coef = 1.0
         if grad_scale and grad_scale != 1.0:

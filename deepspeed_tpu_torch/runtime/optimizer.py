@@ -76,6 +76,55 @@ def _f32(x: float, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
+class MasterBlocks:
+    """Where the masters are ZeRO's blocks of their leaves over the
+    ``axis`` ranks (``dims``: each leaf path's block dim, or None): what
+    an optimizer whose step reads a whole leaf needs to keep JAX's global
+    semantics on a block. A norm or a mean sums the ranks' partial sums
+    (one all-reduce of a few scalars or of a row, never the leaf);
+    ``whole`` and ``block`` gather a leaf and cut it back."""
+
+    def __init__(self, dims: Dict[str, Optional[int]], count: int,
+                 axis: str = "fsdp"):
+        self.dims, self.count, self.axis = dict(dims), int(count), axis
+
+    def dim(self, path: str) -> Optional[int]:
+        return self.dims.get(path) if self.count > 1 else None
+
+    def full_shape(self, path: str, t: torch.Tensor) -> Tuple[int, ...]:
+        shape = list(t.shape)
+        d = self.dim(path)
+        if d is not None:
+            shape[d] *= self.count
+        return tuple(shape)
+
+    def total(self, path: str, partial: torch.Tensor) -> torch.Tensor:
+        """``partial`` (this rank's sums) summed over the ranks where the
+        leaf is cut, else as it is."""
+        if self.dim(path) is None:
+            return partial
+        from deepspeed_tpu_torch import comm
+
+        return comm.all_reduce(partial, self.axis)
+
+    def whole(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        d = self.dim(path)
+        if d is None:
+            return t
+        from deepspeed_tpu_torch import comm
+
+        return comm.all_gather(t.contiguous(), self.axis, gather_dim=d)
+
+    def block(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        d = self.dim(path)
+        if d is None:
+            return t
+        from deepspeed_tpu_torch import comm
+
+        size = t.shape[d] // self.count
+        return t.narrow(d, comm.axis_index(self.axis) * size, size)
+
+
 @dataclass
 class Optimizer:
     """One optax transform as per-leaf steps on fp32 masters. ``lr`` is a
@@ -86,6 +135,16 @@ class Optimizer:
     the update number ``t`` (1 at the first) and the step's lr."""
 
     lr: Union[float, Callable[[int], float]]
+    # set by the engine where the masters are ZeRO blocks and the step
+    # reads whole leaves (Lamb, Adafactor, Muon)
+    blocks = None
+
+    def state_dim(self, path: str, name: str, dim: Optional[int]
+                  ) -> Optional[int]:
+        """The dim of state ``name`` of ``path`` that is cut where the
+        master is cut along ``dim`` (None: the state is whole on every
+        rank): master-shaped state is cut as the master."""
+        return dim
 
     def lr_at(self, count: int) -> float:
         return float(self.lr(count)) if callable(self.lr) else float(self.lr)
@@ -219,7 +278,13 @@ class Lamb(Optimizer):
         upd = mu_hat / (torch.sqrt(nu_hat) + self.eps)
         if self.weight_decay:
             upd = upd + master * self.weight_decay
-        p_norm, u_norm = _safe_norm(master), _safe_norm(upd)
+        if self.blocks is not None and self.blocks.dim(path) is not None:
+            # the whole leaf's norms from the ranks' sums of squares
+            sq = self.blocks.total(path, torch.stack(
+                [torch.sum(master * master), torch.sum(upd * upd)]))
+            p_norm, u_norm = torch.sqrt(sq[0]), torch.sqrt(sq[1])
+        else:
+            p_norm, u_norm = _safe_norm(master), _safe_norm(upd)
         ratio = torch.where((p_norm == 0) | (u_norm == 0),
                             torch.ones_like(p_norm), p_norm / u_norm)
         master.add_((upd * ratio).mul_(-lr))
@@ -254,8 +319,38 @@ class Adafactor(Optimizer):
     CLIPPING_THRESHOLD = 1.0
     EPS = 1e-30
 
+    def _full_shape(self, path, master):
+        if self.blocks is None:
+            return tuple(master.shape)
+        return self.blocks.full_shape(path, master)
+
+    def state_dim(self, path, name, dim):
+        dims = self.__dict__.get("_factored", {}).get(path)
+        if dim is None or name == "v" or dims is None:
+            return dim
+        d1, d0 = dims
+        gone = d0 if name == "v_row" else d1
+        if dim == gone:
+            return None  # the mean over the cut dim: whole on every rank
+        return dim - 1 if dim > gone else dim
+
+    def _mean(self, path, x, dim, full_len, cut):
+        """``x.mean(dim)`` over the whole leaf: the ranks' sums where
+        ``dim`` is the cut one."""
+        if dim != cut:
+            return x.mean(dim=dim)
+        return self.blocks.total(path, x.sum(dim=dim)) / full_len
+
+    def _rms(self, path, x, numel):
+        """The whole leaf's root mean square."""
+        if self.blocks is None or self.blocks.dim(path) is None:
+            return torch.sqrt(torch.mean(x * x))
+        return torch.sqrt(self.blocks.total(path, torch.sum(x * x)) / numel)
+
     def init_leaf(self, path, master):
-        dims = factored_dims(tuple(master.shape))
+        dims = factored_dims(self._full_shape(path, master))
+        if dims is not None:
+            self.__dict__.setdefault("_factored", {})[path] = dims
         if dims is None:
             return {"v": torch.zeros_like(master)}
         d1, d0 = dims
@@ -270,15 +365,24 @@ class Adafactor(Optimizer):
         decay = 1.0 - _f32(float(t), dev) ** (-self.DECAY_RATE)
         keep = 1.0 - decay
         grad_sqr = g * g + self.EPS
-        dims = factored_dims(tuple(master.shape))
+        full = self._full_shape(path, master)
+        cut = None if self.blocks is None else self.blocks.dim(path)
+        dims = factored_dims(full)
         if dims is not None:
             d1, d0 = dims
-            v_row = decay * st["v_row"] + keep * grad_sqr.mean(dim=d0)
-            v_col = decay * st["v_col"] + keep * grad_sqr.mean(dim=d1)
+            v_row = decay * st["v_row"] + keep * self._mean(
+                path, grad_sqr, d0, full[d0], cut)
+            v_col = decay * st["v_col"] + keep * self._mean(
+                path, grad_sqr, d1, full[d1], cut)
             st["v_row"].copy_(v_row)
             st["v_col"].copy_(v_col)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            row_cut = self.state_dim(path, "v_row", cut)
+            if row_cut == reduced_d1:
+                row_col_mean = (self.blocks.total(path, v_row.sum(
+                    dim=reduced_d1, keepdim=True)) / full[d1])
+            else:
+                row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
             row_factor = (v_row / row_col_mean) ** -0.5
             col_factor = v_col ** -0.5
             u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -286,10 +390,11 @@ class Adafactor(Optimizer):
             v = decay * st["v"] + keep * grad_sqr
             st["v"].copy_(v)
             u = g * v ** -0.5
-        rms = torch.sqrt(torch.mean(u * u))
+        numel = int(np.prod(full))
+        rms = self._rms(path, u, numel)
         u = u / torch.clamp(rms / self.CLIPPING_THRESHOLD, min=1.0)
         u = u * lr
-        rms = torch.sqrt(torch.mean(master * master))
+        rms = self._rms(path, master, numel)
         u = u * torch.clamp(rms, min=1e-3)  # safe_root_mean_squares
         master.add_(u.neg_())
 

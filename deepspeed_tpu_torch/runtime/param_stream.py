@@ -37,7 +37,13 @@ model's serialized mode) copies on the compute stream, right before the
 layer, with no overlap. :func:`pin_stage` is JAX's scheduling barrier;
 an eager program issues each copy where the code stands, before the
 layer's compute, so it is the identity here, and JAX's
-``overlap_depth`` has nothing to place.
+``overlap_depth`` has nothing to place on the host stream.
+
+At ZeRO stage 3 over fsdp ranks :func:`resident_layers_prefetch` is
+JAX's stage-3 resident overlap (``performance.overlap_depth``): the
+same engine over the card-resident block stack, with the per-layer fsdp
+gather as the fetch and the per-layer reduce-scatter as the gradient
+sink (``runtime/sharding.fsdp_gather_layer`` / ``fsdp_scatter_grads``).
 """
 
 from __future__ import annotations
@@ -56,8 +62,13 @@ from deepspeed_tpu_torch.utils import memspace
 FETCH_STATS = {"layers": 0, "bytes": 0}
 
 
+# layer gathers of the stage-3 overlap stream since the last reset
+RESIDENT_STATS = {"gathers": 0}
+
+
 def reset_fetch_stats() -> None:
     FETCH_STATS.update(layers=0, bytes=0)
+    RESIDENT_STATS.update(gathers=0)
 
 
 def _count(host) -> None:
@@ -205,10 +216,18 @@ def scan_streamed(body: Callable[[Any, Any], Any], carry: Any,
 
 
 class _StreamSpec:
-    def __init__(self, layer_fn, paths, length, depth, device):
+    def __init__(self, layer_fn, paths, length, depth, device, whole=None,
+                 sink=None):
         self.layer_fn, self.paths = layer_fn, paths
         self.L, self.D = length, depth
         self.device = device
+        # a host stack of ZeRO-3 blocks: a fetched layer's blocks made
+        # whole (the fsdp gather) and its gradient cut back to them
+        self.whole = whole or (lambda tree: tree)
+        self.sink = sink or (lambda tree: tree)
+
+    def layer(self, ready) -> Any:
+        return self.whole(_unflatten(self.paths, ready))
 
 
 def _issue(spec: _StreamSpec, stack, i: int):
@@ -239,7 +258,7 @@ class _Streamed(torch.autograd.Function):
                 # copy overlaps it
                 bufs.append(_issue(spec, stack, i + D))
             xs.append(x)
-            x = spec.layer_fn(x, _unflatten(spec.paths, _ready(cur)))
+            x = spec.layer_fn(x, spec.layer(_ready(cur)))
         ctx.spec = spec
         ctx.save_for_backward(*xs)
         # the stacks themselves, not what a checkpoint's unpacking hands
@@ -261,13 +280,16 @@ class _Streamed(torch.autograd.Function):
                 bufs.append(_issue(spec, stack, order[n + D]))
             with torch.enable_grad():
                 x = xs[i].detach().requires_grad_()
-                ps = [p.requires_grad_() for p in _ready(cur)]
+                ps = [p.requires_grad_() for _, p in
+                      _flatten(spec.layer(_ready(cur)))]
                 y = spec.layer_fn(x, _unflatten(spec.paths, ps))
                 got = torch.autograd.grad(y, [x] + ps, gy,
                                           allow_unused=True)
             gy = got[0]
             dps = [torch.zeros_like(p) if g is None else g
                    for g, p in zip(got[1:], ps)]
+            dps = [g for _, g in _flatten(spec.sink(
+                _unflatten(spec.paths, dps)))]
             # layer i's gradients leave while layer i-1 recomputes
             pending += [_land(t, i, g) for t, g in zip(stack, dps)]
         for p in pending:
@@ -280,7 +302,8 @@ def streamed_layers_prefetch(layer_fn: Callable[..., Any],
                              stacked_tree: Any, x: torch.Tensor,
                              length: Optional[int] = None,
                              extra: tuple = (),
-                             prefetch_depth: int = 1) -> torch.Tensor:
+                             prefetch_depth: int = 1, whole=None,
+                             sink=None) -> torch.Tensor:
     """ZeRO-Infinity layer streaming with explicit prefetch (JAX's
     DeepCompile-prefetch analog): ``layer_fn(x, layer_params, *extra)``
     over a host ``[L, ...]`` stacked tree, ``prefetch_depth`` layers in
@@ -288,7 +311,11 @@ def streamed_layers_prefetch(layer_fn: Callable[..., Any],
     ``nothing_saveable`` policy; the card holds the layers in flight, one
     layer's transient gradients and the L layer inputs. Each layer's
     gradients go to the stacks' host buffers (:func:`host_grad`) inside
-    the backward. ``extra`` must not need gradients."""
+    the backward. ``extra`` must not need gradients. A host stack of
+    ZeRO-3 blocks (offload_param across ranks) passes ``whole`` (a
+    fetched layer's blocks gathered, ``runtime/sharding.
+    fsdp_gather_layer``) and ``sink`` (its gradient reduce-scattered
+    back, ``fsdp_scatter_grads``) before the blocks' gradients land."""
     flat = _flatten(stacked_tree)
     if length is None:
         length = flat[0][1].shape[0]
@@ -297,8 +324,92 @@ def streamed_layers_prefetch(layer_fn: Callable[..., Any],
     def fn(xx, params):
         return layer_fn(xx, params, *extra)
 
-    spec = _StreamSpec(fn, [p for p, _ in flat], length, depth, x.device)
+    spec = _StreamSpec(fn, [p for p, _ in flat], length, depth, x.device,
+                       whole, sink)
     return _Streamed.apply(spec, x, *[t for _, t in flat])
+
+
+class _Resident(torch.autograd.Function):
+    """The stage-3 overlap stream over a resident ``[L, ...]`` block
+    stack (JAX's ``streamed_layers_prefetch`` with ``fetch`` the per-layer
+    fsdp gather and ``grad_sink`` the per-layer reduce-scatter): the
+    forward issues layer i + depth's gather before layer i's compute and
+    saves each layer's input; the backward gathers each layer again,
+    recomputes and differentiates it, and sinks its gradient to this
+    rank's blocks at once, which become the stack's gradient."""
+
+    @staticmethod
+    def forward(ctx, spec, x, *stack):
+        L, D = spec.L, spec.D
+        tree = _unflatten(spec.paths, list(stack))
+        bufs = deque(spec.fetch(tree, i) for i in range(min(D, L)))
+        xs = []
+        for i in range(L):
+            cur = bufs.popleft()
+            if i + D < L:
+                bufs.append(spec.fetch(tree, i + D))
+            xs.append(x)
+            x = spec.layer_fn(x, cur)
+        ctx.spec = spec
+        ctx.save_for_backward(*xs, *stack)
+        return x
+
+    @staticmethod
+    def backward(ctx, gy):
+        spec = ctx.spec
+        L, D = spec.L, spec.D
+        saved = ctx.saved_tensors
+        xs, stack = saved[:L], saved[L:]
+        tree = _unflatten(spec.paths, list(stack))
+        grads = [torch.zeros_like(t) for t in stack]
+        order = list(range(L - 1, -1, -1))
+        bufs = deque(spec.fetch(tree, i) for i in order[:D])
+        for n, i in enumerate(order):
+            cur = bufs.popleft()
+            if n + D < L:
+                bufs.append(spec.fetch(tree, order[n + D]))
+            flat = _flatten(cur)
+            with torch.enable_grad():
+                x = xs[i].detach().requires_grad_()
+                ps = [t.requires_grad_() for _, t in flat]
+                y = spec.layer_fn(x, _unflatten(spec.paths, ps))
+                got = torch.autograd.grad(y, [x] + ps, gy,
+                                          allow_unused=True)
+            gy = got[0]
+            dps = [torch.zeros_like(p) if g is None else g
+                   for g, p in zip(got[1:], ps)]
+            sunk = _flatten(spec.grad_sink(_unflatten(spec.paths, dps)))
+            for acc, (_, g) in zip(grads, sunk):
+                acc[i] = g
+        return (None, gy, *grads)
+
+
+def resident_layers_prefetch(layer_fn: Callable[..., Any],
+                             stacked_tree: Any, x: torch.Tensor, *,
+                             fetch: Callable[[Any, int], Any],
+                             grad_sink: Callable[[Any], Any],
+                             length: Optional[int] = None,
+                             prefetch_depth: int = 1) -> torch.Tensor:
+    """The overlap engine on a resident stack (JAX's stage-3 branch of
+    ``streamed_layers_prefetch``, ``models/transformer.py:831-850``):
+    ``fetch(stacked_tree, i)`` gives layer i's whole params (the fsdp
+    gather), ``grad_sink(layer_grads)`` its gradient as this rank's
+    blocks (the reduce-scatter). Layer i + ``prefetch_depth``'s gather is
+    issued before layer i's compute; per-layer recompute. The values are
+    those of the remat'd layer loop under the stage-3 fetch hook: the
+    same gathers, layer and reductions, only issued in another order."""
+    flat = _flatten(stacked_tree)
+    if length is None:
+        length = flat[0][1].shape[0]
+    depth = max(1, min(int(prefetch_depth), length))
+    spec = _StreamSpec(layer_fn, [p for p, _ in flat], length, depth,
+                       x.device)
+    def counted(tree, i):
+        RESIDENT_STATS["gathers"] += 1
+        return fetch(tree, i)
+
+    spec.fetch, spec.grad_sink = counted, grad_sink
+    return _Resident.apply(spec, x, *[t for _, t in flat])
 
 
 def pin_to_host(tree: Any, dtype: Optional[torch.dtype] = None) -> Any:
@@ -321,5 +432,6 @@ def pin_to_host(tree: Any, dtype: Optional[torch.dtype] = None) -> Any:
 
 __all__ = ["fetch_slice", "host_layers", "fetch_layer", "HostLayer",
            "host_grad", "clear_host_grad", "pin_stage", "scan_streamed",
-           "streamed_layers_prefetch", "pin_to_host", "FETCH_STATS",
+           "streamed_layers_prefetch", "resident_layers_prefetch",
+           "pin_to_host", "FETCH_STATS", "RESIDENT_STATS",
            "reset_fetch_stats"]

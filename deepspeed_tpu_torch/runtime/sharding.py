@@ -539,6 +539,52 @@ def fsdp_gather_slice(layer_tree: Any, logical_tree: Any,
     return _walk_with_logical(layer_tree, logical_tree, fetch, prefix)
 
 
+def _layer_dim(axes, path: str) -> Optional[int]:
+    """The fsdp dim of one layer's leaf at stage 3 (its z3 rule
+    applied), or None where it stays whole."""
+    rules = TP_RULES + EP_RULES + PP_RULES + FSDP_RULES
+    return fsdp_dim(z3_leaf_spec(path, spec_from_logical(axes, rules)))
+
+
+def fsdp_gather_layer(stack_tree: Any, i: Optional[int],
+                      logical_tree: Any, prefix: str = "/layers") -> Any:
+    """The overlap engine's ``fetch`` at stage 3 (JAX
+    ``fsdp_gather_slice``, ``runtime/sharding.py:665``): layer ``i`` of
+    the resident ``[L, ...]`` block stack (``i`` None: ``stack_tree`` is
+    one layer's blocks already) gathered whole over fsdp, with no
+    autograd record (``fsdp_scatter_grads`` is its backward).
+    ``logical_tree`` holds the per-layer axes (the ``"layers"`` dim
+    dropped)."""
+    def one(t, axes, path):
+        dim = _layer_dim(axes, path)
+        x = t if i is None else t[i]
+        if dim is None or not _gathers():
+            return x.detach()
+        return comm.all_gather(x.detach().contiguous(), "fsdp",
+                               gather_dim=dim)
+
+    with torch.no_grad():
+        return _walk_with_logical(stack_tree, logical_tree, one, prefix)
+
+
+def fsdp_scatter_grads(grads: Any, logical_tree: Any, qgz=None,
+                       prefix: str = "/layers") -> Any:
+    """The overlap engine's ``grad_sink`` at stage 3 (JAX
+    ``fsdp_scatter_grads``, ``runtime/sharding.py:701``): one layer's
+    gradient reduce-scattered back to this rank's blocks (qgZ's reduction
+    where ``qgz(path, axes)`` gives one), as the stage-3 gather's
+    backward does; a leaf that stays whole keeps its gradient."""
+    def one(g, axes, path):
+        dim = _layer_dim(axes, path)
+        if dim is None or not _gathers():
+            return g
+        return _scatter_back(g, dim, "fsdp",
+                             None if qgz is None else qgz(path, axes))
+
+    with torch.no_grad():
+        return _walk_with_logical(grads, logical_tree, one, prefix)
+
+
 class LayerFetch:
     """The stage-3 fetch hook the model's layer loop calls: ``layer``
     gathers one layer's shards, ``leaf`` one top-level leaf at its use
@@ -801,6 +847,16 @@ def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor
 SP = "sp"
 
 
+def fsdp_size() -> int:
+    """The fsdp ranks of the global mesh when its fsdp collectives
+    communicate (1 otherwise)."""
+    mesh = topology._GLOBAL_MESH
+    if mesh is None or mesh.shape.get("fsdp", 1) == 1 or \
+            not mesh.issues("fsdp"):
+        return 1
+    return mesh.shape["fsdp"]
+
+
 def sp_size() -> int:
     """The sp ranks of the global mesh when its sp collectives
     communicate (1 otherwise)."""
@@ -874,7 +930,8 @@ def tp_local(t, dim: Optional[int], full: int, n: int, index: int):
     return t.narrow(dim, index * size, size)
 
 
-__all__ = ["LOGICAL_AXES", "TP_RULES", "FSDP_RULES", "EP_RULES", "PP_RULES",
+__all__ = ["fsdp_size", "fsdp_gather_layer", "fsdp_scatter_grads",
+           "LOGICAL_AXES", "TP_RULES", "FSDP_RULES", "EP_RULES", "PP_RULES",
            "ACT_RULES", "spec_from_logical", "ShardingPlan",
            "make_sharding_plan", "set_z3_leaf_modules",
            "unset_z3_leaf_modules", "get_z3_leaf_modules", "z3_leaf_spec",

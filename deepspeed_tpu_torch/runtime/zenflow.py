@@ -15,8 +15,19 @@ are ahead.
 
 At world size 1 each leaf is one shard: JAX's ``_unique_local_shards``
 and ``_rebuild_global`` are the identity, and ``shard_index`` holds the
-full leaf's index. The schedule is JAX's, step for step. Where JAX
-differs, the port does less work for the same values:
+full leaf's index. Across ranks (``blocks``, one :class:`LeafBlock` a
+leaf: ZeRO's fsdp block of it) every piece of state is this rank's
+block: the host masters, moments and shipped grads, the card's
+accumulator, and the selected coordinates that fall in the block with
+their moments. The selection stays JAX's global top-k over the whole
+leaf: each rank takes its block's top k candidates (their global
+indices: a block keeps the leaf's row-major order), the candidates are
+all-gathered, and each rank merges them by descending value, then
+ascending global index, and keeps the first k that are its own; that is
+``jax.lax.top_k`` of the whole accumulator, ties included. The protected
+set and the fold follow the rank's own coordinates. The schedule is
+JAX's, step for step. Where JAX differs, the port does less work for the
+same values:
 
   * host memory is 16 bytes a parameter (master, two moments, the
     shipped grads): the host pass returns nothing and the fold reads the
@@ -116,6 +127,79 @@ class _AsyncWorker:
         return True
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafBlock:
+    """This rank's block of one leaf: the whole leaf's ``shape``, the
+    dim it is cut along (None: the whole leaf) into ``count`` equal
+    blocks, and this rank's ``index`` among them."""
+
+    shape: Tuple[int, ...]
+    dim: Optional[int] = None
+    index: int = 0
+    count: int = 1
+
+    def _geom(self):
+        d = self.dim
+        inner = int(np.prod(self.shape[d + 1:], dtype=np.int64))
+        length = self.shape[d]
+        return inner, length, length // self.count
+
+    def to_global(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf's flat indices of the block's flat ``local``."""
+        if self.dim is None or self.count == 1:
+            return local
+        inner, length, b = self._geom()
+        o, rem = local // (b * inner), local % (b * inner)
+        j, i = rem // inner, rem % inner
+        return o * (length * inner) + (self.index * b + j) * inner + i
+
+    def split(self, flat: torch.Tensor):
+        """(which of the whole leaf's ``flat`` indices fall in the block,
+        their block indices)."""
+        if self.dim is None or self.count == 1:
+            return torch.ones_like(flat, dtype=torch.bool), flat
+        inner, length, b = self._geom()
+        o, rem = flat // (length * inner), flat % (length * inner)
+        j, i = rem // inner - self.index * b, rem % inner
+        mine = (j >= 0) & (j < b)
+        return mine, (o * (b * inner) + j * inner + i)[mine]
+
+    def to_local(self, flat: torch.Tensor) -> torch.Tensor:
+        """The block's flat indices of the whole leaf's ``flat`` indices
+        that fall in the block (the others dropped, order kept)."""
+        return self.split(flat)[1]
+
+    @classmethod
+    def from_pairs(cls, shape, pairs) -> "LeafBlock":
+        """The block whose ``index_pairs`` are ``pairs``."""
+        for d, ((a, b), n) in enumerate(zip(pairs, shape)):
+            if (a, b) != (0, n):
+                return cls(tuple(shape), d, a // (b - a), n // (b - a))
+        return cls(tuple(shape))
+
+    def index_pairs(self) -> Tuple[Tuple[int, int], ...]:
+        """JAX's ``shard_index``: (start, stop) of the block on each dim."""
+        out = []
+        for d, n in enumerate(self.shape):
+            if d == self.dim and self.count > 1:
+                b = n // self.count
+                out.append((self.index * b, (self.index + 1) * b))
+            else:
+                out.append((0, n))
+        return tuple(out)
+
+
+def merge_topk(values: torch.Tensor, flat: torch.Tensor, k: int
+               ) -> torch.Tensor:
+    """The ``k`` candidates of the largest ``values``, ties by ascending
+    ``flat`` index (``jax.lax.top_k``'s order over the whole leaf):
+    their flat indices, in that order."""
+    by_index = torch.argsort(flat, stable=True)
+    by_value = torch.sort(values[by_index], descending=True,
+                          stable=True).indices
+    return flat[by_index[by_value[:k]]]
+
+
 def topk_indices(a: torch.Tensor, k: int) -> torch.Tensor:
     """The indices of the ``k`` largest entries of the 1-D ``a`` in
     ``jax.lax.top_k``'s order: descending value, and ascending index
@@ -141,10 +225,15 @@ class ZenFlowOptimizer:
 
     def __init__(self, params, config: Optional[ZenFlowConfig] = None,
                  lr: float = 1e-3, device: Optional[torch.device] = None,
-                 chunk_elems: int = CHUNK_ELEMS):
+                 chunk_elems: int = CHUNK_ELEMS,
+                 blocks: Optional[Dict[str, LeafBlock]] = None,
+                 gather=None):
         """``params`` seeds the fp32 masters (pass the fp32 init, so that
         the masters hold it exactly); ``device`` holds the card state
-        (default: the first leaf's device)."""
+        (default: the first leaf's device). Across ranks ``params`` are
+        this rank's blocks, ``blocks`` maps each leaf path to its
+        :class:`LeafBlock` and ``gather`` all-gathers a 1-D tensor over
+        the ranks that share the leaves (concatenated in rank order)."""
         require_native_lib()  # no fallback: fail here, loudly
         self.cfg = config or ZenFlowConfig()
         self.lr = float(lr)
@@ -152,8 +241,13 @@ class ZenFlowOptimizer:
         self.paths = [p for p, _ in flat]
         self.shapes = [tuple(t.shape) for _, t in flat]
         self._sizes = [int(np.prod(s)) for s in self.shapes]
-        self._ks = [max(1, int(np.ceil(self.cfg.topk_ratio * n)))
-                    for n in self._sizes]
+        self.blocks = [(blocks or {}).get(p) or LeafBlock(shape)
+                       for p, shape in zip(self.paths, self.shapes)]
+        self._gather = gather
+        # k counts the whole leaf (JAX's ceil(topk_ratio * size))
+        self._ks = [max(1, int(np.ceil(self.cfg.topk_ratio
+                                       * int(np.prod(b.shape)))))
+                    for b in self.blocks]
         self.device = torch.device(device) if device is not None \
             else flat[0][1].device
         self.chunk_elems = max(1, min(int(chunk_elems), max(self._sizes)))
@@ -201,9 +295,13 @@ class ZenFlowOptimizer:
         dev = self.device
         self._acc = [torch.zeros(n, dtype=F32, device=dev)
                      for n in self._sizes]
-        self._idx = [torch.arange(k, device=dev) for k in self._ks]
-        self._m = [torch.zeros(k, dtype=F32, device=dev) for k in self._ks]
-        self._v = [torch.zeros(k, dtype=F32, device=dev) for k in self._ks]
+        # the first k coordinates of the whole leaf (JAX's arange(k))
+        self._idx = [b.to_local(torch.arange(k, device=dev))
+                     for b, k in zip(self.blocks, self._ks)]
+        self._m = [torch.zeros(i.numel(), dtype=F32, device=dev)
+                   for i in self._idx]
+        self._v = [torch.zeros(i.numel(), dtype=F32, device=dev)
+                   for i in self._idx]
         self._sel_step = [0] * len(self._ks)
         # every coordinate selected since the last fold: its grads never
         # reach the host (zeroed at the ship for the current selection,
@@ -251,10 +349,29 @@ class ZenFlowOptimizer:
                 prev = self._protected[i]
                 self._protected[i] = old if prev is None \
                     else torch.cat([prev, old])
-        self._idx[i] = topk_indices(self._acc[i].abs(), self._ks[i])
-        self._m[i] = torch.zeros_like(self._m[i])
-        self._v[i] = torch.zeros_like(self._v[i])
+        self._idx[i] = self._topk(i)
+        self._m[i] = torch.zeros(self._idx[i].numel(), dtype=F32,
+                                 device=self.device)
+        self._v[i] = torch.zeros_like(self._m[i])
         self._sel_step[i] = 0
+
+    def _topk(self, i: int) -> torch.Tensor:
+        """Leaf i's top-k coordinates by |accumulated grad| over the
+        whole leaf, as this rank's block indices: the block's own top-k
+        where the leaf is whole here, else the merge of every rank's
+        candidates (module docstring)."""
+        a, k, blk = self._acc[i].abs(), self._ks[i], self.blocks[i]
+        if blk.count == 1 or blk.dim is None:
+            return topk_indices(a, k)
+        local = topk_indices(a, min(k, a.numel()))
+        values = self._gather(a[local])
+        flat = self._gather(blk.to_global(local))
+        return blk.to_local(merge_topk(values, flat, k))
+
+    def global_indices(self, i: int) -> torch.Tensor:
+        """Leaf i's coordinates selected on this rank, as whole-leaf flat
+        indices."""
+        return self.blocks[i].to_global(self._idx[i])
 
     # -- the host pass -----------------------------------------------------
     def _host_pass(self, lr: float) -> None:
@@ -519,8 +636,7 @@ class ZenFlowOptimizer:
         return {
             "steps": self.steps,
             "masters": [[m] for m in self._masters],
-            "shard_index": [[tuple((0, d) for d in shape)]
-                            for shape in self.shapes],
+            "shard_index": [[b.index_pairs()] for b in self.blocks],
             "host_opt": [[o.state_dict()] for o in self._host_opts],
             "idx": list(self._idx), "m": list(self._m), "v": list(self._v),
             "acc": list(self._acc),
@@ -540,19 +656,24 @@ class ZenFlowOptimizer:
                                  f"'{key}', the optimizer has {n}")
         index = sd.get("shard_index")
         for i in range(n):
-            full = [tuple((0, d) for d in self.shapes[i])]
+            own = [self.blocks[i].index_pairs()]
             if index is not None and [tuple(tuple(int(x) for x in e)
                                             for e in shard)
-                                      for shard in index[i]] != full:
+                                      for shard in index[i]] != own:
                 raise ValueError(
                     f"zenflow state: leaf {self.paths[i]} was saved in "
-                    "shards; one card restores whole leaves only")
+                    "other shards than this rank's block (the checkpoint "
+                    "reslices a save at another world size first)")
+            sel = torch.as_tensor(sd["idx"][i]).numel()
+            if sel > self._ks[i]:
+                raise ValueError(
+                    f"zenflow state: leaf {self.paths[i]} selects {sel} "
+                    f"coordinates, the optimizer keeps {self._ks[i]}")
             checks = ((sd["masters"][i][0], self._sizes[i]),
                       (sd["host_opt"][i][0]["exp_avg"], self._sizes[i]),
                       (sd["host_opt"][i][0]["exp_avg_sq"], self._sizes[i]),
                       (sd["acc"][i], self._sizes[i]),
-                      (sd["idx"][i], self._ks[i]), (sd["m"][i], self._ks[i]),
-                      (sd["v"][i], self._ks[i]))
+                      (sd["m"][i], sel), (sd["v"][i], sel))
             for t, want in checks:
                 if torch.as_tensor(t).numel() != want:
                     raise ValueError(
@@ -589,4 +710,71 @@ class ZenFlowOptimizer:
         self._fold_due = bool(sd.get("fold_due", False))
 
 
-__all__ = ["ZenFlowConfig", "ZenFlowOptimizer", "topk_indices"]
+def reslice_state(sds: List[Dict[str, Any]], blocks: List[LeafBlock]
+                  ) -> Dict[str, Any]:
+    """This rank's state dict (its ``blocks``, one a leaf) from the state
+    dicts every rank of a save at another world size wrote (JAX's
+    ``load_state_dict`` reslice, ``runtime/zenflow.py:516-549``): the
+    masters, host moments and accumulators reassembled whole from their
+    ``shard_index`` and cut to the block; the selections, their moments
+    and the protected sets joined as whole-leaf indices and kept where
+    they fall in the block. A block saved twice (dp replicas) counts
+    once."""
+    first = sds[0]
+    out = {key: first[key] for key in ("steps", "sel_step",
+                                       "updated_since_foldin")}
+    out["fold_due"] = first.get("fold_due", False)
+    for key in ("masters", "shard_index", "host_opt", "idx", "m", "v",
+                "acc", "protected"):
+        out[key] = []
+    for i, blk in enumerate(blocks):
+        shape, n = blk.shape, int(np.prod(blk.shape))
+        whole = {k: torch.zeros(n, dtype=F32) for k in
+                 ("masters", "exp_avg", "exp_avg_sq", "acc")}
+        sel, m, v, prot, seen = [], [], [], [], set()
+        for sd in sds:
+            pairs = tuple(tuple(int(x) for x in e)
+                          for e in sd["shard_index"][i][0])
+            if pairs in seen:
+                continue
+            seen.add(pairs)
+            src = LeafBlock.from_pairs(shape, pairs)
+            cut = tuple(slice(a, b) for a, b in pairs)
+            part = tuple(b - a for a, b in pairs)
+            opt = sd["host_opt"][i][0]
+            for key, t in (("masters", sd["masters"][i][0]),
+                           ("exp_avg", opt["exp_avg"]),
+                           ("exp_avg_sq", opt["exp_avg_sq"]),
+                           ("acc", sd["acc"][i])):
+                whole[key].view(shape)[cut] = torch.as_tensor(
+                    t).float().reshape(part)
+            idx = torch.as_tensor(sd["idx"][i]).long().reshape(-1).cpu()
+            sel.append(src.to_global(idx))
+            m.append(torch.as_tensor(sd["m"][i]).float().reshape(-1).cpu())
+            v.append(torch.as_tensor(sd["v"][i]).float().reshape(-1).cpu())
+            if sd["protected"][i] is not None:
+                prot.append(src.to_global(torch.as_tensor(
+                    sd["protected"][i]).long().reshape(-1).cpu()))
+        mine = tuple(slice(a, b) for a, b in blk.index_pairs())
+
+        def block(t):
+            return t.view(shape)[mine].reshape(-1).clone()
+
+        out["masters"].append([block(whole["masters"])])
+        out["shard_index"].append([blk.index_pairs()])
+        out["host_opt"].append([{
+            "exp_avg": block(whole["exp_avg"]),
+            "exp_avg_sq": block(whole["exp_avg_sq"]),
+            "step": int(first["host_opt"][i][0]["step"])}])
+        out["acc"].append(block(whole["acc"]))
+        keep, local = blk.split(torch.cat(sel))
+        out["idx"].append(local)
+        out["m"].append(torch.cat(m)[keep])
+        out["v"].append(torch.cat(v)[keep])
+        out["protected"].append(
+            blk.to_local(torch.cat(prot)) if prot else None)
+    return out
+
+
+__all__ = ["ZenFlowConfig", "ZenFlowOptimizer", "LeafBlock", "merge_topk",
+           "reslice_state", "topk_indices"]

@@ -48,14 +48,32 @@ def _host_tier(engine):
     return engine._zenflow or engine._offload
 
 
+def _zero(engine):
+    """The engine's ZeRO partition of its masters (None where they are
+    whole: no process group, or a client optimizer's)."""
+    if getattr(engine, "_client_opt", None) is not None:
+        return None
+    return engine._zero
+
+
+def _whole(engine, path: str, block: torch.Tensor) -> torch.Tensor:
+    """A host tier's block of ``path`` made whole across ranks (through
+    the engine's device: NCCL gathers card tensors)."""
+    if engine._zero is None:
+        return block
+    with topology.use_mesh(engine.mesh):
+        return engine._zero.full(path, block.to(engine.device))
+
+
 def safe_get_full_fp32_param(engine, path: str) -> np.ndarray:
     """The whole fp32 master of ``path`` (reference
     tensor_fragment.py:134); offloaded masters are read on the host."""
     path = _norm(path)
     if _host_tier(engine) is not None:
-        return _host(_host_tier(engine).full_fp32_param(path))
+        return _host(_whole(engine, path,
+                            _host_tier(engine).full_fp32_param(path)))
     master = _walk(engine.opt_state.master, path)
-    if engine._zero is None:
+    if _zero(engine) is None:
         return _host(master)
     with topology.use_mesh(engine.mesh):
         return _host(engine._zero.full(path, master))
@@ -78,7 +96,13 @@ def safe_set_full_fp32_param(engine, path: str, value) -> None:
     value = torch.as_tensor(np.asarray(value, dtype=np.float32))
     with torch.no_grad():
         if _host_tier(engine) is not None:
-            _host_tier(engine).set_full_fp32_param(path, value)
+            if engine._zero is not None:
+                with topology.use_mesh(engine.mesh):
+                    _host_tier(engine).set_full_fp32_param(
+                        path, engine._zero.block(path, value))
+                    value = engine._zero.block(path, value, "param")
+            else:
+                _host_tier(engine).set_full_fp32_param(path, value)
             param.copy_(value.to(param.device))
             return
         master = _walk(engine.opt_state.master, path)
@@ -88,7 +112,8 @@ def safe_set_full_fp32_param(engine, path: str, value) -> None:
             param.copy_(master)
             return
         with topology.use_mesh(engine.mesh):
-            master.copy_(engine._zero.block(path, value))
+            master.copy_(value if _zero(engine) is None
+                         else engine._zero.block(path, value))
             param.copy_(engine._zero.block(path, value, "param"))
 
 
@@ -100,7 +125,7 @@ def safe_get_full_optimizer_state(engine, path: str, state_key: str
     path = _norm(path)
     if _host_tier(engine) is not None:
         got = _host_tier(engine).full_optimizer_state(path, state_key)
-        return None if got is None else _host(got)
+        return None if got is None else _host(_whole(engine, path, got))
     trees = engine.opt_state.named_trees()
     master = _walk(engine.opt_state.master, path)
     for name in _STATE_ALIAS.get(state_key, (state_key,)):
@@ -110,7 +135,7 @@ def safe_get_full_optimizer_state(engine, path: str, state_key: str
             t = _walk(trees[name], path)
         except KeyError:
             continue
-        if engine._zero is None or t.shape != master.shape:
+        if _zero(engine) is None or t.shape != master.shape:
             return _host(t)
         with topology.use_mesh(engine.mesh):
             return _host(engine._zero.full(path, t))

@@ -321,13 +321,17 @@ def test_nvme_placement_warns_and_holds_the_stack_in_host_memory(caplog):
 
 def test_performance_knobs_reach_the_model_config():
     """performance.param_prefetch_depth overrides the model's prefetch
-    depth (JAX engine.py:223-246); overlap_depth parses and places
-    nothing on one card."""
+    depth (JAX engine.py:223-246); overlap_depth reaches the model's
+    config too and places nothing on one card (it acts under a ZeRO-3
+    fetch over fsdp ranks: tests/test_torch_host_tiers.py)."""
     eng = _engine(extra={"performance": {"param_prefetch_depth": 3,
                                          "overlap_depth": 1}})
     assert eng.model_config.prefetch_depth == 3
     assert eng.config.performance.overlap_depth == 1
-    assert not hasattr(eng.model_config, "overlap_depth")
+    assert eng.model_config.overlap_depth == 1
+    ps.reset_fetch_stats()
+    eng.train_batch(data_iter(2, seed=3))
+    assert ps.RESIDENT_STATS["gathers"] == 0
     assert _engine().model_config.prefetch_depth == 2
     jeng, *_ = dstpu.initialize(
         model=JaxLM(JaxConfig(**dict(TINY, param_host_offload=True))),

@@ -458,15 +458,16 @@ def test_plan_sequence_parallel_equals_jax(args, kw):
 def test_sp_plan_apply_equals_jax(plan, cfg_kw):
     base = dict(vocab_size=64, hidden_size=32, num_layers=1, num_heads=4,
                 num_kv_heads=2, max_seq_len=128, **cfg_kw)
-    tcfg = TransformerConfig(**base)
-    # JAX's explicit config names an overlap_depth too; the port has no
-    # such field (the fsdp overlap branch is ROADMAP queue A item 3's)
-    jcfg = JaxConfig(**base, **({"overlap_depth": 1} if cfg_kw else {}))
+    # the explicit config names an overlap_depth too (both configs have
+    # the field: the stage-3 overlap stream), which the plan's hint leaves
+    over = {"overlap_depth": 1} if cfg_kw else {}
+    tcfg = TransformerConfig(**base, **over)
+    jcfg = JaxConfig(**base, **over)
     tout = tsp.SPPlan(**plan).apply(tcfg)
     jout = jsp.SPPlan(**plan).apply(jcfg)
     assert (tout is tcfg) == (jout is jcfg)
     for field in ("sequence_parallel", "sp_mode", "attn_chunks",
-                  "fpdt_host_kv"):
+                  "fpdt_host_kv", "overlap_depth"):
         assert getattr(tout, field) == getattr(jout, field), field
 
 

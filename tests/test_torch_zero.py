@@ -257,10 +257,13 @@ def test_world_one_collectives_match_the_plan(runs, stage):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("offload", "item 5"), ("zenflow", "item 5"), ("moe", "item 9"),
-    ("qgz_offload", "item 5"),
-    ("tp", "item 11"), ("lamb", "item 5"), ("client", "item 5")])
+    ("offload", "item 17"), ("zenflow", "item 17"), ("moe", "item 9"),
+    ("qgz_offload", "item 17"),
+    ("tp", "item 11"), ("lamb", "item 17"), ("client", "item 17"),
+    ("offload_sp", "item 17"), ("zenflow_pp", "item 17")])
 def test_not_ported_across_ranks_raises(runs, case, item):
+    """What runs on dp x fsdp but not yet at tp (the host tiers, qgZ with
+    them, Lamb, a client optimizer) raises there, naming its item."""
     for out in runs["port"][2]:
         msg = out["raises"][case]
         if case in ("tp", "moe"):

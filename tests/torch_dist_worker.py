@@ -137,25 +137,35 @@ def mode_raises(inp, rank, world, out):
     its ROADMAP item."""
     from deepspeed_tpu_torch.models import zoo
 
+    tp = {"tp": world, "dp": 1}
+    # the host tiers and the whole-leaf optimizers run on dp x fsdp; at
+    # tp they raise
     cases = {
         "offload": lambda: _engine(inp, 3, extra={"zero_optimization": {
-            "stage": 3, "offload_optimizer": {"device": "cpu"}}}),
+            "stage": 3, "offload_optimizer": {"device": "cpu"}}},
+            topology=tp),
         "zenflow": lambda: _engine(inp, 3, extra={"zero_optimization": {
             "stage": 3, "offload_optimizer": {"device": "cpu"},
-            "zenflow": {"topk_ratio": 0.1}}}),
+            "zenflow": {"topk_ratio": 0.1}}}, topology=tp),
         "moe": lambda: _engine(inp, 3, model=zoo.get_model(
             "tiny-moe", device="cpu", dtype=torch.float32,
             vocab_size=256, hidden_size=64, num_layers=1, num_heads=4,
             max_seq_len=64), extra={"moe": {"enabled": True}},
             topology={"tp": world, "dp": 1}),
         "tp": lambda: _engine(inp, 3, topology={"tp": world, "dp": 1}),
-        # qgZ beside the host optimizer across ranks waits with the tiers
         "qgz_offload": lambda: _engine(inp, 3, extra={"zero_optimization": {
             "stage": 3, "zero_quantized_gradients": True,
-            "offload_optimizer": {"device": "cpu"}}}),
+            "offload_optimizer": {"device": "cpu"}}}, topology=tp),
         "lamb": lambda: _engine(inp, 2, extra={"optimizer": {
-            "type": "lamb", "params": {"lr": 1e-3}}}),
-        "client": lambda: _client_engine(inp),
+            "type": "lamb", "params": {"lr": 1e-3}}}, topology=tp),
+        "client": lambda: _client_engine(inp, topology=tp),
+        "offload_sp": lambda: _engine(inp, 2, extra={"zero_optimization": {
+            "stage": 2, "offload_optimizer": {"device": "cpu"}}},
+            topology={"sp": world, "dp": 1}),
+        "zenflow_pp": lambda: _engine(inp, 2, extra={"zero_optimization": {
+            "stage": 2, "offload_optimizer": {"device": "cpu"},
+            "zenflow": {"topk_ratio": 0.1}}},
+            topology={"pp": world, "dp": 1}),
     }
     got = {}
     for name, build in cases.items():
@@ -167,10 +177,10 @@ def mode_raises(inp, rank, world, out):
     out["raises"] = got
 
 
-def _client_engine(inp):
+def _client_engine(inp, **kw):
     model = _port_model(inp)
     opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
-    return _engine(inp, 1, model=model, optimizer=opt)
+    return _engine(inp, 1, model=model, optimizer=opt, **kw)
 
 
 def mode_ckpt(inp, rank, world, out):
@@ -322,6 +332,10 @@ def _run_model(inp, spec):
     from deepspeed_tpu_torch.models.convert import params_from_jax
 
     over = spec.get("model_over", {})
+    if spec.get("model"):  # a model of the run's own (preset, kw, params)
+        preset, kw, params = spec["model"]
+        return _port_model(dict(inp, preset=preset, model_kw=kw,
+                                params=inp["params_by"][params]))
     if spec.get("moe"):
         cfg = zoo.get_config("tiny-moe", dtype=torch.float32,
                              **{**inp["moe_kw"], **over})
@@ -345,15 +359,29 @@ def mode_engines(inp, rank, world, out):
     from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
 
     res = {}
+    from deepspeed_tpu_torch.runtime import param_stream
+
     for spec in inp["runs"]:
         if world not in spec.get("worlds", (world,)):
             continue
         telemetry.reset()
+        param_stream.reset_fetch_stats()
         config = {**inp["config"], **spec["config"],
                   "comms_logger": {"enabled": True}}
+        off = config.get("zero_optimization", {}).get("offload_optimizer")
+        if off and off.get("nvme_path") == "@nvme":  # one path a run
+            config["zero_optimization"] = dict(
+                config["zero_optimization"], offload_optimizer=dict(
+                    off, nvme_path=os.path.join(inp["workdir"],
+                                                "nvme_" + spec["name"])))
+        topology = spec.get("topology") or inp.get("topology")
+        kw = {}
+        if spec.get("client"):  # a client torch.optim.AdamW at this lr
+            kw["optimizer"] = lambda ps: torch.optim.AdamW(
+                ps, lr=spec["client"])
         engine, *_ = deepspeed_tpu_torch.initialize(
             model=_run_model(inp, spec), config=config, device="cpu",
-            topology=spec.get("topology"))
+            topology=topology, **kw)
         get_comms_logger().reset()
         batches = inp[spec.get("batches", "moe_batches" if spec.get("moe")
                                else "batches")]
@@ -383,8 +411,17 @@ def mode_engines(inp, rank, world, out):
                "flags": {k: bool(getattr(engine, k, False)) for k in
                          ("_zeropp", "_onebit", "_qwz_stage3",
                           "_qgz_stage3")}}
+        rec["resident_gathers"] = param_stream.RESIDENT_STATS["gathers"]
         rec["local_shapes"] = {path: tuple(t.shape)
                                for path, t in leaves(engine.params)}
+        if spec.get("masters"):  # the gathered fp32 masters
+            from deepspeed_tpu_torch.utils import tensor_fragment as tfr
+
+            rec["masters"] = {p.strip("/"): tfr.safe_get_full_fp32_param(
+                engine, p) for p, _ in leaves(engine.params)}
+        tier = engine._zenflow or engine._offload
+        if tier is not None:
+            rec["host"] = _host_tier_record(engine, tier)
         rec["model"] = {k: getattr(engine.model_config, k, None) for k in
                         ("sequence_parallel", "sp_mode", "attn_chunks")}
         if spec.get("moe"):
@@ -397,13 +434,13 @@ def mode_engines(inp, rank, world, out):
                     for _ in range(2)]
             fresh, *_ = deepspeed_tpu_torch.initialize(
                 model=_run_model(inp, spec), config=config, device="cpu",
-                topology=spec.get("topology"))
+                topology=topology, **kw)
             fresh.load_checkpoint(d)
             again = [float(fresh.train_batch(iter(mine[:gas])))
                      for _ in range(2)]
             reseed, *_ = deepspeed_tpu_torch.initialize(
                 model=_run_model(inp, spec), config=config, device="cpu",
-                topology=spec.get("topology"))
+                topology=topology, **kw)
             reseed.load_checkpoint(d, load_optimizer_states=False)
             rec["ckpt"] = {"more": more, "again": again,
                            "reseed_params": reseed.module_state_dict(),
@@ -422,6 +459,27 @@ def mode_engines(inp, rank, world, out):
         res[spec["name"]] = rec
         del engine
     out["engines"] = res
+
+
+def _host_tier_record(engine, tier):
+    """What a host tier holds on this rank: its blocks' shapes, the NVMe
+    swap folder and its files, ZenFlow's counts and selections."""
+    from deepspeed_tpu_torch.runtime import param_stream
+
+    rec = {"step_s": dict(getattr(tier, "last_step_s", {}) or {}),
+           "fetched_layers": param_stream.FETCH_STATS["layers"]}
+    if engine._offload is not None:
+        rec["shapes"] = {p: tuple(s) for p, s in tier.shapes.items()}
+        folder = getattr(tier, "swap_folder", None)
+        if folder is not None:
+            rec["swap_folder"] = folder
+            rec["swap_files"] = len(os.listdir(folder))
+    else:
+        rec["counts"] = dict(tier.counts)
+        rec["shapes"] = dict(zip(tier.paths, tier.shapes))
+        rec["idx"] = {p: tier.global_indices(i).cpu()
+                      for i, p in enumerate(tier.paths)}
+    return rec
 
 
 def _attn_fn(topology, case, rank):
