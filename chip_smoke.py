@@ -320,9 +320,9 @@ Phases, each fatal on failure:
                kernel). 13b: ``init_inference`` over phase 3's model
                (bf16, a 1024-row dense cache) with DSTPU_KERNEL_TABLE at
                13a's table: ``forward`` at B 1 x S 2048 with the dispatch
-               decision printed, and exactly 32 flash launches (all
-               tensor-core) when the bucket won, none (32 dense
-               dispatches) when it lost; ``generate`` on 4 of phase 3's
+               decision printed, and exactly one flash launch a layer
+               (all tensor-core) when the bucket won, none (a dense
+               dispatch a layer) when it lost; ``generate`` on 4 of phase 3's
                prompts cut to 128 tokens, 32 new tokens each: wall,
                tokens/s, TTFT, decode gap, peak memory, dense-cache
                bytes; the streams against ``InferenceEngineV2``'s on the
@@ -389,7 +389,7 @@ Phases, each fatal on failure:
                peak memory. 16b: the same with tiled_logits 8 and
                tiled_mlp 4, losses within 2e-3 of the untiled run, the
                peak drop beside the [B, S, V] fp32 logits' bytes. 16c: 2
-               layers at S 32768, micro 1, tiled_logits 8 (the FPDT
+               layers at S 16384, micro 1, tiled_logits 8 (the FPDT
                chunk count, so the hosted and the tiled vocab head add
                on one grid): one forward and backward through the flash
                path (after a warm-up), attn_chunks 8, that with
@@ -487,23 +487,51 @@ Phases, each fatal on failure:
                (``--host-rank R DIR``) at fsdp 2: 2-layer Llama-3-8B at
                full width, bf16 on fp32 masters, micro 1 a rank x GAS 1
                x 2048 (phase 10a's two sequences as the global batch).
-               20a the cpu offload tier at stage 2 and 20e
-               ``offload_param``'s streamed stack at stage 3, each
-               within 5e-3 of phase 10a's one-rank losses; 20a' the nvme
+               Runs of one step; 20a, 20c, 20e and 20f then take the
+               stepped model's loss on the next batch (``eval_batch``),
+               the loss that the first update moves. 20a the cpu
+               offload tier at stage 2 and 20e ``offload_param``'s
+               streamed stack at stage 3, each within 5e-3 of phase
+               10a's one-rank losses and the first update's loss drop
+               within 10% of 10a's; 20a' the nvme
                tier for one step, equal to 20a's first, in a swap folder
                of each rank's own; 20b dry-run config C's ZenFlow block
                at stage 2, 4 steps, within 5e-3 of the same run at one
                rank in this process and on JAX's ship / fold schedule;
                20c stage 3 with qgZ's int8 wire before the host copy,
-               within rtol 0.05 of 20a, one B6 and one 6b launch a
+               within rtol 0.05 of 20a (its drop within 10% of 20a's),
+               one B6 and one 6b launch a
                quantized reduction the plan implies; 20d stage 3 with
                ``overlap_depth`` 1 against 0 for one step, its loss and
                gradient norm equal (else within 1e-3, recorded), its
                layers gathered by the overlap stream;
                20f Lamb and Muon at stage 2 within 5e-3 of phase 11d's
-               losses. Every run: the ranks' losses equal, the flash
+               losses (the drop within 10%). Every run: the ranks' losses equal, the flash
                launches remat implies, all wgmma; per-rank step walls,
                peak card memory and host RSS printed.
+  21. zeropp 3d — after phase 20, eight processes of this script
+               (``--zpp3d-rank R DIR``) joined by gloo on the card, each
+               first probing gloo's int8 all-gather and all-to-all, its
+               reduce-scatter and the staged send / receive on card
+               tensors: 2-layer Llama-3-8B at full width, bf16 on fp32
+               masters, phase 14's AdamW over its 4 sequences of 2048 a
+               step, each rank building its tp slice (and stage) of the
+               seeded model. 21a dry-run config D (stage-3 qwZ at pp 2 x
+               fsdp 2 x tp 2, micro 1 a data rank x GAS 2); 21b qgZ + qwZ
+               at stage 3 on fsdp 2 x tp 2 x sp 2 (Ulysses, micro 2 x
+               GAS 1); 21c the stage-1 flat step with qgZ + qwZ on dp 4 x
+               tp 2 (micro 1 x GAS 1); each takes the loss over 4
+               sequence tiles. Every run, 2 steps: the 8 ranks' losses
+               equal and within rtol 0.05 of phase 14's exact stage, the
+               first update's loss drop within 10% of phase 14's, no
+               ZeRO++ part disabled, the B6 / 6b launches what the plan
+               implies (qwZ's gathers of each stage pass, qgZ's
+               reductions, the flat step's chunks), the flash launches
+               what remat and the pipeline schedule imply, all wgmma, no
+               measured loss on the dense path; per-rank step walls, peak
+               card memory and host RSS printed (gloo through the host:
+               no wall here speaks for NVLink). Phase 2 checks the flash
+               kernels at a 21b rank's 8 / 8 heads too.
 Each phase's wall is logged as it ends and printed with the run's
 seconds. Then it prints the kernels line, the serve, profile, train, train
 profile, moe serve, moe serve profile, moe train, moe train profile,
@@ -512,7 +540,8 @@ sparse train, checkpoint, offload, offload profile, offload parity,
 offload checkpoint, zenflow, zenflow profile, zenflow blocking, zenflow
 checkpoint, optimizer sweep, spec serve, draft model, verify-shape
 prefill, A4, kernel bench, v1 engine, zero, observability,
-observability serve, a11, zeropp, tp, sp / pp and host tiers lines,
+observability serve, a11, zeropp, tp, sp / pp, host tiers and zeropp
+3d lines,
 the run's
 seconds
 and phase walls,
@@ -571,8 +600,8 @@ NH, NKV, HD, BS = 32, 8, 128, 16
 KV_BLOCKS, MAX_BLOCKS, MAX_SEQS, MAX_TOKENS = 2048, 48, 16, 256
 # the Llama-3-8B serve of phase 3 (and the phases on its model: 7, 8a,
 # 12a-c, 13, 15c, 18a) at full width, cut in depth for the run's time
-# (32 until phase 20 joined)
-SERVE_LAYERS = 16
+# (32 until phase 20 joined, 16 until phase 21 did)
+SERVE_LAYERS = 4
 NEW_TOKENS, DECODE_STEPS, SEED = 64, 8, 0
 FLASH_CASES = {  # B, S, Hq, Hkv, D, causal, segment lengths
     "smoke": (2, 2048, 32, 8, 128, True, None),
@@ -581,6 +610,9 @@ FLASH_CASES = {  # B, S, Hq, Hkv, D, causal, segment lengths
     # a Ulysses sp = 2 rank's heads, KV repeated to the query count, at
     # the whole sequence (phase 19a)
     "sp2": (2, 2048, 16, 16, 128, True, None),
+    # a tp 2 x Ulysses sp 2 rank's heads at the whole sequence, one row
+    # (phase 21b)
+    "tp2sp2": (1, 2048, 8, 8, 128, True, None),
     "odd": (1, 1000, 4, 4, 128, False, (400, 350, 250)),
     "hd64": (2, 300, 8, 2, 64, True, None),
 }
@@ -595,10 +627,10 @@ TRAIN_CONFIG = {
     "gradient_clipping": 1.0,
 }
 # MoE phases: Mixtral-8x7B at full width, cut in depth to fit one card
-# and the run's time (serve: 8 of 32 layers, 11.9 B parameters, 24 GB in
-# bf16, 16 until phase 20 joined; train: 2 layers, 3.17 B parameters x
-# 16 bytes of state)
-MOE_SERVE_LAYERS, MOE_VOCAB = 8, 32000
+# and the run's time (serve: 4 of 32 layers, 6.1 B parameters, 12 GB in
+# bf16; 16 until phase 20 joined, 8 until phase 21 did; train: 2
+# layers, 3.17 B parameters x 16 bytes of state)
+MOE_SERVE_LAYERS, MOE_VOCAB = 4, 32000
 MOE_TRAIN_LAYERS, MOE_TRAIN_MICRO, MOE_TRAIN_GAS = 2, 1, 2
 MOE_TRAIN_CONFIG = dict(TRAIN_CONFIG,
                         train_micro_batch_size_per_chip=MOE_TRAIN_MICRO,
@@ -871,14 +903,15 @@ OBS_FLASH_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel",
 # (AC_KEEPS_FLASH), two where the recompute launches it again. 16b: the
 # same with tiled_logits 8 + tiled_mlp 4, held to 16a's untiled run at
 # JAX's tolerance (tests/test_long_context.py:269). 16c: 2 layers at S
-# 32768, micro 1, tiled_logits FPDT_CHUNKS in every run (the hosted
-# loss sums the vocab head over the residual's chunks: on the same grid
-# as the tiled loss's tiles, the two add the same bf16 partial sums);
-# one forward and backward each through the flash path, attn_chunks 8,
-# that with fpdt_host_kv and that with fpdt_host_residual. Against the
-# flash run (the chunked paths round the scores to bf16 as the dense
-# path does): the loss within FPDT_LOSS_TOL_REL and each gradient leaf's
-# cosine at least FPDT_GRAD_COS_MIN (the card read 1.4e-6 and 0.9999);
+# FPDT_SEQ (32768 until phase 21 joined: the run's time limit), micro 1,
+# tiled_logits FPDT_CHUNKS in every run (the hosted loss sums the vocab
+# head over the residual's chunks: on the same grid as the tiled loss's
+# tiles, the two add the same bf16 partial sums); one forward and
+# backward each through the flash path, attn_chunks 8, that with
+# fpdt_host_kv and that with fpdt_host_residual. Against the flash run
+# (the chunked paths round the scores to bf16 as the dense path does):
+# the loss within FPDT_LOSS_TOL_REL and each gradient leaf's cosine at
+# least FPDT_GRAD_COS_MIN (the card read 1.4e-6 and 0.9999 at S 32768);
 # each FPDT mode against the one it extends (the host moves are exact
 # copies): every gradient leaf within ROADMAP C's bf16 row-error limit.
 # 16d: offload_param on cpu beside the cpu optimizer tier at phase 10a's
@@ -893,7 +926,7 @@ AC_POLICIES = ("nothing_saveable", "dots_saveable", "save_qkv_attn_out",
 AC_KEEPS_FLASH = ("save_qkv_attn_out", "save_attn_mlp", "none")
 AC_LAYERS, AC_STEPS = 2, 3
 TILED_LOGITS, TILED_MLP, TILED_TOL_REL = 8, 4, 2e-3
-FPDT_SEQ, FPDT_CHUNKS = 32768, 8
+FPDT_SEQ, FPDT_CHUNKS = 16384, 8
 FPDT_TILED_LOGITS = FPDT_CHUNKS
 FPDT_GRAD_TOL_ROW = 3e-2
 FPDT_LOSS_TOL_REL, FPDT_GRAD_COS_MIN = 1e-4, 0.999
@@ -4478,17 +4511,28 @@ def zero_phase(torch, zoo, initialize, fa, tf, attn):
 # -- phase 17: ZeRO++, 1-bit Adam, the fp8 MLP and the einsum dispatch --------
 
 
+def flat_step_calls(engine):
+    """The collective calls one direction of the ZeRO++ stage 1-2 step
+    makes a step: one a chunk of each leaf's flat blocks
+    (``runtime/zeropp.flat_chunks``; a vocab leaf takes several)."""
+    from deepspeed_tpu_torch.runtime import zeropp
+
+    zero = engine._zero
+    return sum(len(zeropp.flat_chunks(int(np.prod(shape)), zero.dp))
+               for shape in zero.shapes.values())
+
+
 def quant_expected(torch, tf, sharding, cfg, engine, run, gas, steps):
     """B6 / 6b launches the plan implies over ``steps`` steps (each
     quantize has its dequantize): the ZeRO++ stage 1-2 step quantizes
-    every leaf twice a step (its gradient reduce and its gather, or qar's
-    two hops); qwZ at stage 3 once a gather: the layer leaves that have a
-    block, at each forward and remat replay of each microbatch, and the
-    LM head once a microbatch."""
+    every chunk of every leaf twice a step (its gradient reduce and its
+    gather, or qar's two hops); qwZ at stage 3 once a gather: the layer
+    leaves that have a block, at each forward and remat replay of each
+    microbatch, and the LM head once a microbatch."""
     from deepspeed_tpu_torch.runtime.optimizer import leaves
 
     if run in ("zpp", "qar"):
-        return 2 * len(list(leaves(engine.params))) * steps
+        return 2 * flat_step_calls(engine) * steps
     if run != "qwz3":
         return 0
     rules = (sharding.TP_RULES + sharding.EP_RULES + sharding.PP_RULES
@@ -6459,7 +6503,7 @@ def tp_phase(torch, zoo, initialize, ref_rows, ref_out, moe_first_loss):
     t0 = time.perf_counter()
     ref_losses = tp_train_reference(torch, zoo, initialize)
     ref_s = time.perf_counter() - t0
-    ranks = run_two_ranks("--tp-rank", "tp", arrays=("rows",))
+    ranks = run_ranks("--tp-rank", "tp", arrays=("rows",))
     rows = [r.pop("rows") for r in ranks]
     wall = time.perf_counter() - t0
 
@@ -6809,14 +6853,14 @@ def sp_rank_main(rank, workdir):
     return 0
 
 
-def run_two_ranks(flag, label, arrays=()):
-    """Two processes of this script (``flag R DIR``) on the card: each
+def run_ranks(flag, label, arrays=(), n=2):
+    """``n`` processes of this script (``flag R DIR``) on the card: each
     rank's JSON line (with each ``<name>_R.npy`` it saved, for the names
     in ``arrays``), or a failure with the logs' tails."""
     workdir = tempfile.mkdtemp(prefix="dstpu_%s_" % label.replace("/", "_"))
     procs, logs = [], []
     try:
-        for rank in range(2):
+        for rank in range(n):
             log_f = open(os.path.join(workdir, f"rank{rank}.log"), "w")
             logs.append(log_f)
             procs.append(subprocess.Popen(
@@ -6840,13 +6884,13 @@ def run_two_ranks(flag, label, arrays=()):
         for log_f in logs:
             log_f.close()
     tails = []
-    for rank in range(2):
+    for rank in range(n):
         with open(os.path.join(workdir, f"rank{rank}.log")) as f:
             tails.append(f"--- {label} rank {rank}\n" + f.read()[-4000:])
     if failed is not None:
         fail(f"{label}: {failed}\n" + "\n".join(tails))
     ranks = []
-    for rank in range(2):
+    for rank in range(n):
         with open(os.path.join(workdir, f"out_{rank}.json")) as f:
             ranks.append(json.load(f))
         for name in arrays:
@@ -6861,7 +6905,7 @@ def sp_pp_phase(torch, ref_losses, moe_first_loss):
     the card. Gates on what they measured against 18b's tp-1 reference
     losses and phase 6's first; returns (the line, launches by path)."""
     t0 = time.perf_counter()
-    ranks = run_two_ranks("--sp-rank", "sp/pp")
+    ranks = run_ranks("--sp-rank", "sp/pp")
     wall = time.perf_counter() - t0
     for r in ranks:
         bad = {k: v for k, v in r["gloo_cuda"].items() if v != "ok"}
@@ -6990,18 +7034,25 @@ def sp_pp_phase(torch, ref_losses, moe_first_loss):
 # ffn 14336, vocab 128256), bf16 on fp32 masters, micro 1 a rank x GAS 1
 # x 2048 over phase 4's two fixed sequences (a rank takes its row: the
 # global batch is phase 10a's micro 2). 20a: the cpu offload tier at
-# stage 2; 20a': the nvme tier, one step; 20b: dry-run config C's ZenFlow
+# stage 2; 20a': the nvme tier; 20b: dry-run config C's ZenFlow
 # block (topk 0.05, update_interval 2, select_interval 4, workers 2) at
 # stage 2; 20c: stage 3 with qgZ's int8 wire before the host copy; 20d:
-# stage 3 with overlap_depth 1 against 0 (the device optimizer), one
-# step (its loss and gradient norm); 20e:
+# stage 3 with overlap_depth 1 against 0 (the device optimizer), its
+# loss and gradient norm; 20e:
 # offload_param's streamed stack at stage 3 beside the host optimizer;
 # 20f: Lamb and Muon at stage 2 (phase 11d's lrs). The one-rank
 # references: 10a's losses (20a, 20e: its config and batch at one rank),
 # 11d's (20f), and ZenFlow's run here (20b).
 
 HOST_RANKS = 2
-HOST_LAYERS, HOST_STEPS, HOST_ZEN_STEPS = 2, 2, 4
+# 1 step a run (2 until phase 21 joined: every step is gloo's). The runs
+# of HOST_EVAL_RUNS then take the stepped model's loss on the next
+# step's batch (``engine.eval_batch``): the loss that the first update
+# moves, as a second step's forward would give it, without that step's
+# wire and host optimizer
+HOST_LAYERS, HOST_STEPS, HOST_ZEN_STEPS = 2, 1, 4
+HOST_EVAL_RUNS = ("20a", "20c", "20e", "20f_lamb", "20f_muon")
+HOST_LOSSES = HOST_STEPS + 1  # the losses a reference gate reads
 HOST_BASE = dict(OFFLOAD_CONFIG, train_micro_batch_size_per_chip=1)
 HOST_OFFLOAD = {"device": "cpu", "pin_memory": True}
 HOST_ZENFLOW = {"topk_ratio": 0.05, "update_interval": 2,
@@ -7035,6 +7086,18 @@ HOST_RUNS = {
 # tests/test_qgz_stage3.py rtol), and the overlap's when the card's bits
 # differ from the remat'd loop's
 HOST_LOSS_TOL_REL, HOST_QGZ_RTOL, HOST_OVERLAP_TOL = 5e-3, 5e-2, 1e-3
+# the first update's loss drop against the reference's (phases 20 and
+# 21): at lr 3e-5 phase 10a's update moves the loss by about
+# HOST_LOSS_TOL_REL, so the loss bound alone could not tell a missing or
+# a wrong update
+DROP_RTOL = 0.1
+
+
+def drop_rel_diff(got, want):
+    """How far the first update's loss drop (step 1's loss less step
+    2's) lies from the reference's, relative to the reference's."""
+    ref = want[0] - want[1]
+    return abs((got[0] - got[1]) - ref) / abs(ref)
 
 
 def host_config(run, workdir):
@@ -7098,6 +7161,9 @@ def host_run(torch, zoo, initialize, fa, qz, run, rank, mesh, workdir):
         losses += got
         step_s += wall
         norms.append(float(engine.get_global_grad_norm()))
+    if run in HOST_EVAL_RUNS:
+        with torch.no_grad():
+            losses.append(float(engine.eval_batch(mine[steps % len(mine)])))
     rss, hwm = rss_bytes()
     line = {"losses": losses, "step_s": step_s, "grad_norms": norms,
             "step_ms_p50": float(np.median(step_s)) * 1e3,
@@ -7200,7 +7266,7 @@ def host_phase(torch, zoo, initialize, offload_losses, sweep):
     t0 = time.perf_counter()
     zen_ref = zenflow_reference(torch, zoo, initialize)
     ref_s = time.perf_counter() - t0
-    ranks = run_two_ranks("--host-rank", "host tiers")
+    ranks = run_ranks("--host-rank", "host tiers")
     wall = time.perf_counter() - t0
     for r in ranks:
         bad = {k: v for k, v in r["gloo_cuda"].items() if v != "ok"}
@@ -7215,10 +7281,10 @@ def host_phase(torch, zoo, initialize, offload_losses, sweep):
         return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
     L = HOST_LAYERS
-    refs = {"20a": offload_losses[:HOST_STEPS],
-            "20b": zen_ref["losses"], "20e": offload_losses[:HOST_STEPS],
-            "20f_lamb": sweep["optimizers"]["lamb"]["losses"][:HOST_STEPS],
-            "20f_muon": sweep["optimizers"]["muon"]["losses"][:HOST_STEPS]}
+    refs = {"20a": offload_losses[:HOST_LOSSES],
+            "20b": zen_ref["losses"], "20e": offload_losses[:HOST_LOSSES],
+            "20f_lamb": sweep["optimizers"]["lamb"]["losses"][:HOST_LOSSES],
+            "20f_muon": sweep["optimizers"]["muon"]["losses"][:HOST_LOSSES]}
     line = {"ranks": HOST_RANKS, "mesh": {"fsdp": HOST_RANKS, "dp": 1},
             "backend": ranks[0]["backend"], "layers": f"{L} of 32",
             "micro_per_rank": 1, "gas": 1, "seq": TRAIN_SEQ,
@@ -7252,8 +7318,16 @@ def host_phase(torch, zoo, initialize, offload_losses, sweep):
                 fail(f"host tiers {run}: losses {losses} against the "
                      f"one-rank {refs[run]} ({d:.2e} > "
                      f"{HOST_LOSS_TOL_REL})")
-        want = {"flash_fwd": steps * 2 * L, "flash_bwd_dkdv": steps * L,
-                "flash_bwd_dq": steps * L}
+            dd = drop_rel_diff(losses, refs[run])
+            row["drop_rel_diff"] = dd
+            if dd > DROP_RTOL:
+                fail(f"host tiers {run}: the first update's loss drop "
+                     f"{losses[:2]} against the one-rank {refs[run][:2]} "
+                     f"({dd:.3f} > {DROP_RTOL})")
+        # remat: two forwards a layer a step; the eval one a layer
+        evals = int(run in HOST_EVAL_RUNS)
+        want = {"flash_fwd": (steps * 2 + evals) * L,
+                "flash_bwd_dkdv": steps * L, "flash_bwd_dq": steps * L}
         for rr in runs:
             lc = rr["launches"]
             if {k: lc[k] for k in want} != want:
@@ -7291,10 +7365,12 @@ def host_phase(torch, zoo, initialize, offload_losses, sweep):
     # 20c: qgZ within JAX's rtol of the exact wire, one B6 and one 6b
     # a quantized reduction
     d = rel(runs["20c"]["losses"], runs["20a"]["losses"])
-    runs["20c"]["rel_to_20a"] = d
-    if d > HOST_QGZ_RTOL:
+    dd = drop_rel_diff(runs["20c"]["losses"], runs["20a"]["losses"])
+    runs["20c"].update(rel_to_20a=d, drop_rel_diff_to_20a=dd)
+    if d > HOST_QGZ_RTOL or dd > DROP_RTOL:
         fail(f"host tiers qgz: losses {runs['20c']['losses']} against "
-             f"20a's {runs['20a']['losses']} ({d:.3f} > {HOST_QGZ_RTOL})")
+             f"20a's {runs['20a']['losses']} ({d:.3f} > {HOST_QGZ_RTOL} or "
+             f"the first update's drop {dd:.3f} > {DROP_RTOL})")
     for ql, per in zip(runs["20c"]["quant_launches"],
                        runs["20c"]["qgz_plan_quantizes_per_step"]):
         want_q = per * HOST_STEPS
@@ -7324,7 +7400,8 @@ def host_phase(torch, zoo, initialize, offload_losses, sweep):
         fail(f"host tiers overlap: resident gathers {d1['resident_gathers']}"
              f" (want {want_g} a rank), {d0['resident_gathers']} at depth 0")
     # 20e: the stack streamed from the host, two fetches a layer a step
-    if runs["20e"]["streamed_layers"] != [2 * L * HOST_STEPS] * 2:
+    # and one in the eval
+    if runs["20e"]["streamed_layers"] != [(2 * HOST_STEPS + 1) * L] * 2:
         fail(f"host tiers offload_param: streamed "
              f"{runs['20e']['streamed_layers']} layers")
     line.update(zenflow_reference=zen_ref, reference_s=ref_s,
@@ -7333,7 +7410,368 @@ def host_phase(torch, zoo, initialize, offload_losses, sweep):
     return line, paths
 
 
+# -- phase 21: ZeRO++ on 3D meshes, eight ranks on the card ----------------
+#
+# Eight processes of this script on the card over gloo (phases 18-20's
+# pattern at eight ranks): 2-layer Llama-3-8B at full width (h 4096,
+# 32 / 8 heads, ffn 14336, vocab 128256), bf16 on fp32 masters, phase 14's
+# AdamW (lr 3e-5, clip 1.0) over phase 4's two fixed microbatches (the
+# same 4 sequences of 2048 a step), each rank its rows and (21b) its
+# sequence block. Each rank builds its tp slice (and 21a its stage's
+# layers) of the seeded fp32 model on the card and frees it once the
+# engine holds its blocks: eight ranks share 80 GB. 21a: dry-run config
+# D, stage-3 qwZ at pp 2 x fsdp 2 x tp 2, micro 1 a data rank x GAS 2;
+# 21b: qgZ and qwZ at
+# stage 3 on fsdp 2 x tp 2 x sp 2 (Ulysses: 8 / 8 heads a rank at the
+# whole sequence), micro 2 x GAS 1; 21c: the stage-1 flat step with qgZ
+# and qwZ on dp 4 x tp 2, micro 1 x GAS 1. Each takes the loss over
+# ZPP3D_TILES sequence tiles (``tiled_logits``): a rank's fp32 logits
+# and their gradient did not fit beside the state. The ranks inherit the
+# parent's expandable allocator segments (``main``). Each run ZPP3D_STEPS
+# steps held to phase 14's exact losses at its stage within ZPP_RTOL, and
+# its first update's loss drop to phase 14's within DROP_RTOL.
+
+ZPP3D_RANKS, ZPP3D_STEPS, ZPP3D_TILES = 8, 2, 4
+_QWZ = {"zero_quantized_weights": True}
+_QGZ = {"zero_quantized_gradients": True}
+# run -> (mesh, zero block, micro a data rank, GAS, the model's switches)
+ZPP3D_RUNS = {
+    "21a": ({"pp": 2, "fsdp": 2, "tp": 2, "dp": 1},
+            {"stage": 3, **_QWZ}, 1, 2, {"tiled_logits": ZPP3D_TILES}),
+    "21b": ({"fsdp": 2, "tp": 2, "sp": 2, "dp": 1},
+            {"stage": 3, **_QWZ, **_QGZ}, 2, 1,
+            {"sequence_parallel": True, "tiled_logits": ZPP3D_TILES}),
+    "21c": ({"dp": 4, "tp": 2, "fsdp": 1}, {"stage": 1, **_QWZ, **_QGZ},
+            1, 1, {"tiled_logits": ZPP3D_TILES}),
+}
+
+
+def probe_gloo_zpp3d(torch):
+    """What phase 21's ranks hand gloo on card tensors beside phase 19's
+    all-to-all and staged send / receive: the int8 all-gather (qwZ), the
+    int8 all-to-all (qgZ) and the fp32 reduce-scatter: op -> "ok" or the
+    error's first line."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def gather_i8():
+        y = torch.empty(8 * world, device="cuda", dtype=torch.int8)
+        x = torch.arange(8, device="cuda", dtype=torch.int8) + 8 * rank
+        dist.all_gather_into_tensor(y, x)
+        if not torch.equal(y.cpu(), torch.arange(8 * world).to(torch.int8)):
+            raise AssertionError(f"int8 all_gather gave {y.tolist()}")
+
+    def a2a_i8():
+        src = torch.arange(world, device="cuda", dtype=torch.int8) + rank
+        y = torch.empty(world, device="cuda", dtype=torch.int8)
+        dist.all_to_all_single(y, src)
+        if not torch.equal(y.cpu(), torch.arange(world).to(torch.int8) +
+                           rank):
+            raise AssertionError(f"int8 all_to_all gave {y.tolist()}")
+
+    def scatter():
+        y = torch.empty(1, device="cuda")
+        dist.reduce_scatter_tensor(y, torch.ones(world, device="cuda"))
+        if float(y) != world:
+            raise AssertionError(f"reduce_scatter gave {y.tolist()}")
+
+    out = probe_gloo_sp(torch)
+    for name, op in (("all_gather_int8", gather_i8),
+                     ("all_to_all_int8", a2a_i8),
+                     ("reduce_scatter", scatter)):
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 (recorded, then gated)
+            out[name] = (str(e).strip().splitlines() or [repr(e)])[0][:200]
+        dist.barrier()
+    return out
+
+
+def zpp3d_plan(engine, tf, sharding, qgz_mod, pipeline, steps):
+    """What ``steps`` steps of a phase-21 run imply on this rank: (B6
+    launches, each with its 6b; flash launches by kernel). The flat step
+    quantizes every chunk of every leaf twice a step (its reduce and its
+    gather, ``flat_step_calls``). qwZ at
+    stage 3 quantizes each layer leaf with a block at every pass of the
+    stage's layers (the forward and remat's replay; under pp the stage's
+    M microbatches in the forward, the wave's regeneration and the
+    backward's recompute) and the LM head once a microbatch; qgZ one
+    reduction a microbatch of each leaf with an fsdp-partitioned gradient
+    and a block (``runtime/qgz.leaf_block`` on this rank's tp slice), a
+    layer leaf once a layer."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    cfg, mesh, zero = engine.model_config, engine.mesh, engine._zero
+    gas = engine.gradient_accumulation_steps
+    pp = mesh.shape["pp"]
+    L = cfg.num_layers // pp
+    if pp > 1:
+        B = engine.micro_batch_size * engine.dp_world_size
+        M, _, sched = pipeline.microbatch_plan(B, pp)
+        passes = M * (3 if sched == "waves" else 2)
+        flash = {"flash_fwd": L * passes, "flash_bwd_dkdv": L * M,
+                 "flash_bwd_dq": L * M}
+    else:
+        passes = 2 if cfg.remat else 1
+        flash = {"flash_fwd": L * passes, "flash_bwd_dkdv": L,
+                 "flash_bwd_dq": L}
+    flash = {k: v * gas * steps for k, v in flash.items()}
+    if engine._zeropp:
+        return 2 * flat_step_calls(engine) * steps, flash
+    rules = (sharding.TP_RULES + sharding.EP_RULES + sharding.PP_RULES
+             + sharding.FSDP_RULES)
+    shapes = {p: tuple(v[0]) for p, v in leaves(tf.param_shapes(cfg))}
+    per_mb = 0
+    for path, ax in leaves(tf.logical_axes(cfg)):
+        layer = path.startswith("/layers/")
+        axes = ax[1:] if layer else ax
+        shape = shapes[path][1:] if layer else shapes[path]
+        if engine._qwz_stage3 and (layer or path == "/unembed/kernel"):
+            spec = sharding.spec_from_logical(axes, rules)
+            if sharding.fsdp_dim(spec) is not None and \
+                    sharding.qwz_plan(shape, spec, mesh) is not None:
+                per_mb += L * passes if layer else 1
+        if engine._qgz_stage3:
+            spec = zero.plan.grad_spec(axes)
+            local = [n // (mesh.shape["tp"] if sharding.axis_dim(
+                spec, "tp") == d else 1) for d, n in enumerate(shape)]
+            if sharding.fsdp_dim(spec) is not None and \
+                    qgz_mod.leaf_block(local, spec, mesh) > 1:
+                per_mb += L if layer else 1
+    return per_mb * gas * steps, flash
+
+
+def release_model(torch, model, engine):
+    """The model's storage handed back where the engine holds blocks of
+    its own (clones at fsdp or dp > 1; a leaf that is its own master is
+    kept): eight ranks share the card."""
+    from deepspeed_tpu_torch.runtime.optimizer import leaves
+
+    held = {t.data_ptr() for _, t in leaves(engine.opt_state.master)}
+    for _, t in leaves(model.params()):
+        if t.data_ptr() not in held:
+            t.data = torch.empty(0, dtype=t.dtype, device=t.device)
+    free_caches(torch)
+
+
+def zpp3d_run(torch, zoo, initialize, fa, qz, tf, topo, run):
+    """One run of phase 21 on this rank: losses, step walls, the flash
+    and quantize launches beside what the plan implies, the ZeRO++ flags
+    and counters, the wire by log name, peak card memory and host RSS."""
+    from deepspeed_tpu_torch.parallel import pipeline
+    from deepspeed_tpu_torch.runtime import qgz as qgz_mod
+    from deepspeed_tpu_torch.runtime import sharding
+    from deepspeed_tpu_torch.utils import telemetry
+    from deepspeed_tpu_torch.utils.comms_logging import get_comms_logger
+
+    free_caches(torch)
+    torch.cuda.reset_peak_memory_stats()
+    shape, zero_block, micro, gas, over = ZPP3D_RUNS[run]
+    mesh = topo.build_mesh(shape)
+    pp = shape.get("pp", 1)
+    model = zoo.get_model(
+        "llama3-8b", device="cuda", num_layers=A4_LAYERS,
+        dtype=torch.float32, seed=SEED,
+        tp=(mesh.axis_index("tp"), shape["tp"]),
+        pp=(mesh.axis_index("pp"), pp) if pp > 1 else None, **over)
+    telemetry.reset()
+    engine = initialize(model=model, config=dict(
+        A4_CONFIG, train_micro_batch_size_per_chip=micro,
+        gradient_accumulation_steps=gas, zero_optimization=zero_block,
+        comms_logger={"enabled": True}), mesh=mesh)[0]
+    release_model(torch, model, engine)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    # phase 14's 4 sequences a step, cut into GAS global microbatches and
+    # each rank's rows (and sequence block) of them
+    fixed, _ = fixed_batches(model.config.vocab_size)
+    rows = np.concatenate([b["input_ids"] for b in fixed])
+    per_mb = len(rows) // gas
+    mine = [topo.batch_sharding(mesh).take(
+        {"input_ids": rows[i * per_mb:(i + 1) * per_mb]})
+        for i in range(gas)]
+    want_q, want_flash = zpp3d_plan(engine, tf, sharding, qgz_mod,
+                                    pipeline, ZPP3D_STEPS)
+    logger = get_comms_logger()
+    logger.reset()
+    fa.reset_launch_counts()
+    qz.reset_launch_counts()
+    losses, step_s = timed_train(torch, engine, mine, ZPP3D_STEPS)
+    rss, hwm = rss_bytes()
+    line = {"losses": losses, "step_s": step_s,
+            "step_ms_p50": float(np.median(step_s)) * 1e3,
+            "launches": {**fa.LAUNCHES, **fa.VARIANT_LAUNCHES},
+            "quant_launches": dict(qz.LAUNCHES),
+            "want_quant_launches": want_q, "want_flash": want_flash,
+            "flags": {k: bool(getattr(engine, k)) for k in (
+                "_zeropp", "_qwz_stage3", "_qgz_stage3")},
+            "telemetry": {k: telemetry.get(k) for k in (
+                "zeropp.qwz_disabled", "zeropp.qgz_disabled")},
+            "wire_counts": dict(logger.counts()),
+            "wire_bytes": dict(logger.totals()),
+            "mesh": dict(engine.mesh.shape),
+            "local_rows": int(mine[0]["input_ids"].shape[0]),
+            "local_seq": int(mine[0]["input_ids"].shape[1]),
+            "local_wq": list(engine.params["layers"]["attn"]["wq"].shape),
+            "init_peak_mem_gb": init_peak,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "host_rss_gb": rss / 1e9, "host_rss_peak_gb": hwm / 1e9}
+    del engine, model
+    free_caches(torch)
+    return line
+
+
+def zpp3d_rank_main(rank, workdir):
+    """One rank of phase 21 (``chip_smoke.py --zpp3d-rank R DIR``): joins
+    the gloo group of eight ranks through a file store under DIR, runs
+    21a-c and writes what it measured to DIR/out_R.json."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepspeed_tpu_torch import comm, initialize
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.models import zoo
+    from deepspeed_tpu_torch.ops import attention as attn
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quantization as qz
+    from deepspeed_tpu_torch.parallel import topology as topo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_distributed(
+        dist_backend="gloo", device="cuda", num_processes=ZPP3D_RANKS,
+        process_id=rank, timeout=TP_RANK_TIMEOUT_S,
+        init_method="file://" + os.path.join(workdir, "store"))
+    res = {"rank": rank, "backend": comm.get_backend(),
+           "gloo_cuda": probe_gloo_zpp3d(torch)}
+    try:
+        walls = {}
+        for run in ZPP3D_RUNS:
+            t0 = time.perf_counter()
+            res[run] = zpp3d_run(torch, zoo, initialize, fa, qz, tf, topo,
+                                 run)
+            walls[run] = time.perf_counter() - t0
+            log(f"zpp3d rank {rank} {run}: losses {res[run]['losses']}, "
+                f"{walls[run]:.1f} s, peak {res[run]['peak_mem_gb']:.1f} GB")
+        res["walls_s"] = walls
+        res["dispatch"] = attn.dispatch_stats()
+    finally:
+        with open(os.path.join(workdir, f"out_{rank}.json"), "w") as f:
+            json.dump(res, f)
+        comm.destroy()
+    return 0
+
+
+def zpp3d_phase(torch, zero):
+    """Phase 21 (the parent holds no model): eight ranks of this script on
+    the card. Gates on what they measured against phase 14's exact
+    losses; returns (the line, launches by path)."""
+    t0 = time.perf_counter()
+    # the parent's cached blocks handed back (cuBLAS keeps its workspaces
+    # in them): eight ranks fill the card
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces",
+                               None)
+    if clear_workspaces is not None:
+        clear_workspaces()
+    free_caches(torch)
+    free, total = torch.cuda.mem_get_info()
+    parent = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+              "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+              "card_free_gb": free / 1e9, "card_total_gb": total / 1e9}
+    log(f"zeropp 3d: the parent before the ranks {parent}")
+    ranks = run_ranks("--zpp3d-rank", "zeropp 3d", n=ZPP3D_RANKS)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        bad = {k: v for k, v in r["gloo_cuda"].items() if v != "ok"}
+        if bad:
+            fail(f"zeropp 3d: gloo refuses card tensors for {bad}")
+        if r["dispatch"]["card_losses"]:
+            fail(f"zeropp 3d rank {r['rank']}: impl='auto' sent CUDA calls "
+                 f"to the dense path on a measured loss ({r['dispatch']})")
+
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    line = {"ranks": ZPP3D_RANKS, "backend": ranks[0]["backend"],
+            "gloo_takes_card_tensors": ranks[0]["gloo_cuda"],
+            "parent_card_before": parent,
+            "layers": f"{A4_LAYERS} of 32", "seq": TRAIN_SEQ,
+            "note": "eight ranks on one card over gloo, which copies each "
+                    "collective through the host: no wall here speaks for "
+                    "NVLink, no speed claim", "runs": {}}
+    paths = {}
+    for run, (shape, zero_block, micro, gas, over) in ZPP3D_RUNS.items():
+        runs = [r[run] for r in ranks]
+        losses = runs[0]["losses"]
+        ref = zero["stages"][str(zero_block["stage"])]["losses"][
+            :ZPP3D_STEPS]
+        if any(rr["losses"] != losses for rr in runs):
+            fail(f"zeropp 3d {run}: the ranks' losses differ "
+                 f"({[rr['losses'] for rr in runs]})")
+        d = rel(losses, ref)
+        if not np.all(np.isfinite(losses)) or d > ZPP_RTOL:
+            fail(f"zeropp 3d {run}: losses {losses} against phase 14's "
+                 f"stage {zero_block['stage']} {ref} ({d:.3f} > {ZPP_RTOL})")
+        dd = drop_rel_diff(losses, ref)
+        if dd > DROP_RTOL:
+            fail(f"zeropp 3d {run}: the first update's loss drop "
+                 f"{losses[0] - losses[1]} against phase 14's "
+                 f"{ref[0] - ref[1]} ({dd:.3f} > {DROP_RTOL})")
+        for i, rr in enumerate(runs):
+            if rr["telemetry"] != {"zeropp.qwz_disabled": 0,
+                                   "zeropp.qgz_disabled": 0}:
+                fail(f"zeropp 3d {run} rank {i}: {rr['telemetry']}")
+            armed = {"_zeropp": zero_block["stage"] < 3,
+                     "_qwz_stage3": zero_block["stage"] == 3,
+                     "_qgz_stage3": zero_block["stage"] == 3 and
+                     "zero_quantized_gradients" in zero_block}
+            if rr["flags"] != armed:
+                fail(f"zeropp 3d {run} rank {i}: flags {rr['flags']}, want "
+                     f"{armed}")
+            ql = rr["quant_launches"]
+            want_q = rr["want_quant_launches"]
+            if want_q <= 0 or ql["quantize_blockwise"] != want_q or \
+                    ql["dequantize"] != want_q:
+                fail(f"zeropp 3d {run} rank {i}: B6 / 6b launches {ql}, the "
+                     f"plan implies {want_q} each")
+            lc, want = rr["launches"], rr["want_flash"]
+            if {k: lc[k] for k in want} != want:
+                fail(f"zeropp 3d {run} rank {i}: flash launches {lc}, remat "
+                     f"and the schedule imply {want}")
+            check_tensor_core(f"zeropp 3d {run}", lc, lc, tuple(want))
+            if rr["mesh"] != {**{a: 1 for a in rr["mesh"]}, **shape}:
+                fail(f"zeropp 3d {run} rank {i}: mesh {rr['mesh']}")
+            paths[f"zpp3d/{run}/rank{i}"] = {**lc, **ql}
+        wire = runs[0]["wire_counts"]
+        need = {"21a": ("qwz_param_fetch", "pp_activation"),
+                "21b": ("qwz_param_fetch", "qgz_fsdp_int8", "ulysses_qkv"),
+                "21c": ("qgz_dp", "qwz_dp")}[run]
+        if any(wire.get(k, 0) <= 0 for k in need):
+            fail(f"zeropp 3d {run}: the wire {wire} lacks {need}")
+        line["runs"][run] = {
+            "mesh": shape, "zero": zero_block, "micro_per_data_rank": micro,
+            "gas": gas, "model": over, "losses": losses, "reference": ref,
+            "max_loss_rel_diff": d, "drop_rel_diff": dd,
+            **{k: [rr[k] for rr in runs] for k in (
+                "step_s", "step_ms_p50", "init_peak_mem_gb", "peak_mem_gb",
+                "host_rss_gb", "host_rss_peak_gb", "quant_launches",
+                "want_quant_launches", "launches", "local_rows",
+                "local_seq", "local_wq")},
+            "wire_counts_rank0": wire,
+            "wire_bytes_rank0": runs[0]["wire_bytes"]}
+    line["walls_s"] = {**ranks[0]["walls_s"], "phase": wall}
+    line["dispatch"] = [r["dispatch"] for r in ranks]
+    return line, paths
+
+
 def main():
+    # segments that grow and shrink in place: what the parent frees goes
+    # back to the card though live tensors sit beside it (phase 21's
+    # eight ranks need it). The peaks read max_memory_allocated, which
+    # this leaves alone
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -7599,8 +8037,10 @@ def main():
     draft, draft_paths = draft_model_phase(
         torch, InferenceEngineV2, pa, fa, attn, model_runner, model,
         ref_prompts, gate)
-    # one recorded rerun of phase 3's serve for every queued check
+    # one recorded rerun of phase 3's serve for every queued check; the
+    # gate holds the model: gone with it after phase 7
     gate.check_pending({})
+    del gate
     timer = Timer(torch)
     pre_verify = check_prefill_verify(torch, pa, timer)
     del timer
@@ -7751,7 +8191,7 @@ def main():
     mark("10 offload")
 
     # 16. A11's one-card parts: the checkpointing policies and the tiled
-    # paths at 2 layers, FPDT at S 32768, the streamed stack at phase
+    # paths at 2 layers, FPDT at S 16384, the streamed stack at phase
     # 10a's depth held to 10a's losses; phase 10's engines are gone
     t0 = time.perf_counter()
     a11, a11_paths = ac_policy_phase(torch, zoo, initialize, fa)
@@ -7864,12 +8304,27 @@ def main():
         + f"; walls {json.dumps(host_line['walls_s'])} (gloo on one card: "
         "no NVLink)")
     mark("20 host tiers")
+
+    # 21. ZeRO++ on 3D meshes: eight ranks on the card, held to phase 14
+    torch.cuda.empty_cache()
+    zpp3d_line, zpp3d_paths = zpp3d_phase(torch, zero)
+    log("zeropp 3d: " + "; ".join(
+        f"{run} losses {r['losses']} (rel {r['max_loss_rel_diff']:.2e} to "
+        f"phase 14), p50 {r['step_ms_p50']} ms, peak {r['peak_mem_gb']} GB, "
+        f"rss {r['host_rss_gb']} GB, B6 "
+        f"{[q['quantize_blockwise'] for q in r['quant_launches']]} (plan "
+        f"{r['want_quant_launches']})"
+        for run, r in zpp3d_line["runs"].items())
+        + f"; walls {json.dumps(zpp3d_line['walls_s'])} (gloo on one card: "
+        "no NVLink)")
+    mark("21 zeropp 3d")
     dispatch["10, 11, 8b, 5, 6"] = no_card_losses(
         attn, "phases 10, 11, 8b, 5, 6")
     dispatch["14"] = {stage: line["dispatch"]
                       for stage, line in zero["stages"].items()}
     dispatch["19 (a rank each)"] = sp_line["dispatch"]
     dispatch["20 (a rank each)"] = host_line["dispatch"]
+    dispatch["21 (a rank each)"] = zpp3d_line["dispatch"]
     log(f"impl='auto' dispatch by phases, no measured loss on the card: "
         f"{json.dumps(dispatch)}")
 
@@ -7951,7 +8406,8 @@ def main():
                     "tp_train": tp_paths["tp_train"][name],
                     "tp_moe_train": tp_paths["tp_moe_train"][name],
                     **{run: lc[name] for run, lc in sp_paths.items()},
-                    **{run: lc[name] for run, lc in host_paths.items()}},
+                    **{run: lc[name] for run, lc in host_paths.items()},
+                    **{run: lc[name] for run, lc in zpp3d_paths.items()}},
                 "kernel_bench_launches": bench["launched"][name],
                 "variant_launches_by_path": {
                     path: {k: v for k, v in lc.items()
@@ -8068,7 +8524,10 @@ def main():
                        if run.startswith("zeropp/") and name in lc},
                     # qgZ before the host copy across ranks (phase 20c)
                     **{run: lc[name] for run, lc in host_paths.items()
-                       if run.startswith("host/20c/") and name in lc}},
+                       if run.startswith("host/20c/") and name in lc},
+                    # ZeRO++ on the 3D meshes (phase 21)
+                    **{run: lc[name] for run, lc in zpp3d_paths.items()
+                       if name in lc}},
                 "max_abs_err": res["max_abs_err"], "bit_equal": True,
                 "variant": "simt", "ms": res["ms"],
                 # one version: its first is itself
@@ -8203,6 +8662,7 @@ def main():
     print(json.dumps({"tp": tp_line}), flush=True)
     print(json.dumps({"sp_pp": sp_line}), flush=True)
     print(json.dumps({"host_tiers": host_line}), flush=True)
+    print(json.dumps({"zeropp_3d": zpp3d_line}), flush=True)
     print(json.dumps({"run_seconds": time.perf_counter() - t_start,
                       "phase_walls_s": walls}), flush=True)
     print(card, flush=True)
@@ -8219,4 +8679,6 @@ if __name__ == "__main__":
         sys.exit(sp_rank_main(int(sys.argv[2]), sys.argv[3]))
     if len(sys.argv) == 4 and sys.argv[1] == "--host-rank":
         sys.exit(host_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--zpp3d-rank":
+        sys.exit(zpp3d_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -62,7 +62,11 @@ whole masters on every rank from the gathered gradient blocks; the
 optimizer offload tiers and ZenFlow step each rank's blocks on the host
 (below). At tp, pp or ep > 1 the whole-leaf optimizers, and at tp, sp,
 pp or ep > 1 the host tiers, raise ``NotImplementedError`` naming ROADMAP
-queue A item 17. With ``performance.overlap_depth`` > 0 at stage 3 the
+queue A item 17. A client optimizer steps whole masters at every mesh:
+the reduced gradient blocks are gathered whole over fsdp, ep, tp and pp
+(every rank steps the whole tree, as JAX's optax transform sees it under
+GSPMD) and each rank keeps its part of the update. With
+``performance.overlap_depth`` > 0 at stage 3 the
 layer stack runs through JAX's resident overlap stream
 (``param_stream.resident_layers_prefetch``: the per-layer fsdp gather
 issued ``overlap_depth`` layers ahead, the per-layer reduce-scatter in
@@ -85,9 +89,8 @@ computes the same loss; the engine back-propagates the last stage's
 (the others' backward carries zeros, so their collectives still run),
 sums the gradients of the leaves every stage holds over pp, and the
 clip's norm sums the stages' layers and counts a replicated leaf once.
-At sp > 1 or pp > 1, ZeRO++, the 1-bit optimizers and a client
-optimizer raise (ROADMAP queue A item 11's leftovers); ``offload_param``
-at pp raises JAX's error.
+``offload_param`` at pp raises JAX's error, and so do the 1-bit
+optimizers (JAX's manual-dp region does not nest its pipeline's).
 
 Tensor parallelism (``tensor_parallel.autotp_size``, or a mesh with a
 tp axis): each rank holds its tp slice of every leaf ``TP_RULES``
@@ -97,22 +100,27 @@ are blocks of that slice) and the model issues the tp collectives
 batch rows (``topology.batch_sharding`` and the dataloader count data
 ranks only), the loss is averaged over the data ranks, and the clip's
 norm sums the tp-sharded leaves over tp and a replicated leaf once. An
-MoE model's experts split their FFN width over tp. ZeRO++, the 1-bit
-optimizers, a client optimizer and ``offload_param`` raise at tp > 1.
+MoE model's experts split their FFN width over tp.
 
-ZeRO++ (JAX ``engine.py:293-420``): the stage 1-2 step where it applies
-(AdamW, no fp16, MoE, offload, client optimizer or hpZ / MiCS; the
-default mesh is then dp = world): the ZeRO step over
+ZeRO++ (JAX ``engine.py:293-420``), armed by JAX's rules on every
+mesh: the stage 1-2 step where it applies (AdamW, no fp16, MoE,
+offload, client optimizer or hpZ / MiCS, no fsdp, sp, ep or pp ranks;
+the default mesh is then dp = world, tp beside it): the ZeRO step over
 ``runtime/zeropp.FlatPartition`` (qgZ / qwZ / qar over dp on JAX's flat
-layout, the update ``zeropp.adamw``); qwZ's int8 gather at stage 3 (not
-with MoE, counted in ``zeropp.qwz_disabled``); qgZ's quantized
-reduction at stages 2-3 with fsdp > 1 and no pp (``runtime/qgz.py``;
-below that it warns and counts ``zeropp.qgz_disabled``), under which the
-engine sets the MoE model's ``moe_impl="einsum"`` and ``group_stats``
-and expert gradients reduce over ep with the quantized wire; hpZ / MiCS
-as fsdp = the group, dp = the replicas. The 1-bit optimizers
-(``runtime/onebit.py``) replace the optimizer block's. The ZeRO++ and
-1-bit steps run on ``train_batch`` only; both take ``set_lr`` without a
+layout of whole leaves, the update ``zeropp.adamw``); qwZ's int8 gather
+at stage 3 (not with MoE, counted in ``zeropp.qwz_disabled``) of the
+rank's tp slice, inside the pipeline's stages too; qgZ's quantized
+reduction at stages 2-3 with fsdp > 1 and no pp (``runtime/qgz.py``,
+the sp ranks' gradients summed full width first; below that it warns
+and counts ``zeropp.qgz_disabled``), under which the engine sets the MoE
+model's ``moe_impl="einsum"`` and ``group_stats`` and expert gradients
+reduce over ep with the quantized wire; hpZ / MiCS as fsdp = the group,
+dp = the replicas, the other axes beside them. Flags no part can carry
+warn and the standard step runs. The 1-bit optimizers
+(``runtime/onebit.py``) replace the optimizer block's; at tp each rank
+steps its slice with the whole leaf's compression scale and norms, at
+sp the gradients sum over the sp ranks first. The ZeRO++ and 1-bit
+steps run on ``train_batch`` only; both take ``set_lr`` without a
 rebuild.
 ``performance.fp8_mlp`` reaches the model's ``fp8_mlp``.
 
@@ -522,14 +530,17 @@ class Engine:
         self._fetch: Optional[sharding.LayerFetch] = None
         if self.mesh.distributed:
             self._check_world(model)
-        # the 1-bit step reduces its own gradients (runtime/onebit.py)
+        # the 1-bit step reduces its own gradients (runtime/onebit.py);
+        # at tp its leaves are cut as ZeRO's are
         self._quant_step = None
+        self._onebit_part: Optional[ZeroPartition] = None
         if self._zeropp:
             self._zero = zeropp_mod.FlatPartition(
                 self.plan, self.mesh, self._logical_axes(model), zero.stage,
                 model.params(), qg=zero.zero_quantized_gradients,
                 qw=zero.zero_quantized_weights,
-                qar=zero.zero_quantized_allreduce)
+                qar=zero.zero_quantized_allreduce,
+                full_shapes=self._full_shapes(model))
         elif self.mesh.distributed and not self._onebit:
             logical = self._logical_axes(model)
             self._zero = ZeroPartition(self.plan, self.mesh, logical,
@@ -734,7 +745,7 @@ class Engine:
                 and not self._qwz_stage3:
             telemetry.count("zeropp.qwz_disabled", "moe")
             logger.warning("ZeRO++ qwZ stage-3 is inert for this config "
-                           "(moe) — layer gathers stay full-width")
+                           "(moe) — layer gathers stay full-width bf16")
         if self._qwz_stage3:
             logger.info("ZeRO++ qwZ: stage-3 int8 quantized parameter "
                         "all-gather enabled (fsdp axis)")
@@ -763,11 +774,11 @@ class Engine:
             logger.warning(
                 "ZeRO++ flags (qwZ/qgZ) are wired for: stage 1-2 with "
                 "adam/adamw (no client optimizer), bf16, no optimizer "
-                "offload, no MoE, no sp/pp axes, no hpZ/MiCS grouping, no "
-                "1-bit optimizer; or stage-3 zero_quantized_weights/"
-                "zero_quantized_gradients (dense models). This config "
-                "fails those, so the quantized path is disabled and the "
-                "standard step runs")
+                "offload, no MoE, no sp/pp axes (tp composes), no "
+                "hpZ/MiCS grouping, no 1-bit optimizer; or stage-3 "
+                "zero_quantized_weights/zero_quantized_gradients (dense "
+                "models). This config fails those, so the quantized path "
+                "is disabled and the standard step runs")
 
     def _qgz_moe_dispatch(self, impl: str) -> Dict[str, Any]:
         """The MoE layers' dispatch under qgZ (JAX ``parallel/moe.py``'s
@@ -787,11 +798,21 @@ class Engine:
 
     @torch.no_grad()
     def _init_quant_step(self, model) -> None:
-        """The 1-bit step: replicated fp32 masters and each rank's error
+        """The 1-bit step: fp32 masters replicated over the data ranks
+        (this rank's tp slices at tp > 1) and each rank's error
         feedback, over compute params the step writes."""
         cfg = self.config
         self.tx, self.opt_state = None, None
         src = model.params()
+        if self.mesh.shape["tp"] > 1:
+            # the model runs its tp slices: the masters are those slices,
+            # and the step reads the whole leaf's scale and norms over tp
+            part = ZeroPartition(self.plan, self.mesh,
+                                 self._logical_axes(model), 0,
+                                 full_shapes=self._full_shapes(model))
+            self._onebit_part = part
+            src = _map_with_path(lambda path, p: part.tp(path, p.detach()),
+                                 src)
         self._compute_params(src)
         opt = onebit_mod.parse_onebit_params(
             onebit_mod.onebit_name(cfg),
@@ -802,19 +823,33 @@ class Engine:
         self.lr_scheduler = self.lr_schedule
         masters = {path: p.detach().float().clone()
                    for path, p in leaves(src)}
+        part = self._onebit_part
         self._quant_step = onebit_mod.OneBitStep(
-            masters, opt, self.lr_schedule, cfg.gradient_clipping)
+            masters, opt, self.lr_schedule, cfg.gradient_clipping,
+            tp_sharded=(None if part is None else
+                        {path for path in masters if path in part.tp_dim}))
 
     def _check_world(self, model) -> None:
-        """What does not run across ranks yet raises, naming its item."""
+        """What does not run across ranks yet raises, naming its item;
+        what JAX refuses raises JAX's error."""
         world = comm.get_world_size()
         if world <= 1:
             return
         zero = self.config.zero_optimization
-        if self.mesh.shape["pp"] > 1 and zero.offload_param_device != "none":
+        pp = self.mesh.shape["pp"]
+        if pp > 1 and zero.offload_param_device != "none":
             # JAX's refusal (engine.py:1505-1507), before the tiers'
             raise ValueError("offload_param does not compose with the "
                              "pipeline-parallel layer path yet")
+        if pp > 1 and self._onebit:
+            # JAX's 1-bit step is a shard_map manual over dp around the
+            # whole loss, and the pipeline's stage region (its own
+            # shard_map, manual over pp) does not nest in it
+            raise ValueError(
+                f"1-bit optimizers at pp={pp}: the 1-bit step's region is "
+                "manual over dp around the whole loss and the pipeline's "
+                "stage region does not nest in it (JAX: the context mesh "
+                "should match the mesh passed to shard_map)")
         host = zero.offload_device in ("cpu", "nvme") or \
             zero.zenflow is not None
         wide = {a: self.mesh.shape[a] for a in ("tp", "sp", "pp", "ep")
@@ -825,27 +860,6 @@ class Engine:
                 + ", ".join(f"{a}={n}" for a, n in wide.items())
                 + ": the host optimizer tiers run on dp x fsdp meshes; "
                 f"the tp / sp / pp / ep leftovers are {_A} 17")
-        tp = self.mesh.shape["tp"]
-        if tp > 1 and (self._zeropp or self._onebit or self._qwz_stage3
-                       or self._qgz_stage3 or self._client_optimizer_present
-                       or zero.offload_param_device != "none"):
-            raise NotImplementedError(
-                f"ZeRO++, the 1-bit optimizers, a client optimizer and "
-                f"offload_param at tp={tp} are not ported yet: the TP "
-                f"leftovers of items 4, 10 and 12, now {_A} 17")
-        own_step = (zero.zero_quantized_weights
-                    or zero.zero_quantized_gradients
-                    or zero.zero_quantized_allreduce
-                    or zero.zero_hpz_partition_size > 1
-                    or zero.mics_shard_size > 0 or self._onebit
-                    or self._client_optimizer_present)
-        for axis in ("sp", "pp"):
-            n = self.mesh.shape[axis]
-            if n > 1 and own_step:
-                raise NotImplementedError(
-                    f"ZeRO++ (qwZ, qgZ, qar, hpZ / MiCS), the 1-bit "
-                    f"optimizers and a client optimizer at {axis}={n} are "
-                    f"not ported yet: {_A} 11's {axis} leftovers")
 
     @staticmethod
     def _full_shapes(model) -> Optional[Dict[str, tuple]]:
@@ -1037,11 +1051,17 @@ class Engine:
         already is an fp32 tensor is its own master), compute copies, and
         the client's ``torch.optim.Optimizer`` over the masters. Across
         ranks the masters stay whole on every rank (the optimizer steps
-        whole tensors, as at world size 1) and the compute params are the
-        stage's blocks."""
+        whole tensors, as at world size 1; a model built as a tp slice or
+        as one stage's layers is gathered whole first) and the compute
+        params are the rank's blocks of its tp and pp slices."""
         self.tx, self._base_lr = None, None
+        src = model.params()
+        zero = self._zero
+        if zero is not None and (zero.tp_n > 1 or zero.pp_n > 1):
+            with torch.no_grad():
+                src = _map_with_path(zero.whole, src)
         masters = tree_map(lambda p: p if p.dtype == torch.float32
-                           else p.detach().float(), model.params())
+                           else p.detach().float(), src)
         self.opt_state = MixedPrecisionState(master=masters)
         flat = [m for _, m in leaves(masters)]
         if isinstance(client_optimizer, torch.optim.Optimizer):
@@ -1669,6 +1689,12 @@ class Engine:
                                  self.params)
             kw = {}
             if self._zero is not None:
+                # the gradients live in ``grads`` alone from here, which
+                # the reduction consumes (the flat step frees each as its
+                # block replaces it)
+                for _, p in leaves(self.params):
+                    p.grad = None
+                self._grad_shards, self._grad_acc = {}, {}
                 grads = self._zero_grads(grads)
             overflow = has_overflow(g for _, g in leaves(grads)) \
                 if fp16 else False
@@ -1822,6 +1848,7 @@ class Engine:
         leaf the stage did not use (a middle stage's embedding) has no
         gradient: zeros stand in, as every rank joins each reduction."""
         flat = dict(leaves(grads))
+        grads.clear()  # the caller's tree: ``flat`` holds the gradients
         nccl = comm.get_backend() == "nccl"
         for path, g in flat.items():
             if g is None:
@@ -2284,8 +2311,9 @@ class Engine:
         numpy array (the JAX engine's keys for the same model; bf16
         leaves come back as fp32, numpy having no bf16)."""
         self.synchronize()
+        part = self._zero or self._onebit_part
         with topo.use_mesh(self.mesh):
-            full = {k: (t if self._zero is None else self._zero.full(
+            full = {k: (t if part is None else part.full(
                         "/" + k.replace(".", "/"), t.detach(), "param"))
                     for k, t in module_state_keys(self.params).items()}
         # a copy: on the CPU ``.numpy()`` would alias the live params
@@ -2333,7 +2361,8 @@ class Engine:
                         else self._zero.block(path, value))
                     p.copy_(self._zero.block(path, value, "param"))
             elif self._quant_step is not None:
-                p.copy_(value)
+                part = self._onebit_part
+                p.copy_(value if part is None else part.tp(path, value))
             else:
                 masters[key].copy_(value)
                 p.copy_(masters[key])

@@ -13,12 +13,21 @@ the exchange is the mean over the ``dp`` ranks of ``sign(x) * scale``
 are reduced exactly first, as JAX's GSPMD does outside its manual-dp
 region. Masters and moments are replicated (ZeRO stage <= 1); the error
 feedback buffer is each rank's own.
+
+In JAX only dp is manual: tp and sp stay under GSPMD, so the per-tensor
+compression scale, the update's norm and Lamb's trust ratio read whole
+leaves, and the loss is the whole sequence's. Here a tp rank holds its
+slice of a tp-sharded leaf (``tp_sharded``): the scale's sum of |c| and
+its element count, and the squares of the norms, are summed over tp (a
+replicated leaf counted once). An sp rank's gradient is its sequence
+block's part, summed over the sp ranks first (exactly, as GSPMD does).
+The error feedback stays each dp rank's (of its tp slice).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Set
 
 import torch
 
@@ -100,8 +109,11 @@ class OneBitStep:
     place from the fp32 masters)."""
 
     def __init__(self, master: Dict[str, torch.Tensor], opt: Dict,
-                 lr_schedule: Optional[Callable], grad_clip: float):
+                 lr_schedule: Optional[Callable], grad_clip: float,
+                 tp_sharded: Optional[Set[str]] = None):
         self.opt = opt
+        # the paths whose masters are this rank's tp slices
+        self.tp_sharded = frozenset(tp_sharded or ())
         self.kind = opt["kind"]
         self.b1, self.b2 = (float(b) for b in opt["betas"])
         self.eps, self.wd = float(opt["eps"]), float(opt["weight_decay"])
@@ -129,6 +141,8 @@ class OneBitStep:
         m_new, g_avg = {}, {}
         for path, g in grads.items():
             g = g.float()
+            if comm.axis_size("sp") > 1:  # the sequence blocks' parts
+                g = comm.all_reduce(g, "sp")
             for ax in ("fsdp", "ep"):  # the exact, GSPMD-side reduce
                 g = comm.all_reduce(g, ax, op="mean")
             if warm:
@@ -137,7 +151,13 @@ class OneBitStep:
                 m_new[path] = b1 * st.m[path] + (1 - b1) * ga
             else:
                 c_in = b1 * st.m[path] + (1 - b1) * g + st.error[path]
-                scale = torch.mean(torch.abs(c_in))
+                if path in self.tp_sharded:  # the whole leaf's mean
+                    total = comm.all_reduce(torch.sum(torch.abs(c_in)),
+                                            "tp")
+                    scale = total / float(c_in.numel() *
+                                          comm.axis_size("tp"))
+                else:
+                    scale = torch.mean(torch.abs(c_in))
                 comp = torch.sign(c_in) * scale
                 m_new[path] = comm.all_reduce(comp, "dp", op="mean")
                 st.error[path] = c_in - comp
@@ -163,8 +183,11 @@ class OneBitStep:
                 u = u + self.wd * master
             updates[path] = u
         sq = torch.zeros((), dtype=torch.float32, device=dev)
-        for u in updates.values():
-            sq += torch.sum(u * u)
+        sq_tp = torch.zeros((), dtype=torch.float32, device=dev)
+        for path, u in updates.items():
+            (sq_tp if path in self.tp_sharded else sq).add_(torch.sum(u * u))
+        if self.tp_sharded:
+            sq = sq + comm.all_reduce(sq_tp, "tp")
         gnorm = torch.sqrt(sq)
         coef = _f32(1.0, dev)
         if self.grad_clip:
@@ -173,8 +196,11 @@ class OneBitStep:
         for path, master in st.master.items():
             u = updates[path]
             if self.kind == "onebitlamb":
-                wn = torch.sqrt(torch.sum(master * master))
-                un = torch.sqrt(torch.sum(u * u))
+                sums = torch.stack([torch.sum(master * master),
+                                    torch.sum(u * u)])
+                if path in self.tp_sharded:
+                    sums = comm.all_reduce(sums, "tp")
+                wn, un = torch.sqrt(sums[0]), torch.sqrt(sums[1])
                 ratio = torch.where(un > 0, wn / (un + 1e-12),
                                     torch.ones_like(un))
                 ratio = torch.clamp(ratio, self.opt["min_coeff"],

@@ -19,7 +19,10 @@ levels are explicit collectives over the mesh axes:
      partitioned dim, then the sub-blocks all-gathered in fp32 back to
      the fsdp block.
 
-The sum is divided by the number of groups G = dp x fsdp x ep. A leaf
+On an sp mesh the sp ranks' gradients are summed exactly first (each
+holds its sequence block's part of the group's gradient). At tp each
+rank reduces its tp slice, with JAX's block of the whole leaf. The sum
+is divided by the number of groups G = dp x fsdp x ep. A leaf
 with no partitioned dim, or whose last dim cannot be blocked (1-D norm
 scales and biases), reduces exactly in fp32. The result is this rank's
 block of the gradient along the fsdp-partitioned dim: the engine's
@@ -39,6 +42,9 @@ from deepspeed_tpu_torch.ops.quantization import (dequantize, pack_int4,
 from deepspeed_tpu_torch.parallel.topology import BATCH_AXES
 
 QGZ_BLOCK = 256
+# the group axes a rank's gradient is whole over (the model axes, tp and
+# pp, cut the leaf itself)
+_DATA_AXES = ("dp", "fsdp", "ep")
 
 
 def _axes_of(entry) -> tuple:
@@ -49,29 +55,40 @@ def _axes_of(entry) -> tuple:
 
 def leaf_block(shape: Sequence[int], spec, mesh) -> int:
     """The quantization block along the last dim: blocks must tile within
-    every sharding of that dim (JAX's rule); <= 1 means exact."""
+    every sharding of that dim (JAX's rule on the global shape); <= 1
+    means exact. ``shape`` is this rank's gradient, whole over the data
+    axes and its tp slice of a tp-sharded dim, so only the data axes of
+    the last dim's sharding divide it further."""
     entries = list(spec) + [None] * (len(shape) - len(spec))
     div = 1
     for a in _axes_of(entries[-1]) if entries else ():
-        div *= mesh.shape.get(a, 1)
+        if a in _DATA_AXES:
+            div *= mesh.shape.get(a, 1)
     last = shape[-1]
     return math.gcd(last // div, QGZ_BLOCK) if last % max(div, 1) == 0 \
         else 1
 
 
-def _move(g: torch.Tensor, axis, target: int, bits: int, block: int,
+def _move(box: list, axis, target: int, bits: int, block: int,
           tag: str) -> Optional[torch.Tensor]:
-    """One level: quantize ``g`` along its last dim, all-to-all the codes
-    and scales over ``axis`` splitting ``target`` (block j to rank j),
+    """One level: quantize the gradient ``box`` holds along its last dim
+    (taken out of the box and dropped once quantized, so that its fp32
+    buffer is gone before the exchange's), all-to-all the codes and
+    scales over ``axis`` splitting ``target`` (block j to rank j),
     dequantize and sum the sources in rank order (fp32). Returns this
-    rank's block of ``target``, unnormalized; None when ``target`` does
-    not split over the axis at block granularity."""
+    rank's block of ``target``, unnormalized; None (the gradient left in
+    the box) when ``target`` does not split over the axis at block
+    granularity."""
+    g = box[0]
     n = comm.axis_size(axis)
     last = g.dim() - 1
     nb = g.shape[-1] // block
     if (target == last and nb % n) or g.shape[target] % n:
         return None
+    shape = g.shape
+    box.clear()
     q, s = quantize_blockwise(g, bits=bits, block=block)
+    del g
     if bits == 4:
         q = pack_int4(q)
     w = block // 2 if bits == 4 else block
@@ -81,7 +98,7 @@ def _move(g: torch.Tensor, axis, target: int, bits: int, block: int,
     st = comm.all_to_all(s, axis, split_dim=target, concat_dim=0,
                          log_name=f"qgz_{tag}_scales")
     vals = dequantize(qt, st, torch.float32)      # [n * piece..., block]
-    piece = list(g.shape)
+    piece = list(shape)
     if target == last:
         piece[last] //= n
         vals = vals.reshape(n, *piece[:-1], nb // n, block)
@@ -129,7 +146,12 @@ def reduce_leaf(g: torch.Tensor, spec, mesh, *, part_dim: Optional[int],
     sizes = mesh.shape
     dp, fsdp, ep = (sizes.get(a, 1) for a in ("dp", "fsdp", "ep"))
     G = dp * fsdp * ep
-    g = g.float()
+    given, g = g, g.float()
+    if sizes.get("sp", 1) > 1:
+        # the sp ranks' parts of the group's gradient, summed full width
+        # (JAX reduces sp inside each group's backward): only the data
+        # axes' wire is quantized; in place unless ``g`` is the caller's
+        g = comm.all_reduce(g, "sp", out=None if g is given else g)
     block = leaf_block(tuple(g.shape), spec, mesh)
     denom = torch.full((), float(G), dtype=torch.float32, device=g.device)
     if part_dim is None or block <= 1:
@@ -140,9 +162,11 @@ def reduce_leaf(g: torch.Tensor, spec, mesh, *, part_dim: Optional[int],
                              size).contiguous()
         return red
     if fsdp > 1:
-        g = _move(g, "fsdp", part_dim, bits1, block, "fsdp")
+        box = [g]
+        del g
+        g = _move(box, "fsdp", part_dim, bits1, block, "fsdp")
     if ep > 1 and exp_dim is not None and not experts_local:
-        g = _move(g, "ep", exp_dim, bits1, block, "ep")
+        g = _move([g], "ep", exp_dim, bits1, block, "ep")
         rem = ("dp",)
     elif ep > 1 and exp_dim is not None:
         rem = ("dp",)
@@ -151,7 +175,7 @@ def reduce_leaf(g: torch.Tensor, spec, mesh, *, part_dim: Optional[int],
     rem = tuple(a for a in rem if sizes.get(a, 1) > 1)
     if rem and bits2:
         axis = rem[0] if len(rem) == 1 else rem
-        moved = _move(g, axis, part_dim, bits2, block, "+".join(rem))
+        moved = _move([g], axis, part_dim, bits2, block, "+".join(rem))
         if moved is None:
             g = _gather_sum(g, axis, bits2, block, "+".join(rem))
         else:

@@ -446,9 +446,15 @@ def quantized_param_fetch(x: torch.Tensor, logical_axes, path: str = "",
         return x
     plan = None
     if _QWZ_BITS is not None:
-        full = list(x.shape)
-        full[dim] *= comm.axis_size("fsdp")
-        plan = qwz_plan(full, spec, topology._GLOBAL_MESH)
+        # JAX's rule reads the global shape: this rank's shard times the
+        # ranks of every axis its dims split over (fsdp, and tp for the
+        # rank's tp slice)
+        mesh = topology._GLOBAL_MESH
+        entries = list(spec) + [None] * (x.dim() - len(spec))
+        full = [n * math.prod(mesh.shape.get(a, 1) for a in
+                              ((e,) if isinstance(e, str) else (e or ())))
+                for n, e in zip(x.shape, entries)]
+        plan = qwz_plan(full, spec, mesh)
     if plan is None:
         return _FsdpGather.apply(x, dim, "fsdp", qgz)
     return _QwzGather.apply(x, dim, "fsdp", plan[0], plan[1], qgz)

@@ -180,6 +180,17 @@ class ZeroPartition:
         return tp_local(t, self.tp_dim.get(path), self.tp_full.get(path, 0),
                         self.tp_n, self.tp_index)
 
+    def whole(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from a model's slice of it (a model built as one
+        tp rank's slice, or one stage's layers: gathered over tp and pp;
+        collective), or ``t`` itself where it is whole already."""
+        for axis, dims, full in (("tp", self.tp_dim, self.tp_full),
+                                 ("pp", self.pp_dim, self.pp_full)):
+            d = dims.get(path)
+            if d is not None and t.shape[d] != full[path]:
+                t = comm.all_gather(t.contiguous(), axis, gather_dim=d)
+        return t
+
     def master_of_param(self, path: str, p: torch.Tensor) -> torch.Tensor:
         """This rank's master block from its compute param (a re-seed):
         the same block at stage 3, else the param's opt block (its

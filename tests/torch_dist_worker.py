@@ -11,6 +11,7 @@ the port only (never JAX); the tests hold its results against JAX.
 
 from __future__ import annotations
 
+import logging
 import os
 import subprocess
 import sys
@@ -28,6 +29,17 @@ from deepspeed_tpu_torch import comm  # noqa: E402
 from deepspeed_tpu_torch.runtime.optimizer import leaves  # noqa: E402
 
 PG_TIMEOUT_S = 120
+
+
+class WarningRecorder(logging.Handler):
+    """The messages of the warnings logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
 
 
 def _port_model(inp):
@@ -332,6 +344,18 @@ def _run_model(inp, spec):
     from deepspeed_tpu_torch.models.convert import params_from_jax
 
     over = spec.get("model_over", {})
+    if spec.get("seeded"):
+        # the preset drawn from seed 0: whole, or ("tp") built as this
+        # rank's tp slice of the same draw
+        from deepspeed_tpu_torch.parallel.topology import build_mesh
+
+        tp = None
+        if spec["seeded"] == "tp":
+            mesh = build_mesh(spec["topology"])
+            tp = (mesh.axis_index("tp"), mesh.shape["tp"])
+        return zoo.get_model(inp["preset"], device="cpu", seed=0, tp=tp,
+                             dtype=torch.float32,
+                             **{**inp["model_kw"], **over})
     if spec.get("model"):  # a model of the run's own (preset, kw, params)
         preset, kw, params = spec["model"]
         return _port_model(dict(inp, preset=preset, model_kw=kw,
@@ -351,8 +375,10 @@ def mode_engines(inp, rank, world, out):
     """Each run of ``inp["runs"]`` (a name, the config over the shared
     one, a topology, steps, and what else to do): its losses, the full
     params after, the telemetry counts, the comms logger's bytes and
-    counts by log name, and the quantize / dequantize launches (plain
-    versions count none on the CPU)."""
+    counts by log name, the warnings the package logged, and the
+    quantize / dequantize launches (plain versions count none on the
+    CPU). A run with ``raises`` records the exception its build or first
+    step raised (type name, message) instead."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.parallel.topology import batch_sharding
     from deepspeed_tpu_torch.utils import telemetry
@@ -361,9 +387,24 @@ def mode_engines(inp, rank, world, out):
     res = {}
     from deepspeed_tpu_torch.runtime import param_stream
 
+    pkg_log = logging.getLogger("deepspeed_tpu_torch")
     for spec in inp["runs"]:
         if world not in spec.get("worlds", (world,)):
             continue
+        if spec.get("raises"):
+            try:
+                _engine_run(inp, spec)
+                res[spec["name"]] = {"raised": None}
+            except (NotImplementedError, ValueError) as e:
+                res[spec["name"]] = {"raised": (type(e).__name__, str(e))}
+            continue
+        from deepspeed_tpu_torch.runtime import zeropp
+
+        # the flat step's collectives in chunks of this many elements
+        chunk_elems = zeropp.CHUNK_ELEMS
+        zeropp.CHUNK_ELEMS = spec.get("chunk_elems") or chunk_elems
+        warned = WarningRecorder()
+        pkg_log.addHandler(warned)
         telemetry.reset()
         param_stream.reset_fetch_stats()
         config = {**inp["config"], **spec["config"],
@@ -402,7 +443,10 @@ def mode_engines(inp, rank, world, out):
             metrics.append({k: float(v) for k, v in
                             engine.last_metrics.items()
                             if isinstance(v, torch.Tensor) and v.numel() == 1})
+        pkg_log.removeHandler(warned)
+        zeropp.CHUNK_ELEMS = chunk_elems
         rec = {"losses": losses, "metrics": metrics,
+               "warnings": warned.messages,
                "params": engine.module_state_dict(),
                "telemetry": telemetry.snapshot(),
                "bytes": dict(get_comms_logger().totals()),
@@ -411,6 +455,12 @@ def mode_engines(inp, rank, world, out):
                "flags": {k: bool(getattr(engine, k, False)) for k in
                          ("_zeropp", "_onebit", "_qwz_stage3",
                           "_qgz_stage3")}}
+        if engine._quant_step is not None:  # the 1-bit momentum, whole
+            part = engine._onebit_part
+            rec["onebit_m"] = {
+                path.strip("/"): (m if part is None else part.full(
+                    path, m, "param")).numpy()
+                for path, m in engine._quant_step.state.m.items()}
         rec["resident_gathers"] = param_stream.RESIDENT_STATS["gathers"]
         rec["local_shapes"] = {path: tuple(t.shape)
                                for path, t in leaves(engine.params)}
@@ -459,6 +509,25 @@ def mode_engines(inp, rank, world, out):
         res[spec["name"]] = rec
         del engine
     out["engines"] = res
+
+
+def _engine_run(inp, spec):
+    """Build ``spec``'s engine and train one step on this rank's rows of
+    the first global batch."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel.topology import batch_sharding
+
+    kw = {}
+    if spec.get("client"):
+        kw["optimizer"] = lambda ps: torch.optim.AdamW(ps, lr=spec["client"])
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_run_model(inp, spec), config={**inp["config"],
+                                             **spec["config"]},
+        device="cpu", topology=spec.get("topology"), **kw)
+    batches = inp[spec.get("batches", "batches")]
+    rows = batch_sharding(engine.mesh)
+    gas = engine.gradient_accumulation_steps
+    engine.train_batch(iter([rows.take(b) for b in batches[:gas]]))
 
 
 def _host_tier_record(engine, tier):
@@ -582,20 +651,31 @@ def mode_pp_fn(inp, rank, world, out):
 
 def mode_sp_raises(inp, rank, world, out):
     """What stays out at sp > 1 or pp > 1 raises: each case's exception
-    type and message (None when it built and ran)."""
+    type and message; a case that builds and trains a step records
+    ("trained", the warnings the package logged, its ZeRO++ flags)."""
     import deepspeed_tpu_torch
 
     batch = inp["batches"][0]
+    trained = {}
 
     def engine(over=None, extra=None, topology=None, optimizer=None):
         spec = {"model_over": over} if over else {}
-        eng, *_ = deepspeed_tpu_torch.initialize(
-            model=_run_model(inp, spec),
-            config={**inp["config"], **(extra or {})}, device="cpu",
-            topology=topology, optimizer=optimizer)
+        warned = WarningRecorder()
+        log = logging.getLogger("deepspeed_tpu_torch")
+        log.addHandler(warned)
+        try:
+            eng, *_ = deepspeed_tpu_torch.initialize(
+                model=_run_model(inp, spec),
+                config={**inp["config"], **(extra or {})}, device="cpu",
+                topology=topology, optimizer=optimizer)
+        finally:
+            log.removeHandler(warned)
         from deepspeed_tpu_torch.parallel.topology import batch_sharding
 
         eng.train_batch(iter([batch_sharding(eng.mesh).take(batch)]))
+        trained["last"] = ("trained", "\n".join(warned.messages), {
+            k: bool(getattr(eng, k, False)) for k in
+            ("_zeropp", "_onebit", "_qwz_stage3", "_qgz_stage3")})
 
     sp = {"sp": world, "dp": 1}
     pp = {"pp": world, "dp": 1}
@@ -620,9 +700,10 @@ def mode_sp_raises(inp, rank, world, out):
     }
     got = {}
     for name, build in cases.items():
+        trained.pop("last", None)
         try:
             build()
-            got[name] = None
+            got[name] = trained.get("last")
         except (NotImplementedError, ValueError, AssertionError) as e:
             got[name] = (type(e).__name__, str(e))
     out["sp_raises"] = got
